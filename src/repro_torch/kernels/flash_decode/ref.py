@@ -1,0 +1,87 @@
+"""Plain PyTorch twins of the single-token flash-decode oracles.
+
+Ports of ``repro/kernels/flash_decode/ref.py``. Each KV-cache shard (or
+split) produces *partial* attention statistics — the paper's partial-value
+signature with a non-sum reduction:
+
+    m   : P(max)   running max of scores
+    l   : P(sum)   exp sum (after rescale)
+    acc : P(sum)   exp-weighted value accumulation (after rescale)
+
+:func:`flash_decode_partial_ref` computes one shard's contribution;
+:func:`combine_partials` reduces a stacked leading shard axis. They are the
+port's CPU path and the oracle of the CUDA kernel in
+:mod:`repro_torch.kernels.flash_decode.kernel`.
+
+As in the reference, the score einsum runs in the input dtype (bf16 scores
+for bf16 inputs) before the float32 scale; the value product accumulates in
+float32. The finite sentinel ``NEG_INF`` makes a fully masked row average
+``v`` instead of producing NaN.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_decode_partial_ref(q, k, v, *, k_offset: int = 0,
+                             cur_pos=None, sliding_window: int = 0,
+                             k_positions=None,
+                             sm_scale: Optional[float] = None):
+    """Partial attention of a 1-token query over one KV-cache shard.
+
+    q: (B, H, D); k, v: (B, L, KV, D) — this shard's cache slice;
+    ``k_offset``: absolute position of k[0]; ``cur_pos``: (B,) current decode
+    position (entries beyond it are masked: the cache is pre-allocated).
+    ``k_positions``: (B, L) explicit absolute position per slot (ring-buffer
+    sliding-window caches; -1 = empty slot), overrides ``k_offset``.
+    Returns (m, l, acc): (B, H), (B, H), (B, H, D) float32 partials.
+    """
+    B, H, D = q.shape
+    L, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if sm_scale is None:
+        sm_scale = 1.0 / (D ** 0.5)
+    k = k.repeat_interleave(G, dim=2)
+    v = v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q, k).float() * sm_scale
+    if k_positions is not None:
+        kpos = k_positions                                   # (B, L)
+        mask = kpos >= 0
+    else:
+        kpos = (k_offset + torch.arange(L, device=q.device)).expand(B, L)
+        mask = torch.ones((B, L), dtype=torch.bool, device=q.device)
+    if cur_pos is not None:
+        mask &= kpos <= cur_pos[:, None]
+        if sliding_window:
+            mask &= kpos > cur_pos[:, None] - sliding_window
+    s = torch.where(mask[:, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)                                       # (B, H)  P(max)
+    p = torch.exp(s - m[..., None])
+    # kept from the reference: with the finite sentinel m is always finite
+    p = torch.where(torch.isfinite(m)[..., None], p, 0.0)
+    l = p.sum(dim=-1)                                        # (B, H)  P(sum)
+    acc = torch.einsum("bhk,bkhd->bhd", p, v.float())
+    return m, l, acc
+
+
+def combine_partials(m, l, acc):
+    """Reduce partials stacked on a leading shard axis to the attention
+    output ``(B, H, Dv)`` (float32)."""
+    m_g = m.amax(dim=0)
+    scale = torch.where(torch.isfinite(m), torch.exp(m - m_g[None]), 0.0)
+    l_g = (l * scale).sum(dim=0)
+    acc_g = (acc * scale[..., None]).sum(dim=0)
+    return acc_g / torch.clamp_min(l_g, 1e-30)[..., None]
+
+
+def decode_attention_ref(q, k, v, cur_pos, *, sliding_window: int = 0,
+                         sm_scale=None):
+    """Single-shard (logical) decode attention oracle."""
+    m, l, acc = flash_decode_partial_ref(
+        q, k, v, k_offset=0, cur_pos=cur_pos, sliding_window=sliding_window,
+        sm_scale=sm_scale)
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)

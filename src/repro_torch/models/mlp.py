@@ -1,0 +1,31 @@
+"""Dense SwiGLU MLP (port of ``repro/models/mlp.py:29-49``). MoE waits
+(ROADMAP Queue 1 item 13)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models.common import dense_init, param, swiglu
+
+
+class DenseMLP(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.w_gate = param(torch.empty((d_model, d_ff), **kw))
+        self.w_up = param(torch.empty((d_model, d_ff), **kw))
+        self.w_down = param(torch.empty((d_ff, d_model), **kw))
+
+
+def init_dense_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> DenseMLP:
+    with torch.device("meta"):
+        p = DenseMLP(d_model, d_ff)             # shapes only; filled below
+    p.w_gate = param(dense_init(gen, (d_model, d_ff)))
+    p.w_up = param(dense_init(gen, (d_model, d_ff)))
+    p.w_down = param(dense_init(gen, (d_ff, d_model)))
+    return p
+
+
+def dense_mlp_forward(p: DenseMLP, x):
+    return swiglu(x @ p.w_gate, x @ p.w_up) @ p.w_down

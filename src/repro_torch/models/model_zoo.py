@@ -1,0 +1,46 @@
+"""Public model API: build a model from its config, allocate decode caches.
+
+Port of ``repro/models/model_zoo.py:34-105`` for the serving path: the
+reference's bundle of init/loss/prefill/decode closures becomes the
+:class:`repro_torch.models.transformer.Transformer` module, and decode
+caches are one ``{"k", "v"}`` dict per layer.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.common import MeshPlan
+
+
+def build_model(cfg: ModelConfig, plan: MeshPlan, seed: int = 0,
+                device=None) -> T.Transformer:
+    """The model with the port's seeded init (see :func:`T.init_model`)."""
+    return T.init_model(cfg, plan, seed=seed, device=device)
+
+
+def _block_cache(cfg: ModelConfig, plan: MeshPlan, kind: str, batch: int,
+                 cache_len: int, device=None) -> Dict[str, torch.Tensor]:
+    """One layer's zeroed decode cache, in the config's compute dtype for
+    bfloat16 configs and float32 otherwise (the reference's rule)."""
+    assert kind == "attn", kind
+    adt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    shape = (batch, cache_len // plan.tp, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=adt, device=device),
+            "v": torch.zeros(shape, dtype=adt, device=device)}
+
+
+def make_decode_caches(cfg: ModelConfig, plan: MeshPlan, batch: int,
+                       cache_len: int, device=None,
+                       layers: Optional[Sequence[int]] = None
+                       ) -> List[Dict[str, torch.Tensor]]:
+    """Zeroed decode caches, one dict per layer (or per layer of
+    ``layers``, a stage's slice), in layer order."""
+    kinds = T.stack_layout(cfg).layer_kinds()
+    if layers is None:
+        layers = range(len(kinds))
+    return [_block_cache(cfg, plan, kinds[i][0], batch, cache_len, device)
+            for i in layers]

@@ -1,0 +1,235 @@
+"""Model assembly for serving: embeddings, blocks, stack slices.
+
+Port of the serving half of ``repro/models/transformer.py`` for the
+``attn``/``dense`` layer kinds (dense GQA decoders such as qwen3, llama3,
+qwen2.5). The reference stacks each period slot's params over periods and
+scans them; here a model is an ``nn.Module`` holding a flat ``blocks`` list
+in layer order, and :mod:`repro_torch.models.convert` maps the reference's
+stacked tree onto it (layer ``n_pro + i*P + j`` is ``body[j][...][i]``).
+
+Decode caches are a list with one ``{"k", "v"}`` dict per layer; a stage
+holds the entries of its own layers.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import (GQAttention, gqa_decode,
+                                          gqa_forward, init_gqa)
+from repro_torch.models.common import (MeshPlan, dense_init, param,
+                                       resolve_device, rms_norm)
+from repro_torch.models.mlp import DenseMLP, dense_mlp_forward, init_dense_mlp
+
+Kind = Tuple[str, str]        # (layer kind, mlp kind)
+
+
+# ---------------------------------------------------------------------------
+# layer grouping
+# ---------------------------------------------------------------------------
+
+def _period(cfg: ModelConfig) -> int:
+    p = 1
+    if cfg.attn_every:
+        p = cfg.attn_every
+    if cfg.num_experts and cfg.moe_every > 1:
+        p = math.lcm(p, cfg.moe_every)
+    return p
+
+
+@dataclasses.dataclass(frozen=True)
+class StackLayout:
+    prologue: Tuple[Kind, ...]       # (kind, mlp_kind) per layer
+    period_slots: Tuple[Kind, ...]
+    n_periods: int
+
+    def layer_kinds(self) -> List[Kind]:
+        """Kinds of every layer in order (prologue, then period-major)."""
+        return list(self.prologue) + list(self.period_slots) * self.n_periods
+
+
+def stack_layout(cfg: ModelConfig) -> StackLayout:
+    kinds, mlps = cfg.layer_kinds(), cfg.mlp_kinds()
+    n_pro = cfg.first_dense_layers
+    P = _period(cfg)
+    body = cfg.num_layers - n_pro
+    assert body % P == 0, (cfg.name, body, P)
+    slots = tuple((kinds[n_pro + j], mlps[n_pro + j]) for j in range(P))
+    for i in range(body // P):
+        for j in range(P):
+            li = n_pro + i * P + j
+            assert (kinds[li], mlps[li]) == slots[j], (cfg.name, li)
+    return StackLayout(tuple((kinds[i], mlps[i]) for i in range(n_pro)),
+                       slots, body // P)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what this package cannot build yet."""
+    missing = [name for name, on in (
+        ("MLA", cfg.use_mla), ("encoder-decoder", cfg.encoder_decoder),
+        ("embed frontend", cfg.embed_frontend), ("MTP", cfg.mtp)) if on]
+    kinds = set(stack_layout(cfg).layer_kinds())
+    missing += [f"{k}/{m} layers" for (k, m) in sorted(kinds)
+                if (k, m) != ("attn", "dense")]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
+            "Queue 1 item 13); the port builds attn/dense decoders")
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One attn/dense layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, plan: MeshPlan, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = param(torch.ones((d,), device=device, dtype=dtype))
+        self.attn = GQAttention(cfg, plan, device=device, dtype=dtype)
+        self.ln2 = param(torch.ones((d,), device=device, dtype=dtype))
+        self.mlp = DenseMLP(d, cfg.d_ff, device=device, dtype=dtype)
+
+
+class Transformer(nn.Module):
+    """The whole model: ``embed (Vp, d)``, ``blocks``, ``final_norm``,
+    ``unembed (d, Vp)`` — float32 params, as the reference keeps them."""
+
+    def __init__(self, cfg: ModelConfig, plan: MeshPlan, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        check_supported(cfg)
+        d, Vp = cfg.d_model, cfg.padded_vocab()
+        kw = dict(device=device, dtype=dtype)
+        self.cfg, self.plan = cfg, plan
+        self.embed = param(torch.empty((Vp, d), **kw))
+        self.blocks = nn.ModuleList(
+            Block(cfg, plan, device=device, dtype=dtype)
+            for _ in range(cfg.num_layers))
+        self.final_norm = param(torch.ones((d,), **kw))
+        self.unembed = param(torch.empty((d, Vp), **kw))
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, plan: MeshPlan,
+               kind: str, mlp_kind: str) -> Block:
+    assert (kind, mlp_kind) == ("attn", "dense"), (kind, mlp_kind)
+    with torch.device("meta"):
+        blk = Block(cfg, plan)                  # shapes only; filled below
+    blk.ln1 = param(torch.ones((cfg.d_model,), device=gen.device))
+    blk.attn = init_gqa(gen, cfg, plan)
+    blk.ln2 = param(torch.ones((cfg.d_model,), device=gen.device))
+    blk.mlp = init_dense_mlp(gen, cfg.d_model, cfg.d_ff)
+    return blk
+
+
+def init_model(cfg: ModelConfig, plan: MeshPlan, seed: int = 0,
+               device=None) -> Transformer:
+    """The port's own seeded init at the config's widths (float32 params on
+    ``device``; None means the card). Same distributions as the reference's
+    ``init_model``; the draws differ (``torch.Generator`` vs
+    ``jax.random``), and so do a CPU's and a card's."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    with torch.device("meta"):
+        model = Transformer(cfg, plan)          # shapes only; filled below
+    d, Vp = cfg.d_model, cfg.padded_vocab()
+    model.embed = param(dense_init(gen, (Vp, d), in_axis=1))
+    model.unembed = param(dense_init(gen, (d, Vp)))
+    model.final_norm = param(torch.ones((d,), device=device))
+    model.blocks = nn.ModuleList(
+        init_block(gen, cfg, plan, k, m)
+        for (k, m) in stack_layout(cfg).layer_kinds())
+    return model
+
+
+# ---------------------------------------------------------------------------
+# forward pieces
+# ---------------------------------------------------------------------------
+
+def embed_tokens(p_embed, ids, plan: MeshPlan):
+    """Embedding gather at tp = 1."""
+    return p_embed[ids.long()]
+
+
+def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
+                mlp_kind: str, positions, causal: bool = True,
+                sliding_window: int = 0, want_cache: bool = False):
+    """Prefill one block. Returns ``(x, cache_or_None)``; the cache holds
+    the prompt's k/v in bfloat16 (the reference's prefill cache dtype),
+    unpadded — the stage's ``write_slot`` places it in the group cache."""
+    assert (kind, mlp_kind) == ("attn", "dense"), (kind, mlp_kind)
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    a, (k, v) = gqa_forward(p.attn, h, cfg, plan, positions, causal=causal,
+                            sliding_window=sliding_window)
+    cache = ({"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+             if want_cache else None)
+    x = x + a
+    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+    x = x + dense_mlp_forward(p.mlp, h2)
+    return x, cache
+
+
+def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
+                 cfg: ModelConfig, plan: MeshPlan, kind: str, mlp_kind: str,
+                 sliding_window: int = 0):
+    """Single-token step; updates ``cache`` in place. Returns (x, cache)."""
+    assert (kind, mlp_kind) == ("attn", "dense"), (kind, mlp_kind)
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    x = x + gqa_decode(p.attn, h, cache["k"], cache["v"], pos, cfg, plan,
+                       sliding_window)
+    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+    x = x + dense_mlp_forward(p.mlp, h2)
+    return x, cache
+
+
+def prefill_stack_slice(blocks: Sequence[Block], x, positions,
+                        cfg: ModelConfig, plan: MeshPlan,
+                        kinds: Sequence[Kind], sliding_window: int = 0):
+    """Prefill over a slice of the stack. x: (B, S, d) hidden entering the
+    slice. Returns ``(x, caches)``, one bf16 ``{"k", "v"}`` per block."""
+    caches = []
+    for p, (kind, mlp_kind) in zip(blocks, kinds):
+        x, cache = apply_block(p, x, cfg, plan, kind, mlp_kind, positions,
+                               True, sliding_window, want_cache=True)
+        caches.append(cache)
+    return x, caches
+
+
+def decode_stack_slice(blocks: Sequence[Block], caches: List[Dict],
+                       x, pos, cfg: ModelConfig, plan: MeshPlan,
+                       kinds: Sequence[Kind], sliding_window: int = 0):
+    """One decode step over a slice of the stack; composing the slices in
+    order is the whole-model decode step. Returns (x, caches)."""
+    for p, cache, (kind, mlp_kind) in zip(blocks, caches, kinds):
+        x, _ = decode_block(p, x, cache, pos, cfg, plan, kind, mlp_kind,
+                            sliding_window)
+    return x, caches
+
+
+def final_logits(final_norm, unembed, h, cfg: ModelConfig):
+    """The decode head: final norm, then logits over the padded vocab."""
+    return rms_norm(h, final_norm, cfg.norm_eps) @ unembed
+
+
+def stage_units(cfg: ModelConfig) -> List[List[int]]:
+    """Layer indices of each stack unit (a prologue block or a period)."""
+    lay = stack_layout(cfg)
+    n_pro, P = len(lay.prologue), len(lay.period_slots)
+    units = [[i] for i in range(n_pro)]
+    units += [[n_pro + i * P + j for j in range(P)]
+              for i in range(lay.n_periods)]
+    return units

@@ -1,0 +1,300 @@
+"""The port's plain kernel versions against the JAX package's kernels.
+
+Inputs come from a numpy seed and go through both packages. The JAX Pallas
+kernels run with ``interpret=True`` on the CPU, as ``test_kernels.py`` runs
+them. Tolerances: float32 ``rtol=2e-4, atol=2e-5`` (summation order differs
+between XLA and PyTorch); bfloat16 ``2e-2`` (one bf16 rounding of scores or
+outputs may land on the other side), as in ``test_kernels.py``.
+
+The CUDA kernels themselves run only on the card (``test_torch_gpu.py``);
+here the wrappers must take the plain path for CPU tensors, never launch,
+and refuse a non-CPU tensor they cannot launch on.
+"""
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.kernel import flash_attention_pallas  # noqa: E402
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    attention_dense_ref as jax_dense, flash_attention_ref as jax_flash_ref,
+    flash_attention_triangular as jax_triangular)
+from repro.kernels.flash_decode.kernel import flash_decode_pallas  # noqa: E402
+from repro.kernels.flash_decode.ref import (  # noqa: E402
+    decode_attention_ref as jax_decode_ref,
+    flash_decode_partial_ref as jax_decode_partial)
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_dense_ref, flash_attention_ref, flash_attention_triangular)
+from repro_torch.kernels.flash_decode import kernel as fd_kernel  # noqa: E402
+from repro_torch.kernels.flash_decode.ref import (  # noqa: E402
+    combine_partials, decode_attention_ref, flash_decode_partial_ref)
+
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tol(dtype: str):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-4, atol=2e-5)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    j = jnp.asarray(a, JNP[dtype])
+    return j, torch.from_numpy(np.array(j, np.float32)).to(TORCH[dtype])
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # B, Sq, Sk, H, KV, D, Dv, causal, window, dtype
+    (2, 50, 50, 4, 2, 16, 16, True, 0, "float32"),
+    (1, 33, 33, 4, 4, 32, 16, True, 7, "float32"),      # MLA-ish Dv != D
+    (2, 16, 64, 2, 1, 16, 16, False, 0, "float32"),     # cross attention
+    (1, 128, 128, 8, 2, 64, 64, True, 0, "bfloat16"),
+    (1, 17, 65, 2, 2, 8, 8, True, 0, "float32"),        # ragged + offset
+]
+
+
+def _flash_inputs(case, seed=0):
+    B, Sq, Sk, H, KV, D, Dv, causal, w, dt = case
+    rng = np.random.default_rng(seed)
+    q = _pair(rng.normal(size=(B, Sq, H, D)), dt)
+    k = _pair(rng.normal(size=(B, Sk, KV, D)), dt)
+    v = _pair(rng.normal(size=(B, Sk, KV, Dv)), dt)
+    qoff = Sk - Sq if causal else 0
+    return q, k, v, dict(causal=causal, sliding_window=w, q_offset=qoff)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_plain_flash_matches_pallas_kernel(case):
+    (qj, qt), (kj, kt), (vj, vt), kw = _flash_inputs(case)
+    want = flash_attention_pallas(qj, kj, vj, block_q=16, block_k=16,
+                                  interpret=True, **kw)
+    got = flash_attention_ref(qt, kt, vt, block_q=16, block_k=16, **kw)
+    assert got.dtype == qt.dtype
+    assert_allclose(_np(got), _np(want), **_tol(case[-1]))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_plain_dense_matches_jax_dense(case):
+    (qj, qt), (kj, kt), (vj, vt), kw = _flash_inputs(case, seed=1)
+    want = jax_dense(qj, kj, vj, **kw)
+    got = attention_dense_ref(qt, kt, vt, **kw)
+    assert_allclose(_np(got), _np(want), **_tol(case[-1]))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_wrapper_takes_plain_path_on_cpu(case):
+    """The model-facing wrapper on CPU tensors: the plain version (the JAX
+    model's own ref dispatch), and no kernel launch."""
+    (qj, qt), (kj, kt), (vj, vt), kw = _flash_inputs(case, seed=2)
+    before = fa_kernel.launches
+    got = fa_kernel.flash_attention(qt, kt, vt, **kw)
+    assert fa_kernel.launches == before == 0
+    want = jax_dense(qj, kj, vj, **kw)
+    assert_allclose(_np(got), _np(want), **_tol(case[-1]))
+
+
+@pytest.mark.parametrize("S,window,block", [
+    (50, 0, 16), (64, 0, 16), (70, 9, 16), (33, 0, 512)])
+def test_triangular_matches_rectangular_and_jax(S, window, block):
+    rng = np.random.default_rng(3)
+    q = _pair(rng.normal(size=(2, S, 4, 16)), "float32")
+    k = _pair(rng.normal(size=(2, S, 2, 16)), "float32")
+    v = _pair(rng.normal(size=(2, S, 2, 16)), "float32")
+    tri = flash_attention_triangular(q[1], k[1], v[1], sliding_window=window,
+                                     block_q=block, block_k=block)
+    rect = flash_attention_ref(q[1], k[1], v[1], causal=True,
+                               sliding_window=window, block_q=block,
+                               block_k=block)
+    assert_allclose(_np(tri), _np(rect), rtol=1e-6, atol=1e-6)
+    want = jax_triangular(q[0], k[0], v[0], sliding_window=window,
+                          block_q=block, block_k=block)
+    assert_allclose(_np(tri), _np(want), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("blocks", [(16, 16), (32, 16), (16, 64)])
+def test_flash_ref_block_invariance(blocks):
+    """The plain flash ref is block-size invariant, as the JAX one is."""
+    bq, bk = blocks
+    rng = np.random.default_rng(4)
+    q = _pair(rng.normal(size=(2, 40, 4, 16)), "float32")
+    k = _pair(rng.normal(size=(2, 40, 2, 16)), "float32")
+    v = _pair(rng.normal(size=(2, 40, 2, 16)), "float32")
+    got = flash_attention_ref(q[1], k[1], v[1], causal=True, block_q=bq,
+                              block_k=bk)
+    want = jax_flash_ref(q[0], k[0], v[0], causal=True, block_q=bq,
+                         block_k=bk)
+    assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-5)
+    assert_allclose(_np(got), _np(attention_dense_ref(q[1], k[1], v[1])),
+                    rtol=2e-4, atol=2e-5)
+
+
+def test_fully_masked_rows_average_v():
+    """The finite sentinel: a row whose keys are all masked averages v in
+    both packages (here: a window that excludes every key of late rows)."""
+    rng = np.random.default_rng(5)
+    q = _pair(rng.normal(size=(1, 8, 2, 8)), "float32")
+    k = _pair(rng.normal(size=(1, 4, 2, 8)), "float32")
+    v = _pair(rng.normal(size=(1, 4, 2, 8)), "float32")
+    kw = dict(causal=True, sliding_window=2, q_offset=4)
+    got = attention_dense_ref(q[1], k[1], v[1], **kw)
+    want = jax_dense(q[0], k[0], v[0], **kw)
+    assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-5)
+    assert_allclose(_np(got)[0, -1], _np(v[1]).mean(axis=1)[0], rtol=1e-5,
+                    atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# flash decode
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = [
+    # B, H, KV, D, L, window, dtype
+    (2, 4, 2, 16, 64, 0, "float32"),
+    (1, 8, 8, 32, 100, 17, "float32"),
+    (3, 4, 1, 64, 96, 0, "bfloat16"),
+]
+
+
+def _decode_inputs(case, seed=0):
+    B, H, KV, D, L, w, dt = case
+    rng = np.random.default_rng(seed)
+    q = _pair(rng.normal(size=(B, H, D)), dt)
+    k = _pair(rng.normal(size=(B, L, KV, D)), dt)
+    v = _pair(rng.normal(size=(B, L, KV, D)), dt)
+    cur = rng.integers(10, L, size=(B,)).astype(np.int32)
+    return q, k, v, (jnp.asarray(cur), torch.from_numpy(cur)), w
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_plain_decode_matches_pallas_kernel(case):
+    (qj, qt), (kj, kt), (vj, vt), (cj, ct), w = _decode_inputs(case)
+    m1, l1, a1 = flash_decode_pallas(qj, kj, vj, cur_pos=cj,
+                                     sliding_window=w, block_k=16,
+                                     interpret=True)
+    m2, l2, a2 = flash_decode_partial_ref(qt, kt, vt, cur_pos=ct,
+                                          sliding_window=w)
+    o1 = a1 / jnp.maximum(l1, 1e-30)[..., None]
+    o2 = a2 / torch.clamp_min(l2, 1e-30)[..., None]
+    assert_allclose(_np(o2), _np(o1), **_tol(case[-1]))
+    assert_allclose(_np(m2), _np(m1), **_tol(case[-1]))
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_plain_decode_partials_match_jax_ref(case):
+    (qj, qt), (kj, kt), (vj, vt), (cj, ct), w = _decode_inputs(case, seed=1)
+    want = jax_decode_partial(qj, kj, vj, cur_pos=cj, sliding_window=w)
+    got = flash_decode_partial_ref(qt, kt, vt, cur_pos=ct, sliding_window=w)
+    for g, wv in zip(got, want):
+        assert g.dtype == torch.float32
+        assert_allclose(_np(g), _np(wv), **_tol(case[-1]))
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_wrapper_takes_plain_path_on_cpu(case):
+    (qj, qt), (kj, kt), (vj, vt), (cj, ct), w = _decode_inputs(case, seed=2)
+    before = fd_kernel.launches
+    m, l, acc = fd_kernel.flash_decode(qt, kt, vt, cur_pos=ct,
+                                       sliding_window=w)
+    assert fd_kernel.launches == before == 0
+    got = combine_partials(m[None], l[None], acc[None])
+    want = jax_decode_ref(qj, kj, vj, cj, sliding_window=w)
+    assert_allclose(_np(got), _np(want), **_tol(case[-1]))
+    assert_allclose(_np(decode_attention_ref(qt, kt, vt, ct, sliding_window=w)),
+                    _np(want), **_tol(case[-1]))
+
+
+def test_decode_shard_combine():
+    """Partials from 4 disjoint cache shards combine to the full attention —
+    the P(max)/P(sum) algebra of the distributed decode."""
+    rng = np.random.default_rng(6)
+    B, H, KV, D, L = 2, 4, 2, 16, 64
+    q = _pair(rng.normal(size=(B, H, D)), "float32")
+    k = _pair(rng.normal(size=(B, L, KV, D)), "float32")
+    v = _pair(rng.normal(size=(B, L, KV, D)), "float32")
+    cur = np.asarray([40, 63], np.int32)
+    parts = [flash_decode_partial_ref(
+        q[1], k[1][:, i * 16:(i + 1) * 16], v[1][:, i * 16:(i + 1) * 16],
+        cur_pos=torch.from_numpy(cur), k_offset=i * 16) for i in range(4)]
+    got = combine_partials(*(torch.stack([p[i] for p in parts])
+                             for i in range(3)))
+    want = jax_decode_ref(q[0], k[0], v[0], jnp.asarray(cur))
+    assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-5)
+
+
+def test_wrapper_split_combine_matches_single_shard():
+    """The CUDA wrapper's combine over DECODE_SPLIT-key splits, fed by the
+    plain partials of each split, equals the one-shard attention."""
+    rng = np.random.default_rng(7)
+    B, H, KV, D, L = 3, 4, 2, 16, 150
+    q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(B, L, KV, D)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(B, L, KV, D)).astype(np.float32))
+    cur = torch.tensor([5, 70, 149], dtype=torch.int32)
+    S = fd_kernel.DECODE_SPLIT
+    parts = [flash_decode_partial_ref(q, k[:, s:s + S], v[:, s:s + S],
+                                      cur_pos=cur, k_offset=s)
+             for s in range(0, L, S)]
+    m, l, acc = fd_kernel.combine_splits(
+        *(torch.stack([p[i] for p in parts], dim=1) for i in range(3)))
+    got = acc / torch.clamp_min(l, 1e-30)[..., None]
+    want = decode_attention_ref(q, k, v, cur)
+    assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_decode_k_positions_matches_jax():
+    """Ring-buffer caches: explicit per-slot positions (-1 = empty)."""
+    rng = np.random.default_rng(8)
+    B, H, KV, D, L = 2, 4, 2, 16, 12
+    q = _pair(rng.normal(size=(B, H, D)), "float32")
+    k = _pair(rng.normal(size=(B, L, KV, D)), "float32")
+    v = _pair(rng.normal(size=(B, L, KV, D)), "float32")
+    kpos = np.stack([np.r_[np.arange(20, 32)],
+                     np.r_[np.arange(0, 7), -np.ones(5)]]).astype(np.int32)
+    cur = np.asarray([31, 6], np.int32)
+    want = jax_decode_partial(q[0], k[0], v[0], cur_pos=jnp.asarray(cur),
+                              sliding_window=8, k_positions=jnp.asarray(kpos))
+    got = flash_decode_partial_ref(q[1], k[1], v[1],
+                                   cur_pos=torch.from_numpy(cur),
+                                   sliding_window=8,
+                                   k_positions=torch.from_numpy(kpos))
+    for g, wv in zip(got, want):
+        assert_allclose(_np(g), _np(wv), rtol=2e-4, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# no fallback: a non-CPU tensor goes to the kernel or raises
+# ---------------------------------------------------------------------------
+
+def test_flash_wrapper_refuses_non_cuda_device():
+    q = torch.empty((1, 8, 2, 64), device="meta")
+    k = torch.empty((1, 8, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="card"):
+        fa_kernel.flash_attention(q, k, k)
+    assert fa_kernel.launches == 0
+
+
+def test_decode_wrapper_refuses_non_cuda_device():
+    q = torch.empty((1, 2, 64), device="meta")
+    k = torch.empty((1, 8, 2, 64), device="meta")
+    cur = torch.zeros((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="card"):
+        fd_kernel.flash_decode(q, k, k, cur_pos=cur)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fd_kernel.flash_decode(q, k, k, cur_pos=cur,
+                               k_positions=torch.zeros((1, 8), device="meta"))
+    assert fd_kernel.launches == 0
