@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA card: kernels, then serving.
+"""Smoke run of the PyTorch port on one NVIDIA card: kernels, serving, training.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -6,32 +6,51 @@ Phases, each printing its own lines; any failure exits non-zero before the
 result line is printed:
 
 1. device and build: the card's name and power limit (``nvidia-smi``), then
-   both CUDA kernels of the serving path built from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, started together);
-2. kernels: each kernel against its plain PyTorch version at the shapes the
-   serving path gives it (decode also against the plain version on float32
-   copies of the same inputs, which is the kernel's own arithmetic), with
-   the kernel's device time (torch.profiler), the wrapper call's, the plain
-   version's, the least time the card could take (bytes over 3.35 TB/s or
-   operations over 989 TFLOP/s, whichever is larger) and one
-   ``scaled_dot_product_attention`` call as a yardstick (timed here only;
-   the port never calls it);
+   every CUDA source of the serving and training paths built from
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
+   each with its ``ptxas -v`` register/spill report;
+2. kernels: each kernel against its plain PyTorch version at the shapes its
+   path gives it -- attention forward and decode at the serving shapes,
+   the attention forward also at a training layer, the xent forward and
+   backward at the training logits (4,096 x 151,936,
+   bf16), the attention backward at a training layer (q (2, 2048, 16, 128),
+   kv (2, 2048, 8, 128), causal, bf16) against autograd through the plain
+   version -- and again on float32 copies of the same inputs, held tighter.
+   Each reports the kernel's device time (torch.profiler), the wrapper
+   call's, the plain version's, the least time the card could take (bytes
+   over 3.35 TB/s or operations over the peak rate of their type, whichever
+   is larger) and one PyTorch library call as a yardstick (SDPA, or
+   ``F.cross_entropy``; timed here only, the port never calls them);
 3. reference: the reduced qwen3 config served through the kernels agrees
-   with the same weights on the CPU's plain path (prefill and decode logits);
+   with the same weights on the CPU's plain path (prefill and decode
+   logits); then two training steps of it through the kernels agree with
+   the same two steps on the CPU (loss, grad_norm);
 4. serve: qwen3-1.7b at full width, bf16, seeded init, through
-   ``repro_torch.api.compile(backend="actors", stages=2)`` — 12 requests of
+   ``repro_torch.api.compile(backend="actors", stages=2)`` -- 12 requests of
    64-512 prompt tokens and 8-48 new tokens in 2 groups of 4 slots; then
    the same requests on ``backend="monolithic"``, which must give the same
    tokens. Around each of the two runs the kernels' launch counters are
    zeroed just before and read just after, and must equal the launches the
    scheduler's work implies. One more monolithic run under torch.profiler
-   gives the device's busy share and its kernels by time.
+   gives the device's busy share and its kernels by time;
+5. train: qwen3-1.7b at full width and depth (bf16 compute, float32 params
+   and AdamW state, seeded init) through ``repro_torch.train.steps
+   .make_train_step``, fed by ``ActorDataPipeline(SyntheticLM(151936, 2,
+   2048))``, 4 steps: loss, grad_norm, wall time and tokens/s per step, the
+   peak memory, finite and falling loss, and the exact kernel launches of
+   every step, each backward kernel counted on its own (counters zeroed
+   just before the run); then one more step under torch.profiler;
+6. train, plain versions: the same 4 steps from the same init and batches
+   with the model's attention and loss call sites on the plain PyTorch
+   versions (autograd through them) on the card, no kernel launched; the
+   kernel path's loss and grad_norm are held to these step by step.
 
 The last two lines are the kernel table as one JSON object and the result
 ``{"ok": true, "device": {...}}``. It imports nothing of jax.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -46,13 +65,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
+PEAK_F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 # Kernel vs plain version at the path shapes, bf16 inputs: set from the
 # measured max abs errors 9.8e-4 (attention: bf16 rounding of the output)
 # and 4.1e-3 (decode: the plain version rounds its scores to bf16, as JAX's
 # einsum does; the kernel keeps them in float32).
 ATOL, RTOL = 5e-3, 1e-2
-# decode kernel vs the plain version on float32 copies of the same inputs:
-# the same arithmetic, so only the order of float32 sums differs
+# a kernel vs the plain version on float32 copies of the same inputs: the
+# same arithmetic, so only the order of float32 sums differs
 F32_TOL = 1e-4
 SEED = 0
 
@@ -78,9 +98,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_ms(fn, kernel: str, iters: int = 20, warmup: int = 3):
-    """Mean device time of one launch of the kernel whose name contains
-    ``kernel``, from torch.profiler's device trace over ``iters`` calls of
-    ``fn`` after ``warmup`` calls; None if the trace holds no such kernel."""
+    """Device time per call of ``fn`` spent in the kernels whose names
+    contain ``kernel`` (the backward's two kernels together), from
+    torch.profiler's device trace over ``iters`` calls after ``warmup``
+    calls; None if the trace holds no such kernel."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -95,21 +116,20 @@ def kernel_ms(fn, kernel: str, iters: int = 20, warmup: int = 3):
           and kernel in e.key]
     if not ev:
         return None
-    return (sum(e.self_device_time_total for e in ev)
-            / sum(e.count for e in ev) / 1e3)
+    return sum(e.self_device_time_total for e in ev) / iters / 1e3
 
 
-def timed(entry: dict, kernel: str, launch, wrapper) -> dict:
+def timed(entry: dict, kernel: str, launch, wrapper, iters: int = 20) -> dict:
     """Fill ``ms`` (the kernel's own device time; CUDA events around
     ``launch`` if the profiler saw no device events) and ``wrapper_ms``
     (CUDA events around the wrapper call the model makes)."""
-    ms = kernel_ms(launch, kernel)
+    ms = kernel_ms(launch, kernel, iters=iters)
     if ms is None:
         print(f"{kernel}: the profiler saw no device events; ms is from "
               "CUDA events around the launch call")
-        ms = cuda_ms(launch)
+        ms = cuda_ms(launch, iters=iters)
     entry["ms"] = ms
-    entry["wrapper_ms"] = cuda_ms(wrapper)
+    entry["wrapper_ms"] = cuda_ms(wrapper, iters=iters)
     return entry
 
 
@@ -125,9 +145,9 @@ def agree(name: str, got, want, atol: float, rtol: float) -> float:
     return err
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -145,12 +165,14 @@ def device_and_build():
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.softmax_xent import kernel as xk
+    sources = [fa.SOURCE, fd.SOURCE, xk.SOURCE, fa.BWD_SOURCE]
     t0 = time.perf_counter()
-    _build.build([fa.SOURCE, fd.SOURCE])
-    print(f"built {fa.SOURCE}, {fd.SOURCE} in "
+    _build.build(sources)
+    print(f"built {', '.join(sources)} in "
           f"{time.perf_counter() - t0:.1f} s "
           f"(per source: {_build.build_seconds})")
-    for src in (fa.SOURCE, fd.SOURCE):
+    for src in sources:
         log = _build.library_path(src).with_suffix(".log").read_text()
         usage = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -159,33 +181,41 @@ def device_and_build():
 
 
 def check_flash_attention(dev):
+    """The attention forward at the serving prefill shape (the row's main
+    numbers, as in slice 1) and at one training layer (``train_shape``)."""
     from repro_torch.kernels.flash_attention import kernel as fa
-    B, S, H, KV, D = 1, 512, 16, 8, 128
-    rng = np.random.default_rng(SEED)
-    mk = lambda *shape: torch.from_numpy(  # noqa: E731
-        rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
-    q, k, v = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D)
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = fa.plain_flash_attention(q, k, v, causal=True)
-    err = agree(f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} "
-                "causal bf16", got, want, ATOL, RTOL)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pairs = S * (S + 1) // 2                     # causal: unmasked (q, k)
-    b_ms, b_by = bound_ms(nbytes(q, k, v, got), 4 * D * H * B * pairs)
-    launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
-    return timed({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
-        "max_abs_err": err,
-        "plain_ms": cuda_ms(
-            lambda: fa.plain_flash_attention(q, k, v, causal=True), iters=5),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.nn.functional
-                              .scaled_dot_product_attention(
-                                  qt, kt, vt, is_causal=True,
-                                  enable_gqa=True)),
-    }, "flash_fwd_kernel", launch, launch)
+
+    def at(B, S, H, KV, D, seed):
+        rng = np.random.default_rng(seed)
+        mk = lambda *shape: torch.from_numpy(  # noqa: E731
+            rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+        q, k, v = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D)
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.plain_flash_attention(q, k, v, causal=True)
+        err = agree(f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} "
+                    "causal bf16", got, want, ATOL, RTOL)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = S * (S + 1) // 2                 # causal: unmasked (q, k)
+        b_ms, b_by = bound_ms(nbytes(q, k, v, got), 4 * D * H * B * pairs)
+        launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+        return timed({
+            "max_abs_err": err,
+            "plain_ms": cuda_ms(
+                lambda: fa.plain_flash_attention(q, k, v, causal=True),
+                iters=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(lambda: torch.nn.functional
+                                  .scaled_dot_product_attention(
+                                      qt, kt, vt, is_causal=True,
+                                      enable_gqa=True)),
+        }, "flash_fwd_kernel", launch, launch)
+
+    entry = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:75"}
+    entry.update(at(1, 512, 16, 8, 128, SEED))
+    entry["train_shape"] = at(2, 2048, 16, 8, 128, SEED + 7)
+    return entry
 
 
 def check_flash_decode(dev):
@@ -231,6 +261,164 @@ def check_flash_decode(dev):
     }, "flash_decode_kernel",
         lambda: fd.flash_decode_cuda_partials(q, k, v, cur),
         lambda: fd.flash_decode(q, k, v, cur_pos=cur))
+
+
+def check_xent(dev):
+    """The xent forward and backward kernels at the training logits (the
+    lm_loss of batch 2 x seq 2048 over the padded qwen3 vocab), bf16, then
+    on float32 copies of the same inputs."""
+    from repro_torch.kernels.softmax_xent import kernel as xk
+    from repro_torch.kernels.softmax_xent.ref import local_stats_ref
+    N, Vl = 4096, 151936
+    rng = np.random.default_rng(SEED + 4)
+    logits = (torch.from_numpy(rng.normal(size=(N, Vl)).astype(np.float32))
+              .to(dev) * 3).to(torch.bfloat16)
+    labels = torch.as_tensor(rng.integers(0, Vl, N), dtype=torch.int32,
+                             device=dev)
+    ds = torch.as_tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
+    dz = torch.as_tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
+    what = f"logits ({N}, {Vl})"
+
+    def through_autograd(x, stats):
+        leaf = x.detach().requires_grad_(True)
+        m, s_, z = stats(leaf, labels, 0)
+        (g,) = torch.autograd.grad((s_, z), leaf, (ds, dz))
+        return (m, s_.detach(), z.detach()), g
+
+    errs = []
+    for dt, atol, rtol in ((torch.bfloat16, ATOL, RTOL),
+                           (torch.float32, F32_TOL, F32_TOL)):
+        x = logits.to(dt)
+        got, g = through_autograd(x, xk.xent_local_stats)
+        want, wg = through_autograd(x, local_stats_ref)
+        err = max(agree(f"xent_local_stats {name} {what} {dt}", a, b, atol,
+                        rtol) for name, a, b in zip("msz", got, want))
+        gerr = agree(f"xent_local_stats backward {what} {dt}", g, wg, atol,
+                     rtol)
+        errs.append((err, gerr))
+        del got, g, want, wg, x
+    torch.cuda.empty_cache()
+
+    m, s_, z = xk.xent_local_stats_cuda(logits, labels, 0)
+    fwd_bytes = nbytes(logits, labels, m, s_, z)
+    fb_ms, fb_by = bound_ms(fwd_bytes, 4 * N * Vl, PEAK_F32_FLOPS)
+    bb_ms, bb_by = bound_ms(fwd_bytes - nbytes(s_, z) + nbytes(ds, dz)
+                            + nbytes(logits), 4 * N * Vl, PEAK_F32_FLOPS)
+    lab = labels.long()
+
+    def plain_bwd():
+        leaf = logits.detach().requires_grad_(True)
+        _, s2, z2 = local_stats_ref(leaf, labels, 0)
+        return lambda: torch.autograd.grad((s2, z2), leaf, (ds, dz),
+                                           retain_graph=True)
+
+    def library_bwd():
+        leaf = logits.detach().requires_grad_(True)
+        loss = torch.nn.functional.cross_entropy(leaf.float(), lab,
+                                                 reduction="none")
+        return lambda: torch.autograd.grad(loss, leaf, ds, retain_graph=True)
+
+    fwd = timed({
+        "name": "xent_local_stats", "route": "cuda",
+        "source": "src/repro_torch/csrc/softmax_xent.cu",
+        "replaces": "src/repro/kernels/softmax_xent/kernel.py:67",
+        "max_abs_err": errs[0][0], "f32_max_abs_err": errs[1][0],
+        "plain_ms": cuda_ms(lambda: local_stats_ref(logits, labels, 0),
+                            iters=5),
+        "bound_ms": fb_ms, "bound_by": fb_by,
+        "library_ms": cuda_ms(lambda: torch.nn.functional.cross_entropy(
+            logits.float(), lab, reduction="none"), iters=5),
+    }, "xent_fwd_kernel", lambda: xk.xent_local_stats_cuda(logits, labels, 0),
+        lambda: xk.xent_local_stats(logits, labels, 0))
+    bwd_launch = lambda: xk.xent_local_stats_bwd_cuda(  # noqa: E731
+        logits, labels, 0, m, ds, dz)
+    bwd = timed({
+        "name": "xent_local_stats_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/softmax_xent.cu",
+        "replaces": "src/repro/kernels/softmax_xent/kernel.py:67 (its "
+                    "backward; no Pallas counterpart)",
+        "max_abs_err": errs[0][1], "f32_max_abs_err": errs[1][1],
+        "plain_ms": cuda_ms(plain_bwd(), iters=5),
+        "bound_ms": bb_ms, "bound_by": bb_by,
+        "library_ms": cuda_ms(library_bwd(), iters=5),
+    }, "xent_bwd_kernel", bwd_launch, bwd_launch)
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def check_flash_attention_bwd(dev):
+    """The attention backward at one training layer of qwen3-1.7b against
+    autograd through the plain version, bf16 and on float32 copies."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    B, S, H, KV, D = 2, 2048, 16, 8, 128
+    rng = np.random.default_rng(SEED + 5)
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+    q, k, v, do = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D), \
+        mk(B, S, H, D)
+    what = f"q{tuple(q.shape)} kv{tuple(k.shape)} causal"
+
+    def grads(attn, dt):
+        leaves = [t.detach().to(dt).requires_grad_(True) for t in (q, k, v)]
+        out = attn(*leaves, causal=True)
+        return torch.autograd.grad(out, leaves, do.to(dt))
+
+    # The plain version's bf16 autograd sums dk and dv in bf16 (over its
+    # 512-row blocks and the G q heads of a kv head), so the bf16 kernel,
+    # which sums in float32 and rounds once, is held to the plain version's
+    # autograd on float32 copies of the same bf16 inputs; its distance from
+    # the plain bf16 autograd is printed beside it.
+    want32 = grads(fa.plain_flash_attention, torch.float32)
+    got = grads(fa.flash_attention, torch.bfloat16)
+    err = max(agree(f"flash_attention backward d{n} {what} bf16 vs the plain "
+                    "version on float32 copies", a, b, ATOL, RTOL)
+              for n, a, b in zip("qkv", got, want32))
+    want = grads(fa.plain_flash_attention, torch.bfloat16)
+    print("flash_attention backward bf16 vs the plain bf16 autograd: max "
+          "abs err " + ", ".join(
+              f"d{n} {(a.float() - b.float()).abs().max().item():.3e}"
+              for n, a, b in zip("qkv", got, want)) + " (not held)")
+    del got, want
+    got32 = grads(fa.flash_attention, torch.float32)
+    err32 = max(agree(f"flash_attention backward d{n} {what} float32", a, b,
+                      F32_TOL, F32_TOL)
+                for n, a, b in zip("qkv", got32, want32))
+    errs = [err, err32]
+    del got32, want32
+    torch.cuda.empty_cache()
+
+    _, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    pairs = S * (S + 1) // 2
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, lse, do)
+    b_ms, b_by = bound_ms(nbytes(q, k, v, lse, do, dq, dk, dv),
+                          10 * D * H * B * pairs)
+
+    def plain_bwd():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = fa.plain_flash_attention(*leaves, causal=True)
+        return lambda: torch.autograd.grad(out, leaves, do,
+                                           retain_graph=True)
+
+    def library_bwd():
+        leaves = [t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        return lambda: torch.autograd.grad(out, leaves, dot,
+                                           retain_graph=True)
+
+    launch = lambda: fa.flash_attention_bwd_cuda(q, k, v, lse, do)  # noqa: E731
+    return timed({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:75 (its "
+                    "backward; no Pallas counterpart)",
+        "max_abs_err": errs[0], "f32_max_abs_err": errs[1],
+        "plain_ms": cuda_ms(plain_bwd(), iters=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(library_bwd(), iters=5),
+    }, "flash_bwd_", launch, launch)
 
 
 def check_reference(dev):
@@ -292,6 +480,43 @@ def check_reference(dev):
             pos = [p_ + 1 for p_ in pos]
     print(f"reduced qwen3 prefill + 4 decode steps: logits agree, max abs "
           f"err {worst:.3e} (bound 1e-3 + 1e-3*|ref|, float32)")
+
+
+def check_reference_train(dev):
+    """Two training steps of the reduced qwen3 (float32) through the
+    kernels on the card against the same two steps on the CPU's plain path,
+    from the same initial weights and batches."""
+    phase("reference train (reduced qwen3, card vs CPU plain path, 2 steps)")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config("qwen3-1.7b").reduced()
+    src = SyntheticLM(cfg.vocab_size, 2, 64, seed=SEED + 6)
+    batches = [src(i) for i in range(2)]
+    init = None
+    runs = {}
+    for d in ("cpu", dev):
+        ts = make_train_step(cfg, device=d)
+        params = ts.init_params(SEED)
+        if init is None:
+            init = {n: t.detach().clone() for n, t in params.state_dict().items()}
+        params.load_state_dict(init)
+        opt = ts.init_opt(params)
+        runs[d] = []
+        for b in batches:
+            params, opt, m = ts.step_fn(params, opt, {"tokens": b})
+            runs[d].append((float(m["loss"]), float(m["grad_norm"])))
+    worst = 0.0
+    for (lc, gc), (lg, gg) in zip(runs["cpu"], runs[dev]):
+        err = max(abs(lg - lc) / abs(lc), abs(gg - gc) / abs(gc))
+        worst = max(worst, err)
+        if err > 1e-4:
+            raise AssertionError(f"train steps: card {runs[dev]} vs CPU "
+                                 f"{runs['cpu']}")
+    print(f"reduced qwen3, 2 train steps: card (loss, grad_norm) "
+          f"{runs[dev]}, CPU {runs['cpu']}; max relative err {worst:.3e} "
+          "(bound 1e-4, float32)")
 
 
 def serve(dev):
@@ -365,34 +590,175 @@ def serve(dev):
           f"{ms['tok_per_s']:.2f} tok/s; tokens identical to actors: {same}")
     if not same:
         raise AssertionError("actors and monolithic tokens differ")
-    profile_generate(mono, requests)
+    profile_device(f"{mono.backend} generate",
+                   lambda: mono.generate(requests))
     mono.close()
     return launches
 
 
-def profile_generate(sess, requests, top: int = 8):
+def profile_device(what: str, fn, top: int = 8):
     """Where the time goes: the device's busy time and its kernels by name
-    over one more ``generate`` of the same requests, from torch.profiler's
-    device trace (the profiler's own cost is in the wall time)."""
+    over one more run of ``fn``, from torch.profiler's device trace (the
+    profiler's own cost is in the wall time)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.generate(requests)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
-        print(f"profiled generate: {wall:.3f} s wall; the trace holds no "
+        print(f"profiled {what}: {wall:.3f} s wall; the trace holds no "
               "device events, so the idle share is not measured")
         return
     busy = sum(e.self_device_time_total for e in kern) / 1e6
-    print(f"profiled {sess.backend} generate: {wall:.3f} s wall (profiler "
-          f"on), device busy {busy:.3f} s, idle share {1 - busy / wall:.3f}")
+    print(f"profiled {what}: {wall:.3f} s wall (profiler on), device busy "
+          f"{busy:.3f} s, idle share {1 - busy / wall:.3f}")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d} x  "
               f"{e.key[:90]}")
+
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 4
+# The kernel path's 4 full-width bf16 steps against the same steps through
+# the plain versions on the card, relative to the plain path's numbers:
+# step 0 sees only the rounding of one forward and backward; from step 1 on,
+# AdamW's first update (about lr times the sign of each gradient) turns that
+# rounding into different weights, so later steps are held looser. Set at
+# about 10x the measured worst: 9.6e-5 at step 0 (grad_norm), 4.3e-4 after.
+CURVE_RTOL_FIRST, CURVE_RTOL = 1e-3, 5e-3
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The model's kernel call sites (attention, and the loss's local stats)
+    take the plain PyTorch versions on the card while the block runs: the
+    reference the kernel path's training curve is held to."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.softmax_xent.ref import local_stats_ref
+    from repro_torch.models import attention, transformer
+    saved = attention.flash_attention, transformer.xent_local_stats
+    attention.flash_attention = fa.plain_flash_attention
+    transformer.xent_local_stats = local_stats_ref
+    try:
+        yield
+    finally:
+        attention.flash_attention, transformer.xent_local_stats = saved
+
+
+def train_counts():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.softmax_xent import kernel as xk
+    return {"flash_attention": fa.launches,
+            "flash_bwd_dq_kernel": fa.bwd_dq_launches,
+            "flash_bwd_dkdv_kernel": fa.bwd_dkdv_launches,
+            "xent_local_stats": xk.launches,
+            "xent_local_stats_bwd": xk.bwd_launches}
+
+
+def zero_train_counts():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.softmax_xent import kernel as xk
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkdv_launches = 0
+    xk.launches = xk.bwd_launches = 0
+
+
+def train_steps(dev, what: str, want: dict):
+    """Full-width, full-depth qwen3-1.7b through make_train_step from the
+    seeded init, fed by the actor data pipeline, TRAIN_STEPS steps with the
+    kernels' launches counted on every step and held to ``want``. Returns
+    (step function, params, opt state, source, [(loss, grad_norm)], total
+    launches)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import ActorDataPipeline, SyntheticLM
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config("qwen3-1.7b")
+    B, S = TRAIN_B, TRAIN_S
+    t0 = time.perf_counter()
+    ts = make_train_step(cfg, device=dev)
+    params = ts.init_params(SEED)
+    opt = ts.init_opt(params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{what}: params and AdamW state initialised in "
+          f"{time.perf_counter() - t0:.1f} s: {n_params:,} params")
+    src = SyntheticLM(cfg.vocab_size, B, S, seed=SEED)
+    pipe = ActorDataPipeline(src, num_batches=TRAIN_STEPS)
+    curve = []
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    prev = train_counts()
+    for step, tokens in enumerate(pipe):
+        t = time.perf_counter()
+        params, opt, m = ts.step_fn(params, opt, {"tokens": tokens})
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        now = train_counts()
+        per = {k: now[k] - prev[k] for k in now}
+        prev = now
+        curve.append((loss, gnorm))
+        print(f"{what} step {step}: loss {loss:.4f}, grad_norm {gnorm:.4f}, "
+              f"wall {wall:.3f} s, {B * S / wall:,.0f} tokens/s, launches "
+              f"{per}")
+        if per != want:
+            raise AssertionError(f"{what} step {step}: kernel launches {per},"
+                                 f" expected {want}")
+    total = train_counts()
+    print(f"{what}: launches over the {TRAIN_STEPS} steps: {total}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    losses = [c[0] for c in curve]
+    if not all(np.isfinite(curve).ravel()) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: (loss, grad_norm) {curve}: not "
+                             "finite, or the loss did not fall")
+    return ts, params, opt, src, curve, total
+
+
+def train(dev):
+    """The main path of training: full-width, full-depth qwen3-1.7b through
+    make_train_step, fed by the actor data pipeline, with the kernels'
+    launches counted on every step, then one profiled step. Returns the
+    run's launch counts and its (loss, grad_norm) curve."""
+    phase(f"train (qwen3-1.7b, full width and depth, bf16 compute, float32 "
+          f"params and AdamW, {TRAIN_STEPS} steps)")
+    from repro_torch.configs.registry import get_config
+    L = get_config("qwen3-1.7b").num_layers
+    # per step: the forward of every layer, again in its remat recompute,
+    # each backward kernel once per layer, one loss
+    want = {"flash_attention": 2 * L, "flash_bwd_dq_kernel": L,
+            "flash_bwd_dkdv_kernel": L, "xent_local_stats": 1,
+            "xent_local_stats_bwd": 1}
+    ts, params, opt, src, curve, total = train_steps(dev, "kernels", want)
+    batch = {"tokens": src(TRAIN_STEPS)}
+    profile_device("train step", lambda: float(
+        ts.step_fn(params, opt, batch)[2]["loss"]), top=10)
+    return total, curve
+
+
+def train_plain(dev, kernel_curve):
+    """The same steps, from the same init and batches, with the model's call
+    sites on the plain versions (autograd through them) on the card; the
+    kernel path's loss and grad_norm are held to them step by step."""
+    phase(f"train, plain versions (qwen3-1.7b, full width and depth, bf16, "
+          f"the same {TRAIN_STEPS} steps)")
+    with plain_versions():
+        *_, curve, _ = train_steps(dev, "plain", {
+            k: 0 for k in train_counts()})
+    worst = [0.0, 0.0]
+    for step, (got, want) in enumerate(zip(kernel_curve, curve)):
+        errs = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        limit = CURVE_RTOL_FIRST if step == 0 else CURVE_RTOL
+        print(f"step {step}: kernels (loss, grad_norm) {got}, plain {want}: "
+              f"relative err {errs[0]:.3e}, {errs[1]:.3e} (limit {limit})")
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        if max(errs) > limit:
+            raise AssertionError(f"step {step}: the kernel path's training "
+                                 "curve left the plain path's")
+    print(f"kernel path vs plain path over {TRAIN_STEPS} steps: max relative "
+          f"err loss {worst[0]:.3e}, grad_norm {worst[1]:.3e}")
 
 
 def main() -> int:
@@ -407,16 +773,34 @@ def main() -> int:
     dev = "cuda"
     smi = device_and_build()
     phase("kernels (path shapes)")
-    kernels = [check_flash_attention(dev), check_flash_decode(dev)]
-    for kr in kernels:
+    kernels = [check_flash_attention(dev), check_flash_decode(dev),
+               *check_xent(dev), check_flash_attention_bwd(dev)]
+    for kr in kernels + [dict(kernels[0]["train_shape"],
+                              name="flash_attention (training shape)")]:
         print(f"{kr['name']}: kernel {kr['ms']:.4f} ms, wrapper call "
               f"{kr['wrapper_ms']:.4f} ms, plain {kr['plain_ms']:.4f} "
               f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}), "
-              f"sdpa {kr['library_ms']:.4f} ms")
+              f"library {kr['library_ms']:.4f} ms")
     check_reference(dev)
-    launches = serve(dev)
+    check_reference_train(dev)
+    served = serve(dev)
+    torch.cuda.empty_cache()
+    trained, curve = train(dev)
+    torch.cuda.empty_cache()
+    train_plain(dev, curve)
+    # each row's launches from the run of its path; the attention forward's
+    # row is the serving shape and serve run, its training shape's the train
+    # run; the backward's row holds each of its two kernels' counts
     for kr in kernels:
-        kr["launches"] = launches[kr["name"]]
+        name = kr["name"]
+        if name == "flash_attention_bwd":
+            kr["launches_by_kernel"] = {
+                k: trained[k] for k in ("flash_bwd_dq_kernel",
+                                        "flash_bwd_dkdv_kernel")}
+            kr["launches"] = min(kr["launches_by_kernel"].values())
+        else:
+            kr["launches"] = (served if name in served else trained)[name]
+    kernels[0]["train_shape"]["launches"] = trained["flash_attention"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,11 @@
 //     v over all Sk keys, as the dense ref does with that sentinel, instead
 //     of producing NaN.
 // Inputs are bf16 or float32 (converted to float32 on load); O is written
-// in the input type. Head dims: (D, Dv) = (64, 64) or (128, 128).
+// in the input type. Head dims: (D, Dv) = (64, 64) or (128, 128). When the
+// caller passes an `lse` buffer (training), each row's logsumexp of its
+// scaled scores, m + log(l), is written there in float32, (B, H, Sq): the
+// backward kernel (flash_attention_bwd.cu) recomputes P = exp(S - lse)
+// from it.
 //
 // Bound. At decode-like sizes (few q rows, long kv) the kernel moves bytes:
 // every K/V row is read once per q tile. At long prompts it is bound by
@@ -53,8 +57,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 template <typename T, int D, int DV>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Sk, int H, int KV, int causal, int window,
-    int q_offset, float sm_scale) {
+    T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+    int causal, int window, int q_offset, float sm_scale) {
   static_assert(D % 4 == 0 && DV % 64 == 0, "head dims: multiples of 64");
   constexpr int OC = DV / 16;               // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -221,6 +225,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const int qi = q0 + ty * 4 + i;
     if (qi >= Sq) continue;
     const float lm = fmaxf(l_i[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + qi] = m_i[i] + logf(lm);
     T* orow = o + ((static_cast<size_t>(b) * Sq + qi) * H + h) * DV;
 #pragma unroll
     for (int c4 = 0; c4 < DV / 64; ++c4)
@@ -230,9 +236,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 }
 
 template <typename T, int D, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int KV, int causal, int window, int q_offset,
-           float sm_scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KV, int causal, int window,
+           int q_offset, float sm_scale, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, D, DV>;
   constexpr int smem = static_cast<int>(sizeof(float)) *
                        (D * (BQ + PAD) + D * (BK + PAD) + BK * DV);
@@ -245,42 +251,44 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KV, causal,
       window, q_offset, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int Sq, int Sk, int H, int KV, int D, int Dv, int causal,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int Sq, int Sk, int H, int KV, int D, int Dv, int causal,
              int window, int q_offset, float sm_scale, cudaStream_t stream) {
   if (D == 64 && Dv == 64)
-    return launch<T, 64, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                             q_offset, sm_scale, stream);
+    return launch<T, 64, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal,
+                             window, q_offset, sm_scale, stream);
   if (D == 128 && Dv == 128)
-    return launch<T, 128, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                               q_offset, sm_scale, stream);
+    return launch<T, 128, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal,
+                               window, q_offset, sm_scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Layouts (contiguous): q (B, Sq, H, D),
-// k (B, Sk, KV, D), v (B, Sk, KV, Dv), o (B, Sq, H, Dv). Launches on
+// k (B, Sk, KV, D), v (B, Sk, KV, Dv), o (B, Sq, H, Dv); lse (B, H, Sq)
+// float32, or null when the caller needs no backward. Launches on
 // `stream`, allocates nothing, does not synchronise; returns the CUDA error
 // of the launch (0 = success).
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int Sq, int Sk, int H, int KV, int D, int Dv, int causal, int window,
-    int q_offset, float sm_scale, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int dtype, int B, int Sq, int Sk, int H, int KV, int D, int Dv,
+    int causal, int window, int q_offset, float sm_scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, Sq, Sk, H, KV, D, Dv, causal,
+    return dispatch<float>(q, k, v, o, lse_f, B, Sq, Sk, H, KV, D, Dv, causal,
                            window, q_offset, sm_scale, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, D, Dv,
-                                   causal, window, q_offset, sm_scale, s);
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse_f, B, Sq, Sk, H, KV, D,
+                                   Dv, causal, window, q_offset, sm_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -96,3 +98,13 @@ def check(err: int, what: str) -> None:
     """Raise when a launch function returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def refuse_grad(what: str, use: str, *tensors) -> None:
+    """Raise when autograd is recording and an input requires grad: a raw
+    wrapper writes its output through ctypes, so that output would have no
+    autograd link to its inputs and the graph would be cut silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad and the raw kernel wrapper would "
+            f"cut the autograd graph; {use}")

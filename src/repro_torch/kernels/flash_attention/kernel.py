@@ -1,16 +1,25 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their autograd Function and
+the plain version.
 
-Replaces the Pallas TPU kernel
-``src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas``.
-The kernel itself is ``src/repro_torch/csrc/flash_attention.cu`` (CUDA C++
-for ``sm_90a``, built at first use and loaded with ctypes); its header says
-what bounds it on the card and how its design answers that.
+The forward replaces the Pallas TPU kernel
+``src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas``; the
+backward has no Pallas counterpart (the JAX model trains by autodiff through
+``flash_attention_triangular``). The kernels are
+``src/repro_torch/csrc/flash_attention.cu`` and ``flash_attention_bwd.cu``
+(CUDA C++ for ``sm_90a``, built at first use and loaded with ctypes); their
+headers say what bounds each on the card and how its design answers that.
 
-:func:`flash_attention` is what the model calls. A CUDA tensor launches the
-kernel (or the wrapper raises on what the kernel does not take); a CPU
-tensor takes the plain PyTorch version, :func:`plain_flash_attention` —
-the same function the JAX model calls at ``models/attention.py:148-154``.
-There is no fallback from one to the other.
+:func:`flash_attention` is what the model calls. A CPU tensor takes the
+plain PyTorch version, :func:`plain_flash_attention` -- the same function
+the JAX model calls at ``models/attention.py:148-154`` -- and autograd runs
+through it. A CUDA tensor launches the forward kernel; when autograd records
+(an input requires grad) it goes through :class:`FlashAttention`, whose
+forward also keeps the logsumexp and whose backward launches the backward
+kernels. There is no fallback from one to the other.
+
+The raw wrappers :func:`flash_attention_cuda` and
+:func:`flash_attention_bwd_cuda` write their outputs through ctypes, which
+autograd cannot see, so they refuse to run while autograd records.
 """
 from __future__ import annotations
 
@@ -26,23 +35,48 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref, flash_attention_triangular)
 
 SOURCE = "flash_attention.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_USE = ("call repro_torch.kernels.flash_attention.flash_attention (its "
+        "FlashAttention Function) instead")
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
+#: forward kernel launches since the last reset (one per launch)
 launches = 0
+#: backward dq kernel launches since the last reset (one per launch)
+bwd_dq_launches = 0
+#: backward dk/dv kernel launches since the last reset (one per launch)
+bwd_dkdv_launches = 0
 _count_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.load(SOURCE).repro_flash_attention_fwd
-    # q, k, v, o; dtype, B, Sq, Sk, H, KV, D, Dv, causal, window, q_offset;
-    # sm_scale; stream
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+    # q, k, v, o, lse; dtype, B, Sq, Sk, H, KV, D, Dv, causal, window,
+    # q_offset; sm_scale; stream
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fns():
+    lib = _build.load(BWD_SOURCE)
+    dq = lib.repro_flash_attention_bwd_dq
+    # q, k, v, dout, lse, delta, dq; dtype, B, S, H, KV, D, window; sm_scale;
+    # stream
+    dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    dq.restype = ctypes.c_int
+    dkdv = lib.repro_flash_attention_bwd_dkdv
+    # q, k, v, dout, lse, delta, dk, dv; dtype, B, S, H, KV, D, window;
+    # sm_scale; stream
+    dkdv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_void_p])
+    dkdv.restype = ctypes.c_int
+    return dq, dkdv
 
 
 def plain_flash_attention(q, k, v, *, causal: bool = True,
@@ -60,25 +94,34 @@ def plain_flash_attention(q, k, v, *, causal: bool = True,
                                q_offset=q_offset, sm_scale=sm_scale)
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         sliding_window: int = 0, q_offset: int = 0,
-                         sm_scale: Optional[float] = None):
-    """Launch the CUDA kernel. q (B, Sq, H, D), k (B, Sk, KV, D),
-    v (B, Sk, KV, Dv), contiguous, one dtype (bf16 or float32), on one
-    card; returns o (B, Sq, H, Dv) in q's dtype."""
-    global launches
-    B, Sq, H, D = q.shape
-    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.device.type != "cuda":
-            raise ValueError(f"flash_attention: {name} must be on q's card, "
+def _check_inputs(what: str, **tensors) -> None:
+    """One card, one dtype the kernels take, contiguous 4-d tensors."""
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if t.device != first.device or t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} must be on q's card, "
                              f"got {t.device}")
-        if t.dtype != q.dtype or t.dtype not in _DTYPES:
-            raise ValueError(f"flash_attention: {name} has dtype {t.dtype}; "
+        if t.dtype != first.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"{what}: {name} has dtype {t.dtype}; "
                              "the kernel takes one of bfloat16/float32")
         if t.dim() != 4 or not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be a contiguous "
+            raise ValueError(f"{what}: {name} must be a contiguous "
                              f"4-d tensor, got shape {tuple(t.shape)}")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         sliding_window: int = 0, q_offset: int = 0,
+                         sm_scale: Optional[float] = None,
+                         return_lse: bool = False):
+    """Launch the forward kernel. q (B, Sq, H, D), k (B, Sk, KV, D),
+    v (B, Sk, KV, Dv), contiguous, one dtype (bf16 or float32), on one
+    card; returns o (B, Sq, H, Dv) in q's dtype, and with ``return_lse``
+    also each row's float32 logsumexp of its scaled scores, (B, H, Sq)."""
+    global launches
+    _build.refuse_grad("flash_attention_cuda", _USE, q, k, v)
+    B, Sq, H, D = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    _check_inputs("flash_attention", q=q, k=k, v=v)
     if k.shape != (B, Sk, KV, D) or v.shape[:3] != (B, Sk, KV) or H % KV:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -88,26 +131,107 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     if sm_scale is None:
         sm_scale = 1.0 / (D ** 0.5)
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = _fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  _DTYPES[q.dtype], B, Sq, Sk, H, KV, D, Dv, int(causal),
                  int(sliding_window), int(q_offset), float(sm_scale), stream)
     _build.check(err, "flash_attention")
     with _count_lock:
         launches += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd_cuda(q, k, v, lse, do, *, sliding_window: int = 0,
+                             sm_scale: Optional[float] = None):
+    """Launch the backward kernels of causal self-attention (Sq == Sk,
+    q_offset 0), the dq kernel and then the dk/dv kernel: q, do (B, S, H,
+    D), k, v (B, S, KV, D), one dtype, contiguous; ``lse`` (B, H, S) float32
+    from the forward. Returns (dq, dk, dv) in q's dtype."""
+    global bwd_dq_launches, bwd_dkdv_launches
+    _build.refuse_grad("flash_attention_bwd_cuda", _USE, q, k, v, do)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    _check_inputs("flash_attention backward", q=q, k=k, v=v, do=do)
+    if (k.shape != (B, S, KV, D) or v.shape != k.shape or H % KV
+            or do.shape != q.shape):
+        raise ValueError(f"flash_attention backward: shapes q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, do {tuple(do.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention backward: head dim {D}; the "
+                         f"kernel takes D in {HEAD_DIMS}")
+    if (lse.dtype != torch.float32 or lse.shape != (B, H, S)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError("flash_attention backward: lse must be contiguous "
+                         f"float32 (B, H, S) on q's card, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / (D ** 0.5)
+    # each row's rowsum(dO * O), written by the dq kernel for the dk/dv one
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq_fn, dkdv_fn = _bwd_fns()
+    shape = (_DTYPES[q.dtype], B, S, H, KV, D, int(sliding_window),
+             float(sm_scale))
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = dq_fn(*ins, dq.data_ptr(), *shape, stream)
+        _build.check(err, "flash_attention backward (dq)")
+        with _count_lock:
+            bwd_dq_launches += 1
+        err = dkdv_fn(*ins, dk.data_ptr(), dv.data_ptr(), *shape, stream)
+        _build.check(err, "flash_attention backward (dk, dv)")
+        with _count_lock:
+            bwd_dkdv_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal self-attention on the card with a backward: the forward kernel
+    (which also writes the logsumexp), then the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sliding_window: int, sm_scale):
+        o, lse = flash_attention_cuda(q, k, v, causal=True,
+                                      sliding_window=sliding_window,
+                                      sm_scale=sm_scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.sliding_window, ctx.sm_scale = sliding_window, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, lse, do.contiguous(),
+            sliding_window=ctx.sliding_window, sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                     q_offset: int = 0, sm_scale: Optional[float] = None):
-    """Blocked attention forward: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    """Blocked attention: the CUDA kernels for CUDA tensors (through
+    :class:`FlashAttention` when autograd records), the plain version for
+    CPU tensors."""
     if q.device.type == "cpu":
         return plain_flash_attention(q, k, v, causal=causal,
                                      sliding_window=sliding_window,
                                      q_offset=q_offset, sm_scale=sm_scale)
-    return flash_attention_cuda(q, k, v, causal=causal,
-                                sliding_window=sliding_window,
-                                q_offset=q_offset, sm_scale=sm_scale)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return flash_attention_cuda(q, k, v, causal=causal,
+                                    sliding_window=sliding_window,
+                                    q_offset=q_offset, sm_scale=sm_scale)
+    if not (causal and q_offset == 0 and q.shape[1] == k.shape[1]):
+        raise NotImplementedError(
+            "flash_attention: the CUDA backward takes causal self-attention "
+            "(Sq == Sk, q_offset 0) only; cross-attention and q_offset are "
+            "ROADMAP Queue 2 item 2")
+    return FlashAttention.apply(q, k, v, int(sliding_window), sm_scale)

@@ -13,6 +13,8 @@ the Pallas wrapper combines its splits outside its kernel. A CPU tensor
 takes the plain version, :func:`repro_torch.kernels.flash_decode.ref
 .flash_decode_partial_ref` — the function the JAX model calls at
 ``models/attention.py:268-272``. There is no fallback from one to the other.
+The kernel's outputs are written through ctypes, which autograd cannot see,
+so the raw wrapper refuses to run while autograd records.
 """
 from __future__ import annotations
 
@@ -54,6 +56,9 @@ def flash_decode_cuda_partials(q, k, v, cur_pos, *, k_offset: int = 0,
     """Launch the CUDA kernel; returns the per-split float32 partials
     m, l (B, NS, H) and acc (B, NS, H, D), NS = ceil(L / DECODE_SPLIT)."""
     global launches
+    _build.refuse_grad("flash_decode_cuda_partials",
+                       "decode has no backward: run it under torch.no_grad()",
+                       q, k, v)
     B, H, D = q.shape
     L, KV = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v), ("cur_pos", cur_pos)):

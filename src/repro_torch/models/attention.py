@@ -11,8 +11,11 @@ call sites are the reference's three ref call sites:
   (``attention.py:268-272``).
 
 On CUDA tensors both launch the Hopper kernels; on CPU tensors they run the
-plain versions. MLA and the ring (sliding-window) decode cache wait
-(ROADMAP Queue 1 item 13, Queue 2 item 3).
+plain versions. Weights are cast to the activations' dtype at each use, as
+the reference casts ``p[...].astype(x.dtype)``: training keeps float32
+params and lets the gradient flow back through the cast, and serving's
+pre-cast weights make the cast a no-op. MLA and the ring (sliding-window)
+decode cache wait (ROADMAP Queue 1 item 13, Queue 2 item 3).
 """
 from __future__ import annotations
 
@@ -91,19 +94,20 @@ def _project_qkv(p: GQAttention, x, cfg: ModelConfig, plan: MeshPlan,
     hd = cfg.head_dim
     qh, n_kv = q_heads_local(cfg, plan), kv_heads_local(cfg, plan)
     B, S = x.shape[0], x.shape[1]
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    dt = x.dtype
+    q = x @ p.wq.to(dt)
+    k = x @ p.wk.to(dt)
+    v = x @ p.wv.to(dt)
     if cfg.qkv_bias:
-        q = q + p.bq
-        k = k + p.bk
-        v = v + p.bv
+        q = q + p.bq.to(dt)
+        k = k + p.bk.to(dt)
+        v = v + p.bv.to(dt)
     q = q.reshape(B, S, qh, hd)
     k = k.reshape(B, S, n_kv, hd)
     v = v.reshape(B, S, n_kv, hd)
     if cfg.qk_norm:                 # per head, before RoPE
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        q = rms_norm(q, p.q_norm.to(dt), cfg.norm_eps)
+        k = rms_norm(k, p.k_norm.to(dt), cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
     return q, k, v
@@ -117,7 +121,7 @@ def gqa_forward(p: GQAttention, x, cfg: ModelConfig, plan: MeshPlan,
     out = flash_attention(q, k, v, causal=causal,
                           sliding_window=sliding_window)
     B, S = x.shape[0], x.shape[1]
-    return out.reshape(B, S, -1) @ p.wo, (k, v)
+    return out.reshape(B, S, -1) @ p.wo.to(x.dtype), (k, v)
 
 
 def gqa_decode(p: GQAttention, x, cache_k, cache_v, pos, cfg: ModelConfig,
@@ -137,4 +141,4 @@ def gqa_decode(p: GQAttention, x, cache_k, cache_v, pos, cfg: ModelConfig,
     mm, ll, acc = flash_decode(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
                                cur_pos=pos, sliding_window=sliding_window)
     out = combine_partials(mm[None], ll[None], acc[None]).to(x.dtype)
-    return out.reshape(B, 1, Hp * hd) @ p.wo
+    return out.reshape(B, 1, Hp * hd) @ p.wo.to(x.dtype)

@@ -114,5 +114,6 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
 
 
 def param(t: torch.Tensor) -> torch.nn.Parameter:
-    """A serving-time parameter (no grad)."""
+    """A parameter, created without grad (serving); the training step turns
+    grad on (:func:`repro_torch.train.steps.make_train_step`)."""
     return torch.nn.Parameter(t, requires_grad=False)

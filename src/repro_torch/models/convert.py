@@ -1,4 +1,4 @@
-"""Load the reference's parameter tree into the port's modules.
+"""Move parameters between the reference's tree and the port's modules.
 
 The one place that knows the JAX tree's layout (``repro/models/transformer
 .py:249-281``): top-level ``embed``, ``unembed`` and ``final_norm``; a
@@ -9,13 +9,16 @@ slot ``j`` whose leaves are stacked over periods, so layer
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import check_supported, stack_layout
+from repro_torch.models.common import MeshPlan
+from repro_torch.models.transformer import Block, check_supported, stack_layout
+
+Path = Tuple[Union[str, int], ...]
 
 
 def _map(fn, tree):
@@ -55,3 +58,46 @@ def params_from_jax(np_tree: Mapping[str, Any],
     for li, blk in enumerate(unstack_layers(np_tree, cfg)):
         _flatten(blk, f"blocks.{li}.", flat)
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in flat.items()}
+
+
+def jax_leaves(cfg: ModelConfig) -> List[Tuple[Path, List[str]]]:
+    """The reference tree's leaves in its flatten order (dict keys sorted,
+    list entries by index), each as its key path and the ``state_dict``
+    names it holds: one name, or for a ``body`` leaf one per period, in
+    period order (the leaf stacks them)."""
+    check_supported(cfg)
+    lay = stack_layout(cfg)
+    n_pro, P = len(lay.prologue), len(lay.period_slots)
+    with torch.device("meta"):
+        names = [n for n, _ in Block(cfg, MeshPlan()).named_parameters()]
+    block = sorted(names, key=lambda n: tuple(n.split(".")))
+    out: List[Tuple[Path, List[str]]] = []
+    for j in range(P):
+        out += [(("body", j, *leaf.split(".")),
+                 [f"blocks.{n_pro + i * P + j}.{leaf}"
+                  for i in range(lay.n_periods)]) for leaf in block]
+    out += [(("embed",), ["embed"]), (("final_norm",), ["final_norm"])]
+    for i in range(n_pro):
+        out += [(("prologue", i, *leaf.split(".")), [f"blocks.{i}.{leaf}"])
+                for leaf in block]
+    out.append((("unembed",), ["unembed"]))
+    return out
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor],
+                  cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: a ``state_dict`` -> the
+    reference's param tree of numpy arrays (body leaves stacked over
+    periods)."""
+    lay = stack_layout(cfg)
+    tree: Dict[str, Any] = {
+        "body": [{} for _ in lay.period_slots],
+        "prologue": [{} for _ in lay.prologue]}
+    for path, names in jax_leaves(cfg):
+        arrs = [state[n].detach().cpu().numpy() for n in names]
+        arr = np.stack(arrs) if path[0] == "body" else arrs[0]
+        node: Any = tree
+        for key in path[:-1]:
+            node = node[key] if isinstance(key, int) else node.setdefault(key, {})
+        node[path[-1]] = arr
+    return tree

@@ -28,4 +28,5 @@ def init_dense_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> DenseMLP:
 
 
 def dense_mlp_forward(p: DenseMLP, x):
-    return swiglu(x @ p.w_gate, x @ p.w_up) @ p.w_down
+    dt = x.dtype
+    return swiglu(x @ p.w_gate.to(dt), x @ p.w_up.to(dt)) @ p.w_down.to(dt)

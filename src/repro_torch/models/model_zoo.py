@@ -1,9 +1,11 @@
-"""Public model API: build a model from its config, allocate decode caches.
+"""Public model API: build a model from its config, its training loss,
+decode caches.
 
-Port of ``repro/models/model_zoo.py:34-105`` for the serving path: the
-reference's bundle of init/loss/prefill/decode closures becomes the
-:class:`repro_torch.models.transformer.Transformer` module, and decode
-caches are one ``{"k", "v"}`` dict per layer.
+Port of ``repro/models/model_zoo.py:34-105``: the reference's bundle of
+init/loss/prefill/decode closures becomes the
+:class:`repro_torch.models.transformer.Transformer` module (which carries
+its config and plan), :func:`loss_fn`, and decode caches as one
+``{"k", "v"}`` dict per layer.
 """
 from __future__ import annotations
 
@@ -20,6 +22,12 @@ def build_model(cfg: ModelConfig, plan: MeshPlan, seed: int = 0,
                 device=None) -> T.Transformer:
     """The model with the port's seeded init (see :func:`T.init_model`)."""
     return T.init_model(cfg, plan, seed=seed, device=device)
+
+
+def loss_fn(params: T.Transformer, batch, remat: bool = True):
+    """The training loss, ``(loss, metrics)``: the reference bundle's
+    ``loss_fn(params, batch)``."""
+    return T.forward_loss(params, batch, params.cfg, params.plan, remat=remat)
 
 
 def _block_cache(cfg: ModelConfig, plan: MeshPlan, kind: str, batch: int,

@@ -1,11 +1,13 @@
-"""Model assembly for serving: embeddings, blocks, stack slices.
+"""Model assembly: embeddings, blocks, stack slices, the training loss.
 
-Port of the serving half of ``repro/models/transformer.py`` for the
-``attn``/``dense`` layer kinds (dense GQA decoders such as qwen3, llama3,
-qwen2.5). The reference stacks each period slot's params over periods and
-scans them; here a model is an ``nn.Module`` holding a flat ``blocks`` list
-in layer order, and :mod:`repro_torch.models.convert` maps the reference's
-stacked tree onto it (layer ``n_pro + i*P + j`` is ``body[j][...][i]``).
+Port of ``repro/models/transformer.py`` for the ``attn``/``dense`` layer
+kinds (dense GQA decoders such as qwen3, llama3, qwen2.5): the serving
+half (prefill and decode over stack slices) and the training half at
+tp = 1 (:func:`lm_loss`, :func:`_run_body`, :func:`forward_loss`). The
+reference stacks each period slot's params over periods and scans them;
+here a model is an ``nn.Module`` holding a flat ``blocks`` list in layer
+order, and :mod:`repro_torch.models.convert` maps the reference's stacked
+tree onto it (layer ``n_pro + i*P + j`` is ``body[j][...][i]``).
 
 Decode caches are a list with one ``{"k", "v"}`` dict per layer; a stage
 holds the entries of its own layers.
@@ -18,8 +20,10 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.softmax_xent import combine_stats, xent_local_stats
 from repro_torch.models.attention import (GQAttention, gqa_decode,
                                           gqa_forward, init_gqa)
 from repro_torch.models.common import (MeshPlan, dense_init, param,
@@ -172,13 +176,13 @@ def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
     the prompt's k/v in bfloat16 (the reference's prefill cache dtype),
     unpadded — the stage's ``write_slot`` places it in the group cache."""
     assert (kind, mlp_kind) == ("attn", "dense"), (kind, mlp_kind)
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    h = rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps)
     a, (k, v) = gqa_forward(p.attn, h, cfg, plan, positions, causal=causal,
                             sliding_window=sliding_window)
     cache = ({"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
              if want_cache else None)
     x = x + a
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+    h2 = rms_norm(x, p.ln2.to(x.dtype), cfg.norm_eps)
     x = x + dense_mlp_forward(p.mlp, h2)
     return x, cache
 
@@ -188,10 +192,10 @@ def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
                  sliding_window: int = 0):
     """Single-token step; updates ``cache`` in place. Returns (x, cache)."""
     assert (kind, mlp_kind) == ("attn", "dense"), (kind, mlp_kind)
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    h = rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps)
     x = x + gqa_decode(p.attn, h, cache["k"], cache["v"], pos, cfg, plan,
                        sliding_window)
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+    h2 = rms_norm(x, p.ln2.to(x.dtype), cfg.norm_eps)
     x = x + dense_mlp_forward(p.mlp, h2)
     return x, cache
 
@@ -233,3 +237,72 @@ def stage_units(cfg: ModelConfig) -> List[List[int]]:
     units += [[n_pro + i * P + j for j in range(P)]
               for i in range(lay.n_periods)]
     return units
+
+
+# ---------------------------------------------------------------------------
+# training loss (tp = 1)
+# ---------------------------------------------------------------------------
+
+def lm_loss(p_unembed, h, labels, weights, plan: MeshPlan,
+            cfg: ModelConfig):
+    """Sharded-vocab cross-entropy (paper Fig 11b) on one vocab shard.
+
+    h: (B, S, d); labels/weights: (B, S). The logits run over the whole
+    padded vocab, unmasked, as in the reference (``transformer.py:333-344``);
+    the local stats come from :func:`xent_local_stats` (the kernel on the
+    card) and are combined as one shard. Returns the weighted mean loss."""
+    B, S, d = h.shape
+    logits = h.reshape(B * S, d) @ p_unembed.to(h.dtype)
+    m_, s_, z_ = xent_local_stats(logits, labels.reshape(-1), 0)
+    tok = combine_stats(m_[None], s_[None], z_[None])
+    w = weights.reshape(-1).float()
+    return (tok * w).sum() / torch.clamp_min(w.sum(), 1.0)
+
+
+def _run_body(model: Transformer, x, cfg: ModelConfig, plan: MeshPlan,
+              positions, causal: bool = True, sliding_window: int = 0,
+              remat: bool = True):
+    """The block stack for training: the prologue, then each period, with
+    per-period rematerialisation (``torch.utils.checkpoint``, the
+    counterpart of the reference's ``jax.checkpoint`` of ``one_period``; at
+    tp = 1 its "boxed" save policy saves nothing). Returns ``(x, aux)``."""
+    lay = stack_layout(cfg)
+    n_pro, P = len(lay.prologue), len(lay.period_slots)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (kind, mlp_kind) in enumerate(lay.prologue):
+        x, _ = apply_block(model.blocks[i], x, cfg, plan, kind, mlp_kind,
+                           positions, causal, sliding_window)
+
+    def one_period(x, i: int):
+        for j, (kind, mlp_kind) in enumerate(lay.period_slots):
+            x, _ = apply_block(model.blocks[n_pro + i * P + j], x, cfg, plan,
+                               kind, mlp_kind, positions, causal,
+                               sliding_window)
+        return x
+
+    for i in range(lay.n_periods):
+        x = (checkpoint(one_period, x, i, use_reentrant=False) if remat
+             else one_period(x, i))
+    return x, aux
+
+
+def forward_loss(model: Transformer, batch, cfg: ModelConfig,
+                 plan: MeshPlan, remat: bool = True):
+    """Training loss of a dense decoder. batch: ``{"tokens": (B, S+1)}``
+    int32 (numpy or torch). Returns ``(loss, metrics)`` with metrics
+    ``lm_loss``, ``aux_loss`` (0: no router) and ``loss``."""
+    check_supported(cfg)
+    dev = model.embed.device
+    tokens = torch.as_tensor(batch["tokens"], dtype=torch.int32, device=dev)
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    positions = torch.arange(inputs.shape[1], device=dev)
+    x = embed_tokens(model.embed, inputs, plan).to(compute_dtype(cfg))
+    weights = torch.ones(labels.shape, dtype=torch.float32, device=dev)
+    x, aux = _run_body(model, x, cfg, plan, positions, causal=True,
+                       remat=remat)
+    x = rms_norm(x, model.final_norm.to(x.dtype), cfg.norm_eps)
+    loss = lm_loss(model.unembed, x, labels, weights, plan, cfg)
+    metrics = {"lm_loss": loss, "aux_loss": aux}
+    loss = loss + cfg.router_aux_weight * aux
+    metrics["loss"] = loss
+    return loss, metrics

@@ -1,0 +1,109 @@
+"""AdamW in PyTorch, float32 (port of ``repro/optim/adamw.py``).
+
+The reference's pytrees become ordered dicts of tensors keyed by the
+model's ``state_dict`` names. Callers pass them in the reference tree's
+leaf order (:func:`repro_torch.models.convert.jax_leaves`), so the global
+norm sums its per-tensor terms in the reference's order. The per-stage
+entry points of the reference's pipeline optimizer actors wait for graph
+training (ROADMAP Queue 1 item 7).
+
+:func:`adamw_math` is the one AdamW recurrence: the same op sequence as the
+reference's, out of place, so every update path here runs it. The update
+functions write the results back into the params and moments in place (a
+2B-parameter model holds 24 GB of them in float32; a functional copy of
+each would double that).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterable, NamedTuple, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor                 # int32 scalar
+    mu: Dict[str, torch.Tensor]        # first moment, float32, like params
+    nu: Dict[str, torch.Tensor]        # second moment
+
+
+def init_adamw(params: Dict[str, torch.Tensor]) -> AdamWState:
+    """Zero moments (float32) beside each param, step 0."""
+    dev = next(iter(params.values())).device
+    zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+                     for n, p in params.items()}
+    return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
+                      zeros(), zeros())
+
+
+def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32, summed in the
+    order given."""
+    return torch.sqrt(sum(x.float().square().sum() for x in leaves))
+
+
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        pre_norm=None) -> Tuple[Dict[str, torch.Tensor],
+                                                torch.Tensor]:
+    norm = global_norm(grads.values()) if pre_norm is None else pre_norm
+    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
+    return {n: g * scale for n, g in grads.items()}, norm
+
+
+def adamw_math(p32, g32, m, v, step, lr, beta1, beta2, eps, weight_decay):
+    """The AdamW recurrence, float32 in and out; ``step`` is the new
+    (1-based) step count as a tensor. Returns ``(new_p32, new_m, new_v)``."""
+    step = step.float()
+    bc1 = 1.0 - beta1 ** step
+    bc2 = 1.0 - beta2 ** step
+    m = beta1 * m + (1 - beta1) * g32
+    v = beta2 * v + (1 - beta2) * g32 * g32
+    new_p = p32 - lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
+                        + weight_decay * p32)
+    return new_p, m, v
+
+
+@torch.no_grad()
+def adamw_param_update(p, g, m, v, step, lr, *, beta1: float = 0.9,
+                       beta2: float = 0.95, eps: float = 1e-8,
+                       weight_decay: float = 0.1) -> None:
+    """One tensor's AdamW update, in place: ``g`` is the already-clipped
+    gradient, ``step`` the new step count, ``lr`` the resolved learning
+    rate. All math in float32; ``p`` keeps its dtype."""
+    new_p, new_m, new_v = adamw_math(p.float(), g.float(), m, v, step, lr,
+                                     beta1, beta2, eps, weight_decay)
+    p.copy_(new_p)
+    m.copy_(new_m)
+    v.copy_(new_v)
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
+                 grads: Dict[str, torch.Tensor], state: AdamWState,
+                 lr_scale: float = 1.0) -> Tuple[AdamWState, torch.Tensor]:
+    """One AdamW step over every param, in place, in the order of
+    ``params``. Returns the new state and the pre-clip global norm.
+
+    The clip factor is applied one tensor at a time, as each is updated, so
+    no second copy of the gradients is held (8 GB at 2B params)."""
+    grads = {n: g.float() for n, g in grads.items()}
+    norm = global_norm(grads.values())
+    scale = (torch.clamp(cfg.grad_clip / torch.clamp_min(norm, 1e-12),
+                         max=1.0) if cfg.grad_clip else 1.0)
+    step = state.step + 1
+    for n, p in params.items():
+        adamw_param_update(p, grads[n] * scale, state.mu[n], state.nu[n], step,
+                           cfg.lr * lr_scale, beta1=cfg.beta1,
+                           beta2=cfg.beta2, eps=cfg.eps,
+                           weight_decay=cfg.weight_decay)
+    return AdamWState(step, state.mu, state.nu), norm

@@ -10,7 +10,12 @@ Tolerances. float32 inputs: ``rtol=atol=2e-4`` (the kernels sum in another
 order than PyTorch's matmuls). bfloat16 inputs: ``2e-2``, as
 ``tests/test_kernels.py``. The kernels keep every score in float32, while the
 plain decode version (like the JAX reference) rounds the score einsum to
-bfloat16 before the scale, and an output in bf16 may round either way.
+bfloat16 before the scale, and an output in bf16 may round either way. The
+xent stats are float32 outputs of the same float32 arithmetic on the same
+values, so they are held at ``2e-4`` for bf16 logits too. Gradients compare
+the backward kernels with autograd through the plain versions; the
+attention backward's bf16 case also differs in ``delta = rowsum(dO * O)``,
+which the kernel takes from the bf16 output, as FlashAttention-2 does.
 """
 import numpy as np
 import pytest
@@ -20,6 +25,8 @@ from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.flash_attention.ref import attention_dense_ref
 from repro_torch.kernels.flash_decode import kernel as fd
 from repro_torch.kernels.flash_decode.ref import combine_partials
+from repro_torch.kernels.softmax_xent import kernel as xk
+from repro_torch.kernels.softmax_xent.ref import local_stats_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -146,3 +153,146 @@ def test_flash_decode_refuses_k_positions(cuda):
         fd.flash_decode(q, k, v, cur_pos=cur,
                         k_positions=torch.zeros((1, 16), dtype=torch.int32,
                                                 device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [
+    # B, S, H, KV, D, window, dtype
+    (2, 50, 4, 2, 64, 0, "float32"),                     # ragged tiles
+    (1, 130, 4, 4, 128, 33, "float32"),                  # sliding window
+    (1, 256, 4, 1, 128, 0, "float32"),                   # group of 4
+    (1, 128, 8, 2, 64, 0, "bfloat16"),
+    (1, 200, 16, 8, 128, 70, "bfloat16"),                # window, bf16
+    (1, 512, 16, 8, 128, 0, "bfloat16"),                 # qwen3 layer
+]
+
+
+def _grad_case(case, device, seed=3):
+    B, S, H, KV, D, w, dt = case
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (B, S, H, D), dt, device).requires_grad_(True)
+    k = _randn(rng, (B, S, KV, D), dt, device).requires_grad_(True)
+    v = _randn(rng, (B, S, KV, D), dt, device).requires_grad_(True)
+    do = _randn(rng, (B, S, H, D), dt, device)
+    return q, k, v, do, w
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_backward_matches_plain_autograd(cuda, case):
+    q, k, v, do, w = _grad_case(case, cuda)
+    before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkdv_launches)
+    out = fa.flash_attention(q, k, v, causal=True, sliding_window=w)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkdv_launches) == tuple(
+        n + 1 for n in before)
+    ref = fa.plain_flash_attention(q, k, v, causal=True, sliding_window=w)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    dt = case[-1]
+    _close(out, ref, dt)
+    for g, wv in zip(got, want):
+        assert g.dtype == wv.dtype and g.shape == wv.shape
+        assert g.abs().max() > 0
+        _close(g, wv, dt)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=False), dict(q_offset=8),
+                                dict(sk=48)])
+def test_flash_attention_backward_scope_raises(cuda, kw):
+    """Cross-attention, q_offset and a non-causal mask have no CUDA
+    backward yet: asking for one raises before any launch."""
+    kw = dict(kw)
+    sk = kw.pop("sk", 32)
+    q = torch.zeros((1, 32, 2, 64), device=cuda, requires_grad=True)
+    k = torch.zeros((1, sk, 2, 64), device=cuda, requires_grad=True)
+    before = fa.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.flash_attention(q, k, k, **kw)
+    assert fa.launches == before
+
+
+# ---------------------------------------------------------------------------
+# sharded-vocab xent
+# ---------------------------------------------------------------------------
+
+XENT_CASES = [
+    # N, Vl, vocab_offset, dtype
+    (64, 1000, 0, "float32"),
+    (100, 700, 2100, "float32"),                         # unaligned rows
+    (7, 130, 130, "float32"),
+    (256, 2048, 4096, "bfloat16"),
+    (16, 151936, 0, "bfloat16"),                         # qwen3 vocab
+]
+
+
+@pytest.mark.parametrize("case", XENT_CASES)
+def test_xent_kernels_match_plain(cuda, case):
+    N, Vl, off, dt = case
+    rng = np.random.default_rng(4)
+    logits = (_randn(rng, (N, Vl), dt, cuda) * 3).requires_grad_(True)
+    labels = torch.as_tensor(rng.integers(0, 3 * Vl, size=(N,)),
+                             dtype=torch.int32, device=cuda)
+    labels[0] = off                                      # a hit at column 0
+    ds = _randn(rng, (N,), "float32", cuda)
+    dz = _randn(rng, (N,), "float32", cuda)
+    f0, b0 = xk.launches, xk.bwd_launches
+    got = xk.xent_local_stats(logits, labels, off)
+    (g,) = torch.autograd.grad(got[1:], logits, (ds, dz))
+    torch.cuda.synchronize()
+    assert (xk.launches, xk.bwd_launches) == (f0 + 1, b0 + 1)
+    assert not got[0].requires_grad
+    want = local_stats_ref(logits, labels, off)
+    (wg,) = torch.autograd.grad(want[1:], logits, (ds, dz))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+    assert g.dtype == logits.dtype
+    _close(g, wg, dt)
+
+
+def test_raw_wrappers_refuse_under_grad(cuda):
+    q, k, v, do, _ = _grad_case((1, 64, 2, 2, 64, 0, "float32"), cuda)
+    logits = torch.zeros((4, 64), device=cuda, requires_grad=True)
+    labels = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    stat = torch.zeros((4,), device=cuda)
+    cur = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    for call in (lambda: fa.flash_attention_cuda(q, k, v),
+                 lambda: fa.flash_attention_bwd_cuda(
+                     q, k, v, torch.zeros((1, 2, 64), device=cuda), do),
+                 lambda: fd.flash_decode_cuda_partials(q[:, 0], k, v, cur),
+                 lambda: xk.xent_local_stats_cuda(logits, labels, 0),
+                 lambda: xk.xent_local_stats_bwd_cuda(logits, labels, 0,
+                                                      stat, stat, stat)):
+        with pytest.raises(RuntimeError, match="cut the autograd graph"):
+            call()
+
+
+def test_model_grads_on_card_match_plain_path(cuda):
+    """Reduced qwen3 (float32): the training loss's gradients through the
+    kernels on the card against the same weights on the CPU's plain path.
+    The attention weights get a gradient only through the attention
+    backward kernel."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model, loss_fn
+    cfg = get_config("qwen3-1.7b").reduced()
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 65)).astype(np.int32)}
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, MeshPlan(), seed=0, device="cpu").to(dev)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        loss, _ = loss_fn(model, batch)
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[str(dev)] = loss.item(), dict(zip(names, grads))
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lc - lg) <= 1e-4 * abs(lc)
+    for name, g in gc.items():
+        if name.split(".")[-1] in ("wq", "wk", "wv", "q_norm", "k_norm"):
+            assert gg[name].abs().max() > 0, name
+        torch.testing.assert_close(gg[name].cpu(), g, rtol=2e-3, atol=2e-5,
+                                   msg=name)

@@ -6,9 +6,14 @@ them. Tolerances: float32 ``rtol=2e-4, atol=2e-5`` (summation order differs
 between XLA and PyTorch); bfloat16 ``2e-2`` (one bf16 rounding of scores or
 outputs may land on the other side), as in ``test_kernels.py``.
 
+Gradients: the plain versions' autograd against ``jax.vjp`` of the JAX
+refs, float32, within 1e-5 -- the CUDA backward kernels are held against
+the same plain autograd on the card.
+
 The CUDA kernels themselves run only on the card (``test_torch_gpu.py``);
 here the wrappers must take the plain path for CPU tensors, never launch,
-and refuse a non-CPU tensor they cannot launch on.
+refuse a non-CPU tensor they cannot launch on, and refuse (raw wrappers)
+to run while autograd records.
 """
 import numpy as np
 import pytest
@@ -26,12 +31,18 @@ from repro.kernels.flash_decode.kernel import flash_decode_pallas  # noqa: E402
 from repro.kernels.flash_decode.ref import (  # noqa: E402
     decode_attention_ref as jax_decode_ref,
     flash_decode_partial_ref as jax_decode_partial)
+from repro.kernels.softmax_xent.kernel import xent_local_stats_pallas  # noqa: E402
+from repro.kernels.softmax_xent.ref import (  # noqa: E402
+    local_stats_ref as jax_local_stats, softmax_xent_ref as jax_xent_ref)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_dense_ref, flash_attention_ref, flash_attention_triangular)
 from repro_torch.kernels.flash_decode import kernel as fd_kernel  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import (  # noqa: E402
     combine_partials, decode_attention_ref, flash_decode_partial_ref)
+from repro_torch.kernels.softmax_xent import kernel as xent_kernel  # noqa: E402
+from repro_torch.kernels.softmax_xent.ref import (  # noqa: E402
+    combine_stats, local_stats_ref, softmax_xent_ref)
 
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -156,6 +167,117 @@ def test_fully_masked_rows_average_v():
     assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-5)
     assert_allclose(_np(got)[0, -1], _np(v[1]).mean(axis=1)[0], rtol=1e-5,
                     atol=1e-6)
+
+
+GRAD_CASES = [
+    # B, S, H, KV, D, window
+    (2, 40, 4, 2, 16, 0),                 # GQA, ragged blocks
+    (1, 70, 4, 1, 16, 9),                 # GQA + sliding window
+    (1, 33, 2, 2, 8, 0),
+]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_plain_attention_grads_match_jax_vjp(case):
+    """dq, dk, dv of the plain causal path (what the CPU model trains
+    through) against ``jax.vjp`` of ``flash_attention_triangular``."""
+    B, S, H, KV, D, w = case
+    rng = np.random.default_rng(9)
+    q, k, v, do = (rng.normal(size=shape).astype(np.float32) for shape in (
+        (B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    _, vjp = jax.vjp(jax.jit(lambda a, b, c: jax_triangular(
+        a, b, c, sliding_window=w)), q, k, v)
+    want = vjp(jnp.asarray(do))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = fa_kernel.flash_attention(qt, kt, vt, causal=True, sliding_window=w)
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
+    for name, g, wv in zip("qkv", got, want):
+        assert_allclose(_np(g), _np(wv), rtol=1e-5, atol=1e-5,
+                        err_msg=f"d{name}")
+
+
+# ---------------------------------------------------------------------------
+# softmax xent
+# ---------------------------------------------------------------------------
+
+XENT_CASES = [
+    # N, Vl, vocab_offset, dtype
+    (64, 1000, 0, "float32"),
+    (100, 700, 2100, "float32"),
+    (7, 130, 130, "float32"),
+    (256, 2048, 4096, "bfloat16"),
+]
+
+
+def _xent_inputs(case, seed=0):
+    N, Vl, off, dt = case
+    rng = np.random.default_rng(seed)
+    logits = _pair(rng.normal(size=(N, Vl)) * 3, dt)
+    labels = rng.integers(0, 3 * Vl, size=(N,)).astype(np.int32)
+    return logits, (jnp.asarray(labels), torch.from_numpy(labels)), off
+
+
+@pytest.mark.parametrize("case", XENT_CASES)
+def test_plain_xent_matches_pallas_kernel_and_jax_ref(case):
+    (lj, lt), (yj, yt), off = _xent_inputs(case)
+    got = local_stats_ref(lt, yt, off)
+    for want in (xent_local_stats_pallas(lj, yj, off, block_v=256,
+                                         interpret=True),
+                 jax_local_stats(lj, yj, off)):
+        for g, wv in zip(got, want):
+            assert g.dtype == torch.float32
+            assert_allclose(_np(g), _np(wv), **_tol(case[-1]))
+
+
+@pytest.mark.parametrize("case", XENT_CASES)
+def test_xent_wrapper_takes_plain_path_on_cpu(case):
+    (lj, lt), (yj, yt), off = _xent_inputs(case, seed=1)
+    got = xent_kernel.xent_local_stats(lt, yt, off)
+    assert xent_kernel.launches == xent_kernel.bwd_launches == 0
+    for g, wv in zip(got, jax_local_stats(lj, yj, off)):
+        assert_allclose(_np(g), _np(wv), **_tol(case[-1]))
+
+
+def test_xent_shard_combine_matches_full():
+    """Four vocab shards' plain stats combine to the dense softmax-xent."""
+    rng = np.random.default_rng(10)
+    N, V = 32, 1024
+    logits = torch.from_numpy((rng.normal(size=(N, V)) * 2).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, V, size=(N,)).astype(np.int32))
+    Vl = V // 4
+    stats = [local_stats_ref(logits[:, i * Vl:(i + 1) * Vl], labels, i * Vl)
+             for i in range(4)]
+    got = combine_stats(*(torch.stack([s[i] for s in stats]) for i in range(3)))
+    want = jax_xent_ref(jnp.asarray(logits.numpy()), jnp.asarray(labels.numpy()))
+    assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-6)
+    assert_allclose(_np(softmax_xent_ref(logits, labels)), _np(want),
+                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", XENT_CASES[:3])
+def test_plain_xent_vjp_matches_jax_vjp(case):
+    """The gradient the CUDA backward kernel computes: through s and z
+    only, m held fixed (the reference's stop_gradient)."""
+    N, Vl, off, _ = case
+    rng = np.random.default_rng(11)
+    logits = (rng.normal(size=(N, Vl)) * 3).astype(np.float32)
+    labels = rng.integers(0, 3 * Vl, size=(N,)).astype(np.int32)
+    dm, ds, dz = (rng.normal(size=(N,)).astype(np.float32) for _ in range(3))
+    _, vjp = jax.vjp(jax.jit(lambda x: jax_local_stats(
+        x, jnp.asarray(labels), off)), jnp.asarray(logits))
+    (want,) = vjp((jnp.asarray(dm), jnp.asarray(ds), jnp.asarray(dz)))
+    lt = torch.from_numpy(logits).requires_grad_(True)
+    m, s, z = xent_kernel.xent_local_stats(lt, torch.from_numpy(labels), off)
+    assert not m.requires_grad
+    (got,) = torch.autograd.grad((s, z), lt, (torch.from_numpy(ds),
+                                              torch.from_numpy(dz)))
+    assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+
+
+def test_combine_stats_over_an_axis_is_not_ported():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        combine_stats(torch.zeros(1, 2), torch.ones(1, 2), torch.zeros(1, 2),
+                      axis_name="model")
 
 
 # ---------------------------------------------------------------------------
@@ -298,3 +420,52 @@ def test_decode_wrapper_refuses_non_cuda_device():
         fd_kernel.flash_decode(q, k, k, cur_pos=cur,
                                k_positions=torch.zeros((1, 8), device="meta"))
     assert fd_kernel.launches == 0
+
+
+def test_xent_wrapper_refuses_non_cuda_device():
+    logits = torch.empty((4, 64), device="meta")
+    labels = torch.zeros((4,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="card"):
+        xent_kernel.xent_local_stats(logits, labels, 0)
+    with pytest.raises(ValueError, match="card"):
+        xent_kernel.xent_local_stats(logits.requires_grad_(True), labels, 0)
+    assert xent_kernel.launches == xent_kernel.bwd_launches == 0
+
+
+@pytest.mark.parametrize("wrapper", ["flash_attention", "flash_attention_bwd",
+                                     "flash_decode", "xent", "xent_bwd"])
+def test_raw_wrappers_refuse_to_cut_the_graph(wrapper):
+    """A raw wrapper writes through ctypes; under autograd with an input
+    that requires grad it raises instead of returning an output with no
+    link to its inputs."""
+    meta = dict(device="meta", requires_grad=True)
+    q = torch.empty((1, 8, 2, 64), **meta)
+    logits = torch.empty((4, 64), **meta)
+    labels = torch.zeros((4,), dtype=torch.int32, device="meta")
+    stat = torch.empty((4,), device="meta")
+    calls = {
+        "flash_attention": lambda: fa_kernel.flash_attention_cuda(q, q, q),
+        "flash_attention_bwd": lambda: fa_kernel.flash_attention_bwd_cuda(
+            q, q, q, torch.empty((1, 2, 8), device="meta"), q),
+        "flash_decode": lambda: fd_kernel.flash_decode_cuda_partials(
+            q[:, 0], q, q, torch.zeros((1,), dtype=torch.int32,
+                                       device="meta")),
+        "xent": lambda: xent_kernel.xent_local_stats_cuda(logits, labels, 0),
+        "xent_bwd": lambda: xent_kernel.xent_local_stats_bwd_cuda(
+            logits, labels, 0, stat, stat, stat),
+    }
+    with pytest.raises(RuntimeError, match="cut the autograd graph"):
+        calls[wrapper]()
+    with torch.no_grad(), pytest.raises(ValueError, match="card"):
+        calls[wrapper]()          # without autograd: the device check
+
+
+@pytest.mark.parametrize("kw", [dict(causal=False), dict(q_offset=4)])
+def test_flash_attention_backward_scope_raises(kw):
+    """The CUDA backward takes causal self-attention at q_offset 0; other
+    calls that need a gradient raise before launching."""
+    q = torch.empty((1, 8, 2, 64), device="meta", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa_kernel.flash_attention(q, q, q, **kw)
+    with torch.no_grad(), pytest.raises(ValueError, match="card"):
+        fa_kernel.flash_attention(q, q, q, **kw)

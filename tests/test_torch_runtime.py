@@ -170,7 +170,8 @@ def test_port_imports_without_jax():
     """Every module of the port imports in a fresh interpreter, and jax is
     not among the loaded modules afterwards."""
     mods = _port_modules()
-    assert "repro_torch.api" in mods and "repro_torch.launch.serve" in mods
+    assert {"repro_torch.api", "repro_torch.launch.serve",
+            "repro_torch.launch.train", "repro_torch.train.steps"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
