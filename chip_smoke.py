@@ -15,16 +15,21 @@ result line is printed:
    backward at the training logits (4,096 x 151,936,
    bf16), the attention backward at a training layer (q (2, 2048, 16, 128),
    kv (2, 2048, 8, 128), causal, bf16) against autograd through the plain
-   version -- and again on float32 copies of the same inputs, held tighter.
+   version, the SSD scan at the mamba2-370m prefill of 512 tokens (x (1,
+   512, 32, 64), B and C (1, 512, 1, 128), bf16) -- and again on float32
+   copies of the same inputs, held tighter.
    Each reports the kernel's device time (torch.profiler), the wrapper
    call's, the plain version's, the least time the card could take (bytes
    over 3.35 TB/s or operations over the peak rate of their type, whichever
    is larger) and one PyTorch library call as a yardstick (SDPA, or
-   ``F.cross_entropy``; timed here only, the port never calls them);
+   ``F.cross_entropy``; timed here only, the port never calls them; none
+   computes the SSD scan, so its row says "none");
 3. reference: the reduced qwen3 config served through the kernels agrees
    with the same weights on the CPU's plain path (prefill and decode
    logits); then two training steps of it through the kernels agree with
-   the same two steps on the CPU (loss, grad_norm);
+   the same two steps on the CPU (loss, grad_norm); then the reduced
+   mamba2 config (float32) served through the SSD kernel gives the CPU's
+   plain path's tokens, with prefill logits within 1e-3;
 4. serve: qwen3-1.7b at full width, bf16, seeded init, through
    ``repro_torch.api.compile(backend="actors", stages=2)`` -- 12 requests of
    64-512 prompt tokens and 8-48 new tokens in 2 groups of 4 slots; then
@@ -32,7 +37,9 @@ result line is printed:
    tokens. Around each of the two runs the kernels' launch counters are
    zeroed just before and read just after, and must equal the launches the
    scheduler's work implies. One more monolithic run under torch.profiler
-   gives the device's busy share and its kernels by time;
+   gives the device's busy share and its kernels by time. Then the same for
+   mamba2-370m at full width and depth (48 SSM layers, bf16): one SSD scan
+   launch per layer per prefill, no attention kernel;
 5. train: qwen3-1.7b at full width and depth (bf16 compute, float32 params
    and AdamW state, seeded init) through ``repro_torch.train.steps
    .make_train_step``, fed by ``ActorDataPipeline(SyntheticLM(151936, 2,
@@ -77,8 +84,12 @@ F32_TOL = 1e-4
 SEED = 0
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """Start a phase, with the seconds since the script started."""
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -134,11 +145,14 @@ def timed(entry: dict, kernel: str, launch, wrapper, iters: int = 20) -> dict:
 
 
 def agree(name: str, got, want, atol: float, rtol: float) -> float:
-    """Max abs error of ``got`` against ``want``; raise past the limit."""
-    err = (got.float() - want.float()).abs().max().item()
+    """Max abs error of ``got`` against ``want``; raise past the limit. The
+    worst element's share of its limit is printed beside it."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    share = (diff / (atol + rtol * want.float().abs())).max().item()
     ok = torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
-    print(f"{name}: max_abs_err {err:.3e} (limit {atol} + {rtol}*|ref|) "
-          f"{'ok' if ok else 'FAIL'}")
+    print(f"{name}: max_abs_err {err:.3e} (limit {atol} + {rtol}*|ref|; "
+          f"worst at {share:.2f} of its limit) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              "version")
@@ -166,7 +180,8 @@ def device_and_build():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.softmax_xent import kernel as xk
-    sources = [fa.SOURCE, fd.SOURCE, xk.SOURCE, fa.BWD_SOURCE]
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    sources = [fa.SOURCE, fd.SOURCE, xk.SOURCE, fa.BWD_SOURCE, ssd.SOURCE]
     t0 = time.perf_counter()
     _build.build(sources)
     print(f"built {', '.join(sources)} in "
@@ -421,6 +436,56 @@ def check_flash_attention_bwd(dev):
     }, "flash_bwd_", launch, launch)
 
 
+def check_ssd_scan(dev):
+    """The SSD scan at the mamba2-370m prefill of the longest serve prompt
+    (x (1, 512, 32, 64), B and C (1, 512, 1, 128) as views into one
+    projection, as the model passes them), bf16, then on float32 copies of
+    the same inputs. No single PyTorch call computes the scan: library
+    "none"."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
+    B, L, H, P, N, G, Q = 1, 512, 32, 64, 128, 1, 128
+    rng = np.random.default_rng(SEED + 9)
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+    x, bc = mk(B, L, H, P), mk(B, L, 2 * G * N)
+    Bm = bc[..., :G * N].reshape(B, L, G, N)
+    Cm = bc[..., G * N:].reshape(B, L, G, N)
+    # decays of the model's range: A = -linspace(1, 16), as its init
+    dt = torch.as_tensor(rng.uniform(0.01, 0.2, (B, L, H)),
+                         dtype=torch.float32, device=dev)
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    D = torch.as_tensor(rng.normal(size=H), dtype=torch.float32, device=dev)
+    args = (x, dt, A, Bm, Cm, D)
+    what = f"ssd_scan x{tuple(x.shape)} B/C{tuple(Bm.shape)} chunk {Q}"
+    errs = []
+    for dtype, atol, rtol in ((torch.bfloat16, ATOL, RTOL),
+                              (torch.float32, F32_TOL, F32_TOL)):
+        a = [t.to(dtype) if t.dtype == torch.bfloat16 else t for t in args]
+        y, hT = ssd.ssd_scan(*a, chunk=Q)
+        yr, hr = ssd_chunked_ref(*a, chunk=Q)
+        errs.append(max(agree(f"{what} y {dtype}", y, yr, atol, rtol),
+                        agree(f"{what} hT {dtype}", hT, hr, F32_TOL,
+                              F32_TOL)))
+    y, hT = ssd.ssd_scan_cuda(*args, chunk=Q)
+    flops = 0
+    for t0 in range(0, L, Q):                    # per chunk of Qc steps
+        qc = min(Q, L - t0)
+        pairs = qc * (qc + 1) // 2               # the causal (i >= j) pairs
+        flops += B * H * (2 * pairs * N + 2 * pairs * P + 4 * qc * N * P)
+    b_ms, b_by = bound_ms(nbytes(*args, y, hT), flops)
+    return timed({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:72",
+        "max_abs_err": errs[0], "f32_max_abs_err": errs[1],
+        "plain_ms": cuda_ms(lambda: ssd_chunked_ref(*args, chunk=Q), iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }, "ssd_scan_kernel", lambda: ssd.ssd_scan_cuda(*args, chunk=Q),
+        lambda: ssd.ssd_scan(*args, chunk=Q))
+
+
 def check_reference(dev):
     """Reduced qwen3 (float32) through the kernels on the card against the
     same weights on the CPU's plain path: prefill logits, then four decode
@@ -519,17 +584,88 @@ def check_reference_train(dev):
           "(bound 1e-4, float32)")
 
 
-def serve(dev):
-    """The main path: full-width qwen3-1.7b on the stage actors, then the
-    same requests on the monolithic engine, each run's kernel launches
-    counted and checked. Returns the launch counts of the actor run."""
-    phase("serve (qwen3-1.7b, full width, bf16, actors x 2 stages)")
+def check_reference_mamba(dev):
+    """Reduced mamba2 (float32) served through the SSD kernel on the card
+    against the same weights on the CPU's plain path: the same tokens on
+    the stage actors, then prefill logits within 1e-3."""
+    phase("reference (reduced mamba2, card vs CPU plain path)")
     from repro_torch import api
     from repro_torch.configs.registry import get_config
+    from repro_torch.core.lowering import lower_serve_stages
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("mamba2-370m").reduced()
+    rng = np.random.default_rng(SEED + 8)
+    requests = [(rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32), g)
+                for n, g in ((37, 6), (100, 3), (5, 8), (64, 4))]
+    # the same seeded weights on each device (the init runs on the CPU)
+    state = build_model(cfg, MeshPlan.single_device(), seed=SEED,
+                        device="cpu").state_dict()
+    outs, launches = {}, {}
+    for d in ("cpu", dev):
+        ssd.launches = 0
+        with api.compile(cfg, mode="serve", backend="actors", stages=2,
+                         params=state, device=d, num_groups=2, group_size=1,
+                         max_prompt_len=128, max_new_tokens=8) as sess:
+            outs[d] = sess.generate(requests)
+        launches[d] = ssd.launches
+    want = {"cpu": 0, dev: len(requests) * cfg.num_layers}
+    same = all(np.array_equal(a, b) for a, b in zip(outs["cpu"], outs[dev]))
+    print(f"reduced mamba2 served on the stage actors: tokens identical to "
+          f"the CPU's: {same}; ssd_scan launches {launches} (expected "
+          f"{want})")
+    if not same or launches != want:
+        raise AssertionError(f"reduced mamba2: card {outs[dev]} vs CPU "
+                             f"{outs['cpu']}, launches {launches}")
+    progs = {d: lower_serve_stages(cfg, build_model(
+        cfg, MeshPlan.single_device(), seed=SEED, device="cpu").to(d),
+        num_stages=2, cache_len=128, max_prompt_len=100, group_size=1)
+        for d in ("cpu", dev)}
+    worst = 0.0
+    with torch.inference_mode():
+        for toks, _ in requests:
+            out = {}
+            for d, p in progs.items():
+                x = torch.as_tensor(toks[None], device=d)
+                for st in p.stages:
+                    x, _ = st.prefill(st.params, x, toks.size - 1)
+                out[d] = x.cpu()
+            worst = max(worst, (out[dev] - out["cpu"]).abs().max().item())
+            if not torch.allclose(out[dev], out["cpu"], rtol=1e-3, atol=1e-3):
+                raise AssertionError(f"reduced mamba2 prefill of {toks.size} "
+                                     "tokens: card and CPU logits disagree")
+    print(f"reduced mamba2 prefill logits: max abs err {worst:.3e} (bound "
+          "1e-3 + 1e-3*|ref|, float32)")
+
+
+def serve_counts():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    return {"flash_attention": fa.launches, "flash_decode": fd.launches,
+            "ssd_scan": ssd.launches}
 
-    cfg = get_config("qwen3-1.7b")
+
+def zero_serve_counts():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    fa.launches = fd.launches = ssd.launches = 0
+
+
+def serve(dev, arch: str):
+    """The main path: full-width ``arch`` on the stage actors, then the
+    same requests on the monolithic engine, each run's kernel launches
+    counted and checked: per layer, one attention forward per prefill and
+    one decode per decode item, or one SSD scan per prefill. Returns the
+    launch counts of the actor run."""
+    phase(f"serve ({arch}, full width, bf16, actors x 2 stages)")
+    from repro_torch import api
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
     n_req = 12
     rng = np.random.default_rng(SEED + 3)
     lens = rng.integers(64, 513, n_req)
@@ -546,18 +682,19 @@ def serve(dev):
           f"(cache_len {sess.cache_len})")
     print(sess.describe())
     def counted(session):
-        fa.launches = 0
-        fd.launches = 0
+        zero_serve_counts()
         out = session.generate(requests)
-        got = {"flash_attention": fa.launches, "flash_decode": fd.launches}
+        got = serve_counts()
         st = session.last_stats
         L = cfg.num_layers
-        want = {"flash_attention": n_req * L,
-                "flash_decode": L * st["decode_items"]}
+        ssm = cfg.family == "ssm"
+        want = {"flash_attention": 0 if ssm else L * st["prefill_items"],
+                "flash_decode": 0 if ssm else L * st["decode_items"],
+                "ssd_scan": L * st["prefill_items"] if ssm else 0}
         print(f"launches on the {session.backend} run: {got} (expected "
-              f"{want}: {n_req} x {L} and {L} x {st['decode_items']} "
-              "decode items)")
-        if got != want:
+              f"{want}: {L} layers, {st['prefill_items']} prefills, "
+              f"{st['decode_items']} decode items)")
+        if got != want or st["prefill_items"] != n_req:
             raise AssertionError(f"{session.backend}: kernel launches {got},"
                                  f" expected {want}")
         return out, got
@@ -774,16 +911,21 @@ def main() -> int:
     smi = device_and_build()
     phase("kernels (path shapes)")
     kernels = [check_flash_attention(dev), check_flash_decode(dev),
-               *check_xent(dev), check_flash_attention_bwd(dev)]
+               *check_xent(dev), check_flash_attention_bwd(dev),
+               check_ssd_scan(dev)]
     for kr in kernels + [dict(kernels[0]["train_shape"],
                               name="flash_attention (training shape)")]:
+        lib = kr["library_ms"]
         print(f"{kr['name']}: kernel {kr['ms']:.4f} ms, wrapper call "
               f"{kr['wrapper_ms']:.4f} ms, plain {kr['plain_ms']:.4f} "
               f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}), "
-              f"library {kr['library_ms']:.4f} ms")
+              "library " + ("none" if lib is None else f"{lib:.4f} ms"))
     check_reference(dev)
     check_reference_train(dev)
-    served = serve(dev)
+    check_reference_mamba(dev)
+    served = serve(dev, "qwen3-1.7b")
+    torch.cuda.empty_cache()
+    served.update(ssd_scan=serve(dev, "mamba2-370m")["ssd_scan"])
     torch.cuda.empty_cache()
     trained, curve = train(dev)
     torch.cuda.empty_cache()
@@ -801,6 +943,7 @@ def main() -> int:
         else:
             kr["launches"] = (served if name in served else trained)[name]
     kernels[0]["train_shape"]["launches"] = trained["flash_attention"]
+    print(f"all phases passed in {time.perf_counter() - _START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

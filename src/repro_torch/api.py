@@ -24,7 +24,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lowering import lower_serve_stages
 from repro_torch.models.common import MeshPlan, resolve_device
-from repro_torch.models.transformer import Transformer, stack_layout
+from repro_torch.models.transformer import (Transformer, has_ssm_layers,
+                                            stack_layout)
 from repro_torch.runtime.pipeline import (InlineServeEngine,
                                           ServePipelineExecutor)
 
@@ -125,12 +126,21 @@ class ServeSession:
 
         reqs = self._normalize(requests)
         V = self.cfg.vocab_size
+        # an SSM layer's prefill keeps the last d_conv - 1 rows of its conv
+        # inputs as the decode state: a shorter prompt has too few (the
+        # reference breaks there with a shape error)
+        min_len = min_prompt_len(self.cfg)
         prompts = []
         for i, r in enumerate(reqs):
             toks = np.asarray(r.tokens, dtype=np.int32)
             if toks.ndim != 1 or toks.size == 0:
                 raise ValueError(f"request {i}: prompt must be a non-empty "
                                  f"1-d token array, got shape {toks.shape}")
+            if toks.size < min_len:
+                raise ValueError(
+                    f"request {i}: prompt length {toks.size} is below "
+                    f"ssm_d_conv - 1 = {min_len}: {self.cfg.name}'s SSM "
+                    "layers need that many tokens for their conv state")
             if toks.size > self.max_prompt_len:
                 raise ValueError(
                     f"request {i}: prompt length {toks.size} exceeds "
@@ -194,6 +204,12 @@ class ServeSession:
         return (f"ServeSession(backend={self.backend!r}, "
                 f"stages={self.sstaged.num_stages}, "
                 f"groups={self.num_groups}x{self.group_size})")
+
+
+def min_prompt_len(cfg: ModelConfig) -> int:
+    """The shortest prompt ``cfg`` can prefill: ``ssm_d_conv - 1`` tokens
+    when it has SSM layers (their conv state), else 0."""
+    return cfg.ssm_d_conv - 1 if has_ssm_layers(cfg) else 0
 
 
 def _serve_options(*, num_groups, group_size, cache_len, max_prompt_len,

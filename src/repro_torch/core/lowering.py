@@ -11,7 +11,8 @@ Where the reference jits each stage program under ``shard_map``, a stage
 here is eager PyTorch over the stage's own copy of its weights, cast ONCE
 to the compute dtype at construction (the reference casts
 ``param.astype(x.dtype)`` at every call; a cast is deterministic, so the
-numbers are the same).
+numbers are the same). The SSM params the reference reads in float32
+(``dt_bias``, ``A_log``, ``D``) stay float32.
 """
 from __future__ import annotations
 
@@ -25,7 +26,11 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.common import MeshPlan, param
+from repro_torch.models.mamba import FLOAT32_PARAMS
 from repro_torch.models.model_zoo import make_decode_caches
+
+#: cache leaves indexed by position: a prompt fills its first S rows
+POSITIONAL = ("k", "v")
 
 
 class StageParams(nn.Module):
@@ -43,8 +48,11 @@ class StageParams(nn.Module):
 
 def _cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """A copy of ``module`` whose parameters are cast to ``dtype`` (shared,
-    not copied, where they already have it)."""
-    memo = {id(p): param(p.detach().to(dtype)) for p in module.parameters()}
+    not copied, where they already have it), but for those the model reads
+    in float32 (:data:`repro_torch.models.mamba.FLOAT32_PARAMS`)."""
+    memo = {id(p): param(p.detach().to(
+        torch.float32 if name.rsplit(".", 1)[-1] in FLOAT32_PARAMS
+        else dtype)) for name, p in module.named_parameters()}
     return copy.deepcopy(module, memo)
 
 
@@ -98,8 +106,11 @@ class ServeStagedProgram:
         return len(self.stages)
 
     def describe(self) -> str:
+        kinds = T.stack_layout(self.cfg).layer_kinds()
+        layers = ", ".join(f"{kinds.count(k)} {k[0]}/{k[1]}"
+                           for k in sorted(set(kinds)))
         lines = [f"serve pipeline: {self.num_stages} stages over "
-                 f"{self.stages[-1].units[1]} stack units "
+                 f"{self.stages[-1].units[1]} stack units ({layers} layers) "
                  f"(cache_len={self.cache_len}, "
                  f"group_size={self.group_size}, device={self.device})"]
         for st in self.stages:
@@ -197,14 +208,25 @@ def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
 
 def write_slot(caches: List[dict], slot_caches: List[dict],
                slot: int) -> List[dict]:
-    """Copy a prefilled request's caches (B = 1, prompt length S) into slot
-    ``slot`` of the group caches, casting to the group cache's dtype, and
-    zero the slot's positions past S — the reference's padded write, done
-    in place."""
+    """Copy a prefilled request's caches (B = 1) into slot ``slot`` of the
+    group caches in place, casting to the group cache's dtype. Positional
+    leaves (:data:`POSITIONAL`, prompt length S) fill the slot's first S
+    positions and zero the rest -- the reference's padded write; the SSM
+    state and conv tails are copied whole. A conv tail shorter than the
+    cache's (a prompt of fewer than ``ssm_d_conv - 1`` tokens) is refused."""
     for gc, sc in zip(caches, slot_caches):
         for key, dst in gc.items():
             src = sc[key][0]
-            S = src.shape[0]
-            dst[slot, :S].copy_(src)
-            dst[slot, S:].zero_()
+            if key in POSITIONAL:
+                S = src.shape[0]
+                dst[slot, :S].copy_(src)
+                dst[slot, S:].zero_()
+                continue
+            if src.shape != dst.shape[1:]:
+                raise ValueError(
+                    f"write_slot: the prefilled {key!r} has shape "
+                    f"{tuple(src.shape)}, the slot holds "
+                    f"{tuple(dst.shape[1:])}: an SSM layer needs a prompt of "
+                    "at least ssm_d_conv - 1 tokens for its conv tails")
+            dst[slot].copy_(src)
     return caches

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --requests 6 --prompt-len 32 --gen 16 --backend actors --stages 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --smoke --device cpu
 
 Port of ``repro/launch/serve.py:80-150`` (``continuous_batching``): requests
 with differing generation lengths are packed into decode slots, finished

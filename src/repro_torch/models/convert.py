@@ -68,18 +68,23 @@ def jax_leaves(cfg: ModelConfig) -> List[Tuple[Path, List[str]]]:
     check_supported(cfg)
     lay = stack_layout(cfg)
     n_pro, P = len(lay.prologue), len(lay.period_slots)
-    with torch.device("meta"):
-        names = [n for n, _ in Block(cfg, MeshPlan()).named_parameters()]
-    block = sorted(names, key=lambda n: tuple(n.split(".")))
+
+    def block(kind) -> List[str]:
+        """A block's leaf names in the JAX tree's sorted-key order."""
+        with torch.device("meta"):
+            names = [n for n, _ in Block(cfg, MeshPlan(),
+                                         kind=kind).named_parameters()]
+        return sorted(names, key=lambda n: tuple(n.split(".")))
+
     out: List[Tuple[Path, List[str]]] = []
-    for j in range(P):
+    for j, kind in enumerate(lay.period_slots):
         out += [(("body", j, *leaf.split(".")),
                  [f"blocks.{n_pro + i * P + j}.{leaf}"
-                  for i in range(lay.n_periods)]) for leaf in block]
+                  for i in range(lay.n_periods)]) for leaf in block(kind)]
     out += [(("embed",), ["embed"]), (("final_norm",), ["final_norm"])]
-    for i in range(n_pro):
+    for i, kind in enumerate(lay.prologue):
         out += [(("prologue", i, *leaf.split(".")), [f"blocks.{i}.{leaf}"])
-                for leaf in block]
+                for leaf in block(kind)]
     out.append((("unembed",), ["unembed"]))
     return out
 

@@ -4,8 +4,9 @@ decode caches.
 Port of ``repro/models/model_zoo.py:34-105``: the reference's bundle of
 init/loss/prefill/decode closures becomes the
 :class:`repro_torch.models.transformer.Transformer` module (which carries
-its config and plan), :func:`loss_fn`, and decode caches as one
-``{"k", "v"}`` dict per layer.
+its config and plan), :func:`loss_fn`, and decode caches as one dict per
+layer: ``{"k", "v"}`` for attention, ``{"h", "tail_x", "tail_bc"}`` for
+an SSM layer.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.common import MeshPlan
+from repro_torch.models.mamba import init_mamba_state
 
 
 def build_model(cfg: ModelConfig, plan: MeshPlan, seed: int = 0,
@@ -33,9 +35,13 @@ def loss_fn(params: T.Transformer, batch, remat: bool = True):
 def _block_cache(cfg: ModelConfig, plan: MeshPlan, kind: str, batch: int,
                  cache_len: int, device=None) -> Dict[str, torch.Tensor]:
     """One layer's zeroed decode cache, in the config's compute dtype for
-    bfloat16 configs and float32 otherwise (the reference's rule)."""
-    assert kind == "attn", kind
+    bfloat16 configs and float32 otherwise (the reference's rule); an SSM
+    layer's state ``h`` is float32 whatever the dtype."""
     adt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if kind == "ssm":
+        h, tail_x, tail_bc = init_mamba_state(cfg, plan, batch, adt, device)
+        return {"h": h, "tail_x": tail_x, "tail_bc": tail_bc}
+    assert kind == "attn", kind
     shape = (batch, cache_len // plan.tp, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=adt, device=device),
             "v": torch.zeros(shape, dtype=adt, device=device)}

@@ -1,15 +1,18 @@
 """Model assembly: embeddings, blocks, stack slices, the training loss.
 
 Port of ``repro/models/transformer.py`` for the ``attn``/``dense`` layer
-kinds (dense GQA decoders such as qwen3, llama3, qwen2.5): the serving
-half (prefill and decode over stack slices) and the training half at
-tp = 1 (:func:`lm_loss`, :func:`_run_body`, :func:`forward_loss`). The
+kinds (dense GQA decoders such as qwen3, llama3, qwen2.5) and the
+``ssm``/``none`` kind (attention-free Mamba-2 stacks such as mamba2-370m):
+the serving half (prefill and decode over stack slices) and, for attn/dense
+stacks, the training half at tp = 1 (:func:`lm_loss`, :func:`_run_body`,
+:func:`forward_loss`). The
 reference stacks each period slot's params over periods and scans them;
 here a model is an ``nn.Module`` holding a flat ``blocks`` list in layer
 order, and :mod:`repro_torch.models.convert` maps the reference's stacked
 tree onto it (layer ``n_pro + i*P + j`` is ``body[j][...][i]``).
 
-Decode caches are a list with one ``{"k", "v"}`` dict per layer; a stage
+Decode caches are a list with one dict per layer, ``{"k", "v"}`` for an
+attention layer and ``{"h", "tail_x", "tail_bc"}`` for an SSM layer; a stage
 holds the entries of its own layers.
 """
 from __future__ import annotations
@@ -28,9 +31,13 @@ from repro_torch.models.attention import (GQAttention, gqa_decode,
                                           gqa_forward, init_gqa)
 from repro_torch.models.common import (MeshPlan, dense_init, param,
                                        resolve_device, rms_norm)
+from repro_torch.models.mamba import (Mamba, init_mamba, mamba_decode,
+                                      mamba_forward)
 from repro_torch.models.mlp import DenseMLP, dense_mlp_forward, init_dense_mlp
 
 Kind = Tuple[str, str]        # (layer kind, mlp kind)
+#: the layer kinds the port builds
+SUPPORTED_KINDS = (("attn", "dense"), ("ssm", "none"))
 
 
 # ---------------------------------------------------------------------------
@@ -79,11 +86,28 @@ def check_supported(cfg: ModelConfig) -> None:
         ("embed frontend", cfg.embed_frontend), ("MTP", cfg.mtp)) if on]
     kinds = set(stack_layout(cfg).layer_kinds())
     missing += [f"{k}/{m} layers" for (k, m) in sorted(kinds)
-                if (k, m) != ("attn", "dense")]
+                if (k, m) not in SUPPORTED_KINDS]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "Queue 1 item 13); the port builds attn/dense decoders")
+            "Queue 1 item 13); the port builds attn/dense and ssm/none "
+            "stacks")
+
+
+def has_ssm_layers(cfg: ModelConfig) -> bool:
+    """Whether any layer of ``cfg`` is an SSM (Mamba-2) layer."""
+    return any(k == "ssm" for k, _ in stack_layout(cfg).layer_kinds())
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for what this package cannot train yet: SSM layers, whose SSD
+    scan kernel has no backward."""
+    check_supported(cfg)
+    if has_ssm_layers(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training SSM layers needs the backward of the SSD "
+            "scan kernel, not ported yet (ROADMAP Queue 2 item 4); the port "
+            "serves these layers")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -96,16 +120,23 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One attn/dense layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One layer: ``ln1``, ``attn``, ``ln2``, ``mlp`` for an attn/dense
+    ``kind``; ``ln1``, ``ssm`` for an ssm/none one (no MLP)."""
 
-    def __init__(self, cfg: ModelConfig, plan: MeshPlan, device=None,
+    def __init__(self, cfg: ModelConfig, plan: MeshPlan,
+                 kind: Kind = ("attn", "dense"), device=None,
                  dtype=torch.float32):
         super().__init__()
+        assert kind in SUPPORTED_KINDS, kind
         d = cfg.d_model
-        self.ln1 = param(torch.ones((d,), device=device, dtype=dtype))
-        self.attn = GQAttention(cfg, plan, device=device, dtype=dtype)
-        self.ln2 = param(torch.ones((d,), device=device, dtype=dtype))
-        self.mlp = DenseMLP(d, cfg.d_ff, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
+        self.ln1 = param(torch.ones((d,), **kw))
+        if kind[0] == "ssm":
+            self.ssm = Mamba(cfg, plan, **kw)
+            return
+        self.attn = GQAttention(cfg, plan, **kw)
+        self.ln2 = param(torch.ones((d,), **kw))
+        self.mlp = DenseMLP(d, cfg.d_ff, **kw)
 
 
 class Transformer(nn.Module):
@@ -121,18 +152,20 @@ class Transformer(nn.Module):
         self.cfg, self.plan = cfg, plan
         self.embed = param(torch.empty((Vp, d), **kw))
         self.blocks = nn.ModuleList(
-            Block(cfg, plan, device=device, dtype=dtype)
-            for _ in range(cfg.num_layers))
+            Block(cfg, plan, kind=kind, device=device, dtype=dtype)
+            for kind in stack_layout(cfg).layer_kinds())
         self.final_norm = param(torch.ones((d,), **kw))
         self.unembed = param(torch.empty((d, Vp), **kw))
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, plan: MeshPlan,
                kind: str, mlp_kind: str) -> Block:
-    assert (kind, mlp_kind) == ("attn", "dense"), (kind, mlp_kind)
     with torch.device("meta"):
-        blk = Block(cfg, plan)                  # shapes only; filled below
+        blk = Block(cfg, plan, kind=(kind, mlp_kind))  # shapes; filled below
     blk.ln1 = param(torch.ones((cfg.d_model,), device=gen.device))
+    if kind == "ssm":
+        blk.ssm = init_mamba(gen, cfg, plan)
+        return blk
     blk.attn = init_gqa(gen, cfg, plan)
     blk.ln2 = param(torch.ones((cfg.d_model,), device=gen.device))
     blk.mlp = init_dense_mlp(gen, cfg.d_model, cfg.d_ff)
@@ -172,11 +205,18 @@ def embed_tokens(p_embed, ids, plan: MeshPlan):
 def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
                 mlp_kind: str, positions, causal: bool = True,
                 sliding_window: int = 0, want_cache: bool = False):
-    """Prefill one block. Returns ``(x, cache_or_None)``; the cache holds
-    the prompt's k/v in bfloat16 (the reference's prefill cache dtype),
-    unpadded — the stage's ``write_slot`` places it in the group cache."""
-    assert (kind, mlp_kind) == ("attn", "dense"), (kind, mlp_kind)
+    """Prefill one block. Returns ``(x, cache_or_None)``. An attention
+    layer's cache holds the prompt's k/v in bfloat16 (the reference's
+    prefill cache dtype), unpadded; an SSM layer's holds the final state
+    ``h`` and the conv tails. The stage's ``write_slot`` places either in
+    the group cache."""
     h = rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps)
+    if kind == "ssm":
+        if not want_cache:
+            return x + mamba_forward(p.ssm, h, cfg, plan), None
+        a, (hs, (tx, tbc)) = mamba_forward(p.ssm, h, cfg, plan,
+                                           return_state=True)
+        return x + a, {"h": hs, "tail_x": tx, "tail_bc": tbc}
     a, (k, v) = gqa_forward(p.attn, h, cfg, plan, positions, causal=causal,
                             sliding_window=sliding_window)
     cache = ({"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
@@ -191,8 +231,13 @@ def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
                  cfg: ModelConfig, plan: MeshPlan, kind: str, mlp_kind: str,
                  sliding_window: int = 0):
     """Single-token step; updates ``cache`` in place. Returns (x, cache)."""
-    assert (kind, mlp_kind) == ("attn", "dense"), (kind, mlp_kind)
     h = rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps)
+    if kind == "ssm":
+        a, state = mamba_decode(p.ssm, h, (cache["h"], cache["tail_x"],
+                                           cache["tail_bc"]), cfg, plan)
+        for key, new in zip(("h", "tail_x", "tail_bc"), state):
+            cache[key].copy_(new)
+        return x + a, cache
     x = x + gqa_decode(p.attn, h, cache["k"], cache["v"], pos, cfg, plan,
                        sliding_window)
     h2 = rms_norm(x, p.ln2.to(x.dtype), cfg.norm_eps)
@@ -204,7 +249,7 @@ def prefill_stack_slice(blocks: Sequence[Block], x, positions,
                         cfg: ModelConfig, plan: MeshPlan,
                         kinds: Sequence[Kind], sliding_window: int = 0):
     """Prefill over a slice of the stack. x: (B, S, d) hidden entering the
-    slice. Returns ``(x, caches)``, one bf16 ``{"k", "v"}`` per block."""
+    slice. Returns ``(x, caches)``, one per block (see :func:`apply_block`)."""
     caches = []
     for p, (kind, mlp_kind) in zip(blocks, kinds):
         x, cache = apply_block(p, x, cfg, plan, kind, mlp_kind, positions,
@@ -291,7 +336,7 @@ def forward_loss(model: Transformer, batch, cfg: ModelConfig,
     """Training loss of a dense decoder. batch: ``{"tokens": (B, S+1)}``
     int32 (numpy or torch). Returns ``(loss, metrics)`` with metrics
     ``lm_loss``, ``aux_loss`` (0: no router) and ``loss``."""
-    check_supported(cfg)
+    check_trainable(cfg)
     dev = model.embed.device
     tokens = torch.as_tensor(batch["tokens"], dtype=torch.int32, device=dev)
     inputs, labels = tokens[:, :-1], tokens[:, 1:]

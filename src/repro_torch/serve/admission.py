@@ -88,7 +88,9 @@ class AdmissionScheduler:
 
     def _admit(self, g: int, b: int, work, meta) -> None:
         """Admit the queue head into slot ``(g, b)`` with a prefill of its
-        prompt at its natural length (no padding)."""
+        prompt at its natural length: no padding, which would flow through
+        an SSM layer's recurrence and conv state (attention caches are
+        positional, SSM state is not)."""
         r = self.queue.pop(0)
         toks = self.prompts[r]
         if not self._first_round:

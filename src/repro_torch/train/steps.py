@@ -11,8 +11,8 @@ parameter names.
 
 Not ported yet: ``zero=True`` (flat master shards, ROADMAP Queue 1 item 9;
 at dp = 1 the reference gives the same numbers either way), ``fsdp`` and
-meshes beyond 1 x 1 (item 8), and the ``Graph*`` shims of graph training
-(item 7).
+meshes beyond 1 x 1 (item 8), the ``Graph*`` shims of graph training
+(item 7), and SSM layers (the SSD scan's backward, Queue 2 item 4).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import MeshPlan, resolve_device
 from repro_torch.models.convert import jax_leaves
 from repro_torch.models.model_zoo import build_model, loss_fn
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, check_trainable
 from repro_torch.optim.adamw import AdamWConfig, AdamWState, init_adamw
 from repro_torch.optim.zero import plain_dp_adamw_update
 
@@ -54,6 +54,7 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
             "make_train_step(zero=True): ZeRO master shards are not ported "
             "yet (ROADMAP Queue 1 item 9); at dp = 1 zero=False computes "
             "the same step")
+    check_trainable(cfg)
     optimizer = optimizer or AdamWConfig()
     device = resolve_device(device)
     order = [n for _, names in jax_leaves(cfg) for n in names]

@@ -12,7 +12,8 @@ order than PyTorch's matmuls). bfloat16 inputs: ``2e-2``, as
 plain decode version (like the JAX reference) rounds the score einsum to
 bfloat16 before the scale, and an output in bf16 may round either way. The
 xent stats are float32 outputs of the same float32 arithmetic on the same
-values, so they are held at ``2e-4`` for bf16 logits too. Gradients compare
+values, so they are held at ``2e-4`` for bf16 logits too, as is the SSD
+scan's float32 state ``hT``. Gradients compare
 the backward kernels with autograd through the plain versions; the
 attention backward's bf16 case also differs in ``delta = rowsum(dO * O)``,
 which the kernel takes from the bf16 output, as FlashAttention-2 does.
@@ -27,6 +28,8 @@ from repro_torch.kernels.flash_decode import kernel as fd
 from repro_torch.kernels.flash_decode.ref import combine_partials
 from repro_torch.kernels.softmax_xent import kernel as xk
 from repro_torch.kernels.softmax_xent.ref import local_stats_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -296,3 +299,120 @@ def test_model_grads_on_card_match_plain_path(cuda):
             assert gg[name].abs().max() > 0, name
         torch.testing.assert_close(gg[name].cpu(), g, rtol=2e-3, atol=2e-5,
                                    msg=name)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan
+# ---------------------------------------------------------------------------
+
+SSD_CASES = [
+    # B, L, H, P, N, G, chunk, dtype
+    (2, 67, 4, 8, 16, 1, 16, "float32"),
+    (1, 128, 2, 16, 8, 2, 32, "float32"),
+    (1, 64, 4, 32, 16, 1, 128, "float32"),               # chunk > L
+    (2, 96, 4, 16, 16, 1, 32, "bfloat16"),
+    (2, 77, 4, 8, 16, 1, 16, "float32"),                 # ragged tail chunk
+    (1, 77, 32, 64, 128, 1, 128, "bfloat16"),            # one chunk of 77
+    (1, 300, 8, 40, 64, 4, 128, "bfloat16"),             # P not a multiple of 16
+    (1, 512, 32, 64, 128, 1, 128, "bfloat16"),           # mamba2 prefill
+]
+
+
+def _ssd_case(case, device, seed=0):
+    B, L, H, P, N, G, Q, dt = case
+    rng = np.random.default_rng(seed)
+    x = _randn(rng, (B, L, H, P), dt, device)
+    dtv = torch.as_tensor(rng.uniform(0.01, 0.2, size=(B, L, H)),
+                          dtype=torch.float32, device=device)
+    A = torch.as_tensor(-rng.uniform(0.5, 2, size=(H,)), dtype=torch.float32,
+                        device=device)
+    # B and C as the model passes them: views into one (B, L, 2GN) tensor
+    bc = _randn(rng, (B, L, 2 * G * N), dt, device)
+    Bm = bc[..., :G * N].reshape(B, L, G, N)
+    Cm = bc[..., G * N:].reshape(B, L, G, N)
+    D = _randn(rng, (H,), "float32", device)
+    return (x, dtv, A, Bm, Cm, D), Q
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(cuda, case):
+    args, Q = _ssd_case(case, cuda)
+    dt = case[-1]
+    before = ssd.launches
+    y, hT = ssd.ssd_scan(*args, chunk=Q)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    assert y.dtype == args[0].dtype and y.shape == args[0].shape
+    assert hT.dtype == torch.float32
+    yr, hr = ssd_chunked_ref(*args, chunk=Q)
+    _close(y, yr, dt)
+    torch.testing.assert_close(hT, hr, rtol=2e-4, atol=2e-4)
+    # on float32 copies of the same inputs, and with B and C contiguous
+    f32 = [t.float().contiguous() for t in args]
+    y32, h32 = ssd.ssd_scan(*f32, chunk=Q)
+    yr32, hr32 = ssd_chunked_ref(*f32, chunk=Q)
+    _close(y32, yr32, "float32")
+    torch.testing.assert_close(h32, hr32, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_scan_reads_strided_views_as_copies(cuda):
+    args, Q = _ssd_case((1, 200, 4, 32, 32, 2, 64, "bfloat16"), cuda, seed=1)
+    y, hT = ssd.ssd_scan(*args, chunk=Q)
+    yc, hc = ssd.ssd_scan(*[t.contiguous() for t in args], chunk=Q)
+    assert torch.equal(y, yc) and torch.equal(hT, hc)
+
+
+def test_ssd_raw_wrapper_refuses_under_grad(cuda):
+    args, Q = _ssd_case(SSD_CASES[0], cuda, seed=2)
+    args[0].requires_grad_(True)
+    before = ssd.launches
+    with pytest.raises(RuntimeError, match="cut the autograd graph"):
+        ssd.ssd_scan_cuda(*args, chunk=Q)
+    assert ssd.launches == before
+
+
+def test_reduced_mamba2_prefill_on_card_matches_cpu(cuda):
+    """Reduced mamba2 (float32): prefill logits and SSM caches through the
+    kernel on the card against the same weights on the CPU's plain path,
+    then two decode steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.lowering import lower_serve_stages
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    cfg = get_config("mamba2-370m").reduced()
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (37, 100)]
+    # the same seeded weights on each device (the init runs on the CPU)
+    progs = {d: lower_serve_stages(
+        cfg, build_model(cfg, MeshPlan(), seed=0, device="cpu").to(d),
+        num_stages=2, cache_len=128, max_prompt_len=100, group_size=2)
+        for d in ("cpu", "cuda")}
+    tol = dict(rtol=1e-3, atol=1e-3)
+    before = ssd.launches
+    with torch.inference_mode():
+        caches = {d: [s.init_caches(2) for s in p.stages]
+                  for d, p in progs.items()}
+        out = {}
+        for slot, pr in enumerate(prompts):
+            for d, p in progs.items():
+                x = torch.as_tensor(pr[None], device=d)
+                for s, st in enumerate(p.stages):
+                    x, sc = st.prefill(st.params, x, pr.size - 1)
+                    st.write_slot(caches[d][s], sc, slot)
+                out[d] = x
+            torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], **tol)
+        for gc, cc in zip(caches["cuda"], caches["cpu"]):
+            for a, b in zip(gc, cc):
+                for key in a:
+                    torch.testing.assert_close(a[key].cpu(), b[key], **tol)
+        tok = [5, 7]
+        for _ in range(2):
+            for d, p in progs.items():
+                x = torch.tensor(tok, dtype=torch.int32, device=d)
+                pos = torch.tensor([37, 100], dtype=torch.int32, device=d)
+                for s, st in enumerate(p.stages):
+                    x, _ = st.decode(st.params, caches[d][s], x, pos)
+                out[d] = x
+            torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], **tol)
+    assert ssd.launches == before + len(prompts) * cfg.num_layers

@@ -171,7 +171,9 @@ def test_port_imports_without_jax():
     not among the loaded modules afterwards."""
     mods = _port_modules()
     assert {"repro_torch.api", "repro_torch.launch.serve",
-            "repro_torch.launch.train", "repro_torch.train.steps"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.train.steps",
+            "repro_torch.models.mamba", "repro_torch.kernels.ssd_scan.kernel",
+            "repro_torch.kernels.ssd_scan.ref"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
