@@ -17,17 +17,25 @@ result line is printed:
    kv (2, 2048, 8, 128), causal, bf16) against autograd through the plain
    version, the SSD scan at the mamba2-370m prefill of 512 tokens (x (1,
    512, 32, 64), B and C (1, 512, 1, 128), bf16) -- and again on float32
-   copies of the same inputs, held tighter.
-   Each reports the kernel's device time (torch.profiler), the wrapper
+   copies of the same inputs, held tighter. bf16 attention runs on the
+   tensor-core kernels and float32 attention on the CUDA-core ones; the
+   bf16 attention forward and backward are also held to the plain version
+   on float32 copies at the bf16 limits, and the launch counters show which
+   kernels each dtype reached.
+   Each reports the kernel's device time (torch.profiler; the names of the
+   kernels the trace matched are printed), the wrapper
    call's, the plain version's, the least time the card could take (bytes
    over 3.35 TB/s or operations over the peak rate of their type, whichever
    is larger) and one PyTorch library call as a yardstick (SDPA, or
    ``F.cross_entropy``; timed here only, the port never calls them; none
-   computes the SSD scan, so its row says "none");
+   computes the SSD scan, so its row says "none"), the kernel's time over
+   the library call's (``vs_library``) and the bound's share of the
+   kernel's time (``bound_share``);
 3. reference: the reduced qwen3 config served through the kernels agrees
    with the same weights on the CPU's plain path (prefill and decode
    logits); then two training steps of it through the kernels agree with
-   the same two steps on the CPU (loss, grad_norm); then the reduced
+   the same two steps on the CPU (loss, grad_norm), every float32
+   attention launch on the CUDA-core kernels; then the reduced
    mamba2 config (float32) served through the SSD kernel gives the CPU's
    plain path's tokens, with prefill logits within 1e-3;
 4. serve: qwen3-1.7b at full width, bf16, seeded init, through
@@ -36,7 +44,8 @@ result line is printed:
    the same requests on ``backend="monolithic"``, which must give the same
    tokens. Around each of the two runs the kernels' launch counters are
    zeroed just before and read just after, and must equal the launches the
-   scheduler's work implies. One more monolithic run under torch.profiler
+   scheduler's work implies, every attention forward on the tensor-core
+   kernel. One more monolithic run under torch.profiler
    gives the device's busy share and its kernels by time. Then the same for
    mamba2-370m at full width and depth (48 SSM layers, bf16): one SSD scan
    launch per layer per prefill, no attention kernel;
@@ -45,8 +54,9 @@ result line is printed:
    .make_train_step``, fed by ``ActorDataPipeline(SyntheticLM(151936, 2,
    2048))``, 4 steps: loss, grad_norm, wall time and tokens/s per step, the
    peak memory, finite and falling loss, and the exact kernel launches of
-   every step, each backward kernel counted on its own (counters zeroed
-   just before the run); then one more step under torch.profiler;
+   every step, each backward kernel counted on its own and every attention
+   launch on the tensor-core kernels (counters zeroed just before the run);
+   then one more step under torch.profiler;
 6. train, plain versions: the same 4 steps from the same init and batches
    with the model's attention and loss call sites on the plain PyTorch
    versions (autograd through them) on the card, no kernel launched; the
@@ -82,6 +92,9 @@ ATOL, RTOL = 5e-3, 1e-2
 # same arithmetic, so only the order of float32 sums differs
 F32_TOL = 1e-4
 SEED = 0
+# the names of the port's kernels, as the profiler's device trace shows them
+PORT_KERNELS = ("flash_fwd_", "flash_bwd_", "flash_decode_kernel",
+                "xent_fwd_kernel", "xent_bwd_kernel", "ssd_scan_kernel")
 
 
 _START = time.perf_counter()
@@ -108,11 +121,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, kernel: str, iters: int = 20, warmup: int = 3):
+def kernel_ms(fn, kernels, iters: int = 20, warmup: int = 3):
     """Device time per call of ``fn`` spent in the kernels whose names
-    contain ``kernel`` (the backward's two kernels together), from
+    contain one of ``kernels`` (the backward's two kernels together), from
     torch.profiler's device trace over ``iters`` calls after ``warmup``
-    calls; None if the trace holds no such kernel."""
+    calls, and each matching kernel's own time per call by its name as the
+    trace gives it; (None, {}) if the trace holds no such kernel."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -124,23 +138,40 @@ def kernel_ms(fn, kernel: str, iters: int = 20, warmup: int = 3):
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.key]
+          and any(k in e.key for k in kernels)]
     if not ev:
-        return None
-    return sum(e.self_device_time_total for e in ev) / iters / 1e3
+        return None, {}
+    by_name = {e.key: e.self_device_time_total / iters / 1e3 for e in ev}
+    return sum(by_name.values()), by_name
 
 
-def timed(entry: dict, kernel: str, launch, wrapper, iters: int = 20) -> dict:
-    """Fill ``ms`` (the kernel's own device time; CUDA events around
-    ``launch`` if the profiler saw no device events) and ``wrapper_ms``
-    (CUDA events around the wrapper call the model makes)."""
-    ms = kernel_ms(launch, kernel, iters=iters)
+def timed(entry: dict, kernels, launch, wrapper, iters: int = 20) -> dict:
+    """Fill ``ms`` (the kernels' own device time; CUDA events around
+    ``launch`` if the profiler saw no device events), ``wrapper_ms`` (CUDA
+    events around the wrapper call the model makes), and the kernel's ratio
+    to the library call (``vs_library``) and its bound's share of its time
+    (``bound_share``). ``kernels`` names the kernels to time (substrings of
+    their names); the names the trace matched are printed with their
+    times, so a kernel that misses the filter shows."""
+    kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
+    label = entry.get("name") or "/".join(kernels)
+    ms, by_name = kernel_ms(launch, kernels, iters=iters)
     if ms is None:
-        print(f"{kernel}: the profiler saw no device events; ms is from "
-              "CUDA events around the launch call")
+        print(f"{label}: the profiler saw no device events of {kernels}; "
+              "ms is from CUDA events around the launch call")
         ms = cuda_ms(launch, iters=iters)
+    else:
+        print(f"{label}: timed kernels " + "; ".join(
+            f"{k[:80]} {v:.4f} ms" for k, v in by_name.items()))
+        if len(kernels) > 1:
+            entry["ms_by_kernel"] = {
+                name: sum(v for k, v in by_name.items() if name in k)
+                for name in kernels}
     entry["ms"] = ms
     entry["wrapper_ms"] = cuda_ms(wrapper, iters=iters)
+    lib = entry.get("library_ms")
+    entry["vs_library"] = None if lib is None else ms / lib
+    entry["bound_share"] = entry["bound_ms"] / ms
     return entry
 
 
@@ -205,16 +236,30 @@ def check_flash_attention(dev):
         mk = lambda *shape: torch.from_numpy(  # noqa: E731
             rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
         q, k, v = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D)
+        what = f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} causal"
+        # bf16 goes to the tensor-core kernel, float32 to the CUDA-core one
+        n0, w0 = fa.launches, fa.wgmma_launches
         got = fa.flash_attention(q, k, v, causal=True)
         want = fa.plain_flash_attention(q, k, v, causal=True)
-        err = agree(f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} "
-                    "causal bf16", got, want, ATOL, RTOL)
+        err = agree(f"{what} bf16", got, want, ATOL, RTOL)
+        f32 = [t.float() for t in (q, k, v)]
+        want32 = fa.plain_flash_attention(*f32, causal=True)
+        err_c = agree(f"{what} bf16 vs the plain version on float32 copies",
+                      got, want32, ATOL, RTOL)
+        err32 = agree(f"{what} float32", fa.flash_attention(
+            *f32, causal=True), want32, F32_TOL, F32_TOL)
+        torch.cuda.synchronize()
+        if (fa.launches - n0, fa.wgmma_launches - w0) != (2, 1):
+            raise AssertionError("flash_attention: bf16 did not reach the "
+                                 "tensor-core kernel, or float32 did")
+        del f32, want32
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         pairs = S * (S + 1) // 2                 # causal: unmasked (q, k)
         b_ms, b_by = bound_ms(nbytes(q, k, v, got), 4 * D * H * B * pairs)
         launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
         return timed({
-            "max_abs_err": err,
+            "max_abs_err": err, "max_abs_err_vs_f32_copies": err_c,
+            "f32_max_abs_err": err32,
             "plain_ms": cuda_ms(
                 lambda: fa.plain_flash_attention(q, k, v, causal=True),
                 iters=5),
@@ -223,7 +268,7 @@ def check_flash_attention(dev):
                                   .scaled_dot_product_attention(
                                       qt, kt, vt, is_causal=True,
                                       enable_gqa=True)),
-        }, "flash_fwd_kernel", launch, launch)
+        }, "flash_fwd_wgmma_kernel", launch, launch)
 
     entry = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -383,8 +428,20 @@ def check_flash_attention_bwd(dev):
     # which sums in float32 and rounds once, is held to the plain version's
     # autograd on float32 copies of the same bf16 inputs; its distance from
     # the plain bf16 autograd is printed beside it.
+    def tc_counts():
+        return (fa.bwd_dq_launches, fa.bwd_dkdv_launches,
+                fa.bwd_dq_wgmma_launches, fa.bwd_dkdv_wgmma_launches)
+
+    def routed(before, tc):
+        got = [a - b for a, b in zip(tc_counts(), before)]
+        if got != [1, 1, tc, tc]:
+            raise AssertionError(f"flash_attention backward: launches {got}"
+                                 f", expected [1, 1, {tc}, {tc}]")
+
     want32 = grads(fa.plain_flash_attention, torch.float32)
+    before = tc_counts()
     got = grads(fa.flash_attention, torch.bfloat16)
+    routed(before, 1)           # bf16: the tensor-core kernels
     err = max(agree(f"flash_attention backward d{n} {what} bf16 vs the plain "
                     "version on float32 copies", a, b, ATOL, RTOL)
               for n, a, b in zip("qkv", got, want32))
@@ -394,7 +451,9 @@ def check_flash_attention_bwd(dev):
               f"d{n} {(a.float() - b.float()).abs().max().item():.3e}"
               for n, a, b in zip("qkv", got, want)) + " (not held)")
     del got, want
+    before = tc_counts()
     got32 = grads(fa.flash_attention, torch.float32)
+    routed(before, 0)           # float32: the CUDA-core kernels
     err32 = max(agree(f"flash_attention backward d{n} {what} float32", a, b,
                       F32_TOL, F32_TOL)
                 for n, a, b in zip("qkv", got32, want32))
@@ -433,7 +492,8 @@ def check_flash_attention_bwd(dev):
         "plain_ms": cuda_ms(plain_bwd(), iters=3, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(library_bwd(), iters=5),
-    }, "flash_bwd_", launch, launch)
+    }, ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel"), launch,
+        launch)
 
 
 def check_ssd_scan(dev):
@@ -561,6 +621,7 @@ def check_reference_train(dev):
     batches = [src(i) for i in range(2)]
     init = None
     runs = {}
+    zero_train_counts()
     for d in ("cpu", dev):
         ts = make_train_step(cfg, device=d)
         params = ts.init_params(SEED)
@@ -572,6 +633,15 @@ def check_reference_train(dev):
         for b in batches:
             params, opt, m = ts.step_fn(params, opt, {"tokens": b})
             runs[d].append((float(m["loss"]), float(m["grad_norm"])))
+    # float32 attention runs on the CUDA-core kernels, none on tensor cores
+    n = train_counts()
+    if (min(n["flash_attention"], n["flash_bwd_dq_kernel"],
+            n["flash_bwd_dkdv_kernel"]) < 2
+            or n["flash_fwd_wgmma_kernel"] or n["flash_bwd_dq_wgmma_kernel"]
+            or n["flash_bwd_dkdv_wgmma_kernel"]):
+        raise AssertionError(f"reduced qwen3 train steps, float32: launches "
+                             f"{n}; expected the CUDA-core kernels only")
+    print(f"reduced qwen3 float32 train steps: attention launches {n}")
     worst = 0.0
     for (lc, gc), (lg, gg) in zip(runs["cpu"], runs[dev]):
         err = max(abs(lg - lc) / abs(lc), abs(gg - gc) / abs(gc))
@@ -644,15 +714,16 @@ def serve_counts():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    return {"flash_attention": fa.launches, "flash_decode": fd.launches,
-            "ssd_scan": ssd.launches}
+    return {"flash_attention": fa.launches,
+            "flash_fwd_wgmma_kernel": fa.wgmma_launches,
+            "flash_decode": fd.launches, "ssd_scan": ssd.launches}
 
 
 def zero_serve_counts():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    fa.launches = fd.launches = ssd.launches = 0
+    fa.launches = fa.wgmma_launches = fd.launches = ssd.launches = 0
 
 
 def serve(dev, arch: str):
@@ -688,7 +759,10 @@ def serve(dev, arch: str):
         st = session.last_stats
         L = cfg.num_layers
         ssm = cfg.family == "ssm"
+        # every bf16 attention forward on the tensor-core kernel
         want = {"flash_attention": 0 if ssm else L * st["prefill_items"],
+                "flash_fwd_wgmma_kernel":
+                    0 if ssm else L * st["prefill_items"],
                 "flash_decode": 0 if ssm else L * st["decode_items"],
                 "ssd_scan": L * st["prefill_items"] if ssm else 0}
         print(f"launches on the {session.backend} run: {got} (expected "
@@ -736,7 +810,9 @@ def serve(dev, arch: str):
 def profile_device(what: str, fn, top: int = 8):
     """Where the time goes: the device's busy time and its kernels by name
     over one more run of ``fn``, from torch.profiler's device trace (the
-    profiler's own cost is in the wall time)."""
+    profiler's own cost is in the wall time): the ``top`` kernels by time,
+    then the port's own kernels (``PORT_KERNELS``) that are not among
+    them."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -753,9 +829,11 @@ def profile_device(what: str, fn, top: int = 8):
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     print(f"profiled {what}: {wall:.3f} s wall (profiler on), device busy "
           f"{busy:.3f} s, idle share {1 - busy / wall:.3f}")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d} x  "
-              f"{e.key[:90]}")
+    ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < top or any(k in e.key for k in PORT_KERNELS):
+            print(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
+                  f"{e.count:6d} x  {e.key[:90]}")
 
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 4
@@ -791,6 +869,9 @@ def train_counts():
     return {"flash_attention": fa.launches,
             "flash_bwd_dq_kernel": fa.bwd_dq_launches,
             "flash_bwd_dkdv_kernel": fa.bwd_dkdv_launches,
+            "flash_fwd_wgmma_kernel": fa.wgmma_launches,
+            "flash_bwd_dq_wgmma_kernel": fa.bwd_dq_wgmma_launches,
+            "flash_bwd_dkdv_wgmma_kernel": fa.bwd_dkdv_wgmma_launches,
             "xent_local_stats": xk.launches,
             "xent_local_stats_bwd": xk.bwd_launches}
 
@@ -799,6 +880,8 @@ def zero_train_counts():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.softmax_xent import kernel as xk
     fa.launches = fa.bwd_dq_launches = fa.bwd_dkdv_launches = 0
+    fa.wgmma_launches = fa.bwd_dq_wgmma_launches = 0
+    fa.bwd_dkdv_wgmma_launches = 0
     xk.launches = xk.bwd_launches = 0
 
 
@@ -864,10 +947,12 @@ def train(dev):
     from repro_torch.configs.registry import get_config
     L = get_config("qwen3-1.7b").num_layers
     # per step: the forward of every layer, again in its remat recompute,
-    # each backward kernel once per layer, one loss
+    # each backward kernel once per layer, one loss; every attention launch
+    # of the bf16 step on the tensor-core kernels
     want = {"flash_attention": 2 * L, "flash_bwd_dq_kernel": L,
-            "flash_bwd_dkdv_kernel": L, "xent_local_stats": 1,
-            "xent_local_stats_bwd": 1}
+            "flash_bwd_dkdv_kernel": L, "flash_fwd_wgmma_kernel": 2 * L,
+            "flash_bwd_dq_wgmma_kernel": L, "flash_bwd_dkdv_wgmma_kernel": L,
+            "xent_local_stats": 1, "xent_local_stats_bwd": 1}
     ts, params, opt, src, curve, total = train_steps(dev, "kernels", want)
     batch = {"tokens": src(TRAIN_STEPS)}
     profile_device("train step", lambda: float(
@@ -918,8 +1003,10 @@ def main() -> int:
         lib = kr["library_ms"]
         print(f"{kr['name']}: kernel {kr['ms']:.4f} ms, wrapper call "
               f"{kr['wrapper_ms']:.4f} ms, plain {kr['plain_ms']:.4f} "
-              f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}), "
-              "library " + ("none" if lib is None else f"{lib:.4f} ms"))
+              f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}; "
+              f"{kr['bound_share']:.1%} of the kernel's time), library "
+              + ("none" if lib is None else
+                 f"{lib:.4f} ms (kernel / library {kr['vs_library']:.2f})"))
     check_reference(dev)
     check_reference_train(dev)
     check_reference_mamba(dev)
@@ -937,12 +1024,14 @@ def main() -> int:
         name = kr["name"]
         if name == "flash_attention_bwd":
             kr["launches_by_kernel"] = {
-                k: trained[k] for k in ("flash_bwd_dq_kernel",
-                                        "flash_bwd_dkdv_kernel")}
+                k: trained[k] for k in ("flash_bwd_dq_wgmma_kernel",
+                                        "flash_bwd_dkdv_wgmma_kernel")}
             kr["launches"] = min(kr["launches_by_kernel"].values())
+        elif name == "flash_attention":
+            kr["launches"] = served["flash_fwd_wgmma_kernel"]
         else:
             kr["launches"] = (served if name in served else trained)[name]
-    kernels[0]["train_shape"]["launches"] = trained["flash_attention"]
+    kernels[0]["train_shape"]["launches"] = trained["flash_fwd_wgmma_kernel"]
     print(f"all phases passed in {time.perf_counter() - _START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

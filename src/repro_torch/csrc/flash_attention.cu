@@ -1,45 +1,70 @@
-// Flash-attention forward for Hopper (sm_90a): the port's prefill kernel.
+// Flash-attention forward for Hopper (sm_90a): the port's prefill and
+// training kernel.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py: flash_attention_pallas
 //   (body _flash_kernel): blocked online-softmax attention forward with
 //   causal (+ q_offset), sliding-window and q/kv padding masks, GQA.
 //
-// Design. The TPU kernel walks a sequential grid (B, H, q blocks, kv blocks)
-// and carries (m, l, acc) in VMEM scratch across the kv axis. Here one
-// thread block owns one (q tile of BQ rows, q head, batch row) and loops over
-// the kv tiles itself, so the running state stays in registers:
-//   * grid (ceil(Sq / BQ), H, B), 256 threads as a 16 x 16 grid; thread
-//     (ty, tx) owns score rows ty*4..ty*4+3 and columns tx*4..tx*4+3 of the
-//     BQ x BK tile, and output rows ty*4.. x columns tx*4 + 64*c + (0..3);
+// Two kernels, chosen by the input dtype (the wrapper states the dispatch):
+//   * flash_fwd_wgmma_kernel<D>, bf16: tensor cores (wgmma);
+//   * flash_fwd_kernel<D>, float32: CUDA-core FMAs. wgmma has no float32
+//     input, and its TF32 mode keeps about three decimal digits, which would
+//     break the float32 checks at 1e-4 that the port holds its kernels to.
+// Both compute the same function. The TPU kernel walks a sequential grid
+// (B, H, q blocks, kv blocks) and carries (m, l, acc) in VMEM scratch
+// across the kv axis; here one block owns one (q tile, q head, batch row)
+// and loops over the kv tiles itself, so the running state stays in
+// registers. Common to both:
 //   * the loop visits only kv tiles that intersect the causal/window band of
 //     the q tile (the block skipping of flash_attention_triangular), so a
 //     causal prompt does about half the tiles of the full rectangle;
 //   * GQA: q head h reads kv head h / (H / KV), no materialised repeat;
-//   * Q and K tiles sit transposed in shared memory ([d][row], rows padded by
-//     4 floats) so each thread reads 4 rows / 4 columns as one float4;
-//   * S = Q K^T, the softmax statistics and O accumulate in float32. P takes
-//     part in the second product in float32, as in the reference
-//     (flash_attention/ref.py keeps p in float32 for the P V einsum);
+//   * the softmax statistics and O accumulate in float32;
 //   * masked scores take the finite sentinel -1e30 and l is floored at 1e-30
 //     on output, as in the refs; a row with no unmasked key at all averages
 //     v over all Sk keys, as the dense ref does with that sentinel, instead
 //     of producing NaN.
-// Inputs are bf16 or float32 (converted to float32 on load); O is written
-// in the input type. Head dims: (D, Dv) = (64, 64) or (128, 128). When the
+// Head dims: D = Dv in {64, 128}. O is written in the input type. When the
 // caller passes an `lse` buffer (training), each row's logsumexp of its
 // scaled scores, m + log(l), is written there in float32, (B, H, Sq): the
-// backward kernel (flash_attention_bwd.cu) recomputes P = exp(S - lse)
+// backward kernels (flash_attention_bwd.cu) recompute P = exp(S - lse)
 // from it.
 //
-// Bound. At decode-like sizes (few q rows, long kv) the kernel moves bytes:
-// every K/V row is read once per q tile. At long prompts it is bound by
-// operations: 4 * Sq * Sk / 2 * D flops per head. This version computes with
-// CUDA-core FMAs from shared memory (no tensor cores), so at long prompts it
-// sits far below the 989 TFLOP/s bf16 peak; wgmma with TMA-fed shared-memory
-// rings is later work.
+// Bound. At the training shape (q (2, 2048, 16, 128), causal) the forward
+// does 4 D flops per unmasked (q, k) pair: 34.4 GFLOP, 0.035 ms at the
+// H100's 989 TFLOP/s bf16 peak, against 0.015 ms for its 50 MB of q, k,
+// v and o at 3.35 TB/s: bound by operations. At decode-like sizes (few q rows, long kv) it moves
+// bytes: every K/V row is read once per q tile.
+//
+// The tensor-core kernel (bf16):
+//   * one warpgroup (128 threads) per block owns a 64-row q tile, wgmma's
+//     M. 64 rows, not 128 with two warpgroups sharing K/V: the serving
+//     prefill q (1, 512, 16, 128) then makes 8 x 16 = 128 blocks for the
+//     132 SMs (128-row blocks would make 64), and the training shape 1,024;
+//     at 81 KB of shared memory and 148 registers a thread (ptxas, D =
+//     128) two blocks share an SM, so one block's softmax overlaps the
+//     other's products;
+//   * Q stays in shared memory; K and V tiles of 64 rows go through a ring
+//     of two stages, filled by 16-byte cp.async copies into the 128-byte
+//     swizzle (hopper_mma.cuh) while the previous tile is computed;
+//   * S = Q K^T is an SS wgmma (m64n64k16, both operands K-major, D / 16
+//     steps); the online softmax runs in float32 on the accumulator
+//     fragment (exp2 with log2(e) folded in; the row max and sum over the
+//     four lanes that share a row);
+//   * P goes to bf16 in registers and is the A operand of O += P V
+//     (m64nDk16, 4 steps), V MN-major (the descriptor's transpose bit).
+//     Rounding P to bf16 is the one rounding the float32 version does not
+//     have: relative 2^-9 on each weight, on the chip within 5e-3 + 1e-2
+//     |ref| of the float32 plain version (tests/test_torch_kernels.py
+//     emulates it on the CPU); l sums the float32 weights;
+//   * the mask is applied only on tiles that cross the band's edge or the
+//     ragged end of kv; the grid runs the q tiles from the last, so the
+//     longest rows of a causal prompt start first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -49,16 +74,20 @@ constexpr int BK = 64;      // kv rows per tile
 constexpr int NT = 256;     // threads per block (16 x 16)
 constexpr int PAD = 4;      // row padding of the transposed tiles (floats)
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-template <typename T, int D, int DV>
+// ---------------------------------------------------------------------------
+// float32: CUDA-core FMAs. 256 threads as a 16 x 16 grid; thread (ty, tx)
+// owns score rows ty*4..ty*4+3 and columns tx*4..tx*4+3 of the BQ x BK
+// tile, and output rows ty*4.. x columns tx*4 + 64*c + (0..3). Q and K
+// tiles sit transposed in shared memory ([d][row], rows padded by 4 floats)
+// so each thread reads 4 rows / 4 columns as one float4; P takes part in
+// the second product in float32, as in the reference.
+// ---------------------------------------------------------------------------
+template <int D, int DV>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int KV,
-    int causal, int window, int q_offset, float sm_scale) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
+    int window, int q_offset, float sm_scale) {
   static_assert(D % 4 == 0 && DV % 64 == 0, "head dims: multiples of 64");
   constexpr int OC = DV / 16;               // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -74,7 +103,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, d = i - r * D, qi = q0 + r;
     float x = 0.f;
-    if (qi < Sq) x = to_f(q[((static_cast<size_t>(b) * Sq + qi) * H + h) * D + d]);
+    if (qi < Sq) x = q[((static_cast<size_t>(b) * Sq + qi) * H + h) * D + d];
     Qt[d * (BQ + PAD) + r] = x;
   }
 
@@ -100,13 +129,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, d = i - r * D, kj = k0 + r;
       float x = 0.f;
-      if (kj < Sk) x = to_f(k[((static_cast<size_t>(b) * Sk + kj) * KV + kvh) * D + d]);
+      if (kj < Sk) x = k[((static_cast<size_t>(b) * Sk + kj) * KV + kvh) * D + d];
       Kt[d * (BK + PAD) + r] = x;
     }
     for (int i = tid; i < BK * DV; i += NT) {
       const int r = i / DV, d = i - r * DV, kj = k0 + r;
       float x = 0.f;
-      if (kj < Sk) x = to_f(v[((static_cast<size_t>(b) * Sk + kj) * KV + kvh) * DV + d]);
+      if (kj < Sk) x = v[((static_cast<size_t>(b) * Sk + kj) * KV + kvh) * DV + d];
       Vs[r * DV + d] = x;
     }
     __syncthreads();
@@ -201,7 +230,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     for (int c = tx; c < DV; c += 16) {
       float sum = 0.f;
       for (int kj = ty; kj < Sk; kj += 16)
-        sum += to_f(v[((static_cast<size_t>(b) * Sk + kj) * KV + kvh) * DV + c]);
+        sum += v[((static_cast<size_t>(b) * Sk + kj) * KV + kvh) * DV + c];
       part[ty * DV + c] = sum;
     }
     __syncthreads();
@@ -227,68 +256,261 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const float lm = fmaxf(l_i[i], 1e-30f);
     if (lse != nullptr && tx == 0)
       lse[(static_cast<size_t>(b) * H + h) * Sq + qi] = m_i[i] + logf(lm);
-    T* orow = o + ((static_cast<size_t>(b) * Sq + qi) * H + h) * DV;
+    float* orow = o + ((static_cast<size_t>(b) * Sq + qi) * H + h) * DV;
 #pragma unroll
     for (int c4 = 0; c4 < DV / 64; ++c4)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store(&orow[c4 * 64 + tx * 4 + e], acc[i][c4 * 4 + e] / lm);
+      for (int e = 0; e < 4; ++e) orow[c4 * 64 + tx * 4 + e] = acc[i][c4 * 4 + e] / lm;
   }
 }
 
-template <typename T, int D, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int Sq, int Sk, int H, int KV, int causal, int window,
-           int q_offset, float sm_scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D, DV>;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (see the header). TC = 64 rows per q tile and per kv
+// tile; shared memory: Q, then stage s's K at TILE (1 + 2 s) and V at
+// TILE (2 + 2 s).
+// ---------------------------------------------------------------------------
+constexpr int TC = 64;
+constexpr int TC_THREADS = 128;
+
+template <int D>
+constexpr int wgmma_smem_bytes() { return 5 * TC * D * 2 + 1024; }
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) flash_fwd_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
+    int window, int q_offset, float sm_scale) {
+  using namespace hopper;
+  constexpr uint32_t TILE = TC * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t sQ = smem_u32(smem);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_lo = 16 * warp + g;           // this thread's rows r_lo, r_lo + 8
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const size_t ldq = static_cast<size_t>(H) * D, ldk = static_cast<size_t>(KV) * D;
+  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * Sq * ldq + static_cast<size_t>(h) * D;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Sk * ldk + static_cast<size_t>(kvh) * D;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Sk * ldk + static_cast<size_t>(kvh) * D;
+
+  // kv tiles that intersect the band of this q tile
+  const int q_last = min(q0 + TC, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_offset + q_last + 1) : Sk;
+  const int k_begin = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
+  const int kt_begin = k_begin / TC;
+  const int kt_end = k_end > 0 ? (k_end + TC - 1) / TC : 0;
+
+  load_tile<D, TC>(sQ, qb, q0, Sq, ldq);
+  if (kt_begin < kt_end) {
+    load_tile<D, TC>(sQ + TILE, kb, kt_begin * TC, Sk, ldk);
+    load_tile<D, TC>(sQ + 2 * TILE, vb, kt_begin * TC, Sk, ldk);
+  }
+  cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1, k0 = kt * TC;
+    cp_async_wait_all();
+    __syncthreads();    // tile kt landed; every warp is done with tile kt - 1
+    if (kt + 1 < kt_end) {
+      load_tile<D, TC>(sQ + TILE * (1 + 2 * (st ^ 1)), kb, k0 + TC, Sk, ldk);
+      load_tile<D, TC>(sQ + TILE * (2 + 2 * (st ^ 1)), vb, k0 + TC, Sk, ldk);
+    }
+    cp_async_commit();
+    const uint32_t sK = sQ + TILE * (1 + 2 * st), sV = sK + TILE;
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, kstep_kmajor<TC>(sQ, kk), kstep_kmajor<TC>(sK, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // masks only where the tile crosses the band's edge or kv's end
+    const bool edge = k0 + TC > Sk ||
+                      (causal && k0 + TC - 1 > q_offset + q0) ||
+                      (window > 0 && k0 <= q_offset + q0 + TC - 1 - window);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int hh = (e >> 1) & 1;
+      float x = s[e] * sm_scale;
+      if (edge) {
+        const int kj = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        const int qpos = q_offset + q0 + r_lo + 8 * hh;
+        bool ok = kj < Sk;
+        if (causal) ok = ok && qpos >= kj;
+        if (window > 0) ok = ok && kj > qpos - window;
+        if (!ok) x = kNegInf;
+      }
+      s[e] = x;
+      mx[hh] = fmaxf(mx[hh], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      alpha[hh] = exp2f((m[hh] - mx[hh]) * kLog2e);
+      m[hh] = mx[hh];
+      l[hh] *= alpha[hh];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int hh = (e >> 1) & 1;
+      s[e] = exp2f((s[e] - m[hh]) * kLog2e);
+      l[hh] += s[e];          // this lane's part of the row sum
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_frag(s, kk, pa[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(acc, pa[kk], kstep_mnmajor<TC>(sV, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+
+  // A row with no unmasked key anywhere keeps m = -1e30: it takes the mean
+  // of v over all Sk keys, summed by the whole block (as the float32 kernel)
+  int any_masked = 0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    any_masked |= (q0 + r_lo + 8 * hh < Sq) && (m[hh] == kNegInf);
+  if (__syncthreads_or(any_masked)) {
+    float* part = reinterpret_cast<float*>(smem + TILE);   // [128 / D][D]
+    constexpr int RS = TC_THREADS / D;                       // rows per pass
+    const int c = tid % D;
+    float sum = 0.f;
+    for (int kj = tid / D; kj < Sk; kj += RS)
+      sum += __bfloat162float(vb[static_cast<size_t>(kj) * ldk + c]);
+    part[tid] = sum;
+    __syncthreads();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (m[hh] != kNegInf) continue;
+      l[hh] = static_cast<float>(Sk);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        if (((i >> 1) & 1) != hh) continue;
+        const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+        float cs = 0.f;
+#pragma unroll
+        for (int r = 0; r < RS; ++r) cs += part[r * D + col];
+        acc[i] = cs;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qi = q0 + r_lo + 8 * hh;
+    if (qi >= Sq) continue;
+    const float lm = fmaxf(l[hh], 1e-30f);
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + qi] = m[hh] + logf(lm);
+    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * Sq + qi) * ldq +
+                          static_cast<size_t>(h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hh] / lm,
+                                acc[4 * j + 2 * hh + 1] / lm);
+  }
+}
+
+// Each launcher sets its kernel's shared-memory attribute once, on the
+// device current at its first launch (the port serves on one card); the
+// static's initialisation is thread-safe, so concurrent stage actors set it
+// once between them.
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+               int window, int q_offset, float sm_scale, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<D, D>;
   constexpr int smem = static_cast<int>(sizeof(float)) *
-                       (D * (BQ + PAD) + D * (BK + PAD) + BK * DV);
-  // Set once per template instance, on the device current at its first
-  // launch (the port serves on one card); the static's initialisation is
-  // thread-safe, so concurrent stage actors set it once between them.
+                       (D * (BQ + PAD) + D * (BK + PAD) + BK * D);
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KV, causal,
-      window, q_offset, sm_scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H,
+      KV, causal, window, q_offset, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-             int B, int Sq, int Sk, int H, int KV, int D, int Dv, int causal,
-             int window, int q_offset, float sm_scale, cudaStream_t stream) {
-  if (D == 64 && Dv == 64)
-    return launch<T, 64, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal,
-                             window, q_offset, sm_scale, stream);
-  if (D == 128 && Dv == 128)
-    return launch<T, 128, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal,
-                               window, q_offset, sm_scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+                 int window, int q_offset, float sm_scale,
+                 cudaStream_t stream) {
+  auto kern = flash_fwd_wgmma_kernel<D>;
+  constexpr int smem = wgmma_smem_bytes<D>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((Sq + TC - 1) / TC, H, B);
+  kern<<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      lse, Sq, Sk, H, KV, causal, window, q_offset, sm_scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Layouts (contiguous): q (B, Sq, H, D),
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
+// kernel). Layouts (contiguous, 16-byte aligned): q (B, Sq, H, D),
 // k (B, Sk, KV, D), v (B, Sk, KV, Dv), o (B, Sq, H, Dv); lse (B, H, Sq)
-// float32, or null when the caller needs no backward. Launches on
-// `stream`, allocates nothing, does not synchronise; returns the CUDA error
-// of the launch (0 = success).
+// float32, or null when the caller needs no backward. D = Dv in {64, 128}.
+// Launches on `stream`, allocates nothing, does not synchronise; returns
+// the CUDA error of the launch (0 = success).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int B, int Sq, int Sk, int H, int KV, int D, int Dv,
     int causal, int window, int q_offset, float sm_scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || D != Dv)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lse_f = static_cast<float*>(lse);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, lse_f, B, Sq, Sk, H, KV, D, Dv, causal,
-                           window, q_offset, sm_scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, lse_f, B, Sq, Sk, H, KV, D,
-                                   Dv, causal, window, q_offset, sm_scale, s);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0 && D == 64)
+    return launch_f32<64>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
+                          q_offset, sm_scale, s);
+  if (dtype == 0 && D == 128)
+    return launch_f32<128>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
+                           q_offset, sm_scale, s);
+  if (dtype == 1 && D == 64)
+    return launch_wgmma<64>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
+                            q_offset, sm_scale, s);
+  if (dtype == 1 && D == 128)
+    return launch_wgmma<128>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
+                             q_offset, sm_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

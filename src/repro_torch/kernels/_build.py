@@ -3,8 +3,9 @@
 Each ``src/repro_torch/csrc/<name>.cu`` exposes a plain C interface (no
 PyTorch headers), so ``nvcc`` builds it in seconds. The shared library goes
 to ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the source and the compiler flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so a changed source or header is
+rebuilt and an unchanged one is loaded as it is.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them together; the ``-Xptxas -v`` report (registers, shared memory, spills
 per kernel) is kept beside each library as ``<name>.log``.
@@ -49,9 +50,14 @@ def nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
+    """The library's path, named by a hash of the source, every shared
+    header of ``csrc/`` (a source may include any of them) and the flags."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 

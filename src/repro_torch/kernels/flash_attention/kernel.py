@@ -9,6 +9,16 @@ backward has no Pallas counterpart (the JAX model trains by autodiff through
 (CUDA C++ for ``sm_90a``, built at first use and loaded with ctypes); their
 headers say what bounds each on the card and how its design answers that.
 
+Each source holds two versions of its kernels, and the input dtype chooses
+between them: bf16 inputs launch the tensor-core kernels (``wgmma``), float32
+inputs the CUDA-core ones (``wgmma`` takes no float32, and its TF32 mode
+would miss the float32 checks at 1e-4). This dispatch is by dtype, stated
+here; it is not a fallback, and nothing switches routes on an error. Every
+launch adds one to ``launches``, ``bwd_dq_launches`` or
+``bwd_dkdv_launches``; a tensor-core launch also adds one to its own
+counter (``wgmma_launches``, ``bwd_dq_wgmma_launches``,
+``bwd_dkdv_wgmma_launches``).
+
 :func:`flash_attention` is what the model calls. A CPU tensor takes the
 plain PyTorch version, :func:`plain_flash_attention` -- the same function
 the JAX model calls at ``models/attention.py:148-154`` -- and autograd runs
@@ -47,6 +57,10 @@ launches = 0
 bwd_dq_launches = 0
 #: backward dk/dv kernel launches since the last reset (one per launch)
 bwd_dkdv_launches = 0
+#: of those, the tensor-core (bf16) kernels' launches: forward, dq, dk/dv
+wgmma_launches = 0
+bwd_dq_wgmma_launches = 0
+bwd_dkdv_wgmma_launches = 0
 _count_lock = threading.Lock()
 
 
@@ -107,17 +121,21 @@ def _check_inputs(what: str, **tensors) -> None:
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous "
                              f"4-d tensor, got shape {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte "
+                             "boundary (the kernels copy 16-byte chunks)")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          sliding_window: int = 0, q_offset: int = 0,
                          sm_scale: Optional[float] = None,
                          return_lse: bool = False):
-    """Launch the forward kernel. q (B, Sq, H, D), k (B, Sk, KV, D),
-    v (B, Sk, KV, Dv), contiguous, one dtype (bf16 or float32), on one
-    card; returns o (B, Sq, H, Dv) in q's dtype, and with ``return_lse``
-    also each row's float32 logsumexp of its scaled scores, (B, H, Sq)."""
-    global launches
+    """Launch the forward kernel: the tensor-core one for bf16, the
+    CUDA-core one for float32. q (B, Sq, H, D), k (B, Sk, KV, D),
+    v (B, Sk, KV, Dv), contiguous, one dtype, on one card; returns
+    o (B, Sq, H, Dv) in q's dtype, and with ``return_lse`` also each row's
+    float32 logsumexp of its scaled scores, (B, H, Sq)."""
+    global launches, wgmma_launches
     _build.refuse_grad("flash_attention_cuda", _USE, q, k, v)
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -143,16 +161,19 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     _build.check(err, "flash_attention")
     with _count_lock:
         launches += 1
+        wgmma_launches += int(q.dtype == torch.bfloat16)
     return (o, lse) if return_lse else o
 
 
 def flash_attention_bwd_cuda(q, k, v, lse, do, *, sliding_window: int = 0,
                              sm_scale: Optional[float] = None):
     """Launch the backward kernels of causal self-attention (Sq == Sk,
-    q_offset 0), the dq kernel and then the dk/dv kernel: q, do (B, S, H,
-    D), k, v (B, S, KV, D), one dtype, contiguous; ``lse`` (B, H, S) float32
-    from the forward. Returns (dq, dk, dv) in q's dtype."""
+    q_offset 0), the dq kernel and then the dk/dv kernel (tensor cores for
+    bf16, CUDA cores for float32): q, do (B, S, H, D), k, v (B, S, KV, D),
+    one dtype, contiguous; ``lse`` (B, H, S) float32 from the forward.
+    Returns (dq, dk, dv) in q's dtype."""
     global bwd_dq_launches, bwd_dkdv_launches
+    global bwd_dq_wgmma_launches, bwd_dkdv_wgmma_launches
     _build.refuse_grad("flash_attention_bwd_cuda", _USE, q, k, v, do)
     B, S, H, D = q.shape
     KV = k.shape[2]
@@ -180,16 +201,19 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, *, sliding_window: int = 0,
              float(sm_scale))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
+    tc = q.dtype == torch.bfloat16
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = dq_fn(*ins, dq.data_ptr(), *shape, stream)
         _build.check(err, "flash_attention backward (dq)")
         with _count_lock:
             bwd_dq_launches += 1
+            bwd_dq_wgmma_launches += int(tc)
         err = dkdv_fn(*ins, dk.data_ptr(), dv.data_ptr(), *shape, stream)
         _build.check(err, "flash_attention backward (dk, dv)")
         with _count_lock:
             bwd_dkdv_launches += 1
+            bwd_dkdv_wgmma_launches += int(tc)
     return dq, dk, dv
 
 

@@ -14,9 +14,14 @@ bfloat16 before the scale, and an output in bf16 may round either way. The
 xent stats are float32 outputs of the same float32 arithmetic on the same
 values, so they are held at ``2e-4`` for bf16 logits too, as is the SSD
 scan's float32 state ``hT``. Gradients compare
-the backward kernels with autograd through the plain versions; the
-attention backward's bf16 case also differs in ``delta = rowsum(dO * O)``,
-which the kernel takes from the bf16 output, as FlashAttention-2 does.
+the backward kernels with autograd through the plain versions.
+
+bf16 attention runs on the tensor-core kernels, which round P (and in the
+backward dS) to bf16 for their products; float32 attention runs on the
+CUDA-core kernels. Each case asserts through the per-kernel counters which
+of the two it reached. The bf16 backward cases are also held to the plain
+version's autograd on float32 copies of the same inputs, as chip_smoke.py
+holds the training shape.
 """
 import numpy as np
 import pytest
@@ -72,6 +77,14 @@ FLASH_CASES = [
     (1, 130, 130, 4, 4, 128, True, 33, 0, "float32"),    # sliding window
     (1, 8, 4, 2, 2, 64, True, 2, 4, "float32"),          # fully masked rows
     (1, 512, 512, 16, 8, 128, True, 0, 0, "bfloat16"),   # qwen3 prefill
+    # bf16 twins of the float32 cases: the tensor-core kernel
+    (2, 50, 50, 4, 2, 64, True, 0, 0, "bfloat16"),       # ragged tiles
+    (2, 16, 64, 2, 1, 64, False, 0, 0, "bfloat16"),      # cross attention
+    (1, 17, 65, 2, 2, 128, True, 0, 48, "bfloat16"),     # ragged + offset
+    (1, 130, 130, 4, 4, 128, True, 33, 0, "bfloat16"),   # sliding window
+    (1, 8, 4, 2, 2, 64, True, 2, 4, "bfloat16"),         # fully masked rows
+    (1, 150, 150, 4, 2, 128, True, 0, 0, "bfloat16"),    # S not a tile multiple
+    (1, 100, 230, 4, 2, 64, False, 0, 0, "bfloat16"),    # cross, ragged Sk
 ]
 
 
@@ -83,10 +96,12 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     k = _randn(rng, (B, Sk, KV, D), dt, cuda)
     v = _randn(rng, (B, Sk, KV, D), dt, cuda)
     kw = dict(causal=causal, sliding_window=w, q_offset=qoff)
-    before = fa.launches
+    before = fa.launches, fa.wgmma_launches
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    # bf16 reaches the tensor-core kernel, float32 the CUDA-core one
+    assert (fa.launches, fa.wgmma_launches) == (
+        before[0] + 1, before[1] + (dt == "bfloat16"))
     assert got.dtype == q.dtype and got.shape == (B, Sq, H, D)
     _close(got, fa.plain_flash_attention(q, k, v, **kw), dt)
     _close(got, attention_dense_ref(q, k, v, **kw), dt)
@@ -170,6 +185,10 @@ BWD_CASES = [
     (1, 128, 8, 2, 64, 0, "bfloat16"),
     (1, 200, 16, 8, 128, 70, "bfloat16"),                # window, bf16
     (1, 512, 16, 8, 128, 0, "bfloat16"),                 # qwen3 layer
+    (2, 50, 4, 2, 64, 0, "bfloat16"),                    # ragged, G 2, D 64
+    (1, 130, 4, 4, 128, 33, "bfloat16"),                 # G 1, window
+    (1, 256, 4, 1, 128, 0, "bfloat16"),                  # G 4, D 128
+    (1, 200, 8, 2, 64, 0, "bfloat16"),                   # G 4, D 64, ragged
 ]
 
 
@@ -186,12 +205,16 @@ def _grad_case(case, device, seed=3):
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_attention_backward_matches_plain_autograd(cuda, case):
     q, k, v, do, w = _grad_case(case, cuda)
-    before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkdv_launches)
+    counters = ("launches", "bwd_dq_launches", "bwd_dkdv_launches",
+                "wgmma_launches", "bwd_dq_wgmma_launches",
+                "bwd_dkdv_wgmma_launches")
+    before = [getattr(fa, c) for c in counters]
     out = fa.flash_attention(q, k, v, causal=True, sliding_window=w)
     got = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkdv_launches) == tuple(
-        n + 1 for n in before)
+    tc = int(case[-1] == "bfloat16")     # the tensor-core kernels
+    assert [getattr(fa, c) - n for c, n in zip(counters, before)] == [
+        1, 1, 1, tc, tc, tc]
     ref = fa.plain_flash_attention(q, k, v, causal=True, sliding_window=w)
     want = torch.autograd.grad(ref, (q, k, v), do)
     dt = case[-1]
@@ -200,6 +223,13 @@ def test_flash_attention_backward_matches_plain_autograd(cuda, case):
         assert g.dtype == wv.dtype and g.shape == wv.shape
         assert g.abs().max() > 0
         _close(g, wv, dt)
+    if dt == "bfloat16":
+        leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+        ref32 = fa.plain_flash_attention(*leaves, causal=True,
+                                         sliding_window=w)
+        want32 = torch.autograd.grad(ref32, leaves, do.float())
+        for g, wv in zip(got, want32):
+            _close(g, wv, dt)
 
 
 @pytest.mark.parametrize("kw", [dict(causal=False), dict(q_offset=8),

@@ -197,6 +197,146 @@ def test_plain_attention_grads_match_jax_vjp(case):
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core kernels' rounding, emulated
+# ---------------------------------------------------------------------------
+# The bf16 attention kernels on the card (csrc/flash_attention.cu,
+# flash_attention_bwd.cu) feed the tensor cores bf16 operands where the
+# float32 plain version keeps float32: P in the forward's P V; in the
+# backward dS in dQ = dS K (one bf16 rounding), and P in dV = P^T dO and dS
+# in dK = dS^T Q as bf16 hi + lo pairs (x = hi + lo to 2^-17). Everything
+# else is float32, as on the card (a product of two bf16 values is exact in
+# float32). This emulation runs the kernels' tiles (64 q rows, 64 keys) and
+# their online softmax on the CPU and holds the result to the float32 plain
+# version within the limits chip_smoke.py holds the kernels to at the
+# training shape (ATOL, RTOL below), so the rounding is checked here
+# before any card runs. The card's kernels themselves are held to the same
+# limits in chip_smoke.py and tests/test_torch_gpu.py.
+
+TC_ATOL, TC_RTOL = 5e-3, 1e-2       # chip_smoke.py's ATOL, RTOL
+TC_TILE = 64
+TC_CASES = [
+    # B, S, H, KV, D, window: qwen3-like heads at small S, then a window,
+    # then D = 64 with a ragged last tile and a group of 4
+    (1, 256, 4, 2, 128, 0),
+    (1, 256, 4, 2, 128, 100),
+    (2, 200, 4, 1, 64, 0),
+]
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _hilo(x):
+    hi = _bf16(x)
+    return hi + _bf16(x - hi)
+
+
+def _band(qpos, kpos, S, window):
+    ok = (qpos[:, None] >= kpos[None, :]) & (kpos[None, :] < S)
+    if window:
+        ok &= kpos[None, :] > qpos[:, None] - window
+    return ok
+
+
+def _tc_forward(q, k, v, window):
+    """The tensor-core forward's arithmetic: online softmax over 64-key
+    tiles in float32, P rounded to bf16 for P V, l from the float32 P."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    scale = D ** -0.5
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(G, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, 2).transpose(1, 2)
+    out = torch.empty(B, H, S, D)
+    lse = torch.empty(B, H, S)
+    for q0 in range(0, S, TC_TILE):
+        qi = qf[:, :, q0:q0 + TC_TILE]
+        qpos = q0 + torch.arange(qi.shape[2])
+        m = torch.full(qi.shape[:3], -1e30)
+        l = torch.zeros(qi.shape[:3])
+        acc = torch.zeros(*qi.shape[:3], D)
+        for k0 in range(0, min(S, q0 + TC_TILE), TC_TILE):
+            kpos = k0 + torch.arange(min(TC_TILE, S - k0))
+            s = qi @ kf[:, :, k0:k0 + TC_TILE].transpose(-1, -2) * scale
+            s = torch.where(_band(qpos, kpos, S, window), s,
+                            torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + _bf16(p) @ vf[:, :, k0:k0 + TC_TILE]
+            m = m_new
+        lm = l.clamp_min(1e-30)
+        out[:, :, q0:q0 + TC_TILE] = acc / lm[..., None]
+        lse[:, :, q0:q0 + TC_TILE] = m + torch.log(lm)
+    return out.transpose(1, 2).to(torch.bfloat16), lse
+
+
+def _tc_backward(q, k, v, do, lse, window):
+    """The tensor-core backward's arithmetic: P = exp(S - lse) and delta =
+    rowsum(P dP) in float32; dQ from bf16 dS; dK, dV from hi + lo P, dS."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    qf, dof = q.float().transpose(1, 2), do.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(G, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, 2).transpose(1, 2)
+    pos = torch.arange(S)
+    s = qf @ kf.transpose(-1, -2) * scale
+    p = torch.where(_band(pos, pos, S, window),
+                    torch.exp(s - lse[..., None]), torch.tensor(0.0))
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = scale * (_bf16(ds) @ kf)
+    dk = scale * (_hilo(ds).transpose(-1, -2) @ qf)
+    dv = _hilo(p).transpose(-1, -2) @ dof
+    dk, dv = (t.reshape(B, KV, G, S, D).sum(2) for t in (dk, dv))
+    return [t.transpose(1, 2).to(torch.bfloat16) for t in (dq, dk, dv)]
+
+
+def _tc_inputs(case, seed):
+    B, S, H, KV, D, w = case
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(torch.bfloat16) for shape in
+            ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D))], w
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_tensor_core_forward_rounding_within_chip_limits(case):
+    (q, k, v, _), w = _tc_inputs(case, seed=12)
+    got, lse = _tc_forward(q, k, v, w)
+    want = fa_kernel.plain_flash_attention(q.float(), k.float(), v.float(),
+                                           causal=True, sliding_window=w)
+    torch.testing.assert_close(got.float(), want, atol=TC_ATOL,
+                               rtol=TC_RTOL)
+    # the logsumexp the backward reads, against the dense softmax's
+    G = q.shape[2] // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(G, 2)) * q.shape[-1] ** -0.5
+    pos = torch.arange(q.shape[1])
+    s = torch.where(_band(pos, pos, q.shape[1], w), s, torch.tensor(-1e30))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_tensor_core_backward_rounding_within_chip_limits(case):
+    (q, k, v, do), w = _tc_inputs(case, seed=13)
+    _, lse = _tc_forward(q, k, v, w)
+    got = _tc_backward(q, k, v, do, lse, w)
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    out = fa_kernel.plain_flash_attention(*leaves, causal=True,
+                                          sliding_window=w)
+    want = torch.autograd.grad(out, leaves, do.float())
+    for name, g, wv in zip("qkv", got, want):
+        torch.testing.assert_close(g.float(), wv, atol=TC_ATOL,
+                                   rtol=TC_RTOL, msg=f"d{name}")
+
+
+# ---------------------------------------------------------------------------
 # softmax xent
 # ---------------------------------------------------------------------------
 
@@ -458,6 +598,20 @@ def test_raw_wrappers_refuse_to_cut_the_graph(wrapper):
         calls[wrapper]()
     with torch.no_grad(), pytest.raises(ValueError, match="card"):
         calls[wrapper]()          # without autograd: the device check
+
+
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A built kernel library is named by a hash of its source and of every
+    shared header in csrc/, so editing a header that a source includes
+    rebuilds it instead of loading the stale library."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k.cu")
+    assert first == _build.library_path("k.cu")
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    assert _build.library_path("k.cu") != first
 
 
 @pytest.mark.parametrize("kw", [dict(causal=False), dict(q_offset=4)])
