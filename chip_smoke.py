@@ -16,20 +16,23 @@ result line is printed:
    bf16), the attention backward at a training layer (q (2, 2048, 16, 128),
    kv (2, 2048, 8, 128), causal, bf16) against autograd through the plain
    version, the SSD scan at the mamba2-370m prefill of 512 tokens (x (1,
-   512, 32, 64), B and C (1, 512, 1, 128), bf16) -- and again on float32
-   copies of the same inputs, held tighter. bf16 attention runs on the
-   tensor-core kernels and float32 attention on the CUDA-core ones; the
-   bf16 attention forward and backward are also held to the plain version
-   on float32 copies at the bf16 limits, and the launch counters show which
-   kernels each dtype reached.
-   Each reports the kernel's device time (torch.profiler; the names of the
-   kernels the trace matched are printed), the wrapper
-   call's, the plain version's, the least time the card could take (bytes
-   over 3.35 TB/s or operations over the peak rate of their type, whichever
-   is larger) and one PyTorch library call as a yardstick (SDPA, or
-   ``F.cross_entropy``; timed here only, the port never calls them; none
-   computes the SSD scan, so its row says "none"), the kernel's time over
-   the library call's (``vs_library``) and the bound's share of the
+   512, 32, 64), B and C (1, 512, 1, 128), bf16) and of 2048 tokens -- and
+   again on float32 copies of the same inputs, held tighter. bf16
+   attention and SSD scans run on the tensor-core kernels and float32 ones
+   on the CUDA-core ones; the bf16 attention forward and backward and the
+   bf16 SSD scan are also held to the plain version on float32 copies at
+   the bf16 limits, and the launch counters show which kernels each dtype
+   reached. One decode call must run its kernel and nothing else on the
+   card (the split combine is inside it).
+   Each reports the device time of every kernel its call launches
+   (torch.profiler; the names of the kernels the trace matched are
+   printed), the wrapper call's, the plain version's, the least time the
+   card could take (bytes over 3.35 TB/s or operations over the peak rate
+   of their type, whichever is larger) and one PyTorch library call as a
+   yardstick (SDPA, or ``F.cross_entropy``; timed here only, the port
+   never calls them; none computes the SSD scan, so its row says "none"),
+   the kernel's and the wrapper call's times over the library call's
+   (``vs_library``, ``wrapper_vs_library``) and the bound's share of the
    kernel's time (``bound_share``);
 3. reference: the reduced qwen3 config served through the kernels agrees
    with the same weights on the CPU's plain path (prefill and decode
@@ -48,7 +51,8 @@ result line is printed:
    kernel. One more monolithic run under torch.profiler
    gives the device's busy share and its kernels by time. Then the same for
    mamba2-370m at full width and depth (48 SSM layers, bf16): one SSD scan
-   launch per layer per prefill, no attention kernel;
+   call per layer per prefill, each on the tensor-core kernels, no
+   attention kernel;
 5. train: qwen3-1.7b at full width and depth (bf16 compute, float32 params
    and AdamW state, seeded init) through ``repro_torch.train.steps
    .make_train_step``, fed by ``ActorDataPipeline(SyntheticLM(151936, 2,
@@ -94,7 +98,11 @@ F32_TOL = 1e-4
 SEED = 0
 # the names of the port's kernels, as the profiler's device trace shows them
 PORT_KERNELS = ("flash_fwd_", "flash_bwd_", "flash_decode_kernel",
-                "xent_fwd_kernel", "xent_bwd_kernel", "ssd_scan_kernel")
+                "xent_fwd_kernel", "xent_bwd_kernel", "ssd_scan_kernel",
+                "ssd_tc_")
+# the SSD scan's bf16 call: its three tensor-core kernels
+SSD_TC_KERNELS = ("ssd_tc_state_kernel", "ssd_tc_carry_kernel",
+                  "ssd_tc_out_kernel")
 
 
 _START = time.perf_counter()
@@ -148,11 +156,13 @@ def kernel_ms(fn, kernels, iters: int = 20, warmup: int = 3):
 def timed(entry: dict, kernels, launch, wrapper, iters: int = 20) -> dict:
     """Fill ``ms`` (the kernels' own device time; CUDA events around
     ``launch`` if the profiler saw no device events), ``wrapper_ms`` (CUDA
-    events around the wrapper call the model makes), and the kernel's ratio
-    to the library call (``vs_library``) and its bound's share of its time
-    (``bound_share``). ``kernels`` names the kernels to time (substrings of
-    their names); the names the trace matched are printed with their
-    times, so a kernel that misses the filter shows."""
+    events around the wrapper call the model makes), the kernel's and the
+    wrapper call's ratios to the library call (``vs_library``,
+    ``wrapper_vs_library``: a call that loses to the library call does not
+    hide behind a fast kernel) and the bound's share of the kernel's time
+    (``bound_share``). ``kernels`` names every kernel the call launches
+    (substrings of their names); the names the trace matched are printed
+    with their times, so a kernel that misses the filter shows."""
     kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     label = entry.get("name") or "/".join(kernels)
     ms, by_name = kernel_ms(launch, kernels, iters=iters)
@@ -171,6 +181,8 @@ def timed(entry: dict, kernels, launch, wrapper, iters: int = 20) -> dict:
     entry["wrapper_ms"] = cuda_ms(wrapper, iters=iters)
     lib = entry.get("library_ms")
     entry["vs_library"] = None if lib is None else ms / lib
+    entry["wrapper_vs_library"] = (None if lib is None
+                                   else entry["wrapper_ms"] / lib)
     entry["bound_share"] = entry["bound_ms"] / ms
     return entry
 
@@ -299,6 +311,14 @@ def check_flash_decode(dev):
         q.float(), k.float(), v.float(), cur_pos=cur)))
     agree(f"{what} vs the plain version on float32 copies", got, want32,
           F32_TOL, F32_TOL)
+    # one call runs the kernel alone: no PyTorch op on the card between
+    # its launch and the returned tensors (split combine included)
+    _, on_card = kernel_ms(lambda: fd.flash_decode(q, k, v, cur_pos=cur),
+                           ("",), iters=5)
+    print(f"flash_decode call: device work {sorted(on_card)}")
+    if not on_card or any("flash_decode_kernel" not in n for n in on_card):
+        raise AssertionError("flash_decode: the call ran device work "
+                             f"besides its kernel: {sorted(on_card)}")
     keys = int((cur.long() + 1).sum().item())    # keys this run must read
     m, l, acc = fd.flash_decode(q, k, v, cur_pos=cur)
     moved = (nbytes(q, cur, m, l, acc)
@@ -499,51 +519,75 @@ def check_flash_attention_bwd(dev):
 def check_ssd_scan(dev):
     """The SSD scan at the mamba2-370m prefill of the longest serve prompt
     (x (1, 512, 32, 64), B and C (1, 512, 1, 128) as views into one
-    projection, as the model passes them), bf16, then on float32 copies of
-    the same inputs. No single PyTorch call computes the scan: library
-    "none"."""
+    projection, as the model passes them; the row's main numbers) and of a
+    2048-token prompt (``long_prompt``: 16 chunks, how the chunk-parallel
+    form scales), bf16, then on float32 copies of the same inputs. No
+    single PyTorch call computes the scan: library "none"."""
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
-    B, L, H, P, N, G, Q = 1, 512, 32, 64, 128, 1, 128
-    rng = np.random.default_rng(SEED + 9)
-    mk = lambda *shape: torch.from_numpy(  # noqa: E731
-        rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
-    x, bc = mk(B, L, H, P), mk(B, L, 2 * G * N)
-    Bm = bc[..., :G * N].reshape(B, L, G, N)
-    Cm = bc[..., G * N:].reshape(B, L, G, N)
-    # decays of the model's range: A = -linspace(1, 16), as its init
-    dt = torch.as_tensor(rng.uniform(0.01, 0.2, (B, L, H)),
-                         dtype=torch.float32, device=dev)
-    A = -torch.linspace(1.0, 16.0, H, device=dev)
-    D = torch.as_tensor(rng.normal(size=H), dtype=torch.float32, device=dev)
-    args = (x, dt, A, Bm, Cm, D)
-    what = f"ssd_scan x{tuple(x.shape)} B/C{tuple(Bm.shape)} chunk {Q}"
-    errs = []
-    for dtype, atol, rtol in ((torch.bfloat16, ATOL, RTOL),
-                              (torch.float32, F32_TOL, F32_TOL)):
-        a = [t.to(dtype) if t.dtype == torch.bfloat16 else t for t in args]
-        y, hT = ssd.ssd_scan(*a, chunk=Q)
-        yr, hr = ssd_chunked_ref(*a, chunk=Q)
-        errs.append(max(agree(f"{what} y {dtype}", y, yr, atol, rtol),
-                        agree(f"{what} hT {dtype}", hT, hr, F32_TOL,
-                              F32_TOL)))
-    y, hT = ssd.ssd_scan_cuda(*args, chunk=Q)
-    flops = 0
-    for t0 in range(0, L, Q):                    # per chunk of Qc steps
-        qc = min(Q, L - t0)
-        pairs = qc * (qc + 1) // 2               # the causal (i >= j) pairs
-        flops += B * H * (2 * pairs * N + 2 * pairs * P + 4 * qc * N * P)
-    b_ms, b_by = bound_ms(nbytes(*args, y, hT), flops)
-    return timed({
-        "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/csrc/ssd_scan.cu",
-        "replaces": "src/repro/kernels/ssd_scan/kernel.py:72",
-        "max_abs_err": errs[0], "f32_max_abs_err": errs[1],
-        "plain_ms": cuda_ms(lambda: ssd_chunked_ref(*args, chunk=Q), iters=5),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
-    }, "ssd_scan_kernel", lambda: ssd.ssd_scan_cuda(*args, chunk=Q),
-        lambda: ssd.ssd_scan(*args, chunk=Q))
+
+    def at(L, seed):
+        B, H, P, N, G, Q = 1, 32, 64, 128, 1, 128
+        rng = np.random.default_rng(seed)
+        mk = lambda *shape: torch.from_numpy(  # noqa: E731
+            rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+        x, bc = mk(B, L, H, P), mk(B, L, 2 * G * N)
+        Bm = bc[..., :G * N].reshape(B, L, G, N)
+        Cm = bc[..., G * N:].reshape(B, L, G, N)
+        # decays of the model's range: A = -linspace(1, 16), as its init
+        dt = torch.as_tensor(rng.uniform(0.01, 0.2, (B, L, H)),
+                             dtype=torch.float32, device=dev)
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        D = torch.as_tensor(rng.normal(size=H), dtype=torch.float32,
+                            device=dev)
+        args = (x, dt, A, Bm, Cm, D)
+        what = f"ssd_scan x{tuple(x.shape)} B/C{tuple(Bm.shape)} chunk {Q}"
+        errs = []
+        # bf16 goes to the tensor-core kernels, float32 to the CUDA-core one
+        n0, w0 = ssd.launches, ssd.wgmma_launches
+        for dtype, atol, rtol in ((torch.bfloat16, ATOL, RTOL),
+                                  (torch.float32, F32_TOL, F32_TOL)):
+            a = [t.to(dtype) if t.dtype == torch.bfloat16 else t
+                 for t in args]
+            y, hT = ssd.ssd_scan(*a, chunk=Q)
+            yr, hr = ssd_chunked_ref(*a, chunk=Q)
+            errs.append(max(agree(f"{what} y {dtype}", y, yr, atol, rtol),
+                            agree(f"{what} hT {dtype}", hT, hr, F32_TOL,
+                                  F32_TOL)))
+            if dtype == torch.bfloat16:
+                y16, h16 = y, hT
+        torch.cuda.synchronize()
+        if (ssd.launches - n0, ssd.wgmma_launches - w0) != (2, 1):
+            raise AssertionError("ssd_scan: bf16 did not reach the "
+                                 "tensor-core kernels, or float32 did")
+        # the bf16 kernels against the plain version on float32 copies (y,
+        # hT of the float32 run above)
+        err_c = max(agree(f"{what} y bf16 vs the plain version on float32 "
+                          "copies", y16, yr, ATOL, RTOL),
+                    agree(f"{what} hT bf16 vs the plain version on float32 "
+                          "copies", h16, hr, F32_TOL, F32_TOL))
+        y, hT = ssd.ssd_scan_cuda(*args, chunk=Q)
+        flops = 0
+        for t0 in range(0, L, Q):                # per chunk of Qc steps
+            qc = min(Q, L - t0)
+            pairs = qc * (qc + 1) // 2           # the causal (i >= j) pairs
+            flops += B * H * (2 * pairs * N + 2 * pairs * P + 4 * qc * N * P)
+        b_ms, b_by = bound_ms(nbytes(*args, y, hT), flops)
+        return timed({
+            "max_abs_err": errs[0], "max_abs_err_vs_f32_copies": err_c,
+            "f32_max_abs_err": errs[1],
+            "plain_ms": cuda_ms(lambda: ssd_chunked_ref(*args, chunk=Q),
+                                iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        }, SSD_TC_KERNELS, lambda: ssd.ssd_scan_cuda(*args, chunk=Q),
+            lambda: ssd.ssd_scan(*args, chunk=Q))
+
+    entry = {"name": "ssd_scan", "route": "cuda",
+             "source": "src/repro_torch/csrc/ssd_scan.cu",
+             "replaces": "src/repro/kernels/ssd_scan/kernel.py:72"}
+    entry.update(at(512, SEED + 9))
+    entry["long_prompt"] = at(2048, SEED + 10)
+    return entry
 
 
 def check_reference(dev):
@@ -675,17 +719,18 @@ def check_reference_mamba(dev):
                         device="cpu").state_dict()
     outs, launches = {}, {}
     for d in ("cpu", dev):
-        ssd.launches = 0
+        ssd.launches = ssd.wgmma_launches = 0
         with api.compile(cfg, mode="serve", backend="actors", stages=2,
                          params=state, device=d, num_groups=2, group_size=1,
                          max_prompt_len=128, max_new_tokens=8) as sess:
             outs[d] = sess.generate(requests)
-        launches[d] = ssd.launches
-    want = {"cpu": 0, dev: len(requests) * cfg.num_layers}
+        launches[d] = (ssd.launches, ssd.wgmma_launches)
+    # float32: every launch on the CUDA-core kernel
+    want = {"cpu": (0, 0), dev: (len(requests) * cfg.num_layers, 0)}
     same = all(np.array_equal(a, b) for a, b in zip(outs["cpu"], outs[dev]))
     print(f"reduced mamba2 served on the stage actors: tokens identical to "
-          f"the CPU's: {same}; ssd_scan launches {launches} (expected "
-          f"{want})")
+          f"the CPU's: {same}; ssd_scan (launches, tensor-core launches) "
+          f"{launches} (expected {want})")
     if not same or launches != want:
         raise AssertionError(f"reduced mamba2: card {outs[dev]} vs CPU "
                              f"{outs['cpu']}, launches {launches}")
@@ -716,7 +761,8 @@ def serve_counts():
     from repro_torch.kernels.ssd_scan import kernel as ssd
     return {"flash_attention": fa.launches,
             "flash_fwd_wgmma_kernel": fa.wgmma_launches,
-            "flash_decode": fd.launches, "ssd_scan": ssd.launches}
+            "flash_decode": fd.launches, "ssd_scan": ssd.launches,
+            "ssd_scan_wgmma": ssd.wgmma_launches}
 
 
 def zero_serve_counts():
@@ -724,6 +770,7 @@ def zero_serve_counts():
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.ssd_scan import kernel as ssd
     fa.launches = fa.wgmma_launches = fd.launches = ssd.launches = 0
+    ssd.wgmma_launches = 0
 
 
 def serve(dev, arch: str):
@@ -759,12 +806,13 @@ def serve(dev, arch: str):
         st = session.last_stats
         L = cfg.num_layers
         ssm = cfg.family == "ssm"
-        # every bf16 attention forward on the tensor-core kernel
+        # every bf16 attention forward and SSD scan on the tensor cores
         want = {"flash_attention": 0 if ssm else L * st["prefill_items"],
                 "flash_fwd_wgmma_kernel":
                     0 if ssm else L * st["prefill_items"],
                 "flash_decode": 0 if ssm else L * st["decode_items"],
-                "ssd_scan": L * st["prefill_items"] if ssm else 0}
+                "ssd_scan": L * st["prefill_items"] if ssm else 0,
+                "ssd_scan_wgmma": L * st["prefill_items"] if ssm else 0}
         print(f"launches on the {session.backend} run: {got} (expected "
               f"{want}: {L} layers, {st['prefill_items']} prefills, "
               f"{st['decode_items']} decode items)")
@@ -999,20 +1047,25 @@ def main() -> int:
                *check_xent(dev), check_flash_attention_bwd(dev),
                check_ssd_scan(dev)]
     for kr in kernels + [dict(kernels[0]["train_shape"],
-                              name="flash_attention (training shape)")]:
+                              name="flash_attention (training shape)"),
+                         dict(kernels[-1]["long_prompt"],
+                              name="ssd_scan (2048-token prompt)")]:
         lib = kr["library_ms"]
         print(f"{kr['name']}: kernel {kr['ms']:.4f} ms, wrapper call "
               f"{kr['wrapper_ms']:.4f} ms, plain {kr['plain_ms']:.4f} "
               f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}; "
               f"{kr['bound_share']:.1%} of the kernel's time), library "
               + ("none" if lib is None else
-                 f"{lib:.4f} ms (kernel / library {kr['vs_library']:.2f})"))
+                 f"{lib:.4f} ms (kernel / library {kr['vs_library']:.2f}, "
+                 f"call / library {kr['wrapper_vs_library']:.2f})"))
     check_reference(dev)
     check_reference_train(dev)
     check_reference_mamba(dev)
     served = serve(dev, "qwen3-1.7b")
     torch.cuda.empty_cache()
-    served.update(ssd_scan=serve(dev, "mamba2-370m")["ssd_scan"])
+    mamba = serve(dev, "mamba2-370m")
+    served.update(ssd_scan=mamba["ssd_scan"],
+                  ssd_scan_wgmma=mamba["ssd_scan_wgmma"])
     torch.cuda.empty_cache()
     trained, curve = train(dev)
     torch.cuda.empty_cache()
@@ -1029,6 +1082,9 @@ def main() -> int:
             kr["launches"] = min(kr["launches_by_kernel"].values())
         elif name == "flash_attention":
             kr["launches"] = served["flash_fwd_wgmma_kernel"]
+        elif name == "ssd_scan":
+            kr["launches"] = served["ssd_scan"]
+            kr["wgmma_launches"] = served["ssd_scan_wgmma"]
         else:
             kr["launches"] = (served if name in served else trained)[name]
     kernels[0]["train_shape"]["launches"] = trained["flash_fwd_wgmma_kernel"]

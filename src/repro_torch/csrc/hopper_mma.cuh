@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core attention
-// kernels (flash_attention.cu, flash_attention_bwd.cu): cp.async copies
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels
+// (flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu): cp.async copies
 // into 128-byte-swizzled shared memory, the wgmma shared-memory
 // descriptors for that layout, and the bf16 wgmma instructions the kernels
 // issue. One warpgroup (128 threads) issues each wgmma.

@@ -1,4 +1,4 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a): the port's prefill kernel
+// Mamba-2 SSD chunked scan for Hopper (sm_90a): the port's prefill kernels
 // of every SSM layer.
 //
 // Replaces the Pallas TPU kernel
@@ -13,50 +13,64 @@
 //   h     <- exp(cs_last) h + sum_j exp(cs_last - cs_j) dt_j x_j B_j^T.
 // It returns y in x's dtype and the final state hT (B, H, P, N) in float32.
 // The reference zero-pads the ragged last chunk (dt = 0 there: padded steps
-// neither decay nor feed the state); this kernel runs that chunk over its
+// neither decay nor feed the state); these kernels run that chunk over its
 // valid steps only, which is the same arithmetic without the zero terms.
+// Inputs x, B, C in bf16 or float32 (one dtype), dt, A, D float32; x, dt, B
+// and C are read through element strides, so the model's views need no
+// copy. Limits: Q <= 128, N <= 128, and P <= 128 for bf16.
 //
-// Design. The TPU grid runs sequentially over chunks and carries h in VMEM
-// scratch. Here one block loops over its chunks in order and carries its
-// part of h itself; nothing is carried between blocks. Serving prefills one
-// request at a time (B = 1), so a block per (b, h) would be only 32 blocks
-// for mamba2-370m on 132 SMs. Every row p of h (P, N) depends only on column
-// p of x, so P is split into slices of PS = 16 rows, one block per
-// (slice, h, b): 128 blocks at the mamba2 prefill shape. Each slice
-// recomputes the chunk's Q x Q scores C B^T, the price of the parallelism.
-// The other way, the reference's two-pass form (chunk-parallel y_diag and
-// chunk states, then a short scan over chunks), needs a second launch and
-// the chunk states in device memory; it is the candidate when this kernel
-// moves to tensor cores.
-// Per chunk, with 256 threads:
-//   1. load C and B (Q x N) and the block's x slice (Q x PS) into shared
-//      memory as float32 (rows padded to N + 1 floats: no bank conflicts);
-//   2. one warp scans cs = cumsum(dt * A) with shuffles;
-//   3. scores: each thread owns an 8 x 8 register tile of rows i = ti + 16a
-//      and columns j = tj + 16b and computes only the pairs with b <= a (the
-//      others lie above the diagonal), then writes
-//      W[i, j] = (C_i . B_j) * exp(cs_i - cs_j) * dt_j for j <= i. The mask
-//      comes BEFORE the exp: cs_i - cs_j is positive above the diagonal and
-//      could overflow (the Pallas body computes exp everywhere, then selects);
-//   4. y: one thread per (row, p) sums W x over j <= i and C h over n, adds
-//      D x, and writes y in x's dtype;
-//   5. the state: each thread owns up to 8 entries of the block's (PS, N)
-//      slice of h in registers for the whole sequence, updates them from B, x
-//      and exp(cs_last - cs_j) dt_j, then publishes them to shared memory for
-//      the next chunk's C h.
-// All arithmetic is float32 FMAs on CUDA cores. Inputs x, B, C in bf16 or
-// float32 (one dtype), dt, A, D float32; x, dt, B and C are read through
-// element strides, so the model's views need no copy. Limits: Q <= 128,
-// N <= 128 (shared memory: 216 KB at Q = N = 128).
+// Two designs, chosen by the input dtype (the wrapper states the dispatch):
+//   * bf16: three tensor-core (wgmma) kernels over the chunk-parallel form;
+//   * float32: ssd_scan_kernel, one block per (16-row slice of P, head,
+//     batch row) walking its chunks in order on CUDA cores. wgmma has no
+//     float32 input, and its TF32 mode would miss the float32 checks at 1e-4.
 //
-// Bound. At the mamba2-370m prefill of 512 tokens the work is about 0.94
-// GFLOP (C B^T and W x over the causal pairs, C h and the state update) and
-// the traffic about 5.6 MB, so the card could do it in about 1.7 us, set by
-// bytes. This kernel recomputes the scores for each P slice with float32
-// FMAs on CUDA cores from shared memory, so it runs far above that bound;
-// wgmma for its products, fed by TMA, is later work.
+// Bound. At the mamba2-370m prefill of 512 tokens (x (1, 512, 32, 64), N =
+// 128) the work is about 0.94 GFLOP (C B^T and W x over the causal pairs,
+// C h and the state update) and the traffic about 5.6 MB, so the card could
+// do it in about 1.7 us, set by bytes. The TPU grid runs sequentially over
+// chunks and carries h in VMEM; a block that walks its chunks in order does
+// the same here, so at one request's prefill the card sees at most B x H x
+// (P / 16) = 128 blocks that each wait on their previous chunk.
+//
+// bf16, chunk-parallel (ssd_tc_state_kernel, ssd_tc_carry_kernel,
+// ssd_tc_out_kernel). Only the carried state is sequential, and it is an
+// elementwise recurrence over P x N entries; everything else is per chunk:
+//   1. state: one block (two warpgroups) per (chunk, head, batch row)
+//      computes cs and the chunk's own state contribution
+//      S_c = sum_j exp(cs_last - cs_j) dt_j x_j B_j^T (P x N) as a wgmma
+//      with A = (w o x)^T from registers and B MN-major from shared memory,
+//      and writes S_c and cs_last to a float32 scratch (4 MB at the mamba2
+//      prefill shape): 128 blocks there;
+//   2. carry: one thread per (b, h, p, n) runs h_c = exp(cs_last,c) h_{c-1}
+//      + S_c over the chunks in float32, overwrites S_c with the state that
+//      enters chunk c, and writes hT;
+//   3. out: one block per (chunk, head, batch row), one warpgroup per 64
+//      rows of the chunk, computes the scores C B^T once for all P (SS wgmma,
+//      only the column tiles left of the diagonal), masks them BEFORE the
+//      exp (cs_i - cs_j is positive above the diagonal and could overflow),
+//      forms W = (C B^T) o exp(cs_i - cs_j) o dt_j in registers, and
+//      accumulates y = exp(cs_i) C h_prev^T (SS wgmma, the row scale applied
+//      to the accumulator) + W x (RS wgmma, x MN-major) + D x.
+// Operands go to the tensor cores in bf16; x, B and C are bf16 already, so
+// their products are exact in the float32 accumulators. The three operands
+// formed in float32 (w o x in S_c, the carried h in C h^T, W in W x) enter
+// as bf16 hi + lo pairs (x = hi + lo to 2^-17, two products each): the CPU
+// emulation at the mamba2 prefill shape (tests/test_torch_ssd_tc.py) put
+// one bf16 rounding of W at 5.7x chip_smoke.py's limit on y (5e-3 + 1e-2
+// |ref|), of h at 2.3x, and of w o x at 23x the 1e-4 limit on hT; with the
+// pairs all three stay at the float32 version's error. Tiles use the
+// 128-byte swizzle of hopper_mma.cuh, rows and columns past Q, N and P
+// zero-filled; x, B and C arrive by 16-byte cp.async copies when their
+// rows are contiguous and 16-byte aligned (the model's views are), element
+// by element otherwise. Each block issues its global loads first (dt, the
+// entering state, the tiles' copies) so that one round trip covers them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -74,10 +88,33 @@ struct Strides {              // element strides of the inputs
   long long c[4];             // Cm (B, L, G, N)
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f(float v, float* out) { *out = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* out) { *out = __float2bfloat16(v); }
+// cs[i] = sum of dts[0..i] * a for i < Qc <= QMAX: the inclusive cumsum of
+// one chunk, run by one warp (QMAX / 32 steps a lane, then a shuffle scan of
+// the lanes' totals)
+__device__ __forceinline__ void chunk_cumsum(const float* dts, float* css,
+                                             float a, int Qc, int lane) {
+  constexpr int PER = QMAX / 32;
+  float v[PER];
+  float run = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = lane * PER + k;
+    run += i < Qc ? dts[i] * a : 0.f;
+    v[k] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  const float excl = incl - run;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = lane * PER + k;
+    if (i < Qc) css[i] = v[k] + excl;
+  }
+}
 
 inline size_t smem_floats(int Q, int N) {
   const int ldn = N + 1, ldw = Q + 1;
@@ -88,13 +125,30 @@ inline size_t smem_floats(int Q, int N) {
          + static_cast<size_t>(3) * Q;      // dt, cs, decay-to-end
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// float32: CUDA-core FMAs. Every row p of h (P, N) depends only on column p
+// of x, so P is split into slices of PS = 16 rows, one block per (slice, h,
+// b), each looping over its chunks in order with its slice of h in
+// registers (and recomputing the chunk's scores). Per chunk, 256 threads:
+//   1. load C and B (Q x N) and the block's x slice (Q x PS) into shared
+//      memory as float32 (rows padded to N + 1 floats: no bank conflicts);
+//   2. one warp scans cs = cumsum(dt * A) with shuffles;
+//   3. scores: each thread owns an 8 x 8 register tile of rows i = ti + 16a
+//      and columns j = tj + 16b and computes only the pairs with b <= a,
+//      then writes W[i, j] = (C_i . B_j) * exp(cs_i - cs_j) * dt_j, j <= i;
+//   4. y: one thread per (row, p) sums W x over j <= i and C h over n, adds
+//      D x, and writes y in x's dtype;
+//   5. the state: each thread updates its entries of the block's (PS, N)
+//      slice of h from B, x and exp(cs_last - cs_j) dt_j, then publishes
+//      them to shared memory for the next chunk's C h.
+// Shared memory: 216 KB at Q = N = 128.
+// ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(NT, 1) ssd_scan_kernel(
-    const T* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ A, const T* __restrict__ Bm,
-    const T* __restrict__ Cm, const float* __restrict__ Dv, T* __restrict__ y,
-    float* __restrict__ hT, int L, int H, int P, int G, int N, int Q,
-    Strides st) {
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ A, const float* __restrict__ Bm,
+    const float* __restrict__ Cm, const float* __restrict__ Dv,
+    float* __restrict__ y, float* __restrict__ hT, int L, int H, int P, int G,
+    int N, int Q, Strides st) {
   extern __shared__ float smem[];
   const int ldn = N + 1, ldw = Q + 1;
   float* Cs = smem;                       // (Q, ldn)
@@ -111,10 +165,10 @@ __global__ void __launch_bounds__(NT, 1) ssd_scan_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float a_h = A[h], d_h = Dv[h];
 
-  const T* xb = x + b * st.x[0] + h * st.x[2];
+  const float* xb = x + b * st.x[0] + h * st.x[2];
   const float* dtb = dt + b * st.dt[0] + h * st.dt[2];
-  const T* bb = Bm + b * st.b[0] + g * st.b[2];
-  const T* cb = Cm + b * st.c[0] + g * st.c[2];
+  const float* bb = Bm + b * st.b[0] + g * st.b[2];
+  const float* cb = Cm + b * st.c[0] + g * st.c[2];
 
   // the block's slice of h: entry e = tid + NT * k is (p, n) = (e / N, e % N)
   float hreg[HREG];
@@ -130,41 +184,19 @@ __global__ void __launch_bounds__(NT, 1) ssd_scan_kernel(
     for (int e = tid; e < Qc * N; e += NT) {
       const int i = e / N, n = e - i * N;
       const long long t = t0 + i;
-      Cs[i * ldn + n] = to_f(cb[t * st.c[1] + n * st.c[3]]);
-      Bs[i * ldn + n] = to_f(bb[t * st.b[1] + n * st.b[3]]);
+      Cs[i * ldn + n] = cb[t * st.c[1] + n * st.c[3]];
+      Bs[i * ldn + n] = bb[t * st.b[1] + n * st.b[3]];
     }
     for (int e = tid; e < Qc * PS; e += NT) {
       const int i = e / PS, p = e - i * PS;
       const long long t = t0 + i;
-      Xs[e] = p0 + p < P ? to_f(xb[t * st.x[1] + (p0 + p) * st.x[3]]) : 0.f;
+      Xs[e] = p0 + p < P ? xb[t * st.x[1] + (p0 + p) * st.x[3]] : 0.f;
     }
     for (int i = tid; i < Qc; i += NT) dts[i] = dtb[(t0 + i) * st.dt[1]];
     __syncthreads();
 
-    // 2. cs = inclusive cumsum of dt * A (one warp, QMAX / 32 steps a lane)
-    if (warp == 0) {
-      constexpr int PER = QMAX / 32;
-      float v[PER];
-      float run = 0.f;
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int i = lane * PER + k;
-        run += i < Qc ? dts[i] * a_h : 0.f;
-        v[k] = run;
-      }
-      float incl = run;                     // scan of the lanes' totals
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += o;
-      }
-      const float excl = incl - run;
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int i = lane * PER + k;
-        if (i < Qc) css[i] = v[k] + excl;
-      }
-    }
+    // 2. cs = inclusive cumsum of dt * A
+    if (warp == 0) chunk_cumsum(dts, css, a_h, Qc, lane);
     __syncthreads();
     const float cs_last = css[Qc - 1];
 
@@ -216,7 +248,7 @@ __global__ void __launch_bounds__(NT, 1) ssd_scan_kernel(
         const float out = yd + expf(css[i]) * ch + d_h * Xs[i * PS + p];
         if (p0 + p < P) {
           const long long t = t0 + i;
-          from_f(out, y + ((static_cast<long long>(b) * L + t) * H + h) * P + p0 + p);
+          y[((static_cast<long long>(b) * L + t) * H + h) * P + p0 + p] = out;
         }
       }
     }
@@ -257,39 +289,487 @@ __global__ void __launch_bounds__(NT, 1) ssd_scan_kernel(
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* dt, const void* A, const void* Bm,
-           const void* Cm, const void* D, void* y, void* hT, int B, int L,
-           int H, int P, int G, int N, int Q, const Strides& st,
-           cudaStream_t stream) {
-  auto kern = ssd_scan_kernel<T>;
+int launch_f32(const void* x, const void* dt, const void* A, const void* Bm,
+               const void* Cm, const void* D, void* y, void* hT, int B, int L,
+               int H, int P, int G, int N, int Q, const Strides& st,
+               cudaStream_t stream) {
+  auto kern = ssd_scan_kernel;
   const int smem = static_cast<int>(sizeof(float) * smem_floats(QMAX, NMAX));
-  // Set once per template instance, on the device current at its first
-  // launch; the static's initialisation is thread-safe.
+  // Set once, on the device current at the first launch; the static's
+  // initialisation is thread-safe.
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((P + PS - 1) / PS, H, B);
   kern<<<grid, NT, sizeof(float) * smem_floats(Q, N), stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const float*>(D),
-      static_cast<T*>(y), static_cast<float*>(hT), L, H, P, G, N, Q, st);
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(Bm),
+      static_cast<const float*>(Cm), static_cast<const float*>(D),
+      static_cast<float*>(y), static_cast<float*>(hT), L, H, P, G, N, Q, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores, chunk-parallel (see the header). Tiles are TQ = 128
+// rows of a chunk (or 64 PP rows of P for h) by 64-column panels, swizzled
+// as in hopper_mma.cuh; PP = P panels (1 or 2), NP = N panels (1 or 2).
+// ---------------------------------------------------------------------------
+constexpr int TQ = 128;        // chunk rows of a tile
+constexpr int TC_NT = 256;     // two warpgroups
+
+struct TcArgs {
+  const __nv_bfloat16* x;
+  const float* dt;
+  const float* A;
+  const __nv_bfloat16* Bm;
+  const __nv_bfloat16* Cm;
+  const float* D;
+  __nv_bfloat16* y;
+  float* hT;
+  float* states;               // (B, H, nc, P, N): S_c, then the entering h
+  float* totals;               // (B, H, nc): cs_last of each chunk
+  int L, H, P, G, N, Q, nc, NP;
+  int vec_x, vec_b, vec_c;     // rows contiguous and 16-byte aligned
+  Strides st;
+};
+
+// rows 0..nrows-1 (nrows <= TQ) of a strided bf16 matrix, element (r, col)
+// at src[r * rs + col * cs], into the swizzled TQ x 64 `panels` tile at
+// `dst`; rows past nrows and columns past ncols are zero. With `vec` the
+// rows are contiguous (cs = 1), 16-byte aligned, ncols % 8 == 0, and the
+// copies are cp.async ones (the caller waits: cp_async_wait_all); else
+// each thread loads element by element.
+__device__ __forceinline__ void load_rows(uint8_t* dst,
+                                          const __nv_bfloat16* __restrict__ src,
+                                          long long rs, long long cs, int nrows,
+                                          int ncols, int panels, bool vec) {
+  const int sh = panels == 2 ? 4 : 3;        // 16-byte chunks per row: 1 << sh
+  const uint32_t dst_s = hopper::smem_u32(dst);
+  for (int i = threadIdx.x; i < TQ << sh; i += TC_NT) {
+    const int r = i >> sh, c = i & ((1 << sh) - 1);
+    const bool ok = r < nrows && c * 8 < ncols;
+    const __nv_bfloat16* row = src + (ok ? r * rs : 0);
+    if (vec) {
+      hopper::cp_async16(dst_s + hopper::swz<TQ>(r, c), row + (ok ? c * 8 : 0),
+                         ok ? 16 : 0);
+      continue;
+    }
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c0 = c * 8 + 2 * e;
+      const float lo = ok && c0 < ncols ? __bfloat162float(row[c0 * cs]) : 0.f;
+      const float hi = ok && c0 + 1 < ncols ? __bfloat162float(row[(c0 + 1) * cs]) : 0.f;
+      w[e] = hopper::pack_bf16(lo, hi);
+    }
+    *reinterpret_cast<uint4*>(dst + hopper::swz<TQ>(r, c)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// the element (r, col) of a swizzled bf16 tile of `rows` rows, and the
+// pair (r, col), (r, col + 1) for an even col
+template <int ROWS>
+__device__ __forceinline__ float tile_at(const uint8_t* tile, int r, int col) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+      tile + hopper::swz<ROWS>(r, col >> 3) + (col & 7) * 2));
+}
+template <int ROWS>
+__device__ __forceinline__ float2 tile_pair(const uint8_t* tile, int r, int col) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      tile + hopper::swz<ROWS>(r, col >> 3) + (col & 7) * 2));
+}
+
+// exp(x) as exp2 (the attention kernels' form, a few instructions)
+__device__ __forceinline__ float exp_(float x) { return exp2f(x * hopper::kLog2e); }
+
+// this thread's dt of the chunk, row threadIdx.x (0 past Qc; TQ <= TC_NT),
+// loaded first so its latency overlaps the tiles' copies
+__device__ __forceinline__ float load_dt(const TcArgs& a, int b, int h,
+                                         int t0, int Qc) {
+  const int i = threadIdx.x;
+  return i < Qc ? a.dt[b * a.st.dt[0] + (t0 + i) * a.st.dt[1] + h * a.st.dt[2]]
+                : 0.f;
+}
+
+// the chunk's dt into shared memory and its cumsum cs (one warp)
+__device__ __forceinline__ void store_dt_cs(float dtv, float a_h, int Qc,
+                                            float* dts, float* css) {
+  if (threadIdx.x < TQ) dts[threadIdx.x] = dtv;
+  __syncthreads();
+  if (threadIdx.x < 32) chunk_cumsum(dts, css, a_h, Qc, threadIdx.x);
+}
+
+// shared memory of each kernel, with the 1024 bytes the swizzle's alignment
+// may take
+template <int PP>
+inline int state_smem(int NP) {
+  return TQ * 128 * NP + TQ * 128 * PP + 3 * TQ * 4 + 1024;
+}
+template <int PP>
+inline int out_smem(int NP) {
+  return 2 * TQ * 128 * NP + TQ * 128 * PP + 2 * 64 * PP * 128 * NP +
+         2 * TQ * 4 + 1024;
+}
+
+// Pass 1: per (chunk, head, batch row), S_c (P x N) = (w o x)^T B with
+// w_j = exp(cs_last - cs_j) dt_j, and cs_last.
+template <int PP>
+__global__ void __launch_bounds__(TC_NT, 1) ssd_tc_state_kernel(TcArgs a) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sB = align1024(smem_raw);          // TQ x 64 NP, swizzled
+  uint8_t* sX = sB + TQ * 128 * a.NP;         // TQ x 64 PP
+  float* dts = reinterpret_cast<float*>(sX + TQ * 128 * PP);
+  float* css = dts + TQ;
+  float* w = css + TQ;
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (a.H / a.G);
+  const int t0 = c * a.Q, Qc = min(a.Q, a.L - t0);
+  const Strides& st = a.st;
+  const float dtv = load_dt(a, b, h, t0, Qc);
+  load_rows(sB, a.Bm + b * st.b[0] + t0 * st.b[1] + g * st.b[2], st.b[1],
+            st.b[3], Qc, a.N, a.NP, a.vec_b);
+  load_rows(sX, a.x + b * st.x[0] + t0 * st.x[1] + h * st.x[2], st.x[1],
+            st.x[3], Qc, a.P, PP, a.vec_x);
+  cp_async_commit();
+  store_dt_cs(dtv, a.A[h], Qc, dts, css);
+  cp_async_wait_all();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const float cs_last = css[Qc - 1];
+  for (int j = threadIdx.x; j < TQ; j += TC_NT)
+    w[j] = j < Qc ? exp_(cs_last - css[j]) * dts[j] : 0.f;
+  const size_t bh = static_cast<size_t>(b) * a.H + h;
+  if (threadIdx.x == 0) a.totals[bh * a.nc + c] = cs_last;
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int ksteps = (Qc + 15) / 16;
+  const uint32_t sBa = smem_u32(sB);
+  float* out = a.states + (bh * a.nc + c) * a.P * a.N;
+  for (int item = wg; item < PP * a.NP; item += 2) {
+    const int pp = item / a.NP, np = item - pp * a.NP;
+    // A = (w o x)^T: rows p = 64 pp + 16 warp + gq (+8), columns j
+    uint32_t ahi[TQ / 16][4], alo[TQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < TQ / 16; ++kk) {
+      if (kk >= ksteps) break;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = 64 * pp + 16 * warp + gq + 8 * (i & 1);
+        const int j = 16 * kk + 8 * (i >> 1) + 2 * tq;
+        const float v0 = w[j] * tile_at<TQ>(sX, j, p);
+        const float v1 = w[j + 1] * tile_at<TQ>(sX, j + 1, p);
+        const __nv_bfloat162 hv = __floats2bfloat162_rn(v0, v1);
+        ahi[kk][i] = *reinterpret_cast<const uint32_t*>(&hv);
+        alo[kk][i] = pack_bf16(v0 - __low2float(hv), v1 - __high2float(hv));
+      }
+    }
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TQ / 16; ++kk) {
+      if (kk >= ksteps) break;
+      const uint64_t db = kstep_mnmajor<TQ>(sBa + np * TQ * 128, kk);
+      wgmma_rs_n64(acc, ahi[kk], db);
+      wgmma_rs_n64(acc, alo[kk], db);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    // acc[4 jj + 2 hh + e]: p = 64 pp + 16 warp + gq + 8 hh,
+    // n = 64 np + 8 jj + 2 tq + e
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int p = 64 * pp + 16 * warp + gq + 8 * ((e >> 1) & 1);
+      const int n = 64 * np + 8 * (e >> 2) + 2 * tq;
+      if (p >= a.P || n >= a.N) continue;
+      float* o = out + static_cast<size_t>(p) * a.N + n;
+      if (a.N % 2 == 0) {
+        *reinterpret_cast<float2*>(o) = make_float2(acc[e], acc[e + 1]);
+      } else {
+        o[0] = acc[e];
+        if (n + 1 < a.N) o[1] = acc[e + 1];
+      }
+    }
+  }
+}
+
+// Pass 2: per (b, h, p, n), the carry over the chunks in float32; S_c is
+// overwritten with the state that enters chunk c, and hT gets the last.
+__global__ void __launch_bounds__(TC_NT) ssd_tc_carry_kernel(
+    float* __restrict__ states, const float* __restrict__ totals,
+    float* __restrict__ hT, int H, int nc, int PN) {
+  const int e = blockIdx.x * TC_NT + threadIdx.x;
+  if (e >= PN) return;
+  const size_t bh = static_cast<size_t>(blockIdx.z) * H + blockIdx.y;
+  float* s = states + bh * nc * PN + e;
+  const float* tot = totals + bh * nc;
+  float hv = 0.f;
+  for (int c0 = 0; c0 < nc; c0 += 4) {        // four chunks' loads at once
+    float sc[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      sc[k] = c0 + k < nc ? s[static_cast<size_t>(c0 + k) * PN] : 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (c0 + k >= nc) break;
+      s[static_cast<size_t>(c0 + k) * PN] = hv;
+      hv = hv * expf(tot[c0 + k]) + sc[k];
+    }
+  }
+  hT[bh * PN + e] = hv;
+}
+
+// Pass 3: per (chunk, head, batch row), y = exp(cs_i) C h_prev^T + W x +
+// D x; warpgroup wg owns the chunk's rows 64 wg .. 64 wg + 63.
+template <int PP>
+__global__ void __launch_bounds__(TC_NT, 1) ssd_tc_out_kernel(TcArgs a) {
+  using namespace hopper;
+  constexpr int HR = 64 * PP;                 // rows of the h tiles
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sC = align1024(smem_raw);          // TQ x 64 NP
+  uint8_t* sB = sC + TQ * 128 * a.NP;         // TQ x 64 NP
+  uint8_t* sX = sB + TQ * 128 * a.NP;         // TQ x 64 PP
+  uint8_t* sHhi = sX + TQ * 128 * PP;         // HR x 64 NP
+  uint8_t* sHlo = sHhi + HR * 128 * a.NP;     // HR x 64 NP
+  float* dts = reinterpret_cast<float*>(sHlo + HR * 128 * a.NP);
+  float* css = dts + TQ;
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (a.H / a.G);
+  const int t0 = c * a.Q, Qc = min(a.Q, a.L - t0);
+  const Strides& st = a.st;
+  const size_t bh = static_cast<size_t>(b) * a.H + h;
+  const float dtv = load_dt(a, b, h, t0, Qc);
+  // the entering state h (P x N, float32), to become bf16 hi + lo tiles:
+  // the thread's loads (8 floats for each 16-byte chunk of the tiles) go
+  // out before the tiles' copies, the stores come after them
+  const float* hs = a.states + (bh * a.nc + c) * a.P * a.N;
+  const int csh = a.NP == 2 ? 4 : 3, cpr = 1 << csh;   // chunks a row
+  constexpr int IT = HR * 16 / TC_NT;         // chunks a thread, at NP = 2
+  float v[IT][8];
+  if (c > 0) {
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = it * TC_NT + threadIdx.x;
+      const int r = i >> csh, n0 = 8 * (i & (cpr - 1));
+      const float* src = hs + static_cast<size_t>(r) * a.N + n0;
+      if (i < HR * cpr && r < a.P && n0 + 8 <= a.N && a.N % 4 == 0) {
+        const float4 u0 = *reinterpret_cast<const float4*>(src);
+        const float4 u1 = *reinterpret_cast<const float4*>(src + 4);
+        v[it][0] = u0.x; v[it][1] = u0.y; v[it][2] = u0.z; v[it][3] = u0.w;
+        v[it][4] = u1.x; v[it][5] = u1.y; v[it][6] = u1.z; v[it][7] = u1.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[it][e] = i < HR * cpr && r < a.P && n0 + e < a.N ? src[e] : 0.f;
+      }
+    }
+  }
+  load_rows(sC, a.Cm + b * st.c[0] + t0 * st.c[1] + g * st.c[2], st.c[1],
+            st.c[3], Qc, a.N, a.NP, a.vec_c);
+  load_rows(sB, a.Bm + b * st.b[0] + t0 * st.b[1] + g * st.b[2], st.b[1],
+            st.b[3], Qc, a.N, a.NP, a.vec_b);
+  load_rows(sX, a.x + b * st.x[0] + t0 * st.x[1] + h * st.x[2], st.x[1],
+            st.x[3], Qc, a.P, PP, a.vec_x);
+  cp_async_commit();
+  if (c > 0) {
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = it * TC_NT + threadIdx.x;
+      if (i >= HR * cpr) continue;
+      const int r = i >> csh, k = i & (cpr - 1);
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v0 = v[it][2 * e], v1 = v[it][2 * e + 1];
+        const __nv_bfloat162 hv = __floats2bfloat162_rn(v0, v1);
+        hi[e] = *reinterpret_cast<const uint32_t*>(&hv);
+        lo[e] = pack_bf16(v0 - __low2float(hv), v1 - __high2float(hv));
+      }
+      const uint32_t off = swz<HR>(r, k);
+      *reinterpret_cast<uint4*>(sHhi + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(sHlo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+  store_dt_cs(dtv, a.A[h], Qc, dts, css);
+  cp_async_wait_all();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int r0 = 64 * wg;
+  if (r0 >= Qc) return;                       // no row of this warpgroup
+  const uint32_t sCa = smem_u32(sC) + r0 * 128, sBa = smem_u32(sB);
+  const uint32_t sXa = smem_u32(sX);
+  const int nk = 4 * a.NP;                    // k-steps over N
+
+  // scores s[jb] = C B^T over the column tiles jb <= wg (the causal band),
+  // and y = C h_prev^T
+  float s[2][32], y[PP][32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    s[0][e] = s[1][e] = 0.f;
+#pragma unroll
+    for (int pp = 0; pp < PP; ++pp) y[pp][e] = 0.f;
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb) {
+    if (jb > wg) break;
+    for (int kk = 0; kk < nk; ++kk)
+      wgmma_ss_n64(s[jb], kstep_kmajor<TQ>(sCa, kk),
+                   kstep_kmajor<TQ>(sBa + jb * 64 * 128, kk), 1);
+  }
+  if (c > 0) {
+#pragma unroll
+    for (int pp = 0; pp < PP; ++pp)
+      for (int kk = 0; kk < nk; ++kk) {
+        const uint64_t da = kstep_kmajor<TQ>(sCa, kk);
+        wgmma_ss_n64(y[pp], da, kstep_kmajor<HR>(smem_u32(sHhi) + pp * 64 * 128, kk), 1);
+        wgmma_ss_n64(y[pp], da, kstep_kmajor<HR>(smem_u32(sHlo) + pp * 64 * 128, kk), 1);
+      }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s[0]);
+  fence_regs(s[1]);
+#pragma unroll
+  for (int pp = 0; pp < PP; ++pp) fence_regs(y[pp]);
+
+  // this thread's rows i = r0 + 16 warp + gq + 8 hh
+  float cs_i[2], dec_i[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = r0 + 16 * warp + gq + 8 * hh;
+    cs_i[hh] = i < Qc ? css[i] : 0.f;
+    dec_i[hh] = i < Qc ? exp_(cs_i[hh]) : 0.f;
+  }
+  if (c > 0) {
+#pragma unroll
+    for (int pp = 0; pp < PP; ++pp)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) y[pp][e] *= dec_i[(e >> 1) & 1];
+  }
+
+  // W = s o exp(cs_i - cs_j) o dt_j on j <= i < Qc (masked before the exp),
+  // as bf16 hi + lo A fragments
+  uint32_t whi[2][4][4], wlo[2][4][4];
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb) {
+    if (jb > wg) break;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int hh = (e >> 1) & 1;
+      const int i = r0 + 16 * warp + gq + 8 * hh;
+      const int j = 64 * jb + 8 * (e >> 2) + 2 * tq + (e & 1);
+      s[jb][e] = j <= i && i < Qc
+          ? s[jb][e] * exp_(cs_i[hh] - css[j]) * dts[j] : 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_frag_hilo(s[jb], kk, whi[jb][kk], wlo[jb][kk]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb) {
+    if (jb > wg) break;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int pp = 0; pp < PP; ++pp) {
+        const uint64_t db = kstep_mnmajor<TQ>(sXa + pp * TQ * 128, 4 * jb + kk);
+        wgmma_rs_n64(y[pp], whi[jb][kk], db);
+        wgmma_rs_n64(y[pp], wlo[jb][kk], db);
+      }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int pp = 0; pp < PP; ++pp) fence_regs(y[pp]);
+
+  // y += D x; write y (B, L, H, P) in bf16
+  const float d_h = a.D[h];
+#pragma unroll
+  for (int pp = 0; pp < PP; ++pp)
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int i = r0 + 16 * warp + gq + 8 * ((e >> 1) & 1);
+      const int p = 64 * pp + 8 * (e >> 2) + 2 * tq;
+      if (i >= Qc || p >= a.P) continue;
+      __nv_bfloat16* yr = a.y + ((static_cast<size_t>(b) * a.L + t0 + i) * a.H + h) * a.P + p;
+      if (p + 1 < a.P) {
+        const float2 xv = tile_pair<TQ>(sX, i, p);
+        const float o0 = y[pp][e] + d_h * xv.x, o1 = y[pp][e + 1] + d_h * xv.y;
+        if (a.P % 2 == 0)
+          *reinterpret_cast<__nv_bfloat162*>(yr) = __floats2bfloat162_rn(o0, o1);
+        else {
+          yr[0] = __float2bfloat16(o0);
+          yr[1] = __float2bfloat16(o1);
+        }
+      } else {
+        yr[0] = __float2bfloat16(y[pp][e] + d_h * tile_at<TQ>(sX, i, p));
+      }
+    }
+}
+
+// Sets each kernel's shared-memory attribute once per template instance (to
+// its largest size, NP = 2), on the device current at its first launch.
+template <int PP>
+int launch_tc(TcArgs& a, int B, cudaStream_t stream) {
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_tc_state_kernel<PP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        state_smem<PP>(2));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(ssd_tc_out_kernel<PP>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                out_smem<PP>(2));
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(a.nc, a.H, B);
+  ssd_tc_state_kernel<PP><<<grid, TC_NT, state_smem<PP>(a.NP), stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int PN = a.P * a.N;
+  ssd_tc_carry_kernel<<<dim3((PN + TC_NT - 1) / TC_NT, a.H, B), TC_NT, 0,
+                        stream>>>(a.states, a.totals, a.hT, a.H, a.nc, PN);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_tc_out_kernel<PP><<<grid, TC_NT, out_smem<PP>(a.NP), stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows of a strided bf16 matrix can be copied in 16-byte loads: columns
+// contiguous, a multiple of 8 of them, every row start 16-byte aligned
+bool rows_vec(const void* p, const long long* s, int ndim, int ncols) {
+  bool ok = s[ndim - 1] == 1 && ncols % 8 == 0 &&
+            reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (int i = 0; i < ndim - 1; ++i) ok = ok && s[i] % 8 == 0;
+  return ok;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, the dtype of x, Bm, Cm and y; dt, A and
-// D are float32. strides: 15 element strides, x (4), dt (3), Bm (4), Cm (4).
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the three
+// tensor-core kernels), the dtype of x, Bm, Cm and y; dt, A and D are
+// float32. strides: 15 element strides, x (4), dt (3), Bm (4), Cm (4).
 // Outputs (contiguous): y (B, L, H, P) in the input dtype, hT (B, H, P, N)
-// float32. Q = min(chunk, L) <= 128, N <= 128, H % G == 0. Launches on
-// `stream`, allocates nothing, does not synchronise; returns the CUDA error
-// of the launch (0 = success).
+// float32. scratch (bf16 only; float32 ignores it): B H nc (P N + 1) floats,
+// nc = ceil(L / Q). Q = min(chunk, L) <= 128, N <= 128, H % G == 0, and
+// P <= 128 for bf16. Launches on `stream`,
+// allocates nothing, does not synchronise; returns the CUDA error of the
+// launch (0 = success).
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
                               const void* Bm, const void* Cm, const void* D,
-                              void* y, void* hT, int dtype, int B, int L,
-                              int H, int P, int G, int N, int Q,
+                              void* y, void* hT, void* scratch, int dtype,
+                              int B, int L, int H, int P, int G, int N, int Q,
                               const long long* strides, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || P <= 0 || G <= 0 || H % G != 0 ||
       N <= 0 || N > NMAX || Q <= 0 || Q > QMAX || Q > L)
@@ -301,9 +781,31 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
   for (int i = 0; i < 4; ++i) st.c[i] = strides[11 + i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, dt, A, Bm, Cm, D, y, hT, B, L, H, P, G, N, Q, st, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, D, y, hT, B, L, H, P, G, N,
-                                 Q, st, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_f32(x, dt, A, Bm, Cm, D, y, hT, B, L, H, P, G, N, Q, st, s);
+  if (dtype != 1 || P > 128 || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TcArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.dt = static_cast<const float*>(dt);
+  a.A = static_cast<const float*>(A);
+  a.Bm = static_cast<const __nv_bfloat16*>(Bm);
+  a.Cm = static_cast<const __nv_bfloat16*>(Cm);
+  a.D = static_cast<const float*>(D);
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.hT = static_cast<float*>(hT);
+  a.L = L;
+  a.H = H;
+  a.P = P;
+  a.G = G;
+  a.N = N;
+  a.Q = Q;
+  a.nc = (L + Q - 1) / Q;
+  a.NP = (N + 63) / 64;
+  a.states = static_cast<float*>(scratch);
+  a.totals = a.states + static_cast<size_t>(B) * H * a.nc * P * N;
+  a.vec_x = rows_vec(x, st.x, 4, P);
+  a.vec_b = rows_vec(Bm, st.b, 4, N);
+  a.vec_c = rows_vec(Cm, st.c, 4, N);
+  a.st = st;
+  return P <= 64 ? launch_tc<1>(a, B, s) : launch_tc<2>(a, B, s);
 }

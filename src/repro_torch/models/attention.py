@@ -24,7 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import combine_partials, flash_decode
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.common import (MeshPlan, apply_rope, dense_init, param,
                                        rms_norm)
 
@@ -138,7 +138,8 @@ def gqa_decode(p: GQAttention, x, cache_k, cache_v, pos, cfg: ModelConfig,
     cols = pos.long()
     cache_k[rows, cols] = k_new[:, 0].to(cache_k.dtype)
     cache_v[rows, cols] = v_new[:, 0].to(cache_v.dtype)
-    mm, ll, acc = flash_decode(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
-                               cur_pos=pos, sliding_window=sliding_window)
-    out = combine_partials(mm[None], ll[None], acc[None]).to(x.dtype)
+    _, ll, acc = flash_decode(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                              cur_pos=pos, sliding_window=sliding_window)
+    # one shard: combine_partials would weigh it by exp(m - m) = 1
+    out = (acc / torch.clamp_min(ll, 1e-30)[..., None]).to(x.dtype)
     return out.reshape(B, 1, Hp * hd) @ p.wo.to(x.dtype)

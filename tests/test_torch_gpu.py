@@ -21,7 +21,11 @@ backward dS) to bf16 for their products; float32 attention runs on the
 CUDA-core kernels. Each case asserts through the per-kernel counters which
 of the two it reached. The bf16 backward cases are also held to the plain
 version's autograd on float32 copies of the same inputs, as chip_smoke.py
-holds the training shape.
+holds the training shape. The SSD scan likewise runs bf16 through its
+tensor-core kernels (chunk states, carry, outputs) and float32 through its
+CUDA-core kernel, and its bf16 cases are also held to the plain version on
+float32 copies. Flash decode combines its splits inside the kernel, with
+tickets that each call leaves at zero.
 """
 import numpy as np
 import pytest
@@ -125,6 +129,8 @@ DECODE_CASES = [
     (2, 16, 1, 128, 300, 0, 0, "float32"),               # group of 16
     (2, 4, 2, 64, 70, 0, 40, "float32"),                 # offset shard
     (4, 16, 8, 128, 569, 0, 0, "bfloat16"),              # qwen3 decode
+    (2, 8, 4, 128, 200, 0, 0, "bfloat16"),               # L not a multiple of 64
+    (2, 16, 8, 128, 300, 50, 0, "bfloat16"),             # sliding window
 ]
 
 
@@ -163,6 +169,41 @@ def test_flash_decode_fully_masked_rows_average_v(cuda):
     got = combine_partials(m[None], l[None], acc[None])
     want = v.repeat_interleave(2, dim=2).mean(dim=1)
     _close(got, want, "float32")
+
+
+def _decode_matches_plain(q, k, v, cur, dt, **kw):
+    m, l, acc = fd.flash_decode(q, k, v, cur_pos=cur, **kw)
+    pm, pl, pacc = fd.flash_decode_partial_ref(q, k, v, cur_pos=cur, **kw)
+    _close(combine_partials(m[None], l[None], acc[None]),
+           combine_partials(pm[None], pl[None], pacc[None]), dt)
+    return m, l, acc
+
+
+def test_flash_decode_rows_inside_one_split(cuda):
+    """Every row's cur_pos in the same split: the splits before it are
+    full, those after it empty, and the combine weighs the empty ones 0."""
+    q, k, v, _, _ = _decode_case((4, 16, 8, 128, 569, 0, 0, "bfloat16"),
+                                 cuda, seed=1)
+    cur = torch.tensor([128, 150, 170, 191], dtype=torch.int32, device=cuda)
+    _decode_matches_plain(q, k, v, cur, "bfloat16")
+
+
+def test_flash_decode_combine_tickets_reset(cuda):
+    """The kernel's combine tickets are zero again after each call: calls
+    in a row on the same shapes, then on fewer groups, then on the first
+    shapes again, each give the plain version's result, and repeated calls
+    give the same bits."""
+    big = _decode_case((4, 16, 8, 128, 569, 0, 0, "bfloat16"), cuda, seed=2)
+    small = _decode_case((2, 4, 2, 64, 100, 0, 0, "float32"), cuda, seed=3)
+    before = fd.launches
+    first = _decode_matches_plain(*big[:4], "bfloat16")
+    again = _decode_matches_plain(*big[:4], "bfloat16")
+    _decode_matches_plain(*small[:4], "float32")
+    last = _decode_matches_plain(*big[:4], "bfloat16")
+    torch.cuda.synchronize()
+    assert fd.launches == before + 4
+    for a, b, c in zip(first, again, last):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_flash_decode_refuses_k_positions(cuda):
@@ -345,6 +386,10 @@ SSD_CASES = [
     (1, 77, 32, 64, 128, 1, 128, "bfloat16"),            # one chunk of 77
     (1, 300, 8, 40, 64, 4, 128, "bfloat16"),             # P not a multiple of 16
     (1, 512, 32, 64, 128, 1, 128, "bfloat16"),           # mamba2 prefill
+    (1, 256, 4, 64, 128, 2, 128, "bfloat16"),            # 2 chunks, G 2
+    (2, 600, 4, 64, 128, 1, 128, "bfloat16"),            # 5 chunks, ragged
+    (1, 160, 4, 128, 64, 1, 32, "bfloat16"),             # 5 chunks, P 128
+    (1, 100, 4, 21, 36, 2, 128, "bfloat16"),             # one chunk, odd P, N
 ]
 
 
@@ -368,10 +413,12 @@ def _ssd_case(case, device, seed=0):
 def test_ssd_scan_kernel_matches_plain(cuda, case):
     args, Q = _ssd_case(case, cuda)
     dt = case[-1]
-    before = ssd.launches
+    before = ssd.launches, ssd.wgmma_launches
     y, hT = ssd.ssd_scan(*args, chunk=Q)
     torch.cuda.synchronize()
-    assert ssd.launches == before + 1
+    # bf16 reaches the tensor-core kernels, float32 the CUDA-core one
+    assert (ssd.launches, ssd.wgmma_launches) == (
+        before[0] + 1, before[1] + (dt == "bfloat16"))
     assert y.dtype == args[0].dtype and y.shape == args[0].shape
     assert hT.dtype == torch.float32
     yr, hr = ssd_chunked_ref(*args, chunk=Q)
@@ -379,14 +426,29 @@ def test_ssd_scan_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(hT, hr, rtol=2e-4, atol=2e-4)
     # on float32 copies of the same inputs, and with B and C contiguous
     f32 = [t.float().contiguous() for t in args]
+    before = ssd.wgmma_launches
     y32, h32 = ssd.ssd_scan(*f32, chunk=Q)
     yr32, hr32 = ssd_chunked_ref(*f32, chunk=Q)
+    assert ssd.wgmma_launches == before
     _close(y32, yr32, "float32")
     torch.testing.assert_close(h32, hr32, rtol=2e-4, atol=2e-4)
+    if dt == "bfloat16":      # the bf16 kernels against float32 copies
+        _close(y, yr32, dt)
+        torch.testing.assert_close(hT, hr32, rtol=2e-4, atol=2e-4)
 
 
-def test_ssd_scan_reads_strided_views_as_copies(cuda):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ssd_scan_reads_strided_views_as_copies(cuda, offset):
+    """B and C as the model's views, and x as a view into a wider tensor:
+    at offset 0 its rows stay 16-byte aligned (the kernels' 16-byte loads),
+    at offset 1 they do not (element loads). Both read what a contiguous
+    copy gives."""
     args, Q = _ssd_case((1, 200, 4, 32, 32, 2, 64, "bfloat16"), cuda, seed=1)
+    x = args[0]
+    wide = torch.zeros(x.shape[:-1] + (x.shape[-1] + 8,), dtype=x.dtype,
+                       device=cuda)
+    wide[..., offset:offset + x.shape[-1]] = x
+    args = (wide[..., offset:offset + x.shape[-1]],) + args[1:]
     y, hT = ssd.ssd_scan(*args, chunk=Q)
     yc, hc = ssd.ssd_scan(*[t.contiguous() for t in args], chunk=Q)
     assert torch.equal(y, yc) and torch.equal(hT, hc)

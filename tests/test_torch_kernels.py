@@ -518,6 +518,46 @@ def test_wrapper_split_combine_matches_single_shard():
     assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("L,cur", [(569, [70, 300, 511, 568]),
+                                   (150, [5, 70, 149, 10])])
+def test_kernel_split_fold_matches_combine_partials(L, cur):
+    """The kernel's combine -- the last block of a group folds the splits'
+    partials in split order (``combine_splits``) -- equals
+    ``combine_partials`` of the same splits, including splits wholly past
+    a row's cur_pos."""
+    rng = np.random.default_rng(11)
+    B, H, KV, D = 4, 16, 8, 128
+    q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(B, L, KV, D)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(B, L, KV, D)).astype(np.float32))
+    cur = torch.tensor(cur, dtype=torch.int32)
+    S = fd_kernel.DECODE_SPLIT
+    parts = [flash_decode_partial_ref(q, k[:, s:s + S], v[:, s:s + S],
+                                      cur_pos=cur, k_offset=s)
+             for s in range(0, L, S)]
+    _, l, acc = fd_kernel.combine_splits(
+        *(torch.stack([p[i] for p in parts], dim=1) for i in range(3)))
+    got = acc / torch.clamp_min(l, 1e-30)[..., None]
+    want = combine_partials(*(torch.stack([p[i] for p in parts])
+                              for i in range(3)))
+    assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_single_shard_normalisation_equals_combine_partials(case):
+    """``gqa_decode`` divides the one shard's acc by its l, which is
+    ``combine_partials`` of that shard bit for bit (its weight is
+    exp(m - m) = 1): on the port's CPU outputs, and on a fully masked row
+    (a shard wholly after cur_pos)."""
+    (_, qt), (_, kt), (_, vt), (_, ct), w = _decode_inputs(case, seed=12)
+    for koff in (0, kt.shape[1]):
+        m, l, acc = fd_kernel.flash_decode(qt, kt, vt, cur_pos=ct,
+                                           k_offset=koff, sliding_window=w)
+        got = acc / torch.clamp_min(l, 1e-30)[..., None]
+        assert torch.equal(got, combine_partials(m[None], l[None],
+                                                 acc[None]))
+
+
 def test_decode_k_positions_matches_jax():
     """Ring-buffer caches: explicit per-slot positions (-1 = empty)."""
     rng = np.random.default_rng(8)
