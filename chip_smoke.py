@@ -64,7 +64,30 @@ result line is printed:
 6. train, plain versions: the same 4 steps from the same init and batches
    with the model's attention and loss call sites on the plain PyTorch
    versions (autograd through them) on the card, no kernel launched; the
-   kernel path's loss and grad_norm are held to these step by step.
+   kernel path's loss and grad_norm are held to these step by step;
+7. graph reference: a small LogicalGraph (embedding, a residual across
+   its two stages, softmax_xent) trains 2 AdamW steps through
+   ``api.compile(graph, mode="train")`` on the card, through the float32
+   xent kernels, and on the CPU's plain path: loss and grad_norm within
+   1e-4 relative, the first step's gradients within 1e-4;
+8. graph train, the paper's own path: a LogicalGraph at qwen3-1.7b's
+   widths (embedding 151,936 x 2048, 4 x [matmul 2048->6144, gelu, matmul
+   6144->2048, residual add], matmul 2048->151,936, softmax_xent over 4,096
+   rows; 722,993,152 float32 params seeded with numpy) through SBP plan ->
+   ``lower_train_stages`` -> the 1F1B actors, 4 stages, 8 microbatches of
+   512 rows, AdamW (lr 3e-4, clip 1.0): ``backend="actors"`` with
+   ``regs="1f1b"`` and with the planned quotas, and ``"monolithic"``, 3
+   steps each in lockstep. Losses, post-clip gradients and params must be
+   bitwise equal across the three, the xent kernels must launch exactly 8
+   times forward and 8 backward a step (counters zeroed before the run),
+   the forward registers in flight stay within the quotas; step wall time,
+   tokens/s and peak memory per step, then one profiled step (busy and
+   idle share);
+9. graph infer: the same graph under ``mode="infer"``, actors vs
+   monolithic, bitwise, 8 forward xent launches a run and no backward.
+   The kernels line holds the float32 xent forward and backward at the
+   graph's microbatch shape (512 x 151,936) with the graph train run's
+   launches.
 
 The last two lines are the kernel table as one JSON object and the result
 ``{"ok": true, "device": {...}}``. It imports nothing of jax.
@@ -72,6 +95,7 @@ The last two lines are the kernel table as one JSON object and the result
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -1031,6 +1055,362 @@ def train_plain(dev, kernel_curve):
           f"err loss {worst[0]:.3e}, grad_norm {worst[1]:.3e}")
 
 
+GRAPH_N, GRAPH_V, GRAPH_D, GRAPH_F, GRAPH_BLOCKS = 4096, 151936, 2048, 6144, 4
+GRAPH_M, GRAPH_STAGES, GRAPH_STEPS = 8, 4, 3
+
+
+def xent_counts():
+    from repro_torch.kernels.softmax_xent import kernel as xk
+    return {"xent_local_stats": xk.launches,
+            "xent_local_stats_bwd": xk.bwd_launches}
+
+
+def zero_xent_counts():
+    from repro_torch.kernels.softmax_xent import kernel as xk
+    xk.launches = xk.bwd_launches = 0
+
+
+def check_xent_graph(dev):
+    """The xent forward and backward kernels at the graph path's shape: one
+    microbatch's logits of the qwen3-width graph (512 x 151,936), float32,
+    against the plain version."""
+    from repro_torch.kernels.softmax_xent import kernel as xk
+    from repro_torch.kernels.softmax_xent.ref import local_stats_ref
+    N, V = GRAPH_N // GRAPH_M, GRAPH_V
+    rng = np.random.default_rng(SEED + 7)
+    logits = torch.from_numpy(
+        rng.standard_normal((N, V), dtype=np.float32)).to(dev) * 3
+    labels = torch.as_tensor(rng.integers(0, V, N), dtype=torch.int32,
+                             device=dev)
+    ds = torch.as_tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
+    dz = torch.as_tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
+    what = f"logits ({N}, {V}) float32 (graph path)"
+
+    def through_autograd(stats):
+        leaf = logits.detach().requires_grad_(True)
+        m, s_, z = stats(leaf, labels, 0)
+        (g,) = torch.autograd.grad((s_, z), leaf, (ds, dz))
+        return (m, s_.detach(), z.detach()), g
+
+    got, g = through_autograd(xk.xent_local_stats)
+    want, wg = through_autograd(local_stats_ref)
+    err = max(agree(f"xent_local_stats {name} {what}", a, b, F32_TOL,
+                    F32_TOL) for name, a, b in zip("msz", got, want))
+    # dlogits = ds * exp(x - m) + dz at the label: most entries lie near
+    # 1e-6 of their row's scale |ds| + |dz|, far under an atol of F32_TOL.
+    # Held per row to that scale with an atol of F32_TOL * 1e-6, so a wrong
+    # entry anywhere in the vocabulary fails, not only near the row's max.
+    scale = (ds.abs() + dz.abs())[:, None]
+    agree(f"xent_local_stats backward {what} (per row / (|ds| + |dz|))",
+          g / scale, wg / scale, F32_TOL * 1e-6, F32_TOL)
+    gerr = (g - wg).abs().max().item()
+    del got, g, want, wg
+    m, s_, z = xk.xent_local_stats_cuda(logits, labels, 0)
+    fwd_bytes = nbytes(logits, labels, m, s_, z)
+    fb_ms, fb_by = bound_ms(fwd_bytes, 4 * N * V, PEAK_F32_FLOPS)
+    bb_ms, bb_by = bound_ms(fwd_bytes - nbytes(s_, z) + nbytes(ds, dz)
+                            + nbytes(logits), 4 * N * V, PEAK_F32_FLOPS)
+    lab = labels.long()
+
+    def plain_bwd():
+        leaf = logits.detach().requires_grad_(True)
+        _, s2, z2 = local_stats_ref(leaf, labels, 0)
+        return lambda: torch.autograd.grad((s2, z2), leaf, (ds, dz),
+                                           retain_graph=True)
+
+    def library_bwd():
+        leaf = logits.detach().requires_grad_(True)
+        loss = torch.nn.functional.cross_entropy(leaf, lab, reduction="none")
+        return lambda: torch.autograd.grad(loss, leaf, ds, retain_graph=True)
+
+    fwd = timed({
+        "name": "xent_local_stats (graph, float32)", "route": "cuda",
+        "source": "src/repro_torch/csrc/softmax_xent.cu",
+        "replaces": "src/repro/kernels/softmax_xent/kernel.py:67",
+        "shape": [N, V], "dtype": "float32", "max_abs_err": err,
+        "plain_ms": cuda_ms(lambda: local_stats_ref(logits, labels, 0),
+                            iters=5),
+        "bound_ms": fb_ms, "bound_by": fb_by,
+        "library_ms": cuda_ms(lambda: torch.nn.functional.cross_entropy(
+            logits, lab, reduction="none"), iters=5),
+    }, "xent_fwd_kernel", lambda: xk.xent_local_stats_cuda(logits, labels, 0),
+        lambda: xk.xent_local_stats(logits, labels, 0))
+    bwd_launch = lambda: xk.xent_local_stats_bwd_cuda(  # noqa: E731
+        logits, labels, 0, m, ds, dz)
+    bwd = timed({
+        "name": "xent_local_stats_bwd (graph, float32)", "route": "cuda",
+        "source": "src/repro_torch/csrc/softmax_xent.cu",
+        "replaces": "src/repro/kernels/softmax_xent/kernel.py:67 (its "
+                    "backward; no Pallas counterpart)",
+        "shape": [N, V], "dtype": "float32", "max_abs_err": gerr,
+        "plain_ms": cuda_ms(plain_bwd(), iters=5),
+        "bound_ms": bb_ms, "bound_by": bb_by,
+        "library_ms": cuda_ms(library_bwd(), iters=5),
+    }, "xent_bwd_kernel", bwd_launch, bwd_launch)
+    del logits, m, s_, z
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def qwen3_width_graph():
+    """The graph path's configuration: a LogicalGraph at qwen3-1.7b's
+    published widths (d_model 2048, d_ff 6144, vocab 151,936), built from
+    the graph layer's ops -- embedding, GRAPH_BLOCKS x [matmul up, gelu,
+    matmul down, residual add], the vocab matmul, softmax_xent -- over
+    GRAPH_N rows, on one device."""
+    from repro_torch.core.graph import LogicalGraph
+    from repro_torch.core.placement import Placement
+    g = LogicalGraph(Placement(("d",), (1,)))
+    ids = g.input("ids", (GRAPH_N,), dtype="int32")
+    labels = g.input("labels", (GRAPH_N,), dtype="int32")
+    h = g.embedding(g.input("E", (GRAPH_V, GRAPH_D)), ids, name="embed")
+    for i in range(GRAPH_BLOCKS):
+        a = g.unary(g.matmul(h, g.input(f"w_up{i}", (GRAPH_D, GRAPH_F)),
+                             name=f"up{i}"), "gelu", name=f"gelu{i}")
+        d = g.matmul(a, g.input(f"w_down{i}", (GRAPH_F, GRAPH_D)),
+                     name=f"down{i}")
+        h = g.add(d, h, name=f"res{i}")
+    logits = g.matmul(h, g.input("W_out", (GRAPH_D, GRAPH_V)), name="head")
+    g.softmax_xent(logits, labels, name="loss")
+    return g
+
+
+def seeded_graph_inputs(g, seed: int):
+    """Float32 params, each N(0, 1) over sqrt(fan-in) but the embedding
+    (N(0, 1)), and int32 ids and labels, from numpy."""
+    rng = np.random.default_rng(seed)
+    params, data = {}, {}
+    for t in g.inputs:
+        if t.dtype == "int32":
+            data[t.name] = rng.integers(0, GRAPH_V, t.shape).astype(np.int32)
+        else:
+            x = rng.standard_normal(t.shape, dtype=np.float32)
+            if t.name != "E":
+                x *= np.float32(1 / np.sqrt(t.shape[0]))
+            params[t.name] = x
+    return params, data
+
+
+def check_graph_reference(dev):
+    """A small graph with an embedding, a residual across the stage
+    boundary and softmax_xent trains 2 AdamW steps on the card (actors,
+    through the xent kernels) and on the CPU's plain path, from the same
+    params and batch: loss and grad_norm within 1e-4 relative each step,
+    the first step's post-clip gradients within 1e-4."""
+    phase("graph reference (small graph, card vs CPU plain path, 2 steps)")
+    from repro_torch import api
+    from repro_torch.core.graph import LogicalGraph
+    from repro_torch.core.lowering import OptimizerSpec
+    from repro_torch.core.placement import Placement
+    N, V, D, F = 256, 4096, 64, 128
+    g = LogicalGraph(Placement(("d",), (1,)))
+    ids = g.input("ids", (N,), dtype="int32")
+    labels = g.input("labels", (N,), dtype="int32")
+    with g.stage(0):
+        h = g.embedding(g.input("E", (V, D)), ids, name="emb")
+        a = g.unary(g.matmul(h, g.input("w1", (D, F)), name="up"), "gelu",
+                    name="act")
+    with g.stage(1):
+        r = g.add(g.matmul(a, g.input("w2", (F, D)), name="down"), h,
+                  name="res")
+        g.softmax_xent(g.matmul(r, g.input("wo", (D, V)), name="head"),
+                       labels, name="loss")
+    rng = np.random.default_rng(SEED + 8)
+    params = {t.name: (rng.standard_normal(t.shape, dtype=np.float32)
+                       * np.float32(0.3)) for t in g.inputs
+              if t.dtype == "float32"}
+    data = {n: rng.integers(0, V, N).astype(np.int32)
+            for n in ("ids", "labels")}
+    runs = {}
+    zero_xent_counts()
+    for d in ("cpu", dev):
+        sess = api.compile(g, mode="train", params=params, num_microbatches=4,
+                           optimizer=OptimizerSpec.adamw(lr=1e-2,
+                                                         grad_clip=1.0),
+                           device=d)
+        runs[d] = []
+        for _ in range(2):
+            r = sess.step(**data)
+            runs[d].append((float(r.loss), float(r.metrics["grad_norm"]),
+                            {n: v.cpu() for n, v in r.grads.items()}))
+        sess.close()
+    n = xent_counts()
+    if n != {"xent_local_stats": 8, "xent_local_stats_bwd": 8}:
+        raise AssertionError(f"graph reference: xent launches {n}, expected "
+                             "8 forward and 8 backward (2 steps x 4 "
+                             "microbatches on the card)")
+    worst = 0.0
+    for (lc, gc, _), (lg, gg, _) in zip(runs["cpu"], runs[dev]):
+        err = max(abs(lg - lc) / abs(lc), abs(gg - gc) / abs(gc))
+        worst = max(worst, err)
+        if err > 1e-4:
+            raise AssertionError(f"graph reference: card {runs[dev][:2]} vs "
+                                 f"CPU {runs['cpu'][:2]}")
+    gerr = max(agree(f"graph reference step-0 grad {k}", runs[dev][0][2][k],
+                     runs["cpu"][0][2][k], 1e-4, 1e-4)
+               for k in params)
+    print(f"graph reference, 2 AdamW steps: card (loss, grad_norm) "
+          f"{[r[:2] for r in runs[dev]]}, CPU {[r[:2] for r in runs['cpu']]}"
+          f"; max relative err {worst:.3e} (bound 1e-4), step-0 grads max "
+          f"abs err {gerr:.3e}; xent launches {n}")
+
+
+def graph_train(dev):
+    """The paper's own path at qwen3-1.7b's widths:
+    ``api.compile(graph, mode="train")`` -- SBP plan, 4 stages,
+    ``lower_train_stages``, the 1F1B TrainPipelineExecutor -- on
+    ``backend="actors"`` with ``regs="1f1b"`` and with the planned quotas
+    (``regs=None``), and on ``backend="monolithic"``, GRAPH_STEPS AdamW
+    steps each, in lockstep from the same seeded params and batch. Every
+    loss, post-clip gradient and updated param must be bitwise equal across
+    the three; each step launches the xent kernels exactly GRAPH_M times
+    forward and backward; the forward registers in flight stay within the
+    quotas. Then one profiled step of the 1F1B session. Returns the xent
+    launches of the run."""
+    phase(f"graph train (qwen3-1.7b widths, {GRAPH_BLOCKS} blocks, "
+          f"{GRAPH_M} x {GRAPH_N // GRAPH_M} rows, {GRAPH_STAGES} stages, "
+          f"float32, AdamW, {GRAPH_STEPS} steps x 3 backends)")
+    from repro_torch import api
+    from repro_torch.core.lowering import OptimizerSpec
+    g = qwen3_width_graph()
+    t0 = time.perf_counter()
+    params, data = seeded_graph_inputs(g, SEED + 9)
+    n_params = sum(v.size for v in params.values())
+    print(f"graph: {len(g.ops)} ops, {n_params:,} params "
+          f"({n_params * 4 / 1e9:.2f} GB float32), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    common = dict(mode="train", params=params, num_microbatches=GRAPH_M,
+                  optimizer=OptimizerSpec.adamw(lr=3e-4, grad_clip=1.0),
+                  device=dev)
+    sessions = {
+        "actors 1f1b": api.compile(g, backend="actors", stages=GRAPH_STAGES,
+                                   regs="1f1b", **common),
+        "actors planned": api.compile(g, backend="actors",
+                                      stages=GRAPH_STAGES, regs=None,
+                                      **common),
+        "monolithic": api.compile(g, backend="monolithic", **common)}
+    del params
+    batch = {n: torch.as_tensor(v, device=dev) for n, v in data.items()}
+    for name, sess in sessions.items():
+        if sess.partition is not None:
+            print(f"{name}: regs {sess.regs}, stages "
+                  + str([len(sess.partition.ops_in(g, s))
+                         for s in range(GRAPH_STAGES)]) + " ops")
+    torch.cuda.synchronize()
+    zero_xent_counts()
+    for step in range(GRAPH_STEPS):
+        results = {}
+        for name, sess in sessions.items():
+            before = xent_counts()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            res = sess.step(**batch)
+            loss = float(res.loss)
+            wall = time.perf_counter() - t
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            per = {k: v - before[k] for k, v in xent_counts().items()}
+            results[name] = res
+            extra = ""
+            if sess.regs is not None:
+                pk = sess.executor.last_peak_regs
+                inflight = [pk[f"f{s}"] for s in range(GRAPH_STAGES)]
+                extra = f", in flight {inflight} (quotas {sess.regs})"
+                if any(i > r for i, r in zip(inflight, sess.regs)):
+                    raise AssertionError(f"{name}: in flight {inflight} "
+                                         f"past the quotas {sess.regs}")
+            print(f"{name} step {step}: loss {loss:.6f}, grad_norm "
+                  f"{float(res.metrics['grad_norm']):.6f}, wall {wall:.3f} s,"
+                  f" {GRAPH_N / wall:,.0f} tokens/s, peak above the step's "
+                  f"start {peak:.2f} GiB, xent launches {per}{extra}")
+            if per != {"xent_local_stats": GRAPH_M,
+                       "xent_local_stats_bwd": GRAPH_M}:
+                raise AssertionError(f"{name} step {step}: xent launches "
+                                     f"{per}, expected {GRAPH_M} + {GRAPH_M}")
+            if not np.isfinite(loss):
+                raise AssertionError(f"{name} step {step}: loss {loss}")
+        ref = results["monolithic"]
+        for name, res in results.items():
+            for what, a, b in [("loss", res.loss, ref.loss)] + [
+                    (f"grad {k}", res.grads[k], ref.grads[k])
+                    for k in ref.grads] + [
+                    (f"param {k}", res.params[k], ref.params[k])
+                    for k in ref.params]:
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"step {step}: {name} and monolithic disagree on "
+                        f"{what} (max abs diff "
+                        f"{(a - b).abs().max().item():.3e})")
+        print(f"step {step}: losses, {len(ref.grads)} post-clip grads and "
+              f"{len(ref.params)} params bitwise equal across "
+              f"{list(sessions)}")
+        del results, ref, res
+    total = xent_counts()
+    print(f"graph train: xent launches over the run {total}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with "
+          f"{len(sessions)} sessions alive")
+    one = sessions.pop("actors 1f1b")
+    for name in list(sessions):
+        sessions.pop(name).close()
+    del sess
+    gc.collect()        # a closed session's actor graph holds cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    profile_device("graph train step (actors 1f1b)",
+                   lambda: float(one.step(**batch).loss), top=10)
+    print(f"graph train step (actors 1f1b) alone: peak above its start "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB, "
+          f"{base / 2**30:.2f} GiB held before it (params, AdamW moments, "
+          "gradient sums)")
+    one.close()
+    del one
+    torch.cuda.empty_cache()
+    return total
+
+
+def graph_infer(dev):
+    """The same graph under ``mode="infer"``: actors (4 stages, 1F1B
+    quotas) and monolithic must give bitwise equal per-row losses, each run
+    launching the xent forward kernel GRAPH_M times and its backward none."""
+    phase(f"graph infer (qwen3-1.7b widths, {GRAPH_M} microbatches, actors "
+          "vs monolithic)")
+    from repro_torch import api
+    g = qwen3_width_graph()
+    params, data = seeded_graph_inputs(g, SEED + 9)
+    inputs = {n: torch.as_tensor(v, device=dev)
+              for n, v in {**params, **data}.items()}
+    del params
+    outs, counts = {}, {}
+    for backend in ("actors", "monolithic"):
+        kw = dict(stages=GRAPH_STAGES) if backend == "actors" else {}
+        with api.compile(g, mode="infer", backend=backend,
+                         num_microbatches=GRAPH_M,
+                         microbatch_inputs=["ids", "labels"], device=dev,
+                         **kw) as sess:
+            zero_xent_counts()
+            t = time.perf_counter()
+            outs[backend] = sess.run(**inputs)["loss.out"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts[backend] = xent_counts()
+            print(f"{backend}: {GRAPH_N / wall:,.0f} rows/s ({wall:.3f} s), "
+                  f"xent launches {counts[backend]}, mean loss "
+                  f"{outs[backend].mean().item():.6f}")
+        if counts[backend] != {"xent_local_stats": GRAPH_M,
+                               "xent_local_stats_bwd": 0}:
+            raise AssertionError(f"graph infer {backend}: xent launches "
+                                 f"{counts[backend]}")
+    a, b = outs["actors"], outs["monolithic"]
+    if a.shape != (GRAPH_N, 1) or not torch.isfinite(a).all() \
+            or not torch.equal(a, b):
+        raise AssertionError("graph infer: actors and monolithic disagree")
+    print(f"graph infer: actors == monolithic bitwise over {GRAPH_N} rows")
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return counts["actors"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an "
@@ -1044,8 +1424,8 @@ def main() -> int:
     smi = device_and_build()
     phase("kernels (path shapes)")
     kernels = [check_flash_attention(dev), check_flash_decode(dev),
-               *check_xent(dev), check_flash_attention_bwd(dev),
-               check_ssd_scan(dev)]
+               *check_xent(dev), *check_xent_graph(dev),
+               check_flash_attention_bwd(dev), check_ssd_scan(dev)]
     for kr in kernels + [dict(kernels[0]["train_shape"],
                               name="flash_attention (training shape)"),
                          dict(kernels[-1]["long_prompt"],
@@ -1070,6 +1450,10 @@ def main() -> int:
     trained, curve = train(dev)
     torch.cuda.empty_cache()
     train_plain(dev, curve)
+    torch.cuda.empty_cache()
+    check_graph_reference(dev)
+    graph_trained = graph_train(dev)
+    graph_infer(dev)
     # each row's launches from the run of its path; the attention forward's
     # row is the serving shape and serve run, its training shape's the train
     # run; the backward's row holds each of its two kernels' counts
@@ -1085,6 +1469,10 @@ def main() -> int:
         elif name == "ssd_scan":
             kr["launches"] = served["ssd_scan"]
             kr["wgmma_launches"] = served["ssd_scan_wgmma"]
+        elif name.endswith(" (graph, float32)"):
+            # the graph train run: 3 backends x GRAPH_STEPS steps
+            kr["launches"] = graph_trained[name.split(" ")[0]]
+            kr["launches_per_step"] = GRAPH_M
         else:
             kr["launches"] = (served if name in served else trained)[name]
     kernels[0]["train_shape"]["launches"] = trained["flash_fwd_wgmma_kernel"]

@@ -1,13 +1,21 @@
-"""The public entry point of the port: ``compile``.
+"""The public entry point of the port: ``compile``, the one frontend over
+every lowering and executor path (port of ``repro/api.py``).
 
-Port of ``repro/api.py``'s serving path: ``compile(cfg, mode="serve")``
-builds a :class:`ServeSession` that runs continuously-batched greedy decode
-over the lowered stage programs — on stage actors
-(``backend="actors"``, the threaded runtime) or inline
-(``backend="monolithic"``, the token-for-token reference). What the
-reference offers beyond that raises :class:`NotImplementedError` naming its
-ROADMAP item: graph modes, the paged cache, sampling, the process runtime
-and the static verifier.
+* ``compile(graph, mode="infer"|"train")`` compiles a
+  :class:`~repro_torch.core.graph.LogicalGraph`: SBP plan
+  (:func:`repro_torch.core.planner.plan`), stage partition
+  (:func:`repro_torch.core.graph.partition_stages`), register quotas
+  (:func:`repro_torch.runtime.pipeline.plan_registers`), then staged
+  lowering run by stage actors (``backend="actors"``; 1F1B emerges from the
+  quotas, §4.3) or one whole-graph program (``backend="monolithic"``, the
+  bit-identity reference). It returns a :class:`Session`.
+* ``compile(cfg, mode="serve")`` builds a :class:`ServeSession` that runs
+  continuously-batched greedy decode over the lowered stage programs.
+
+What the reference offers beyond that raises :class:`NotImplementedError`
+naming its ROADMAP item: placements of more than one device, the paged
+cache, sampling, ZeRO and mixed precision, snapshots and faults, the
+process runtime, the static verifier and stage-body wrappers.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
 card an entry point raises unless the caller asks for ``device="cpu"``.
@@ -16,32 +24,378 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.lowering import lower_serve_stages
+from repro_torch.core.graph import (LogicalGraph, StagePartition,
+                                    partition_stages)
+from repro_torch.core.lowering import (OptimizerSpec, _to_device, clip_grads,
+                                       lower_plan, lower_serve_stages,
+                                       lower_stages, lower_train_plan,
+                                       lower_train_stages, reassemble_sinks,
+                                       split_microbatches)
+from repro_torch.core.planner import Plan, plan as plan_sbp
 from repro_torch.models.common import MeshPlan, resolve_device
 from repro_torch.models.transformer import (Transformer, has_ssm_layers,
                                             stack_layout)
-from repro_torch.runtime.pipeline import (InlineServeEngine,
-                                          ServePipelineExecutor)
+from repro_torch.runtime.pipeline import (ActorPipelineExecutor,
+                                          InlineServeEngine, PipelinePlan,
+                                          ServePipelineExecutor,
+                                          TrainPipelineExecutor, _sync,
+                                          check_run_inputs, own_params,
+                                          plan_registers)
 
 MODES = ("infer", "train", "serve")
 BACKENDS = ("actors", "monolithic")
-#: options of the reference's ``compile`` that the port does not take yet,
-#: with what they are and the ROADMAP item that brings them
+
+#: named register-quota policies accepted by ``compile(regs=...)``
+REG_POLICIES = ("1f1b", "gpipe", "serial")
+
+#: options of the reference's ``compile`` that the port does not take yet:
+#: name -> (the reference's default, what it is and the ROADMAP item that
+#: brings it). Passing the default is accepted and changes nothing.
 NOT_PORTED = {
-    "page_len": "paged cache, ROADMAP Queue 1 item 1",
-    "num_pages": "paged cache, ROADMAP Queue 1 item 1",
-    "prefill_chunk": "chunked prefill, ROADMAP Queue 1 item 1",
-    "regs": "explicit register quotas and the 'gpipe'/'serial' policies; "
-            "the port keeps the 1F1B rule, ROADMAP Queue 1 item 4",
-    "fn_wrap": "stage-body wrappers, ROADMAP Queue 1 item 14",
+    "page_len": (None, "paged cache, ROADMAP Queue 1 item 1"),
+    "num_pages": (None, "paged cache, ROADMAP Queue 1 item 1"),
+    "prefill_chunk": (None, "chunked prefill, ROADMAP Queue 1 item 1"),
+    "mesh": (None, "device meshes beyond one device, ROADMAP Queue 1 "
+                   "item 8"),
+    "stage_meshes": (None, "one device group per stage, ROADMAP Queue 1 "
+                           "item 8"),
+    "zero": (False, "ZeRO master shards, ROADMAP Queue 1 item 9"),
+    "precision": (None, "mixed precision, ROADMAP Queue 1 item 9"),
+    "loss_scale": (None, "loss scaling, ROADMAP Queue 1 item 9"),
+    "snapshot_dir": (None, "async snapshots, ROADMAP Queue 1 item 10"),
+    "snapshot_every": (1, "async snapshots, ROADMAP Queue 1 item 10"),
+    "restore": (None, "snapshot restore, ROADMAP Queue 1 item 10"),
+    "faults": (None, "fault injection, ROADMAP Queue 1 item 10"),
+    "fn_wrap": (None, "stage-body wrappers, ROADMAP Queue 1 item 14"),
 }
 
+
+@dataclasses.dataclass
+class StepResult:
+    """One training step's outcome, uniform across backends.
+
+    ``metrics`` always carries ``step`` (0-based index of the step just
+    taken), ``lr`` (the schedule resolved at that step), ``grad_norm``
+    (pre-clip global norm; None when clipping is off) and ``makespan``.
+    Actor-backend sessions add ``peak_inflight`` (peak forward registers in
+    use — the in-flight microbatch count the quota bounds). ``params`` are
+    the session's live tensors: the next step updates them in place.
+    """
+
+    loss: Any
+    metrics: Dict[str, Any]
+    grads: Dict[str, Any]
+    params: Dict[str, Any]
+
+
+def _canonical_params(graph: LogicalGraph, params: Dict[str, Any]
+                      ) -> Dict[str, Any]:
+    """Reorder a param dict into graph-input order — the canonical order
+    both backends use for the global-norm sum, so clipping is bit-identical
+    no matter how the caller built the dict."""
+    input_names = [t.name for t in graph.inputs]
+    unknown = sorted(set(params) - set(input_names))
+    if unknown:
+        raise ValueError(f"params entries are not graph inputs: {unknown}")
+    return {n: params[n] for n in input_names if n in params}
+
+
+class _MonolithicInferEngine:
+    """``backend="monolithic"`` inference: one whole-graph program
+    (:func:`repro_torch.core.lowering.lower_plan`), run once per microbatch
+    chunk with the same :func:`split_microbatches` chunking as the actor
+    pipeline so the two backends agree bitwise."""
+
+    def __init__(self, graph: LogicalGraph, plan: Plan,
+                 microbatch_inputs: Sequence[str], num_microbatches: int,
+                 device=None):
+        self.graph = graph
+        self.program = lower_plan(graph, plan, device=device)
+        self.device = device
+        self.input_names = [t.name for t in graph.inputs]
+        self.microbatch_inputs = list(microbatch_inputs)
+        self.num_microbatches = num_microbatches
+        for n in self.microbatch_inputs:
+            if n not in self.input_names:
+                raise ValueError(f"{n} is not a graph input")
+        self.last_makespan: Optional[float] = None
+
+    def run(self, inputs: Dict[str, Any], timeout: float = 0.0) -> Tuple:
+        check_run_inputs(inputs, self.input_names)
+        t0 = time.perf_counter()
+        inputs = {n: _to_device(v, self.device) for n, v in inputs.items()}
+        if not self.microbatch_inputs:
+            chunks = [dict(inputs)]
+        else:
+            chunks = split_microbatches(inputs, self.microbatch_inputs,
+                                        self.num_microbatches)
+        mb = set(self.microbatch_inputs)
+        sink_names = [t.name for t in self.program.sinks]
+        per_chunk = [
+            dict(zip(sink_names,
+                     self.program(*(c[n] if n in mb else inputs[n]
+                                    for n in self.input_names))))
+            for c in chunks]
+        results = reassemble_sinks(self.graph, self.program.sinks,
+                                   self.microbatch_inputs, per_chunk)
+        _sync(self.device)
+        self.last_makespan = time.perf_counter() - t0
+        return results
+
+
+class _MonolithicTrainEngine:
+    """``backend="monolithic"`` training: the whole-graph value-and-grad of
+    :func:`repro_torch.core.lowering.lower_train_plan` with the exact
+    microbatch chunking, float32 accumulation in microbatch order,
+    canonical-order global-norm clipping, and :class:`OptimizerSpec` update
+    of the actor pipeline — the reference its numbers are checked against,
+    owned by the same :class:`Session` surface."""
+
+    def __init__(self, graph: LogicalGraph, plan: Plan,
+                 params: Dict[str, Any], microbatch_inputs: Sequence[str],
+                 num_microbatches: int, optimizer: OptimizerSpec,
+                 loss=None, device=None):
+        self.graph = graph
+        self.device = device
+        self.param_names = tuple(_canonical_params(graph, params))
+        self.load_params(params)
+        self.optimizer = optimizer
+        self.vg = lower_train_plan(graph, plan, list(self.param_names),
+                                   loss=loss, device=device)
+        self.input_names = [t.name for t in graph.inputs]
+        self.microbatch_inputs = list(microbatch_inputs)
+        self.num_microbatches = num_microbatches
+        self.opt_state = None
+        self.step_count = 0
+        self.last_grad_norm = None
+        self.last_makespan: Optional[float] = None
+
+    def load_params(self, params: Dict[str, Any]) -> None:
+        self.params = own_params(params, self.param_names, self.device)
+
+    def step(self, data_inputs: Dict[str, Any], timeout: float = 0.0):
+        check_run_inputs(
+            data_inputs,
+            [n for n in self.input_names if n not in self.params],
+            owned=self.param_names)
+        t0 = time.perf_counter()
+        data_inputs = {n: _to_device(v, self.device)
+                       for n, v in data_inputs.items()}
+        chunks = split_microbatches(data_inputs, self.microbatch_inputs,
+                                    self.num_microbatches)
+        mb = set(self.microbatch_inputs)
+        opt = self.optimizer
+        loss_total, grads = None, None
+        for chunk in chunks:
+            vals = [chunk[n] if n in mb
+                    else (self.params[n] if n in self.params
+                          else data_inputs[n])
+                    for n in self.input_names]
+            loss_vec, g = self.vg(*vals)
+            ls = torch.sum(loss_vec)
+            loss_total = ls if loss_total is None else loss_total + ls
+            if grads is None:
+                # owned float32 copies, summed into in place after: the
+                # acc actors' order and bits, with no new tensor a microbatch
+                grads = [x.to(torch.float32, copy=True) for x in g]
+            else:
+                for a, b in zip(grads, g):
+                    a.add_(b.float())
+        gdict = dict(zip(self.param_names, grads))
+        if opt.grad_clip:
+            gdict, self.last_grad_norm = clip_grads(
+                gdict, self.param_names, opt.grad_clip)
+        if opt.stateful and self.opt_state is None:
+            self.opt_state = opt.init_state(self.params)
+        with torch.no_grad():
+            self.params, self.opt_state = opt.update(
+                self.params, gdict, self.opt_state,
+                opt.lr_at(self.step_count))
+        _sync(self.device)
+        self.step_count += 1
+        self.last_makespan = time.perf_counter() - t0
+        return loss_total, gdict, dict(self.params)
+
+
+class Session:
+    """The uniform run/step surface every graph compile path returns.
+
+    * ``mode="infer"``: :meth:`run` maps graph-input values to a dict of
+      sink values (named by sink tensor).
+    * ``mode="train"``: :meth:`step` takes the non-param inputs and returns
+      a :class:`StepResult`; the session owns ``params`` and any optimizer
+      state across steps.
+
+    ``describe()`` reports the SBP plan, the stage partition with register
+    quotas, and the simulated register plan. ``history`` accumulates one
+    record per :meth:`run`/:meth:`step` call. Sessions are built by
+    :func:`compile`, never directly.
+    """
+
+    def __init__(self, *, graph: LogicalGraph, mode: str, backend: str,
+                 engine, plan: Plan, partition: Optional[StagePartition],
+                 regs: Optional[List[int]], reg_plan: Optional[PipelinePlan],
+                 optimizer: Optional[OptimizerSpec],
+                 microbatch_inputs: List[str], num_microbatches: int,
+                 device: torch.device, timeout: float = 300.0,
+                 runtime: Optional[str] = None):
+        self.graph = graph
+        self.mode = mode
+        self.backend = backend
+        self.runtime = runtime        # "threads"; None: monolithic
+        self.plan = plan
+        self.partition = partition
+        self.regs = regs
+        self.reg_plan = reg_plan
+        self.optimizer = optimizer
+        self.microbatch_inputs = microbatch_inputs
+        self.num_microbatches = num_microbatches
+        self.device = device
+        self.timeout = timeout
+        self.history: List[Dict[str, Any]] = []
+        self._engine = engine
+        self._sinks = graph.sinks()
+
+    @property
+    def executor(self):
+        """The backing executor/engine: an
+        :class:`~repro_torch.runtime.pipeline.ActorPipelineExecutor` or
+        :class:`~repro_torch.runtime.pipeline.TrainPipelineExecutor` for
+        ``backend="actors"``, the monolithic engine otherwise."""
+        return self._engine
+
+    @property
+    def params(self) -> Optional[Dict[str, Any]]:
+        """Current trainable params (None for inference sessions)."""
+        if self.mode != "train":
+            return None
+        return dict(self._engine.params)
+
+    @property
+    def opt_state(self):
+        """Optimizer state over all params (merged across stages for the
+        actor backend; None for SGD, inference, or before the first step)."""
+        if self.mode != "train":
+            return None
+        return self._engine.opt_state
+
+    @property
+    def step_count(self) -> int:
+        return getattr(self._engine, "step_count", 0)
+
+    @property
+    def last_makespan(self) -> Optional[float]:
+        return self._engine.last_makespan
+
+    @property
+    def last_edge_bytes(self) -> Dict[Any, int]:
+        """Per-edge payload bytes from the last step/run (empty for the
+        monolithic engines: one program, no edges)."""
+        return dict(getattr(self._engine, "last_edge_bytes", None) or {})
+
+    def load_params(self, params: Dict[str, Any]) -> None:
+        """Replace the session-owned params (copies of ``params``);
+        optimizer state is untouched."""
+        if self.mode != "train":
+            raise RuntimeError("load_params() on an inference session")
+        self._engine.load_params(params)
+
+    def close(self) -> None:
+        """Release the engine's workers (a no-op for monolithic engines)."""
+        close = getattr(self._engine, "close", None)
+        if close is not None:
+            close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def run(self, **inputs) -> Dict[str, Any]:
+        """Execute the compiled inference program over ``inputs`` (one
+        keyword per graph input) and return ``{sink name: value}``."""
+        if self.mode == "train":
+            raise RuntimeError(
+                "run() on a train-mode session; use step(**batch) "
+                "(or compile with mode='infer')")
+        outs = self._engine.run(inputs, timeout=self.timeout)
+        self.history.append({"kind": "run",
+                             "makespan": self._engine.last_makespan})
+        return {t.name: v for t, v in zip(self._sinks, outs)}
+
+    def step(self, **batch) -> StepResult:
+        """Run one training step over the session-owned params and return a
+        :class:`StepResult`. ``batch`` maps every non-param graph input to
+        its value; the names in ``microbatch_inputs`` are split into
+        ``num_microbatches`` chunks along axis 0."""
+        if self.mode != "train":
+            raise RuntimeError(
+                "step() on an infer-mode session; use run(**inputs) "
+                "(or compile with mode='train', params=...)")
+        index = self._engine.step_count
+        loss, grads, params = self._engine.step(batch, timeout=self.timeout)
+        metrics = {
+            "step": index,
+            "lr": self.optimizer.lr_at(index),
+            "grad_norm": self._engine.last_grad_norm,
+            "makespan": self._engine.last_makespan,
+        }
+        if self.backend == "actors":
+            metrics["peak_inflight"] = self._engine.peak_inflight_activations
+        gn = metrics["grad_norm"]
+        self.history.append({"kind": "step", "loss": float(loss), **metrics,
+                             "grad_norm": None if gn is None else float(gn)})
+        return StepResult(loss=loss, metrics=metrics, grads=grads,
+                          params=params)
+
+    def describe(self) -> str:
+        """Human-readable report of the compiled artifact: graph shape, SBP
+        plan, stage partition + register quotas, optimizer."""
+        g = self.graph
+        rt = f" runtime={self.runtime}" if self.runtime is not None else ""
+        lines = [f"=== repro_torch.api session: mode={self.mode} "
+                 f"backend={self.backend}{rt} device={self.device} ===",
+                 f"graph: {len(g.ops)} ops, "
+                 f"inputs {[t.name for t in g.inputs]}, "
+                 f"sinks {[t.name for t in self._sinks]}",
+                 f"microbatches: {self.num_microbatches} over "
+                 f"{self.microbatch_inputs or '(none)'}"]
+        if self.mode == "train":
+            opt = self.optimizer
+            lines.append(f"optimizer: {opt.kind} (grad_clip={opt.grad_clip}, "
+                         f"stateful={opt.stateful})")
+        lines.append(self.plan.describe())
+        if self.partition is not None:
+            lines.append(self.partition.describe(g, regs=self.regs))
+        else:
+            lines.append("single whole-graph program (no stage partition)")
+        if self.reg_plan is not None:
+            rp = self.reg_plan
+            lines.append(
+                f"register plan (simulated): quota={rp.regs[0]} "
+                f"makespan={rp.makespan:.1f} "
+                f"bubble={rp.bubble_fraction:.2f}")
+        lines.append("static check: not run (check='off'; the plan verifier "
+                     "is not ported yet, ROADMAP Queue 1 item 12)")
+        return "\n".join(lines)
+
+    def __repr__(self):
+        return (f"Session(mode={self.mode!r}, backend={self.backend!r}, "
+                f"stages={self.partition.num_stages if self.partition else 1}, "
+                f"num_microbatches={self.num_microbatches})")
+
+
+# ---------------------------------------------------------------------------
+# mode="serve": continuous-batching autoregressive decode.
+# ---------------------------------------------------------------------------
 
 def greedy_from_logits(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """Greedy token selection over a padded vocabulary: the padding columns
@@ -262,47 +616,134 @@ def _load_model(cfg: ModelConfig, params, seed: int,
     return model.to(device)
 
 
-def compile(model: Union[ModelConfig, str], *, mode: str = "serve",
-            backend: str = "actors", runtime: Optional[str] = None,
-            stages: Optional[int] = None,
-            params: Optional[Union[Transformer, Mapping[str, Any]]] = None,
-            device=None, seed: int = 0,
-            timeout: float = 300.0, num_groups: Optional[int] = None,
+def _resolve_partition(graph: LogicalGraph,
+                       partition: Optional[StagePartition],
+                       stages: Optional[int]) -> StagePartition:
+    if partition is not None:
+        if stages is not None and stages != partition.num_stages:
+            raise ValueError(
+                f"stages={stages} contradicts partition.num_stages="
+                f"{partition.num_stages}; pass one or the other")
+        return partition
+    if stages is None and all(op.stage is None for op in graph.ops):
+        raise ValueError(
+            "graph has no stage annotations; pass stages= (a count for "
+            "cost-balanced cutting) or partition=, or use "
+            "backend='monolithic'")
+    return partition_stages(graph, stages)
+
+
+def _policy_regs(policy: str, num_stages: int, width: int) -> List[int]:
+    """Map a :data:`REG_POLICIES` name to per-stage quotas. ``width`` is
+    what ``"gpipe"`` admits everywhere: the microbatch count in graph
+    modes, the request-group count in serve mode."""
+    if policy == "1f1b":
+        return [max(1, num_stages - s) for s in range(num_stages)]
+    if policy == "gpipe":
+        return [width] * num_stages
+    if policy == "serial":
+        return [1] * num_stages
+    raise ValueError(f"unknown regs policy {policy!r}; "
+                     f"pass one of {REG_POLICIES} or an explicit list")
+
+
+def _resolve_regs(regs, partition: StagePartition, num_microbatches: int,
+                  mode: str) -> Tuple[List[int], Optional[PipelinePlan]]:
+    """Turn the declarative ``regs`` option into per-stage quotas: None ->
+    compile-time resource planning (:func:`plan_registers`, §2.3); a policy
+    name from :data:`REG_POLICIES` -> its schedule; an explicit sequence ->
+    validated pass-through."""
+    S = partition.num_stages
+    if regs is None:
+        bwd = 2.0 if mode == "train" else 0.0
+        rp = plan_registers(S, num_microbatches, fwd_time=1.0,
+                            bwd_time=max(bwd, 1e-3))
+        return list(rp.regs), rp
+    if isinstance(regs, str):
+        return _policy_regs(regs, S, num_microbatches), None
+    regs = list(regs)
+    if len(regs) != S:
+        raise ValueError(f"need {S} register quotas, got {len(regs)}")
+    return regs, None
+
+
+def _check_not_ported(options: Dict[str, Any]) -> None:
+    """Raise for an option of the reference that the port does not take
+    yet (naming its ROADMAP item), and as Python would for one neither
+    package knows."""
+    for name, value in options.items():
+        if name not in NOT_PORTED:
+            raise TypeError(
+                f"compile() got an unexpected keyword argument {name!r}")
+        default, what = NOT_PORTED[name]
+        if value is not default and value != default:
+            raise NotImplementedError(
+                f"{name}= ({what}) is not ported yet")
+
+
+def compile(model: Union[LogicalGraph, ModelConfig, str], *,
+            mode: Optional[str] = None, backend: str = "actors",
+            runtime: Optional[str] = None, plan: Optional[Plan] = None,
+            partition: Optional[StagePartition] = None,
+            stages: Optional[int] = None, num_microbatches: int = 1,
+            microbatch_inputs: Optional[Sequence[str]] = None,
+            regs=None, optimizer: Optional[OptimizerSpec] = None,
+            params=None, loss=None, lr: float = 1e-2,
+            device=None, seed: int = 0, timeout: float = 300.0,
+            num_groups: Optional[int] = None,
             group_size: Optional[int] = None,
             cache_len: Optional[int] = None,
             max_prompt_len: Optional[int] = None,
             max_new_tokens: Optional[int] = None,
             cache: Optional[str] = None, sampling=None,
-            check: str = "off", **graph_options) -> ServeSession:
-    """Compile a :class:`~repro_torch.configs.base.ModelConfig` (or an
-    ``--arch`` name) into a :class:`ServeSession` (``mode="serve"``).
+            check: str = "off", **not_ported):
+    """Compile a :class:`~repro_torch.core.graph.LogicalGraph` into a
+    runnable :class:`Session` (``mode="infer"`` or ``"train"``), or a
+    :class:`~repro_torch.configs.base.ModelConfig` (or ``--arch`` name) into
+    a :class:`ServeSession` (``mode="serve"``). ``mode`` defaults to
+    ``"infer"`` for a graph and ``"serve"`` for a model.
 
-    * ``backend``: ``"actors"`` cuts the stack into ``stages`` stage
-      programs (default ``min(2, units)``) run by stage actors with
-      register-quota back-pressure (the 1F1B quotas ``max(1, S - s)``);
-      ``"monolithic"`` runs the whole stack as one stage inline — the
-      token-for-token reference.
-    * ``params``: a :class:`~repro_torch.models.transformer.Transformer`,
-      its ``state_dict``, or None for the port's seeded init (``seed``).
-    * ``device``: None means ``"cuda"`` (raises without a card); tests pass
-      ``"cpu"``.
-    * ``num_groups``, ``group_size``, ``cache_len``, ``max_prompt_len``,
-      ``max_new_tokens``: the slot geometry, as in the reference.
-    * ``check``: only ``"off"`` — the static verifier is not ported yet.
+    Graph modes (everything omitted is inferred, as in the reference):
+
+    * ``backend``: ``"actors"`` — stage programs driven by stage actors on
+      the threaded runtime with register-quota back-pressure (§4.3);
+      ``"monolithic"`` — one whole-graph program with identical microbatch
+      semantics (the bit-identity reference). The monolithic backend
+      accepts but does not use the schedule hints ``partition``,
+      ``stages`` and ``regs``.
+    * ``plan``: an SBP :class:`~repro_torch.core.planner.Plan`; default
+      :func:`repro_torch.core.planner.plan`.
+    * ``partition`` / ``stages``: an explicit stage partition, or a stage
+      count for cost-balanced cutting; default: the graph's ``g.stage(k)``
+      annotations.
+    * ``num_microbatches`` / ``microbatch_inputs``: how the batch streams
+      through the pipeline (``microbatch_inputs`` defaults to the non-param
+      inputs in train mode).
+    * ``regs``: per-stage out-register quotas — a list, a policy from
+      :data:`REG_POLICIES`, or None for compile-time resource planning
+      (:func:`repro_torch.runtime.pipeline.plan_registers`).
+    * ``optimizer`` (train): an :class:`OptimizerSpec` (default SGD at
+      ``lr``); ``params`` (train): ``{graph input name: initial value}``
+      for every trainable input, copied onto ``device`` and owned by the
+      session; ``loss``: the sink to differentiate (default: the sole sink).
+
+    Serve mode: ``backend`` ``"actors"`` cuts the stack into ``stages``
+    stage programs (default ``min(2, units)``) with quotas ``regs`` (a list
+    or a policy, ``"gpipe"`` admitting ``num_groups``; default 1F1B);
+    ``"monolithic"`` runs the whole stack as one stage inline. ``params``
+    is a :class:`~repro_torch.models.transformer.Transformer`, its
+    ``state_dict``, or None for the port's seeded init (``seed``); the
+    slot geometry options are the reference's.
+
+    ``device``: None means ``"cuda"`` (raises without a card); tests pass
+    ``"cpu"``. ``check``: only ``"off"`` — the static verifier is not ported
+    yet. The options in :data:`NOT_PORTED` raise naming their item.
     """
+    _check_not_ported(not_ported)
+    if mode is None:
+        mode = "infer" if isinstance(model, LogicalGraph) else "serve"
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-    if mode != "serve":
-        raise NotImplementedError(
-            f"mode={mode!r} (graph compilation) is not ported yet (ROADMAP "
-            "Queue 1 items 6 and 7); the port serves mode='serve'")
-    later = sorted(set(graph_options) & set(NOT_PORTED))
-    if later:
-        raise NotImplementedError(f"{later[0]}= ({NOT_PORTED[later[0]]}) is "
-                                  "not ported yet")
-    if graph_options:
-        raise ValueError(f"{sorted(graph_options)[0]}= is not meaningful "
-                         "for mode='serve'")
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
@@ -310,6 +751,120 @@ def compile(model: Union[ModelConfig, str], *, mode: str = "serve",
         raise NotImplementedError(
             f"check={check!r}: the static plan verifier is not ported yet "
             "(ROADMAP Queue 1 item 12); pass check='off'")
+    if runtime == "processes":
+        raise NotImplementedError(
+            "runtime='processes' is not ported yet (ROADMAP Queue 1 item 11)")
+    if runtime not in (None, "threads"):
+        raise ValueError(f"unknown runtime {runtime!r}")
+    if backend == "monolithic" and runtime is not None:
+        raise ValueError("runtime= requires backend='actors'")
+    if mode == "serve":
+        rejected = {"plan": plan, "partition": partition,
+                    "optimizer": optimizer, "loss": loss,
+                    "microbatch_inputs": microbatch_inputs}
+        bad = [k for k, v in rejected.items() if v is not None]
+        if bad or num_microbatches != 1:
+            bad = bad or ["num_microbatches"]
+            raise ValueError(
+                f"{bad[0]}= is not meaningful for mode='serve' (serving "
+                "compiles a ModelConfig; schedule/optimizer options belong "
+                "to graph modes)")
+        return _compile_serve(
+            model, backend=backend, stages=stages, regs=regs, params=params,
+            device=device, seed=seed, timeout=timeout, num_groups=num_groups,
+            group_size=group_size, cache_len=cache_len,
+            max_prompt_len=max_prompt_len, max_new_tokens=max_new_tokens,
+            cache=cache, sampling=sampling)
+    serve_only = {"num_groups": num_groups, "group_size": group_size,
+                  "cache_len": cache_len, "max_prompt_len": max_prompt_len,
+                  "max_new_tokens": max_new_tokens, "cache": cache,
+                  "sampling": sampling}
+    bad = [k for k, v in serve_only.items() if v is not None]
+    if bad:
+        raise ValueError(f"{bad[0]}= is only meaningful for mode='serve'")
+    if not isinstance(model, LogicalGraph):
+        raise ValueError(
+            f"mode={mode!r} compiles a LogicalGraph, got "
+            f"{type(model).__name__} (a model trains through "
+            "repro_torch.train.steps.make_train_step)")
+    graph = model
+    if num_microbatches < 1:
+        raise ValueError(
+            f"num_microbatches must be >= 1, got {num_microbatches}")
+    if mode == "infer":
+        for name, v, why in (
+                ("optimizer", optimizer, "inference sessions never update "
+                 "params"),
+                ("params", params, "inference sessions take every graph "
+                 "input at run() time"),
+                ("loss", loss, "nothing is differentiated in inference")):
+            if v is not None:
+                raise ValueError(
+                    f"{name}= is only meaningful for mode='train' ({why})")
+    else:
+        if params is None:
+            raise ValueError(
+                "mode='train' requires params= "
+                "({graph input name: initial value})")
+        params = _canonical_params(graph, params)
+        if optimizer is None:
+            optimizer = OptimizerSpec.sgd(lr)
+    if plan is None:
+        plan = plan_sbp(graph)
+    dev = resolve_device(device)
+
+    input_names = [t.name for t in graph.inputs]
+    if microbatch_inputs is None:
+        if mode == "train":
+            microbatch_inputs = [n for n in input_names if n not in params]
+        elif num_microbatches > 1:
+            raise ValueError(
+                "num_microbatches > 1 needs microbatch_inputs= naming the "
+                "graph inputs to split along axis 0")
+        else:
+            microbatch_inputs = []
+    microbatch_inputs = list(microbatch_inputs)
+    for n in microbatch_inputs:
+        if n not in input_names:
+            raise ValueError(f"{n} is not a graph input")
+
+    common = dict(graph=graph, mode=mode, backend=backend, plan=plan,
+                  optimizer=optimizer, microbatch_inputs=microbatch_inputs,
+                  num_microbatches=num_microbatches, device=dev,
+                  timeout=timeout)
+    if backend == "monolithic":
+        if mode == "infer":
+            engine = _MonolithicInferEngine(graph, plan, microbatch_inputs,
+                                            num_microbatches, device=dev)
+        else:
+            engine = _MonolithicTrainEngine(graph, plan, params,
+                                            microbatch_inputs,
+                                            num_microbatches, optimizer,
+                                            loss=loss, device=dev)
+        return Session(engine=engine, partition=None, regs=None,
+                       reg_plan=None, **common)
+
+    part = _resolve_partition(graph, partition, stages)
+    regs, reg_plan = _resolve_regs(regs, part, num_microbatches, mode)
+    if mode == "infer":
+        staged = lower_stages(graph, plan, part, device=dev)
+        engine = ActorPipelineExecutor(staged, microbatch_inputs,
+                                       num_microbatches, regs=regs)
+    else:
+        tstaged = lower_train_stages(graph, plan, part, list(params),
+                                     loss=loss, device=dev,
+                                     optimizer=optimizer)
+        engine = TrainPipelineExecutor(tstaged, params, microbatch_inputs,
+                                       num_microbatches, lr=lr, regs=regs,
+                                       optimizer=optimizer)
+    return Session(engine=engine, partition=part, regs=regs,
+                   reg_plan=reg_plan, runtime="threads", **common)
+
+
+def _compile_serve(model, *, backend: str, stages: Optional[int], regs,
+                   params, device, seed: int, timeout: float, num_groups,
+                   group_size, cache_len, max_prompt_len, max_new_tokens,
+                   cache, sampling) -> ServeSession:
     if cache not in (None, "dense"):
         raise NotImplementedError(
             f"cache={cache!r} is not ported yet (ROADMAP Queue 1 item 1); "
@@ -318,13 +873,6 @@ def compile(model: Union[ModelConfig, str], *, mode: str = "serve",
         raise NotImplementedError(
             "sampling= is not ported yet (ROADMAP Queue 1 item 2); the port "
             "decodes greedily")
-    if runtime == "processes":
-        raise NotImplementedError(
-            "runtime='processes' is not ported yet (ROADMAP Queue 1 item 11)")
-    if runtime not in (None, "threads"):
-        raise ValueError(f"unknown runtime {runtime!r}")
-    if backend == "monolithic" and runtime is not None:
-        raise ValueError("runtime= requires backend='actors'")
     if isinstance(model, str):
         from repro_torch.configs.registry import get_config
         model = get_config(model)
@@ -348,19 +896,76 @@ def compile(model: Union[ModelConfig, str], *, mode: str = "serve",
         stages = 1
     elif stages is None:
         stages = min(2, n_units)
+    if isinstance(regs, str):
+        regs = _policy_regs(regs, stages, num_groups)
 
     sstaged = lower_serve_stages(cfg, _load_model(cfg, params, seed, dev),
                                  num_stages=stages, cache_len=cache_len,
                                  max_prompt_len=max_prompt_len,
                                  group_size=group_size)
+    runtime = None
     if backend == "monolithic":
         engine = InlineServeEngine(sstaged)
     else:
         runtime = "threads"
-        engine = ServePipelineExecutor(sstaged, runtime=runtime)
+        engine = ServePipelineExecutor(sstaged, regs=regs, runtime=runtime)
     return ServeSession(cfg=cfg, backend=backend, engine=engine,
                         sstaged=sstaged, num_groups=num_groups,
                         group_size=group_size, cache_len=cache_len,
                         max_prompt_len=max_prompt_len,
                         max_new_tokens=max_new_tokens, device=dev,
                         timeout=timeout, runtime=runtime)
+
+
+def _assert_tree_equal(name: str, a, b, context: str) -> None:
+    a = torch.as_tensor(a).detach()
+    b = torch.as_tensor(b).detach().to(a.device)
+    if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+        diff = ""
+        if a.shape == b.shape and a.dtype == b.dtype:
+            delta = (a.double() - b.double()).abs().max().item()
+            diff = f" (max abs diff {delta:g})"
+        raise AssertionError(
+            f"sessions disagree on {name} at {context}: "
+            f"{a.dtype}{list(a.shape)} vs {b.dtype}{list(b.shape)}{diff}")
+
+
+def assert_sessions_match(a: Session, b: Session, inputs: Dict[str, Any],
+                          steps: int = 1) -> None:
+    """Bit-identity check between two sessions compiled from the same graph
+    (typically ``backend="actors"`` vs ``backend="monolithic"``).
+
+    Inference sessions: run both on ``inputs`` and compare every sink
+    bitwise. Training sessions: step both ``steps`` times on the same batch
+    and compare loss, post-clip grads, updated params, and (when stateful)
+    the merged optimizer state after every step. Raises ``AssertionError``
+    naming the first mismatching tensor.
+    """
+    if a.mode != b.mode:
+        raise ValueError(f"cannot compare mode={a.mode!r} with {b.mode!r}")
+    if a.mode == "infer":
+        ra, rb = a.run(**inputs), b.run(**inputs)
+        for name in ra:
+            _assert_tree_equal(f"sink {name!r}", ra[name], rb[name], "run")
+        return
+    for k in range(steps):
+        sa, sb = a.step(**inputs), b.step(**inputs)
+        ctx = f"step {k}"
+        _assert_tree_equal("loss", sa.loss, sb.loss, ctx)
+        for n in sa.grads:
+            _assert_tree_equal(f"grad {n!r}", sa.grads[n], sb.grads[n], ctx)
+        for n in sa.params:
+            _assert_tree_equal(f"param {n!r}", sa.params[n], sb.params[n],
+                               ctx)
+        oa, ob = a.opt_state, b.opt_state
+        if (oa is None) != (ob is None):
+            raise AssertionError(
+                f"sessions disagree on opt_state presence at {ctx}")
+        if oa is not None:
+            if int(oa.step) != int(ob.step):
+                raise AssertionError(
+                    f"opt_state.step differs at {ctx}: "
+                    f"{int(oa.step)} vs {int(ob.step)}")
+            for n in oa.mu:
+                _assert_tree_equal(f"opt mu {n!r}", oa.mu[n], ob.mu[n], ctx)
+                _assert_tree_equal(f"opt nu {n!r}", oa.nu[n], ob.nu[n], ctx)

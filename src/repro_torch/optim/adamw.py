@@ -4,8 +4,8 @@ The reference's pytrees become ordered dicts of tensors keyed by the
 model's ``state_dict`` names. Callers pass them in the reference tree's
 leaf order (:func:`repro_torch.models.convert.jax_leaves`), so the global
 norm sums its per-tensor terms in the reference's order. The per-stage
-entry points of the reference's pipeline optimizer actors wait for graph
-training (ROADMAP Queue 1 item 7).
+entry points (:func:`sqnorm_partials` ... :func:`scale_grad`) are what the
+graph pipeline's optimizer actors and its monolithic engine share.
 
 :func:`adamw_math` is the one AdamW recurrence: the same op sequence as the
 reference's, out of place, so every update path here runs it. The update
@@ -16,8 +16,9 @@ each would double that).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, NamedTuple, Tuple
+from typing import Dict, Iterable, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -58,6 +59,42 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
     norm = global_norm(grads.values()) if pre_norm is None else pre_norm
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
     return {n: g * scale for n, g in grads.items()}, norm
+
+
+# ---------------------------------------------------------------------------
+# Per-stage entry points for the pipeline optimizer actors (paper §3.3/§4.3).
+# ---------------------------------------------------------------------------
+
+def sqnorm_partials(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One float32 squared-norm scalar per gradient tensor -- a pipeline
+    stage's partial-value (P) contribution to the global gradient norm."""
+    return {n: g.float().square().sum() for n, g in grads.items()}
+
+
+def global_norm_from_partials(partials: Dict[str, torch.Tensor],
+                              order: Sequence[str]) -> np.float32:
+    """The P->B combine: sum the per-tensor partials in the canonical
+    ``order`` and take the square root, on the host in numpy float32.
+    Float addition is not associative, so one fixed order is what lets the
+    pipelined norm match the monolithic one bit for bit."""
+    total = np.float32(0.0)
+    for n in order:
+        if n in partials:
+            total = np.float32(total + np.float32(float(partials[n])))
+    return np.float32(np.sqrt(total))
+
+
+def clip_scale(norm, max_norm: float) -> np.float32:
+    """Gradient scale factor for global-norm clipping: ``min(1, c/norm)``;
+    1.0 when ``max_norm`` is falsy (clipping off)."""
+    if not max_norm:
+        return np.float32(1.0)
+    return np.float32(min(1.0, float(max_norm) / max(float(norm), 1e-12)))
+
+
+def scale_grad(g: torch.Tensor, scale) -> torch.Tensor:
+    """Apply the broadcast clip factor to one gradient tensor (float32)."""
+    return g.float() * float(scale)
 
 
 def adamw_math(p32, g32, m, v, step, lr, beta1, beta2, eps, weight_decay):

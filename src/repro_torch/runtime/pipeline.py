@@ -1,21 +1,42 @@
-"""Serving pipelines: continuous-batching decode on the actor protocol.
+"""Pipeline-parallel schedules from register quotas (paper §4.3, §6.5).
 
-Port of the serve half of ``repro/runtime/pipeline.py`` (``:209-332``,
-``:1420-1766``) on the threaded runtime. Stage = contiguous
-model shard (:func:`repro_torch.core.lowering.lower_serve_stages`);
-microbatch = request group. Each round streams one work item per live group
-through the stage chain: a :class:`DecodeWork` advances every slot of the
-group by one token, a :class:`PrefillWork` runs one freshly admitted
-request's prompt and copies its caches into the group cache. A stage's KV
-caches never ride the payload — they are persistent state in the stage
-actor's closure — so the only tensors crossing stages are the (B, 1, d)
-hidden and the final logits. Overlap across groups emerges from the stage
-out-register quotas alone (§4.3).
+Port of ``repro/runtime/pipeline.py`` on the threaded runtime. The paper's
+key observation: a synchronous pipeline schedule is not a special scheduler
+— it *emerges* from out-register quotas. A stage's forward actor output
+register is referenced by BOTH the next stage's forward AND this stage's
+backward (the stashed activations); it is recycled only when both have
+acked. Capping the quota at ``R`` bounds in-flight microbatches to ``R``:
 
-On one card all stages share one CUDA stream in this version, and each
-stage synchronises it before handing its output on (the reference's
+* ``R = num_microbatches``  -> GPipe-style all-forward-then-backward memory;
+* ``R = num_stages - stage``-> 1F1B steady state (Megatron's schedule);
+* ``R = 1``                 -> fully serialized (no pipelining).
+
+:func:`pipeline_specs` builds the simulated actor graph; :func:`plan_registers`
+is the compile-time resource planner: it simulates quotas and picks the
+smallest one within ``tolerance`` of the best makespan (§2.3).
+
+Three executors then run lowered programs under that protocol:
+
+* :class:`ActorPipelineExecutor` — forward-only pipelines over the stage
+  programs of :func:`repro_torch.core.lowering.lower_stages`;
+* :class:`TrainPipelineExecutor` — training pipelines over
+  :func:`repro_torch.core.lowering.lower_train_stages`: forward actors
+  stash their op tape in the out register the *backward* actor also
+  references, backward actors flow cotangents up the chain, accumulation
+  actors (``emit_every``) sum per-microbatch gradients, and optimizer
+  actors fire once per step;
+* :class:`ServePipelineExecutor` — continuous-batching decode with
+  per-stage caches as actor-local state (``:1420-1766`` of the reference).
+
+Every executor builds its actor graph ONCE and re-runs it per
+run/step/round (one epoch each), with per-epoch inputs in ``ctx`` and fire
+bounds in ``fires``. Stage ``s`` is addressed at node ``s + 1``. On one card
+all stages share one CUDA stream in this version, and each stage
+synchronises it before handing its output on (the reference's
 ``block_until_ready``), which is what the makespan instrumentation reads.
-Per-stage streams with events are later work (ROADMAP Queue 1 item 3).
+Per-stage streams with events are later work (ROADMAP Queue 1 item 3). Not
+ported: the process runtime (item 11), the snapshot and fault branches
+(item 10), ZeRO and loss scaling (item 9), and ``fn_wrap`` (item 14).
 """
 from __future__ import annotations
 
@@ -25,8 +46,169 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.lowering import (OptimizerSpec, _to_device,
+                                       reassemble_sinks, split_microbatches)
+from repro_torch.optim.adamw import (clip_scale, global_norm_from_partials,
+                                     scale_grad, sqnorm_partials)
 from repro_torch.runtime.actor import ActorSpec
 from repro_torch.runtime.base import RUNTIME_KINDS, make_runtime
+from repro_torch.runtime.scheduler import CommModel, simulate
+
+
+def _min_feasible_stage_regs(num_stages: int,
+                             num_microbatches: Optional[int] = None
+                             ) -> List[int]:
+    """The smallest live per-stage forward quotas of the canonical train
+    pipeline: all ones, which the simulator confirms completes (the
+    reference's static analyzer, ROADMAP Queue 1 item 12, searches the same
+    answer)."""
+    nmb = num_microbatches if num_microbatches is not None else 2
+    regs = [1] * num_stages
+    res = simulate(pipeline_specs(num_stages, nmb, regs=regs),
+                   comm=CommModel(same_node=0.0, cross_node_latency=0.0))
+    if res.deadlocked:
+        raise RuntimeError(f"the canonical pipeline deadlocks at {regs}")
+    return regs
+
+
+def _validate_regs(regs: Sequence[int], num_stages: int,
+                   num_microbatches: Optional[int] = None) -> List[int]:
+    """Reject bad quota lists up front: a zero/negative quota would deadlock
+    (or be silently rewritten), so fail fast naming the offending stage and
+    the minimal feasible quota vector."""
+    regs = list(regs)
+    if len(regs) != num_stages:
+        raise ValueError(f"need {num_stages} register quotas, got {len(regs)}")
+    for s, r in enumerate(regs):
+        if r < 1:
+            feasible = _min_feasible_stage_regs(num_stages, num_microbatches)
+            raise ValueError(
+                f"stage {s} register quota must be >= 1, got {r} "
+                f"(regs={regs}); minimal feasible quotas for "
+                f"{num_stages} stages: {feasible}")
+    return regs
+
+
+def pipeline_specs(num_stages: int, num_microbatches: int,
+                   fwd_time: float = 1.0, bwd_time: float = 2.0,
+                   regs: Optional[Sequence[int]] = None,
+                   act_nbytes: int = 1 << 20) -> List[ActorSpec]:
+    """Actor graph for a synchronous fwd/bwd pipeline over ``num_stages``
+    devices. ``regs[s]`` is stage s's activation register quota."""
+    if regs is None:
+        regs = [num_stages - s for s in range(num_stages)]  # 1F1B default
+    regs = _validate_regs(regs, num_stages, num_microbatches)
+    specs: List[ActorSpec] = []
+    specs.append(ActorSpec(
+        name="data", fn=lambda *a: 0, inputs=(), out_regs=2,
+        node=0, thread=0, duration=fwd_time * 0.1,
+        max_fires=num_microbatches, out_nbytes=act_nbytes))
+    for s in range(num_stages):
+        fwd_in = "data" if s == 0 else f"f{s-1}"
+        # forward actor on device/thread s
+        specs.append(ActorSpec(
+            name=f"f{s}", fn=lambda *a: 0, inputs=(fwd_in,),
+            out_regs=regs[s], node=0, thread=s + 1,
+            duration=fwd_time, max_fires=num_microbatches,
+            out_nbytes=act_nbytes))
+    for s in reversed(range(num_stages)):
+        # backward actor: consumes stashed activation f{s} and upstream grad
+        ins = (f"f{s}",) if s == num_stages - 1 else (f"f{s}", f"b{s+1}")
+        specs.append(ActorSpec(
+            name=f"b{s}", fn=lambda *a: 0, inputs=ins,
+            out_regs=2, node=0, thread=s + 1,
+            duration=bwd_time, max_fires=num_microbatches,
+            out_nbytes=act_nbytes))
+    # optimizer actor per stage consuming the gradient stream
+    for s in range(num_stages):
+        specs.append(ActorSpec(
+            name=f"opt{s}", fn=lambda *a: 0, inputs=(f"b{s}",),
+            out_regs=1, node=0, thread=s + 1, duration=0.01,
+            max_fires=num_microbatches))
+    return specs
+
+
+@dataclasses.dataclass
+class PipelinePlan:
+    """Result of simulating one register-quota choice: the quota itself, the
+    simulated makespan, per-stage peak activation registers actually used,
+    and the pipeline-bubble fraction (idle time vs the ideal makespan)."""
+
+    regs: List[int]
+    makespan: float
+    peak_activation_regs: Dict[str, int]
+    bubble_fraction: float
+
+
+def analyze(num_stages: int, num_microbatches: int, regs: Sequence[int],
+            fwd_time: float = 1.0, bwd_time: float = 2.0) -> PipelinePlan:
+    """Simulate the fwd/bwd pipeline under quota ``regs`` and summarize it
+    as a :class:`PipelinePlan`. Raises if the quota deadlocks the graph."""
+    specs = pipeline_specs(num_stages, num_microbatches, fwd_time, bwd_time,
+                           list(regs))
+    res = simulate(specs, comm=CommModel(same_node=0.0, cross_node_latency=0.0))
+    if res.deadlocked:
+        raise RuntimeError(f"pipeline deadlocked with regs={list(regs)}")
+    ideal = num_microbatches * (fwd_time + bwd_time)
+    bubble = 1.0 - ideal / res.makespan if res.makespan > 0 else 0.0
+    return PipelinePlan(
+        regs=list(regs), makespan=res.makespan,
+        peak_activation_regs={f"f{s}": res.peak_regs[f"f{s}"]
+                              for s in range(num_stages)},
+        bubble_fraction=max(0.0, bubble))
+
+
+def plan_registers(num_stages: int, num_microbatches: int,
+                   fwd_time: float = 1.0, bwd_time: float = 2.0,
+                   tolerance: float = 0.02) -> PipelinePlan:
+    """Compile-time resource planning: smallest uniform quota whose makespan
+    is within ``tolerance`` of the best observed — memory saved for free."""
+    best: Optional[PipelinePlan] = None
+    plans = []
+    for r in range(1, num_microbatches + 1):
+        p = analyze(num_stages, num_microbatches, [r] * num_stages,
+                    fwd_time, bwd_time)
+        plans.append(p)
+        if best is None or p.makespan < best.makespan:
+            best = p
+        if r >= num_stages and p.makespan <= best.makespan * (1 + 1e-9):
+            break  # saturated: more registers cannot help
+    target = best.makespan * (1 + tolerance)
+    for p in plans:
+        if p.makespan <= target:
+            return p
+    return best
+
+
+def check_run_inputs(provided, expected, what: str = "input",
+                     owned: Sequence[str] = ()) -> None:
+    """Fail fast with the offending key when a run/step input dict has
+    unknown or missing names, instead of failing deep inside an actor body.
+
+    ``expected`` are the names the caller must provide; ``owned`` are names
+    the executor itself supplies (trainable params) — passing one of those is
+    reported as such rather than as merely "unknown".
+    """
+    expected = set(expected)
+    owned = set(owned)
+    provided = set(provided)
+    shadowed = sorted(provided & owned)
+    if shadowed:
+        raise ValueError(
+            f"{what} {shadowed[0]!r} is a trainable param owned by the "
+            f"executor; pass only data inputs (expected: {sorted(expected)})")
+    unknown = sorted(provided - expected)
+    if unknown:
+        more = f" (+{len(unknown) - 1} more)" if len(unknown) > 1 else ""
+        raise ValueError(
+            f"unknown {what} {unknown[0]!r}{more}; "
+            f"expected {what}s: {sorted(expected)}")
+    missing = sorted(expected - provided)
+    if missing:
+        more = f" (+{len(missing) - 1} more)" if len(missing) > 1 else ""
+        raise ValueError(
+            f"missing {what} {missing[0]!r}{more}; "
+            f"expected {what}s: {sorted(expected)}")
 
 
 def serve_regs(num_stages: int) -> List[int]:
@@ -101,6 +283,663 @@ class _StagedExecutorBase:
         self.close()
         return False
 
+
+# ---------------------------------------------------------------------------
+# Actor-driven execution of lowered graph stage programs (compiler ∘
+# runtime). One actor per stage, at node s + 1; microbatch payloads flow
+# through Req.payload as {tensor name: value} dicts along the stage chain;
+# out-register quotas alone bound in-flight microbatches, so 1F1B-style
+# overlap *emerges* (§4.3) instead of being scheduled explicitly.
+# ---------------------------------------------------------------------------
+
+class _GraphExecutorBase(_StagedExecutorBase):
+    """Construction-time validation shared by the graph executors:
+    microbatch count, register-quota length and values, and microbatch
+    input names."""
+
+    def __init__(self, program, microbatch_inputs: Sequence[str],
+                 num_microbatches: int, regs: Optional[Sequence[int]],
+                 runtime: str = "threads"):
+        super().__init__(runtime=runtime)
+        if num_microbatches < 1:
+            raise ValueError(
+                f"num_microbatches must be >= 1, got {num_microbatches}")
+        if regs is not None:
+            regs = _validate_regs(regs, program.num_stages, num_microbatches)
+        for n in microbatch_inputs:
+            if n not in program.input_names:
+                raise ValueError(f"{n} is not a graph input")
+        self.microbatch_inputs = list(microbatch_inputs)
+        self.num_microbatches = num_microbatches
+        self.regs = regs
+        self.device = program.stages[0].device if program.stages else None
+
+    def _on_device(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
+        """Every input as a tensor on the executor's device."""
+        return {n: _to_device(v, self.device) for n, v in inputs.items()}
+
+
+def _bind_placed(stage, bound: Dict[str, Any]) -> Dict[str, Any]:
+    """The epoch-bound inputs (weights) on the stage's device, placed once
+    per rebind rather than per microbatch fire."""
+    return {n: _to_device(v, stage.device) for n, v in bound.items()}
+
+
+def _place_incoming(input_names, bound: Dict[str, Any],
+                    payload: Dict[str, Any]) -> List[Any]:
+    """Assemble a stage's positional inputs: bound values as they are,
+    streamed payload entries from the microbatch payload. Shared by the
+    forward-only and the training pipelines."""
+    return [bound[n] if n in bound else payload[n] for n in input_names]
+
+
+def _stage_binding(stage):
+    """Persistent bound-input state for one stage actor: a ``bound`` dict
+    the closures read at fire time and an ``on_epoch`` hook that (re)binds
+    the values the driver sent in ``ctx`` — on the stage's device, where the
+    weights then stay between epochs."""
+    bound: Dict[str, Any] = {}
+
+    def on_epoch(raw):
+        if raw:
+            bound.update(_bind_placed(stage, raw))
+    return bound, on_epoch
+
+
+def _payload_source_spec(name: str, max_fires: int) -> ActorSpec:
+    """The streaming source actor: emits one pre-split payload dict per
+    version. The payload list is per-epoch state, delivered via ``ctx``."""
+    cell: Dict[str, Any] = {"payloads": []}
+
+    def on_epoch(v):
+        if v is not None:
+            cell["payloads"] = list(v)
+
+    return ActorSpec(
+        name=name, fn=lambda version: cell["payloads"][version], inputs=(),
+        out_regs=2, node=0, thread=0, max_fires=max_fires,
+        wants_version=True, on_epoch=on_epoch)
+
+
+def _forward_carry(staged, mb_names: Sequence[str]) -> List[set]:
+    """``needed_after[s]``: the payload entries a stage at or after ``s``
+    reads (microbatched inputs and boundary tensors), so stage ``s - 1``
+    forwards them on."""
+    graph_inputs = set(staged.input_names)
+    S = staged.num_stages
+    needed_after: List[set] = [set() for _ in range(S + 1)]
+    for s in reversed(range(S)):
+        payload_borne = {n for n in staged.stages[s].input_names
+                         if n in mb_names or n not in graph_inputs}
+        needed_after[s] = needed_after[s + 1] | payload_borne
+    return needed_after
+
+
+def stage_actor_specs(staged, microbatch_inputs: Sequence[str],
+                      num_microbatches: int,
+                      regs: Optional[Sequence[int]] = None,
+                      ) -> Tuple[List[ActorSpec], str]:
+    """Build the persistent actor graph executing ``staged`` (a
+    :class:`repro_torch.core.lowering.StagedProgram`) over microbatches.
+
+    Each run's inputs arrive via ``ctx``: ``ctx["data"]`` is the pre-split
+    microbatch payload list (one dict per version), ``ctx[f"stage{s}"]``
+    the stage's non-streamed graph inputs (weights). ``regs[s]`` is stage
+    s's out-register quota (default 1F1B, ``max(1, S - s)``). Stage ``s``
+    lives at node ``s + 1`` (the data source at node 0). Each body runs
+    under ``torch.inference_mode()`` (grad mode is per thread) and waits
+    for the card before handing its outputs on.
+
+    Returns ``(specs, final_stage_name)``."""
+    S = staged.num_stages
+    if regs is None:
+        regs = [max(1, S - s) for s in range(S)]
+    regs = _validate_regs(regs, S, num_microbatches)
+    mb_names = list(microbatch_inputs)
+    for n in mb_names:
+        if n not in staged.input_names:
+            raise ValueError(f"{n} is not a graph input")
+    needed_after = _forward_carry(staged, mb_names)
+    sink_names = {t.name for t in staged.sinks}
+
+    specs: List[ActorSpec] = [_payload_source_spec("data", num_microbatches)]
+
+    def make_stage_fn(stage):
+        bound, on_epoch = _stage_binding(stage)
+
+        def run_stage(payload):
+            with torch.inference_mode():
+                outs = stage.fn(*_place_incoming(stage.input_names, bound,
+                                                 payload))
+                _sync(stage.device)
+            carried = {n: v for n, v in payload.items()
+                       if n in needed_after[stage.index + 1]
+                       or n in sink_names}
+            carried.update(zip(stage.output_names, outs))
+            return carried
+        return run_stage, on_epoch
+
+    for s, stage in enumerate(staged.stages):
+        fn, on_epoch = make_stage_fn(stage)
+        specs.append(ActorSpec(
+            name=f"stage{s}", fn=fn,
+            inputs=("data",) if s == 0 else (f"stage{s-1}",),
+            out_regs=regs[s], node=s + 1, thread=0,
+            max_fires=num_microbatches, on_epoch=on_epoch))
+    return specs, f"stage{S - 1}"
+
+
+class InferSpecBuilder(_SpecBuilderBase):
+    """Builder of the forward-pipeline actor graph."""
+
+    def __init__(self, staged, microbatch_inputs: Sequence[str],
+                 num_microbatches: int, regs=None):
+        super().__init__(staged)
+        self.microbatch_inputs = list(microbatch_inputs)
+        self.num_microbatches = num_microbatches
+        self.regs = None if regs is None else list(regs)
+
+    def __call__(self):
+        return stage_actor_specs(self.staged, self.microbatch_inputs,
+                                 self.num_microbatches, regs=self.regs)
+
+
+class ActorPipelineExecutor(_GraphExecutorBase):
+    """Run a :class:`repro_torch.core.lowering.StagedProgram` on the actor
+    runtime.
+
+    The actor graph is built once; each :meth:`run` is one epoch over it:
+    the pre-split microbatch payloads and the per-stage bound inputs
+    (weights) travel in ``ctx``, ``num_microbatches`` chunks stream through
+    the stage chain, and the graph sinks are reassembled by concatenating
+    per-microbatch results along axis 0. ``last_makespan`` /
+    ``last_history`` expose the wall-clock schedule of the most recent run.
+    """
+
+    def __init__(self, staged, microbatch_inputs: Sequence[str],
+                 num_microbatches: int, regs: Optional[Sequence[int]] = None,
+                 runtime: str = "threads"):
+        super().__init__(staged, microbatch_inputs, num_microbatches, regs,
+                         runtime=runtime)
+        self.staged = staged
+
+    def _make_builder(self):
+        return InferSpecBuilder(self.staged, self.microbatch_inputs,
+                                self.num_microbatches, regs=self.regs)
+
+    def run(self, inputs: Dict[str, Any], timeout: float = 300.0) -> Tuple:
+        check_run_inputs(inputs, self.staged.input_names)
+        inputs = self._on_device(inputs)
+        graph_inputs = set(self.staged.input_names)
+        mb = set(self.microbatch_inputs)
+        ctx: Dict[str, Any] = {
+            "data": split_microbatches(inputs, self.microbatch_inputs,
+                                       self.num_microbatches)}
+        for stage in self.staged.stages:
+            ctx[f"stage{stage.index}"] = {
+                n: inputs[n] for n in stage.input_names
+                if n in graph_inputs and n not in mb}
+        outs = self._run_rt(ctx, None, timeout)
+        if len(outs) != self.num_microbatches:
+            raise RuntimeError(
+                f"collected {len(outs)} microbatch results, expected "
+                f"{self.num_microbatches}")
+        # the final stage fires in version order in one worker, so ``outs``
+        # is already microbatch-ordered
+        return reassemble_sinks(self.staged.graph, self.staged.sinks,
+                                self.microbatch_inputs, outs)
+
+
+# ---------------------------------------------------------------------------
+# Training pipelines: backward + optimizer actors.
+#
+# One microbatch's journey: data -> f0 -> ... -> f{S-1} -> b{S-1} -> ... ->
+# b0, with acc{s} summing each stage's per-microbatch gradients (OneFlow's
+# `acc` op, via ActorSpec.emit_every) and opt{s} firing exactly once per step
+# on the summed gradient. Stage s's forward out register holds BOTH the
+# boundary activations for f{s+1} AND the op tape (the activations) for
+# b{s}; it is recycled only when both have acked — capping that quota at
+# R[s] = S - s is all it takes for the 1F1B schedule to emerge.
+#
+# Stage s's actors (f, b, acc, opt, state) all live at node s+1, one worker
+# mailbox — so the stage's params, optimizer state and gradient accumulator
+# are node-local closure state, updated in place by the opt actor and never
+# shipped between steps.
+# ---------------------------------------------------------------------------
+
+_TAPE_KEY = "__tape__"
+_GRADS_KEY = "__grads__"
+
+
+def _train_collect_names(tstaged) -> List[str]:
+    """The collect list shared by the builder and the executor: the
+    loss-bearing backward actor first, then every ``opt{s}``."""
+    produced_at = {n: st.index for st in tstaged.stages
+                   for n in st.output_names}
+    loss_stage = produced_at[tstaged.loss_name]
+    param_stages = [st.index for st in tstaged.stages if st.param_names]
+    return [f"b{loss_stage}"] + [f"opt{s}" for s in param_stages]
+
+
+def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
+                            num_microbatches: int, lr: float = 1e-2,
+                            regs: Optional[Sequence[int]] = None,
+                            optimizer=None,
+                            ) -> Tuple[List[ActorSpec], List[str]]:
+    """Build the persistent fwd/bwd/opt actor graph for training steps.
+
+    ``tstaged`` is a :class:`repro_torch.core.lowering.TrainStagedProgram`.
+    The graph is built once and re-run per step (one epoch each); per-step
+    values arrive via ``ctx``:
+
+    * ``ctx["data"]`` — the pre-split microbatch payload list;
+    * ``ctx[f"f{s}"]`` — values to (re)bind on stage s: its non-microbatch
+      data inputs every step, plus its params on the first step (or after a
+      ``load_params``). Afterwards ``opt{s}`` updates the same tensors in
+      place, so params stay on the card across steps;
+    * ``ctx[f"opt{s}"]`` — the step index (resolves the lr schedule), as a
+      plain int or as ``{"step": int, "load_state": AdamWState}`` when the
+      driver hands the stage its optimizer state (the first step).
+
+    ``regs[s]`` is forward stage s's out-register quota (default 1F1B,
+    ``num_stages - s``); backward/acc/opt actors need no tuning.
+
+    The optimizer subsystem (paper §3.3 partial-value + §4.3 actors):
+
+    * ``optimizer`` is a :class:`repro_torch.core.lowering.OptimizerSpec`
+      (falls back to ``tstaged.optimizer``, then plain SGD at ``lr``).
+    * With ``optimizer.grad_clip`` > 0, every ``acc{s}`` emits its
+      stage-local squared-norm partials alongside the summed gradients, and
+      a ``norm`` actor — OneFlow's P→B boxing expressed as an actor — sums
+      the partials in canonical param order and broadcasts the clip scale
+      sideways to every ``opt{s}``.
+    * With a stateful optimizer (AdamW), a ``state{s}`` source actor emits
+      the stage's current optimizer state as a register that ``opt{s}``
+      consumes — the second register stream, initialized on the first step.
+
+    Forward actors record autograd and backward actors replay it (grad mode
+    is per thread, so each body sets its own); every body waits for the
+    card before handing its outputs on. Gradients accumulate in float32 in
+    microbatch order; the accumulator resets at every epoch start.
+
+    Returns ``(specs, collect_names)``: ``collect_names[0]`` is the backward
+    actor of the loss-producing stage (the per-microbatch loss stream), the
+    rest are the ``opt{s}`` actors (each stage's post-clip gradients,
+    updated params, and new optimizer state).
+    """
+    S = tstaged.num_stages
+    if regs is None:
+        regs = [max(1, S - s) for s in range(S)]
+    regs = _validate_regs(regs, S, num_microbatches)
+    mb_names = list(microbatch_inputs)
+    for n in mb_names:
+        if n not in tstaged.input_names:
+            raise ValueError(f"{n} is not a graph input")
+
+    opt = optimizer if optimizer is not None else (
+        tstaged.optimizer if tstaged.optimizer is not None
+        else OptimizerSpec.sgd(lr))
+    clip = bool(opt.grad_clip)
+    param_order = tstaged.param_names
+    param_stages = [st.index for st in tstaged.stages if st.param_names]
+    loss_name = tstaged.loss_name
+    needed_after = _forward_carry(tstaged, mb_names)
+
+    # backward carry: which cotangents b{s} must emit to b{s-1}. A boundary
+    # activation produced at stage p collects contributions from every
+    # consuming stage >= s on the way down and is consumed as b{p}'s seed.
+    produced_at = {n: st.index for st in tstaged.stages
+                   for n in st.output_names}
+    loss_stage = produced_at[loss_name]
+    diff_boundary = {n for st in tstaged.stages
+                     for n in st.diff_input_names if n not in st.param_names}
+    out_cot_names: List[set] = [set() for _ in range(S)]
+    for n in diff_boundary:
+        consumers = {st.index for st in tstaged.stages
+                     if n in st.diff_input_names}
+        for s in range(produced_at[n] + 1, S):
+            if any(c >= s for c in consumers):
+                out_cot_names[s].add(n)
+
+    specs: List[ActorSpec] = [_payload_source_spec("data", num_microbatches)]
+
+    def make_fwd_fn(stage):
+        bound, on_epoch = _stage_binding(stage)
+
+        def run_fwd(payload):
+            outs, tape = stage.fwd(*_place_incoming(stage.input_names,
+                                                    bound, payload))
+            _sync(stage.device)
+            carried = {n: v for n, v in payload.items()
+                       if n in needed_after[stage.index + 1]}
+            carried.update(zip(stage.output_names, outs))
+            carried[_TAPE_KEY] = tape
+            return carried
+        return run_fwd, bound, on_epoch
+
+    def make_bwd_fn(stage):
+        diff_in = set(stage.diff_input_names)
+
+        def run_bwd(f_payload, b_payload=None):
+            incoming = {} if b_payload is None else b_payload["cots"]
+            grads, res = {}, {}
+            if stage.bwd is not None:
+                seeds = stage.output_cotangents(f_payload, incoming,
+                                                loss_name)
+                in_cots = stage.bwd(f_payload[_TAPE_KEY], seeds)
+                for n, c in zip(stage.diff_input_names, in_cots):
+                    if n in stage.param_names:
+                        grads[n] = c
+                    else:
+                        res[n] = c
+            # a boundary input of this stage already carries the incoming
+            # sum (its seed); anything else passes through
+            out_cots = {n: (res[n] if n in diff_in else incoming.get(n))
+                        for n in out_cot_names[stage.index]}
+            out = {"cots": out_cots, _GRADS_KEY: grads}
+            if stage.index == loss_stage:
+                out["loss"] = torch.sum(f_payload[loss_name])
+            _sync(stage.device)
+            return out
+        return run_bwd
+
+    def make_acc_fn(stage):
+        state: Dict[str, Any] = {}
+        meta = {"fires": 0}
+
+        def on_epoch(_):
+            state.clear()
+            meta["fires"] = 0
+
+        def run_acc(b_payload):
+            meta["fires"] += 1
+            for n, g in b_payload[_GRADS_KEY].items():
+                if g is None:
+                    g = torch.zeros_like(bound_of[stage.index][n])
+                if n in state:
+                    state[n].add_(g.float())
+                else:
+                    # an owned float32 copy, summed into in place after
+                    state[n] = g.to(torch.float32, copy=True)
+            out = {_GRADS_KEY: dict(state)}
+            if clip and meta["fires"] == num_microbatches:
+                # the stage-local P contribution to the global grad norm
+                out["sqnorms"] = sqnorm_partials(state)
+            return out
+        return run_acc, on_epoch
+
+    def make_opt_fn(stage, bound, state_cell):
+        pnames = stage.param_names
+        meta = {"step": 0}
+
+        def on_epoch(v):
+            if v is None:
+                return
+            if isinstance(v, dict):
+                meta["step"] = int(v["step"])
+                # the driver's state replaces the worker-resident one
+                # before this epoch's state{s} fire emits it
+                state_cell["state"] = v["load_state"]
+            else:
+                meta["step"] = int(v)
+
+        def run_opt(acc_payload, *rest):
+            rest = list(rest)
+            norm_payload = rest.pop(0) if clip else None
+            state = rest.pop(0)["state"] if opt.stateful else None
+            grads = acc_payload[_GRADS_KEY]
+            if norm_payload is not None:
+                grads = {n: scale_grad(grads[n], norm_payload["scale"])
+                         for n in pnames}
+            else:
+                grads = {n: grads[n] for n in pnames}
+            params = {n: bound[n] for n in pnames}
+            if opt.stateful and state is None:
+                # first step in this worker: fresh (zeroed) state
+                state = opt.init_state(params)
+            lr_now = opt.lr_at(meta["step"])
+            meta["step"] += 1
+            with torch.no_grad():
+                new_params, new_state = opt.update(params, grads, state,
+                                                   lr_now)
+            _sync(stage.device)
+            if opt.stateful:
+                state_cell["state"] = new_state
+            out = {"params": new_params, "grads": grads}
+            if opt.stateful:
+                out["state"] = new_state
+            if norm_payload is not None:
+                out["norm"] = norm_payload["norm"]
+            return out
+        return run_opt, on_epoch
+
+    bound_of: Dict[int, Dict[str, Any]] = {}
+    collect = _train_collect_names(tstaged)
+    for s, stage in enumerate(tstaged.stages):
+        fwd_fn, bound, fwd_on_epoch = make_fwd_fn(stage)
+        bound_of[s] = bound
+        specs.append(ActorSpec(
+            name=f"f{s}", fn=fwd_fn,
+            inputs=("data",) if s == 0 else (f"f{s-1}",),
+            out_regs=regs[s], node=s + 1, thread=0,
+            max_fires=num_microbatches, on_epoch=fwd_on_epoch))
+        specs.append(ActorSpec(
+            name=f"b{s}", fn=make_bwd_fn(stage),
+            inputs=(f"f{s}",) if s == S - 1 else (f"f{s}", f"b{s+1}"),
+            out_regs=2, node=s + 1, thread=0,
+            max_fires=num_microbatches))
+        if stage.param_names:
+            acc_fn, acc_on_epoch = make_acc_fn(stage)
+            specs.append(ActorSpec(
+                name=f"acc{s}", fn=acc_fn, inputs=(f"b{s}",),
+                out_regs=1, node=s + 1, thread=0,
+                max_fires=num_microbatches, emit_every=num_microbatches,
+                on_epoch=acc_on_epoch))
+            opt_inputs = (f"acc{s}",)
+            if clip:
+                opt_inputs += ("norm",)
+            state_cell: Dict[str, Any] = {"state": None}
+            if opt.stateful:
+                # the optimizer-state register stream: a source actor emits
+                # the worker-resident AdamWState; opt{s} consumes it next to
+                # the summed gradients and the broadcast clip scale
+                specs.append(ActorSpec(
+                    name=f"state{s}",
+                    fn=lambda _c=state_cell: {"state": _c["state"]},
+                    inputs=(), out_regs=1, node=s + 1, thread=0,
+                    max_fires=1))
+                opt_inputs += (f"state{s}",)
+            opt_fn, opt_on_epoch = make_opt_fn(stage, bound, state_cell)
+            specs.append(ActorSpec(
+                name=f"opt{s}", fn=opt_fn,
+                inputs=opt_inputs, out_regs=1, node=s + 1, thread=0,
+                max_fires=1, on_epoch=opt_on_epoch))
+
+    if clip and param_stages:
+        # cross-stage *sideways* communication on the actor protocol: sum the
+        # per-stage squared-norm partials (P→B boxing as an actor) and
+        # broadcast the clip scale to every opt{s}
+        def run_norm(*acc_payloads):
+            partials = {}
+            for pl in acc_payloads:
+                partials.update(pl["sqnorms"])
+            norm = global_norm_from_partials(partials, param_order)
+            return {"norm": norm, "scale": clip_scale(norm, opt.grad_clip)}
+
+        specs.append(ActorSpec(
+            name="norm", fn=run_norm,
+            inputs=tuple(f"acc{s}" for s in param_stages),
+            out_regs=1, node=0, thread=0, max_fires=1))
+    return specs, collect
+
+
+class TrainSpecBuilder(_SpecBuilderBase):
+    """Builder of the fwd/bwd/opt training actor graph."""
+
+    def __init__(self, staged, microbatch_inputs: Sequence[str],
+                 num_microbatches: int, lr: float = 1e-2, regs=None,
+                 optimizer=None):
+        super().__init__(staged)
+        self.microbatch_inputs = list(microbatch_inputs)
+        self.num_microbatches = num_microbatches
+        self.lr = lr
+        self.regs = None if regs is None else list(regs)
+        self.optimizer = optimizer
+
+    def __call__(self):
+        return train_stage_actor_specs(self.staged, self.microbatch_inputs,
+                                       self.num_microbatches, lr=self.lr,
+                                       regs=self.regs,
+                                       optimizer=self.optimizer)
+
+
+def own_params(params: Dict[str, Any], names: Sequence[str],
+               device) -> Dict[str, torch.Tensor]:
+    """The session's own copies of ``params`` (in ``names`` order) on
+    ``device``: the optimizer updates them in place, so the caller's values
+    are never touched."""
+    missing = [n for n in names if n not in params]
+    if missing:
+        raise ValueError(f"missing params: {missing}")
+    return {n: torch.as_tensor(params[n]).detach().to(device, copy=True)
+            for n in names}
+
+
+class TrainPipelineExecutor(_GraphExecutorBase):
+    """Run a :class:`repro_torch.core.lowering.TrainStagedProgram` as a 1F1B
+    training pipeline.
+
+    The fwd/bwd/opt actor graph is built once; each :meth:`step` is one
+    epoch over it. Per-stage persistent state — the bound params, the AdamW
+    state, the float32 gradient accumulator — lives in the stage's actor
+    closures; the opt actor updates the params and state in place, so
+    nothing round-trips through the driver between steps. The driver's
+    ``params`` and ``opt_states`` are the same tensors, and :meth:`step`
+    returns ``(loss, grads, params)`` bit-identical to the monolithic
+    engine with the same :class:`OptimizerSpec` (the objective is the *sum*
+    of the loss tensor over the batch; ``grads`` are post-clip when
+    global-norm clipping is on). The returned params are the live tensors:
+    the next step updates them.
+
+    ``opt_state`` merges the per-stage states; ``last_grad_norm`` is the
+    global gradient norm the ``norm`` actor computed (None when clipping is
+    off). ``last_peak_regs`` ``f{s}`` entries are the in-flight activation
+    counts the 1F1B quota bounds.
+    """
+
+    def __init__(self, tstaged, params: Dict[str, Any],
+                 microbatch_inputs: Sequence[str], num_microbatches: int,
+                 lr: float = 1e-2, regs: Optional[Sequence[int]] = None,
+                 optimizer=None, runtime: str = "threads"):
+        super().__init__(tstaged, microbatch_inputs, num_microbatches, regs,
+                         runtime=runtime)
+        self.tstaged = tstaged
+        self.lr = lr
+        self.optimizer = optimizer if optimizer is not None else (
+            tstaged.optimizer if tstaged.optimizer is not None
+            else OptimizerSpec.sgd(lr))
+        self.params: Dict[str, Any] = {}
+        self.load_params(params)
+        # the per-stage optimizer states (zeroed; None for SGD): the first
+        # step hands each to its stage's worker, which updates it in place
+        # from then on, so the driver and the worker share one copy
+        self.opt_states: Dict[int, Any] = {
+            st.index: self.optimizer.init_state(
+                {n: self.params[n] for n in st.param_names})
+            for st in tstaged.stages if st.param_names}
+        self._state_dirty = True
+        self.step_count = 0
+        self.last_grad_norm = None
+
+    def _make_builder(self):
+        return TrainSpecBuilder(self.tstaged, self.microbatch_inputs,
+                                self.num_microbatches, lr=self.lr,
+                                regs=self.regs, optimizer=self.optimizer)
+
+    def load_params(self, params: Dict[str, Any]) -> None:
+        """Replace the executor-owned params (copies of ``params``); they
+        ride the next step's ``ctx`` into each stage's worker. Optimizer
+        state is untouched."""
+        self.params = own_params(params, self.tstaged.param_names,
+                                 self.device)
+        self._params_dirty = True
+
+    @property
+    def peak_inflight_activations(self) -> int:
+        """Peak forward registers in use across stages in the last step —
+        the in-flight microbatch count the quota back-pressures. Zero
+        before the first step."""
+        return max((self.last_peak_regs.get(f"f{s}", 0)
+                    for s in range(self.tstaged.num_stages)), default=0)
+
+    @property
+    def opt_state(self):
+        """The per-stage optimizer states merged into one
+        :class:`repro_torch.optim.adamw.AdamWState` over all params (None
+        for a stateless optimizer)."""
+        return self.optimizer.merge_states(
+            [self.opt_states[s] for s in sorted(self.opt_states)])
+
+    def step(self, data_inputs: Dict[str, Any], timeout: float = 300.0):
+        """Run one training step over the current params. ``data_inputs``
+        maps non-param graph inputs to values (the microbatched ones are
+        split along axis 0). Returns ``(loss, grads, params)``."""
+        check_run_inputs(
+            data_inputs,
+            [n for n in self.tstaged.input_names if n not in self.params],
+            owned=self.tstaged.param_names)
+        data_inputs = self._on_device(data_inputs)
+        graph_inputs = set(self.tstaged.input_names)
+        mb = set(self.microbatch_inputs)
+        ctx: Dict[str, Any] = {
+            "data": split_microbatches(data_inputs, self.microbatch_inputs,
+                                       self.num_microbatches)}
+        for st in self.tstaged.stages:
+            bound = {n: data_inputs[n] for n in st.input_names
+                     if n in graph_inputs and n not in mb
+                     and n not in self.params}
+            if self._params_dirty:
+                bound.update({n: self.params[n] for n in st.param_names})
+            ctx[f"f{st.index}"] = bound
+            if st.param_names:
+                ctx[f"opt{st.index}"] = (
+                    {"step": self.step_count,
+                     "load_state": self.opt_states[st.index]}
+                    if self._state_dirty else self.step_count)
+        outs = self._run_rt(ctx, None, timeout)
+        self._params_dirty = False
+        self._state_dirty = False
+
+        collect = _train_collect_names(self.tstaged)
+        # the loss-bearing backward actor fires in version order in one
+        # worker, so the collected loss stream is microbatch-ordered
+        loss_payloads = outs[collect[0]]
+        if len(loss_payloads) != self.num_microbatches:
+            raise RuntimeError(
+                f"collected {len(loss_payloads)} loss chunks, expected "
+                f"{self.num_microbatches}")
+        loss = None
+        for pl in loss_payloads:
+            loss = pl["loss"] if loss is None else loss + pl["loss"]
+
+        grads: Dict[str, Any] = {}
+        norm = None
+        for name in collect[1:]:
+            (opt_out,) = outs[name]        # optimizer fired exactly once
+            s = int(name[len("opt"):])
+            norm = opt_out.get("norm", norm)
+            grads.update(opt_out["grads"])
+            self.params.update(opt_out["params"])
+            if "state" in opt_out:
+                self.opt_states[s] = opt_out["state"]
+        self.last_grad_norm = norm
+        self.step_count += 1
+        return loss, grads, dict(self.params)
+
+
+# ---------------------------------------------------------------------------
+# Serving pipelines: continuous-batching decode on the actor protocol.
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class PrefillWork:
@@ -218,15 +1057,16 @@ class InlineServeEngine:
         return results
 
 
-def serve_stage_actor_specs(sstaged) -> Tuple[List[ActorSpec], str]:
+def serve_stage_actor_specs(sstaged, regs: Optional[Sequence[int]] = None
+                            ) -> Tuple[List[ActorSpec], str]:
     """Build the persistent serve actor graph: an ``admit`` source emitting
     the round's work items (delivered via ``ctx["admit"]``, with ``fires``
     set to the round's work count) and one ``stage{s}`` actor per model
     shard at node ``s + 1``, each owning its per-group KV caches as closure
-    state, and out-register quota :func:`serve_regs`. Returns ``(specs,
-    final_stage_name)``."""
+    state, with out-register quota ``regs[s]`` (default :func:`serve_regs`).
+    Returns ``(specs, final_stage_name)``."""
     S = sstaged.num_stages
-    regs = serve_regs(S)
+    regs = serve_regs(S) if regs is None else _validate_regs(regs, S)
 
     cell: Dict[str, Any] = {"work": []}
 
@@ -264,8 +1104,12 @@ def serve_stage_actor_specs(sstaged) -> Tuple[List[ActorSpec], str]:
 class ServeSpecBuilder(_SpecBuilderBase):
     """Builder of the continuous-batching serve actor graph."""
 
+    def __init__(self, staged, regs=None):
+        super().__init__(staged)
+        self.regs = None if regs is None else list(regs)
+
     def __call__(self):
-        return serve_stage_actor_specs(self.staged)
+        return serve_stage_actor_specs(self.staged, regs=self.regs)
 
 
 class ServePipelineExecutor(_StagedExecutorBase):
@@ -277,20 +1121,22 @@ class ServePipelineExecutor(_StagedExecutorBase):
     one epoch: the round's work items travel in ``ctx``, the per-actor fire
     bound is the round's work count, and the last stage's logits are
     collected in emission order. ``regs[s]`` is stage s's out-register
-    quota (:func:`serve_regs`); quota back-pressure alone bounds how many
-    groups are in flight. ``rounds`` and ``total_makespan`` accumulate over
-    the session.
+    quota (default :func:`serve_regs`, the 1F1B rule); quota back-pressure
+    alone bounds how many groups are in flight. ``rounds`` and
+    ``total_makespan`` accumulate over the session.
     """
 
-    def __init__(self, sstaged, runtime: str = "threads"):
+    def __init__(self, sstaged, regs: Optional[Sequence[int]] = None,
+                 runtime: str = "threads"):
         super().__init__(runtime=runtime)
         self.sstaged = sstaged
-        self.regs = serve_regs(sstaged.num_stages)
+        S = sstaged.num_stages
+        self.regs = serve_regs(S) if regs is None else _validate_regs(regs, S)
         self.rounds = 0
         self.total_makespan = 0.0
 
     def _make_builder(self):
-        return ServeSpecBuilder(self.sstaged)
+        return ServeSpecBuilder(self.sstaged, regs=self.regs)
 
     def run_round(self, work: Sequence, timeout: float = 300.0) -> List:
         """Stream ``work`` (PrefillWork/DecodeWork items) through the stage

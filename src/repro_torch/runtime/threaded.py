@@ -309,7 +309,12 @@ class ThreadedRuntime(Runtime):
                 "threaded actor runtime did not complete: "
                 + ", ".join(f"{a.spec.name}={a.fired}/{a.max_fires}"
                             for a in bounded if not a.exhausted))
-        return self.outputs if self._collect_single else self.outputs_by_name
+        outs = self.outputs if self._collect_single else self.outputs_by_name
+        # keep no reference to what was returned: a train step's collected
+        # payloads hold gradients the size of the model
+        self.outputs = []
+        self.outputs_by_name = {n: [] for n in self._collect_names}
+        return outs
 
     def close(self) -> None:
         self._engine.stop_workers()

@@ -17,7 +17,8 @@ meshes beyond 1 x 1 (item 8), the ``Graph*`` shims of graph training
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+import warnings
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -83,3 +84,116 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
         return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
     return TrainStep(step_fn, init_params, init_opt, plan, device)
+
+
+# ---------------------------------------------------------------------------
+# Deprecated graph-training shims (the reference's ``:357-488``). New code
+# calls repro_torch.api.compile directly.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class GraphTrainStep:
+    """Monolithic microbatched training step over a ``LogicalGraph``.
+
+    ``step_fn(param_values, data) -> (loss, grads, new_params)`` runs every
+    microbatch through the whole-graph value-and-grad, accumulates
+    gradients in float32, and applies the
+    :class:`repro_torch.core.lowering.OptimizerSpec` (default plain SGD)
+    with global-norm clipping and the lr schedule resolved exactly like the
+    pipeline's optimizer actors. A stateful optimizer's state persists on
+    ``opt_state`` across :meth:`step` calls; ``step_count`` indexes the lr
+    schedule; ``last_grad_norm`` is the pre-clip global norm.
+    """
+
+    step_fn: Any
+    param_names: Tuple[str, ...]
+    num_microbatches: int
+    lr: float
+    optimizer: Any = None
+    opt_state: Any = None
+    step_count: int = 0
+    last_grad_norm: Any = None
+
+    def step(self, param_values: Dict[str, Any], data: Dict[str, Any]):
+        return self.step_fn(param_values, data)
+
+
+def make_graph_train_step(graph, params, microbatch_inputs,
+                          num_microbatches: int, lr: float = 1e-2,
+                          loss=None, graph_plan=None, optimizer=None,
+                          device=None) -> GraphTrainStep:
+    """DEPRECATED: use ``repro_torch.api.compile(graph, mode="train",
+    backend="monolithic", ...)``; this shim adapts the old
+    params-threaded-per-call convention onto the session it builds.
+
+    ``params`` names the graph inputs to train; ``microbatch_inputs`` names
+    the inputs split along axis 0 into ``num_microbatches`` chunks.
+    ``optimizer`` is an :class:`~repro_torch.core.lowering.OptimizerSpec`
+    (default: SGD at ``lr``)."""
+    warnings.warn(
+        "make_graph_train_step is deprecated; use repro_torch.api.compile("
+        "graph, mode='train', backend='monolithic', ...) instead",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch import api
+    from repro_torch.core.lowering import (OptimizerSpec, _resolve_loss,
+                                           _resolve_params)
+
+    param_names = tuple(getattr(t, "name", t) for t in params)
+    # fail at build time, not on the first step
+    _resolve_params(graph, param_names)
+    _resolve_loss(graph, loss)
+    opt = optimizer if optimizer is not None else OptimizerSpec.sgd(lr)
+    ts = GraphTrainStep(step_fn=None, param_names=param_names,
+                        num_microbatches=num_microbatches, lr=lr,
+                        optimizer=opt)
+    holder: Dict[str, Any] = {"session": None}
+
+    def step_fn(param_values: Dict[str, Any], data: Dict[str, Any]):
+        sess = holder["session"]
+        missing = [n for n in param_names if n not in param_values]
+        if missing:
+            raise ValueError(f"missing params: {missing}")
+        pvals = {n: param_values[n] for n in param_names}
+        if sess is None:
+            sess = holder["session"] = api.compile(
+                graph, mode="train", backend="monolithic", plan=graph_plan,
+                params=pvals, microbatch_inputs=list(microbatch_inputs),
+                num_microbatches=num_microbatches, lr=lr, optimizer=opt,
+                loss=loss, device=device)
+        else:
+            sess.load_params(pvals)
+        res = sess.step(**{n: v for n, v in data.items()
+                           if n not in pvals})
+        ts.opt_state = sess.opt_state
+        ts.step_count = sess.step_count
+        ts.last_grad_norm = res.metrics["grad_norm"]
+        return res.loss, res.grads, res.params
+
+    ts.step_fn = step_fn
+    return ts
+
+
+def make_pipeline_train_step(graph, init_params: Dict[str, Any],
+                             microbatch_inputs, num_microbatches: int,
+                             num_stages: Optional[int] = None,
+                             lr: float = 1e-2, regs=None, loss=None,
+                             graph_plan=None, optimizer=None, device=None):
+    """DEPRECATED: use ``repro_torch.api.compile(graph, mode="train",
+    backend="actors", ...)``; this shim compiles a session and returns its
+    :class:`~repro_torch.runtime.pipeline.TrainPipelineExecutor`, the
+    historical return type. It keeps the historical 1F1B quotas unless
+    ``regs`` is given."""
+    warnings.warn(
+        "make_pipeline_train_step is deprecated; use repro_torch.api.compile("
+        "graph, mode='train', backend='actors', ...) instead",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch import api
+
+    sess = api.compile(
+        graph, mode="train", backend="actors", plan=graph_plan,
+        stages=num_stages, params=init_params,
+        microbatch_inputs=list(microbatch_inputs),
+        num_microbatches=num_microbatches, lr=lr,
+        regs=regs if regs is not None else "1f1b", loss=loss,
+        optimizer=optimizer, device=device)
+    return sess.executor
