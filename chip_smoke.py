@@ -52,7 +52,19 @@ result line is printed:
    gives the device's busy share and its kernels by time. Then the same for
    mamba2-370m at full width and depth (48 SSM layers, bf16): one SSD scan
    call per layer per prefill, each on the tensor-core kernels, no
-   attention kernel;
+   attention kernel. Then paged, chunked and sampled serving, each run's
+   launches counted as above (one decode per layer per decode item and per
+   chunk token) at ``cache_len=576``, which page_len 16 divides (569 is
+   prime), dense baselines included: qwen3 paged (the 12 requests plus 3
+   repeating the prompt of the longest-lived one, 144 pages of 16, half
+   the dense reservation) on the actors and monolithic, tokens identical
+   to dense monolithic, pages shared, and the decode kernel held to its
+   plain version on a window the paged gather made; qwen3 chunked
+   (``prefill_chunk=16``, 4 requests of 24-64 tokens), actors ≡
+   monolithic, more rounds than unchunked; qwen3 sampled (temperature 0.8,
+   top-k 50, top-p 0.95, seed 1): actors ≡ monolithic, seed 1 repeats,
+   seed 2 differs, temperature 0 ≡ greedy; mamba2 paged on the actors ≡
+   dense;
 5. train: qwen3-1.7b at full width and depth (bf16 compute, float32 params
    and AdamW state, seeded init) through ``repro_torch.train.steps
    .make_train_step``, fed by ``ActorDataPipeline(SyntheticLM(151936, 2,
@@ -89,7 +101,10 @@ result line is printed:
    graph's microbatch shape (512 x 151,936) with the graph train run's
    launches.
 
-The last two lines are the kernel table as one JSON object and the result
+The kernels line's attention forward, decode and SSD scan rows carry
+``launches_by_path``, each serving path's launches, and the decode row a
+``paged_shape`` entry timed at the paged window. The last two lines are the
+kernel table as one JSON object and the result
 ``{"ok": true, "device": {...}}``. It imports nothing of jax.
 """
 from __future__ import annotations
@@ -797,6 +812,17 @@ def zero_serve_counts():
     ssd.wgmma_launches = 0
 
 
+def serve_requests(cfg, n_req: int = 12, seed: int = SEED + 3,
+                   lens=(64, 512), gens=(8, 48)):
+    """``n_req`` numpy-seeded requests: prompts of ``lens`` tokens (inclusive
+    range) and ``gens`` new tokens."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(lens[0], lens[1] + 1, n_req)
+    g = rng.integers(gens[0], gens[1] + 1, n_req)
+    return [(rng.integers(0, cfg.vocab_size, (k,)).astype(np.int32), int(m))
+            for k, m in zip(n, g)]
+
+
 def serve(dev, arch: str):
     """The main path: full-width ``arch`` on the stage actors, then the
     same requests on the monolithic engine, each run's kernel launches
@@ -808,12 +834,8 @@ def serve(dev, arch: str):
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(arch)
-    n_req = 12
-    rng = np.random.default_rng(SEED + 3)
-    lens = rng.integers(64, 513, n_req)
-    gens = rng.integers(8, 49, n_req)
-    requests = [(rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32),
-                 int(g)) for n, g in zip(lens, gens)]
+    requests = serve_requests(cfg)
+    n_req = len(requests)
     geo = dict(num_groups=2, group_size=4, max_prompt_len=512,
                max_new_tokens=48, seed=SEED)
 
@@ -879,15 +901,17 @@ def serve(dev, arch: str):
     return launches
 
 
-def profile_device(what: str, fn, top: int = 8):
+def profile_device(what: str, fn, top: int = 8, cpu: bool = True):
     """Where the time goes: the device's busy time and its kernels by name
     over one more run of ``fn``, from torch.profiler's device trace (the
     profiler's own cost is in the wall time): the ``top`` kernels by time,
     then the port's own kernels (``PORT_KERNELS``) that are not among
-    them."""
+    them. ``cpu=False`` traces the device alone, which spares the host's
+    op events their post-processing."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    t_start = time.perf_counter()
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -900,12 +924,306 @@ def profile_device(what: str, fn, top: int = 8):
         return
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     print(f"profiled {what}: {wall:.3f} s wall (profiler on), device busy "
-          f"{busy:.3f} s, idle share {1 - busy / wall:.3f}")
+          f"{busy:.3f} s, idle share {1 - busy / wall:.3f} (the profile "
+          f"took {time.perf_counter() - t_start:.1f} s in all)")
     ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
     for i, e in enumerate(ranked):
         if i < top or any(k in e.key for k in PORT_KERNELS):
             print(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
                   f"{e.count:6d} x  {e.key[:90]}")
+
+
+# the paged, chunked and sampled serving phases: qwen3-1.7b's paged pool
+# holds half of what a dense reservation of its 8 slots does, at a cache_len
+# that 16 divides (569, the serve phase's, is prime, so its largest page
+# length up to 16 would be 1); their dense baselines run at the same 576,
+# since the decode kernel's split count follows the cache length
+PAGED_GEO = dict(num_groups=2, group_size=4, max_prompt_len=512,
+                 max_new_tokens=48, cache_len=576, seed=SEED)
+PAGED = dict(cache="paged", page_len=16, num_pages=144)
+CHUNK = 16
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95, seed=1)
+
+
+def check_outputs(cfg, outs, requests, what: str) -> None:
+    for i, (o, (_, g)) in enumerate(zip(outs, requests)):
+        if len(o) != g or (o < 0).any() or (o >= cfg.vocab_size).any():
+            raise AssertionError(f"{what} request {i}: {len(o)} ids (want "
+                                 f"{g}), range [{o.min()}, {o.max()}]")
+
+
+def same_tokens(a, b) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def counted_run(cfg, session, requests, what: str):
+    """One ``generate`` with the launch counters zeroed just before and
+    read just after, held to the launches the scheduler's work implies:
+    per layer one attention forward (or SSD scan) per unchunked prefill,
+    one decode per decode item and per chunk token. Returns the tokens,
+    the counts and the run's peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sec0 = dict(getattr(session.executor, "item_seconds", None) or {})
+    zero_serve_counts()
+    out = session.generate(requests)
+    got = serve_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = session.last_stats
+    L, ssm = cfg.num_layers, cfg.family == "ssm"
+    pre = L * st["prefill_items"]
+    steps = L * (st["decode_items"] + st["chunk_tokens"])
+    want = {"flash_attention": 0 if ssm else pre,
+            "flash_fwd_wgmma_kernel": 0 if ssm else pre,
+            "flash_decode": 0 if ssm else steps,
+            "ssd_scan": pre if ssm else 0, "ssd_scan_wgmma": pre if ssm else 0}
+    print(f"{what}: launches {got} (expected {want}: {L} layers, "
+          f"{st['prefill_items']} prefills, {st['decode_items']} decode "
+          f"items, {st['chunk_items']} chunks of {st['chunk_tokens']} "
+          f"tokens)")
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{want}")
+    check_outputs(cfg, out, requests, what)
+    extra = ""
+    if "peak_pages" in st:
+        extra = (f", peak pages {st['peak_pages']}, shared pages "
+                 f"{st['shared_pages']}")
+    sec = getattr(session.executor, "item_seconds", None)
+    if sec is not None:                 # the inline engine times its items
+        extra += ", ms an item: " + ", ".join(
+            f"{k} {(sec[k] - sec0[k]) * 1e3 / n:.2f}" for k, n in (
+                ("prefill", st["prefill_items"]),
+                ("decode", st["decode_items"]),
+                ("chunk", st["chunk_tokens"])) if n)
+    print(f"{what}: {st['requests']} requests, {st['tokens']} tokens in "
+          f"{st['rounds']} rounds, {st['wall_s']:.3f} s wall, "
+          f"{st['tok_per_s']:.2f} tok/s, peak memory "
+          f"{peak / 2**30:.2f} GiB{extra}")
+    return out, got, peak
+
+
+def seeded_model(arch: str, dev):
+    """The port's seeded init of ``arch`` (what ``compile(seed=SEED)``
+    builds), made once and shared by a phase's sessions. A model with no
+    float32-read params is held in its compute dtype, the copy a serve
+    stage makes of it (a cast is exact), so its sessions share those
+    weights and no float32 copy stays resident."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import compute_dtype, has_ssm_layers
+    cfg = get_config(arch)
+    model = build_model(cfg, MeshPlan.single_device(), seed=SEED, device=dev)
+    if not has_ssm_layers(cfg):
+        model = model.to(compute_dtype(cfg))
+    return cfg, model
+
+
+def compile_serve(cfg, model, backend: str, **kw):
+    from repro_torch import api
+    extra = dict(stages=2) if backend == "actors" else {}
+    return api.compile(cfg, mode="serve", backend=backend, params=model,
+                       **extra, **kw)
+
+
+def closed(session) -> None:
+    session.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_paged_decode(dev):
+    """The decode kernel at the paged path's shape: qwen3's window of 576
+    positions gathered from 36 pages of 16 by the paged index program (4
+    slots, one unmapped and parked) against the plain version on the same
+    window, timed as the other kernels are."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode.ref import (combine_partials,
+                                                      flash_decode_partial_ref)
+    from repro_torch.serve.paged_cache import PagedCacheSpec, _build_paged_ops
+    B, H, KV, D, L = 4, 16, 8, 128, PAGED_GEO["cache_len"]
+    pl, n_pages = PAGED["page_len"], PAGED["num_pages"]
+    spec = PagedCacheSpec(page_len=pl, num_pages=n_pages, max_requests=8,
+                          pages_per_req=L // pl)
+    rng = np.random.default_rng(SEED + 6)
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+    slabs = [{key: mk(n_pages * pl + 2, KV, D) for key in ("k", "v")}]
+    for t in slabs[0].values():
+        t[-2:] = 0                                  # the sentinel rows
+    rows = rng.permutation(n_pages)[:B * spec.pages_per_req]
+    rows = torch.as_tensor(rows.reshape(B, -1), dtype=torch.int32,
+                           device=dev)
+    rows[3] = -1
+    sids = torch.tensor([0, 1, 2, -1], dtype=torch.int32, device=dev)
+    win = _build_paged_ops(spec, B, L, dev)["gather"](slabs, rows, sids)[0]
+    k, v = win["k"], win["v"]
+    q = mk(B, H, D)
+    cur = torch.tensor([70, 300, 511, L - 1], dtype=torch.int32, device=dev)
+    got = combine_partials(*(t[None] for t in fd.flash_decode(
+        q, k, v, cur_pos=cur)))
+    want = combine_partials(*(t[None] for t in flash_decode_partial_ref(
+        q, k, v, cur_pos=cur)))
+    err = agree(f"flash_decode on a gathered paged window q{tuple(q.shape)} "
+                f"window{tuple(k.shape)} cur_pos {cur.tolist()}", got, want,
+                ATOL, RTOL)
+    keys = int((cur.long() + 1).sum().item())
+    m, l, acc = fd.flash_decode(q, k, v, cur_pos=cur)
+    b_ms, b_by = bound_ms(nbytes(q, cur, m, l, acc)
+                          + 2 * keys * KV * D * k.element_size(),
+                          4 * D * H * keys)
+    mask = (torch.arange(L, device=dev)[None, :] <= cur[:, None].long())
+    qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    return timed({
+        "name": "flash_decode (paged window)", "max_abs_err": err,
+        "plain_ms": cuda_ms(
+            lambda: flash_decode_partial_ref(q, k, v, cur_pos=cur)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  qs, kt, vt, attn_mask=mask[:, None, None],
+                                  enable_gqa=True)),
+    }, "flash_decode_kernel",
+        lambda: fd.flash_decode_cuda_partials(q, k, v, cur),
+        lambda: fd.flash_decode(q, k, v, cur_pos=cur))
+
+
+def serve_paged(dev, cfg, model):
+    """qwen3-1.7b paged: the serve phase's 12 requests plus 3 repeating the
+    prompt of its longest-lived request, queued last so that request is
+    still live (and donates its prompt's pages) when they are admitted.
+    Dense monolithic at cache_len 576, then paged on the actors and paged
+    monolithic: the same tokens, pages shared, the pool half the dense
+    reservation (plus its page table). Returns the paged actors run's
+    launches."""
+    phase("serve paged (qwen3-1.7b, full width, bf16, page_len 16, "
+          "144 pages)")
+    requests = serve_requests(cfg)
+    donor = max(range(len(requests)), key=lambda i: requests[i][1])
+    requests += [(requests[donor][0], g) for g in (8, 12, 16)]
+    dense = compile_serve(cfg, model, "monolithic", **PAGED_GEO)
+    ref, _, _ = counted_run(cfg, dense, requests, "dense monolithic (576)")
+    dense_bytes = dense.cache_bytes()
+    closed(dense)
+    launches = None
+    for backend in ("actors", "monolithic"):
+        sess = compile_serve(cfg, model, backend, **PAGED_GEO, **PAGED)
+        if backend == "actors":
+            print(sess.describe())
+        out, got, _ = counted_run(cfg, sess, requests, f"paged {backend}")
+        st = sess.last_stats
+        same = same_tokens(out, ref)
+        print(f"paged {backend}: tokens identical to dense: {same}; cache "
+              f"bytes {sess.cache_bytes()} paged vs {dense_bytes} dense "
+              f"({sess.cache_bytes() / dense_bytes:.4f})")
+        if not same:
+            raise AssertionError(f"paged {backend} tokens differ from dense")
+        if not (0 < st["peak_pages"] <= PAGED["num_pages"]
+                and st["shared_pages"] > 0):
+            raise AssertionError(f"paged {backend}: peak pages "
+                                 f"{st['peak_pages']}, shared pages "
+                                 f"{st['shared_pages']}")
+        if backend == "actors":
+            launches = got
+        else:
+            profile_device("paged monolithic generate",
+                           lambda: sess.generate(requests), cpu=False)
+        closed(sess)
+    return launches
+
+
+def serve_chunked(dev, cfg, model):
+    """qwen3-1.7b paged with chunked prefill: 4 requests of 24-64 prompt
+    tokens (every prompt longer than the chunk) and 8-16 new tokens, on the
+    actors and monolithic (the same tokens), then unchunked (fewer
+    rounds). Returns the requests and the actors run's launches."""
+    phase(f"serve chunked (qwen3-1.7b, paged, prefill_chunk {CHUNK})")
+    requests = serve_requests(cfg, 4, SEED + 5, (24, 64), (8, 16))
+    outs, stats = {}, {}
+    for backend in ("actors", "monolithic"):
+        sess = compile_serve(cfg, model, backend, prefill_chunk=CHUNK,
+                             **PAGED_GEO, **PAGED)
+        outs[backend], got, _ = counted_run(cfg, sess, requests,
+                                            f"chunked {backend}")
+        stats[backend] = st = sess.last_stats
+        if backend == "actors":
+            launches = got
+        else:
+            print(f"chunked monolithic: {st['chunk_tokens']} chunk tokens "
+                  f"in {st['chunk_items']} chunks")
+        closed(sess)
+    same = same_tokens(outs["actors"], outs["monolithic"])
+    print(f"chunked: actors and monolithic tokens identical: {same}")
+    if not same:
+        raise AssertionError("chunked actors and monolithic tokens differ")
+    sess = compile_serve(cfg, model, "monolithic", **PAGED_GEO, **PAGED)
+    counted_run(cfg, sess, requests, "unchunked monolithic")
+    rounds = sess.last_stats["rounds"]
+    closed(sess)
+    print(f"chunked: {stats['monolithic']['rounds']} rounds, unchunked "
+          f"{rounds}")
+    if stats["monolithic"]["rounds"] <= rounds:
+        raise AssertionError("chunked prefill took no more rounds than "
+                             "whole prompts")
+    return requests, launches
+
+
+def serve_sampled(dev, cfg, model, requests):
+    """qwen3-1.7b dense, sampled (temperature 0.8, top-k 50, top-p 0.95,
+    seed 1): the actors and monolithic give the same tokens, a second
+    session with seed 1 repeats them, seed 2 differs somewhere, and
+    temperature 0 gives the greedy tokens."""
+    from repro_torch.serve import SamplingSpec
+    phase("serve sampled (qwen3-1.7b, dense, " + ", ".join(
+        f"{k} {v}" for k, v in SAMPLING.items()) + ")")
+    spec = SamplingSpec(**SAMPLING)
+
+    def run(backend, what, **kw):
+        sess = compile_serve(cfg, model, backend, **PAGED_GEO, **kw)
+        out, got, _ = counted_run(cfg, sess, requests, what)
+        closed(sess)
+        return out, got
+
+    actors, launches = run("actors", "sampled actors", sampling=spec)
+    mono, _ = run("monolithic", "sampled monolithic", sampling=spec)
+    again, _ = run("monolithic", "sampled monolithic, seed 1 again",
+                   sampling=spec)
+    other, _ = run("monolithic", "sampled monolithic, seed 2",
+                   sampling=SamplingSpec(**dict(SAMPLING, seed=2)))
+    greedy, _ = run("monolithic", "greedy monolithic")
+    zero, _ = run("monolithic", "temperature 0 monolithic",
+                  sampling=SamplingSpec(temperature=0.0, seed=1))
+    checks = {"actors == monolithic": same_tokens(actors, mono),
+              "seed 1 repeats": same_tokens(again, mono),
+              "seed 2 differs": not same_tokens(other, mono),
+              "temperature 0 == greedy": same_tokens(zero, greedy)}
+    print(f"sampled: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"sampled serving: {checks}")
+    return launches
+
+
+def serve_paged_mamba(dev):
+    """mamba2-370m paged: 4 of the serve phase's requests, dense
+    monolithic at cache_len 576 and paged on the actors: the same tokens,
+    one SSD scan per layer per prefill on the tensor-core kernels (the
+    state lives in the row pool, no page slab)."""
+    phase("serve paged (mamba2-370m, full width, bf16, page_len 16)")
+    cfg, model = seeded_model("mamba2-370m", dev)
+    requests = serve_requests(cfg)[:4]
+    dense = compile_serve(cfg, model, "monolithic", **PAGED_GEO)
+    ref, _, _ = counted_run(cfg, dense, requests, "mamba2 dense monolithic")
+    closed(dense)
+    sess = compile_serve(cfg, model, "actors", **PAGED_GEO, **PAGED)
+    out, launches, _ = counted_run(cfg, sess, requests, "mamba2 paged actors")
+    closed(sess)
+    same = same_tokens(out, ref)
+    print(f"mamba2 paged actors: tokens identical to dense: {same}")
+    if not same:
+        raise AssertionError("mamba2 paged tokens differ from dense")
+    return launches
 
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 4
@@ -1426,8 +1744,10 @@ def main() -> int:
     kernels = [check_flash_attention(dev), check_flash_decode(dev),
                *check_xent(dev), *check_xent_graph(dev),
                check_flash_attention_bwd(dev), check_ssd_scan(dev)]
+    kernels[1]["paged_shape"] = check_paged_decode(dev)
     for kr in kernels + [dict(kernels[0]["train_shape"],
                               name="flash_attention (training shape)"),
+                         kernels[1]["paged_shape"],
                          dict(kernels[-1]["long_prompt"],
                               name="ssd_scan (2048-token prompt)")]:
         lib = kr["library_ms"]
@@ -1446,6 +1766,16 @@ def main() -> int:
     mamba = serve(dev, "mamba2-370m")
     served.update(ssd_scan=mamba["ssd_scan"],
                   ssd_scan_wgmma=mamba["ssd_scan_wgmma"])
+    torch.cuda.empty_cache()
+    cfg, model = seeded_model("qwen3-1.7b", dev)
+    paths = {}
+    paths["serve paged"] = serve_paged(dev, cfg, model)
+    chunk_requests, paths["serve chunked"] = serve_chunked(dev, cfg, model)
+    paths["serve sampled"] = serve_sampled(dev, cfg, model, chunk_requests)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["serve paged (mamba2)"] = serve_paged_mamba(dev)
     torch.cuda.empty_cache()
     trained, curve = train(dev)
     torch.cuda.empty_cache()
@@ -1476,6 +1806,16 @@ def main() -> int:
         else:
             kr["launches"] = (served if name in served else trained)[name]
     kernels[0]["train_shape"]["launches"] = trained["flash_fwd_wgmma_kernel"]
+    # the serving paths of the paged, chunked and sampled phases, each run's
+    # counts zeroed just before it and read just after
+    for kr, key in ((kernels[0], "flash_fwd_wgmma_kernel"),
+                    (kernels[1], "flash_decode"),
+                    (next(k for k in kernels if k["name"] == "ssd_scan"),
+                     "ssd_scan")):
+        kr["launches_by_path"] = {"serve": served[key], **{
+            path: counts[key] for path, counts in paths.items()}}
+    kernels[1]["paged_shape"]["launches"] = paths["serve paged"][
+        "flash_decode"]
     print(f"all phases passed in {time.perf_counter() - _START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

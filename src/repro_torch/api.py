@@ -10,12 +10,14 @@ every lowering and executor path (port of ``repro/api.py``).
   quotas, §4.3) or one whole-graph program (``backend="monolithic"``, the
   bit-identity reference). It returns a :class:`Session`.
 * ``compile(cfg, mode="serve")`` builds a :class:`ServeSession` that runs
-  continuously-batched greedy decode over the lowered stage programs.
+  continuously-batched decode over the lowered stage programs: greedy or
+  sampled (``sampling=``), over dense per-group caches or the paged pool
+  (``cache="paged"``, with shared-prefix pages and ``prefill_chunk=``).
 
 What the reference offers beyond that raises :class:`NotImplementedError`
-naming its ROADMAP item: placements of more than one device, the paged
-cache, sampling, ZeRO and mixed precision, snapshots and faults, the
-process runtime, the static verifier and stage-body wrappers.
+naming its ROADMAP item: placements of more than one device, ZeRO and mixed
+precision, snapshots and faults, the process runtime, the static verifier
+and stage-body wrappers.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
 card an entry point raises unless the caller asks for ``device="cpu"``.
@@ -23,6 +25,7 @@ card an entry point raises unless the caller asks for ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -47,6 +50,9 @@ from repro_torch.runtime.pipeline import (ActorPipelineExecutor,
                                           TrainPipelineExecutor, _sync,
                                           check_run_inputs, own_params,
                                           plan_registers)
+from repro_torch.serve.paged_cache import (PagedCacheSpec, PagePool,
+                                           dense_bytes, slab_bytes)
+from repro_torch.serve.sampler import SamplingSpec
 
 MODES = ("infer", "train", "serve")
 BACKENDS = ("actors", "monolithic")
@@ -58,9 +64,6 @@ REG_POLICIES = ("1f1b", "gpipe", "serial")
 #: name -> (the reference's default, what it is and the ROADMAP item that
 #: brings it). Passing the default is accepted and changes nothing.
 NOT_PORTED = {
-    "page_len": (None, "paged cache, ROADMAP Queue 1 item 1"),
-    "num_pages": (None, "paged cache, ROADMAP Queue 1 item 1"),
-    "prefill_chunk": (None, "chunked prefill, ROADMAP Queue 1 item 1"),
     "mesh": (None, "device meshes beyond one device, ROADMAP Queue 1 "
                    "item 8"),
     "stage_meshes": (None, "one device group per stage, ROADMAP Queue 1 "
@@ -416,22 +419,27 @@ class ServeRequest:
 
 
 class ServeSession:
-    """Pipelined, continuously-batched greedy decode over the actor runtime.
+    """Pipelined, continuously-batched decode over the actor runtime.
 
     :meth:`generate` runs a set of :class:`ServeRequest`\\ s to completion:
     requests are packed into ``num_groups * group_size`` decode slots, each
     round advances every live group by one token (one ``DecodeWork`` per
     group streamed down the stage actors), finished requests retire their
-    slot and queued ones are admitted mid-flight with a ``PrefillWork``.
-    ``history`` accumulates one record per round, ``last_stats`` describes
-    the last :meth:`generate`.
+    slot and queued ones are admitted mid-flight with a ``PrefillWork`` (or,
+    paged with ``prefill_chunk``, a sequence of ``PrefillChunkWork``).
+    Tokens are greedy, or drawn by the last stage's sampler under
+    ``sampling``. ``history`` accumulates one record per round,
+    ``last_stats`` describes the last :meth:`generate`.
     """
 
     def __init__(self, *, cfg, backend: str, engine, sstaged,
                  num_groups: int, group_size: int, cache_len: int,
                  max_prompt_len: int, max_new_tokens: int,
                  device: torch.device,
-                 timeout: float = 300.0, runtime: Optional[str] = None):
+                 timeout: float = 300.0, runtime: Optional[str] = None,
+                 cache: str = "dense", cache_spec=None, sampling=None,
+                 prefill_chunk: Optional[int] = None,
+                 share_prefix: bool = False):
         self.cfg = cfg
         self.mode = "serve"
         self.backend = backend
@@ -446,9 +454,21 @@ class ServeSession:
         self.regs = getattr(engine, "regs", None)
         self.device = device
         self.timeout = timeout
+        self.cache = cache            # "dense" | "paged"
+        self.cache_spec = cache_spec  # PagedCacheSpec when paged
+        self.sampling = sampling      # SamplingSpec; None: greedy
+        self.prefill_chunk = prefill_chunk
+        self.share_prefix = share_prefix
         self.history: List[Dict[str, Any]] = []
         self.last_stats: Optional[Dict[str, Any]] = None
         self._engine = engine
+
+    @property
+    def executor(self):
+        """The backing engine: a
+        :class:`repro_torch.runtime.pipeline.ServePipelineExecutor` for
+        ``backend="actors"``, the inline monolithic engine otherwise."""
+        return self._engine
 
     @property
     def last_makespan(self) -> Optional[float]:
@@ -508,16 +528,19 @@ class ServeSession:
                     f"be in [1, {self.max_new_tokens}]")
             prompts.append(toks)
 
+        pool = PagePool(self.cache_spec) if self.cache == "paged" else None
         sched = AdmissionScheduler(
             prompts, [r.max_new_tokens for r in reqs],
             num_groups=self.num_groups, group_size=self.group_size,
-            cache_len=self.cache_len, device=self.device)
+            cache_len=self.cache_len, device=self.device, pool=pool,
+            prefill_chunk=self.prefill_chunk,
+            share_prefix=self.share_prefix)
         t0 = time.perf_counter()
         while not sched.done():
             work, meta = sched.plan_round()
             results = self._engine.run_round(work, timeout=self.timeout)
             for m, res in zip(meta, results):
-                sched.absorb(m, greedy_from_logits(res, V).cpu().numpy())
+                sched.absorb(m, self._pick_tokens(m, res))
             self.history.append({"kind": "round", "items": len(work),
                                  "makespan": self._engine.last_makespan})
         wall = time.perf_counter() - t0
@@ -529,9 +552,41 @@ class ServeSession:
             "admitted_mid_flight": sched.admitted_mid_flight,
             "prefill_items": sched.prefill_items,
             "decode_items": sched.decode_items,
+            "chunk_items": sched.chunk_items,
+            "chunk_tokens": sched.chunk_tokens,
         }
+        if pool is not None:
+            self.last_stats["peak_pages"] = pool.peak_pages
+            self.last_stats["shared_pages"] = sched.shared_pages
         self.history.append({"kind": "generate", **self.last_stats})
         return [np.asarray(o, np.int32) for o in sched.outputs]
+
+    def _pick_tokens(self, m, res):
+        """One round result -> the item's token vector (``None`` for a
+        non-final chunk). With sampling on, the last stage already drew the
+        tokens; otherwise greedy the logits here."""
+        if self.sampling is not None:
+            toks = res["tokens"]
+            return None if toks is None else toks.cpu().numpy()
+        if m[0] == "chunk":
+            if not m[3]:
+                return None
+            res = res[-1]        # the chunk's last position feeds the head
+        return greedy_from_logits(res, self.cfg.vocab_size).cpu().numpy()
+
+    def cache_bytes(self) -> int:
+        """Analytic persistent cache bytes across all stages: the full
+        dense reservation (``num_groups`` group blocks) or the paged pool
+        (slabs + page table + cursors), from each stage's cache shapes on
+        the meta device -- nothing is allocated."""
+        total = 0
+        for stage in self.sstaged.stages:
+            template = stage.init_caches(self.group_size, device="meta")
+            if self.cache == "paged":
+                total += slab_bytes(template, self.cache_spec)
+            else:
+                total += dense_bytes(template, self.num_groups)
+        return total
 
     def describe(self) -> str:
         """Human-readable report of the compiled serving artifact."""
@@ -548,6 +603,19 @@ class ServeSession:
                  f"max_new_tokens={self.max_new_tokens})",
                  "cache: dense (one group block per slot group)",
                  self.sstaged.describe()]
+        if self.cache == "paged":
+            sp = self.cache_spec
+            extra = (f" prefill_chunk={self.prefill_chunk}"
+                     if self.prefill_chunk is not None else "")
+            lines[3] = (f"cache: paged ({sp.num_pages} pages x "
+                        f"page_len={sp.page_len}, "
+                        f"{sp.pages_per_req} pages/request, "
+                        f"share_prefix={self.share_prefix}){extra}")
+        if self.sampling is not None:
+            sp = self.sampling
+            lines.insert(4, f"sampling: temperature={sp.temperature} "
+                            f"top_k={sp.top_k} top_p={sp.top_p} "
+                            f"seed={sp.seed}")
         if self.regs is not None:
             lines.append(f"register quotas: {self.regs}")
         lines.append("static check: not run (check='off'; the plan verifier "
@@ -567,10 +635,12 @@ def min_prompt_len(cfg: ModelConfig) -> int:
 
 
 def _serve_options(*, num_groups, group_size, cache_len, max_prompt_len,
-                   max_new_tokens, tp: int = 1):
-    """Resolve defaults and validate the serve-only compile options at
-    compile time. Returns ``(num_groups, group_size, cache_len,
-    max_prompt_len, max_new_tokens)``."""
+                   max_new_tokens, cache=None, page_len=None, num_pages=None,
+                   sampling=None, prefill_chunk=None, tp: int = 1):
+    """Resolve defaults and validate every serve-only compile option at
+    compile time (a bad geometry must fail here, not as a shape error in
+    the middle of ``generate``). Returns ``(num_groups, group_size,
+    cache_len, max_prompt_len, max_new_tokens, cache, cache_spec)``."""
     num_groups = 2 if num_groups is None else num_groups
     group_size = 2 if group_size is None else group_size
     max_prompt_len = 64 if max_prompt_len is None else max_prompt_len
@@ -591,7 +661,52 @@ def _serve_options(*, num_groups, group_size, cache_len, max_prompt_len,
             f"max_new_tokens = {max_prompt_len + max_new_tokens} "
             "(the final position is reserved for parked slots); lower "
             "max_prompt_len= or max_new_tokens=, or raise cache_len=")
-    return num_groups, group_size, cache_len, max_prompt_len, max_new_tokens
+    cache = "dense" if cache is None else cache
+    if cache not in ("dense", "paged"):
+        raise ValueError(f"cache={cache!r}; expected 'dense' or 'paged'")
+    if sampling is not None and not isinstance(sampling, SamplingSpec):
+        raise ValueError(
+            "sampling= takes a repro_torch.serve.sampler.SamplingSpec, got "
+            f"{type(sampling).__name__}")
+    cache_spec = None
+    if cache == "dense":
+        paged_only = {"page_len": page_len, "num_pages": num_pages,
+                      "prefill_chunk": prefill_chunk}
+        bad = [k for k, v in paged_only.items() if v is not None]
+        if bad:
+            raise ValueError(f"{bad[0]}= requires cache='paged' (the dense "
+                             "cache has no page geometry)")
+    else:
+        if page_len is None:
+            # largest divisor of cache_len not exceeding 16
+            page_len = max(d for d in range(1, min(16, cache_len) + 1)
+                           if cache_len % d == 0)
+        if page_len < 1 or cache_len % page_len:
+            raise ValueError(
+                f"page_len={page_len} must be a positive divisor of "
+                f"cache_len={cache_len} (every mapped page must be fully "
+                "overwritten by the admission prefill)")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
+        max_requests = num_groups * group_size
+        pages_per_req = cache_len // page_len
+        # worst-case single request: prompt + all decode writes must fit,
+        # or admission could stall forever on an empty pool
+        min_pages = math.ceil((max_prompt_len + max_new_tokens - 1)
+                              / page_len)
+        if num_pages is None:
+            num_pages = max_requests * pages_per_req
+        if num_pages < min_pages:
+            raise ValueError(
+                f"num_pages={num_pages} cannot hold one worst-case request "
+                f"({min_pages} pages of page_len={page_len} for "
+                f"max_prompt_len + max_new_tokens - 1 = "
+                f"{max_prompt_len + max_new_tokens - 1} positions)")
+        cache_spec = PagedCacheSpec(page_len=page_len, num_pages=num_pages,
+                                    max_requests=max_requests,
+                                    pages_per_req=pages_per_req)
+    return (num_groups, group_size, cache_len, max_prompt_len,
+            max_new_tokens, cache, cache_spec)
 
 
 def _load_model(cfg: ModelConfig, params, seed: int,
@@ -695,7 +810,9 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             cache_len: Optional[int] = None,
             max_prompt_len: Optional[int] = None,
             max_new_tokens: Optional[int] = None,
-            cache: Optional[str] = None, sampling=None,
+            cache: Optional[str] = None, page_len: Optional[int] = None,
+            num_pages: Optional[int] = None,
+            prefill_chunk: Optional[int] = None, sampling=None,
             check: str = "off", **not_ported):
     """Compile a :class:`~repro_torch.core.graph.LogicalGraph` into a
     runnable :class:`Session` (``mode="infer"`` or ``"train"``), or a
@@ -733,7 +850,11 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
     ``"monolithic"`` runs the whole stack as one stage inline. ``params``
     is a :class:`~repro_torch.models.transformer.Transformer`, its
     ``state_dict``, or None for the port's seeded init (``seed``); the
-    slot geometry options are the reference's.
+    slot geometry options are the reference's, and so are ``cache``
+    (``"dense"`` or ``"paged"``), ``page_len``, ``num_pages`` and
+    ``prefill_chunk`` (paged only), and ``sampling`` (a
+    :class:`repro_torch.serve.sampler.SamplingSpec`; None decodes
+    greedily).
 
     ``device``: None means ``"cuda"`` (raises without a card); tests pass
     ``"cpu"``. ``check``: only ``"off"`` — the static verifier is not ported
@@ -774,11 +895,13 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             device=device, seed=seed, timeout=timeout, num_groups=num_groups,
             group_size=group_size, cache_len=cache_len,
             max_prompt_len=max_prompt_len, max_new_tokens=max_new_tokens,
-            cache=cache, sampling=sampling)
+            cache=cache, page_len=page_len, num_pages=num_pages,
+            prefill_chunk=prefill_chunk, sampling=sampling)
     serve_only = {"num_groups": num_groups, "group_size": group_size,
                   "cache_len": cache_len, "max_prompt_len": max_prompt_len,
                   "max_new_tokens": max_new_tokens, "cache": cache,
-                  "sampling": sampling}
+                  "page_len": page_len, "num_pages": num_pages,
+                  "prefill_chunk": prefill_chunk, "sampling": sampling}
     bad = [k for k, v in serve_only.items() if v is not None]
     if bad:
         raise ValueError(f"{bad[0]}= is only meaningful for mode='serve'")
@@ -864,15 +987,8 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
 def _compile_serve(model, *, backend: str, stages: Optional[int], regs,
                    params, device, seed: int, timeout: float, num_groups,
                    group_size, cache_len, max_prompt_len, max_new_tokens,
-                   cache, sampling) -> ServeSession:
-    if cache not in (None, "dense"):
-        raise NotImplementedError(
-            f"cache={cache!r} is not ported yet (ROADMAP Queue 1 item 1); "
-            "the port serves cache='dense'")
-    if sampling is not None:
-        raise NotImplementedError(
-            "sampling= is not ported yet (ROADMAP Queue 1 item 2); the port "
-            "decodes greedily")
+                   cache, page_len, num_pages, prefill_chunk,
+                   sampling) -> ServeSession:
     if isinstance(model, str):
         from repro_torch.configs.registry import get_config
         model = get_config(model)
@@ -881,10 +997,12 @@ def _compile_serve(model, *, backend: str, stages: Optional[int], regs,
                          f"name), got {type(model).__name__}")
     cfg = model
     dev = resolve_device(device)
-    (num_groups, group_size, cache_len, max_prompt_len,
-     max_new_tokens) = _serve_options(
+    (num_groups, group_size, cache_len, max_prompt_len, max_new_tokens,
+     cache, cache_spec) = _serve_options(
         num_groups=num_groups, group_size=group_size, cache_len=cache_len,
-        max_prompt_len=max_prompt_len, max_new_tokens=max_new_tokens)
+        max_prompt_len=max_prompt_len, max_new_tokens=max_new_tokens,
+        cache=cache, page_len=page_len, num_pages=num_pages,
+        sampling=sampling, prefill_chunk=prefill_chunk)
 
     lay = stack_layout(cfg)
     n_units = len(lay.prologue) + lay.n_periods
@@ -903,18 +1021,28 @@ def _compile_serve(model, *, backend: str, stages: Optional[int], regs,
                                  num_stages=stages, cache_len=cache_len,
                                  max_prompt_len=max_prompt_len,
                                  group_size=group_size)
+    # shared-prefix pages assume a prompt prefix's cache values do not
+    # depend on its suffix: true of causal attention and SSM stacks, not
+    # under MoE capacity routing (expert drop counts see the whole prompt)
+    share_prefix = cache == "paged" and cfg.num_experts == 0
     runtime = None
     if backend == "monolithic":
-        engine = InlineServeEngine(sstaged)
+        engine = InlineServeEngine(sstaged, cache_spec=cache_spec,
+                                   sampling=sampling)
     else:
         runtime = "threads"
-        engine = ServePipelineExecutor(sstaged, regs=regs, runtime=runtime)
+        engine = ServePipelineExecutor(sstaged, regs=regs, runtime=runtime,
+                                       cache_spec=cache_spec,
+                                       sampling=sampling)
     return ServeSession(cfg=cfg, backend=backend, engine=engine,
                         sstaged=sstaged, num_groups=num_groups,
                         group_size=group_size, cache_len=cache_len,
                         max_prompt_len=max_prompt_len,
                         max_new_tokens=max_new_tokens, device=dev,
-                        timeout=timeout, runtime=runtime)
+                        timeout=timeout, runtime=runtime, cache=cache,
+                        cache_spec=cache_spec, sampling=sampling,
+                        prefill_chunk=prefill_chunk,
+                        share_prefix=share_prefix)
 
 
 def _assert_tree_equal(name: str, a, b, context: str) -> None:

@@ -26,8 +26,7 @@ CUDA tensor (:func:`repro_torch.kernels.softmax_xent.xent_local_stats`);
 ``embedding`` is ``F.embedding``, whose backward on the card is sorted, not
 atomic, so it sums in the same order on every run.
 
-**Serve lowering** (``:1233-1503``; dense cache -- the paged ``chunk``
-program waits, ROADMAP Queue 1 item 1). Stage ``s`` owns a
+**Serve lowering** (``:1233-1503``). Stage ``s`` owns a
 contiguous slice of the layer stack, balanced by unit count exactly as the
 reference; its KV caches never leave the stage -- they are a persistent
 stage-local register stream, updated in place by every decode fire. The
@@ -1024,7 +1023,13 @@ class ServeStage:
     admitted request's prompt (B = 1) through the slice and build its
     caches; the last stage returns the first-token logits at
     ``last_index`` through the same head as ``decode``.
-    ``init_caches(batch) -> caches`` allocates the zeroed group cache;
+    ``chunk(params, caches, xin, pos0, adv) -> (xout, caches)``: chunked
+    prefill, the stage's ``decode`` looped over the chunk axis of ``xin``
+    ((T, B) token ids or (T, B, 1, d) hiddens), slot ``b`` at position
+    ``pos0[b] + t * adv[b]`` (parked slots: ``adv == 0``); ``xout`` stacks
+    the T outputs.
+    ``init_caches(batch, device=None) -> caches`` allocates the zeroed
+    group cache (on the stage's device; ``"meta"`` gives its shapes only);
     ``write_slot(caches, slot_caches, slot)`` copies a freshly prefilled
     request into slot ``slot`` of it.
     """
@@ -1032,6 +1037,7 @@ class ServeStage:
     index: int
     decode: Callable
     prefill: Callable
+    chunk: Callable
     init_caches: Callable
     write_slot: Callable
     params: StageParams
@@ -1149,12 +1155,20 @@ def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
                                    x[:, last_index], cfg)
             return x, caches
 
-        def init_caches(batch: int, _layers=layers):
+        def chunk(p, caches, xin, pos0, adv, _decode=decode):
+            # the reference's lax.scan of the decode step (:1459-1471)
+            outs = []
+            for t in range(xin.shape[0]):
+                out, caches = _decode(p, caches, xin[t], pos0 + t * adv)
+                outs.append(out)
+            return torch.stack(outs), caches
+
+        def init_caches(batch: int, device=device, _layers=layers):
             return make_decode_caches(cfg, plan, batch, cache_len, device,
                                       layers=_layers)
 
         stages.append(ServeStage(
-            index=s, decode=decode, prefill=prefill,
+            index=s, decode=decode, prefill=prefill, chunk=chunk,
             init_caches=init_caches, write_slot=write_slot, params=sparams,
             units=(lo, hi), first=first, last=last, device=device))
     return ServeStagedProgram(cfg, plan, stages, cache_len, max_prompt_len,

@@ -945,29 +945,65 @@ class TrainPipelineExecutor(_GraphExecutorBase):
 class PrefillWork:
     """Admit one request: run its prompt, build its slot caches.
     ``tokens`` is (1, prompt_len) int32; ``last_index`` is the prompt's
-    final position — the first generated token's logits come from there."""
+    final position — the first generated token's logits come from there.
+    Under ``cache="paged"``, ``sid`` is the request's slot id in the page
+    pool and ``row`` its *write* page-table row (int32 on the stage's
+    device; shared-prefix entries masked to ``-1``)."""
 
     group: int
     slot: int
     tokens: Any
     last_index: int
+    sid: int = -1
+    row: Any = None
 
 
 @dataclasses.dataclass
 class DecodeWork:
     """Advance every slot of ``group`` by one token. ``tok``/``pos`` are
     (group_size,) int32; retired slots are parked (see
-    :class:`repro_torch.serve.admission.AdmissionScheduler`)."""
+    :class:`repro_torch.serve.admission.AdmissionScheduler`). Under
+    ``cache="paged"``, ``sids``/``rows`` carry each slot's pool id and
+    page-table row (``-1`` rows for parked or mid-chunk slots)."""
 
     group: int
     tok: Any
     pos: Any
+    sids: Any = None
+    rows: Any = None
+
+
+@dataclasses.dataclass
+class PrefillChunkWork:
+    """One bounded chunked-prefill step for slot ``(group, slot)``
+    (``cache="paged"`` only): the stage's loop-of-decode chunk program over
+    ``toks`` (chunk_len, group_size), slot ``b`` visiting positions
+    ``pos0[b] + t * adv[b]``. Non-owner columns are parked no-ops
+    (``adv == 0``, table row ``-1``) so the group program keeps one fixed
+    shape. ``sids_in`` gates the state-row gather (``-1`` on the first
+    chunk: recurrent state starts from exact zeros), ``sids_out`` the
+    state-row scatter. ``final`` marks the chunk whose last-position logits
+    produce the request's first token."""
+
+    group: int
+    slot: int
+    toks: Any
+    pos0: Any
+    adv: Any
+    rows: Any
+    sids_in: Any
+    sids_out: Any
+    final: bool
 
 
 def _work_input(work):
-    """The first stage's input: prompt ids for a prefill, last tokens for a
-    decode."""
-    return work.tokens if isinstance(work, PrefillWork) else work.tok
+    """The first stage's input: prompt ids for a prefill, the chunk token
+    matrix for a chunk, last tokens for a decode."""
+    if isinstance(work, PrefillWork):
+        return work.tokens
+    if isinstance(work, PrefillChunkWork):
+        return work.toks
+    return work.tok
 
 
 class DenseStageCache:
@@ -994,13 +1030,21 @@ class DenseStageCache:
                                     self.caches[work.group], xin, work.pos)
         return xout
 
+    def run_chunk(self, work, xin):
+        raise RuntimeError(
+            "chunked prefill (PrefillChunkWork) requires cache='paged'; the "
+            "dense cache admits whole prompts only")
+
 
 def make_stage_cache(stage, group_size: int, cache_len: int, spec=None):
-    """One stage's serving cache (dense per-group blocks)."""
-    if spec is not None:
-        raise NotImplementedError(
-            "cache='paged' is not ported yet (ROADMAP Queue 1 item 1)")
-    return DenseStageCache(stage, group_size)
+    """One stage's serving cache: dense per-group blocks, or the paged
+    slab pool when a :class:`repro_torch.serve.paged_cache.PagedCacheSpec`
+    is given."""
+    if spec is None:
+        return DenseStageCache(stage, group_size)
+    from repro_torch.serve.paged_cache import PagedStageCache
+
+    return PagedStageCache(stage, group_size, cache_len, spec)
 
 
 def _sync(device) -> None:
@@ -1009,22 +1053,51 @@ def _sync(device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
-def serve_stage_apply(stage, cache: DenseStageCache, work, xin):
+def serve_stage_apply(stage, cache, work, xin):
     """Run one work item through one serve stage, updating the stage's
-    persistent cache in place; returns the stage's output (the hidden
-    mid-pipeline, the logits on the last stage) once the card has computed
-    it. Shared by the actor executor and the monolithic engine so their
-    math is identical. Grad mode is thread-local, and actor threads are
-    fresh every round, so inference mode is entered here."""
+    persistent cache (a :class:`DenseStageCache` or ``PagedStageCache``)
+    in place; returns the stage's output (the hidden mid-pipeline, the
+    logits on the last stage) once the card has computed it. Shared by the
+    actor executor and the monolithic engine so their math is identical.
+    Grad mode is thread-local, and actor threads are fresh every round, so
+    inference mode is entered here."""
     with torch.inference_mode():
         if isinstance(work, PrefillWork):
             xout, slot_caches = stage.prefill(stage.params, xin,
                                               work.last_index)
             cache.write_prefill(work, slot_caches)
+        elif isinstance(work, PrefillChunkWork):
+            xout = cache.run_chunk(work, xin)
         else:
             xout = cache.run_decode(work, xin)
         _sync(stage.device)
     return xout
+
+
+def _make_sampler(sstaged, sampling):
+    """The sampler stream of the stage that owns the decode head, on that
+    stage's device; None without ``sampling``."""
+    if sampling is None:
+        return None
+    from repro_torch.serve.sampler import SamplerStream
+
+    return SamplerStream(sampling, sstaged.cfg.vocab_size,
+                         sstaged.stages[-1].device)
+
+
+def _finish_round_item(sampler, work, logits):
+    """Shape one round result. Without a sampler the result is the raw
+    logits. With one, it is ``{"logits", "tokens"}``: the sampler draws
+    once per token-producing item (never for a non-final chunk), in work
+    order, so every backend consumes the stream identically."""
+    if sampler is None:
+        return logits
+    with torch.inference_mode():
+        if isinstance(work, PrefillChunkWork):
+            if not work.final:
+                return {"logits": logits, "tokens": None}
+            return {"logits": logits, "tokens": sampler.sample(logits[-1])}
+        return {"logits": logits, "tokens": sampler.sample(logits)}
 
 
 class InlineServeEngine:
@@ -1032,39 +1105,52 @@ class InlineServeEngine:
     actor executor, run inline (no actors) over a whole-stack
     ``lower_serve_stages(num_stages=1)`` program — the reference the
     pipelined engine is checked against, token for token. One persistent
-    stage cache per stage; ``rounds``/``total_makespan`` accumulate."""
+    stage cache per stage (dense blocks or the paged pool) and the optional
+    sampler stream; ``rounds``/``total_makespan`` accumulate, and so does
+    ``item_seconds``, the wall time of each kind of work item (every item
+    ends in a device sync, so it holds the card's time too)."""
 
-    def __init__(self, sstaged):
+    def __init__(self, sstaged, cache_spec=None, sampling=None):
         self.sstaged = sstaged
         self.stage_caches = [
-            make_stage_cache(stage, sstaged.group_size, sstaged.cache_len)
+            make_stage_cache(stage, sstaged.group_size, sstaged.cache_len,
+                             cache_spec)
             for stage in sstaged.stages]
+        self.sampler = _make_sampler(sstaged, sampling)
         self.rounds = 0
         self.total_makespan = 0.0
         self.last_makespan: Optional[float] = None
+        self.item_seconds = {"prefill": 0.0, "chunk": 0.0, "decode": 0.0}
 
     def run_round(self, work: Sequence, timeout: float = 300.0) -> List:
         t0 = time.perf_counter()
         results = []
         for w in work:
+            t_item = time.perf_counter()
             xin = _work_input(w)
             for cache in self.stage_caches:
                 xin = serve_stage_apply(cache.stage, cache, w, xin)
-            results.append(xin)
+            results.append(_finish_round_item(self.sampler, w, xin))
+            kind = ("prefill" if isinstance(w, PrefillWork) else
+                    "chunk" if isinstance(w, PrefillChunkWork) else "decode")
+            self.item_seconds[kind] += time.perf_counter() - t_item
         self.last_makespan = time.perf_counter() - t0
         self.rounds += 1
         self.total_makespan += self.last_makespan
         return results
 
 
-def serve_stage_actor_specs(sstaged, regs: Optional[Sequence[int]] = None
+def serve_stage_actor_specs(sstaged, regs: Optional[Sequence[int]] = None,
+                            cache_spec=None, sampling=None
                             ) -> Tuple[List[ActorSpec], str]:
     """Build the persistent serve actor graph: an ``admit`` source emitting
     the round's work items (delivered via ``ctx["admit"]``, with ``fires``
     set to the round's work count) and one ``stage{s}`` actor per model
-    shard at node ``s + 1``, each owning its per-group KV caches as closure
-    state, with out-register quota ``regs[s]`` (default :func:`serve_regs`).
-    Returns ``(specs, final_stage_name)``."""
+    shard at node ``s + 1``, each owning its stage cache (dense per-group
+    blocks, or the paged pool under ``cache_spec``) as closure state, with
+    out-register quota ``regs[s]`` (default :func:`serve_regs`). The last
+    stage also owns the sampler stream under ``sampling``. Returns
+    ``(specs, final_stage_name)``."""
     S = sstaged.num_stages
     regs = serve_regs(S) if regs is None else _validate_regs(regs, S)
 
@@ -1080,7 +1166,12 @@ def serve_stage_actor_specs(sstaged, regs: Optional[Sequence[int]] = None
         wants_version=True, on_epoch=on_epoch)]
 
     def make_stage_fn(stage):
-        cache = make_stage_cache(stage, sstaged.group_size, sstaged.cache_len)
+        cache = make_stage_cache(stage, sstaged.group_size, sstaged.cache_len,
+                                 cache_spec)
+        # the sampler stream is closure state of the LAST stage actor,
+        # drawn once per token-producing fire; fires are FIFO in submission
+        # order, so the stream is the monolithic engine's
+        sampler = _make_sampler(sstaged, sampling) if stage.last else None
 
         def run_stage(payload):
             work = payload["work"]
@@ -1089,7 +1180,8 @@ def serve_stage_actor_specs(sstaged, regs: Optional[Sequence[int]] = None
                 xin = _work_input(work)
             xout = serve_stage_apply(stage, cache, work, xin)
             if stage.last:
-                return {"work": work, "result": xout}
+                return {"work": work,
+                        "result": _finish_round_item(sampler, work, xout)}
             return {"work": work, "x": xout}
         return run_stage
 
@@ -1104,12 +1196,16 @@ def serve_stage_actor_specs(sstaged, regs: Optional[Sequence[int]] = None
 class ServeSpecBuilder(_SpecBuilderBase):
     """Builder of the continuous-batching serve actor graph."""
 
-    def __init__(self, staged, regs=None):
+    def __init__(self, staged, regs=None, cache_spec=None, sampling=None):
         super().__init__(staged)
         self.regs = None if regs is None else list(regs)
+        self.cache_spec = cache_spec
+        self.sampling = sampling
 
     def __call__(self):
-        return serve_stage_actor_specs(self.staged, regs=self.regs)
+        return serve_stage_actor_specs(self.staged, regs=self.regs,
+                                       cache_spec=self.cache_spec,
+                                       sampling=self.sampling)
 
 
 class ServePipelineExecutor(_StagedExecutorBase):
@@ -1122,26 +1218,35 @@ class ServePipelineExecutor(_StagedExecutorBase):
     bound is the round's work count, and the last stage's logits are
     collected in emission order. ``regs[s]`` is stage s's out-register
     quota (default :func:`serve_regs`, the 1F1B rule); quota back-pressure
-    alone bounds how many groups are in flight. ``rounds`` and
-    ``total_makespan`` accumulate over the session.
+    alone bounds how many groups are in flight. ``cache_spec`` (a
+    :class:`repro_torch.serve.paged_cache.PagedCacheSpec`) gives every
+    stage the paged pool; ``sampling`` (a
+    :class:`repro_torch.serve.sampler.SamplingSpec`) gives the last stage
+    the sampler stream. ``rounds`` and ``total_makespan`` accumulate over
+    the session.
     """
 
     def __init__(self, sstaged, regs: Optional[Sequence[int]] = None,
-                 runtime: str = "threads"):
+                 runtime: str = "threads", cache_spec=None, sampling=None):
         super().__init__(runtime=runtime)
         self.sstaged = sstaged
         S = sstaged.num_stages
         self.regs = serve_regs(S) if regs is None else _validate_regs(regs, S)
+        self.cache_spec = cache_spec
+        self.sampling = sampling
         self.rounds = 0
         self.total_makespan = 0.0
 
     def _make_builder(self):
-        return ServeSpecBuilder(self.sstaged, regs=self.regs)
+        return ServeSpecBuilder(self.sstaged, regs=self.regs,
+                                cache_spec=self.cache_spec,
+                                sampling=self.sampling)
 
     def run_round(self, work: Sequence, timeout: float = 300.0) -> List:
-        """Stream ``work`` (PrefillWork/DecodeWork items) through the stage
-        actors; returns the last stage's logits per item, in submission
-        order."""
+        """Stream ``work`` (PrefillWork/PrefillChunkWork/DecodeWork items)
+        through the stage actors; returns one entry per item in submission
+        order: the last stage's logits, or ``{"logits", "tokens"}`` dicts
+        when sampling is on."""
         if not work:
             return []
         work = list(work)

@@ -206,6 +206,56 @@ def test_flash_decode_combine_tickets_reset(cuda):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
+def test_paged_gather_then_decode_matches_plain(cuda):
+    """Paged serving on the card: the gather of a slot group's pages (and
+    the scatter of its decode writes) equals the same index program on the
+    CPU bit for bit, and the kernel on the gathered window matches the
+    plain version on it, at the qwen3 paged decode shape (4 slots, 576
+    positions in 36 pages of 16, one slot parked)."""
+    from repro_torch.serve.paged_cache import (PagedCacheSpec,
+                                               _build_paged_ops)
+    B, H, KV, D, L, pl = 4, 16, 8, 128, 576, 16
+    spec = PagedCacheSpec(page_len=pl, num_pages=144, max_requests=8,
+                          pages_per_req=L // pl)
+    rng = np.random.default_rng(4)
+    slabs_cpu = [{key: _randn(rng, (spec.num_pages * pl + 2, KV, D),
+                              "bfloat16", "cpu") for key in ("k", "v")}]
+    for t in slabs_cpu[0].values():
+        t[-2:] = 0                                   # the sentinel rows
+    rows = rng.permutation(spec.num_pages)[:B * spec.pages_per_req]
+    rows = rows.reshape(B, -1).astype(np.int32)
+    rows[0, 30:] = -1                                # unmapped tail
+    rows[3] = -1                                     # a parked slot
+    sids = np.array([0, 5, 2, -1], np.int32)
+    cur = np.array([300, 575 - 16, 17, L - 1], np.int32)
+    windows = {}
+    for dev in ("cpu", cuda):
+        ops = _build_paged_ops(spec, B, L, dev)
+        slabs = [{k: t.to(dev) for k, t in slabs_cpu[0].items()}]
+        win = ops["gather"](slabs, torch.as_tensor(rows, device=dev),
+                            torch.as_tensor(sids, device=dev))
+        windows[str(torch.device(dev).type)] = (ops, slabs, win)
+    _, _, wc = windows["cpu"]
+    ops, slabs, wg = windows["cuda"]
+    for key in ("k", "v"):
+        assert torch.equal(wg[0][key].cpu(), wc[0][key])
+    assert not wg[0]["k"][3].any() and not wg[0]["k"][0, 30 * pl:].any()
+    q = _randn(rng, (B, H, D), "bfloat16", cuda)
+    pos = torch.as_tensor(cur, device=cuda)
+    before = fd.launches
+    _decode_matches_plain(q, wg[0]["k"], wg[0]["v"], pos, "bfloat16")
+    assert fd.launches == before + 1
+    # the decode's writes go back to their pages, the parked one drops
+    wg[0]["k"][torch.arange(B), pos.long()] = 1.0
+    ops["scatter_decode"](slabs, torch.as_tensor(rows, device=cuda),
+                          torch.as_tensor(sids, device=cuda), pos, wg)
+    flat = slabs[0]["k"]
+    for b in range(3):
+        p = int(rows[b, cur[b] // pl]) * pl + int(cur[b]) % pl
+        assert (flat[p] == 1.0).all()
+    assert not flat[-2].any()
+
+
 def test_flash_decode_refuses_k_positions(cuda):
     q, k, v, cur, _ = _decode_case((1, 4, 2, 64, 16, 0, 0, "float32"), cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

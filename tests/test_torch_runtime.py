@@ -133,10 +133,7 @@ def test_unported_options_raise_naming_roadmap():
         make_runtime("processes", lambda: ([], None))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServePipelineExecutor(None, runtime="processes")
-    for kw in (dict(cache="paged"),
-               dict(sampling={"temperature": 1.0}),
-               dict(runtime="processes"), dict(check="static"),
-               dict(prefill_chunk=8), dict(page_len=16),
+    for kw in (dict(runtime="processes"), dict(check="static"),
                dict(fn_wrap=lambda s, fn: fn)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.compile("qwen3-1.7b", device="cpu", **kw)
