@@ -23,7 +23,11 @@ result line is printed:
    bf16 SSD scan are also held to the plain version on float32 copies at
    the bf16 limits, and the launch counters show which kernels each dtype
    reached. One decode call must run its kernel and nothing else on the
-   card (the split combine is inside it).
+   card (the split combine is inside it). Decode is also held (bf16 and
+   float32 copies) and timed on a long cache (q (4, 16, 128), cache (4,
+   8192, 8, 128) bf16, rows at 1,024-8,192 keys) and on the paged window,
+   and at the serve shape with a cold L2 as well (the call cycling through
+   28 distinct caches, one a layer, 261 MB).
    Each reports the device time of every kernel its call launches
    (torch.profiler; the names of the kernels the trace matched are
    printed), the wrapper call's, the plain version's, the least time the
@@ -102,8 +106,10 @@ result line is printed:
    launches.
 
 The kernels line's attention forward, decode and SSD scan rows carry
-``launches_by_path``, each serving path's launches, and the decode row a
-``paged_shape`` entry timed at the paged window. The last two lines are the
+``launches_by_path``, each serving path's launches, and the decode row its
+split plan (``splits``, ``ms_by_splits``, ``resident_clusters``), a
+``paged_shape`` entry timed at the paged window, ``long_cache`` and
+``cold_l2``. The last two lines are the
 kernel table as one JSON object and the result
 ``{"ok": true, "device": {...}}``. It imports nothing of jax.
 """
@@ -329,27 +335,107 @@ def check_flash_attention(dev):
     return entry
 
 
-def check_flash_decode(dev):
+def decode_row(entry: dict, q, k, v, cur, what: str) -> dict:
+    """Hold the decode kernel to its plain version on ``(q, k, v, cur)``
+    in bf16 and on float32 copies of the same inputs, then time it as the
+    other kernels are, against SDPA's call on the same cache and mask."""
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.flash_decode.ref import (combine_partials,
                                                       flash_decode_partial_ref)
+    got = combine_partials(*(t[None] for t in fd.flash_decode(
+        q, k, v, cur_pos=cur)))
+    want = combine_partials(*(t[None] for t in flash_decode_partial_ref(
+        q, k, v, cur_pos=cur)))
+    entry["max_abs_err"] = agree(f"{what} bf16", got, want, ATOL, RTOL)
+    want32 = combine_partials(*(t[None] for t in flash_decode_partial_ref(
+        q.float(), k.float(), v.float(), cur_pos=cur)))
+    entry["f32_copies_max_abs_err"] = agree(
+        f"{what} vs the plain version on float32 copies", got, want32,
+        F32_TOL, F32_TOL)
+    del want32
+    B, L, KV, D = k.shape
+    keys = int((cur.long() + 1).sum().item())    # keys this call must read
+    m, l, acc = fd.flash_decode(q, k, v, cur_pos=cur)
+    entry["bound_ms"], entry["bound_by"] = bound_ms(
+        nbytes(q, cur, m, l, acc) + 2 * keys * KV * D * k.element_size(),
+        4 * D * q.shape[1] * keys)
+    mask = (torch.arange(L, device=q.device)[None, :]
+            <= cur[:, None].long())
+    qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    entry["plain_ms"] = cuda_ms(
+        lambda: flash_decode_partial_ref(q, k, v, cur_pos=cur))
+    entry["library_ms"] = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=mask[:, None, None], enable_gqa=True))
+    return timed(entry, "flash_decode_kernel",
+                 lambda: fd.flash_decode_cuda_partials(q, k, v, cur),
+                 lambda: fd.flash_decode(q, k, v, cur_pos=cur))
+
+
+def decode_cold_l2(q, k, v, cur, layers: int = 28) -> dict:
+    """The decode call as a serve step finds its caches: each of qwen3's
+    28 layers reads its own cache, 28 x 9.3 MB, more than the 50 MB L2
+    holds, so every call starts cold. The kernel's device time and the
+    wrapper call's, cycling through ``layers`` distinct caches."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    gen = torch.Generator(device=q.device).manual_seed(SEED + 8)
+    caches = [(k, v)] + [
+        tuple(torch.randn(k.shape, generator=gen, device=k.device,
+                          dtype=torch.float32).to(k.dtype) for _ in "kv")
+        for _ in range(layers - 1)]
+    turn = [0]
+
+    def nxt():
+        turn[0] = (turn[0] + 1) % layers
+        return caches[turn[0]]
+
+    launch = lambda: fd.flash_decode_cuda_partials(q, *nxt(), cur)  # noqa: E731
+    wrapper = lambda: fd.flash_decode(q, *nxt(), cur_pos=cur)  # noqa: E731
+    ms, _ = kernel_ms(launch, ("flash_decode_kernel",), iters=4 * layers,
+                      warmup=layers)
+    if ms is None:
+        print("flash_decode cold L2: the profiler saw no device events; ms "
+              "is from CUDA events around the launch call")
+        ms = cuda_ms(launch, iters=4 * layers, warmup=layers)
+    out = {"ms": ms, "wrapper_ms": cuda_ms(wrapper, iters=4 * layers,
+                                           warmup=layers),
+           "caches": layers,
+           "bytes_cycled": layers * nbytes(k, v)}
+    print(f"flash_decode cold L2 ({layers} caches, "
+          f"{out['bytes_cycled'] / 1e6:.1f} MB cycled): kernel "
+          f"{out['ms']:.4f} ms, wrapper call {out['wrapper_ms']:.4f} ms")
+    del caches
+    return out
+
+
+def decode_by_splits(q, k, v, cur) -> dict:
+    """The kernel's device time at each cluster size (1-16 splits) on the
+    same inputs: how the time follows the split plan."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    out = {}
+    for ns in (1, 2, 4, 8, 16):
+        call = lambda: fd.flash_decode_cuda_partials(  # noqa: E731
+            q, k, v, cur, splits=ns)
+        ms, _ = kernel_ms(call, ("flash_decode_kernel",))
+        out[ns] = cuda_ms(call) if ms is None else ms
+    print("flash_decode ms by splits: " + ", ".join(
+        f"{ns}: {ms:.4f}" for ns, ms in out.items()))
+    return out
+
+
+def check_flash_decode(dev):
+    """The decode kernel at the serve shape (the row's main numbers), warm
+    and with a cold L2 (``cold_l2``), and on a long cache
+    (``long_cache``: 8,192 positions, rows at 1K-8K keys)."""
+    from repro_torch.kernels.flash_decode import kernel as fd
     B, H, KV, D, L = 4, 16, 8, 128, 569
     rng = np.random.default_rng(SEED + 1)
     mk = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
     q, k, v = mk(B, H, D), mk(B, L, KV, D), mk(B, L, KV, D)
     cur = torch.tensor([70, 300, 511, L - 1], dtype=torch.int32, device=dev)
-    got = combine_partials(*(t[None] for t in fd.flash_decode(
-        q, k, v, cur_pos=cur)))
-    want = combine_partials(*(t[None] for t in flash_decode_partial_ref(
-        q, k, v, cur_pos=cur)))
     what = (f"flash_decode q{tuple(q.shape)} cache{tuple(k.shape)} "
             f"cur_pos {cur.tolist()} (parked row at {L - 1})")
-    err = agree(f"{what} bf16", got, want, ATOL, RTOL)
-    want32 = combine_partials(*(t[None] for t in flash_decode_partial_ref(
-        q.float(), k.float(), v.float(), cur_pos=cur)))
-    agree(f"{what} vs the plain version on float32 copies", got, want32,
-          F32_TOL, F32_TOL)
     # one call runs the kernel alone: no PyTorch op on the card between
     # its launch and the returned tensors (split combine included)
     _, on_card = kernel_ms(lambda: fd.flash_decode(q, k, v, cur_pos=cur),
@@ -358,28 +444,32 @@ def check_flash_decode(dev):
     if not on_card or any("flash_decode_kernel" not in n for n in on_card):
         raise AssertionError("flash_decode: the call ran device work "
                              f"besides its kernel: {sorted(on_card)}")
-    keys = int((cur.long() + 1).sum().item())    # keys this run must read
-    m, l, acc = fd.flash_decode(q, k, v, cur_pos=cur)
-    moved = (nbytes(q, cur, m, l, acc)
-             + 2 * keys * KV * D * k.element_size())
-    b_ms, b_by = bound_ms(moved, 4 * D * H * keys)
-    mask = (torch.arange(L, device=dev)[None, :] <= cur[:, None].long())
-    qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    return timed({
+    entry = decode_row({
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode/kernel.py:60",
-        "max_abs_err": err,
-        "plain_ms": cuda_ms(
-            lambda: flash_decode_partial_ref(q, k, v, cur_pos=cur)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.nn.functional
-                              .scaled_dot_product_attention(
-                                  qs, kt, vt, attn_mask=mask[:, None, None],
-                                  enable_gqa=True)),
-    }, "flash_decode_kernel",
-        lambda: fd.flash_decode_cuda_partials(q, k, v, cur),
-        lambda: fd.flash_decode(q, k, v, cur_pos=cur))
+        "splits": fd.split_plan(B, KV, L, fd.sm_count(q.device)),
+    }, q, k, v, cur, what)
+    entry["cold_l2"] = decode_cold_l2(q, k, v, cur)
+    entry["ms_by_splits"] = decode_by_splits(q, k, v, cur)
+    # the plan keeps one block an SM: clusters pack into the GPCs with gaps
+    entry["resident_clusters"] = {
+        ns: fd.resident_clusters(q.dtype, D, ns, q.device)
+        for ns in (1, 2, 4, 8, 16)}
+    print(f"flash_decode clusters resident at once by splits: "
+          f"{entry['resident_clusters']}")
+    L = 8192
+    rng = np.random.default_rng(SEED + 9)
+    q, k, v = mk(B, H, D), mk(B, L, KV, D), mk(B, L, KV, D)
+    cur = torch.tensor([1023, 4095, 6143, L - 1], dtype=torch.int32,
+                       device=dev)
+    entry["long_cache"] = decode_row(
+        {"name": "flash_decode (long cache)",
+         "splits": fd.split_plan(B, KV, L, fd.sm_count(q.device))},
+        q, k, v, cur, f"flash_decode q{tuple(q.shape)} cache{tuple(k.shape)}"
+        f" cur_pos {cur.tolist()}")
+    entry["long_cache"]["ms_by_splits"] = decode_by_splits(q, k, v, cur)
+    return entry
 
 
 def check_xent(dev):
@@ -1039,9 +1129,6 @@ def check_paged_decode(dev):
     positions gathered from 36 pages of 16 by the paged index program (4
     slots, one unmapped and parked) against the plain version on the same
     window, timed as the other kernels are."""
-    from repro_torch.kernels.flash_decode import kernel as fd
-    from repro_torch.kernels.flash_decode.ref import (combine_partials,
-                                                      flash_decode_partial_ref)
     from repro_torch.serve.paged_cache import PagedCacheSpec, _build_paged_ops
     B, H, KV, D, L = 4, 16, 8, 128, PAGED_GEO["cache_len"]
     pl, n_pages = PAGED["page_len"], PAGED["num_pages"]
@@ -1062,32 +1149,10 @@ def check_paged_decode(dev):
     k, v = win["k"], win["v"]
     q = mk(B, H, D)
     cur = torch.tensor([70, 300, 511, L - 1], dtype=torch.int32, device=dev)
-    got = combine_partials(*(t[None] for t in fd.flash_decode(
-        q, k, v, cur_pos=cur)))
-    want = combine_partials(*(t[None] for t in flash_decode_partial_ref(
-        q, k, v, cur_pos=cur)))
-    err = agree(f"flash_decode on a gathered paged window q{tuple(q.shape)} "
-                f"window{tuple(k.shape)} cur_pos {cur.tolist()}", got, want,
-                ATOL, RTOL)
-    keys = int((cur.long() + 1).sum().item())
-    m, l, acc = fd.flash_decode(q, k, v, cur_pos=cur)
-    b_ms, b_by = bound_ms(nbytes(q, cur, m, l, acc)
-                          + 2 * keys * KV * D * k.element_size(),
-                          4 * D * H * keys)
-    mask = (torch.arange(L, device=dev)[None, :] <= cur[:, None].long())
-    qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    return timed({
-        "name": "flash_decode (paged window)", "max_abs_err": err,
-        "plain_ms": cuda_ms(
-            lambda: flash_decode_partial_ref(q, k, v, cur_pos=cur)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.nn.functional
-                              .scaled_dot_product_attention(
-                                  qs, kt, vt, attn_mask=mask[:, None, None],
-                                  enable_gqa=True)),
-    }, "flash_decode_kernel",
-        lambda: fd.flash_decode_cuda_partials(q, k, v, cur),
-        lambda: fd.flash_decode(q, k, v, cur_pos=cur))
+    return decode_row({"name": "flash_decode (paged window)"}, q, k, v,
+                      cur, f"flash_decode on a gathered paged window "
+                      f"q{tuple(q.shape)} window{tuple(k.shape)} cur_pos "
+                      f"{cur.tolist()}")
 
 
 def serve_paged(dev, cfg, model):
@@ -1748,6 +1813,7 @@ def main() -> int:
     for kr in kernels + [dict(kernels[0]["train_shape"],
                               name="flash_attention (training shape)"),
                          kernels[1]["paged_shape"],
+                         kernels[1]["long_cache"],
                          dict(kernels[-1]["long_prompt"],
                               name="ssd_scan (2048-token prompt)")]:
         lib = kr["library_ms"]

@@ -24,8 +24,8 @@ version's autograd on float32 copies of the same inputs, as chip_smoke.py
 holds the training shape. The SSD scan likewise runs bf16 through its
 tensor-core kernels (chunk states, carry, outputs) and float32 through its
 CUDA-core kernel, and its bf16 cases are also held to the plain version on
-float32 copies. Flash decode combines its splits inside the kernel, with
-tickets that each call leaves at zero.
+float32 copies. Flash decode combines its splits inside the kernel, in a
+thread-block cluster, and its wrapper keeps no state between calls.
 """
 import numpy as np
 import pytest
@@ -131,6 +131,10 @@ DECODE_CASES = [
     (4, 16, 8, 128, 569, 0, 0, "bfloat16"),              # qwen3 decode
     (2, 8, 4, 128, 200, 0, 0, "bfloat16"),               # L not a multiple of 64
     (2, 16, 8, 128, 300, 50, 0, "bfloat16"),             # sliding window
+    (4, 16, 8, 128, 8192, 0, 0, "bfloat16"),             # long cache
+    (1, 16, 8, 128, 8192, 0, 0, "bfloat16"),             # 8 groups, 16 splits
+    (2, 8, 4, 128, 40, 0, 0, "bfloat16"),                # under one tile
+    (2, 16, 8, 128, 8192, 0, 0, "float32"),              # float32, long cache
 ]
 
 
@@ -188,11 +192,10 @@ def test_flash_decode_rows_inside_one_split(cuda):
     _decode_matches_plain(q, k, v, cur, "bfloat16")
 
 
-def test_flash_decode_combine_tickets_reset(cuda):
-    """The kernel's combine tickets are zero again after each call: calls
-    in a row on the same shapes, then on fewer groups, then on the first
-    shapes again, each give the plain version's result, and repeated calls
-    give the same bits."""
+def test_flash_decode_back_to_back_mixed_shapes(cuda):
+    """Calls in a row on the same shapes, then on fewer groups, then on the
+    first shapes again, each give the plain version's result, and repeated
+    calls give the same bits: nothing carries from one call to the next."""
     big = _decode_case((4, 16, 8, 128, 569, 0, 0, "bfloat16"), cuda, seed=2)
     small = _decode_case((2, 4, 2, 64, 100, 0, 0, "float32"), cuda, seed=3)
     before = fd.launches
@@ -204,6 +207,52 @@ def test_flash_decode_combine_tickets_reset(cuda):
     assert fd.launches == before + 4
     for a, b, c in zip(first, again, last):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("case", [(4, 16, 8, 128, 8192, 0, 0, "bfloat16"),
+                                  (2, 16, 8, 128, 300, 50, 0, "float32")])
+def test_flash_decode_repeats_its_bits(cuda, case):
+    """The split fold runs in a fixed order: ten calls, ten equal results."""
+    q, k, v, cur, kw = _decode_case(case, cuda, seed=4)
+    first = fd.flash_decode(q, k, v, cur_pos=cur, **kw)
+    for _ in range(9):
+        again = fd.flash_decode(q, k, v, cur_pos=cur, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_decode_two_streams_match_one_after_the_other(cuda):
+    """Calls on two streams at once give the bits of the same calls run one
+    after the other: the wrapper and the kernel share no state."""
+    a = _decode_case((4, 16, 8, 128, 8192, 0, 0, "bfloat16"), cuda, seed=5)
+    b = _decode_case((2, 16, 2, 64, 3000, 0, 0, "bfloat16"), cuda, seed=6)
+    want = [fd.flash_decode(*c[:3], cur_pos=c[3]) for c in (a, b)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(8):
+        for i, (st, c) in enumerate(zip(streams, (a, b))):
+            with torch.cuda.stream(st):
+                got[i].append(fd.flash_decode(*c[:3], cur_pos=c[3]))
+    torch.cuda.synchronize()
+    for outs, ref in zip(got, want):
+        for out in outs:
+            assert all(torch.equal(x, y) for x, y in zip(out, ref))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8, 16])
+def test_flash_decode_every_cluster_size(cuda, splits):
+    """The kernel at each cluster size the plan may pick, and at sizes it
+    does not, against the plain version (rows shorter than the splits
+    included)."""
+    q, k, v, _, _ = _decode_case((3, 16, 8, 128, 700, 0, 0, "bfloat16"),
+                                 cuda, seed=7)
+    cur = torch.tensor([5, 400, 699], dtype=torch.int32, device=cuda)
+    m, l, acc = fd.flash_decode_cuda_partials(q, k, v, cur, splits=splits)
+    pm, pl, pacc = fd.flash_decode_partial_ref(q, k, v, cur_pos=cur)
+    _close(combine_partials(m[None], l[None], acc[None]),
+           combine_partials(pm[None], pl[None], pacc[None]), "bfloat16")
 
 
 def test_paged_gather_then_decode_matches_plain(cuda):

@@ -498,48 +498,42 @@ def test_decode_shard_combine():
     assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-5)
 
 
-def test_wrapper_split_combine_matches_single_shard():
-    """The CUDA wrapper's combine over DECODE_SPLIT-key splits, fed by the
-    plain partials of each split, equals the one-shard attention."""
+@pytest.mark.parametrize("ns", [1, 2, 4, 8, 16])
+def test_wrapper_split_combine_matches_single_shard(ns):
+    """The kernel's combine over ``ns`` splits of each row's range, fed by
+    the plain partials of each split, equals the one-shard attention."""
     rng = np.random.default_rng(7)
     B, H, KV, D, L = 3, 4, 2, 16, 150
     q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
     k = torch.from_numpy(rng.normal(size=(B, L, KV, D)).astype(np.float32))
     v = torch.from_numpy(rng.normal(size=(B, L, KV, D)).astype(np.float32))
     cur = torch.tensor([5, 70, 149], dtype=torch.int32)
-    S = fd_kernel.DECODE_SPLIT
-    parts = [flash_decode_partial_ref(q, k[:, s:s + S], v[:, s:s + S],
-                                      cur_pos=cur, k_offset=s)
-             for s in range(0, L, S)]
     m, l, acc = fd_kernel.combine_splits(
-        *(torch.stack([p[i] for p in parts], dim=1) for i in range(3)))
+        *fd_kernel.split_partials_ref(q, k, v, cur, ns))
     got = acc / torch.clamp_min(l, 1e-30)[..., None]
     want = decode_attention_ref(q, k, v, cur)
     assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("L,cur", [(569, [70, 300, 511, 568]),
-                                   (150, [5, 70, 149, 10])])
+                                   (150, [5, 70, 149, 10]),
+                                   (150, [1, 0, 149, 2])])
 def test_kernel_split_fold_matches_combine_partials(L, cur):
-    """The kernel's combine -- the last block of a group folds the splits'
+    """The kernel's combine -- the blocks of a cluster fold the splits'
     partials in split order (``combine_splits``) -- equals
-    ``combine_partials`` of the same splits, including splits wholly past
-    a row's cur_pos."""
+    ``combine_partials`` of the same splits of the qwen3 plan, including
+    empty splits of rows with fewer keys than splits."""
     rng = np.random.default_rng(11)
     B, H, KV, D = 4, 16, 8, 128
     q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
     k = torch.from_numpy(rng.normal(size=(B, L, KV, D)).astype(np.float32))
     v = torch.from_numpy(rng.normal(size=(B, L, KV, D)).astype(np.float32))
     cur = torch.tensor(cur, dtype=torch.int32)
-    S = fd_kernel.DECODE_SPLIT
-    parts = [flash_decode_partial_ref(q, k[:, s:s + S], v[:, s:s + S],
-                                      cur_pos=cur, k_offset=s)
-             for s in range(0, L, S)]
-    _, l, acc = fd_kernel.combine_splits(
-        *(torch.stack([p[i] for p in parts], dim=1) for i in range(3)))
+    parts = fd_kernel.split_partials_ref(q, k, v, cur,
+                                         fd_kernel.split_plan(B, KV, L))
+    _, l, acc = fd_kernel.combine_splits(*parts)
     got = acc / torch.clamp_min(l, 1e-30)[..., None]
-    want = combine_partials(*(torch.stack([p[i] for p in parts])
-                              for i in range(3)))
+    want = combine_partials(*(t.transpose(0, 1) for t in parts))
     assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
 
 
