@@ -99,11 +99,31 @@ result line is printed:
    the forward registers in flight stay within the quotas; step wall time,
    tokens/s and peak memory per step, then one profiled step (busy and
    idle share);
-9. graph infer: the same graph under ``mode="infer"``, actors vs
+9. graph train on a (2, 2) mesh: the same graph and params on
+   ``Placement(("data", "model"), (2, 2))`` -- 4 virtual ranks on the one
+   card, every rank a thread, their collectives a rendezvous in rank order
+   (``repro_torch.core.mesh``) -- with ``ids`` and ``labels`` pinned
+   ``S(0),B``, ``W_out`` ``B,S(1)`` and ``E`` ``B,S(0)``: rows over
+   ``data``, the vocabulary over ``model`` (the plan's signatures are
+   printed, and the softmax_xent input must be ``(S(0), S(1))``). The same
+   3 AdamW steps on ``backend="actors"`` (1F1B) and ``"monolithic"``, one
+   session after the other (the reckoned bytes of two at once, replicas
+   over ``data`` included, are printed beside that choice): every loss,
+   post-clip gradient and param bitwise equal across the two; step 0's
+   loss within 1e-5 relative of the 1 x 1 monolithic session of phase 8
+   and its post-clip gradients within ``atol=1e-5, rtol=1e-4``, the later
+   losses within 1e-4 relative; the xent kernels launched exactly 4 x 8 =
+   32 times a step each way, 16 at vocab offset 0 and 16 at 75,968. Step
+   wall time, rows/s, each rank's held bytes and the session's peak
+   memory, the bytes and calls of the collectives a step and the seconds
+   the ranks spent in them, then one profiled step of the actors (busy
+   and idle share);
+10. graph infer: the same graph under ``mode="infer"``, actors vs
    monolithic, bitwise, 8 forward xent launches a run and no backward.
    The kernels line holds the float32 xent forward and backward at the
    graph's microbatch shape (512 x 151,936) with the graph train run's
-   launches.
+   launches, and at one rank's vocab shard of the mesh phase (256 x
+   75,968 at offset 75,968) with that phase's launches.
 
 The kernels line's attention forward, decode and SSD scan rows carry
 ``launches_by_path``, each serving path's launches, and the decode row its
@@ -1450,28 +1470,29 @@ def xent_counts():
 
 def zero_xent_counts():
     from repro_torch.kernels.softmax_xent import kernel as xk
-    xk.launches = xk.bwd_launches = 0
+    xk.reset_counts()
 
 
-def check_xent_graph(dev):
-    """The xent forward and backward kernels at the graph path's shape: one
-    microbatch's logits of the qwen3-width graph (512 x 151,936), float32,
-    against the plain version."""
+def check_xent_graph(dev, N=GRAPH_N // GRAPH_M, V=GRAPH_V, offset=0,
+                     label="graph"):
+    """The xent forward and backward kernels at a graph path's shape,
+    float32, against the plain version: one microbatch's logits of the
+    qwen3-width graph (512 x 151,936), or one rank's vocab shard of the
+    mesh phase (``N`` x ``V`` at ``offset``, labels over the two shards)."""
     from repro_torch.kernels.softmax_xent import kernel as xk
     from repro_torch.kernels.softmax_xent.ref import local_stats_ref
-    N, V = GRAPH_N // GRAPH_M, GRAPH_V
     rng = np.random.default_rng(SEED + 7)
     logits = torch.from_numpy(
         rng.standard_normal((N, V), dtype=np.float32)).to(dev) * 3
-    labels = torch.as_tensor(rng.integers(0, V, N), dtype=torch.int32,
-                             device=dev)
+    labels = torch.as_tensor(rng.integers(0, offset + V, N),
+                             dtype=torch.int32, device=dev)
     ds = torch.as_tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
     dz = torch.as_tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
-    what = f"logits ({N}, {V}) float32 (graph path)"
+    what = f"logits ({N}, {V}) float32 at offset {offset} ({label} path)"
 
     def through_autograd(stats):
         leaf = logits.detach().requires_grad_(True)
-        m, s_, z = stats(leaf, labels, 0)
+        m, s_, z = stats(leaf, labels, offset)
         (g,) = torch.autograd.grad((s_, z), leaf, (ds, dz))
         return (m, s_.detach(), z.detach()), g
 
@@ -1488,16 +1509,17 @@ def check_xent_graph(dev):
           g / scale, wg / scale, F32_TOL * 1e-6, F32_TOL)
     gerr = (g - wg).abs().max().item()
     del got, g, want, wg
-    m, s_, z = xk.xent_local_stats_cuda(logits, labels, 0)
+    m, s_, z = xk.xent_local_stats_cuda(logits, labels, offset)
     fwd_bytes = nbytes(logits, labels, m, s_, z)
     fb_ms, fb_by = bound_ms(fwd_bytes, 4 * N * V, PEAK_F32_FLOPS)
     bb_ms, bb_by = bound_ms(fwd_bytes - nbytes(s_, z) + nbytes(ds, dz)
                             + nbytes(logits), 4 * N * V, PEAK_F32_FLOPS)
-    lab = labels.long()
+    # the library yardstick at the shard's shape: labels inside the shard
+    lab = (labels.long() - offset).clamp(0, V - 1)
 
     def plain_bwd():
         leaf = logits.detach().requires_grad_(True)
-        _, s2, z2 = local_stats_ref(leaf, labels, 0)
+        _, s2, z2 = local_stats_ref(leaf, labels, offset)
         return lambda: torch.autograd.grad((s2, z2), leaf, (ds, dz),
                                            retain_graph=True)
 
@@ -1507,25 +1529,28 @@ def check_xent_graph(dev):
         return lambda: torch.autograd.grad(loss, leaf, ds, retain_graph=True)
 
     fwd = timed({
-        "name": "xent_local_stats (graph, float32)", "route": "cuda",
+        "name": f"xent_local_stats ({label}, float32)", "route": "cuda",
         "source": "src/repro_torch/csrc/softmax_xent.cu",
         "replaces": "src/repro/kernels/softmax_xent/kernel.py:67",
-        "shape": [N, V], "dtype": "float32", "max_abs_err": err,
-        "plain_ms": cuda_ms(lambda: local_stats_ref(logits, labels, 0),
+        "shape": [N, V], "vocab_offset": offset, "dtype": "float32",
+        "max_abs_err": err,
+        "plain_ms": cuda_ms(lambda: local_stats_ref(logits, labels, offset),
                             iters=5),
         "bound_ms": fb_ms, "bound_by": fb_by,
         "library_ms": cuda_ms(lambda: torch.nn.functional.cross_entropy(
             logits, lab, reduction="none"), iters=5),
-    }, "xent_fwd_kernel", lambda: xk.xent_local_stats_cuda(logits, labels, 0),
-        lambda: xk.xent_local_stats(logits, labels, 0))
+    }, "xent_fwd_kernel",
+        lambda: xk.xent_local_stats_cuda(logits, labels, offset),
+        lambda: xk.xent_local_stats(logits, labels, offset))
     bwd_launch = lambda: xk.xent_local_stats_bwd_cuda(  # noqa: E731
-        logits, labels, 0, m, ds, dz)
+        logits, labels, offset, m, ds, dz)
     bwd = timed({
-        "name": "xent_local_stats_bwd (graph, float32)", "route": "cuda",
+        "name": f"xent_local_stats_bwd ({label}, float32)", "route": "cuda",
         "source": "src/repro_torch/csrc/softmax_xent.cu",
         "replaces": "src/repro/kernels/softmax_xent/kernel.py:67 (its "
                     "backward; no Pallas counterpart)",
-        "shape": [N, V], "dtype": "float32", "max_abs_err": gerr,
+        "shape": [N, V], "vocab_offset": offset, "dtype": "float32",
+        "max_abs_err": gerr,
         "plain_ms": cuda_ms(plain_bwd(), iters=5),
         "bound_ms": bb_ms, "bound_by": bb_by,
         "library_ms": cuda_ms(library_bwd(), iters=5),
@@ -1535,25 +1560,36 @@ def check_xent_graph(dev):
     return fwd, bwd
 
 
-def qwen3_width_graph():
+#: the mesh phase: rows over ``data``, the vocabulary over ``model``
+MESH_SHAPE = (2, 2)
+MESH_PINS = {"ids": "S(0),B", "labels": "S(0),B", "E": "B,S(0)",
+             "W_out": "B,S(1)"}
+
+
+def qwen3_width_graph(placement=None, pins=None):
     """The graph path's configuration: a LogicalGraph at qwen3-1.7b's
     published widths (d_model 2048, d_ff 6144, vocab 151,936), built from
     the graph layer's ops -- embedding, GRAPH_BLOCKS x [matmul up, gelu,
     matmul down, residual add], the vocab matmul, softmax_xent -- over
-    GRAPH_N rows, on one device."""
+    GRAPH_N rows, on one device, or on ``placement`` with the inputs in
+    ``pins`` pinned to their signatures."""
     from repro_torch.core.graph import LogicalGraph
     from repro_torch.core.placement import Placement
-    g = LogicalGraph(Placement(("d",), (1,)))
-    ids = g.input("ids", (GRAPH_N,), dtype="int32")
-    labels = g.input("labels", (GRAPH_N,), dtype="int32")
-    h = g.embedding(g.input("E", (GRAPH_V, GRAPH_D)), ids, name="embed")
+    g = LogicalGraph(placement or Placement(("d",), (1,)))
+    pins = pins or {}
+    ids = g.input("ids", (GRAPH_N,), dtype="int32", sbp=pins.get("ids"))
+    labels = g.input("labels", (GRAPH_N,), dtype="int32",
+                     sbp=pins.get("labels"))
+    h = g.embedding(g.input("E", (GRAPH_V, GRAPH_D), sbp=pins.get("E")), ids,
+                    name="embed")
     for i in range(GRAPH_BLOCKS):
         a = g.unary(g.matmul(h, g.input(f"w_up{i}", (GRAPH_D, GRAPH_F)),
                              name=f"up{i}"), "gelu", name=f"gelu{i}")
         d = g.matmul(a, g.input(f"w_down{i}", (GRAPH_F, GRAPH_D)),
                      name=f"down{i}")
         h = g.add(d, h, name=f"res{i}")
-    logits = g.matmul(h, g.input("W_out", (GRAPH_D, GRAPH_V)), name="head")
+    logits = g.matmul(h, g.input("W_out", (GRAPH_D, GRAPH_V),
+                                 sbp=pins.get("W_out")), name="head")
     g.softmax_xent(logits, labels, name="loss")
     return g
 
@@ -1649,7 +1685,9 @@ def graph_train(dev):
     the three; each step launches the xent kernels exactly GRAPH_M times
     forward and backward; the forward registers in flight stay within the
     quotas. Then one profiled step of the 1F1B session. Returns the xent
-    launches of the run."""
+    launches of the run and the monolithic session's per-step losses and
+    step-0 post-clip gradients (on the host), which the mesh phase is held
+    to."""
     phase(f"graph train (qwen3-1.7b widths, {GRAPH_BLOCKS} blocks, "
           f"{GRAPH_M} x {GRAPH_N // GRAPH_M} rows, {GRAPH_STAGES} stages, "
           f"float32, AdamW, {GRAPH_STEPS} steps x 3 backends)")
@@ -1681,6 +1719,7 @@ def graph_train(dev):
                          for s in range(GRAPH_STAGES)]) + " ops")
     torch.cuda.synchronize()
     zero_xent_counts()
+    kept = {"loss": []}
     for step in range(GRAPH_STEPS):
         results = {}
         for name, sess in sessions.items():
@@ -1727,6 +1766,9 @@ def graph_train(dev):
         print(f"step {step}: losses, {len(ref.grads)} post-clip grads and "
               f"{len(ref.params)} params bitwise equal across "
               f"{list(sessions)}")
+        kept["loss"].append(float(ref.loss))
+        if step == 0:
+            kept["grads0"] = {k: v.cpu() for k, v in ref.grads.items()}
         del results, ref, res
     total = xent_counts()
     print(f"graph train: xent launches over the run {total}; peak memory "
@@ -1749,6 +1791,182 @@ def graph_train(dev):
     one.close()
     del one
     torch.cuda.empty_cache()
+    return total, kept
+
+
+def rank_bytes(sess) -> list:
+    """Bytes each rank of a train session holds between steps: its param
+    shards and AdamW moments (once the first step made them)."""
+    ex = sess.executor
+    n = sess.meshes[0].size
+    held = [sum(v[r].numel() * v[r].element_size()
+                for v in ex.shards.values()) for r in range(n)]
+    states = ex.opt_states
+    per_stage = states.values() if isinstance(states, dict) else [states]
+    for ranks in per_stage:
+        for r, st in enumerate(ranks or []):
+            held[r] += nbytes(*st.mu.values(), *st.nu.values())
+    return held
+
+
+def graph_train_mesh(dev, ref):
+    """Phase 9: the qwen3-width graph on a (2, 2) mesh of 4 virtual ranks
+    on the card, rows over ``data`` and the vocabulary over ``model``,
+    GRAPH_STEPS AdamW steps on the actors (1F1B) and on the monolithic
+    engine, one session after the other; held bitwise to each other and to
+    the 1 x 1 monolithic run of :func:`graph_train` (``ref``) within the
+    stated tolerances, with the xent kernels' launches and offsets counted
+    each step. Returns the xent launches of the run."""
+    phase(f"graph train on a {MESH_SHAPE} mesh (qwen3-1.7b widths, "
+          f"{int(np.prod(MESH_SHAPE))} virtual ranks on one card, "
+          f"{GRAPH_M} microbatches, {GRAPH_STAGES} stages, AdamW, "
+          f"{GRAPH_STEPS} steps x 2 backends)")
+    from repro_torch import api
+    from repro_torch.core.lowering import OptimizerSpec
+    from repro_torch.core.placement import Placement
+    from repro_torch.core.sbp import ndsbp
+    from repro_torch.kernels.softmax_xent import kernel as xk
+    placement = Placement(("data", "model"), MESH_SHAPE)
+    g = qwen3_width_graph(placement, MESH_PINS)
+    params, data = seeded_graph_inputs(g, SEED + 9)
+    batch = {n: torch.as_tensor(v, device=dev) for n, v in data.items()}
+    ranks = placement.num_devices
+    shard = GRAPH_V // MESH_SHAPE[1]
+    want_offsets = {0: ranks // 2 * GRAPH_M, shard: ranks // 2 * GRAPH_M}
+    adamw = OptimizerSpec.adamw(lr=3e-4, grad_clip=1.0)
+    kept = []
+    total = {"xent_local_stats": 0, "xent_local_stats_bwd": 0}
+    for name, kw in (("actors 1f1b", dict(backend="actors",
+                                          stages=GRAPH_STAGES, regs="1f1b")),
+                     ("monolithic", dict(backend="monolithic"))):
+        sess = api.compile(g, mode="train", params=params,
+                           num_microbatches=GRAPH_M, optimizer=adamw,
+                           device=dev, **kw)
+        mesh = sess.meshes[0]
+        if not kept:
+            print(sess.plan.describe())
+            xin = sess.plan.op_in_sbp["loss"][0]
+            if xin != ndsbp("S(0),S(1)"):
+                raise AssertionError(f"softmax_xent input planned {xin}, "
+                                     "expected (S(0), S(1))")
+            shards = nbytes(*(v for vs in sess.executor.shards.values()
+                              for v in vs))
+            results = 2 * 4 * sum(v.size for v in params.values())
+            print(f"reckoned: {shards / 2**30:.2f} GiB of param shards over "
+                  f"{ranks} ranks (replicas over data included), x 4 with "
+                  f"the AdamW moments and gradient sums = "
+                  f"{4 * shards / 2**30:.2f} GiB a session, and "
+                  f"{results / 2**30:.2f} GiB of global grads and params a "
+                  "step, assembled when read after the timed step; two "
+                  "sessions at once would hold "
+                  f"{(8 * shards + 2 * results) / 2**30:.1f} GiB of the "
+                  "card's 80 GB before activations and the step's "
+                  "temporaries, so they run one after the other and the "
+                  "second is held to the first's kept copies")
+        print(f"{name}: {mesh}, regs {sess.regs}")
+        for step in range(GRAPH_STEPS):
+            zero_xent_counts()
+            mesh.stats.reset()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            res = sess.step(**batch)
+            loss = float(res.loss)
+            wall = time.perf_counter() - t
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            counts = xent_counts()
+            offsets = (dict(xk.offset_launches), dict(xk.bwd_offset_launches))
+            total = {k: v + counts[k] for k, v in total.items()}
+            st = mesh.stats
+            # the global grads and params, outside the step's wall and peak
+            t = time.perf_counter()
+            grads, new_params = res.grads, res.params
+            torch.cuda.synchronize()
+            assembly = time.perf_counter() - t
+            print(f"{name} step {step}: loss {loss:.6f}, grad_norm "
+                  f"{float(res.metrics['grad_norm']):.6f}, wall {wall:.3f} s,"
+                  f" {GRAPH_N / wall:,.0f} rows/s, peak above the step's "
+                  f"start {peak:.2f} GiB (global grads and params assembled "
+                  f"after it in {assembly:.3f} s), xent launches {counts} "
+                  "at offsets "
+                  f"{offsets[0]} / {offsets[1]}; collectives "
+                  f"{st.total_bytes() / 2**20:,.1f} MiB (Table 2 volume) in "
+                  f"{sum(st.calls.values())} calls {st.calls}, the ranks "
+                  f"{st.wait_s:.3f} s in them in all")
+            if counts != {"xent_local_stats": ranks * GRAPH_M,
+                          "xent_local_stats_bwd": ranks * GRAPH_M} \
+                    or offsets != (want_offsets, want_offsets):
+                raise AssertionError(
+                    f"{name} step {step}: xent launches {counts} at "
+                    f"{offsets}, expected {ranks * GRAPH_M} each way at "
+                    f"{want_offsets}")
+            if not np.isfinite(loss):
+                raise AssertionError(f"{name} step {step}: loss {loss}")
+            rel = abs(loss - ref["loss"][step]) / abs(ref["loss"][step])
+            bound = 1e-5 if step == 0 else 1e-4
+            if rel > bound:
+                raise AssertionError(
+                    f"{name} step {step}: loss {loss} vs the 1 x 1 "
+                    f"session's {ref['loss'][step]} ({rel:.2e} relative, "
+                    f"bound {bound})")
+            if step == 0:
+                # post-clip entries are ~1 / sqrt(723 M) ~ 4e-5: an atol of
+                # 1e-7 sits between that and float32 summation order, and
+                # each gradient's relative norm error is held too, so a
+                # wrong block of small entries cannot pass
+                gerr, nerr = 0.0, 0.0
+                for k, gk in grads.items():
+                    want = ref["grads0"][k].to(dev)
+                    gerr = max(gerr, agree(f"{name} step-0 grad {k} vs 1 x 1",
+                                           gk, want, 1e-7, 1e-4))
+                    rn = (torch.linalg.vector_norm(gk - want)
+                          / torch.linalg.vector_norm(want)).item()
+                    print(f"{name} step-0 grad {k}: |diff| / |ref| {rn:.3e}"
+                          " (limit 1e-4)")
+                    if not rn <= 1e-4:
+                        raise AssertionError(
+                            f"{name} step-0 grad {k}: relative norm error "
+                            f"{rn:.3e} vs the 1 x 1 session")
+                    nerr = max(nerr, rn)
+                    del want, gk
+                print(f"{name} step 0: loss {rel:.2e} relative of the 1 x 1 "
+                      f"session's, post-clip grads max abs err {gerr:.3e}, "
+                      f"worst relative norm error {nerr:.3e}")
+            if len(kept) < GRAPH_STEPS:
+                kept.append((res.loss.cpu(),
+                             {k: v.cpu() for k, v in grads.items()},
+                             {k: v.cpu() for k, v in new_params.items()}))
+                del res, grads, new_params
+                continue
+            k_loss, k_grads, k_params = kept[step]
+            for what, a, b in [("loss", res.loss, k_loss)] + [
+                    (f"grad {k}", grads[k], k_grads[k])
+                    for k in k_grads] + [
+                    (f"param {k}", new_params[k], k_params[k])
+                    for k in k_params]:
+                if not torch.equal(a, b.to(dev)):
+                    raise AssertionError(
+                        f"step {step}: monolithic and actors disagree on "
+                        f"{what} on the mesh")
+            print(f"step {step}: loss, {len(k_grads)} post-clip grads and "
+                  f"{len(k_params)} params bitwise equal across the actors "
+                  "and the monolithic engine on the mesh")
+            del res, grads, new_params
+        held = rank_bytes(sess)
+        print(f"{name}: each rank holds {[round(b / 2**30, 3) for b in held]}"
+              f" GiB of param shards and AdamW moments; the session's peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+              "after its last step")
+        if sess.regs is not None:
+            profile_device(f"graph train step on the {MESH_SHAPE} mesh "
+                           f"({name})", lambda: float(sess.step(**batch).loss),
+                           top=10)
+        sess.close()
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"graph train on the mesh: xent launches over the run {total}")
     return total
 
 
@@ -1808,6 +2026,10 @@ def main() -> int:
     phase("kernels (path shapes)")
     kernels = [check_flash_attention(dev), check_flash_decode(dev),
                *check_xent(dev), *check_xent_graph(dev),
+               *check_xent_graph(dev, N=GRAPH_N // GRAPH_M // MESH_SHAPE[0],
+                                 V=GRAPH_V // MESH_SHAPE[1],
+                                 offset=GRAPH_V // MESH_SHAPE[1],
+                                 label="vocab shard"),
                check_flash_attention_bwd(dev), check_ssd_scan(dev)]
     kernels[1]["paged_shape"] = check_paged_decode(dev)
     for kr in kernels + [dict(kernels[0]["train_shape"],
@@ -1848,7 +2070,9 @@ def main() -> int:
     train_plain(dev, curve)
     torch.cuda.empty_cache()
     check_graph_reference(dev)
-    graph_trained = graph_train(dev)
+    graph_trained, one_device = graph_train(dev)
+    mesh_trained = graph_train_mesh(dev, one_device)
+    del one_device
     graph_infer(dev)
     # each row's launches from the run of its path; the attention forward's
     # row is the serving shape and serve run, its training shape's the train
@@ -1869,6 +2093,10 @@ def main() -> int:
             # the graph train run: 3 backends x GRAPH_STEPS steps
             kr["launches"] = graph_trained[name.split(" ")[0]]
             kr["launches_per_step"] = GRAPH_M
+        elif name.endswith(" (vocab shard, float32)"):
+            # the mesh phase: 2 backends x GRAPH_STEPS steps, every rank
+            kr["launches"] = mesh_trained[name.split(" ")[0]]
+            kr["launches_per_step"] = int(np.prod(MESH_SHAPE)) * GRAPH_M
         else:
             kr["launches"] = (served if name in served else trained)[name]
     kernels[0]["train_shape"]["launches"] = trained["flash_fwd_wgmma_kernel"]

@@ -14,10 +14,13 @@ every lowering and executor path (port of ``repro/api.py``).
   sampled (``sampling=``), over dense per-group caches or the paged pool
   (``cache="paged"``, with shared-prefix pages and ``prefill_chunk=``).
 
-What the reference offers beyond that raises :class:`NotImplementedError`
-naming its ROADMAP item: placements of more than one device, ZeRO and mixed
-precision, snapshots and faults, the process runtime, the static verifier
-and stage-body wrappers.
+A graph runs on the ranks of a :class:`~repro_torch.core.mesh.DeviceMesh`
+(``mesh=``; default: the graph placement's ranks, all on ``device``), or
+stage by stage on ``stage_meshes=``; sessions take and return global
+tensors. What the reference offers beyond that raises
+:class:`NotImplementedError` naming its ROADMAP item: serving on a mesh, ZeRO
+and mixed precision, snapshots and faults, the process runtime, the static
+verifier and stage-body wrappers.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
 card an entry point raises unless the caller asks for ``device="cpu"``.
@@ -27,7 +30,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -35,11 +39,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.graph import (LogicalGraph, StagePartition,
                                     partition_stages)
-from repro_torch.core.lowering import (OptimizerSpec, _to_device, clip_grads,
-                                       lower_plan, lower_serve_stages,
-                                       lower_stages, lower_train_plan,
-                                       lower_train_stages, reassemble_sinks,
-                                       split_microbatches)
+from repro_torch.core.lowering import (OptimizerSpec, _resolve_loss,
+                                       _resolve_mesh, accumulate, box_grads,
+                                       clip_grads, global_state, lower_plan,
+                                       lower_serve_stages, lower_stages,
+                                       lower_train_plan, lower_train_stages,
+                                       reassemble_sinks, split_microbatches,
+                                       sync_mesh)
+from repro_torch.core.mesh import DeviceMesh, assemble, place
 from repro_torch.core.planner import Plan, plan as plan_sbp
 from repro_torch.models.common import MeshPlan, resolve_device
 from repro_torch.models.transformer import (Transformer, has_ssm_layers,
@@ -47,7 +54,7 @@ from repro_torch.models.transformer import (Transformer, has_ssm_layers,
 from repro_torch.runtime.pipeline import (ActorPipelineExecutor,
                                           InlineServeEngine, PipelinePlan,
                                           ServePipelineExecutor,
-                                          TrainPipelineExecutor, _sync,
+                                          TrainPipelineExecutor,
                                           check_run_inputs, own_params,
                                           plan_registers)
 from repro_torch.serve.paged_cache import (PagedCacheSpec, PagePool,
@@ -64,10 +71,6 @@ REG_POLICIES = ("1f1b", "gpipe", "serial")
 #: name -> (the reference's default, what it is and the ROADMAP item that
 #: brings it). Passing the default is accepted and changes nothing.
 NOT_PORTED = {
-    "mesh": (None, "device meshes beyond one device, ROADMAP Queue 1 "
-                   "item 8"),
-    "stage_meshes": (None, "one device group per stage, ROADMAP Queue 1 "
-                           "item 8"),
     "zero": (False, "ZeRO master shards, ROADMAP Queue 1 item 9"),
     "precision": (None, "mixed precision, ROADMAP Queue 1 item 9"),
     "loss_scale": (None, "loss scaling, ROADMAP Queue 1 item 9"),
@@ -79,7 +82,6 @@ NOT_PORTED = {
 }
 
 
-@dataclasses.dataclass
 class StepResult:
     """One training step's outcome, uniform across backends.
 
@@ -87,14 +89,37 @@ class StepResult:
     taken), ``lr`` (the schedule resolved at that step), ``grad_norm``
     (pre-clip global norm; None when clipping is off) and ``makespan``.
     Actor-backend sessions add ``peak_inflight`` (peak forward registers in
-    use — the in-flight microbatch count the quota bounds). ``params`` are
-    the session's live tensors: the next step updates them in place.
+    use — the in-flight microbatch count the quota bounds). ``loss``,
+    ``grads`` and ``params`` are global tensors. On a one-rank mesh the
+    params are the session's live tensors (the next step updates them in
+    place). On a larger one ``grads`` and ``params`` are assembled from the
+    ranks' shards when first read, so a step pays for no global copy it
+    is not asked for; the shards an optimizer updates in place are read as
+    they stand then.
     """
 
-    loss: Any
-    metrics: Dict[str, Any]
-    grads: Dict[str, Any]
-    params: Dict[str, Any]
+    def __init__(self, loss: Any, metrics: Dict[str, Any],
+                 grads: Callable[[], Dict[str, Any]],
+                 params: Callable[[], Dict[str, Any]]):
+        self.loss, self.metrics = loss, metrics
+        self._lazy = {"grads": grads, "params": params}
+        self._done: Dict[str, Dict[str, Any]] = {}
+
+    def _read(self, what: str) -> Dict[str, Any]:
+        if what not in self._done:
+            self._done[what] = self._lazy.pop(what)()
+        return self._done[what]
+
+    @property
+    def grads(self) -> Dict[str, Any]:
+        return self._read("grads")
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return self._read("params")
+
+    def __repr__(self) -> str:
+        return f"StepResult(loss={self.loss!r}, metrics={self.metrics!r})"
 
 
 def _canonical_params(graph: LogicalGraph, params: Dict[str, Any]
@@ -117,10 +142,10 @@ class _MonolithicInferEngine:
 
     def __init__(self, graph: LogicalGraph, plan: Plan,
                  microbatch_inputs: Sequence[str], num_microbatches: int,
-                 device=None):
+                 mesh: DeviceMesh):
         self.graph = graph
-        self.program = lower_plan(graph, plan, device=device)
-        self.device = device
+        self.program = lower_plan(graph, plan, mesh)
+        self.mesh = mesh
         self.input_names = [t.name for t in graph.inputs]
         self.microbatch_inputs = list(microbatch_inputs)
         self.num_microbatches = num_microbatches
@@ -132,7 +157,6 @@ class _MonolithicInferEngine:
     def run(self, inputs: Dict[str, Any], timeout: float = 0.0) -> Tuple:
         check_run_inputs(inputs, self.input_names)
         t0 = time.perf_counter()
-        inputs = {n: _to_device(v, self.device) for n, v in inputs.items()}
         if not self.microbatch_inputs:
             chunks = [dict(inputs)]
         else:
@@ -147,7 +171,7 @@ class _MonolithicInferEngine:
             for c in chunks]
         results = reassemble_sinks(self.graph, self.program.sinks,
                                    self.microbatch_inputs, per_chunk)
-        _sync(self.device)
+        sync_mesh(self.mesh)
         self.last_makespan = time.perf_counter() - t0
         return results
 
@@ -163,67 +187,82 @@ class _MonolithicTrainEngine:
     def __init__(self, graph: LogicalGraph, plan: Plan,
                  params: Dict[str, Any], microbatch_inputs: Sequence[str],
                  num_microbatches: int, optimizer: OptimizerSpec,
-                 loss=None, device=None):
+                 mesh: DeviceMesh, loss=None):
         self.graph = graph
-        self.device = device
+        self.plan = plan
+        self.mesh = mesh
         self.param_names = tuple(_canonical_params(graph, params))
         self.load_params(params)
         self.optimizer = optimizer
         self.vg = lower_train_plan(graph, plan, list(self.param_names),
-                                   loss=loss, device=device)
+                                   loss=loss, mesh=mesh)
+        self.loss_sbp = plan.tensor_sbp[_resolve_loss(graph, loss).name]
         self.input_names = [t.name for t in graph.inputs]
         self.microbatch_inputs = list(microbatch_inputs)
         self.num_microbatches = num_microbatches
-        self.opt_state = None
+        self.opt_states = None
         self.step_count = 0
         self.last_grad_norm = None
         self.last_makespan: Optional[float] = None
 
-    def load_params(self, params: Dict[str, Any]) -> None:
-        self.params = own_params(params, self.param_names, self.device)
+    def _global(self, per_rank: Dict[str, List[torch.Tensor]]):
+        sbp = self.plan.tensor_sbp
+        return {n: assemble(v, self.mesh, sbp[n])
+                for n, v in per_rank.items()}
 
-    def step(self, data_inputs: Dict[str, Any], timeout: float = 0.0):
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return self._global(self.shards)
+
+    @property
+    def opt_state(self):
+        return global_state(self.opt_states, self.mesh, self.plan.tensor_sbp)
+
+    def load_params(self, params: Dict[str, Any]) -> None:
+        self.shards = own_params(params, self.param_names,
+                                 {n: self.mesh for n in self.param_names},
+                                 self.plan.tensor_sbp)
+
+    def step_shards(self, data_inputs: Dict[str, Any], timeout: float = 0.0):
         check_run_inputs(
             data_inputs,
-            [n for n in self.input_names if n not in self.params],
+            [n for n in self.input_names if n not in self.shards],
             owned=self.param_names)
         t0 = time.perf_counter()
-        data_inputs = {n: _to_device(v, self.device)
-                       for n, v in data_inputs.items()}
+        sbp, mesh = self.plan.tensor_sbp, self.mesh
         chunks = split_microbatches(data_inputs, self.microbatch_inputs,
                                     self.num_microbatches)
         mb = set(self.microbatch_inputs)
+        bound = {n: place(v, mesh, sbp[n]) for n, v in data_inputs.items()
+                 if n not in mb}
         opt = self.optimizer
-        loss_total, grads = None, None
+        loss_total = None
+        grads: Dict[str, List[torch.Tensor]] = {}
         for chunk in chunks:
-            vals = [chunk[n] if n in mb
-                    else (self.params[n] if n in self.params
-                          else data_inputs[n])
+            vals = [place(chunk[n], mesh, sbp[n]) if n in mb
+                    else (self.shards[n] if n in self.shards else bound[n])
                     for n in self.input_names]
             loss_vec, g = self.vg(*vals)
-            ls = torch.sum(loss_vec)
+            ls = torch.sum(assemble(loss_vec, mesh, self.loss_sbp))
             loss_total = ls if loss_total is None else loss_total + ls
-            if grads is None:
-                # owned float32 copies, summed into in place after: the
-                # acc actors' order and bits, with no new tensor a microbatch
-                grads = [x.to(torch.float32, copy=True) for x in g]
-            else:
-                for a, b in zip(grads, g):
-                    a.add_(b.float())
-        gdict = dict(zip(self.param_names, grads))
+            # owned float32 sums per rank, summed into in place after: the
+            # acc actors' order and bits
+            for n, gn in zip(self.param_names, g):
+                grads[n] = accumulate(grads.get(n), gn)
+        grads = box_grads(mesh, self.graph, self.plan, grads)
         if opt.grad_clip:
-            gdict, self.last_grad_norm = clip_grads(
-                gdict, self.param_names, opt.grad_clip)
-        if opt.stateful and self.opt_state is None:
-            self.opt_state = opt.init_state(self.params)
+            grads, self.last_grad_norm = clip_grads(
+                grads, self.param_names, opt.grad_clip, mesh, self.plan)
+        if opt.stateful and self.opt_states is None:
+            self.opt_states = opt.init_rank_states(self.shards, mesh.size)
         with torch.no_grad():
-            self.params, self.opt_state = opt.update(
-                self.params, gdict, self.opt_state,
-                opt.lr_at(self.step_count))
-        _sync(self.device)
+            self.opt_states = opt.update_ranks(
+                self.shards, grads, self.opt_states,
+                opt.lr_at(self.step_count), mesh.size)
+        sync_mesh(mesh)
         self.step_count += 1
         self.last_makespan = time.perf_counter() - t0
-        return loss_total, gdict, dict(self.params)
+        return loss_total, grads, dict(self.shards)
 
 
 class Session:
@@ -246,8 +285,8 @@ class Session:
                  regs: Optional[List[int]], reg_plan: Optional[PipelinePlan],
                  optimizer: Optional[OptimizerSpec],
                  microbatch_inputs: List[str], num_microbatches: int,
-                 device: torch.device, timeout: float = 300.0,
-                 runtime: Optional[str] = None):
+                 device: torch.device, meshes: Sequence[DeviceMesh],
+                 timeout: float = 300.0, runtime: Optional[str] = None):
         self.graph = graph
         self.mode = mode
         self.backend = backend
@@ -260,6 +299,7 @@ class Session:
         self.microbatch_inputs = microbatch_inputs
         self.num_microbatches = num_microbatches
         self.device = device
+        self.meshes = list(meshes)      # one, or one per stage
         self.timeout = timeout
         self.history: List[Dict[str, Any]] = []
         self._engine = engine
@@ -343,21 +383,23 @@ class Session:
             raise RuntimeError(
                 "step() on an infer-mode session; use run(**inputs) "
                 "(or compile with mode='train', params=...)")
-        index = self._engine.step_count
-        loss, grads, params = self._engine.step(batch, timeout=self.timeout)
+        eng = self._engine
+        index = eng.step_count
+        loss, grads, shards = eng.step_shards(batch, timeout=self.timeout)
         metrics = {
             "step": index,
             "lr": self.optimizer.lr_at(index),
-            "grad_norm": self._engine.last_grad_norm,
-            "makespan": self._engine.last_makespan,
+            "grad_norm": eng.last_grad_norm,
+            "makespan": eng.last_makespan,
         }
         if self.backend == "actors":
-            metrics["peak_inflight"] = self._engine.peak_inflight_activations
+            metrics["peak_inflight"] = eng.peak_inflight_activations
         gn = metrics["grad_norm"]
         self.history.append({"kind": "step", "loss": float(loss), **metrics,
                              "grad_norm": None if gn is None else float(gn)})
-        return StepResult(loss=loss, metrics=metrics, grads=grads,
-                          params=params)
+        return StepResult(loss=loss, metrics=metrics,
+                          grads=lambda: eng._global(grads),
+                          params=lambda: eng._global(shards))
 
     def describe(self) -> str:
         """Human-readable report of the compiled artifact: graph shape, SBP
@@ -370,7 +412,10 @@ class Session:
                  f"inputs {[t.name for t in g.inputs]}, "
                  f"sinks {[t.name for t in self._sinks]}",
                  f"microbatches: {self.num_microbatches} over "
-                 f"{self.microbatch_inputs or '(none)'}"]
+                 f"{self.microbatch_inputs or '(none)'}",
+                 "mesh: " + (str(self.meshes[0]) if len(self.meshes) == 1
+                             else f"{len(self.meshes)} stage meshes, "
+                                  f"{self.meshes[0]}")]
         if self.mode == "train":
             opt = self.optimizer
             lines.append(f"optimizer: {opt.kind} (grad_clip={opt.grad_clip}, "
@@ -804,6 +849,8 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             microbatch_inputs: Optional[Sequence[str]] = None,
             regs=None, optimizer: Optional[OptimizerSpec] = None,
             params=None, loss=None, lr: float = 1e-2,
+            mesh: Optional[DeviceMesh] = None,
+            stage_meshes: Optional[Sequence[DeviceMesh]] = None,
             device=None, seed: int = 0, timeout: float = 300.0,
             num_groups: Optional[int] = None,
             group_size: Optional[int] = None,
@@ -841,8 +888,16 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
       (:func:`repro_torch.runtime.pipeline.plan_registers`).
     * ``optimizer`` (train): an :class:`OptimizerSpec` (default SGD at
       ``lr``); ``params`` (train): ``{graph input name: initial value}``
-      for every trainable input, copied onto ``device`` and owned by the
-      session; ``loss``: the sink to differentiate (default: the sole sink).
+      for every trainable input, placed on the ranks by its planned
+      signature and owned by the session; ``loss``: the sink to
+      differentiate (default: the sole sink).
+    * ``mesh`` / ``stage_meshes``: one
+      :class:`~repro_torch.core.mesh.DeviceMesh` of the graph placement's
+      ranks for every stage (default ``graph.placement.to_mesh(device)``),
+      or one per stage -- the same axes on other ranks, the paper's
+      placement of each stage on its own device group (actors only). Runs
+      and steps take global values and return global sinks, losses,
+      gradients and params.
 
     Serve mode: ``backend`` ``"actors"`` cuts the stack into ``stages``
     stage programs (default ``min(2, units)``) with quotas ``regs`` (a list
@@ -857,7 +912,7 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
     greedily).
 
     ``device``: None means ``"cuda"`` (raises without a card); tests pass
-    ``"cpu"``. ``check``: only ``"off"`` — the static verifier is not ported
+    ``"cpu"``; a mesh brings its own ranks' devices. ``check``: only ``"off"`` — the static verifier is not ported
     yet. The options in :data:`NOT_PORTED` raise naming their item.
     """
     _check_not_ported(not_ported)
@@ -880,6 +935,11 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
     if backend == "monolithic" and runtime is not None:
         raise ValueError("runtime= requires backend='actors'")
     if mode == "serve":
+        if mesh is not None or stage_meshes is not None:
+            raise NotImplementedError(
+                "mode='serve' on a mesh (tp/dp > 1: Boxer, the "
+                "vocab-parallel head, flash decode's cross-rank combine) is "
+                "the model half of ROADMAP Queue 1 item 8, not ported yet")
         rejected = {"plan": plan, "partition": partition,
                     "optimizer": optimizer, "loss": loss,
                     "microbatch_inputs": microbatch_inputs}
@@ -934,7 +994,20 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             optimizer = OptimizerSpec.sgd(lr)
     if plan is None:
         plan = plan_sbp(graph)
-    dev = resolve_device(device)
+    if stage_meshes is not None:
+        if backend == "monolithic":
+            raise ValueError("stage_meshes requires backend='actors' (the "
+                             "monolithic program runs on one mesh)")
+        if mesh is not None:
+            raise ValueError("pass mesh= or stage_meshes=, not both")
+        stage_meshes = [_resolve_mesh(graph, m, device) for m in stage_meshes]
+        dev = stage_meshes[0].devices[0]
+    else:
+        # the default mesh's collectives wait as long as the session does
+        mesh = (graph.placement.to_mesh(resolve_device(device),
+                                        timeout=timeout) if mesh is None
+                else _resolve_mesh(graph, mesh, device))
+        dev = mesh.devices[0]
 
     input_names = [t.name for t in graph.inputs]
     if microbatch_inputs is None:
@@ -954,29 +1027,30 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
     common = dict(graph=graph, mode=mode, backend=backend, plan=plan,
                   optimizer=optimizer, microbatch_inputs=microbatch_inputs,
                   num_microbatches=num_microbatches, device=dev,
-                  timeout=timeout)
+                  timeout=timeout, meshes=stage_meshes or [mesh])
     if backend == "monolithic":
         if mode == "infer":
             engine = _MonolithicInferEngine(graph, plan, microbatch_inputs,
-                                            num_microbatches, device=dev)
+                                            num_microbatches, mesh)
         else:
             engine = _MonolithicTrainEngine(graph, plan, params,
                                             microbatch_inputs,
                                             num_microbatches, optimizer,
-                                            loss=loss, device=dev)
+                                            mesh, loss=loss)
         return Session(engine=engine, partition=None, regs=None,
                        reg_plan=None, **common)
 
     part = _resolve_partition(graph, partition, stages)
     regs, reg_plan = _resolve_regs(regs, part, num_microbatches, mode)
+    meshes = dict(mesh=mesh, stage_meshes=stage_meshes)
     if mode == "infer":
-        staged = lower_stages(graph, plan, part, device=dev)
+        staged = lower_stages(graph, plan, part, **meshes)
         engine = ActorPipelineExecutor(staged, microbatch_inputs,
                                        num_microbatches, regs=regs)
     else:
         tstaged = lower_train_stages(graph, plan, part, list(params),
-                                     loss=loss, device=dev,
-                                     optimizer=optimizer)
+                                     loss=loss, optimizer=optimizer,
+                                     **meshes)
         engine = TrainPipelineExecutor(tstaged, params, microbatch_inputs,
                                        num_microbatches, lr=lr, regs=regs,
                                        optimizer=optimizer)

@@ -3,26 +3,33 @@
 Port of ``repro/core/lowering.py``, in two halves.
 
 **Graph lowering** (``:41-1230``) turns a (LogicalGraph, Plan) into programs
-over torch tensors. The reference runs each (sub)graph as one jitted
-``shard_map`` program whose boxing edges are ``jax.lax`` collectives. Here
-every placement has one device (each mesh axis of size 1, where each boxing
-is the identity, :func:`repro_torch.core.boxing.boxing_fn`); a larger one
-raises (ROADMAP Queue 1 item 8). A program is a plain function that runs the
-local ops in topological order, eagerly:
+over torch tensors on a :class:`repro_torch.core.mesh.DeviceMesh`. The
+reference runs each (sub)graph as one jitted ``shard_map`` program whose
+boxing edges are ``jax.lax`` collectives. Here a program is a list of steps
+that every rank runs eagerly on its own shards, inside
+:func:`repro_torch.core.mesh.spmd`: local steps (the ops, in topological
+order) and collective steps (every boxing edge, and the combines inside
+``softmax`` and vocab-split ``softmax_xent``):
 
 * :func:`lower_plan` / :func:`lower_stages` -- inference, the whole graph or
-  one program per pipeline stage.
+  one program per pipeline stage (``stage_meshes``: each on its own ranks).
 * :func:`lower_train_plan` / :func:`lower_train_stages` -- training. Where the
-  reference stashes a ``jax.vjp`` closure per microbatch, a forward here
-  records each op on detached leaves (an :class:`OpTape`) and the backward
-  walks the tape in reverse, calling ``torch.autograd.grad`` op by op and
-  summing cotangents in that fixed order. A stage's backward starts each
-  boundary tensor's cotangent from what later stages sent, so the staged
-  and the whole-graph backward add the same terms in the same order: that
-  is what makes the actor pipeline bitwise the monolithic engine.
+  reference stashes a ``jax.vjp`` closure per microbatch, each rank's
+  forward here records its steps on detached leaves (an :class:`OpTape`)
+  and the backward walks the tape in reverse on the rank's own thread:
+  ``torch.autograd.grad`` step by step for the local steps, the explicit
+  transpose for a collective one (S->B goes back as P->S, P->B as P->B, B->S
+  as S->P), summing cotangents in that fixed order. No autograd node ever
+  waits at a rendezvous. A stage's backward starts each boundary tensor's
+  cotangent from what later stages sent, so the staged and the whole-graph
+  backward add the same terms in the same order: that is what makes the
+  actor pipeline bitwise the monolithic engine. A param's gradient sums are
+  boxed to its own signature before the optimizer (P->B for a broadcast
+  param).
 
 The ``softmax_xent`` op goes through the xent kernel and its backward on a
-CUDA tensor (:func:`repro_torch.kernels.softmax_xent.xent_local_stats`);
+CUDA tensor (:func:`repro_torch.kernels.softmax_xent.xent_local_stats`), on
+a vocab shard at its offset where the logits are split;
 ``embedding`` is ``F.embedding``, whose backward on the card is sorted, not
 atomic, so it sums in the same order on every run.
 
@@ -43,6 +50,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -50,10 +58,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.boxing import boxing_fn
+from repro_torch.core import mesh as M
+from repro_torch.core.boxing import (boxing_fn, boxing_is_identity,
+                                    cotangent_sbp, transposed_boxing_fn)
 from repro_torch.core.graph import LogicalGraph, LOp, LTensor, StagePartition
+from repro_torch.core.mesh import DeviceMesh, assemble, place, spmd
 from repro_torch.core.planner import Plan
-from repro_torch.core.sbp import Broadcast, NdSbp
+from repro_torch.core.sbp import Broadcast, NdSbp, Split
 from repro_torch.kernels.softmax_xent.kernel import xent_local_stats
 from repro_torch.models import transformer as T
 from repro_torch.models.common import MeshPlan, param
@@ -61,21 +72,12 @@ from repro_torch.models.mamba import FLOAT32_PARAMS
 from repro_torch.models.model_zoo import make_decode_caches
 from repro_torch.optim.adamw import (AdamWState, adamw_param_update,
                                     clip_scale, global_norm_from_partials,
-                                    init_adamw, scale_grad, sqnorm_partials)
+                                    init_adamw, scale_grad,
+                                    sqnorm_partials_sharded)
 
 # ---------------------------------------------------------------------------
-# Graph lowering: local ops over torch tensors, one-device placements.
+# Graph lowering: per-rank programs of local ops and collective steps.
 # ---------------------------------------------------------------------------
-
-def _check_one_device(placement) -> None:
-    """Lowering here runs only where every mesh axis has size 1 (each
-    boxing the identity); planning itself takes any placement."""
-    if placement.num_devices != 1:
-        raise NotImplementedError(
-            f"lowering onto {placement}: placements of more than one device "
-            "need the multi-device substrate (boxing collectives), which is "
-            "not ported yet (ROADMAP Queue 1 item 8)")
-
 
 _UNARY_FNS = {
     "relu": torch.relu,
@@ -85,6 +87,10 @@ _UNARY_FNS = {
     "identity": lambda x: x,
     "scale2": lambda x: 2.0 * x,
 }
+
+#: marks the environment names a lowering makes up (boxed copies, an op's
+#: internal values); graph tensor names never hold it
+_INTERNAL = "#"
 
 
 def _matmul(x, w):
@@ -103,21 +109,16 @@ def _softmax(x):
 
 def _softmax_xent(logits, labels):
     """Per-row ``-log softmax(logits)[label]`` as (N, 1): the xent kernel's
-    local stats at vocab offset 0 (the whole vocabulary on one device)."""
+    local stats at vocab offset 0 (the whole vocabulary on the rank)."""
     m, s, z = xent_local_stats(logits.contiguous(), labels.contiguous(), 0)
     return (torch.log(s) + m - z)[:, None]
 
 
-def _local_op(op: LOp, in_sigs: Tuple[NdSbp, ...], out_sig: NdSbp,
-              axis_names: Sequence[str], mesh_shape: Sequence[int]):
-    """Return fn(local_inputs) -> local_output implementing ``op``. On a
-    one-device placement every shard is the whole tensor, so the
-    reference's cross-shard combines (``pmax``/``psum`` over split axes,
-    shard offsets) are the identity and the signatures do not change the
-    function."""
+def _local_fn(op: LOp) -> Callable:
+    """The function of an op whose signatures need no combine across
+    ranks: the same on every rank's shards."""
     kind = op.spec.name
     attrs = op.spec.attrs
-
     if kind == "matmul":
         return _matmul
     if kind == "ew_binary":
@@ -139,6 +140,153 @@ def _local_op(op: LOp, in_sigs: Tuple[NdSbp, ...], out_sig: NdSbp,
     raise NotImplementedError(f"no local lowering for op kind {kind}")
 
 
+def _split_axes_for(sig: NdSbp, tensor_axis: int, axis_names: Sequence[str],
+                    mesh_shape: Sequence[int]) -> Tuple[str, ...]:
+    """Mesh axes larger than 1 on which ``tensor_axis`` is split under
+    ``sig`` (an axis of size 1 needs no combine)."""
+    return tuple(name for comp, name, size in zip(sig, axis_names, mesh_shape)
+                 if isinstance(comp, Split) and comp.axis == tensor_axis
+                 and size > 1)
+
+
+def _shard_offset(red: Sequence[str], axis_names: Sequence[str],
+                  mesh_shape: Sequence[int], local: int) -> int:
+    """Global index of this rank's first element along a tensor axis split
+    over the mesh axes ``red`` into blocks of ``local`` (earlier axes
+    major)."""
+    offset, stride = 0, 1
+    for name, size in reversed(list(zip(axis_names, mesh_shape))):
+        if name in red:
+            offset += M.axis_index(name) * stride * local
+            stride *= size
+    return offset
+
+
+@dataclasses.dataclass
+class _Step:
+    """One step of a lowered program, run by every rank: ``outs =
+    fn(*ins)`` over names of the program's environment. A local step runs
+    torch ops, which the training tape differentiates with autograd; a
+    collective step (``collective=True``) runs mesh collectives outside
+    autograd and carries its ``transpose``: the cotangent of ``outs[0]``
+    to that of ``ins[0]`` (None where nothing is differentiated through
+    it)."""
+
+    fn: Callable
+    ins: Tuple[str, ...]
+    outs: Tuple[str, ...]
+    collective: bool = False
+    transpose: Optional[Callable] = None
+
+
+def _box_step(have: NdSbp, want: NdSbp, t: LTensor, src: str, dst: str,
+              axis_names, mesh_shape) -> Optional[_Step]:
+    """The boxing step moving ``src`` (laid out ``have``) to ``dst``
+    (``want``), or None where nothing moves."""
+    if have == want or boxing_is_identity(have, want, mesh_shape):
+        return None
+    cell: Dict[str, Callable] = {}
+
+    def transpose(g):
+        # built on first use: P(max)/P(min) boxings have no transpose
+        if "fn" not in cell:
+            cell["fn"] = transposed_boxing_fn(have, want, axis_names,
+                                              mesh_shape, t.shape)
+        return cell["fn"](g)
+    return _Step(boxing_fn(have, want, axis_names, mesh_shape, t.shape),
+                 (src,), (dst,), collective=True, transpose=transpose)
+
+
+def _softmax_steps(name: str, x: str, out: str, red: Tuple[str, ...]):
+    """Softmax over a class axis split across ``red`` (paper Fig 11b):
+    local max and sum, a pmax and a psum across the shards. The max is
+    held fixed (softmax does not depend on it), so only the sum's psum is
+    differentiated; its transpose is a psum of the cotangent."""
+    m_loc, m, s_loc, s = (f"{name}{_INTERNAL}{k}"
+                          for k in ("m_loc", "m", "s_loc", "s"))
+    return [
+        _Step(lambda v: torch.amax(v.detach(), dim=1, keepdim=True), (x,),
+              (m_loc,)),
+        _Step(lambda v: M.pmax(v, red), (m_loc,), (m,), collective=True),
+        _Step(lambda v, mv: torch.sum(torch.exp(v - mv), dim=1, keepdim=True),
+              (x, m), (s_loc,)),
+        _Step(lambda v: M.psum(v, red), (s_loc,), (s,), collective=True,
+              transpose=lambda g: M.psum(g, red)),
+        _Step(lambda v, mv, sv: torch.exp(v - mv) / sv, (x, m, s), (out,)),
+    ]
+
+
+def _xent_steps(op: LOp, ins: Tuple[str, ...], out: str,
+                red: Tuple[str, ...], axis_names, mesh_shape):
+    """``softmax_xent`` on vocab-split logits, ``(S(1), B) -> P(sum)``.
+
+    Each rank runs the xent kernel on its ``(rows, V / n)`` shard at its
+    vocab offset, giving ``(m, s, z)``; ``m`` is combined with a pmax
+    (held fixed, as ``local_stats_ref``'s stop-gradient), ``s`` rescaled
+    by ``exp(m - m_g)`` and psummed. The output is a true P(sum): the rank
+    at index 0 of the split axes adds ``log s_g + m_g`` and every rank
+    subtracts its own ``z`` (0 off-shard), so the ranks sum to ``log s_g +
+    m_g - z_label``. The rank-0 term is a multiply by 1 or 0, so every rank
+    differentiates ``s_g`` and runs the psum's transpose."""
+    local_c = op.inputs[0].shape[1] // math.prod(
+        size for name, size in zip(axis_names, mesh_shape) if name in red)
+    m, s, z, mg, sr, sg = (f"{op.name}{_INTERNAL}{k}"
+                           for k in ("m", "s", "z", "m_g", "s_r", "s_g"))
+
+    def stats(logits, labels):
+        offset = _shard_offset(red, axis_names, mesh_shape, local_c)
+        return xent_local_stats(logits.contiguous(), labels.contiguous(),
+                                offset)
+
+    def combine(s_g, m_g, z_loc):
+        first = float(all(M.axis_index(a) == 0 for a in red))
+        return ((torch.log(s_g) + m_g) * first - z_loc)[:, None]
+
+    return [
+        _Step(stats, ins, (m, s, z)),
+        _Step(lambda v: M.pmax(v, red), (m,), (mg,), collective=True),
+        _Step(lambda sv, mv, mgv: sv * torch.exp(mv - mgv), (s, m, mg),
+              (sr,)),
+        _Step(lambda v: M.psum(v, red), (sr,), (sg,), collective=True,
+              transpose=lambda g: M.psum(g, red)),
+        _Step(combine, (sg, mg, z), (out,)),
+    ]
+
+
+def _vocab_embedding(red: Tuple[str, ...], axis_names, mesh_shape):
+    """Embedding on a vocab-split table, ``(S(0), B) -> P(sum)``: each rank
+    looks up the ids in its row range and gives zeros for the rest."""
+    def f(table, ids):
+        local_v = table.shape[0]
+        local = ids.long() - _shard_offset(red, axis_names, mesh_shape,
+                                           local_v)
+        in_range = (local >= 0) & (local < local_v)
+        out = F.embedding(local.clamp(0, local_v - 1), table)
+        return torch.where(in_range[:, None], out, 0.0)
+    return f
+
+
+def _op_steps(op: LOp, ins: Tuple[str, ...], out: str,
+              in_sigs: Tuple[NdSbp, ...], axis_names, mesh_shape
+              ) -> List[_Step]:
+    """The steps of one op under its input signatures: one local step, or
+    local and collective steps where a split needs a combine across ranks
+    (as ``repro/core/lowering.py:61-159``)."""
+    kind = op.spec.name
+    if kind in ("softmax", "softmax_xent"):
+        red = _split_axes_for(in_sigs[0], 1, axis_names, mesh_shape)
+        if red and kind == "softmax":
+            return _softmax_steps(op.name, ins[0], out, red)
+        if red:
+            return _xent_steps(op, ins, out, red, axis_names, mesh_shape)
+    if kind == "embedding":
+        red = _split_axes_for(in_sigs[0], 0, axis_names, mesh_shape)
+        if red:
+            return [_Step(_vocab_embedding(red, axis_names, mesh_shape), ins,
+                          (out,))]
+    return [_Step(_local_fn(op), ins, (out,))]
+
+
 def _materialized(sig: NdSbp) -> NdSbp:
     """Partial-free storage signature: P components become B. Tensors that
     cross a program boundary (graph outputs, stage boundaries) are stored
@@ -147,47 +295,25 @@ def _materialized(sig: NdSbp) -> NdSbp:
 
 
 @dataclasses.dataclass
-class _OpStep:
-    """One lowered op: its local function, the boxing of each input from
-    its stored signature to the op's, and the epilogue boxing of its
-    output (``None`` where the signatures agree)."""
-
-    op: LOp
-    fn: Callable
-    in_names: Tuple[str, ...]
-    out_name: str
-    boxers: Tuple[Optional[Callable], ...]
-    epilogue: Optional[Callable]
-
-    def apply(self, args):
-        args = [b(v) if b is not None else v
-                for v, b in zip(args, self.boxers)]
-        out = self.fn(*args)
-        return self.epilogue(out) if self.epilogue is not None else out
-
-
-@dataclasses.dataclass
 class LocalProgram:
-    """A lowered (sub)graph: ``steps`` run in order from ``input_names`` to
-    ``output_names``. Calling it runs inference: one value per input in,
-    a tuple with one value per output back."""
+    """A lowered (sub)graph as one rank runs it: ``steps`` in order from
+    ``input_names`` to ``output_names``; output ``i`` is read from the
+    environment name ``out_keys[i]`` (its boundary-boxed copy where the
+    stored signature differs from the boundary's). Calling it runs
+    inference on one rank's shards (inside :func:`repro_torch.core.mesh
+    .spmd` on a mesh of several)."""
 
-    steps: List[_OpStep]
+    steps: List[_Step]
     input_names: Tuple[str, ...]
     output_names: Tuple[str, ...]
-    out_boxers: Tuple[Optional[Callable], ...]
-
-    def outputs(self, env: Dict[str, Any]) -> Tuple:
-        """The program's outputs from its environment, boxed from their
-        stored signatures to the boundary's."""
-        return tuple(env[n] if b is None else b(env[n])
-                     for n, b in zip(self.output_names, self.out_boxers))
+    out_keys: Tuple[str, ...]
 
     def __call__(self, *values) -> Tuple:
         env = dict(zip(self.input_names, values))
         for st in self.steps:
-            env[st.out_name] = st.apply([env[n] for n in st.in_names])
-        return self.outputs(env)
+            res = st.fn(*[env[n] for n in st.ins])
+            env.update(zip(st.outs, res if len(st.outs) > 1 else (res,)))
+        return tuple(env[k] for k in self.out_keys)
 
 
 def _lower_subgraph(graph: LogicalGraph, plan: Plan, ops: Sequence[LOp],
@@ -195,13 +321,14 @@ def _lower_subgraph(graph: LogicalGraph, plan: Plan, ops: Sequence[LOp],
                     out_tensors: Sequence[LTensor],
                     in_sbp: Dict[str, NdSbp],
                     out_sbp: Dict[str, NdSbp]) -> LocalProgram:
-    """The program running ``ops`` from ``in_tensors`` to ``out_tensors``.
+    """The program running ``ops`` from ``in_tensors`` to ``out_tensors``
+    (reference ``:172-229``).
 
     ``in_sbp``/``out_sbp`` give the *stored* (partial-free) signatures at
-    the boundary; inside, tensors follow the plan, and every place the
-    reference boxes gets a :func:`boxing_fn` (the identity here)."""
+    the boundary; inside, tensors follow the plan, partial values
+    included, and a boxing step sits at every op input, op epilogue and
+    boundary output whose signatures differ."""
     placement = graph.placement
-    _check_one_device(placement)
     axis_names = tuple(placement.axis_names)
     mesh_shape = tuple(placement.mesh_shape())
     for t in in_tensors:
@@ -211,41 +338,108 @@ def _lower_subgraph(graph: LogicalGraph, plan: Plan, ops: Sequence[LOp],
         if out_sbp[t.name].has_partial:
             raise ValueError(f"boundary output {t.name} stored as partial-value")
 
-    def box(have, want, t):
-        if have == want:
-            return None
-        return boxing_fn(have, want, axis_names, mesh_shape, t.shape)
+    def box(have, want, t, src, dst):
+        return _box_step(have, want, t, src, dst, axis_names, mesh_shape)
 
     cur_sbp = {t.name: in_sbp[t.name] for t in in_tensors}
-    steps: List[_OpStep] = []
+    steps: List[_Step] = []
     for op in ops:
         in_sigs = plan.op_in_sbp[op.name]
         raw_sig = plan.op_out_sbp[op.name]
         stored_sig = plan.tensor_sbp[op.output.name]
-        steps.append(_OpStep(
-            op=op, fn=_local_op(op, in_sigs, raw_sig, axis_names, mesh_shape),
-            in_names=tuple(t.name for t in op.inputs),
-            out_name=op.output.name,
-            boxers=tuple(box(cur_sbp[t.name], want, t)
-                         for t, want in zip(op.inputs, in_sigs)),
-            epilogue=box(raw_sig, stored_sig, op.output)))
-        cur_sbp[op.output.name] = stored_sig
+        ins = []
+        for i, (t, want) in enumerate(zip(op.inputs, in_sigs)):
+            st = box(cur_sbp[t.name], want, t, t.name,
+                     f"{t.name}{_INTERNAL}{op.name}.{i}")
+            if st is not None:
+                steps.append(st)
+            ins.append(t.name if st is None else st.outs[0])
+        out = op.output.name
+        epilogue = box(raw_sig, stored_sig, op.output,
+                       f"{out}{_INTERNAL}raw", out)
+        steps += _op_steps(op, tuple(ins),
+                           out if epilogue is None else epilogue.ins[0],
+                           in_sigs, axis_names, mesh_shape)
+        if epilogue is not None:
+            steps.append(epilogue)
+        cur_sbp[out] = stored_sig
     # boundary boxing (e.g. P -> B materialization)
-    out_boxers = tuple(box(cur_sbp[t.name], out_sbp[t.name], t)
-                       for t in out_tensors)
+    out_keys = []
+    for t in out_tensors:
+        st = box(cur_sbp[t.name], out_sbp[t.name], t, t.name,
+                 f"{t.name}{_INTERNAL}out")
+        if st is not None:
+            steps.append(st)
+        out_keys.append(t.name if st is None else st.outs[0])
     return LocalProgram(steps, tuple(t.name for t in in_tensors),
-                        tuple(t.name for t in out_tensors), out_boxers)
+                        tuple(t.name for t in out_tensors), tuple(out_keys))
 
 
-def _to_device(v, device) -> torch.Tensor:
-    """A graph input as a tensor on ``device`` (numpy arrays and tensors
-    alike; no copy when it is already there)."""
-    return torch.as_tensor(v, device=device)
+def _resolve_mesh(graph: LogicalGraph, mesh=None, device=None):
+    """The mesh a lowering runs on: ``mesh`` as given (its placement must
+    be the graph's), else every rank of the graph's placement on
+    ``device`` (None: the card)."""
+    if mesh is None:
+        return graph.placement.to_mesh(device)
+    if not isinstance(mesh, DeviceMesh):
+        raise ValueError(f"mesh must be a DeviceMesh (placement.to_mesh()), "
+                         f"got {type(mesh).__name__}")
+    pl = graph.placement
+    if (mesh.axis_names, mesh.shape) != (tuple(pl.axis_names),
+                                         tuple(pl.axis_sizes)):
+        raise ValueError(f"{mesh} does not match the graph's placement {pl}")
+    if device is not None and any(d != torch.device(device)
+                                  for d in mesh.devices):
+        raise ValueError(f"device={device} contradicts {mesh}")
+    return mesh
 
 
-def lower_plan(graph: LogicalGraph, plan: Plan,
+def _resolve_meshes(graph: LogicalGraph, num_stages: int, mesh=None,
+                    stage_meshes: Optional[Sequence] = None, device=None):
+    """One mesh per stage: ``stage_meshes`` (the paper's placement of each
+    stage on its own ranks), or ``mesh`` (or the default one) shared."""
+    if stage_meshes is None:
+        return [_resolve_mesh(graph, mesh, device)] * num_stages
+    if mesh is not None:
+        raise ValueError("pass mesh= or stage_meshes=, not both")
+    if len(stage_meshes) != num_stages:
+        raise ValueError(f"need {num_stages} stage meshes, "
+                         f"got {len(stage_meshes)}")
+    return [_resolve_mesh(graph, m, device) for m in stage_meshes]
+
+
+def relay(shards: Sequence[torch.Tensor], src: DeviceMesh,
+          dst: DeviceMesh) -> List[torch.Tensor]:
+    """Per-rank values moved from one stage's mesh onto the next one's,
+    rank ``r`` to rank ``r`` (the explicit cross-stage send), as copies
+    that ``dst`` owns; the values themselves where both stages share a
+    mesh."""
+    if src is dst:
+        return list(shards)
+    if src.shape != dst.shape:
+        raise ValueError(f"cannot relay between {src} and {dst}")
+    return [t.to(d, copy=True) for t, d in zip(shards, dst.devices)]
+
+
+def run_ranks(mesh: DeviceMesh, fn: Callable, per_rank_args: Sequence,
+              n_out: int) -> Tuple[List, ...]:
+    """``fn`` once per rank of ``mesh`` over per-rank argument lists; its
+    ``n_out`` results regrouped as one per-rank list each."""
+    outs = spmd(fn, mesh)(*per_rank_args)
+    return tuple([o[i] for o in outs] for i in range(n_out))
+
+
+def sync_mesh(mesh: DeviceMesh) -> None:
+    """Wait for the queued work of the mesh's cards (a no-op on the CPU)."""
+    for d in set(mesh.devices):
+        if d.type == "cuda":
+            torch.cuda.current_stream(d).synchronize()
+
+
+def lower_plan(graph: LogicalGraph, plan: Plan, mesh=None, *,
                device=None) -> "PhysicalProgram":
-    """The whole graph as one program (the monolithic inference engine)."""
+    """The whole graph as one program (the monolithic inference engine) on
+    ``mesh`` (default: the graph's placement, every rank on ``device``)."""
     for t in graph.inputs:
         if plan.tensor_sbp[t.name].has_partial:
             raise ValueError(f"graph input {t.name} planned as partial-value")
@@ -258,25 +452,33 @@ def lower_plan(graph: LogicalGraph, plan: Plan,
                 for t in list(graph.inputs) + sinks}
     program = _lower_subgraph(graph, plan, graph.topo_ops(), graph.inputs,
                               sinks, boundary, boundary)
-    return PhysicalProgram(graph, plan, program, sinks, device)
+    return PhysicalProgram(graph, plan, program, sinks,
+                           _resolve_mesh(graph, mesh, device))
 
 
 class PhysicalProgram:
     """Executable physical graph: the lowered program plus metadata.
 
-    Calling it returns a tuple of sink values in ``self.sinks`` order (also
-    for a single sink), computed without autograd on ``device``."""
+    Calling it places the global inputs on the mesh by their planned
+    signatures, runs the program on every rank without autograd, and
+    returns a tuple of global sink values in ``self.sinks`` order (also for
+    a single sink)."""
 
-    def __init__(self, graph, plan, program: LocalProgram, sinks, device=None):
+    def __init__(self, graph, plan, program: LocalProgram, sinks,
+                 mesh: DeviceMesh):
         self.graph, self.plan = graph, plan
         self.program = program
         self.sinks = sinks
-        self.device = device
+        self.mesh = mesh
 
     def __call__(self, *global_inputs) -> Tuple:
+        sbp = self.plan.tensor_sbp
         with torch.inference_mode():
-            return self.program(*(_to_device(v, self.device)
-                                  for v in global_inputs))
+            args = [place(v, self.mesh, sbp[t.name])
+                    for t, v in zip(self.graph.inputs, global_inputs)]
+            outs = run_ranks(self.mesh, self.program, args, len(self.sinks))
+            return tuple(assemble(o, self.mesh, sbp[t.name])
+                         for o, t in zip(outs, self.sinks))
 
 
 # ---------------------------------------------------------------------------
@@ -288,19 +490,28 @@ class PhysicalProgram:
 class StageProgram:
     """One lowered pipeline stage: a callable plus its interface.
 
-    ``fn(*values)`` takes one value per ``input_names`` entry (graph inputs
-    and/or boundary tensors from earlier stages) and returns a tuple with
-    one value per ``output_names`` entry (boundary tensors and/or sinks)."""
+    ``fn(*values)`` takes one per-rank list per ``input_names`` entry
+    (graph inputs and/or boundary tensors from earlier stages) and returns
+    a tuple with one per-rank list per ``output_names`` entry (boundary
+    tensors and/or sinks), running on ``mesh``; ``in_sbp`` holds each
+    input's stored signature."""
 
     index: int
     fn: Callable
     input_names: Tuple[str, ...]
     output_names: Tuple[str, ...]
-    device: Any = None
+    mesh: DeviceMesh
+    in_sbp: Dict[str, NdSbp]
 
-    def place_inputs(self, values: Sequence) -> List:
-        """The stage's inputs on its device (a no-op when already there)."""
-        return [_to_device(v, self.device) for v in values]
+    def place(self, name: str, value) -> List[torch.Tensor]:
+        """A global input value as this stage's per-rank shards."""
+        return place(value, self.mesh, self.in_sbp[name])
+
+
+def _stage_fn(program: LocalProgram, mesh: DeviceMesh) -> Callable:
+    def fn(*values):
+        return run_ranks(mesh, program, values, len(program.output_names))
+    return fn
 
 
 class StagedProgram:
@@ -330,12 +541,18 @@ class StagedProgram:
         if len(global_inputs) != len(self.graph.inputs):
             raise ValueError(f"expected {len(self.graph.inputs)} inputs, "
                              f"got {len(global_inputs)}")
-        env = {t.name: v for t, v in zip(self.graph.inputs, global_inputs)}
+        given = dict(zip(self.input_names, global_inputs))
+        env: Dict[str, Tuple[List, DeviceMesh]] = {}
         with torch.inference_mode():
             for stage in self.stages:
-                args = stage.place_inputs([env[n] for n in stage.input_names])
-                env.update(zip(stage.output_names, stage.fn(*args)))
-        return tuple(env[t.name] for t in self.sinks)
+                args = [stage.place(n, given[n]) if n in given
+                        else relay(env[n][0], env[n][1], stage.mesh)
+                        for n in stage.input_names]
+                env.update((n, (o, stage.mesh)) for n, o in
+                           zip(stage.output_names, stage.fn(*args)))
+            return tuple(assemble(env[t.name][0], env[t.name][1],
+                                  self.boundary_sbp[t.name])
+                         for t in self.sinks)
 
 
 @dataclasses.dataclass
@@ -400,11 +617,18 @@ def _stage_interfaces(graph: LogicalGraph, plan: Plan,
 
 
 def lower_stages(graph: LogicalGraph, plan: Plan, partition: StagePartition,
+                 mesh=None, stage_meshes: Optional[Sequence] = None, *,
                  device=None) -> StagedProgram:
-    """Lower each pipeline stage of ``partition`` independently, every stage
-    on ``device`` (stages share the card; pipelining overlaps host work and
-    microbatches). The reference's ``stage_meshes`` (one device group per
-    stage) is ROADMAP Queue 1 item 8."""
+    """Lower each pipeline stage of ``partition`` independently.
+
+    ``mesh`` lowers every stage onto the same ranks (stages share them;
+    pipelining overlaps host work and microbatches); ``stage_meshes`` gives
+    one mesh per stage, the same axes on other ranks (the paper's placement
+    of one stage per device group), and boundary tensors are relayed onto
+    the next stage's ranks. Default: every stage on the graph placement's
+    ranks on ``device``."""
+    meshes = _resolve_meshes(graph, partition.num_stages, mesh, stage_meshes,
+                             device)
     sinks, boundary_sbp, interfaces = _stage_interfaces(graph, plan, partition)
     stages: List[StageProgram] = []
     for s, iface in enumerate(interfaces):
@@ -412,71 +636,111 @@ def lower_stages(graph: LogicalGraph, plan: Plan, partition: StagePartition,
                                   iface.out_tensors, iface.in_sbp,
                                   iface.out_sbp)
         stages.append(StageProgram(
-            index=s, fn=program, input_names=program.input_names,
-            output_names=program.output_names, device=device))
+            index=s, fn=_stage_fn(program, meshes[s]),
+            input_names=program.input_names,
+            output_names=program.output_names, mesh=meshes[s],
+            in_sbp=dict(iface.in_sbp)))
     return StagedProgram(graph, plan, partition, stages, sinks, boundary_sbp)
 
 
 # ---------------------------------------------------------------------------
-# Training lowering (paper §4.3 + the MPMD fwd/bwd decomposition). The
-# forward of a stage records each op on detached leaves; the backward walks
-# that tape in reverse. Activations stay stage-local (inside the tape the
-# runtime stashes in the forward actor's out register) while cotangents flow
-# backward across stage boundaries. The runtime half lives in
-# repro_torch.runtime.pipeline.
+# Training lowering (paper §4.3 + the MPMD fwd/bwd decomposition). Each
+# rank's forward of a stage records its steps on detached leaves (an
+# OpTape per rank); the backward walks that tape in reverse on the rank's
+# own thread: autograd for the local steps, the explicit transpose for the
+# collective ones, so no autograd node ever waits at a rendezvous.
+# Activations stay stage-local (inside the tapes the runtime stashes in the
+# forward actor's out register) while cotangents flow backward across stage
+# boundaries. The runtime half lives in repro_torch.runtime.pipeline.
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class OpTape:
-    """What one microbatch's forward through a program keeps for its
-    backward: per differentiated op, its output name, its input leaves
-    ``((name, leaf), ...)`` and its output with the op's autograd graph."""
+    """What one microbatch's forward through a program keeps on one rank
+    for its backward, one record per differentiated step: ``(outs, leaves,
+    values)`` for a local step -- its output names, input leaves ``((name,
+    leaf), ...)`` and outputs with the step's autograd graph -- and
+    ``(out, in, transpose, like)`` for a collective step."""
 
-    records: List[Tuple[str, Tuple[Tuple[str, torch.Tensor], ...],
-                        torch.Tensor]]
+    records: List[Tuple]
 
 
 def _taped_forward(program: LocalProgram, diff: set, values: Sequence):
-    """Run ``program`` recording an :class:`OpTape`: an op's inputs named in
-    ``diff`` enter as fresh leaves (one per distinct name) that require
-    grad, its output leaves the op detached. Returns ``(outputs, tape)``."""
+    """Run ``program`` on one rank recording an :class:`OpTape`. A value is
+    differentiated when it is a graph tensor named in ``diff`` or an
+    internal value computed from one; a local step's differentiated inputs
+    enter as fresh leaves (one per distinct name) that require grad, and
+    its outputs leave it detached. Returns ``(outputs, tape)``."""
     env = dict(zip(program.input_names, values))
-    records = []
+    live = {n for n in program.input_names if n in diff}
+    records: List[Tuple] = []
     with torch.enable_grad():
         for st in program.steps:
+            if st.collective:
+                src, (dst,) = st.ins[0], st.outs
+                out = st.fn(env[src])
+                env[dst] = out
+                if st.transpose is not None and src in live:
+                    if dst in diff or _INTERNAL in dst:
+                        live.add(dst)
+                    records.append((dst, src, st.transpose,
+                                    (out.shape, out.dtype, out.device)))
+                continue
             leaves: Dict[str, torch.Tensor] = {}
             args = []
-            for n in st.in_names:
-                if n in diff:
+            for n in st.ins:
+                if n in live:
                     if n not in leaves:
                         leaves[n] = env[n].detach().requires_grad_(True)
                     args.append(leaves[n])
                 else:
                     args.append(env[n])
-            out = st.apply(args)
-            if leaves and out.requires_grad:
-                records.append((st.out_name, tuple(leaves.items()), out))
-            env[st.out_name] = out.detach()
-    return program.outputs(env), OpTape(records)
+            res = st.fn(*args)
+            outs = tuple(res) if len(st.outs) > 1 else (res,)
+            if leaves and any(o.requires_grad for o in outs):
+                records.append((st.outs, tuple(leaves.items()), outs))
+                live.update(n for n, o in zip(st.outs, outs)
+                            if o.requires_grad
+                            and (n in diff or _INTERNAL in n))
+            env.update((n, o.detach()) for n, o in zip(st.outs, outs))
+    return tuple(env[k] for k in program.out_keys), OpTape(records)
 
 
 def _taped_backward(tape: OpTape, cotangents: Dict[str, torch.Tensor],
                     wanted: Sequence[str]) -> Tuple:
-    """Reverse-mode over ``tape``: start from ``cotangents`` (output seeds
-    and the cotangents later stages sent for this program's inputs), walk
-    the ops in reverse topological order and add each op's contribution to
-    its inputs' cotangents in that order. Returns one cotangent per
-    ``wanted`` name (``None`` where nothing flowed)."""
+    """Reverse-mode over one rank's ``tape``: start from ``cotangents``
+    (output seeds and the cotangents later stages sent for this program's
+    inputs, keyed by environment name), walk the steps in reverse and add
+    each step's contribution to its inputs' cotangents in that order.
+    Every collective record runs its transpose (on zeros where no
+    cotangent reached it), so all ranks call the same collectives. Returns
+    one cotangent per ``wanted`` name (``None`` where nothing flowed)."""
     cot = {n: c for n, c in cotangents.items() if c is not None}
-    for out_name, leaves, out in reversed(tape.records):
-        g = cot.pop(out_name, None)
-        if g is None:
+
+    def add(n, g):
+        cot[n] = g if n not in cot else cot[n] + g
+
+    for rec in reversed(tape.records):
+        if len(rec) == 4:
+            dst, src, transpose, like = rec
+            g = cot.pop(dst, None)
+            if g is None:
+                shape, dtype, device = like
+                g = torch.zeros(shape, dtype=dtype, device=device)
+            add(src, transpose(g))
             continue
-        grads = torch.autograd.grad(out, [leaf for _, leaf in leaves], g,
-                                    allow_unused=True)
+        outs, leaves, values = rec
+        pairs = [(v, g) for v, g in zip(values, (cot.pop(n, None)
+                                                  for n in outs))
+                 if g is not None and v.requires_grad]
+        if not pairs:
+            continue
+        grads = torch.autograd.grad([v for v, _ in pairs],
+                                    [leaf for _, leaf in leaves],
+                                    [g for _, g in pairs], allow_unused=True)
         for (n, _), gi in zip(leaves, grads):
             if gi is not None:
-                cot[n] = gi if n not in cot else cot[n] + gi
+                add(n, gi)
     tape.records.clear()
     return tuple(cot.get(n) for n in wanted)
 
@@ -519,8 +783,8 @@ class OptimizerSpec:
     *global*-norm clipping: the pipeline wires a ``norm`` actor that sums
     per-stage squared-norm partials (P->B boxing expressed as an actor) and
     broadcasts the clip scale to every ``opt{s}``. AdamW carries an
-    :class:`repro_torch.optim.adamw.AdamWState` per stage -- the second
-    register stream.
+    :class:`repro_torch.optim.adamw.AdamWState` per stage and rank -- the
+    second register stream.
 
     The update runs in place: the params and moments handed to
     :meth:`update` are the ones it returns, updated. The ZeRO fields
@@ -597,6 +861,31 @@ class OptimizerSpec:
                                weight_decay=self.weight_decay)
         return params, AdamWState(new_step, state.mu, state.nu)
 
+    def init_rank_states(self, shards: Dict[str, Sequence[torch.Tensor]],
+                         nranks: int) -> Optional[List]:
+        """One fresh state per rank over its shards of ``shards`` (None for
+        a stateless optimizer)."""
+        if not self.stateful:
+            return None
+        return [self.init_state({n: v[r] for n, v in shards.items()})
+                for r in range(nranks)]
+
+    def update_ranks(self, shards: Dict[str, List[torch.Tensor]],
+                     grads: Dict[str, List[torch.Tensor]],
+                     states: Optional[List], lr_now: float,
+                     nranks: int) -> Optional[List]:
+        """:meth:`update` on every rank's shards, in place; returns the new
+        per-rank states. Replicas of a broadcast param see the same
+        gradient bits, so they stay bitwise equal."""
+        new_states = []
+        for r in range(nranks):
+            _, st = self.update({n: v[r] for n, v in shards.items()},
+                                {n: grads[n][r] for n in shards},
+                                None if states is None else states[r],
+                                lr_now)
+            new_states.append(st)
+        return new_states if self.stateful else None
+
     def split_state(self, state, stage_param_names: Dict[int, Sequence[str]]):
         """Split a merged optimizer state into per-stage states keyed by
         stage index (``stage_param_names``: stage -> its param names);
@@ -630,14 +919,87 @@ class OptimizerSpec:
         return AdamWState(states[0].step, mu, nu)
 
 
-def clip_grads(grads: Dict[str, torch.Tensor], order: Sequence[str],
-               grad_clip: float):
-    """Global-norm clipping as the pipeline does it: per-tensor partials,
-    summed in ``order`` on the host, one scale for every tensor. Returns
+def global_state(states: Optional[Sequence], mesh: DeviceMesh,
+                 sbp: Dict[str, NdSbp]):
+    """Per-rank optimizer states as one state over global tensors (each
+    moment assembled by its param's signature); the state itself on a
+    one-rank mesh."""
+    if states is None:
+        return None
+    if mesh.size == 1:
+        return states[0]
+    first = states[0]
+    return AdamWState(
+        first.step,
+        {n: assemble([st.mu[n] for st in states], mesh, sbp[n])
+         for n in first.mu},
+        {n: assemble([st.nu[n] for st in states], mesh, sbp[n])
+         for n in first.nu})
+
+
+def rank_states(state, shards: Dict[str, List[torch.Tensor]],
+                mesh: DeviceMesh, sbp: Dict[str, NdSbp]) -> List:
+    """A global optimizer state cut into one state per rank over the
+    params in ``shards`` (each moment placed by its param's signature)."""
+    mu = {n: place(state.mu[n], mesh, sbp[n]) for n in shards}
+    nu = {n: place(state.nu[n], mesh, sbp[n]) for n in shards}
+    return [AdamWState(state.step, {n: v[r] for n, v in mu.items()},
+                       {n: v[r] for n, v in nu.items()})
+            for r in range(mesh.size)]
+
+
+def accumulate(acc: Optional[List[torch.Tensor]],
+               g: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Add one microbatch's per-rank gradient into the float32 sums, in
+    place; the first one becomes owned float32 copies. The acc actors and
+    the monolithic engine sum this way, in microbatch order."""
+    if acc is None:
+        return [x.to(torch.float32, copy=True) for x in g]
+    for a, x in zip(acc, g):
+        a.add_(x.float())
+    return acc
+
+
+def box_grads(mesh: DeviceMesh, graph: LogicalGraph, plan: Plan,
+              grads: Dict[str, List[torch.Tensor]]
+              ) -> Dict[str, List[torch.Tensor]]:
+    """Per-rank gradient sums moved from their cotangent layout to their
+    params' signatures: a broadcast param's partial sums are all-reduced
+    (P -> B), a split one's shards stay."""
+    axis_names = tuple(graph.placement.axis_names)
+    shape = {t.name: t.shape for t in graph.inputs}
+    fns = {}
+    for n in grads:
+        sig = plan.tensor_sbp[n]
+        cot = cotangent_sbp(sig)
+        if not boxing_is_identity(cot, sig, mesh.shape):
+            fns[n] = boxing_fn(cot, sig, axis_names, mesh.shape, shape[n])
+    if not fns:
+        return grads
+    names = list(fns)
+    boxed = run_ranks(mesh, lambda *gs: tuple(fns[n](g) for n, g in
+                                              zip(names, gs)),
+                      [grads[n] for n in names], len(names))
+    return {**grads, **dict(zip(names, boxed))}
+
+
+def grad_sqnorms(mesh: DeviceMesh, plan: Plan,
+                 grads: Dict[str, List[torch.Tensor]]) -> Dict[str, Any]:
+    """Each param's squared gradient norm over its distinct shards (a
+    broadcast param counted once), the P contribution to the global norm."""
+    return sqnorm_partials_sharded(
+        grads, {n: mesh.distinct_ranks(plan.tensor_sbp[n]) for n in grads})
+
+
+def clip_grads(grads: Dict[str, List[torch.Tensor]], order: Sequence[str],
+               grad_clip: float, mesh: DeviceMesh, plan: Plan):
+    """Global-norm clipping as the pipeline does it: per-param partials,
+    summed in ``order`` on the host, one scale for every shard. Returns
     ``(clipped grads, pre-clip norm)``."""
-    norm = global_norm_from_partials(sqnorm_partials(grads), order)
+    norm = global_norm_from_partials(grad_sqnorms(mesh, plan, grads), order)
     scale = clip_scale(norm, grad_clip)
-    return {n: scale_grad(g, scale) for n, g in grads.items()}, norm
+    return {n: [scale_grad(g, scale) for g in gs]
+            for n, gs in grads.items()}, norm
 
 
 def split_microbatches(inputs: Dict[str, Any],
@@ -708,22 +1070,37 @@ def _resolve_params(graph: LogicalGraph, params) -> List[LTensor]:
     return out
 
 
+def loss_seed(mesh: DeviceMesh, sbp: NdSbp,
+              loss: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The per-rank backward seed of a loss laid out as ``sbp``: ones (the
+    objective is the *sum* of the loss tensor), in the cotangent layout --
+    on a broadcast axis only the rank at index 0 seeds it (B -> P(sum)),
+    so replicas are not counted once each."""
+    out = []
+    for r, v in enumerate(loss):
+        first = all(c == 0 for c, comp in zip(mesh.coords(r), sbp)
+                    if comp.is_broadcast)
+        out.append(torch.ones_like(v) if first else torch.zeros_like(v))
+    return out
+
+
 @dataclasses.dataclass
 class TrainStageProgram:
     """One pipeline stage of a training graph: forward, backward, interface.
 
-    ``fwd(*values)`` takes one value per ``input_names`` entry and returns
-    ``(outputs, tape)``: the stage outputs (one per ``output_names``) and
-    the :class:`OpTape` holding the stage-local activations, which the actor
-    runtime stashes in the forward actor's out register so it is released
-    exactly when the backward actor acks.
+    ``fwd(*values)`` takes one per-rank list per ``input_names`` entry and
+    returns ``(outputs, tapes)``: the stage outputs (one per-rank list per
+    ``output_names``) and one :class:`OpTape` per rank holding the
+    stage-local activations, which the actor runtime stashes in the
+    forward actor's out register so they are released exactly when the
+    backward actor acks.
 
-    ``bwd(tape, cotangents)`` takes that tape and the seeds of
-    :meth:`output_cotangents`, and returns one cotangent per
-    ``diff_input_names`` entry: gradients for this stage's params,
-    cotangents for boundary activations from earlier stages (``None`` where
-    nothing flowed). ``bwd`` is None for a stage with no differentiable
-    inputs."""
+    ``bwd(tapes, cotangents)`` takes those tapes and the seeds of
+    :meth:`output_cotangents`, and returns one per-rank list per
+    ``diff_input_names`` entry, in its cotangent layout: gradients for
+    this stage's params, cotangents for boundary activations from earlier
+    stages (``None`` where nothing flowed). ``bwd`` is None for a stage
+    with no differentiable inputs."""
 
     index: int
     fwd: Callable
@@ -732,23 +1109,27 @@ class TrainStageProgram:
     output_names: Tuple[str, ...]
     diff_input_names: Tuple[str, ...]
     param_names: Tuple[str, ...]
-    device: Any = None
+    mesh: DeviceMesh
+    in_sbp: Dict[str, NdSbp]
+    out_sbp: Dict[str, NdSbp]
 
-    def place_inputs(self, values: Sequence) -> List:
-        return [_to_device(v, self.device) for v in values]
+    def place(self, name: str, value) -> List[torch.Tensor]:
+        """A global input value as this stage's per-rank shards."""
+        return place(value, self.mesh, self.in_sbp[name])
 
     def output_cotangents(self, outputs: Dict[str, Any],
                           cotangents: Dict[str, Any],
-                          loss_name: str) -> Dict[str, torch.Tensor]:
-        """The backward seeds of this stage: ones for the loss sink (the
-        objective is the *sum* of the loss tensor over each microbatch),
-        the incoming cotangent for every output consumed downstream, and
-        for every boundary input that later stages also consume -- its sum
-        so far, which this stage's own contributions then extend."""
+                          loss_name: str) -> Dict[str, List[torch.Tensor]]:
+        """The backward seeds of this stage: ones for the loss sink (see
+        :func:`loss_seed`), the incoming cotangent for every output
+        consumed downstream, and for every boundary input that later
+        stages also consume -- its sum so far, which this stage's own
+        contributions then extend."""
         seeds = {}
         for name in self.output_names:
             if name == loss_name:
-                seeds[name] = torch.ones_like(outputs[name])
+                seeds[name] = loss_seed(self.mesh, self.out_sbp[name],
+                                        outputs[name])
             elif cotangents.get(name) is not None:
                 seeds[name] = cotangents[name]
         for name in self.diff_input_names:
@@ -769,7 +1150,7 @@ class TrainStagedProgram:
                  partition: StagePartition, stages: List[TrainStageProgram],
                  loss: LTensor, param_names: Tuple[str, ...],
                  boundary_sbp: Dict[str, NdSbp],
-                 optimizer: Optional[OptimizerSpec] = None, device=None):
+                 optimizer: Optional[OptimizerSpec] = None):
         self.graph, self.plan, self.partition = graph, plan, partition
         self.stages = stages
         self.loss = loss
@@ -777,7 +1158,6 @@ class TrainStagedProgram:
         self.boundary_sbp = boundary_sbp
         self.opt_update = sgd_update
         self.optimizer = optimizer
-        self.device = device
 
     @property
     def num_stages(self) -> int:
@@ -805,59 +1185,95 @@ class TrainStagedProgram:
         """Sequential (non-actor) execution of one training step.
 
         Runs every microbatch through all forward stages, then all backward
-        stages, accumulating gradients in float32 in microbatch order, and
-        applies the optimizer to copies of the params (``inputs`` stays as
-        it was). Returns ``(loss, grads, new_params)``, or with an optimizer
-        in play (``optimizer=`` or the program's) ``(loss, grads,
-        new_params, new_state)`` with ``grads`` post-clip. The lr schedule
-        resolves at ``step_index`` (default: ``opt_state.step`` when
-        stateful, else 0)."""
-        inputs = {n: _to_device(v, self.device) for n, v in inputs.items()}
+        stages, accumulating gradients in float32 per rank in microbatch
+        order, and applies the optimizer to copies of the params (``inputs``
+        stays as it was). Returns ``(loss, grads, new_params)``, or with an
+        optimizer in play (``optimizer=`` or the program's) ``(loss, grads,
+        new_params, new_state)`` with ``grads`` post-clip, all global. The
+        lr schedule resolves at ``step_index`` (default: ``opt_state.step``
+        when stateful, else 0)."""
+        by_stage = {st.index: st for st in self.stages}
+        home = {n: by_stage[self.stage_of_param(n)] for n in self.param_names}
         chunks = split_microbatches(inputs, microbatch_inputs,
                                     num_microbatches)
         mb_names = set(microbatch_inputs)
         loss_total = None
-        grads: Dict[str, torch.Tensor] = {}
+        grads: Dict[str, List[torch.Tensor]] = {}
         for chunk in chunks:
-            env = {n: (chunk[n] if n in mb_names else inputs[n])
-                   for n in self.input_names}
+            env: Dict[str, Tuple[List, DeviceMesh]] = {}
             tapes = {}
             for st in self.stages:
-                outs, tape = st.fwd(*[env[n] for n in st.input_names])
-                env.update(zip(st.output_names, outs))
+                args = [relay(*env[n], st.mesh) if n in env
+                        else st.place(n, chunk[n] if n in mb_names
+                                      else inputs[n])
+                        for n in st.input_names]
+                outs, tape = st.fwd(*args)
+                env.update((n, (o, st.mesh))
+                           for n, o in zip(st.output_names, outs))
                 tapes[st.index] = tape
-            cots: Dict[str, torch.Tensor] = {}
+            cots: Dict[str, Tuple[List, DeviceMesh]] = {}
             for st in reversed(self.stages):
                 if st.bwd is None:
                     continue
-                seeds = st.output_cotangents(env, cots, self.loss_name)
+                outputs = {n: env[n][0] for n in st.output_names}
+                seeds = st.output_cotangents(
+                    outputs, {n: relay(*c, st.mesh) for n, c in cots.items()},
+                    self.loss_name)
                 in_cots = st.bwd(tapes[st.index], seeds)
                 for name, c in zip(st.diff_input_names, in_cots):
                     if c is None:
                         continue
                     if name in st.param_names:
-                        c32 = c.float()
-                        grads[name] = (grads[name] + c32 if name in grads
-                                       else c32)
+                        grads[name] = accumulate(grads.get(name), c)
                     else:
-                        cots[name] = c
-            ls = torch.sum(env[self.loss_name])
+                        cots[name] = (c, st.mesh)
+            loss_shards, loss_mesh = env[self.loss_name]
+            ls = torch.sum(assemble(loss_shards, loss_mesh,
+                                    self.boundary_sbp[self.loss_name]))
             loss_total = ls if loss_total is None else loss_total + ls
-        params = {n: inputs[n].clone() for n in self.param_names}
+        grads = {n: box_grads(home[n].mesh, self.graph, self.plan,
+                              {n: grads[n]})[n] for n in self.param_names}
+        params = {n: home[n].place(n, torch.as_tensor(inputs[n]).clone())
+                  for n in self.param_names}
         opt = optimizer if optimizer is not None else self.optimizer
+
+        def to_global(d):
+            return {n: assemble(v, home[n].mesh, self.plan.tensor_sbp[n])
+                    for n, v in d.items()}
         if opt is None:
-            new_params = {n: self.opt_update(params[n], grads[n], lr)
-                          for n in self.param_names}
-            return loss_total, grads, new_params
+            for n in self.param_names:
+                for w, g in zip(params[n], grads[n]):
+                    self.opt_update(w, g, lr)
+            return loss_total, to_global(grads), to_global(params)
         if opt.grad_clip:
-            grads, _ = clip_grads(grads, self.param_names, opt.grad_clip)
-        if opt.stateful and opt_state is None:
-            opt_state = opt.init_state(params)
+            partials = {}
+            for st in self.stages:
+                partials.update(grad_sqnorms(
+                    st.mesh, self.plan,
+                    {n: grads[n] for n in st.param_names}))
+            scale = clip_scale(global_norm_from_partials(
+                partials, self.param_names), opt.grad_clip)
+            grads = {n: [scale_grad(g, scale) for g in gs]
+                     for n, gs in grads.items()}
         if step_index is None:
             step_index = int(opt_state.step) if opt_state is not None else 0
-        new_params, new_state = opt.update(params, grads, opt_state,
-                                           opt.lr_at(step_index))
-        return loss_total, grads, new_params, new_state
+        new_states = []
+        for st in self.stages:
+            if not st.param_names:
+                continue
+            mine = {n: params[n] for n in st.param_names}
+            if opt_state is None or not opt.stateful:
+                states = opt.init_rank_states(mine, st.mesh.size)
+            else:
+                states = rank_states(opt_state, mine, st.mesh,
+                                     self.plan.tensor_sbp)
+            states = opt.update_ranks(
+                mine, {n: grads[n] for n in st.param_names}, states,
+                opt.lr_at(step_index), st.mesh.size)
+            new_states.append(global_state(states, st.mesh,
+                                           self.plan.tensor_sbp))
+        return (loss_total, to_global(grads), to_global(params),
+                opt.merge_states(new_states))
 
 
 def _diff_names(graph: LogicalGraph, loss_t: LTensor,
@@ -867,33 +1283,50 @@ def _diff_names(graph: LogicalGraph, loss_t: LTensor,
     return graph.downstream_of(param_names) & graph.ancestors(loss_t)
 
 
-def _train_program(program: LocalProgram, diff: set):
-    """(fwd, bwd) over one lowered program: the taped forward and its
-    reverse, the cotangents wanted being those of the differentiable
-    inputs."""
+def _train_program(program: LocalProgram, diff: set, mesh: DeviceMesh):
+    """(fwd, bwd) over one lowered program on ``mesh``: per rank, the taped
+    forward and its reverse, the cotangents wanted being those of the
+    differentiable inputs."""
     diff_in = tuple(n for n in program.input_names if n in diff)
+    n_out = len(program.output_names)
     if not diff_in:
         def fwd_nodiff(*ins):
             with torch.no_grad():
-                return program(*ins), None
+                return run_ranks(mesh, program, ins, n_out), None
         return fwd_nodiff, None, diff_in
+    key = dict(zip(program.output_names, program.out_keys))
 
     def fwd(*ins):
-        return _taped_forward(program, diff, ins)
+        outs = spmd(lambda *v: _taped_forward(program, diff, v), mesh)(*ins)
+        return (tuple([o[0][i] for o in outs] for i in range(n_out)),
+                [o[1] for o in outs])
 
-    def bwd(tape, cotangents):
-        return _taped_backward(tape, cotangents, diff_in)
+    def bwd(tapes, cotangents):
+        names = list(cotangents)
+
+        def rank_bwd(tape, *cots):
+            return _taped_backward(
+                tape, {key.get(n, n): c for n, c in zip(names, cots)},
+                diff_in)
+        per_rank = spmd(rank_bwd, mesh)(tapes, *[cotangents[n]
+                                                  for n in names])
+        return tuple(None if all(p[i] is None for p in per_rank)
+                     else [p[i] for p in per_rank]
+                     for i in range(len(diff_in)))
     return fwd, bwd, diff_in
 
 
 def lower_train_plan(graph: LogicalGraph, plan: Plan, params, loss=None,
-                     device=None) -> Callable:
+                     mesh=None, *, device=None) -> Callable:
     """Monolithic training program -- the reference the pipeline is checked
-    against. Returns ``fn(*graph_input_values) -> (loss_vec, grads)`` where
-    ``loss_vec`` is the (unreduced) loss sink and ``grads`` holds
-    ``d(sum(loss_vec))/d(param)`` for each param, in ``params`` order. It
-    runs the same taped forward and backward as the pipelined stages over
-    the whole graph, seeding ``ones_like(loss_vec)``."""
+    against. Returns ``fn(*graph_input_shards) -> (loss_vec, grads)``,
+    every argument and result a per-rank list on the mesh: ``loss_vec`` is
+    the (unreduced) loss sink and ``grads`` holds ``d(sum(loss_vec))/
+    d(param)`` for each param, in ``params`` order and in its cotangent
+    layout (:func:`box_grads` takes it to the param's). It runs the same
+    taped forward and backward as the pipelined stages over the whole
+    graph, seeded by :func:`loss_seed`. ``fn.mesh`` is its mesh."""
+    mesh = _resolve_mesh(graph, mesh, device)
     loss_t = _resolve_loss(graph, loss)
     param_ts = _resolve_params(graph, params)
     sinks = graph.sinks()
@@ -906,24 +1339,25 @@ def lower_train_plan(graph: LogicalGraph, plan: Plan, params, loss=None,
                               sinks, boundary, boundary)
     pnames = [p.name for p in param_ts]
     diff = _diff_names(graph, loss_t, set(pnames))
-    fwd, bwd, _ = _train_program(program, diff)
+    fwd, bwd, diff_in = _train_program(program, diff, mesh)
     loss_pos = [t.name for t in sinks].index(loss_t.name)
 
     def value_and_grad(*all_ins):
-        all_ins = [_to_device(v, device) for v in all_ins]
-        outs, tape = fwd(*all_ins)
+        outs, tapes = fwd(*all_ins)
         loss_vec = outs[loss_pos]
         env = dict(zip(program.input_names, all_ins))
-        cots = _taped_backward(tape, {loss_t.name: torch.ones_like(loss_vec)},
-                               pnames)
+        cots = dict(zip(diff_in, bwd(tapes, {loss_t.name: loss_seed(
+            mesh, boundary[loss_t.name], loss_vec)})))
         return loss_vec, tuple(
-            c if c is not None else torch.zeros_like(env[n])
-            for n, c in zip(pnames, cots))
+            cots[n] if cots.get(n) is not None
+            else [torch.zeros_like(v) for v in env[n]] for n in pnames)
+    value_and_grad.mesh = mesh
     return value_and_grad
 
 
 def lower_train_stages(graph: LogicalGraph, plan: Plan,
                        partition: StagePartition, params, loss=None,
+                       mesh=None, stage_meshes: Optional[Sequence] = None, *,
                        device=None,
                        optimizer: Optional[OptimizerSpec] = None
                        ) -> TrainStagedProgram:
@@ -932,13 +1366,14 @@ def lower_train_stages(graph: LogicalGraph, plan: Plan,
     Builds on :func:`lower_stages`' partition: each stage's program is run
     taped over its *differentiable* inputs -- the stage-local params plus
     any boundary activations derived from params. Activations stay in the
-    stage's tape; only cotangents cross stage boundaries, flowing backward
+    stage's tapes; only cotangents cross stage boundaries, flowing backward
     along the seams the activations flowed forward.
 
     ``params`` names the graph inputs to train; each must be consumed by
     ops of exactly one stage. ``loss`` names the graph sink to
-    differentiate (default: the sole sink). ``optimizer`` is carried on the
-    program (the executor falls back to plain SGD when absent)."""
+    differentiate (default: the sole sink). ``mesh`` / ``stage_meshes`` as
+    in :func:`lower_stages`. ``optimizer`` is carried on the program (the
+    executor falls back to plain SGD when absent)."""
     loss_t = _resolve_loss(graph, loss)
     param_ts = _resolve_params(graph, params)
     param_names = {t.name for t in param_ts}
@@ -959,6 +1394,8 @@ def lower_train_stages(graph: LogicalGraph, plan: Plan,
                 "its gradient would be identically zero — drop it from "
                 "params or pick the right loss sink")
     diff = _diff_names(graph, loss_t, param_names)
+    meshes = _resolve_meshes(graph, partition.num_stages, mesh, stage_meshes,
+                             device)
 
     _, boundary_sbp, interfaces = _stage_interfaces(graph, plan, partition)
     stages: List[TrainStageProgram] = []
@@ -966,17 +1403,17 @@ def lower_train_stages(graph: LogicalGraph, plan: Plan,
         program = _lower_subgraph(graph, plan, iface.ops, iface.in_tensors,
                                   iface.out_tensors, iface.in_sbp,
                                   iface.out_sbp)
-        fwd, bwd, diff_in = _train_program(program, diff)
+        fwd, bwd, diff_in = _train_program(program, diff, meshes[s])
         stages.append(TrainStageProgram(
             index=s, fwd=fwd, bwd=bwd, input_names=program.input_names,
             output_names=program.output_names, diff_input_names=diff_in,
             param_names=tuple(n for n in diff_in if n in param_names),
-            device=device))
+            mesh=meshes[s], in_sbp=dict(iface.in_sbp),
+            out_sbp=dict(iface.out_sbp)))
 
     all_params = tuple(p.name for p in param_ts)
     return TrainStagedProgram(graph, plan, partition, stages, loss_t,
-                              all_params, boundary_sbp, optimizer=optimizer,
-                              device=device)
+                              all_params, boundary_sbp, optimizer=optimizer)
 
 
 # ---------------------------------------------------------------------------

@@ -2,14 +2,17 @@
 
 OneFlow's ``flow.placement("cuda", {0:[0,1]})`` names nodes and device ids.
 Here it is a *named mesh* (axes like ``pod``, ``data``, ``model``): a named
-axis tuple + sizes. Planning reads only the sizes, so it needs no devices; lowering in this
-package runs on one-device placements (every axis of size 1).
+axis tuple + sizes. Planning reads only the sizes, so it needs no devices;
+:meth:`Placement.to_mesh` gives the ranks that lowering runs on (a
+:class:`repro_torch.core.mesh.DeviceMesh`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +42,22 @@ class Placement:
 
     def mesh_shape(self) -> Tuple[int, ...]:
         return self.axis_sizes
+
+    def to_mesh(self, devices=None, timeout=None):
+        """A :class:`repro_torch.core.mesh.DeviceMesh` of this placement's
+        ranks. ``devices``: None puts every rank on the card; one device
+        (``"cpu"``, ``"cuda:0"``) puts every rank there; a sequence gives
+        each rank its own, in rank order."""
+        from repro_torch.core.mesh import DEFAULT_TIMEOUT, DeviceMesh
+        from repro_torch.models.common import resolve_device
+
+        n = self.num_devices
+        if devices is None or isinstance(devices, (str, torch.device)):
+            devices = [resolve_device(devices)] * n
+        elif len(devices) < n:
+            raise ValueError(f"need {n} devices, have {len(devices)}")
+        return DeviceMesh(self, list(devices)[:n],
+                          DEFAULT_TIMEOUT if timeout is None else timeout)
 
     def __repr__(self) -> str:
         dims = ", ".join(f"{n}={s}" for n, s in zip(self.axis_names, self.axis_sizes))

@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import Dict
 
 import torch
 
@@ -37,7 +38,20 @@ _USE = ("call repro_torch.kernels.softmax_xent.xent_local_stats (its "
 launches = 0
 #: backward kernel launches since the last reset (one per launch)
 bwd_launches = 0
+#: launches by vocab offset since the last reset: {offset: count}, forward
+#: and backward (a vocab shard's launches carry its shard's offset)
+offset_launches: Dict[int, int] = {}
+bwd_offset_launches: Dict[int, int] = {}
 _count_lock = threading.Lock()
+
+
+def reset_counts() -> None:
+    """Zero every launch counter of this module."""
+    global launches, bwd_launches
+    with _count_lock:
+        launches = bwd_launches = 0
+        offset_launches.clear()
+        bwd_offset_launches.clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,6 +105,8 @@ def xent_local_stats_cuda(logits, labels, vocab_offset: int = 0):
     _build.check(err, "xent_local_stats")
     with _count_lock:
         launches += 1
+        offset_launches[int(vocab_offset)] = offset_launches.get(
+            int(vocab_offset), 0) + 1
     return m, s, z
 
 
@@ -111,6 +127,8 @@ def xent_local_stats_bwd_cuda(logits, labels, vocab_offset: int, m, ds, dz):
     _build.check(err, "xent_local_stats backward")
     with _count_lock:
         bwd_launches += 1
+        bwd_offset_launches[int(vocab_offset)] = bwd_offset_launches.get(
+            int(vocab_offset), 0) + 1
     return dlogits
 
 

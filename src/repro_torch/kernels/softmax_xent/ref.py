@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import mesh as M
+
 
 def local_stats_ref(logits, labels, vocab_offset):
     """Per-shard stats: (local_max, local_sumexp_given_max, local_label_logit).
@@ -36,17 +38,21 @@ def local_stats_ref(logits, labels, vocab_offset):
 
 
 def combine_stats(m, s, z, axis_name: Optional[str] = None):
-    """Combine per-shard stats (stacked on dim 0) into per-token loss.
+    """Combine per-shard stats into per-token loss.
 
     m is P(max); z is P(sum) (exactly one shard contributes); s must be
-    rescaled by exp(m - m_global) before its P(sum) reduction. Only the
-    single-device form is ported: the collective form (``axis_name``) needs
-    the multi-device substrate.
+    rescaled by exp(m - m_global) before its P(sum) reduction. Without
+    ``axis_name`` the shards are stacked on dim 0; with it each rank holds
+    its own (N,) stats inside :func:`repro_torch.core.mesh.spmd` and they
+    are combined across the mesh axis ``axis_name`` with collectives (in
+    rank order; ``m`` held fixed, and the collectives' results are
+    detached), giving every rank the whole loss.
     """
     if axis_name is not None:
-        raise NotImplementedError(
-            "combine_stats over a mesh axis: tp > 1 is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+        m_g = M.pmax(m.detach(), axis_name)
+        s_g = M.psum(s * torch.exp(m - m_g), axis_name)
+        z_g = M.psum(z, axis_name)
+        return torch.log(s_g) + m_g - z_g
     m_g = m.amax(dim=0)
     s_g = (s * torch.exp(m - m_g[None])).sum(dim=0)
     z_g = z.sum(dim=0)

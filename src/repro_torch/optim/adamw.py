@@ -71,6 +71,23 @@ def sqnorm_partials(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {n: g.float().square().sum() for n, g in grads.items()}
 
 
+def sqnorm_partials_sharded(grads: Dict[str, Sequence[torch.Tensor]],
+                            distinct: Dict[str, Sequence[int]]
+                            ) -> Dict[str, torch.Tensor]:
+    """The squared norm of each sharded gradient: its per-rank shards
+    (``grads[n][r]``) summed over ``distinct[n]``, the ranks holding
+    distinct shards, in that order -- a broadcast replica counted once, not
+    once per rank. With one shard it is :func:`sqnorm_partials`' term."""
+    out = {}
+    for n, shards in grads.items():
+        terms = [shards[r].float().square().sum() for r in distinct[n]]
+        total = terms[0]
+        for t in terms[1:]:
+            total = total + t.to(total.device)
+        out[n] = total
+    return out
+
+
 def global_norm_from_partials(partials: Dict[str, torch.Tensor],
                               order: Sequence[str]) -> np.float32:
     """The P->B combine: sum the per-tensor partials in the canonical

@@ -30,10 +30,16 @@ Three executors then run lowered programs under that protocol:
 
 Every executor builds its actor graph ONCE and re-runs it per
 run/step/round (one epoch each), with per-epoch inputs in ``ctx`` and fire
-bounds in ``fires``. Stage ``s`` is addressed at node ``s + 1``. On one card
-all stages share one CUDA stream in this version, and each stage
-synchronises it before handing its output on (the reference's
-``block_until_ready``), which is what the makespan instrumentation reads.
+bounds in ``fires``. Stage ``s`` is addressed at node ``s + 1``. A stage runs
+on its mesh's ranks (:mod:`repro_torch.core.mesh`), so every value a graph
+executor carries between actors is a per-rank list of shards; a stage on
+other ranks than the one before it relays what it receives onto its own
+(:func:`repro_torch.core.lowering.relay`). The executor places global inputs
+by their planned signatures and assembles global sinks, losses, gradients
+and params. On one card all stages and ranks share one CUDA stream in this
+version, and each stage synchronises it before handing its output on (the
+reference's ``block_until_ready``), which is what the makespan
+instrumentation reads.
 Per-stage streams with events are later work (ROADMAP Queue 1 item 3). Not
 ported: the process runtime (item 11), the snapshot and fault branches
 (item 10), ZeRO and loss scaling (item 9), and ``fn_wrap`` (item 14).
@@ -46,10 +52,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.lowering import (OptimizerSpec, _to_device,
-                                       reassemble_sinks, split_microbatches)
+from repro_torch.core.lowering import (OptimizerSpec, accumulate, box_grads,
+                                       global_state, grad_sqnorms,
+                                       reassemble_sinks, relay,
+                                       split_microbatches, sync_mesh)
+from repro_torch.core.mesh import assemble, place
 from repro_torch.optim.adamw import (clip_scale, global_norm_from_partials,
-                                     scale_grad, sqnorm_partials)
+                                     scale_grad)
 from repro_torch.runtime.actor import ActorSpec
 from repro_torch.runtime.base import RUNTIME_KINDS, make_runtime
 from repro_torch.runtime.scheduler import CommModel, simulate
@@ -312,17 +321,21 @@ class _GraphExecutorBase(_StagedExecutorBase):
         self.microbatch_inputs = list(microbatch_inputs)
         self.num_microbatches = num_microbatches
         self.regs = regs
-        self.device = program.stages[0].device if program.stages else None
+        self.program = program
 
-    def _on_device(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
-        """Every input as a tensor on the executor's device."""
-        return {n: _to_device(v, self.device) for n, v in inputs.items()}
+    def _microbatch_payloads(self, inputs: Dict[str, Any]) -> List[Dict]:
+        """The microbatch chunks of ``inputs``, each placed by its planned
+        signature on the first stage's ranks (later stages relay them)."""
+        mesh, sbp = self.program.stages[0].mesh, self.program.plan.tensor_sbp
+        return [{n: place(v, mesh, sbp[n]) for n, v in chunk.items()}
+                for chunk in split_microbatches(
+                    inputs, self.microbatch_inputs, self.num_microbatches)]
 
 
-def _bind_placed(stage, bound: Dict[str, Any]) -> Dict[str, Any]:
-    """The epoch-bound inputs (weights) on the stage's device, placed once
-    per rebind rather than per microbatch fire."""
-    return {n: _to_device(v, stage.device) for n, v in bound.items()}
+def _prev_mesh(staged, stage):
+    """The mesh a stage's streamed inputs arrive on: the previous stage's
+    (the first stage's own for the data source, which places there)."""
+    return staged.stages[max(stage.index - 1, 0)].mesh
 
 
 def _place_incoming(input_names, bound: Dict[str, Any],
@@ -333,16 +346,16 @@ def _place_incoming(input_names, bound: Dict[str, Any],
     return [bound[n] if n in bound else payload[n] for n in input_names]
 
 
-def _stage_binding(stage):
+def _stage_binding():
     """Persistent bound-input state for one stage actor: a ``bound`` dict
     the closures read at fire time and an ``on_epoch`` hook that (re)binds
-    the values the driver sent in ``ctx`` — on the stage's device, where the
-    weights then stay between epochs."""
+    the values the executor sent in ``ctx`` -- already placed on the stage's
+    ranks, where the weights then stay between epochs."""
     bound: Dict[str, Any] = {}
 
     def on_epoch(raw):
         if raw:
-            bound.update(_bind_placed(stage, raw))
+            bound.update(raw)
     return bound, on_epoch
 
 
@@ -384,7 +397,8 @@ def stage_actor_specs(staged, microbatch_inputs: Sequence[str],
 
     Each run's inputs arrive via ``ctx``: ``ctx["data"]`` is the pre-split
     microbatch payload list (one dict per version), ``ctx[f"stage{s}"]``
-    the stage's non-streamed graph inputs (weights). ``regs[s]`` is stage
+    the stage's non-streamed graph inputs (weights), all placed on the
+    ranks. ``regs[s]`` is stage
     s's out-register quota (default 1F1B, ``max(1, S - s)``). Stage ``s``
     lives at node ``s + 1`` (the data source at node 0). Each body runs
     under ``torch.inference_mode()`` (grad mode is per thread) and waits
@@ -405,13 +419,16 @@ def stage_actor_specs(staged, microbatch_inputs: Sequence[str],
     specs: List[ActorSpec] = [_payload_source_spec("data", num_microbatches)]
 
     def make_stage_fn(stage):
-        bound, on_epoch = _stage_binding(stage)
+        bound, on_epoch = _stage_binding()
+        prev = _prev_mesh(staged, stage)
 
         def run_stage(payload):
+            payload = {n: relay(v, prev, stage.mesh)
+                       for n, v in payload.items()}
             with torch.inference_mode():
                 outs = stage.fn(*_place_incoming(stage.input_names, bound,
                                                  payload))
-                _sync(stage.device)
+                sync_mesh(stage.mesh)
             carried = {n: v for n, v in payload.items()
                        if n in needed_after[stage.index + 1]
                        or n in sink_names}
@@ -469,15 +486,12 @@ class ActorPipelineExecutor(_GraphExecutorBase):
 
     def run(self, inputs: Dict[str, Any], timeout: float = 300.0) -> Tuple:
         check_run_inputs(inputs, self.staged.input_names)
-        inputs = self._on_device(inputs)
         graph_inputs = set(self.staged.input_names)
         mb = set(self.microbatch_inputs)
-        ctx: Dict[str, Any] = {
-            "data": split_microbatches(inputs, self.microbatch_inputs,
-                                       self.num_microbatches)}
+        ctx: Dict[str, Any] = {"data": self._microbatch_payloads(inputs)}
         for stage in self.staged.stages:
             ctx[f"stage{stage.index}"] = {
-                n: inputs[n] for n in stage.input_names
+                n: stage.place(n, inputs[n]) for n in stage.input_names
                 if n in graph_inputs and n not in mb}
         outs = self._run_rt(ctx, None, timeout)
         if len(outs) != self.num_microbatches:
@@ -485,9 +499,12 @@ class ActorPipelineExecutor(_GraphExecutorBase):
                 f"collected {len(outs)} microbatch results, expected "
                 f"{self.num_microbatches}")
         # the final stage fires in version order in one worker, so ``outs``
-        # is already microbatch-ordered
+        # is already microbatch-ordered; every sink rides to its mesh
+        last, sbp = self.staged.stages[-1].mesh, self.staged.boundary_sbp
+        per_chunk = [{t.name: assemble(o[t.name], last, sbp[t.name])
+                      for t in self.staged.sinks} for o in outs]
         return reassemble_sinks(self.staged.graph, self.staged.sinks,
-                                self.microbatch_inputs, outs)
+                                self.microbatch_inputs, per_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -533,13 +550,15 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
     values arrive via ``ctx``:
 
     * ``ctx["data"]`` — the pre-split microbatch payload list;
-    * ``ctx[f"f{s}"]`` — values to (re)bind on stage s: its non-microbatch
-      data inputs every step, plus its params on the first step (or after a
-      ``load_params``). Afterwards ``opt{s}`` updates the same tensors in
-      place, so params stay on the card across steps;
+    * ``ctx[f"f{s}"]`` — values to (re)bind on stage s, as its per-rank
+      shards: its non-microbatch data inputs every step, plus its params on
+      the first step (or after a ``load_params``). Afterwards ``opt{s}``
+      updates the same tensors in place, so params stay on the card across
+      steps;
     * ``ctx[f"opt{s}"]`` — the step index (resolves the lr schedule), as a
-      plain int or as ``{"step": int, "load_state": AdamWState}`` when the
-      driver hands the stage its optimizer state (the first step).
+      plain int or as ``{"step": int, "load_state": [AdamWState per rank]}``
+      when the executor hands the stage its optimizer state (the first
+      step).
 
     ``regs[s]`` is forward stage s's out-register quota (default 1F1B,
     ``num_stages - s``); backward/acc/opt actors need no tuning.
@@ -548,14 +567,18 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
 
     * ``optimizer`` is a :class:`repro_torch.core.lowering.OptimizerSpec`
       (falls back to ``tstaged.optimizer``, then plain SGD at ``lr``).
-    * With ``optimizer.grad_clip`` > 0, every ``acc{s}`` emits its
-      stage-local squared-norm partials alongside the summed gradients, and
-      a ``norm`` actor — OneFlow's P→B boxing expressed as an actor — sums
-      the partials in canonical param order and broadcasts the clip scale
-      sideways to every ``opt{s}``.
+    * Every ``acc{s}`` sums each rank's gradients in microbatch order and,
+      at the last microbatch, boxes the sums to their params' signatures
+      (P→B for a broadcast param). With ``optimizer.grad_clip`` > 0 it emits
+      its stage-local squared-norm partials alongside them (each param's
+      distinct shards, a replica counted once), and a ``norm`` actor —
+      OneFlow's P→B boxing expressed as an actor, across stage meshes —
+      sums the partials in canonical param order and broadcasts the clip
+      scale sideways to every ``opt{s}``.
     * With a stateful optimizer (AdamW), a ``state{s}`` source actor emits
-      the stage's current optimizer state as a register that ``opt{s}``
-      consumes — the second register stream, initialized on the first step.
+      the stage's current optimizer state (one per rank) as a register that
+      ``opt{s}`` consumes — the second register stream, initialized on the
+      first step. Each rank updates its own shards.
 
     Forward actors record autograd and backward actors replay it (grad mode
     is per thread, so each body sets its own); every body waits for the
@@ -604,12 +627,15 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
     specs: List[ActorSpec] = [_payload_source_spec("data", num_microbatches)]
 
     def make_fwd_fn(stage):
-        bound, on_epoch = _stage_binding(stage)
+        bound, on_epoch = _stage_binding()
+        prev = _prev_mesh(tstaged, stage)
 
         def run_fwd(payload):
+            payload = {n: relay(v, prev, stage.mesh)
+                       for n, v in payload.items() if n != _TAPE_KEY}
             outs, tape = stage.fwd(*_place_incoming(stage.input_names,
                                                     bound, payload))
-            _sync(stage.device)
+            sync_mesh(stage.mesh)
             carried = {n: v for n, v in payload.items()
                        if n in needed_after[stage.index + 1]}
             carried.update(zip(stage.output_names, outs))
@@ -619,9 +645,12 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
 
     def make_bwd_fn(stage):
         diff_in = set(stage.diff_input_names)
+        later = tstaged.stages[min(stage.index + 1, S - 1)].mesh
 
         def run_bwd(f_payload, b_payload=None):
-            incoming = {} if b_payload is None else b_payload["cots"]
+            incoming = {} if b_payload is None else {
+                n: None if c is None else relay(c, later, stage.mesh)
+                for n, c in b_payload["cots"].items()}
             grads, res = {}, {}
             if stage.bwd is not None:
                 seeds = stage.output_cotangents(f_payload, incoming,
@@ -638,8 +667,10 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
                         for n in out_cot_names[stage.index]}
             out = {"cots": out_cots, _GRADS_KEY: grads}
             if stage.index == loss_stage:
-                out["loss"] = torch.sum(f_payload[loss_name])
-            _sync(stage.device)
+                out["loss"] = torch.sum(assemble(
+                    f_payload[loss_name], stage.mesh,
+                    stage.out_sbp[loss_name]))
+            sync_mesh(stage.mesh)
             return out
         return run_bwd
 
@@ -655,16 +686,17 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
             meta["fires"] += 1
             for n, g in b_payload[_GRADS_KEY].items():
                 if g is None:
-                    g = torch.zeros_like(bound_of[stage.index][n])
-                if n in state:
-                    state[n].add_(g.float())
-                else:
-                    # an owned float32 copy, summed into in place after
-                    state[n] = g.to(torch.float32, copy=True)
+                    g = [torch.zeros_like(p) for p in bound_of[stage.index][n]]
+                state[n] = accumulate(state.get(n), g)
+            if meta["fires"] < num_microbatches:
+                return {}
+            state.update(box_grads(stage.mesh, tstaged.graph, tstaged.plan,
+                                   state))
             out = {_GRADS_KEY: dict(state)}
-            if clip and meta["fires"] == num_microbatches:
+            if clip:
                 # the stage-local P contribution to the global grad norm
-                out["sqnorms"] = sqnorm_partials(state)
+                out["sqnorms"] = grad_sqnorms(stage.mesh, tstaged.plan,
+                                              state)
             return out
         return run_acc, on_epoch
 
@@ -689,23 +721,24 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
             state = rest.pop(0)["state"] if opt.stateful else None
             grads = acc_payload[_GRADS_KEY]
             if norm_payload is not None:
-                grads = {n: scale_grad(grads[n], norm_payload["scale"])
-                         for n in pnames}
+                grads = {n: [scale_grad(g, norm_payload["scale"])
+                             for g in grads[n]] for n in pnames}
             else:
                 grads = {n: grads[n] for n in pnames}
             params = {n: bound[n] for n in pnames}
+            nranks = stage.mesh.size
             if opt.stateful and state is None:
                 # first step in this worker: fresh (zeroed) state
-                state = opt.init_state(params)
+                state = opt.init_rank_states(params, nranks)
             lr_now = opt.lr_at(meta["step"])
             meta["step"] += 1
             with torch.no_grad():
-                new_params, new_state = opt.update(params, grads, state,
-                                                   lr_now)
-            _sync(stage.device)
+                new_state = opt.update_ranks(params, grads, state, lr_now,
+                                             nranks)
+            sync_mesh(stage.mesh)
             if opt.stateful:
                 state_cell["state"] = new_state
-            out = {"params": new_params, "grads": grads}
+            out = {"params": params, "grads": grads}
             if opt.stateful:
                 out["state"] = new_state
             if norm_payload is not None:
@@ -793,16 +826,21 @@ class TrainSpecBuilder(_SpecBuilderBase):
                                        optimizer=self.optimizer)
 
 
-def own_params(params: Dict[str, Any], names: Sequence[str],
-               device) -> Dict[str, torch.Tensor]:
-    """The session's own copies of ``params`` (in ``names`` order) on
-    ``device``: the optimizer updates them in place, so the caller's values
-    are never touched."""
+def own_params(params: Dict[str, Any], names: Sequence[str], meshes,
+               sbp) -> Dict[str, List[torch.Tensor]]:
+    """The session's own per-rank shards of ``params`` (in ``names``
+    order), each placed by ``sbp[name]`` on ``meshes[name]``: the optimizer
+    updates them in place, so the caller's values are never touched."""
     missing = [n for n in names if n not in params]
     if missing:
         raise ValueError(f"missing params: {missing}")
-    return {n: torch.as_tensor(params[n]).detach().to(device, copy=True)
-            for n in names}
+    out = {}
+    for n in names:
+        x = torch.as_tensor(params[n]).detach()
+        mesh = meshes[n]
+        out[n] = ([x.to(mesh.devices[0], copy=True)] if mesh.size == 1
+                  else place(x, mesh, sbp[n]))
+    return out
 
 
 class TrainPipelineExecutor(_GraphExecutorBase):
@@ -810,21 +848,22 @@ class TrainPipelineExecutor(_GraphExecutorBase):
     training pipeline.
 
     The fwd/bwd/opt actor graph is built once; each :meth:`step` is one
-    epoch over it. Per-stage persistent state — the bound params, the AdamW
-    state, the float32 gradient accumulator — lives in the stage's actor
-    closures; the opt actor updates the params and state in place, so
-    nothing round-trips through the driver between steps. The driver's
-    ``params`` and ``opt_states`` are the same tensors, and :meth:`step`
-    returns ``(loss, grads, params)`` bit-identical to the monolithic
-    engine with the same :class:`OptimizerSpec` (the objective is the *sum*
-    of the loss tensor over the batch; ``grads`` are post-clip when
-    global-norm clipping is on). The returned params are the live tensors:
-    the next step updates them.
+    epoch over it. Per-stage persistent state — the bound param shards, the
+    AdamW state of each rank, the float32 gradient accumulator — lives in
+    the stage's actor closures; the opt actor updates the shards and state
+    in place, so nothing round-trips through the caller between steps. The
+    executor's ``shards`` and ``opt_states`` are the same tensors, and
+    :meth:`step` returns ``(loss, grads, params)`` as global tensors,
+    bit-identical to the monolithic engine with the same
+    :class:`OptimizerSpec` (the objective is the *sum* of the loss tensor
+    over the batch; ``grads`` are post-clip when global-norm clipping is
+    on). On a one-rank mesh the returned params are the live tensors: the
+    next step updates them.
 
-    ``opt_state`` merges the per-stage states; ``last_grad_norm`` is the
-    global gradient norm the ``norm`` actor computed (None when clipping is
-    off). ``last_peak_regs`` ``f{s}`` entries are the in-flight activation
-    counts the 1F1B quota bounds.
+    ``opt_state`` merges the per-stage states into global moments;
+    ``last_grad_norm`` is the global gradient norm the ``norm`` actor
+    computed (None when clipping is off). ``last_peak_regs`` ``f{s}``
+    entries are the in-flight activation counts the 1F1B quota bounds.
     """
 
     def __init__(self, tstaged, params: Dict[str, Any],
@@ -838,14 +877,16 @@ class TrainPipelineExecutor(_GraphExecutorBase):
         self.optimizer = optimizer if optimizer is not None else (
             tstaged.optimizer if tstaged.optimizer is not None
             else OptimizerSpec.sgd(lr))
-        self.params: Dict[str, Any] = {}
+        self.mesh_of = {n: st.mesh for st in tstaged.stages
+                        for n in st.param_names}
+        self.shards: Dict[str, List[torch.Tensor]] = {}
         self.load_params(params)
-        # the per-stage optimizer states (zeroed; None for SGD): the first
-        # step hands each to its stage's worker, which updates it in place
-        # from then on, so the driver and the worker share one copy
+        # the per-stage, per-rank optimizer states (zeroed; None for SGD):
+        # the first step hands each to its stage's worker, which updates it
+        # in place from then on, so the executor and the worker share one copy
         self.opt_states: Dict[int, Any] = {
-            st.index: self.optimizer.init_state(
-                {n: self.params[n] for n in st.param_names})
+            st.index: self.optimizer.init_rank_states(
+                {n: self.shards[n] for n in st.param_names}, st.mesh.size)
             for st in tstaged.stages if st.param_names}
         self._state_dirty = True
         self.step_count = 0
@@ -856,12 +897,22 @@ class TrainPipelineExecutor(_GraphExecutorBase):
                                 self.num_microbatches, lr=self.lr,
                                 regs=self.regs, optimizer=self.optimizer)
 
+    def _global(self, per_rank: Dict[str, List[torch.Tensor]]):
+        sbp = self.tstaged.plan.tensor_sbp
+        return {n: assemble(v, self.mesh_of[n], sbp[n])
+                for n, v in per_rank.items()}
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The current params as global tensors."""
+        return self._global(self.shards)
+
     def load_params(self, params: Dict[str, Any]) -> None:
-        """Replace the executor-owned params (copies of ``params``); they
-        ride the next step's ``ctx`` into each stage's worker. Optimizer
-        state is untouched."""
-        self.params = own_params(params, self.tstaged.param_names,
-                                 self.device)
+        """Replace the executor-owned params (shards copied from
+        ``params``); they ride the next step's ``ctx`` into each stage's
+        worker. Optimizer state is untouched."""
+        self.shards = own_params(params, self.tstaged.param_names,
+                                 self.mesh_of, self.tstaged.plan.tensor_sbp)
         self._params_dirty = True
 
     @property
@@ -874,32 +925,40 @@ class TrainPipelineExecutor(_GraphExecutorBase):
 
     @property
     def opt_state(self):
-        """The per-stage optimizer states merged into one
-        :class:`repro_torch.optim.adamw.AdamWState` over all params (None
-        for a stateless optimizer)."""
+        """The per-stage, per-rank optimizer states merged into one
+        :class:`repro_torch.optim.adamw.AdamWState` over global moments
+        (None for a stateless optimizer)."""
+        sbp = self.tstaged.plan.tensor_sbp
         return self.optimizer.merge_states(
-            [self.opt_states[s] for s in sorted(self.opt_states)])
+            [global_state(self.opt_states[s], self.tstaged.stages[s].mesh,
+                          sbp) for s in sorted(self.opt_states)])
 
     def step(self, data_inputs: Dict[str, Any], timeout: float = 300.0):
         """Run one training step over the current params. ``data_inputs``
-        maps non-param graph inputs to values (the microbatched ones are
-        split along axis 0). Returns ``(loss, grads, params)``."""
+        maps non-param graph inputs to global values (the microbatched ones
+        are split along axis 0). Returns ``(loss, grads, params)`` as
+        global tensors."""
+        loss, grads, shards = self.step_shards(data_inputs, timeout)
+        return loss, self._global(grads), self._global(shards)
+
+    def step_shards(self, data_inputs: Dict[str, Any],
+                    timeout: float = 300.0):
+        """:meth:`step` with the post-clip grads and the updated params left
+        as per-rank shards (``{name: [shard per rank]}``); :meth:`_global`
+        assembles them."""
         check_run_inputs(
             data_inputs,
-            [n for n in self.tstaged.input_names if n not in self.params],
+            [n for n in self.tstaged.input_names if n not in self.shards],
             owned=self.tstaged.param_names)
-        data_inputs = self._on_device(data_inputs)
         graph_inputs = set(self.tstaged.input_names)
         mb = set(self.microbatch_inputs)
-        ctx: Dict[str, Any] = {
-            "data": split_microbatches(data_inputs, self.microbatch_inputs,
-                                       self.num_microbatches)}
+        ctx: Dict[str, Any] = {"data": self._microbatch_payloads(data_inputs)}
         for st in self.tstaged.stages:
-            bound = {n: data_inputs[n] for n in st.input_names
+            bound = {n: st.place(n, data_inputs[n]) for n in st.input_names
                      if n in graph_inputs and n not in mb
-                     and n not in self.params}
+                     and n not in self.shards}
             if self._params_dirty:
-                bound.update({n: self.params[n] for n in st.param_names})
+                bound.update({n: self.shards[n] for n in st.param_names})
             ctx[f"f{st.index}"] = bound
             if st.param_names:
                 ctx[f"opt{st.index}"] = (
@@ -929,12 +988,12 @@ class TrainPipelineExecutor(_GraphExecutorBase):
             s = int(name[len("opt"):])
             norm = opt_out.get("norm", norm)
             grads.update(opt_out["grads"])
-            self.params.update(opt_out["params"])
+            self.shards.update(opt_out["params"])
             if "state" in opt_out:
                 self.opt_states[s] = opt_out["state"]
         self.last_grad_norm = norm
         self.step_count += 1
-        return loss, grads, dict(self.params)
+        return loss, grads, dict(self.shards)
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,15 @@ holds the training shape. The SSD scan likewise runs bf16 through its
 tensor-core kernels (chunk states, carry, outputs) and float32 through its
 CUDA-core kernel, and its bf16 cases are also held to the plain version on
 float32 copies. Flash decode combines its splits inside the kernel, in a
-thread-block cluster, and its wrapper keeps no state between calls.
+thread-block cluster, and its wrapper keeps no state between calls. On a
+mesh, the xent kernels run on vocab shards at offsets 0 and V/2, and one
+graph train step on two ranks of the card (a 60 s session timeout, which
+its collectives share, so a deadlock fails instead of hanging) matches the
+CPU's. Four ranks of the card whose rank 1 skips a rendezvous (or sits in
+card work or in autograd past the timeout) all raise within it.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +43,9 @@ from repro_torch.kernels.flash_attention.ref import attention_dense_ref
 from repro_torch.kernels.flash_decode import kernel as fd
 from repro_torch.kernels.flash_decode.ref import combine_partials
 from repro_torch.kernels.softmax_xent import kernel as xk
-from repro_torch.kernels.softmax_xent.ref import local_stats_ref
+from repro_torch.kernels.softmax_xent.ref import (combine_stats,
+                                                  local_stats_ref,
+                                                  softmax_xent_ref)
 from repro_torch.kernels.ssd_scan import kernel as ssd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
@@ -423,6 +432,152 @@ def test_xent_kernels_match_plain(cuda, case):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
     assert g.dtype == logits.dtype
     _close(g, wg, dt)
+
+
+@pytest.mark.parametrize("shard", [0, 1], ids=["offset0", "offset_half"])
+def test_xent_kernels_on_vocab_shards(cuda, shard):
+    """The xent kernels on one of two vocab shards (offset 0 and V/2),
+    forward and backward against their plain versions, the launch counted
+    at its offset; with the other shard's plain stats they combine to the
+    unsplit loss."""
+    N, V = 256, 8192
+    Vl = V // 2
+    rng = np.random.default_rng(5)
+    full = _randn(rng, (N, V), "float32", cuda) * 3
+    labels = torch.as_tensor(rng.integers(0, V, N), dtype=torch.int32,
+                             device=cuda)
+    ds = _randn(rng, (N,), "float32", cuda)
+    dz = _randn(rng, (N,), "float32", cuda)
+    off = shard * Vl
+    logits = full[:, off:off + Vl].contiguous().requires_grad_(True)
+    xk.reset_counts()
+    got = xk.xent_local_stats(logits, labels, off)
+    (g,) = torch.autograd.grad(got[1:], logits, (ds, dz))
+    torch.cuda.synchronize()
+    assert xk.offset_launches == xk.bwd_offset_launches == {off: 1}
+    want = local_stats_ref(logits, labels, off)
+    (wg,) = torch.autograd.grad(want[1:], logits, (ds, dz))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+    _close(g, wg, "float32")
+    other = 1 - shard
+    rest = local_stats_ref(full[:, other * Vl:(other + 1) * Vl], labels,
+                           other * Vl)
+    pair = [got, rest] if shard == 0 else [rest, got]
+    loss = combine_stats(*(torch.stack([p[i].detach() for p in pair])
+                           for i in range(3)))
+    torch.testing.assert_close(loss, softmax_xent_ref(full, labels),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_graph_train_step_on_two_ranks_of_the_card(cuda):
+    """One AdamW step of a graph with a vocab-split embedding and
+    softmax_xent on two ranks of the card (stage actors, mesh collectives):
+    each rank's xent kernels launch at its offset, and loss and gradients
+    match the same step on the CPU. The session's 60 s timeout governs its
+    actors and its mesh's collectives, so a deadlock fails the test
+    instead of hanging it."""
+    from repro_torch import api
+    from repro_torch.core.graph import LogicalGraph
+    from repro_torch.core.lowering import OptimizerSpec
+    from repro_torch.core.placement import Placement
+    N, V, D = 64, 1024, 32
+    g = LogicalGraph(Placement(("model",), (2,)))
+    ids = g.input("ids", (N,), dtype="int32", sbp="B")
+    labels = g.input("labels", (N,), dtype="int32", sbp="B")
+    h = g.embedding(g.input("E", (V, D), sbp="S(0)"), ids, name="emb")
+    h = g.unary(g.matmul(h, g.input("w", (D, D)), name="mm"), "gelu",
+                name="act")
+    g.softmax_xent(g.matmul(h, g.input("W_out", (D, V), sbp="S(1)"),
+                            name="head"), labels, name="loss")
+    rng = np.random.default_rng(6)
+    params = {t.name: (rng.normal(size=t.shape) * 0.3).astype(np.float32)
+              for t in g.inputs if t.dtype == "float32"}
+    data = {n: rng.integers(0, V, N).astype(np.int32)
+            for n in ("ids", "labels")}
+    res = {}
+    for d in ("cpu", "cuda"):
+        xk.reset_counts()
+        sess = api.compile(g, mode="train", params=params, stages=2,
+                           num_microbatches=2, timeout=60.0, device=d,
+                           optimizer=OptimizerSpec.adamw(lr=1e-2))
+        res[d] = sess.step(**data)
+        sess.close()
+    torch.cuda.synchronize()
+    assert xk.offset_launches == xk.bwd_offset_launches == {0: 2, V // 2: 2}
+    torch.testing.assert_close(res["cuda"].loss.cpu(), res["cpu"].loss,
+                               rtol=1e-5, atol=1e-5)
+    for n in params:
+        torch.testing.assert_close(res["cuda"].grads[n].cpu(),
+                                   res["cpu"].grads[n], rtol=1e-4, atol=1e-5)
+
+
+class _SlowBackward(torch.autograd.Function):
+    """Doubles its input; its backward holds the card's autograd worker for
+    ``seconds`` before it returns."""
+
+    seconds = 0.0
+
+    @staticmethod
+    def forward(ctx, v):
+        return v * 2
+
+    @staticmethod
+    def backward(ctx, g):
+        time.sleep(_SlowBackward.seconds)
+        return g * 2
+
+
+@pytest.mark.parametrize("fault", ["returns", "late", "other_collective",
+                                   "busy_on_the_card", "inside_autograd"])
+def test_a_skipped_collective_raises_on_every_rank_of_the_card(cuda, fault):
+    """Four ranks on the card meet at a psum of card tensors; rank 1 skips
+    it (returns, comes late, calls another collective, keeps the card busy
+    past the timeout, or sits inside ``torch.autograd.grad``). Every rank
+    raises a CollectiveError within the timeout and nothing hangs."""
+    from repro_torch.core import mesh as M
+    from repro_torch.core.mesh import CollectiveError, spmd
+    from repro_torch.core.placement import Placement
+    timeout = 0.5
+    _SlowBackward.seconds = 3 * timeout
+    mesh = Placement(("d",), (4,)).to_mesh(cuda, timeout=timeout)
+    big = torch.randn((2048, 2048), device=cuda)
+
+    def body(x):
+        if M.current_rank() == 1:
+            if fault == "returns":
+                return x
+            if fault == "late":
+                time.sleep(3 * timeout)
+            if fault == "other_collective":
+                return M.all_gather(x, "d")
+            if fault == "busy_on_the_card":
+                t = time.perf_counter()
+                while time.perf_counter() - t < 3 * timeout:
+                    torch.cuda.synchronize(big.device)
+                    big.copy_(big @ big / 2048)
+                torch.cuda.synchronize(big.device)
+            if fault == "inside_autograd":
+                v = x.clone().requires_grad_(True)
+                (x,) = torch.autograd.grad(_SlowBackward.apply(v).sum(), v)
+        return M.psum(x, "d")
+
+    t0 = time.perf_counter()
+    with pytest.raises(CollectiveError) as err:
+        spmd(body, mesh)([torch.ones(2, device=cuda) for _ in range(4)])
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ranks = set(err.value.rank_errors)
+    assert all(isinstance(e, CollectiveError)
+               for e in err.value.rank_errors.values())
+    if fault == "returns":
+        assert ranks == {0, 2, 3}           # rank 1 returned without it
+        assert elapsed < timeout
+    else:
+        assert ranks == {0, 1, 2, 3}
+        assert elapsed < 3 * timeout + 2.0
+    if fault in ("late", "busy_on_the_card", "inside_autograd"):
+        assert f"timed out after {timeout:g} s" in str(err.value)
 
 
 def test_raw_wrappers_refuse_under_grad(cuda):

@@ -10,7 +10,8 @@ Mirrors ``tests/test_actor_pipeline.py`` and the graph half of
   the same inputs, ``rtol=1e-5, atol=1e-6`` (float32; importorskip jax);
 * serving's ``regs="serial"``, ``"gpipe"`` and explicit quotas give the
   default's tokens;
-* every option that is not ported raises naming its ROADMAP item.
+* ``mesh=`` and ``stage_meshes=`` run on several ranks; every option that
+  is not ported raises naming its ROADMAP item.
 """
 import dataclasses
 
@@ -253,8 +254,8 @@ def test_infer_matches_jax_session(backend):
 # The Session frontend (tests/test_api.py, graph half)
 # ---------------------------------------------------------------------------
 
-def _train_graph(batch=16, width=32, depth=S):
-    g = LogicalGraph(_placement())
+def _train_graph(batch=16, width=32, depth=S, placement=None):
+    g = LogicalGraph(placement or _placement())
     h = g.input("x", (batch, width))
     labels = g.input("labels", (batch,), dtype="int32")
     for i in range(depth):
@@ -374,8 +375,13 @@ class TestCompileValidation:
             api.compile(_train_graph())
 
 
+def _two_ranks():
+    return Placement(("d",), (2,))
+
+
 class TestNotPorted:
-    """Every option the port does not take yet raises naming its item."""
+    """Every option the port does not take yet raises naming its item; the
+    meshes of item 8 run (two ranks on the CPU)."""
 
     @pytest.mark.parametrize("kw,item", [
         (dict(zero=True), "item 9"),
@@ -388,15 +394,33 @@ class TestNotPorted:
         (dict(runtime="processes"), "item 11"),
         (dict(check="static"), "item 12"),
         (dict(fn_wrap=lambda s, f: f), "item 14"),
-        (dict(stage_meshes=[None]), "item 8"),
-        (dict(mesh=object()), "item 8"),
+        (dict(stage_meshes=[_two_ranks().to_mesh(CPU) for _ in range(2)]),
+         "item 8"),
+        (dict(mesh=_two_ranks().to_mesh(CPU)), "item 8"),
     ])
     def test_graph_options(self, kw, item):
-        g = _train_graph()
-        params, _ = _params_and_data(g)
-        with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-            api.compile(g, mode="train", params=params, stages=2,
-                        device=CPU, **kw)
+        if item != "item 8":
+            g = _train_graph()
+            params, _ = _params_and_data(g)
+            with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+                api.compile(g, mode="train", params=params, stages=2,
+                            device=CPU, **kw)
+            return
+        # a mesh given, or one per stage (the relay between them): the same
+        # bits as the default mesh of the placement's ranks, and the
+        # one-device losses
+        g = _train_graph(placement=_two_ranks())
+        params, data = _params_and_data(g)
+        sess = api.compile(g, mode="train", params=params, stages=2,
+                           device=CPU, **kw)
+        ref = api.compile(g, mode="train", params=params, stages=2,
+                          device=CPU)
+        assert sess.meshes[0].size == 2
+        api.assert_sessions_match(sess, ref, data, steps=2)
+        one = api.compile(_train_graph(), mode="train", params=params,
+                          stages=2, device=CPU)
+        for r, o in zip(sess.history, (one.step(**data), one.step(**data))):
+            assert abs(r["loss"] - float(o.loss)) <= 1e-5 * abs(r["loss"])
 
     def test_defaults_are_accepted_and_unknown_options_are_type_errors(self):
         g = _train_graph()
@@ -409,9 +433,15 @@ class TestNotPorted:
         g = LogicalGraph(Placement(("data",), (4,)))
         g.matmul(g.input("x", (8, 8)), g.input("w", (8, 8)), name="mm")
         assert plan(g).total_cost == 0          # planning takes any mesh
+        x = _inputs(g)
+        outs = []
         for backend in ("actors", "monolithic"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-                api.compile(g, backend=backend, stages=1, device=CPU)
+            sess = api.compile(g, backend=backend, stages=1, device=CPU)
+            assert sess.meshes[0].size == 4
+            outs.append(sess.run(**x)["mm.out"])
+        assert _eq(outs[0], outs[1])
+        torch.testing.assert_close(outs[0], torch.as_tensor(x["x"] @ x["w"]),
+                                   rtol=1e-5, atol=1e-6)
 
     def test_precision_and_zero_fields(self):
         assert PrecisionPolicy("float32").compute_dtype == "float32"

@@ -415,9 +415,27 @@ def test_plain_xent_vjp_matches_jax_vjp(case):
 
 
 def test_combine_stats_over_an_axis_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        combine_stats(torch.zeros(1, 2), torch.ones(1, 2), torch.zeros(1, 2),
-                      axis_name="model")
+    """The collective form: ``combine_stats(axis_name=)`` inside spmd over
+    four vocab shards gives every rank the stacked form's loss. (The name
+    dates from before the mesh substrate, when this form raised.)"""
+    from repro_torch.core.mesh import spmd
+    from repro_torch.core.placement import Placement
+    N, Vl, n = 6, 16, 4
+    rng = np.random.default_rng(12)
+    logits = torch.from_numpy((rng.normal(size=(N, n * Vl)) * 3)
+                              .astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, n * Vl, N).astype(np.int32))
+    stats = [local_stats_ref(logits[:, r * Vl:(r + 1) * Vl], labels, r * Vl)
+             for r in range(n)]
+    want = combine_stats(*(torch.stack([st[i] for st in stats])
+                           for i in range(3)))
+    mesh = Placement(("model",), (n,)).to_mesh("cpu")
+    got = spmd(lambda m, s, z: combine_stats(m, s, z, axis_name="model"),
+               mesh)(*([st[i] for st in stats] for i in range(3)))
+    for g in got:
+        assert_allclose(_np(g), _np(want), rtol=1e-6, atol=1e-6)
+    assert_allclose(_np(want), _np(softmax_xent_ref(logits, labels)),
+                    rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

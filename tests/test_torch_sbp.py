@@ -151,9 +151,17 @@ class TestBoxing:
             assert f(x) is x
 
     def test_larger_axes_raise_naming_item_8(self):
+        """Boxing on axes larger than 1 runs its collectives inside spmd;
+        an unchanged signature is the identity. (The name dates from
+        before the mesh substrate, when these axes raised.)"""
+        import torch
+        from repro_torch.core.mesh import spmd
         assert boxing_fn("S(0),B", "S(0),B", ("a", "b"), (2, 4), (8, 8))(1) == 1
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            boxing_fn("S(0)", "B", ("d",), (4,), (8, 8))
+        mesh = Placement(("d",), (4,)).to_mesh("cpu")
+        x = torch.arange(64.0).reshape(8, 8)
+        out = spmd(boxing_fn("S(0)", "B", ("d",), (4,), (8, 8)), mesh)(
+            list(x.chunk(4)))
+        assert all(torch.equal(o, x) for o in out)
 
 
 # ---------------------------------------------------------------------------
