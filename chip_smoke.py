@@ -27,7 +27,13 @@ result line is printed:
    float32 copies) and timed on a long cache (q (4, 16, 128), cache (4,
    8192, 8, 128) bf16, rows at 1,024-8,192 keys) and on the paged window,
    and at the serve shape with a cold L2 as well (the call cycling through
-   28 distinct caches, one a layer, 261 MB).
+   28 distinct caches, one a layer, 261 MB). The mesh serve path's two
+   rank shapes have rows of their own: decode on the rank-1 shard of
+   qwen3's tp = 2 cache (q (4, 16, 128), shard (4, 285, 8, 128) bf16 at
+   ``k_offset`` 285, one row wholly masked there; both shards' partials
+   also combined across two virtual ranks of the card against the plain
+   decode over the whole (4, 570) cache) and the attention forward at a
+   rank's local heads (q (1, 512, 8, 128), 4 kv heads).
    Each reports the device time of every kernel its call launches
    (torch.profiler; the names of the kernels the trace matched are
    printed), the wrapper call's, the plain version's, the least time the
@@ -68,7 +74,17 @@ result line is printed:
    monolithic, more rounds than unchunked; qwen3 sampled (temperature 0.8,
    top-k 50, top-p 0.95, seed 1): actors ≡ monolithic, seed 1 repeats,
    seed 2 differs, temperature 0 ≡ greedy; mamba2 paged on the actors ≡
-   dense;
+   dense. Then qwen3 on a mesh: ``Placement(("data", "model"), (1, 2))``,
+   2 virtual ranks of the card (every rank a thread, the collectives a
+   rendezvous in rank order), heads, MLP units, vocabulary and the KV
+   cache by sequence split over ``model`` (cache_len 570, 285 positions a
+   rank), the same 12 requests on the actors and the monolithic engine:
+   launches counted as above, times 2 ranks, half of the decodes at each
+   shard's ``k_offset`` (0 and 285); tokens actors ≡ monolithic; every
+   first-token logit within ``atol=0.25, rtol=0.05`` of a 1 x 1 session's
+   on the same weights, and the generated tokens equal to its counted (not
+   a gate); tok/s, peak memory, the collectives' calls, bytes and seconds,
+   and the idle share of a profiled run of the first 4 requests;
 5. train: qwen3-1.7b at full width and depth (bf16 compute, float32 params
    and AdamW state, seeded init) through ``repro_torch.train.steps
    .make_train_step``, fed by ``ActorDataPipeline(SyntheticLM(151936, 2,
@@ -126,10 +142,11 @@ result line is printed:
    75,968 at offset 75,968) with that phase's launches.
 
 The kernels line's attention forward, decode and SSD scan rows carry
-``launches_by_path``, each serving path's launches, and the decode row its
-split plan (``splits``, ``ms_by_splits``, ``resident_clusters``), a
-``paged_shape`` entry timed at the paged window, ``long_cache`` and
-``cold_l2``. The last two lines are the
+``launches_by_path``, each serving path's launches (the mesh's as
+``serve mesh``), the mesh decode row ``launches_by_offset``, and the
+decode row its split plan (``splits``, ``ms_by_splits``,
+``resident_clusters``), a ``paged_shape`` entry timed at the paged
+window, ``long_cache`` and ``cold_l2``. The last two lines are the
 kernel table as one JSON object and the result
 ``{"ok": true, "device": {...}}``. It imports nothing of jax.
 """
@@ -303,93 +320,111 @@ def device_and_build():
     return smi
 
 
+def attention_row(dev, B, S, H, KV, D, seed):
+    """The attention forward held to its plain version at q (B, S, H, D),
+    kv (B, S, KV, D), causal, in bf16 (tensor-core kernel) and float32
+    (CUDA-core kernel), and timed: one kernels-line row's numbers."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+    q, k, v = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D)
+    what = f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} causal"
+    # bf16 goes to the tensor-core kernel, float32 to the CUDA-core one
+    n0, w0 = fa.launches, fa.wgmma_launches
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.plain_flash_attention(q, k, v, causal=True)
+    err = agree(f"{what} bf16", got, want, ATOL, RTOL)
+    f32 = [t.float() for t in (q, k, v)]
+    want32 = fa.plain_flash_attention(*f32, causal=True)
+    err_c = agree(f"{what} bf16 vs the plain version on float32 copies",
+                  got, want32, ATOL, RTOL)
+    err32 = agree(f"{what} float32", fa.flash_attention(
+        *f32, causal=True), want32, F32_TOL, F32_TOL)
+    torch.cuda.synchronize()
+    if (fa.launches - n0, fa.wgmma_launches - w0) != (2, 1):
+        raise AssertionError("flash_attention: bf16 did not reach the "
+                             "tensor-core kernel, or float32 did")
+    del f32, want32
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = S * (S + 1) // 2                 # causal: unmasked (q, k)
+    b_ms, b_by = bound_ms(nbytes(q, k, v, got), 4 * D * H * B * pairs)
+    launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    return timed({
+        "max_abs_err": err, "max_abs_err_vs_f32_copies": err_c,
+        "f32_max_abs_err": err32,
+        "plain_ms": cuda_ms(
+            lambda: fa.plain_flash_attention(q, k, v, causal=True),
+            iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  qt, kt, vt, is_causal=True,
+                                  enable_gqa=True)),
+    }, "flash_fwd_wgmma_kernel", launch, launch)
+
+
+ATTENTION_ROW = {"route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:75"}
+DECODE_ROW = {"route": "cuda",
+              "source": "src/repro_torch/csrc/flash_decode.cu",
+              "replaces": "src/repro/kernels/flash_decode/kernel.py:60"}
+
+
 def check_flash_attention(dev):
     """The attention forward at the serving prefill shape (the row's main
     numbers, as in slice 1) and at one training layer (``train_shape``)."""
-    from repro_torch.kernels.flash_attention import kernel as fa
-
-    def at(B, S, H, KV, D, seed):
-        rng = np.random.default_rng(seed)
-        mk = lambda *shape: torch.from_numpy(  # noqa: E731
-            rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
-        q, k, v = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D)
-        what = f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} causal"
-        # bf16 goes to the tensor-core kernel, float32 to the CUDA-core one
-        n0, w0 = fa.launches, fa.wgmma_launches
-        got = fa.flash_attention(q, k, v, causal=True)
-        want = fa.plain_flash_attention(q, k, v, causal=True)
-        err = agree(f"{what} bf16", got, want, ATOL, RTOL)
-        f32 = [t.float() for t in (q, k, v)]
-        want32 = fa.plain_flash_attention(*f32, causal=True)
-        err_c = agree(f"{what} bf16 vs the plain version on float32 copies",
-                      got, want32, ATOL, RTOL)
-        err32 = agree(f"{what} float32", fa.flash_attention(
-            *f32, causal=True), want32, F32_TOL, F32_TOL)
-        torch.cuda.synchronize()
-        if (fa.launches - n0, fa.wgmma_launches - w0) != (2, 1):
-            raise AssertionError("flash_attention: bf16 did not reach the "
-                                 "tensor-core kernel, or float32 did")
-        del f32, want32
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        pairs = S * (S + 1) // 2                 # causal: unmasked (q, k)
-        b_ms, b_by = bound_ms(nbytes(q, k, v, got), 4 * D * H * B * pairs)
-        launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
-        return timed({
-            "max_abs_err": err, "max_abs_err_vs_f32_copies": err_c,
-            "f32_max_abs_err": err32,
-            "plain_ms": cuda_ms(
-                lambda: fa.plain_flash_attention(q, k, v, causal=True),
-                iters=5),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(lambda: torch.nn.functional
-                                  .scaled_dot_product_attention(
-                                      qt, kt, vt, is_causal=True,
-                                      enable_gqa=True)),
-        }, "flash_fwd_wgmma_kernel", launch, launch)
-
-    entry = {"name": "flash_attention", "route": "cuda",
-             "source": "src/repro_torch/csrc/flash_attention.cu",
-             "replaces": "src/repro/kernels/flash_attention/kernel.py:75"}
-    entry.update(at(1, 512, 16, 8, 128, SEED))
-    entry["train_shape"] = at(2, 2048, 16, 8, 128, SEED + 7)
+    entry = {"name": "flash_attention", **ATTENTION_ROW}
+    entry.update(attention_row(dev, 1, 512, 16, 8, 128, SEED))
+    entry["train_shape"] = attention_row(dev, 2, 2048, 16, 8, 128, SEED + 7)
     return entry
 
 
-def decode_row(entry: dict, q, k, v, cur, what: str) -> dict:
+def decode_row(entry: dict, q, k, v, cur, what: str,
+               k_offset: int = 0) -> dict:
     """Hold the decode kernel to its plain version on ``(q, k, v, cur)``
-    in bf16 and on float32 copies of the same inputs, then time it as the
-    other kernels are, against SDPA's call on the same cache and mask."""
+    (a cache, or a shard of one starting at position ``k_offset``) in bf16
+    and on float32 copies of the same inputs, then time it as the other
+    kernels are, against SDPA's call on the same cache and mask. The bound
+    counts the keys each row reads: K and V of its unmasked keys, and V of
+    the whole shard for a row with none (the finite-sentinel average)."""
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.flash_decode.ref import (combine_partials,
                                                       flash_decode_partial_ref)
+    off = dict(k_offset=k_offset)
     got = combine_partials(*(t[None] for t in fd.flash_decode(
-        q, k, v, cur_pos=cur)))
+        q, k, v, cur_pos=cur, **off)))
     want = combine_partials(*(t[None] for t in flash_decode_partial_ref(
-        q, k, v, cur_pos=cur)))
+        q, k, v, cur_pos=cur, **off)))
     entry["max_abs_err"] = agree(f"{what} bf16", got, want, ATOL, RTOL)
     want32 = combine_partials(*(t[None] for t in flash_decode_partial_ref(
-        q.float(), k.float(), v.float(), cur_pos=cur)))
+        q.float(), k.float(), v.float(), cur_pos=cur, **off)))
     entry["f32_copies_max_abs_err"] = agree(
         f"{what} vs the plain version on float32 copies", got, want32,
         F32_TOL, F32_TOL)
     del want32
     B, L, KV, D = k.shape
-    keys = int((cur.long() + 1).sum().item())    # keys this call must read
-    m, l, acc = fd.flash_decode(q, k, v, cur_pos=cur)
+    H = q.shape[1]
+    keys = (cur.long() - k_offset + 1).clamp(0, L)   # each row's keys
+    masked = int((keys == 0).sum().item())
+    keys = int(keys.sum().item())
+    m, l, acc = fd.flash_decode(q, k, v, cur_pos=cur, **off)
+    row_bytes = KV * D * k.element_size()
     entry["bound_ms"], entry["bound_by"] = bound_ms(
-        nbytes(q, cur, m, l, acc) + 2 * keys * KV * D * k.element_size(),
-        4 * D * q.shape[1] * keys)
-    mask = (torch.arange(L, device=q.device)[None, :]
+        nbytes(q, cur, m, l, acc) + (2 * keys + masked * L) * row_bytes,
+        4 * D * H * keys + 2 * D * H * masked * L)
+    mask = ((k_offset + torch.arange(L, device=q.device))[None, :]
             <= cur[:, None].long())
     qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     entry["plain_ms"] = cuda_ms(
-        lambda: flash_decode_partial_ref(q, k, v, cur_pos=cur))
+        lambda: flash_decode_partial_ref(q, k, v, cur_pos=cur, **off))
     entry["library_ms"] = cuda_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qs, kt, vt, attn_mask=mask[:, None, None], enable_gqa=True))
     return timed(entry, "flash_decode_kernel",
-                 lambda: fd.flash_decode_cuda_partials(q, k, v, cur),
-                 lambda: fd.flash_decode(q, k, v, cur_pos=cur))
+                 lambda: fd.flash_decode_cuda_partials(q, k, v, cur, **off),
+                 lambda: fd.flash_decode(q, k, v, cur_pos=cur, **off))
 
 
 def decode_cold_l2(q, k, v, cur, layers: int = 28) -> dict:
@@ -465,9 +500,7 @@ def check_flash_decode(dev):
         raise AssertionError("flash_decode: the call ran device work "
                              f"besides its kernel: {sorted(on_card)}")
     entry = decode_row({
-        "name": "flash_decode", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_decode.cu",
-        "replaces": "src/repro/kernels/flash_decode/kernel.py:60",
+        "name": "flash_decode", **DECODE_ROW,
         "splits": fd.split_plan(B, KV, L, fd.sm_count(q.device)),
     }, q, k, v, cur, what)
     entry["cold_l2"] = decode_cold_l2(q, k, v, cur)
@@ -918,8 +951,9 @@ def zero_serve_counts():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    fa.launches = fa.wgmma_launches = fd.launches = ssd.launches = 0
+    fa.launches = fa.wgmma_launches = ssd.launches = 0
     ssd.wgmma_launches = 0
+    fd.reset_counts()
 
 
 def serve_requests(cfg, n_req: int = 12, seed: int = SEED + 3,
@@ -1319,6 +1353,199 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 4
 # rounding into different weights, so later steps are held looser. Set at
 # about 10x the measured worst: 9.6e-5 at step 0 (grad_norm), 4.3e-4 after.
 CURVE_RTOL_FIRST, CURVE_RTOL = 1e-3, 5e-3
+
+
+# the mesh serve phase: qwen3-1.7b on 2 ranks of "model" (tp = 2), its
+# cache_len (569 + 9 tokens of headroom, as the 1 x 1 phase) rounded up to
+# a multiple of tp, as the reference's api does
+MESH_SERVE = (1, 2)
+MESH_CACHE_LEN = 570
+# first-token logits of the mesh session against the 1 x 1 session's, bf16:
+# each rank's P(sum) branch output is rounded to bf16 before the psum adds
+# it, one rounding more per branch than one device's matmul, over 56
+# branches; the logits are ~N(0, 1) at the seeded init
+MESH_LOGITS_ATOL, MESH_LOGITS_RTOL = 0.25, 0.05
+
+
+def check_mesh_kernels(dev):
+    """The two kernels of the mesh serve path at a rank's shapes: decode on
+    the rank-1 shard of qwen3's tp = 2 cache (q (4, 16, 128), shard (4,
+    285, 8, 128) bf16 at ``k_offset`` 285, one row wholly masked there),
+    with both shards' partials also combined across two virtual ranks of
+    the card and held to the plain decode over the whole (4, 570) cache;
+    and the attention forward at the local heads of a 512-token prefill
+    (q (1, 512, 8, 128), 4 kv heads)."""
+    from repro_torch.core.mesh import spmd
+    from repro_torch.core.placement import Placement
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode.ref import (combine_partials,
+                                                      flash_decode_partial_ref)
+    tp = MESH_SERVE[1]
+    B, H, KV, D, L = 4, 16, 8, 128, MESH_CACHE_LEN
+    Ll = L // tp
+    rng = np.random.default_rng(SEED + 12)
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+    q, k, v = mk(B, H, D), mk(B, L, KV, D), mk(B, L, KV, D)
+    cur = torch.tensor([70, 300, 511, L - 1], dtype=torch.int32, device=dev)
+    shards = [tuple(t[:, r * Ll:(r + 1) * Ll].contiguous() for t in (k, v))
+              for r in range(tp)]
+    mesh = Placement(("model",), (tp,)).to_mesh(dev, timeout=60.0)
+    outs = spmd(lambda r: combine_partials(*fd.flash_decode(
+        q, *shards[r], cur_pos=cur, k_offset=r * Ll), axis_name="model"),
+        mesh)(list(range(tp)))
+    whole = combine_partials(*(t[None] for t in flash_decode_partial_ref(
+        q, k, v, cur_pos=cur)))
+    err = agree(f"flash_decode: {tp} shards of cache{tuple(k.shape)} at "
+                f"k_offset 0 / {Ll}, combined across {tp} ranks, vs the "
+                "plain decode over the whole cache", outs[0], whole,
+                ATOL, RTOL)
+    if not all(torch.equal(o, outs[0]) for o in outs):
+        raise AssertionError("flash_decode: the ranks' combines differ")
+    splits = fd.split_plan(B, KV, Ll, fd.sm_count(q.device))
+    print(f"flash_decode at the shard: split plan {splits} (cluster "
+          f"legal: {1 <= splits <= fd.MAX_SPLITS}), clusters resident at "
+          f"once {fd.resident_clusters(q.dtype, D, splits, q.device)}")
+    entry = decode_row({
+        "name": f"flash_decode (tp={tp} rank-1 shard)", **DECODE_ROW,
+        "splits": splits, "k_offset": Ll, "combined_max_abs_err": err},
+        q, *shards[1], cur,
+        f"flash_decode q{tuple(q.shape)} shard{tuple(shards[1][0].shape)} "
+        f"k_offset {Ll} cur_pos {cur.tolist()} (row 0 wholly masked)",
+        k_offset=Ll)
+    attn = {"name": f"flash_attention (tp={tp} local heads)",
+            **ATTENTION_ROW}
+    attn.update(attention_row(dev, 1, 512, H // tp, KV // tp, D, SEED + 13))
+    return entry, attn
+
+
+def first_token_logits(sess, requests, dev):
+    """Each request's first-token logits, float32, through the session's
+    stage prefills (on a mesh the last stage assembles the ranks' vocab
+    blocks)."""
+    out = []
+    with torch.inference_mode():
+        for toks, _ in requests:
+            x = torch.as_tensor(toks[None], dtype=torch.int32, device=dev)
+            for st in sess.sstaged.stages:
+                x, _ = st.prefill(st.params, x, toks.size - 1)
+            out.append(x.float())
+    return out
+
+
+def serve_mesh(dev, cfg, model):
+    """The mesh serve phase: qwen3-1.7b at full width and depth on
+    ``Placement(("data", "model"), MESH_SERVE)``, 2 virtual ranks of the
+    card (heads, MLP units, vocabulary and the KV cache by sequence split
+    over them), on the actors (2 stages) and the monolithic engine, the
+    serve phase's requests; each run's launches counted (per rank and
+    layer one attention forward per prefill, one decode per decode item,
+    half of them at each shard's ``k_offset``). Tokens actors ≡
+    monolithic; every first-token logit within MESH_LOGITS_* of the 1 x 1
+    session's; how many generated tokens match 1 x 1 (no gate: bf16 sums
+    split over two ranks round differently). Returns the actor run's
+    counts, with ``offsets``."""
+    from repro_torch.core.placement import Placement
+    from repro_torch.kernels.flash_decode import kernel as fd
+    placement = Placement(("data", "model"), MESH_SERVE)
+    ranks, tp = placement.num_devices, MESH_SERVE[1]
+    phase(f"serve on a {MESH_SERVE} mesh ({cfg.name}, full width, bf16, "
+          f"{ranks} virtual ranks on one card, actors x 2 stages and "
+          "monolithic)")
+    requests = serve_requests(cfg)
+    geo = dict(num_groups=2, group_size=4, max_prompt_len=512,
+               max_new_tokens=48)
+    L = cfg.num_layers
+    runs, logits = {}, {}
+    for backend in ("actors", "monolithic"):
+        t0 = time.perf_counter()
+        sess = compile_serve(cfg, model, backend, mesh=placement,
+                             device=dev, **geo)
+        torch.cuda.synchronize()
+        print(f"{backend}: compiled in {time.perf_counter() - t0:.1f} s "
+              f"(cache_len {sess.cache_len}, reserved dense cache "
+              f"{sess.cache_bytes() / 2**30:.2f} GiB over the ranks)")
+        if sess.cache_len != MESH_CACHE_LEN:
+            raise AssertionError(f"cache_len {sess.cache_len}, expected "
+                                 f"{MESH_CACHE_LEN} (569 rounded up to tp)")
+        if backend == "actors":
+            print(sess.describe())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_serve_counts()
+        out = sess.generate(requests)
+        got = serve_counts()
+        offsets = dict(fd.offset_launches)
+        peak = torch.cuda.max_memory_allocated()
+        st = sess.last_stats
+        items = st["decode_items"]
+        want = {"flash_attention": ranks * L * st["prefill_items"],
+                "flash_fwd_wgmma_kernel": ranks * L * st["prefill_items"],
+                "flash_decode": ranks * L * items, "ssd_scan": 0,
+                "ssd_scan_wgmma": 0}
+        shard = MESH_CACHE_LEN // tp
+        want_off = {r * shard: ranks // tp * L * items for r in range(tp)}
+        print(f"mesh {backend}: launches {got} at decode offsets {offsets} "
+              f"(expected {want} at {want_off}: {ranks} ranks x {L} layers,"
+              f" {st['prefill_items']} prefills, {items} decode items)")
+        if got != want or offsets != want_off \
+                or st["prefill_items"] != len(requests):
+            raise AssertionError(f"mesh {backend}: kernel launches {got} "
+                                 f"at {offsets}, expected {want} at "
+                                 f"{want_off}")
+        check_outputs(cfg, out, requests, f"mesh {backend}")
+        col = st["collectives"]
+        print(f"mesh {backend}: {st['requests']} requests, {st['tokens']} "
+              f"tokens in {st['rounds']} rounds, {st['wall_s']:.3f} s wall, "
+              f"{st['tok_per_s']:.2f} tok/s, peak memory "
+              f"{peak / 2**30:.2f} GiB; collectives "
+              f"{sum(col['bytes'].values()) / 2**20:,.1f} MiB (Table 2 "
+              f"volume) in {sum(col['calls'].values())} calls "
+              f"{col['calls']}, the ranks {col['seconds']:.3f} s in them")
+        runs[backend] = (out, got, offsets, st)
+        if backend == "monolithic":
+            logits["mesh"] = first_token_logits(sess, requests, dev)
+            # the idle share from the first 4 requests, the device traced
+            # alone: the host's op events of a whole run take minutes to
+            # post-process
+            profile_device(f"mesh {backend} generate (requests 0-3)",
+                           lambda: sess.generate(requests[:4]), cpu=False)
+        closed(sess)
+    if not same_tokens(runs["actors"][0], runs["monolithic"][0]):
+        raise AssertionError("mesh: actors and monolithic tokens differ")
+    print("mesh: tokens identical on the actors and the monolithic engine")
+
+    one = compile_serve(cfg, model, "monolithic", cache_len=MESH_CACHE_LEN,
+                        device=dev, **geo)
+    ref = one.generate(requests)
+    logits["one"] = first_token_logits(one, requests, dev)
+    print(f"1 x 1 monolithic at cache_len {MESH_CACHE_LEN}: "
+          f"{one.last_stats['tok_per_s']:.2f} tok/s")
+    closed(one)
+    worst, worst_rel = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(logits["mesh"], logits["one"])):
+        diff = (a - b).abs()
+        worst = max(worst, diff.max().item())
+        worst_rel = max(worst_rel, (torch.linalg.vector_norm(a - b)
+                                    / torch.linalg.vector_norm(b)).item())
+        if not torch.allclose(a, b, atol=MESH_LOGITS_ATOL,
+                              rtol=MESH_LOGITS_RTOL):
+            raise AssertionError(
+                f"mesh request {i}: first-token logits max abs err "
+                f"{diff.max().item():.3e} past atol {MESH_LOGITS_ATOL} + "
+                f"rtol {MESH_LOGITS_RTOL} of the 1 x 1 session's")
+    same = sum(int((np.asarray(a) == np.asarray(b)).sum())
+               for a, b in zip(runs["actors"][0], ref))
+    total = sum(len(b) for b in ref)
+    whole = sum(np.array_equal(a, b) for a, b in zip(runs["actors"][0], ref))
+    print(f"mesh vs 1 x 1: first-token logits max abs err {worst:.3e}, "
+          f"worst relative norm error {worst_rel:.3e} (limit atol "
+          f"{MESH_LOGITS_ATOL} + rtol {MESH_LOGITS_RTOL}); generated tokens "
+          f"equal at {same} of {total} positions, {whole} of "
+          f"{len(ref)} requests whole (not a gate)")
+    counts = dict(runs["actors"][1])
+    counts["offsets"] = runs["actors"][2]
+    return counts
 
 
 @contextlib.contextmanager
@@ -2025,7 +2252,8 @@ def main() -> int:
     smi = device_and_build()
     phase("kernels (path shapes)")
     kernels = [check_flash_attention(dev), check_flash_decode(dev),
-               *check_xent(dev), *check_xent_graph(dev),
+               *check_mesh_kernels(dev), *check_xent(dev),
+               *check_xent_graph(dev),
                *check_xent_graph(dev, N=GRAPH_N // GRAPH_M // MESH_SHAPE[0],
                                  V=GRAPH_V // MESH_SHAPE[1],
                                  offset=GRAPH_V // MESH_SHAPE[1],
@@ -2060,6 +2288,8 @@ def main() -> int:
     paths["serve paged"] = serve_paged(dev, cfg, model)
     chunk_requests, paths["serve chunked"] = serve_chunked(dev, cfg, model)
     paths["serve sampled"] = serve_sampled(dev, cfg, model, chunk_requests)
+    torch.cuda.empty_cache()
+    meshed = serve_mesh(dev, cfg, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2093,6 +2323,12 @@ def main() -> int:
             # the graph train run: 3 backends x GRAPH_STEPS steps
             kr["launches"] = graph_trained[name.split(" ")[0]]
             kr["launches_per_step"] = GRAPH_M
+        elif name.startswith("flash_decode (tp="):
+            # the mesh serve run: this shard's launches, and each shard's
+            kr["launches"] = meshed["offsets"][kr["k_offset"]]
+            kr["launches_by_offset"] = meshed["offsets"]
+        elif name.startswith("flash_attention (tp="):
+            kr["launches"] = meshed["flash_fwd_wgmma_kernel"]
         elif name.endswith(" (vocab shard, float32)"):
             # the mesh phase: 2 backends x GRAPH_STEPS steps, every rank
             kr["launches"] = mesh_trained[name.split(" ")[0]]
@@ -2107,7 +2343,8 @@ def main() -> int:
                     (next(k for k in kernels if k["name"] == "ssd_scan"),
                      "ssd_scan")):
         kr["launches_by_path"] = {"serve": served[key], **{
-            path: counts[key] for path, counts in paths.items()}}
+            path: counts[key] for path, counts in paths.items()},
+            "serve mesh": meshed[key]}
     kernels[1]["paged_shape"]["launches"] = paths["serve paged"][
         "flash_decode"]
     print(f"all phases passed in {time.perf_counter() - _START:.1f} s")

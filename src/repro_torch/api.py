@@ -12,14 +12,17 @@ every lowering and executor path (port of ``repro/api.py``).
 * ``compile(cfg, mode="serve")`` builds a :class:`ServeSession` that runs
   continuously-batched decode over the lowered stage programs: greedy or
   sampled (``sampling=``), over dense per-group caches or the paged pool
-  (``cache="paged"``, with shared-prefix pages and ``prefill_chunk=``).
+  (``cache="paged"``, with shared-prefix pages and ``prefill_chunk=``),
+  on one device or, dense, on a ``("data", "model")`` mesh of ranks
+  (``mesh=``: tensor parallelism over ``model``, data parallelism over
+  ``data``).
 
 A graph runs on the ranks of a :class:`~repro_torch.core.mesh.DeviceMesh`
 (``mesh=``; default: the graph placement's ranks, all on ``device``), or
 stage by stage on ``stage_meshes=``; sessions take and return global
 tensors. What the reference offers beyond that raises
-:class:`NotImplementedError` naming its ROADMAP item: serving on a mesh, ZeRO
-and mixed precision, snapshots and faults, the process runtime, the static
+:class:`NotImplementedError` naming its ROADMAP item: ZeRO and mixed
+precision, snapshots and faults, the process runtime, the static
 verifier and stage-body wrappers.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
@@ -47,10 +50,12 @@ from repro_torch.core.lowering import (OptimizerSpec, _resolve_loss,
                                        reassemble_sinks, split_microbatches,
                                        sync_mesh)
 from repro_torch.core.mesh import DeviceMesh, assemble, place
+from repro_torch.core.placement import Placement
 from repro_torch.core.planner import Plan, plan as plan_sbp
 from repro_torch.models.common import MeshPlan, resolve_device
-from repro_torch.models.transformer import (Transformer, has_ssm_layers,
-                                            stack_layout)
+from repro_torch.models.transformer import (Transformer,
+                                            check_mesh_supported,
+                                            has_ssm_layers, stack_layout)
 from repro_torch.runtime.pipeline import (ActorPipelineExecutor,
                                           InlineServeEngine, PipelinePlan,
                                           ServePipelineExecutor,
@@ -474,7 +479,10 @@ class ServeSession:
     paged with ``prefill_chunk``, a sequence of ``PrefillChunkWork``).
     Tokens are greedy, or drawn by the last stage's sampler under
     ``sampling``. ``history`` accumulates one record per round,
-    ``last_stats`` describes the last :meth:`generate`.
+    ``last_stats`` describes the last :meth:`generate` (on a mesh with
+    ``collectives``: the mesh's calls and bytes by kind and the seconds
+    its ranks spent in them, :class:`repro_torch.core.mesh
+    .CollectiveStats`).
     """
 
     def __init__(self, *, cfg, backend: str, engine, sstaged,
@@ -580,6 +588,9 @@ class ServeSession:
             cache_len=self.cache_len, device=self.device, pool=pool,
             prefill_chunk=self.prefill_chunk,
             share_prefix=self.share_prefix)
+        mesh = self.sstaged.mesh
+        if mesh is not None:
+            mesh.stats.reset()
         t0 = time.perf_counter()
         while not sched.done():
             work, meta = sched.plan_round()
@@ -600,6 +611,11 @@ class ServeSession:
             "chunk_items": sched.chunk_items,
             "chunk_tokens": sched.chunk_tokens,
         }
+        if mesh is not None:
+            st = mesh.stats
+            self.last_stats["collectives"] = {
+                "calls": dict(st.calls), "bytes": dict(st.bytes),
+                "seconds": st.wait_s}
         if pool is not None:
             self.last_stats["peak_pages"] = pool.peak_pages
             self.last_stats["shared_pages"] = sched.shared_pages
@@ -629,8 +645,9 @@ class ServeSession:
             template = stage.init_caches(self.group_size, device="meta")
             if self.cache == "paged":
                 total += slab_bytes(template, self.cache_spec)
-            else:
-                total += dense_bytes(template, self.num_groups)
+            else:       # on a mesh, every rank's block
+                total += sum(dense_bytes(t, self.num_groups) for t in (
+                    template if stage.mesh is not None else [template]))
         return total
 
     def describe(self) -> str:
@@ -755,13 +772,13 @@ def _serve_options(*, num_groups, group_size, cache_len, max_prompt_len,
 
 
 def _load_model(cfg: ModelConfig, params, seed: int,
-                device: torch.device) -> Transformer:
-    """The model to serve: ``params`` as a Transformer or a state_dict
-    (e.g. from :func:`repro_torch.models.convert.params_from_jax`), or the
-    port's seeded init when ``params`` is None."""
+                device: torch.device, plan: MeshPlan) -> Transformer:
+    """The (global) model to serve: ``params`` as a Transformer or a
+    state_dict (e.g. from :func:`repro_torch.models.convert
+    .params_from_jax`), or the port's seeded init when ``params`` is None;
+    ``plan`` sets its padded q heads."""
     from repro_torch.models.model_zoo import build_model
 
-    plan = MeshPlan.single_device()
     if params is None:
         return build_model(cfg, plan, seed=seed, device=device)
     if isinstance(params, Transformer):
@@ -849,7 +866,7 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             microbatch_inputs: Optional[Sequence[str]] = None,
             regs=None, optimizer: Optional[OptimizerSpec] = None,
             params=None, loss=None, lr: float = 1e-2,
-            mesh: Optional[DeviceMesh] = None,
+            mesh: Union[DeviceMesh, Placement, None] = None,
             stage_meshes: Optional[Sequence[DeviceMesh]] = None,
             device=None, seed: int = 0, timeout: float = 300.0,
             num_groups: Optional[int] = None,
@@ -909,7 +926,13 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
     (``"dense"`` or ``"paged"``), ``page_len``, ``num_pages`` and
     ``prefill_chunk`` (paged only), and ``sampling`` (a
     :class:`repro_torch.serve.sampler.SamplingSpec`; None decodes
-    greedily).
+    greedily). ``mesh`` (a ``DeviceMesh`` or a
+    :class:`~repro_torch.core.placement.Placement` over ``("data",
+    "model")``) serves a dense GQA model on its ranks: heads, MLP units,
+    vocabulary and the KV cache (by sequence) split over ``model``, each
+    slot group's rows over ``data``; ``cache_len`` defaults to a multiple
+    of the ``model`` size, and the paged cache takes only one device, as in
+    the reference.
 
     ``device``: None means ``"cuda"`` (raises without a card); tests pass
     ``"cpu"``; a mesh brings its own ranks' devices. ``check``: only ``"off"`` — the static verifier is not ported
@@ -935,12 +958,8 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
     if backend == "monolithic" and runtime is not None:
         raise ValueError("runtime= requires backend='actors'")
     if mode == "serve":
-        if mesh is not None or stage_meshes is not None:
-            raise NotImplementedError(
-                "mode='serve' on a mesh (tp/dp > 1: Boxer, the "
-                "vocab-parallel head, flash decode's cross-rank combine) is "
-                "the model half of ROADMAP Queue 1 item 8, not ported yet")
-        rejected = {"plan": plan, "partition": partition,
+        rejected = {"stage_meshes": stage_meshes, "plan": plan,
+                    "partition": partition,
                     "optimizer": optimizer, "loss": loss,
                     "microbatch_inputs": microbatch_inputs}
         bad = [k for k, v in rejected.items() if v is not None]
@@ -948,12 +967,12 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             bad = bad or ["num_microbatches"]
             raise ValueError(
                 f"{bad[0]}= is not meaningful for mode='serve' (serving "
-                "compiles a ModelConfig; schedule/optimizer options belong "
-                "to graph modes)")
+                "compiles a ModelConfig on one mesh; schedule, optimizer "
+                "and per-stage mesh options belong to graph modes)")
         return _compile_serve(
             model, backend=backend, stages=stages, regs=regs, params=params,
-            device=device, seed=seed, timeout=timeout, num_groups=num_groups,
-            group_size=group_size, cache_len=cache_len,
+            mesh=mesh, device=device, seed=seed, timeout=timeout,
+            num_groups=num_groups, group_size=group_size, cache_len=cache_len,
             max_prompt_len=max_prompt_len, max_new_tokens=max_new_tokens,
             cache=cache, page_len=page_len, num_pages=num_pages,
             prefill_chunk=prefill_chunk, sampling=sampling)
@@ -1058,8 +1077,21 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
                    reg_plan=reg_plan, runtime="threads", **common)
 
 
+def _serve_mesh(mesh, device, timeout: float) -> Optional[DeviceMesh]:
+    """The serve session's mesh: a ``DeviceMesh`` as given, a
+    ``Placement``'s ranks on ``device`` (None: the card) waiting as long
+    as the session does at a collective, or None for one device."""
+    if mesh is None or isinstance(mesh, DeviceMesh):
+        return mesh
+    if isinstance(mesh, Placement):
+        return mesh.to_mesh(resolve_device(device), timeout=timeout)
+    raise ValueError("mesh= takes a DeviceMesh or a Placement, got "
+                     f"{type(mesh).__name__}")
+
+
 def _compile_serve(model, *, backend: str, stages: Optional[int], regs,
-                   params, device, seed: int, timeout: float, num_groups,
+                   params, mesh, device, seed: int, timeout: float,
+                   num_groups,
                    group_size, cache_len, max_prompt_len, max_new_tokens,
                    cache, page_len, num_pages, prefill_chunk,
                    sampling) -> ServeSession:
@@ -1070,13 +1102,20 @@ def _compile_serve(model, *, backend: str, stages: Optional[int], regs,
         raise ValueError("mode='serve' compiles a ModelConfig (or an --arch "
                          f"name), got {type(model).__name__}")
     cfg = model
-    dev = resolve_device(device)
+    mesh = _serve_mesh(mesh, device, timeout)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
+    plan = MeshPlan.single_device() if mesh is None else MeshPlan.of(mesh)
     (num_groups, group_size, cache_len, max_prompt_len, max_new_tokens,
      cache, cache_spec) = _serve_options(
         num_groups=num_groups, group_size=group_size, cache_len=cache_len,
         max_prompt_len=max_prompt_len, max_new_tokens=max_new_tokens,
         cache=cache, page_len=page_len, num_pages=num_pages,
-        sampling=sampling, prefill_chunk=prefill_chunk)
+        sampling=sampling, prefill_chunk=prefill_chunk, tp=plan.tp)
+    if cache == "paged" and not plan.is_single:
+        raise ValueError(
+            "cache='paged' requires a 1x1 mesh (the page gather/scatter "
+            f"programs are single-device); got dp={plan.dp}, tp={plan.tp}")
+    check_mesh_supported(cfg, plan)
 
     lay = stack_layout(cfg)
     n_units = len(lay.prologue) + lay.n_periods
@@ -1091,10 +1130,10 @@ def _compile_serve(model, *, backend: str, stages: Optional[int], regs,
     if isinstance(regs, str):
         regs = _policy_regs(regs, stages, num_groups)
 
-    sstaged = lower_serve_stages(cfg, _load_model(cfg, params, seed, dev),
-                                 num_stages=stages, cache_len=cache_len,
-                                 max_prompt_len=max_prompt_len,
-                                 group_size=group_size)
+    sstaged = lower_serve_stages(
+        cfg, _load_model(cfg, params, seed, dev, plan), num_stages=stages,
+        cache_len=cache_len, max_prompt_len=max_prompt_len,
+        group_size=group_size, mesh=mesh)
     # shared-prefix pages assume a prompt prefix's cache values do not
     # depend on its suffix: true of causal attention and SSM stacks, not
     # under MoE capacity routing (expert drop counts see the whole prompt)

@@ -1447,6 +1447,23 @@ def _cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return copy.deepcopy(module, memo)
 
 
+def _shard_copy(module: nn.Module, dtype: torch.dtype, cfg: ModelConfig,
+                plan: MeshPlan, coords, device) -> nn.Module:
+    """A copy of ``module`` (a stage's slice of a global model) holding the
+    rank at ``coords``'s shard of every parameter under
+    :func:`repro_torch.models.transformer.spec_of`, cast to ``dtype`` on
+    ``device``; contiguous, and shared with the global tensor where the
+    shard is one already in that dtype and place (a replicated leaf, a row
+    block)."""
+    memo = {}
+    for name, p in module.named_parameters():
+        t = p.detach()
+        t = t[M.shard_slices(t.shape, T.spec_of(name, cfg, plan),
+                             plan.axis_sizes, coords)]
+        memo[id(p)] = param(t.to(device, dtype).contiguous())
+    return copy.deepcopy(module, memo)
+
+
 @dataclasses.dataclass
 class ServeStage:
     """One lowered decode/prefill pipeline stage.
@@ -1469,6 +1486,14 @@ class ServeStage:
     group cache (on the stage's device; ``"meta"`` gives its shapes only);
     ``write_slot(caches, slot_caches, slot)`` copies a freshly prefilled
     request into slot ``slot`` of it.
+
+    On a ``mesh`` of several ranks each is a per-rank program run through
+    :func:`repro_torch.core.mesh.spmd`: ``params`` and the caches are
+    per-rank lists (each rank's shards; a group cache ``(group_size / dp,
+    cache_len / tp, KV, hd)`` a rank), so is a hidden passed between stages
+    (replicated over ``model``, split over ``data``). Token ids, positions
+    and the last stage's logits stay global: the stage cuts the first two
+    by data rank and assembles the third from the ranks' vocab blocks.
     """
 
     index: int
@@ -1482,6 +1507,7 @@ class ServeStage:
     first: bool
     last: bool
     device: torch.device = None
+    mesh: Optional[DeviceMesh] = None
 
 
 class ServeStagedProgram:
@@ -1490,9 +1516,10 @@ class ServeStagedProgram:
     :class:`repro_torch.runtime.pipeline.ServePipelineExecutor`."""
 
     def __init__(self, cfg, plan, stages: List[ServeStage], cache_len: int,
-                 max_prompt_len: int, group_size: int, device):
+                 max_prompt_len: int, group_size: int, device, mesh=None):
         self.cfg = cfg
         self.plan = plan
+        self.mesh = mesh
         self.stages = stages
         self.cache_len = cache_len
         self.max_prompt_len = max_prompt_len
@@ -1511,6 +1538,10 @@ class ServeStagedProgram:
                  f"{self.stages[-1].units[1]} stack units ({layers} layers) "
                  f"(cache_len={self.cache_len}, "
                  f"group_size={self.group_size}, device={self.device})"]
+        if self.mesh is not None:
+            lines.append(f"  on {self.mesh}: tp={self.plan.tp} (heads, "
+                         f"vocab, KV cache by sequence), dp={self.plan.dp} "
+                         "(slot groups' rows)")
         for st in self.stages:
             extra = []
             if st.first:
@@ -1526,13 +1557,20 @@ class ServeStagedProgram:
 def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
                        num_stages: int, cache_len: int, max_prompt_len: int,
                        group_size: int, sliding_window: int = 0,
-                       plan: Optional[MeshPlan] = None) -> ServeStagedProgram:
+                       mesh: Optional[DeviceMesh] = None
+                       ) -> ServeStagedProgram:
     """Cut ``model`` (a :class:`repro_torch.models.transformer.Transformer`)
-    into ``num_stages`` stage programs on the model's device. Each stage
-    gets its slice of the blocks, plus the embedding on the first stage and
-    the final norm + unembedding head on the last."""
-    plan = plan or MeshPlan.single_device()
+    into ``num_stages`` stage programs on the model's device, or, with a
+    ``mesh`` of several ranks, into per-rank programs over its
+    ``("data", "model")`` axes with each rank's shards on its device
+    (``repro/core/lowering.py:1331-1503``). Each stage gets its slice of the
+    blocks, plus the embedding on the first stage and the final norm +
+    unembedding head on the last."""
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    plan = MeshPlan.single_device() if mesh is None else MeshPlan.of(mesh)
     T.check_supported(cfg)
+    T.check_mesh_supported(cfg, plan)
     if cache_len < 2:
         # retired/empty slots decode a dummy token "parked" at the reserved
         # position cache_len - 1; with cache_len < 2 that position would
@@ -1541,13 +1579,25 @@ def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
             f"cache_len={cache_len} must be >= 2: the final cache position "
             "(cache_len - 1) is reserved as the parking slot for "
             "retired/empty decode slots")
+    if cache_len % plan.tp:
+        raise ValueError(f"cache_len={cache_len} must be divisible by the "
+                         f"model-parallel degree {plan.tp}")
+    if group_size % plan.dp:
+        raise ValueError(f"group_size={group_size} must be divisible by the "
+                         f"data-parallel degree {plan.dp}")
+    attn = next((b.attn for b in model.blocks if hasattr(b, "attn")), None)
+    hq = None if attn is None else attn.wq.shape[1] // cfg.head_dim
+    if hq is not None and hq != cfg.padded_heads(plan.tp):
+        raise ValueError(f"the model holds {hq} q heads; tp={plan.tp} needs "
+                         f"{cfg.padded_heads(plan.tp)} (build it with the "
+                         "mesh's MeshPlan)")
     units = T.stage_units(cfg)
     n_units = len(units)
     if not (1 <= num_stages <= n_units):
         raise ValueError(f"num_stages={num_stages} must be in [1, {n_units}] "
                          f"(= prologue blocks + body periods for {cfg.name})")
     adt = T.compute_dtype(cfg)
-    device = model.embed.device
+    device = model.embed.device if mesh is None else mesh.devices[0]
     kinds_all = T.stack_layout(cfg).layer_kinds()
 
     # contiguous unit ranges, balanced by count
@@ -1563,11 +1613,11 @@ def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
         first, last = s == 0, s == num_stages - 1
         layers = [li for u in units[lo:hi] for li in u]
         kinds = [kinds_all[li] for li in layers]
-        sparams = _cast_copy(StageParams(
+        whole = StageParams(
             [model.blocks[li] for li in layers],
             embed=model.embed if first else None,
             final_norm=model.final_norm if last else None,
-            unembed=model.unembed if last else None), adt)
+            unembed=model.unembed if last else None)
 
         def decode(p, caches, xin, pos, _first=first, _last=last,
                    _kinds=kinds):
@@ -1586,30 +1636,105 @@ def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
             x = T.embed_tokens(p.embed, xin, plan) if _first else xin
             positions = torch.arange(x.shape[1], device=x.device)
             x, caches = T.prefill_stack_slice(p.blocks, x, positions, cfg,
-                                              plan, _kinds, sliding_window)
+                                              plan, _kinds, sliding_window,
+                                              cache_len)
             if _last:
                 x = T.final_logits(p.final_norm, p.unembed,
                                    x[:, last_index], cfg)
             return x, caches
 
-        def chunk(p, caches, xin, pos0, adv, _decode=decode):
-            # the reference's lax.scan of the decode step (:1459-1471)
-            outs = []
-            for t in range(xin.shape[0]):
-                out, caches = _decode(p, caches, xin[t], pos0 + t * adv)
-                outs.append(out)
-            return torch.stack(outs), caches
-
         def init_caches(batch: int, device=device, _layers=layers):
             return make_decode_caches(cfg, plan, batch, cache_len, device,
                                       layers=_layers)
 
+        if mesh is None:
+            sparams = _cast_copy(whole, adt)
+            write = write_slot
+        else:
+            sparams = [_shard_copy(whole, adt, cfg, plan, mesh.coords(r),
+                                   mesh.devices[r])
+                       for r in range(mesh.size)]
+            decode, prefill, init_caches, write = _rank_programs(
+                mesh, plan, first, last, decode, prefill, layers, cfg,
+                cache_len)
+
+        def chunk(p, caches, xin, pos0, adv, _decode=decode):
+            # the reference's lax.scan of the decode step (:1459-1471)
+            outs = []
+            for t in range(xin.shape[0] if torch.is_tensor(xin)
+                           else xin[0].shape[0]):
+                xt = xin[t] if torch.is_tensor(xin) else [x[t] for x in xin]
+                out, caches = _decode(p, caches, xt, pos0 + t * adv)
+                outs.append(out)
+            if torch.is_tensor(outs[0]):
+                return torch.stack(outs), caches
+            return [torch.stack(o) for o in zip(*outs)], caches
+
         stages.append(ServeStage(
             index=s, decode=decode, prefill=prefill, chunk=chunk,
-            init_caches=init_caches, write_slot=write_slot, params=sparams,
-            units=(lo, hi), first=first, last=last, device=device))
+            init_caches=init_caches, write_slot=write, params=sparams,
+            units=(lo, hi), first=first, last=last, device=device,
+            mesh=mesh))
     return ServeStagedProgram(cfg, plan, stages, cache_len, max_prompt_len,
-                              group_size, device)
+                              group_size, device, mesh=mesh)
+
+
+def _data_index(mesh: DeviceMesh, plan: MeshPlan, rank: int) -> int:
+    """The rank's row-major index over the data axes: which block of a slot
+    group's rows it holds."""
+    d = 0
+    for name, size, c in zip(mesh.axis_names, mesh.shape, mesh.coords(rank)):
+        if name != plan.model_axis:
+            d = d * size + c
+    return d
+
+
+def _rank_programs(mesh: DeviceMesh, plan: MeshPlan, first: bool,
+                   last: bool, decode, prefill, layers, cfg, cache_len):
+    """A stage's per-rank ``decode``/``prefill`` (the one-rank programs
+    given) as programs over the ranks of ``mesh``, with its
+    ``init_caches`` and ``write_slot``; see :class:`ServeStage`."""
+    ranks = list(range(mesh.size))
+    data = [_data_index(mesh, plan, r) for r in ranks]
+    # the last stage's logits: rows over data (decode) or replicated
+    # (prefill), vocab blocks over model
+    rows = ",".join("S(1)" if n == plan.model_axis else "S(0)"
+                    for n in mesh.axis_names)
+    one = ",".join("S(1)" if n == plan.model_axis else "B"
+                   for n in mesh.axis_names)
+
+    def mesh_decode(params, caches, xin, pos):
+        b = pos.shape[0] // plan.dp
+
+        def rank(r):
+            blk = slice(data[r] * b, (data[r] + 1) * b)
+            x = xin[blk] if first else xin[r]
+            return decode(params[r], caches[r], x, pos[blk])[0]
+        outs = spmd(rank, mesh)(ranks)
+        return (assemble(outs, mesh, rows) if last else outs), caches
+
+    def mesh_prefill(params, xin, last_index: int):
+        # the admission prefill (B = 1) runs replicated over data
+        outs = spmd(lambda r: prefill(params[r], xin if first else xin[r],
+                                      last_index), mesh)(ranks)
+        xs, slot_caches = [o[0] for o in outs], [o[1] for o in outs]
+        return (assemble(xs, mesh, one) if last else xs), slot_caches
+
+    def mesh_init_caches(batch: int, device=None):
+        return [make_decode_caches(cfg, plan, batch // plan.dp, cache_len,
+                                   mesh.devices[r] if device is None
+                                   else device, layers=layers)
+                for r in ranks]
+
+    def mesh_write_slot(caches, slot_caches, slot: int):
+        # only the data rank that owns the slot takes it, at its local index
+        b = caches[0][0]["k"].shape[0]
+        for r in ranks:
+            if data[r] == slot // b:
+                write_slot(caches[r], slot_caches[r], slot % b)
+        return caches
+
+    return mesh_decode, mesh_prefill, mesh_init_caches, mesh_write_slot
 
 
 def write_slot(caches: List[dict], slot_caches: List[dict],
@@ -1617,7 +1742,8 @@ def write_slot(caches: List[dict], slot_caches: List[dict],
     """Copy a prefilled request's caches (B = 1) into slot ``slot`` of the
     group caches in place, casting to the group cache's dtype. Positional
     leaves (:data:`POSITIONAL`, prompt length S) fill the slot's first S
-    positions and zero the rest -- the reference's padded write; the SSM
+    positions and zero the rest -- the reference's padded write (a rank's
+    sequence block at tp > 1 arrives padded and fills it whole); the SSM
     state and conv tails are copied whole. A conv tail shorter than the
     cache's (a prompt of fewer than ``ssm_d_conv - 1`` tokens) is refused."""
     for gc, sc in zip(caches, slot_caches):

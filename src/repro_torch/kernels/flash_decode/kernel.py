@@ -29,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -47,7 +47,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 launches = 0
+#: launches by ``k_offset`` since the last reset: {offset: count} (a rank's
+#: cache shard on a mesh carries its shard's offset)
+offset_launches: Dict[int, int] = {}
 _count_lock = threading.Lock()
+
+
+def reset_counts() -> None:
+    """Zero every launch counter of this module."""
+    global launches
+    with _count_lock:
+        launches = 0
+        offset_launches.clear()
 
 
 def split_plan(B: int, KV: int, L: int, sms: int = H100_SMS) -> int:
@@ -176,6 +187,8 @@ def flash_decode_cuda_partials(q, k, v, cur_pos, *, k_offset: int = 0,
     _build.check(err, "flash_decode")
     with _count_lock:
         launches += 1
+        offset_launches[int(k_offset)] = offset_launches.get(
+            int(k_offset), 0) + 1
     return (out.as_strided((B, H), (H, 1), 0),
             out.as_strided((B, H), (H, 1), bh),
             out.as_strided((B, H, D), (H * D, D, 1), 2 * bh))

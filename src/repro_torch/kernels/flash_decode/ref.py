@@ -9,7 +9,8 @@ signature with a non-sum reduction:
     acc : P(sum)   exp-weighted value accumulation (after rescale)
 
 :func:`flash_decode_partial_ref` computes one shard's contribution;
-:func:`combine_partials` reduces a stacked leading shard axis. They are the
+:func:`combine_partials` reduces a stacked leading shard axis, or the
+shards of the ranks of a mesh axis. They are the
 port's CPU path and the oracle of the CUDA kernel in
 :mod:`repro_torch.kernels.flash_decode.kernel`.
 
@@ -23,6 +24,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch.core import mesh as M
 
 NEG_INF = -1e30
 
@@ -68,9 +71,23 @@ def flash_decode_partial_ref(q, k, v, *, k_offset: int = 0,
     return m, l, acc
 
 
-def combine_partials(m, l, acc):
-    """Reduce partials stacked on a leading shard axis to the attention
-    output ``(B, H, Dv)`` (float32)."""
+def combine_partials(m, l, acc, axis_name: Optional[str] = None):
+    """Reduce shard partials to the attention output ``(B, H, Dv)``
+    (float32).
+
+    With ``axis_name``: the cross-rank combine inside
+    :func:`repro_torch.core.mesh.spmd`, each rank holding its own cache
+    shard's partials -- pmax of ``m``, then psums of the rescaled ``l`` and
+    ``acc``, added in rank order (elementwise work between collectives, as
+    the reference's jnp combine). Without: combines a stacked leading shard
+    axis. A wholly masked shard (``m`` at the finite sentinel) weighs
+    ``exp(-1e30 - m_g) = 0``."""
+    if axis_name is not None:
+        m_g = M.pmax(m, axis_name)
+        scale = torch.where(torch.isfinite(m), torch.exp(m - m_g), 0.0)
+        l_g = M.psum(l * scale, axis_name)
+        acc_g = M.psum(acc * scale[..., None], axis_name)
+        return acc_g / torch.clamp_min(l_g, 1e-30)[..., None]
     m_g = m.amax(dim=0)
     scale = torch.where(torch.isfinite(m), torch.exp(m - m_g[None]), 0.0)
     l_g = (l * scale).sum(dim=0)

@@ -4,13 +4,18 @@
         --requests 6 --prompt-len 32 --gen 16 --backend actors --stages 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --mesh 1x2
 
 Port of ``repro/launch/serve.py:80-150`` (``continuous_batching``): requests
 with differing generation lengths are packed into decode slots, finished
 requests retire and queued ones are admitted mid-flight, and the stage
 actors overlap across request groups. Runs on the card by default
 (``--device cuda``); ``--device cpu --smoke`` runs the reduced config on the
-plain PyTorch path. Weights are the port's seeded init (``--seed``).
+plain PyTorch path. ``--mesh DxM`` serves a dense model on a ``("data",
+"model")`` mesh of D x M ranks (threads; on one card every rank shares
+it), as the reference's ``launch/serve.py:130-141`` does. Weights are the
+port's seeded init (``--seed``).
 """
 from __future__ import annotations
 
@@ -21,9 +26,13 @@ def continuous_batching(cfg, args):
     import numpy as np
 
     from repro_torch import api
+    from repro_torch.core.placement import Placement
 
+    d_, m_ = (int(v) for v in args.mesh.split("x"))
+    mesh = (None if (d_, m_) == (1, 1)
+            else Placement(("data", "model"), (d_, m_)))
     sess = api.compile(cfg, mode="serve", backend=args.backend,
-                       stages=args.stages, device=args.device,
+                       stages=args.stages, device=args.device, mesh=mesh,
                        seed=args.seed, num_groups=args.groups,
                        group_size=args.slots,
                        max_prompt_len=args.prompt_len,
@@ -67,6 +76,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--cache-len", type=int, default=0)
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM: D data-parallel x M model-parallel ranks")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card ('cuda')")
     ap.add_argument("--seed", type=int, default=0)

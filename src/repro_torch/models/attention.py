@@ -1,7 +1,14 @@
-"""GQA attention: the prefill and one-token decode halves.
+"""GQA attention: the prefill and one-token decode halves, tensor-parallel
+over the ``model`` axis of a mesh.
 
-Port of the GQA half of ``repro/models/attention.py`` at tp = 1. The kernel
-call sites are the reference's three ref call sites:
+Port of the GQA half of ``repro/models/attention.py``. SBP view (model
+axis), as in the reference: ``wq`` S(1) (heads), ``wk``/``wv`` B (each rank
+slices its kv group), ``wo`` S(0), so the output is P(sum), reduced by the
+caller. Decode runs over a sequence-sharded KV cache (S(seq) on the model
+axis): each rank's shard gives flash-decode partials that the cross-rank
+:func:`~repro_torch.kernels.flash_decode.ref.combine_partials` reduces
+with pmax/psum. The kernel call sites are the reference's three ref call
+sites:
 
 * :func:`gqa_forward` calls :func:`repro_torch.kernels.flash_attention
   .flash_attention` where the reference calls ``flash_attention_triangular``
@@ -11,10 +18,12 @@ call sites are the reference's three ref call sites:
   (``attention.py:268-272``).
 
 On CUDA tensors both launch the Hopper kernels; on CPU tensors they run the
-plain versions. Weights are cast to the activations' dtype at each use, as
-the reference casts ``p[...].astype(x.dtype)``: training keeps float32
-params and lets the gradient flow back through the cast, and serving's
-pre-cast weights make the cast a no-op. MLA and the ring (sliding-window)
+plain versions; on a mesh each rank launches them on its own shard (the
+decode kernel at its shard's ``k_offset``). Weights are cast to the
+activations' dtype at each use, as the reference casts
+``p[...].astype(x.dtype)``: training keeps float32 params and lets the
+gradient flow back through the cast, and serving's pre-cast weights make
+the cast a no-op. MLA and the ring (sliding-window)
 decode cache wait (ROADMAP Queue 1 item 13, Queue 2 item 3).
 """
 from __future__ import annotations
@@ -23,10 +32,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mesh as M
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.models.common import (MeshPlan, apply_rope, dense_init, param,
-                                       rms_norm)
+from repro_torch.kernels.flash_decode import combine_partials, flash_decode
+from repro_torch.models.common import (Boxer, MeshPlan, apply_rope,
+                                       dense_init, param, rms_norm)
 
 
 def q_heads_local(cfg: ModelConfig, plan: MeshPlan) -> int:
@@ -40,6 +50,16 @@ def kv_heads_local(cfg: ModelConfig, plan: MeshPlan) -> int:
         return kv // tp
     assert tp % kv == 0, (kv, tp)
     return 1
+
+
+def _kv_slice(w, cfg: ModelConfig, plan: MeshPlan, hd: int):
+    """This rank's kv-head columns of the replicated kv weight (or bias):
+    its group's first head, group-aligned for kv < tp."""
+    if plan.tp == 1:
+        return w
+    n_kv = kv_heads_local(cfg, plan)
+    start = (M.axis_index(plan.model_axis) * cfg.num_kv_heads) // plan.tp
+    return w[..., start * hd:(start + n_kv) * hd]
 
 
 class GQAttention(nn.Module):
@@ -96,12 +116,12 @@ def _project_qkv(p: GQAttention, x, cfg: ModelConfig, plan: MeshPlan,
     B, S = x.shape[0], x.shape[1]
     dt = x.dtype
     q = x @ p.wq.to(dt)
-    k = x @ p.wk.to(dt)
-    v = x @ p.wv.to(dt)
+    k = x @ _kv_slice(p.wk, cfg, plan, hd).to(dt)
+    v = x @ _kv_slice(p.wv, cfg, plan, hd).to(dt)
     if cfg.qkv_bias:
         q = q + p.bq.to(dt)
-        k = k + p.bk.to(dt)
-        v = v + p.bv.to(dt)
+        k = k + _kv_slice(p.bk, cfg, plan, hd).to(dt)
+        v = v + _kv_slice(p.bv, cfg, plan, hd).to(dt)
     q = q.reshape(B, S, qh, hd)
     k = k.reshape(B, S, n_kv, hd)
     v = v.reshape(B, S, n_kv, hd)
@@ -115,8 +135,10 @@ def _project_qkv(p: GQAttention, x, cfg: ModelConfig, plan: MeshPlan,
 
 def gqa_forward(p: GQAttention, x, cfg: ModelConfig, plan: MeshPlan,
                 positions, causal: bool = True, sliding_window: int = 0):
-    """Prefill self-attention. Returns ``(y, (k, v))``: the output
-    projection and the (post-RoPE) keys and values for the decode cache."""
+    """Prefill self-attention at this rank's local heads. Returns
+    ``(y, (k, v))``: the output projection, P(sum) over the model axis,
+    and this rank's kv heads' (post-RoPE) keys and values over the whole
+    sequence."""
     q, k, v = _project_qkv(p, x, cfg, plan, positions)
     out = flash_attention(q, k, v, causal=causal,
                           sliding_window=sliding_window)
@@ -124,22 +146,96 @@ def gqa_forward(p: GQAttention, x, cfg: ModelConfig, plan: MeshPlan,
     return out.reshape(B, S, -1) @ p.wo.to(x.dtype), (k, v)
 
 
+def kv_to_seq_sharded(k, v, cfg: ModelConfig, plan: MeshPlan,
+                      cache_len: int):
+    """Boxing for the decode cache: S(head) -> S(seq) on the model axis.
+
+    k, v: (B, S, n_kv, hd), this rank's kv heads. For kv >= tp the
+    transition is Table 2's ``S(i) -> S(j)`` all_to_all; for kv < tp the
+    heads are replicated in groups of tp / kv ranks, so the ranks gather
+    the kv distinct heads and each keeps its sequence block (the free
+    ``B -> S`` slice). Returns this rank's ``(B, cache_len / tp, KV, hd)``
+    cache block of each, zero-padded to ``cache_len`` in all, contiguous
+    and owned."""
+    tp, KV = plan.tp, cfg.num_kv_heads
+    B, S, _, hd = k.shape
+    L_loc = cache_len // tp
+
+    def pad_to_cache(t):
+        if S < cache_len:
+            t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, cache_len - S))
+        return t
+
+    if tp == 1:
+        return pad_to_cache(k), pad_to_cache(v)
+    ax = plan.model_axis
+    if KV >= tp:
+        return tuple(M.all_to_all(pad_to_cache(t), ax, split_dim=1,
+                                  concat_dim=2) for t in (k, v))
+    group = tp // KV
+    start = M.axis_index(ax) * L_loc
+
+    def gather_slice(t):
+        full = M.all_gather(pad_to_cache(t), ax, dim=2)    # (B, L, tp, hd)
+        # de-duplicate: the tp / KV ranks of group g all computed head g
+        full = full.reshape(B, cache_len, KV, group, hd)[:, :, :, 0]
+        return full[:, start:start + L_loc].contiguous()
+    return gather_slice(k), gather_slice(v)
+
+
 def gqa_decode(p: GQAttention, x, cache_k, cache_v, pos, cfg: ModelConfig,
                plan: MeshPlan, sliding_window: int = 0):
-    """One-token decode. x: (B, 1, d); cache_k/v: (B, L, KV, hd); pos: (B,)
-    int32 absolute positions. Writes the new token's k/v into the caches IN
-    PLACE (the reference rebuilds them functionally; the stage owns one
-    resident copy) and returns the output projection (B, 1, d)."""
+    """One-token decode over this rank's sequence block of the KV cache.
+    x: (B, 1, d), replicated over the model axis; cache_k/v: (B, L_loc, KV,
+    hd), positions ``[m * L_loc, (m + 1) * L_loc)`` on model rank m; pos:
+    (B,) int32 absolute positions. Writes the new token's k/v into the
+    shard that owns its position IN PLACE (the reference rebuilds the
+    caches functionally; the stage owns one resident copy) and returns the
+    output projection (B, 1, d), P(sum) over the model axis."""
     B = x.shape[0]
-    hd, Hp = cfg.head_dim, cfg.padded_heads(plan.tp)
+    hd, tp, KV = cfg.head_dim, plan.tp, cfg.num_kv_heads
+    Hp = cfg.padded_heads(tp)
+    ax = plan.model_axis
+    L_loc = cache_k.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg, plan, pos[:, None])
+    if tp > 1:
+        # q for ALL heads on every rank, and the new token's kv heads: tiny
+        bx = Boxer(plan)
+        q = bx.allgather_model(q, 2)                        # S(head) -> B
+        k_new = bx.allgather_model(k_new, 2)
+        v_new = bx.allgather_model(v_new, 2)
+        if KV < tp:       # group g's tp / KV ranks all computed head g
+            group = tp // KV
+            k_new = k_new.reshape(B, 1, KV, group, hd)[:, :, :, 0]
+            v_new = v_new.reshape(B, 1, KV, group, hd)[:, :, :, 0]
+        else:             # heads arrive in order; groups exact
+            k_new, v_new = k_new[:, :, :KV], v_new[:, :, :KV]
     q = q[:, 0]                                             # (B, Hp, hd)
+    m = M.axis_index(ax) if tp > 1 else 0
+    k_off = m * L_loc
     rows = torch.arange(B, device=x.device)
-    cols = pos.long()
-    cache_k[rows, cols] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[rows, cols] = v_new[:, 0].to(cache_v.dtype)
-    _, ll, acc = flash_decode(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
-                              cur_pos=pos, sliding_window=sliding_window)
-    # one shard: combine_partials would weigh it by exp(m - m) = 1
-    out = (acc / torch.clamp_min(ll, 1e-30)[..., None]).to(x.dtype)
-    return out.reshape(B, 1, Hp * hd) @ p.wo.to(x.dtype)
+    if tp == 1:
+        cols = pos.long()
+        cache_k[rows, cols] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[rows, cols] = v_new[:, 0].to(cache_v.dtype)
+    else:
+        # only the owning shard takes the write; the others rewrite a row
+        # with itself (no host sync on which rows own)
+        local = pos.long() - k_off
+        owns = ((local >= 0) & (local < L_loc))[:, None, None]
+        safe = local.clamp(0, L_loc - 1)
+        for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+            cache[rows, safe] = torch.where(
+                owns, new[:, 0].to(cache.dtype), cache[rows, safe])
+    mm, ll, acc = flash_decode(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                               cur_pos=pos, k_offset=k_off,
+                               sliding_window=sliding_window)
+    if tp > 1:
+        out = combine_partials(mm, ll, acc, axis_name=ax)    # P -> B
+        qh = Hp // tp                  # the local heads, for the row-split wo
+        out = out[:, m * qh:(m + 1) * qh]
+    else:
+        # one shard: combine_partials would weigh it by exp(m - m) = 1
+        out = acc / torch.clamp_min(ll, 1e-30)[..., None]
+    out = out.to(x.dtype)
+    return out.reshape(B, 1, -1) @ p.wo.to(x.dtype)

@@ -1,10 +1,14 @@
-"""Shared model-building blocks: the mesh plan, numerics and init.
+"""Shared model-building blocks: the mesh plan, the boxing helper,
+numerics and init.
 
-Ports of ``repro/models/common.py:23-57`` and ``:156-197``. The reference
-runs its model code inside ``shard_map`` with SBP boxing between shards;
-this package so far runs one device (tp = dp = 1), where every boxing op is
-the identity, so :class:`MeshPlan` only admits that plan. Sharded plans are
-ROADMAP Queue 1 item 8.
+Ports of ``repro/models/common.py:23-93`` and ``:156-197``. As in the
+reference, the model code runs once per rank of a ``("data", "model")``
+mesh -- here inside :func:`repro_torch.core.mesh.spmd`, each rank a thread
+-- and writes every collective as an SBP transition (:class:`Boxer`) or a
+named-axis collective of :mod:`repro_torch.core.mesh`. On a 1 x 1 plan
+every one of them is the identity and no rank context is needed.
+``grad_sync`` and ``pmean_data`` belong to tp/dp > 1 training, which waits
+(ROADMAP Queue 1 item 8c).
 """
 from __future__ import annotations
 
@@ -15,30 +19,91 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import mesh as M
+from repro_torch.core.boxing import boxing_fn
+from repro_torch.core.sbp import Split, ndsbp
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshPlan:
-    """How the mesh axes are used by the model code (tp = dp = 1 only)."""
+    """How the mesh axes are used by the model code."""
 
     axis_names: Tuple[str, ...] = ("data", "model")
     axis_sizes: Tuple[int, ...] = (1, 1)
     model_axis: str = "model"
 
-    def __post_init__(self):
-        if any(s != 1 for s in self.axis_sizes):
-            raise NotImplementedError(
-                f"mesh {dict(zip(self.axis_names, self.axis_sizes))}: "
-                "tp/dp > 1 is not ported yet (ROADMAP Queue 1 item 8)")
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(n for n in self.axis_names if n != self.model_axis)
 
     @property
     def tp(self) -> int:
         if self.model_axis not in self.axis_names:
-            return 1
+            return 1          # FSDP plan: every mesh axis is a data axis
         return self.axis_sizes[self.axis_names.index(self.model_axis)]
+
+    @property
+    def dp(self) -> int:
+        return math.prod(s for n, s in zip(self.axis_names, self.axis_sizes)
+                         if n != self.model_axis)
+
+    def axis_size(self, name: str) -> int:
+        return self.axis_sizes[self.axis_names.index(name)]
+
+    @property
+    def spec_model_axis(self) -> Optional[str]:
+        """The model axis name for specs; None under the FSDP plan."""
+        return self.model_axis if self.model_axis in self.axis_names else None
+
+    @property
+    def is_single(self) -> bool:
+        return self.tp == 1 and self.dp == 1
 
     @staticmethod
     def single_device() -> "MeshPlan":
         return MeshPlan(("data", "model"), (1, 1))
+
+    @staticmethod
+    def of(mesh) -> "MeshPlan":
+        """The plan of a :class:`repro_torch.core.mesh.DeviceMesh`."""
+        return MeshPlan(tuple(mesh.axis_names), tuple(mesh.shape))
+
+
+class Boxer:
+    """SBP-transition helper bound to a mesh plan, usable inside
+    :func:`repro_torch.core.mesh.spmd`.
+
+    ``bx(x, "S(0),B", "B,B")`` runs the collective
+    :func:`repro_torch.core.boxing.boxing_fn` emits for that transition;
+    the logical shape comes from the local shard's and ``src``."""
+
+    def __init__(self, plan: MeshPlan):
+        self.plan = plan
+
+    def __call__(self, x, src, dst):
+        src_n, dst_n = ndsbp(src), ndsbp(dst)
+        logical = list(x.shape)
+        for comp, size in zip(src_n, self.plan.axis_sizes):
+            if isinstance(comp, Split):
+                logical[comp.axis] *= size
+        fn = boxing_fn(src_n, dst_n, self.plan.axis_names,
+                       self.plan.axis_sizes, tuple(logical))
+        return fn(x)
+
+    # frequent shortcuts ---------------------------------------------------
+    def psum_model(self, x):
+        return M.psum(x, self.plan.model_axis) if self.plan.tp > 1 else x
+
+    def psum_data(self, x):
+        for ax in self.plan.data_axes:
+            if self.plan.axis_size(ax) > 1:
+                x = M.psum(x, ax)
+        return x
+
+    def allgather_model(self, x, axis: int):
+        if self.plan.tp == 1:
+            return x
+        return M.all_gather(x, self.plan.model_axis, dim=axis)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,5 +1,11 @@
 """Dense SwiGLU MLP (port of ``repro/models/mlp.py:29-49``). MoE waits
-(ROADMAP Queue 1 item 13)."""
+(ROADMAP Queue 1 item 13).
+
+On a mesh a rank holds the column-parallel ``w_gate``/``w_up`` S(1) and
+the row-parallel ``w_down`` S(0) blocks of its hidden units
+(:func:`repro_torch.models.transformer.block_specs`), so
+:func:`dense_mlp_forward` of its shards is the P(sum) partial that the
+block psums over the model axis."""
 from __future__ import annotations
 
 import torch

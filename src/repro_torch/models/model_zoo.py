@@ -1,12 +1,14 @@
 """Public model API: build a model from its config, its training loss,
 decode caches.
 
-Port of ``repro/models/model_zoo.py:34-105``: the reference's bundle of
+Port of ``repro/models/model_zoo.py:34-140``: the reference's bundle of
 init/loss/prefill/decode closures becomes the
 :class:`repro_torch.models.transformer.Transformer` module (which carries
 its config and plan), :func:`loss_fn`, and decode caches as one dict per
 layer: ``{"k", "v"}`` for attention, ``{"h", "tail_x", "tail_bc"}`` for
-an SSM layer.
+an SSM layer. On a mesh each rank holds its block of every cache
+(:func:`cache_specs`): the batch over the data axes, and a GQA layer's
+k/v also over ``model`` by sequence.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sbp import NdSbp, ndsbp
 from repro_torch.models import transformer as T
 from repro_torch.models.common import MeshPlan
 from repro_torch.models.mamba import init_mamba_state
@@ -36,7 +39,8 @@ def _block_cache(cfg: ModelConfig, plan: MeshPlan, kind: str, batch: int,
                  cache_len: int, device=None) -> Dict[str, torch.Tensor]:
     """One layer's zeroed decode cache, in the config's compute dtype for
     bfloat16 configs and float32 otherwise (the reference's rule); an SSM
-    layer's state ``h`` is float32 whatever the dtype."""
+    layer's state ``h`` is float32 whatever the dtype. ``batch`` is this
+    rank's rows; an attention layer holds ``cache_len / tp`` positions."""
     adt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     if kind == "ssm":
         h, tail_x, tail_bc = init_mamba_state(cfg, plan, batch, adt, device)
@@ -58,3 +62,23 @@ def make_decode_caches(cfg: ModelConfig, plan: MeshPlan, batch: int,
         layers = range(len(kinds))
     return [_block_cache(cfg, plan, kinds[i][0], batch, cache_len, device)
             for i in layers]
+
+
+def cache_specs(cfg: ModelConfig, plan: MeshPlan,
+                batch_axes: Sequence[str]) -> List[Dict[str, NdSbp]]:
+    """Each layer's NdSbp per cache leaf (``repro/models/model_zoo.py:
+    108-140``): the batch (dim 0) split over ``batch_axes`` -- the data
+    axes for a slot group's cache, none for an admission prefill's -- and
+    a GQA layer's k/v also split by sequence (dim 1) over the model
+    axis."""
+    comps = ",".join("S(0)" if n in batch_axes else
+                     "S(1)" if n == plan.model_axis else "B"
+                     for n in plan.axis_names)
+    out = []
+    for kind, _ in T.stack_layout(cfg).layer_kinds():
+        if kind != "attn":
+            raise NotImplementedError(
+                f"{kind} caches on a mesh are not ported yet (ROADMAP "
+                "Queue 1 item 8c)")
+        out.append({"k": ndsbp(comps), "v": ndsbp(comps)})
+    return out

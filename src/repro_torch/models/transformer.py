@@ -3,7 +3,9 @@
 Port of ``repro/models/transformer.py`` for the ``attn``/``dense`` layer
 kinds (dense GQA decoders such as qwen3, llama3, qwen2.5) and the
 ``ssm``/``none`` kind (attention-free Mamba-2 stacks such as mamba2-370m):
-the serving half (prefill and decode over stack slices) and, for attn/dense
+the serving half (prefill and decode over stack slices; attn/dense stacks
+also tensor- and data-parallel on a ``("data", "model")`` mesh, one call
+per rank inside :func:`repro_torch.core.mesh.spmd`) and, for attn/dense
 stacks, the training half at tp = 1 (:func:`lm_loss`, :func:`_run_body`,
 :func:`forward_loss`). The
 reference stacks each period slot's params over periods and scans them;
@@ -14,6 +16,14 @@ tree onto it (layer ``n_pro + i*P + j`` is ``body[j][...][i]``).
 Decode caches are a list with one dict per layer, ``{"k", "v"}`` for an
 attention layer and ``{"h", "tail_x", "tail_bc"}`` for an SSM layer; a stage
 holds the entries of its own layers.
+
+On a mesh each rank holds its shard of every parameter under
+:func:`model_specs` (cut by :func:`shard_params`): the heads and the MLP's
+hidden units over ``model`` (column-parallel ``wq``, ``w_gate``, ``w_up``,
+row-parallel ``wo``, ``w_down``, whose outputs are P(sum) and psummed by
+:func:`apply_block` / :func:`decode_block`), the vocabulary over ``model``
+(:func:`embed_tokens` masks and psums; the head's logits are S(1)), and
+everything replicated over ``data``.
 """
 from __future__ import annotations
 
@@ -26,10 +36,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mesh as M
+from repro_torch.core.sbp import NdSbp, ndsbp
 from repro_torch.kernels.softmax_xent import combine_stats, xent_local_stats
 from repro_torch.models.attention import (GQAttention, gqa_decode,
-                                          gqa_forward, init_gqa)
-from repro_torch.models.common import (MeshPlan, dense_init, param,
+                                          gqa_forward, init_gqa,
+                                          kv_to_seq_sharded)
+from repro_torch.models.common import (Boxer, MeshPlan, dense_init, param,
                                        resolve_device, rms_norm)
 from repro_torch.models.mamba import (Mamba, init_mamba, mamba_decode,
                                       mamba_forward)
@@ -92,6 +105,17 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
             "Queue 1 item 13); the port builds attn/dense and ssm/none "
             "stacks")
+
+
+def check_mesh_supported(cfg: ModelConfig, plan: MeshPlan) -> None:
+    """Raise for what this package cannot run on a mesh beyond 1 x 1 yet:
+    SSM layers (heads-sharded SSM state, the scan at local heads)."""
+    if not plan.is_single and has_ssm_layers(cfg):
+        raise NotImplementedError(
+            f"{cfg.name} on a {dict(zip(plan.axis_names, plan.axis_sizes))} "
+            "mesh: Mamba and hybrid stacks on a mesh (heads-sharded SSM "
+            "state, the SSD scan at local heads) are the rest of ROADMAP "
+            "Queue 1 item 8c, not ported yet; dense GQA stacks serve there")
 
 
 def has_ssm_layers(cfg: ModelConfig) -> bool:
@@ -198,18 +222,33 @@ def init_model(cfg: ModelConfig, plan: MeshPlan, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 def embed_tokens(p_embed, ids, plan: MeshPlan):
-    """Embedding gather at tp = 1."""
-    return p_embed[ids.long()]
+    """Vocab-parallel embedding: a masked gather from this rank's vocab
+    rows -> P(sum) -> psum over the model axis (a plain gather at tp = 1).
+    Exactly one rank holds each id, so the psum adds zeros to it."""
+    if plan.tp == 1:
+        return p_embed[ids.long()]
+    V_loc = p_embed.shape[0]
+    local = ids.long() - M.axis_index(plan.model_axis) * V_loc
+    ok = (local >= 0) & (local < V_loc)
+    e = p_embed[local.clamp(0, V_loc - 1)]
+    e = torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                  device=e.device))
+    return Boxer(plan).psum_model(e)
+
 
 
 def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
                 mlp_kind: str, positions, causal: bool = True,
-                sliding_window: int = 0, want_cache: bool = False):
+                sliding_window: int = 0, want_cache: bool = False,
+                cache_len: int = 0):
     """Prefill one block. Returns ``(x, cache_or_None)``. An attention
     layer's cache holds the prompt's k/v in bfloat16 (the reference's
-    prefill cache dtype), unpadded; an SSM layer's holds the final state
-    ``h`` and the conv tails. The stage's ``write_slot`` places either in
-    the group cache."""
+    prefill cache dtype): unpadded at tp = 1, and at tp > 1 padded to
+    ``cache_len`` and boxed to this rank's sequence block
+    (:func:`~repro_torch.models.attention.kv_to_seq_sharded`); an SSM
+    layer's holds the final state ``h`` and the conv tails. The stage's
+    ``write_slot`` places either in the group cache."""
+    psum = Boxer(plan).psum_model        # the branch P(sum) -> B
     h = rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps)
     if kind == "ssm":
         if not want_cache:
@@ -219,11 +258,15 @@ def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
         return x + a, {"h": hs, "tail_x": tx, "tail_bc": tbc}
     a, (k, v) = gqa_forward(p.attn, h, cfg, plan, positions, causal=causal,
                             sliding_window=sliding_window)
-    cache = ({"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
-             if want_cache else None)
-    x = x + a
+    cache = None
+    if want_cache:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        if plan.tp > 1:
+            k, v = kv_to_seq_sharded(k, v, cfg, plan, cache_len)
+        cache = {"k": k, "v": v}
+    x = x + psum(a)
     h2 = rms_norm(x, p.ln2.to(x.dtype), cfg.norm_eps)
-    x = x + dense_mlp_forward(p.mlp, h2)
+    x = x + psum(dense_mlp_forward(p.mlp, h2))
     return x, cache
 
 
@@ -238,22 +281,26 @@ def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
         for key, new in zip(("h", "tail_x", "tail_bc"), state):
             cache[key].copy_(new)
         return x + a, cache
-    x = x + gqa_decode(p.attn, h, cache["k"], cache["v"], pos, cfg, plan,
-                       sliding_window)
+    psum = Boxer(plan).psum_model        # the branch P(sum) -> B
+    x = x + psum(gqa_decode(p.attn, h, cache["k"], cache["v"], pos, cfg,
+                            plan, sliding_window))
     h2 = rms_norm(x, p.ln2.to(x.dtype), cfg.norm_eps)
-    x = x + dense_mlp_forward(p.mlp, h2)
+    x = x + psum(dense_mlp_forward(p.mlp, h2))
     return x, cache
 
 
 def prefill_stack_slice(blocks: Sequence[Block], x, positions,
                         cfg: ModelConfig, plan: MeshPlan,
-                        kinds: Sequence[Kind], sliding_window: int = 0):
+                        kinds: Sequence[Kind], sliding_window: int = 0,
+                        cache_len: int = 0):
     """Prefill over a slice of the stack. x: (B, S, d) hidden entering the
-    slice. Returns ``(x, caches)``, one per block (see :func:`apply_block`)."""
+    slice. Returns ``(x, caches)``, one per block (see :func:`apply_block`;
+    ``cache_len`` is the decode cache's length, which tp > 1 pads to)."""
     caches = []
     for p, (kind, mlp_kind) in zip(blocks, kinds):
         x, cache = apply_block(p, x, cfg, plan, kind, mlp_kind, positions,
-                               True, sliding_window, want_cache=True)
+                               True, sliding_window, want_cache=True,
+                               cache_len=cache_len)
         caches.append(cache)
     return x, caches
 
@@ -270,7 +317,9 @@ def decode_stack_slice(blocks: Sequence[Block], caches: List[Dict],
 
 
 def final_logits(final_norm, unembed, h, cfg: ModelConfig):
-    """The decode head: final norm, then logits over the padded vocab."""
+    """The decode head: final norm, then logits over the padded vocab (on a
+    mesh, this rank's column-parallel vocab block: S(1) over ``model``,
+    gathered by the stage before greedy or sampling)."""
     return rms_norm(h, final_norm, cfg.norm_eps) @ unembed
 
 
@@ -282,6 +331,76 @@ def stage_units(cfg: ModelConfig) -> List[List[int]]:
     units += [[n_pro + i * P + j for j in range(P)]
               for i in range(lay.n_periods)]
     return units
+
+
+# ---------------------------------------------------------------------------
+# shardings on a mesh
+# ---------------------------------------------------------------------------
+
+def _spec(plan: MeshPlan, model_comp: str) -> NdSbp:
+    """B on every data axis, ``model_comp`` on the model axis."""
+    return ndsbp(",".join(model_comp if n == plan.model_axis else "B"
+                          for n in plan.axis_names))
+
+
+def block_specs(cfg: ModelConfig, plan: MeshPlan, kind: Kind
+                ) -> Dict[str, NdSbp]:
+    """One attn/dense block's NdSbp per parameter, by its name in the
+    block (``repro/models/transformer.py:103-121``, ``attention.py:93-103``,
+    ``mlp.py:38-48``): ``wq`` S(1) and ``wo`` S(0) (heads), ``wk``/``wv``
+    replicated (each rank slices its kv group), ``w_gate``/``w_up`` S(1)
+    and ``w_down`` S(0) (hidden units), norms replicated."""
+    if kind != ("attn", "dense"):
+        raise NotImplementedError(
+            f"{kind[0]}/{kind[1]} blocks on a mesh are not ported yet "
+            "(ROADMAP Queue 1 item 8c)")
+    S0, S1, B_ = _spec(plan, "S(0)"), _spec(plan, "S(1)"), _spec(plan, "B")
+    out = {"ln1": B_, "ln2": B_, "attn.wq": S1, "attn.wk": B_,
+           "attn.wv": B_, "attn.wo": S0, "mlp.w_gate": S1, "mlp.w_up": S1,
+           "mlp.w_down": S0}
+    if cfg.qkv_bias:
+        out.update({"attn.bq": S0, "attn.bk": B_, "attn.bv": B_})
+    if cfg.qk_norm:
+        out.update({"attn.q_norm": B_, "attn.k_norm": B_})
+    return out
+
+
+#: the model axis component of the top-level parameters
+_TOP_SPECS = {"embed": "S(0)", "unembed": "S(1)", "final_norm": "B"}
+
+
+def model_specs(cfg: ModelConfig, plan: MeshPlan) -> Dict[str, NdSbp]:
+    """Every parameter's NdSbp, by its ``state_dict`` name
+    (``repro/models/transformer.py:284-310``): the embedding vocab-parallel
+    (S(0)), the head column-parallel (S(1)), the blocks by
+    :func:`block_specs`, replicated over the data axes."""
+    out = {n: _spec(plan, c) for n, c in _TOP_SPECS.items()}
+    for li, kind in enumerate(stack_layout(cfg).layer_kinds()):
+        out.update({f"blocks.{li}.{k}": v
+                    for k, v in block_specs(cfg, plan, kind).items()})
+    return out
+
+
+def spec_of(name: str, cfg: ModelConfig, plan: MeshPlan) -> NdSbp:
+    """The NdSbp of the parameter ``name`` of a ``Transformer`` or of a
+    stage's slice of it (``blocks.<i>.<leaf>``, ``embed``, ...)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return block_specs(cfg, plan, ("attn", "dense"))[".".join(parts[2:])]
+    return _spec(plan, _TOP_SPECS[name])
+
+
+def shard_params(params, cfg: ModelConfig, plan: MeshPlan,
+                 coords: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """The shard of every parameter that the rank at mesh ``coords`` holds
+    under :func:`model_specs`: ``params`` is a global ``Transformer`` or
+    its ``state_dict`` (e.g. :func:`repro_torch.models.convert
+    .params_from_jax`'s). Returns views of the global tensors."""
+    state = params.state_dict() if isinstance(params, nn.Module) else params
+    specs = model_specs(cfg, plan)
+    return {n: torch.as_tensor(t)[M.shard_slices(
+        t.shape, specs[n], plan.axis_sizes, coords)]
+        for n, t in state.items()}
 
 
 # ---------------------------------------------------------------------------

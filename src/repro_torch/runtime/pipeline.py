@@ -1067,8 +1067,9 @@ def _work_input(work):
 
 class DenseStageCache:
     """The dense per-group caches of one stage: one ``(group_size,
-    cache_len, ...)`` block per slot group, allocated the first time the
-    group reaches the stage."""
+    cache_len, ...)`` block per slot group (on a mesh, a list of each
+    rank's block of it), allocated the first time the group reaches the
+    stage."""
 
     def __init__(self, stage, group_size: int):
         self.stage = stage
@@ -1106,10 +1107,14 @@ def make_stage_cache(stage, group_size: int, cache_len: int, spec=None):
     return PagedStageCache(stage, group_size, cache_len, spec)
 
 
-def _sync(device) -> None:
-    """Wait for the stage's queued work on the card (a no-op on the CPU)."""
-    if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
+def _sync(stage) -> None:
+    """Wait for the stage's queued work on its cards, once a card however
+    many ranks share it (a no-op on the CPU)."""
+    devices = {stage.device} if stage.mesh is None else set(
+        stage.mesh.devices)
+    for device in devices:
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
 
 
 def serve_stage_apply(stage, cache, work, xin):
@@ -1119,7 +1124,9 @@ def serve_stage_apply(stage, cache, work, xin):
     logits on the last stage) once the card has computed it. Shared by the
     actor executor and the monolithic engine so their math is identical.
     Grad mode is thread-local, and actor threads are fresh every round, so
-    inference mode is entered here."""
+    inference mode is entered here; on a mesh, :func:`repro_torch.core.mesh
+    .spmd` enters it in every rank thread too. A stage on a mesh carries
+    per-rank payloads (see :class:`repro_torch.core.lowering.ServeStage`)."""
     with torch.inference_mode():
         if isinstance(work, PrefillWork):
             xout, slot_caches = stage.prefill(stage.params, xin,
@@ -1129,7 +1136,7 @@ def serve_stage_apply(stage, cache, work, xin):
             xout = cache.run_chunk(work, xin)
         else:
             xout = cache.run_decode(work, xin)
-        _sync(stage.device)
+        _sync(stage)
     return xout
 
 

@@ -50,6 +50,13 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
     int32 and returns ``(params, opt_state, metrics)``, the params and
     state updated in place; metrics ``lm_loss``, ``aux_loss``, ``loss`` and
     ``grad_norm`` (pre-clip) are 0-d tensors on the device."""
+    if not plan.is_single:
+        mesh = dict(zip(plan.axis_names, plan.axis_sizes))
+        raise NotImplementedError(
+            f"make_train_step on a {mesh} mesh: tp/dp > 1 training "
+            "(grad_sync, the vocab-parallel lm_loss, collectives kept out "
+            "of autograd) is the training half of ROADMAP Queue 1 item 8, "
+            "now item 8c, not ported yet; serving runs on a mesh")
     if zero:
         raise NotImplementedError(
             "make_train_step(zero=True): ZeRO master shards are not ported "

@@ -30,7 +30,11 @@ mesh, the xent kernels run on vocab shards at offsets 0 and V/2, and one
 graph train step on two ranks of the card (a 60 s session timeout, which
 its collectives share, so a deadlock fails instead of hanging) matches the
 CPU's. Four ranks of the card whose rank 1 skips a rendezvous (or sits in
-card work or in autograd past the timeout) all raise within it.
+card work or in autograd past the timeout) all raise within it. Serving on
+a mesh: decode on two sequence shards of one cache (k_offset 0 and L/2,
+the second shard's rows wholly masked) combined across two ranks equals
+the plain decode over the whole cache, and reduced qwen3 served on two
+ranks of the card gives the same tokens on both backends as on the CPU.
 """
 import time
 
@@ -182,6 +186,40 @@ def test_flash_decode_fully_masked_rows_average_v(cuda):
     got = combine_partials(m[None], l[None], acc[None])
     want = v.repeat_interleave(2, dim=2).mean(dim=1)
     _close(got, want, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_decode_on_two_shards_combined_across_ranks(cuda, dtype):
+    """The mesh serve path's decode: one cache cut in two sequence shards,
+    the kernel at k_offset 0 and L/2 on two virtual ranks of the card, and
+    their partials combined across the ranks (pmax, then psums in rank
+    order), against the plain decode over the whole cache. Three rows end
+    in the first half, so the second shard's rows are wholly masked there
+    and must weigh nothing."""
+    from repro_torch.core.mesh import spmd
+    from repro_torch.core.placement import Placement
+    B, H, KV, D, L = 4, 16, 8, 128, 570
+    half = L // 2
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (B, H, D), dtype, cuda)
+    k, v = (_randn(rng, (B, L, KV, D), dtype, cuda) for _ in "kv")
+    cur = torch.tensor([0, 70, half - 1, L - 1], dtype=torch.int32,
+                       device=cuda)
+    shards = [tuple(t[:, r * half:(r + 1) * half].contiguous()
+                    for t in (k, v)) for r in range(2)]
+    mesh = Placement(("model",), (2,)).to_mesh(cuda, timeout=60.0)
+    fd.reset_counts()
+    outs = spmd(lambda r: combine_partials(*fd.flash_decode(
+        q, *shards[r], cur_pos=cur, k_offset=r * half), axis_name="model"),
+        mesh)([0, 1])
+    torch.cuda.synchronize()
+    assert fd.offset_launches == {0: 1, half: 1}
+    assert torch.equal(outs[0], outs[1])
+    pm, pl, pacc = fd.flash_decode_partial_ref(q, k, v, cur_pos=cur)
+    _close(outs[0], combine_partials(pm[None], pl[None], pacc[None]), dtype)
+    # the second shard alone: its masked rows hold the finite sentinel
+    m, l, _ = fd.flash_decode(q, *shards[1], cur_pos=cur, k_offset=half)
+    assert (m[:3] == -1e30).all() and (l[:3] == half).all()
 
 
 def _decode_matches_plain(q, k, v, cur, dt, **kw):
@@ -762,3 +800,44 @@ def test_reduced_mamba2_prefill_on_card_matches_cpu(cuda):
                 out[d] = x
             torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], **tol)
     assert ssd.launches == before + len(prompts) * cfg.num_layers
+
+
+def test_reduced_qwen3_served_on_two_ranks_of_the_card(cuda):
+    """Reduced qwen3 (float32) served on a (1, 2) mesh of two ranks of the
+    card: actors ≡ monolithic tokens, equal to the same mesh on the CPU,
+    each rank launching one attention forward a layer a prefill and one
+    decode a layer a decode item, at its shard's k_offset."""
+    from repro_torch import api
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.placement import Placement
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    cfg = get_config("qwen3-1.7b").reduced()
+    plan = MeshPlan(("data", "model"), (1, 2))
+    state = build_model(cfg, plan, seed=0, device="cpu").state_dict()
+    rng = np.random.default_rng(8)
+    reqs = [(rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32), g)
+            for n, g in ((8, 3), (5, 6), (7, 2), (3, 5), (6, 4))]
+    geo = dict(num_groups=2, group_size=2, max_prompt_len=8,
+               max_new_tokens=6, cache_len=24, timeout=60.0)
+    out = {}
+    for d in ("cpu", "cuda"):
+        for backend in ("actors", "monolithic"):
+            mesh = Placement(("data", "model"), (1, 2)).to_mesh(
+                d, timeout=60.0)
+            kw = dict(stages=2) if backend == "actors" else {}
+            fd.reset_counts()
+            fa.launches = 0
+            with api.compile(cfg, mode="serve", backend=backend,
+                             params=state, mesh=mesh, **kw, **geo) as sess:
+                out[(d, backend)] = sess.generate(reqs)
+                st = sess.last_stats
+            torch.cuda.synchronize()
+            if d == "cuda":
+                L = cfg.num_layers
+                assert fa.launches == 2 * L * st["prefill_items"]
+                assert fd.offset_launches == {
+                    0: L * st["decode_items"], 12: L * st["decode_items"]}
+    want = out[("cpu", "monolithic")]
+    for key, got in out.items():
+        assert all(np.array_equal(a, b) for a, b in zip(got, want)), key

@@ -23,7 +23,8 @@ runs in process on the CPU, every rank a thread.
   per shard, so it is not the reference here.)
 * the port alone: actors ≡ monolithic bitwise on a (2, 2) mesh with the
   card phase's pins (rows over ``data``, vocab over ``model``), two runs
-  bitwise, and serving on a mesh raising, naming the model half of item 8.
+  bitwise, and serving on a (1, 2) mesh (the model half of item 8) giving
+  one device's tokens.
 """
 import os
 import pathlib
@@ -392,7 +393,24 @@ def test_inference_on_a_mesh_actors_equal_monolithic():
 
 
 def test_serving_on_a_mesh_names_the_model_half():
+    """The model half of item 8 serves on a (1, 2) mesh of the graph
+    path's ranks: the same greedy tokens as one device, a mesh in the
+    description and collectives in the stats
+    (``tests/test_torch_serve_mesh.py`` holds it to the JAX package)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              vocab_size=1000)
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, 1000, (n,)).astype(np.int32), g)
+            for n, g in ((5, 3), (8, 4), (2, 2))]
+    geo = dict(num_groups=1, group_size=2, max_prompt_len=8,
+               max_new_tokens=4, device=CPU, seed=0)
     mesh = Placement(("data", "model"), (1, 2)).to_mesh(CPU)
-    with pytest.raises(NotImplementedError, match="model half of ROADMAP "
-                                                  "Queue 1 item 8"):
-        api.compile("qwen3-1.7b", mode="serve", mesh=mesh, device=CPU)
+    with api.compile(cfg, mode="serve", mesh=mesh, **geo) as sess, \
+            api.compile(cfg, mode="serve", **geo) as one:
+        got, want = sess.generate(reqs), one.generate(reqs)
+        assert "tp=2" in sess.describe()
+        assert sess.last_stats["collectives"]["calls"]["pmax"] > 0
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
