@@ -33,7 +33,11 @@ result line is printed:
    ``k_offset`` 285, one row wholly masked there; both shards' partials
    also combined across two virtual ranks of the card against the plain
    decode over the whole (4, 570) cache) and the attention forward at a
-   rank's local heads (q (1, 512, 8, 128), 4 kv heads).
+   rank's local heads (q (1, 512, 8, 128), 4 kv heads). The mesh train
+   path's have rows too: the attention forward and backward at a rank's
+   local heads of a training layer (q (2, 2048, 8, 128), 4 kv heads), and
+   the bf16 xent forward and backward on the rank-1 vocab shard (4,096 x
+   75,968 at offset 75,968, labels over both shards).
    Each reports the device time of every kernel its call launches
    (torch.profiler; the names of the kernels the trace matched are
    printed), the wrapper call's, the plain version's, the least time the
@@ -97,12 +101,26 @@ result line is printed:
    with the model's attention and loss call sites on the plain PyTorch
    versions (autograd through them) on the card, no kernel launched; the
    kernel path's loss and grad_norm are held to these step by step;
-7. graph reference: a small LogicalGraph (embedding, a residual across
+7. train on a mesh: the train phase's model, init, batches and steps on
+   ``("data", "model")`` (1, 2), 2 virtual ranks of the card, every rank a
+   thread with its own copy of its shards and AdamW state: heads, MLP
+   units and the vocabulary over ``model``, each rank's loss from the xent
+   kernels at its vocab offset, the collectives on the training tape
+   (never inside autograd). Each step's loss within 1e-3 relative of the
+   train phase's at step 0 and 5e-3 after (grad_norm printed beside it),
+   the launches exactly 2 ranks' (attention forward 2 x 2 x 28, dq and
+   dk/dv 2 x 28, all on the tensor-core kernels, xent forward and backward
+   once at each offset), the collectives' calls, bytes and the seconds the
+   ranks waited, the peak memory, then one profiled step. Then data
+   parallelism: (2, 2) at qwen3's widths cut to 4 layers (two full-depth
+   replicas would not fit), 2 steps beside a 1 x 1 twin of the cut config,
+   held the same way;
+8. graph reference: a small LogicalGraph (embedding, a residual across
    its two stages, softmax_xent) trains 2 AdamW steps through
    ``api.compile(graph, mode="train")`` on the card, through the float32
    xent kernels, and on the CPU's plain path: loss and grad_norm within
    1e-4 relative, the first step's gradients within 1e-4;
-8. graph train, the paper's own path: a LogicalGraph at qwen3-1.7b's
+9. graph train, the paper's own path: a LogicalGraph at qwen3-1.7b's
    widths (embedding 151,936 x 2048, 4 x [matmul 2048->6144, gelu, matmul
    6144->2048, residual add], matmul 2048->151,936, softmax_xent over 4,096
    rows; 722,993,152 float32 params seeded with numpy) through SBP plan ->
@@ -115,7 +133,7 @@ result line is printed:
    the forward registers in flight stay within the quotas; step wall time,
    tokens/s and peak memory per step, then one profiled step (busy and
    idle share);
-9. graph train on a (2, 2) mesh: the same graph and params on
+10. graph train on a (2, 2) mesh: the same graph and params on
    ``Placement(("data", "model"), (2, 2))`` -- 4 virtual ranks on the one
    card, every rank a thread, their collectives a rendezvous in rank order
    (``repro_torch.core.mesh``) -- with ``ids`` and ``labels`` pinned
@@ -126,7 +144,7 @@ result line is printed:
    session after the other (the reckoned bytes of two at once, replicas
    over ``data`` included, are printed beside that choice): every loss,
    post-clip gradient and param bitwise equal across the two; step 0's
-   loss within 1e-5 relative of the 1 x 1 monolithic session of phase 8
+   loss within 1e-5 relative of the 1 x 1 monolithic session of phase 9
    and its post-clip gradients within ``atol=1e-5, rtol=1e-4``, the later
    losses within 1e-4 relative; the xent kernels launched exactly 4 x 8 =
    32 times a step each way, 16 at vocab offset 0 and 16 at 75,968. Step
@@ -134,14 +152,16 @@ result line is printed:
    memory, the bytes and calls of the collectives a step and the seconds
    the ranks spent in them, then one profiled step of the actors (busy
    and idle share);
-10. graph infer: the same graph under ``mode="infer"``, actors vs
+11. graph infer: the same graph under ``mode="infer"``, actors vs
    monolithic, bitwise, 8 forward xent launches a run and no backward.
    The kernels line holds the float32 xent forward and backward at the
    graph's microbatch shape (512 x 151,936) with the graph train run's
    launches, and at one rank's vocab shard of the mesh phase (256 x
    75,968 at offset 75,968) with that phase's launches.
 
-The kernels line's attention forward, decode and SSD scan rows carry
+The mesh train rows carry that phase's (1, 2) launches, the xent rows
+by offset (``launches_by_offset``) and the backward's by kernel. The
+kernels line's attention forward, decode and SSD scan rows carry
 ``launches_by_path``, each serving path's launches (the mesh's as
 ``serve mesh``), the mesh decode row ``launches_by_offset``, and the
 decode row its split plan (``splits``, ``ms_by_splits``,
@@ -525,25 +545,27 @@ def check_flash_decode(dev):
     return entry
 
 
-def check_xent(dev):
+def check_xent(dev, Vl=151936, offset=0, label=""):
     """The xent forward and backward kernels at the training logits (the
-    lm_loss of batch 2 x seq 2048 over the padded qwen3 vocab), bf16, then
-    on float32 copies of the same inputs."""
+    lm_loss of batch 2 x seq 2048 over the padded qwen3 vocab, or over a
+    rank's vocab shard of ``Vl`` columns at ``offset``, the labels then
+    drawn over every shard up to it), bf16, then on float32 copies of the
+    same inputs."""
     from repro_torch.kernels.softmax_xent import kernel as xk
     from repro_torch.kernels.softmax_xent.ref import local_stats_ref
-    N, Vl = 4096, 151936
-    rng = np.random.default_rng(SEED + 4)
+    N = TRAIN_B * TRAIN_S
+    rng = np.random.default_rng(SEED + 4 + offset)
     logits = (torch.from_numpy(rng.normal(size=(N, Vl)).astype(np.float32))
               .to(dev) * 3).to(torch.bfloat16)
-    labels = torch.as_tensor(rng.integers(0, Vl, N), dtype=torch.int32,
-                             device=dev)
+    labels = torch.as_tensor(rng.integers(0, offset + Vl, N),
+                             dtype=torch.int32, device=dev)
     ds = torch.as_tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
     dz = torch.as_tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
-    what = f"logits ({N}, {Vl})"
+    what = f"logits ({N}, {Vl})" + (f" at offset {offset}" if offset else "")
 
     def through_autograd(x, stats):
         leaf = x.detach().requires_grad_(True)
-        m, s_, z = stats(leaf, labels, 0)
+        m, s_, z = stats(leaf, labels, offset)
         (g,) = torch.autograd.grad((s_, z), leaf, (ds, dz))
         return (m, s_.detach(), z.detach()), g
 
@@ -561,16 +583,17 @@ def check_xent(dev):
         del got, g, want, wg, x
     torch.cuda.empty_cache()
 
-    m, s_, z = xk.xent_local_stats_cuda(logits, labels, 0)
+    m, s_, z = xk.xent_local_stats_cuda(logits, labels, offset)
     fwd_bytes = nbytes(logits, labels, m, s_, z)
     fb_ms, fb_by = bound_ms(fwd_bytes, 4 * N * Vl, PEAK_F32_FLOPS)
     bb_ms, bb_by = bound_ms(fwd_bytes - nbytes(s_, z) + nbytes(ds, dz)
                             + nbytes(logits), 4 * N * Vl, PEAK_F32_FLOPS)
-    lab = labels.long()
+    # the library yardstick at the shard's shape: labels inside the shard
+    lab = (labels.long() - offset).clamp(0, Vl - 1)
 
     def plain_bwd():
         leaf = logits.detach().requires_grad_(True)
-        _, s2, z2 = local_stats_ref(leaf, labels, 0)
+        _, s2, z2 = local_stats_ref(leaf, labels, offset)
         return lambda: torch.autograd.grad((s2, z2), leaf, (ds, dz),
                                            retain_graph=True)
 
@@ -581,21 +604,24 @@ def check_xent(dev):
         return lambda: torch.autograd.grad(loss, leaf, ds, retain_graph=True)
 
     fwd = timed({
-        "name": "xent_local_stats", "route": "cuda",
+        "name": "xent_local_stats" + label, "route": "cuda",
         "source": "src/repro_torch/csrc/softmax_xent.cu",
         "replaces": "src/repro/kernels/softmax_xent/kernel.py:67",
+        "shape": [N, Vl], "vocab_offset": offset, "dtype": "bfloat16",
         "max_abs_err": errs[0][0], "f32_max_abs_err": errs[1][0],
-        "plain_ms": cuda_ms(lambda: local_stats_ref(logits, labels, 0),
+        "plain_ms": cuda_ms(lambda: local_stats_ref(logits, labels, offset),
                             iters=5),
         "bound_ms": fb_ms, "bound_by": fb_by,
         "library_ms": cuda_ms(lambda: torch.nn.functional.cross_entropy(
             logits.float(), lab, reduction="none"), iters=5),
-    }, "xent_fwd_kernel", lambda: xk.xent_local_stats_cuda(logits, labels, 0),
-        lambda: xk.xent_local_stats(logits, labels, 0))
+    }, "xent_fwd_kernel",
+        lambda: xk.xent_local_stats_cuda(logits, labels, offset),
+        lambda: xk.xent_local_stats(logits, labels, offset))
     bwd_launch = lambda: xk.xent_local_stats_bwd_cuda(  # noqa: E731
-        logits, labels, 0, m, ds, dz)
+        logits, labels, offset, m, ds, dz)
     bwd = timed({
-        "name": "xent_local_stats_bwd", "route": "cuda",
+        "name": "xent_local_stats_bwd" + label, "route": "cuda",
+        "shape": [N, Vl], "vocab_offset": offset, "dtype": "bfloat16",
         "source": "src/repro_torch/csrc/softmax_xent.cu",
         "replaces": "src/repro/kernels/softmax_xent/kernel.py:67 (its "
                     "backward; no Pallas counterpart)",
@@ -608,12 +634,14 @@ def check_xent(dev):
     return fwd, bwd
 
 
-def check_flash_attention_bwd(dev):
-    """The attention backward at one training layer of qwen3-1.7b against
-    autograd through the plain version, bf16 and on float32 copies."""
+def check_flash_attention_bwd(dev, H=16, KV=8, seed=SEED + 5,
+                              name="flash_attention_bwd"):
+    """The attention backward at one training layer of qwen3-1.7b (all 16
+    q and 8 kv heads, or a rank's local heads on a mesh) against autograd
+    through the plain version, bf16 and on float32 copies."""
     from repro_torch.kernels.flash_attention import kernel as fa
-    B, S, H, KV, D = 2, 2048, 16, 8, 128
-    rng = np.random.default_rng(SEED + 5)
+    B, S, D = TRAIN_B, TRAIN_S, 128
+    rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
     q, k, v, do = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D), \
@@ -686,7 +714,7 @@ def check_flash_attention_bwd(dev):
 
     launch = lambda: fa.flash_attention_bwd_cuda(q, k, v, lse, do)  # noqa: E731
     return timed({
-        "name": "flash_attention_bwd", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:75 (its "
                     "backward; no Pallas counterpart)",
@@ -1353,6 +1381,12 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 4
 # rounding into different weights, so later steps are held looser. Set at
 # about 10x the measured worst: 9.6e-5 at step 0 (grad_norm), 4.3e-4 after.
 CURVE_RTOL_FIRST, CURVE_RTOL = 1e-3, 5e-3
+# the mesh train phase: qwen3-1.7b at full width and depth on 2 ranks of
+# "model" (tp = 2), then data parallelism on (2, 2) at qwen3's widths cut
+# to 4 layers (two full-depth replicas would not fit), 2 steps beside a
+# 1 x 1 twin of the cut config; the loss curves held at the limits above
+MESH_TRAIN, MESH_TRAIN_CUT = (1, 2), (2, 2)
+CUT_LAYERS, CUT_STEPS = 4, 2
 
 
 # the mesh serve phase: qwen3-1.7b on 2 ranks of "model" (tp = 2), its
@@ -1417,6 +1451,29 @@ def check_mesh_kernels(dev):
             **ATTENTION_ROW}
     attn.update(attention_row(dev, 1, 512, H // tp, KV // tp, D, SEED + 13))
     return entry, attn
+
+
+def check_mesh_train_kernels(dev):
+    """The kernels of the mesh train path at a rank's shapes on
+    ``MESH_TRAIN`` (tp = 2): the attention forward and backward at the
+    local heads of a training layer (q (2, 2048, 8, 128), 4 kv heads), and
+    the bf16 xent forward and backward on the rank-1 vocab shard (4,096 x
+    75,968 at offset 75,968)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("qwen3-1.7b")
+    tp = MESH_TRAIN[1]
+    H, KV = cfg.num_heads // tp, cfg.num_kv_heads // tp
+    Vl = cfg.padded_vocab() // tp
+    fwd = {"name": f"flash_attention (tp={tp} local heads, training)",
+           **ATTENTION_ROW}
+    fwd.update(attention_row(dev, TRAIN_B, TRAIN_S, H, KV, cfg.head_dim,
+                             SEED + 14))
+    bwd = check_flash_attention_bwd(
+        dev, H=H, KV=KV, seed=SEED + 15,
+        name=f"flash_attention_bwd (tp={tp} local heads)")
+    xent = check_xent(dev, Vl=Vl, offset=Vl,
+                      label=f" (tp={tp} vocab shard, bf16)")
+    return fwd, bwd, *xent
 
 
 def first_token_logits(sess, requests, dev):
@@ -1584,56 +1641,89 @@ def zero_train_counts():
     fa.launches = fa.bwd_dq_launches = fa.bwd_dkdv_launches = 0
     fa.wgmma_launches = fa.bwd_dq_wgmma_launches = 0
     fa.bwd_dkdv_wgmma_launches = 0
-    xk.launches = xk.bwd_launches = 0
+    xk.reset_counts()
 
 
-def train_steps(dev, what: str, want: dict):
-    """Full-width, full-depth qwen3-1.7b through make_train_step from the
-    seeded init, fed by the actor data pipeline, TRAIN_STEPS steps with the
-    kernels' launches counted on every step and held to ``want``. Returns
-    (step function, params, opt state, source, [(loss, grad_norm)], total
-    launches)."""
+def xent_offsets():
+    """The xent launches by vocab offset, forward and backward."""
+    from repro_torch.kernels.softmax_xent import kernel as xk
+    return dict(xk.offset_launches), dict(xk.bwd_offset_launches)
+
+
+def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
+                steps: int = TRAIN_STEPS, falls: bool = True,
+                want_offsets=None):
+    """``cfg`` (default qwen3-1.7b at full width and depth) through
+    make_train_step on the ``("data", "model")`` mesh ``shape`` (1 x 1: one
+    device) from the seeded init, fed by the actor data pipeline, ``steps``
+    steps with the kernels' launches counted on every step and held to
+    ``want``; on a mesh also the xent launches by vocab offset, held to
+    ``want_offsets``, and the collectives' calls, bytes and the seconds the
+    ranks waited in them. ``falls``: the loss must fall over the run.
+    Returns (step, params, opt state, source, [(loss, grad_norm)], total
+    launches with the xent ``offsets``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import ActorDataPipeline, SyntheticLM
+    from repro_torch.models.common import MeshPlan
     from repro_torch.train.steps import make_train_step
 
-    cfg = get_config("qwen3-1.7b")
+    cfg = cfg or get_config("qwen3-1.7b")
     B, S = TRAIN_B, TRAIN_S
     t0 = time.perf_counter()
-    ts = make_train_step(cfg, device=dev)
+    ts = make_train_step(cfg, MeshPlan(("data", "model"), shape), device=dev)
     params = ts.init_params(SEED)
     opt = ts.init_opt(params)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
+    mesh = ts.mesh
+    n_params = params.numel() if mesh else sum(
+        p.numel() for p in params.parameters())
     print(f"{what}: params and AdamW state initialised in "
-          f"{time.perf_counter() - t0:.1f} s: {n_params:,} params")
+          f"{time.perf_counter() - t0:.1f} s: {n_params:,} params"
+          + (f" over the {mesh.size} ranks of {mesh}" if mesh else ""))
     src = SyntheticLM(cfg.vocab_size, B, S, seed=SEED)
-    pipe = ActorDataPipeline(src, num_batches=TRAIN_STEPS)
+    pipe = ActorDataPipeline(src, num_batches=steps)
     curve = []
     torch.cuda.reset_peak_memory_stats()
     zero_train_counts()
-    prev = train_counts()
+    prev, prev_off = train_counts(), xent_offsets()
     for step, tokens in enumerate(pipe):
+        if mesh:
+            mesh.stats.reset()
         t = time.perf_counter()
         params, opt, m = ts.step_fn(params, opt, {"tokens": tokens})
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        now = train_counts()
+        now, off = train_counts(), xent_offsets()
         per = {k: now[k] - prev[k] for k in now}
-        prev = now
+        per_off = [{o: n - p.get(o, 0) for o, n in a.items()}
+                   for a, p in zip(off, prev_off)]
+        prev, prev_off = now, off
         curve.append((loss, gnorm))
+        col = ""
+        if mesh:
+            st = mesh.stats
+            col = (f"; xent launches by offset {per_off[0]} forward, "
+                   f"{per_off[1]} backward; collectives {st.calls} calls, "
+                   f"{st.total_bytes() / 2**20:,.1f} MiB {st.bytes}, the "
+                   f"ranks {st.wait_s:.3f} s in them")
         print(f"{what} step {step}: loss {loss:.4f}, grad_norm {gnorm:.4f}, "
               f"wall {wall:.3f} s, {B * S / wall:,.0f} tokens/s, launches "
-              f"{per}")
+              f"{per}{col}")
         if per != want:
             raise AssertionError(f"{what} step {step}: kernel launches {per},"
                                  f" expected {want}")
+        if want_offsets is not None and per_off != [want_offsets] * 2:
+            raise AssertionError(f"{what} step {step}: xent launches by "
+                                 f"offset {per_off}, expected "
+                                 f"{want_offsets} each way")
     total = train_counts()
-    print(f"{what}: launches over the {TRAIN_STEPS} steps: {total}; peak "
+    total["offsets"] = xent_offsets()
+    print(f"{what}: launches over the {steps} steps: {total}; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     losses = [c[0] for c in curve]
-    if not all(np.isfinite(curve).ravel()) or not losses[-1] < losses[0]:
+    if not all(np.isfinite(curve).ravel()) or (
+            falls and not losses[-1] < losses[0]):
         raise AssertionError(f"{what}: (loss, grad_norm) {curve}: not "
                              "finite, or the loss did not fall")
     return ts, params, opt, src, curve, total
@@ -1647,14 +1737,7 @@ def train(dev):
     phase(f"train (qwen3-1.7b, full width and depth, bf16 compute, float32 "
           f"params and AdamW, {TRAIN_STEPS} steps)")
     from repro_torch.configs.registry import get_config
-    L = get_config("qwen3-1.7b").num_layers
-    # per step: the forward of every layer, again in its remat recompute,
-    # each backward kernel once per layer, one loss; every attention launch
-    # of the bf16 step on the tensor-core kernels
-    want = {"flash_attention": 2 * L, "flash_bwd_dq_kernel": L,
-            "flash_bwd_dkdv_kernel": L, "flash_fwd_wgmma_kernel": 2 * L,
-            "flash_bwd_dq_wgmma_kernel": L, "flash_bwd_dkdv_wgmma_kernel": L,
-            "xent_local_stats": 1, "xent_local_stats_bwd": 1}
+    want, _ = train_want(get_config("qwen3-1.7b"), 1, 1)
     ts, params, opt, src, curve, total = train_steps(dev, "kernels", want)
     batch = {"tokens": src(TRAIN_STEPS)}
     profile_device("train step", lambda: float(
@@ -1683,6 +1766,84 @@ def train_plain(dev, kernel_curve):
                                  "curve left the plain path's")
     print(f"kernel path vs plain path over {TRAIN_STEPS} steps: max relative "
           f"err loss {worst[0]:.3e}, grad_norm {worst[1]:.3e}")
+
+
+def train_want(cfg, ranks: int, tp: int):
+    """A train step's launches on ``ranks`` ranks, ``tp`` over ``model``:
+    per rank, each layer's attention forward and its remat recompute, each
+    backward kernel once a layer, and one loss (the xent kernels on the
+    rank's vocab shard), every attention launch on the tensor-core
+    kernels; the xent launches by vocab offset, each shard's ``ranks /
+    tp`` a step."""
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L * ranks, "flash_bwd_dq_kernel": L * ranks,
+            "flash_bwd_dkdv_kernel": L * ranks,
+            "flash_fwd_wgmma_kernel": 2 * L * ranks,
+            "flash_bwd_dq_wgmma_kernel": L * ranks,
+            "flash_bwd_dkdv_wgmma_kernel": L * ranks,
+            "xent_local_stats": ranks, "xent_local_stats_bwd": ranks}
+    Vl = cfg.padded_vocab() // tp
+    return want, {m * Vl: ranks // tp for m in range(tp)}
+
+
+def held_curves(what: str, got, want):
+    """``got``'s (loss, grad_norm) steps against ``want``'s: the loss at
+    CURVE_RTOL_FIRST on step 0 and CURVE_RTOL after; grad_norm printed."""
+    for step, ((lg, gg), (lw, gw)) in enumerate(zip(got, want)):
+        err, gerr = abs(lg - lw) / abs(lw), abs(gg - gw) / abs(gw)
+        limit = CURVE_RTOL_FIRST if step == 0 else CURVE_RTOL
+        print(f"{what} step {step}: (loss, grad_norm) {(lg, gg)} vs "
+              f"{(lw, gw)}: relative err loss {err:.3e} (limit {limit}), "
+              f"grad_norm {gerr:.3e} (not held)")
+        if err > limit:
+            raise AssertionError(f"{what} step {step}: loss {lg} left "
+                                 f"{lw}")
+
+
+def train_mesh(dev, curve):
+    """Training on a mesh of ranks: qwen3-1.7b at full width and depth on
+    ``MESH_TRAIN`` (2 virtual ranks of the card, heads, MLP units and the
+    vocabulary split over ``model``), the train phase's steps and batches,
+    held to its 1 x 1 ``curve``; then ``MESH_TRAIN_CUT`` at qwen3's widths
+    cut to ``CUT_LAYERS`` layers, held to a 1 x 1 twin. Launches counted on
+    every step. Returns the full-depth run's launch counts."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("qwen3-1.7b")
+    ranks, tp = int(np.prod(MESH_TRAIN)), MESH_TRAIN[1]
+    phase(f"train on a {MESH_TRAIN} mesh ({cfg.name}, full width and depth, "
+          f"{ranks} virtual ranks on one card, bf16 compute, float32 params "
+          f"and AdamW, {TRAIN_STEPS} steps); then {MESH_TRAIN_CUT} at "
+          f"{CUT_LAYERS} of its {cfg.num_layers} layers (cut: two "
+          f"full-depth replicas would not fit), {CUT_STEPS} steps beside "
+          "its 1 x 1 twin")
+    want, offsets = train_want(cfg, ranks, tp)
+    ts, params, opt, src, got, total = train_steps(
+        dev, f"mesh {MESH_TRAIN}", want, shape=MESH_TRAIN,
+        want_offsets=offsets)
+    held_curves(f"mesh {MESH_TRAIN} vs 1 x 1", got, curve)
+    batch = {"tokens": src(TRAIN_STEPS)}
+    profile_device(f"mesh {MESH_TRAIN} train step", lambda: float(
+        ts.step_fn(params, opt, batch)[2]["loss"]), top=10)
+    del ts, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
+    runs = {}
+    for shape in (MESH_TRAIN_CUT, (1, 1)):
+        n = int(np.prod(shape))
+        w, off = train_want(cut, n, shape[1])
+        *_, runs[shape], _ = train_steps(
+            dev, f"{CUT_LAYERS} layers on {shape}", w, cfg=cut, shape=shape,
+            steps=CUT_STEPS, falls=False,
+            want_offsets=off if n > 1 else None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    held_curves(f"{CUT_LAYERS} layers, {MESH_TRAIN_CUT} vs 1 x 1",
+                runs[MESH_TRAIN_CUT], runs[(1, 1)])
+    return total
 
 
 GRAPH_N, GRAPH_V, GRAPH_D, GRAPH_F, GRAPH_BLOCKS = 4096, 151936, 2048, 6144, 4
@@ -2252,7 +2413,8 @@ def main() -> int:
     smi = device_and_build()
     phase("kernels (path shapes)")
     kernels = [check_flash_attention(dev), check_flash_decode(dev),
-               *check_mesh_kernels(dev), *check_xent(dev),
+               *check_mesh_kernels(dev), *check_mesh_train_kernels(dev),
+               *check_xent(dev),
                *check_xent_graph(dev),
                *check_xent_graph(dev, N=GRAPH_N // GRAPH_M // MESH_SHAPE[0],
                                  V=GRAPH_V // MESH_SHAPE[1],
@@ -2299,6 +2461,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_plain(dev, curve)
     torch.cuda.empty_cache()
+    mesh_train = train_mesh(dev, curve)
+    torch.cuda.empty_cache()
     check_graph_reference(dev)
     graph_trained, one_device = graph_train(dev)
     mesh_trained = graph_train_mesh(dev, one_device)
@@ -2323,6 +2487,19 @@ def main() -> int:
             # the graph train run: 3 backends x GRAPH_STEPS steps
             kr["launches"] = graph_trained[name.split(" ")[0]]
             kr["launches_per_step"] = GRAPH_M
+        elif name.endswith("local heads, training)"):
+            # the mesh train run (MESH_TRAIN, full depth): both ranks
+            kr["launches"] = mesh_train["flash_fwd_wgmma_kernel"]
+        elif name.startswith("flash_attention_bwd (tp="):
+            kr["launches_by_kernel"] = {
+                k: mesh_train[k] for k in ("flash_bwd_dq_wgmma_kernel",
+                                           "flash_bwd_dkdv_wgmma_kernel")}
+            kr["launches"] = min(kr["launches_by_kernel"].values())
+        elif name.endswith("vocab shard, bf16)"):
+            # the mesh train run: this shard's launches, and each shard's
+            fwd, bwd = mesh_train["offsets"]
+            kr["launches_by_offset"] = bwd if "_bwd" in name else fwd
+            kr["launches"] = kr["launches_by_offset"][kr["vocab_offset"]]
         elif name.startswith("flash_decode (tp="):
             # the mesh serve run: this shard's launches, and each shard's
             kr["launches"] = meshed["offsets"][kr["k_offset"]]

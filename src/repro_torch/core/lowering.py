@@ -65,6 +65,8 @@ from repro_torch.core.graph import LogicalGraph, LOp, LTensor, StagePartition
 from repro_torch.core.mesh import DeviceMesh, assemble, place, spmd
 from repro_torch.core.planner import Plan
 from repro_torch.core.sbp import Broadcast, NdSbp, Split
+from repro_torch.core.tape import (INTERNAL, LocalProgram, Step,
+                                   taped_backward, taped_forward)
 from repro_torch.kernels.softmax_xent.kernel import xent_local_stats
 from repro_torch.models import transformer as T
 from repro_torch.models.common import MeshPlan, param
@@ -87,10 +89,6 @@ _UNARY_FNS = {
     "identity": lambda x: x,
     "scale2": lambda x: 2.0 * x,
 }
-
-#: marks the environment names a lowering makes up (boxed copies, an op's
-#: internal values); graph tensor names never hold it
-_INTERNAL = "#"
 
 
 def _matmul(x, w):
@@ -162,25 +160,8 @@ def _shard_offset(red: Sequence[str], axis_names: Sequence[str],
     return offset
 
 
-@dataclasses.dataclass
-class _Step:
-    """One step of a lowered program, run by every rank: ``outs =
-    fn(*ins)`` over names of the program's environment. A local step runs
-    torch ops, which the training tape differentiates with autograd; a
-    collective step (``collective=True``) runs mesh collectives outside
-    autograd and carries its ``transpose``: the cotangent of ``outs[0]``
-    to that of ``ins[0]`` (None where nothing is differentiated through
-    it)."""
-
-    fn: Callable
-    ins: Tuple[str, ...]
-    outs: Tuple[str, ...]
-    collective: bool = False
-    transpose: Optional[Callable] = None
-
-
 def _box_step(have: NdSbp, want: NdSbp, t: LTensor, src: str, dst: str,
-              axis_names, mesh_shape) -> Optional[_Step]:
+              axis_names, mesh_shape) -> Optional[Step]:
     """The boxing step moving ``src`` (laid out ``have``) to ``dst``
     (``want``), or None where nothing moves."""
     if have == want or boxing_is_identity(have, want, mesh_shape):
@@ -193,8 +174,8 @@ def _box_step(have: NdSbp, want: NdSbp, t: LTensor, src: str, dst: str,
             cell["fn"] = transposed_boxing_fn(have, want, axis_names,
                                               mesh_shape, t.shape)
         return cell["fn"](g)
-    return _Step(boxing_fn(have, want, axis_names, mesh_shape, t.shape),
-                 (src,), (dst,), collective=True, transpose=transpose)
+    return Step(boxing_fn(have, want, axis_names, mesh_shape, t.shape),
+                (src,), (dst,), collective=True, transpose=transpose)
 
 
 def _softmax_steps(name: str, x: str, out: str, red: Tuple[str, ...]):
@@ -202,17 +183,17 @@ def _softmax_steps(name: str, x: str, out: str, red: Tuple[str, ...]):
     local max and sum, a pmax and a psum across the shards. The max is
     held fixed (softmax does not depend on it), so only the sum's psum is
     differentiated; its transpose is a psum of the cotangent."""
-    m_loc, m, s_loc, s = (f"{name}{_INTERNAL}{k}"
+    m_loc, m, s_loc, s = (f"{name}{INTERNAL}{k}"
                           for k in ("m_loc", "m", "s_loc", "s"))
     return [
-        _Step(lambda v: torch.amax(v.detach(), dim=1, keepdim=True), (x,),
-              (m_loc,)),
-        _Step(lambda v: M.pmax(v, red), (m_loc,), (m,), collective=True),
-        _Step(lambda v, mv: torch.sum(torch.exp(v - mv), dim=1, keepdim=True),
-              (x, m), (s_loc,)),
-        _Step(lambda v: M.psum(v, red), (s_loc,), (s,), collective=True,
-              transpose=lambda g: M.psum(g, red)),
-        _Step(lambda v, mv, sv: torch.exp(v - mv) / sv, (x, m, s), (out,)),
+        Step(lambda v: torch.amax(v.detach(), dim=1, keepdim=True), (x,),
+             (m_loc,)),
+        Step(lambda v: M.pmax(v, red), (m_loc,), (m,), collective=True),
+        Step(lambda v, mv: torch.sum(torch.exp(v - mv), dim=1, keepdim=True),
+             (x, m), (s_loc,)),
+        Step(lambda v: M.psum(v, red), (s_loc,), (s,), collective=True,
+             transpose=lambda g: M.psum(g, red)),
+        Step(lambda v, mv, sv: torch.exp(v - mv) / sv, (x, m, s), (out,)),
     ]
 
 
@@ -230,7 +211,7 @@ def _xent_steps(op: LOp, ins: Tuple[str, ...], out: str,
     differentiates ``s_g`` and runs the psum's transpose."""
     local_c = op.inputs[0].shape[1] // math.prod(
         size for name, size in zip(axis_names, mesh_shape) if name in red)
-    m, s, z, mg, sr, sg = (f"{op.name}{_INTERNAL}{k}"
+    m, s, z, mg, sr, sg = (f"{op.name}{INTERNAL}{k}"
                            for k in ("m", "s", "z", "m_g", "s_r", "s_g"))
 
     def stats(logits, labels):
@@ -243,13 +224,13 @@ def _xent_steps(op: LOp, ins: Tuple[str, ...], out: str,
         return ((torch.log(s_g) + m_g) * first - z_loc)[:, None]
 
     return [
-        _Step(stats, ins, (m, s, z)),
-        _Step(lambda v: M.pmax(v, red), (m,), (mg,), collective=True),
-        _Step(lambda sv, mv, mgv: sv * torch.exp(mv - mgv), (s, m, mg),
-              (sr,)),
-        _Step(lambda v: M.psum(v, red), (sr,), (sg,), collective=True,
-              transpose=lambda g: M.psum(g, red)),
-        _Step(combine, (sg, mg, z), (out,)),
+        Step(stats, ins, (m, s, z)),
+        Step(lambda v: M.pmax(v, red), (m,), (mg,), collective=True),
+        Step(lambda sv, mv, mgv: sv * torch.exp(mv - mgv), (s, m, mg),
+             (sr,)),
+        Step(lambda v: M.psum(v, red), (sr,), (sg,), collective=True,
+             transpose=lambda g: M.psum(g, red)),
+        Step(combine, (sg, mg, z), (out,)),
     ]
 
 
@@ -268,7 +249,7 @@ def _vocab_embedding(red: Tuple[str, ...], axis_names, mesh_shape):
 
 def _op_steps(op: LOp, ins: Tuple[str, ...], out: str,
               in_sigs: Tuple[NdSbp, ...], axis_names, mesh_shape
-              ) -> List[_Step]:
+              ) -> List[Step]:
     """The steps of one op under its input signatures: one local step, or
     local and collective steps where a split needs a combine across ranks
     (as ``repro/core/lowering.py:61-159``)."""
@@ -282,9 +263,9 @@ def _op_steps(op: LOp, ins: Tuple[str, ...], out: str,
     if kind == "embedding":
         red = _split_axes_for(in_sigs[0], 0, axis_names, mesh_shape)
         if red:
-            return [_Step(_vocab_embedding(red, axis_names, mesh_shape), ins,
-                          (out,))]
-    return [_Step(_local_fn(op), ins, (out,))]
+            return [Step(_vocab_embedding(red, axis_names, mesh_shape), ins,
+                         (out,))]
+    return [Step(_local_fn(op), ins, (out,))]
 
 
 def _materialized(sig: NdSbp) -> NdSbp:
@@ -292,28 +273,6 @@ def _materialized(sig: NdSbp) -> NdSbp:
     cross a program boundary (graph outputs, stage boundaries) are stored
     so."""
     return NdSbp(tuple(Broadcast() if c.is_partial else c for c in sig))
-
-
-@dataclasses.dataclass
-class LocalProgram:
-    """A lowered (sub)graph as one rank runs it: ``steps`` in order from
-    ``input_names`` to ``output_names``; output ``i`` is read from the
-    environment name ``out_keys[i]`` (its boundary-boxed copy where the
-    stored signature differs from the boundary's). Calling it runs
-    inference on one rank's shards (inside :func:`repro_torch.core.mesh
-    .spmd` on a mesh of several)."""
-
-    steps: List[_Step]
-    input_names: Tuple[str, ...]
-    output_names: Tuple[str, ...]
-    out_keys: Tuple[str, ...]
-
-    def __call__(self, *values) -> Tuple:
-        env = dict(zip(self.input_names, values))
-        for st in self.steps:
-            res = st.fn(*[env[n] for n in st.ins])
-            env.update(zip(st.outs, res if len(st.outs) > 1 else (res,)))
-        return tuple(env[k] for k in self.out_keys)
 
 
 def _lower_subgraph(graph: LogicalGraph, plan: Plan, ops: Sequence[LOp],
@@ -342,7 +301,7 @@ def _lower_subgraph(graph: LogicalGraph, plan: Plan, ops: Sequence[LOp],
         return _box_step(have, want, t, src, dst, axis_names, mesh_shape)
 
     cur_sbp = {t.name: in_sbp[t.name] for t in in_tensors}
-    steps: List[_Step] = []
+    steps: List[Step] = []
     for op in ops:
         in_sigs = plan.op_in_sbp[op.name]
         raw_sig = plan.op_out_sbp[op.name]
@@ -350,13 +309,13 @@ def _lower_subgraph(graph: LogicalGraph, plan: Plan, ops: Sequence[LOp],
         ins = []
         for i, (t, want) in enumerate(zip(op.inputs, in_sigs)):
             st = box(cur_sbp[t.name], want, t, t.name,
-                     f"{t.name}{_INTERNAL}{op.name}.{i}")
+                     f"{t.name}{INTERNAL}{op.name}.{i}")
             if st is not None:
                 steps.append(st)
             ins.append(t.name if st is None else st.outs[0])
         out = op.output.name
         epilogue = box(raw_sig, stored_sig, op.output,
-                       f"{out}{_INTERNAL}raw", out)
+                       f"{out}{INTERNAL}raw", out)
         steps += _op_steps(op, tuple(ins),
                            out if epilogue is None else epilogue.ins[0],
                            in_sigs, axis_names, mesh_shape)
@@ -367,7 +326,7 @@ def _lower_subgraph(graph: LogicalGraph, plan: Plan, ops: Sequence[LOp],
     out_keys = []
     for t in out_tensors:
         st = box(cur_sbp[t.name], out_sbp[t.name], t, t.name,
-                 f"{t.name}{_INTERNAL}out")
+                 f"{t.name}{INTERNAL}out")
         if st is not None:
             steps.append(st)
         out_keys.append(t.name if st is None else st.outs[0])
@@ -651,99 +610,9 @@ def lower_stages(graph: LogicalGraph, plan: Plan, partition: StagePartition,
 # collective ones, so no autograd node ever waits at a rendezvous.
 # Activations stay stage-local (inside the tapes the runtime stashes in the
 # forward actor's out register) while cotangents flow backward across stage
-# boundaries. The runtime half lives in repro_torch.runtime.pipeline.
+# boundaries (the tape itself is repro_torch.core.tape). The runtime half
+# lives in repro_torch.runtime.pipeline.
 # ---------------------------------------------------------------------------
-
-@dataclasses.dataclass
-class OpTape:
-    """What one microbatch's forward through a program keeps on one rank
-    for its backward, one record per differentiated step: ``(outs, leaves,
-    values)`` for a local step -- its output names, input leaves ``((name,
-    leaf), ...)`` and outputs with the step's autograd graph -- and
-    ``(out, in, transpose, like)`` for a collective step."""
-
-    records: List[Tuple]
-
-
-def _taped_forward(program: LocalProgram, diff: set, values: Sequence):
-    """Run ``program`` on one rank recording an :class:`OpTape`. A value is
-    differentiated when it is a graph tensor named in ``diff`` or an
-    internal value computed from one; a local step's differentiated inputs
-    enter as fresh leaves (one per distinct name) that require grad, and
-    its outputs leave it detached. Returns ``(outputs, tape)``."""
-    env = dict(zip(program.input_names, values))
-    live = {n for n in program.input_names if n in diff}
-    records: List[Tuple] = []
-    with torch.enable_grad():
-        for st in program.steps:
-            if st.collective:
-                src, (dst,) = st.ins[0], st.outs
-                out = st.fn(env[src])
-                env[dst] = out
-                if st.transpose is not None and src in live:
-                    if dst in diff or _INTERNAL in dst:
-                        live.add(dst)
-                    records.append((dst, src, st.transpose,
-                                    (out.shape, out.dtype, out.device)))
-                continue
-            leaves: Dict[str, torch.Tensor] = {}
-            args = []
-            for n in st.ins:
-                if n in live:
-                    if n not in leaves:
-                        leaves[n] = env[n].detach().requires_grad_(True)
-                    args.append(leaves[n])
-                else:
-                    args.append(env[n])
-            res = st.fn(*args)
-            outs = tuple(res) if len(st.outs) > 1 else (res,)
-            if leaves and any(o.requires_grad for o in outs):
-                records.append((st.outs, tuple(leaves.items()), outs))
-                live.update(n for n, o in zip(st.outs, outs)
-                            if o.requires_grad
-                            and (n in diff or _INTERNAL in n))
-            env.update((n, o.detach()) for n, o in zip(st.outs, outs))
-    return tuple(env[k] for k in program.out_keys), OpTape(records)
-
-
-def _taped_backward(tape: OpTape, cotangents: Dict[str, torch.Tensor],
-                    wanted: Sequence[str]) -> Tuple:
-    """Reverse-mode over one rank's ``tape``: start from ``cotangents``
-    (output seeds and the cotangents later stages sent for this program's
-    inputs, keyed by environment name), walk the steps in reverse and add
-    each step's contribution to its inputs' cotangents in that order.
-    Every collective record runs its transpose (on zeros where no
-    cotangent reached it), so all ranks call the same collectives. Returns
-    one cotangent per ``wanted`` name (``None`` where nothing flowed)."""
-    cot = {n: c for n, c in cotangents.items() if c is not None}
-
-    def add(n, g):
-        cot[n] = g if n not in cot else cot[n] + g
-
-    for rec in reversed(tape.records):
-        if len(rec) == 4:
-            dst, src, transpose, like = rec
-            g = cot.pop(dst, None)
-            if g is None:
-                shape, dtype, device = like
-                g = torch.zeros(shape, dtype=dtype, device=device)
-            add(src, transpose(g))
-            continue
-        outs, leaves, values = rec
-        pairs = [(v, g) for v, g in zip(values, (cot.pop(n, None)
-                                                  for n in outs))
-                 if g is not None and v.requires_grad]
-        if not pairs:
-            continue
-        grads = torch.autograd.grad([v for v, _ in pairs],
-                                    [leaf for _, leaf in leaves],
-                                    [g for _, g in pairs], allow_unused=True)
-        for (n, _), gi in zip(leaves, grads):
-            if gi is not None:
-                add(n, gi)
-    tape.records.clear()
-    return tuple(cot.get(n) for n in wanted)
-
 
 @torch.no_grad()
 def sgd_update(w: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
@@ -1297,7 +1166,7 @@ def _train_program(program: LocalProgram, diff: set, mesh: DeviceMesh):
     key = dict(zip(program.output_names, program.out_keys))
 
     def fwd(*ins):
-        outs = spmd(lambda *v: _taped_forward(program, diff, v), mesh)(*ins)
+        outs = spmd(lambda *v: taped_forward(program, diff, v), mesh)(*ins)
         return (tuple([o[0][i] for o in outs] for i in range(n_out)),
                 [o[1] for o in outs])
 
@@ -1305,7 +1174,7 @@ def _train_program(program: LocalProgram, diff: set, mesh: DeviceMesh):
         names = list(cotangents)
 
         def rank_bwd(tape, *cots):
-            return _taped_backward(
+            return taped_backward(
                 tape, {key.get(n, n): c for n, c in zip(names, cots)},
                 diff_in)
         per_rank = spmd(rank_bwd, mesh)(tapes, *[cotangents[n]
@@ -1679,7 +1548,7 @@ def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
                               group_size, device, mesh=mesh)
 
 
-def _data_index(mesh: DeviceMesh, plan: MeshPlan, rank: int) -> int:
+def data_index(mesh: DeviceMesh, plan: MeshPlan, rank: int) -> int:
     """The rank's row-major index over the data axes: which block of a slot
     group's rows it holds."""
     d = 0
@@ -1695,7 +1564,7 @@ def _rank_programs(mesh: DeviceMesh, plan: MeshPlan, first: bool,
     given) as programs over the ranks of ``mesh``, with its
     ``init_caches`` and ``write_slot``; see :class:`ServeStage`."""
     ranks = list(range(mesh.size))
-    data = [_data_index(mesh, plan, r) for r in ranks]
+    data = [data_index(mesh, plan, r) for r in ranks]
     # the last stage's logits: rows over data (decode) or replicated
     # (prefill), vocab blocks over model
     rows = ",".join("S(1)" if n == plan.model_axis else "S(0)"

@@ -18,10 +18,12 @@ axes. Each is a rendezvous of the ranks that share every other coordinate
   autograd graph reaches another rank's tensors, and no two ranks share
   storage (an in-place update on one replica never changes another).
 
-Every wait has a timeout. A collective that times out, a rank that returns
-without joining one, or calls that disagree on the collective raise
-:class:`CollectiveError` on every rank of the run, and :func:`spmd`
-re-raises the first failure. All ranks on one card use the caller's current
+No collective runs inside an autograd backward (it raises
+:class:`CollectiveError` there, on the CPU too): a card's backward nodes
+all run on one thread. Every wait has a timeout. A collective that times
+out, a rank that returns without joining one, or calls that disagree on
+the collective raise :class:`CollectiveError` on every rank of the run,
+and :func:`spmd` re-raises the first failure. All ranks on one card use the caller's current
 stream, so stream order covers the data dependencies between them.
 
 :func:`place` cuts a global tensor into per-rank shards under an NdSbp and
@@ -292,7 +294,18 @@ def _collective(kind: str, axes: Axes, x: torch.Tensor, combine,
                 volume: Callable[[int, int], float]) -> torch.Tensor:
     """Run ``combine`` (group-ordered inputs -> group-ordered results) over
     the axis group of ``axes``; ``volume(n, nbytes)`` is the group's
-    Table 2 bytes for an input of ``nbytes`` on each of ``n`` ranks."""
+    Table 2 bytes for an input of ``nbytes`` on each of ``n`` ranks.
+
+    Refused inside an autograd backward, on every device: the engine runs
+    all of a card's backward nodes on one worker thread, so a node waiting
+    here for another rank of that card would hang the run. A training
+    program keeps its collectives on a tape between ``autograd.grad``
+    calls instead (:mod:`repro_torch.core.tape`)."""
+    if torch._C._current_graph_task_id() != -1:
+        raise CollectiveError(
+            f"{kind} inside an autograd backward: a card runs every backward "
+            "node on one thread, so a rendezvous there deadlocks; record "
+            "the collective on the tape (repro_torch.core.tape) instead")
     ctx = _ctx()
     axes = _as_axes(axes)
     mesh = ctx.comm.mesh

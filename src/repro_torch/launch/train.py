@@ -3,12 +3,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --smoke --steps 50 --batch 8 --seq 128 --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --mesh 1x2 --steps 5
+
 The flags are the reference's (``repro/launch/train.py``) plus ``--device``
-(default: the card). ``--smoke`` uses the reduced config. The data
+(default: the card). ``--smoke`` uses the reduced config. ``--mesh DxM``
+trains on a ``("data", "model")`` mesh of D x M ranks (threads; on one
+card virtual ranks of it), tensor-parallel over ``model`` and
+data-parallel over ``data``; ``--batch`` must divide by D. The data
 pipeline is the actor-runtime prefetcher (paper §6.1); checkpointing every
-``--ckpt-every`` steps writes the reference's format. ``--zero`` raises
-until ZeRO is ported (ROADMAP Queue 1 item 9): the port's default is
-``--no-zero``, and the mesh is 1x1 (item 8).
+``--ckpt-every`` steps writes the reference's format, the global params
+assembled from the ranks. ``--zero`` raises until ZeRO is ported (ROADMAP
+Queue 1 item 9): the port's default is ``--no-zero``.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="checkpoints/run")
     ap.add_argument("--data-buffers", type=int, default=2)
-    ap.add_argument("--mesh", default="1x1", help="data x model (1x1 only)")
+    ap.add_argument("--mesh", default="1x1", help="data x model")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)

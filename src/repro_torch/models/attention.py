@@ -52,6 +52,18 @@ def kv_heads_local(cfg: ModelConfig, plan: MeshPlan) -> int:
     return 1
 
 
+#: The leaves replicated over ``model`` that each rank uses only in part:
+#: its kv group's columns of ``wk``/``wv``/``bk``/``bv`` (:func:`_kv_slice`)
+#: and the q/k norms over its local heads. A rank's gradient of one is its
+#: disjoint part of the true one, so training psums it over ``model`` after
+#: the backward (the attention half of the reference's
+#: ``_MODEL_GRAD_SUM_LEAVES``, ``repro/train/steps.py:75-81``; JAX's
+#: autodiff adds them implicitly). With kv heads < tp the ranks of a group
+#: share a head, and the psum adds their parts alike.
+MODEL_GRAD_SUM_LEAVES = frozenset({"wk", "wv", "bk", "bv", "q_norm",
+                                   "k_norm"})
+
+
 def _kv_slice(w, cfg: ModelConfig, plan: MeshPlan, hd: int):
     """This rank's kv-head columns of the replicated kv weight (or bias):
     its group's first head, group-aligned for kv < tp."""

@@ -7,8 +7,12 @@ mesh -- here inside :func:`repro_torch.core.mesh.spmd`, each rank a thread
 -- and writes every collective as an SBP transition (:class:`Boxer`) or a
 named-axis collective of :mod:`repro_torch.core.mesh`. On a 1 x 1 plan
 every one of them is the identity and no rank context is needed.
-``grad_sync`` and ``pmean_data`` belong to tp/dp > 1 training, which waits
-(ROADMAP Queue 1 item 8c).
+Training on a mesh keeps every collective off autograd's graph: the
+model's forward is a program of local segments between tape entries
+(:mod:`repro_torch.core.tape`), and the reference's ``grad_sync``
+(Megatron's "f", ``repro/models/common.py:97-123``) and the branch psum
+(its conjugate "g"), which JAX differentiates through ``vma``, are such
+entries here, :func:`grad_sync_step` and :func:`branch_psum_step`.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.core import mesh as M
 from repro_torch.core.boxing import boxing_fn
 from repro_torch.core.sbp import Split, ndsbp
+from repro_torch.core.tape import Step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +109,28 @@ class Boxer:
         if self.plan.tp == 1:
             return x
         return M.all_gather(x, self.plan.model_axis, dim=axis)
+
+
+# ---------------------------------------------------------------------------
+# Megatron's "f" and "g" as tape entries
+# ---------------------------------------------------------------------------
+
+def grad_sync_step(src: str, dst: str, plan: MeshPlan) -> Step:
+    """Megatron's "f" (the reference's ``grad_sync``): ``dst`` is ``src``,
+    a model-replicated activation entering a branch that each rank runs on
+    its own heads, MLP units or vocabulary block. Each rank's cotangent of
+    ``dst`` is its branch's part of the true one, so the transpose psums it
+    over ``model``."""
+    return Step(lambda v: v, (src,), (dst,), collective=True,
+                transpose=lambda g: M.psum(g, plan.model_axis))
+
+
+def branch_psum_step(src: str, dst: str, plan: MeshPlan) -> Step:
+    """Megatron's "g": ``dst`` is the psum over ``model`` of ``src``, a
+    branch's P(sum) partial. ``dst`` is replicated and every rank holds its
+    whole cotangent, so the transpose is the identity."""
+    return Step(lambda v: M.psum(v, plan.model_axis), (src,), (dst,),
+                collective=True, transpose=lambda g: g)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -29,20 +29,24 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mesh as M
 from repro_torch.core.sbp import NdSbp, ndsbp
+from repro_torch.core.tape import INTERNAL, LocalProgram, Step
 from repro_torch.kernels.softmax_xent import combine_stats, xent_local_stats
 from repro_torch.models.attention import (GQAttention, gqa_decode,
                                           gqa_forward, init_gqa,
                                           kv_to_seq_sharded)
-from repro_torch.models.common import (Boxer, MeshPlan, dense_init, param,
+from repro_torch.models.common import (Boxer, MeshPlan, branch_psum_step,
+                                       dense_init, grad_sync_step, param,
                                        resolve_device, rms_norm)
 from repro_torch.models.mamba import (Mamba, init_mamba, mamba_decode,
                                       mamba_forward)
@@ -115,7 +119,8 @@ def check_mesh_supported(cfg: ModelConfig, plan: MeshPlan) -> None:
             f"{cfg.name} on a {dict(zip(plan.axis_names, plan.axis_sizes))} "
             "mesh: Mamba and hybrid stacks on a mesh (heads-sharded SSM "
             "state, the SSD scan at local heads) are the rest of ROADMAP "
-            "Queue 1 item 8c, not ported yet; dense GQA stacks serve there")
+            "Queue 1 item 8c(ii), not ported yet; dense GQA stacks serve "
+            "and train there")
 
 
 def has_ssm_layers(cfg: ModelConfig) -> bool:
@@ -221,20 +226,28 @@ def init_model(cfg: ModelConfig, plan: MeshPlan, seed: int = 0,
 # forward pieces
 # ---------------------------------------------------------------------------
 
-def embed_tokens(p_embed, ids, plan: MeshPlan):
-    """Vocab-parallel embedding: a masked gather from this rank's vocab
-    rows -> P(sum) -> psum over the model axis (a plain gather at tp = 1).
-    Exactly one rank holds each id, so the psum adds zeros to it."""
+def embed_local(p_embed, ids, plan: MeshPlan):
+    """This rank's part of the vocab-parallel embedding: a masked gather
+    from its vocab rows, P(sum) over the model axis (the whole lookup at
+    tp = 1). Exactly one rank holds each id, so the others give zeros.
+    The gather is ``F.embedding``, whose backward sums each row's
+    contributions in one order on every run (the ids clamped to an edge
+    row pile up there; indexing's accumulating backward adds them in a
+    varying order on the CPU)."""
     if plan.tp == 1:
         return p_embed[ids.long()]
     V_loc = p_embed.shape[0]
     local = ids.long() - M.axis_index(plan.model_axis) * V_loc
     ok = (local >= 0) & (local < V_loc)
-    e = p_embed[local.clamp(0, V_loc - 1)]
-    e = torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype,
-                                                  device=e.device))
-    return Boxer(plan).psum_model(e)
+    e = F.embedding(local.clamp(0, V_loc - 1), p_embed)
+    return torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                     device=e.device))
 
+
+def embed_tokens(p_embed, ids, plan: MeshPlan):
+    """Vocab-parallel embedding: :func:`embed_local` -> P(sum) -> psum over
+    the model axis (a plain gather at tp = 1)."""
+    return Boxer(plan).psum_model(embed_local(p_embed, ids, plan))
 
 
 def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
@@ -404,23 +417,39 @@ def shard_params(params, cfg: ModelConfig, plan: MeshPlan,
 
 
 # ---------------------------------------------------------------------------
-# training loss (tp = 1)
+# training loss
 # ---------------------------------------------------------------------------
+
+def shard_stats(p_unembed, h, labels, plan: MeshPlan):
+    """The local stats ``(m, s, z)`` of this rank's vocab shard: logits on
+    its ``S(1)`` columns of ``unembed`` (the whole padded vocab at tp = 1,
+    unmasked, as in the reference, ``transformer.py:333-344``) through
+    :func:`xent_local_stats` (the kernel on the card) at the shard's
+    offset. h: (B, S, d); labels: (B, S)."""
+    B, S, d = h.shape
+    logits = h.reshape(B * S, d) @ p_unembed.to(h.dtype)
+    offset = (M.axis_index(plan.model_axis) * p_unembed.shape[1]
+              if plan.tp > 1 else 0)
+    return xent_local_stats(logits, labels.reshape(-1), offset)
+
+
+def weighted_mean(tok, weights):
+    """The loss over tokens: ``tok`` weighted, over the weights' sum."""
+    w = weights.reshape(-1).float()
+    return (tok * w).sum() / torch.clamp_min(w.sum(), 1.0)
+
 
 def lm_loss(p_unembed, h, labels, weights, plan: MeshPlan,
             cfg: ModelConfig):
     """Sharded-vocab cross-entropy (paper Fig 11b) on one vocab shard.
 
-    h: (B, S, d); labels/weights: (B, S). The logits run over the whole
-    padded vocab, unmasked, as in the reference (``transformer.py:333-344``);
-    the local stats come from :func:`xent_local_stats` (the kernel on the
-    card) and are combined as one shard. Returns the weighted mean loss."""
-    B, S, d = h.shape
-    logits = h.reshape(B * S, d) @ p_unembed.to(h.dtype)
-    m_, s_, z_ = xent_local_stats(logits, labels.reshape(-1), 0)
-    tok = combine_stats(m_[None], s_[None], z_[None])
-    w = weights.reshape(-1).float()
-    return (tok * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    h: (B, S, d); labels/weights: (B, S). The stats of the one shard
+    (:func:`shard_stats`) are combined as one shard. Returns the weighted
+    mean loss. On a mesh the training program combines them across
+    ``model`` (:func:`mesh_loss_program`)."""
+    m_, s_, z_ = shard_stats(p_unembed, h, labels, plan)
+    return weighted_mean(combine_stats(m_[None], s_[None], z_[None]),
+                         weights)
 
 
 def _run_body(model: Transformer, x, cfg: ModelConfig, plan: MeshPlan,
@@ -470,3 +499,128 @@ def forward_loss(model: Transformer, batch, cfg: ModelConfig,
     loss = loss + cfg.router_aux_weight * aux
     metrics["loss"] = loss
     return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# training loss on a mesh: a taped program of local segments between
+# collectives
+# ---------------------------------------------------------------------------
+
+def loss_steps(h: str, plan: MeshPlan) -> List[Step]:
+    """The vocab-parallel ``lm_loss`` as program steps, from the final
+    hidden ``h`` (model-replicated, after its "f") and the inputs
+    ``unembed`` (this rank's ``S(1)`` columns) and ``tokens`` to ``loss``:
+    the xent kernel's stats at the rank's vocab offset
+    (:func:`shard_stats`), ``m`` held fixed through a pmax (no transpose),
+    ``s`` rescaled by ``exp(m - m_g)`` and psummed with ``z`` as "g"s, so
+    every rank computes the whole ``log s_g + m_g - z_g`` over its rows
+    (``repro/models/transformer.py:326-345``). At tp = 1 the stats of the
+    one shard, as :func:`lm_loss`."""
+    m, s, z = (INTERNAL + n for n in ("m", "s", "z"))
+    steps = [Step(lambda hv, U, t: shard_stats(U, hv, t[:, 1:], plan),
+                  (h, "unembed", "tokens"), (m, s, z))]
+    if plan.tp > 1:
+        m_g, s_r = INTERNAL + "m_g", INTERNAL + "s_r"
+        steps += [
+            Step(lambda v: M.pmax(v, plan.model_axis), (m,), (m_g,),
+                 collective=True),
+            Step(lambda sv, mv, mg: sv * torch.exp(mv - mg), (s, m, m_g),
+                 (s_r,)),
+            branch_psum_step(s_r, s_r + ".sum", plan),
+            branch_psum_step(z, z + ".sum", plan)]
+        s, m, z = s_r + ".sum", m_g, z + ".sum"
+
+    def loss(s_g, m_g, z_g):
+        tok = torch.log(s_g) + m_g - z_g       # -log softmax[label]
+        return weighted_mean(tok, torch.ones_like(tok))
+    return steps + [Step(loss, (s, m, z), ("loss",))]
+
+
+def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
+                      remat: bool = True) -> LocalProgram:
+    """The training loss of a dense decoder on one rank of a
+    ``("data", "model")`` mesh, as a program for the training tape
+    (:func:`repro_torch.core.tape.taped_forward`): local segments between
+    the model's collectives, every collective a tape entry with its
+    transpose, so none runs inside autograd.
+
+    Inputs: ``tokens`` (this rank's rows, ``(B, S+1)`` int32) and every
+    parameter by its ``state_dict`` name, this rank's shard under
+    :func:`model_specs`; output ``loss``, this rank's weighted mean (the
+    data axes' mean is the step's). Per block, as the reference's
+    ``apply_block`` (``repro/models/transformer.py:146-210``): the norm,
+    "f" (:func:`~repro_torch.models.common.grad_sync_step`), attention on
+    the rank's heads, the branch psum "g"
+    (:func:`~repro_torch.models.common.branch_psum_step`), the residual
+    and norm, "f", the MLP on the rank's units, "g". The f sits after each
+    norm, so a replicated norm's gradient comes out whole on every rank.
+    The embedding is :func:`embed_local` and a "g"; the loss is
+    :func:`loss_steps` after the final norm and an "f". At tp = 1 (a data
+    mesh, or ``fsdp``) there is no "f" or "g", and the loss is
+    :func:`lm_loss`'s.
+
+    With ``remat`` each block's segments keep only their inputs and run
+    again in the backward: the reference's policy, which saves the psum
+    outputs and recomputes the local math between them (``:371-380``);
+    the loss segment runs once."""
+    check_trainable(cfg)
+    cdt = compute_dtype(cfg)
+    eps, tp = cfg.norm_eps, plan.tp
+    attn_names = [k for k in block_specs(cfg, plan, ("attn", "dense"))
+                  if k.startswith("attn.")]
+    steps: List[Step] = []
+
+    def local(fn, ins, outs, rm=remat):
+        steps.append(Step(fn, tuple(ins), tuple(outs), remat=rm))
+
+    def f(src):
+        if tp == 1:
+            return src
+        steps.append(grad_sync_step(src, src + ".f", plan))
+        return src + ".f"
+
+    def g(src):
+        if tp == 1:
+            return src
+        steps.append(branch_psum_step(src, src + ".sum", plan))
+        return src + ".sum"
+
+    def add_norm(*args):
+        """(terms of the residual..., norm weight) -> (x, rms_norm(x))"""
+        *terms, w = args
+        x = terms[0].to(cdt)
+        for t in terms[1:]:
+            x = x + t
+        return x, rms_norm(x, w.to(cdt), eps)
+
+    def attention(h, *ws):
+        p = SimpleNamespace(**{n[len("attn."):]: w
+                               for n, w in zip(attn_names, ws)})
+        positions = torch.arange(h.shape[1], device=h.device)
+        return gqa_forward(p, h, cfg, plan, positions)[0]
+
+    def mlp(h, w_gate, w_up, w_down):
+        return dense_mlp_forward(
+            SimpleNamespace(w_gate=w_gate, w_up=w_up, w_down=w_down), h)
+
+    def name(n):
+        return INTERNAL + n
+
+    local(lambda E, t: embed_local(E, t[:, :-1], plan), ("embed", "tokens"),
+          (name("e"),), rm=False)
+    residual = [g(name("e"))]
+    for i in range(cfg.num_layers):
+        b = f"blocks.{i}."
+        x, h, a = name(f"x{i}"), name(f"h{i}"), name(f"a{i}")
+        local(add_norm, (*residual, b + "ln1"), (x, h))
+        local(attention, (f(h), *[b + n for n in attn_names]), (a,))
+        xm, h2, mo = name(f"xm{i}"), name(f"h2_{i}"), name(f"mlp{i}")
+        local(add_norm, (x, g(a), b + "ln2"), (xm, h2))
+        local(mlp, (f(h2), *[b + "mlp." + n for n in
+                             ("w_gate", "w_up", "w_down")]), (mo,))
+        residual = [xm, g(mo)]
+    hf = name("hf")
+    local(add_norm, (*residual, "final_norm"), (name("xf"), hf))
+    steps += loss_steps(f(hf), plan)
+    inputs = ("tokens", *model_specs(cfg, plan))
+    return LocalProgram(steps, inputs, ("loss",), ("loss",))

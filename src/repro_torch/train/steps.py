@@ -1,71 +1,139 @@
 """The training step builder (port of ``repro/train/steps.py``'s
-``make_train_step``, plain path, at dp = tp = 1).
+``make_train_step``, plain path).
 
 The reference wraps the local step in ``shard_map`` over the mesh and
-``jax.jit``s it; on one device the step is the local step itself, run
+``jax.jit``s it. On one device the step here is the local step itself, run
 eagerly: the loss, ``torch.autograd.grad`` (``jax.value_and_grad``), then
 :func:`repro_torch.optim.zero.plain_dp_adamw_update`. Params are the
 :class:`repro_torch.models.transformer.Transformer` module (float32, updated
 in place); the optimizer state is an :class:`AdamWState` keyed by its
 parameter names.
 
+On a ``("data", "model")`` mesh beyond 1 x 1 the step runs on the ranks of
+a :class:`repro_torch.core.mesh.DeviceMesh` (threads of
+:func:`repro_torch.core.mesh.spmd`; on one card they are virtual): tensor
+parallelism over ``model`` (heads, MLP units and vocabulary split,
+:func:`repro_torch.models.transformer.model_specs`) and data parallelism
+over ``data`` (rows split). Each rank owns a copy of its shard of every
+param and its own AdamW state (:class:`MeshParams`). The loss is the taped
+program of :func:`repro_torch.models.transformer.mesh_loss_program`, whose
+collectives never run inside autograd; after its backward the
+model-disjoint leaves (:data:`repro_torch.models.attention
+.MODEL_GRAD_SUM_LEAVES`) are psummed over ``model`` and the update
+all-reduces over ``data``. ``fsdp=True`` makes every mesh axis a data
+axis, as the reference does (tp = 1).
+
 Not ported yet: ``zero=True`` (flat master shards, ROADMAP Queue 1 item 9;
-at dp = 1 the reference gives the same numbers either way), ``fsdp`` and
-meshes beyond 1 x 1 (item 8), the ``Graph*`` shims of graph training
-(item 7), and SSM layers (the SSD scan's backward, Queue 2 item 4).
+the plain path computes the same step), SSM layers on a mesh (item 8c) and
+in training at all (the SSD scan's backward, Queue 2 item 4), and the
+``Graph*`` shims of graph training (item 7).
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mesh as M
+from repro_torch.core.lowering import data_index
+from repro_torch.core.placement import Placement
+from repro_torch.core.sbp import Split
+from repro_torch.core.tape import taped_backward, taped_forward
+from repro_torch.models.attention import MODEL_GRAD_SUM_LEAVES
 from repro_torch.models.common import MeshPlan, resolve_device
 from repro_torch.models.convert import jax_leaves
 from repro_torch.models.model_zoo import build_model, loss_fn
-from repro_torch.models.transformer import Transformer, check_trainable
+from repro_torch.models.transformer import (Transformer, check_mesh_supported,
+                                            check_trainable,
+                                            mesh_loss_program, model_specs,
+                                            shard_params)
 from repro_torch.optim.adamw import AdamWConfig, AdamWState, init_adamw
-from repro_torch.optim.zero import plain_dp_adamw_update
+from repro_torch.optim.zero import data_mean, plain_dp_adamw_update
 
 
 @dataclasses.dataclass
 class TrainStep:
     step_fn: Callable       # (params, opt_state, batch) -> (params, opt, metrics)
-    init_params: Callable   # (seed) -> params: the model, trainable, on device
-    init_opt: Callable      # (params) -> AdamWState
+    init_params: Callable   # (seed) -> params, trainable, on device
+    init_opt: Callable      # (params) -> AdamWState (a list, a rank each)
     plan: MeshPlan
     device: torch.device
+    #: (params, batch) -> (loss, grads): the pre-clip gradients of the
+    #: batch's mean loss by ``state_dict`` name, global tensors (on a mesh
+    #: assembled from the ranks' data means), for tests and tools
+    grad_fn: Optional[Callable] = None
+    mesh: Optional[M.DeviceMesh] = None   # the ranks, beyond 1 x 1
+
+
+class MeshParams:
+    """Each rank's own copy of its shard of every param of a global
+    ``state_dict`` under :func:`~repro_torch.models.transformer
+    .model_specs`, float32, in the reference tree's leaf order ``order``;
+    the step updates them in place (a rank owns its replicas, so no update
+    reaches another rank's). :meth:`state_dict` assembles the global
+    tensors when asked (checkpoints, tests), never inside a step."""
+
+    def __init__(self, state: Dict[str, torch.Tensor], order: List[str],
+                 cfg: ModelConfig, plan: MeshPlan, mesh: M.DeviceMesh):
+        self.cfg, self.plan, self.mesh = cfg, plan, mesh
+        self.ranks: List[Dict[str, torch.Tensor]] = []
+        for r in range(mesh.size):
+            mine = shard_params(state, cfg, plan, mesh.coords(r))
+            self.ranks.append({n: mine[n].to(
+                mesh.devices[r], copy=True,
+                memory_format=torch.contiguous_format) for n in order})
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        specs = model_specs(self.cfg, self.plan)
+        return {n: M.assemble([r[n] for r in self.ranks], self.mesh,
+                              specs[n]) for n in self.ranks[0]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Copy each rank's shard of the global ``state`` in."""
+        for r, mine in enumerate(self.ranks):
+            src = shard_params(state, self.cfg, self.plan,
+                               self.mesh.coords(r))
+            for n, t in mine.items():
+                t.copy_(src[n])
+
+    def numel(self) -> int:
+        """Parameters held over all ranks (replicas counted each time)."""
+        return sum(t.numel() for r in self.ranks for t in r.values())
 
 
 def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
                     optimizer: Optional[AdamWConfig] = None,
                     zero: bool = False, remat: bool = True,
-                    device=None) -> TrainStep:
-    """A training step for ``cfg`` on one device (``None``: the card).
+                    fsdp: bool = False, device=None) -> TrainStep:
+    """A training step for ``cfg`` on the mesh of ``plan`` (1 x 1: one
+    device), on ``device`` (``None``: the card; every rank of a mesh on
+    it). ``fsdp=True`` uses every mesh axis for data, as the reference.
 
-    ``step_fn(params, opt_state, batch)`` takes ``{"tokens": (B, S+1)}``
-    int32 and returns ``(params, opt_state, metrics)``, the params and
-    state updated in place; metrics ``lm_loss``, ``aux_loss``, ``loss`` and
-    ``grad_norm`` (pre-clip) are 0-d tensors on the device."""
-    if not plan.is_single:
-        mesh = dict(zip(plan.axis_names, plan.axis_sizes))
-        raise NotImplementedError(
-            f"make_train_step on a {mesh} mesh: tp/dp > 1 training "
-            "(grad_sync, the vocab-parallel lm_loss, collectives kept out "
-            "of autograd) is the training half of ROADMAP Queue 1 item 8, "
-            "now item 8c, not ported yet; serving runs on a mesh")
+    ``step_fn(params, opt_state, batch)`` takes the global ``{"tokens":
+    (B, S+1)}`` int32 and returns ``(params, opt_state, metrics)``, the
+    params and state updated in place; metrics ``lm_loss``, ``aux_loss``,
+    ``loss`` and ``grad_norm`` (pre-clip) are 0-d tensors on the device,
+    on a mesh averaged over its ranks in rank order (the reference's
+    ``certified_mean``). On a mesh B must divide by dp."""
     if zero:
         raise NotImplementedError(
             "make_train_step(zero=True): ZeRO master shards are not ported "
-            "yet (ROADMAP Queue 1 item 9); at dp = 1 zero=False computes "
-            "the same step")
+            "yet (ROADMAP Queue 1 item 9); zero=False computes the same "
+            "step")
+    if fsdp:
+        plan = MeshPlan(plan.axis_names, plan.axis_sizes,
+                        model_axis="__fsdp_none__")
+    check_mesh_supported(cfg, plan)
     check_trainable(cfg)
     optimizer = optimizer or AdamWConfig()
     device = resolve_device(device)
     order = [n for _, names in jax_leaves(cfg) for n in names]
+    if not plan.is_single:
+        return _mesh_train_step(cfg, plan, optimizer, remat, device, order)
 
     def leaves(params: Transformer) -> Dict[str, torch.Tensor]:
         """The params in the reference tree's leaf order."""
@@ -90,7 +158,97 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
         metrics["grad_norm"] = gnorm
         return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
-    return TrainStep(step_fn, init_params, init_opt, plan, device)
+    def grad_fn(params: Transformer, batch: Dict[str, Any]):
+        named = leaves(params)
+        loss, _ = loss_fn(params, batch, remat=remat)
+        return loss.detach(), dict(zip(named, torch.autograd.grad(
+            loss, list(named.values()))))
+
+    return TrainStep(step_fn, init_params, init_opt, plan, device, grad_fn)
+
+
+METRICS = ("lm_loss", "aux_loss", "loss", "grad_norm")
+
+
+def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
+                     optimizer: AdamWConfig, remat: bool,
+                     device: torch.device, order: List[str]) -> TrainStep:
+    """The step on the ranks of ``plan``'s mesh (see the module doc)."""
+    mesh = Placement(plan.axis_names, plan.axis_sizes).to_mesh(device)
+    specs = model_specs(cfg, plan)
+    program = mesh_loss_program(cfg, plan, remat=remat)
+    diff = set(order)
+    mx = plan.axis_names.index(plan.model_axis) if plan.tp > 1 else None
+    # identical model-axis copies of each leaf, for the norm
+    replication = {n: 1 if mx is None or isinstance(specs[n][mx], Split)
+                   else plan.tp for n in order}
+    model_sum = [n for n in order if replication[n] > 1
+                 and n.rsplit(".", 1)[-1] in MODEL_GRAD_SUM_LEAVES]
+    ranks = list(range(mesh.size))
+    rows = [data_index(mesh, plan, r) for r in ranks]
+
+    def init_params(seed: int = 0) -> MeshParams:
+        return MeshParams(build_model(cfg, plan, seed=seed,
+                                      device=device).state_dict(),
+                          order, cfg, plan, mesh)
+
+    def init_opt(params: MeshParams) -> List[AdamWState]:
+        return [init_adamw(mine) for mine in params.ranks]
+
+    def rank_rows(batch: Dict[str, Any]):
+        tokens = torch.as_tensor(batch["tokens"], dtype=torch.int32,
+                                 device=device)
+        if tokens.shape[0] % plan.dp:
+            raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
+                             f"split over dp = {plan.dp}")
+        B_l = tokens.shape[0] // plan.dp
+        return [tokens[rows[r] * B_l:(rows[r] + 1) * B_l] for r in ranks]
+
+    def rank_grads(mine: Dict[str, torch.Tensor], tokens: torch.Tensor):
+        """This rank's loss and gradients, the model-disjoint leaves summed
+        over ``model``: the taped forward and backward, then collectives
+        outside autograd."""
+        (loss,), tape = taped_forward(
+            program, diff, [tokens, *(mine[n] for n in
+                                      program.input_names[1:])])
+        grads = dict(zip(order, taped_backward(
+            tape, {"loss": torch.ones_like(loss)}, order)))
+        for n in model_sum:
+            grads[n] = M.psum(grads[n], plan.model_axis)
+        return loss, grads
+
+    def step_fn(params: MeshParams, opt_state: List[AdamWState],
+                batch: Dict[str, Any]):
+        tokens = rank_rows(batch)
+
+        def rank_step(r: int):
+            mine = params.ranks[r]
+            loss, grads = rank_grads(mine, tokens[r])
+            state, gnorm = plain_dp_adamw_update(
+                optimizer, mine, grads, opt_state[r], plan, replication)
+            aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+            vals = torch.stack([loss, aux, loss + cfg.router_aux_weight * aux,
+                                gnorm])
+            vals = M.psum(vals, plan.axis_names) / mesh.size
+            return state, dict(zip(METRICS, vals.unbind()))
+
+        outs = M.spmd(rank_step, mesh)(ranks)
+        return params, [o[0] for o in outs], outs[0][1]
+
+    def grad_fn(params: MeshParams, batch: Dict[str, Any]):
+        tokens = rank_rows(batch)
+
+        def rank(r: int):
+            loss, grads = rank_grads(params.ranks[r], tokens[r])
+            loss = M.psum(loss, plan.axis_names) / mesh.size
+            return loss, data_mean(grads, plan)
+
+        outs = M.spmd(rank, mesh)(ranks)
+        return outs[0][0], {n: M.assemble([o[1][n] for o in outs], mesh,
+                                          specs[n]) for n in order}
+
+    return TrainStep(step_fn, init_params, init_opt, plan, device,
+                     grad_fn, mesh)
 
 
 # ---------------------------------------------------------------------------

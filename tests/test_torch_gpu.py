@@ -35,6 +35,12 @@ a mesh: decode on two sequence shards of one cache (k_offset 0 and L/2,
 the second shard's rows wholly masked) combined across two ranks equals
 the plain decode over the whole cache, and reduced qwen3 served on two
 ranks of the card gives the same tokens on both backends as on the CPU.
+Training on a mesh: the attention backward at a tp = 2 rank's heads, the
+bf16 xent kernels on qwen3's vocab shard at V/2, and one
+``make_train_step`` step of reduced qwen3 on two ranks of the card under a
+60 s collective timeout (the deadlock's own test: a backward node waiting
+at a rendezvous would stall the card's one autograd thread), float32
+held to the CPU's mesh step at 1e-4 and bf16 at the bf16 tolerance.
 """
 import time
 
@@ -376,6 +382,7 @@ BWD_CASES = [
     (1, 130, 4, 4, 128, 33, "bfloat16"),                 # G 1, window
     (1, 256, 4, 1, 128, 0, "bfloat16"),                  # G 4, D 128
     (1, 200, 8, 2, 64, 0, "bfloat16"),                   # G 4, D 64, ragged
+    (2, 1024, 8, 4, 128, 0, "bfloat16"),                 # a tp = 2 rank's heads
 ]
 
 
@@ -445,6 +452,7 @@ XENT_CASES = [
     (7, 130, 130, "float32"),
     (256, 2048, 4096, "bfloat16"),
     (16, 151936, 0, "bfloat16"),                         # qwen3 vocab
+    (64, 75968, 75968, "bfloat16"),                      # its shard at V/2
 ]
 
 
@@ -841,3 +849,57 @@ def test_reduced_qwen3_served_on_two_ranks_of_the_card(cuda):
     want = out[("cpu", "monolithic")]
     for key, got in out.items():
         assert all(np.array_equal(a, b) for a, b in zip(got, want)), key
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mesh_train_step_on_two_ranks_of_the_card(cuda, dtype):
+    """One ``make_train_step`` step of reduced qwen3 on a (1, 2) mesh of
+    two ranks of the card, its collectives under a 60 s timeout: the
+    assembled gradients, loss and grad_norm against the same step on the
+    CPU; each rank's attention launches (forward and remat recompute, dq,
+    dk/dv a layer) on the kernels of its dtype, and its xent kernels at
+    its vocab shard's offset."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.train.steps import make_train_step
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(), dtype=dtype)
+    batch = {"tokens": SyntheticLM(cfg.vocab_size, 2, 64, seed=9)(0)}
+    plan = MeshPlan(("data", "model"), (1, 2))
+    init, res = None, {}
+    for d in ("cpu", "cuda"):
+        ts = make_train_step(cfg, plan, device=d)
+        ts.mesh.timeout = 60.0
+        params = ts.init_params(0)
+        if init is None:
+            init = {n: t.clone() for n, t in params.state_dict().items()}
+        params.load_state_dict(init)
+        opt = ts.init_opt(params)
+        _, grads = ts.grad_fn(params, batch)
+        fa.launches = fa.bwd_dq_launches = fa.bwd_dkdv_launches = 0
+        fa.wgmma_launches = fa.bwd_dq_wgmma_launches = 0
+        fa.bwd_dkdv_wgmma_launches = 0
+        xk.reset_counts()
+        t0 = time.perf_counter()
+        params, opt, m = ts.step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        res[d] = (m, grads, time.perf_counter() - t0)
+    assert res["cuda"][2] < ts.mesh.timeout
+    L, tc = cfg.num_layers, int(dtype == "bfloat16")
+    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkdv_launches) == (
+        4 * L, 2 * L, 2 * L)
+    assert (fa.wgmma_launches, fa.bwd_dq_wgmma_launches,
+            fa.bwd_dkdv_wgmma_launches) == (4 * L * tc, 2 * L * tc,
+                                            2 * L * tc)
+    Vl = cfg.padded_vocab() // 2
+    assert xk.offset_launches == xk.bwd_offset_launches == {0: 1, Vl: 1}
+    tol = _tol(dtype) if dtype == "bfloat16" else dict(rtol=1e-4, atol=1e-4)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(res["cuda"][0][k].cpu(), res["cpu"][0][k],
+                                   **tol)
+    for n, w in res["cpu"][1].items():
+        torch.testing.assert_close(res["cuda"][1][n].cpu(), w,
+                                   **(tol if tc else dict(rtol=1e-4,
+                                                          atol=1e-5)))

@@ -165,13 +165,16 @@ def test_three_train_steps_match_jax(ref):
 
 
 def test_zero_and_wider_meshes_raise():
+    """``zero=True`` raises naming item 9; a Mamba config on a mesh raises
+    naming item 8c (dense stacks train there,
+    ``tests/test_torch_train_mesh.py``)."""
     cfg = get_config("qwen3-1.7b").reduced()
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         make_train_step(cfg, zero=True, device="cpu")
     from repro_torch.models.common import MeshPlan
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        make_train_step(cfg, MeshPlan(("data", "model"), (2, 1)),
-                        device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
+        make_train_step(get_config("mamba2-370m").reduced(),
+                        MeshPlan(("data", "model"), (2, 1)), device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["actor", "sync"])
