@@ -114,7 +114,22 @@ result line is printed:
    ranks waited, the peak memory, then one profiled step. Then data
    parallelism: (2, 2) at qwen3's widths cut to 4 layers (two full-depth
    replicas would not fit), 2 steps beside a 1 x 1 twin of the cut config,
-   held the same way;
+   held the same way (each of these mesh runs passes ``zero=False``: the
+   plain path, whose numbers are the baselines);
+7b. train with ZeRO: the same model, init, batches and 4 steps through
+   ``make_train_step(cfg, MeshPlan(("data", "model"), (2, 1)),
+   zero=True)``, 2 virtual ranks over ``data`` (one row each), each
+   holding its (1, 1, chunk) rows of every leaf's float32 master and
+   moments (12 B x 2,031,739,904 / 2 = 12.19 GB a rank, printed beside the
+   48.8 GB of two plain replicas): each leaf cast to bf16 and all-gathered
+   before its first use, its gradient reduce-scattered, both on the
+   training tape. Losses within 1e-3 relative of the train phase's at
+   step 0 and 5e-3 after, grad_norm printed; the launches exactly 2
+   ranks' (attention 112 / 56 / 56 on the tensor-core kernels, xent 2 + 2
+   at offset 0); the collectives' calls and bytes a step and the seconds
+   the ranks waited; the peak memory; one profiled step. Then ZeRO on
+   (2, 2) at phase 7's 4-layer cut, 2 steps, held to phase 7's plain
+   (2, 2) run at the same limits;
 8. graph reference: a small LogicalGraph (embedding, a residual across
    its two stages, softmax_xent) trains 2 AdamW steps through
    ``api.compile(graph, mode="train")`` on the card, through the float32
@@ -152,6 +167,15 @@ result line is printed:
    memory, the bytes and calls of the collectives a step and the seconds
    the ranks spent in them, then one profiled step of the actors (busy
    and idle share);
+9b. graph train in mixed precision: phase 9's graph and params with
+   ``zero=True, precision="bf16", loss_scale="dynamic"``, 3 steps on
+   ``backend="actors"`` (1F1B) and ``"monolithic"`` in lockstep: losses,
+   the float32 masters, the moments and the loss-scale trajectory
+   bitwise equal across the two, masters and moments float32; step 0's
+   loss differs from phase 9's float32 loss and lies within one bf16 unit
+   (2^-8) of it; the bf16 xent kernels launched exactly 8 forward and 8
+   backward a step a backend; ``opt_state_bytes`` beside plain AdamW's;
+   each step's wall beside phase 9's;
 11. graph infer: the same graph under ``mode="infer"``, actors vs
    monolithic, bitwise, 8 forward xent launches a run and no backward.
    The kernels line holds the float32 xent forward and backward at the
@@ -159,6 +183,10 @@ result line is printed:
    launches, and at one rank's vocab shard of the mesh phase (256 x
    75,968 at offset 75,968) with that phase's launches.
 
+The kernels line also holds the ZeRO path's rows at a rank's shapes
+(attention forward and backward at q (1, 2048, 16, 128), the bf16 xent
+forward and backward at 2,048 x 151,936) with phase 7b's launches, and
+the bf16 xent at the graph's 512 x 151,936 with phase 9b's.
 The mesh train rows carry that phase's (1, 2) launches, the xent rows
 by offset (``launches_by_offset``) and the backward's by kernel. The
 kernels line's attention forward, decode and SSD scan rows carry
@@ -545,15 +573,15 @@ def check_flash_decode(dev):
     return entry
 
 
-def check_xent(dev, Vl=151936, offset=0, label=""):
+def check_xent(dev, Vl=151936, offset=0, label="", N=None):
     """The xent forward and backward kernels at the training logits (the
-    lm_loss of batch 2 x seq 2048 over the padded qwen3 vocab, or over a
-    rank's vocab shard of ``Vl`` columns at ``offset``, the labels then
-    drawn over every shard up to it), bf16, then on float32 copies of the
-    same inputs."""
+    lm_loss of batch 2 x seq 2048 over the padded qwen3 vocab, or of ``N``
+    rows, or over a rank's vocab shard of ``Vl`` columns at ``offset``, the
+    labels then drawn over every shard up to it), bf16, then on float32
+    copies of the same inputs."""
     from repro_torch.kernels.softmax_xent import kernel as xk
     from repro_torch.kernels.softmax_xent.ref import local_stats_ref
-    N = TRAIN_B * TRAIN_S
+    N = N or TRAIN_B * TRAIN_S
     rng = np.random.default_rng(SEED + 4 + offset)
     logits = (torch.from_numpy(rng.normal(size=(N, Vl)).astype(np.float32))
               .to(dev) * 3).to(torch.bfloat16)
@@ -635,12 +663,13 @@ def check_xent(dev, Vl=151936, offset=0, label=""):
 
 
 def check_flash_attention_bwd(dev, H=16, KV=8, seed=SEED + 5,
-                              name="flash_attention_bwd"):
+                              name="flash_attention_bwd", B=None):
     """The attention backward at one training layer of qwen3-1.7b (all 16
-    q and 8 kv heads, or a rank's local heads on a mesh) against autograd
-    through the plain version, bf16 and on float32 copies."""
+    q and 8 kv heads, or a rank's local heads on a mesh; ``B`` rows, by
+    default the train batch's) against autograd through the plain
+    version, bf16 and on float32 copies."""
     from repro_torch.kernels.flash_attention import kernel as fa
-    B, S, D = TRAIN_B, TRAIN_S, 128
+    B, S, D = B or TRAIN_B, TRAIN_S, 128
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
@@ -877,7 +906,7 @@ def check_reference_train(dev):
     runs = {}
     zero_train_counts()
     for d in ("cpu", dev):
-        ts = make_train_step(cfg, device=d)
+        ts = make_train_step(cfg, zero=False, device=d)
         params = ts.init_params(SEED)
         if init is None:
             init = {n: t.detach().clone() for n, t in params.state_dict().items()}
@@ -1652,16 +1681,17 @@ def xent_offsets():
 
 def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
                 steps: int = TRAIN_STEPS, falls: bool = True,
-                want_offsets=None):
+                want_offsets=None, zero: bool = False):
     """``cfg`` (default qwen3-1.7b at full width and depth) through
     make_train_step on the ``("data", "model")`` mesh ``shape`` (1 x 1: one
     device) from the seeded init, fed by the actor data pipeline, ``steps``
     steps with the kernels' launches counted on every step and held to
     ``want``; on a mesh also the xent launches by vocab offset, held to
     ``want_offsets``, and the collectives' calls, bytes and the seconds the
-    ranks waited in them. ``falls``: the loss must fall over the run.
-    Returns (step, params, opt state, source, [(loss, grad_norm)], total
-    launches with the xent ``offsets``)."""
+    ranks waited in them. ``zero``: the ZeRO step (float32 master rows and
+    moments sharded over ``data``), else the plain one. ``falls``: the
+    loss must fall over the run. Returns (step, params, opt state, source,
+    [(loss, grad_norm)], total launches with the xent ``offsets``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import ActorDataPipeline, SyntheticLM
     from repro_torch.models.common import MeshPlan
@@ -1670,7 +1700,8 @@ def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
     cfg = cfg or get_config("qwen3-1.7b")
     B, S = TRAIN_B, TRAIN_S
     t0 = time.perf_counter()
-    ts = make_train_step(cfg, MeshPlan(("data", "model"), shape), device=dev)
+    ts = make_train_step(cfg, MeshPlan(("data", "model"), shape), zero=zero,
+                         device=dev)
     params = ts.init_params(SEED)
     opt = ts.init_opt(params)
     torch.cuda.synchronize()
@@ -1678,7 +1709,9 @@ def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
     n_params = params.numel() if mesh else sum(
         p.numel() for p in params.parameters())
     print(f"{what}: params and AdamW state initialised in "
-          f"{time.perf_counter() - t0:.1f} s: {n_params:,} params"
+          f"{time.perf_counter() - t0:.1f} s: {n_params:,} "
+          + ("float32 master elements (padding included)" if zero
+             else "params")
           + (f" over the {mesh.size} ranks of {mesh}" if mesh else ""))
     src = SyntheticLM(cfg.vocab_size, B, S, seed=SEED)
     pipe = ActorDataPipeline(src, num_batches=steps)
@@ -1843,6 +1876,86 @@ def train_mesh(dev, curve):
         torch.cuda.empty_cache()
     held_curves(f"{CUT_LAYERS} layers, {MESH_TRAIN_CUT} vs 1 x 1",
                 runs[MESH_TRAIN_CUT], runs[(1, 1)])
+    return total, runs[MESH_TRAIN_CUT]
+
+
+# phase 7b: ZeRO on a (2, 1) mesh at full width and depth (each rank holds
+# half of every leaf's float32 master rows and moments; two plain replicas
+# of params and moments alone would be 48.8 GB), then ZeRO on the (2, 2)
+# cut of phase 7, held to its plain run at the same limits
+ZERO_TRAIN = (2, 1)
+
+
+def check_zero_train_kernels(dev):
+    """The kernels of the ZeRO (2, 1) train path at a rank's shapes: one
+    row of 2,048 tokens a rank, all 16 q and 8 kv heads -- the attention
+    forward and backward at q (1, 2048, 16, 128) and the bf16 xent forward
+    and backward at (2,048 x 151,936), offset 0."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("qwen3-1.7b")
+    B_l = TRAIN_B // ZERO_TRAIN[0]
+    fwd = {"name": "flash_attention (zero (2, 1) rank, training)",
+           **ATTENTION_ROW}
+    fwd.update(attention_row(dev, B_l, TRAIN_S, cfg.num_heads,
+                             cfg.num_kv_heads, cfg.head_dim, SEED + 16))
+    bwd = check_flash_attention_bwd(
+        dev, seed=SEED + 17, B=B_l,
+        name="flash_attention_bwd (zero (2, 1) rank)")
+    xent = check_xent(dev, N=B_l * TRAIN_S,
+                      label=" (zero (2, 1) rank, bf16)")
+    return fwd, bwd, *xent
+
+
+def train_zero(dev, curve, cut_curve):
+    """Phase 7b: qwen3-1.7b at full width and depth with
+    ``make_train_step(zero=True)`` on ``ZERO_TRAIN`` (2 virtual ranks of
+    the card over ``data``, one row each), the train phase's init,
+    batches and steps, held to its 1 x 1 ``curve``; each rank's held
+    masters and moments beside two plain replicas'; one profiled step.
+    Then ZeRO on ``MESH_TRAIN_CUT`` at ``CUT_LAYERS`` layers held to phase
+    7's plain run there (``cut_curve``). Launches counted on every step.
+    Returns the full-depth run's launch counts."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("qwen3-1.7b")
+    ranks = int(np.prod(ZERO_TRAIN))
+    phase(f"train with ZeRO on a {ZERO_TRAIN} mesh ({cfg.name}, full width "
+          f"and depth, {ranks} virtual ranks on one card, float32 master "
+          f"rows and moments sharded over data, bf16 gathers, "
+          f"{TRAIN_STEPS} steps); then ZeRO on {MESH_TRAIN_CUT} at "
+          f"{CUT_LAYERS} layers, {CUT_STEPS} steps beside phase 7's plain run")
+    want, offsets = train_want(cfg, ranks, ZERO_TRAIN[1])
+    ts, params, opt, src, got, total = train_steps(
+        dev, f"zero {ZERO_TRAIN}", want, shape=ZERO_TRAIN,
+        want_offsets=offsets, zero=True)
+    held_curves(f"zero {ZERO_TRAIN} vs 1 x 1", got, curve)
+    n = sum(int(np.prod(s)) for s in params.shapes.values())
+    held = [nbytes(*mine.values(), *st.mu.values(), *st.nu.values())
+            for mine, st in zip(params.ranks, opt)]
+    print(f"zero {ZERO_TRAIN}: each rank holds "
+          f"{[round(b / 1e9, 3) for b in held]} GB of float32 master rows "
+          f"and moments (12 B x {n:,} params / {ranks} = "
+          f"{12 * n / ranks / 1e9:.2f} GB); two plain replicas would hold "
+          f"{2 * 12 * n / 1e9:.2f} GB of params and moments, "
+          f"{2 * 16 * n / 1e9:.2f} GB with their float32 gradients")
+    batch = {"tokens": src(TRAIN_STEPS)}
+    profile_device(f"zero {ZERO_TRAIN} train step", lambda: float(
+        ts.step_fn(params, opt, batch)[2]["loss"]), top=10)
+    del ts, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
+    w, off = train_want(cut, int(np.prod(MESH_TRAIN_CUT)), MESH_TRAIN_CUT[1])
+    *_, zc, _ = train_steps(
+        dev, f"zero {CUT_LAYERS} layers on {MESH_TRAIN_CUT}", w, cfg=cut,
+        shape=MESH_TRAIN_CUT, steps=CUT_STEPS, falls=False,
+        want_offsets=off, zero=True)
+    held_curves(f"{CUT_LAYERS} layers on {MESH_TRAIN_CUT}, zero vs plain",
+                zc, cut_curve)
+    gc.collect()
+    torch.cuda.empty_cache()
     return total
 
 
@@ -1862,21 +1975,24 @@ def zero_xent_counts():
 
 
 def check_xent_graph(dev, N=GRAPH_N // GRAPH_M, V=GRAPH_V, offset=0,
-                     label="graph"):
-    """The xent forward and backward kernels at a graph path's shape,
-    float32, against the plain version: one microbatch's logits of the
-    qwen3-width graph (512 x 151,936), or one rank's vocab shard of the
-    mesh phase (``N`` x ``V`` at ``offset``, labels over the two shards)."""
+                     label="graph", dtype="float32"):
+    """The xent forward and backward kernels at a graph path's shape
+    against the plain version: one microbatch's logits of the qwen3-width
+    graph (512 x 151,936; float32, or bf16 as the mixed-precision phase
+    gives them), or one rank's vocab shard of the mesh phase (``N`` x
+    ``V`` at ``offset``, labels over the two shards)."""
     from repro_torch.kernels.softmax_xent import kernel as xk
     from repro_torch.kernels.softmax_xent.ref import local_stats_ref
     rng = np.random.default_rng(SEED + 7)
-    logits = torch.from_numpy(
-        rng.standard_normal((N, V), dtype=np.float32)).to(dev) * 3
+    logits = (torch.from_numpy(
+        rng.standard_normal((N, V), dtype=np.float32)).to(dev) * 3).to(
+        getattr(torch, dtype))
     labels = torch.as_tensor(rng.integers(0, offset + V, N),
                              dtype=torch.int32, device=dev)
     ds = torch.as_tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
     dz = torch.as_tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
-    what = f"logits ({N}, {V}) float32 at offset {offset} ({label} path)"
+    what = f"logits ({N}, {V}) {dtype} at offset {offset} ({label} path)"
+    tol = (F32_TOL, F32_TOL) if dtype == "float32" else (ATOL, RTOL)
 
     def through_autograd(stats):
         leaf = logits.detach().requires_grad_(True)
@@ -1886,16 +2002,19 @@ def check_xent_graph(dev, N=GRAPH_N // GRAPH_M, V=GRAPH_V, offset=0,
 
     got, g = through_autograd(xk.xent_local_stats)
     want, wg = through_autograd(local_stats_ref)
-    err = max(agree(f"xent_local_stats {name} {what}", a, b, F32_TOL,
-                    F32_TOL) for name, a, b in zip("msz", got, want))
+    err = max(agree(f"xent_local_stats {name} {what}", a, b, *tol)
+              for name, a, b in zip("msz", got, want))
+    if dtype != "float32":
+        agree(f"xent_local_stats backward {what}", g, wg, *tol)
     # dlogits = ds * exp(x - m) + dz at the label: most entries lie near
     # 1e-6 of their row's scale |ds| + |dz|, far under an atol of F32_TOL.
     # Held per row to that scale with an atol of F32_TOL * 1e-6, so a wrong
     # entry anywhere in the vocabulary fails, not only near the row's max.
-    scale = (ds.abs() + dz.abs())[:, None]
-    agree(f"xent_local_stats backward {what} (per row / (|ds| + |dz|))",
-          g / scale, wg / scale, F32_TOL * 1e-6, F32_TOL)
-    gerr = (g - wg).abs().max().item()
+    if dtype == "float32":
+        scale = (ds.abs() + dz.abs())[:, None]
+        agree(f"xent_local_stats backward {what} (per row / (|ds| + |dz|))",
+              g / scale, wg / scale, F32_TOL * 1e-6, F32_TOL)
+    gerr = (g.float() - wg.float()).abs().max().item()
     del got, g, want, wg
     m, s_, z = xk.xent_local_stats_cuda(logits, labels, offset)
     fwd_bytes = nbytes(logits, labels, m, s_, z)
@@ -1917,10 +2036,10 @@ def check_xent_graph(dev, N=GRAPH_N // GRAPH_M, V=GRAPH_V, offset=0,
         return lambda: torch.autograd.grad(loss, leaf, ds, retain_graph=True)
 
     fwd = timed({
-        "name": f"xent_local_stats ({label}, float32)", "route": "cuda",
+        "name": f"xent_local_stats ({label}, {dtype})", "route": "cuda",
         "source": "src/repro_torch/csrc/softmax_xent.cu",
         "replaces": "src/repro/kernels/softmax_xent/kernel.py:67",
-        "shape": [N, V], "vocab_offset": offset, "dtype": "float32",
+        "shape": [N, V], "vocab_offset": offset, "dtype": dtype,
         "max_abs_err": err,
         "plain_ms": cuda_ms(lambda: local_stats_ref(logits, labels, offset),
                             iters=5),
@@ -1933,11 +2052,11 @@ def check_xent_graph(dev, N=GRAPH_N // GRAPH_M, V=GRAPH_V, offset=0,
     bwd_launch = lambda: xk.xent_local_stats_bwd_cuda(  # noqa: E731
         logits, labels, offset, m, ds, dz)
     bwd = timed({
-        "name": f"xent_local_stats_bwd ({label}, float32)", "route": "cuda",
+        "name": f"xent_local_stats_bwd ({label}, {dtype})", "route": "cuda",
         "source": "src/repro_torch/csrc/softmax_xent.cu",
         "replaces": "src/repro/kernels/softmax_xent/kernel.py:67 (its "
                     "backward; no Pallas counterpart)",
-        "shape": [N, V], "vocab_offset": offset, "dtype": "float32",
+        "shape": [N, V], "vocab_offset": offset, "dtype": dtype,
         "max_abs_err": gerr,
         "plain_ms": cuda_ms(plain_bwd(), iters=5),
         "bound_ms": bb_ms, "bound_by": bb_by,
@@ -2107,7 +2226,7 @@ def graph_train(dev):
                          for s in range(GRAPH_STAGES)]) + " ops")
     torch.cuda.synchronize()
     zero_xent_counts()
-    kept = {"loss": []}
+    kept = {"loss": [], "wall": {name: [] for name in sessions}}
     for step in range(GRAPH_STEPS):
         results = {}
         for name, sess in sessions.items():
@@ -2118,6 +2237,7 @@ def graph_train(dev):
             res = sess.step(**batch)
             loss = float(res.loss)
             wall = time.perf_counter() - t
+            kept["wall"][name].append(wall)
             peak = (torch.cuda.max_memory_allocated() - base) / 2**30
             per = {k: v - before[k] for k, v in xent_counts().items()}
             results[name] = res
@@ -2358,6 +2478,120 @@ def graph_train_mesh(dev, ref):
     return total
 
 
+# phase 9b: float32 masters, bf16 compute and dynamic loss scaling on the
+# paper's path. Step 0's loss against phase 9's float32 one: each row's
+# loss is a logsumexp minus the label's logit over bf16-rounded operands,
+# its rounding errors of either sign, and the step sums 4,096 rows, so the
+# sum stays within one bf16 unit (2^-8) of the float32 loss; it must also
+# differ from it (otherwise the cast is not happening)
+GRAPH_MP_RTOL = 2.0 ** -8
+
+
+def graph_train_mp(dev, ref):
+    """Phase 9b: the qwen3-width graph and params of phase 9 with
+    ``zero=True, precision="bf16", loss_scale="dynamic"``, GRAPH_STEPS
+    AdamW steps on ``backend="actors"`` (1F1B) and ``"monolithic"`` in
+    lockstep. Losses, the float32 masters, the moments and the loss-scale
+    trajectory must be bitwise equal across the two, masters and moments
+    float32, step 0's loss off phase 9's float32 loss (``ref``) but within
+    GRAPH_MP_RTOL of it; the bf16 xent kernels launch exactly GRAPH_M times
+    each way a step a backend. Prints ``opt_state_bytes`` beside the dense
+    figure and each step's wall beside phase 9's. Returns the xent
+    launches of the run."""
+    phase(f"graph train, mixed precision (qwen3-1.7b widths, zero, bf16 "
+          f"compute over float32 masters, dynamic loss scale, "
+          f"{GRAPH_STEPS} steps x 2 backends)")
+    from repro_torch import api
+    from repro_torch.core.lowering import OptimizerSpec
+    g = qwen3_width_graph()
+    params, data = seeded_graph_inputs(g, SEED + 9)
+    n = sum(v.size for v in params.values())
+    common = dict(mode="train", params=params, num_microbatches=GRAPH_M,
+                  optimizer=OptimizerSpec.adamw(lr=3e-4, grad_clip=1.0),
+                  device=dev, zero=True, precision="bf16",
+                  loss_scale="dynamic")
+    sessions = {
+        "actors 1f1b": api.compile(g, backend="actors", stages=GRAPH_STAGES,
+                                   regs="1f1b", **common),
+        "monolithic": api.compile(g, backend="monolithic", **common)}
+    del params
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    torch.cuda.reset_peak_memory_stats()
+    print("\n".join(ln for ln in sessions["actors 1f1b"].describe()
+                    .splitlines() if ln.startswith(("precision", "zero"))))
+    torch.cuda.synchronize()
+    zero_xent_counts()
+    for step in range(GRAPH_STEPS):
+        results = {}
+        for name, sess in sessions.items():
+            before = xent_counts()
+            t = time.perf_counter()
+            res = sess.step(**batch)
+            loss = float(res.loss)
+            wall = time.perf_counter() - t
+            per = {k: v - before[k] for k, v in xent_counts().items()}
+            m = res.metrics
+            print(f"{name} step {step}: loss {loss:.6f}, grad_norm "
+                  f"{float(m['grad_norm']):.6f}, loss_scale "
+                  f"{m['loss_scale']}, skipped {m['skipped']}, wall "
+                  f"{wall:.3f} s (phase 9's float32 step "
+                  f"{ref['wall'][name][step]:.3f} s), "
+                  f"{GRAPH_N / wall:,.0f} tokens/s, xent launches {per}")
+            if per != {"xent_local_stats": GRAPH_M,
+                       "xent_local_stats_bwd": GRAPH_M}:
+                raise AssertionError(f"{name} step {step}: xent launches "
+                                     f"{per}, expected {GRAPH_M} + {GRAPH_M}")
+            if not np.isfinite(loss) or m["skipped"]:
+                raise AssertionError(f"{name} step {step}: loss {loss}, "
+                                     f"skipped {m['skipped']}")
+            results[name] = res
+        a, b = (results[k] for k in sessions)
+        sa, sb = (s.opt_state for s in sessions.values())
+        pairs = [("loss", a.loss, b.loss)] + [
+            (f"master {k}", a.params[k], b.params[k]) for k in b.params] + [
+            (f"mu {k}", sa.mu[k], sb.mu[k]) for k in sb.mu] + [
+            (f"nu {k}", sa.nu[k], sb.nu[k]) for k in sb.nu]
+        for what, x, y in pairs:
+            if not torch.equal(x, y):
+                raise AssertionError(f"step {step}: actors and monolithic "
+                                     f"disagree on {what}")
+        wrong = [w for w, x, _ in pairs[1:] if x.dtype != torch.float32]
+        if wrong or a.metrics["loss_scale"] != b.metrics["loss_scale"] \
+                or {int(sa.step), int(sb.step)} != {step + 1}:
+            raise AssertionError(f"step {step}: not float32 {wrong[:3]}, or "
+                                 "the scales or step counts differ")
+        print(f"step {step}: loss, {len(b.params)} float32 masters and "
+              f"{2 * len(sb.mu)} moments bitwise equal across the actors and "
+              f"the monolithic engine, loss scale {a.metrics['loss_scale']}")
+        if step == 0:
+            rel = abs(float(b.loss) - ref["loss"][0]) / abs(ref["loss"][0])
+            print(f"step 0: bf16 loss {float(b.loss):.6f} vs phase 9's "
+                  f"float32 {ref['loss'][0]:.6f}: {rel:.3e} relative (must "
+                  f"differ; bound {GRAPH_MP_RTOL:.3e}, one bf16 unit)")
+            if not 0 < rel <= GRAPH_MP_RTOL:
+                raise AssertionError("graph train, mixed precision: step 0's "
+                                     "loss is not off the float32 loss by "
+                                     "less than one bf16 unit")
+        del results, a, b, sa, sb, pairs
+    per = sessions["actors 1f1b"].executor.opt_state_bytes()
+    mono = sessions["monolithic"].executor.opt_state_bytes()
+    print(f"opt_state_bytes: actors {per} (total {sum(per.values()):,}), "
+          f"monolithic {mono}; float32 masters and moments 3 x 4 x {n:,} = "
+          f"{12 * n:,}, plain AdamW's moments 2 x 4 x {n:,} = {8 * n:,}")
+    if {sum(per.values()), sum(mono.values())} != {12 * n}:
+        raise AssertionError("opt_state_bytes disagree with 12 B a param")
+    total = xent_counts()
+    print(f"graph train, mixed precision: xent launches over the run "
+          f"{total}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB with {len(sessions)} sessions alive")
+    for sess in sessions.values():
+        sess.close()
+    del sessions
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def graph_infer(dev):
     """The same graph under ``mode="infer"``: actors (4 stages, 1F1B
     quotas) and monolithic must give bitwise equal per-row losses, each run
@@ -2420,6 +2654,8 @@ def main() -> int:
                                  V=GRAPH_V // MESH_SHAPE[1],
                                  offset=GRAPH_V // MESH_SHAPE[1],
                                  label="vocab shard"),
+               *check_zero_train_kernels(dev),
+               *check_xent_graph(dev, dtype="bfloat16"),
                check_flash_attention_bwd(dev), check_ssd_scan(dev)]
     kernels[1]["paged_shape"] = check_paged_decode(dev)
     for kr in kernels + [dict(kernels[0]["train_shape"],
@@ -2461,11 +2697,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_plain(dev, curve)
     torch.cuda.empty_cache()
-    mesh_train = train_mesh(dev, curve)
+    mesh_train, cut_curve = train_mesh(dev, curve)
+    torch.cuda.empty_cache()
+    zero_trained = train_zero(dev, curve, cut_curve)
     torch.cuda.empty_cache()
     check_graph_reference(dev)
     graph_trained, one_device = graph_train(dev)
     mesh_trained = graph_train_mesh(dev, one_device)
+    graph_mp = graph_train_mp(dev, one_device)
     del one_device
     graph_infer(dev)
     # each row's launches from the run of its path; the attention forward's
@@ -2473,7 +2712,23 @@ def main() -> int:
     # run; the backward's row holds each of its two kernels' counts
     for kr in kernels:
         name = kr["name"]
-        if name == "flash_attention_bwd":
+        if "(zero (2, 1) rank" in name:
+            # the ZeRO (2, 1) train run, full depth: both ranks
+            if name.startswith("flash_attention_bwd"):
+                kr["launches_by_kernel"] = {
+                    k: zero_trained[k] for k in (
+                        "flash_bwd_dq_wgmma_kernel",
+                        "flash_bwd_dkdv_wgmma_kernel")}
+                kr["launches"] = min(kr["launches_by_kernel"].values())
+            elif name.startswith("flash_attention"):
+                kr["launches"] = zero_trained["flash_fwd_wgmma_kernel"]
+            else:
+                kr["launches"] = zero_trained[name.split(" ")[0]]
+        elif name.endswith(" (graph, bfloat16)"):
+            # the mixed-precision graph run: 2 backends x GRAPH_STEPS steps
+            kr["launches"] = graph_mp[name.split(" ")[0]]
+            kr["launches_per_step"] = GRAPH_M
+        elif name == "flash_attention_bwd":
             kr["launches_by_kernel"] = {
                 k: trained[k] for k in ("flash_bwd_dq_wgmma_kernel",
                                         "flash_bwd_dkdv_wgmma_kernel")}

@@ -20,10 +20,12 @@ every lowering and executor path (port of ``repro/api.py``).
 A graph runs on the ranks of a :class:`~repro_torch.core.mesh.DeviceMesh`
 (``mesh=``; default: the graph placement's ranks, all on ``device``), or
 stage by stage on ``stage_meshes=``; sessions take and return global
-tensors. What the reference offers beyond that raises
-:class:`NotImplementedError` naming its ROADMAP item: ZeRO and mixed
-precision, snapshots and faults, the process runtime, the static
-verifier and stage-body wrappers.
+tensors. Training takes the reference's ``zero=``, ``precision=`` and
+``loss_scale=`` (float32 masters, bf16 compute, loss scaling, ZeRO master
+shards; paper §6.4). What the reference offers beyond that raises
+:class:`NotImplementedError` naming its ROADMAP item: snapshots and
+faults, the process runtime, the static verifier and stage-body
+wrappers.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
 card an entry point raises unless the caller asks for ``device="cpu"``.
@@ -42,11 +44,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.graph import (LogicalGraph, StagePartition,
                                     partition_stages)
-from repro_torch.core.lowering import (OptimizerSpec, _resolve_loss,
-                                       _resolve_mesh, accumulate, box_grads,
-                                       clip_grads, global_state, lower_plan,
+from repro_torch.core.lowering import (OptimizerSpec, PrecisionPolicy,
+                                       _resolve_loss, _resolve_mesh,
+                                       accumulate, box_grads, clip_grads,
+                                       loss_scale_update, lower_plan,
                                        lower_serve_stages, lower_stages,
                                        lower_train_plan, lower_train_stages,
+                                       opt_state_bytes, rank_compute,
+                                       rank_masters, rank_opt_state,
                                        reassemble_sinks, split_microbatches,
                                        sync_mesh)
 from repro_torch.core.mesh import DeviceMesh, assemble, place
@@ -61,7 +66,7 @@ from repro_torch.runtime.pipeline import (ActorPipelineExecutor,
                                           ServePipelineExecutor,
                                           TrainPipelineExecutor,
                                           check_run_inputs, own_params,
-                                          plan_registers)
+                                          plan_registers, unscale)
 from repro_torch.serve.paged_cache import (PagedCacheSpec, PagePool,
                                            dense_bytes, slab_bytes)
 from repro_torch.serve.sampler import SamplingSpec
@@ -76,9 +81,6 @@ REG_POLICIES = ("1f1b", "gpipe", "serial")
 #: name -> (the reference's default, what it is and the ROADMAP item that
 #: brings it). Passing the default is accepted and changes nothing.
 NOT_PORTED = {
-    "zero": (False, "ZeRO master shards, ROADMAP Queue 1 item 9"),
-    "precision": (None, "mixed precision, ROADMAP Queue 1 item 9"),
-    "loss_scale": (None, "loss scaling, ROADMAP Queue 1 item 9"),
     "snapshot_dir": (None, "async snapshots, ROADMAP Queue 1 item 10"),
     "snapshot_every": (1, "async snapshots, ROADMAP Queue 1 item 10"),
     "restore": (None, "snapshot restore, ROADMAP Queue 1 item 10"),
@@ -187,7 +189,13 @@ class _MonolithicTrainEngine:
     microbatch chunking, float32 accumulation in microbatch order,
     canonical-order global-norm clipping, and :class:`OptimizerSpec` update
     of the actor pipeline — the reference its numbers are checked against,
-    owned by the same :class:`Session` surface."""
+    owned by the same :class:`Session` surface.
+
+    With a mixed-precision optimizer ``shards`` are float32 (views of the
+    flat masters under ZeRO), ``masters`` what the update writes and
+    ``compute`` the compute-dtype copies forward and backward see; the
+    loss scale is mirrored as the pipelined ``scale`` actor keeps it, and a
+    skipped step leaves params, moments and the step count as they were."""
 
     def __init__(self, graph: LogicalGraph, plan: Plan,
                  params: Dict[str, Any], microbatch_inputs: Sequence[str],
@@ -196,9 +204,9 @@ class _MonolithicTrainEngine:
         self.graph = graph
         self.plan = plan
         self.mesh = mesh
+        self.optimizer = optimizer
         self.param_names = tuple(_canonical_params(graph, params))
         self.load_params(params)
-        self.optimizer = optimizer
         self.vg = lower_train_plan(graph, plan, list(self.param_names),
                                    loss=loss, mesh=mesh)
         self.loss_sbp = plan.tensor_sbp[_resolve_loss(graph, loss).name]
@@ -209,6 +217,12 @@ class _MonolithicTrainEngine:
         self.step_count = 0
         self.last_grad_norm = None
         self.last_makespan: Optional[float] = None
+        # the loss-scale mirror: the same trajectory as the scale actor
+        self._scaling = optimizer.loss_scaling is not None
+        self.loss_scale = optimizer.initial_scale() if self._scaling else None
+        self.scale_good_steps = 0
+        self.last_skipped = False
+        self.last_scale = None
 
     def _global(self, per_rank: Dict[str, List[torch.Tensor]]):
         sbp = self.plan.tensor_sbp
@@ -221,12 +235,25 @@ class _MonolithicTrainEngine:
 
     @property
     def opt_state(self):
-        return global_state(self.opt_states, self.mesh, self.plan.tensor_sbp)
+        return rank_opt_state(self.optimizer, self.opt_states, self.mesh,
+                              self.plan.tensor_sbp, self.shards)
+
+    def opt_state_bytes(self) -> Dict[int, int]:
+        """The monolithic counterpart of :meth:`repro_torch.runtime
+        .pipeline.TrainPipelineExecutor.opt_state_bytes`: one entry (stage
+        0)."""
+        return {0: opt_state_bytes(self.optimizer, self.opt_states,
+                                   self.shards, self.mesh.size)}
 
     def load_params(self, params: Dict[str, Any]) -> None:
+        opt = self.optimizer
         self.shards = own_params(params, self.param_names,
                                  {n: self.mesh for n in self.param_names},
-                                 self.plan.tensor_sbp)
+                                 self.plan.tensor_sbp, opt.mixed_precision)
+        self.masters = self.compute = None
+        if opt.mixed_precision:
+            self.masters, self.shards = rank_masters(opt, self.shards)
+            self.compute = rank_compute(opt, self.masters, self.shards)
 
     def step_shards(self, data_inputs: Dict[str, Any], timeout: float = 0.0):
         check_run_inputs(
@@ -241,13 +268,14 @@ class _MonolithicTrainEngine:
         bound = {n: place(v, mesh, sbp[n]) for n, v in data_inputs.items()
                  if n not in mb}
         opt = self.optimizer
+        params = self.compute if self.compute is not None else self.shards
         loss_total = None
         grads: Dict[str, List[torch.Tensor]] = {}
         for chunk in chunks:
             vals = [place(chunk[n], mesh, sbp[n]) if n in mb
-                    else (self.shards[n] if n in self.shards else bound[n])
+                    else (params[n] if n in params else bound[n])
                     for n in self.input_names]
-            loss_vec, g = self.vg(*vals)
+            loss_vec, g = self.vg(*vals, scale=self.loss_scale)
             ls = torch.sum(assemble(loss_vec, mesh, self.loss_sbp))
             loss_total = ls if loss_total is None else loss_total + ls
             # owned float32 sums per rank, summed into in place after: the
@@ -255,15 +283,35 @@ class _MonolithicTrainEngine:
             for n, gn in zip(self.param_names, g):
                 grads[n] = accumulate(grads.get(n), gn)
         grads = box_grads(mesh, self.graph, self.plan, grads)
-        if opt.grad_clip:
+        if self._scaling:
+            # unscale ONCE after accumulation, as the acc actors do
+            grads = unscale(grads, np.float32(
+                np.float32(1.0) / np.float32(self.loss_scale)))
+        if opt.grad_clip or opt.dynamic_scaling:
             grads, self.last_grad_norm = clip_grads(
                 grads, self.param_names, opt.grad_clip, mesh, self.plan)
+        self.last_scale = self.loss_scale
+        self.last_skipped = False
+        if opt.dynamic_scaling:
+            finite = bool(np.isfinite(np.float32(self.last_grad_norm)))
+            self.last_skipped, self.loss_scale, self.scale_good_steps = \
+                loss_scale_update(opt.precision, self.loss_scale,
+                                  self.scale_good_steps, finite)
+            if self.last_skipped:
+                # non-finite grads: params, masters and moments untouched,
+                # as the pipelined opt actors leave them
+                sync_mesh(mesh)
+                self.last_makespan = time.perf_counter() - t0
+                return loss_total, {}, dict(self.shards)
         if opt.stateful and self.opt_states is None:
             self.opt_states = opt.init_rank_states(self.shards, mesh.size)
         with torch.no_grad():
             self.opt_states = opt.update_ranks(
-                self.shards, grads, self.opt_states,
-                opt.lr_at(self.step_count), mesh.size)
+                self.masters if self.masters is not None else self.shards,
+                grads, self.opt_states, opt.lr_at(self.step_count),
+                mesh.size)
+            if self.masters is not None:
+                self.compute = rank_compute(opt, self.masters, self.shards)
         sync_mesh(mesh)
         self.step_count += 1
         self.last_makespan = time.perf_counter() - t0
@@ -397,6 +445,10 @@ class Session:
             "grad_norm": eng.last_grad_norm,
             "makespan": eng.last_makespan,
         }
+        if self.optimizer.loss_scaling is not None:
+            metrics["loss_scale"] = (None if eng.last_scale is None
+                                     else float(eng.last_scale))
+            metrics["skipped"] = bool(eng.last_skipped)
         if self.backend == "actors":
             metrics["peak_inflight"] = eng.peak_inflight_activations
         gn = metrics["grad_norm"]
@@ -425,6 +477,21 @@ class Session:
             opt = self.optimizer
             lines.append(f"optimizer: {opt.kind} (grad_clip={opt.grad_clip}, "
                          f"stateful={opt.stateful})")
+            if opt.mixed_precision:
+                scaling = opt.loss_scaling
+                lines.append(
+                    f"precision: compute={opt.compute_dtype} "
+                    f"masters=float32 "
+                    f"loss_scale={'off' if scaling is None else scaling}")
+            if opt.zero:
+                lines.append(
+                    f"zero: dp={opt.zero_dp} — flat (dp, 1, chunk) float32 "
+                    "master/moment shards held by the opt actors")
+            if opt.stateful:
+                per = self._engine.opt_state_bytes()
+                per_s = " ".join(f"stage{s}={per[s]}" for s in sorted(per))
+                lines.append("optimizer-state bytes/device: "
+                             f"{per_s} (total {sum(per.values())})")
         lines.append(self.plan.describe())
         if self.partition is not None:
             lines.append(self.partition.describe(g, regs=self.regs))
@@ -858,6 +925,58 @@ def _check_not_ported(options: Dict[str, Any]) -> None:
                 f"{name}= ({what}) is not ported yet")
 
 
+def _fold_precision_options(graph: LogicalGraph, optimizer: OptimizerSpec,
+                            params: Dict[str, Any], *, zero, precision,
+                            loss_scale) -> OptimizerSpec:
+    """Resolve ``compile()``'s ``zero=`` / ``precision=`` / ``loss_scale=``
+    into the :class:`OptimizerSpec` fields the lowering and the runtime
+    read (``zero``, ``zero_dp``, ``zero_shapes``, ``precision``). The
+    spec's own checks re-validate the result (ZeRO needs AdamW; loss
+    scaling needs bf16 compute)."""
+    if not zero and precision is None and loss_scale is None:
+        return optimizer
+    policy = precision
+    if isinstance(policy, str):
+        aliases = {"bf16": "bfloat16", "bfloat16": "bfloat16",
+                   "fp32": "float32", "float32": "float32"}
+        if policy not in aliases:
+            raise ValueError(
+                f"unknown precision {policy!r}; expected 'bf16'/'bfloat16', "
+                "'fp32'/'float32', or a PrecisionPolicy")
+        policy = PrecisionPolicy(compute_dtype=aliases[policy],
+                                 loss_scale=loss_scale)
+    elif isinstance(policy, PrecisionPolicy):
+        if loss_scale is not None:
+            policy = dataclasses.replace(policy, loss_scale=loss_scale)
+    elif policy is not None:
+        raise ValueError(
+            f"precision= must be a dtype string or PrecisionPolicy, "
+            f"got {type(policy).__name__}")
+    elif loss_scale is not None:
+        raise ValueError(
+            "loss_scale= without precision= — loss scaling only exists to "
+            "keep bf16 cotangents representable; pass precision='bf16' "
+            "(fp32 compute never needs a scaled backward seed)")
+    zero_dp, zero_shapes = 1, None
+    if zero:
+        pl = graph.placement
+        sizes = dict(zip(pl.axis_names, pl.axis_sizes))
+        if "data" in sizes:
+            zero_dp = int(sizes["data"])
+        elif len(pl.axis_names) == 1:
+            # a sole placement axis doubles as the data axis
+            zero_dp = int(pl.axis_sizes[0])
+        else:
+            raise ValueError(
+                "zero=True requires a data axis to shard the optimizer "
+                "state over: name one placement axis 'data' (placement "
+                f"axes are {tuple(pl.axis_names)})")
+        zero_shapes = tuple((n, tuple(int(d) for d in np.shape(v)))
+                            for n, v in params.items())
+    return dataclasses.replace(optimizer, zero=bool(zero), zero_dp=zero_dp,
+                               zero_shapes=zero_shapes, precision=policy)
+
+
 def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             mode: Optional[str] = None, backend: str = "actors",
             runtime: Optional[str] = None, plan: Optional[Plan] = None,
@@ -877,6 +996,7 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             cache: Optional[str] = None, page_len: Optional[int] = None,
             num_pages: Optional[int] = None,
             prefill_chunk: Optional[int] = None, sampling=None,
+            zero: bool = False, precision=None, loss_scale=None,
             check: str = "off", **not_ported):
     """Compile a :class:`~repro_torch.core.graph.LogicalGraph` into a
     runnable :class:`Session` (``mode="infer"`` or ``"train"``), or a
@@ -915,6 +1035,22 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
       placement of each stage on its own device group (actors only). Runs
       and steps take global values and return global sinks, losses,
       gradients and params.
+    * ``zero`` (train): keep the optimizer's float32 master params and
+      AdamW moments as flat ``(dp, 1, chunk)`` shards over the placement's
+      data axis (§6.4): the opt actors' register stream holds them, and the
+      forward sees them gathered and cast to the compute dtype (the Fig-14
+      ``cast`` before the gather). Needs AdamW and a data axis (one named
+      ``"data"``, or a sole placement axis); bitwise the dense path.
+    * ``precision`` (train): ``"bf16"``/``"bfloat16"`` runs forward and
+      backward in bfloat16 over float32 masters (gradients accumulate in
+      float32); ``"fp32"``/``"float32"`` keeps float32 compute over
+      masters; or a :class:`~repro_torch.core.lowering.PrecisionPolicy`.
+    * ``loss_scale`` (train, needs ``precision="bf16"``): a float seeds the
+      backward with it (unscaled once after the float32 accumulation,
+      exact for powers of two); ``"dynamic"`` adds the ``scale`` actor
+      after ``norm``: a non-finite gradient norm skips the update and backs
+      the scale off, ``growth_interval`` finite steps grow it. Steps then
+      report ``loss_scale`` and ``skipped`` in their metrics.
 
     Serve mode: ``backend`` ``"actors"`` cuts the stack into ``stages``
     stage programs (default ``min(2, units)``) with quotas ``regs`` (a list
@@ -950,6 +1086,12 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
         raise NotImplementedError(
             f"check={check!r}: the static plan verifier is not ported yet "
             "(ROADMAP Queue 1 item 12); pass check='off'")
+    if mode != "train" and (zero or precision is not None
+                            or loss_scale is not None):
+        raise ValueError(
+            "zero=/precision=/loss_scale= are only meaningful for "
+            "mode='train' (they shape the optimizer's master/moment state "
+            "and the backward seed; nothing is updated in other modes)")
     if runtime == "processes":
         raise NotImplementedError(
             "runtime='processes' is not ported yet (ROADMAP Queue 1 item 11)")
@@ -1011,6 +1153,9 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
         params = _canonical_params(graph, params)
         if optimizer is None:
             optimizer = OptimizerSpec.sgd(lr)
+        optimizer = _fold_precision_options(graph, optimizer, params,
+                                            zero=zero, precision=precision,
+                                            loss_scale=loss_scale)
     if plan is None:
         plan = plan_sbp(graph)
     if stage_meshes is not None:

@@ -76,6 +76,9 @@ from repro_torch.optim.adamw import (AdamWState, adamw_param_update,
                                     clip_scale, global_norm_from_partials,
                                     init_adamw, scale_grad,
                                     sqnorm_partials_sharded)
+from repro_torch.optim.zero import (ZeroState, flat_zeros, gather_flat,
+                                    init_zero_flat, shard_flat,
+                                    zero_stage_update)
 
 # ---------------------------------------------------------------------------
 # Graph lowering: per-rank programs of local ops and collective steps.
@@ -627,20 +630,51 @@ def sgd_update(w: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
 class PrecisionPolicy:
     """Mixed-precision policy for a training session (paper Fig 14, §6.4).
 
-    Only full float32 is ported, which changes nothing (the masters of
-    float32 params are the params): bfloat16 compute over float32 masters
-    and loss scaling are ROADMAP Queue 1 item 9."""
+    ``compute_dtype`` is what forward and backward see: params are cast at
+    the forward stage's boundary (the Fig-14 ``cast`` op, once per step, so
+    a sharded master crosses the wire at compute width), while the
+    optimizer keeps float32 *masters* and float32 moments. ``loss_scale``
+    is ``None`` (off), a static float (the backward seed is ``scale``
+    instead of ones; the accumulated grads are unscaled by ``1/scale``
+    before the norm), or ``"dynamic"``: start at ``init_scale``, multiply
+    by ``backoff_factor`` and skip the update when the grad norm goes
+    non-finite, multiply by ``growth_factor`` after ``growth_interval``
+    consecutive finite steps. Masters are always float32: every bf16 value
+    is exactly a float32 one, so bf16 compute round-trips losslessly."""
 
-    compute_dtype: str = "float32"
-    loss_scale: Any = None
+    compute_dtype: str = "bfloat16"       # "float32" | "bfloat16"
+    loss_scale: Any = None                # None | float | "dynamic"
+    init_scale: float = 2.0 ** 15         # dynamic mode's starting scale
+    growth_interval: int = 2000           # finite steps before scale grows
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
 
     def __post_init__(self):
-        if self.compute_dtype != "float32" or self.loss_scale is not None:
-            raise NotImplementedError(
-                f"PrecisionPolicy(compute_dtype={self.compute_dtype!r}, "
-                f"loss_scale={self.loss_scale!r}): mixed precision and loss "
-                "scaling are not ported yet (ROADMAP Queue 1 item 9); only "
-                "float32 is")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"unsupported compute_dtype {self.compute_dtype!r} "
+                "(use 'float32' or 'bfloat16')")
+        ls = self.loss_scale
+        if ls is not None and ls != "dynamic":
+            if not isinstance(ls, (int, float)) or float(ls) <= 0:
+                raise ValueError(
+                    f"loss_scale must be None, a positive number, or "
+                    f"'dynamic'; got {ls!r}")
+        if self.growth_interval < 1:
+            raise ValueError("growth_interval must be >= 1")
+
+
+def loss_scale_update(policy: PrecisionPolicy, scale: float, good_steps: int,
+                      grads_finite: bool) -> Tuple[bool, float, int]:
+    """One dynamic-loss-scale transition: ``(skip, next_scale, next_good)``.
+    Shared by the pipelined ``scale`` actor and the monolithic engine, so
+    the scale trajectories and the skips are the same on every backend."""
+    if not grads_finite:
+        return True, float(scale) * float(policy.backoff_factor), 0
+    good = int(good_steps) + 1
+    if good >= int(policy.growth_interval):
+        return False, float(scale) * float(policy.growth_factor), 0
+    return False, float(scale), good
 
 
 @dataclasses.dataclass(frozen=True)
@@ -655,9 +689,17 @@ class OptimizerSpec:
     :class:`repro_torch.optim.adamw.AdamWState` per stage and rank -- the
     second register stream.
 
-    The update runs in place: the params and moments handed to
-    :meth:`update` are the ones it returns, updated. The ZeRO fields
-    (``zero``, ``zero_dp``, ``zero_shapes``) are ROADMAP Queue 1 item 9.
+    ``zero=True`` (AdamW only) keeps that stream ZeRO-style (paper §6.4):
+    flat ``(dp, 1, chunk)`` float32 master and moment shards
+    (:mod:`repro_torch.optim.zero`) instead of dense params and an
+    ``AdamWState``, and :meth:`update` takes masters in that layout.
+    ``zero_dp`` is the data-axis fold, ``zero_shapes`` the params' global
+    shapes (``api.compile`` records both). ``precision`` adds a
+    :class:`PrecisionPolicy`: bf16 compute params cast from float32
+    masters each step, with optional loss scaling.
+
+    The update runs in place: the params (or masters) and moments handed to
+    :meth:`update` are the ones it returns, updated.
     """
 
     kind: str = "sgd"                     # "sgd" | "adamw"
@@ -667,21 +709,28 @@ class OptimizerSpec:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 0.0                # 0 disables global-norm clipping
-    zero: bool = False
-    zero_dp: int = 1
-    zero_shapes: Any = None
+    zero: bool = False                    # ZeRO-shard masters + moments
+    zero_dp: int = 1                      # data-axis fold of the flat shards
+    zero_shapes: Any = None               # ((name, shape), ...) for gathers
     precision: Optional[PrecisionPolicy] = None
 
     def __post_init__(self):
         if self.kind not in ("sgd", "adamw"):
             raise ValueError(f"unknown optimizer kind {self.kind!r}")
-        if self.zero or self.zero_dp != 1 or self.zero_shapes is not None:
-            raise NotImplementedError(
-                "OptimizerSpec zero=/zero_dp=/zero_shapes=: ZeRO master "
-                "shards are not ported yet (ROADMAP Queue 1 item 9)")
+        if self.zero and self.kind != "adamw":
+            raise ValueError(
+                "zero=True shards AdamW state; it requires kind='adamw'")
+        if self.zero and self.zero_dp < 1:
+            raise ValueError(f"zero_dp must be >= 1, got {self.zero_dp}")
         if self.precision is not None and not isinstance(self.precision,
                                                          PrecisionPolicy):
             raise ValueError("precision must be a PrecisionPolicy")
+        if (self.precision is not None
+                and self.precision.loss_scale is not None
+                and self.precision.compute_dtype == "float32"):
+            raise ValueError(
+                "loss_scale requires compute_dtype='bfloat16' (float32 "
+                "compute has nothing to rescue from underflow)")
 
     @classmethod
     def sgd(cls, lr: Any = 1e-2, grad_clip: float = 0.0) -> "OptimizerSpec":
@@ -701,27 +750,117 @@ class OptimizerSpec:
     def lr_at(self, step: int) -> float:
         return float(self.lr(step)) if callable(self.lr) else float(self.lr)
 
+    # -- mixed precision and ZeRO -------------------------------------------
+
+    @property
+    def mixed_precision(self) -> bool:
+        """True when the optimizer holds explicit float32 masters (a
+        precision policy is set, or ZeRO is on)."""
+        return self.precision is not None or self.zero
+
+    @property
+    def compute_dtype(self) -> Optional[str]:
+        """The dtype forward and backward see params in, or None to keep
+        the params' own dtype (no masters)."""
+        if self.precision is not None:
+            return self.precision.compute_dtype
+        return "float32" if self.zero else None
+
+    @property
+    def loss_scaling(self) -> Any:
+        """None (off), a static float, or ``"dynamic"``."""
+        return None if self.precision is None else self.precision.loss_scale
+
+    @property
+    def dynamic_scaling(self) -> bool:
+        return self.loss_scaling == "dynamic"
+
+    def initial_scale(self) -> float:
+        ls = self.loss_scaling
+        if ls is None:
+            return 1.0
+        if ls == "dynamic":
+            return float(self.precision.init_scale)
+        return float(ls)
+
+    @property
+    def zero_shape_map(self) -> Dict[str, Tuple[int, ...]]:
+        """Param name -> its global shape, for gathering flat shards."""
+        if self.zero_shapes is None:
+            raise ValueError(
+                "OptimizerSpec.zero_shapes is unset; api.compile records the "
+                "param shapes when zero=True")
+        items = (self.zero_shapes.items()
+                 if isinstance(self.zero_shapes, dict) else self.zero_shapes)
+        return {n: tuple(int(d) for d in s) for n, s in items}
+
+    def shard_masters(self, params: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """Full params -> flat float32 ``(dp, 1, chunk)`` master shards."""
+        return {n: shard_flat(v, dp=self.zero_dp) for n, v in params.items()}
+
+    def gather_params(self, masters: Dict[str, torch.Tensor],
+                      dtype: str = "float32",
+                      shapes: Optional[Dict[str, Tuple[int, ...]]] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """Flat master shards -> full params in ``dtype`` (the Fig-14 cast
+        before the reshape-gather, so a bf16 gather moves half the bytes
+        of a float32 one; in float32 views of the masters)."""
+        shapes = self.zero_shape_map if shapes is None else shapes
+        return {n: gather_flat(m, shape=shapes[n], dtype=dtype)
+                for n, m in masters.items()}
+
+    def master_of(self, x: torch.Tensor) -> torch.Tensor:
+        """The float32 master of a float32 param (a rank's shard): its
+        flat shards under ZeRO, the param itself otherwise (the update
+        writes into it)."""
+        return shard_flat(x, dp=self.zero_dp) if self.zero else x
+
+    def cast(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` in the compute dtype: the Fig-14 ``cast`` op (``x`` itself
+        where it has that dtype)."""
+        return x.to(getattr(torch, self.compute_dtype))
+
+    def compute_param(self, master: torch.Tensor,
+                      shape: Tuple[int, ...]) -> torch.Tensor:
+        """What forward and backward see of a master: cast to the compute
+        dtype, then gathered to ``shape`` under ZeRO (a view of the master
+        where the compute dtype is float32)."""
+        if self.zero:
+            return gather_flat(master, shape=shape, dtype=self.compute_dtype)
+        return self.cast(master)
+
     def init_state(self, params: Dict[str, torch.Tensor]):
-        """Fresh optimizer state for ``params`` (None for stateless SGD)."""
+        """Fresh optimizer state for ``params`` (None for stateless SGD).
+        With ``zero=True`` ``params`` are the flat master shards and the
+        state a flat :class:`repro_torch.optim.zero.ZeroState`."""
         if self.kind == "sgd":
             return None
+        if self.zero:
+            return init_zero_flat(dict(params))
         return init_adamw(dict(params))
 
     def update(self, params: Dict[str, torch.Tensor],
                grads: Dict[str, torch.Tensor], state, lr_now: float):
-        """Apply one optimizer step to ``params`` (in place) given
-        already-clipped float32 ``grads``; returns ``(params, new_state)``.
+        """Apply one optimizer step to ``params`` (in place; the flat
+        masters under ZeRO) given already-clipped float32 full-shape
+        ``grads``; returns ``(params, new_state)``.
 
         Per-tensor math is :func:`sgd_update` / :func:`repro_torch.optim
         .adamw.adamw_param_update`, so updating per-stage subsets (the opt
         actors) or the whole dict (the monolithic engine) gives the same
-        values tensor by tensor."""
+        values tensor by tensor, and so does the flat layout."""
         if self.kind == "sgd":
             for n in params:
                 sgd_update(params[n], grads[n], lr_now)
             return params, None
         if state is None:
             state = self.init_state(params)
+        if self.zero:
+            return params, zero_stage_update(
+                params, grads, state, lr_now, dp=self.zero_dp,
+                beta1=self.beta1, beta2=self.beta2, eps=self.eps,
+                weight_decay=self.weight_decay)
         new_step = state.step + 1
         for n in params:
             adamw_param_update(params[n], grads[n], state.mu[n], state.nu[n],
@@ -732,10 +871,15 @@ class OptimizerSpec:
 
     def init_rank_states(self, shards: Dict[str, Sequence[torch.Tensor]],
                          nranks: int) -> Optional[List]:
-        """One fresh state per rank over its shards of ``shards`` (None for
-        a stateless optimizer)."""
+        """One fresh state per rank over its (full-shape) shards of
+        ``shards``: zeroed moments in the flat layout under ZeRO, None for
+        a stateless optimizer."""
         if not self.stateful:
             return None
+        if self.zero:
+            return [init_zero_flat({n: flat_zeros(v[r], self.zero_dp)
+                                    for n, v in shards.items()})
+                    for r in range(nranks)]
         return [self.init_state({n: v[r] for n, v in shards.items()})
                 for r in range(nranks)]
 
@@ -743,9 +887,9 @@ class OptimizerSpec:
                      grads: Dict[str, List[torch.Tensor]],
                      states: Optional[List], lr_now: float,
                      nranks: int) -> Optional[List]:
-        """:meth:`update` on every rank's shards, in place; returns the new
-        per-rank states. Replicas of a broadcast param see the same
-        gradient bits, so they stay bitwise equal."""
+        """:meth:`update` on every rank's shards (or flat masters), in
+        place; returns the new per-rank states. Replicas of a broadcast
+        param see the same gradient bits, so they stay bitwise equal."""
         new_states = []
         for r in range(nranks):
             _, st = self.update({n: v[r] for n, v in shards.items()},
@@ -755,10 +899,22 @@ class OptimizerSpec:
             new_states.append(st)
         return new_states if self.stateful else None
 
+    def dense_state(self, state, shapes: Dict[str, Tuple[int, ...]]):
+        """A flat :class:`~repro_torch.optim.zero.ZeroState` gathered to
+        full float32 moments of ``shapes`` (an ``AdamWState``); any other
+        state as it is."""
+        if not isinstance(state, ZeroState):
+            return state
+        return AdamWState(state.step,
+                          self.gather_params(state.mu, shapes=shapes),
+                          self.gather_params(state.nu, shapes=shapes))
+
     def split_state(self, state, stage_param_names: Dict[int, Sequence[str]]):
-        """Split a merged optimizer state into per-stage states keyed by
-        stage index (``stage_param_names``: stage -> its param names);
-        stateless optimizers split to None entries."""
+        """Split a merged optimizer state (always full moments, an
+        ``AdamWState``) into per-stage states keyed by stage index
+        (``stage_param_names``: stage -> its param names), sharded flat at
+        this spec's dp fold under ZeRO; stateless optimizers split to None
+        entries."""
         if not self.stateful or state is None:
             return {s: None for s in stage_param_names}
         out = {}
@@ -767,19 +923,26 @@ class OptimizerSpec:
             if missing:
                 raise ValueError(
                     f"optimizer state missing moments for params {missing}")
-            out[s] = AdamWState(state.step,
-                                {n: state.mu[n] for n in names},
-                                {n: state.nu[n] for n in names})
+            mu = {n: state.mu[n] for n in names}
+            nu = {n: state.nu[n] for n in names}
+            out[s] = (ZeroState(state.step, self.shard_masters(mu),
+                                self.shard_masters(nu)) if self.zero
+                      else AdamWState(state.step, mu, nu))
         return out
 
     def merge_states(self, states: Sequence[Any]):
-        """Inverse of :meth:`split_state`: one state over all params (None
-        for a stateless optimizer)."""
+        """Inverse of :meth:`split_state`: one ``AdamWState`` over all
+        params, flat ZeRO states gathered to full moments by
+        :attr:`zero_shape_map`, so the merged form is partition- and
+        ZeRO-agnostic (None for a stateless optimizer)."""
         if not self.stateful:
             return None
         states = [s for s in states if s is not None]
         if not states:
             return None
+        if self.zero:
+            states = [self.dense_state(st, self.zero_shape_map)
+                      for st in states]
         mu: Dict[str, torch.Tensor] = {}
         nu: Dict[str, torch.Tensor] = {}
         for st in states:
@@ -815,6 +978,66 @@ def rank_states(state, shards: Dict[str, List[torch.Tensor]],
     return [AdamWState(state.step, {n: v[r] for n, v in mu.items()},
                        {n: v[r] for n, v in nu.items()})
             for r in range(mesh.size)]
+
+
+def rank_masters(opt: OptimizerSpec, shards: Dict[str, List[torch.Tensor]]):
+    """The float32 masters of per-rank float32 param ``shards``, which the
+    optimizer updates in place (:meth:`OptimizerSpec.master_of`), and the
+    params as float32 views of them (the shards themselves without ZeRO):
+    ``(masters, params)``."""
+    masters = {n: [opt.master_of(x) for x in v] for n, v in shards.items()}
+    if not opt.zero:
+        return masters, dict(shards)
+    return masters, {n: [gather_flat(m, shape=x.shape)
+                         for m, x in zip(masters[n], v)]
+                     for n, v in shards.items()}
+
+
+def rank_compute(opt: OptimizerSpec, masters: Dict[str, List[torch.Tensor]],
+                 params: Dict[str, List[torch.Tensor]]
+                 ) -> Dict[str, List[torch.Tensor]]:
+    """Each rank's compute-dtype copy of each master, shaped as its param
+    in ``params`` (Fig 14's cast, then the gather under ZeRO)."""
+    return {n: [opt.compute_param(m, tuple(p.shape))
+                for m, p in zip(ms, params[n])]
+            for n, ms in masters.items()}
+
+
+def rank_opt_state(opt: OptimizerSpec, states: Optional[Sequence],
+                   mesh: DeviceMesh, sbp: Dict[str, NdSbp],
+                   shards: Dict[str, List[torch.Tensor]]):
+    """One stage's per-rank optimizer states as one state over global
+    moments: flat ZeRO states first gathered to each rank's shard shapes
+    (those of ``shards``)."""
+    if states is None:
+        return None
+    states = [opt.dense_state(st, {n: tuple(shards[n][r].shape)
+                                   for n in st.mu})
+              for r, st in enumerate(states)]
+    return global_state(states, mesh, sbp)
+
+
+def opt_state_bytes(opt: OptimizerSpec, states: Optional[Sequence],
+                    shards: Dict[str, List[torch.Tensor]], nranks: int) -> int:
+    """The optimizer-held float32 bytes of one stage on its fullest rank,
+    over the ZeRO fold: the moments, plus with masters (mixed precision
+    or ZeRO) each param's master padded to the fold -- 3x the float32
+    param bytes (over dp under ZeRO), 2x for plain AdamW (whose params are
+    the model, not optimizer state)."""
+    zdp = opt.zero_dp if opt.zero else 1
+    per_rank = []
+    for r in range(nranks):
+        total = 0
+        st = None if states is None else states[r]
+        if st is not None:
+            total += sum(v.numel() * v.element_size()
+                         for tree in (st.mu, st.nu) for v in tree.values())
+        if opt.mixed_precision:
+            for v in shards.values():
+                nelem = v[r].numel()
+                total += -(-nelem // zdp) * zdp * 4
+        per_rank.append(total // zdp)
+    return max(per_rank)
 
 
 def accumulate(acc: Optional[List[torch.Tensor]],
@@ -939,17 +1162,21 @@ def _resolve_params(graph: LogicalGraph, params) -> List[LTensor]:
     return out
 
 
-def loss_seed(mesh: DeviceMesh, sbp: NdSbp,
-              loss: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def loss_seed(mesh: DeviceMesh, sbp: NdSbp, loss: Sequence[torch.Tensor],
+              value: Optional[float] = None) -> List[torch.Tensor]:
     """The per-rank backward seed of a loss laid out as ``sbp``: ones (the
     objective is the *sum* of the loss tensor), in the cotangent layout --
     on a broadcast axis only the rank at index 0 seeds it (B -> P(sum)),
-    so replicas are not counted once each."""
+    so replicas are not counted once each. ``value`` seeds that constant
+    instead of 1: the loss scale, which multiplies every cotangent by it
+    and keeps bf16 gradients out of the underflow range."""
     out = []
     for r, v in enumerate(loss):
         first = all(c == 0 for c, comp in zip(mesh.coords(r), sbp)
                     if comp.is_broadcast)
-        out.append(torch.ones_like(v) if first else torch.zeros_like(v))
+        out.append(torch.zeros_like(v) if not first
+                   else torch.ones_like(v) if value is None
+                   else torch.full_like(v, value))
     return out
 
 
@@ -987,18 +1214,19 @@ class TrainStageProgram:
         return place(value, self.mesh, self.in_sbp[name])
 
     def output_cotangents(self, outputs: Dict[str, Any],
-                          cotangents: Dict[str, Any],
-                          loss_name: str) -> Dict[str, List[torch.Tensor]]:
+                          cotangents: Dict[str, Any], loss_name: str,
+                          scale: Optional[float] = None
+                          ) -> Dict[str, List[torch.Tensor]]:
         """The backward seeds of this stage: ones for the loss sink (see
-        :func:`loss_seed`), the incoming cotangent for every output
-        consumed downstream, and for every boundary input that later
-        stages also consume -- its sum so far, which this stage's own
-        contributions then extend."""
+        :func:`loss_seed`; ``scale`` instead where loss scaling is on), the
+        incoming cotangent for every output consumed downstream, and for
+        every boundary input that later stages also consume -- its sum so
+        far, which this stage's own contributions then extend."""
         seeds = {}
         for name in self.output_names:
             if name == loss_name:
                 seeds[name] = loss_seed(self.mesh, self.out_sbp[name],
-                                        outputs[name])
+                                        outputs[name], scale)
             elif cotangents.get(name) is not None:
                 seeds[name] = cotangents[name]
         for name in self.diff_input_names:
@@ -1061,6 +1289,11 @@ class TrainStagedProgram:
         new_params, new_state)`` with ``grads`` post-clip, all global. The
         lr schedule resolves at ``step_index`` (default: ``opt_state.step``
         when stateful, else 0)."""
+        opt = optimizer if optimizer is not None else self.optimizer
+        if opt is not None and (opt.zero or opt.precision is not None):
+            raise NotImplementedError(
+                "reference_step does not model zero/mixed precision; compare "
+                "against the api.compile monolithic backend instead")
         by_stage = {st.index: st for st in self.stages}
         home = {n: by_stage[self.stage_of_param(n)] for n in self.param_names}
         chunks = split_microbatches(inputs, microbatch_inputs,
@@ -1104,7 +1337,6 @@ class TrainStagedProgram:
                               {n: grads[n]})[n] for n in self.param_names}
         params = {n: home[n].place(n, torch.as_tensor(inputs[n]).clone())
                   for n in self.param_names}
-        opt = optimizer if optimizer is not None else self.optimizer
 
         def to_global(d):
             return {n: assemble(v, home[n].mesh, self.plan.tensor_sbp[n])
@@ -1194,7 +1426,9 @@ def lower_train_plan(graph: LogicalGraph, plan: Plan, params, loss=None,
     d(param)`` for each param, in ``params`` order and in its cotangent
     layout (:func:`box_grads` takes it to the param's). It runs the same
     taped forward and backward as the pipelined stages over the whole
-    graph, seeded by :func:`loss_seed`. ``fn.mesh`` is its mesh."""
+    graph, seeded by :func:`loss_seed` (``fn(*shards, scale=s)`` seeds the
+    loss scale ``s``, as the pipelined loss stage does). ``fn.mesh`` is its
+    mesh."""
     mesh = _resolve_mesh(graph, mesh, device)
     loss_t = _resolve_loss(graph, loss)
     param_ts = _resolve_params(graph, params)
@@ -1211,12 +1445,12 @@ def lower_train_plan(graph: LogicalGraph, plan: Plan, params, loss=None,
     fwd, bwd, diff_in = _train_program(program, diff, mesh)
     loss_pos = [t.name for t in sinks].index(loss_t.name)
 
-    def value_and_grad(*all_ins):
+    def value_and_grad(*all_ins, scale: Optional[float] = None):
         outs, tapes = fwd(*all_ins)
         loss_vec = outs[loss_pos]
         env = dict(zip(program.input_names, all_ins))
         cots = dict(zip(diff_in, bwd(tapes, {loss_t.name: loss_seed(
-            mesh, boundary[loss_t.name], loss_vec)})))
+            mesh, boundary[loss_t.name], loss_vec, scale)})))
         return loss_vec, tuple(
             cots[n] if cots.get(n) is not None
             else [torch.zeros_like(v) for v in env[n]] for n in pnames)

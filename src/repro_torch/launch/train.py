@@ -13,8 +13,10 @@ card virtual ranks of it), tensor-parallel over ``model`` and
 data-parallel over ``data``; ``--batch`` must divide by D. The data
 pipeline is the actor-runtime prefetcher (paper §6.1); checkpointing every
 ``--ckpt-every`` steps writes the reference's format, the global params
-assembled from the ranks. ``--zero`` raises until ZeRO is ported (ROADMAP
-Queue 1 item 9): the port's default is ``--no-zero``.
+assembled from the ranks. ``--zero`` (the default, as in the reference)
+keeps float32 masters and AdamW moments as flat rows sharded over the data
+axes, gathered in the compute dtype each step (paper §6.4);
+``--no-zero`` keeps a replica of each rank's shards and moments.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--zero", action="store_true", default=False)
+    ap.add_argument("--zero", action="store_true", default=True)
     ap.add_argument("--no-zero", dest="zero", action="store_false")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="checkpoints/run")

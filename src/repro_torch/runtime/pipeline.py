@@ -50,10 +50,13 @@ import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.lowering import (OptimizerSpec, accumulate, box_grads,
-                                       global_state, grad_sqnorms,
+                                       grad_sqnorms, loss_scale_update,
+                                       opt_state_bytes, rank_compute,
+                                       rank_masters, rank_opt_state,
                                        reassemble_sinks, relay,
                                        split_microbatches, sync_mesh)
 from repro_torch.core.mesh import assemble, place
@@ -528,14 +531,19 @@ _TAPE_KEY = "__tape__"
 _GRADS_KEY = "__grads__"
 
 
-def _train_collect_names(tstaged) -> List[str]:
+def _train_collect_names(tstaged, dynamic: bool = False) -> List[str]:
     """The collect list shared by the builder and the executor: the
-    loss-bearing backward actor first, then every ``opt{s}``."""
+    loss-bearing backward actor first, then every ``opt{s}``, then (with
+    dynamic loss scaling) the ``scale`` actor, whose decision the executor
+    mirrors."""
     produced_at = {n: st.index for st in tstaged.stages
                    for n in st.output_names}
     loss_stage = produced_at[tstaged.loss_name]
     param_stages = [st.index for st in tstaged.stages if st.param_names]
-    return [f"b{loss_stage}"] + [f"opt{s}" for s in param_stages]
+    names = [f"b{loss_stage}"] + [f"opt{s}" for s in param_stages]
+    if dynamic and param_stages:
+        names.append("scale")
+    return names
 
 
 def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
@@ -556,9 +564,13 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
       updates the same tensors in place, so params stay on the card across
       steps;
     * ``ctx[f"opt{s}"]`` — the step index (resolves the lr schedule), as a
-      plain int or as ``{"step": int, "load_state": [AdamWState per rank]}``
+      plain int or as ``{"step": int, "load_state": [state per rank]}``
       when the executor hands the stage its optimizer state (the first
-      step).
+      step);
+    * with loss scaling, ``ctx[f"b{s}"]`` of the loss stage ``{"loss_seed":
+      scale}``, ``ctx[f"acc{s}"]`` ``{"inv_scale": 1/scale}`` and, dynamic,
+      ``ctx["scale"]`` ``{"scale", "good_steps"}``: the executor owns the
+      scale and re-anchors the actors at it every step.
 
     ``regs[s]`` is forward stage s's out-register quota (default 1F1B,
     ``num_stages - s``); backward/acc/opt actors need no tuning.
@@ -579,6 +591,18 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
       the stage's current optimizer state (one per rank) as a register that
       ``opt{s}`` consumes — the second register stream, initialized on the
       first step. Each rank updates its own shards.
+    * Mixed precision (``optimizer.mixed_precision``, paper Fig 14):
+      ``f{s}`` keeps the float32 params it is sent for ``opt{s}``, which
+      makes its float32 masters of them (flat ``(dp, 1, chunk)`` shards
+      under ZeRO, updated in place), and binds their compute-dtype copies
+      -- the ``cast``; after each update ``opt{s}`` casts again (after the
+      gather under ZeRO) for the next step's forward. With loss scaling the
+      loss stage's backward is seeded with the scale, and every ``acc{s}``
+      unscales its sums once, on its final fire, before the norm partials.
+      Dynamic scaling adds a ``scale`` actor after ``norm``: it checks the
+      norm for finiteness and broadcasts skip, backoff or growth to every
+      ``opt{s}``; a skipped step leaves params, moments and step count as
+      they were.
 
     Forward actors record autograd and backward actors replay it (grad mode
     is per thread, so each body sets its own); every body waits for the
@@ -603,6 +627,9 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
         tstaged.optimizer if tstaged.optimizer is not None
         else OptimizerSpec.sgd(lr))
     clip = bool(opt.grad_clip)
+    mp = opt.mixed_precision           # float32 masters live in opt{s}
+    dynamic = opt.dynamic_scaling
+    need_norm = clip or dynamic        # dynamic scaling checks the norm
     param_order = tstaged.param_names
     param_stages = [st.index for st in tstaged.stages if st.param_names]
     loss_name = tstaged.loss_name
@@ -627,8 +654,22 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
     specs: List[ActorSpec] = [_payload_source_spec("data", num_microbatches)]
 
     def make_fwd_fn(stage):
-        bound, on_epoch = _stage_binding()
+        bound, base_on_epoch = _stage_binding()
         prev = _prev_mesh(tstaged, stage)
+        # mixed precision: the executor's float32 params wait here for
+        # opt{s} (its masters), and the stage binds their compute-dtype
+        # copies -- the paper's Fig-14 cast at the forward stage's boundary
+        raw_cell: Dict[str, Any] = {}
+        pset = set(stage.param_names)
+
+        def on_epoch(raw):
+            base_on_epoch(raw)
+            if not (mp and raw):
+                return
+            for n in raw:
+                if n in pset:
+                    raw_cell[n] = bound[n]
+                    bound[n] = [opt.cast(x) for x in bound[n]]
 
         def run_fwd(payload):
             payload = {n: relay(v, prev, stage.mesh)
@@ -641,11 +682,18 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
             carried.update(zip(stage.output_names, outs))
             carried[_TAPE_KEY] = tape
             return carried
-        return run_fwd, bound, on_epoch
+        return run_fwd, bound, raw_cell, on_epoch
 
     def make_bwd_fn(stage):
         diff_in = set(stage.diff_input_names)
         later = tstaged.stages[min(stage.index + 1, S - 1)].mesh
+        # the loss stage's backward seed: 1, or the loss scale the executor
+        # sends each step
+        seed = {"scale": None}
+
+        def on_epoch(v):
+            if v is not None:
+                seed["scale"] = float(v["loss_seed"])
 
         def run_bwd(f_payload, b_payload=None):
             incoming = {} if b_payload is None else {
@@ -654,7 +702,7 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
             grads, res = {}, {}
             if stage.bwd is not None:
                 seeds = stage.output_cotangents(f_payload, incoming,
-                                                loss_name)
+                                                loss_name, seed["scale"])
                 in_cots = stage.bwd(f_payload[_TAPE_KEY], seeds)
                 for n, c in zip(stage.diff_input_names, in_cots):
                     if n in stage.param_names:
@@ -672,15 +720,20 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
                     stage.out_sbp[loss_name]))
             sync_mesh(stage.mesh)
             return out
-        return run_bwd
+        return run_bwd, on_epoch
 
     def make_acc_fn(stage):
+        # with loss scaling the executor sends 1/scale, and the sums are
+        # unscaled ONCE on the final fire, before the norm partials: the
+        # norm (and the finiteness check of dynamic scaling) is the true
+        # gradients'
         state: Dict[str, Any] = {}
-        meta = {"fires": 0}
+        meta = {"fires": 0, "inv": None}
 
-        def on_epoch(_):
+        def on_epoch(v):
             state.clear()
             meta["fires"] = 0
+            meta["inv"] = None if v is None else v.get("inv_scale")
 
         def run_acc(b_payload):
             meta["fires"] += 1
@@ -692,15 +745,17 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
                 return {}
             state.update(box_grads(stage.mesh, tstaged.graph, tstaged.plan,
                                    state))
+            if meta["inv"] is not None:
+                state.update(unscale(state, meta["inv"]))
             out = {_GRADS_KEY: dict(state)}
-            if clip:
+            if need_norm:
                 # the stage-local P contribution to the global grad norm
                 out["sqnorms"] = grad_sqnorms(stage.mesh, tstaged.plan,
                                               state)
             return out
         return run_acc, on_epoch
 
-    def make_opt_fn(stage, bound, state_cell):
+    def make_opt_fn(stage, bound, raw_cell, state_cell):
         pnames = stage.param_names
         meta = {"step": 0}
 
@@ -715,30 +770,53 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
             else:
                 meta["step"] = int(v)
 
+        def refresh_masters():
+            # the float32 masters of the float32 params the executor just
+            # sent (first step or load_params): the register stream opt{s}
+            # owns from here on
+            state_cell["masters"], state_cell["params"] = rank_masters(
+                opt, {n: raw_cell[n] for n in pnames})
+            raw_cell.clear()
+
         def run_opt(acc_payload, *rest):
             rest = list(rest)
-            norm_payload = rest.pop(0) if clip else None
+            norm_payload = rest.pop(0) if need_norm else None
+            scale_payload = rest.pop(0) if dynamic else None
             state = rest.pop(0)["state"] if opt.stateful else None
+            if mp and raw_cell:
+                refresh_masters()
+            if scale_payload is not None and scale_payload["skip"]:
+                # non-finite grads under dynamic scaling: no update and no
+                # step advance; masters, moments and bound params stay
+                return {"skipped": True, "norm": norm_payload["norm"]}
             grads = acc_payload[_GRADS_KEY]
             if norm_payload is not None:
                 grads = {n: [scale_grad(g, norm_payload["scale"])
                              for g in grads[n]] for n in pnames}
             else:
                 grads = {n: grads[n] for n in pnames}
-            params = {n: bound[n] for n in pnames}
+            params = (state_cell["masters"] if mp
+                      else {n: bound[n] for n in pnames})
             nranks = stage.mesh.size
             if opt.stateful and state is None:
                 # first step in this worker: fresh (zeroed) state
-                state = opt.init_rank_states(params, nranks)
+                state = opt.init_rank_states(
+                    state_cell["params"] if mp else params, nranks)
             lr_now = opt.lr_at(meta["step"])
             meta["step"] += 1
             with torch.no_grad():
                 new_state = opt.update_ranks(params, grads, state, lr_now,
                                              nranks)
+                if mp:
+                    # the next step's forward reads the compute copies: the
+                    # Fig-14 cast (after the gather under ZeRO)
+                    bound.update(rank_compute(opt, params,
+                                              state_cell["params"]))
             sync_mesh(stage.mesh)
             if opt.stateful:
                 state_cell["state"] = new_state
-            out = {"params": params, "grads": grads}
+            out = {"params": state_cell["params"] if mp else params,
+                   "grads": grads}
             if opt.stateful:
                 out["state"] = new_state
             if norm_payload is not None:
@@ -747,9 +825,10 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
         return run_opt, on_epoch
 
     bound_of: Dict[int, Dict[str, Any]] = {}
-    collect = _train_collect_names(tstaged)
+    collect = _train_collect_names(tstaged, dynamic)
     for s, stage in enumerate(tstaged.stages):
-        fwd_fn, bound, fwd_on_epoch = make_fwd_fn(stage)
+        fwd_fn, bound, raw_cell, fwd_on_epoch = make_fwd_fn(stage)
+        bwd_fn, bwd_on_epoch = make_bwd_fn(stage)
         bound_of[s] = bound
         specs.append(ActorSpec(
             name=f"f{s}", fn=fwd_fn,
@@ -757,10 +836,10 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
             out_regs=regs[s], node=s + 1, thread=0,
             max_fires=num_microbatches, on_epoch=fwd_on_epoch))
         specs.append(ActorSpec(
-            name=f"b{s}", fn=make_bwd_fn(stage),
+            name=f"b{s}", fn=bwd_fn,
             inputs=(f"f{s}",) if s == S - 1 else (f"f{s}", f"b{s+1}"),
             out_regs=2, node=s + 1, thread=0,
-            max_fires=num_microbatches))
+            max_fires=num_microbatches, on_epoch=bwd_on_epoch))
         if stage.param_names:
             acc_fn, acc_on_epoch = make_acc_fn(stage)
             specs.append(ActorSpec(
@@ -769,8 +848,10 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
                 max_fires=num_microbatches, emit_every=num_microbatches,
                 on_epoch=acc_on_epoch))
             opt_inputs = (f"acc{s}",)
-            if clip:
+            if need_norm:
                 opt_inputs += ("norm",)
+            if dynamic:
+                opt_inputs += ("scale",)
             state_cell: Dict[str, Any] = {"state": None}
             if opt.stateful:
                 # the optimizer-state register stream: a source actor emits
@@ -782,16 +863,18 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
                     inputs=(), out_regs=1, node=s + 1, thread=0,
                     max_fires=1))
                 opt_inputs += (f"state{s}",)
-            opt_fn, opt_on_epoch = make_opt_fn(stage, bound, state_cell)
+            opt_fn, opt_on_epoch = make_opt_fn(stage, bound, raw_cell,
+                                               state_cell)
             specs.append(ActorSpec(
                 name=f"opt{s}", fn=opt_fn,
                 inputs=opt_inputs, out_regs=1, node=s + 1, thread=0,
                 max_fires=1, on_epoch=opt_on_epoch))
 
-    if clip and param_stages:
+    if need_norm and param_stages:
         # cross-stage *sideways* communication on the actor protocol: sum the
         # per-stage squared-norm partials (P→B boxing as an actor) and
-        # broadcast the clip scale to every opt{s}
+        # broadcast the clip scale to every opt{s} (1.0 with clipping off,
+        # where the norm only feeds dynamic scaling's finiteness check)
         def run_norm(*acc_payloads):
             partials = {}
             for pl in acc_payloads:
@@ -803,7 +886,39 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
             name="norm", fn=run_norm,
             inputs=tuple(f"acc{s}" for s in param_stages),
             out_regs=1, node=0, thread=0, max_fires=1))
+
+    if dynamic and param_stages:
+        # dynamic loss scaling rides the norm actor's sideways edge: check
+        # the true gradients' norm for finiteness and broadcast the skip,
+        # backoff or growth to every opt{s}. The executor re-anchors the
+        # cell every step, so the trajectory never forks from its mirror.
+        sc_cell = {"scale": opt.initial_scale(), "good": 0}
+
+        def sc_on_epoch(v):
+            if v is not None:
+                sc_cell["scale"] = float(v["scale"])
+                sc_cell["good"] = int(v["good_steps"])
+
+        def run_scale(norm_payload):
+            finite = bool(np.isfinite(np.float32(norm_payload["norm"])))
+            skip, nxt, good = loss_scale_update(
+                opt.precision, sc_cell["scale"], sc_cell["good"], finite)
+            sc_cell["scale"], sc_cell["good"] = nxt, good
+            return {"skip": skip, "next_scale": nxt, "good_steps": good}
+
+        specs.append(ActorSpec(
+            name="scale", fn=run_scale, inputs=("norm",),
+            out_regs=1, node=0, thread=0, max_fires=1,
+            on_epoch=sc_on_epoch))
     return specs, collect
+
+
+def unscale(grads: Dict[str, List[torch.Tensor]], inv
+            ) -> Dict[str, List[torch.Tensor]]:
+    """Each rank's float32 gradient sums times ``inv`` (1/loss scale; exact
+    for a power-of-two scale): the acc actors and the monolithic engine
+    unscale this way, once, before the norm."""
+    return {n: [scale_grad(g, inv) for g in gs] for n, gs in grads.items()}
 
 
 class TrainSpecBuilder(_SpecBuilderBase):
@@ -827,16 +942,20 @@ class TrainSpecBuilder(_SpecBuilderBase):
 
 
 def own_params(params: Dict[str, Any], names: Sequence[str], meshes,
-               sbp) -> Dict[str, List[torch.Tensor]]:
+               sbp, float32: bool = False) -> Dict[str, List[torch.Tensor]]:
     """The session's own per-rank shards of ``params`` (in ``names``
-    order), each placed by ``sbp[name]`` on ``meshes[name]``: the optimizer
-    updates them in place, so the caller's values are never touched."""
+    order), each placed by ``sbp[name]`` on ``meshes[name]``, in float32
+    where ``float32`` (a mixed-precision optimizer's masters): the
+    optimizer updates them in place, so the caller's values are never
+    touched."""
     missing = [n for n in names if n not in params]
     if missing:
         raise ValueError(f"missing params: {missing}")
     out = {}
     for n in names:
         x = torch.as_tensor(params[n]).detach()
+        if float32:
+            x = x.float()
         mesh = meshes[n]
         out[n] = ([x.to(mesh.devices[0], copy=True)] if mesh.size == 1
                   else place(x, mesh, sbp[n]))
@@ -862,8 +981,15 @@ class TrainPipelineExecutor(_GraphExecutorBase):
 
     ``opt_state`` merges the per-stage states into global moments;
     ``last_grad_norm`` is the global gradient norm the ``norm`` actor
-    computed (None when clipping is off). ``last_peak_regs`` ``f{s}``
-    entries are the in-flight activation counts the 1F1B quota bounds.
+    computed (None when neither clipping nor dynamic scaling needs it).
+    ``last_peak_regs`` ``f{s}`` entries are the in-flight activation counts
+    the 1F1B quota bounds.
+
+    With a mixed-precision optimizer the executor's ``shards`` are float32
+    (views of the flat masters under ZeRO) and it owns the loss scale: it
+    seeds each step's backward with ``loss_scale`` and mirrors the
+    ``scale`` actor's decision (``loss_scale``, ``scale_good_steps``,
+    ``last_skipped``, ``last_scale``: the scale the last step ran under).
     """
 
     def __init__(self, tstaged, params: Dict[str, Any],
@@ -881,6 +1007,7 @@ class TrainPipelineExecutor(_GraphExecutorBase):
                         for n in st.param_names}
         self.shards: Dict[str, List[torch.Tensor]] = {}
         self.load_params(params)
+        opt = self.optimizer
         # the per-stage, per-rank optimizer states (zeroed; None for SGD):
         # the first step hands each to its stage's worker, which updates it
         # in place from then on, so the executor and the worker share one copy
@@ -891,6 +1018,15 @@ class TrainPipelineExecutor(_GraphExecutorBase):
         self._state_dirty = True
         self.step_count = 0
         self.last_grad_norm = None
+        # the loss-scale mirror: the executor owns the scale and sends it
+        # to the actors every step
+        self._scaling = opt.loss_scaling is not None
+        self.loss_scale = opt.initial_scale() if self._scaling else None
+        self.scale_good_steps = 0
+        self.last_skipped = False
+        self.last_scale = None
+        self._loss_stage = next(st.index for st in tstaged.stages
+                                if tstaged.loss_name in st.output_names)
 
     def _make_builder(self):
         return TrainSpecBuilder(self.tstaged, self.microbatch_inputs,
@@ -912,7 +1048,8 @@ class TrainPipelineExecutor(_GraphExecutorBase):
         ``params``); they ride the next step's ``ctx`` into each stage's
         worker. Optimizer state is untouched."""
         self.shards = own_params(params, self.tstaged.param_names,
-                                 self.mesh_of, self.tstaged.plan.tensor_sbp)
+                                 self.mesh_of, self.tstaged.plan.tensor_sbp,
+                                 self.optimizer.mixed_precision)
         self._params_dirty = True
 
     @property
@@ -930,8 +1067,23 @@ class TrainPipelineExecutor(_GraphExecutorBase):
         (None for a stateless optimizer)."""
         sbp = self.tstaged.plan.tensor_sbp
         return self.optimizer.merge_states(
-            [global_state(self.opt_states[s], self.tstaged.stages[s].mesh,
-                          sbp) for s in sorted(self.opt_states)])
+            [rank_opt_state(self.optimizer, self.opt_states[s],
+                            self.tstaged.stages[s].mesh, sbp, self.shards)
+             for s in sorted(self.opt_states)])
+
+    def opt_state_bytes(self) -> Dict[int, int]:
+        """Per-stage bytes of optimizer-held float32 state on a stage's
+        fullest rank (:func:`repro_torch.core.lowering.opt_state_bytes`):
+        masters and moments with mixed precision (3x the float32 param
+        bytes, over dp under ZeRO), the two moments for plain AdamW."""
+        out = {}
+        for st in self.tstaged.stages:
+            if st.param_names:
+                out[st.index] = opt_state_bytes(
+                    self.optimizer, self.opt_states.get(st.index),
+                    {n: self.shards[n] for n in st.param_names},
+                    st.mesh.size)
+        return out
 
     def step(self, data_inputs: Dict[str, Any], timeout: float = 300.0):
         """Run one training step over the current params. ``data_inputs``
@@ -953,6 +1105,16 @@ class TrainPipelineExecutor(_GraphExecutorBase):
         graph_inputs = set(self.tstaged.input_names)
         mb = set(self.microbatch_inputs)
         ctx: Dict[str, Any] = {"data": self._microbatch_payloads(data_inputs)}
+        opt = self.optimizer
+        if self._scaling:
+            # seed the loss stage's backward with the scale, the acc actors
+            # with 1/scale, and re-anchor the scale actor at the mirror
+            inv = np.float32(np.float32(1.0) / np.float32(self.loss_scale))
+            self.last_scale = self.loss_scale
+            ctx[f"b{self._loss_stage}"] = {"loss_seed": self.loss_scale}
+            if opt.dynamic_scaling:
+                ctx["scale"] = {"scale": self.loss_scale,
+                                "good_steps": self.scale_good_steps}
         for st in self.tstaged.stages:
             bound = {n: st.place(n, data_inputs[n]) for n in st.input_names
                      if n in graph_inputs and n not in mb
@@ -961,6 +1123,8 @@ class TrainPipelineExecutor(_GraphExecutorBase):
                 bound.update({n: self.shards[n] for n in st.param_names})
             ctx[f"f{st.index}"] = bound
             if st.param_names:
+                if self._scaling:
+                    ctx[f"acc{st.index}"] = {"inv_scale": inv}
                 ctx[f"opt{st.index}"] = (
                     {"step": self.step_count,
                      "load_state": self.opt_states[st.index]}
@@ -969,7 +1133,7 @@ class TrainPipelineExecutor(_GraphExecutorBase):
         self._params_dirty = False
         self._state_dirty = False
 
-        collect = _train_collect_names(self.tstaged)
+        collect = _train_collect_names(self.tstaged, opt.dynamic_scaling)
         # the loss-bearing backward actor fires in version order in one
         # worker, so the collected loss stream is microbatch-ordered
         loss_payloads = outs[collect[0]]
@@ -984,15 +1148,26 @@ class TrainPipelineExecutor(_GraphExecutorBase):
         grads: Dict[str, Any] = {}
         norm = None
         for name in collect[1:]:
+            if not name.startswith("opt"):
+                continue
             (opt_out,) = outs[name]        # optimizer fired exactly once
             s = int(name[len("opt"):])
             norm = opt_out.get("norm", norm)
+            if opt_out.get("skipped"):
+                continue
             grads.update(opt_out["grads"])
             self.shards.update(opt_out["params"])
             if "state" in opt_out:
                 self.opt_states[s] = opt_out["state"]
         self.last_grad_norm = norm
-        self.step_count += 1
+        self.last_skipped = False
+        if opt.dynamic_scaling:
+            (sc,) = outs["scale"]
+            self.last_skipped = bool(sc["skip"])
+            self.loss_scale = float(sc["next_scale"])
+            self.scale_good_steps = int(sc["good_steps"])
+        if not self.last_skipped:
+            self.step_count += 1
         return loss, grads, dict(self.shards)
 
 

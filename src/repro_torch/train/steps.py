@@ -1,32 +1,40 @@
 """The training step builder (port of ``repro/train/steps.py``'s
-``make_train_step``, plain path).
+``make_train_step``).
 
 The reference wraps the local step in ``shard_map`` over the mesh and
-``jax.jit``s it. On one device the step here is the local step itself, run
-eagerly: the loss, ``torch.autograd.grad`` (``jax.value_and_grad``), then
-:func:`repro_torch.optim.zero.plain_dp_adamw_update`. Params are the
-:class:`repro_torch.models.transformer.Transformer` module (float32, updated
-in place); the optimizer state is an :class:`AdamWState` keyed by its
-parameter names.
+``jax.jit``s it. Here the step runs eagerly on the ranks of a
+:class:`repro_torch.core.mesh.DeviceMesh` (threads of
+:func:`repro_torch.core.mesh.spmd`; on one card they are virtual ranks of
+it): tensor parallelism over ``model`` (heads, MLP units and vocabulary
+split, :func:`repro_torch.models.transformer.model_specs`) and data
+parallelism over ``data`` (rows split). The loss is the taped program of
+:func:`repro_torch.models.transformer.mesh_loss_program`, whose
+collectives never run inside autograd. ``fsdp=True`` makes every mesh axis
+a data axis, as the reference does (tp = 1).
 
-On a ``("data", "model")`` mesh beyond 1 x 1 the step runs on the ranks of
-a :class:`repro_torch.core.mesh.DeviceMesh` (threads of
-:func:`repro_torch.core.mesh.spmd`; on one card they are virtual): tensor
-parallelism over ``model`` (heads, MLP units and vocabulary split,
-:func:`repro_torch.models.transformer.model_specs`) and data parallelism
-over ``data`` (rows split). Each rank owns a copy of its shard of every
-param and its own AdamW state (:class:`MeshParams`). The loss is the taped
-program of :func:`repro_torch.models.transformer.mesh_loss_program`, whose
-collectives never run inside autograd; after its backward the
-model-disjoint leaves (:data:`repro_torch.models.attention
-.MODEL_GRAD_SUM_LEAVES`) are psummed over ``model`` and the update
-all-reduces over ``data``. ``fsdp=True`` makes every mesh axis a data
-axis, as the reference does (tp = 1).
+``zero=True`` (the default, as in the reference) is the paper's §6.4
+ZeRO-DP (:mod:`repro_torch.optim.zero`): each rank owns its ``(1, 1,
+chunk)`` rows of every leaf's flat float32 master and of its
+:class:`~repro_torch.optim.zero.ZeroState` moments (:class:`ZeroParams`).
+The rank's loss program is the model's with one collective step in front
+of each leaf's first use (:func:`zero_loss_program`): the rank's rows cast
+to the compute dtype and all-gathered over the data axes, whose transpose
+is the reduce-scatter of the gradient. Then the data sum divided by dp,
+the ``model`` combine of the model-disjoint leaves and
+:func:`~repro_torch.optim.zero.zero_adamw_update`.
 
-Not ported yet: ``zero=True`` (flat master shards, ROADMAP Queue 1 item 9;
-the plain path computes the same step), SSM layers on a mesh (item 8c) and
-in training at all (the SSD scan's backward, Queue 2 item 4), and the
-``Graph*`` shims of graph training (item 7).
+``zero=False`` is the plain path: on one device the loss, autograd and
+:func:`~repro_torch.optim.zero.plain_dp_adamw_update` over the
+:class:`~repro_torch.models.transformer.Transformer` module (float32,
+updated in place); on a mesh each rank owns a copy of its shard of every
+param and its own AdamW state (:class:`MeshParams`), the model-disjoint
+leaves (:data:`repro_torch.models.attention.MODEL_GRAD_SUM_LEAVES`) are
+psummed over ``model`` after the backward and the update all-reduces over
+``data``.
+
+Not ported yet: SSM layers on a mesh (ROADMAP Queue 1 item 8c) and in
+training at all (the SSD scan's backward, Queue 2 item 4); both raise
+before any path is chosen.
 """
 from __future__ import annotations
 
@@ -41,17 +49,23 @@ from repro_torch.core import mesh as M
 from repro_torch.core.lowering import data_index
 from repro_torch.core.placement import Placement
 from repro_torch.core.sbp import Split
-from repro_torch.core.tape import taped_backward, taped_forward
+from repro_torch.core.tape import (INTERNAL, LocalProgram, Step,
+                                   taped_backward, taped_forward)
 from repro_torch.models.attention import MODEL_GRAD_SUM_LEAVES
 from repro_torch.models.common import MeshPlan, resolve_device
 from repro_torch.models.convert import jax_leaves
 from repro_torch.models.model_zoo import build_model, loss_fn
 from repro_torch.models.transformer import (Transformer, check_mesh_supported,
-                                            check_trainable,
+                                            check_trainable, compute_dtype,
                                             mesh_loss_program, model_specs,
                                             shard_params)
 from repro_torch.optim.adamw import AdamWConfig, AdamWState, init_adamw
-from repro_torch.optim.zero import data_mean, plain_dp_adamw_update
+from repro_torch.optim.zero import (ZeroState, combine_model_grads,
+                                    data_mean, gather_flat,
+                                    gather_master_local, init_zero_flat,
+                                    model_combine_tree, plain_dp_adamw_update,
+                                    scatter_grad_local, shard_master_local,
+                                    zero_adamw_update)
 
 
 @dataclasses.dataclass
@@ -65,7 +79,13 @@ class TrainStep:
     #: batch's mean loss by ``state_dict`` name, global tensors (on a mesh
     #: assembled from the ranks' data means), for tests and tools
     grad_fn: Optional[Callable] = None
-    mesh: Optional[M.DeviceMesh] = None   # the ranks, beyond 1 x 1
+    mesh: Optional[M.DeviceMesh] = None   # the ranks, beyond plain 1 x 1
+    zero: bool = False
+    #: (zero) global params (a ``state_dict``, a ``Transformer`` or
+    #: :class:`MeshParams`) -> :class:`ZeroParams`, the flat master rows
+    shard_params_fn: Optional[Callable] = None
+    #: (zero) :class:`ZeroParams` -> the global ``state_dict``, float32
+    gather_params_fn: Optional[Callable] = None
 
 
 class MeshParams:
@@ -107,11 +127,13 @@ class MeshParams:
 
 def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
                     optimizer: Optional[AdamWConfig] = None,
-                    zero: bool = False, remat: bool = True,
+                    zero: bool = True, remat: bool = True,
                     fsdp: bool = False, device=None) -> TrainStep:
     """A training step for ``cfg`` on the mesh of ``plan`` (1 x 1: one
     device), on ``device`` (``None``: the card; every rank of a mesh on
-    it). ``fsdp=True`` uses every mesh axis for data, as the reference.
+    it). ``zero=True`` shards float32 masters and moments over the data
+    axes (the reference's default); ``fsdp=True`` uses every mesh axis for
+    data, as the reference.
 
     ``step_fn(params, opt_state, batch)`` takes the global ``{"tokens":
     (B, S+1)}`` int32 and returns ``(params, opt_state, metrics)``, the
@@ -119,11 +141,6 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
     ``loss`` and ``grad_norm`` (pre-clip) are 0-d tensors on the device,
     on a mesh averaged over its ranks in rank order (the reference's
     ``certified_mean``). On a mesh B must divide by dp."""
-    if zero:
-        raise NotImplementedError(
-            "make_train_step(zero=True): ZeRO master shards are not ported "
-            "yet (ROADMAP Queue 1 item 9); zero=False computes the same "
-            "step")
     if fsdp:
         plan = MeshPlan(plan.axis_names, plan.axis_sizes,
                         model_axis="__fsdp_none__")
@@ -132,6 +149,8 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
     optimizer = optimizer or AdamWConfig()
     device = resolve_device(device)
     order = [n for _, names in jax_leaves(cfg) for n in names]
+    if zero:
+        return _zero_train_step(cfg, plan, optimizer, remat, device, order)
     if not plan.is_single:
         return _mesh_train_step(cfg, plan, optimizer, remat, device, order)
 
@@ -170,6 +189,32 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
 METRICS = ("lm_loss", "aux_loss", "loss", "grad_norm")
 
 
+def _rank_rows(mesh: M.DeviceMesh, plan: MeshPlan, device: torch.device):
+    """A global batch -> each rank's block of its rows (by data index)."""
+    rows = [data_index(mesh, plan, r) for r in range(mesh.size)]
+
+    def rank_rows(batch: Dict[str, Any]) -> List[torch.Tensor]:
+        tokens = torch.as_tensor(batch["tokens"], dtype=torch.int32,
+                                 device=device)
+        if tokens.shape[0] % plan.dp:
+            raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
+                             f"split over dp = {plan.dp}")
+        B_l = tokens.shape[0] // plan.dp
+        return [tokens[d * B_l:(d + 1) * B_l] for d in rows]
+    return rank_rows
+
+
+def _metrics(cfg: ModelConfig, plan: MeshPlan, mesh: M.DeviceMesh, loss,
+             gnorm) -> Dict[str, torch.Tensor]:
+    """A rank's metrics averaged over every rank in rank order (inside
+    spmd)."""
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    vals = torch.stack([loss, aux, loss + cfg.router_aux_weight * aux,
+                        gnorm])
+    vals = M.psum(vals, plan.axis_names) / mesh.size
+    return dict(zip(METRICS, vals.unbind()))
+
+
 def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
                      optimizer: AdamWConfig, remat: bool,
                      device: torch.device, order: List[str]) -> TrainStep:
@@ -185,7 +230,7 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
     model_sum = [n for n in order if replication[n] > 1
                  and n.rsplit(".", 1)[-1] in MODEL_GRAD_SUM_LEAVES]
     ranks = list(range(mesh.size))
-    rows = [data_index(mesh, plan, r) for r in ranks]
+    rank_rows = _rank_rows(mesh, plan, device)
 
     def init_params(seed: int = 0) -> MeshParams:
         return MeshParams(build_model(cfg, plan, seed=seed,
@@ -194,15 +239,6 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
 
     def init_opt(params: MeshParams) -> List[AdamWState]:
         return [init_adamw(mine) for mine in params.ranks]
-
-    def rank_rows(batch: Dict[str, Any]):
-        tokens = torch.as_tensor(batch["tokens"], dtype=torch.int32,
-                                 device=device)
-        if tokens.shape[0] % plan.dp:
-            raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
-                             f"split over dp = {plan.dp}")
-        B_l = tokens.shape[0] // plan.dp
-        return [tokens[rows[r] * B_l:(rows[r] + 1) * B_l] for r in ranks]
 
     def rank_grads(mine: Dict[str, torch.Tensor], tokens: torch.Tensor):
         """This rank's loss and gradients, the model-disjoint leaves summed
@@ -226,11 +262,7 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
             loss, grads = rank_grads(mine, tokens[r])
             state, gnorm = plain_dp_adamw_update(
                 optimizer, mine, grads, opt_state[r], plan, replication)
-            aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-            vals = torch.stack([loss, aux, loss + cfg.router_aux_weight * aux,
-                                gnorm])
-            vals = M.psum(vals, plan.axis_names) / mesh.size
-            return state, dict(zip(METRICS, vals.unbind()))
+            return state, _metrics(cfg, plan, mesh, loss, gnorm)
 
         outs = M.spmd(rank_step, mesh)(ranks)
         return params, [o[0] for o in outs], outs[0][1]
@@ -249,6 +281,189 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
 
     return TrainStep(step_fn, init_params, init_opt, plan, device,
                      grad_fn, mesh)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO: flat float32 master rows on each rank, gathered on the tape
+# ---------------------------------------------------------------------------
+
+def _master(name: str) -> str:
+    """The program input holding a leaf's master rows."""
+    return name + INTERNAL + "master"
+
+
+def _data_group(mesh: M.DeviceMesh, plan: MeshPlan, rank: int):
+    """The ranks of ``rank``'s data group, in rank order (= data index)."""
+    return mesh.group(rank, plan.data_axes) if plan.dp > 1 else (rank,)
+
+
+def gather_ranks(ranks: List[Dict[str, torch.Tensor]],
+                 shapes: Dict[str, Tuple[int, ...]], mesh: M.DeviceMesh,
+                 plan: MeshPlan, specs) -> Dict[str, torch.Tensor]:
+    """Every rank's ``(1, 1, chunk)`` rows of each leaf -> the global
+    float32 tensors: each rank's data group's rows joined into its full
+    local shard (on the host side of the mesh, no collective), then the
+    shards assembled by their signatures."""
+    full = []
+    for r in range(mesh.size):
+        dev = mesh.devices[r]
+        group = _data_group(mesh, plan, r)
+        full.append({n: gather_flat(torch.cat([ranks[g][n].to(dev)
+                                               for g in group]),
+                                    shape=shapes[n])
+                     for n in ranks[r]})
+    return {n: M.assemble([f[n] for f in full], mesh, specs[n])
+            for n in ranks[0]}
+
+
+class ZeroParams:
+    """Each rank's ``(1, 1, chunk)`` float32 master rows of every param
+    (:func:`repro_torch.optim.zero.shard_master_local` of its shard under
+    :func:`~repro_torch.models.transformer.model_specs`, block = its data
+    index), in the reference tree's leaf order ``order``; the step updates
+    them in place. ``shapes`` are the local shard shapes the gathers
+    restore; :meth:`state_dict` assembles the global tensors when asked
+    (checkpoints, tests), never inside a step."""
+
+    def __init__(self, state: Dict[str, torch.Tensor], order: List[str],
+                 cfg: ModelConfig, plan: MeshPlan, mesh: M.DeviceMesh):
+        self.cfg, self.plan, self.mesh = cfg, plan, mesh
+        self.specs = model_specs(cfg, plan)
+        self.ranks: List[Dict[str, torch.Tensor]] = []
+        for r in range(mesh.size):
+            mine = shard_params(state, cfg, plan, mesh.coords(r))
+            self.shapes = {n: tuple(mine[n].shape) for n in order}
+            d = data_index(mesh, plan, r)
+            self.ranks.append({n: shard_master_local(
+                mine[n].detach().to(mesh.devices[r]), plan, d)
+                for n in order})
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        return gather_ranks(self.ranks, self.shapes, self.mesh, self.plan,
+                            self.specs)
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Copy each rank's rows of the global ``state`` in."""
+        for r, mine in enumerate(self.ranks):
+            src = shard_params(state, self.cfg, self.plan,
+                               self.mesh.coords(r))
+            d = data_index(self.mesh, self.plan, r)
+            for n, t in mine.items():
+                t.copy_(shard_master_local(torch.as_tensor(src[n]).detach()
+                                           .to(t.device), self.plan, d))
+
+    def numel(self) -> int:
+        """Master elements held over all ranks (padding included)."""
+        return sum(t.numel() for r in self.ranks for t in r.values())
+
+
+def zero_loss_program(program: LocalProgram, shapes: Dict[str, Tuple],
+                      cdt: torch.dtype, plan: MeshPlan) -> LocalProgram:
+    """``program`` (a rank's loss over its param shards) over master rows
+    instead: each param input becomes its master rows (:func:`_master`),
+    and one collective step in front of the param's first use casts the
+    rows to ``cdt``, all-gathers them over the data axes and reshapes them
+    to the shard (:func:`~repro_torch.optim.zero.gather_master_local`).
+    Its transpose reduce-scatters the shard's cotangent over the same axes
+    in rank order, then float32
+    (:func:`~repro_torch.optim.zero.scatter_grad_local`): the data *sum* of
+    the rank's rows. Gathering at first use lets the backward scatter each
+    gradient as soon as it is whole."""
+    def gather(n):
+        return Step(lambda m: gather_master_local(m, shapes[n], cdt, plan),
+                    (_master(n),), (n,), collective=True,
+                    transpose=lambda g: scatter_grad_local(g, plan))
+    steps, done = [], set()
+    for st in program.steps:
+        for n in st.ins:
+            if n in shapes and n not in done:
+                steps.append(gather(n))
+                done.add(n)
+        steps.append(st)
+    inputs = tuple(_master(n) if n in shapes else n
+                   for n in program.input_names)
+    return LocalProgram(steps, inputs, program.output_names,
+                        program.out_keys)
+
+
+def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
+                     optimizer: AdamWConfig, remat: bool,
+                     device: torch.device, order: List[str]) -> TrainStep:
+    """The ZeRO step on the ranks of ``plan``'s mesh (one rank at 1 x 1;
+    see the module doc)."""
+    mesh = Placement(plan.axis_names, plan.axis_sizes).to_mesh(device)
+    specs = model_specs(cfg, plan)
+    with torch.device("meta"):
+        shapes = {n: tuple(t.shape) for n, t in shard_params(
+            Transformer(cfg, plan).state_dict(), cfg, plan,
+            mesh.coords(0)).items()}
+    program = zero_loss_program(mesh_loss_program(cfg, plan, remat=remat),
+                                shapes, compute_dtype(cfg), plan)
+    param_of = {_master(n): n for n in order}
+    diff = set(order) | set(param_of)
+    mx = plan.axis_names.index(plan.model_axis) if plan.tp > 1 else None
+    replication = {n: 1 if mx is None or isinstance(specs[n][mx], Split)
+                   else plan.tp for n in order}
+    combine = model_combine_tree(specs, plan)
+    ranks = list(range(mesh.size))
+    rank_rows = _rank_rows(mesh, plan, device)
+
+    def shard_params_fn(params) -> ZeroParams:
+        state = (params.state_dict() if hasattr(params, "state_dict")
+                 else params)
+        return ZeroParams(state, order, cfg, plan, mesh)
+
+    def gather_params_fn(params: ZeroParams) -> Dict[str, torch.Tensor]:
+        return params.state_dict()
+
+    def init_params(seed: int = 0) -> ZeroParams:
+        return shard_params_fn(build_model(cfg, plan, seed=seed,
+                                           device=device))
+
+    def init_opt(params: ZeroParams) -> List[ZeroState]:
+        return [init_zero_flat(mine) for mine in params.ranks]
+
+    def rank_grads(mine: Dict[str, torch.Tensor], tokens: torch.Tensor):
+        """This rank's loss and its rows' gradients: the data mean, the
+        model-disjoint leaves summed over ``model``. The gathers and their
+        reduce-scatters run on the tape, outside autograd."""
+        (loss,), tape = taped_forward(
+            program, diff, [tokens, *(mine[param_of[n]]
+                                      for n in program.input_names[1:])])
+        cots = taped_backward(tape, {"loss": torch.ones_like(loss)},
+                              [_master(n) for n in order])
+        grads = {n: g / plan.dp for n, g in zip(order, cots)}
+        return loss, combine_model_grads(grads, combine, plan)
+
+    def step_fn(params: ZeroParams, opt_state: List[ZeroState],
+                batch: Dict[str, Any]):
+        tokens = rank_rows(batch)
+
+        def rank_step(r: int):
+            mine = params.ranks[r]
+            loss, grads = rank_grads(mine, tokens[r])
+            state, gnorm = zero_adamw_update(
+                optimizer, mine, grads, opt_state[r], plan, replication)
+            return state, _metrics(cfg, plan, mesh, loss, gnorm)
+
+        outs = M.spmd(rank_step, mesh)(ranks)
+        return params, [o[0] for o in outs], outs[0][1]
+
+    def grad_fn(params: ZeroParams, batch: Dict[str, Any]):
+        tokens = rank_rows(batch)
+
+        def rank(r: int):
+            loss, grads = rank_grads(params.ranks[r], tokens[r])
+            return M.psum(loss, plan.axis_names) / mesh.size, grads
+
+        outs = M.spmd(rank, mesh)(ranks)
+        return outs[0][0], gather_ranks([o[1] for o in outs],
+                                        params.shapes, mesh, plan, specs)
+
+    return TrainStep(step_fn, init_params, init_opt, plan, device, grad_fn,
+                     mesh, zero=True, shard_params_fn=shard_params_fn,
+                     gather_params_fn=gather_params_fn)
 
 
 # ---------------------------------------------------------------------------

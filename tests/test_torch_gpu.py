@@ -453,6 +453,7 @@ XENT_CASES = [
     (256, 2048, 4096, "bfloat16"),
     (16, 151936, 0, "bfloat16"),                         # qwen3 vocab
     (64, 75968, 75968, "bfloat16"),                      # its shard at V/2
+    (512, 151936, 0, "bfloat16"),                # a bf16 graph microbatch
 ]
 
 
@@ -870,7 +871,7 @@ def test_mesh_train_step_on_two_ranks_of_the_card(cuda, dtype):
     plan = MeshPlan(("data", "model"), (1, 2))
     init, res = None, {}
     for d in ("cpu", "cuda"):
-        ts = make_train_step(cfg, plan, device=d)
+        ts = make_train_step(cfg, plan, zero=False, device=d)
         ts.mesh.timeout = 60.0
         params = ts.init_params(0)
         if init is None:
@@ -903,3 +904,53 @@ def test_mesh_train_step_on_two_ranks_of_the_card(cuda, dtype):
         torch.testing.assert_close(res["cuda"][1][n].cpu(), w,
                                    **(tol if tc else dict(rtol=1e-4,
                                                           atol=1e-5)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zero_train_step_on_two_ranks_of_the_card(cuda, dtype):
+    """One ``make_train_step(zero=True)`` step of reduced qwen3 on a (2, 1)
+    mesh of two ranks of the card -- each rank's master rows cast,
+    all-gathered and their gradients reduce-scattered on the tape, its
+    collectives under a 60 s timeout -- against the same step on the CPU's
+    plain path: loss and grad_norm within 1e-4 relative (float32; the
+    bf16 compute at the kernels' bf16 tolerance). Each rank's attention launches on the kernels of its dtype,
+    its xent kernels once each way at offset 0."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.train.steps import make_train_step
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(), dtype=dtype)
+    batch = {"tokens": SyntheticLM(cfg.vocab_size, 2, 64, seed=9)(0)}
+    plan = MeshPlan(("data", "model"), (2, 1))
+    plain = make_train_step(cfg, plan, zero=False, device="cpu")
+    params = plain.init_params(0)
+    init = {n: t.clone() for n, t in params.state_dict().items()}
+    _, _, want = plain.step_fn(params, plain.init_opt(params), batch)
+    ts = make_train_step(cfg, plan, zero=True, device=cuda)
+    ts.mesh.timeout = 60.0
+    zp = ts.shard_params_fn(init)
+    opt = ts.init_opt(zp)
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkdv_launches = 0
+    fa.wgmma_launches = fa.bwd_dq_wgmma_launches = 0
+    fa.bwd_dkdv_wgmma_launches = 0
+    xk.reset_counts()
+    ts.mesh.stats.reset()
+    t0 = time.perf_counter()
+    zp, opt, got = ts.step_fn(zp, opt, batch)
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < ts.mesh.timeout
+    L, tc = cfg.num_layers, int(dtype == "bfloat16")
+    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkdv_launches) == (
+        4 * L, 2 * L, 2 * L)
+    assert (fa.wgmma_launches, fa.bwd_dq_wgmma_launches,
+            fa.bwd_dkdv_wgmma_launches) == (4 * L * tc, 2 * L * tc,
+                                            2 * L * tc)
+    assert xk.offset_launches == xk.bwd_offset_launches == {0: 2}
+    n = len(zp.shapes)
+    assert ts.mesh.stats.calls["all_gather"] == n
+    assert ts.mesh.stats.calls["psum_scatter"] == n
+    tol = _tol(dtype) if tc else dict(rtol=1e-4, atol=0.0)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(got[k].cpu(), want[k], **tol)

@@ -381,7 +381,9 @@ def _two_ranks():
 
 class TestNotPorted:
     """Every option the port does not take yet raises naming its item; the
-    meshes of item 8 run (two ranks on the CPU)."""
+    meshes of item 8 run (two ranks on the CPU), and so do item 9's ZeRO
+    and mixed precision (``tests/test_torch_mixed_precision.py`` holds them
+    to the JAX package)."""
 
     @pytest.mark.parametrize("kw,item", [
         (dict(zero=True), "item 9"),
@@ -399,6 +401,9 @@ class TestNotPorted:
         (dict(mesh=_two_ranks().to_mesh(CPU)), "item 8"),
     ])
     def test_graph_options(self, kw, item):
+        if item == "item 9":
+            self._item9_runs(kw)
+            return
         if item != "item 8":
             g = _train_graph()
             params, _ = _params_and_data(g)
@@ -422,6 +427,29 @@ class TestNotPorted:
         for r, o in zip(sess.history, (one.step(**data), one.step(**data))):
             assert abs(r["loss"] - float(o.loss)) <= 1e-5 * abs(r["loss"])
 
+    @staticmethod
+    def _item9_runs(kw):
+        """``zero=True`` runs and equals ``zero=False`` bitwise (AdamW, whose
+        state it shards); ``precision="bf16"`` runs, its loss off float32's;
+        ``loss_scale=`` alone raises the reference's ValueError."""
+        g = _train_graph()
+        params, data = _params_and_data(g)
+        common = dict(mode="train", params=params, stages=2, device=CPU,
+                      optimizer=OptimizerSpec.adamw(lr=1e-3))
+        if "loss_scale" in kw:
+            with pytest.raises(ValueError, match="without precision="):
+                api.compile(g, **common, **kw)
+            return
+        sess = api.compile(g, **common, **kw)
+        ref = api.compile(g, **common)
+        if "zero" in kw:
+            assert sess.optimizer.zero and sess.optimizer.zero_dp == 1
+            api.assert_sessions_match(sess, ref, data, steps=2)
+            return
+        assert sess.optimizer.compute_dtype == "bfloat16"
+        lb, lf = sess.step(**data).loss, ref.step(**data).loss
+        assert torch.isfinite(lb) and float(lb) != float(lf)
+
     def test_defaults_are_accepted_and_unknown_options_are_type_errors(self):
         g = _train_graph()
         api.compile(g, backend="monolithic", zero=False, snapshot_every=1,
@@ -444,13 +472,26 @@ class TestNotPorted:
                                    rtol=1e-5, atol=1e-6)
 
     def test_precision_and_zero_fields(self):
+        """The reference's validation (``repro/core/lowering.py:504-513``,
+        ``:565-579``)."""
         assert PrecisionPolicy("float32").compute_dtype == "float32"
-        with pytest.raises(NotImplementedError, match="item 9"):
-            PrecisionPolicy("bfloat16")
-        with pytest.raises(NotImplementedError, match="item 9"):
-            PrecisionPolicy("float32", loss_scale="dynamic")
-        with pytest.raises(NotImplementedError, match="item 9"):
-            OptimizerSpec(kind="adamw", zero=True)
+        assert PrecisionPolicy().compute_dtype == "bfloat16"
+        for bad in (dict(compute_dtype="float16"), dict(loss_scale=-1.0),
+                    dict(loss_scale="sometimes"), dict(growth_interval=0)):
+            with pytest.raises(ValueError):
+                PrecisionPolicy(**bad)
+        with pytest.raises(ValueError, match="kind='adamw'"):
+            OptimizerSpec(kind="sgd", zero=True)
+        with pytest.raises(ValueError, match="zero_dp"):
+            OptimizerSpec(kind="adamw", zero=True, zero_dp=0)
+        with pytest.raises(ValueError, match="bfloat16"):
+            OptimizerSpec(kind="adamw", precision=PrecisionPolicy(
+                "float32", loss_scale="dynamic"))
+        spec = OptimizerSpec(kind="adamw", zero=True)
+        assert spec.mixed_precision and spec.compute_dtype == "float32"
+        assert spec.loss_scaling is None and spec.initial_scale() == 1.0
+        with pytest.raises(ValueError, match="zero_shapes"):
+            spec.zero_shape_map
 
 
 # ---------------------------------------------------------------------------

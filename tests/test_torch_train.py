@@ -90,7 +90,8 @@ def ref():
 
 
 def _port_step(cfg):
-    return make_train_step(cfg, optimizer=AdamWConfig(lr=LR), device="cpu")
+    return make_train_step(cfg, optimizer=AdamWConfig(lr=LR), zero=False,
+                           device="cpu")
 
 
 def _port_model(ref):
@@ -165,12 +166,20 @@ def test_three_train_steps_match_jax(ref):
 
 
 def test_zero_and_wider_meshes_raise():
-    """``zero=True`` raises naming item 9; a Mamba config on a mesh raises
-    naming item 8c (dense stacks train there,
-    ``tests/test_torch_train_mesh.py``)."""
+    """``zero=True`` (the default) runs at 1 x 1 and gives the plain
+    path's loss (``tests/test_torch_zero.py`` holds it to the JAX
+    package); a Mamba config on a mesh raises naming item 8c (dense stacks
+    train there, ``tests/test_torch_train_mesh.py``)."""
     cfg = get_config("qwen3-1.7b").reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_train_step(cfg, zero=True, device="cpu")
+    batch = {"tokens": SyntheticLM(cfg.vocab_size, 2, 32)(0)}
+    losses = []
+    for zero in (True, False):
+        ts = make_train_step(cfg, zero=zero, device="cpu")
+        assert ts.zero is zero
+        params = ts.init_params(0)
+        _, _, m = ts.step_fn(params, ts.init_opt(params), batch)
+        losses.append(float(m["loss"]))
+    assert abs(losses[0] - losses[1]) <= 1e-6 * abs(losses[1])
     from repro_torch.models.common import MeshPlan
     with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
         make_train_step(get_config("mamba2-370m").reduced(),

@@ -241,10 +241,10 @@ def _plan(shape, fsdp=False):
         else plan
 
 
-def _train_step(shape=(1, 1), fsdp=False, **kw):
+def _train_step(shape=(1, 1), fsdp=False, zero=False, **kw):
     return make_train_step(_cfg(), MeshPlan(("data", "model"), shape),
-                           optimizer=AdamWConfig(lr=LR), fsdp=fsdp,
-                           device=CPU, **kw)
+                           optimizer=AdamWConfig(lr=LR), zero=zero,
+                           fsdp=fsdp, device=CPU, **kw)
 
 
 def _params(ts, jax_side):
