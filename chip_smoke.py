@@ -37,7 +37,13 @@ result line is printed:
    path's have rows too: the attention forward and backward at a rank's
    local heads of a training layer (q (2, 2048, 8, 128), 4 kv heads), and
    the bf16 xent forward and backward on the rank-1 vocab shard (4,096 x
-   75,968 at offset 75,968, labels over both shards).
+   75,968 at offset 75,968, labels over both shards). The SSD scan has a
+   row at a tp = 2 rank's 16 local heads (x (1, 512, 16, 64)), and its
+   backward (``ssd_scan_bwd``: five kernels, state, carry, inter, intra,
+   reduce) one at mamba2-370m's training layer (x (2, 2048, 32, 64) bf16,
+   B and C (2, 2048, 1, 128), chunk 128) against ``ssd_chunked_bwd_ref``
+   (each gradient within 1e-2 relative in norm for bf16 outputs, 1e-4 for
+   float32 ones), and again in float32 at the reduced shape with dhT.
    Each reports the device time of every kernel its call launches
    (torch.profiler; the names of the kernels the trace matched are
    printed), the wrapper call's, the plain version's, the least time the
@@ -54,7 +60,9 @@ result line is printed:
    the same two steps on the CPU (loss, grad_norm), every float32
    attention launch on the CUDA-core kernels; then the reduced
    mamba2 config (float32) served through the SSD kernel gives the CPU's
-   plain path's tokens, with prefill logits within 1e-3;
+   plain path's tokens, with prefill logits within 1e-3; then one ZeRO
+   train step of it (the SSD forward and backward kernels) agrees with the
+   CPU's (loss, grad_norm within 1e-4);
 4. serve: qwen3-1.7b at full width, bf16, seeded init, through
    ``repro_torch.api.compile(backend="actors", stages=2)`` -- 12 requests of
    64-512 prompt tokens and 8-48 new tokens in 2 groups of 4 slots; then
@@ -62,8 +70,9 @@ result line is printed:
    tokens. Around each of the two runs the kernels' launch counters are
    zeroed just before and read just after, and must equal the launches the
    scheduler's work implies, every attention forward on the tensor-core
-   kernel. One more monolithic run under torch.profiler
-   gives the device's busy share and its kernels by time. Then the same for
+   kernel. One more monolithic run of the first 4 requests under
+   torch.profiler, the device traced alone, gives the device's busy share
+   and its kernels by time. Then the same for
    mamba2-370m at full width and depth (48 SSM layers, bf16): one SSD scan
    call per layer per prefill, each on the tensor-core kernels, no
    attention kernel. Then paged, chunked and sampled serving, each run's
@@ -88,7 +97,12 @@ result line is printed:
    first-token logit within ``atol=0.25, rtol=0.05`` of a 1 x 1 session's
    on the same weights, and the generated tokens equal to its counted (not
    a gate); tok/s, peak memory, the collectives' calls, bytes and seconds,
-   and the idle share of a profiled run of the first 4 requests;
+   and the idle share of a profiled run of the first 4 requests. Then
+   mamba2-370m at full width and depth on the same (1, 2) mesh (16 SSM
+   heads a rank, the vocabulary split), 4 requests of 64-256 prompt and
+   8-16 new tokens on the actors and the monolithic engine: tokens
+   identical, 2 x 48 SSD scans a prefill, every one at 16 heads; and the
+   reduced mamba2 (float32) on (1, 2), card tokens ≡ the CPU's;
 5. train: qwen3-1.7b at full width and depth (bf16 compute, float32 params
    and AdamW state, seeded init) through ``repro_torch.train.steps
    .make_train_step``, fed by ``ActorDataPipeline(SyntheticLM(151936, 2,
@@ -130,6 +144,14 @@ result line is printed:
    the ranks waited; the peak memory; one profiled step. Then ZeRO on
    (2, 2) at phase 7's 4-layer cut, 2 steps, held to phase 7's plain
    (2, 2) run at the same limits;
+7c. train mamba2: mamba2-370m at full width and depth (48 SSM layers,
+   bf16 compute) through ``make_train_step`` with ZeRO (the default), 4
+   steps of 2 x 2048 ``SyntheticLM`` tokens: finite losses printed (their
+   trend not gated), every step's launches held (96 SSD forwards: each
+   layer's forward and its remat rerun; 48 launches of each backward
+   kernel; the xent kernels once each way), one profiled step; then the
+   same model on a (1, 2) mesh with ZeRO, 2 steps, each rank's launches
+   held and every scan at 16 heads;
 8. graph reference: a small LogicalGraph (embedding, a residual across
    its two stages, softmax_xent) trains 2 AdamW steps through
    ``api.compile(graph, mode="train")`` on the card, through the float32
@@ -183,6 +205,10 @@ result line is printed:
    launches, and at one rank's vocab shard of the mesh phase (256 x
    75,968 at offset 75,968) with that phase's launches.
 
+The ``ssd_scan_bwd`` row carries the mamba2 train run's launches (by
+kernel, and the mesh run's by path), the local-heads SSD row the mamba2
+mesh serve run's, and the SSD forward row's ``launches_by_path`` the
+mamba2 mesh serve and train runs'.
 The kernels line also holds the ZeRO path's rows at a rank's shapes
 (attention forward and backward at q (1, 2048, 16, 128), the bf16 xent
 forward and backward at 2,048 x 151,936) with phase 7b's launches, and
@@ -229,7 +255,7 @@ SEED = 0
 # the names of the port's kernels, as the profiler's device trace shows them
 PORT_KERNELS = ("flash_fwd_", "flash_bwd_", "flash_decode_kernel",
                 "xent_fwd_kernel", "xent_bwd_kernel", "ssd_scan_kernel",
-                "ssd_tc_")
+                "ssd_tc_", "ssd_bwd_")
 # the SSD scan's bf16 call: its three tensor-core kernels
 SSD_TC_KERNELS = ("ssd_tc_state_kernel", "ssd_tc_carry_kernel",
                   "ssd_tc_out_kernel")
@@ -354,7 +380,8 @@ def device_and_build():
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.softmax_xent import kernel as xk
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    sources = [fa.SOURCE, fd.SOURCE, xk.SOURCE, fa.BWD_SOURCE, ssd.SOURCE]
+    sources = [fa.SOURCE, fd.SOURCE, xk.SOURCE, fa.BWD_SOURCE, ssd.SOURCE,
+               ssd.BWD_SOURCE]
     t0 = time.perf_counter()
     _build.build(sources)
     print(f"built {', '.join(sources)} in "
@@ -755,18 +782,20 @@ def check_flash_attention_bwd(dev, H=16, KV=8, seed=SEED + 5,
         launch)
 
 
-def check_ssd_scan(dev):
+def check_ssd_scan(dev, H: int = 32, name: str = "ssd_scan",
+                   long_prompt: bool = True):
     """The SSD scan at the mamba2-370m prefill of the longest serve prompt
-    (x (1, 512, 32, 64), B and C (1, 512, 1, 128) as views into one
-    projection, as the model passes them; the row's main numbers) and of a
-    2048-token prompt (``long_prompt``: 16 chunks, how the chunk-parallel
-    form scales), bf16, then on float32 copies of the same inputs. No
-    single PyTorch call computes the scan: library "none"."""
+    (x (1, 512, H, 64) with H = 32, or a tp = 2 rank's 16 local heads; B
+    and C (1, 512, 1, 128) as views into one projection, as the model
+    passes them; the row's main numbers) and of a 2048-token prompt
+    (``long_prompt``: 16 chunks, how the chunk-parallel form scales), bf16,
+    then on float32 copies of the same inputs. No single PyTorch call
+    computes the scan: library "none"."""
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
     def at(L, seed):
-        B, H, P, N, G, Q = 1, 32, 64, 128, 1, 128
+        B, P, N, G, Q = 1, 64, 128, 1, 128
         rng = np.random.default_rng(seed)
         mk = lambda *shape: torch.from_numpy(  # noqa: E731
             rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
@@ -821,12 +850,138 @@ def check_ssd_scan(dev):
         }, SSD_TC_KERNELS, lambda: ssd.ssd_scan_cuda(*args, chunk=Q),
             lambda: ssd.ssd_scan(*args, chunk=Q))
 
-    entry = {"name": "ssd_scan", "route": "cuda",
+    entry = {"name": name, "route": "cuda",
              "source": "src/repro_torch/csrc/ssd_scan.cu",
              "replaces": "src/repro/kernels/ssd_scan/kernel.py:72"}
     entry.update(at(512, SEED + 9))
-    entry["long_prompt"] = at(2048, SEED + 10)
+    if long_prompt:
+        entry["long_prompt"] = at(2048, SEED + 10)
     return entry
+
+
+# the SSD scan's backward against its plain version: relative error in norm
+# of each gradient, 1e-2 for bf16 outputs (one bf16 rounding, 2^-9, of each
+# element on top of float32 sums in another order) and 1e-4 for float32 ones
+SSD_BWD_RTOL_BF16, SSD_BWD_RTOL_F32 = 1e-2, 1e-4
+
+
+def ssd_bwd_flops(B, L, H, P, N, Q) -> int:
+    """The backward's operations these inputs need: per (b, chunk, h) the
+    causal Q x Q products (M = C B^T, dW = dy x^T, dC += dM B, dB += dM^T
+    C, dx += W^T dy: pairs x (3N + 2P) multiply-adds) and the six P x N x
+    Qc state products (S_c, U_c, dC and dB from the carried states, g_c
+    B_j, h_c C_i)."""
+    flops = 0
+    for t0 in range(0, L, Q):
+        qc = min(Q, L - t0)
+        pairs = qc * (qc + 1) // 2
+        flops += B * H * 2 * (pairs * (3 * N + 2 * P) + 6 * qc * P * N)
+    return flops
+
+
+def check_ssd_scan_bwd(dev, H: int = 32, name: str = "ssd_scan_bwd"):
+    """The SSD scan's backward kernels (``ssd_scan_bwd_cuda``: state,
+    carry, inter, intra, reduce) at a mamba2-370m training layer's shape
+    (x (2, 2048, H, 64) bf16 with H = 32 on one device, or a tp = 2 rank's
+    16 local heads; B and C (2, 2048, 1, 128) as the model's views, dt and
+    D float32, chunk 128, dy bf16, dhT None as in training) against the
+    plain ``ssd_chunked_bwd_ref`` on the same inputs (which upcasts bf16 to
+    float32: the comparison on float32 copies), timed. At H = 32 also
+    float32 at the reduced mamba2 shape (x (2, 64, 16, 32), N 32, chunk
+    32) with dhT given, held at the float32 limit; at a rank's local heads
+    also the forward the train step runs there (``ssd_scan_cuda``, bf16 on
+    the tensor-core kernels) against ``ssd_chunked_ref``. No PyTorch call
+    computes this function: library "none"."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_bwd_ref,
+                                                  ssd_chunked_ref)
+
+    def inputs(B, L, H, P, N, dtype, seed, with_dhT):
+        rng = np.random.default_rng(seed)
+        mk = lambda *shape: torch.from_numpy(  # noqa: E731
+            rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+        x, bc, dy = mk(B, L, H, P), mk(B, L, 2 * N), mk(B, L, H, P)
+        Bm, Cm = (bc[..., :N].reshape(B, L, 1, N),
+                  bc[..., N:].reshape(B, L, 1, N))
+        dt = torch.as_tensor(rng.uniform(0.01, 0.2, (B, L, H)),
+                             dtype=torch.float32, device=dev)
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        D = torch.as_tensor(rng.normal(size=H), dtype=torch.float32,
+                            device=dev)
+        dhT = (torch.as_tensor(rng.normal(size=(B, H, P, N)),
+                               dtype=torch.float32, device=dev)
+               if with_dhT else None)
+        return (x, dt, A, Bm, Cm, D), dy, dhT
+
+    def held(what, got, want):
+        worst = 0.0
+        for n, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
+                           want):
+            err = ((g.double() - w.double()).norm()
+                   / w.double().norm()).item()
+            limit = (SSD_BWD_RTOL_BF16 if g.dtype == torch.bfloat16
+                     else SSD_BWD_RTOL_F32)
+            ok = bool(torch.isfinite(g).all()) and err <= limit
+            print(f"{what} {n} {g.dtype}: relative err in norm {err:.3e} "
+                  f"(limit {limit}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{what}: {n} disagrees with the plain "
+                                     "version")
+            worst = max(worst, err)
+        return worst
+
+    B, L, P, N, Q = TRAIN_B, TRAIN_S, 64, 128, 128
+    args, dy, _ = inputs(B, L, H, P, N, torch.bfloat16, SEED + 18, False)
+    what = (f"ssd_scan backward x{tuple(args[0].shape)} "
+            f"B/C{tuple(args[3].shape)} chunk {Q}")
+    before = dict(ssd.bwd_launches)
+    got = ssd.ssd_scan_bwd_cuda(*args, dy, chunk=Q)
+    torch.cuda.synchronize()
+    if any(ssd.bwd_launches[k] != before[k] + 1 for k in ssd.BWD_KERNELS):
+        raise AssertionError("ssd_scan backward: a kernel was not launched "
+                             "once")
+    want = ssd_chunked_bwd_ref(*args, dy, chunk=Q)
+    err = held(what, got, want)
+    max_abs = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+    del want
+    entry = {"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+             "replaces": "none (the backward of src/repro/kernels/ssd_scan/"
+                         "kernel.py:72 ssd_scan_pallas; the reference "
+                         "differentiates its jnp ssd_chunked_ref)",
+             "max_abs_err": max_abs, "max_rel_err_in_norm": err}
+    if H == 32:
+        small, dy32, dhT = inputs(2, 64, 16, 32, 32, torch.float32,
+                                  SEED + 19, True)
+        entry["f32_max_rel_err_in_norm"] = held(
+            "ssd_scan backward x(2, 64, 16, 32) float32 (reduced mamba2)",
+            ssd.ssd_scan_bwd_cuda(*small, dy32, dhT, chunk=32),
+            ssd_chunked_bwd_ref(*small, dy32, dhT, chunk=32))
+    else:
+        # the forward of the same train step: SsdScan.forward's call
+        w0 = ssd.wgmma_launches
+        y, hT = ssd.ssd_scan_cuda(*args, chunk=Q)
+        yr, hr = ssd_chunked_ref(*args, chunk=Q)
+        torch.cuda.synchronize()
+        if ssd.wgmma_launches != w0 + 1:
+            raise AssertionError(f"{what}: the bf16 forward did not reach "
+                                 "the tensor-core kernels")
+        entry["fwd_max_abs_err"] = max(
+            agree(f"{what} forward y bf16", y, yr, ATOL, RTOL),
+            agree(f"{what} forward hT bf16", hT, hr, F32_TOL, F32_TOL))
+        del y, hT, yr, hr
+    # each input read once (x, dt, A, B, C, D, dy), each gradient written
+    # once
+    b_ms, b_by = bound_ms(nbytes(*args, dy, *got),
+                          ssd_bwd_flops(B, L, H, P, N, Q))
+    entry.update({
+        "plain_ms": cuda_ms(lambda: ssd_chunked_bwd_ref(*args, dy, chunk=Q),
+                            iters=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return timed(entry, ssd.BWD_KERNELS,
+                 lambda: ssd.ssd_scan_bwd_cuda(*args, dy, chunk=Q),
+                 lambda: ssd.ssd_scan_bwd_cuda(*args, dy, chunk=Q))
 
 
 def check_reference(dev):
@@ -1096,8 +1251,10 @@ def serve(dev, arch: str):
           f"{ms['tok_per_s']:.2f} tok/s; tokens identical to actors: {same}")
     if not same:
         raise AssertionError("actors and monolithic tokens differ")
-    profile_device(f"{mono.backend} generate",
-                   lambda: mono.generate(requests))
+    # the idle share from the first 4 requests, the device traced alone:
+    # the host's op events of a whole run take minutes to post-process
+    profile_device(f"{mono.backend} generate (requests 0-3)",
+                   lambda: mono.generate(requests[:4]), cpu=False)
     mono.close()
     return launches
 
@@ -1304,8 +1461,8 @@ def serve_paged(dev, cfg, model):
         if backend == "actors":
             launches = got
         else:
-            profile_device("paged monolithic generate",
-                           lambda: sess.generate(requests), cpu=False)
+            profile_device("paged monolithic generate (requests 0-3)",
+                           lambda: sess.generate(requests[:4]), cpu=False)
         closed(sess)
     return launches
 
@@ -1654,6 +1811,7 @@ def plain_versions():
 def train_counts():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.softmax_xent import kernel as xk
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     return {"flash_attention": fa.launches,
             "flash_bwd_dq_kernel": fa.bwd_dq_launches,
             "flash_bwd_dkdv_kernel": fa.bwd_dkdv_launches,
@@ -1661,16 +1819,20 @@ def train_counts():
             "flash_bwd_dq_wgmma_kernel": fa.bwd_dq_wgmma_launches,
             "flash_bwd_dkdv_wgmma_kernel": fa.bwd_dkdv_wgmma_launches,
             "xent_local_stats": xk.launches,
-            "xent_local_stats_bwd": xk.bwd_launches}
+            "xent_local_stats_bwd": xk.bwd_launches,
+            "ssd_scan": ssd.launches, "ssd_scan_wgmma": ssd.wgmma_launches,
+            **ssd.bwd_launches}
 
 
 def zero_train_counts():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.softmax_xent import kernel as xk
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     fa.launches = fa.bwd_dq_launches = fa.bwd_dkdv_launches = 0
     fa.wgmma_launches = fa.bwd_dq_wgmma_launches = 0
     fa.bwd_dkdv_wgmma_launches = 0
     xk.reset_counts()
+    ssd.reset_counts()
 
 
 def xent_offsets():
@@ -1809,12 +1971,14 @@ def train_want(cfg, ranks: int, tp: int):
     kernels; the xent launches by vocab offset, each shard's ``ranks /
     tp`` a step."""
     L = cfg.num_layers
-    want = {"flash_attention": 2 * L * ranks, "flash_bwd_dq_kernel": L * ranks,
-            "flash_bwd_dkdv_kernel": L * ranks,
-            "flash_fwd_wgmma_kernel": 2 * L * ranks,
-            "flash_bwd_dq_wgmma_kernel": L * ranks,
-            "flash_bwd_dkdv_wgmma_kernel": L * ranks,
-            "xent_local_stats": ranks, "xent_local_stats_bwd": ranks}
+    want = dict.fromkeys(train_counts(), 0)
+    want.update({"flash_attention": 2 * L * ranks,
+                 "flash_bwd_dq_kernel": L * ranks,
+                 "flash_bwd_dkdv_kernel": L * ranks,
+                 "flash_fwd_wgmma_kernel": 2 * L * ranks,
+                 "flash_bwd_dq_wgmma_kernel": L * ranks,
+                 "flash_bwd_dkdv_wgmma_kernel": L * ranks,
+                 "xent_local_stats": ranks, "xent_local_stats_bwd": ranks})
     Vl = cfg.padded_vocab() // tp
     return want, {m * Vl: ranks // tp for m in range(tp)}
 
@@ -1954,6 +2118,249 @@ def train_zero(dev, curve, cut_curve):
         want_offsets=off, zero=True)
     held_curves(f"{CUT_LAYERS} layers on {MESH_TRAIN_CUT}, zero vs plain",
                 zc, cut_curve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# the Mamba-2 phases: mamba2-370m trained on one device; then served and
+# trained on 2 ranks of "model" (tp = 2, each rank 16 of the 32 heads)
+MAMBA = "mamba2-370m"
+MAMBA_MESH, MAMBA_MESH_STEPS = (1, 2), 2
+# a float32 train step on the card against the CPU's plain path: the same
+# arithmetic summed in other orders (the reduced qwen3 check's limit)
+REF_TRAIN_RTOL = 1e-4
+
+
+def mamba_train_want(cfg, ranks: int, tp: int, tc: bool = True):
+    """A train step's launches of an SSM stack on ``ranks`` ranks, ``tp``
+    over ``model``: per rank and layer the SSD forward twice (the forward
+    and its remat rerun inside the backward, both through ``SsdScan``; on
+    the tensor-core kernels for bf16, ``tc``) and each backward kernel once;
+    one loss (the xent kernels on the rank's vocab shard); no attention.
+    Also the xent launches by vocab offset, each shard's ``ranks / tp``."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    L = cfg.num_layers
+    want = dict.fromkeys(train_counts(), 0)
+    want.update({"ssd_scan": 2 * L * ranks,
+                 "ssd_scan_wgmma": 2 * L * ranks if tc else 0,
+                 "xent_local_stats": ranks, "xent_local_stats_bwd": ranks,
+                 **dict.fromkeys(ssd.BWD_KERNELS, L * ranks)})
+    Vl = cfg.padded_vocab() // tp
+    return want, {m * Vl: ranks // tp for m in range(tp)}
+
+
+def check_reference_mamba_train(dev, shape=(1, 1), steps: int = 2):
+    """``steps`` ZeRO train steps (the default) of reduced mamba2 (float32)
+    on the ``("data", "model")`` mesh ``shape`` on the card -- the SSD
+    forward on its CUDA-core kernel, the backward kernels, on a mesh each
+    rank's shards and the ``model`` sums of the replicated leaves --
+    against the same steps on the CPU's plain path, from the same initial
+    weights and batches: each step's loss and grad_norm within
+    REF_TRAIN_RTOL (a step's loss after the first also reads the update
+    the previous step's gradients made)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.steps import make_train_step
+
+    ranks, tp = int(np.prod(shape)), shape[1]
+    phase(f"reference train (reduced mamba2 on {shape}, card vs CPU plain "
+          f"path, {steps} steps)")
+    cfg = get_config(MAMBA).reduced()
+    # SyntheticLM draws from one stream: make the batches once, for both
+    src = SyntheticLM(cfg.vocab_size, 2, 64, seed=SEED + 20)
+    batches = [{"tokens": src(step)} for step in range(steps)]
+    state = build_model(cfg, MeshPlan.single_device(), seed=SEED,
+                        device="cpu").state_dict()
+    runs, counts = {}, {}
+    for d in ("cpu", dev):
+        zero_train_counts()
+        ts = make_train_step(cfg, MeshPlan(("data", "model"), shape),
+                             device=d)
+        params = ts.shard_params_fn(state)
+        opt = ts.init_opt(params)
+        runs[d] = []
+        for batch in batches:
+            params, opt, m = ts.step_fn(params, opt, batch)
+            runs[d].append((float(m["loss"]), float(m["grad_norm"])))
+        counts[d] = train_counts()
+    step_want = mamba_train_want(cfg, ranks, tp, tc=False)[0]
+    want = {"cpu": dict.fromkeys(counts["cpu"], 0),
+            dev: {k: steps * n for k, n in step_want.items()}}
+    print(f"reduced mamba2 float32 on {shape}: launches on the card "
+          f"{counts[dev]} (expected {want[dev]}: {steps} steps x {ranks} "
+          "ranks, float32 forwards on the CUDA-core kernel), on the CPU "
+          "none")
+    if counts != want:
+        raise AssertionError(f"reduced mamba2 train on {shape}: launches "
+                             f"{counts}, expected {want}")
+    err = max(abs(a - b) / abs(b) for got, ref in zip(runs[dev], runs["cpu"])
+              for a, b in zip(got, ref))
+    print(f"reduced mamba2 on {shape}, {steps} train steps: card (loss, "
+          f"grad_norm) {runs[dev]}, CPU {runs['cpu']}; max relative err "
+          f"{err:.3e} (bound {REF_TRAIN_RTOL}, float32)")
+    if not err <= REF_TRAIN_RTOL:
+        raise AssertionError(f"reduced mamba2 train on {shape}: card "
+                             f"{runs[dev]} vs CPU {runs['cpu']}")
+
+
+def train_mamba(dev):
+    """mamba2-370m at full width and depth (48 SSM layers, d_model 1024,
+    bf16 compute) through ``make_train_step`` with ZeRO's float32 master
+    rows and moments (the default), TRAIN_STEPS steps of TRAIN_B x TRAIN_S
+    ``SyntheticLM`` tokens from the seeded init, the launches of every step
+    held to ``mamba_train_want`` (the loss's trend is not gated: the seeded
+    init's early steps need not fall), then one profiled step. Returns the
+    run's launch counts."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(MAMBA)
+    phase(f"train ({MAMBA}, full width and depth, bf16 compute, ZeRO's "
+          f"float32 master rows and moments, {TRAIN_STEPS} steps of "
+          f"{TRAIN_B} x {TRAIN_S} tokens)")
+    want, _ = mamba_train_want(cfg, 1, 1)
+    ts, params, opt, src, curve, total = train_steps(
+        dev, MAMBA, want, cfg=cfg, zero=True, falls=False)
+    print(f"{MAMBA}: losses {[round(c[0], 4) for c in curve]}; SSD launches "
+          f"a step: {2 * cfg.num_layers} forward ({cfg.num_layers} layers x "
+          f"the forward and its remat rerun), {cfg.num_layers} of each "
+          "backward kernel")
+    batch = {"tokens": src(TRAIN_STEPS)}
+    profile_device(f"{MAMBA} train step", lambda: float(
+        ts.step_fn(params, opt, batch)[2]["loss"]), top=10)
+    del ts, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+@contextlib.contextmanager
+def ssd_heads_seen():
+    """The heads of every SSD scan call the model makes while the block
+    runs (a list, filled in call order)."""
+    from repro_torch.models import mamba
+    seen, scan = [], mamba.ssd_scan
+
+    def spy(x, *args, **kw):
+        seen.append(x.shape[2])
+        return scan(x, *args, **kw)
+    mamba.ssd_scan = spy
+    try:
+        yield seen
+    finally:
+        mamba.ssd_scan = scan
+
+
+def serve_mesh_mamba(dev):
+    """mamba2-370m at full width and depth on ``MAMBA_MESH`` (2 virtual
+    ranks of the card, 16 SSM heads a rank, the vocabulary split), 4
+    requests of 64-256 prompt and 8-16 new tokens on the actors and the
+    monolithic engine: tokens identical, one SSD scan per rank, layer and
+    prefill on the tensor-core kernels at 16 heads. Then reduced mamba2
+    (float32) on the same mesh on the card and on the CPU: the same tokens.
+    Returns the actor run's launch counts."""
+    from repro_torch import api
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.placement import Placement
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    placement = Placement(("data", "model"), MAMBA_MESH)
+    ranks, tp = placement.num_devices, MAMBA_MESH[1]
+    phase(f"serve on a {MAMBA_MESH} mesh ({MAMBA}, full width and depth, "
+          f"bf16, {ranks} virtual ranks on one card, actors x 2 stages and "
+          "monolithic)")
+    cfg, model = seeded_model(MAMBA, dev)
+    requests = serve_requests(cfg, 4, SEED + 21, (64, 256), (8, 16))
+    geo = dict(num_groups=2, group_size=2, max_prompt_len=256,
+               max_new_tokens=16)
+    L, heads = cfg.num_layers, cfg.ssm_heads // tp
+    runs = {}
+    for backend in ("actors", "monolithic"):
+        sess = compile_serve(cfg, model, backend, mesh=placement,
+                             device=dev, **geo)
+        if backend == "actors":
+            print(sess.describe())
+        torch.cuda.synchronize()
+        zero_serve_counts()
+        with ssd_heads_seen() as seen:
+            out = sess.generate(requests)
+        got, st = serve_counts(), sess.last_stats
+        n = ranks * L * st["prefill_items"]
+        want = {"flash_attention": 0, "flash_fwd_wgmma_kernel": 0,
+                "flash_decode": 0, "ssd_scan": n, "ssd_scan_wgmma": n}
+        print(f"mamba2 mesh {backend}: launches {got} (expected {want}: "
+              f"{ranks} ranks x {L} layers, {st['prefill_items']} "
+              f"prefills); SSD scans at {sorted(set(seen))} heads "
+              f"(expected [{heads}])")
+        if got != want or seen != [heads] * n:
+            raise AssertionError(f"mamba2 mesh {backend}: launches {got}, "
+                                 f"heads {sorted(set(seen))}")
+        check_outputs(cfg, out, requests, f"mamba2 mesh {backend}")
+        col = st["collectives"]
+        print(f"mamba2 mesh {backend}: {st['tokens']} tokens in "
+              f"{st['rounds']} rounds, {st['wall_s']:.3f} s wall, "
+              f"{st['tok_per_s']:.2f} tok/s; collectives "
+              f"{sum(col['calls'].values())} calls {col['calls']}, the "
+              f"ranks {col['seconds']:.3f} s in them")
+        runs[backend] = (out, got)
+        closed(sess)
+    if not same_tokens(runs["actors"][0], runs["monolithic"][0]):
+        raise AssertionError("mamba2 mesh: actors and monolithic differ")
+    print("mamba2 mesh: tokens identical on the actors and the monolithic "
+          "engine")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    red = get_config(MAMBA).reduced()
+    rng = np.random.default_rng(SEED + 22)
+    reqs = [(rng.integers(0, red.vocab_size, (k,)).astype(np.int32), g)
+            for k, g in ((37, 6), (100, 3), (5, 8), (64, 4))]
+    state = build_model(red, MeshPlan.single_device(), seed=SEED,
+                        device="cpu").state_dict()
+    outs = {}
+    for d in ("cpu", dev):
+        with api.compile(red, mode="serve", backend="monolithic",
+                         params=state, mesh=placement, device=d,
+                         num_groups=2, group_size=1, max_prompt_len=128,
+                         max_new_tokens=8) as sess:
+            outs[d] = sess.generate(reqs)
+    same = same_tokens(outs["cpu"], outs[dev])
+    print(f"reduced mamba2 float32 on {MAMBA_MESH}: card tokens identical "
+          f"to the CPU's: {same}")
+    if not same:
+        raise AssertionError(f"reduced mamba2 on {MAMBA_MESH}: card "
+                             f"{outs[dev]} vs CPU {outs['cpu']}")
+    return runs["actors"][1]
+
+
+def train_mesh_mamba(dev):
+    """mamba2-370m at full width and depth on ``MAMBA_MESH`` with ZeRO (the
+    default; dp = 1, so each rank keeps its shards' whole master rows),
+    MAMBA_MESH_STEPS steps of the train phase's batches: losses and each
+    step's time printed, every step's launches held to 2 ranks' (each
+    rank's backward kernels once a layer at its 16 heads). Returns the
+    run's launch counts."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(MAMBA)
+    ranks, tp = int(np.prod(MAMBA_MESH)), MAMBA_MESH[1]
+    phase(f"train on a {MAMBA_MESH} mesh ({MAMBA}, full width and depth, "
+          f"{ranks} virtual ranks on one card, ZeRO, bf16 compute, "
+          f"{MAMBA_MESH_STEPS} steps)")
+    want, offsets = mamba_train_want(cfg, ranks, tp)
+    with ssd_heads_seen() as seen:
+        *_, curve, total = train_steps(
+            dev, f"{MAMBA} zero {MAMBA_MESH}", want, cfg=cfg,
+            shape=MAMBA_MESH, steps=MAMBA_MESH_STEPS, falls=False,
+            want_offsets=offsets, zero=True)
+    heads = cfg.ssm_heads // tp
+    print(f"{MAMBA} on {MAMBA_MESH}: losses {[round(c[0], 4) for c in curve]};"
+          f" each backward kernel {cfg.num_layers} launches a rank a step; "
+          f"SSD scans at {sorted(set(seen))} heads (expected [{heads}])")
+    if set(seen) != {heads}:
+        raise AssertionError(f"mamba2 mesh train: SSD scans at "
+                             f"{sorted(set(seen))} heads")
     gc.collect()
     torch.cuda.empty_cache()
     return total
@@ -2656,13 +3063,21 @@ def main() -> int:
                                  label="vocab shard"),
                *check_zero_train_kernels(dev),
                *check_xent_graph(dev, dtype="bfloat16"),
-               check_flash_attention_bwd(dev), check_ssd_scan(dev)]
+               check_flash_attention_bwd(dev), check_ssd_scan(dev),
+               check_ssd_scan(dev, H=16, long_prompt=False,
+                              name=f"ssd_scan (tp={MAMBA_MESH[1]} local "
+                                   "heads)"),
+               check_ssd_scan_bwd(dev),
+               check_ssd_scan_bwd(dev, H=16,
+                                  name=f"ssd_scan_bwd (tp={MAMBA_MESH[1]} "
+                                       "local heads)")]
     kernels[1]["paged_shape"] = check_paged_decode(dev)
+    ssd_row = next(k for k in kernels if k["name"] == "ssd_scan")
     for kr in kernels + [dict(kernels[0]["train_shape"],
                               name="flash_attention (training shape)"),
                          kernels[1]["paged_shape"],
                          kernels[1]["long_cache"],
-                         dict(kernels[-1]["long_prompt"],
+                         dict(ssd_row["long_prompt"],
                               name="ssd_scan (2048-token prompt)")]:
         lib = kr["library_ms"]
         print(f"{kr['name']}: kernel {kr['ms']:.4f} ms, wrapper call "
@@ -2675,6 +3090,8 @@ def main() -> int:
     check_reference(dev)
     check_reference_train(dev)
     check_reference_mamba(dev)
+    check_reference_mamba_train(dev)
+    check_reference_mamba_train(dev, MAMBA_MESH)
     served = serve(dev, "qwen3-1.7b")
     torch.cuda.empty_cache()
     mamba = serve(dev, "mamba2-370m")
@@ -2693,6 +3110,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["serve paged (mamba2)"] = serve_paged_mamba(dev)
     torch.cuda.empty_cache()
+    mamba_meshed = serve_mesh_mamba(dev)
     trained, curve = train(dev)
     torch.cuda.empty_cache()
     train_plain(dev, curve)
@@ -2701,6 +3119,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     zero_trained = train_zero(dev, curve, cut_curve)
     torch.cuda.empty_cache()
+    mamba_trained = train_mamba(dev)
+    mamba_mesh_trained = train_mesh_mamba(dev)
     check_graph_reference(dev)
     graph_trained, one_device = graph_train(dev)
     mesh_trained = graph_train_mesh(dev, one_device)
@@ -2710,8 +3130,32 @@ def main() -> int:
     # each row's launches from the run of its path; the attention forward's
     # row is the serving shape and serve run, its training shape's the train
     # run; the backward's row holds each of its two kernels' counts
+    from repro_torch.kernels.ssd_scan.kernel import BWD_KERNELS
     for kr in kernels:
         name = kr["name"]
+        if name == "ssd_scan_bwd":
+            # the mamba2 train run (one device, full depth); the mesh run's
+            # beside it, both ranks
+            kr["launches_by_kernel"] = {k: mamba_trained[k]
+                                        for k in BWD_KERNELS}
+            kr["launches"] = min(kr["launches_by_kernel"].values())
+            kr["launches_per_step"] = kr["launches"] // TRAIN_STEPS
+            kr["launches_by_path"] = {
+                "train (mamba2)": kr["launches"],
+                f"train mesh {MAMBA_MESH} (mamba2)": min(
+                    mamba_mesh_trained[k] for k in BWD_KERNELS)}
+            continue
+        if name.startswith("ssd_scan_bwd (tp="):
+            # the mamba2 mesh train run (full depth): both ranks
+            kr["launches_by_kernel"] = {k: mamba_mesh_trained[k]
+                                        for k in BWD_KERNELS}
+            kr["launches"] = min(kr["launches_by_kernel"].values())
+            kr["launches_per_step"] = kr["launches"] // MAMBA_MESH_STEPS
+            continue
+        if name.startswith("ssd_scan (tp="):
+            kr["launches"] = mamba_meshed["ssd_scan"]
+            kr["wgmma_launches"] = mamba_meshed["ssd_scan_wgmma"]
+            continue
         if "(zero (2, 1) rank" in name:
             # the ZeRO (2, 1) train run, full depth: both ranks
             if name.startswith("flash_attention_bwd"):
@@ -2777,6 +3221,10 @@ def main() -> int:
         kr["launches_by_path"] = {"serve": served[key], **{
             path: counts[key] for path, counts in paths.items()},
             "serve mesh": meshed[key]}
+    ssd_row["launches_by_path"].update({
+        f"serve mesh {MAMBA_MESH} (mamba2)": mamba_meshed["ssd_scan"],
+        "train (mamba2)": mamba_trained["ssd_scan"],
+        f"train mesh {MAMBA_MESH} (mamba2)": mamba_mesh_trained["ssd_scan"]})
     kernels[1]["paged_shape"]["launches"] = paths["serve paged"][
         "flash_decode"]
     print(f"all phases passed in {time.perf_counter() - _START:.1f} s")

@@ -58,9 +58,8 @@ from repro_torch.core.mesh import DeviceMesh, assemble, place
 from repro_torch.core.placement import Placement
 from repro_torch.core.planner import Plan, plan as plan_sbp
 from repro_torch.models.common import MeshPlan, resolve_device
-from repro_torch.models.transformer import (Transformer,
-                                            check_mesh_supported,
-                                            has_ssm_layers, stack_layout)
+from repro_torch.models.transformer import (Transformer, has_ssm_layers,
+                                            stack_layout)
 from repro_torch.runtime.pipeline import (ActorPipelineExecutor,
                                           InlineServeEngine, PipelinePlan,
                                           ServePipelineExecutor,
@@ -1260,7 +1259,6 @@ def _compile_serve(model, *, backend: str, stages: Optional[int], regs,
         raise ValueError(
             "cache='paged' requires a 1x1 mesh (the page gather/scatter "
             f"programs are single-device); got dp={plan.dp}, tp={plan.tp}")
-    check_mesh_supported(cfg, plan)
 
     lay = stack_layout(cfg)
     n_units = len(lay.prologue) + lay.n_periods

@@ -1831,7 +1831,7 @@ def _rank_programs(mesh: DeviceMesh, plan: MeshPlan, first: bool,
 
     def mesh_write_slot(caches, slot_caches, slot: int):
         # only the data rank that owns the slot takes it, at its local index
-        b = caches[0][0]["k"].shape[0]
+        b = next(iter(caches[0][0].values())).shape[0]
         for r in ranks:
             if data[r] == slot // b:
                 write_slot(caches[r], slot_caches[r], slot % b)

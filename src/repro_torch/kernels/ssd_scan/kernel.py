@@ -1,27 +1,34 @@
-"""Mamba-2 SSD chunked scan: the CUDA kernel's wrapper and its plain version.
+"""Mamba-2 SSD chunked scan: the CUDA kernels' wrappers, their autograd
+Function and the plain version.
 
-Replaces the Pallas TPU kernel
-``src/repro/kernels/ssd_scan/kernel.py:ssd_scan_pallas``. The kernel itself
-is ``src/repro_torch/csrc/ssd_scan.cu`` (CUDA C++ for ``sm_90a``, built at
-first use and loaded with ctypes); its header says what bounds it on the
-card and how its design answers that.
+The forward replaces the Pallas TPU kernel
+``src/repro/kernels/ssd_scan/kernel.py:ssd_scan_pallas``; the backward has
+no Pallas counterpart (the JAX model trains by autodiff through the jnp
+``ssd_chunked_ref``). The kernels are ``src/repro_torch/csrc/ssd_scan.cu``
+and ``ssd_scan_bwd.cu`` (CUDA C++ for ``sm_90a``, built at first use and
+loaded with ctypes); their headers say what bounds each on the card and how
+its design answers that.
 
-The input dtype chooses the kernels, and this dispatch is stated here; it
-is not a fallback, and nothing switches routes on an error. bf16 runs three
-tensor-core (``wgmma``) kernels over the chunk-parallel form (chunk states,
-the carry over chunks, the outputs) and needs P <= 128; float32 runs the
-CUDA-core kernel (``wgmma`` takes no float32, and its TF32 mode would miss
-the float32 checks at 1e-4). Every call adds one to ``launches``, whatever
-the number of kernels it runs; a bf16 call also adds one to
-``wgmma_launches``.
+The input dtype chooses the forward's kernels, and this dispatch is stated
+here; it is not a fallback, and nothing switches routes on an error. bf16
+runs three tensor-core (``wgmma``) kernels over the chunk-parallel form
+(chunk states, the carry over chunks, the outputs) and needs P <= 128;
+float32 runs the CUDA-core kernel (``wgmma`` takes no float32, and its TF32
+mode would miss the float32 checks at 1e-4). Every forward call adds one to
+``launches``, whatever the number of kernels it runs; a bf16 call also adds
+one to ``wgmma_launches``. The backward runs five CUDA-core kernels for
+either dtype (float32 math), and each launch adds one to its kernel's entry
+of ``bwd_launches``.
 
 :func:`ssd_scan` is what the model calls (``models/mamba.py``, at the
-reference's ``ssd_chunked_ref`` call site). A CUDA tensor launches the
-kernels; a CPU tensor takes the plain version,
-:func:`repro_torch.kernels.ssd_scan.ref.ssd_chunked_ref`. There is no
-fallback from one to the other. The kernels have no backward and write their
-outputs through ctypes, which autograd cannot see, so the raw wrapper
-refuses to run while autograd records.
+reference's ``ssd_chunked_ref`` call site). A CPU tensor takes the plain
+version, :func:`repro_torch.kernels.ssd_scan.ref.ssd_chunked_ref`, and
+autograd runs through it. A CUDA tensor launches the forward kernels; when
+autograd records (an input requires grad) it goes through :class:`SsdScan`,
+whose backward launches the backward kernels. There is no fallback from one
+to the other. The raw wrappers :func:`ssd_scan_cuda` and
+:func:`ssd_scan_bwd_cuda` write their outputs through ctypes, which
+autograd cannot see, so they refuse to run while autograd records.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
 SOURCE = "ssd_scan.cu"
+BWD_SOURCE = "ssd_scan_bwd.cu"
 MAX_CHUNK = 128            # the kernel's QMAX
 MAX_STATE = 128            # the kernel's NMAX
 MAX_TC_HEAD = 128          # the tensor-core kernels' largest P
@@ -44,7 +52,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 #: of those, the calls that ran the tensor-core (bf16) kernels
 wgmma_launches = 0
+#: the backward's kernels, in launch order
+BWD_KERNELS = ("ssd_bwd_state_kernel", "ssd_bwd_carry_kernel",
+               "ssd_bwd_inter_kernel", "ssd_bwd_intra_kernel",
+               "ssd_bwd_reduce_kernel")
+#: backward kernel launches since the last reset, by kernel (one per launch)
+bwd_launches = dict.fromkeys(BWD_KERNELS, 0)
 _count_lock = threading.Lock()
+_USE = ("call repro_torch.kernels.ssd_scan.ssd_scan (its SsdScan Function) "
+        "instead")
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,6 +74,60 @@ def _fn():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_fn():
+    fn = _build.load(BWD_SOURCE).repro_ssd_scan_bwd
+    # pass; x, dt, A, Bm, Cm, D, dy, dhT, dx, ddt, dA, dBm, dCm, dD, scratch;
+    # dtype, B, L, H, P, G, N, Q; stream
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def reset_counts() -> None:
+    """Zero every launch counter of the forward and the backward."""
+    global launches, wgmma_launches
+    with _count_lock:
+        launches = wgmma_launches = 0
+        bwd_launches.update(dict.fromkeys(BWD_KERNELS, 0))
+
+
+def _check(what: str, x, dt, A, Bm, Cm, D):
+    """One card, the dtypes and shapes the kernels take; returns
+    ``(B, L, H, P, G, N)``."""
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
+                    ("D", D)):
+        if t.device != x.device or t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} must be on x's card, got "
+                             f"{t.device}")
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise ValueError(f"{what}: x, Bm, Cm have dtypes {x.dtype}, "
+                         f"{Bm.dtype}, {Cm.dtype}; the kernel takes one of "
+                         "bfloat16/float32 for all three")
+    if any(t.dtype != torch.float32 for t in (dt, A, D)):
+        raise ValueError(f"{what}: dt, A and D must be float32")
+    if (dt.shape != (B, L, H) or Bm.shape != (B, L, G, N)
+            or Cm.shape != (B, L, G, N) or A.shape != (H,)
+            or D.shape != (H,) or H % G):
+        raise ValueError(f"{what}: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, Bm {tuple(Bm.shape)}, Cm "
+                         f"{tuple(Cm.shape)}, A {tuple(A.shape)}, D "
+                         f"{tuple(D.shape)}")
+    return B, L, H, P, G, N
+
+
+def _chunk_of(what: str, chunk: int, L: int, N: int) -> int:
+    Q = min(chunk, L)
+    if not (1 <= Q <= MAX_CHUNK) or N > MAX_STATE:
+        raise ValueError(f"{what}: chunk {Q} / state size {N}; the kernels "
+                         f"take chunks of at most {MAX_CHUNK} steps and "
+                         f"states of at most {MAX_STATE}")
+    return Q
+
+
 def ssd_scan_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     """Launch the CUDA kernels: the tensor-core ones for bf16, the
     CUDA-core one for float32. Returns ``(y, hT)``: y (B, L, H, P) in x's
@@ -65,34 +135,9 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     or float32) and are read through their strides; dt, A and D are
     float32."""
     global launches, wgmma_launches
-    _build.refuse_grad("ssd_scan_cuda", "the SSD scan has no backward "
-                       "kernel yet (ROADMAP Queue 2 item 4): run it under "
-                       "torch.no_grad()", x, dt, A, Bm, Cm, D)
-    B, L, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
-                    ("D", D)):
-        if t.device != x.device or t.device.type != "cuda":
-            raise ValueError(f"ssd_scan: {name} must be on x's card, got "
-                             f"{t.device}")
-    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
-        raise ValueError(f"ssd_scan: x, Bm, Cm have dtypes {x.dtype}, "
-                         f"{Bm.dtype}, {Cm.dtype}; the kernel takes one of "
-                         "bfloat16/float32 for all three")
-    if any(t.dtype != torch.float32 for t in (dt, A, D)):
-        raise ValueError("ssd_scan: dt, A and D must be float32")
-    if (dt.shape != (B, L, H) or Bm.shape != (B, L, G, N)
-            or Cm.shape != (B, L, G, N) or A.shape != (H,)
-            or D.shape != (H,) or H % G):
-        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
-                         f"{tuple(dt.shape)}, Bm {tuple(Bm.shape)}, Cm "
-                         f"{tuple(Cm.shape)}, A {tuple(A.shape)}, D "
-                         f"{tuple(D.shape)}")
-    Q = min(chunk, L)
-    if not (1 <= Q <= MAX_CHUNK) or N > MAX_STATE:
-        raise ValueError(f"ssd_scan: chunk {Q} / state size {N}; the kernel "
-                         f"takes chunks of at most {MAX_CHUNK} steps and "
-                         f"states of at most {MAX_STATE}")
+    _build.refuse_grad("ssd_scan_cuda", _USE, x, dt, A, Bm, Cm, D)
+    B, L, H, P, G, N = _check("ssd_scan", x, dt, A, Bm, Cm, D)
+    Q = _chunk_of("ssd_scan", chunk, L, N)
     tc = x.dtype == torch.bfloat16
     if tc and P > MAX_TC_HEAD:
         raise ValueError(f"ssd_scan: head dim {P}; the bf16 (tensor-core) "
@@ -122,10 +167,83 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     return y, hT
 
 
+def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, dhT=None, *,
+                      chunk: int = 128):
+    """Launch the backward kernels (five passes, CUDA cores, float32 math)
+    on the forward's inputs and the cotangents ``dy`` (x's shape and dtype)
+    and ``dhT`` ((B, H, P, N) float32, or None for zero). Returns ``(dx,
+    ddt, dA, dBm, dCm, dD)`` in the inputs' dtypes: the gradient of
+    :func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked_ref`'s ``(y, hT)``
+    with ``h0`` None, as :func:`~repro_torch.kernels.ssd_scan.ref
+    .ssd_chunked_bwd_ref` computes it."""
+    _build.refuse_grad("ssd_scan_bwd_cuda", _USE, x, dt, A, Bm, Cm, D, dy)
+    B, L, H, P, G, N = _check("ssd_scan backward", x, dt, A, Bm, Cm, D)
+    Q = _chunk_of("ssd_scan backward", chunk, L, N)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"ssd_scan backward: dy {dy.dtype} "
+                         f"{tuple(dy.shape)} must match x {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if dhT is not None and (dhT.shape != (B, H, P, N)
+                            or dhT.dtype != torch.float32
+                            or dhT.device != x.device):
+        raise ValueError(f"ssd_scan backward: dhT must be float32 "
+                         f"{(B, H, P, N)} on x's card, got {dhT.dtype} "
+                         f"{tuple(dhT.shape)}")
+    x, dt, A, Bm, Cm, D, dy = (t.contiguous()
+                               for t in (x, dt, A, Bm, Cm, D, dy))
+    dhT = None if dhT is None else dhT.contiguous()
+    dx, ddt, dA = (torch.empty_like(t) for t in (x, dt, A))
+    dBm, dCm, dD = (torch.empty_like(t) for t in (Bm, Cm, D))
+    nc = -(-L // Q)
+    # chunk states and carries, per-head dx/dB/dC terms, scalars (Args in
+    # the source)
+    scratch = torch.empty(2 * B * H * nc * P * N + 2 * B * H * nc
+                          + B * L * H * (P + 2 * N + 2) + 2 * B * nc * H,
+                          dtype=torch.float32, device=x.device)
+    ptrs = (x, dt, A, Bm, Cm, D, dy, dhT, dx, ddt, dA, dBm, dCm, dD,
+            scratch)
+    ptrs = [None if t is None else t.data_ptr() for t in ptrs]
+    fn = _bwd_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for i, name in enumerate(BWD_KERNELS):
+            err = fn(i, *ptrs, _DTYPES[x.dtype], B, L, H, P, G, N, Q, stream)
+            _build.check(err, f"ssd_scan backward ({name})")
+            with _count_lock:
+                bwd_launches[name] += 1
+    return dx, ddt, dA, dBm, dCm, dD
+
+
+class SsdScan(torch.autograd.Function):
+    """The SSD scan on the card with a backward: the forward kernels, then
+    the backward kernels on the saved inputs (the chunk states are
+    recomputed there, not kept)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, chunk: int):
+        y, hT = ssd_scan_cuda(x, dt, A, Bm, Cm, D, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, dt, A, Bm, Cm, D = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, dhT,
+                                  chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     """The SSD chunked scan ``(y, hT)`` over chunks of ``min(chunk, L)``
-    steps. CUDA tensors launch the kernels; CPU tensors take the plain
-    version."""
+    steps: the CUDA kernels for CUDA tensors (through :class:`SsdScan`
+    when autograd records), the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm, D)):
+        return SsdScan.apply(x, dt, A, Bm, Cm, D, chunk)
     return ssd_scan_cuda(x, dt, A, Bm, Cm, D, chunk=chunk)

@@ -6,15 +6,17 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --mesh 1x2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --smoke --device cpu --mesh 1x2
 
 Port of ``repro/launch/serve.py:80-150`` (``continuous_batching``): requests
 with differing generation lengths are packed into decode slots, finished
 requests retire and queued ones are admitted mid-flight, and the stage
 actors overlap across request groups. Runs on the card by default
 (``--device cuda``); ``--device cpu --smoke`` runs the reduced config on the
-plain PyTorch path. ``--mesh DxM`` serves a dense model on a ``("data",
-"model")`` mesh of D x M ranks (threads; on one card every rank shares
-it), as the reference's ``launch/serve.py:130-141`` does. Weights are the
+plain PyTorch path. ``--mesh DxM`` serves a dense or Mamba-2 model on a
+``("data", "model")`` mesh of D x M ranks (threads; on one card every rank
+shares it), as the reference's ``launch/serve.py:130-141`` does. Weights are the
 port's seeded init (``--seed``).
 """
 from __future__ import annotations

@@ -5,6 +5,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --mesh 1x2 --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+        --smoke --device cpu --steps 5
 
 The flags are the reference's (``repro/launch/train.py``) plus ``--device``
 (default: the card). ``--smoke`` uses the reduced config. ``--mesh DxM``

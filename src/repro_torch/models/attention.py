@@ -35,8 +35,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mesh as M
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import combine_partials, flash_decode
-from repro_torch.models.common import (Boxer, MeshPlan, apply_rope,
-                                       dense_init, param, rms_norm)
+from repro_torch.models.common import (  # noqa: F401 (re-exported)
+    MODEL_GRAD_SUM_LEAVES, Boxer, MeshPlan, apply_rope, dense_init, param,
+    rms_norm)
 
 
 def q_heads_local(cfg: ModelConfig, plan: MeshPlan) -> int:
@@ -50,18 +51,6 @@ def kv_heads_local(cfg: ModelConfig, plan: MeshPlan) -> int:
         return kv // tp
     assert tp % kv == 0, (kv, tp)
     return 1
-
-
-#: The leaves replicated over ``model`` that each rank uses only in part:
-#: its kv group's columns of ``wk``/``wv``/``bk``/``bv`` (:func:`_kv_slice`)
-#: and the q/k norms over its local heads. A rank's gradient of one is its
-#: disjoint part of the true one, so training psums it over ``model`` after
-#: the backward (the attention half of the reference's
-#: ``_MODEL_GRAD_SUM_LEAVES``, ``repro/train/steps.py:75-81``; JAX's
-#: autodiff adds them implicitly). With kv heads < tp the ranks of a group
-#: share a head, and the psum adds their parts alike.
-MODEL_GRAD_SUM_LEAVES = frozenset({"wk", "wv", "bk", "bv", "q_norm",
-                                   "k_norm"})
 
 
 def _kv_slice(w, cfg: ModelConfig, plan: MeshPlan, hd: int):

@@ -29,6 +29,20 @@ from repro_torch.core.sbp import Split, ndsbp
 from repro_torch.core.tape import Step
 
 
+#: The leaves replicated over ``model`` that each rank uses only in part:
+#: attention's kv-group columns of ``wk``/``wv``/``bk``/``bv``
+#: (``attention.py:_kv_slice``) and the q/k norms over its local heads, and
+#: Mamba's ``w_bc`` and ``conv_bc``, whose B and C feed only the rank's
+#: local heads. A rank's gradient of one is its disjoint part of the true
+#: one, so training psums it over ``model`` after the backward (the
+#: reference's ``_MODEL_GRAD_SUM_LEAVES``, ``repro/train/steps.py:79-80``,
+#: less ``router``, whose MoE layers the port does not build; JAX's autodiff
+#: adds them implicitly). With kv heads < tp the ranks of a group share a
+#: head, and the psum adds their parts alike.
+MODEL_GRAD_SUM_LEAVES = frozenset({"wk", "wv", "bk", "bv", "q_norm",
+                                   "k_norm", "w_bc", "conv_bc"})
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshPlan:
     """How the mesh axes are used by the model code."""

@@ -1,13 +1,27 @@
-"""Mamba-2 (SSD) block: the prefill and one-token decode halves.
+"""Mamba-2 (SSD) block: the prefill and one-token decode halves,
+tensor-parallel over SSM heads.
 
-Port of ``repro/models/mamba.py`` at tp = 1 (the reference shards SSM heads
-over the model axis; here every boxing op is the identity). The kernel call
-site is the reference's: :func:`mamba_forward` calls
+Port of ``repro/models/mamba.py``. On a ``("data", "model")`` mesh each
+rank holds its shards under the reference's ``mamba_specs``
+(``mamba.py:50-59``; :func:`repro_torch.models.transformer.block_specs`):
+``w_x``, ``w_z``, ``w_dt`` S(1) (the head-structured columns); ``w_bc`` and
+``conv_bc`` replicated (the G groups of B and C serve every head);
+``conv_x``, ``A_log``, ``D``, ``dt_bias`` and ``norm_w`` S(0) (per head);
+``out_proj`` S(0), so the block's output is P(sum), psummed by the caller.
+The functions here run on one rank's shards and read every width from
+them; at tp = 1 the shards are the whole weights. The gated RMSNorm before
+``out_proj`` normalises over the rank's *local* channels, as the
+reference's does: a GroupNorm with groups == tp (exact at tp = 1), so a
+mesh with tp > 1 gives the reference's numbers on that mesh, not one
+device's.
+
+The kernel call site is the reference's: :func:`mamba_forward` calls
 :func:`repro_torch.kernels.ssd_scan.ssd_scan` where the reference calls
 ``ssd_chunked_ref`` (``mamba.py:107``), so a CUDA tensor launches the
-Hopper kernel and a CPU tensor runs the plain version. The one-token
-:func:`mamba_decode` runs :func:`ssd_decode_step` in eager PyTorch, as the
-reference runs it in jnp (it has no kernel either).
+Hopper kernels (with their backward when autograd records) and a CPU
+tensor runs the plain version. The one-token :func:`mamba_decode` runs
+:func:`ssd_decode_step` in eager PyTorch, as the reference runs it in jnp
+(it has no kernel either).
 
 Weights are cast to the activations' dtype at each use, as the reference
 casts ``p[...].astype(x.dtype)``; ``dt_bias``, ``A_log`` and ``D`` are read
@@ -100,10 +114,12 @@ def _dt_and_a(p: Mamba, dt_raw):
 
 def mamba_forward(p: Mamba, x, cfg: ModelConfig, plan: MeshPlan,
                   return_state: bool = False):
-    """x: (B, S, d) -> the block's output (B, S, d). With ``return_state``
-    also ``(ssm_state, (tail_x, tail_bc))`` for decoding: the final SSD
-    state (B, heads, P, N) in float32 and the last ``d_conv - 1`` rows of
-    the convolutions' inputs, in x's dtype."""
+    """x: (B, S, d), replicated over ``model`` -> the block's output (B, S,
+    d), P(sum) over ``model`` (the rank's local heads' part). With
+    ``return_state`` also ``(ssm_state, (tail_x, tail_bc))`` for decoding:
+    the final SSD state (B, local heads, P, N) in float32 and the last
+    ``d_conv - 1`` rows of the convolutions' inputs (local channels of x,
+    all of B and C), in x's dtype."""
     B, S, d = x.shape
     nh_l = cfg.ssm_heads // plan.tp
     P_hd = cfg.ssm_head_dim
@@ -135,8 +151,9 @@ def mamba_forward(p: Mamba, x, cfg: ModelConfig, plan: MeshPlan,
 
 def mamba_decode(p: Mamba, x, state, cfg: ModelConfig, plan: MeshPlan):
     """Single-token step. x: (B, 1, d); state: (ssm_state, tail_x, tail_bc)
-    with ssm_state (B, heads, P, N), tail_x (B, d_conv-1, d_inner),
-    tail_bc (B, d_conv-1, 2GN). Returns ``(out (B, 1, d), new_state)``."""
+    with ssm_state (B, local heads, P, N), tail_x (B, d_conv-1, local
+    d_inner), tail_bc (B, d_conv-1, 2GN). Returns ``(out (B, 1, d) P(sum)
+    over model, new_state)``."""
     B = x.shape[0]
     nh_l = cfg.ssm_heads // plan.tp
     P_hd = cfg.ssm_head_dim
@@ -169,8 +186,9 @@ def mamba_decode(p: Mamba, x, state, cfg: ModelConfig, plan: MeshPlan):
 
 def init_mamba_state(cfg: ModelConfig, plan: MeshPlan, batch: int,
                      dtype=torch.bfloat16, device=None):
-    """Zeroed decode state ``(h, tail_x, tail_bc)``: h (B, heads, P, N)
-    float32, the tails (B, d_conv-1, ...) in ``dtype``."""
+    """Zeroed decode state ``(h, tail_x, tail_bc)`` of one rank: h (B,
+    local heads, P, N) float32, the tails (B, d_conv-1, ...) in ``dtype``
+    (x's local channels, all of B and C)."""
     nh_l = cfg.ssm_heads // plan.tp
     di_l = nh_l * cfg.ssm_head_dim
     h = torch.zeros((batch, nh_l, cfg.ssm_head_dim, cfg.ssm_d_state),

@@ -7,8 +7,9 @@ init/loss/prefill/decode closures becomes the
 its config and plan), :func:`loss_fn`, and decode caches as one dict per
 layer: ``{"k", "v"}`` for attention, ``{"h", "tail_x", "tail_bc"}`` for
 an SSM layer. On a mesh each rank holds its block of every cache
-(:func:`cache_specs`): the batch over the data axes, and a GQA layer's
-k/v also over ``model`` by sequence.
+(:func:`cache_specs`): the batch over the data axes, a GQA layer's k/v
+also over ``model`` by sequence, an SSM layer's state over ``model`` by
+head and its x conv tail by channel.
 """
 from __future__ import annotations
 
@@ -68,17 +69,16 @@ def cache_specs(cfg: ModelConfig, plan: MeshPlan,
                 batch_axes: Sequence[str]) -> List[Dict[str, NdSbp]]:
     """Each layer's NdSbp per cache leaf (``repro/models/model_zoo.py:
     108-140``): the batch (dim 0) split over ``batch_axes`` -- the data
-    axes for a slot group's cache, none for an admission prefill's -- and
-    a GQA layer's k/v also split by sequence (dim 1) over the model
-    axis."""
-    comps = ",".join("S(0)" if n in batch_axes else
-                     "S(1)" if n == plan.model_axis else "B"
-                     for n in plan.axis_names)
-    out = []
-    for kind, _ in T.stack_layout(cfg).layer_kinds():
-        if kind != "attn":
-            raise NotImplementedError(
-                f"{kind} caches on a mesh are not ported yet (ROADMAP "
-                "Queue 1 item 8c)")
-        out.append({"k": ndsbp(comps), "v": ndsbp(comps)})
-    return out
+    axes for a slot group's cache, none for an admission prefill's; a GQA
+    layer's k/v split by sequence (dim 1) over the model axis; an SSM
+    layer's ``h (B, heads, P, N)`` by head (dim 1) and ``tail_x (B,
+    d_conv-1, d_inner)`` by channel (dim 2), ``tail_bc`` replicated."""
+    def comps(model_comp: str) -> NdSbp:
+        return ndsbp(",".join("S(0)" if n in batch_axes else
+                              model_comp if n == plan.model_axis else "B"
+                              for n in plan.axis_names))
+    by_kind = {"attn": {"k": comps("S(1)"), "v": comps("S(1)")},
+               "ssm": {"h": comps("S(1)"), "tail_x": comps("S(2)"),
+                       "tail_bc": comps("B")}}
+    return [dict(by_kind[kind])
+            for kind, _ in T.stack_layout(cfg).layer_kinds()]

@@ -3,11 +3,11 @@
 Port of ``repro/models/transformer.py`` for the ``attn``/``dense`` layer
 kinds (dense GQA decoders such as qwen3, llama3, qwen2.5) and the
 ``ssm``/``none`` kind (attention-free Mamba-2 stacks such as mamba2-370m):
-the serving half (prefill and decode over stack slices; attn/dense stacks
-also tensor- and data-parallel on a ``("data", "model")`` mesh, one call
-per rank inside :func:`repro_torch.core.mesh.spmd`) and, for attn/dense
-stacks, the training half at tp = 1 (:func:`lm_loss`, :func:`_run_body`,
-:func:`forward_loss`). The
+the serving half (prefill and decode over stack slices) and the training
+half (:func:`lm_loss`, :func:`_run_body`, :func:`forward_loss` on one
+device, :func:`mesh_loss_program` on a mesh), each also tensor- and
+data-parallel on a ``("data", "model")`` mesh, one call per rank inside
+:func:`repro_torch.core.mesh.spmd`. The
 reference stacks each period slot's params over periods and scans them;
 here a model is an ``nn.Module`` holding a flat ``blocks`` list in layer
 order, and :mod:`repro_torch.models.convert` maps the reference's stacked
@@ -21,9 +21,11 @@ On a mesh each rank holds its shard of every parameter under
 :func:`model_specs` (cut by :func:`shard_params`): the heads and the MLP's
 hidden units over ``model`` (column-parallel ``wq``, ``w_gate``, ``w_up``,
 row-parallel ``wo``, ``w_down``, whose outputs are P(sum) and psummed by
-:func:`apply_block` / :func:`decode_block`), the vocabulary over ``model``
-(:func:`embed_tokens` masks and psums; the head's logits are S(1)), and
-everything replicated over ``data``.
+:func:`apply_block` / :func:`decode_block`), an SSM layer's heads likewise
+(``repro_torch.models.mamba``: ``w_x``/``w_z``/``w_dt`` column-parallel,
+``out_proj`` row-parallel, ``w_bc``/``conv_bc`` replicated), the
+vocabulary over ``model`` (:func:`embed_tokens` masks and psums; the
+head's logits are S(1)), and everything replicated over ``data``.
 """
 from __future__ import annotations
 
@@ -112,31 +114,16 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_mesh_supported(cfg: ModelConfig, plan: MeshPlan) -> None:
-    """Raise for what this package cannot run on a mesh beyond 1 x 1 yet:
-    SSM layers (heads-sharded SSM state, the scan at local heads)."""
-    if not plan.is_single and has_ssm_layers(cfg):
-        raise NotImplementedError(
-            f"{cfg.name} on a {dict(zip(plan.axis_names, plan.axis_sizes))} "
-            "mesh: Mamba and hybrid stacks on a mesh (heads-sharded SSM "
-            "state, the SSD scan at local heads) are the rest of ROADMAP "
-            "Queue 1 item 8c(ii), not ported yet; dense GQA stacks serve "
-            "and train there")
+    """Raise where ``plan``'s model axis cannot split ``cfg``'s SSM heads
+    (each rank runs ``ssm_heads / tp`` of them)."""
+    if has_ssm_layers(cfg) and cfg.ssm_heads % plan.tp:
+        raise ValueError(f"{cfg.name}: {cfg.ssm_heads} SSM heads do not "
+                         f"split over tp = {plan.tp} ranks")
 
 
 def has_ssm_layers(cfg: ModelConfig) -> bool:
     """Whether any layer of ``cfg`` is an SSM (Mamba-2) layer."""
     return any(k == "ssm" for k, _ in stack_layout(cfg).layer_kinds())
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for what this package cannot train yet: SSM layers, whose SSD
-    scan kernel has no backward."""
-    check_supported(cfg)
-    if has_ssm_layers(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: training SSM layers needs the backward of the SSD "
-            "scan kernel, not ported yet (ROADMAP Queue 2 item 4); the port "
-            "serves these layers")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -259,16 +246,16 @@ def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
     prefill cache dtype): unpadded at tp = 1, and at tp > 1 padded to
     ``cache_len`` and boxed to this rank's sequence block
     (:func:`~repro_torch.models.attention.kv_to_seq_sharded`); an SSM
-    layer's holds the final state ``h`` and the conv tails. The stage's
-    ``write_slot`` places either in the group cache."""
+    layer's holds the final state ``h`` of the rank's heads and the conv
+    tails. The stage's ``write_slot`` places either in the group cache."""
     psum = Boxer(plan).psum_model        # the branch P(sum) -> B
     h = rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps)
     if kind == "ssm":
         if not want_cache:
-            return x + mamba_forward(p.ssm, h, cfg, plan), None
+            return x + psum(mamba_forward(p.ssm, h, cfg, plan)), None
         a, (hs, (tx, tbc)) = mamba_forward(p.ssm, h, cfg, plan,
                                            return_state=True)
-        return x + a, {"h": hs, "tail_x": tx, "tail_bc": tbc}
+        return x + psum(a), {"h": hs, "tail_x": tx, "tail_bc": tbc}
     a, (k, v) = gqa_forward(p.attn, h, cfg, plan, positions, causal=causal,
                             sliding_window=sliding_window)
     cache = None
@@ -287,14 +274,14 @@ def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
                  cfg: ModelConfig, plan: MeshPlan, kind: str, mlp_kind: str,
                  sliding_window: int = 0):
     """Single-token step; updates ``cache`` in place. Returns (x, cache)."""
+    psum = Boxer(plan).psum_model        # the branch P(sum) -> B
     h = rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps)
     if kind == "ssm":
         a, state = mamba_decode(p.ssm, h, (cache["h"], cache["tail_x"],
                                            cache["tail_bc"]), cfg, plan)
         for key, new in zip(("h", "tail_x", "tail_bc"), state):
             cache[key].copy_(new)
-        return x + a, cache
-    psum = Boxer(plan).psum_model        # the branch P(sum) -> B
+        return x + psum(a), cache
     x = x + psum(gqa_decode(p.attn, h, cache["k"], cache["v"], pos, cfg,
                             plan, sliding_window))
     h2 = rms_norm(x, p.ln2.to(x.dtype), cfg.norm_eps)
@@ -358,16 +345,21 @@ def _spec(plan: MeshPlan, model_comp: str) -> NdSbp:
 
 def block_specs(cfg: ModelConfig, plan: MeshPlan, kind: Kind
                 ) -> Dict[str, NdSbp]:
-    """One attn/dense block's NdSbp per parameter, by its name in the
-    block (``repro/models/transformer.py:103-121``, ``attention.py:93-103``,
-    ``mlp.py:38-48``): ``wq`` S(1) and ``wo`` S(0) (heads), ``wk``/``wv``
-    replicated (each rank slices its kv group), ``w_gate``/``w_up`` S(1)
-    and ``w_down`` S(0) (hidden units), norms replicated."""
-    if kind != ("attn", "dense"):
-        raise NotImplementedError(
-            f"{kind[0]}/{kind[1]} blocks on a mesh are not ported yet "
-            "(ROADMAP Queue 1 item 8c)")
+    """One block's NdSbp per parameter, by its name in the block
+    (``repro/models/transformer.py:103-121``). attn/dense
+    (``attention.py:93-103``, ``mlp.py:38-48``): ``wq`` S(1) and ``wo``
+    S(0) (heads), ``wk``/``wv`` replicated (each rank slices its kv group),
+    ``w_gate``/``w_up`` S(1) and ``w_down`` S(0) (hidden units), norms
+    replicated. ssm/none (``mamba.py:50-59``): ``w_x``, ``w_z``, ``w_dt``
+    S(1); ``w_bc``, ``conv_bc`` replicated; ``conv_x``, ``A_log``, ``D``,
+    ``dt_bias``, ``norm_w`` and ``out_proj`` S(0); ``ln1`` replicated."""
     S0, S1, B_ = _spec(plan, "S(0)"), _spec(plan, "S(1)"), _spec(plan, "B")
+    if kind == ("ssm", "none"):
+        return {"ln1": B_, **{"ssm." + n: v for n, v in (
+            ("w_x", S1), ("w_z", S1), ("w_bc", B_), ("w_dt", S1),
+            ("dt_bias", S0), ("A_log", S0), ("D", S0), ("conv_x", S0),
+            ("conv_bc", B_), ("norm_w", S0), ("out_proj", S0))}}
+    assert kind == ("attn", "dense"), kind
     out = {"ln1": B_, "ln2": B_, "attn.wq": S1, "attn.wk": B_,
            "attn.wv": B_, "attn.wo": S0, "mlp.w_gate": S1, "mlp.w_up": S1,
            "mlp.w_down": S0}
@@ -396,10 +388,14 @@ def model_specs(cfg: ModelConfig, plan: MeshPlan) -> Dict[str, NdSbp]:
 
 def spec_of(name: str, cfg: ModelConfig, plan: MeshPlan) -> NdSbp:
     """The NdSbp of the parameter ``name`` of a ``Transformer`` or of a
-    stage's slice of it (``blocks.<i>.<leaf>``, ``embed``, ...)."""
+    stage's slice of it (``blocks.<i>.<leaf>``, ``embed``, ...). A block's
+    kind is its own, read from its leaf (``ssm.*`` or ``attn.*``/``mlp.*``;
+    ``ln1`` is replicated in either), since a stage's slice renumbers its
+    blocks from 0."""
     parts = name.split(".")
     if parts[0] == "blocks":
-        return block_specs(cfg, plan, ("attn", "dense"))[".".join(parts[2:])]
+        kind = ("ssm", "none") if parts[2] == "ssm" else ("attn", "dense")
+        return block_specs(cfg, plan, kind)[".".join(parts[2:])]
     return _spec(plan, _TOP_SPECS[name])
 
 
@@ -481,10 +477,11 @@ def _run_body(model: Transformer, x, cfg: ModelConfig, plan: MeshPlan,
 
 def forward_loss(model: Transformer, batch, cfg: ModelConfig,
                  plan: MeshPlan, remat: bool = True):
-    """Training loss of a dense decoder. batch: ``{"tokens": (B, S+1)}``
-    int32 (numpy or torch). Returns ``(loss, metrics)`` with metrics
-    ``lm_loss``, ``aux_loss`` (0: no router) and ``loss``."""
-    check_trainable(cfg)
+    """Training loss of a dense or SSM decoder on one device. batch:
+    ``{"tokens": (B, S+1)}`` int32 (numpy or torch). Returns ``(loss,
+    metrics)`` with metrics ``lm_loss``, ``aux_loss`` (0: no router) and
+    ``loss``."""
+    check_supported(cfg)
     dev = model.embed.device
     tokens = torch.as_tensor(batch["tokens"], dtype=torch.int32, device=dev)
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
@@ -538,7 +535,7 @@ def loss_steps(h: str, plan: MeshPlan) -> List[Step]:
 
 def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
                       remat: bool = True) -> LocalProgram:
-    """The training loss of a dense decoder on one rank of a
+    """The training loss of a dense or SSM decoder on one rank of a
     ``("data", "model")`` mesh, as a program for the training tape
     (:func:`repro_torch.core.tape.taped_forward`): local segments between
     the model's collectives, every collective a tape entry with its
@@ -552,8 +549,10 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
     "f" (:func:`~repro_torch.models.common.grad_sync_step`), attention on
     the rank's heads, the branch psum "g"
     (:func:`~repro_torch.models.common.branch_psum_step`), the residual
-    and norm, "f", the MLP on the rank's units, "g". The f sits after each
-    norm, so a replicated norm's gradient comes out whole on every rank.
+    and norm, "f", the MLP on the rank's units, "g"; an SSM block is the
+    norm, "f", Mamba on the rank's heads, "g" and the residual. The f sits
+    after each norm, so a replicated norm's gradient comes out whole on
+    every rank.
     The embedding is :func:`embed_local` and a "g"; the loss is
     :func:`loss_steps` after the final norm and an "f". At tp = 1 (a data
     mesh, or ``fsdp``) there is no "f" or "g", and the loss is
@@ -563,11 +562,13 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
     again in the backward: the reference's policy, which saves the psum
     outputs and recomputes the local math between them (``:371-380``);
     the loss segment runs once."""
-    check_trainable(cfg)
+    check_supported(cfg)
     cdt = compute_dtype(cfg)
     eps, tp = cfg.norm_eps, plan.tp
     attn_names = [k for k in block_specs(cfg, plan, ("attn", "dense"))
                   if k.startswith("attn.")]
+    ssm_names = [k for k in block_specs(cfg, plan, ("ssm", "none"))
+                 if k.startswith("ssm.")]
     steps: List[Step] = []
 
     def local(fn, ins, outs, rm=remat):
@@ -599,6 +600,11 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
         positions = torch.arange(h.shape[1], device=h.device)
         return gqa_forward(p, h, cfg, plan, positions)[0]
 
+    def mamba(h, *ws):
+        p = SimpleNamespace(**{n[len("ssm."):]: w
+                               for n, w in zip(ssm_names, ws)})
+        return mamba_forward(p, h, cfg, plan)
+
     def mlp(h, w_gate, w_up, w_down):
         return dense_mlp_forward(
             SimpleNamespace(w_gate=w_gate, w_up=w_up, w_down=w_down), h)
@@ -609,10 +615,14 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
     local(lambda E, t: embed_local(E, t[:, :-1], plan), ("embed", "tokens"),
           (name("e"),), rm=False)
     residual = [g(name("e"))]
-    for i in range(cfg.num_layers):
+    for i, (kind, _) in enumerate(stack_layout(cfg).layer_kinds()):
         b = f"blocks.{i}."
         x, h, a = name(f"x{i}"), name(f"h{i}"), name(f"a{i}")
         local(add_norm, (*residual, b + "ln1"), (x, h))
+        if kind == "ssm":
+            local(mamba, (f(h), *[b + n for n in ssm_names]), (a,))
+            residual = [x, g(a)]
+            continue
         local(attention, (f(h), *[b + n for n in attn_names]), (a,))
         xm, h2, mo = name(f"xm{i}"), name(f"h2_{i}"), name(f"mlp{i}")
         local(add_norm, (x, g(a), b + "ln2"), (xm, h2))

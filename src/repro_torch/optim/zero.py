@@ -45,8 +45,7 @@ import torch
 
 from repro_torch.core import mesh as M
 from repro_torch.core.sbp import NdSbp, Split, ndsbp
-from repro_torch.models.attention import MODEL_GRAD_SUM_LEAVES
-from repro_torch.models.common import MeshPlan
+from repro_torch.models.common import MODEL_GRAD_SUM_LEAVES, MeshPlan
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState,
                                      adamw_param_update, adamw_update)
 
@@ -58,11 +57,11 @@ class ZeroState(NamedTuple):
 
 
 #: Model-replicated leaves whose per-rank gradients are DISJOINT parts (each
-#: rank's heads reach only its kv group's columns and its heads' norms):
-#: the port's :data:`repro_torch.models.attention.MODEL_GRAD_SUM_LEAVES`.
-#: The reference's set (``repro/optim/zero.py:43-44``) adds ``w_bc``,
-#: ``conv_bc`` and ``router``, leaves of the Mamba and MoE layers the port
-#: does not run on a mesh yet (ROADMAP Queue 1 items 8c and 13).
+#: rank's heads reach only its kv group's columns, its heads' norms, and
+#: the B and C projections its SSM heads read): the port's
+#: :data:`repro_torch.models.common.MODEL_GRAD_SUM_LEAVES`. The reference's
+#: set (``repro/optim/zero.py:43-44``) adds ``router``, a leaf of the MoE
+#: layers the port does not build yet (ROADMAP Queue 1 item 13).
 MODEL_SUM_LEAVES = MODEL_GRAD_SUM_LEAVES
 
 

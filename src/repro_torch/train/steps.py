@@ -28,13 +28,15 @@ the ``model`` combine of the model-disjoint leaves and
 :class:`~repro_torch.models.transformer.Transformer` module (float32,
 updated in place); on a mesh each rank owns a copy of its shard of every
 param and its own AdamW state (:class:`MeshParams`), the model-disjoint
-leaves (:data:`repro_torch.models.attention.MODEL_GRAD_SUM_LEAVES`) are
+leaves (:data:`repro_torch.models.common.MODEL_GRAD_SUM_LEAVES`) are
 psummed over ``model`` after the backward and the update all-reduces over
 ``data``.
 
-Not ported yet: SSM layers on a mesh (ROADMAP Queue 1 item 8c) and in
-training at all (the SSD scan's backward, Queue 2 item 4); both raise
-before any path is chosen.
+Every path trains dense GQA stacks and Mamba-2 (SSM) stacks alike, on one
+device and on any ``(data, model)`` mesh whose model axis splits the heads;
+on the card an SSM layer's scan runs the SSD kernels forward and backward
+(:class:`repro_torch.kernels.ssd_scan.kernel.SsdScan`). Hybrid and MoE
+stacks raise before any path is chosen (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -51,12 +53,12 @@ from repro_torch.core.placement import Placement
 from repro_torch.core.sbp import Split
 from repro_torch.core.tape import (INTERNAL, LocalProgram, Step,
                                    taped_backward, taped_forward)
-from repro_torch.models.attention import MODEL_GRAD_SUM_LEAVES
-from repro_torch.models.common import MeshPlan, resolve_device
+from repro_torch.models.common import (MODEL_GRAD_SUM_LEAVES, MeshPlan,
+                                       resolve_device)
 from repro_torch.models.convert import jax_leaves
 from repro_torch.models.model_zoo import build_model, loss_fn
 from repro_torch.models.transformer import (Transformer, check_mesh_supported,
-                                            check_trainable, compute_dtype,
+                                            check_supported, compute_dtype,
                                             mesh_loss_program, model_specs,
                                             shard_params)
 from repro_torch.optim.adamw import AdamWConfig, AdamWState, init_adamw
@@ -144,8 +146,8 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
     if fsdp:
         plan = MeshPlan(plan.axis_names, plan.axis_sizes,
                         model_axis="__fsdp_none__")
+    check_supported(cfg)
     check_mesh_supported(cfg, plan)
-    check_trainable(cfg)
     optimizer = optimizer or AdamWConfig()
     device = resolve_device(device)
     order = [n for _, names in jax_leaves(cfg) for n in names]

@@ -24,7 +24,11 @@ version's autograd on float32 copies of the same inputs, as chip_smoke.py
 holds the training shape. The SSD scan likewise runs bf16 through its
 tensor-core kernels (chunk states, carry, outputs) and float32 through its
 CUDA-core kernel, and its bf16 cases are also held to the plain version on
-float32 copies. Flash decode combines its splits inside the kernel, in a
+float32 copies. The SSD scan's backward kernels (five, float32 math for
+either dtype) are held to ``ssd_chunked_bwd_ref`` over the same cases and
+mamba2's training layer, relative error in norm 1e-4 for float32 outputs
+and 1e-2 for bf16 ones, and ``SsdScan`` under autograd to autograd through
+the plain version on float32 copies. Flash decode combines its splits inside the kernel, in a
 thread-block cluster, and its wrapper keeps no state between calls. On a
 mesh, the xent kernels run on vocab shards at offsets 0 and V/2, and one
 graph train step on two ranks of the card (a 60 s session timeout, which
@@ -762,6 +766,96 @@ def test_ssd_raw_wrapper_refuses_under_grad(cuda):
     with pytest.raises(RuntimeError, match="cut the autograd graph"):
         ssd.ssd_scan_cuda(*args, chunk=Q)
     assert ssd.launches == before
+
+
+# the backward: the cases above, and the mamba2 training layer's shape
+SSD_BWD_CASES = SSD_CASES + [
+    (2, 2048, 32, 64, 128, 1, 128, "bfloat16"),          # mamba2 training
+    (1, 300, 4, 64, 128, 1, 128, "float32"),             # 3 chunks, ragged
+]
+
+
+def _rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("with_dhT", [True, False], ids=["dhT", "no_dhT"])
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+def test_ssd_scan_backward_kernels_match_plain(cuda, case, with_dhT):
+    """The backward kernels against ``ssd_chunked_bwd_ref`` on the same
+    inputs (the plain version upcasts bf16 to float32, so this is also the
+    comparison on float32 copies). Relative error in norm: 1e-4 for the
+    float32 outputs (dt, A, D always; every output of a float32 case: the
+    same float32 arithmetic summed in another order), 1e-2 for bf16 ones
+    (one bf16 rounding of each element, 2^-9, on top). Every kernel of the
+    backward launches once."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref
+    args, Q = _ssd_case(case, cuda, seed=3)
+    B, L, H, P, N = case[:5]
+    rng = np.random.default_rng(4)
+    dy = _randn(rng, (B, L, H, P), case[-1], cuda)
+    dhT = (_randn(rng, (B, H, P, N), "float32", cuda) if with_dhT
+           else None)
+    before = dict(ssd.bwd_launches)
+    got = ssd.ssd_scan_bwd_cuda(*args, dy, dhT, chunk=Q)
+    torch.cuda.synchronize()
+    assert {k: ssd.bwd_launches[k] - before[k] for k in ssd.BWD_KERNELS} \
+        == dict.fromkeys(ssd.BWD_KERNELS, 1)
+    want = ssd_chunked_bwd_ref(*args, dy, dhT, chunk=Q)
+    for name, g, w, a in zip(("x", "dt", "A", "Bm", "Cm", "D"), got, want,
+                             args):
+        assert g.dtype == a.dtype and g.shape == a.shape, name
+        assert torch.isfinite(g).all(), name
+        limit = 1e-2 if g.dtype == torch.bfloat16 else 1e-4
+        err = _rel(g, w)
+        assert err <= limit, f"d{name}: {err:.3e} relative (limit {limit})"
+
+
+@pytest.mark.parametrize("case", [SSD_CASES[0], SSD_CASES[3], SSD_CASES[8]])
+def test_ssd_scan_function_under_autograd_matches_plain(cuda, case):
+    """``ssd_scan`` with inputs that require grad goes through ``SsdScan``
+    (the forward kernels, then the backward kernels); its gradients of
+    ``(y, hT)`` against autograd through the plain version on float32
+    copies of the same inputs. A bf16 case's y is bf16, so the cotangent
+    reaching the kernels is ``dy`` rounded to bf16: ``dy`` is made
+    bf16-exact, so both arms get the same cotangent. A bf16 gradient is
+    held at 1e-2 relative (one bf16 rounding of each element), a float32
+    one at 1e-4 (float32 sums in another order)."""
+    args, Q = _ssd_case(case, cuda, seed=5)
+    B, L, H, P, N = case[:5]
+    rng = np.random.default_rng(6)
+    dy = _randn(rng, (B, L, H, P), "float32", cuda).bfloat16().float()
+    dhT = _randn(rng, (B, H, P, N), "float32", cuda)
+
+    def grads(fn, ins):
+        ins = [t.detach().clone().requires_grad_(True) for t in ins]
+        y, hT = fn(*ins, chunk=Q)
+        loss = (y.float() * dy).sum() + (hT * dhT).sum()
+        return torch.autograd.grad(loss, ins)
+    before = ssd.launches, dict(ssd.bwd_launches)
+    got = grads(ssd.ssd_scan, args)
+    torch.cuda.synchronize()
+    assert ssd.launches == before[0] + 1
+    assert all(ssd.bwd_launches[k] == before[1][k] + 1
+               for k in ssd.BWD_KERNELS)
+    want = grads(ssd_chunked_ref, [t.float() for t in args])
+    for name, g, w, a in zip(("x", "dt", "A", "Bm", "Cm", "D"), got, want,
+                             args):
+        assert g.dtype == a.dtype, name
+        limit = 1e-2 if g.dtype == torch.bfloat16 else 1e-4
+        err = _rel(g, w)
+        assert err <= limit, f"d{name}: {err:.3e} relative (limit {limit})"
+
+
+def test_ssd_backward_wrapper_refuses_under_grad(cuda):
+    args, Q = _ssd_case(SSD_CASES[0], cuda, seed=7)
+    dy = torch.ones_like(args[0])
+    args[1].requires_grad_(True)
+    before = dict(ssd.bwd_launches)
+    with pytest.raises(RuntimeError, match="cut the autograd graph"):
+        ssd.ssd_scan_bwd_cuda(*args, dy, chunk=Q)
+    assert ssd.bwd_launches == before
 
 
 def test_reduced_mamba2_prefill_on_card_matches_cpu(cuda):

@@ -168,22 +168,31 @@ def test_three_train_steps_match_jax(ref):
 def test_zero_and_wider_meshes_raise():
     """``zero=True`` (the default) runs at 1 x 1 and gives the plain
     path's loss (``tests/test_torch_zero.py`` holds it to the JAX
-    package); a Mamba config on a mesh raises naming item 8c (dense stacks
-    train there, ``tests/test_torch_train_mesh.py``)."""
-    cfg = get_config("qwen3-1.7b").reduced()
-    batch = {"tokens": SyntheticLM(cfg.vocab_size, 2, 32)(0)}
-    losses = []
-    for zero in (True, False):
-        ts = make_train_step(cfg, zero=zero, device="cpu")
-        assert ts.zero is zero
-        params = ts.init_params(0)
-        _, _, m = ts.step_fn(params, ts.init_opt(params), batch)
-        losses.append(float(m["loss"]))
-    assert abs(losses[0] - losses[1]) <= 1e-6 * abs(losses[1])
+    package). A Mamba config now trains on a mesh as well (it raised
+    naming item 8c before the SSD scan had a backward;
+    ``tests/test_torch_mamba_train.py`` holds it to the JAX package):
+    on (2, 1) its first step's loss is one device's. What still raises is
+    named: a hybrid (jamba, item 13), and SSM heads that the model axis
+    does not split."""
     from repro_torch.models.common import MeshPlan
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
-        make_train_step(get_config("mamba2-370m").reduced(),
+    for arch in ("qwen3-1.7b", "mamba2-370m"):
+        cfg = get_config(arch).reduced()
+        batch = {"tokens": SyntheticLM(cfg.vocab_size, 2, 32)(0)}
+        losses = []
+        for zero, shape in ((True, (1, 1)), (False, (1, 1)), (True, (2, 1))):
+            ts = make_train_step(cfg, MeshPlan(("data", "model"), shape),
+                                 zero=zero, device="cpu")
+            assert ts.zero is zero
+            params = ts.init_params(0)
+            _, _, m = ts.step_fn(params, ts.init_opt(params), batch)
+            losses.append(float(m["loss"]))
+        assert max(losses) - min(losses) <= 1e-6 * abs(losses[1]), arch
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        make_train_step(get_config("jamba-v0.1-52b").reduced(),
                         MeshPlan(("data", "model"), (2, 1)), device="cpu")
+    with pytest.raises(ValueError, match="do not split"):
+        make_train_step(get_config("mamba2-370m").reduced(),
+                        MeshPlan(("data", "model"), (1, 3)), device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["actor", "sync"])
