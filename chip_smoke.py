@@ -39,11 +39,14 @@ result line is printed:
    the bf16 xent forward and backward on the rank-1 vocab shard (4,096 x
    75,968 at offset 75,968, labels over both shards). The SSD scan has a
    row at a tp = 2 rank's 16 local heads (x (1, 512, 16, 64)), and its
-   backward (``ssd_scan_bwd``: five kernels, state, carry, inter, intra,
-   reduce) one at mamba2-370m's training layer (x (2, 2048, 32, 64) bf16,
-   B and C (2, 2048, 1, 128), chunk 128) against ``ssd_chunked_bwd_ref``
-   (each gradient within 1e-2 relative in norm for bf16 outputs, 1e-4 for
-   float32 ones), and again in float32 at the reduced shape with dhT.
+   backward (``ssd_scan_bwd``: for bf16 four kernels, the state and chunk
+   passes on the tensor cores, the carry, the head-sum reduce) one at
+   mamba2-370m's training layer (x (2, 2048, 32, 64) bf16, B and C (2,
+   2048, 1, 128), chunk 128) and one at a tp = 2 rank's 16 heads, each
+   against ``ssd_chunked_bwd_ref`` (each gradient within 1e-2 relative in
+   norm for bf16 outputs, 1e-4 for float32 ones), two calls bitwise equal,
+   and again in float32 at the reduced shape with dhT (the five CUDA-core
+   kernels). The launch counters show which route each dtype reached.
    Each reports the device time of every kernel its call launches
    (torch.profiler; the names of the kernels the trace matched are
    printed), the wrapper call's, the plain version's, the least time the
@@ -148,8 +151,9 @@ result line is printed:
    bf16 compute) through ``make_train_step`` with ZeRO (the default), 4
    steps of 2 x 2048 ``SyntheticLM`` tokens: finite losses printed (their
    trend not gated), every step's launches held (96 SSD forwards: each
-   layer's forward and its remat rerun; 48 launches of each backward
-   kernel; the xent kernels once each way), one profiled step; then the
+   layer's forward and its remat rerun; 48 launches of each of the bf16
+   backward's kernels, none of the float32 route's; the xent kernels once
+   each way), one profiled step; then the
    same model on a (1, 2) mesh with ZeRO, 2 steps, each rank's launches
    held and every scan at 16 heads;
 8. graph reference: a small LogicalGraph (embedding, a residual across
@@ -868,30 +872,36 @@ SSD_BWD_RTOL_BF16, SSD_BWD_RTOL_F32 = 1e-2, 1e-4
 def ssd_bwd_flops(B, L, H, P, N, Q) -> int:
     """The backward's operations these inputs need: per (b, chunk, h) the
     causal Q x Q products (M = C B^T, dW = dy x^T, dC += dM B, dB += dM^T
-    C, dx += W^T dy: pairs x (3N + 2P) multiply-adds) and the six P x N x
-    Qc state products (S_c, U_c, dC and dB from the carried states, g_c
-    B_j, h_c C_i)."""
+    C, dx += W^T dy: pairs x (3N + 2P) multiply-adds) and the five P x N x
+    Qc state products (S_c, U_c, and the carried states' terms dy h_c in
+    dC, x g_c in dB and B g_c^T in dx; the carried part of the gradient of
+    cs, e_i (dy h_c)_i . C_i, is read off dC's first term and needs no
+    product of its own)."""
     flops = 0
     for t0 in range(0, L, Q):
         qc = min(Q, L - t0)
         pairs = qc * (qc + 1) // 2
-        flops += B * H * 2 * (pairs * (3 * N + 2 * P) + 6 * qc * P * N)
+        flops += B * H * 2 * (pairs * (3 * N + 2 * P) + 5 * qc * P * N)
     return flops
 
 
 def check_ssd_scan_bwd(dev, H: int = 32, name: str = "ssd_scan_bwd"):
-    """The SSD scan's backward kernels (``ssd_scan_bwd_cuda``: state,
-    carry, inter, intra, reduce) at a mamba2-370m training layer's shape
-    (x (2, 2048, H, 64) bf16 with H = 32 on one device, or a tp = 2 rank's
-    16 local heads; B and C (2, 2048, 1, 128) as the model's views, dt and
-    D float32, chunk 128, dy bf16, dhT None as in training) against the
+    """The SSD scan's backward (``ssd_scan_bwd_cuda``) at a mamba2-370m
+    training layer's shape (x (2, 2048, H, 64) bf16 with H = 32 on one
+    device, or a tp = 2 rank's 16 local heads; B and C (2, 2048, 1, 128) as
+    the model's views, dt and D float32, chunk 128, dy bf16, dhT None as in
+    training) on the bf16 route (``BWD_TC_KERNELS``: the state and chunk
+    passes on the tensor cores, the carry, the head-sum reduce) against the
     plain ``ssd_chunked_bwd_ref`` on the same inputs (which upcasts bf16 to
-    float32: the comparison on float32 copies), timed. At H = 32 also
-    float32 at the reduced mamba2 shape (x (2, 64, 16, 32), N 32, chunk
-    32) with dhT given, held at the float32 limit; at a rank's local heads
-    also the forward the train step runs there (``ssd_scan_cuda``, bf16 on
-    the tensor-core kernels) against ``ssd_chunked_ref``. No PyTorch call
-    computes this function: library "none"."""
+    float32: the comparison on float32 copies), timed; a second call on the
+    same inputs must give the same bits. At H = 32 also float32 at the
+    reduced mamba2 shape (x (2, 64, 16, 32), N 32, chunk 32) with dhT
+    given, on the five CUDA-core kernels (``BWD_KERNELS``), held at the
+    float32 limit; at a rank's local heads also the forward the train step
+    runs there (``ssd_scan_cuda``, bf16 on the tensor-core kernels) against
+    ``ssd_chunked_ref``. Each call must launch its route's kernels once
+    and none of the other route's. No PyTorch call computes this function:
+    library "none"."""
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_bwd_ref,
                                                   ssd_chunked_ref)
@@ -912,6 +922,22 @@ def check_ssd_scan_bwd(dev, H: int = 32, name: str = "ssd_scan_bwd"):
                                dtype=torch.float32, device=dev)
                if with_dhT else None)
         return (x, dt, A, Bm, Cm, D), dy, dhT
+
+    def launched(what, call, dtype, P, N):
+        """``call()``, which must launch the route of ``dtype``, ``P`` and
+        ``N`` once."""
+        before, w0 = dict(ssd.bwd_launches), ssd.bwd_wgmma_launches
+        out = call()
+        torch.cuda.synchronize()
+        route = ssd.bwd_kernels(dtype, P, N)
+        got = {k: ssd.bwd_launches[k] - before[k] for k in before}
+        want = {k: int(k in route) for k in before}
+        calls = ssd.bwd_wgmma_launches - w0
+        print(f"{what}: launches {got}, tensor-core calls {calls}")
+        if got != want or calls != ssd.bwd_tc(dtype, P, N):
+            raise AssertionError(f"{what}: launches {got}, tensor-core "
+                                 f"calls {calls}; expected {want}")
+        return out
 
     def held(what, got, want):
         worst = 0.0
@@ -934,12 +960,15 @@ def check_ssd_scan_bwd(dev, H: int = 32, name: str = "ssd_scan_bwd"):
     args, dy, _ = inputs(B, L, H, P, N, torch.bfloat16, SEED + 18, False)
     what = (f"ssd_scan backward x{tuple(args[0].shape)} "
             f"B/C{tuple(args[3].shape)} chunk {Q}")
-    before = dict(ssd.bwd_launches)
-    got = ssd.ssd_scan_bwd_cuda(*args, dy, chunk=Q)
+    call = lambda: ssd.ssd_scan_bwd_cuda(*args, dy, chunk=Q)  # noqa: E731
+    got = launched(f"{what} bf16", call, torch.bfloat16, P, N)
+    again = call()
     torch.cuda.synchronize()
-    if any(ssd.bwd_launches[k] != before[k] + 1 for k in ssd.BWD_KERNELS):
-        raise AssertionError("ssd_scan backward: a kernel was not launched "
-                             "once")
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"{what}: two calls bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"{what}: two calls on the same inputs differ")
+    del again
     want = ssd_chunked_bwd_ref(*args, dy, chunk=Q)
     err = held(what, got, want)
     max_abs = max((g.float() - w.float()).abs().max().item()
@@ -950,13 +979,19 @@ def check_ssd_scan_bwd(dev, H: int = 32, name: str = "ssd_scan_bwd"):
              "replaces": "none (the backward of src/repro/kernels/ssd_scan/"
                          "kernel.py:72 ssd_scan_pallas; the reference "
                          "differentiates its jnp ssd_chunked_ref)",
-             "max_abs_err": max_abs, "max_rel_err_in_norm": err}
+             "kernels": list(ssd.BWD_TC_KERNELS),
+             "max_abs_err": max_abs, "max_rel_err_in_norm": err,
+             "bitwise_repeatable": same,
+             "scratch_bytes": 4 * ssd.bwd_scratch_floats(
+                 B, L, H, P, N, Q, tc=True)}
     if H == 32:
         small, dy32, dhT = inputs(2, 64, 16, 32, 32, torch.float32,
                                   SEED + 19, True)
-        entry["f32_max_rel_err_in_norm"] = held(
-            "ssd_scan backward x(2, 64, 16, 32) float32 (reduced mamba2)",
-            ssd.ssd_scan_bwd_cuda(*small, dy32, dhT, chunk=32),
+        what32 = "ssd_scan backward x(2, 64, 16, 32) float32 (reduced mamba2)"
+        entry["f32_max_rel_err_in_norm"] = held(what32, launched(
+            what32, lambda: ssd.ssd_scan_bwd_cuda(*small, dy32, dhT,
+                                                  chunk=32), torch.float32,
+            32, 32),
             ssd_chunked_bwd_ref(*small, dy32, dhT, chunk=32))
     else:
         # the forward of the same train step: SsdScan.forward's call
@@ -979,9 +1014,7 @@ def check_ssd_scan_bwd(dev, H: int = 32, name: str = "ssd_scan_bwd"):
         "plain_ms": cuda_ms(lambda: ssd_chunked_bwd_ref(*args, dy, chunk=Q),
                             iters=3, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    return timed(entry, ssd.BWD_KERNELS,
-                 lambda: ssd.ssd_scan_bwd_cuda(*args, dy, chunk=Q),
-                 lambda: ssd.ssd_scan_bwd_cuda(*args, dy, chunk=Q))
+    return timed(entry, ssd.BWD_TC_KERNELS, call, call)
 
 
 def check_reference(dev):
@@ -1821,7 +1854,8 @@ def train_counts():
             "xent_local_stats": xk.launches,
             "xent_local_stats_bwd": xk.bwd_launches,
             "ssd_scan": ssd.launches, "ssd_scan_wgmma": ssd.wgmma_launches,
-            **ssd.bwd_launches}
+            **ssd.bwd_launches,
+            "ssd_scan_bwd_wgmma": ssd.bwd_wgmma_launches}
 
 
 def zero_train_counts():
@@ -2135,17 +2169,21 @@ REF_TRAIN_RTOL = 1e-4
 def mamba_train_want(cfg, ranks: int, tp: int, tc: bool = True):
     """A train step's launches of an SSM stack on ``ranks`` ranks, ``tp``
     over ``model``: per rank and layer the SSD forward twice (the forward
-    and its remat rerun inside the backward, both through ``SsdScan``; on
-    the tensor-core kernels for bf16, ``tc``) and each backward kernel once;
-    one loss (the xent kernels on the rank's vocab shard); no attention.
-    Also the xent launches by vocab offset, each shard's ``ranks / tp``."""
+    and its remat rerun inside the backward, both through ``SsdScan``) and
+    each backward kernel of the route once -- for bf16 (``tc``) the
+    tensor-core forward and ``BWD_TC_KERNELS``, for float32 the CUDA-core
+    forward and ``BWD_KERNELS``, none of the other route's; one loss (the
+    xent kernels on the rank's vocab shard); no attention. Also the xent
+    launches by vocab offset, each shard's ``ranks / tp``."""
     from repro_torch.kernels.ssd_scan import kernel as ssd
     L = cfg.num_layers
     want = dict.fromkeys(train_counts(), 0)
     want.update({"ssd_scan": 2 * L * ranks,
                  "ssd_scan_wgmma": 2 * L * ranks if tc else 0,
+                 "ssd_scan_bwd_wgmma": L * ranks if tc else 0,
                  "xent_local_stats": ranks, "xent_local_stats_bwd": ranks,
-                 **dict.fromkeys(ssd.BWD_KERNELS, L * ranks)})
+                 **dict.fromkeys(ssd.BWD_TC_KERNELS if tc
+                                 else ssd.BWD_KERNELS, L * ranks)})
     Vl = cfg.padded_vocab() // tp
     return want, {m * Vl: ranks // tp for m in range(tp)}
 
@@ -2225,7 +2263,8 @@ def train_mamba(dev):
     print(f"{MAMBA}: losses {[round(c[0], 4) for c in curve]}; SSD launches "
           f"a step: {2 * cfg.num_layers} forward ({cfg.num_layers} layers x "
           f"the forward and its remat rerun), {cfg.num_layers} of each "
-          "backward kernel")
+          "bf16 backward kernel (tensor-core state and chunk, carry, "
+          "reduce)")
     batch = {"tokens": src(TRAIN_STEPS)}
     profile_device(f"{MAMBA} train step", lambda: float(
         ts.step_fn(params, opt, batch)[2]["loss"]), top=10)
@@ -3130,25 +3169,25 @@ def main() -> int:
     # each row's launches from the run of its path; the attention forward's
     # row is the serving shape and serve run, its training shape's the train
     # run; the backward's row holds each of its two kernels' counts
-    from repro_torch.kernels.ssd_scan.kernel import BWD_KERNELS
+    from repro_torch.kernels.ssd_scan.kernel import BWD_TC_KERNELS
     for kr in kernels:
         name = kr["name"]
         if name == "ssd_scan_bwd":
             # the mamba2 train run (one device, full depth); the mesh run's
             # beside it, both ranks
             kr["launches_by_kernel"] = {k: mamba_trained[k]
-                                        for k in BWD_KERNELS}
+                                        for k in BWD_TC_KERNELS}
             kr["launches"] = min(kr["launches_by_kernel"].values())
             kr["launches_per_step"] = kr["launches"] // TRAIN_STEPS
             kr["launches_by_path"] = {
                 "train (mamba2)": kr["launches"],
                 f"train mesh {MAMBA_MESH} (mamba2)": min(
-                    mamba_mesh_trained[k] for k in BWD_KERNELS)}
+                    mamba_mesh_trained[k] for k in BWD_TC_KERNELS)}
             continue
         if name.startswith("ssd_scan_bwd (tp="):
             # the mamba2 mesh train run (full depth): both ranks
             kr["launches_by_kernel"] = {k: mamba_mesh_trained[k]
-                                        for k in BWD_KERNELS}
+                                        for k in BWD_TC_KERNELS}
             kr["launches"] = min(kr["launches_by_kernel"].values())
             kr["launches_per_step"] = kr["launches"] // MAMBA_MESH_STEPS
             continue

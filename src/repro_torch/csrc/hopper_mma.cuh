@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu): cp.async copies
-// into 128-byte-swizzled shared memory, the wgmma shared-memory
-// descriptors for that layout, and the bf16 wgmma instructions the kernels
-// issue. One warpgroup (128 threads) issues each wgmma.
+// (flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu,
+// ssd_scan_bwd.cu): cp.async copies into 128-byte-swizzled shared memory,
+// the wgmma shared-memory descriptors for that layout, and the bf16 wgmma
+// instructions the kernels issue. One warpgroup (128 threads) issues each
+// wgmma.
 //
 // Tile layout. Every bf16 tile in shared memory is `rows` x D, row-major
 // in global memory, kept as D / 64 panels of `rows` x 64 elements: panel p
@@ -16,6 +17,8 @@
 //   * MN-major operand (the product runs over the rows, e.g. P V): LBO =
 //     the panel's bytes (the next 64 columns of N), SBO = 1024 bytes (the
 //     next 8 rows of K); the k-step kk of 16 rows starts 2048 kk bytes in.
+//     A may be read so too (wgmma_ss_n64<1, ..>, M = one panel): a tile
+//     staged once serves a product K-major and its transpose MN-major.
 //
 // Register fragments (per warp w = 0..3 of the warpgroup, lane = 4 g + t):
 // a 64 x N float32 accumulator d[N / 2] holds rows 16 w + g (+8) and
@@ -173,15 +176,18 @@ __device__ __forceinline__ void a_frag_hilo(const float (&d)[N], int kk,
   }
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory, both
-// K-major; scale_d 0 overwrites D.
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory,
+// K-major by default; TA = 1 reads A MN-major (a tile stored K rows by M
+// columns, i.e. the transpose of what it holds), TB = 1 reads B MN-major.
+// scale_d 0 overwrites D.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
                                               uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -190,7 +196,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the accumulator

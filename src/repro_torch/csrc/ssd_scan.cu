@@ -71,12 +71,14 @@
 #include <cstdint>
 
 #include "hopper_mma.cuh"
+#include "ssd_tc.cuh"
 
 namespace {
 
+using namespace ssd;
+
 constexpr int NT = 256;       // threads per block
 constexpr int PS = 16;        // rows of h (columns of x) per block
-constexpr int QMAX = 128;     // longest chunk
 constexpr int NMAX = 128;     // largest state size
 constexpr int TILE = 8;       // score register tile is TILE x TILE
 constexpr int HREG = PS * NMAX / NT;   // entries of h a thread owns
@@ -87,34 +89,6 @@ struct Strides {              // element strides of the inputs
   long long b[4];             // Bm (B, L, G, N)
   long long c[4];             // Cm (B, L, G, N)
 };
-
-// cs[i] = sum of dts[0..i] * a for i < Qc <= QMAX: the inclusive cumsum of
-// one chunk, run by one warp (QMAX / 32 steps a lane, then a shuffle scan of
-// the lanes' totals)
-__device__ __forceinline__ void chunk_cumsum(const float* dts, float* css,
-                                             float a, int Qc, int lane) {
-  constexpr int PER = QMAX / 32;
-  float v[PER];
-  float run = 0.f;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = lane * PER + k;
-    run += i < Qc ? dts[i] * a : 0.f;
-    v[k] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += o;
-  }
-  const float excl = incl - run;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = lane * PER + k;
-    if (i < Qc) css[i] = v[k] + excl;
-  }
-}
 
 inline size_t smem_floats(int Q, int N) {
   const int ldn = N + 1, ldw = Q + 1;
@@ -313,10 +287,10 @@ int launch_f32(const void* x, const void* dt, const void* A, const void* Bm,
 // bf16: tensor cores, chunk-parallel (see the header). Tiles are TQ = 128
 // rows of a chunk (or 64 PP rows of P for h) by 64-column panels, swizzled
 // as in hopper_mma.cuh; PP = P panels (1 or 2), NP = N panels (1 or 2).
+// The device code these kernels share with the backward's tensor-core
+// kernels (tiles, cumsum, the chunk state product, h as hi + lo tiles) is
+// ssd_tc.cuh.
 // ---------------------------------------------------------------------------
-constexpr int TQ = 128;        // chunk rows of a tile
-constexpr int TC_NT = 256;     // two warpgroups
-
 struct TcArgs {
   const __nv_bfloat16* x;
   const float* dt;
@@ -333,56 +307,6 @@ struct TcArgs {
   Strides st;
 };
 
-// rows 0..nrows-1 (nrows <= TQ) of a strided bf16 matrix, element (r, col)
-// at src[r * rs + col * cs], into the swizzled TQ x 64 `panels` tile at
-// `dst`; rows past nrows and columns past ncols are zero. With `vec` the
-// rows are contiguous (cs = 1), 16-byte aligned, ncols % 8 == 0, and the
-// copies are cp.async ones (the caller waits: cp_async_wait_all); else
-// each thread loads element by element.
-__device__ __forceinline__ void load_rows(uint8_t* dst,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          long long rs, long long cs, int nrows,
-                                          int ncols, int panels, bool vec) {
-  const int sh = panels == 2 ? 4 : 3;        // 16-byte chunks per row: 1 << sh
-  const uint32_t dst_s = hopper::smem_u32(dst);
-  for (int i = threadIdx.x; i < TQ << sh; i += TC_NT) {
-    const int r = i >> sh, c = i & ((1 << sh) - 1);
-    const bool ok = r < nrows && c * 8 < ncols;
-    const __nv_bfloat16* row = src + (ok ? r * rs : 0);
-    if (vec) {
-      hopper::cp_async16(dst_s + hopper::swz<TQ>(r, c), row + (ok ? c * 8 : 0),
-                         ok ? 16 : 0);
-      continue;
-    }
-    uint32_t w[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c0 = c * 8 + 2 * e;
-      const float lo = ok && c0 < ncols ? __bfloat162float(row[c0 * cs]) : 0.f;
-      const float hi = ok && c0 + 1 < ncols ? __bfloat162float(row[(c0 + 1) * cs]) : 0.f;
-      w[e] = hopper::pack_bf16(lo, hi);
-    }
-    *reinterpret_cast<uint4*>(dst + hopper::swz<TQ>(r, c)) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
-// the element (r, col) of a swizzled bf16 tile of `rows` rows, and the
-// pair (r, col), (r, col + 1) for an even col
-template <int ROWS>
-__device__ __forceinline__ float tile_at(const uint8_t* tile, int r, int col) {
-  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
-      tile + hopper::swz<ROWS>(r, col >> 3) + (col & 7) * 2));
-}
-template <int ROWS>
-__device__ __forceinline__ float2 tile_pair(const uint8_t* tile, int r, int col) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-      tile + hopper::swz<ROWS>(r, col >> 3) + (col & 7) * 2));
-}
-
-// exp(x) as exp2 (the attention kernels' form, a few instructions)
-__device__ __forceinline__ float exp_(float x) { return exp2f(x * hopper::kLog2e); }
-
 // this thread's dt of the chunk, row threadIdx.x (0 past Qc; TQ <= TC_NT),
 // loaded first so its latency overlaps the tiles' copies
 __device__ __forceinline__ float load_dt(const TcArgs& a, int b, int h,
@@ -390,14 +314,6 @@ __device__ __forceinline__ float load_dt(const TcArgs& a, int b, int h,
   const int i = threadIdx.x;
   return i < Qc ? a.dt[b * a.st.dt[0] + (t0 + i) * a.st.dt[1] + h * a.st.dt[2]]
                 : 0.f;
-}
-
-// the chunk's dt into shared memory and its cumsum cs (one warp)
-__device__ __forceinline__ void store_dt_cs(float dtv, float a_h, int Qc,
-                                            float* dts, float* css) {
-  if (threadIdx.x < TQ) dts[threadIdx.x] = dtv;
-  __syncthreads();
-  if (threadIdx.x < 32) chunk_cumsum(dts, css, a_h, Qc, threadIdx.x);
 }
 
 // shared memory of each kernel, with the 1024 bytes the swizzle's alignment
@@ -445,58 +361,15 @@ __global__ void __launch_bounds__(TC_NT, 1) ssd_tc_state_kernel(TcArgs a) {
   if (threadIdx.x == 0) a.totals[bh * a.nc + c] = cs_last;
   __syncthreads();
 
-  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
-  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int wg = threadIdx.x / 128;
   const int ksteps = (Qc + 15) / 16;
   const uint32_t sBa = smem_u32(sB);
   float* out = a.states + (bh * a.nc + c) * a.P * a.N;
   for (int item = wg; item < PP * a.NP; item += 2) {
     const int pp = item / a.NP, np = item - pp * a.NP;
-    // A = (w o x)^T: rows p = 64 pp + 16 warp + gq (+8), columns j
-    uint32_t ahi[TQ / 16][4], alo[TQ / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < TQ / 16; ++kk) {
-      if (kk >= ksteps) break;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = 64 * pp + 16 * warp + gq + 8 * (i & 1);
-        const int j = 16 * kk + 8 * (i >> 1) + 2 * tq;
-        const float v0 = w[j] * tile_at<TQ>(sX, j, p);
-        const float v1 = w[j + 1] * tile_at<TQ>(sX, j + 1, p);
-        const __nv_bfloat162 hv = __floats2bfloat162_rn(v0, v1);
-        ahi[kk][i] = *reinterpret_cast<const uint32_t*>(&hv);
-        alo[kk][i] = pack_bf16(v0 - __low2float(hv), v1 - __high2float(hv));
-      }
-    }
     float acc[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < TQ / 16; ++kk) {
-      if (kk >= ksteps) break;
-      const uint64_t db = kstep_mnmajor<TQ>(sBa + np * TQ * 128, kk);
-      wgmma_rs_n64(acc, ahi[kk], db);
-      wgmma_rs_n64(acc, alo[kk], db);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-    // acc[4 jj + 2 hh + e]: p = 64 pp + 16 warp + gq + 8 hh,
-    // n = 64 np + 8 jj + 2 tq + e
-#pragma unroll
-    for (int e = 0; e < 32; e += 2) {
-      const int p = 64 * pp + 16 * warp + gq + 8 * ((e >> 1) & 1);
-      const int n = 64 * np + 8 * (e >> 2) + 2 * tq;
-      if (p >= a.P || n >= a.N) continue;
-      float* o = out + static_cast<size_t>(p) * a.N + n;
-      if (a.N % 2 == 0) {
-        *reinterpret_cast<float2*>(o) = make_float2(acc[e], acc[e + 1]);
-      } else {
-        o[0] = acc[e];
-        if (n + 1 < a.N) o[1] = acc[e + 1];
-      }
-    }
+    scaled_state_tile(acc, sX, w, sBa, pp, np, ksteps);
+    store_state_tile(acc, out, pp, np, a.P, a.N);
   }
 }
 
@@ -551,27 +424,8 @@ __global__ void __launch_bounds__(TC_NT, 1) ssd_tc_out_kernel(TcArgs a) {
   // the thread's loads (8 floats for each 16-byte chunk of the tiles) go
   // out before the tiles' copies, the stores come after them
   const float* hs = a.states + (bh * a.nc + c) * a.P * a.N;
-  const int csh = a.NP == 2 ? 4 : 3, cpr = 1 << csh;   // chunks a row
-  constexpr int IT = HR * 16 / TC_NT;         // chunks a thread, at NP = 2
-  float v[IT][8];
-  if (c > 0) {
-#pragma unroll
-    for (int it = 0; it < IT; ++it) {
-      const int i = it * TC_NT + threadIdx.x;
-      const int r = i >> csh, n0 = 8 * (i & (cpr - 1));
-      const float* src = hs + static_cast<size_t>(r) * a.N + n0;
-      if (i < HR * cpr && r < a.P && n0 + 8 <= a.N && a.N % 4 == 0) {
-        const float4 u0 = *reinterpret_cast<const float4*>(src);
-        const float4 u1 = *reinterpret_cast<const float4*>(src + 4);
-        v[it][0] = u0.x; v[it][1] = u0.y; v[it][2] = u0.z; v[it][3] = u0.w;
-        v[it][4] = u1.x; v[it][5] = u1.y; v[it][6] = u1.z; v[it][7] = u1.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[it][e] = i < HR * cpr && r < a.P && n0 + e < a.N ? src[e] : 0.f;
-      }
-    }
-  }
+  float v[kStateChunks<HR>][8];
+  if (c > 0) fetch_state<HR>(v, hs, a.P, a.N, a.NP);
   load_rows(sC, a.Cm + b * st.c[0] + t0 * st.c[1] + g * st.c[2], st.c[1],
             st.c[3], Qc, a.N, a.NP, a.vec_c);
   load_rows(sB, a.Bm + b * st.b[0] + t0 * st.b[1] + g * st.b[2], st.b[1],
@@ -579,25 +433,7 @@ __global__ void __launch_bounds__(TC_NT, 1) ssd_tc_out_kernel(TcArgs a) {
   load_rows(sX, a.x + b * st.x[0] + t0 * st.x[1] + h * st.x[2], st.x[1],
             st.x[3], Qc, a.P, PP, a.vec_x);
   cp_async_commit();
-  if (c > 0) {
-#pragma unroll
-    for (int it = 0; it < IT; ++it) {
-      const int i = it * TC_NT + threadIdx.x;
-      if (i >= HR * cpr) continue;
-      const int r = i >> csh, k = i & (cpr - 1);
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float v0 = v[it][2 * e], v1 = v[it][2 * e + 1];
-        const __nv_bfloat162 hv = __floats2bfloat162_rn(v0, v1);
-        hi[e] = *reinterpret_cast<const uint32_t*>(&hv);
-        lo[e] = pack_bf16(v0 - __low2float(hv), v1 - __high2float(hv));
-      }
-      const uint32_t off = swz<HR>(r, k);
-      *reinterpret_cast<uint4*>(sHhi + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(sHlo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    }
-  }
+  if (c > 0) store_state_hilo<HR>(v, sHhi, sHlo, a.NP);
   store_dt_cs(dtv, a.A[h], Qc, dts, css);
   cp_async_wait_all();
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

@@ -10,7 +10,7 @@
 // the same decomposition. Given dy (B, L, H, P) and dhT (B, H, P, N; null is
 // zero) it returns dx, ddt, dA, dB, dC and dD of y and hT. Per (b, h) and
 // chunk c of Q steps, with a = dt A, cs its inclusive cumsum in the chunk,
-// T_c = cs_last and w_j = exp(T_c - cs_j) dt_j:
+// T_c = cs_last and w_j = exp(T_c - cs_j) dt_j, the CUDA-core route runs:
 //   1. state: one block per (chunk, head, batch row) computes the chunk's
 //      own state S_c = sum_j w_j x_j B_j^T and the reverse carry's input
 //      U_c = sum_i exp(cs_i) dy_i C_i^T (P x N each) and T_c;
@@ -37,34 +37,97 @@
 //   5. reduce: dB and dC summed over the H / G heads of each group, in head
 //      order, and cast to the input dtype; dA and dD summed over their
 //      partials in (b, chunk) order.
-// Passes 3 and 4 write their per-head dB, dC (and pass 3 its dx term) to a
-// float32 scratch, which the later pass reads back: no atomics, so a call
-// gives the same bits on every run. The ragged last chunk runs over its
-// valid steps (the reference's zero-padded steps contribute nothing).
+// In the CUDA-core route passes 3 and 4 write their per-head dB, dC (and
+// pass 3 its dx term) to a float32 scratch, which the later pass reads
+// back: no atomics, so a call gives the same bits on every run. The ragged
+// last chunk runs over its valid steps (the reference's zero-padded steps
+// contribute nothing).
+//
+// Two routes, chosen by the input dtype and shape (the wrapper states the
+// dispatch; nothing switches routes on an error):
+//   * bf16 where the chunk pass's tiles fit (P <= 64, or P <= 128 with N <=
+//     64): four kernels, the products on the tensor cores (wgmma):
+//     ssd_bwd_tc_state_kernel, the carry above, ssd_bwd_tc_chunk_kernel,
+//     and the reduce above;
+//   * float32, and bf16 past those tiles (P > 64 with N > 64, or P > 128):
+//     the five CUDA-core kernels below (state, carry, inter, intra, reduce),
+//     float32 FMAs throughout: wgmma takes no float32, and its TF32 mode
+//     would miss the float32 checks at 1e-4.
 //
 // Bound. At the training shape (x (2, 2048, 32, 64) bf16, B and C (2, 2048,
-// 1, 128), chunk 128) the work these inputs need is about 21.5 GFLOP: per
+// 1, 128), chunk 128) the work these inputs need is about 19.4 GFLOP: per
 // (b, chunk, h), Q^2 (3N + 2P) / 2 multiply-adds for the causal Q x Q
-// products (M, dW, dC, dB, dx) and 6 Q P N for the state ones; the bytes
-// are about 52 MB (x, dy and dx bf16, B, C and their gradients, dt and
-// ddt). On the tensor cores that would take 0.022 ms (operations) against
-// 0.016 ms of bytes. This first design runs every product on CUDA cores in
-// float32 (about 0.3 ms at their 67 TFLOP/s peak): it is simple, and its
-// float32 arithmetic holds the float32 path at the 1e-4 checks without the
-// bf16 hi + lo splits the forward needs. Each block keeps its chunk's B
-// and C (and its Q x Q matrix) in shared memory as float32 and walks P in
-// tiles; register tiles of 8 x 8 (or 4 x 4) outputs a thread reuse each
-// shared load. The tensor cores (wgmma, as the forward's bf16 kernels) are
-// the next step.
+// products (M, dW, dC, dB, dx) and 5 Q P N for the state ones (S_c, U_c,
+// and the carried states' terms dy h, x g and B g^T; the carried part of
+// the gradient of cs is read off dC's first term, no product of its own);
+// the bytes are about 56 MB (x, dy and dx bf16, B, C and their gradients,
+// dt and ddt). On the tensor cores that would take 0.0196 ms (operations)
+// against 0.017 ms of bytes. The CUDA-core route runs every product on CUDA
+// cores (about 0.3 ms at their 67 TFLOP/s peak, 2.8-3.4 ms measured at this
+// shape on bf16 inputs): each block keeps its chunk's B and C (and its Q x Q
+// matrix) in shared memory as float32 and walks P in tiles; register tiles
+// of 8 x 8 (or 4 x 4) outputs a thread reuse each shared load.
+//
+// The bf16 route, what bounds it and how it is built. Its float32 scratch
+// and the per-head dB and dC partials set the bytes (about 0.27 GB moved
+// at the training shape: 67 MB of chunk states written and read twice,
+// 134 MB of partials written once and read once), the products the time
+// of the tensor cores; the design keeps every product on wgmma and reads
+// the chunk's tiles once:
+//   1. state (tensor cores): one block (two warpgroups) per (chunk, head,
+//      batch row) computes S_c = (w o x)^T B and U_c = (e o dy)^T C, e_i =
+//      exp(cs_i), with the forward's chunk state product (ssd_tc.cuh:
+//      scaled_state_tile), and T_c;
+//   2. carry: as the CUDA-core route's;
+//   3. chunk (tensor cores): one block per (chunk, head, batch row) loads
+//      the chunk's C, B, x and dy tiles and its h_c and g_c once and
+//      computes, warpgroup wg owning the chunk's rows 64 wg .. 64 wg + 63:
+//      M = C B^T and dW = dy x^T (SS wgmma over the column tiles left of
+//      the diagonal); W, dM, R and the column sums in registers, the mask
+//      applied before the exp (cs_i - cs_j > 0 above the diagonal); then,
+//      staging dM and later W in one Q x Q bf16 tile that serves a product
+//      K-major and its transpose MN-major, dC = e o (dy h) + dM B, dB = w o
+//      (x g) + dM^T C and dx = w o (B g^T) + W^T dy + D dy, the row scales
+//      applied to the accumulators; the gradient of cs (the carried
+//      state's part e_i (dy h)_i . C_i read off dC's first term, dw_j = (x
+//      g)_j . B_j off dB's), the reverse cumsum and ddt, written directly,
+//      with dx in bf16; dB and dC as per-head float32 partials, dA and dD
+//      as per-block ones;
+//   4. reduce: as the CUDA-core route's.
+// The chunk pass takes P <= 64, or P <= 128 with N <= 64: its tiles (C, B,
+// x, dy, h and g as hi + lo, the Q x Q tile, 210 KB at P 64, N 128) must
+// fit in one block's 227 KB (at P 128, N 128 they would take 290 KB). Past
+// that, bf16 runs the CUDA-core kernels, which take any P.
+// Operands. x, dy, B and C are bf16 already, so M, dW and every product of
+// two of them are exact in the float32 accumulators. The operands formed
+// in float32 enter as bf16 hi + lo pairs (x = hi + lo to about 2^-17, two
+// products each) where they feed a float32 gradient: w o x and e o dy in
+// the state pass, h in dy h and g in x g (both feed ddt and dA through the
+// gradient of cs and dw); one bf16 rounding of any one of them takes ddt
+// or dA past the 1e-4 check. g in B g^T, dM and W feed only the bf16
+// outputs dx, dB and dC, where one rounding stays within a quarter of the
+// 1e-2 check, so they enter as one bf16 value each (the CPU emulation of
+// both claims: tests/test_torch_ssd_bwd_tc.py).
+// dB and dC over a group's heads: the chunk pass writes each head's terms
+// to a float32 scratch (B, L, H, N) and the reduce sums them in head order,
+// one thread per output element: no atomics, so a call gives the same bits
+// on every run. One block per head keeps B x nc x H = 1,024 blocks at the
+// training shape (a block per group would leave 32 for 132 SMs). The
+// call's scratch there: 67 MB of chunk states, 134 MB of partials, 201 MB
+// in all (the CUDA-core layout would take 236 MB).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "hopper_mma.cuh"
+#include "ssd_tc.cuh"
+
 namespace {
 
+using namespace ssd;
+
 constexpr int NT = 256;       // threads per block
-constexpr int QMAX = 128;     // longest chunk
 constexpr int NMAX = 128;     // largest state size
 constexpr int PT3 = 32;       // rows of P per tile in passes 1 and 3
 constexpr int PT4 = 16;       // columns of P per tile in pass 4
@@ -110,33 +173,9 @@ struct Args {
   float* partA;           // (B, nc, H)
   float* partD;           // (B, nc, H)
   int B, L, H, P, G, N, Q, nc;
+  int NP;                 // bf16 route: panels of 64 columns of N (1 or 2)
+  int vec_x, vec_b;       // bf16 route: x, dy (B, C) rows 16-byte copies
 };
-
-// cs[i] = sum of dts[0..i] * a for i < Qc <= QMAX, by one warp
-__device__ __forceinline__ void chunk_cumsum(const float* dts, float* css,
-                                             float a, int Qc, int lane) {
-  constexpr int PER = QMAX / 32;
-  float v[PER];
-  float run = 0.f;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = lane * PER + k;
-    run += i < Qc ? dts[i] * a : 0.f;
-    v[k] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += o;
-  }
-  const float excl = incl - run;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = lane * PER + k;
-    if (i < Qc) css[i] = v[k] + excl;
-  }
-}
 
 // out[i] = sum of v[i..Qc-1] for i < Qc <= QMAX, by one warp
 __device__ __forceinline__ void reverse_cumsum(const float* v, float* out,
@@ -802,6 +841,523 @@ __global__ void __launch_bounds__(NT) ssd_bwd_reduce_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core route (see the header). Tiles are TQ = 128 rows of
+// the chunk by 64-column panels, swizzled as in hopper_mma.cuh, rows and
+// columns past Qc, N and P zero; PP = panels of P (1 or 2) and a.NP of N.
+// Warpgroup wg owns the chunk's rows 64 wg .. 64 wg + 63: as i (the rows
+// of M, dW and dC) and as j (the rows of dB and dx).
+// ---------------------------------------------------------------------------
+
+// row t0 of a chunk of a contiguous (B, L, heads, cols) bf16 tensor at
+// (b, head)
+__device__ __forceinline__ const __nv_bfloat16* chunk_rows(
+    const void* t, int b, int L, int t0, int heads, int head, int cols) {
+  return static_cast<const __nv_bfloat16*>(t) +
+         ((static_cast<size_t>(b) * L + t0) * heads + head) * cols;
+}
+
+// the chunk's tiles C and B (TQ x 64 NP), x and dy (TQ x 64 PP), by
+// cp.async where the rows allow it (the caller commits and waits), and this
+// thread's dt (row threadIdx.x, 0 past Qc)
+template <int PP>
+__device__ __forceinline__ float load_chunk(const Args& a, int b, int h,
+                                            int g, int t0, int Qc,
+                                            uint8_t* sC, uint8_t* sB,
+                                            uint8_t* sX, uint8_t* sY) {
+  const int i = threadIdx.x;
+  const float dtv = i < Qc
+      ? a.dt[(static_cast<size_t>(b) * a.L + t0 + i) * a.H + h] : 0.f;
+  const long long rb = static_cast<long long>(a.G) * a.N;
+  const long long rx = static_cast<long long>(a.H) * a.P;
+  ssd::load_rows(sC, chunk_rows(a.Cm, b, a.L, t0, a.G, g, a.N), rb, 1, Qc, a.N,
+                 a.NP, a.vec_b);
+  ssd::load_rows(sB, chunk_rows(a.Bm, b, a.L, t0, a.G, g, a.N), rb, 1, Qc, a.N,
+                 a.NP, a.vec_b);
+  ssd::load_rows(sX, chunk_rows(a.x, b, a.L, t0, a.H, h, a.P), rx, 1, Qc, a.P, PP,
+                 a.vec_x);
+  ssd::load_rows(sY, chunk_rows(a.dy, b, a.L, t0, a.H, h, a.P), rx, 1, Qc, a.P,
+                 PP, a.vec_x);
+  return dtv;
+}
+
+// shared memory of each kernel, with the 1024 bytes the swizzle's alignment
+// may take
+template <int PP>
+inline int tc_state_smem(int NP) {
+  return 2 * TQ * 128 * NP + 2 * TQ * 128 * PP + 4 * TQ * 4 + 1024;
+}
+constexpr int CHUNK_FLOATS = 9 * TQ + 16 * TQ + NT / 32;
+template <int PP>
+inline int tc_chunk_smem(int NP) {
+  return 2 * TQ * 128 * NP + 2 * TQ * 128 * PP + 4 * 64 * PP * 128 * NP +
+         TQ * 256 + 4 * CHUNK_FLOATS + 1024;
+}
+
+// The state pass: per (chunk, head, batch row), S_c = (w o x)^T B and U_c =
+// (e o dy)^T C (P x N each, e_i = exp(cs_i)) with the forward's state
+// product (ssd_tc.cuh: A from registers as bf16 hi + lo), and T_c.
+template <int PP>
+__global__ void __launch_bounds__(TC_NT, 1) ssd_bwd_tc_state_kernel(Args a) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sC = align1024(smem_raw);          // TQ x 64 NP
+  uint8_t* sB = sC + TQ * 128 * a.NP;         // TQ x 64 NP
+  uint8_t* sX = sB + TQ * 128 * a.NP;         // TQ x 64 PP
+  uint8_t* sY = sX + TQ * 128 * PP;           // TQ x 64 PP: dy
+  float* dts = reinterpret_cast<float*>(sY + TQ * 128 * PP);
+  float* css = dts + TQ;
+  float* ws = css + TQ;
+  float* es = ws + TQ;
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (a.H / a.G);
+  const int t0 = c * a.Q, Qc = min(a.Q, a.L - t0);
+  const float dtv = load_chunk<PP>(a, b, h, g, t0, Qc, sC, sB, sX, sY);
+  cp_async_commit();
+  store_dt_cs(dtv, a.A[h], Qc, dts, css);
+  cp_async_wait_all();
+  __syncthreads();
+  const float T = css[Qc - 1];
+  for (int j = threadIdx.x; j < TQ; j += TC_NT) {
+    ws[j] = j < Qc ? expf(T - css[j]) * dts[j] : 0.f;
+    es[j] = j < Qc ? expf(css[j]) : 0.f;
+  }
+  const size_t bh = static_cast<size_t>(b) * a.H + h;
+  if (threadIdx.x == 0) a.totals[bh * a.nc + c] = T;
+  __syncthreads();
+
+  const int ksteps = (Qc + 15) / 16, tiles = PP * a.NP;
+  const size_t at = (bh * a.nc + c) * a.P * a.N;
+  for (int item = threadIdx.x / 128; item < 2 * tiles; item += 2) {
+    const bool u = item >= tiles;             // U_c, else S_c
+    const int t = u ? item - tiles : item;
+    const int pp = t / a.NP, np = t - pp * a.NP;
+    float acc[32];
+    scaled_state_tile(acc, u ? sY : sX, u ? es : ws, smem_u32(u ? sC : sB),
+                      pp, np, ksteps);
+    store_state_tile(acc, (u ? a.gstates : a.states) + at, pp, np, a.P, a.N);
+  }
+}
+
+// row sums of the thread's two rows over the 4 threads of a quad
+__device__ __forceinline__ void quad_sum(float (&v)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    v[hh] += __shfl_xor_sync(0xffffffffu, v[hh], 1);
+    v[hh] += __shfl_xor_sync(0xffffffffu, v[hh], 2);
+  }
+}
+
+// the first `tiles` 64 x 64 float32 tiles of `acc` (rows r[hh], columns
+// 64 t + ..) into the chunk's rows r < Qc of a (B, L, H, N) float32 tensor
+// whose first row is `base` (row stride rs = H N)
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[2][32],
+                                               int tiles, float* base,
+                                               const int (&r)[2], int Qc,
+                                               size_t rs, int N) {
+  const int tq = threadIdx.x % 4;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    if (t >= tiles) break;
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int i = r[(e >> 1) & 1];
+      const int n = 64 * t + 8 * (e >> 2) + 2 * tq;
+      if (i >= Qc || n >= N) continue;
+      float* o = base + i * rs + n;
+      if (N % 2 == 0) {
+        *reinterpret_cast<float2*>(o) = make_float2(acc[t][e], acc[t][e + 1]);
+      } else {
+        o[0] = acc[t][e];
+        if (n + 1 < N) o[1] = acc[t][e + 1];
+      }
+    }
+  }
+}
+
+// The chunk pass: per (chunk, head, batch row), every gradient of the
+// chunk from its tiles and its two carried states, written directly (dx,
+// ddt) or as per-head float32 partials for the reduce (dB, dC, dA, dD).
+template <int PP>
+__global__ void __launch_bounds__(TC_NT, 1) ssd_bwd_tc_chunk_kernel(Args a) {
+  using namespace hopper;
+  constexpr int HR = 64 * PP;                 // rows of the state tiles
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sC = align1024(smem_raw);          // TQ x 64 NP
+  uint8_t* sB = sC + TQ * 128 * a.NP;         // TQ x 64 NP
+  uint8_t* sX = sB + TQ * 128 * a.NP;         // TQ x 64 PP
+  uint8_t* sY = sX + TQ * 128 * PP;           // TQ x 64 PP: dy
+  uint8_t* sHhi = sY + TQ * 128 * PP;         // HR x 64 NP: h_c
+  uint8_t* sHlo = sHhi + HR * 128 * a.NP;
+  uint8_t* sGhi = sHlo + HR * 128 * a.NP;     // HR x 64 NP: g_c
+  uint8_t* sGlo = sGhi + HR * 128 * a.NP;
+  uint8_t* sS = sGlo + HR * 128 * a.NP;       // TQ x TQ: dM, then W
+  float* dts = reinterpret_cast<float*>(sS + TQ * 256);
+  float* css = dts + TQ;
+  float* ws = css + TQ;                       // w_j = exp(T - cs_j) dt_j
+  float* es = ws + TQ;                        // e_i = exp(cs_i)
+  float* rowR = es + TQ;                      // sum_j R_ij
+  float* dcsh = rowR + TQ;                    // e_i (dy h)_i . C_i
+  float* dwv = dcsh + TQ;                     // dw_j = (x g)_j . B_j
+  float* dcs = dwv + TQ;
+  float* da = dcs + TQ;
+  float* colR = da + TQ;                      // (8 warps, TQ): column sums
+  float* colD = colR + 8 * TQ;                //   of R and of dW o M o E
+  float* red = colD + 8 * TQ;                 // NT / 32
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (a.H / a.G);
+  const int t0 = c * a.Q, Qc = min(a.Q, a.L - t0);
+  const size_t bh = static_cast<size_t>(b) * a.H + h;
+  const size_t hrow = (static_cast<size_t>(b) * a.L + t0) * a.H + h;
+  // the carried states' loads go out first, the tiles' copies next, and
+  // the states' hi + lo stores come after both
+  const size_t sat = (bh * a.nc + c) * a.P * a.N;
+  float vh[kStateChunks<HR>][8], vg[kStateChunks<HR>][8];
+  fetch_state<HR>(vh, a.states + sat, a.P, a.N, a.NP);
+  fetch_state<HR>(vg, a.gstates + sat, a.P, a.N, a.NP);
+  const float dtv = load_chunk<PP>(a, b, h, g, t0, Qc, sC, sB, sX, sY);
+  cp_async_commit();
+  float gh = 0.f;                             // this thread's part of <g, h>
+#pragma unroll
+  for (int it = 0; it < kStateChunks<HR>; ++it)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) gh = fmaf(vh[it][e], vg[it][e], gh);
+  store_state_hilo<HR>(vh, sHhi, sHlo, a.NP);
+  store_state_hilo<HR>(vg, sGhi, sGlo, a.NP);
+  store_dt_cs(dtv, a.A[h], Qc, dts, css);
+  cp_async_wait_all();
+  __syncthreads();
+  const float T = css[Qc - 1];
+  for (int j = threadIdx.x; j < TQ; j += TC_NT) {
+    ws[j] = j < Qc ? expf(T - css[j]) * dts[j] : 0.f;
+    es[j] = j < Qc ? expf(css[j]) : 0.f;
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int r0 = 64 * wg;
+  const bool active = r0 < Qc;                // the warpgroup has rows
+  const int kend = (Qc + 15) / 16;            // k-steps over the chunk
+  const uint32_t sCa = smem_u32(sC), sBa = smem_u32(sB), sXa = smem_u32(sX);
+  const uint32_t sYa = smem_u32(sY), sSa = smem_u32(sS);
+  int row[2];                                 // this thread's rows
+  float cs_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row[hh] = r0 + 16 * warp + gq + 8 * hh;
+    cs_r[hh] = row[hh] < Qc ? css[row[hh]] : 0.f;
+  }
+
+  // 1. M = C B^T and dW = dy x^T over the causal column tiles jb <= wg
+  float m[2][32], dW[2][32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) m[0][e] = m[1][e] = dW[0][e] = dW[1][e] = 0.f;
+  if (active) {
+    wgmma_fence();
+#pragma unroll
+    for (int jb = 0; jb < 2; ++jb) {
+      if (jb > wg) break;
+      for (int kk = 0; kk < 4 * a.NP; ++kk)
+        wgmma_ss_n64(m[jb], kstep_kmajor<TQ>(sCa + r0 * 128, kk),
+                     kstep_kmajor<TQ>(sBa + jb * 64 * 128, kk), 1);
+      for (int kk = 0; kk < 4 * PP; ++kk)
+        wgmma_ss_n64(dW[jb], kstep_kmajor<TQ>(sYa + r0 * 128, kk),
+                     kstep_kmajor<TQ>(sXa + jb * 64 * 128, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(m[0]);
+    fence_regs(m[1]);
+    fence_regs(dW[0]);
+    fence_regs(dW[1]);
+  }
+
+  // 2. on j <= i < Qc (masked before the exp): E = exp(cs_i - cs_j), W =
+  // M o E o dt_j (into m), dM = dW o E o dt_j (into dW), R = dW o W summed
+  // by rows and by columns, dW o M o E by columns (each warp's column sums
+  // to colR, colD)
+  float rr[2] = {0.f, 0.f};
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb) {
+    float cr[16], cd[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) cr[k] = cd[k] = 0.f;
+    if (active && jb <= wg) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int hh = (e >> 1) & 1, k = 2 * (e >> 2) + (e & 1);
+        const int i = row[hh], j = 64 * jb + 8 * (e >> 2) + 2 * tq + (e & 1);
+        const float E = j <= i && i < Qc ? exp_(cs_r[hh] - css[j]) : 0.f;
+        const float f = E * dts[j];
+        const float w = m[jb][e] * f, R = dW[jb][e] * w;
+        rr[hh] += R;
+        cr[k] += R;
+        cd[k] = fmaf(dW[jb][e] * m[jb][e], E, cd[k]);
+        m[jb][e] = w;
+        dW[jb][e] *= f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        cr[k] += __shfl_xor_sync(0xffffffffu, cr[k], off);
+        cd[k] += __shfl_xor_sync(0xffffffffu, cd[k], off);
+      }
+    if (gq == 0) {
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const int j = 64 * jb + 8 * (k >> 1) + 2 * tq + (k & 1);
+        colR[(threadIdx.x / 32) * TQ + j] = cr[k];
+        colD[(threadIdx.x / 32) * TQ + j] = cd[k];
+      }
+    }
+  }
+  quad_sum(rr);
+  if (tq == 0) {
+    rowR[row[0]] = rr[0];
+    rowR[row[1]] = rr[1];
+  }
+  // dM to the staging tile in bf16; W kept as bf16 A fragments
+  uint32_t wf[2][4][4];
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb) {
+    if (!active || jb > wg) continue;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_frag(m[jb], kk, wf[jb][kk]);
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int i = row[(e >> 1) & 1], j = 64 * jb + 8 * (e >> 2) + 2 * tq;
+      *reinterpret_cast<uint32_t*>(sS + swz<TQ>(i, j >> 3) + (j & 7) * 2) =
+          pack_bf16(dW[jb][e], dW[jb][e + 1]);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  float acc[2][32];
+  // 3. dC_i = e_i (dy h)_i + sum_{j <= i} dM_ij B_j (rows i); dcsh_i =
+  // e_i (dy h)_i . C_i, the carried state's part of the gradient of cs_i
+  if (active) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[0][e] = acc[1][e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      if (np >= a.NP) break;
+      for (int kk = 0; kk < 4 * PP; ++kk) {
+        const uint64_t dA_ = kstep_kmajor<TQ>(sYa + r0 * 128, kk);
+        wgmma_ss_n64<0, 1>(acc[np], dA_, kstep_mnmajor<HR>(
+            smem_u32(sHhi) + np * HR * 128, kk), 1);
+        wgmma_ss_n64<0, 1>(acc[np], dA_, kstep_mnmajor<HR>(
+            smem_u32(sHlo) + np * HR * 128, kk), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    float dh[2] = {0.f, 0.f};
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      if (np >= a.NP) break;
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int hh = (e >> 1) & 1, i = row[hh];
+        const int n = 64 * np + 8 * (e >> 2) + 2 * tq;
+        acc[np][e] *= es[i];
+        acc[np][e + 1] *= es[i];
+        const float2 cv = tile_pair<TQ>(sC, i, n);
+        dh[hh] = fmaf(acc[np][e], cv.x, fmaf(acc[np][e + 1], cv.y, dh[hh]));
+      }
+    }
+    quad_sum(dh);
+    if (tq == 0) {
+      dcsh[row[0]] = dh[0];
+      dcsh[row[1]] = dh[1];
+    }
+    const int jend = min(4 * (wg + 1), kend);
+    wgmma_fence();
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      if (np >= a.NP) break;
+      for (int kj = 0; kj < jend; ++kj)
+        wgmma_ss_n64<0, 1>(acc[np], kstep_kmajor<TQ>(sSa + r0 * 128, kj),
+                           kstep_mnmajor<TQ>(sBa + np * TQ * 128, kj), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    store_rows_f32(acc, a.NP, a.dCh + hrow * a.N, row, Qc,
+                   static_cast<size_t>(a.H) * a.N, a.N);
+  }
+
+  // 4. dB_j = w_j (x g)_j + sum_{i >= j} dM_ij C_i (rows j, dM^T read
+  // MN-major from the staging tile); dw_j = (x g)_j . B_j
+  if (active) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[0][e] = acc[1][e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      if (np >= a.NP) break;
+      for (int kk = 0; kk < 4 * PP; ++kk) {
+        const uint64_t dA_ = kstep_kmajor<TQ>(sXa + r0 * 128, kk);
+        wgmma_ss_n64<0, 1>(acc[np], dA_, kstep_mnmajor<HR>(
+            smem_u32(sGhi) + np * HR * 128, kk), 1);
+        wgmma_ss_n64<0, 1>(acc[np], dA_, kstep_mnmajor<HR>(
+            smem_u32(sGlo) + np * HR * 128, kk), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    float dwp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      if (np >= a.NP) break;
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int hh = (e >> 1) & 1, j = row[hh];
+        const int n = 64 * np + 8 * (e >> 2) + 2 * tq;
+        const float2 bv = tile_pair<TQ>(sB, j, n);
+        dwp[hh] = fmaf(acc[np][e], bv.x, fmaf(acc[np][e + 1], bv.y, dwp[hh]));
+        acc[np][e] *= ws[j];
+        acc[np][e + 1] *= ws[j];
+      }
+    }
+    quad_sum(dwp);
+    if (tq == 0) {
+      dwv[row[0]] = dwp[0];
+      dwv[row[1]] = dwp[1];
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      if (np >= a.NP) break;
+      for (int ki = 4 * wg; ki < kend; ++ki)
+        wgmma_ss_n64<1, 1>(acc[np], kstep_mnmajor<TQ>(sSa + wg * TQ * 128, ki),
+                           kstep_mnmajor<TQ>(sCa + np * TQ * 128, ki), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    store_rows_f32(acc, a.NP, a.dBh + hrow * a.N, row, Qc,
+                   static_cast<size_t>(a.H) * a.N, a.N);
+  }
+  __syncthreads();                            // every read of dM is done
+  // W to the staging tile: fragment wf[jb][kk][q] is row row[q & 1],
+  // columns 64 jb + 16 kk + 8 (q >> 1) + 2 tq (+1)
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb) {
+    if (!active || jb > wg) continue;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = 64 * jb + 16 * kk + 8 * (q >> 1) + 2 * tq;
+        *reinterpret_cast<uint32_t*>(sS + swz<TQ>(row[q & 1], j >> 3) +
+                                     (j & 7) * 2) = wf[jb][kk][q];
+      }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // 5. dx_j = w_j (B g^T)_j + sum_{i >= j} W_ij dy_i + D dy_j (rows j)
+  if (active) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[0][e] = acc[1][e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int pp = 0; pp < PP; ++pp)
+      for (int kk = 0; kk < 4 * a.NP; ++kk)
+        wgmma_ss_n64(acc[pp], kstep_kmajor<TQ>(sBa + r0 * 128, kk),
+                     kstep_kmajor<HR>(smem_u32(sGhi) + pp * 64 * 128, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int pp = 0; pp < PP; ++pp) {
+      fence_regs(acc[pp]);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[pp][e] *= ws[row[(e >> 1) & 1]];
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int pp = 0; pp < PP; ++pp)
+      for (int ki = 4 * wg; ki < kend; ++ki)
+        wgmma_ss_n64<1, 1>(acc[pp], kstep_mnmajor<TQ>(sSa + wg * TQ * 128, ki),
+                           kstep_mnmajor<TQ>(sYa + pp * TQ * 128, ki), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    const float d_h = a.D[h];
+    __nv_bfloat16* dx = static_cast<__nv_bfloat16*>(a.dx) + hrow * a.P;
+#pragma unroll
+    for (int pp = 0; pp < PP; ++pp) {
+      fence_regs(acc[pp]);
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int j = row[(e >> 1) & 1];
+        const int p = 64 * pp + 8 * (e >> 2) + 2 * tq;
+        if (j >= Qc || p >= a.P) continue;
+        __nv_bfloat16* o = dx + static_cast<size_t>(j) * a.H * a.P + p;
+        const float2 yv = tile_pair<TQ>(sY, j, p);
+        const float o0 = acc[pp][e] + d_h * yv.x, o1 = acc[pp][e + 1] + d_h * yv.y;
+        if (a.P % 2 == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(o0, o1);
+        } else {
+          o[0] = __float2bfloat16(o0);
+          if (p + 1 < a.P) o[1] = __float2bfloat16(o1);
+        }
+      }
+    }
+  }
+  __syncthreads();                            // rowR, dcsh, dwv, colR, colD
+
+  // 6. the gradient of cs, then of a = dt A by the reverse cumsum (T_c adds
+  // to every step); ddt; the block's dA and dD partials
+  const int j = threadIdx.x;
+  float cdj = 0.f, wdw = 0.f;
+  if (j < TQ) {
+    float cr = 0.f;
+#pragma unroll
+    for (int w8 = 0; w8 < 8; ++w8) {
+      cr += colR[w8 * TQ + j];
+      cdj += colD[w8 * TQ + j];
+    }
+    const bool ok = j < Qc;
+    wdw = ok ? ws[j] * dwv[j] : 0.f;
+    dcs[j] = ok ? rowR[j] - cr + dcsh[j] - wdw : 0.f;
+  }
+  const float dT = expf(T) * block_sum(gh, red) + block_sum(wdw, red);
+  if (threadIdx.x < 32) reverse_cumsum(dcs, da, Qc, threadIdx.x);
+  __syncthreads();
+  float sa = 0.f;
+  if (j < Qc) {
+    const float daj = da[j] + dT;
+    a.ddt[hrow + static_cast<size_t>(j) * a.H] =
+        cdj + expf(T - css[j]) * dwv[j] + a.A[h] * daj;
+    sa = dts[j] * daj;
+  }
+  float dd = 0.f;
+  for (int e = threadIdx.x; e < Qc * a.P; e += TC_NT) {
+    const int i = e / a.P, p = e - i * a.P;
+    dd = fmaf(tile_at<TQ>(sY, i, p), tile_at<TQ>(sX, i, p), dd);
+  }
+  const float pa = block_sum(sa, red);
+  const float pd = block_sum(dd, red);
+  if (threadIdx.x == 0) {
+    const size_t at = (static_cast<size_t>(b) * a.nc + c) * a.H + h;
+    a.partA[at] = pa;
+    a.partD[at] = pd;
+  }
+}
+
 inline size_t state_smem(int N) {
   return sizeof(float) * (2 * QMAX * (N + 1) + 2 * QMAX * (PT3 + 1) + 4 * QMAX);
 }
@@ -814,10 +1370,26 @@ inline size_t intra_smem(int N) {
                           2 * QMAX * (PT4 + 1) + 7 * QMAX + NT / 32);
 }
 
-// pass 0..4 of the backward for input type T; each sets its shared-memory
-// attribute once (at N = NMAX), on the device current at its first launch
+int launch_carry(Args& a, cudaStream_t s) {
+  ssd_bwd_carry_kernel<<<dim3((a.P * a.N + NT - 1) / NT, a.H, a.B), NT, 0,
+                         s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-int launch(int pass, Args& a, cudaStream_t s) {
+int launch_reduce(Args& a, cudaStream_t s) {
+  const size_t total = static_cast<size_t>(a.B) * a.L * a.G * a.N;
+  const int blocks = static_cast<int>(
+      (total + NT - 1) / NT < 4096 ? (total + NT - 1) / NT : 4096);
+  ssd_bwd_reduce_kernel<T><<<blocks > 0 ? blocks : 1, NT, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pass 0..4 of the CUDA-core route for input type T; each kernel sets its
+// shared-memory attribute once (at N = NMAX), on the device current at its
+// first launch
+template <typename T>
+int launch_cc(int pass, Args& a, cudaStream_t s) {
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
         ssd_bwd_state_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -838,38 +1410,65 @@ int launch(int pass, Args& a, cudaStream_t s) {
       ssd_bwd_state_kernel<T><<<chunks, NT, state_smem(a.N), s>>>(a);
       break;
     case 1:
-      ssd_bwd_carry_kernel<<<dim3((a.P * a.N + NT - 1) / NT, a.H, a.B), NT, 0,
-                             s>>>(a);
-      break;
+      return launch_carry(a, s);
     case 2:
       ssd_bwd_inter_kernel<T><<<chunks, NT, inter_smem(a.N), s>>>(a);
       break;
     case 3:
       ssd_bwd_intra_kernel<T><<<chunks, NT, intra_smem(a.N), s>>>(a);
       break;
-    case 4: {
-      const size_t total = static_cast<size_t>(a.B) * a.L * a.G * a.N;
-      const int blocks = static_cast<int>(
-          (total + NT - 1) / NT < 4096 ? (total + NT - 1) / NT : 4096);
-      ssd_bwd_reduce_kernel<T><<<blocks > 0 ? blocks : 1, NT, 0, s>>>(a);
-      break;
-    }
+    case 4:
+      return launch_reduce<T>(a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// the tensor-core kernels' passes (5 state, 6 chunk) for P <= 64 PP; each
+// sets its shared-memory attribute once, at its largest size
+template <int PP>
+int launch_tc(int pass, Args& a, cudaStream_t s) {
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_bwd_tc_state_kernel<PP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tc_state_smem<PP>(2));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(ssd_bwd_tc_chunk_kernel<PP>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                tc_chunk_smem<PP>(PP == 1 ? 2 : 1));
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 chunks(a.nc, a.H, a.B);
+  if (pass == 5)
+    ssd_bwd_tc_state_kernel<PP><<<chunks, TC_NT, tc_state_smem<PP>(a.NP), s>>>(a);
+  else
+    ssd_bwd_tc_chunk_kernel<PP><<<chunks, TC_NT, tc_chunk_smem<PP>(a.NP), s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
-// One pass of the backward (0 state, 1 carry, 2 inter, 3 intra, 4 reduce;
-// run them in order on one stream). dtype: 0 = float32, 1 = bfloat16, the
-// dtype of x, Bm, Cm, dy, dx, dBm and dCm; dt, A, D, dhT, ddt, dA and dD are
-// float32. Every tensor is contiguous; dhT may be null (zero). scratch:
-// 2 B H nc P N + B H nc + B L H P + 2 B L H N + 2 B L H + B H nc + 2 B nc H
-// floats, nc = ceil(L / Q), in that order (see Args). Q = min(chunk, L) <=
-// 128, N <= 128, H % G == 0. Launches on `stream`, allocates nothing, does
-// not synchronise; returns the CUDA error of the launch (0 = success).
+// One pass of the backward, run in the route's order on one stream. The
+// route follows dtype and shape:
+//   tensor cores, bfloat16 (dtype 1) with P <= 64, or P <= 128 and N <= 64
+//   (the chunk kernel's tiles must fit in one block's shared memory):
+//   5 state, 1 carry, 6 chunk, 4 reduce;
+//   CUDA cores, float32 (dtype 0) and every other bfloat16 shape: 0 state,
+//   1 carry, 2 inter, 3 intra, 4 reduce.
+// dtype is that of x, Bm, Cm, dy, dx, dBm and dCm; dt, A, D, dhT, ddt, dA
+// and dD are float32. Every tensor is contiguous; dhT may be null (zero).
+// scratch, floats, nc = ceil(L / Q): CUDA cores 2 B H nc P N + B H nc + B
+// L H P + 2 B L H N + 2 B L H + B H nc + 2 B nc H, in the order of Args;
+// tensor cores 2 B H nc P N (states, gstates) + 2 B L H N (dBh, dCh) + 3 B
+// H nc (totals, partA, partD). Q = min(chunk, L) <= 128, N <= 128,
+// H % G == 0.
+// Launches on `stream`, allocates nothing, does not synchronise; returns
+// the CUDA error of the launch (0 = success).
 extern "C" int repro_ssd_scan_bwd(int pass, const void* x, const void* dt,
                                   const void* A, const void* Bm,
                                   const void* Cm, const void* D,
@@ -880,6 +1479,11 @@ extern "C" int repro_ssd_scan_bwd(int pass, const void* x, const void* dt,
                                   void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || P <= 0 || G <= 0 || H % G != 0 ||
       N <= 0 || N > NMAX || Q <= 0 || Q > QMAX || Q > L || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool tc = dtype == 1 && (P <= 64 || (P <= 128 && N <= 64));
+  if ((dtype != 0 && dtype != 1) ||
+      (tc && !(pass == 1 || pass == 4 || pass == 5 || pass == 6)) ||
+      (!tc && (pass < 0 || pass > 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.x = x;
@@ -904,12 +1508,27 @@ extern "C" int repro_ssd_scan_bwd(int pass, const void* x, const void* dt,
   a.N = N;
   a.Q = Q;
   a.nc = (L + Q - 1) / Q;
+  a.NP = (N + 63) / 64;
+  a.vec_x = P % 8 == 0 && aligned16(x) && aligned16(dy);
+  a.vec_b = N % 8 == 0 && aligned16(Bm) && aligned16(Cm);
   const size_t st = static_cast<size_t>(B) * H * a.nc * P * N;
   const size_t lh = static_cast<size_t>(B) * L * H;
   const size_t ch = static_cast<size_t>(B) * H * a.nc;
   float* f = static_cast<float*>(scratch);
   a.states = f;
   a.gstates = a.states + st;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc) {
+    a.dBh = a.gstates + st;
+    a.dCh = a.dBh + lh * N;
+    a.totals = a.dCh + lh * N;
+    a.partA = a.totals + ch;
+    a.partD = a.partA + ch;
+    a.dxs = a.ddt3 = a.dcs3 = a.dT3 = nullptr;
+    if (pass == 1) return launch_carry(a, s);
+    if (pass == 4) return launch_reduce<__nv_bfloat16>(a, s);
+    return P <= 64 ? launch_tc<1>(pass, a, s) : launch_tc<2>(pass, a, s);
+  }
   a.totals = a.gstates + st;
   a.dxs = a.totals + ch;
   a.dBh = a.dxs + lh * P;
@@ -919,8 +1538,6 @@ extern "C" int repro_ssd_scan_bwd(int pass, const void* x, const void* dt,
   a.dT3 = a.dcs3 + lh;
   a.partA = a.dT3 + ch;
   a.partD = a.partA + ch;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(pass, a, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(pass, a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 1 ? launch_cc<__nv_bfloat16>(pass, a, s)
+                    : launch_cc<float>(pass, a, s);
 }

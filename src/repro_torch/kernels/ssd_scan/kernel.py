@@ -9,16 +9,23 @@ and ``ssd_scan_bwd.cu`` (CUDA C++ for ``sm_90a``, built at first use and
 loaded with ctypes); their headers say what bounds each on the card and how
 its design answers that.
 
-The input dtype chooses the forward's kernels, and this dispatch is stated
-here; it is not a fallback, and nothing switches routes on an error. bf16
-runs three tensor-core (``wgmma``) kernels over the chunk-parallel form
-(chunk states, the carry over chunks, the outputs) and needs P <= 128;
-float32 runs the CUDA-core kernel (``wgmma`` takes no float32, and its TF32
-mode would miss the float32 checks at 1e-4). Every forward call adds one to
-``launches``, whatever the number of kernels it runs; a bf16 call also adds
-one to ``wgmma_launches``. The backward runs five CUDA-core kernels for
-either dtype (float32 math), and each launch adds one to its kernel's entry
-of ``bwd_launches``.
+The input dtype (and for the backward the shape) chooses the kernels, and
+this dispatch is stated here; it is not a fallback, and nothing switches
+routes on an error. The forward: bf16 runs three tensor-core (``wgmma``)
+kernels over the chunk-parallel form (chunk states, the carry over chunks, the
+outputs) and needs P <= 128; float32 runs the CUDA-core kernel (``wgmma``
+takes no float32, and its TF32 mode would miss the float32 checks at
+1e-4). Every forward call adds one to ``launches``, whatever the number of
+kernels it runs; a bf16 call also adds one to ``wgmma_launches``. The
+backward (:func:`bwd_kernels`): bf16 at P <= 64, or P <= 128 with N <= 64,
+runs ``BWD_TC_KERNELS`` (the state pass and the chunk pass on the tensor
+cores, the carry, the head-sum reduce); float32, and bf16 past those tiles
+(P > 64 with N > 64, or P > 128: the chunk pass's tiles would not fit in a
+block's shared memory), runs ``BWD_KERNELS``, five CUDA-core kernels in
+float32 math (state, carry, inter, intra, reduce). Each launch adds one to
+its kernel's entry of ``bwd_launches`` (the carry and the reduce are the
+same kernels on both routes), and a call on the tensor-core route adds one
+to ``bwd_wgmma_launches``.
 
 :func:`ssd_scan` is what the model calls (``models/mamba.py``, at the
 reference's ``ssd_chunked_ref`` call site). A CPU tensor takes the plain
@@ -52,12 +59,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 #: of those, the calls that ran the tensor-core (bf16) kernels
 wgmma_launches = 0
-#: the backward's kernels, in launch order
+#: the CUDA-core backward's kernels (float32, and bf16 past the tensor-core
+#: tiles), in launch order
 BWD_KERNELS = ("ssd_bwd_state_kernel", "ssd_bwd_carry_kernel",
                "ssd_bwd_inter_kernel", "ssd_bwd_intra_kernel",
                "ssd_bwd_reduce_kernel")
+#: the tensor-core backward's kernels (bf16; state and chunk on wgmma), in
+#: launch order
+BWD_TC_KERNELS = ("ssd_bwd_tc_state_kernel", "ssd_bwd_carry_kernel",
+                  "ssd_bwd_tc_chunk_kernel", "ssd_bwd_reduce_kernel")
+#: each backward kernel's pass number in ``repro_ssd_scan_bwd``
+_BWD_PASS = {**{k: i for i, k in enumerate(BWD_KERNELS)},
+             "ssd_bwd_tc_state_kernel": 5, "ssd_bwd_tc_chunk_kernel": 6}
 #: backward kernel launches since the last reset, by kernel (one per launch)
-bwd_launches = dict.fromkeys(BWD_KERNELS, 0)
+bwd_launches = dict.fromkeys(BWD_KERNELS + BWD_TC_KERNELS, 0)
+#: backward calls that ran the tensor-core kernels
+bwd_wgmma_launches = 0
 _count_lock = threading.Lock()
 _USE = ("call repro_torch.kernels.ssd_scan.ssd_scan (its SsdScan Function) "
         "instead")
@@ -87,10 +104,10 @@ def _bwd_fn():
 
 def reset_counts() -> None:
     """Zero every launch counter of the forward and the backward."""
-    global launches, wgmma_launches
+    global launches, wgmma_launches, bwd_wgmma_launches
     with _count_lock:
-        launches = wgmma_launches = 0
-        bwd_launches.update(dict.fromkeys(BWD_KERNELS, 0))
+        launches = wgmma_launches = bwd_wgmma_launches = 0
+        bwd_launches.update(dict.fromkeys(bwd_launches, 0))
 
 
 def _check(what: str, x, dt, A, Bm, Cm, D):
@@ -167,15 +184,46 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     return y, hT
 
 
+def bwd_tc(dtype, P: int, N: int) -> bool:
+    """Whether the backward of inputs of ``dtype`` with head dim ``P`` and
+    state size ``N`` runs on the tensor cores: bf16 where the chunk pass's
+    tiles fit in a block's shared memory, P <= 64, or P <= 128 with N <=
+    64."""
+    return dtype == torch.bfloat16 and (
+        P <= 64 or (P <= MAX_TC_HEAD and N <= 64))
+
+
+def bwd_kernels(dtype, P: int, N: int) -> tuple:
+    """The backward's kernels for inputs of ``dtype``, head dim ``P`` and
+    state size ``N``, in launch order."""
+    return BWD_TC_KERNELS if bwd_tc(dtype, P, N) else BWD_KERNELS
+
+
+def bwd_scratch_floats(B, L, H, P, N, Q, tc: bool) -> int:
+    """The float32 scratch of one backward call (``Args`` in the source):
+    for both routes the chunk states and the reverse carries, and the
+    per-head dB and dC terms; for the CUDA-core route (``tc`` False) also
+    the inter pass's dx term and scalars."""
+    nc = -(-L // Q)
+    if tc:     # states, gstates; dBh, dCh; T_c, dA and dD partials
+        return 2 * B * H * nc * P * N + 2 * B * L * H * N + 3 * B * H * nc
+    return (2 * B * H * nc * P * N + 2 * B * H * nc
+            + B * L * H * (P + 2 * N + 2) + 2 * B * nc * H)
+
+
 def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, dhT=None, *,
                       chunk: int = 128):
-    """Launch the backward kernels (five passes, CUDA cores, float32 math)
-    on the forward's inputs and the cotangents ``dy`` (x's shape and dtype)
-    and ``dhT`` ((B, H, P, N) float32, or None for zero). Returns ``(dx,
+    """Launch the backward kernels on the forward's inputs and the
+    cotangents ``dy`` (x's shape and dtype) and ``dhT`` ((B, H, P, N)
+    float32, or None for zero) on the route :func:`bwd_kernels` names:
+    ``BWD_TC_KERNELS`` (tensor cores) for bf16 at P <= 64, or P <= 128
+    with N <= 64, ``BWD_KERNELS`` (CUDA cores) otherwise. Returns ``(dx,
     ddt, dA, dBm, dCm, dD)`` in the inputs' dtypes: the gradient of
-    :func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked_ref`'s ``(y, hT)``
-    with ``h0`` None, as :func:`~repro_torch.kernels.ssd_scan.ref
-    .ssd_chunked_bwd_ref` computes it."""
+    :func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked_ref`'s ``(y,
+    hT)`` with ``h0`` None, as
+    :func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked_bwd_ref` computes
+    it."""
+    global bwd_wgmma_launches
     _build.refuse_grad("ssd_scan_bwd_cuda", _USE, x, dt, A, Bm, Cm, D, dy)
     B, L, H, P, G, N = _check("ssd_scan backward", x, dt, A, Bm, Cm, D)
     Q = _chunk_of("ssd_scan backward", chunk, L, N)
@@ -189,16 +237,13 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, dhT=None, *,
         raise ValueError(f"ssd_scan backward: dhT must be float32 "
                          f"{(B, H, P, N)} on x's card, got {dhT.dtype} "
                          f"{tuple(dhT.shape)}")
+    tc = bwd_tc(x.dtype, P, N)
     x, dt, A, Bm, Cm, D, dy = (t.contiguous()
                                for t in (x, dt, A, Bm, Cm, D, dy))
     dhT = None if dhT is None else dhT.contiguous()
     dx, ddt, dA = (torch.empty_like(t) for t in (x, dt, A))
     dBm, dCm, dD = (torch.empty_like(t) for t in (Bm, Cm, D))
-    nc = -(-L // Q)
-    # chunk states and carries, per-head dx/dB/dC terms, scalars (Args in
-    # the source)
-    scratch = torch.empty(2 * B * H * nc * P * N + 2 * B * H * nc
-                          + B * L * H * (P + 2 * N + 2) + 2 * B * nc * H,
+    scratch = torch.empty(bwd_scratch_floats(B, L, H, P, N, Q, tc),
                           dtype=torch.float32, device=x.device)
     ptrs = (x, dt, A, Bm, Cm, D, dy, dhT, dx, ddt, dA, dBm, dCm, dD,
             scratch)
@@ -206,11 +251,14 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, dhT=None, *,
     fn = _bwd_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for i, name in enumerate(BWD_KERNELS):
-            err = fn(i, *ptrs, _DTYPES[x.dtype], B, L, H, P, G, N, Q, stream)
+        for name in bwd_kernels(x.dtype, P, N):
+            err = fn(_BWD_PASS[name], *ptrs, _DTYPES[x.dtype], B, L, H, P, G,
+                     N, Q, stream)
             _build.check(err, f"ssd_scan backward ({name})")
             with _count_lock:
                 bwd_launches[name] += 1
+    with _count_lock:
+        bwd_wgmma_launches += tc
     return dx, ddt, dA, dBm, dCm, dD
 
 

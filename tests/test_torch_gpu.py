@@ -24,11 +24,15 @@ version's autograd on float32 copies of the same inputs, as chip_smoke.py
 holds the training shape. The SSD scan likewise runs bf16 through its
 tensor-core kernels (chunk states, carry, outputs) and float32 through its
 CUDA-core kernel, and its bf16 cases are also held to the plain version on
-float32 copies. The SSD scan's backward kernels (five, float32 math for
-either dtype) are held to ``ssd_chunked_bwd_ref`` over the same cases and
-mamba2's training layer, relative error in norm 1e-4 for float32 outputs
-and 1e-2 for bf16 ones, and ``SsdScan`` under autograd to autograd through
-the plain version on float32 copies. Flash decode combines its splits inside the kernel, in a
+float32 copies. The SSD scan's backward runs bf16 through its tensor-core
+route (``BWD_TC_KERNELS``: state and chunk passes on wgmma, the carry, the
+head-sum reduce) and float32 through its five CUDA-core kernels
+(``BWD_KERNELS``); both are held to ``ssd_chunked_bwd_ref`` over the same
+cases and mamba2's training layer, relative error in norm 1e-4 for float32
+outputs and 1e-2 for bf16 ones, each call launching its route's kernels
+once and none of the other's, a bf16 call bitwise repeatable, and
+``SsdScan`` under autograd held to autograd through the plain version on
+float32 copies. Flash decode combines its splits inside the kernel, in a
 thread-block cluster, and its wrapper keeps no state between calls. On a
 mesh, the xent kernels run on vocab shards at offsets 0 and V/2, and one
 graph train step on two ranks of the card (a 60 s session timeout, which
@@ -768,16 +772,28 @@ def test_ssd_raw_wrapper_refuses_under_grad(cuda):
     assert ssd.launches == before
 
 
-# the backward: the cases above, and the mamba2 training layer's shape
+# the backward: the cases above, the mamba2 training layer's shape, and
+# bf16 past the tensor-core tiles (P 128, N 128: the CUDA-core route)
 SSD_BWD_CASES = SSD_CASES + [
     (2, 2048, 32, 64, 128, 1, 128, "bfloat16"),          # mamba2 training
     (1, 300, 4, 64, 128, 1, 128, "float32"),             # 3 chunks, ragged
+    (1, 300, 4, 128, 128, 1, 128, "bfloat16"),           # P 128, N 128
 ]
 
 
 def _rel(got, want) -> float:
     got, want = got.double(), want.double()
     return float((got - want).norm() / want.norm())
+
+
+def _bwd_route_counted(before, dtype, P, N):
+    """The backward launches since ``before`` (``(bwd_launches,
+    bwd_wgmma_launches)``) are one of each kernel of the route of
+    ``dtype``, ``P`` and ``N`` and none of the other's."""
+    route = ssd.bwd_kernels(dtype, P, N)
+    assert {k: n - before[0][k] for k, n in ssd.bwd_launches.items()} \
+        == {k: int(k in route) for k in ssd.bwd_launches}
+    assert ssd.bwd_wgmma_launches - before[1] == ssd.bwd_tc(dtype, P, N)
 
 
 @pytest.mark.parametrize("with_dhT", [True, False], ids=["dhT", "no_dhT"])
@@ -789,7 +805,8 @@ def test_ssd_scan_backward_kernels_match_plain(cuda, case, with_dhT):
     float32 outputs (dt, A, D always; every output of a float32 case: the
     same float32 arithmetic summed in another order), 1e-2 for bf16 ones
     (one bf16 rounding of each element, 2^-9, on top). Every kernel of the
-    backward launches once."""
+    route of the dtype and shape launches once, and none of the other
+    route's."""
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref
     args, Q = _ssd_case(case, cuda, seed=3)
     B, L, H, P, N = case[:5]
@@ -797,11 +814,10 @@ def test_ssd_scan_backward_kernels_match_plain(cuda, case, with_dhT):
     dy = _randn(rng, (B, L, H, P), case[-1], cuda)
     dhT = (_randn(rng, (B, H, P, N), "float32", cuda) if with_dhT
            else None)
-    before = dict(ssd.bwd_launches)
+    before = dict(ssd.bwd_launches), ssd.bwd_wgmma_launches
     got = ssd.ssd_scan_bwd_cuda(*args, dy, dhT, chunk=Q)
     torch.cuda.synchronize()
-    assert {k: ssd.bwd_launches[k] - before[k] for k in ssd.BWD_KERNELS} \
-        == dict.fromkeys(ssd.BWD_KERNELS, 1)
+    _bwd_route_counted(before, args[0].dtype, P, N)
     want = ssd_chunked_bwd_ref(*args, dy, dhT, chunk=Q)
     for name, g, w, a in zip(("x", "dt", "A", "Bm", "Cm", "D"), got, want,
                              args):
@@ -812,7 +828,8 @@ def test_ssd_scan_backward_kernels_match_plain(cuda, case, with_dhT):
         assert err <= limit, f"d{name}: {err:.3e} relative (limit {limit})"
 
 
-@pytest.mark.parametrize("case", [SSD_CASES[0], SSD_CASES[3], SSD_CASES[8]])
+@pytest.mark.parametrize("case", [SSD_CASES[0], SSD_CASES[3], SSD_CASES[8],
+                                  SSD_BWD_CASES[-1]])
 def test_ssd_scan_function_under_autograd_matches_plain(cuda, case):
     """``ssd_scan`` with inputs that require grad goes through ``SsdScan``
     (the forward kernels, then the backward kernels); its gradients of
@@ -833,12 +850,11 @@ def test_ssd_scan_function_under_autograd_matches_plain(cuda, case):
         y, hT = fn(*ins, chunk=Q)
         loss = (y.float() * dy).sum() + (hT * dhT).sum()
         return torch.autograd.grad(loss, ins)
-    before = ssd.launches, dict(ssd.bwd_launches)
+    before = ssd.launches, dict(ssd.bwd_launches), ssd.bwd_wgmma_launches
     got = grads(ssd.ssd_scan, args)
     torch.cuda.synchronize()
     assert ssd.launches == before[0] + 1
-    assert all(ssd.bwd_launches[k] == before[1][k] + 1
-               for k in ssd.BWD_KERNELS)
+    _bwd_route_counted(before[1:], args[0].dtype, P, N)
     want = grads(ssd_chunked_ref, [t.float() for t in args])
     for name, g, w, a in zip(("x", "dt", "A", "Bm", "Cm", "D"), got, want,
                              args):
@@ -846,6 +862,56 @@ def test_ssd_scan_function_under_autograd_matches_plain(cuda, case):
         limit = 1e-2 if g.dtype == torch.bfloat16 else 1e-4
         err = _rel(g, w)
         assert err <= limit, f"d{name}: {err:.3e} relative (limit {limit})"
+
+
+# the bf16 cases on the tensor-core route
+SSD_BWD_BF16 = [c for c in SSD_BWD_CASES
+                if ssd.bwd_tc(getattr(torch, c[-1]), c[3], c[4])]
+
+
+@pytest.mark.parametrize("case", [SSD_BWD_BF16[0], SSD_BWD_BF16[-1]])
+def test_ssd_scan_backward_bf16_is_bitwise_repeatable(cuda, case):
+    """Two bf16 backward calls on the same inputs give the same bits: the
+    tensor-core route sums dB and dC over the heads (and dA, dD over the
+    chunks) in a fixed order, with no atomics."""
+    args, Q = _ssd_case(case, cuda, seed=8)
+    dy = _randn(np.random.default_rng(9), args[0].shape, "bfloat16", cuda)
+    first = ssd.ssd_scan_bwd_cuda(*args, dy, chunk=Q)
+    second = ssd.ssd_scan_bwd_cuda(*args, dy, chunk=Q)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("x", "dt", "A", "Bm", "Cm", "D"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("case", SSD_BWD_BF16)
+def test_ssd_scan_backward_bf16_never_launches_cuda_core_kernels(cuda,
+                                                                  case):
+    """A bf16 backward call runs the tensor-core route alone: its state and
+    chunk kernels once each, and none of the CUDA-core state, inter or
+    intra kernels."""
+    args, Q = _ssd_case(case, cuda, seed=10)
+    dy = torch.ones_like(args[0])
+    before = dict(ssd.bwd_launches)
+    ssd.ssd_scan_bwd_cuda(*args, dy, chunk=Q)
+    torch.cuda.synchronize()
+    for k in ("ssd_bwd_state_kernel", "ssd_bwd_inter_kernel",
+              "ssd_bwd_intra_kernel"):
+        assert ssd.bwd_launches[k] == before[k], k
+    for k in ("ssd_bwd_tc_state_kernel", "ssd_bwd_tc_chunk_kernel"):
+        assert ssd.bwd_launches[k] == before[k] + 1, k
+
+
+def test_ssd_backward_bf16_past_its_tiles_runs_cuda_core_kernels(cuda):
+    """The tensor-core route takes P <= 64, or P <= 128 with N <= 64; past
+    that, by the wrapper's stated dispatch (not on an error), a bf16 call
+    runs the five CUDA-core kernels once each and no tensor-core kernel."""
+    args, Q = _ssd_case((1, 128, 2, 128, 128, 1, 128, "bfloat16"), cuda,
+                        seed=11)
+    before = dict(ssd.bwd_launches), ssd.bwd_wgmma_launches
+    ssd.ssd_scan_bwd_cuda(*args, torch.ones_like(args[0]), chunk=Q)
+    torch.cuda.synchronize()
+    assert ssd.bwd_kernels(torch.bfloat16, 128, 128) == ssd.BWD_KERNELS
+    _bwd_route_counted(before, torch.bfloat16, 128, 128)
 
 
 def test_ssd_backward_wrapper_refuses_under_grad(cuda):
