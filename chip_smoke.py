@@ -46,7 +46,13 @@ result line is printed:
    against ``ssd_chunked_bwd_ref`` (each gradient within 1e-2 relative in
    norm for bf16 outputs, 1e-4 for float32 ones), two calls bitwise equal,
    and again in float32 at the reduced shape with dhT (the five CUDA-core
-   kernels). The launch counters show which route each dtype reached.
+   kernels). The launch counters show which route each dtype reached. The
+   attention forward has a row at MLA's head dims, deepseek-v2-lite's
+   serve prefill (q and k (1, 512, 16, 192), v (1, 512, 16, 128) bf16,
+   causal, on the tensor cores), with the float32 kernel at (192, 128)
+   and at the reduced config's (96, 64) on shapes of their own (within
+   1e-4); its library call is SDPA on the first backend that takes v
+   narrower than q and k, named in the row (``library_backend``).
    Each reports the device time of every kernel its call launches
    (torch.profiler; the names of the kernels the trace matched are
    printed), the wrapper call's, the plain version's, the least time the
@@ -65,7 +71,11 @@ result line is printed:
    mamba2 config (float32) served through the SSD kernel gives the CPU's
    plain path's tokens, with prefill logits within 1e-3; then one ZeRO
    train step of it (the SSD forward and backward kernels) agrees with the
-   CPU's (loss, grad_norm within 1e-4);
+   CPU's (loss, grad_norm within 1e-4); then reduced
+   deepseek-v2-lite (float32: MLA at head dims 96 / 64, a dense layer and
+   a MoE layer) served through the kernels against the CPU's plain path
+   as reduced qwen3 is (prefill logits, four decode steps), every prefill
+   attention on the float32 CUDA-core kernel;
 4. serve: qwen3-1.7b at full width, bf16, seeded init, through
    ``repro_torch.api.compile(backend="actors", stages=2)`` -- 12 requests of
    64-512 prompt tokens and 8-48 new tokens in 2 groups of 4 slots; then
@@ -105,7 +115,16 @@ result line is printed:
    heads a rank, the vocabulary split), 4 requests of 64-256 prompt and
    8-16 new tokens on the actors and the monolithic engine: tokens
    identical, 2 x 48 SSD scans a prefill, every one at 16 heads; and the
-   reduced mamba2 (float32) on (1, 2), card tokens ≡ the CPU's;
+   reduced mamba2 (float32) on (1, 2), card tokens ≡ the CPU's. Then
+   deepseek-v2-lite-16b at full width and depth (27 layers: one dense,
+   then 26 of MLA and a MoE of 64 routed experts top-6 and 2 shared;
+   15,706,484,224 params drawn in bf16, 29.26 GiB, held once by both
+   sessions), qwen3's geometry and 12 requests, on the actors and then
+   the monolithic engine: tokens identical, launches counted as above
+   (27 x 12 = 324 attention forwards at (192, 128) on the tensor cores, no
+   decode kernel: MLA decodes by absorbed einsums over its latent cache),
+   tok/s, peak memory and a device profile of the first 4 requests; the
+   model is freed before the training phases;
 5. train: qwen3-1.7b at full width and depth (bf16 compute, float32 params
    and AdamW state, seeded init) through ``repro_torch.train.steps
    .make_train_step``, fed by ``ActorDataPipeline(SyntheticLM(151936, 2,
@@ -209,6 +228,7 @@ result line is printed:
    launches, and at one rank's vocab shard of the mesh phase (256 x
    75,968 at offset 75,968) with that phase's launches.
 
+The MLA attention row carries the deepseek-v2-lite serve run's launches.
 The ``ssd_scan_bwd`` row carries the mamba2 train run's launches (by
 kernel, and the mesh run's by path), the local-heads SSD row the mamba2
 mesh serve run's, and the SSD forward row's ``launches_by_path`` the
@@ -399,16 +419,20 @@ def device_and_build():
     return smi
 
 
-def attention_row(dev, B, S, H, KV, D, seed):
+def attention_row(dev, B, S, H, KV, D, seed, Dv=None):
     """The attention forward held to its plain version at q (B, S, H, D),
-    kv (B, S, KV, D), causal, in bf16 (tensor-core kernel) and float32
-    (CUDA-core kernel), and timed: one kernels-line row's numbers."""
+    k (B, S, KV, D), v (B, S, KV, Dv) (Dv None: D), causal, in bf16
+    (tensor-core kernel) and float32 (CUDA-core kernel), and timed: one
+    kernels-line row's numbers."""
     from repro_torch.kernels.flash_attention import kernel as fa
+    Dv = D if Dv is None else Dv
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
-    q, k, v = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D)
-    what = f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} causal"
+    q, k, v = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, Dv)
+    what = (f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} causal"
+            if Dv == D else f"flash_attention q{tuple(q.shape)} "
+            f"k{tuple(k.shape)} v{tuple(v.shape)} causal")
     # bf16 goes to the tensor-core kernel, float32 to the CUDA-core one
     n0, w0 = fa.launches, fa.wgmma_launches
     got = fa.flash_attention(q, k, v, causal=True)
@@ -427,20 +451,45 @@ def attention_row(dev, B, S, H, KV, D, seed):
     del f32, want32
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     pairs = S * (S + 1) // 2                 # causal: unmasked (q, k)
-    b_ms, b_by = bound_ms(nbytes(q, k, v, got), 4 * D * H * B * pairs)
+    # S = Q K^T over D and O = P V over Dv: 2 flops a multiply-add each
+    b_ms, b_by = bound_ms(nbytes(q, k, v, got),
+                          2 * (D + Dv) * H * B * pairs)
     launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
-    return timed({
+    row = {
         "max_abs_err": err, "max_abs_err_vs_f32_copies": err_c,
         "f32_max_abs_err": err32,
         "plain_ms": cuda_ms(
             lambda: fa.plain_flash_attention(q, k, v, causal=True),
             iters=5),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.nn.functional
-                              .scaled_dot_product_attention(
-                                  qt, kt, vt, is_causal=True,
-                                  enable_gqa=True)),
-    }, "flash_fwd_wgmma_kernel", launch, launch)
+        "bound_ms": b_ms, "bound_by": b_by}
+    if Dv == D:
+        row["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+    else:
+        row["library_ms"], row["library_backend"] = sdpa_ms(qt, kt, vt)
+    return timed(row, "flash_fwd_wgmma_kernel", launch, launch)
+
+
+def sdpa_ms(q, k, v):
+    """SDPA's causal call on (B, H, S, D) views, timed on the first backend
+    of flash, cuDNN, memory-efficient and math that takes these head dims,
+    and that backend's name (the library call's yardstick; the port never
+    calls it)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    call = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                call()
+                torch.cuda.synchronize()
+                return cuda_ms(call), backend.name
+        except RuntimeError as e:
+            print(f"SDPA {backend.name} refuses q {tuple(q.shape)} v "
+                  f"{tuple(v.shape)}: {str(e).splitlines()[0][:100]}")
+    raise AssertionError("no SDPA backend took these inputs")
 
 
 ATTENTION_ROW = {"route": "cuda",
@@ -457,6 +506,41 @@ def check_flash_attention(dev):
     entry = {"name": "flash_attention", **ATTENTION_ROW}
     entry.update(attention_row(dev, 1, 512, 16, 8, 128, SEED))
     entry["train_shape"] = attention_row(dev, 2, 2048, 16, 8, 128, SEED + 7)
+    return entry
+
+
+MLA_ROW_NAME = "flash_attention (MLA, D 192 / Dv 128)"
+
+
+def check_flash_attention_mla(dev):
+    """The attention forward at deepseek-v2-lite's serve prefill (q and k
+    (1, 512, 16, 192), v (1, 512, 16, 128) bf16, causal: MLA's heads,
+    nope 128 + rope 64 against v 128), held and timed as the serving row;
+    then the float32 CUDA-core kernel at (192, 128) and at the reduced
+    config's (96, 64) on shapes of its own, each within 1e-4 of the plain
+    version."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    entry = {"name": MLA_ROW_NAME, **ATTENTION_ROW}
+    entry.update(attention_row(dev, 1, 512, 16, 16, 192, SEED + 11,
+                               Dv=128))
+    rng = np.random.default_rng(SEED + 12)
+    errs = {}
+    for D, Dv, S, H in ((192, 128, 300, 16), (96, 64, 100, 4)):
+        q, k = (torch.from_numpy(rng.normal(size=(1, S, H, D)).astype(
+            np.float32)).to(dev) for _ in range(2))
+        v = torch.from_numpy(rng.normal(size=(1, S, H, Dv)).astype(
+            np.float32)).to(dev)
+        n0, w0 = fa.launches, fa.wgmma_launches
+        got = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if (fa.launches - n0, fa.wgmma_launches - w0) != (1, 0):
+            raise AssertionError("flash_attention: float32 MLA did not run "
+                                 "the CUDA-core kernel once")
+        errs[f"({D}, {Dv})"] = agree(
+            f"flash_attention float32 q{tuple(q.shape)} v{tuple(v.shape)}",
+            got, fa.plain_flash_attention(q, k, v, causal=True), F32_TOL,
+            F32_TOL)
+    entry["f32_max_abs_err_by_head_dims"] = errs
     return entry
 
 
@@ -1017,18 +1101,22 @@ def check_ssd_scan_bwd(dev, H: int = 32, name: str = "ssd_scan_bwd"):
     return timed(entry, ssd.BWD_TC_KERNELS, call, call)
 
 
-def check_reference(dev):
-    """Reduced qwen3 (float32) through the kernels on the card against the
-    same weights on the CPU's plain path: prefill logits, then four decode
-    steps fed the CPU's greedy tokens."""
-    phase("reference (reduced qwen3, card vs CPU plain path)")
+def check_reference(dev, arch: str = "qwen3-1.7b"):
+    """Reduced ``arch`` (float32) through the kernels on the card against
+    the same weights on the CPU's plain path: prefill logits, then four
+    decode steps fed the CPU's greedy tokens. Every prefill's attention
+    runs the float32 CUDA-core kernel (for deepseek-v2-lite at MLA's
+    reduced head dims, 96 / 64)."""
+    phase(f"reference (reduced {arch}, card vs CPU plain path)")
     from repro_torch.api import greedy_from_logits
     from repro_torch.configs.registry import get_config
     from repro_torch.core.lowering import lower_serve_stages
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.models.common import MeshPlan
     from repro_torch.models.model_zoo import build_model
 
-    cfg = get_config("qwen3-1.7b").reduced()
+    cfg = get_config(arch).reduced()
+    n0, w0 = fa.launches, fa.wgmma_launches
     rng = np.random.default_rng(SEED + 2)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (37, 100)]
     geo = dict(num_stages=2, cache_len=160, max_prompt_len=128,
@@ -1074,8 +1162,15 @@ def check_reference(dev):
             compare(out[dev], out["cpu"], f"decode step {step} logits")
             toks = greedy_from_logits(out["cpu"], cfg.vocab_size).tolist()
             pos = [p_ + 1 for p_ in pos]
-    print(f"reduced qwen3 prefill + 4 decode steps: logits agree, max abs "
-          f"err {worst:.3e} (bound 1e-3 + 1e-3*|ref|, float32)")
+    torch.cuda.synchronize()
+    want = (cfg.num_layers * len(prompts), 0)
+    if (fa.launches - n0, fa.wgmma_launches - w0) != want:
+        raise AssertionError(f"reduced {arch}: attention launches "
+                             f"{fa.launches - n0} (tensor-core "
+                             f"{fa.wgmma_launches - w0}), expected {want}")
+    print(f"reduced {arch} prefill + 4 decode steps: logits agree, max abs "
+          f"err {worst:.3e} (bound 1e-3 + 1e-3*|ref|, float32); "
+          f"{want[0]} float32 attention launches, none on the tensor cores")
 
 
 def check_reference_train(dev):
@@ -1365,9 +1460,11 @@ def counted_run(cfg, session, requests, what: str):
     L, ssm = cfg.num_layers, cfg.family == "ssm"
     pre = L * st["prefill_items"]
     steps = L * (st["decode_items"] + st["chunk_tokens"])
+    # MLA decodes by absorbed einsums over its latent cache (as the
+    # reference), no decode kernel
     want = {"flash_attention": 0 if ssm else pre,
             "flash_fwd_wgmma_kernel": 0 if ssm else pre,
-            "flash_decode": 0 if ssm else steps,
+            "flash_decode": 0 if ssm or cfg.use_mla else steps,
             "ssd_scan": pre if ssm else 0, "ssd_scan_wgmma": pre if ssm else 0}
     print(f"{what}: launches {got} (expected {want}: {L} layers, "
           f"{st['prefill_items']} prefills, {st['decode_items']} decode "
@@ -1398,17 +1495,18 @@ def counted_run(cfg, session, requests, what: str):
 def seeded_model(arch: str, dev):
     """The port's seeded init of ``arch`` (what ``compile(seed=SEED)``
     builds), made once and shared by a phase's sessions. A model with no
-    float32-read params is held in its compute dtype, the copy a serve
-    stage makes of it (a cast is exact), so its sessions share those
-    weights and no float32 copy stays resident."""
+    float32-read params is drawn in its compute dtype, each leaf cast as
+    it is drawn (the values of the float32 init's cast, what a serve stage
+    holds), so its sessions share those weights and no float32 copy is
+    ever resident (deepseek-v2-lite would need 62.8 GB of it)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.common import MeshPlan
     from repro_torch.models.model_zoo import build_model
     from repro_torch.models.transformer import compute_dtype, has_ssm_layers
     cfg = get_config(arch)
-    model = build_model(cfg, MeshPlan.single_device(), seed=SEED, device=dev)
-    if not has_ssm_layers(cfg):
-        model = model.to(compute_dtype(cfg))
+    model = build_model(cfg, MeshPlan.single_device(), seed=SEED, device=dev,
+                        dtype=None if has_ssm_layers(cfg)
+                        else compute_dtype(cfg))
     return cfg, model
 
 
@@ -1423,6 +1521,64 @@ def closed(session) -> None:
     session.close()
     gc.collect()
     torch.cuda.empty_cache()
+
+
+DEEPSEEK = "deepseek-v2-lite-16b"
+
+
+def serve_deepseek(dev):
+    """deepseek-v2-lite-16b at full width and depth (27 layers: one dense
+    layer, then 26 of MLA with 64 routed experts top-6 and 2 shared; 15.7 B
+    params in bf16, seeded and drawn in bf16), in qwen3's serve geometry
+    and requests: the stage actors (2 stages), then the monolithic engine
+    on the same weights, tokens identical. Each run's launches are counted
+    as the other serve phases' are: every prefill's MLA attention on the
+    tensor-core kernel at (192, 128), 27 x 12 = 324 a run, and no decode
+    kernel (MLA decodes by absorbed einsums over its latent cache, as the
+    reference does); tok/s, peak memory, then a device profile of the
+    first 4 requests. The model is freed before it returns. Returns the
+    actor run's launches."""
+    phase(f"serve ({DEEPSEEK}, full width, bf16, actors x 2 stages, then "
+          "monolithic)")
+    t0 = time.perf_counter()
+    cfg, model = seeded_model(DEEPSEEK, dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"seeded {n:,} params ({held / 2**30:.2f} GiB in bf16) in "
+          f"{time.perf_counter() - t0:.1f} s; peak memory so far "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    requests = serve_requests(cfg)
+    geo = dict(num_groups=2, group_size=4, max_prompt_len=512,
+               max_new_tokens=48, seed=SEED)
+    outs, counts = {}, {}
+    for backend in ("actors", "monolithic"):
+        sess = compile_serve(cfg, model, backend, **geo)
+        if backend == "actors":
+            print(f"cache_len {sess.cache_len}")
+            print(sess.describe())
+        outs[backend], counts[backend], _ = counted_run(
+            cfg, sess, requests, f"{DEEPSEEK} {backend}")
+        st = sess.last_stats
+        if (counts[backend]["flash_fwd_wgmma_kernel"]
+                != cfg.num_layers * len(requests)
+                or st["admitted_mid_flight"] < 1):
+            raise AssertionError(f"{DEEPSEEK} {backend}: {st['prefill_items']}"
+                                 f" prefills, {st['admitted_mid_flight']} "
+                                 "admitted mid-flight")
+        if backend == "monolithic":
+            profile_device(f"{DEEPSEEK} monolithic generate (requests 0-3)",
+                           lambda: sess.generate(requests[:4]), cpu=False)
+        closed(sess)
+    same = same_tokens(outs["actors"], outs["monolithic"])
+    print(f"{DEEPSEEK}: tokens identical on actors and monolithic: {same}")
+    if not same:
+        raise AssertionError(f"{DEEPSEEK}: actors and monolithic tokens "
+                             "differ")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["actors"]
 
 
 def check_paged_decode(dev):
@@ -3110,6 +3266,7 @@ def main() -> int:
                check_ssd_scan_bwd(dev, H=16,
                                   name=f"ssd_scan_bwd (tp={MAMBA_MESH[1]} "
                                        "local heads)")]
+    kernels.append(check_flash_attention_mla(dev))
     kernels[1]["paged_shape"] = check_paged_decode(dev)
     ssd_row = next(k for k in kernels if k["name"] == "ssd_scan")
     for kr in kernels + [dict(kernels[0]["train_shape"],
@@ -3127,6 +3284,7 @@ def main() -> int:
                  f"{lib:.4f} ms (kernel / library {kr['vs_library']:.2f}, "
                  f"call / library {kr['wrapper_vs_library']:.2f})"))
     check_reference(dev)
+    check_reference(dev, DEEPSEEK)
     check_reference_train(dev)
     check_reference_mamba(dev)
     check_reference_mamba_train(dev)
@@ -3150,6 +3308,7 @@ def main() -> int:
     paths["serve paged (mamba2)"] = serve_paged_mamba(dev)
     torch.cuda.empty_cache()
     mamba_meshed = serve_mesh_mamba(dev)
+    deepseek = serve_deepseek(dev)
     trained, curve = train(dev)
     torch.cuda.empty_cache()
     train_plain(dev, curve)
@@ -3172,6 +3331,10 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan.kernel import BWD_TC_KERNELS
     for kr in kernels:
         name = kr["name"]
+        if name == MLA_ROW_NAME:
+            # the deepseek-v2-lite serve run (actors), every launch wgmma
+            kr["launches"] = deepseek["flash_fwd_wgmma_kernel"]
+            continue
         if name == "ssd_scan_bwd":
             # the mamba2 train run (one device, full depth); the mesh run's
             # beside it, both ranks

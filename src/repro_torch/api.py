@@ -58,7 +58,9 @@ from repro_torch.core.mesh import DeviceMesh, assemble, place
 from repro_torch.core.placement import Placement
 from repro_torch.core.planner import Plan, plan as plan_sbp
 from repro_torch.models.common import MeshPlan, resolve_device
-from repro_torch.models.transformer import (Transformer, has_ssm_layers,
+from repro_torch.models.transformer import (Transformer,
+                                            check_mesh_supported,
+                                            compute_dtype, has_ssm_layers,
                                             stack_layout)
 from repro_torch.runtime.pipeline import (ActorPipelineExecutor,
                                           InlineServeEngine, PipelinePlan,
@@ -841,12 +843,15 @@ def _load_model(cfg: ModelConfig, params, seed: int,
                 device: torch.device, plan: MeshPlan) -> Transformer:
     """The (global) model to serve: ``params`` as a Transformer or a
     state_dict (e.g. from :func:`repro_torch.models.convert
-    .params_from_jax`), or the port's seeded init when ``params`` is None;
-    ``plan`` sets its padded q heads."""
+    .params_from_jax`), or the port's seeded init when ``params`` is None,
+    drawn in the compute dtype the stages serve in (the values a cast of
+    the float32 init gives, held once); ``plan`` sets its padded q
+    heads."""
     from repro_torch.models.model_zoo import build_model
 
     if params is None:
-        return build_model(cfg, plan, seed=seed, device=device)
+        return build_model(cfg, plan, seed=seed, device=device,
+                           dtype=compute_dtype(cfg))
     if isinstance(params, Transformer):
         return params.to(device)
     if not isinstance(params, Mapping):
@@ -1249,6 +1254,7 @@ def _compile_serve(model, *, backend: str, stages: Optional[int], regs,
     mesh = _serve_mesh(mesh, device, timeout)
     dev = resolve_device(device) if mesh is None else mesh.devices[0]
     plan = MeshPlan.single_device() if mesh is None else MeshPlan.of(mesh)
+    check_mesh_supported(cfg, plan)
     (num_groups, group_size, cache_len, max_prompt_len, max_new_tokens,
      cache, cache_spec) = _serve_options(
         num_groups=num_groups, group_size=group_size, cache_len=cache_len,

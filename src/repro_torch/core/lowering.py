@@ -70,7 +70,6 @@ from repro_torch.core.tape import (INTERNAL, LocalProgram, Step,
 from repro_torch.kernels.softmax_xent.kernel import xent_local_stats
 from repro_torch.models import transformer as T
 from repro_torch.models.common import MeshPlan, param
-from repro_torch.models.mamba import FLOAT32_PARAMS
 from repro_torch.models.model_zoo import make_decode_caches
 from repro_torch.optim.adamw import (AdamWState, adamw_param_update,
                                     clip_scale, global_norm_from_partials,
@@ -1523,8 +1522,9 @@ def lower_train_stages(graph: LogicalGraph, plan: Plan,
 # Serve lowering.
 # ---------------------------------------------------------------------------
 
-#: cache leaves indexed by position: a prompt fills its first S rows
-POSITIONAL = ("k", "v")
+#: cache leaves indexed by position: a prompt fills its first S rows (GQA's
+#: k/v, MLA's latent c and rope key kpe)
+POSITIONAL = ("k", "v", "c", "kpe")
 
 
 class StageParams(nn.Module):
@@ -1538,16 +1538,6 @@ class StageParams(nn.Module):
         self.embed = embed
         self.final_norm = final_norm
         self.unembed = unembed
-
-
-def _cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """A copy of ``module`` whose parameters are cast to ``dtype`` (shared,
-    not copied, where they already have it), but for those the model reads
-    in float32 (:data:`repro_torch.models.mamba.FLOAT32_PARAMS`)."""
-    memo = {id(p): param(p.detach().to(
-        torch.float32 if name.rsplit(".", 1)[-1] in FLOAT32_PARAMS
-        else dtype)) for name, p in module.named_parameters()}
-    return copy.deepcopy(module, memo)
 
 
 def _shard_copy(module: nn.Module, dtype: torch.dtype, cfg: ModelConfig,
@@ -1689,7 +1679,8 @@ def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
         raise ValueError(f"group_size={group_size} must be divisible by the "
                          f"data-parallel degree {plan.dp}")
     attn = next((b.attn for b in model.blocks if hasattr(b, "attn")), None)
-    hq = None if attn is None else attn.wq.shape[1] // cfg.head_dim
+    hq = (None if attn is None or cfg.use_mla
+          else attn.wq.shape[1] // cfg.head_dim)
     if hq is not None and hq != cfg.padded_heads(plan.tp):
         raise ValueError(f"the model holds {hq} q heads; tp={plan.tp} needs "
                          f"{cfg.padded_heads(plan.tp)} (build it with the "
@@ -1751,7 +1742,7 @@ def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
                                       layers=_layers)
 
         if mesh is None:
-            sparams = _cast_copy(whole, adt)
+            sparams = T.cast_copy(whole, adt)
             write = write_slot
         else:
             sparams = [_shard_copy(whole, adt, cfg, plan, mesh.coords(r),

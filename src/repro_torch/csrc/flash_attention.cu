@@ -7,8 +7,8 @@
 //   causal (+ q_offset), sliding-window and q/kv padding masks, GQA.
 //
 // Two kernels, chosen by the input dtype (the wrapper states the dispatch):
-//   * flash_fwd_wgmma_kernel<D>, bf16: tensor cores (wgmma);
-//   * flash_fwd_kernel<D>, float32: CUDA-core FMAs. wgmma has no float32
+//   * flash_fwd_wgmma_kernel<D, DV>, bf16: tensor cores (wgmma);
+//   * flash_fwd_kernel<D, DV>, float32: CUDA-core FMAs. wgmma has no float32
 //     input, and its TF32 mode keeps about three decimal digits, which would
 //     break the float32 checks at 1e-4 that the port holds its kernels to.
 // Both compute the same function. The TPU kernel walks a sequential grid
@@ -25,7 +25,11 @@
 //     on output, as in the refs; a row with no unmasked key at all averages
 //     v over all Sk keys, as the dense ref does with that sentinel, instead
 //     of producing NaN.
-// Head dims: D = Dv in {64, 128}. O is written in the input type. When the
+// Head dims (D of q and k, Dv of v and o): bf16 takes (64, 64), (128, 128)
+// and (192, 128); float32 those and (96, 64). (192, 128) is MLA's prefill
+// (deepseek-v2-lite: q and k are nope 128 + rope 64, v is 128), (96, 64)
+// its reduced config's. Every other pair is refused (cudaErrorInvalidValue),
+// never computed another way. O is written in the input type. When the
 // caller passes an `lse` buffer (training), each row's logsumexp of its
 // scaled scores, m + log(l), is written there in float32, (B, H, Sq): the
 // backward kernels (flash_attention_bwd.cu) recompute P = exp(S - lse)
@@ -53,7 +57,12 @@
 //     fragment (exp2 with log2(e) folded in; the row max and sum over the
 //     four lanes that share a row);
 //   * P goes to bf16 in registers and is the A operand of O += P V
-//     (m64nDk16, 4 steps), V MN-major (the descriptor's transpose bit).
+//     (m64nDVk16, 4 steps), V MN-major (the descriptor's transpose bit).
+//     At D = 192 the Q and K tiles are three 64-column panels (12 k-steps
+//     of S), V two; shared memory is Q + 2 x (K + V) = 107,520 bytes and
+//     ptxas gives 191 registers a thread (no spill), so two blocks still
+//     share an SM. MLA's V rows lie KV Dv apart, its K
+//     rows KV D apart: each tile is loaded with its own row pitch.
 //     Rounding P to bf16 is the one rounding the float32 version does not
 //     have: relative 2^-9 on each weight, on the chip within 5e-3 + 1e-2
 //     |ref| of the float32 plain version (tests/test_torch_kernels.py
@@ -273,17 +282,19 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 constexpr int TC = 64;
 constexpr int TC_THREADS = 128;
 
-template <int D>
-constexpr int wgmma_smem_bytes() { return 5 * TC * D * 2 + 1024; }
+// Q, then each of the two stages' K and V tiles, and the swizzle's alignment
+template <int D, int DV>
+constexpr int wgmma_smem_bytes() { return TC * (3 * D + 2 * DV) * 2 + 1024; }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(TC_THREADS) flash_fwd_wgmma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
     int window, int q_offset, float sm_scale) {
   using namespace hopper;
-  constexpr uint32_t TILE = TC * D * 2;
+  constexpr uint32_t TILE = TC * D * 2;      // a Q or K tile
+  constexpr uint32_t VTILE = TC * DV * 2;    // a V tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const uint32_t sQ = smem_u32(smem);
@@ -294,9 +305,12 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_wgmma_kernel(
   const int q0 = (gridDim.x - 1 - blockIdx.x) * TC, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const size_t ldq = static_cast<size_t>(H) * D, ldk = static_cast<size_t>(KV) * D;
+  const size_t ldv = static_cast<size_t>(KV) * DV, ldo = static_cast<size_t>(H) * DV;
   const __nv_bfloat16* qb = q + static_cast<size_t>(b) * Sq * ldq + static_cast<size_t>(h) * D;
   const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Sk * ldk + static_cast<size_t>(kvh) * D;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Sk * ldk + static_cast<size_t>(kvh) * D;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Sk * ldv + static_cast<size_t>(kvh) * DV;
+  // stage s: K at TILE + s (TILE + VTILE), V right after it
+  auto sK_of = [&](int stage) { return sQ + TILE + stage * (TILE + VTILE); };
 
   // kv tiles that intersect the band of this q tile
   const int q_last = min(q0 + TC, Sq) - 1;
@@ -307,14 +321,14 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_wgmma_kernel(
 
   load_tile<D, TC>(sQ, qb, q0, Sq, ldq);
   if (kt_begin < kt_end) {
-    load_tile<D, TC>(sQ + TILE, kb, kt_begin * TC, Sk, ldk);
-    load_tile<D, TC>(sQ + 2 * TILE, vb, kt_begin * TC, Sk, ldk);
+    load_tile<D, TC>(sK_of(0), kb, kt_begin * TC, Sk, ldk);
+    load_tile<DV, TC>(sK_of(0) + TILE, vb, kt_begin * TC, Sk, ldv);
   }
   cp_async_commit();
 
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
@@ -322,11 +336,11 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_wgmma_kernel(
     cp_async_wait_all();
     __syncthreads();    // tile kt landed; every warp is done with tile kt - 1
     if (kt + 1 < kt_end) {
-      load_tile<D, TC>(sQ + TILE * (1 + 2 * (st ^ 1)), kb, k0 + TC, Sk, ldk);
-      load_tile<D, TC>(sQ + TILE * (2 + 2 * (st ^ 1)), vb, k0 + TC, Sk, ldk);
+      load_tile<D, TC>(sK_of(st ^ 1), kb, k0 + TC, Sk, ldk);
+      load_tile<DV, TC>(sK_of(st ^ 1) + TILE, vb, k0 + TC, Sk, ldv);
     }
     cp_async_commit();
-    const uint32_t sK = sQ + TILE * (1 + 2 * st), sV = sK + TILE;
+    const uint32_t sK = sK_of(st), sV = sK + TILE;
 
     float s[32];
 #pragma unroll
@@ -375,7 +389,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_wgmma_kernel(
       l[hh] += s[e];          // this lane's part of the row sum
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
     uint32_t pa[4][4];
 #pragma unroll
@@ -383,7 +397,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_wgmma_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(acc, pa[kk], kstep_mnmajor<TC>(sV, kk));
+      wgmma_rs<DV>(acc, pa[kk], kstep_mnmajor<TC>(sV, kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -403,12 +417,12 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_wgmma_kernel(
   for (int hh = 0; hh < 2; ++hh)
     any_masked |= (q0 + r_lo + 8 * hh < Sq) && (m[hh] == kNegInf);
   if (__syncthreads_or(any_masked)) {
-    float* part = reinterpret_cast<float*>(smem + TILE);   // [128 / D][D]
-    constexpr int RS = TC_THREADS / D;                       // rows per pass
-    const int c = tid % D;
+    float* part = reinterpret_cast<float*>(smem + TILE);   // [128 / DV][DV]
+    constexpr int RS = TC_THREADS / DV;                      // rows per pass
+    const int c = tid % DV;
     float sum = 0.f;
-    for (int kj = tid / D; kj < Sk; kj += RS)
-      sum += __bfloat162float(vb[static_cast<size_t>(kj) * ldk + c]);
+    for (int kj = tid / DV; kj < Sk; kj += RS)
+      sum += __bfloat162float(vb[static_cast<size_t>(kj) * ldv + c]);
     part[tid] = sum;
     __syncthreads();
 #pragma unroll
@@ -416,12 +430,12 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_wgmma_kernel(
       if (m[hh] != kNegInf) continue;
       l[hh] = static_cast<float>(Sk);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
+      for (int i = 0; i < DV / 2; ++i) {
         if (((i >> 1) & 1) != hh) continue;
         const int col = 8 * (i >> 2) + 2 * t + (i & 1);
         float cs = 0.f;
 #pragma unroll
-        for (int r = 0; r < RS; ++r) cs += part[r * D + col];
+        for (int r = 0; r < RS; ++r) cs += part[r * DV + col];
         acc[i] = cs;
       }
     }
@@ -434,10 +448,10 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_wgmma_kernel(
     const float lm = fmaxf(l[hh], 1e-30f);
     if (lse != nullptr && t == 0)
       lse[(static_cast<size_t>(b) * H + h) * Sq + qi] = m[hh] + logf(lm);
-    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * Sq + qi) * ldq +
-                          static_cast<size_t>(h) * D;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * Sq + qi) * ldo +
+                          static_cast<size_t>(h) * DV;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
           __floats2bfloat162_rn(acc[4 * j + 2 * hh] / lm,
                                 acc[4 * j + 2 * hh + 1] / lm);
@@ -448,13 +462,13 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_wgmma_kernel(
 // device current at its first launch (the port serves on one card); the
 // static's initialisation is thread-safe, so concurrent stage actors set it
 // once between them.
-template <int D>
+template <int D, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
                int window, int q_offset, float sm_scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<D, D>;
+  auto kern = flash_fwd_kernel<D, DV>;
   constexpr int smem = static_cast<int>(sizeof(float)) *
-                       (D * (BQ + PAD) + D * (BK + PAD) + BK * D);
+                       (D * (BQ + PAD) + D * (BK + PAD) + BK * DV);
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -466,13 +480,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
                  int window, int q_offset, float sm_scale,
                  cudaStream_t stream) {
-  auto kern = flash_fwd_wgmma_kernel<D>;
-  constexpr int smem = wgmma_smem_bytes<D>();
+  auto kern = flash_fwd_wgmma_kernel<D, DV>;
+  constexpr int smem = wgmma_smem_bytes<D, DV>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -489,28 +503,29 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
 // kernel). Layouts (contiguous, 16-byte aligned): q (B, Sq, H, D),
 // k (B, Sk, KV, D), v (B, Sk, KV, Dv), o (B, Sq, H, Dv); lse (B, H, Sq)
-// float32, or null when the caller needs no backward. D = Dv in {64, 128}.
-// Launches on `stream`, allocates nothing, does not synchronise; returns
-// the CUDA error of the launch (0 = success).
+// float32, or null when the caller needs no backward. (D, Dv): bf16 (64,
+// 64), (128, 128), (192, 128); float32 those and (96, 64); any other pair
+// returns cudaErrorInvalidValue. Launches on `stream`, allocates nothing,
+// does not synchronise; returns the CUDA error of the launch (0 = success).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int B, int Sq, int Sk, int H, int KV, int D, int Dv,
     int causal, int window, int q_offset, float sm_scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || D != Dv)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
-                          q_offset, sm_scale, s);
-  if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
+#define REPRO_FA_CASE(DT, HD, HDV, LAUNCH)                                   \
+  if (dtype == DT && D == HD && Dv == HDV)                                   \
+    return LAUNCH<HD, HDV>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window, \
                            q_offset, sm_scale, s);
-  if (dtype == 1 && D == 64)
-    return launch_wgmma<64>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
-                            q_offset, sm_scale, s);
-  if (dtype == 1 && D == 128)
-    return launch_wgmma<128>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
-                             q_offset, sm_scale, s);
+  REPRO_FA_CASE(0, 64, 64, launch_f32)
+  REPRO_FA_CASE(0, 128, 128, launch_f32)
+  REPRO_FA_CASE(0, 192, 128, launch_f32)
+  REPRO_FA_CASE(0, 96, 64, launch_f32)
+  REPRO_FA_CASE(1, 64, 64, launch_wgmma)
+  REPRO_FA_CASE(1, 128, 128, launch_wgmma)
+  REPRO_FA_CASE(1, 192, 128, launch_wgmma)
+#undef REPRO_FA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

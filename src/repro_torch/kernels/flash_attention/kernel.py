@@ -13,7 +13,13 @@ Each source holds two versions of its kernels, and the input dtype chooses
 between them: bf16 inputs launch the tensor-core kernels (``wgmma``), float32
 inputs the CUDA-core ones (``wgmma`` takes no float32, and its TF32 mode
 would miss the float32 checks at 1e-4). This dispatch is by dtype, stated
-here; it is not a fallback, and nothing switches routes on an error. Every
+here; it is not a fallback, and nothing switches routes on an error. The
+forward takes the head-dim pairs ``(D, Dv)`` of :data:`HEAD_DIMS` for its
+dtype: ``D = Dv`` in {64, 128}, MLA's ``(192, 128)`` (deepseek-v2-lite's
+prefill), and in float32 also ``(96, 64)`` (its reduced config). The
+backward takes ``D = Dv`` in :data:`BWD_HEAD_DIMS`; training MLA, whose
+gradient needs ``D != Dv``, waits for ROADMAP Queue 2 item 2a. A CUDA
+tensor at any other pair raises. Every
 launch adds one to ``launches``, ``bwd_dq_launches`` or
 ``bwd_dkdv_launches``; a tensor-core launch also adds one to its own
 counter (``wgmma_launches``, ``bwd_dq_wgmma_launches``,
@@ -46,7 +52,11 @@ from repro_torch.kernels.flash_attention.ref import (
 
 SOURCE = "flash_attention.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
-HEAD_DIMS = (64, 128)
+#: the (D, Dv) head-dim pairs the forward kernel takes, by dtype
+HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (192, 128)),
+             torch.float32: ((64, 64), (128, 128), (192, 128), (96, 64))}
+#: the head dims the backward kernels take (D = Dv)
+BWD_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _USE = ("call repro_torch.kernels.flash_attention.flash_attention (its "
         "FlashAttention Function) instead")
@@ -126,6 +136,28 @@ def _check_inputs(what: str, **tensors) -> None:
                              "boundary (the kernels copy 16-byte chunks)")
 
 
+def check_head_dims(dtype: torch.dtype, D: int, Dv: int,
+                    backward: bool = False) -> None:
+    """Raise unless the forward (or, with ``backward``, the backward)
+    kernel takes head dims ``(D, Dv)`` at ``dtype``."""
+    if backward:
+        if Dv != D:
+            raise NotImplementedError(
+                f"flash_attention backward: head dims (D={D}, Dv={Dv}); "
+                "the backward of Dv != D (training MLA) is ROADMAP Queue 2 "
+                "item 2a")
+        if D not in BWD_HEAD_DIMS:
+            raise ValueError(f"flash_attention backward: head dim {D}; the "
+                             f"kernel takes D = Dv in {BWD_HEAD_DIMS}")
+        return
+    pairs = HEAD_DIMS.get(dtype, ())
+    if (D, Dv) not in pairs:
+        raise ValueError(
+            f"flash_attention: head dims (D={D}, Dv={Dv}) in {dtype}; the "
+            "kernel takes (D, Dv) in " + "; ".join(
+                f"{t}: {p}" for t, p in HEAD_DIMS.items()))
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          sliding_window: int = 0, q_offset: int = 0,
                          sm_scale: Optional[float] = None,
@@ -143,9 +175,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     if k.shape != (B, Sk, KV, D) or v.shape[:3] != (B, Sk, KV) or H % KV:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in HEAD_DIMS or Dv != D:
-        raise ValueError(f"flash_attention: head dims (D={D}, Dv={Dv}); the "
-                         f"kernel takes D = Dv in {HEAD_DIMS}")
+    check_head_dims(q.dtype, D, Dv)
     if sm_scale is None:
         sm_scale = 1.0 / (D ** 0.5)
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
@@ -178,14 +208,12 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, *, sliding_window: int = 0,
     B, S, H, D = q.shape
     KV = k.shape[2]
     _check_inputs("flash_attention backward", q=q, k=k, v=v, do=do)
+    check_head_dims(q.dtype, D, v.shape[-1], backward=True)
     if (k.shape != (B, S, KV, D) or v.shape != k.shape or H % KV
             or do.shape != q.shape):
         raise ValueError(f"flash_attention backward: shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}, do {tuple(do.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention backward: head dim {D}; the "
-                         f"kernel takes D in {HEAD_DIMS}")
     if (lse.dtype != torch.float32 or lse.shape != (B, H, S)
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("flash_attention backward: lse must be contiguous "
@@ -258,4 +286,5 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
             "flash_attention: the CUDA backward takes causal self-attention "
             "(Sq == Sk, q_offset 0) only; cross-attention and q_offset are "
             "ROADMAP Queue 2 item 2")
+    check_head_dims(q.dtype, q.shape[-1], v.shape[-1], backward=True)
     return FlashAttention.apply(q, k, v, int(sliding_window), sm_scale)

@@ -8,6 +8,8 @@
         --mesh 1x2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --smoke --device cpu --mesh 1x2
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --smoke --device cpu
 
 Port of ``repro/launch/serve.py:80-150`` (``continuous_batching``): requests
 with differing generation lengths are packed into decode slots, finished
@@ -16,8 +18,9 @@ actors overlap across request groups. Runs on the card by default
 (``--device cuda``); ``--device cpu --smoke`` runs the reduced config on the
 plain PyTorch path. ``--mesh DxM`` serves a dense or Mamba-2 model on a
 ``("data", "model")`` mesh of D x M ranks (threads; on one card every rank
-shares it), as the reference's ``launch/serve.py:130-141`` does. Weights are the
-port's seeded init (``--seed``).
+shares it), as the reference's ``launch/serve.py:130-141`` does; MLA and MoE
+models (deepseek-v2-lite-16b) serve on one device. Weights are the port's
+seeded init (``--seed``), drawn in the config's compute dtype.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
-"""GQA attention: the prefill and one-token decode halves, tensor-parallel
-over the ``model`` axis of a mesh.
+"""GQA and MLA attention: the prefill and one-token decode halves, GQA also
+tensor-parallel over the ``model`` axis of a mesh.
 
-Port of the GQA half of ``repro/models/attention.py``. SBP view (model
+Port of ``repro/models/attention.py``: GQA, and MLA (DeepSeek's multi-head
+latent attention, :class:`MLAttention`, ``:291-414``) on one device. SBP view (model
 axis), as in the reference: ``wq`` S(1) (heads), ``wk``/``wv`` B (each rank
 slices its kv group), ``wo`` S(0), so the output is P(sum), reduced by the
 caller. Decode runs over a sequence-sharded KV cache (S(seq) on the model
@@ -23,8 +24,19 @@ decode kernel at its shard's ``k_offset``). Weights are cast to the
 activations' dtype at each use, as the reference casts
 ``p[...].astype(x.dtype)``: training keeps float32 params and lets the
 gradient flow back through the cast, and serving's pre-cast weights make
-the cast a no-op. MLA and the ring (sliding-window)
-decode cache wait (ROADMAP Queue 1 item 13, Queue 2 item 3).
+the cast a no-op. The ring (sliding-window) decode cache waits (ROADMAP
+Queue 1 item 13, Queue 2 item 3).
+
+MLA's prefill (:func:`mla_forward`) materialises each head's k and v from
+the latent and calls :func:`~repro_torch.kernels.flash_attention
+.flash_attention` at q/k head dim ``nope + rope`` and v head dim
+``v_head_dim`` (192 and 128 on deepseek-v2-lite), where the reference calls
+``flash_attention_triangular`` (``attention.py:355-372``). Its decode
+(:func:`mla_decode`) is the reference's absorbed form: scores and outputs
+in latent space, plain einsums over the latent cache ``c (B, L, r)`` and
+``kpe (B, L, rope)``, as the reference computes them outside any Pallas
+kernel. MLA on a mesh (heads over ``model``, the latent cache replicated)
+is ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -240,3 +252,137 @@ def gqa_decode(p: GQAttention, x, cache_k, cache_v, pos, cfg: ModelConfig,
         out = acc / torch.clamp_min(ll, 1e-30)[..., None]
     out = out.to(x.dtype)
     return out.reshape(B, 1, -1) @ p.wo.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLAttention(nn.Module):
+    """MLA weights, the reference's names and layouts (``init_mla``,
+    ``attention.py:296-313``): ``wq (d, H*(nope+rope))``, or with a q LoRA
+    ``wq_a (d, qr)``, ``q_norm (qr,)``, ``wq_b (qr, H*(nope+rope))``;
+    ``wkv_a (d, r+rope)``, ``kv_norm (r,)``, ``w_uk (r, H*nope)``,
+    ``w_uv (r, H*vd)``, ``wo (H*vd, d)``."""
+
+    def __init__(self, cfg: ModelConfig, plan: MeshPlan, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        d, H = cfg.d_model, cfg.num_heads
+        r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+        nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                          cfg.v_head_dim)
+        kw = dict(device=device, dtype=dtype)
+        if qr:
+            self.wq_a = param(torch.empty((d, qr), **kw))
+            self.q_norm = param(torch.ones((qr,), **kw))
+            self.wq_b = param(torch.empty((qr, H * (nope + rope)), **kw))
+        else:
+            self.wq = param(torch.empty((d, H * (nope + rope)), **kw))
+        self.wkv_a = param(torch.empty((d, r + rope), **kw))
+        self.kv_norm = param(torch.ones((r,), **kw))
+        self.w_uk = param(torch.empty((r, H * nope), **kw))
+        self.w_uv = param(torch.empty((r, H * vd), **kw))
+        self.wo = param(torch.empty((H * vd, d), **kw))
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig,
+             plan: MeshPlan) -> MLAttention:
+    """The port's seeded MLA weights, the reference's distributions: each
+    matrix normal at std ``1 / sqrt(fan_in)``, the norms 1."""
+    with torch.device("meta"):
+        p = MLAttention(cfg, plan)              # shapes only; filled below
+    for name, t in list(p.named_parameters()):
+        w = (torch.ones(t.shape, device=gen.device) if name.endswith("_norm")
+             else dense_init(gen, tuple(t.shape)))
+        setattr(p, name, param(w))
+    return p
+
+
+def _mla_q(p: MLAttention, x, cfg: ModelConfig, plan: MeshPlan, positions):
+    B, S = x.shape[0], x.shape[1]
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dt = x.dtype
+    if cfg.q_lora_rank:
+        cq = rms_norm(x @ p.wq_a.to(dt), p.q_norm.to(dt), cfg.norm_eps)
+        q = cq @ p.wq_b.to(dt)
+    else:
+        q = x @ p.wq.to(dt)
+    q = q.reshape(B, S, cfg.num_heads // plan.tp, nope + rope)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    return q_nope, apply_rope(q_pe, positions, 1.0, cfg.rope_theta)
+
+
+def _mla_latent(p: MLAttention, x, cfg: ModelConfig, positions):
+    """The latent ``c (B, S, r)`` (normed) and the shared rope key
+    ``k_pe (B, S, rope)``."""
+    r = cfg.kv_lora_rank
+    ckv = x @ p.wkv_a.to(x.dtype)                       # (B, S, r + rope)
+    c = rms_norm(ckv[..., :r], p.kv_norm.to(x.dtype), cfg.norm_eps)
+    k_pe = apply_rope(ckv[..., None, r:], positions, 1.0,
+                      cfg.rope_theta)[..., 0, :]
+    return c, k_pe
+
+
+def mla_forward(p: MLAttention, x, cfg: ModelConfig, plan: MeshPlan,
+                positions, sliding_window: int = 0):
+    """Prefill MLA: each head's k and v materialised from the latent, then
+    causal attention through :func:`flash_attention` (the kernel on the
+    card) at q/k head dim ``nope + rope`` and v head dim ``v_head_dim``.
+    Returns ``(y, (c, k_pe))``: the output projection and the latent cache
+    entries of the prompt."""
+    B, S = x.shape[0], x.shape[1]
+    H = cfg.num_heads // plan.tp
+    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    dt = x.dtype
+    q_nope, q_pe = _mla_q(p, x, cfg, plan, positions)
+    c, k_pe = _mla_latent(p, x, cfg, positions)
+    k_nope = (c @ p.w_uk.to(dt)).reshape(B, S, H, nope)
+    v = (c @ p.w_uv.to(dt)).reshape(B, S, H, vd)
+    # both concatenations build contiguous tensors, as the kernel takes them
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None].expand(B, S, H, rope)], dim=-1)
+    out = flash_attention(q, k, v, causal=True,
+                          sliding_window=sliding_window)
+    return out.reshape(B, S, H * vd) @ p.wo.to(dt), (c, k_pe)
+
+
+def mla_decode(p: MLAttention, x, cache_c, cache_kpe, pos, cfg: ModelConfig,
+               plan: MeshPlan, sliding_window: int = 0):
+    """Absorbed-MLA decode (``attention.py:375-414``): the query is moved
+    into latent space through ``w_uk`` and scored against the latent cache,
+    the output taken there and lifted through ``w_uv``. x: (B, 1, d);
+    cache_c: (B, L, r); cache_kpe: (B, L, rope); pos: (B,) int32. Writes
+    the new token's latent and rope key into the caches IN PLACE (the
+    reference rebuilds them functionally) and returns the output
+    projection (B, 1, d)."""
+    B, L = x.shape[0], cache_c.shape[1]
+    H = cfg.num_heads // plan.tp
+    r = cfg.kv_lora_rank
+    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    dt = x.dtype
+    q_nope, q_pe = _mla_q(p, x, cfg, plan, pos[:, None])
+    c_new, kpe_new = _mla_latent(p, x, cfg, pos[:, None])
+    rows, cols = torch.arange(B, device=x.device), pos.long()
+    cache_c[rows, cols] = c_new[:, 0].to(cache_c.dtype)
+    cache_kpe[rows, cols] = kpe_new[:, 0].to(cache_kpe.dtype)
+    cc = cache_c.to(dt)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0],
+                         p.w_uk.to(dt).reshape(r, H, nope))
+    s_lat = torch.einsum("bhr,blr->bhl", q_lat, cc)
+    s_pe = torch.einsum("bhe,ble->bhl", q_pe[:, 0], cache_kpe.to(dt))
+    s = (s_lat + s_pe).float() * (1.0 / ((nope + rope) ** 0.5))
+    kpos = torch.arange(L, device=x.device)
+    mask = kpos[None, :] <= pos[:, None]
+    if sliding_window:
+        mask &= kpos[None, :] > (pos[:, None] - sliding_window)
+    # a fill, not a scalar tensor made on the card: that copy would make
+    # the host wait for the device at every layer
+    s = s.masked_fill(~mask[:, None, :], -1e30)
+    pr = torch.softmax(s, dim=-1).to(dt)
+    out_lat = torch.einsum("bhl,blr->bhr", pr, cc)
+    out = torch.einsum("bhr,rhv->bhv", out_lat,
+                       p.w_uv.to(dt).reshape(r, H, vd))
+    return out.reshape(B, 1, H * vd) @ p.wo.to(dt)

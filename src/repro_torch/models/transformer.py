@@ -7,15 +7,19 @@ the serving half (prefill and decode over stack slices) and the training
 half (:func:`lm_loss`, :func:`_run_body`, :func:`forward_loss` on one
 device, :func:`mesh_loss_program` on a mesh), each also tensor- and
 data-parallel on a ``("data", "model")`` mesh, one call per rank inside
-:func:`repro_torch.core.mesh.spmd`. The
+:func:`repro_torch.core.mesh.spmd`. MLA attention and ``attn``/``moe``
+layers (deepseek-v2-lite: a leading dense layer, then MLA with a
+capacity-routed MoE) are served on one device; training them and running
+them on a mesh raise (ROADMAP Queue 2 item 2a, Queue 1 item 13). The
 reference stacks each period slot's params over periods and scans them;
 here a model is an ``nn.Module`` holding a flat ``blocks`` list in layer
 order, and :mod:`repro_torch.models.convert` maps the reference's stacked
 tree onto it (layer ``n_pro + i*P + j`` is ``body[j][...][i]``).
 
-Decode caches are a list with one dict per layer, ``{"k", "v"}`` for an
-attention layer and ``{"h", "tail_x", "tail_bc"}`` for an SSM layer; a stage
-holds the entries of its own layers.
+Decode caches are a list with one dict per layer, ``{"k", "v"}`` for a GQA
+layer, ``{"c", "kpe"}`` (the latent and the rope key) for an MLA layer and
+``{"h", "tail_x", "tail_bc"}`` for an SSM layer; a stage holds the entries
+of its own layers.
 
 On a mesh each rank holds its shard of every parameter under
 :func:`model_specs` (cut by :func:`shard_params`): the heads and the MLP's
@@ -29,6 +33,7 @@ head's logits are S(1)), and everything replicated over ``data``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from types import SimpleNamespace
@@ -44,19 +49,21 @@ from repro_torch.core import mesh as M
 from repro_torch.core.sbp import NdSbp, ndsbp
 from repro_torch.core.tape import INTERNAL, LocalProgram, Step
 from repro_torch.kernels.softmax_xent import combine_stats, xent_local_stats
-from repro_torch.models.attention import (GQAttention, gqa_decode,
-                                          gqa_forward, init_gqa,
-                                          kv_to_seq_sharded)
+from repro_torch.models.attention import (GQAttention, MLAttention,
+                                          gqa_decode, gqa_forward, init_gqa,
+                                          init_mla, kv_to_seq_sharded,
+                                          mla_decode, mla_forward)
 from repro_torch.models.common import (Boxer, MeshPlan, branch_psum_step,
                                        dense_init, grad_sync_step, param,
                                        resolve_device, rms_norm)
-from repro_torch.models.mamba import (Mamba, init_mamba, mamba_decode,
-                                      mamba_forward)
-from repro_torch.models.mlp import DenseMLP, dense_mlp_forward, init_dense_mlp
+from repro_torch.models.mamba import (FLOAT32_PARAMS, Mamba, init_mamba,
+                                      mamba_decode, mamba_forward)
+from repro_torch.models.mlp import (DenseMLP, MoE, dense_mlp_forward,
+                                    init_dense_mlp, init_moe, moe_forward)
 
 Kind = Tuple[str, str]        # (layer kind, mlp kind)
 #: the layer kinds the port builds
-SUPPORTED_KINDS = (("attn", "dense"), ("ssm", "none"))
+SUPPORTED_KINDS = (("attn", "dense"), ("ssm", "none"), ("attn", "moe"))
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +108,7 @@ def stack_layout(cfg: ModelConfig) -> StackLayout:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this package cannot build yet."""
     missing = [name for name, on in (
-        ("MLA", cfg.use_mla), ("encoder-decoder", cfg.encoder_decoder),
+        ("encoder-decoder", cfg.encoder_decoder),
         ("embed frontend", cfg.embed_frontend), ("MTP", cfg.mtp)) if on]
     kinds = set(stack_layout(cfg).layer_kinds())
     missing += [f"{k}/{m} layers" for (k, m) in sorted(kinds)
@@ -109,13 +116,37 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "Queue 1 item 13); the port builds attn/dense and ssm/none "
-            "stacks")
+            "Queue 1 item 13); the port builds attn/dense, attn/moe (GQA or "
+            "MLA) and ssm/none stacks")
+
+
+def has_moe_or_mla(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` has MLA attention or MoE layers, which the port
+    serves on one device only."""
+    return cfg.use_mla or any(m == "moe" for _, m in
+                              stack_layout(cfg).layer_kinds())
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a config the port cannot train yet: MLA needs the
+    attention backward at ``D != Dv`` (ROADMAP Queue 2 item 2a), and MoE
+    layers come with it."""
+    if has_moe_or_mla(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training MLA and MoE layers is not ported yet "
+            "(ROADMAP Queue 2 item 2a: the attention backward at D != Dv); "
+            "the port serves them on one device")
 
 
 def check_mesh_supported(cfg: ModelConfig, plan: MeshPlan) -> None:
-    """Raise where ``plan``'s model axis cannot split ``cfg``'s SSM heads
-    (each rank runs ``ssm_heads / tp`` of them)."""
+    """Raise where ``plan``'s mesh cannot run ``cfg``: MLA and MoE on more
+    than one rank (expert parallelism, ROADMAP Queue 1 item 13), or a
+    model axis that does not split the SSM heads (each rank runs
+    ``ssm_heads / tp`` of them)."""
+    if has_moe_or_mla(cfg) and not plan.is_single:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA and MoE on a mesh (heads and experts over "
+            "ranks) are ROADMAP Queue 1 item 13; serve it on one device")
     if has_ssm_layers(cfg) and cfg.ssm_heads % plan.tp:
         raise ValueError(f"{cfg.name}: {cfg.ssm_heads} SSM heads do not "
                          f"split over tp = {plan.tp} ranks")
@@ -137,7 +168,8 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 class Block(nn.Module):
     """One layer: ``ln1``, ``attn``, ``ln2``, ``mlp`` for an attn/dense
-    ``kind``; ``ln1``, ``ssm`` for an ssm/none one (no MLP)."""
+    ``kind`` (``ln2``, ``moe`` for attn/moe; ``attn`` is MLA when the
+    config says so); ``ln1``, ``ssm`` for an ssm/none one (no MLP)."""
 
     def __init__(self, cfg: ModelConfig, plan: MeshPlan,
                  kind: Kind = ("attn", "dense"), device=None,
@@ -150,9 +182,13 @@ class Block(nn.Module):
         if kind[0] == "ssm":
             self.ssm = Mamba(cfg, plan, **kw)
             return
-        self.attn = GQAttention(cfg, plan, **kw)
+        self.attn = (MLAttention(cfg, plan, **kw) if cfg.use_mla
+                     else GQAttention(cfg, plan, **kw))
         self.ln2 = param(torch.ones((d,), **kw))
-        self.mlp = DenseMLP(d, cfg.d_ff, **kw)
+        if kind[1] == "moe":
+            self.moe = MoE(cfg, **kw)
+        else:
+            self.mlp = DenseMLP(d, cfg.d_ff, **kw)
 
 
 class Transformer(nn.Module):
@@ -174,37 +210,61 @@ class Transformer(nn.Module):
         self.unembed = param(torch.empty((d, Vp), **kw))
 
 
+def cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of ``module`` whose parameters are cast to ``dtype`` (shared,
+    not copied, where they already have it: a model built in its compute
+    dtype is held once, however many stages and sessions serve it), but for
+    those the model reads in float32
+    (:data:`repro_torch.models.mamba.FLOAT32_PARAMS`)."""
+    memo = {id(p): param(p.detach().to(
+        torch.float32 if name.rsplit(".", 1)[-1] in FLOAT32_PARAMS
+        else dtype)) for name, p in module.named_parameters()}
+    return copy.deepcopy(module, memo)
+
+
 def init_block(gen: torch.Generator, cfg: ModelConfig, plan: MeshPlan,
-               kind: str, mlp_kind: str) -> Block:
+               kind: str, mlp_kind: str, dtype=torch.float32) -> Block:
+    """One layer's seeded weights, drawn in float32 and cast to ``dtype``
+    as :func:`cast_copy` casts them."""
     with torch.device("meta"):
         blk = Block(cfg, plan, kind=(kind, mlp_kind))  # shapes; filled below
     blk.ln1 = param(torch.ones((cfg.d_model,), device=gen.device))
     if kind == "ssm":
         blk.ssm = init_mamba(gen, cfg, plan)
-        return blk
-    blk.attn = init_gqa(gen, cfg, plan)
+        return cast_copy(blk, dtype)
+    blk.attn = (init_mla(gen, cfg, plan) if cfg.use_mla
+                else init_gqa(gen, cfg, plan))
     blk.ln2 = param(torch.ones((cfg.d_model,), device=gen.device))
-    blk.mlp = init_dense_mlp(gen, cfg.d_model, cfg.d_ff)
-    return blk
+    if mlp_kind == "moe":
+        blk.moe = init_moe(gen, cfg)
+    else:
+        blk.mlp = init_dense_mlp(gen, cfg.d_model, cfg.d_ff)
+    return cast_copy(blk, dtype)
 
 
 def init_model(cfg: ModelConfig, plan: MeshPlan, seed: int = 0,
-               device=None) -> Transformer:
-    """The port's own seeded init at the config's widths (float32 params on
+               device=None, dtype=None) -> Transformer:
+    """The port's own seeded init at the config's widths (params on
     ``device``; None means the card). Same distributions as the reference's
     ``init_model``; the draws differ (``torch.Generator`` vs
-    ``jax.random``), and so do a CPU's and a card's."""
+    ``jax.random``), and so do a CPU's and a card's. Every leaf is drawn in
+    float32; ``dtype`` (None: float32) casts each block to that dtype as it
+    is built (:func:`cast_copy`): the values a later cast would give,
+    without a whole float32 model on the device (deepseek-v2-lite's 15.7 B
+    params are 62.8 GB in float32; the largest float32 transient is then
+    one MoE layer, 2.3 GB)."""
     device = resolve_device(device)
+    dtype = torch.float32 if dtype is None else dtype
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     with torch.device("meta"):
         model = Transformer(cfg, plan)          # shapes only; filled below
     d, Vp = cfg.d_model, cfg.padded_vocab()
-    model.embed = param(dense_init(gen, (Vp, d), in_axis=1))
-    model.unembed = param(dense_init(gen, (d, Vp)))
-    model.final_norm = param(torch.ones((d,), device=device))
+    model.embed = param(dense_init(gen, (Vp, d), in_axis=1, dtype=dtype))
+    model.unembed = param(dense_init(gen, (d, Vp), dtype=dtype))
+    model.final_norm = param(torch.ones((d,), device=device, dtype=dtype))
     model.blocks = nn.ModuleList(
-        init_block(gen, cfg, plan, k, m)
+        init_block(gen, cfg, plan, k, m, dtype=dtype)
         for (k, m) in stack_layout(cfg).layer_kinds())
     return model
 
@@ -237,17 +297,30 @@ def embed_tokens(p_embed, ids, plan: MeshPlan):
     return Boxer(plan).psum_model(embed_local(p_embed, ids, plan))
 
 
+def _mlp_branch(p: Block, x, cfg: ModelConfig, mlp_kind: str):
+    """The MLP branch's output (P(sum) on a mesh): the dense SwiGLU, or
+    the MoE's (its aux loss is for training, which the port does not run
+    on MoE layers yet)."""
+    h2 = rms_norm(x, p.ln2.to(x.dtype), cfg.norm_eps)
+    if mlp_kind == "moe":
+        return moe_forward(p.moe, h2, cfg)[0]
+    return dense_mlp_forward(p.mlp, h2)
+
+
 def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
                 mlp_kind: str, positions, causal: bool = True,
                 sliding_window: int = 0, want_cache: bool = False,
                 cache_len: int = 0):
-    """Prefill one block. Returns ``(x, cache_or_None)``. An attention
-    layer's cache holds the prompt's k/v in bfloat16 (the reference's
-    prefill cache dtype): unpadded at tp = 1, and at tp > 1 padded to
+    """Prefill one block. Returns ``(x, cache_or_None)``. A GQA layer's
+    cache holds the prompt's k/v in bfloat16 (the reference's prefill
+    cache dtype): unpadded at tp = 1, and at tp > 1 padded to
     ``cache_len`` and boxed to this rank's sequence block
-    (:func:`~repro_torch.models.attention.kv_to_seq_sharded`); an SSM
-    layer's holds the final state ``h`` of the rank's heads and the conv
-    tails. The stage's ``write_slot`` places either in the group cache."""
+    (:func:`~repro_torch.models.attention.kv_to_seq_sharded`); an MLA
+    layer's holds the prompt's latent ``c`` and rope key ``kpe``, rounded
+    to bfloat16 as the reference rounds them (``transformer.py:147-149``,
+    in a float32 config too); an SSM layer's holds the final state ``h``
+    of the rank's heads and the conv tails. The stage's ``write_slot``
+    places any of them in the group cache."""
     psum = Boxer(plan).psum_model        # the branch P(sum) -> B
     h = rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps)
     if kind == "ssm":
@@ -256,17 +329,22 @@ def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
         a, (hs, (tx, tbc)) = mamba_forward(p.ssm, h, cfg, plan,
                                            return_state=True)
         return x + psum(a), {"h": hs, "tail_x": tx, "tail_bc": tbc}
-    a, (k, v) = gqa_forward(p.attn, h, cfg, plan, positions, causal=causal,
-                            sliding_window=sliding_window)
     cache = None
-    if want_cache:
-        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
-        if plan.tp > 1:
-            k, v = kv_to_seq_sharded(k, v, cfg, plan, cache_len)
-        cache = {"k": k, "v": v}
+    if cfg.use_mla:
+        a, (c, kpe) = mla_forward(p.attn, h, cfg, plan, positions,
+                                  sliding_window)
+        if want_cache:
+            cache = {"c": c.to(torch.bfloat16), "kpe": kpe.to(torch.bfloat16)}
+    else:
+        a, (k, v) = gqa_forward(p.attn, h, cfg, plan, positions,
+                                causal=causal, sliding_window=sliding_window)
+        if want_cache:
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            if plan.tp > 1:
+                k, v = kv_to_seq_sharded(k, v, cfg, plan, cache_len)
+            cache = {"k": k, "v": v}
     x = x + psum(a)
-    h2 = rms_norm(x, p.ln2.to(x.dtype), cfg.norm_eps)
-    x = x + psum(dense_mlp_forward(p.mlp, h2))
+    x = x + psum(_mlp_branch(p, x, cfg, mlp_kind))
     return x, cache
 
 
@@ -282,10 +360,14 @@ def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
         for key, new in zip(("h", "tail_x", "tail_bc"), state):
             cache[key].copy_(new)
         return x + psum(a), cache
-    x = x + psum(gqa_decode(p.attn, h, cache["k"], cache["v"], pos, cfg,
-                            plan, sliding_window))
-    h2 = rms_norm(x, p.ln2.to(x.dtype), cfg.norm_eps)
-    x = x + psum(dense_mlp_forward(p.mlp, h2))
+    if cfg.use_mla:
+        a = mla_decode(p.attn, h, cache["c"], cache["kpe"], pos, cfg, plan,
+                       sliding_window)
+    else:
+        a = gqa_decode(p.attn, h, cache["k"], cache["v"], pos, cfg, plan,
+                       sliding_window)
+    x = x + psum(a)
+    x = x + psum(_mlp_branch(p, x, cfg, mlp_kind))
     return x, cache
 
 
@@ -482,6 +564,7 @@ def forward_loss(model: Transformer, batch, cfg: ModelConfig,
     metrics)`` with metrics ``lm_loss``, ``aux_loss`` (0: no router) and
     ``loss``."""
     check_supported(cfg)
+    check_trainable(cfg)
     dev = model.embed.device
     tokens = torch.as_tensor(batch["tokens"], dtype=torch.int32, device=dev)
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
@@ -563,6 +646,7 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
     outputs and recomputes the local math between them (``:371-380``);
     the loss segment runs once."""
     check_supported(cfg)
+    check_trainable(cfg)
     cdt = compute_dtype(cfg)
     eps, tp = cfg.norm_eps, plan.tp
     attn_names = [k for k in block_specs(cfg, plan, ("attn", "dense"))

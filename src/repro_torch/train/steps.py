@@ -35,8 +35,10 @@ psummed over ``model`` after the backward and the update all-reduces over
 Every path trains dense GQA stacks and Mamba-2 (SSM) stacks alike, on one
 device and on any ``(data, model)`` mesh whose model axis splits the heads;
 on the card an SSM layer's scan runs the SSD kernels forward and backward
-(:class:`repro_torch.kernels.ssd_scan.kernel.SsdScan`). Hybrid and MoE
-stacks raise before any path is chosen (ROADMAP Queue 1 item 13).
+(:class:`repro_torch.kernels.ssd_scan.kernel.SsdScan`). Hybrid stacks
+raise before any path is chosen (ROADMAP Queue 1 item 13), and so do MLA
+and MoE ones, which the port serves but cannot train until the attention
+has its backward at ``D != Dv`` (Queue 2 item 2a).
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ from repro_torch.models.common import (MODEL_GRAD_SUM_LEAVES, MeshPlan,
 from repro_torch.models.convert import jax_leaves
 from repro_torch.models.model_zoo import build_model, loss_fn
 from repro_torch.models.transformer import (Transformer, check_mesh_supported,
-                                            check_supported, compute_dtype,
+                                            check_supported, check_trainable,
+                                            compute_dtype,
                                             mesh_loss_program, model_specs,
                                             shard_params)
 from repro_torch.optim.adamw import AdamWConfig, AdamWState, init_adamw
@@ -147,6 +150,7 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
         plan = MeshPlan(plan.axis_names, plan.axis_sizes,
                         model_axis="__fsdp_none__")
     check_supported(cfg)
+    check_trainable(cfg)
     check_mesh_supported(cfg, plan)
     optimizer = optimizer or AdamWConfig()
     device = resolve_device(device)

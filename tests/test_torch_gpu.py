@@ -144,6 +144,73 @@ def test_flash_attention_refuses_other_head_dims(cuda):
         fa.flash_attention(q, q, q)
 
 
+MLA_FLASH_CASES = [
+    # B, Sq, Sk, H, KV, D, Dv, causal, window, q_offset, dtype
+    (1, 512, 512, 16, 16, 192, 128, True, 0, 0, "bfloat16"),  # deepseek prefill
+    (1, 150, 150, 4, 4, 192, 128, True, 0, 0, "bfloat16"),    # ragged Sq
+    (2, 77, 77, 4, 2, 192, 128, False, 0, 0, "bfloat16"),     # not causal
+    (1, 33, 97, 4, 4, 192, 128, True, 0, 64, "bfloat16"),     # ragged + offset
+    (1, 8, 4, 2, 2, 192, 128, True, 2, 4, "bfloat16"),        # fully masked rows
+    (1, 150, 150, 4, 4, 192, 128, True, 0, 0, "float32"),
+    (2, 77, 77, 4, 2, 192, 128, False, 0, 0, "float32"),
+    (1, 8, 4, 2, 2, 192, 128, True, 2, 4, "float32"),
+    (1, 100, 100, 4, 4, 96, 64, True, 0, 0, "float32"),       # reduced MLA
+    (2, 45, 45, 4, 2, 96, 64, False, 0, 0, "float32"),
+    (1, 33, 97, 4, 4, 96, 64, True, 0, 64, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", MLA_FLASH_CASES)
+def test_flash_attention_mla_head_dims_match_plain(cuda, case):
+    """MLA's head dims, v narrower than q and k: (192, 128) in bf16 on the
+    tensor cores and in float32, and the reduced config's (96, 64) in
+    float32, causal and not, ragged, against the plain version."""
+    B, Sq, Sk, H, KV, D, Dv, causal, w, qoff, dt = case
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (B, Sq, H, D), dt, cuda)
+    k = _randn(rng, (B, Sk, KV, D), dt, cuda)
+    v = _randn(rng, (B, Sk, KV, Dv), dt, cuda)
+    kw = dict(causal=causal, sliding_window=w, q_offset=qoff)
+    before = fa.launches, fa.wgmma_launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.wgmma_launches) == (
+        before[0] + 1, before[1] + (dt == "bfloat16"))
+    assert got.dtype == q.dtype and got.shape == (B, Sq, H, Dv)
+    _close(got, fa.plain_flash_attention(q, k, v, **kw), dt)
+    _close(got, attention_dense_ref(q, k, v, **kw), dt)
+    if dt == "bfloat16":       # and the float32 plain version of its inputs
+        _close(got, fa.plain_flash_attention(q.float(), k.float(),
+                                             v.float(), **kw), dt)
+
+
+@pytest.mark.parametrize("pair", [(96, 64, "bfloat16"), (192, 192, "bfloat16"),
+                                  (128, 64, "float32"), (192, 64, "float32")])
+def test_flash_attention_refuses_unsupported_pairs(cuda, pair):
+    """A pair the kernel does not take raises on the card, before any
+    launch; nothing falls back to the plain version."""
+    D, Dv, dt = pair
+    q = torch.zeros((1, 8, 2, D), device=cuda, dtype=DT[dt])
+    v = torch.zeros((1, 8, 2, Dv), device=cuda, dtype=DT[dt])
+    before = fa.launches
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, v)
+    assert fa.launches == before
+
+
+def test_flash_attention_backward_refuses_mla_head_dims(cuda):
+    """Training MLA needs the backward at D != Dv: asking for it raises,
+    naming its ROADMAP item, before any launch."""
+    q = torch.zeros((1, 32, 2, 192), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    v = torch.zeros((1, 32, 2, 128), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    before = fa.launches
+    with pytest.raises(NotImplementedError, match="item 2a"):
+        fa.flash_attention(q, q, v)
+    assert fa.launches == before
+
+
 # ---------------------------------------------------------------------------
 # flash decode
 # ---------------------------------------------------------------------------

@@ -244,18 +244,19 @@ def _tc_forward(q, k, v, window):
     tiles in float32, P rounded to bf16 for P V, l from the float32 P."""
     B, S, H, D = q.shape
     G = H // k.shape[2]
+    Dv = v.shape[-1]
     scale = D ** -0.5
     qf = q.float().transpose(1, 2)
     kf = k.float().repeat_interleave(G, 2).transpose(1, 2)
     vf = v.float().repeat_interleave(G, 2).transpose(1, 2)
-    out = torch.empty(B, H, S, D)
+    out = torch.empty(B, H, S, Dv)
     lse = torch.empty(B, H, S)
     for q0 in range(0, S, TC_TILE):
         qi = qf[:, :, q0:q0 + TC_TILE]
         qpos = q0 + torch.arange(qi.shape[2])
         m = torch.full(qi.shape[:3], -1e30)
         l = torch.zeros(qi.shape[:3])
-        acc = torch.zeros(*qi.shape[:3], D)
+        acc = torch.zeros(*qi.shape[:3], Dv)
         for k0 in range(0, min(S, q0 + TC_TILE), TC_TILE):
             kpos = k0 + torch.arange(min(TC_TILE, S - k0))
             s = qi @ kf[:, :, k0:k0 + TC_TILE].transpose(-1, -2) * scale
@@ -320,6 +321,34 @@ def test_tensor_core_forward_rounding_within_chip_limits(case):
     s = torch.where(_band(pos, pos, q.shape[1], w), s, torch.tensor(-1e30))
     torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-5,
                                rtol=1e-5)
+
+
+#: MLA's prefill head dims (q/k 192, v 128), forward only: deepseek-v2-lite's
+#: 16 heads at a short prompt, a ragged last tile, a window
+TC_MLA_CASES = [
+    # B, S, H, D, Dv, window
+    (1, 256, 16, 192, 128, 0),
+    (1, 150, 4, 192, 128, 0),
+    (1, 200, 4, 192, 128, 70),
+]
+
+
+@pytest.mark.parametrize("case", TC_MLA_CASES)
+def test_tensor_core_forward_rounding_at_mla_head_dims(case):
+    """The tensor-core forward at D = 192, Dv = 128 (three 64-column panels
+    of q and k, P V at n = 128): the same one rounding of P, held to the
+    float32 plain version within the card's limits."""
+    B, S, H, D, Dv, w = case
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(torch.bfloat16) for shape in
+               ((B, S, H, D), (B, S, H, D), (B, S, H, Dv)))
+    got, _ = _tc_forward(q, k, v, w)
+    assert got.shape == (B, S, H, Dv)
+    want = fa_kernel.plain_flash_attention(q.float(), k.float(), v.float(),
+                                           causal=True, sliding_window=w)
+    torch.testing.assert_close(got.float(), want, atol=TC_ATOL,
+                               rtol=TC_RTOL)
 
 
 @pytest.mark.parametrize("case", TC_CASES)
