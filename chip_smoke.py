@@ -52,7 +52,15 @@ result line is printed:
    causal, on the tensor cores), with the float32 kernel at (192, 128)
    and at the reduced config's (96, 64) on shapes of their own (within
    1e-4); its library call is SDPA on the first backend that takes v
-   narrower than q and k, named in the row (``library_backend``).
+   narrower than q and k, named in the row (``library_backend``). MLA's
+   training layer has rows too: the forward and the backward at q and k
+   (2, 2048, 16, 192), v and dO (2, 2048, 16, 128) bf16, causal (the
+   backward's dk/dv kernel on 32-row q tiles there), each held bf16 and
+   on float32 copies (the float32 kernels at the same shape within 1e-4),
+   the backward also in float32 at the reduced config's (96, 64); their
+   library calls SDPA's forward and backward on the first backend that
+   takes Dv != D; and the xent forward and backward at deepseek-v2-lite's
+   vocabulary (4,096 x 102,400 bf16).
    Each reports the device time of every kernel its call launches
    (torch.profiler; the names of the kernels the trace matched are
    printed), the wrapper call's, the plain version's, the least time the
@@ -75,7 +83,11 @@ result line is printed:
    deepseek-v2-lite (float32: MLA at head dims 96 / 64, a dense layer and
    a MoE layer) served through the kernels against the CPU's plain path
    as reduced qwen3 is (prefill logits, four decode steps), every prefill
-   attention on the float32 CUDA-core kernel;
+   attention on the float32 CUDA-core kernel; then two ZeRO 1 x 1 train
+   steps of reduced deepseek-v2-lite on the card (MLA at 96 / 64 forward
+   and backward on the CUDA-core kernels, the MoE and its aux loss on the
+   training tape) against the CPU's plain steps: loss, aux_loss and
+   grad_norm within 1e-4;
 4. serve: qwen3-1.7b at full width, bf16, seeded init, through
    ``repro_torch.api.compile(backend="actors", stages=2)`` -- 12 requests of
    64-512 prompt tokens and 8-48 new tokens in 2 groups of 4 slots; then
@@ -166,6 +178,16 @@ result line is printed:
    the ranks waited; the peak memory; one profiled step. Then ZeRO on
    (2, 2) at phase 7's 4-layer cut, 2 steps, held to phase 7's plain
    (2, 2) run at the same limits;
+7d. train deepseek-v2-lite-16b at full width cut to 4 layers (the dense
+   one and 3 of MLA + MoE; 2,254,979,072 params) through
+   ``make_train_step`` with ZeRO at 1 x 1 (the default), 4 steps of 2 x
+   2048 ``SyntheticLM`` tokens: every step's launches held (8 attention
+   forwards at (192, 128), each layer's forward and its remat rerun, 4 dq
+   and 4 dk/dv, all on the tensor cores, the xent kernels once each way),
+   finite losses, aux_loss above 0, wall, tokens/s and peak memory, one
+   profiled step; then 2 steps of the same init and batches on the plain
+   versions, step 0's loss within 1e-3 of the kernels' (later steps
+   printed: a top-k pick that flips on a bf16 rounding moves them);
 7c. train mamba2: mamba2-370m at full width and depth (48 SSM layers,
    bf16 compute) through ``make_train_step`` with ZeRO (the default), 4
    steps of 2 x 2048 ``SyntheticLM`` tokens: finite losses printed (their
@@ -228,7 +250,9 @@ result line is printed:
    launches, and at one rank's vocab shard of the mesh phase (256 x
    75,968 at offset 75,968) with that phase's launches.
 
-The MLA attention row carries the deepseek-v2-lite serve run's launches.
+The MLA attention row carries the deepseek-v2-lite serve run's launches,
+its training-shape rows (forward, backward by kernel, the xent rows at
+its vocabulary) the deepseek-v2-lite train run's.
 The ``ssd_scan_bwd`` row carries the mamba2 train run's launches (by
 kernel, and the mesh run's by path), the local-heads SSD row the mamba2
 mesh serve run's, and the SSD forward row's ``launches_by_path`` the
@@ -471,24 +495,35 @@ def attention_row(dev, B, S, H, KV, D, seed, Dv=None):
     return timed(row, "flash_fwd_wgmma_kernel", launch, launch)
 
 
-def sdpa_ms(q, k, v):
-    """SDPA's causal call on (B, H, S, D) views, timed on the first backend
-    of flash, cuDNN, memory-efficient and math that takes these head dims,
-    and that backend's name (the library call's yardstick; the port never
-    calls it)."""
+def sdpa_ms(q, k, v, do=None):
+    """SDPA's causal call on (B, H, S, D) views -- with ``do`` (B, H, S,
+    Dv), its backward -- timed on the first backend of flash, cuDNN,
+    memory-efficient and math that takes these head dims, and that
+    backend's name (the library call's yardstick; the port never calls
+    it)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    call = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, is_causal=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if do is not None:
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel([backend]):
+                if do is None:
+                    call = lambda: sdpa(q, k, v, is_causal=True)  # noqa: E731
+                else:
+                    out = sdpa(q, k, v, is_causal=True)
+                    call = lambda: torch.autograd.grad(  # noqa: E731
+                        out, (q, k, v), do, retain_graph=True)
                 call()
                 torch.cuda.synchronize()
-                return cuda_ms(call), backend.name
+                return cuda_ms(call, iters=20 if do is None else 5), \
+                    backend.name
         except RuntimeError as e:
             print(f"SDPA {backend.name} refuses q {tuple(q.shape)} v "
-                  f"{tuple(v.shape)}: {str(e).splitlines()[0][:100]}")
+                  f"{tuple(v.shape)}" + (" (backward)" if do is not None
+                                         else "")
+                  + f": {str(e).splitlines()[0][:100]}")
     raise AssertionError("no SDPA backend took these inputs")
 
 
@@ -778,19 +813,22 @@ def check_xent(dev, Vl=151936, offset=0, label="", N=None):
 
 
 def check_flash_attention_bwd(dev, H=16, KV=8, seed=SEED + 5,
-                              name="flash_attention_bwd", B=None):
+                              name="flash_attention_bwd", B=None, D=128,
+                              Dv=None):
     """The attention backward at one training layer of qwen3-1.7b (all 16
     q and 8 kv heads, or a rank's local heads on a mesh; ``B`` rows, by
-    default the train batch's) against autograd through the plain
-    version, bf16 and on float32 copies."""
+    default the train batch's), or at MLA's head dims (q and k ``D``, v
+    and dO ``Dv``), against autograd through the plain version, bf16 and
+    on float32 copies."""
     from repro_torch.kernels.flash_attention import kernel as fa
-    B, S, D = B or TRAIN_B, TRAIN_S, 128
+    B, S, Dv = B or TRAIN_B, TRAIN_S, D if Dv is None else Dv
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
-    q, k, v, do = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D), \
-        mk(B, S, H, D)
-    what = f"q{tuple(q.shape)} kv{tuple(k.shape)} causal"
+    q, k, v, do = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, Dv), \
+        mk(B, S, H, Dv)
+    what = (f"q{tuple(q.shape)} kv{tuple(k.shape)} causal" if Dv == D else
+            f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} causal")
 
     def grads(attn, dt):
         leaves = [t.detach().to(dt).requires_grad_(True) for t in (q, k, v)]
@@ -838,8 +876,9 @@ def check_flash_attention_bwd(dev, H=16, KV=8, seed=SEED + 5,
     _, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
     pairs = S * (S + 1) // 2
     dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, lse, do)
+    # S, dQ and dK over D, dP and dV over Dv: 2 flops a multiply-add each
     b_ms, b_by = bound_ms(nbytes(q, k, v, lse, do, dq, dk, dv),
-                          10 * D * H * B * pairs)
+                          2 * (3 * D + 2 * Dv) * H * B * pairs)
 
     def plain_bwd():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -857,17 +896,66 @@ def check_flash_attention_bwd(dev, H=16, KV=8, seed=SEED + 5,
                                            retain_graph=True)
 
     launch = lambda: fa.flash_attention_bwd_cuda(q, k, v, lse, do)  # noqa: E731
-    return timed({
+    row = {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:75 (its "
                     "backward; no Pallas counterpart)",
         "max_abs_err": errs[0], "f32_max_abs_err": errs[1],
         "plain_ms": cuda_ms(plain_bwd(), iters=3, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(library_bwd(), iters=5),
-    }, ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel"), launch,
-        launch)
+        "bound_ms": b_ms, "bound_by": b_by}
+    if Dv == D:
+        row["library_ms"] = cuda_ms(library_bwd(), iters=5)
+    else:
+        row["library_ms"], row["library_backend"] = sdpa_ms(
+            *(t.transpose(1, 2) for t in (q, k, v, do)))
+    return timed(row, ("flash_bwd_dq_wgmma_kernel",
+                       "flash_bwd_dkdv_wgmma_kernel"), launch, launch)
+
+
+MLA_TRAIN_FWD = "flash_attention (MLA, D 192 / Dv 128, training shape)"
+MLA_TRAIN_BWD = "flash_attention_bwd (MLA, D 192 / Dv 128)"
+
+
+def check_flash_attention_mla_train(dev):
+    """The attention at deepseek-v2-lite's training layer (q and k (2,
+    2048, 16, 192), v and dO (2, 2048, 16, 128) bf16, causal): the forward
+    and the backward, each held to its plain version (bf16 and on float32
+    copies, the float32 kernels at the same shape within 1e-4) and timed;
+    then the float32 backward at the reduced config's (96, 64) within 1e-4
+    of the plain version's autograd."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    fwd = {"name": MLA_TRAIN_FWD, **ATTENTION_ROW}
+    fwd.update(attention_row(dev, TRAIN_B, TRAIN_S, 16, 16, 192, SEED + 31,
+                             Dv=128))
+    bwd = check_flash_attention_bwd(dev, H=16, KV=16, seed=SEED + 32,
+                                    name=MLA_TRAIN_BWD, D=192, Dv=128)
+    rng = np.random.default_rng(SEED + 33)
+    shapes = ((2, 300, 4, 96), (2, 300, 2, 96), (2, 300, 2, 64),
+              (2, 300, 4, 64))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+                   .to(dev) for sh in shapes)
+
+    def grads(attn):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(attn(*leaves, causal=True), leaves, do)
+    before = (fa.bwd_dq_launches, fa.bwd_dkdv_launches,
+              fa.bwd_dq_wgmma_launches, fa.bwd_dkdv_wgmma_launches)
+    got = grads(fa.flash_attention)
+    torch.cuda.synchronize()
+    n = [a - b for a, b in zip((fa.bwd_dq_launches, fa.bwd_dkdv_launches,
+                                fa.bwd_dq_wgmma_launches,
+                                fa.bwd_dkdv_wgmma_launches), before)]
+    if n != [1, 1, 0, 0]:
+        raise AssertionError(f"flash_attention backward float32 (96, 64): "
+                             f"launches {n}, expected [1, 1, 0, 0]")
+    want = grads(fa.plain_flash_attention)
+    bwd["f32_max_abs_err_96_64"] = max(agree(
+        f"flash_attention backward d{name} float32 q{tuple(q.shape)} "
+        f"k{tuple(k.shape)} v{tuple(v.shape)}", a, b, F32_TOL, F32_TOL)
+        for name, a, b in zip("qkv", got, want))
+    torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 def check_ssd_scan(dev, H: int = 32, name: str = "ssd_scan",
@@ -1173,51 +1261,65 @@ def check_reference(dev, arch: str = "qwen3-1.7b"):
           f"{want[0]} float32 attention launches, none on the tensor cores")
 
 
-def check_reference_train(dev):
-    """Two training steps of the reduced qwen3 (float32) through the
+def check_reference_train(dev, arch: str = "qwen3-1.7b", zero: bool = False):
+    """Two training steps of the reduced ``arch`` (float32) through the
     kernels on the card against the same two steps on the CPU's plain path,
-    from the same initial weights and batches."""
-    phase("reference train (reduced qwen3, card vs CPU plain path, 2 steps)")
+    from the same initial weights and batches: loss, ``aux_loss`` and
+    grad_norm within 1e-4. ``zero``: the card runs the ZeRO 1 x 1 step
+    (the taped loss program; for deepseek-v2-lite its MLA and MoE steps),
+    the CPU the plain one."""
+    phase(f"reference train (reduced {arch}, card"
+          + (" ZeRO 1 x 1" if zero else "") + " vs CPU plain path, 2 steps)")
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.train.steps import make_train_step
 
-    cfg = get_config("qwen3-1.7b").reduced()
+    cfg = get_config(arch).reduced()
     src = SyntheticLM(cfg.vocab_size, 2, 64, seed=SEED + 6)
     batches = [src(i) for i in range(2)]
     init = None
     runs = {}
     zero_train_counts()
     for d in ("cpu", dev):
-        ts = make_train_step(cfg, zero=False, device=d)
-        params = ts.init_params(SEED)
+        card_zero = zero and d != "cpu"
+        ts = make_train_step(cfg, zero=card_zero, device=d)
         if init is None:
-            init = {n: t.detach().clone() for n, t in params.state_dict().items()}
-        params.load_state_dict(init)
+            params = ts.init_params(SEED)
+            init = {n: t.detach().clone()
+                    for n, t in params.state_dict().items()}
+        elif card_zero:
+            params = ts.shard_params_fn(init)
+        else:
+            params = ts.init_params(SEED)
+            params.load_state_dict(init)
         opt = ts.init_opt(params)
         runs[d] = []
         for b in batches:
             params, opt, m = ts.step_fn(params, opt, {"tokens": b})
-            runs[d].append((float(m["loss"]), float(m["grad_norm"])))
+            runs[d].append(tuple(float(m[k]) for k in
+                                 ("loss", "aux_loss", "grad_norm")))
     # float32 attention runs on the CUDA-core kernels, none on tensor cores
     n = train_counts()
     if (min(n["flash_attention"], n["flash_bwd_dq_kernel"],
             n["flash_bwd_dkdv_kernel"]) < 2
             or n["flash_fwd_wgmma_kernel"] or n["flash_bwd_dq_wgmma_kernel"]
             or n["flash_bwd_dkdv_wgmma_kernel"]):
-        raise AssertionError(f"reduced qwen3 train steps, float32: launches "
+        raise AssertionError(f"reduced {arch} train steps, float32: launches "
                              f"{n}; expected the CUDA-core kernels only")
-    print(f"reduced qwen3 float32 train steps: attention launches {n}")
+    print(f"reduced {arch} float32 train steps: attention launches {n}")
     worst = 0.0
-    for (lc, gc), (lg, gg) in zip(runs["cpu"], runs[dev]):
-        err = max(abs(lg - lc) / abs(lc), abs(gg - gc) / abs(gc))
+    for got, want in zip(runs[dev], runs["cpu"]):
+        err = max(abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want)
+                  if w or g)
         worst = max(worst, err)
-        if err > 1e-4:
+        if err > REF_TRAIN_RTOL:
             raise AssertionError(f"train steps: card {runs[dev]} vs CPU "
                                  f"{runs['cpu']}")
-    print(f"reduced qwen3, 2 train steps: card (loss, grad_norm) "
+    if cfg.num_experts and not all(r[1] > 0 for r in runs[dev]):
+        raise AssertionError(f"reduced {arch}: aux_loss {runs[dev]} not > 0")
+    print(f"reduced {arch}, 2 train steps: card (loss, aux_loss, grad_norm) "
           f"{runs[dev]}, CPU {runs['cpu']}; max relative err {worst:.3e} "
-          "(bound 1e-4, float32)")
+          f"(bound {REF_TRAIN_RTOL}, float32)")
 
 
 def check_reference_mamba(dev):
@@ -1524,6 +1626,14 @@ def closed(session) -> None:
 
 
 DEEPSEEK = "deepseek-v2-lite-16b"
+# the kernels-line label of the xent rows at deepseek-v2-lite's vocabulary
+DEEPSEEK_XENT = " (deepseek-v2-lite vocab)"
+
+
+def deepseek_vocab() -> int:
+    """deepseek-v2-lite's padded vocabulary, the train logits' columns."""
+    from repro_torch.configs.registry import get_config
+    return get_config(DEEPSEEK).padded_vocab()
 
 
 def serve_deepseek(dev):
@@ -2033,7 +2143,7 @@ def xent_offsets():
 
 def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
                 steps: int = TRAIN_STEPS, falls: bool = True,
-                want_offsets=None, zero: bool = False):
+                want_offsets=None, zero: bool = False, aux: bool = False):
     """``cfg`` (default qwen3-1.7b at full width and depth) through
     make_train_step on the ``("data", "model")`` mesh ``shape`` (1 x 1: one
     device) from the seeded init, fed by the actor data pipeline, ``steps``
@@ -2042,8 +2152,10 @@ def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
     ``want_offsets``, and the collectives' calls, bytes and the seconds the
     ranks waited in them. ``zero``: the ZeRO step (float32 master rows and
     moments sharded over ``data``), else the plain one. ``falls``: the
-    loss must fall over the run. Returns (step, params, opt state, source,
-    [(loss, grad_norm)], total launches with the xent ``offsets``)."""
+    loss must fall over the run; ``aux``: every step's ``aux_loss`` (the
+    routers' load-balance loss) must be above 0. Returns (step, params, opt
+    state, source, [(loss, grad_norm)], total launches with the xent
+    ``offsets``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import ActorDataPipeline, SyntheticLM
     from repro_torch.models.common import MeshPlan
@@ -2077,6 +2189,7 @@ def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
         t = time.perf_counter()
         params, opt, m = ts.step_fn(params, opt, {"tokens": tokens})
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        aux_loss = float(m["aux_loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         now, off = train_counts(), xent_offsets()
@@ -2093,8 +2206,11 @@ def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
                    f"{st.total_bytes() / 2**20:,.1f} MiB {st.bytes}, the "
                    f"ranks {st.wait_s:.3f} s in them")
         print(f"{what} step {step}: loss {loss:.4f}, grad_norm {gnorm:.4f}, "
-              f"wall {wall:.3f} s, {B * S / wall:,.0f} tokens/s, launches "
+              + (f"aux_loss {aux_loss:.4f}, " if aux else "")
+              + f"wall {wall:.3f} s, {B * S / wall:,.0f} tokens/s, launches "
               f"{per}{col}")
+        if aux and not aux_loss > 0:
+            raise AssertionError(f"{what} step {step}: aux_loss {aux_loss}")
         if per != want:
             raise AssertionError(f"{what} step {step}: kernel launches {per},"
                                  f" expected {want}")
@@ -2310,6 +2426,65 @@ def train_zero(dev, curve, cut_curve):
                 zc, cut_curve)
     gc.collect()
     torch.cuda.empty_cache()
+    return total
+
+
+# deepseek-v2-lite-16b trained at full width, cut to 4 layers (the dense
+# one and 3 MLA + MoE): its 15.7 B params need 234 GiB at 16 bytes a
+# parameter, 4 layers 2,254,979,072 params, 33.6 GiB; then the same model's
+# first steps on the plain versions
+DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_PLAIN_STEPS = 4, 2
+
+
+def train_deepseek(dev):
+    """deepseek-v2-lite-16b at full width cut to ``DEEPSEEK_TRAIN_LAYERS``
+    layers through ``make_train_step`` (ZeRO at 1 x 1, the default: bf16
+    compute over float32 masters and moments, remat), ``TRAIN_STEPS``
+    steps of ``TRAIN_B x TRAIN_S`` ``SyntheticLM`` tokens: every step's
+    launches held (each layer's attention forward and its remat rerun at
+    (192, 128) on the tensor cores, dq and dk/dv once a layer, the xent
+    kernels once each way), finite losses and ``aux_loss`` above 0, wall,
+    tokens/s and peak memory, one profiled step. Then the same init and
+    batches through the plain versions for ``DEEPSEEK_PLAIN_STEPS`` steps:
+    step 0's loss within ``CURVE_RTOL_FIRST``, the later steps' difference
+    printed (a top-k pick that flips on a bf16 rounding moves it). Returns
+    the kernel run's launch counts."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(DEEPSEEK),
+                              num_layers=DEEPSEEK_TRAIN_LAYERS)
+    phase(f"train {DEEPSEEK} (full width, {DEEPSEEK_TRAIN_LAYERS} of its 27 "
+          f"layers, {cfg.param_count():,} params; ZeRO 1 x 1, bf16 compute, "
+          f"float32 masters and moments, {TRAIN_STEPS} steps), then "
+          f"{DEEPSEEK_PLAIN_STEPS} steps on the plain versions")
+    want, _ = train_want(cfg, 1, 1)
+    print(f"{DEEPSEEK}: expected launches a step {want}")
+    ts, params, opt, src, curve, total = train_steps(
+        dev, f"{DEEPSEEK} kernels", want, cfg=cfg, falls=False, zero=True,
+        aux=True)
+    batch = {"tokens": src(TRAIN_STEPS)}
+    profile_device(f"{DEEPSEEK} train step", lambda: float(
+        ts.step_fn(params, opt, batch)[2]["loss"]), top=10)
+    del ts, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    with plain_versions():
+        *_, plain, _ = train_steps(
+            dev, f"{DEEPSEEK} plain", dict.fromkeys(train_counts(), 0),
+            cfg=cfg, steps=DEEPSEEK_PLAIN_STEPS, falls=False, zero=True,
+            aux=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for step, ((lk, gk), (lp, gp)) in enumerate(zip(curve, plain)):
+        err, gerr = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+        print(f"{DEEPSEEK} step {step}: kernels (loss, grad_norm) "
+              f"{(lk, gk)}, plain {(lp, gp)}: relative err loss {err:.3e}"
+              + (f" (limit {CURVE_RTOL_FIRST})" if step == 0
+                 else " (not held)") + f", grad_norm {gerr:.3e} (not held)")
+        if step == 0 and err > CURVE_RTOL_FIRST:
+            raise AssertionError(f"{DEEPSEEK} step 0: the kernel path's loss "
+                                 f"{lk} left the plain path's {lp}")
     return total
 
 
@@ -3267,6 +3442,8 @@ def main() -> int:
                                   name=f"ssd_scan_bwd (tp={MAMBA_MESH[1]} "
                                        "local heads)")]
     kernels.append(check_flash_attention_mla(dev))
+    kernels += [*check_flash_attention_mla_train(dev),
+                *check_xent(dev, Vl=deepseek_vocab(), label=DEEPSEEK_XENT)]
     kernels[1]["paged_shape"] = check_paged_decode(dev)
     ssd_row = next(k for k in kernels if k["name"] == "ssd_scan")
     for kr in kernels + [dict(kernels[0]["train_shape"],
@@ -3286,6 +3463,7 @@ def main() -> int:
     check_reference(dev)
     check_reference(dev, DEEPSEEK)
     check_reference_train(dev)
+    check_reference_train(dev, DEEPSEEK, zero=True)
     check_reference_mamba(dev)
     check_reference_mamba_train(dev)
     check_reference_mamba_train(dev, MAMBA_MESH)
@@ -3317,6 +3495,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     zero_trained = train_zero(dev, curve, cut_curve)
     torch.cuda.empty_cache()
+    deepseek_trained = train_deepseek(dev)
+    torch.cuda.empty_cache()
     mamba_trained = train_mamba(dev)
     mamba_mesh_trained = train_mesh_mamba(dev)
     check_graph_reference(dev)
@@ -3334,6 +3514,21 @@ def main() -> int:
         if name == MLA_ROW_NAME:
             # the deepseek-v2-lite serve run (actors), every launch wgmma
             kr["launches"] = deepseek["flash_fwd_wgmma_kernel"]
+            continue
+        if name in (MLA_TRAIN_FWD, MLA_TRAIN_BWD) or name.endswith(
+                DEEPSEEK_XENT):
+            # the deepseek-v2-lite train run (4 layers, TRAIN_STEPS steps)
+            if name == MLA_TRAIN_BWD:
+                kr["launches_by_kernel"] = {
+                    k: deepseek_trained[k] for k in (
+                        "flash_bwd_dq_wgmma_kernel",
+                        "flash_bwd_dkdv_wgmma_kernel")}
+                kr["launches"] = min(kr["launches_by_kernel"].values())
+            elif name == MLA_TRAIN_FWD:
+                kr["launches"] = deepseek_trained["flash_fwd_wgmma_kernel"]
+            else:
+                kr["launches"] = deepseek_trained[name.split(" ")[0]]
+            kr["launches_per_step"] = kr["launches"] // TRAIN_STEPS
             continue
         if name == "ssd_scan_bwd":
             # the mamba2 train run (one device, full depth); the mesh run's

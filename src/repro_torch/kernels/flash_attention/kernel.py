@@ -16,10 +16,9 @@ would miss the float32 checks at 1e-4). This dispatch is by dtype, stated
 here; it is not a fallback, and nothing switches routes on an error. The
 forward takes the head-dim pairs ``(D, Dv)`` of :data:`HEAD_DIMS` for its
 dtype: ``D = Dv`` in {64, 128}, MLA's ``(192, 128)`` (deepseek-v2-lite's
-prefill), and in float32 also ``(96, 64)`` (its reduced config). The
-backward takes ``D = Dv`` in :data:`BWD_HEAD_DIMS`; training MLA, whose
-gradient needs ``D != Dv``, waits for ROADMAP Queue 2 item 2a. A CUDA
-tensor at any other pair raises. Every
+prefill and training), and in float32 also ``(96, 64)`` (its reduced
+config); the backward takes the same pairs (:data:`BWD_HEAD_DIMS`). A
+CUDA tensor at any other pair raises. Every
 launch adds one to ``launches``, ``bwd_dq_launches`` or
 ``bwd_dkdv_launches``; a tensor-core launch also adds one to its own
 counter (``wgmma_launches``, ``bwd_dq_wgmma_launches``,
@@ -55,8 +54,9 @@ BWD_SOURCE = "flash_attention_bwd.cu"
 #: the (D, Dv) head-dim pairs the forward kernel takes, by dtype
 HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (192, 128)),
              torch.float32: ((64, 64), (128, 128), (192, 128), (96, 64))}
-#: the head dims the backward kernels take (D = Dv)
-BWD_HEAD_DIMS = (64, 128)
+#: the (D, Dv) head-dim pairs the backward kernels take, by dtype: the
+#: forward's, each of which a causal training path can reach
+BWD_HEAD_DIMS = HEAD_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _USE = ("call repro_torch.kernels.flash_attention.flash_attention (its "
         "FlashAttention Function) instead")
@@ -89,15 +89,15 @@ def _fn():
 def _bwd_fns():
     lib = _build.load(BWD_SOURCE)
     dq = lib.repro_flash_attention_bwd_dq
-    # q, k, v, dout, lse, delta, dq; dtype, B, S, H, KV, D, window; sm_scale;
-    # stream
-    dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    # q, k, v, dout, lse, delta, dq; dtype, B, S, H, KV, D, Dv, window;
+    # sm_scale; stream
+    dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
     dq.restype = ctypes.c_int
     dkdv = lib.repro_flash_attention_bwd_dkdv
-    # q, k, v, dout, lse, delta, dk, dv; dtype, B, S, H, KV, D, window;
+    # q, k, v, dout, lse, delta, dk, dv; dtype, B, S, H, KV, D, Dv, window;
     # sm_scale; stream
-    dkdv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    dkdv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                      + [ctypes.c_float, ctypes.c_void_p])
     dkdv.restype = ctypes.c_int
     return dq, dkdv
@@ -140,22 +140,13 @@ def check_head_dims(dtype: torch.dtype, D: int, Dv: int,
                     backward: bool = False) -> None:
     """Raise unless the forward (or, with ``backward``, the backward)
     kernel takes head dims ``(D, Dv)`` at ``dtype``."""
-    if backward:
-        if Dv != D:
-            raise NotImplementedError(
-                f"flash_attention backward: head dims (D={D}, Dv={Dv}); "
-                "the backward of Dv != D (training MLA) is ROADMAP Queue 2 "
-                "item 2a")
-        if D not in BWD_HEAD_DIMS:
-            raise ValueError(f"flash_attention backward: head dim {D}; the "
-                             f"kernel takes D = Dv in {BWD_HEAD_DIMS}")
-        return
-    pairs = HEAD_DIMS.get(dtype, ())
-    if (D, Dv) not in pairs:
+    table, what = ((BWD_HEAD_DIMS, "flash_attention backward") if backward
+                   else (HEAD_DIMS, "flash_attention"))
+    if (D, Dv) not in table.get(dtype, ()):
         raise ValueError(
-            f"flash_attention: head dims (D={D}, Dv={Dv}) in {dtype}; the "
-            "kernel takes (D, Dv) in " + "; ".join(
-                f"{t}: {p}" for t, p in HEAD_DIMS.items()))
+            f"{what}: head dims (D={D}, Dv={Dv}) in {dtype}; the kernel "
+            "takes (D, Dv) in " + "; ".join(
+                f"{t}: {p}" for t, p in table.items()))
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
@@ -199,18 +190,19 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, *, sliding_window: int = 0,
                              sm_scale: Optional[float] = None):
     """Launch the backward kernels of causal self-attention (Sq == Sk,
     q_offset 0), the dq kernel and then the dk/dv kernel (tensor cores for
-    bf16, CUDA cores for float32): q, do (B, S, H, D), k, v (B, S, KV, D),
-    one dtype, contiguous; ``lse`` (B, H, S) float32 from the forward.
-    Returns (dq, dk, dv) in q's dtype."""
+    bf16, CUDA cores for float32): q (B, S, H, D), k (B, S, KV, D), v (B,
+    S, KV, Dv), do (B, S, H, Dv), one dtype, contiguous, ``(D, Dv)`` in
+    :data:`BWD_HEAD_DIMS`; ``lse`` (B, H, S) float32 from the forward.
+    Returns (dq, dk, dv) in q's dtype, shaped as q, k and v."""
     global bwd_dq_launches, bwd_dkdv_launches
     global bwd_dq_wgmma_launches, bwd_dkdv_wgmma_launches
     _build.refuse_grad("flash_attention_bwd_cuda", _USE, q, k, v, do)
     B, S, H, D = q.shape
-    KV = k.shape[2]
+    KV, Dv = k.shape[2], v.shape[-1]
     _check_inputs("flash_attention backward", q=q, k=k, v=v, do=do)
-    check_head_dims(q.dtype, D, v.shape[-1], backward=True)
-    if (k.shape != (B, S, KV, D) or v.shape != k.shape or H % KV
-            or do.shape != q.shape):
+    check_head_dims(q.dtype, D, Dv, backward=True)
+    if (k.shape != (B, S, KV, D) or v.shape != (B, S, KV, Dv) or H % KV
+            or do.shape != (B, S, H, Dv)):
         raise ValueError(f"flash_attention backward: shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}, do {tuple(do.shape)}")
@@ -225,7 +217,7 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, *, sliding_window: int = 0,
     delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dq_fn, dkdv_fn = _bwd_fns()
-    shape = (_DTYPES[q.dtype], B, S, H, KV, D, int(sliding_window),
+    shape = (_DTYPES[q.dtype], B, S, H, KV, D, Dv, int(sliding_window),
              float(sm_scale))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())

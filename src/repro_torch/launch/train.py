@@ -7,6 +7,8 @@
         --mesh 1x2 --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
         --smoke --device cpu --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v2-lite-16b --smoke --device cpu --steps 3
 
 The flags are the reference's (``repro/launch/train.py``) plus ``--device``
 (default: the card). ``--smoke`` uses the reduced config. ``--mesh DxM``
@@ -18,7 +20,10 @@ pipeline is the actor-runtime prefetcher (paper §6.1); checkpointing every
 assembled from the ranks. ``--zero`` (the default, as in the reference)
 keeps float32 masters and AdamW moments as flat rows sharded over the data
 axes, gathered in the compute dtype each step (paper §6.4);
-``--no-zero`` keeps a replica of each rank's shards and moments.
+``--no-zero`` keeps a replica of each rank's shards and moments. An MLA +
+MoE config (deepseek-v2-lite) trains on one device, its routers'
+load-balance loss in the loss; on a mesh it raises (ROADMAP Queue 1 item
+13).
 """
 from __future__ import annotations
 

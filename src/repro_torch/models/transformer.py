@@ -9,8 +9,9 @@ device, :func:`mesh_loss_program` on a mesh), each also tensor- and
 data-parallel on a ``("data", "model")`` mesh, one call per rank inside
 :func:`repro_torch.core.mesh.spmd`. MLA attention and ``attn``/``moe``
 layers (deepseek-v2-lite: a leading dense layer, then MLA with a
-capacity-routed MoE) are served on one device; training them and running
-them on a mesh raise (ROADMAP Queue 2 item 2a, Queue 1 item 13). The
+capacity-routed MoE) are served and trained on one device, the routers'
+load-balance losses summed into the training loss as the reference sums
+them; running them on a mesh raises (ROADMAP Queue 1 item 13). The
 reference stacks each period slot's params over periods and scans them;
 here a model is an ``nn.Module`` holding a flat ``blocks`` list in layer
 order, and :mod:`repro_torch.models.convert` maps the reference's stacked
@@ -122,20 +123,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def has_moe_or_mla(cfg: ModelConfig) -> bool:
     """Whether ``cfg`` has MLA attention or MoE layers, which the port
-    serves on one device only."""
+    serves and trains on one device only."""
     return cfg.use_mla or any(m == "moe" for _, m in
                               stack_layout(cfg).layer_kinds())
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config the port cannot train yet: MLA needs the
-    attention backward at ``D != Dv`` (ROADMAP Queue 2 item 2a), and MoE
-    layers come with it."""
-    if has_moe_or_mla(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: training MLA and MoE layers is not ported yet "
-            "(ROADMAP Queue 2 item 2a: the attention backward at D != Dv); "
-            "the port serves them on one device")
 
 
 def check_mesh_supported(cfg: ModelConfig, plan: MeshPlan) -> None:
@@ -146,7 +136,8 @@ def check_mesh_supported(cfg: ModelConfig, plan: MeshPlan) -> None:
     if has_moe_or_mla(cfg) and not plan.is_single:
         raise NotImplementedError(
             f"{cfg.name}: MLA and MoE on a mesh (heads and experts over "
-            "ranks) are ROADMAP Queue 1 item 13; serve it on one device")
+            "ranks) are ROADMAP Queue 1 item 13; serve and train it on one "
+            "device")
     if has_ssm_layers(cfg) and cfg.ssm_heads % plan.tp:
         raise ValueError(f"{cfg.name}: {cfg.ssm_heads} SSM heads do not "
                          f"split over tp = {plan.tp} ranks")
@@ -298,20 +289,22 @@ def embed_tokens(p_embed, ids, plan: MeshPlan):
 
 
 def _mlp_branch(p: Block, x, cfg: ModelConfig, mlp_kind: str):
-    """The MLP branch's output (P(sum) on a mesh): the dense SwiGLU, or
-    the MoE's (its aux loss is for training, which the port does not run
-    on MoE layers yet)."""
+    """The MLP branch: ``(out, aux)``, its output (P(sum) on a mesh) and
+    its router's load-balance loss -- the MoE's, or None for the dense
+    SwiGLU."""
     h2 = rms_norm(x, p.ln2.to(x.dtype), cfg.norm_eps)
     if mlp_kind == "moe":
-        return moe_forward(p.moe, h2, cfg)[0]
-    return dense_mlp_forward(p.mlp, h2)
+        return moe_forward(p.moe, h2, cfg)
+    return dense_mlp_forward(p.mlp, h2), None
 
 
 def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
                 mlp_kind: str, positions, causal: bool = True,
                 sliding_window: int = 0, want_cache: bool = False,
                 cache_len: int = 0):
-    """Prefill one block. Returns ``(x, cache_or_None)``. A GQA layer's
+    """Prefill one block. Returns ``(x, aux, cache_or_None)``: ``aux`` the
+    MoE router's load-balance loss (float32; None for a block without a
+    router, whose aux the reference counts as 0). A GQA layer's
     cache holds the prompt's k/v in bfloat16 (the reference's prefill
     cache dtype): unpadded at tp = 1, and at tp > 1 padded to
     ``cache_len`` and boxed to this rank's sequence block
@@ -325,10 +318,10 @@ def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
     h = rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps)
     if kind == "ssm":
         if not want_cache:
-            return x + psum(mamba_forward(p.ssm, h, cfg, plan)), None
+            return x + psum(mamba_forward(p.ssm, h, cfg, plan)), None, None
         a, (hs, (tx, tbc)) = mamba_forward(p.ssm, h, cfg, plan,
                                            return_state=True)
-        return x + psum(a), {"h": hs, "tail_x": tx, "tail_bc": tbc}
+        return x + psum(a), None, {"h": hs, "tail_x": tx, "tail_bc": tbc}
     cache = None
     if cfg.use_mla:
         a, (c, kpe) = mla_forward(p.attn, h, cfg, plan, positions,
@@ -344,8 +337,8 @@ def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
                 k, v = kv_to_seq_sharded(k, v, cfg, plan, cache_len)
             cache = {"k": k, "v": v}
     x = x + psum(a)
-    x = x + psum(_mlp_branch(p, x, cfg, mlp_kind))
-    return x, cache
+    mo, aux = _mlp_branch(p, x, cfg, mlp_kind)
+    return x + psum(mo), aux, cache
 
 
 def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
@@ -367,7 +360,7 @@ def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
         a = gqa_decode(p.attn, h, cache["k"], cache["v"], pos, cfg, plan,
                        sliding_window)
     x = x + psum(a)
-    x = x + psum(_mlp_branch(p, x, cfg, mlp_kind))
+    x = x + psum(_mlp_branch(p, x, cfg, mlp_kind)[0])
     return x, cache
 
 
@@ -380,9 +373,9 @@ def prefill_stack_slice(blocks: Sequence[Block], x, positions,
     ``cache_len`` is the decode cache's length, which tp > 1 pads to)."""
     caches = []
     for p, (kind, mlp_kind) in zip(blocks, kinds):
-        x, cache = apply_block(p, x, cfg, plan, kind, mlp_kind, positions,
-                               True, sliding_window, want_cache=True,
-                               cache_len=cache_len)
+        x, _, cache = apply_block(p, x, cfg, plan, kind, mlp_kind,
+                                  positions, True, sliding_window,
+                                  want_cache=True, cache_len=cache_len)
         caches.append(cache)
     return x, caches
 
@@ -432,23 +425,42 @@ def block_specs(cfg: ModelConfig, plan: MeshPlan, kind: Kind
     (``attention.py:93-103``, ``mlp.py:38-48``): ``wq`` S(1) and ``wo``
     S(0) (heads), ``wk``/``wv`` replicated (each rank slices its kv group),
     ``w_gate``/``w_up`` S(1) and ``w_down`` S(0) (hidden units), norms
-    replicated. ssm/none (``mamba.py:50-59``): ``w_x``, ``w_z``, ``w_dt``
-    S(1); ``w_bc``, ``conv_bc`` replicated; ``conv_x``, ``A_log``, ``D``,
-    ``dt_bias``, ``norm_w`` and ``out_proj`` S(0); ``ln1`` replicated."""
+    replicated; MLA attention (``attention.py:317-327``) ``w_uk``,
+    ``w_uv``, ``wq``/``wq_b`` S(1) and ``wo`` S(0), the rest replicated;
+    attn/moe (``mlp.py:69-77``) the expert stacks S(0) (experts), the
+    router replicated, the shared experts as a dense MLP. ssm/none
+    (``mamba.py:50-59``): ``w_x``, ``w_z``, ``w_dt`` S(1); ``w_bc``,
+    ``conv_bc`` replicated; ``conv_x``, ``A_log``, ``D``, ``dt_bias``,
+    ``norm_w`` and ``out_proj`` S(0); ``ln1`` replicated. Only the 1 x 1
+    plan runs MLA and MoE (:func:`check_mesh_supported`), where every
+    signature keeps the whole leaf."""
     S0, S1, B_ = _spec(plan, "S(0)"), _spec(plan, "S(1)"), _spec(plan, "B")
     if kind == ("ssm", "none"):
         return {"ln1": B_, **{"ssm." + n: v for n, v in (
             ("w_x", S1), ("w_z", S1), ("w_bc", B_), ("w_dt", S1),
             ("dt_bias", S0), ("A_log", S0), ("D", S0), ("conv_x", S0),
             ("conv_bc", B_), ("norm_w", S0), ("out_proj", S0))}}
-    assert kind == ("attn", "dense"), kind
-    out = {"ln1": B_, "ln2": B_, "attn.wq": S1, "attn.wk": B_,
-           "attn.wv": B_, "attn.wo": S0, "mlp.w_gate": S1, "mlp.w_up": S1,
-           "mlp.w_down": S0}
-    if cfg.qkv_bias:
-        out.update({"attn.bq": S0, "attn.bk": B_, "attn.bv": B_})
-    if cfg.qk_norm:
-        out.update({"attn.q_norm": B_, "attn.k_norm": B_})
+    assert kind in (("attn", "dense"), ("attn", "moe")), kind
+    dense = {"w_gate": S1, "w_up": S1, "w_down": S0}
+    if cfg.use_mla:
+        attn = {"wkv_a": B_, "kv_norm": B_, "w_uk": S1, "w_uv": S1,
+                "wo": S0}
+        attn.update({"wq_a": B_, "q_norm": B_, "wq_b": S1}
+                    if cfg.q_lora_rank else {"wq": S1})
+    else:
+        attn = {"wq": S1, "wk": B_, "wv": B_, "wo": S0}
+        if cfg.qkv_bias:
+            attn.update({"bq": S0, "bk": B_, "bv": B_})
+        if cfg.qk_norm:
+            attn.update({"q_norm": B_, "k_norm": B_})
+    out = {"ln1": B_, "ln2": B_, **{"attn." + n: v for n, v in attn.items()}}
+    if kind[1] == "dense":
+        out.update({"mlp." + n: v for n, v in dense.items()})
+        return out
+    out.update({"moe.router": B_, "moe.w_gate": S0, "moe.w_up": S0,
+                "moe.w_down": S0})
+    if cfg.num_shared_experts:
+        out.update({"moe.shared." + n: v for n, v in dense.items()})
     return out
 
 
@@ -471,12 +483,13 @@ def model_specs(cfg: ModelConfig, plan: MeshPlan) -> Dict[str, NdSbp]:
 def spec_of(name: str, cfg: ModelConfig, plan: MeshPlan) -> NdSbp:
     """The NdSbp of the parameter ``name`` of a ``Transformer`` or of a
     stage's slice of it (``blocks.<i>.<leaf>``, ``embed``, ...). A block's
-    kind is its own, read from its leaf (``ssm.*`` or ``attn.*``/``mlp.*``;
-    ``ln1`` is replicated in either), since a stage's slice renumbers its
-    blocks from 0."""
+    kind is its own, read from its leaf (``ssm.*``, ``moe.*`` or
+    ``attn.*``/``mlp.*``; ``ln1`` and ``ln2`` are replicated in any), since
+    a stage's slice renumbers its blocks from 0."""
     parts = name.split(".")
     if parts[0] == "blocks":
-        kind = ("ssm", "none") if parts[2] == "ssm" else ("attn", "dense")
+        kind = {"ssm": ("ssm", "none"), "moe": ("attn", "moe")}.get(
+            parts[2], ("attn", "dense"))
         return block_specs(cfg, plan, kind)[".".join(parts[2:])]
     return _spec(plan, _TOP_SPECS[name])
 
@@ -536,35 +549,45 @@ def _run_body(model: Transformer, x, cfg: ModelConfig, plan: MeshPlan,
     """The block stack for training: the prologue, then each period, with
     per-period rematerialisation (``torch.utils.checkpoint``, the
     counterpart of the reference's ``jax.checkpoint`` of ``one_period``; at
-    tp = 1 its "boxed" save policy saves nothing). Returns ``(x, aux)``."""
+    tp = 1 its "boxed" save policy saves nothing). Returns ``(x, aux)``:
+    ``aux`` the routers' load-balance losses summed in layer order from a
+    float32 0, as the reference's prologue loop and scan carry sum them
+    (``repro/models/transformer.py:350-384``; a block without a router adds
+    the reference's exact 0, so it is skipped). The remat rerun repeats
+    each MoE's routing bit for bit (a stable sort, a fixed-order
+    scatter-add), so the backward sees the forward's choices."""
     lay = stack_layout(cfg)
     n_pro, P = len(lay.prologue), len(lay.period_slots)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (kind, mlp_kind) in enumerate(lay.prologue):
-        x, _ = apply_block(model.blocks[i], x, cfg, plan, kind, mlp_kind,
-                           positions, causal, sliding_window)
 
-    def one_period(x, i: int):
-        for j, (kind, mlp_kind) in enumerate(lay.period_slots):
-            x, _ = apply_block(model.blocks[n_pro + i * P + j], x, cfg, plan,
-                               kind, mlp_kind, positions, causal,
-                               sliding_window)
-        return x
+    def block(i: int, kind: Kind, x, aux):
+        x, a, _ = apply_block(model.blocks[i], x, cfg, plan, *kind,
+                              positions, causal, sliding_window)
+        return x, (aux if a is None else aux + a)
+
+    for i, kind in enumerate(lay.prologue):
+        x, aux = block(i, kind, x, aux)
+
+    def one_period(x, aux, i: int):
+        for j, kind in enumerate(lay.period_slots):
+            x, aux = block(n_pro + i * P + j, kind, x, aux)
+        return x, aux
 
     for i in range(lay.n_periods):
-        x = (checkpoint(one_period, x, i, use_reentrant=False) if remat
-             else one_period(x, i))
+        x, aux = (checkpoint(one_period, x, aux, i, use_reentrant=False)
+                  if remat else one_period(x, aux, i))
     return x, aux
 
 
 def forward_loss(model: Transformer, batch, cfg: ModelConfig,
                  plan: MeshPlan, remat: bool = True):
-    """Training loss of a dense or SSM decoder on one device. batch:
-    ``{"tokens": (B, S+1)}`` int32 (numpy or torch). Returns ``(loss,
-    metrics)`` with metrics ``lm_loss``, ``aux_loss`` (0: no router) and
-    ``loss``."""
+    """Training loss of a dense, SSM or MLA + MoE decoder on one device.
+    batch: ``{"tokens": (B, S+1)}`` int32 (numpy or torch). Returns
+    ``(loss, metrics)`` with metrics ``lm_loss``, ``aux_loss`` (the
+    routers' summed load-balance loss; 0 without a router) and ``loss`` =
+    ``lm_loss + router_aux_weight * aux_loss`` (``repro/models/
+    transformer.py:457``)."""
     check_supported(cfg)
-    check_trainable(cfg)
     dev = model.embed.device
     tokens = torch.as_tensor(batch["tokens"], dtype=torch.int32, device=dev)
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
@@ -586,10 +609,10 @@ def forward_loss(model: Transformer, batch, cfg: ModelConfig,
 # collectives
 # ---------------------------------------------------------------------------
 
-def loss_steps(h: str, plan: MeshPlan) -> List[Step]:
+def loss_steps(h: str, plan: MeshPlan, out: str = "loss") -> List[Step]:
     """The vocab-parallel ``lm_loss`` as program steps, from the final
     hidden ``h`` (model-replicated, after its "f") and the inputs
-    ``unembed`` (this rank's ``S(1)`` columns) and ``tokens`` to ``loss``:
+    ``unembed`` (this rank's ``S(1)`` columns) and ``tokens`` to ``out``:
     the xent kernel's stats at the rank's vocab offset
     (:func:`shard_stats`), ``m`` held fixed through a pmax (no transpose),
     ``s`` rescaled by ``exp(m - m_g)`` and psummed with ``z`` as "g"s, so
@@ -613,29 +636,33 @@ def loss_steps(h: str, plan: MeshPlan) -> List[Step]:
     def loss(s_g, m_g, z_g):
         tok = torch.log(s_g) + m_g - z_g       # -log softmax[label]
         return weighted_mean(tok, torch.ones_like(tok))
-    return steps + [Step(loss, (s, m, z), ("loss",))]
+    return steps + [Step(loss, (s, m, z), (out,))]
 
 
 def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
                       remat: bool = True) -> LocalProgram:
-    """The training loss of a dense or SSM decoder on one rank of a
-    ``("data", "model")`` mesh, as a program for the training tape
-    (:func:`repro_torch.core.tape.taped_forward`): local segments between
-    the model's collectives, every collective a tape entry with its
-    transpose, so none runs inside autograd.
+    """The training loss of a dense, SSM or (at 1 x 1) MLA + MoE decoder on
+    one rank of a ``("data", "model")`` mesh, as a program for the
+    training tape (:func:`repro_torch.core.tape.taped_forward`): local
+    segments between the model's collectives, every collective a tape
+    entry with its transpose, so none runs inside autograd.
 
     Inputs: ``tokens`` (this rank's rows, ``(B, S+1)`` int32) and every
     parameter by its ``state_dict`` name, this rank's shard under
-    :func:`model_specs`; output ``loss``, this rank's weighted mean (the
-    data axes' mean is the step's). Per block, as the reference's
-    ``apply_block`` (``repro/models/transformer.py:146-210``): the norm,
+    :func:`model_specs`; outputs ``loss`` (this rank's total, the data
+    axes' mean is the step's), ``lm_loss`` (its weighted-mean
+    cross-entropy) and ``aux_loss`` (the routers' load-balance losses
+    summed in layer order, float32; 0 without a router), with ``loss =
+    lm_loss + router_aux_weight * aux_loss`` as in the reference's
+    ``forward_loss`` (``repro/models/transformer.py:457``). Per block, as
+    the reference's ``apply_block`` (``:146-210``): the norm,
     "f" (:func:`~repro_torch.models.common.grad_sync_step`), attention on
-    the rank's heads, the branch psum "g"
+    the rank's heads (GQA, or MLA), the branch psum "g"
     (:func:`~repro_torch.models.common.branch_psum_step`), the residual
-    and norm, "f", the MLP on the rank's units, "g"; an SSM block is the
-    norm, "f", Mamba on the rank's heads, "g" and the residual. The f sits
-    after each norm, so a replicated norm's gradient comes out whole on
-    every rank.
+    and norm, "f", the MLP on the rank's units (or the MoE, which also
+    gives its aux), "g"; an SSM block is the norm, "f", Mamba on the rank's
+    heads, "g" and the residual. The f sits after each norm, so a
+    replicated norm's gradient comes out whole on every rank.
     The embedding is :func:`embed_local` and a "g"; the loss is
     :func:`loss_steps` after the final norm and an "f". At tp = 1 (a data
     mesh, or ``fsdp``) there is no "f" or "g", and the loss is
@@ -644,15 +671,14 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
     With ``remat`` each block's segments keep only their inputs and run
     again in the backward: the reference's policy, which saves the psum
     outputs and recomputes the local math between them (``:371-380``);
-    the loss segment runs once."""
+    a MoE's rerun repeats its routing bit for bit (a stable sort, a
+    fixed-order scatter-add). The loss segment and the aux sums run once."""
     check_supported(cfg)
-    check_trainable(cfg)
+    check_mesh_supported(cfg, plan)
     cdt = compute_dtype(cfg)
     eps, tp = cfg.norm_eps, plan.tp
-    attn_names = [k for k in block_specs(cfg, plan, ("attn", "dense"))
-                  if k.startswith("attn.")]
-    ssm_names = [k for k in block_specs(cfg, plan, ("ssm", "none"))
-                 if k.startswith("ssm.")]
+    specs = {kind: block_specs(cfg, plan, kind)
+             for kind in set(stack_layout(cfg).layer_kinds())}
     steps: List[Step] = []
 
     def local(fn, ins, outs, rm=remat):
@@ -678,43 +704,75 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
             x = x + t
         return x, rms_norm(x, w.to(cdt), eps)
 
-    def attention(h, *ws):
-        p = SimpleNamespace(**{n[len("attn."):]: w
-                               for n, w in zip(attn_names, ws)})
+    def module(names, ws):
+        """A block's sub-module from its leaves by dotted name."""
+        ns = SimpleNamespace()
+        for n, w in zip(names, ws):
+            *path, leaf = n.split(".")
+            node = ns
+            for part in path:
+                if not hasattr(node, part):
+                    setattr(node, part, SimpleNamespace())
+                node = getattr(node, part)
+            setattr(node, leaf, w)
+        return ns
+
+    def branch(fn, kind: Kind, prefix: str, b: str, h: str, outs):
+        """A local step of ``fn(sub-module, h)``: the block's leaves under
+        ``prefix`` gathered into the sub-module the forward takes."""
+        names = [k[len(prefix):] for k in specs[kind] if k.startswith(prefix)]
+        local(lambda hv, *ws: fn(module(names, ws), hv),
+              (f(h), *[b + prefix + n for n in names]), outs)
+
+    def attention(p, h):
         positions = torch.arange(h.shape[1], device=h.device)
-        return gqa_forward(p, h, cfg, plan, positions)[0]
-
-    def mamba(h, *ws):
-        p = SimpleNamespace(**{n[len("ssm."):]: w
-                               for n, w in zip(ssm_names, ws)})
-        return mamba_forward(p, h, cfg, plan)
-
-    def mlp(h, w_gate, w_up, w_down):
-        return dense_mlp_forward(
-            SimpleNamespace(w_gate=w_gate, w_up=w_up, w_down=w_down), h)
+        forward = mla_forward if cfg.use_mla else gqa_forward
+        return forward(p, h, cfg, plan, positions)[0]
 
     def name(n):
         return INTERNAL + n
 
     local(lambda E, t: embed_local(E, t[:, :-1], plan), ("embed", "tokens"),
           (name("e"),), rm=False)
-    residual = [g(name("e"))]
-    for i, (kind, _) in enumerate(stack_layout(cfg).layer_kinds()):
+    residual, aux = [g(name("e"))], None
+    for i, kind in enumerate(stack_layout(cfg).layer_kinds()):
         b = f"blocks.{i}."
         x, h, a = name(f"x{i}"), name(f"h{i}"), name(f"a{i}")
         local(add_norm, (*residual, b + "ln1"), (x, h))
-        if kind == "ssm":
-            local(mamba, (f(h), *[b + n for n in ssm_names]), (a,))
+        if kind[0] == "ssm":
+            branch(lambda p, hv: mamba_forward(p, hv, cfg, plan), kind,
+                   "ssm.", b, h, (a,))
             residual = [x, g(a)]
             continue
-        local(attention, (f(h), *[b + n for n in attn_names]), (a,))
+        branch(attention, kind, "attn.", b, h, (a,))
         xm, h2, mo = name(f"xm{i}"), name(f"h2_{i}"), name(f"mlp{i}")
         local(add_norm, (x, g(a), b + "ln2"), (xm, h2))
-        local(mlp, (f(h2), *[b + "mlp." + n for n in
-                             ("w_gate", "w_up", "w_down")]), (mo,))
+        if kind[1] == "moe":
+            a_i = name(f"aux{i}")
+            branch(lambda p, hv: moe_forward(p, hv, cfg), kind, "moe.", b,
+                   h2, (mo, a_i))
+            if aux is None:
+                aux = a_i
+            else:
+                local(torch.add, (aux, a_i), (name(f"aux_sum{i}"),),
+                      rm=False)
+                aux = name(f"aux_sum{i}")
+        else:
+            branch(dense_mlp_forward, kind, "mlp.", b, h2, (mo,))
         residual = [xm, g(mo)]
     hf = name("hf")
     local(add_norm, (*residual, "final_norm"), (name("xf"), hf))
-    steps += loss_steps(f(hf), plan)
+    if aux is None:         # no router: the reference's aux is 0
+        aux = name("aux0")
+        local(lambda t: torch.zeros((), dtype=torch.float32,
+                                    device=t.device), ("tokens",), (aux,),
+              rm=False)
+        steps += loss_steps(f(hf), plan)
+        lm = "loss"
+    else:
+        lm, w = name("lm"), cfg.router_aux_weight
+        steps += loss_steps(f(hf), plan, out=lm)
+        local(lambda lv, av: lv + w * av, (lm, aux), ("loss",), rm=False)
     inputs = ("tokens", *model_specs(cfg, plan))
-    return LocalProgram(steps, inputs, ("loss",), ("loss",))
+    return LocalProgram(steps, inputs, ("loss", "lm_loss", "aux_loss"),
+                        ("loss", lm, aux))

@@ -42,7 +42,7 @@ reference's ``block_until_ready``), which is what the makespan
 instrumentation reads.
 Per-stage streams with events are later work (ROADMAP Queue 1 item 3). Not
 ported: the process runtime (item 11), the snapshot and fault branches
-(item 10), ZeRO and loss scaling (item 9), and ``fn_wrap`` (item 14).
+(item 10) and ``fn_wrap`` (item 14).
 """
 from __future__ import annotations
 

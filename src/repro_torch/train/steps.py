@@ -35,10 +35,11 @@ psummed over ``model`` after the backward and the update all-reduces over
 Every path trains dense GQA stacks and Mamba-2 (SSM) stacks alike, on one
 device and on any ``(data, model)`` mesh whose model axis splits the heads;
 on the card an SSM layer's scan runs the SSD kernels forward and backward
-(:class:`repro_torch.kernels.ssd_scan.kernel.SsdScan`). Hybrid stacks
-raise before any path is chosen (ROADMAP Queue 1 item 13), and so do MLA
-and MoE ones, which the port serves but cannot train until the attention
-has its backward at ``D != Dv`` (Queue 2 item 2a).
+(:class:`repro_torch.kernels.ssd_scan.kernel.SsdScan`). MLA + MoE stacks
+(deepseek-v2-lite) train on one device, plain and ZeRO at 1 x 1, the
+attention backward at MLA's ``(D, Dv)`` on the card and the routers'
+load-balance loss in the loss (``aux_loss``); on any other mesh they raise
+(ROADMAP Queue 1 item 13), as hybrid stacks do before any path is chosen.
 """
 from __future__ import annotations
 
@@ -60,8 +61,7 @@ from repro_torch.models.common import (MODEL_GRAD_SUM_LEAVES, MeshPlan,
 from repro_torch.models.convert import jax_leaves
 from repro_torch.models.model_zoo import build_model, loss_fn
 from repro_torch.models.transformer import (Transformer, check_mesh_supported,
-                                            check_supported, check_trainable,
-                                            compute_dtype,
+                                            check_supported, compute_dtype,
                                             mesh_loss_program, model_specs,
                                             shard_params)
 from repro_torch.optim.adamw import AdamWConfig, AdamWState, init_adamw
@@ -150,7 +150,6 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
         plan = MeshPlan(plan.axis_names, plan.axis_sizes,
                         model_axis="__fsdp_none__")
     check_supported(cfg)
-    check_trainable(cfg)
     check_mesh_supported(cfg, plan)
     optimizer = optimizer or AdamWConfig()
     device = resolve_device(device)
@@ -210,13 +209,12 @@ def _rank_rows(mesh: M.DeviceMesh, plan: MeshPlan, device: torch.device):
     return rank_rows
 
 
-def _metrics(cfg: ModelConfig, plan: MeshPlan, mesh: M.DeviceMesh, loss,
+def _metrics(plan: MeshPlan, mesh: M.DeviceMesh, lm, aux, loss,
              gnorm) -> Dict[str, torch.Tensor]:
-    """A rank's metrics averaged over every rank in rank order (inside
-    spmd)."""
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    vals = torch.stack([loss, aux, loss + cfg.router_aux_weight * aux,
-                        gnorm])
+    """A rank's metrics (its loss program's ``lm_loss``, ``aux_loss`` and
+    ``loss``, and the step's ``grad_norm``) averaged over every rank in
+    rank order (inside spmd)."""
+    vals = torch.stack([lm, aux, loss, gnorm])
     vals = M.psum(vals, plan.axis_names) / mesh.size
     return dict(zip(METRICS, vals.unbind()))
 
@@ -247,17 +245,17 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
         return [init_adamw(mine) for mine in params.ranks]
 
     def rank_grads(mine: Dict[str, torch.Tensor], tokens: torch.Tensor):
-        """This rank's loss and gradients, the model-disjoint leaves summed
-        over ``model``: the taped forward and backward, then collectives
-        outside autograd."""
-        (loss,), tape = taped_forward(
+        """This rank's losses ``(loss, lm_loss, aux_loss)`` and gradients,
+        the model-disjoint leaves summed over ``model``: the taped forward
+        and backward, then collectives outside autograd."""
+        losses, tape = taped_forward(
             program, diff, [tokens, *(mine[n] for n in
                                       program.input_names[1:])])
         grads = dict(zip(order, taped_backward(
-            tape, {"loss": torch.ones_like(loss)}, order)))
+            tape, {"loss": torch.ones_like(losses[0])}, order)))
         for n in model_sum:
             grads[n] = M.psum(grads[n], plan.model_axis)
-        return loss, grads
+        return losses, grads
 
     def step_fn(params: MeshParams, opt_state: List[AdamWState],
                 batch: Dict[str, Any]):
@@ -265,10 +263,10 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
 
         def rank_step(r: int):
             mine = params.ranks[r]
-            loss, grads = rank_grads(mine, tokens[r])
+            (loss, lm, aux), grads = rank_grads(mine, tokens[r])
             state, gnorm = plain_dp_adamw_update(
                 optimizer, mine, grads, opt_state[r], plan, replication)
-            return state, _metrics(cfg, plan, mesh, loss, gnorm)
+            return state, _metrics(plan, mesh, lm, aux, loss, gnorm)
 
         outs = M.spmd(rank_step, mesh)(ranks)
         return params, [o[0] for o in outs], outs[0][1]
@@ -277,7 +275,7 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
         tokens = rank_rows(batch)
 
         def rank(r: int):
-            loss, grads = rank_grads(params.ranks[r], tokens[r])
+            (loss, _, _), grads = rank_grads(params.ranks[r], tokens[r])
             loss = M.psum(loss, plan.axis_names) / mesh.size
             return loss, data_mean(grads, plan)
 
@@ -431,16 +429,17 @@ def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
         return [init_zero_flat(mine) for mine in params.ranks]
 
     def rank_grads(mine: Dict[str, torch.Tensor], tokens: torch.Tensor):
-        """This rank's loss and its rows' gradients: the data mean, the
-        model-disjoint leaves summed over ``model``. The gathers and their
-        reduce-scatters run on the tape, outside autograd."""
-        (loss,), tape = taped_forward(
+        """This rank's losses ``(loss, lm_loss, aux_loss)`` and its rows'
+        gradients: the data mean, the model-disjoint leaves summed over
+        ``model``. The gathers and their reduce-scatters run on the tape,
+        outside autograd."""
+        losses, tape = taped_forward(
             program, diff, [tokens, *(mine[param_of[n]]
                                       for n in program.input_names[1:])])
-        cots = taped_backward(tape, {"loss": torch.ones_like(loss)},
+        cots = taped_backward(tape, {"loss": torch.ones_like(losses[0])},
                               [_master(n) for n in order])
         grads = {n: g / plan.dp for n, g in zip(order, cots)}
-        return loss, combine_model_grads(grads, combine, plan)
+        return losses, combine_model_grads(grads, combine, plan)
 
     def step_fn(params: ZeroParams, opt_state: List[ZeroState],
                 batch: Dict[str, Any]):
@@ -448,10 +447,10 @@ def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
 
         def rank_step(r: int):
             mine = params.ranks[r]
-            loss, grads = rank_grads(mine, tokens[r])
+            (loss, lm, aux), grads = rank_grads(mine, tokens[r])
             state, gnorm = zero_adamw_update(
                 optimizer, mine, grads, opt_state[r], plan, replication)
-            return state, _metrics(cfg, plan, mesh, loss, gnorm)
+            return state, _metrics(plan, mesh, lm, aux, loss, gnorm)
 
         outs = M.spmd(rank_step, mesh)(ranks)
         return params, [o[0] for o in outs], outs[0][1]
@@ -460,7 +459,7 @@ def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
         tokens = rank_rows(batch)
 
         def rank(r: int):
-            loss, grads = rank_grads(params.ranks[r], tokens[r])
+            (loss, _, _), grads = rank_grads(params.ranks[r], tokens[r])
             return M.psum(loss, plan.axis_names) / mesh.size, grads
 
         outs = M.spmd(rank, mesh)(ranks)

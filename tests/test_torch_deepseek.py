@@ -235,13 +235,28 @@ def test_head_dim_pairs_the_kernel_refuses(dtype, D, Dv):
 
 
 def test_backward_refuses_mla_head_dims():
-    """The backward takes D = Dv: training MLA names its ROADMAP item, on a
-    tensor off the CPU before any device work."""
-    with pytest.raises(NotImplementedError, match="item 2a"):
-        fa_kernel.check_head_dims(torch.bfloat16, 192, 128, backward=True)
+    """The backward takes MLA's pairs, (192, 128) in both dtypes and the
+    reduced config's (96, 64) in float32, and refuses an MLA pair outside
+    ``BWD_HEAD_DIMS`` ((96, 64) in bf16, (192, 192)), on a tensor off the
+    CPU before any device work."""
+    for dtype, D, Dv in ((torch.bfloat16, 192, 128), (torch.float32, 192, 128),
+                         (torch.float32, 96, 64)):
+        fa_kernel.check_head_dims(dtype, D, Dv, backward=True)
+    for dtype, D, Dv in ((torch.bfloat16, 96, 64), (torch.bfloat16, 192, 192),
+                         (torch.float32, 192, 64)):
+        with pytest.raises(ValueError, match="backward: head dims"):
+            fa_kernel.check_head_dims(dtype, D, Dv, backward=True)
+        q = torch.empty((1, 8, 2, D), device="meta", dtype=dtype,
+                        requires_grad=True)
+        v = torch.empty((1, 8, 2, Dv), device="meta", dtype=dtype,
+                        requires_grad=True)
+        with pytest.raises(ValueError, match="backward: head dims"):
+            fa_kernel.flash_attention(q, q, v)
+    # a pair the backward takes passes its check and reaches the card's
+    # input checks, which a tensor off the card fails before any launch
     q = torch.empty((1, 8, 2, 192), device="meta", requires_grad=True)
     v = torch.empty((1, 8, 2, 128), device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 2a"):
+    with pytest.raises(ValueError, match="card"):
         fa_kernel.flash_attention(q, q, v)
     assert fa_kernel.launches == 0
 
@@ -564,10 +579,19 @@ def test_mla_and_moe_on_a_mesh_raise(env):
 
 
 def test_training_mla_and_moe_raises(env):
-    with pytest.raises(NotImplementedError, match="Queue 2 item 2a"):
-        make_train_step(env["cfg_t"], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 2a"):
-        loss_fn(env["model"], {"tokens": np.zeros((1, 9), np.int32)})
+    """Training MLA + MoE runs on one device
+    (``tests/test_torch_deepseek_train.py`` holds it to the JAX package);
+    on a mesh, a pure data mesh too, it raises naming ROADMAP Queue 1 item
+    13, plain and ZeRO."""
+    loss, metrics = loss_fn(env["model"],
+                            {"tokens": np.zeros((1, 9), np.int32)})
+    assert torch.isfinite(loss) and float(metrics["aux_loss"]) > 0
+    for shape in ((1, 2), (2, 1)):
+        for zero in (True, False):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+                make_train_step(env["cfg_t"], MeshPlan(("data", "model"),
+                                                       shape),
+                                zero=zero, device="cpu")
 
 
 @pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "ssm/moe"),

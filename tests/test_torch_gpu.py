@@ -21,7 +21,10 @@ backward dS) to bf16 for their products; float32 attention runs on the
 CUDA-core kernels. Each case asserts through the per-kernel counters which
 of the two it reached. The bf16 backward cases are also held to the plain
 version's autograd on float32 copies of the same inputs, as chip_smoke.py
-holds the training shape. The SSD scan likewise runs bf16 through its
+holds the training shape; the backward also at MLA's head dims (v and dO
+narrower than q and k: (192, 128) in bf16 and float32, the reduced
+config's (96, 64) in float32), and a pair outside ``BWD_HEAD_DIMS`` raises
+before any launch. The SSD scan likewise runs bf16 through its
 tensor-core kernels (chunk states, carry, outputs) and float32 through its
 CUDA-core kernel, and its bf16 cases are also held to the plain version on
 float32 copies. The SSD scan's backward runs bf16 through its tensor-core
@@ -198,15 +201,68 @@ def test_flash_attention_refuses_unsupported_pairs(cuda, pair):
     assert fa.launches == before
 
 
-def test_flash_attention_backward_refuses_mla_head_dims(cuda):
-    """Training MLA needs the backward at D != Dv: asking for it raises,
-    naming its ROADMAP item, before any launch."""
-    q = torch.zeros((1, 32, 2, 192), device=cuda, dtype=torch.bfloat16,
+MLA_BWD_CASES = [
+    # B, S, H, KV, D, Dv, window, dtype
+    (1, 512, 16, 16, 192, 128, 0, "bfloat16"),          # a deepseek layer's heads
+    (1, 150, 4, 4, 192, 128, 0, "bfloat16"),            # ragged tiles
+    (2, 77, 4, 2, 192, 128, 0, "bfloat16"),             # GQA, ragged
+    (1, 200, 4, 4, 192, 128, 70, "bfloat16"),           # sliding window
+    (1, 150, 4, 4, 192, 128, 0, "float32"),
+    (2, 77, 4, 2, 192, 128, 33, "float32"),             # GQA + window
+    (1, 100, 4, 4, 96, 64, 0, "float32"),               # reduced MLA
+    (2, 45, 4, 2, 96, 64, 0, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", MLA_BWD_CASES)
+def test_flash_attention_backward_at_mla_head_dims_matches_plain(cuda, case):
+    """The backward at MLA's head dims, v and dO narrower than q and k:
+    (192, 128) in bf16 on the tensor cores and in float32, and the reduced
+    config's (96, 64) in float32, against autograd through the plain
+    version (bf16 also on float32 copies); dq, dk, dv take q's, k's and v's
+    shapes."""
+    B, S, H, KV, D, Dv, w, dt = case
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (B, S, H, D), dt, cuda).requires_grad_(True)
+    k = _randn(rng, (B, S, KV, D), dt, cuda).requires_grad_(True)
+    v = _randn(rng, (B, S, KV, Dv), dt, cuda).requires_grad_(True)
+    do = _randn(rng, (B, S, H, Dv), dt, cuda)
+    counters = ("launches", "bwd_dq_launches", "bwd_dkdv_launches",
+                "wgmma_launches", "bwd_dq_wgmma_launches",
+                "bwd_dkdv_wgmma_launches")
+    before = [getattr(fa, c) for c in counters]
+    out = fa.flash_attention(q, k, v, causal=True, sliding_window=w)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    tc = int(dt == "bfloat16")
+    assert [getattr(fa, c) - n for c, n in zip(counters, before)] == [
+        1, 1, 1, tc, tc, tc]
+    ref = fa.plain_flash_attention(q, k, v, causal=True, sliding_window=w)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    for g, wv, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert g.abs().max() > 0
+        _close(g, wv, dt)
+    if dt == "bfloat16":
+        leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+        ref32 = fa.plain_flash_attention(*leaves, causal=True,
+                                         sliding_window=w)
+        for g, wv in zip(got, torch.autograd.grad(ref32, leaves, do.float())):
+            _close(g, wv, dt)
+
+
+@pytest.mark.parametrize("pair", [(96, 64, "bfloat16"), (192, 192, "bfloat16"),
+                                  (128, 64, "float32")])
+def test_flash_attention_backward_refuses_other_pairs(cuda, pair):
+    """A pair outside ``BWD_HEAD_DIMS`` raises on the card under grad,
+    before any launch; nothing falls back to the plain version."""
+    D, Dv, dt = pair
+    q = torch.zeros((1, 32, 2, D), device=cuda, dtype=DT[dt],
                     requires_grad=True)
-    v = torch.zeros((1, 32, 2, 128), device=cuda, dtype=torch.bfloat16,
+    v = torch.zeros((1, 32, 2, Dv), device=cuda, dtype=DT[dt],
                     requires_grad=True)
     before = fa.launches
-    with pytest.raises(NotImplementedError, match="item 2a"):
+    with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(q, q, v)
     assert fa.launches == before
 

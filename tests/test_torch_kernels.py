@@ -274,11 +274,13 @@ def _tc_forward(q, k, v, window):
     return out.transpose(1, 2).to(torch.bfloat16), lse
 
 
-def _tc_backward(q, k, v, do, lse, window):
+def _tc_backward(q, k, v, do, lse, window, split=True):
     """The tensor-core backward's arithmetic: P = exp(S - lse) and delta =
-    rowsum(P dP) in float32; dQ from bf16 dS; dK, dV from hi + lo P, dS."""
+    rowsum(P dP) in float32; dQ from bf16 dS; dK, dV from hi + lo P, dS
+    (``split``; else from single bf16 P, dS, the rounding the split
+    replaces)."""
     B, S, H, D = q.shape
-    KV = k.shape[2]
+    KV, Dv = k.shape[2], v.shape[-1]
     G = H // KV
     scale = D ** -0.5
     qf, dof = q.float().transpose(1, 2), do.float().transpose(1, 2)
@@ -291,9 +293,11 @@ def _tc_backward(q, k, v, do, lse, window):
     dp = dof @ vf.transpose(-1, -2)
     ds = p * (dp - (p * dp).sum(-1, keepdim=True))
     dq = scale * (_bf16(ds) @ kf)
-    dk = scale * (_hilo(ds).transpose(-1, -2) @ qf)
-    dv = _hilo(p).transpose(-1, -2) @ dof
-    dk, dv = (t.reshape(B, KV, G, S, D).sum(2) for t in (dk, dv))
+    rnd = _hilo if split else _bf16
+    dk = scale * (rnd(ds).transpose(-1, -2) @ qf)
+    dv = rnd(p).transpose(-1, -2) @ dof
+    dk = dk.reshape(B, KV, G, S, D).sum(2)
+    dv = dv.reshape(B, KV, G, S, Dv).sum(2)
     return [t.transpose(1, 2).to(torch.bfloat16) for t in (dq, dk, dv)]
 
 
@@ -361,6 +365,32 @@ def test_tensor_core_backward_rounding_within_chip_limits(case):
                                           sliding_window=w)
     want = torch.autograd.grad(out, leaves, do.float())
     for name, g, wv in zip("qkv", got, want):
+        torch.testing.assert_close(g.float(), wv, atol=TC_ATOL,
+                                   rtol=TC_RTOL, msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", TC_MLA_CASES)
+def test_tensor_core_backward_rounding_at_mla_head_dims(case):
+    """The tensor-core backward at D = 192, Dv = 128 (dq and dk over three
+    64-column panels, dv and dO over two), rounded as the kernels round it:
+    dq from one bf16 dS, dk and dv from hi + lo P and dS, held to the
+    float32 plain version's autograd within the card's limits (worst
+    element 0.51-0.78 of its limit on dq, 0.25-0.32 on dk and dv). Single
+    bf16 P and dS would put dv at 1.11-1.24x of its limit on the first and
+    third cases (dk 0.51-0.81x): the split is kept at D = 192."""
+    B, S, H, D, Dv, w = case
+    rng = np.random.default_rng(15)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   .to(torch.bfloat16) for shape in
+                   ((B, S, H, D), (B, S, H, D), (B, S, H, Dv), (B, S, H, Dv)))
+    _, lse = _tc_forward(q, k, v, w)
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    out = fa_kernel.plain_flash_attention(*leaves, causal=True,
+                                          sliding_window=w)
+    want = torch.autograd.grad(out, leaves, do.float())
+    got = _tc_backward(q, k, v, do, lse, w)
+    for name, g, wv, t in zip("qkv", got, want, (q, k, v)):
+        assert g.shape == t.shape
         torch.testing.assert_close(g.float(), wv, atol=TC_ATOL,
                                    rtol=TC_RTOL, msg=f"d{name}")
 
