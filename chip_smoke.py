@@ -243,6 +243,19 @@ result line is printed:
    (2^-8) of it; the bf16 xent kernels launched exactly 8 forward and 8
    backward a step a backend; ``opt_state_bytes`` beside plain AdamW's;
    each step's wall beside phase 9's;
+9c. graph snapshot and resume: phase 9b's configuration on the 1F1B
+   actors, in lockstep: U runs 3 steps uninterrupted; K writes a snapshot
+   at step 2 (``snapshot_every=2``) and is killed in step 3
+   (``KillWorker("b1")`` at its 2 x 8 + 3rd fire), its steps 1-2 bitwise
+   U's and ``latest_snapshot`` 2; R (``compile(restore=)``) resumes at
+   step count 2 and its step is bitwise U's step 3; C runs step 1 with a
+   delayed and a duplicated Req on two real edges, bitwise U's. Losses,
+   loss scales, float32 masters and moments compared; 8 + 8 xent launches
+   in every completed step of every session; the snapshot's bytes on
+   disk, the snapshot step's wall beside U's, the snap actors' write
+   seconds, ``load_snapshot``'s and the restore's seconds, beside the
+   card's name and power limit. The directory's disk must hold twice the
+   snapshot, and the directory is removed at the end;
 11. graph infer: the same graph under ``mode="infer"``, actors vs
    monolithic, bitwise, 8 forward xent launches a run and no backward.
    The kernels line holds the float32 xent forward and backward at the
@@ -278,8 +291,10 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3369,6 +3384,175 @@ def graph_train_mp(dev, ref):
     return total
 
 
+def dir_bytes(path) -> int:
+    """Bytes of the files under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def graph_snapshot_resume(dev, smi: str):
+    """Phase 9c: snapshots, a kill and a resume on the graph path at full
+    width -- phase 9b's configuration (qwen3-width graph, 4 stages, 1F1B,
+    ``zero=True, precision="bf16", loss_scale="dynamic"``) in four
+    sessions stepped in lockstep: U uninterrupted for GRAPH_STEPS steps; K
+    snapshotting at step 2 and killed in step 3; R restored from K's
+    snapshot for step 3; C under a delayed and a duplicated Req for step
+    1. Every comparison is bitwise: loss, loss scale, every float32 master
+    and moment. Returns the xent launches of the run."""
+    phase("graph snapshot and resume (qwen3-1.7b widths, zero, bf16, "
+          "dynamic loss scale; uninterrupted U, snapshot-and-kill K, "
+          "restored R, chaos C)")
+    from repro_torch import api
+    from repro_torch.core.lowering import OptimizerSpec
+    from repro_torch.runtime.base import WorkerError
+    from repro_torch.runtime.chaos import (DelayEdge, DuplicateReq,
+                                           FaultPlan, KillWorker)
+    from repro_torch.runtime.snapshot import (latest_snapshot,
+                                              load_snapshot, step_dir)
+    g = qwen3_width_graph()
+    params, data = seeded_graph_inputs(g, SEED + 9)
+    n = sum(v.size for v in params.values())
+    want_bytes = 12 * n           # float32 masters, mu and nu
+    root = tempfile.mkdtemp(prefix="graph-snapshot-")
+    sessions = {}
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"snapshot directory {root}: {free:,} bytes free, the "
+              f"snapshot needs {want_bytes:,} (3 x 4 x {n:,}); "
+              f"asked for twice that")
+        if free < 2 * want_bytes:
+            raise AssertionError(
+                f"graph snapshot: {free:,} bytes free under {root}, less "
+                f"than twice the snapshot's {want_bytes:,}")
+        common = dict(mode="train", params=params, num_microbatches=GRAPH_M,
+                      optimizer=OptimizerSpec.adamw(lr=3e-4, grad_clip=1.0),
+                      device=dev, zero=True, precision="bf16",
+                      loss_scale="dynamic", backend="actors",
+                      stages=GRAPH_STAGES, regs="1f1b")
+        kill = KillWorker("b1", fire=2 * GRAPH_M + 3)
+        chaos = FaultPlan([DelayEdge("f1", "f2", seconds=0.05, version=3),
+                           DuplicateReq("b2", "b1", version=5)])
+        sessions["U"] = api.compile(g, **common)
+        sessions["K"] = api.compile(g, snapshot_dir=root, snapshot_every=2,
+                                    faults=FaultPlan([kill]), **common)
+        sessions["C"] = api.compile(g, faults=chaos, **common)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+        torch.cuda.synchronize()
+        zero_xent_counts()
+        walls = {}
+
+        def step(name, k):
+            before = xent_counts()
+            t = time.perf_counter()
+            res = sessions[name].step(**batch)
+            loss = float(res.loss)
+            walls[name, k] = time.perf_counter() - t
+            per = {key: v - before[key] for key, v in xent_counts().items()}
+            print(f"{name} step {k}: loss {loss:.6f}, loss_scale "
+                  f"{res.metrics['loss_scale']}, wall {walls[name, k]:.3f} "
+                  f"s, xent launches {per}")
+            if per != {"xent_local_stats": GRAPH_M,
+                       "xent_local_stats_bwd": GRAPH_M}:
+                raise AssertionError(f"{name} step {k}: xent launches "
+                                     f"{per}, expected {GRAPH_M} + {GRAPH_M}")
+            if not np.isfinite(loss) or res.metrics["skipped"]:
+                raise AssertionError(f"{name} step {k}: loss {loss}")
+            return res
+
+        def bitwise(name, k, res, ref):
+            a, b = sessions[name], sessions["U"]
+            sa, sb = a.opt_state, b.opt_state
+            pairs = [("loss", res.loss, ref.loss)] + [
+                (f"master {p}", a.params[p], b.params[p])
+                for p in b.params] + [
+                (f"mu {p}", sa.mu[p], sb.mu[p]) for p in sb.mu] + [
+                (f"nu {p}", sa.nu[p], sb.nu[p]) for p in sb.nu]
+            bad = [w for w, x, y in pairs
+                   if x.dtype != y.dtype or not torch.equal(x, y)]
+            if (bad or res.metrics["loss_scale"] != ref.metrics["loss_scale"]
+                    or int(sa.step) != int(sb.step)):
+                raise AssertionError(
+                    f"{name} step {k} differs from U's: {bad[:4]}, scales "
+                    f"{res.metrics['loss_scale']} / "
+                    f"{ref.metrics['loss_scale']}")
+            print(f"{name} step {k}: loss, loss scale, {len(b.params)} "
+                  f"float32 masters and {2 * len(sb.mu)} moments bitwise "
+                  "U's")
+
+        for k in (1, 2):
+            ref = step("U", k)
+            for name in ("K", "C") if k == 1 else ("K",):
+                bitwise(name, k, step(name, k), ref)
+            if k == 1:
+                applied = sessions["C"].executor.runtime.fault_injector \
+                    .applied
+                print(f"C: faults applied {applied}")
+                if len(applied) != 2:
+                    raise AssertionError(f"chaos: applied {applied}, "
+                                         f"planned {chaos.faults}")
+                sessions.pop("C").close()
+            del ref
+        hist = sessions["K"].executor.last_history
+        writes = {a: round(e - b, 3) for a, spans in hist.items()
+                  if a.startswith("snap") for b, e in spans}
+        on_disk = dir_bytes(step_dir(root, 2))
+        print(f"snapshot step 2: {on_disk:,} bytes on disk ({want_bytes:,} "
+              f"of float32 masters and moments), K's step wall "
+              f"{walls['K', 2]:.3f} s beside U's {walls['U', 2]:.3f} s "
+              f"({walls['K', 2] / walls['U', 2]:.2f}x), the snap actors' "
+              f"write seconds {writes}; {smi}")
+        ref3 = step("U", 3)
+        scale, good = (sessions["U"].executor.loss_scale,
+                       sessions["U"].executor.scale_good_steps)
+        before = xent_counts()
+        try:
+            sessions["K"].step(**batch)
+        except WorkerError as e:
+            print(f"K step 3: {type(e).__name__}: {e}; xent launches "
+                  f"before the kill "
+                  f"{ {k: v - before[k] for k, v in xent_counts().items()} }")
+        else:
+            raise AssertionError("K step 3 was not killed")
+        sessions.pop("K").close()
+        gc.collect()
+        torch.cuda.empty_cache()
+        if latest_snapshot(root) != 2:
+            raise AssertionError(f"latest snapshot {latest_snapshot(root)}"
+                                 ", expected 2")
+        t = time.perf_counter()
+        loaded = load_snapshot(root)
+        t_load = time.perf_counter() - t
+        del loaded
+        t = time.perf_counter()
+        sessions["R"] = api.compile(g, restore=root, **common)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t
+        r = sessions["R"]
+        print(f"load_snapshot {t_load:.3f} s; compile(restore=) "
+              f"{t_restore:.3f} s (params placed, snapshot loaded, masters "
+              f"and moments on the card); step_count {r.step_count}, loss "
+              f"scale {r.executor.loss_scale} (U's after step 2 "
+              f"{ref3.metrics['loss_scale']}); {smi}")
+        if r.step_count != 2:
+            raise AssertionError(f"R: step_count {r.step_count}")
+        bitwise("R", 3, step("R", 3), ref3)
+        if (r.executor.loss_scale, r.executor.scale_good_steps) != (
+                scale, good):
+            raise AssertionError("R: the scale trajectory forked from U's")
+        total = xent_counts()
+        print(f"graph snapshot and resume: xent launches over the run "
+              f"{total}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return total
+    finally:
+        for sess in sessions.values():
+            sess.close()
+        sessions.clear()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def graph_infer(dev):
     """The same graph under ``mode="infer"``: actors (4 stages, 1F1B
     quotas) and monolithic must give bitwise equal per-row losses, each run
@@ -3504,6 +3688,7 @@ def main() -> int:
     mesh_trained = graph_train_mesh(dev, one_device)
     graph_mp = graph_train_mp(dev, one_device)
     del one_device
+    graph_snap = graph_snapshot_resume(dev, smi)
     graph_infer(dev)
     # each row's launches from the run of its path; the attention forward's
     # row is the serving shape and serve run, its training shape's the train
@@ -3566,9 +3751,13 @@ def main() -> int:
             else:
                 kr["launches"] = zero_trained[name.split(" ")[0]]
         elif name.endswith(" (graph, bfloat16)"):
-            # the mixed-precision graph run: 2 backends x GRAPH_STEPS steps
+            # the mixed-precision graph run: 2 backends x GRAPH_STEPS steps;
+            # the snapshot-and-resume run beside it
             kr["launches"] = graph_mp[name.split(" ")[0]]
             kr["launches_per_step"] = GRAPH_M
+            kr["launches_by_path"] = {
+                "graph train mp": kr["launches"],
+                "graph snapshot resume": graph_snap[name.split(" ")[0]]}
         elif name == "flash_attention_bwd":
             kr["launches_by_kernel"] = {
                 k: trained[k] for k in ("flash_bwd_dq_wgmma_kernel",

@@ -22,9 +22,11 @@ A graph runs on the ranks of a :class:`~repro_torch.core.mesh.DeviceMesh`
 stage by stage on ``stage_meshes=``; sessions take and return global
 tensors. Training takes the reference's ``zero=``, ``precision=`` and
 ``loss_scale=`` (float32 masters, bf16 compute, loss scaling, ZeRO master
-shards; paper §6.4). What the reference offers beyond that raises
-:class:`NotImplementedError` naming its ROADMAP item: snapshots and
-faults, the process runtime, the static verifier and stage-body
+shards; paper §6.4), and its ``snapshot_dir=``, ``snapshot_every=``,
+``restore=`` and ``faults=`` (async snapshots from ``snap{s}`` actors,
+kill-and-resume, fault injection on the threads runtime). What the
+reference offers beyond that raises :class:`NotImplementedError` naming
+its ROADMAP item: the process runtime, the static verifier and stage-body
 wrappers.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
@@ -52,8 +54,8 @@ from repro_torch.core.lowering import (OptimizerSpec, PrecisionPolicy,
                                        lower_train_plan, lower_train_stages,
                                        opt_state_bytes, rank_compute,
                                        rank_masters, rank_opt_state,
-                                       reassemble_sinks, split_microbatches,
-                                       sync_mesh)
+                                       rank_states, reassemble_sinks,
+                                       split_microbatches, sync_mesh)
 from repro_torch.core.mesh import DeviceMesh, assemble, place
 from repro_torch.core.placement import Placement
 from repro_torch.core.planner import Plan, plan as plan_sbp
@@ -82,10 +84,6 @@ REG_POLICIES = ("1f1b", "gpipe", "serial")
 #: name -> (the reference's default, what it is and the ROADMAP item that
 #: brings it). Passing the default is accepted and changes nothing.
 NOT_PORTED = {
-    "snapshot_dir": (None, "async snapshots, ROADMAP Queue 1 item 10"),
-    "snapshot_every": (1, "async snapshots, ROADMAP Queue 1 item 10"),
-    "restore": (None, "snapshot restore, ROADMAP Queue 1 item 10"),
-    "faults": (None, "fault injection, ROADMAP Queue 1 item 10"),
     "fn_wrap": (None, "stage-body wrappers, ROADMAP Queue 1 item 14"),
 }
 
@@ -256,6 +254,25 @@ class _MonolithicTrainEngine:
             self.masters, self.shards = rank_masters(opt, self.shards)
             self.compute = rank_compute(opt, self.masters, self.shards)
 
+    def load_state(self, params: Optional[Dict[str, Any]] = None,
+                   opt_state=None, step: Optional[int] = None) -> None:
+        """Restore a full training state: params (masters and compute
+        copies rebuilt from them), the merged optimizer state (cut per rank,
+        flat under ZeRO, as owned copies) and the step counter the lr
+        schedule indexes."""
+        if params is not None:
+            self.load_params(params)
+        if opt_state is not None:
+            if not self.optimizer.stateful:
+                raise ValueError(
+                    "opt_state= for a stateless optimizer "
+                    f"({self.optimizer.kind})")
+            self.opt_states = rank_states(
+                self.optimizer, opt_state, self.shards, self.mesh,
+                self.plan.tensor_sbp)
+        if step is not None:
+            self.step_count = int(step)
+
     def step_shards(self, data_inputs: Dict[str, Any], timeout: float = 0.0):
         check_run_inputs(
             data_inputs,
@@ -402,6 +419,20 @@ class Session:
         if self.mode != "train":
             raise RuntimeError("load_params() on an inference session")
         self._engine.load_params(params)
+
+    def load_state(self, params: Optional[Dict[str, Any]] = None,
+                   opt_state=None, step: Optional[int] = None) -> None:
+        """Restore a full training state -- params, the merged optimizer
+        state and the step counter -- e.g. from
+        :func:`repro_torch.runtime.snapshot.load_snapshot` (numpy arrays or
+        tensors). Each piece is optional and independent; the actor backend
+        cuts ``opt_state`` by *this* session's stage partition and meshes,
+        so a snapshot taken under one partition restores onto another
+        (elastic resume)."""
+        if self.mode != "train":
+            raise RuntimeError("load_state() on an inference session")
+        self._engine.load_state(params=params, opt_state=opt_state,
+                                step=step)
 
     def close(self) -> None:
         """Release the engine's workers (a no-op for monolithic engines)."""
@@ -981,6 +1012,55 @@ def _fold_precision_options(graph: LogicalGraph, optimizer: OptimizerSpec,
                                zero_shapes=zero_shapes, precision=policy)
 
 
+def _apply_restore(sess: Session, restore) -> Session:
+    """Resolve ``compile(restore=<snapshot dir>)``: load the newest
+    completed snapshot and install it as the session's full training state,
+    with the loss-scale trajectory when the snapshot recorded one."""
+    if restore is None:
+        return sess
+    from repro_torch.runtime.snapshot import load_snapshot
+
+    params, opt_state, step, meta = load_snapshot(str(restore))
+    sess.load_state(params=params, opt_state=opt_state, step=step)
+    eng = sess._engine
+    if (meta.get("loss_scale") is not None
+            and getattr(eng, "loss_scale", None) is not None):
+        eng.loss_scale = float(meta["loss_scale"])
+        eng.scale_good_steps = int(meta.get("scale_good_steps", 0))
+    return sess
+
+
+def _check_snapshot_options(mode: str, backend: str, snapshot_dir,
+                            snapshot_every: int, restore, faults) -> None:
+    """The reference's checks of the snapshot, restore and fault options:
+    train only, snapshots and faults on the actors only, a positive
+    cadence, and a cadence only with a directory."""
+    if mode != "train":
+        train_only = {"snapshot_dir": snapshot_dir, "restore": restore,
+                      "faults": faults}
+        bad = [k for k, v in train_only.items() if v is not None]
+        if bad or snapshot_every != 1:
+            bad = bad or ["snapshot_every"]
+            raise ValueError(
+                f"{bad[0]}= is only meaningful for mode='train' "
+                "(snapshots/restore/fault injection act on training state)")
+        return
+    if backend != "actors":
+        if snapshot_dir is not None:
+            raise ValueError(
+                "snapshot_dir= requires backend='actors' (snapshots are "
+                "written by per-stage snap actors; checkpoint a monolithic "
+                "session with repro_torch.train.checkpoint)")
+        if faults is not None:
+            raise ValueError(
+                "faults= requires backend='actors' (there are no workers "
+                "or messages to inject faults into)")
+    if snapshot_every < 1:
+        raise ValueError(f"snapshot_every must be >= 1, got {snapshot_every}")
+    if snapshot_dir is None and snapshot_every != 1:
+        raise ValueError("snapshot_every= without snapshot_dir=")
+
+
 def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             mode: Optional[str] = None, backend: str = "actors",
             runtime: Optional[str] = None, plan: Optional[Plan] = None,
@@ -1001,7 +1081,8 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             num_pages: Optional[int] = None,
             prefill_chunk: Optional[int] = None, sampling=None,
             zero: bool = False, precision=None, loss_scale=None,
-            check: str = "off", **not_ported):
+            snapshot_dir=None, snapshot_every: int = 1, restore=None,
+            faults=None, check: str = "off", **not_ported):
     """Compile a :class:`~repro_torch.core.graph.LogicalGraph` into a
     runnable :class:`Session` (``mode="infer"`` or ``"train"``), or a
     :class:`~repro_torch.configs.base.ModelConfig` (or ``--arch`` name) into
@@ -1055,6 +1136,20 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
       after ``norm``: a non-finite gradient norm skips the update and backs
       the scale off, ``growth_interval`` finite steps grow it. Steps then
       report ``loss_scale`` and ``skipped`` in their metrics.
+    * ``snapshot_dir`` / ``snapshot_every`` (train + actors only): write an
+      async snapshot every N steps -- one ``snap{s}`` actor per
+      parameterized stage serializes its stage's params and optimizer
+      state from its own thread, off the schedule's thread
+      (:mod:`repro_torch.runtime.snapshot`, the reference's format).
+    * ``restore`` (train only): a ``snapshot_dir`` from an earlier session
+      (of either package); the newest *completed* snapshot there becomes
+      the session's params, optimizer state, step counter and loss-scale
+      trajectory. Partition-agnostic: a snapshot taken on 4 stages
+      restores onto 2 stages, a mesh or the monolithic backend.
+    * ``faults`` (train + actors only): a
+      :class:`repro_torch.runtime.chaos.FaultPlan` injected into the
+      threads runtime (kill a worker at an actor's Nth fire, delay or
+      duplicate a Req, drop an Ack), for kill-and-resume and chaos tests.
 
     Serve mode: ``backend`` ``"actors"`` cuts the stack into ``stages``
     stage programs (default ``min(2, units)``) with quotas ``regs`` (a list
@@ -1096,6 +1191,8 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             "zero=/precision=/loss_scale= are only meaningful for "
             "mode='train' (they shape the optimizer's master/moment state "
             "and the backward seed; nothing is updated in other modes)")
+    _check_snapshot_options(mode, backend, snapshot_dir, snapshot_every,
+                            restore, faults)
     if runtime == "processes":
         raise NotImplementedError(
             "runtime='processes' is not ported yet (ROADMAP Queue 1 item 11)")
@@ -1205,8 +1302,9 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
                                             microbatch_inputs,
                                             num_microbatches, optimizer,
                                             mesh, loss=loss)
-        return Session(engine=engine, partition=None, regs=None,
-                       reg_plan=None, **common)
+        return _apply_restore(
+            Session(engine=engine, partition=None, regs=None,
+                    reg_plan=None, **common), restore)
 
     part = _resolve_partition(graph, partition, stages)
     regs, reg_plan = _resolve_regs(regs, part, num_microbatches, mode)
@@ -1221,9 +1319,13 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
                                      **meshes)
         engine = TrainPipelineExecutor(tstaged, params, microbatch_inputs,
                                        num_microbatches, lr=lr, regs=regs,
-                                       optimizer=optimizer)
-    return Session(engine=engine, partition=part, regs=regs,
-                   reg_plan=reg_plan, runtime="threads", **common)
+                                       optimizer=optimizer,
+                                       snapshot_dir=snapshot_dir,
+                                       snapshot_every=snapshot_every,
+                                       faults=faults)
+    return _apply_restore(
+        Session(engine=engine, partition=part, regs=regs,
+                reg_plan=reg_plan, runtime="threads", **common), restore)
 
 
 def _serve_mesh(mesh, device, timeout: float) -> Optional[DeviceMesh]:

@@ -968,15 +968,34 @@ def global_state(states: Optional[Sequence], mesh: DeviceMesh,
          for n in first.nu})
 
 
-def rank_states(state, shards: Dict[str, List[torch.Tensor]],
-                mesh: DeviceMesh, sbp: Dict[str, NdSbp]) -> List:
-    """A global optimizer state cut into one state per rank over the
-    params in ``shards`` (each moment placed by its param's signature)."""
-    mu = {n: place(state.mu[n], mesh, sbp[n]) for n in shards}
-    nu = {n: place(state.nu[n], mesh, sbp[n]) for n in shards}
-    return [AdamWState(state.step, {n: v[r] for n, v in mu.items()},
-                       {n: v[r] for n, v in nu.items()})
-            for r in range(mesh.size)]
+def rank_states(opt: OptimizerSpec, state,
+                shards: Dict[str, List[torch.Tensor]], mesh: DeviceMesh,
+                sbp: Dict[str, NdSbp]) -> List:
+    """A merged optimizer state over global moments (tensors or numpy
+    arrays, e.g. from :func:`repro_torch.runtime.snapshot.load_snapshot`)
+    cut into one state per rank over the params in ``shards``: each moment
+    placed by its param's signature as an owned float32 copy on its rank's
+    device (the optimizer updates it in place; the caller's arrays are
+    never written), and under ZeRO laid flat ``(dp, 1, chunk)`` as
+    :meth:`OptimizerSpec.init_rank_states` lays its zeros."""
+    def owned(x, name):
+        x = torch.as_tensor(x).detach()
+        if mesh.size == 1:
+            return [torch.empty(tuple(x.shape), dtype=torch.float32,
+                                device=mesh.devices[0]).copy_(x)]
+        return [p.float() for p in place(x.float(), mesh, sbp[name])]
+
+    def flat(x):
+        return shard_flat(x, dp=opt.zero_dp) if opt.zero else x
+
+    kind = ZeroState if opt.zero else AdamWState
+    step = int(state.step)
+    mu = {n: owned(state.mu[n], n) for n in shards}
+    nu = {n: owned(state.nu[n], n) for n in shards}
+    return [kind(torch.tensor(step, dtype=torch.int32, device=dev),
+                 {n: flat(v[r]) for n, v in mu.items()},
+                 {n: flat(v[r]) for n, v in nu.items()})
+            for r, dev in enumerate(mesh.devices)]
 
 
 def rank_masters(opt: OptimizerSpec, shards: Dict[str, List[torch.Tensor]]):
@@ -1365,7 +1384,7 @@ class TrainStagedProgram:
             if opt_state is None or not opt.stateful:
                 states = opt.init_rank_states(mine, st.mesh.size)
             else:
-                states = rank_states(opt_state, mine, st.mesh,
+                states = rank_states(opt, opt_state, mine, st.mesh,
                                      self.plan.tensor_sbp)
             states = opt.update_ranks(
                 mine, {n: grads[n] for n in st.param_names}, states,

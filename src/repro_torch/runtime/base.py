@@ -11,12 +11,15 @@ so each :meth:`Runtime.run` starts a fresh *epoch* over the same actor graph:
   by each actor's ``ActorSpec.on_epoch`` hook before any fire;
 * per-epoch fire bounds arrive through ``fires`` (``{actor name: count}``,
   e.g. a serve round's work count), overriding ``ActorSpec.max_fires``;
-* persistent per-stage state (placed weights, serve caches) lives in the
-  actor closures and never round-trips through the driver.
+* persistent per-stage state (placed weights, optimizer state, serve
+  caches) lives in the actor closures and never round-trips through the
+  executor.
 
 Only ``kind="threads"`` exists in this package so far; the process runtime,
 and with it the host encoding of payloads that cross a process boundary, is
-still to be ported (ROADMAP Queue 1 item 11).
+still to be ported (ROADMAP Queue 1 item 11). A fault plan
+(:mod:`repro_torch.runtime.chaos`) rides into the threads runtime through
+``make_runtime(kind, builder, faults=...)``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,16 @@ RUNTIME_KINDS = ("threads",)
 
 #: builder protocol: () -> (List[ActorSpec], collect_outputs_of)
 SpecBuilder = Callable[[], Tuple[List[Any], Any]]
+
+
+class WorkerError(RuntimeError):
+    """A worker died or raised (on the threads runtime: an injected
+    :class:`repro_torch.runtime.chaos.WorkerKilled`). ``node`` is the
+    actor-address node of the worker when known."""
+
+    def __init__(self, message: str, node: Optional[int] = None):
+        super().__init__(message)
+        self.node = node
 
 
 class Runtime:
@@ -73,12 +86,15 @@ def _check_epoch_names(specs, ctx, fires) -> None:
 
 
 def make_runtime(kind: str, builder: SpecBuilder,
-                 collect_outputs_of=None) -> Runtime:
+                 collect_outputs_of=None, faults=None) -> Runtime:
     """Build a runtime of ``kind`` over the actor graph ``builder`` yields.
 
     ``"threads"`` calls the builder in-process and drives every actor on OS
     threads. ``collect_outputs_of`` overrides the builder's own collect
-    choice when given. ``"processes"`` is not ported yet."""
+    choice when given. ``faults`` is an optional
+    :class:`repro_torch.runtime.chaos.FaultPlan` injected deterministically
+    into the engine (kill-at-fire, delayed or duplicated Reqs, dropped
+    Acks). ``"processes"`` is not ported yet."""
     if kind == "processes":
         raise NotImplementedError(
             "runtime='processes' is not ported yet (ROADMAP Queue 1 item 11)")
@@ -89,4 +105,4 @@ def make_runtime(kind: str, builder: SpecBuilder,
     specs, collect = builder()
     if collect_outputs_of is not None:
         collect = collect_outputs_of
-    return ThreadedRuntime(specs, collect_outputs_of=collect)
+    return ThreadedRuntime(specs, collect_outputs_of=collect, faults=faults)

@@ -40,9 +40,11 @@ and params. On one card all stages and ranks share one CUDA stream in this
 version, and each stage synchronises it before handing its output on (the
 reference's ``block_until_ready``), which is what the makespan
 instrumentation reads.
-Per-stage streams with events are later work (ROADMAP Queue 1 item 3). Not
-ported: the process runtime (item 11), the snapshot and fault branches
-(item 10) and ``fn_wrap`` (item 14).
+Per-stage streams with events are later work (ROADMAP Queue 1 item 3). The
+training pipeline writes async snapshots from ``snap{s}`` actors
+(:mod:`repro_torch.runtime.snapshot`), restores them (``load_state``) and
+takes a fault plan (:mod:`repro_torch.runtime.chaos`). Not ported: the
+process runtime (item 11) and ``fn_wrap`` (item 14).
 """
 from __future__ import annotations
 
@@ -57,11 +59,12 @@ from repro_torch.core.lowering import (OptimizerSpec, accumulate, box_grads,
                                        grad_sqnorms, loss_scale_update,
                                        opt_state_bytes, rank_compute,
                                        rank_masters, rank_opt_state,
-                                       reassemble_sinks, relay,
+                                       rank_states, reassemble_sinks, relay,
                                        split_microbatches, sync_mesh)
 from repro_torch.core.mesh import assemble, place
 from repro_torch.optim.adamw import (clip_scale, global_norm_from_partials,
                                      scale_grad)
+from repro_torch.optim.zero import ZeroState
 from repro_torch.runtime.actor import ActorSpec
 from repro_torch.runtime.base import RUNTIME_KINDS, make_runtime
 from repro_torch.runtime.scheduler import CommModel, simulate
@@ -243,11 +246,13 @@ class _StagedExecutorBase:
     """Shared machinery of the stage-pipeline executors: construction-time
     validation (runtime kind) and the persistent runtime
     underneath — built ONCE from the spec builder on first use and re-run
-    per round (one epoch each). Per-run instrumentation (``last_makespan``,
-    ``last_history``, ``last_peak_regs``, ``last_edge_bytes``) snapshots
-    the most recent epoch."""
+    per round (one epoch each), with the optional fault plan ``faults``
+    (:mod:`repro_torch.runtime.chaos`) injected into it. Per-run
+    instrumentation (``last_makespan``, ``last_history``,
+    ``last_peak_regs``, ``last_edge_bytes``) snapshots the most recent
+    epoch."""
 
-    def __init__(self, runtime: str = "threads"):
+    def __init__(self, runtime: str = "threads", faults=None):
         if runtime == "processes":
             raise NotImplementedError(
                 "runtime='processes' is not ported yet (ROADMAP Queue 1 "
@@ -256,6 +261,7 @@ class _StagedExecutorBase:
             raise ValueError(f"unknown runtime {runtime!r}; expected one of "
                              f"{RUNTIME_KINDS}")
         self.runtime_kind = runtime
+        self.faults = faults
         self._rt = None
         self.last_makespan: Optional[float] = None
         self.last_history: Dict[str, List[Tuple[float, float]]] = {}
@@ -269,7 +275,8 @@ class _StagedExecutorBase:
     def runtime(self):
         """The persistent runtime underneath (built on first use)."""
         if self._rt is None:
-            self._rt = make_runtime(self.runtime_kind, self._make_builder())
+            self._rt = make_runtime(self.runtime_kind, self._make_builder(),
+                                    faults=self.faults)
         return self._rt
 
     def _run_rt(self, ctx, fires, timeout: float):
@@ -311,8 +318,8 @@ class _GraphExecutorBase(_StagedExecutorBase):
 
     def __init__(self, program, microbatch_inputs: Sequence[str],
                  num_microbatches: int, regs: Optional[Sequence[int]],
-                 runtime: str = "threads"):
-        super().__init__(runtime=runtime)
+                 runtime: str = "threads", faults=None):
+        super().__init__(runtime=runtime, faults=faults)
         if num_microbatches < 1:
             raise ValueError(
                 f"num_microbatches must be >= 1, got {num_microbatches}")
@@ -529,18 +536,26 @@ class ActorPipelineExecutor(_GraphExecutorBase):
 
 _TAPE_KEY = "__tape__"
 _GRADS_KEY = "__grads__"
+#: the opt payload's same-node entry for snap{s} under ZeRO: the flat
+#: float32 masters, whose padding the params' views do not show
+_ZERO_KEY = "__zero__"
 
 
-def _train_collect_names(tstaged, dynamic: bool = False) -> List[str]:
+def _train_collect_names(tstaged, snapshot: bool = False,
+                         dynamic: bool = False) -> List[str]:
     """The collect list shared by the builder and the executor: the
     loss-bearing backward actor first, then every ``opt{s}``, then (with
-    dynamic loss scaling) the ``scale`` actor, whose decision the executor
+    snapshotting on) every ``snap{s}`` -- the write receipts the executor
+    needs before it finalizes a snapshot's MANIFEST -- then (with dynamic
+    loss scaling) the ``scale`` actor, whose decision the executor
     mirrors."""
     produced_at = {n: st.index for st in tstaged.stages
                    for n in st.output_names}
     loss_stage = produced_at[tstaged.loss_name]
     param_stages = [st.index for st in tstaged.stages if st.param_names]
     names = [f"b{loss_stage}"] + [f"opt{s}" for s in param_stages]
+    if snapshot:
+        names += [f"snap{s}" for s in param_stages]
     if dynamic and param_stages:
         names.append("scale")
     return names
@@ -549,7 +564,7 @@ def _train_collect_names(tstaged, dynamic: bool = False) -> List[str]:
 def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
                             num_microbatches: int, lr: float = 1e-2,
                             regs: Optional[Sequence[int]] = None,
-                            optimizer=None,
+                            optimizer=None, snapshot=None,
                             ) -> Tuple[List[ActorSpec], List[str]]:
     """Build the persistent fwd/bwd/opt actor graph for training steps.
 
@@ -570,7 +585,9 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
     * with loss scaling, ``ctx[f"b{s}"]`` of the loss stage ``{"loss_seed":
       scale}``, ``ctx[f"acc{s}"]`` ``{"inv_scale": 1/scale}`` and, dynamic,
       ``ctx["scale"]`` ``{"scale", "good_steps"}``: the executor owns the
-      scale and re-anchors the actors at it every step.
+      scale and re-anchors the actors at it every step;
+    * ``ctx[f"snap{s}"]`` -- with ``snapshot`` set, ``{"step": int,
+      "write": bool}`` controlling this epoch's snapshot write.
 
     ``regs[s]`` is forward stage s's out-register quota (default 1F1B,
     ``num_stages - s``); backward/acc/opt actors need no tuning.
@@ -603,6 +620,17 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
       norm for finiteness and broadcasts skip, backoff or growth to every
       ``opt{s}``; a skipped step leaves params, moments and step count as
       they were.
+    * With ``snapshot`` (a :class:`repro_torch.runtime.snapshot
+      .SnapshotSpec`), a ``snap{s}`` actor per parameterized stage consumes
+      ``opt{s}``'s output register -- the post-update params and fresh
+      optimizer state -- on the stage node's thread 1 (its own mailbox,
+      thread and register quota) and writes the stage's slice as global
+      tensors: shards assembled by their signatures, and under ZeRO the
+      flat ``(dp, 1, chunk)`` layout of each global master and moment. It
+      copies to the host and writes within its fire, so the step ends
+      with the files on disk and no later in-place update can reach them;
+      it emits a write receipt the executor collects before finalizing
+      the snapshot's manifest.
 
     Forward actors record autograd and backward actors replay it (grad mode
     is per thread, so each body sets its own); every body waits for the
@@ -819,13 +847,41 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
                    "grads": grads}
             if opt.stateful:
                 out["state"] = new_state
+            if opt.zero and snapshot is not None:
+                out[_ZERO_KEY] = {"masters": state_cell["masters"]}
             if norm_payload is not None:
                 out["norm"] = norm_payload["norm"]
             return out
         return run_opt, on_epoch
 
+    def make_snap_fn(stage):
+        # the snapshot actor's per-epoch control cell: which step this
+        # epoch's write belongs to, and whether to write at all
+        cell = {"step": 0, "write": False}
+
+        def on_epoch(v):
+            if v is not None:
+                cell["step"] = int(v["step"])
+                cell["write"] = bool(v["write"])
+
+        def run_snap(opt_payload):
+            from repro_torch.runtime.snapshot import write_stage_snapshot
+
+            write = cell["write"] and not opt_payload.get("skipped")
+            if write:
+                with torch.no_grad():
+                    params, state, zero = snapshot_leaves(
+                        opt, stage, tstaged.plan.tensor_sbp, opt_payload)
+                    write_stage_snapshot(snapshot.dir, cell["step"],
+                                         stage.index, params,
+                                         opt_state=state, zero=zero)
+            return {"stage": stage.index, "step": cell["step"],
+                    "written": write}
+        return run_snap, on_epoch
+
     bound_of: Dict[int, Dict[str, Any]] = {}
-    collect = _train_collect_names(tstaged, dynamic)
+    collect = _train_collect_names(tstaged, snapshot=snapshot is not None,
+                                   dynamic=dynamic)
     for s, stage in enumerate(tstaged.stages):
         fwd_fn, bound, raw_cell, fwd_on_epoch = make_fwd_fn(stage)
         bwd_fn, bwd_on_epoch = make_bwd_fn(stage)
@@ -869,6 +925,15 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
                 name=f"opt{s}", fn=opt_fn,
                 inputs=opt_inputs, out_regs=1, node=s + 1, thread=0,
                 max_fires=1, on_epoch=opt_on_epoch))
+            if snapshot is not None:
+                # async checkpointing as one more register-stream consumer,
+                # on the stage node's thread 1: serialization never runs on
+                # the schedule's thread
+                snap_fn, snap_on_epoch = make_snap_fn(stage)
+                specs.append(ActorSpec(
+                    name=f"snap{s}", fn=snap_fn, inputs=(f"opt{s}",),
+                    out_regs=1, node=s + 1, thread=1,
+                    max_fires=1, on_epoch=snap_on_epoch))
 
     if need_norm and param_stages:
         # cross-stage *sideways* communication on the actor protocol: sum the
@@ -913,6 +978,37 @@ def train_stage_actor_specs(tstaged, microbatch_inputs: Sequence[str],
     return specs, collect
 
 
+def snapshot_leaves(opt: OptimizerSpec, stage, sbp, opt_payload):
+    """What ``snap{s}`` writes of one stage's opt payload: ``(params,
+    state, zero)`` -- the global float32 params (the masters under mixed
+    precision), the merged optimizer state over global moments (None for
+    SGD) and, under ZeRO, ``{"dp", "shapes"}`` with params and moments in
+    the flat ``(dp, 1, chunk)`` layout of each global tensor, the layout
+    the reference writes. On one rank these are the stage's own tensors,
+    read in place; on a mesh they are assembled from the ranks' shards by
+    their signatures."""
+    mesh, names = stage.mesh, stage.param_names
+    shards = {n: opt_payload["params"][n] for n in names}
+    states = opt_payload.get("state")
+    if opt.zero and mesh.size == 1:
+        # the one rank's flat masters and moments are the global layout
+        masters = opt_payload[_ZERO_KEY]["masters"]
+        params = {n: masters[n][0] for n in names}
+        state = states[0]
+    else:
+        params = {n: assemble(shards[n], mesh, sbp[n]) for n in names}
+        state = rank_opt_state(opt, states, mesh, sbp, shards)
+        if opt.zero:
+            params = opt.shard_masters(params)
+            state = ZeroState(state.step, opt.shard_masters(state.mu),
+                              opt.shard_masters(state.nu))
+    zero = None
+    if opt.zero:
+        shapes = opt.zero_shape_map
+        zero = {"dp": opt.zero_dp, "shapes": {n: shapes[n] for n in names}}
+    return params, state, zero
+
+
 def unscale(grads: Dict[str, List[torch.Tensor]], inv
             ) -> Dict[str, List[torch.Tensor]]:
     """Each rank's float32 gradient sums times ``inv`` (1/loss scale; exact
@@ -926,19 +1022,21 @@ class TrainSpecBuilder(_SpecBuilderBase):
 
     def __init__(self, staged, microbatch_inputs: Sequence[str],
                  num_microbatches: int, lr: float = 1e-2, regs=None,
-                 optimizer=None):
+                 optimizer=None, snapshot=None):
         super().__init__(staged)
         self.microbatch_inputs = list(microbatch_inputs)
         self.num_microbatches = num_microbatches
         self.lr = lr
         self.regs = None if regs is None else list(regs)
         self.optimizer = optimizer
+        self.snapshot = snapshot
 
     def __call__(self):
         return train_stage_actor_specs(self.staged, self.microbatch_inputs,
                                        self.num_microbatches, lr=self.lr,
                                        regs=self.regs,
-                                       optimizer=self.optimizer)
+                                       optimizer=self.optimizer,
+                                       snapshot=self.snapshot)
 
 
 def own_params(params: Dict[str, Any], names: Sequence[str], meshes,
@@ -990,19 +1088,35 @@ class TrainPipelineExecutor(_GraphExecutorBase):
     seeds each step's backward with ``loss_scale`` and mirrors the
     ``scale`` actor's decision (``loss_scale``, ``scale_good_steps``,
     ``last_skipped``, ``last_scale``: the scale the last step ran under).
+
+    With ``snapshot_dir`` every ``snapshot_every``-th step's state lands
+    there from the ``snap{s}`` actors (:mod:`repro_torch.runtime
+    .snapshot`); the executor writes the step's MANIFEST once every
+    stage's receipt is in. :meth:`load_state` restores one. ``faults`` is a
+    :class:`repro_torch.runtime.chaos.FaultPlan` for the runtime.
     """
 
     def __init__(self, tstaged, params: Dict[str, Any],
                  microbatch_inputs: Sequence[str], num_microbatches: int,
                  lr: float = 1e-2, regs: Optional[Sequence[int]] = None,
-                 optimizer=None, runtime: str = "threads"):
+                 optimizer=None, runtime: str = "threads",
+                 snapshot_dir: Optional[str] = None, snapshot_every: int = 1,
+                 faults=None):
         super().__init__(tstaged, microbatch_inputs, num_microbatches, regs,
-                         runtime=runtime)
+                         runtime=runtime, faults=faults)
         self.tstaged = tstaged
         self.lr = lr
         self.optimizer = optimizer if optimizer is not None else (
             tstaged.optimizer if tstaged.optimizer is not None
             else OptimizerSpec.sgd(lr))
+        if snapshot_every < 1:
+            raise ValueError(
+                f"snapshot_every must be >= 1, got {snapshot_every}")
+        self._snapshot = None
+        if snapshot_dir is not None:
+            from repro_torch.runtime.snapshot import SnapshotSpec
+            self._snapshot = SnapshotSpec(str(snapshot_dir))
+        self.snapshot_every = snapshot_every
         self.mesh_of = {n: st.mesh for st in tstaged.stages
                         for n in st.param_names}
         self.shards: Dict[str, List[torch.Tensor]] = {}
@@ -1031,7 +1145,8 @@ class TrainPipelineExecutor(_GraphExecutorBase):
     def _make_builder(self):
         return TrainSpecBuilder(self.tstaged, self.microbatch_inputs,
                                 self.num_microbatches, lr=self.lr,
-                                regs=self.regs, optimizer=self.optimizer)
+                                regs=self.regs, optimizer=self.optimizer,
+                                snapshot=self._snapshot)
 
     def _global(self, per_rank: Dict[str, List[torch.Tensor]]):
         sbp = self.tstaged.plan.tensor_sbp
@@ -1051,6 +1166,38 @@ class TrainPipelineExecutor(_GraphExecutorBase):
                                  self.mesh_of, self.tstaged.plan.tensor_sbp,
                                  self.optimizer.mixed_precision)
         self._params_dirty = True
+
+    def load_state(self, params: Optional[Dict[str, Any]] = None,
+                   opt_state=None, step: Optional[int] = None) -> None:
+        """Restore a full training state (the kill-and-resume seam).
+
+        Extends :meth:`load_params` with what a restart must not lose:
+        ``opt_state`` -- a *merged* :class:`repro_torch.optim.adamw
+        .AdamWState` over global moments (tensors or numpy arrays, e.g.
+        from :func:`repro_torch.runtime.snapshot.load_snapshot`), cut per
+        stage by THIS executor's partition and per rank by its meshes, so a
+        snapshot restores onto another stage cut -- and ``step``, the
+        optimizer-step counter the lr schedule is indexed by. The restored
+        params and moments are owned copies on the stages' devices; they
+        ride the next step's ``ctx`` into each stage's actors, where the
+        float32 masters and the compute copies are rebuilt from them."""
+        if params is not None:
+            self.load_params(params)
+        if opt_state is not None:
+            if not self.optimizer.stateful:
+                raise ValueError(
+                    "opt_state given but the optimizer is stateless "
+                    f"({self.optimizer.kind})")
+            sbp = self.tstaged.plan.tensor_sbp
+            self.opt_states = {
+                st.index: rank_states(
+                    self.optimizer, opt_state,
+                    {n: self.shards[n] for n in st.param_names}, st.mesh,
+                    sbp)
+                for st in self.tstaged.stages if st.param_names}
+            self._state_dirty = True
+        if step is not None:
+            self.step_count = int(step)
 
     @property
     def peak_inflight_activations(self) -> int:
@@ -1106,6 +1253,9 @@ class TrainPipelineExecutor(_GraphExecutorBase):
         mb = set(self.microbatch_inputs)
         ctx: Dict[str, Any] = {"data": self._microbatch_payloads(data_inputs)}
         opt = self.optimizer
+        snap_step = self.step_count + 1   # the state after THIS step lands
+        write = (self._snapshot is not None
+                 and snap_step % self.snapshot_every == 0)
         if self._scaling:
             # seed the loss stage's backward with the scale, the acc actors
             # with 1/scale, and re-anchor the scale actor at the mirror
@@ -1129,11 +1279,16 @@ class TrainPipelineExecutor(_GraphExecutorBase):
                     {"step": self.step_count,
                      "load_state": self.opt_states[st.index]}
                     if self._state_dirty else self.step_count)
+                if self._snapshot is not None:
+                    ctx[f"snap{st.index}"] = {"step": snap_step,
+                                              "write": write}
         outs = self._run_rt(ctx, None, timeout)
         self._params_dirty = False
         self._state_dirty = False
 
-        collect = _train_collect_names(self.tstaged, opt.dynamic_scaling)
+        collect = _train_collect_names(
+            self.tstaged, snapshot=self._snapshot is not None,
+            dynamic=opt.dynamic_scaling)
         # the loss-bearing backward actor fires in version order in one
         # worker, so the collected loss stream is microbatch-ordered
         loss_payloads = outs[collect[0]]
@@ -1166,9 +1321,40 @@ class TrainPipelineExecutor(_GraphExecutorBase):
             self.last_skipped = bool(sc["skip"])
             self.loss_scale = float(sc["next_scale"])
             self.scale_good_steps = int(sc["good_steps"])
+        if write and not self.last_skipped:
+            self._finalize_snapshot(outs, snap_step)
         if not self.last_skipped:
             self.step_count += 1
         return loss, grads, dict(self.shards)
+
+    def _finalize_snapshot(self, outs, snap_step: int) -> None:
+        """Write the snapshot MANIFEST -- only after every stage's snap
+        actor delivered a write receipt for this step. The MANIFEST is the
+        completeness marker: a step killed mid-write leaves stage dirs
+        without one, and restore ignores them."""
+        from repro_torch.runtime.snapshot import write_manifest
+
+        receipts = []
+        for st in self.tstaged.stages:
+            if not st.param_names:
+                continue
+            (r,) = outs[f"snap{st.index}"]
+            if not r["written"] or int(r["step"]) != snap_step:
+                raise RuntimeError(
+                    f"snapshot receipt mismatch from stage {st.index}: {r} "
+                    f"(expected written step {snap_step})")
+            receipts.append(int(r["stage"]))
+        opt = self.optimizer
+        meta = {"param_names": list(self.tstaged.param_names),
+                "stateful": opt.stateful,
+                "optimizer": opt.kind,
+                "num_stages": self.tstaged.num_stages,
+                "zero": bool(opt.zero)}
+        if self._scaling:
+            # the scale to RESUME with (already advanced past this step)
+            meta["loss_scale"] = float(self.loss_scale)
+            meta["scale_good_steps"] = int(self.scale_good_steps)
+        write_manifest(self._snapshot.dir, snap_step, receipts, meta=meta)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,9 @@ observed while an actor still owes the graph a message.
 Worker threads are started afresh every epoch. Thread-local state of the
 frameworks underneath (PyTorch's grad mode, current CUDA stream and device)
 therefore starts at its default in every round; actor bodies that need a
-mode set it themselves.
+mode set it themselves. So are the mailboxes: a message a delayed-delivery
+timer (:mod:`repro_torch.runtime.chaos`) holds past its epoch lands in that
+epoch's abandoned mailbox table, never in the next epoch's.
 """
 from __future__ import annotations
 
@@ -45,6 +47,9 @@ class _LocalEngine:
     * ``on_quiescence(flag)`` — quiescence changed (called under the
       counter lock, so reports are emitted in transition order)
     * ``on_error(exc, key)`` — a worker thread raised
+    * ``fault_injector`` — an optional
+      :class:`repro_torch.runtime.chaos.FaultInjector`, consulted before
+      every fire and for every outgoing message
     """
 
     def __init__(self, specs: Sequence[ActorSpec]):
@@ -61,6 +66,7 @@ class _LocalEngine:
         self.on_quiescence: Optional[Callable[[bool], None]] = None
         self.on_error: Optional[Callable[[BaseException, Tuple[int, int]], None]] = None
         self.collect_names: Set[str] = set()
+        self.fault_injector = None
         # epoch state
         self._epoch = 0
         self._mailboxes: Dict[Tuple[int, int], queue.Queue] = {}
@@ -131,7 +137,38 @@ class _LocalEngine:
 
     # -- message routing ---------------------------------------------------------
     def post(self, msg) -> None:
+        """Route an outgoing message. With a fault injector attached it may
+        be delayed, duplicated or dropped here; :meth:`deliver` is the
+        fault-free path."""
+        inj = self.fault_injector
+        if inj is None:
+            self.deliver(msg)
+            return
+        src = self.by_id[msg.src].spec.name
+        dst = self.by_id[msg.dst].spec.name
+        epoch, boxes = self._epoch, self._mailboxes
+        for m, delay in inj.route(msg, src, dst):
+            if delay > 0:
+                t = threading.Timer(delay, self._deliver_late,
+                                    args=(m, epoch, boxes))
+                t.daemon = True
+                t.start()
+            else:
+                self.deliver(m)
+
+    def deliver(self, msg) -> None:
         self._mailboxes[(node_of(msg.dst), thread_of(msg.dst))].put(msg)
+
+    def _deliver_late(self, msg, epoch: int, boxes) -> None:
+        """Timer callback for a delayed message. A pending delayed Req/Ack
+        keeps its producer's register referenced, so the epoch cannot
+        conclude before delivery; if the epoch was abandoned nevertheless
+        (timeout or error), the message is dropped, or at worst lands in
+        the *captured* mailbox table -- a stale epoch's boxes, which no
+        worker reads again."""
+        if self._epoch != epoch or self._stopping:
+            return
+        boxes[(node_of(msg.dst), thread_of(msg.dst))].put(msg)
 
     # -- counters ----------------------------------------------------------------
     def _bump(self, dpending: int, dlive: int) -> None:
@@ -177,6 +214,9 @@ class _LocalEngine:
             for actor in self.actors_on[key]:
                 while (actor.ready() and not self._stopping
                        and self._epoch == epoch):
+                    if self.fault_injector is not None:
+                        # may raise WorkerKilled (a KillWorker fault)
+                        self.fault_injector.before_fire(actor.spec.name)
                     start = time.perf_counter() - self._t0
                     out, acks, reg_id = actor.fire()
                     # wall-clock action history, so pipeline overlap can be
@@ -212,18 +252,25 @@ class ThreadedRuntime(Runtime):
     the *start* of the next run, so ``by_name`` counters (fired, out_counter,
     peak_regs_in_use) remain inspectable after a run.
 
-    The reference runtime's fault injection (``faults=``) and delivery
-    tracing (``trace=``) are not ported yet (ROADMAP Queue 1 items 10 and
-    12); passing either raises.
+    ``faults`` is an optional :class:`repro_torch.runtime.chaos.FaultPlan`
+    applied by a :class:`~repro_torch.runtime.chaos.FaultInjector`
+    (``fault_injector``; its ``applied`` list records what triggered). The
+    reference runtime's delivery tracing (``trace=``) is not ported yet
+    (ROADMAP Queue 1 item 12); passing it raises.
     """
 
     def __init__(self, specs: Sequence[ActorSpec],
                  collect_outputs_of=None, faults=None, trace=None):
-        if faults is not None or trace is not None:
+        if trace is not None:
             raise NotImplementedError(
-                "faults=/trace= are not ported yet (ROADMAP Queue 1 items "
-                "10 and 12)")
+                "trace= (delivery tracing for the static trace sanitizer) "
+                "is not ported yet (ROADMAP Queue 1 item 12)")
         self._engine = _LocalEngine(specs)
+        self.fault_injector = None
+        if faults is not None:
+            from repro_torch.runtime.chaos import FaultInjector
+            self.fault_injector = FaultInjector(faults)
+            self._engine.fault_injector = self.fault_injector
         self.by_name = self._engine.by_name
         self.by_id = self._engine.by_id
         self._collect_single = (collect_outputs_of is None

@@ -383,7 +383,20 @@ class TestNotPorted:
     """Every option the port does not take yet raises naming its item; the
     meshes of item 8 run (two ranks on the CPU), and so do item 9's ZeRO
     and mixed precision (``tests/test_torch_mixed_precision.py`` holds them
-    to the JAX package)."""
+    to the JAX package) and item 10's snapshots, restore and faults, which
+    hold the reference's option checks here
+    (``tests/test_torch_fault_tolerance.py`` runs them)."""
+
+    #: item 10's options, each with what makes the reference reject it
+    ITEM10 = {
+        "snapshot_dir": (dict(backend="monolithic"), ValueError,
+                         "snapshot_dir= requires backend='actors'"),
+        "snapshot_every": ({}, ValueError,
+                           "snapshot_every= without snapshot_dir="),
+        "restore": ({}, FileNotFoundError, "no completed snapshot"),
+        "faults": (dict(backend="monolithic"), ValueError,
+                   "faults= requires backend='actors'"),
+    }
 
     @pytest.mark.parametrize("kw,item", [
         (dict(zero=True), "item 9"),
@@ -403,6 +416,15 @@ class TestNotPorted:
     def test_graph_options(self, kw, item):
         if item == "item 9":
             self._item9_runs(kw)
+            return
+        if item == "item 10":
+            (name,) = kw
+            extra, exc, match = self.ITEM10[name]
+            g = _train_graph()
+            params, _ = _params_and_data(g)
+            with pytest.raises(exc, match=match):
+                api.compile(g, mode="train", params=params, stages=2,
+                            device=CPU, **kw, **extra)
             return
         if item != "item 8":
             g = _train_graph()

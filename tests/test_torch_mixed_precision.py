@@ -14,10 +14,13 @@ relative in float32, and in bf16 within the reference's own bf16
 tolerance, ``rtol=2e-2`` (``tests/test_kernels.py:24``; measured 0 on
 these graphs: both round the params to bf16 to nearest even and promote
 the matmuls with the float32 inputs to float32); the loss-scale trajectory
-and the skips equal. The process runtime (``runtime="processes"``, and its
-bf16 wire format) is ROADMAP Queue 1 item 11 and snapshots item 10: their
-cases check that the options raise naming the item.
+and the skips equal. A snapshot taken under dynamic scaling restores the
+masters, moments and the scale trajectory bitwise. The process runtime
+(``runtime="processes"``, and its bf16 wire format) is ROADMAP Queue 1
+item 11: its cases check that the option raises naming the item.
 """
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -389,15 +392,36 @@ class TestSurfacing:
 
 class TestSnapshotCarriesScale:
     def test_restore_resumes_scale_trajectory(self):
-        """Snapshots and restore (carrying the ``__zero__`` masters and the
-        loss-scale trajectory) are ROADMAP Queue 1 item 10."""
-        params, _ = _params_and_data()
+        """A snapshot taken under dynamic scaling records the scale to
+        resume with; restore must continue the interrupted trajectory
+        bitwise -- the flat ZeRO masters and moments, and the scale the
+        next step runs under -- and the whole trajectory is the JAX
+        session's."""
+        params, data = _params_and_data()
         pol = PrecisionPolicy(compute_dtype="bfloat16", loss_scale="dynamic",
                               init_scale=2.0 ** 4, growth_interval=2)
         kw = _mp_kwargs(params, precision=pol, loss_scale=None)
-        for opt in ({"snapshot_dir": "snap"}, {"restore": "snap"}):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-                _port("actors", **kw, **opt)
+        ref = _port(**kw)
+        ref_steps = [ref.step(**data) for _ in range(4)]
+        with tempfile.TemporaryDirectory() as d:
+            with _port("actors", snapshot_dir=d, **kw) as sess:
+                losses = [float(sess.step(**data).loss) for _ in range(2)]
+            with _port("actors", restore=d, **kw) as res:
+                # two good steps at growth_interval=2 -> scale grew once
+                assert res.executor.loss_scale == 2.0 ** 5
+                assert res.executor.scale_good_steps == 0
+                assert res.step_count == 2
+                tail = [res.step(**data) for _ in range(2)]
+                losses += [float(r.loss) for r in tail]
+                final, final_opt = res.params, res.opt_state
+        assert losses == [float(r.loss) for r in ref_steps]
+        assert ([r.metrics["loss_scale"] for r in tail]
+                == [r.metrics["loss_scale"] for r in ref_steps[2:]])
+        for n, v in ref.params.items():
+            assert torch.equal(final[n], v), n
+            assert torch.equal(final_opt.mu[n], ref.opt_state.mu[n]), n
+            assert torch.equal(final_opt.nu[n], ref.opt_state.nu[n]), n
+        _held_to_jax(ref, kw, [data] * 4)
 
 
 # ---------------------------------------------------------------------------

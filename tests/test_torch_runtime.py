@@ -127,8 +127,8 @@ def test_timeout_names_unfired_actors():
 
 
 def test_unported_options_raise_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ThreadedRuntime([], faults=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+        ThreadedRuntime([], trace=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_runtime("processes", lambda: ([], None))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
