@@ -5,7 +5,9 @@
 Phases, each printing its own lines; any failure exits non-zero before the
 result line is printed:
 
-1. device and build: the card's name and power limit (``nvidia-smi``), then
+1. device and build: the card's name and power limit (``nvidia-smi``), its
+   compute mode (the process runtime's phases need one that admits
+   several processes), then
    every CUDA source of the serving and training paths built from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
    each with its ``ptxas -v`` register/spill report;
@@ -112,7 +114,20 @@ result line is printed:
    monolithic, more rounds than unchunked; qwen3 sampled (temperature 0.8,
    top-k 50, top-p 0.95, seed 1): actors ≡ monolithic, seed 1 repeats,
    seed 2 differs, temperature 0 ≡ greedy; mamba2 paged on the actors ≡
-   dense. Then qwen3 on a mesh: ``Placement(("data", "model"), (1, 2))``,
+   dense. Then qwen3 on worker processes (``runtime="processes"``, 2
+   stages: node 0 ``admit`` and one worker process a stage, each mapping
+   the driver's weights by CUDA IPC; hidden states, work items and logits
+   cross the processes as CUDA tensors): the serve phase's model and 12
+   requests, tokens identical to its threads session's, the launches
+   counted in the workers and summed in the driver equal to its (336
+   attention forwards, 2,632 decodes), each worker's pid not the
+   driver's and its device the card, its allocated memory flat over the
+   run (the second half's maximum within 64 MiB of the first's); tok/s
+   beside the threads and monolithic runs', the workers' start seconds,
+   every process's peak memory and the edge bytes. Then qwen3 on a mesh,
+   at full width cut to 4 of its 28 layers (the port's seeded init of the
+   cut config; the launch checks follow the cut):
+   ``Placement(("data", "model"), (1, 2))``,
    2 virtual ranks of the card (every rank a thread, the collectives a
    rendezvous in rank order), heads, MLP units, vocabulary and the KV
    cache by sequence split over ``model`` (cache_len 570, 285 positions a
@@ -256,6 +271,20 @@ result line is printed:
    seconds, ``load_snapshot``'s and the restore's seconds, beside the
    card's name and power limit. The directory's disk must hold twice the
    snapshot, and the directory is removed at the end;
+9d. graph train on worker processes: 9c's configuration on
+   ``runtime="processes"`` (one worker process per stage node, 5 in all),
+   one session alive at a time: P runs 3 steps, each bitwise U's of 9c
+   (loss, scale, and a fingerprint of every float32 master and moment:
+   two int64 sums of their bits computed on the card, one weighted by
+   position); K snapshots every step from the stage workers, its steps
+   1-2 bitwise P's, and is killed in step 3 by ``KillWorker("b1")``, an
+   ``os._exit(57)`` of b1's worker: a ``WorkerError`` naming node 2 and
+   exit code 57, and no worker process left; R
+   (``compile(runtime="processes", restore=)``) resumes from the files
+   the workers wrote, step count 2, and its step 3 is bitwise P's. 8 + 8
+   xent launches every completed step, counted in the last stage's worker
+   and summed in the driver; the snapshot steps' walls beside 9c's, the
+   workers' start seconds and peak memory;
 11. graph infer: the same graph under ``mode="infer"``, actors vs
    monolithic, bitwise, 8 forward xent launches a run and no backward.
    The kernels line holds the float32 xent forward and backward at the
@@ -266,6 +295,9 @@ result line is printed:
 The MLA attention row carries the deepseek-v2-lite serve run's launches,
 its training-shape rows (forward, backward by kernel, the xent rows at
 its vocabulary) the deepseek-v2-lite train run's.
+The attention forward and decode rows' ``launches_by_path`` carry the
+processes serve run's (``serve processes``), the bf16 graph xent rows'
+the graph processes run's (``graph processes``).
 The ``ssd_scan_bwd`` row carries the mamba2 train run's launches (by
 kernel, and the mesh run's by path), the local-heads SSD row the mamba2
 mesh serve run's, and the SSD forward row's ``launches_by_path`` the
@@ -438,6 +470,13 @@ def device_and_build():
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    # the process runtime's phases put several processes on the card: a
+    # compute mode of EXCLUSIVE_PROCESS refuses the second, and they fail
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"compute mode: {mode}")
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_decode import kernel as fd
@@ -1429,7 +1468,8 @@ def serve(dev, arch: str):
     same requests on the monolithic engine, each run's kernel launches
     counted and checked: per layer, one attention forward per prefill and
     one decode per decode item, or one SSD scan per prefill. Returns the
-    launch counts of the actor run."""
+    launch counts of the actor run, and ``{"outs", "tok_per_s",
+    "mono_tok_per_s"}``: its tokens and both runs' rates."""
     phase(f"serve ({arch}, full width, bf16, actors x 2 stages)")
     from repro_torch import api
     from repro_torch.configs.registry import get_config
@@ -1501,7 +1541,8 @@ def serve(dev, arch: str):
     profile_device(f"{mono.backend} generate (requests 0-3)",
                    lambda: mono.generate(requests[:4]), cpu=False)
     mono.close()
-    return launches
+    return launches, {"outs": outs, "tok_per_s": st["tok_per_s"],
+                      "mono_tok_per_s": ms["tok_per_s"]}
 
 
 def profile_device(what: str, fn, top: int = 8, cpu: bool = True):
@@ -1894,6 +1935,11 @@ CUT_LAYERS, CUT_STEPS = 4, 2
 # a multiple of tp, as the reference's api does
 MESH_SERVE = (1, 2)
 MESH_CACHE_LEN = 570
+#: the mesh serve phase runs qwen3-1.7b at full width cut to this depth (of
+#: 28 layers): it took 151-200 s of the script's 1,200 at full depth, and
+#: the process runtime's phases needed the time; its launch checks follow
+#: the cut
+MESH_SERVE_LAYERS = 4
 # first-token logits of the mesh session against the 1 x 1 session's, bf16:
 # each rank's P(sum) branch output is rounded to bf16 before the psum adds
 # it, one rounding more per branch than one device's matmul, over 56
@@ -1990,8 +2036,9 @@ def first_token_logits(sess, requests, dev):
     return out
 
 
-def serve_mesh(dev, cfg, model):
-    """The mesh serve phase: qwen3-1.7b at full width and depth on
+def serve_mesh(dev, cfg):
+    """The mesh serve phase: qwen3-1.7b at full width cut to
+    MESH_SERVE_LAYERS layers (the port's seeded init of the cut config) on
     ``Placement(("data", "model"), MESH_SERVE)``, 2 virtual ranks of the
     card (heads, MLP units, vocabulary and the KV cache by sequence split
     over them), on the actors (2 stages) and the monolithic engine, the
@@ -2002,13 +2049,22 @@ def serve_mesh(dev, cfg, model):
     session's; how many generated tokens match 1 x 1 (no gate: bf16 sums
     split over two ranks round differently). Returns the actor run's
     counts, with ``offsets``."""
+    import dataclasses
+
     from repro_torch.core.placement import Placement
     from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import compute_dtype
     placement = Placement(("data", "model"), MESH_SERVE)
     ranks, tp = placement.num_devices, MESH_SERVE[1]
-    phase(f"serve on a {MESH_SERVE} mesh ({cfg.name}, full width, bf16, "
+    phase(f"serve on a {MESH_SERVE} mesh ({cfg.name}, full width cut to "
+          f"{MESH_SERVE_LAYERS} of its {cfg.num_layers} layers, bf16, "
           f"{ranks} virtual ranks on one card, actors x 2 stages and "
           "monolithic)")
+    cfg = dataclasses.replace(cfg, num_layers=MESH_SERVE_LAYERS)
+    model = build_model(cfg, MeshPlan.single_device(), seed=SEED,
+                        device=dev, dtype=compute_dtype(cfg))
     requests = serve_requests(cfg)
     geo = dict(num_groups=2, group_size=4, max_prompt_len=512,
                max_new_tokens=48)
@@ -2102,6 +2158,7 @@ def serve_mesh(dev, cfg, model):
           f"{len(ref)} requests whole (not a gate)")
     counts = dict(runs["actors"][1])
     counts["offsets"] = runs["actors"][2]
+    del model
     return counts
 
 
@@ -3384,6 +3441,55 @@ def graph_train_mp(dev, ref):
     return total
 
 
+#: elements a fingerprint reads at a time (512 MiB of int64 on the card)
+FP_CHUNK = 1 << 26
+
+
+def bits_fingerprint(t) -> tuple:
+    """Two int64 sums over ``t``'s bit patterns, computed on the card: the
+    plain one and one weighted by position (both wrapping), so a changed
+    bit or a moved element changes them; with the dtype and shape. Lets a
+    phase hold a session's state to one that is no longer alive (a state
+    is 8.7 GB; one session lives at a time) without a copy to the host."""
+    flat = t.detach().contiguous().reshape(-1)
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    bits = flat.view(ints[flat.element_size()])
+    total = torch.zeros(2, dtype=torch.int64, device=flat.device)
+    for lo in range(0, bits.numel(), FP_CHUNK):
+        c = bits[lo:lo + FP_CHUNK].long()
+        w = torch.arange(lo + 1, lo + 1 + c.numel(), dtype=torch.int64,
+                         device=c.device)
+        total[0] += c.sum()
+        total[1] += (c * w).sum()
+    return tuple(total.tolist()) + (str(t.dtype), tuple(t.shape))
+
+
+def session_fingerprint(sess, res) -> dict:
+    """A train session's state after step ``res``: the loss and loss
+    scale, the optimizer's step, and the fingerprint of every float32
+    master and moment."""
+    st = sess.opt_state
+    fp = {"loss": float(res.loss), "loss_scale": res.metrics["loss_scale"],
+          "step": int(st.step)}
+    fp.update({f"master {p}": bits_fingerprint(v)
+               for p, v in sess.params.items()})
+    fp.update({f"mu {p}": bits_fingerprint(v) for p, v in st.mu.items()})
+    fp.update({f"nu {p}": bits_fingerprint(v) for p, v in st.nu.items()})
+    return fp
+
+
+def held_to(what: str, got: dict, want: dict) -> None:
+    """Raise unless two fingerprints are equal; print what was held."""
+    bad = [k for k in want if got.get(k) != want[k]]
+    if bad or set(got) != set(want):
+        raise AssertionError(f"{what}: differs in {bad[:4]} "
+                             f"({len(bad)} of {len(want)} entries)")
+    n = sum(k.startswith(("master", "mu", "nu")) for k in want)
+    print(f"{what}: loss {got['loss']:.6f}, loss scale "
+          f"{got['loss_scale']}, step {got['step']} and {n} float32 "
+          "masters and moments bitwise equal")
+
+
 def dir_bytes(path) -> int:
     """Bytes of the files under ``path``."""
     return sum(os.path.getsize(os.path.join(d, f))
@@ -3398,7 +3504,9 @@ def graph_snapshot_resume(dev, smi: str):
     snapshotting at step 2 and killed in step 3; R restored from K's
     snapshot for step 3; C under a delayed and a duplicated Req for step
     1. Every comparison is bitwise: loss, loss scale, every float32 master
-    and moment. Returns the xent launches of the run."""
+    and moment. Returns the xent launches of the run, and U's
+    fingerprint after each step (``session_fingerprint``) with K's and
+    U's snapshot step walls, which the processes phase is held to."""
     phase("graph snapshot and resume (qwen3-1.7b widths, zero, bf16, "
           "dynamic loss scale; uninterrupted U, snapshot-and-kill K, "
           "restored R, chaos C)")
@@ -3479,8 +3587,10 @@ def graph_snapshot_resume(dev, smi: str):
                   f"float32 masters and {2 * len(sb.mu)} moments bitwise "
                   "U's")
 
+        record = {"fp": {}}
         for k in (1, 2):
             ref = step("U", k)
+            record["fp"][k] = session_fingerprint(sessions["U"], ref)
             for name in ("K", "C") if k == 1 else ("K",):
                 bitwise(name, k, step(name, k), ref)
             if k == 1:
@@ -3501,7 +3611,9 @@ def graph_snapshot_resume(dev, smi: str):
               f"{walls['K', 2]:.3f} s beside U's {walls['U', 2]:.3f} s "
               f"({walls['K', 2] / walls['U', 2]:.2f}x), the snap actors' "
               f"write seconds {writes}; {smi}")
+        record.update(k_wall=walls["K", 2], u_wall=walls["U", 2])
         ref3 = step("U", 3)
+        record["fp"][3] = session_fingerprint(sessions["U"], ref3)
         scale, good = (sessions["U"].executor.loss_scale,
                        sessions["U"].executor.scale_good_steps)
         before = xent_counts()
@@ -3543,7 +3655,7 @@ def graph_snapshot_resume(dev, smi: str):
         print(f"graph snapshot and resume: xent launches over the run "
               f"{total}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        return total
+        return total, record
     finally:
         for sess in sessions.values():
             sess.close()
@@ -3593,6 +3705,277 @@ def graph_infer(dev):
     del inputs, outs
     torch.cuda.empty_cache()
     return counts["actors"]
+
+
+def worker_lines(rt, dev) -> None:
+    """Each worker process of a process runtime: its pid, which must not
+    be this process's, and its device, which must be the card."""
+    for node, w in sorted(rt.workers.items()):
+        print(f"  node {node}: pid {w['pid']} on {w['device']} "
+              f"({w.get('device_name')}); started "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in w["start_s"].items()))
+    if any(w["pid"] == os.getpid() for w in rt.workers.values()):
+        raise AssertionError("a worker runs in the driver's process")
+    if not all(w["device"].startswith("cuda")
+               and torch.device(w["device"]).type == torch.device(dev).type
+               for w in rt.workers.values()):
+        raise AssertionError(f"workers not on the card: {rt.workers}")
+
+
+def all_stopped(rt, what: str) -> None:
+    """No worker process of ``rt`` may be alive."""
+    alive = [n for n, p in rt._procs.items() if p.is_alive()]
+    if alive:
+        raise AssertionError(f"{what}: worker processes {alive} alive")
+    print(f"{what}: every worker process stopped (exit codes "
+          f"{ {n: p.exitcode for n, p in rt._procs.items()} })")
+
+
+#: bytes a worker's allocated memory may grow between the two halves of a
+#: serve run (a run whose blocks leaked in IPC limbo would grow by its
+#: logits, 1.2 MB a round, over some 300 rounds)
+FLAT_SLACK = 64 << 20
+
+
+def serve_processes(dev, cfg, model, threads_launches, threads_run):
+    """The serve phase's model and 12 requests on ``runtime="processes"``:
+    2 stages, so 3 worker processes (node 0 ``admit``, nodes 1-2 the
+    stages), each mapping the driver's weights by CUDA IPC and running its
+    stage's kernels. Tokens must equal the serve phase's threads session's,
+    and the launches summed from the workers its 336 attention forwards
+    and 2,632 decodes; each worker's allocated memory must stay flat over
+    the run. Returns the run's counts."""
+    phase(f"serve on worker processes ({cfg.name}, full width and depth, "
+          "bf16, runtime='processes', 2 stages: 3 worker processes)")
+    requests = serve_requests(cfg)
+    geo = dict(num_groups=2, group_size=4, max_prompt_len=512,
+               max_new_tokens=48)
+    t0 = time.perf_counter()
+    sess = compile_serve(cfg, model, "actors", runtime="processes", **geo)
+    rt = sess.executor.runtime          # the workers start here
+    print(f"compiled and {len(rt.workers)} workers started in "
+          f"{time.perf_counter() - t0:.1f} s (workers alone "
+          f"{rt.start_seconds:.1f} s)")
+    print(sess.describe().splitlines()[0])
+    worker_lines(rt, dev)
+    allocated = {n: [] for n in rt.nodes}
+    edges: dict = {}
+    run_round = sess.executor.run_round
+
+    def traced_round(work, timeout=300.0):
+        out = run_round(work, timeout)
+        for n, info in rt.last_worker_stats.items():
+            allocated[n].append(info["allocated_bytes"])
+        for k, v in sess.executor.last_edge_bytes.items():
+            edges[k] = edges.get(k, 0) + v
+        return out
+
+    sess.executor.run_round = traced_round
+    try:
+        out, got, peak = counted_run(cfg, sess, requests, "processes")
+        st = sess.last_stats
+        peaks = {n: info["peak_bytes"]
+                 for n, info in rt.last_worker_stats.items()}
+    finally:
+        sess.close()
+    all_stopped(rt, "serve processes")
+    want = {k: threads_launches[k] for k in got}
+    if got != want:
+        raise AssertionError(f"processes: launches {got}, the threads "
+                             f"run's {want}")
+    if not same_tokens(out, threads_run["outs"]):
+        raise AssertionError("processes: tokens differ from the threads "
+                             "session's")
+    print(f"processes: tokens identical to the threads session's; "
+          f"launches {got} summed from the workers, as the threads run's")
+    for n, seq in sorted(allocated.items()):
+        half = len(seq) // 2
+        first, second = max(seq[:half]), max(seq[half:])
+        print(f"  node {n}: allocated {seq[0] / 2**20:,.1f} MiB after round "
+              f"1, {first / 2**20:,.1f} max over the first {half} rounds, "
+              f"{second / 2**20:,.1f} over the last {len(seq) - half}; peak "
+              f"{peaks[n] / 2**30:.2f} GiB")
+        if second > first + FLAT_SLACK:
+            raise AssertionError(f"node {n}: allocated memory grew by "
+                                 f"{(second - first) / 2**20:,.1f} MiB")
+    print(f"processes: {st['tok_per_s']:.2f} tok/s against the threads "
+          f"session's {threads_run['tok_per_s']:.2f} and the monolithic "
+          f"{threads_run['mono_tok_per_s']:.2f} (this run); workers started "
+          f"in {rt.start_seconds:.1f} s; peak memory: driver "
+          f"{peak / 2**30:.2f} GiB, workers "
+          + ", ".join(f"node {n} {b / 2**30:.2f} GiB"
+                      for n, b in sorted(peaks.items()))
+          + "; edge bytes over the run "
+          + ", ".join(f"{a}->{b} {v:,}" for (a, b), v in sorted(
+              edges.items())))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def graph_processes(dev, smi: str, threads):
+    """The graph snapshot phase's configuration (qwen3-width graph, 4
+    stages, ZeRO, bf16, dynamic loss scale) on ``runtime="processes"``:
+    one worker process per stage node, one session alive at a time. P
+    runs GRAPH_STEPS steps uninterrupted, each held bitwise to the threads
+    run U (its fingerprints, ``threads["fp"]``); K snapshots every step
+    from the stage workers and is killed in step 3 by KillWorker, a real
+    ``os._exit(57)`` of b1's worker: a WorkerError naming the node and the
+    code, no worker left alive, K's steps 1-2 bitwise P's; R
+    (``compile(runtime="processes", restore=)``) resumes from the files
+    the workers wrote and its step 3 is bitwise P's. 8 + 8 xent launches
+    (in the last stage's worker, summed in the driver) every completed
+    step. Returns the run's xent launches."""
+    phase("graph train on worker processes (qwen3-1.7b widths, zero, bf16, "
+          "dynamic loss scale; uninterrupted P, snapshot-and-kill K, "
+          "restored R; one session at a time)")
+    from repro_torch import api
+    from repro_torch.core.lowering import OptimizerSpec
+    from repro_torch.runtime.base import WorkerError
+    from repro_torch.runtime.chaos import KILL_EXIT_CODE, FaultPlan, KillWorker
+    from repro_torch.runtime.snapshot import latest_snapshot, step_dir
+    g = qwen3_width_graph()
+    params, data = seeded_graph_inputs(g, SEED + 9)
+    n = sum(v.size for v in params.values())
+    want_bytes = 12 * n
+    root = tempfile.mkdtemp(prefix="graph-processes-")
+    common = dict(mode="train", params=params, num_microbatches=GRAPH_M,
+                  optimizer=OptimizerSpec.adamw(lr=3e-4, grad_clip=1.0),
+                  device=dev, zero=True, precision="bf16",
+                  loss_scale="dynamic", backend="actors",
+                  stages=GRAPH_STAGES, regs="1f1b", runtime="processes")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    zero_xent_counts()
+    fps, walls = {}, {}
+
+    def compiled(name, **kw):
+        t = time.perf_counter()
+        sess = api.compile(g, **common, **kw)
+        rt = sess.executor.runtime      # the workers start here
+        print(f"{name}: compiled and {len(rt.workers)} workers started in "
+              f"{time.perf_counter() - t:.1f} s (workers alone "
+              f"{rt.start_seconds:.1f} s)")
+        return sess, rt
+
+    def step(name, sess, k):
+        before = xent_counts()
+        t = time.perf_counter()
+        res = sess.step(**batch)
+        walls[name, k] = time.perf_counter() - t
+        t = time.perf_counter()
+        fp = session_fingerprint(sess, res)
+        t_fp = time.perf_counter() - t
+        per = {key: v - before[key] for key, v in xent_counts().items()}
+        rt = sess.executor.runtime
+        longest = sorted(((e - b, a) for a, spans in
+                          sess.executor.last_history.items()
+                          for b, e in spans), reverse=True)[:3]
+        print(f"{name} step {k}: loss {fp['loss']:.6f}, loss_scale "
+              f"{fp['loss_scale']}, wall {walls[name, k]:.3f} s (the "
+              f"fingerprint {t_fp:.3f} s more), xent launches {per}; the "
+              "workers' seconds copying ctx / in the epoch "
+              + ", ".join(f"{n_} {i['own_s']:.2f}/{i['epoch_s']:.2f}"
+                          for n_, i in sorted(rt.last_worker_stats.items()))
+              + "; the longest fires " + ", ".join(
+                  f"{a} {d:.3f} s" for d, a in longest))
+        if per != {"xent_local_stats": GRAPH_M,
+                   "xent_local_stats_bwd": GRAPH_M}:
+            raise AssertionError(f"{name} step {k}: xent launches {per}, "
+                                 f"expected {GRAPH_M} + {GRAPH_M}")
+        return fp
+
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"snapshot directory {root}: {free:,} bytes free; K writes "
+              f"two snapshots of {want_bytes:,}, asked for 2.5 of them")
+        if free < 2.5 * want_bytes:
+            raise AssertionError(f"graph processes: {free:,} bytes free "
+                                 f"under {root}")
+        sess, rt = compiled("P")
+        worker_lines(rt, dev)
+        try:
+            for k in range(1, GRAPH_STEPS + 1):
+                fps[k] = step("P", sess, k)
+                held_to(f"P step {k} vs the threads run U", fps[k],
+                        threads["fp"][k])
+            peaks = {n_: info["peak_bytes"]
+                     for n_, info in rt.last_worker_stats.items()}
+        finally:
+            sess.close()
+        all_stopped(rt, "P")
+        print("P: worker peak memory " + ", ".join(
+            f"node {n_} {b / 2**30:.2f} GiB" for n_, b in sorted(
+                peaks.items())))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        kill = KillWorker("b1", fire=2 * GRAPH_M + 3)
+        sess, rt = compiled("K", snapshot_dir=root, snapshot_every=1,
+                            faults=FaultPlan([kill]))
+        killed = None
+        try:
+            for k in (1, 2):
+                held_to(f"K step {k} vs P", step("K", sess, k), fps[k])
+            hist = sess.executor.last_history
+            writes = {a: round(e - b, 3) for a, spans in hist.items()
+                      if a.startswith("snap") for b, e in spans}
+            print(f"K: snapshot step walls {walls['K', 1]:.3f} / "
+                  f"{walls['K', 2]:.3f} s, each stage written from its own "
+                  f"worker (the snap actors' seconds in step 2: {writes}), "
+                  f"beside P's {walls['P', 2]:.3f} s and the threads "
+                  f"phase's snapshot step {threads['k_wall']:.3f} s (U "
+                  f"{threads['u_wall']:.3f} s) in this run; "
+                  f"{dir_bytes(step_dir(root, 2)):,} bytes on disk a "
+                  f"snapshot; {smi}")
+            before = xent_counts()
+            try:
+                sess.step(**batch)
+            except WorkerError as e:
+                killed = e
+        finally:
+            sess.close()
+        if killed is None:
+            raise AssertionError("K step 3 was not killed")
+        node = rt._spec_by_name["b1"].node
+        print(f"K step 3: {type(killed).__name__}: {killed} (node "
+              f"{killed.node}; xent launches counted before the kill "
+              f"{ {k: v - before[k] for k, v in xent_counts().items()} })")
+        if killed.node != node or \
+                f"exit code {KILL_EXIT_CODE}" not in str(killed):
+            raise AssertionError(f"K: the kill of node {node} was reported "
+                                 f"as {killed!r}")
+        if rt._procs[node].exitcode != KILL_EXIT_CODE:
+            raise AssertionError(f"K: node {node} exited with "
+                                 f"{rt._procs[node].exitcode}")
+        all_stopped(rt, "K")
+        if latest_snapshot(root) != 2:
+            raise AssertionError(f"latest snapshot {latest_snapshot(root)}"
+                                 ", expected 2")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        sess, rt = compiled("R", restore=root)
+        print(f"R: compile(restore=) with the workers started "
+              f"{time.perf_counter() - t:.1f} s; step_count "
+              f"{sess.step_count}, loss scale {sess.executor.loss_scale}")
+        try:
+            if sess.step_count != 2:
+                raise AssertionError(f"R: step_count {sess.step_count}")
+            held_to("R step 3 vs P's", step("R", sess, 3), fps[3])
+        finally:
+            sess.close()
+        all_stopped(rt, "R")
+        total = xent_counts()
+        print(f"graph processes: xent launches over the run {total} "
+              f"(P {GRAPH_STEPS}, K 2 and R 1 completed steps, and K's "
+              f"launches before the kill); driver peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return total
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3651,9 +4034,10 @@ def main() -> int:
     check_reference_mamba(dev)
     check_reference_mamba_train(dev)
     check_reference_mamba_train(dev, MAMBA_MESH)
-    served = serve(dev, "qwen3-1.7b")
+    served, threads_run = serve(dev, "qwen3-1.7b")
+    threads_launches = dict(served)
     torch.cuda.empty_cache()
-    mamba = serve(dev, "mamba2-370m")
+    mamba, _ = serve(dev, "mamba2-370m")
     served.update(ssd_scan=mamba["ssd_scan"],
                   ssd_scan_wgmma=mamba["ssd_scan_wgmma"])
     torch.cuda.empty_cache()
@@ -3663,8 +4047,12 @@ def main() -> int:
     chunk_requests, paths["serve chunked"] = serve_chunked(dev, cfg, model)
     paths["serve sampled"] = serve_sampled(dev, cfg, model, chunk_requests)
     torch.cuda.empty_cache()
-    meshed = serve_mesh(dev, cfg, model)
-    del model
+    proc_served = serve_processes(dev, cfg, model, threads_launches,
+                                  threads_run)
+    del model, threads_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshed = serve_mesh(dev, cfg)
     gc.collect()
     torch.cuda.empty_cache()
     paths["serve paged (mamba2)"] = serve_paged_mamba(dev)
@@ -3688,7 +4076,9 @@ def main() -> int:
     mesh_trained = graph_train_mesh(dev, one_device)
     graph_mp = graph_train_mp(dev, one_device)
     del one_device
-    graph_snap = graph_snapshot_resume(dev, smi)
+    graph_snap, threads_graph = graph_snapshot_resume(dev, smi)
+    graph_proc = graph_processes(dev, smi, threads_graph)
+    del threads_graph
     graph_infer(dev)
     # each row's launches from the run of its path; the attention forward's
     # row is the serving shape and serve run, its training shape's the train
@@ -3757,7 +4147,8 @@ def main() -> int:
             kr["launches_per_step"] = GRAPH_M
             kr["launches_by_path"] = {
                 "graph train mp": kr["launches"],
-                "graph snapshot resume": graph_snap[name.split(" ")[0]]}
+                "graph snapshot resume": graph_snap[name.split(" ")[0]],
+                "graph processes": graph_proc[name.split(" ")[0]]}
         elif name == "flash_attention_bwd":
             kr["launches_by_kernel"] = {
                 k: trained[k] for k in ("flash_bwd_dq_wgmma_kernel",
@@ -3806,7 +4197,7 @@ def main() -> int:
                      "ssd_scan")):
         kr["launches_by_path"] = {"serve": served[key], **{
             path: counts[key] for path, counts in paths.items()},
-            "serve mesh": meshed[key]}
+            "serve mesh": meshed[key], "serve processes": proc_served[key]}
     ssd_row["launches_by_path"].update({
         f"serve mesh {MAMBA_MESH} (mamba2)": mamba_meshed["ssd_scan"],
         "train (mamba2)": mamba_trained["ssd_scan"],

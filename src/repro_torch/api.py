@@ -24,10 +24,12 @@ tensors. Training takes the reference's ``zero=``, ``precision=`` and
 ``loss_scale=`` (float32 masters, bf16 compute, loss scaling, ZeRO master
 shards; paper §6.4), and its ``snapshot_dir=``, ``snapshot_every=``,
 ``restore=`` and ``faults=`` (async snapshots from ``snap{s}`` actors,
-kill-and-resume, fault injection on the threads runtime). What the
-reference offers beyond that raises :class:`NotImplementedError` naming
-its ROADMAP item: the process runtime, the static verifier and stage-body
-wrappers.
+kill-and-resume, fault injection). Every actor session runs on
+``runtime="threads"`` (the default) or ``runtime="processes"``: one
+worker process per actor node, each lowering its stages from a picklable
+recipe (:mod:`repro_torch.runtime.recipes`), CUDA tensors crossing by IPC.
+What the reference offers beyond that raises :class:`NotImplementedError`
+naming its ROADMAP item: the static verifier and stage-body wrappers.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
 card an entry point raises unless the caller asks for ``device="cpu"``.
@@ -64,12 +66,15 @@ from repro_torch.models.transformer import (Transformer,
                                             check_mesh_supported,
                                             compute_dtype, has_ssm_layers,
                                             stack_layout)
+from repro_torch.runtime.base import RUNTIME_KINDS
 from repro_torch.runtime.pipeline import (ActorPipelineExecutor,
                                           InlineServeEngine, PipelinePlan,
                                           ServePipelineExecutor,
                                           TrainPipelineExecutor,
                                           check_run_inputs, own_params,
                                           plan_registers, unscale)
+from repro_torch.runtime.recipes import (InferRecipe, MeshSpec, ServeRecipe,
+                                         TrainRecipe)
 from repro_torch.serve.paged_cache import (PagedCacheSpec, PagePool,
                                            dense_bytes, slab_bytes)
 from repro_torch.serve.sampler import SamplingSpec
@@ -361,7 +366,7 @@ class Session:
         self.graph = graph
         self.mode = mode
         self.backend = backend
-        self.runtime = runtime        # "threads"; None: monolithic
+        self.runtime = runtime        # "threads"/"processes"; None: monolithic
         self.plan = plan
         self.partition = partition
         self.regs = regs
@@ -595,7 +600,7 @@ class ServeSession:
         self.cfg = cfg
         self.mode = "serve"
         self.backend = backend
-        self.runtime = runtime        # "threads"; None: monolithic
+        self.runtime = runtime        # "threads"/"processes"; None: monolithic
         self.sstaged = sstaged
         self.num_groups = num_groups
         self.group_size = group_size
@@ -1091,12 +1096,19 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
 
     Graph modes (everything omitted is inferred, as in the reference):
 
-    * ``backend``: ``"actors"`` — stage programs driven by stage actors on
-      the threaded runtime with register-quota back-pressure (§4.3);
-      ``"monolithic"`` — one whole-graph program with identical microbatch
-      semantics (the bit-identity reference). The monolithic backend
-      accepts but does not use the schedule hints ``partition``,
-      ``stages`` and ``regs``.
+    * ``backend``: ``"actors"`` — stage programs driven by stage actors
+      with register-quota back-pressure (§4.3); ``"monolithic"`` — one
+      whole-graph program with identical microbatch semantics (the
+      bit-identity reference). The monolithic backend accepts but does not
+      use the schedule hints ``partition``, ``stages`` and ``regs``.
+    * ``runtime`` (actors only, every mode): ``"threads"`` (the default)
+      drives the actors on OS threads in this process; ``"processes"``
+      spawns one worker process per actor node (stage ``s`` at node ``s +
+      1``), which owns its stage's params, optimizer state or caches and
+      lowers its stages from a picklable recipe
+      (:mod:`repro_torch.runtime.recipes`); CUDA tensors cross by IPC. The
+      optimizer's ``lr`` must then be a float or a module-level function
+      (a lambda is refused here). Bitwise the threads runtime.
     * ``plan``: an SBP :class:`~repro_torch.core.planner.Plan`; default
       :func:`repro_torch.core.planner.plan`.
     * ``partition`` / ``stages``: an explicit stage partition, or a stage
@@ -1148,8 +1160,9 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
       restores onto 2 stages, a mesh or the monolithic backend.
     * ``faults`` (train + actors only): a
       :class:`repro_torch.runtime.chaos.FaultPlan` injected into the
-      threads runtime (kill a worker at an actor's Nth fire, delay or
-      duplicate a Req, drop an Ack), for kill-and-resume and chaos tests.
+      runtime (kill a worker at an actor's Nth fire -- under processes a
+      real ``os._exit`` of its worker process -- delay or duplicate a Req,
+      drop an Ack), for kill-and-resume and chaos tests.
 
     Serve mode: ``backend`` ``"actors"`` cuts the stack into ``stages``
     stage programs (default ``min(2, units)``) with quotas ``regs`` (a list
@@ -1193,13 +1206,13 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             "and the backward seed; nothing is updated in other modes)")
     _check_snapshot_options(mode, backend, snapshot_dir, snapshot_every,
                             restore, faults)
-    if runtime == "processes":
-        raise NotImplementedError(
-            "runtime='processes' is not ported yet (ROADMAP Queue 1 item 11)")
-    if runtime not in (None, "threads"):
-        raise ValueError(f"unknown runtime {runtime!r}")
+    if runtime is not None and runtime not in RUNTIME_KINDS:
+        raise ValueError(f"unknown runtime {runtime!r}; expected one of "
+                         f"{RUNTIME_KINDS}")
     if backend == "monolithic" and runtime is not None:
         raise ValueError("runtime= requires backend='actors'")
+    if backend == "actors" and runtime is None:
+        runtime = "threads"
     if mode == "serve":
         rejected = {"stage_meshes": stage_meshes, "plan": plan,
                     "partition": partition,
@@ -1213,7 +1226,8 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
                 "compiles a ModelConfig on one mesh; schedule, optimizer "
                 "and per-stage mesh options belong to graph modes)")
         return _compile_serve(
-            model, backend=backend, stages=stages, regs=regs, params=params,
+            model, backend=backend, runtime=runtime, stages=stages,
+            regs=regs, params=params,
             mesh=mesh, device=device, seed=seed, timeout=timeout,
             num_groups=num_groups, group_size=group_size, cache_len=cache_len,
             max_prompt_len=max_prompt_len, max_new_tokens=max_new_tokens,
@@ -1309,23 +1323,36 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
     part = _resolve_partition(graph, partition, stages)
     regs, reg_plan = _resolve_regs(regs, part, num_microbatches, mode)
     meshes = dict(mesh=mesh, stage_meshes=stage_meshes)
+    # under processes the workers lower again from data: the graph, plan,
+    # partition and each mesh as a MeshSpec
+    recipe_meshes = dict(
+        mesh=MeshSpec.capture(mesh), device=str(dev),
+        stage_meshes=None if stage_meshes is None else tuple(
+            MeshSpec.capture(m) for m in stage_meshes))
     if mode == "infer":
         staged = lower_stages(graph, plan, part, **meshes)
+        recipe = (InferRecipe(graph, plan, part, **recipe_meshes)
+                  if runtime == "processes" else None)
         engine = ActorPipelineExecutor(staged, microbatch_inputs,
-                                       num_microbatches, regs=regs)
+                                       num_microbatches, regs=regs,
+                                       runtime=runtime, recipe=recipe)
     else:
         tstaged = lower_train_stages(graph, plan, part, list(params),
                                      loss=loss, optimizer=optimizer,
                                      **meshes)
+        recipe = (TrainRecipe(graph, plan, part, list(params), loss=loss,
+                              optimizer=optimizer, **recipe_meshes)
+                  if runtime == "processes" else None)
         engine = TrainPipelineExecutor(tstaged, params, microbatch_inputs,
                                        num_microbatches, lr=lr, regs=regs,
-                                       optimizer=optimizer,
+                                       optimizer=optimizer, runtime=runtime,
+                                       recipe=recipe,
                                        snapshot_dir=snapshot_dir,
                                        snapshot_every=snapshot_every,
                                        faults=faults)
     return _apply_restore(
         Session(engine=engine, partition=part, regs=regs,
-                reg_plan=reg_plan, runtime="threads", **common), restore)
+                reg_plan=reg_plan, runtime=runtime, **common), restore)
 
 
 def _serve_mesh(mesh, device, timeout: float) -> Optional[DeviceMesh]:
@@ -1340,8 +1367,9 @@ def _serve_mesh(mesh, device, timeout: float) -> Optional[DeviceMesh]:
                      f"{type(mesh).__name__}")
 
 
-def _compile_serve(model, *, backend: str, stages: Optional[int], regs,
-                   params, mesh, device, seed: int, timeout: float,
+def _compile_serve(model, *, backend: str, runtime: Optional[str],
+                   stages: Optional[int], regs, params, mesh, device,
+                   seed: int, timeout: float,
                    num_groups,
                    group_size, cache_len, max_prompt_len, max_new_tokens,
                    cache, page_len, num_pages, prefill_chunk,
@@ -1381,23 +1409,29 @@ def _compile_serve(model, *, backend: str, stages: Optional[int], regs,
     if isinstance(regs, str):
         regs = _policy_regs(regs, stages, num_groups)
 
+    loaded = _load_model(cfg, params, seed, dev, plan)
     sstaged = lower_serve_stages(
-        cfg, _load_model(cfg, params, seed, dev, plan), num_stages=stages,
-        cache_len=cache_len, max_prompt_len=max_prompt_len,
-        group_size=group_size, mesh=mesh)
+        cfg, loaded, num_stages=stages, cache_len=cache_len,
+        max_prompt_len=max_prompt_len, group_size=group_size, mesh=mesh)
     # shared-prefix pages assume a prompt prefix's cache values do not
     # depend on its suffix: true of causal attention and SSM stacks, not
     # under MoE capacity routing (expert drop counts see the whole prompt)
     share_prefix = cache == "paged" and cfg.num_experts == 0
-    runtime = None
     if backend == "monolithic":
         engine = InlineServeEngine(sstaged, cache_spec=cache_spec,
                                    sampling=sampling)
     else:
-        runtime = "threads"
+        # under processes each worker lowers the stages again from the
+        # model itself (its tensors mapped, not copied) and the mesh as data
+        recipe = (ServeRecipe(cfg, loaded, num_stages=stages,
+                              cache_len=cache_len,
+                              max_prompt_len=max_prompt_len,
+                              group_size=group_size,
+                              mesh=MeshSpec.capture(mesh), device=str(dev))
+                  if runtime == "processes" else None)
         engine = ServePipelineExecutor(sstaged, regs=regs, runtime=runtime,
                                        cache_spec=cache_spec,
-                                       sampling=sampling)
+                                       sampling=sampling, recipe=recipe)
     return ServeSession(cfg=cfg, backend=backend, engine=engine,
                         sstaged=sstaged, num_groups=num_groups,
                         group_size=group_size, cache_len=cache_len,

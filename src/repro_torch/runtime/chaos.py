@@ -4,13 +4,16 @@
 The paper's actor model claims the register/counter protocol -- not timing
 luck -- carries correctness: every dependency (data, resources, movement) is
 an explicit counter, so a delayed, duplicated or reordered message must
-never change *what* is computed, only *when*. A :class:`FaultPlan` rides
-into the threads runtime through ``make_runtime(kind, builder,
-faults=...)`` and a :class:`FaultInjector` applies it deterministically:
+never change *what* is computed, only *when*. A picklable
+:class:`FaultPlan` rides into either runtime through ``make_runtime(kind,
+builder, faults=...)`` and a :class:`FaultInjector` applies it
+deterministically:
 
-* :class:`KillWorker` -- raise :class:`WorkerKilled` immediately before the
-  named actor's Nth fire. The epoch surfaces it as a ``WorkerError`` and
-  the snapshot-restore path takes over.
+* :class:`KillWorker` -- raise :class:`WorkerKilled` (threads) or hard-exit
+  the worker process with ``os._exit(KILL_EXIT_CODE)`` (processes)
+  immediately before the named actor's Nth fire. The epoch surfaces it as
+  a ``WorkerError`` (under processes the driver's liveness check sees the
+  exit code) and the snapshot-restore path takes over.
 * :class:`DelayEdge` -- deliver one ``Req`` on a named edge late. Sound by
   construction: the producer's register stays referenced until the
   consumer acks, so the epoch cannot conclude under a delayed message.
@@ -23,9 +26,9 @@ faults=...)`` and a :class:`FaultInjector` applies it deterministically:
   runtime's ``TimeoutError`` naming the stuck actor -- a *detected* fault,
   never silent corruption.
 
-Faults are one-shot: each entry triggers at most once per injector. The
-reference's process runtime, where a kill is a real ``os._exit`` of the
-stage's worker process, is not ported yet (ROADMAP Queue 1 item 11).
+Faults are one-shot: each entry triggers at most once per injector (per
+worker process under ``runtime="processes"``: messages are routed only at
+the sending engine, so a fault still applies exactly once per edge).
 
 Delayed delivery runs on a daemon ``threading.Timer``. A timer that
 outlives its epoch (possible only after the epoch was abandoned by timeout
@@ -35,17 +38,23 @@ captures the epoch counter and the epoch's own mailbox table.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Tuple, Union
 
 from repro_torch.runtime.base import WorkerError
 from repro_torch.runtime.messages import Req
+
+#: the exit code a worker process dies with under :class:`KillWorker`; the
+#: driver's liveness check names it in the ``WorkerError``
+KILL_EXIT_CODE = 57
 
 
 class WorkerKilled(WorkerError):
     """A :class:`KillWorker` fault fired under ``runtime="threads"``.
 
     Subclasses :class:`WorkerError`, so kill-and-resume callers catch one
-    exception type whatever the runtime."""
+    exception type whatever the runtime (a process worker dies for real and
+    surfaces as the driver's dead-worker ``WorkerError``)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,16 +120,15 @@ class FaultInjector:
     The engine calls :meth:`before_fire` on the firing actor's thread and
     :meth:`route` for every outgoing message; both are cheap no-ops once
     every fault has triggered. ``applied`` records each fault as it
-    triggers: ``(kind, src or actor, dst or None, version or fire)``.
+    triggers: ``(kind, src or actor, dst or None, version or fire)``. One
+    injector per engine: under ``runtime="processes"`` each worker builds
+    its own (``process_mode=True``) from the shipped plan, and a fault
+    naming a remote actor or edge never matches there.
     """
 
     def __init__(self, plan: FaultPlan, process_mode: bool = False):
-        if process_mode:
-            raise NotImplementedError(
-                "process-mode fault injection (a KillWorker as os._exit of "
-                "a worker process) is not ported yet (ROADMAP Queue 1 item "
-                "11)")
         self.plan = plan
+        self.process_mode = process_mode
         self._fired = {}        # actor name -> cumulative fire attempts
         self._done = set()      # indices of consumed (one-shot) faults
         self._armed = len(plan.faults) > 0
@@ -143,6 +151,10 @@ class FaultInjector:
             if f.actor == name and f.fire == n:
                 self._done.add(i)
                 self.applied.append(("KillWorker", name, None, n))
+                if self.process_mode:
+                    # a real worker death: no unwind, no goodbye -- the
+                    # driver's liveness check must catch it
+                    os._exit(KILL_EXIT_CODE)
                 raise WorkerKilled(
                     f"fault injection: killed worker at {name} fire {n}",
                     node=None)
@@ -150,7 +162,7 @@ class FaultInjector:
     # -- message-path faults -----------------------------------------------------
     def route(self, msg, src_name: str, dst_name: str):
         """Map one outgoing message to ``[(message, delay_seconds), ...]``
-        (empty list: dropped)."""
+        (empty list: dropped). Called at the *sending* engine only."""
         out = [(msg, 0.0)]
         if not self._armed:
             return out

@@ -43,8 +43,17 @@ instrumentation reads.
 Per-stage streams with events are later work (ROADMAP Queue 1 item 3). The
 training pipeline writes async snapshots from ``snap{s}`` actors
 (:mod:`repro_torch.runtime.snapshot`), restores them (``load_state``) and
-takes a fault plan (:mod:`repro_torch.runtime.chaos`). Not ported: the
-process runtime (item 11) and ``fn_wrap`` (item 14).
+takes a fault plan (:mod:`repro_torch.runtime.chaos`). Not ported:
+``fn_wrap`` (item 14).
+
+Every executor runs on ``runtime="threads"`` or ``"processes"``: under
+the latter each node is a worker process
+(:mod:`repro_torch.runtime.process`) that lowers its stages from the
+executor's picklable recipe (:mod:`repro_torch.runtime.recipes`), so stage
+``s``'s params, optimizer state and caches live in that process; payloads
+cross stages as tensors (CUDA IPC on a card) while same-node registers stay
+in-process, and the ``"__"`` keys of a payload (the op tape, a stage's
+gradients, ZeRO's flat masters) never leave their node.
 """
 from __future__ import annotations
 
@@ -66,7 +75,7 @@ from repro_torch.optim.adamw import (clip_scale, global_norm_from_partials,
                                      scale_grad)
 from repro_torch.optim.zero import ZeroState
 from repro_torch.runtime.actor import ActorSpec
-from repro_torch.runtime.base import RUNTIME_KINDS, make_runtime
+from repro_torch.runtime.base import RUNTIME_KINDS, WorkerError, make_runtime
 from repro_torch.runtime.scheduler import CommModel, simulate
 
 
@@ -233,34 +242,66 @@ def serve_regs(num_stages: int) -> List[int]:
 
 
 class _SpecBuilderBase:
-    """Base of the spec builders the executors hand to
-    :func:`repro_torch.runtime.base.make_runtime`: carries the lowered
-    program (threads only; the process runtime's picklable recipes are not
-    ported yet)."""
+    """Base of the picklable spec builders the executors hand to
+    :func:`repro_torch.runtime.base.make_runtime`.
 
-    def __init__(self, staged):
-        self.staged = staged
+    Carries an already-lowered program (``staged``, process-local: what
+    ``runtime="threads"`` runs, and what the driver of a process runtime
+    reads its actor graph from) and/or a lowering recipe
+    (:mod:`repro_torch.runtime.recipes`, data). Pickling for a worker
+    process drops the lowered program and ships the recipe; the worker
+    lowers again on arrival.
+    """
+
+    def __init__(self, staged=None, recipe=None):
+        if staged is None and recipe is None:
+            raise ValueError("spec builder needs a lowered program or a "
+                             "lowering recipe")
+        self._staged = staged
+        self.recipe = recipe
+
+    @property
+    def staged(self):
+        if self._staged is None:
+            self._staged = self.recipe.lower()
+        return self._staged
+
+    def __getstate__(self):
+        if self.recipe is None:
+            raise ValueError(
+                "this spec builder carries only a process-local lowered "
+                "program; runtime='processes' needs a lowering recipe "
+                "(repro_torch.runtime.recipes) -- compile through "
+                "repro_torch.api")
+        state = dict(self.__dict__)
+        state["_staged"] = None      # workers lower again from the recipe
+        return state
 
 
 class _StagedExecutorBase:
     """Shared machinery of the stage-pipeline executors: construction-time
-    validation (runtime kind) and the persistent runtime
-    underneath — built ONCE from the spec builder on first use and re-run
-    per round (one epoch each), with the optional fault plan ``faults``
-    (:mod:`repro_torch.runtime.chaos`) injected into it. Per-run
-    instrumentation (``last_makespan``, ``last_history``,
-    ``last_peak_regs``, ``last_edge_bytes``) snapshots the most recent
-    epoch."""
+    validation (runtime kind; under ``runtime="processes"`` a picklable
+    ``recipe``) and the persistent runtime underneath — built ONCE from the
+    spec builder on first use and re-run per round (one epoch each), with
+    the optional fault plan ``faults`` (:mod:`repro_torch.runtime.chaos`)
+    injected into it. Per-run instrumentation (``last_makespan``,
+    ``last_history``, ``last_peak_regs``, ``last_edge_bytes``) snapshots
+    the most recent epoch."""
 
-    def __init__(self, runtime: str = "threads", faults=None):
-        if runtime == "processes":
-            raise NotImplementedError(
-                "runtime='processes' is not ported yet (ROADMAP Queue 1 "
-                "item 11)")
+    def __init__(self, runtime: str = "threads", faults=None, recipe=None):
         if runtime not in RUNTIME_KINDS:
             raise ValueError(f"unknown runtime {runtime!r}; expected one of "
                              f"{RUNTIME_KINDS}")
+        if runtime == "processes":
+            if recipe is None:
+                raise ValueError(
+                    "runtime='processes' needs a picklable lowering recipe "
+                    "(repro_torch.runtime.recipes) -- compile through "
+                    "repro_torch.api, or pass recipe=")
+            from repro_torch.runtime.process import check_picklable
+            check_picklable(recipe, "lowering recipe")
         self.runtime_kind = runtime
+        self.recipe = recipe
         self.faults = faults
         self._rt = None
         self.last_makespan: Optional[float] = None
@@ -318,8 +359,8 @@ class _GraphExecutorBase(_StagedExecutorBase):
 
     def __init__(self, program, microbatch_inputs: Sequence[str],
                  num_microbatches: int, regs: Optional[Sequence[int]],
-                 runtime: str = "threads", faults=None):
-        super().__init__(runtime=runtime, faults=faults)
+                 runtime: str = "threads", faults=None, recipe=None):
+        super().__init__(runtime=runtime, faults=faults, recipe=recipe)
         if num_microbatches < 1:
             raise ValueError(
                 f"num_microbatches must be >= 1, got {num_microbatches}")
@@ -460,8 +501,8 @@ class InferSpecBuilder(_SpecBuilderBase):
     """Builder of the forward-pipeline actor graph."""
 
     def __init__(self, staged, microbatch_inputs: Sequence[str],
-                 num_microbatches: int, regs=None):
-        super().__init__(staged)
+                 num_microbatches: int, regs=None, recipe=None):
+        super().__init__(staged, recipe)
         self.microbatch_inputs = list(microbatch_inputs)
         self.num_microbatches = num_microbatches
         self.regs = None if regs is None else list(regs)
@@ -485,14 +526,15 @@ class ActorPipelineExecutor(_GraphExecutorBase):
 
     def __init__(self, staged, microbatch_inputs: Sequence[str],
                  num_microbatches: int, regs: Optional[Sequence[int]] = None,
-                 runtime: str = "threads"):
+                 runtime: str = "threads", recipe=None):
         super().__init__(staged, microbatch_inputs, num_microbatches, regs,
-                         runtime=runtime)
+                         runtime=runtime, recipe=recipe)
         self.staged = staged
 
     def _make_builder(self):
         return InferSpecBuilder(self.staged, self.microbatch_inputs,
-                                self.num_microbatches, regs=self.regs)
+                                self.num_microbatches, regs=self.regs,
+                                recipe=self.recipe)
 
     def run(self, inputs: Dict[str, Any], timeout: float = 300.0) -> Tuple:
         check_run_inputs(inputs, self.staged.input_names)
@@ -1022,8 +1064,8 @@ class TrainSpecBuilder(_SpecBuilderBase):
 
     def __init__(self, staged, microbatch_inputs: Sequence[str],
                  num_microbatches: int, lr: float = 1e-2, regs=None,
-                 optimizer=None, snapshot=None):
-        super().__init__(staged)
+                 optimizer=None, snapshot=None, recipe=None):
+        super().__init__(staged, recipe)
         self.microbatch_inputs = list(microbatch_inputs)
         self.num_microbatches = num_microbatches
         self.lr = lr
@@ -1069,7 +1111,11 @@ class TrainPipelineExecutor(_GraphExecutorBase):
     AdamW state of each rank, the float32 gradient accumulator — lives in
     the stage's actor closures; the opt actor updates the shards and state
     in place, so nothing round-trips through the caller between steps. The
-    executor's ``shards`` and ``opt_states`` are the same tensors, and
+    executor's ``shards`` and ``opt_states`` are the same tensors (under
+    ``runtime="processes"`` views of the stage workers' tensors, refreshed
+    from the ``opt{s}`` outputs every step: a worker owns a copy of what the
+    executor sends it; after a worker's death they are dropped unread and
+    the session refuses to go on -- ``compile(restore=)`` resumes), and
     :meth:`step` returns ``(loss, grads, params)`` as global tensors,
     bit-identical to the monolithic engine with the same
     :class:`OptimizerSpec` (the objective is the *sum* of the loss tensor
@@ -1099,11 +1145,11 @@ class TrainPipelineExecutor(_GraphExecutorBase):
     def __init__(self, tstaged, params: Dict[str, Any],
                  microbatch_inputs: Sequence[str], num_microbatches: int,
                  lr: float = 1e-2, regs: Optional[Sequence[int]] = None,
-                 optimizer=None, runtime: str = "threads",
+                 optimizer=None, runtime: str = "threads", recipe=None,
                  snapshot_dir: Optional[str] = None, snapshot_every: int = 1,
                  faults=None):
         super().__init__(tstaged, microbatch_inputs, num_microbatches, regs,
-                         runtime=runtime, faults=faults)
+                         runtime=runtime, faults=faults, recipe=recipe)
         self.tstaged = tstaged
         self.lr = lr
         self.optimizer = optimizer if optimizer is not None else (
@@ -1141,12 +1187,29 @@ class TrainPipelineExecutor(_GraphExecutorBase):
         self.last_scale = None
         self._loss_stage = next(st.index for st in tstaged.stages
                                 if tstaged.loss_name in st.output_names)
+        self._lost: Optional[str] = None
 
     def _make_builder(self):
         return TrainSpecBuilder(self.tstaged, self.microbatch_inputs,
                                 self.num_microbatches, lr=self.lr,
                                 regs=self.regs, optimizer=self.optimizer,
-                                snapshot=self._snapshot)
+                                snapshot=self._snapshot, recipe=self.recipe)
+
+    def close(self) -> None:
+        """Release the runtime's workers. Under processes the executor's
+        mirrors are views of the workers' tensors, so they go with them:
+        the session's state is then read from its snapshots."""
+        if self.runtime_kind == "processes" and self._rt is not None:
+            self.shards, self.opt_states = {}, {}
+            self._lost = self._lost or "the session was closed"
+        super().close()
+
+    def _check_live(self) -> None:
+        if self._lost is not None:
+            raise RuntimeError(
+                f"this session's state died with its workers ({self._lost});"
+                " compile(restore=<snapshot_dir>) resumes from the last "
+                "completed snapshot")
 
     def _global(self, per_rank: Dict[str, List[torch.Tensor]]):
         sbp = self.tstaged.plan.tensor_sbp
@@ -1156,6 +1219,7 @@ class TrainPipelineExecutor(_GraphExecutorBase):
     @property
     def params(self) -> Dict[str, torch.Tensor]:
         """The current params as global tensors."""
+        self._check_live()
         return self._global(self.shards)
 
     def load_params(self, params: Dict[str, Any]) -> None:
@@ -1212,6 +1276,7 @@ class TrainPipelineExecutor(_GraphExecutorBase):
         """The per-stage, per-rank optimizer states merged into one
         :class:`repro_torch.optim.adamw.AdamWState` over global moments
         (None for a stateless optimizer)."""
+        self._check_live()
         sbp = self.tstaged.plan.tensor_sbp
         return self.optimizer.merge_states(
             [rank_opt_state(self.optimizer, self.opt_states[s],
@@ -1245,6 +1310,7 @@ class TrainPipelineExecutor(_GraphExecutorBase):
         """:meth:`step` with the post-clip grads and the updated params left
         as per-rank shards (``{name: [shard per rank]}``); :meth:`_global`
         assembles them."""
+        self._check_live()
         check_run_inputs(
             data_inputs,
             [n for n in self.tstaged.input_names if n not in self.shards],
@@ -1282,7 +1348,15 @@ class TrainPipelineExecutor(_GraphExecutorBase):
                 if self._snapshot is not None:
                     ctx[f"snap{st.index}"] = {"step": snap_step,
                                               "write": write}
-        outs = self._run_rt(ctx, None, timeout)
+        try:
+            outs = self._run_rt(ctx, None, timeout)
+        except WorkerError as exc:
+            if self.runtime_kind == "processes":
+                # the mirrors are views of the dead workers' memory: drop
+                # them unread (a restore reads the snapshot files)
+                self.shards, self.opt_states = {}, {}
+                self._lost = str(exc)
+            raise
         self._params_dirty = False
         self._state_dirty = False
 
@@ -1623,8 +1697,9 @@ def serve_stage_actor_specs(sstaged, regs: Optional[Sequence[int]] = None,
 class ServeSpecBuilder(_SpecBuilderBase):
     """Builder of the continuous-batching serve actor graph."""
 
-    def __init__(self, staged, regs=None, cache_spec=None, sampling=None):
-        super().__init__(staged)
+    def __init__(self, staged, regs=None, cache_spec=None, sampling=None,
+                 recipe=None):
+        super().__init__(staged, recipe)
         self.regs = None if regs is None else list(regs)
         self.cache_spec = cache_spec
         self.sampling = sampling
@@ -1650,12 +1725,15 @@ class ServePipelineExecutor(_StagedExecutorBase):
     stage the paged pool; ``sampling`` (a
     :class:`repro_torch.serve.sampler.SamplingSpec`) gives the last stage
     the sampler stream. ``rounds`` and ``total_makespan`` accumulate over
-    the session.
+    the session. Under ``runtime="processes"`` (with a
+    :class:`repro_torch.runtime.recipes.ServeRecipe`) each stage and its
+    caches live in a worker process of its own.
     """
 
     def __init__(self, sstaged, regs: Optional[Sequence[int]] = None,
-                 runtime: str = "threads", cache_spec=None, sampling=None):
-        super().__init__(runtime=runtime)
+                 runtime: str = "threads", cache_spec=None, sampling=None,
+                 recipe=None):
+        super().__init__(runtime=runtime, recipe=recipe)
         self.sstaged = sstaged
         S = sstaged.num_stages
         self.regs = serve_regs(S) if regs is None else _validate_regs(regs, S)
@@ -1667,7 +1745,7 @@ class ServePipelineExecutor(_StagedExecutorBase):
     def _make_builder(self):
         return ServeSpecBuilder(self.sstaged, regs=self.regs,
                                 cache_spec=self.cache_spec,
-                                sampling=self.sampling)
+                                sampling=self.sampling, recipe=self.recipe)
 
     def run_round(self, work: Sequence, timeout: float = 300.0) -> List:
         """Stream ``work`` (PrefillWork/PrefillChunkWork/DecodeWork items)

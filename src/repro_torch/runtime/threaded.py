@@ -6,17 +6,25 @@ mailbox, with the req/ack + register-quota protocol of
 :mod:`repro_torch.runtime.actor`. Because the quota is enforced, a fast
 producer is back-pressured instead of buffering unboundedly (§4.3).
 
-* :class:`_LocalEngine` — drives an actor graph on OS threads.
+* :class:`_LocalEngine` — drives the *local subset* of an actor graph on OS
+  threads. With every key local it IS the threaded runtime's engine; each
+  :class:`repro_torch.runtime.process.ProcessRuntime` worker runs one over
+  its own node's keys, with cross-node messages diverted through
+  ``send_remote``.
 * :class:`ThreadedRuntime` — the :class:`repro_torch.runtime.base.Runtime`
-  implementation executors use. Persistent: one instance runs many epochs
-  (rounds); actors reset at the *start* of each run so their counters stay
-  inspectable afterwards.
+  implementation executors use in-process. Persistent: one instance runs
+  many epochs (rounds); actors reset at the *start* of each run so their
+  counters stay inspectable afterwards.
 
-Completion is event-driven, not polled. The engine keeps two lock-protected
-counters: ``pending`` (remaining fires of bounded actors) and ``live``
-(out-register instances not yet fully acked). Both are updated *before* any
-ack/req from a fire is posted, so "both zero" (quiescence) can never be
-observed while an actor still owes the graph a message.
+Completion is event-driven, not polled. Each engine keeps two lock-protected
+counters: ``pending`` (remaining fires of local bounded actors) and ``live``
+(local out-register instances not yet fully acked). Both are updated
+*before* any ack/req from a fire is posted, so "both zero" (quiescence) can
+never be observed while a local actor still owes the graph a message: an
+unsent ack means the producer's register is still referenced, which keeps
+the producer's ``live`` non-zero. When every key is local, quiescence is
+exactly completion; across processes it feeds the termination protocol of
+:mod:`repro_torch.runtime.process`.
 
 Worker threads are started afresh every epoch. Thread-local state of the
 frameworks underneath (PyTorch's grad mode, current CUDA stream and device)
@@ -38,11 +46,21 @@ from repro_torch.runtime.base import Runtime, _check_epoch_names
 from repro_torch.runtime.messages import Req, node_of, thread_of
 
 
-class _LocalEngine:
-    """Drive the (node, thread) keys of an actor graph on OS threads.
+def _no_remote(msg) -> None:
+    raise RuntimeError(
+        f"message for non-local actor {msg.dst:#x} but no remote transport "
+        "is attached (send_remote hook unset)")
 
+
+class _LocalEngine:
+    """Drive the local (node, thread) keys of an actor graph on OS threads.
+
+    All actors are *built* (IDs and consumer wiring need the whole graph)
+    but only those on ``local_keys`` (default: every key) are run; a
+    message addressed off the node goes through the ``send_remote`` hook.
     Owners attach:
 
+    * ``send_remote(msg)`` — deliver a Req/Ack to a non-local key
     * ``on_output(name, value, version)`` — a collected actor emitted
     * ``on_quiescence(flag)`` — quiescence changed (called under the
       counter lock, so reports are emitted in transition order)
@@ -52,16 +70,22 @@ class _LocalEngine:
       every fire and for every outgoing message
     """
 
-    def __init__(self, specs: Sequence[ActorSpec]):
+    def __init__(self, specs: Sequence[ActorSpec],
+                 local_keys: Optional[Sequence[Tuple[int, int]]] = None):
         self.specs = list(specs)
         self.by_name, self.by_id = build_actors(self.specs)
-        self.local_keys = sorted({(s.node, s.thread) for s in self.specs})
-        self.local_actors: List[Actor] = list(self.by_name.values())
+        all_keys = sorted({(s.node, s.thread) for s in self.specs})
+        wanted = set(all_keys if local_keys is None else local_keys)
+        self.local_keys = [k for k in all_keys if k in wanted]
+        self.local_actors: List[Actor] = [
+            a for a in self.by_name.values()
+            if (a.spec.node, a.spec.thread) in wanted]
         self.actors_on: Dict[Tuple[int, int], List[Actor]] = \
             collections.defaultdict(list)
         for a in self.local_actors:
             self.actors_on[(a.spec.node, a.spec.thread)].append(a)
         # hooks
+        self.send_remote: Callable[[Any], None] = _no_remote
         self.on_output: Optional[Callable[[str, Any, int], None]] = None
         self.on_quiescence: Optional[Callable[[bool], None]] = None
         self.on_error: Optional[Callable[[BaseException, Tuple[int, int]], None]] = None
@@ -81,7 +105,8 @@ class _LocalEngine:
     # -- epoch lifecycle ---------------------------------------------------------
     def start_epoch(self, ctx: Optional[Dict[str, Any]] = None,
                     fires: Optional[Dict[str, int]] = None) -> None:
-        """Reset the actors and launch one worker thread per key.
+        """Reset the local actors and launch one worker thread per local
+        key.
 
         ``fires`` overrides per-actor fire bounds for this epoch only;
         ``ctx`` is routed to each actor's ``on_epoch`` hook (hooks with no
@@ -127,7 +152,7 @@ class _LocalEngine:
             t.join(timeout=timeout)
 
     def snapshot(self):
-        """(history, peak_regs, edge_bytes, fired) of the actors."""
+        """(history, peak_regs, edge_bytes, fired) of the local actors."""
         hist = {a.spec.name: list(a.history) for a in self.local_actors}
         peaks = {a.spec.name: a.peak_regs_in_use for a in self.local_actors}
         edges = {(a.spec.name, cname): n for a in self.local_actors
@@ -137,9 +162,10 @@ class _LocalEngine:
 
     # -- message routing ---------------------------------------------------------
     def post(self, msg) -> None:
-        """Route an outgoing message. With a fault injector attached it may
-        be delayed, duplicated or dropped here; :meth:`deliver` is the
-        fault-free path."""
+        """Route an *originating* message (the sending engine's side). With
+        a fault injector attached it may be delayed, duplicated or dropped
+        here; :meth:`deliver` is the fault-free path, which messages from
+        another process take (they were routed at their sender)."""
         inj = self.fault_injector
         if inj is None:
             self.deliver(msg)
@@ -157,7 +183,11 @@ class _LocalEngine:
                 self.deliver(m)
 
     def deliver(self, msg) -> None:
-        self._mailboxes[(node_of(msg.dst), thread_of(msg.dst))].put(msg)
+        box = self._mailboxes.get((node_of(msg.dst), thread_of(msg.dst)))
+        if box is not None:
+            box.put(msg)
+        else:
+            self.send_remote(msg)
 
     def _deliver_late(self, msg, epoch: int, boxes) -> None:
         """Timer callback for a delayed message. A pending delayed Req/Ack
@@ -168,7 +198,11 @@ class _LocalEngine:
         worker reads again."""
         if self._epoch != epoch or self._stopping:
             return
-        boxes[(node_of(msg.dst), thread_of(msg.dst))].put(msg)
+        box = boxes.get((node_of(msg.dst), thread_of(msg.dst)))
+        if box is not None:
+            box.put(msg)
+        else:
+            self.send_remote(msg)
 
     # -- counters ----------------------------------------------------------------
     def _bump(self, dpending: int, dlive: int) -> None:
@@ -215,7 +249,8 @@ class _LocalEngine:
                 while (actor.ready() and not self._stopping
                        and self._epoch == epoch):
                     if self.fault_injector is not None:
-                        # may raise WorkerKilled (a KillWorker fault)
+                        # may raise WorkerKilled (threads) or hard-exit the
+                        # process (a KillWorker under runtime="processes")
                         self.fault_injector.before_fire(actor.spec.name)
                     start = time.perf_counter() - self._t0
                     out, acks, reg_id = actor.fire()

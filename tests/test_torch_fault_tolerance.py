@@ -1,5 +1,6 @@
-"""Kill-and-resume bit-identity on the port's threads runtime (the port of
-``tests/test_fault_tolerance.py``; the elastic-training acceptance test).
+"""Kill-and-resume bit-identity on the port's threads and process runtimes
+(the port of ``tests/test_fault_tolerance.py``; the elastic-training
+acceptance test).
 
 The contract under test, end to end, on ``device="cpu"``:
 
@@ -10,7 +11,10 @@ The contract under test, end to end, on ``device="cpu"``:
   steps, even when a fault kills the run mid-step.
 * ``compile(faults=FaultPlan([KillWorker(actor, fire=k)]))`` kills the
   named actor's worker at its k-th cumulative fire: a ``WorkerKilled``
-  (a ``WorkerError``) out of ``step``.
+  (a ``WorkerError``) out of ``step`` on the threads runtime; under
+  ``runtime="processes"`` a real ``os._exit(57)`` of the stage's worker
+  process, which the driver sees as a ``WorkerError`` naming the node and
+  the exit code, with no worker process left alive.
 * ``compile(restore=dir)`` resumes from the newest completed snapshot --
   params, Adam moments, the step counter the lr schedule indexes and the
   loss-scale trajectory.
@@ -22,8 +26,9 @@ loss history and the final params and optimizer state are bitwise those of
 an uninterrupted run of the monolithic engine (itself bitwise the actors,
 ``tests/test_torch_graph_train.py``). Also onto another partition, onto
 the monolithic engine and on a ``("data",) (2,)`` ZeRO mesh of two CPU
-ranks. The process runtime's cases (``KillWorker`` as ``os._exit``) come
-with ROADMAP Queue 1 item 11.
+ranks. On the process runtime (each stage's snapshot files written from
+its worker process) the reference's cases ``f0-fire3``, ``b1-fire4`` and
+``opt1-fire2``, and ZeRO cases, resume bitwise on processes too.
 """
 import tempfile
 
@@ -36,7 +41,8 @@ from repro_torch.core.graph import LogicalGraph
 from repro_torch.core.lowering import OptimizerSpec, PrecisionPolicy
 from repro_torch.core.placement import Placement
 from repro_torch.runtime.base import WorkerError
-from repro_torch.runtime.chaos import (DropAck, FaultInjector, FaultPlan,
+from repro_torch.runtime.chaos import (KILL_EXIT_CODE, DropAck,
+                                       FaultInjector, FaultPlan,
                                        KillWorker, WorkerKilled)
 from repro_torch.runtime.snapshot import (latest_snapshot, list_snapshots,
                                           load_snapshot, stage_dir)
@@ -131,25 +137,33 @@ def _assert_matches_ref(ref, losses, params, opt_state, scales=None):
         assert torch.equal(opt_state.nu[n], rs.nu[n]), n
 
 
-def _run_killed(ref, d, actor, fire, stages=S):
+def _run_killed(ref, d, actor, fire, stages=S, runtime="threads"):
     """Step a snapshotting session that KillWorker stops at ``actor``'s
     ``fire``: the completed steps' losses and scales, and the newest
-    completed snapshot, which must count exactly those steps."""
+    completed snapshot, which must count exactly those steps. Under
+    processes the kill is the worker's ``os._exit(57)``, and no worker
+    outlives the failed step."""
     sess = api.compile(_graph(ref["axes"]), backend="actors", stages=stages,
-                       snapshot_dir=d,
+                       snapshot_dir=d, runtime=runtime,
                        faults=FaultPlan([KillWorker(actor, fire=fire)]),
                        **_kw(ref["params0"], **ref["extra"]))
-    losses, scales, killed = [], [], False
+    losses, scales, killed, rt = [], [], None, None
     try:
         for _ in range(STEPS):
             r = sess.step(**ref["data"])
             losses.append(float(r.loss))
             scales.append(r.metrics.get("loss_scale"))
-    except WorkerError:
-        killed = True
+    except WorkerError as exc:
+        killed, rt = exc, sess.executor._rt
     finally:
         sess.close()
-    assert killed, f"kill at {actor} fire {fire} never triggered"
+    assert killed is not None, f"kill at {actor} fire {fire} never triggered"
+    if runtime == "processes":
+        assert f"exit code {KILL_EXIT_CODE}" in str(killed)
+        assert killed.node == rt._spec_by_name[actor].node
+        assert all(not p.is_alive() for p in rt._procs.values())
+        with pytest.raises(RuntimeError, match="died with its workers"):
+            sess.params
     # the core snapshot invariant: completed snapshots == completed steps
     n = latest_snapshot(d) or 0
     assert n == len(losses) < STEPS
@@ -174,10 +188,11 @@ def _resume(ref, d, n, losses, scales, **where):
         res.close()
 
 
-def _kill_and_resume(ref, actor, fire):
+def _kill_and_resume(ref, actor, fire, runtime="threads"):
     with tempfile.TemporaryDirectory() as d:
-        losses, scales, n = _run_killed(ref, d, actor, fire)
-        _resume(ref, d, n, losses, scales, backend="actors", stages=S)
+        losses, scales, n = _run_killed(ref, d, actor, fire, runtime=runtime)
+        _resume(ref, d, n, losses, scales, backend="actors", stages=S,
+                runtime=runtime)
 
 
 # every fire index of the stage actors over a 3-step run: f{s} and b{s}
@@ -214,10 +229,28 @@ class TestKillAndResumeThreads:
             sess.close()
 
     def test_process_mode_and_trace_are_later_items(self):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            FaultInjector(FaultPlan(), process_mode=True)
+        """Process mode is ported (a KillWorker there is the worker's
+        ``os._exit``, :class:`TestKillAndResumeProcesses`); delivery
+        tracing is still item 12."""
+        inj = FaultInjector(FaultPlan([DropAck("b1", "f1")]),
+                            process_mode=True)
+        assert inj.process_mode and inj.applied == []
         with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
             ThreadedRuntime([], trace=object())
+
+
+class TestKillAndResumeProcesses:
+    """The same contract when the kill is a real ``os._exit`` of a worker
+    process: the driver sees the death by its exit code, not an
+    exception; the killed session's stage files were written by the stage
+    workers, and a processes session restored from them finishes the run
+    bitwise."""
+
+    @pytest.mark.parametrize("actor,fire",
+                             [("f0", 3), ("b1", 4), ("opt1", 2)],
+                             ids=["f0-fire3", "b1-fire4", "opt1-fire2"])
+    def test_bit_identical(self, ref, actor, fire):
+        _kill_and_resume(ref, actor, fire, runtime="processes")
 
 
 class TestSnapshotRestoreSurface:
@@ -290,9 +323,11 @@ class TestSnapshotRestoreSurface:
                         **_kw(ref["params0"]))
 
     def test_processes_runtime_still_raises(self, ref):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            api.compile(_graph(), runtime="processes", snapshot_dir="x",
-                        **_kw(ref["params0"]))
+        """runtime='processes' takes snapshot_dir= and faults= (the kill
+        cases above); it still raises without stage actors to run."""
+        with pytest.raises(ValueError, match="backend='actors'"):
+            api.compile(_graph(), backend="monolithic", runtime="processes",
+                        snapshot_dir="x", **_kw(ref["params0"]))
 
 
 class TestZeroKillAndResume:
@@ -304,6 +339,15 @@ class TestZeroKillAndResume:
     @pytest.mark.parametrize("actor,fire", _THREAD_CASES, ids=_IDS)
     def test_resume_same_partition(self, zref, actor, fire):
         _kill_and_resume(zref, actor, fire)
+
+    @pytest.mark.parametrize("actor,fire", [("f1", 3), ("snap1", 2)],
+                             ids=["f1-fire3-proc", "snap1-fire2-proc"])
+    def test_resume_same_partition_processes(self, zref, actor, fire):
+        """The worker processes' ZeRO snapshots (flat masters read from
+        the ``__zero__`` key inside the stage's worker) resume a processes
+        session bitwise; ``snap1`` killed in step 2 leaves that step's
+        stage-0 files without a MANIFEST."""
+        _kill_and_resume(zref, actor, fire, runtime="processes")
 
     @pytest.mark.parametrize("actor,fire,where", [
         ("opt1", 2, dict(backend="actors", stages=1)),

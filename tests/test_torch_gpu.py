@@ -52,6 +52,11 @@ bf16 xent kernels on qwen3's vocab shard at V/2, and one
 60 s collective timeout (the deadlock's own test: a backward node waiting
 at a rendezvous would stall the card's one autograd thread), float32
 held to the CPU's mesh step at 1e-4 and bf16 at the bf16 tolerance.
+The process runtime: reduced qwen3 (bf16) served with each stage in a
+worker process of the card gives the threads session's tokens and kernel
+launches (counted in the workers, summed in the driver), and a small graph
+trained for three AdamW steps on worker processes is bitwise the threads
+runtime.
 """
 import time
 
@@ -1237,3 +1242,97 @@ def test_zero_train_step_on_two_ranks_of_the_card(cuda, dtype):
     tol = _tol(dtype) if tc else dict(rtol=1e-4, atol=0.0)
     for k in ("loss", "grad_norm"):
         torch.testing.assert_close(got[k].cpu(), want[k], **tol)
+
+
+# ---------------------------------------------------------------------------
+# the process runtime on the card
+# ---------------------------------------------------------------------------
+
+def test_reduced_qwen3_served_on_worker_processes_of_the_card(cuda):
+    """Reduced qwen3 (bf16) served with each stage in a worker process of
+    its own on the card: the tokens of the threads session, the kernel
+    launches (counted in the workers, summed in the driver) equal the
+    threads session's, and each worker runs in a process of its own on
+    the card."""
+    import dataclasses
+    import os
+
+    from repro_torch import api
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="bfloat16")
+    rng = np.random.default_rng(9)
+    reqs = [(rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32), g)
+            for n, g in ((8, 3), (5, 6), (7, 2), (3, 5), (6, 4))]
+    geo = dict(num_groups=2, group_size=2, max_prompt_len=8,
+               max_new_tokens=6, cache_len=24, seed=0, timeout=120.0)
+    out, counts = {}, {}
+    for runtime in ("threads", "processes"):
+        with api.compile(cfg, mode="serve", stages=2, runtime=runtime,
+                         **geo) as sess:
+            fd.reset_counts()
+            fa.launches = fa.wgmma_launches = 0
+            out[runtime] = sess.generate(reqs)
+            counts[runtime] = (fa.launches, fa.wgmma_launches, fd.launches)
+            st = sess.last_stats
+            if runtime == "processes":
+                workers = sess.executor.runtime.workers
+                assert len({w["pid"] for w in workers.values()}) == 3
+                assert os.getpid() not in {w["pid"] for w in
+                                           workers.values()}
+                assert all(w["device"].startswith("cuda")
+                           for w in workers.values())
+    L = cfg.num_layers
+    assert counts["processes"] == counts["threads"] == (
+        L * st["prefill_items"], L * st["prefill_items"],
+        L * st["decode_items"])
+    assert all(np.array_equal(a, b)
+               for a, b in zip(out["threads"], out["processes"]))
+
+
+def test_graph_train_on_worker_processes_of_the_card_is_bitwise(cuda):
+    """Three AdamW steps of a small graph with softmax_xent, one worker
+    process per stage on the card, bitwise the threads runtime (loss,
+    params, moments); the xent kernels launched in the last stage's worker
+    are counted in the driver."""
+    from repro_torch import api
+    from repro_torch.core.graph import LogicalGraph
+    from repro_torch.core.lowering import OptimizerSpec
+    from repro_torch.core.placement import Placement
+    N, V, D = 64, 512, 32
+    rng = np.random.default_rng(7)
+
+    def graph():
+        g = LogicalGraph(Placement(("d",), (1,)))
+        ids = g.input("ids", (N,), dtype="int32")
+        labels = g.input("labels", (N,), dtype="int32")
+        h = g.embedding(g.input("E", (V, D)), ids, name="emb")
+        h = g.unary(g.matmul(h, g.input("w", (D, D)), name="mm"), "gelu",
+                    name="act")
+        g.softmax_xent(g.matmul(h, g.input("W_out", (D, V)), name="head"),
+                       labels, name="loss")
+        return g
+
+    params = {t.name: (rng.normal(size=t.shape) * 0.3).astype(np.float32)
+              for t in graph().inputs if t.dtype == "float32"}
+    data = {n: rng.integers(0, V, N).astype(np.int32)
+            for n in ("ids", "labels")}
+    res = {}
+    for runtime in ("threads", "processes"):
+        xk.reset_counts()
+        with api.compile(graph(), mode="train", params=params, stages=2,
+                         num_microbatches=2, runtime=runtime, timeout=120.0,
+                         optimizer=OptimizerSpec.adamw(lr=1e-2,
+                                                       grad_clip=1.0)
+                         ) as sess:
+            losses = [sess.step(**data).loss.cpu() for _ in range(3)]
+            res[runtime] = (losses, {n: v.cpu() for n, v in
+                                     sess.params.items()},
+                            sess.opt_state, (xk.launches, xk.bwd_launches))
+    (lt, pt, ot, ct), (lp, pp, op, cp) = res["threads"], res["processes"]
+    assert ct == cp == (3 * 2, 3 * 2)
+    assert all(torch.equal(a, b) for a, b in zip(lt, lp))
+    for n in params:
+        assert torch.equal(pt[n], pp[n]), n
+        assert torch.equal(ot.mu[n].cpu(), op.mu[n].cpu()), n
+        assert torch.equal(ot.nu[n].cpu(), op.nu[n].cpu()), n

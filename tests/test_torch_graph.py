@@ -383,9 +383,12 @@ class TestNotPorted:
     """Every option the port does not take yet raises naming its item; the
     meshes of item 8 run (two ranks on the CPU), and so do item 9's ZeRO
     and mixed precision (``tests/test_torch_mixed_precision.py`` holds them
-    to the JAX package) and item 10's snapshots, restore and faults, which
+    to the JAX package), item 10's snapshots, restore and faults, which
     hold the reference's option checks here
-    (``tests/test_torch_fault_tolerance.py`` runs them)."""
+    (``tests/test_torch_fault_tolerance.py`` runs them), and item 11's
+    process runtime, bitwise the threads runtime here
+    (``tests/test_torch_process_sessions.py`` holds it to the JAX
+    package)."""
 
     #: item 10's options, each with what makes the reference reject it
     ITEM10 = {
@@ -416,6 +419,17 @@ class TestNotPorted:
     def test_graph_options(self, kw, item):
         if item == "item 9":
             self._item9_runs(kw)
+            return
+        if item == "item 11":
+            # two SGD steps on one worker process per stage node: bitwise
+            # the threads runtime
+            g = _train_graph()
+            params, data = _params_and_data(g)
+            common = dict(mode="train", params=params, stages=2, device=CPU)
+            with api.compile(g, **common, **kw) as sess:
+                assert sess.runtime == "processes"
+                api.assert_sessions_match(sess, api.compile(g, **common),
+                                          data, steps=2)
             return
         if item == "item 10":
             (name,) = kw

@@ -16,8 +16,10 @@ these graphs: both round the params to bf16 to nearest even and promote
 the matmuls with the float32 inputs to float32); the loss-scale trajectory
 and the skips equal. A snapshot taken under dynamic scaling restores the
 masters, moments and the scale trajectory bitwise. The process runtime
-(``runtime="processes"``, and its bf16 wire format) is ROADMAP Queue 1
-item 11: its cases check that the option raises naming the item.
+(``runtime="processes"``: the bf16 payloads and ZeRO states cross the
+worker processes as tensors) is bitwise the monolithic engine too, and
+skips and backs off the same. The lr schedule comes from a module that
+imports no jax, so the workers do not.
 """
 import tempfile
 
@@ -38,6 +40,7 @@ from repro_torch.core.lowering import (OptimizerSpec,  # noqa: E402
                                        PrecisionPolicy)
 from repro_torch.core.placement import Placement  # noqa: E402
 from repro_torch.optim.zero import ZeroState  # noqa: E402
+from torch_process_helpers import lr_schedule as _lr_schedule  # noqa: E402
 
 B, W, S, M, STEPS = 8, 8, 2, 2, 3
 CPU = "cpu"
@@ -65,10 +68,6 @@ def _params_and_data(seed=0):
     data = {"x": rng.normal(size=(B, W)).astype(np.float32),
             "labels": rng.integers(0, W, size=(B,)).astype(np.int32)}
     return params, data
-
-
-def _lr_schedule(s):
-    return 1e-3 * 0.9 ** s
 
 
 def _mp_kwargs(params, **extra):
@@ -135,11 +134,17 @@ class TestFourWayBitIdentity:
         _held_to_jax(mono, _mp_kwargs(params), [data] * STEPS)
 
     def test_actors_processes_vs_monolithic(self):
-        """The process runtime and its bf16 wire format are ROADMAP Queue 1
-        item 11."""
-        params, _ = _params_and_data()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            _port("actors", runtime="processes", **_mp_kwargs(params))
+        """One worker process per stage node, bf16 activations and
+        cotangents and the ZeRO states crossing as tensors: bitwise the
+        monolithic engine over STEPS steps."""
+        params, data = _params_and_data()
+        mono = _port(**_mp_kwargs(params))
+        with _port("actors", runtime="processes",
+                   **_mp_kwargs(params)) as proc:
+            api.assert_sessions_match(proc, mono, data, steps=STEPS)
+            assert "runtime=processes" in proc.describe()
+            for states in proc.executor.opt_states.values():
+                assert isinstance(states[0], ZeroState)
 
     def test_zero_layout_matches_dense_masters(self):
         """The flat shard layout is bookkeeping: zero=True equals zero=False
@@ -226,17 +231,12 @@ class TestLossScaling:
     def test_nonfinite_step_skips_and_backs_off(self, backend, runtime):
         """An inf batch in bf16 gives a non-finite grad norm: the step is
         skipped -- params, moments and step counter untouched -- and the
-        scale halved, the same on every backend (the process runtime is
-        ROADMAP Queue 1 item 11)."""
+        scale halved, the same on every backend and runtime."""
         params, data = _params_and_data()
         bad = dict(data)
         bad["x"] = np.full_like(data["x"], np.inf)
         kw = _mp_kwargs(params, precision=self._dynamic_policy(),
                         loss_scale=None)
-        if runtime == "processes":
-            with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-                _port(backend, runtime=runtime, **kw)
-            return
         if runtime is not None:
             kw["runtime"] = runtime
         with _port(backend, **kw) as sess:

@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import repro_torch
 from repro_torch import api
@@ -127,14 +128,20 @@ def test_timeout_names_unfired_actors():
 
 
 def test_unported_options_raise_naming_roadmap():
+    """The unported options raise naming their item; the process runtime
+    is ported (item 11) and refuses only what cannot reach a worker: a
+    builder that does not pickle, an executor without a recipe, a
+    processes serve compiled with no card."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
         ThreadedRuntime([], trace=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="picklable spec builder"):
         make_runtime("processes", lambda: ([], None))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="recipe"):
         ServePipelineExecutor(None, runtime="processes")
-    for kw in (dict(runtime="processes"), dict(check="static"),
-               dict(fn_wrap=lambda s, fn: fn)):
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api.compile("qwen3-1.7b", runtime="processes")
+    for kw in (dict(check="static"), dict(fn_wrap=lambda s, fn: fn)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.compile("qwen3-1.7b", device="cpu", **kw)
 
