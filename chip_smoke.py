@@ -290,7 +290,25 @@ result line is printed:
    The kernels line holds the float32 xent forward and backward at the
    graph's microbatch shape (512 x 151,936) with the graph train run's
    launches, and at one rank's vocab shard of the mesh phase (256 x
-   75,968 at offset 75,968) with that phase's launches.
+   75,968 at offset 75,968) with that phase's launches;
+12. static check: every ``api.compile`` of the run ran the static plan
+   verifier (``check="static"``, the default; ``watch_static_checks``
+   prints each one's verdict, passes and host milliseconds beside the
+   compile's seconds, and fails the run if a check allocated a byte on
+   the card or launched a kernel), all PASS; a small graph on the card
+   whose sink leaks a partial value raises ``AnalysisError`` naming it,
+   and ``regs=[1, 0]`` a ``ValueError`` naming the minimal feasible
+   quotas, with no actor epoch started and no kernel launched; then
+   ``python -m repro_torch.analysis`` on deepseek-v3-671b (8 stages) and
+   qwen3-1.7b (4), each PASS with its host milliseconds; the phase within
+   ``STATIC_PHASE_S``. The serve phase's and the paged phase's qwen3
+   actor sessions print each stage's cache term of the static bound
+   beside the bytes its cache holds on the card after the run (dense:
+   equal; paged: the pages equal the term less the page table and
+   cursors, which the port keeps on the host, the slabs' sentinel rows
+   printed beside), and phase 9b each stage's ``train_memory_bound``
+   beside its float32 masters, moments and gradient sums on the card
+   (never above the bound).
 
 The MLA attention row carries the deepseek-v2-lite serve run's launches,
 its training-shape rows (forward, backward by kernel, the xent rows at
@@ -1512,6 +1530,8 @@ def serve(dev, arch: str):
     outs, launches = counted(sess)
     st = sess.last_stats
     peak = torch.cuda.max_memory_allocated()
+    if arch == "qwen3-1.7b":
+        cache_bound_vs_held(sess, "serve actors dense")
     sess.close()
     del sess
     torch.cuda.empty_cache()
@@ -1815,6 +1835,7 @@ def serve_paged(dev, cfg, model):
                                  f"{st['shared_pages']}")
         if backend == "actors":
             launches = got
+            cache_bound_vs_held(sess, "serve actors paged")
         else:
             profile_device("paged monolithic generate (requests 0-3)",
                            lambda: sess.generate(requests[:4]), cpu=False)
@@ -3421,6 +3442,9 @@ def graph_train_mp(dev, ref):
                 raise AssertionError("graph train, mixed precision: step 0's "
                                      "loss is not off the float32 loss by "
                                      "less than one bf16 unit")
+        if step == GRAPH_STEPS - 1:
+            zero_bound_vs_held(sessions["actors 1f1b"], a,
+                               "graph train mp actors")
         del results, a, b, sa, sb, pairs
     per = sessions["actors 1f1b"].executor.opt_state_bytes()
     mono = sessions["monolithic"].executor.opt_state_bytes()
@@ -3978,6 +4002,287 @@ def graph_processes(dev, smi: str, threads):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The static plan verifier: every compile of the run is checked
+# (``check="static"``, the default), and phase 12 reads what it recorded.
+# ---------------------------------------------------------------------------
+
+#: one entry per static check the run's compiles made: what was compiled,
+#: the verdict and passes, the check's and its compile's seconds, the bytes
+#: the check allocated on the card and whether it launched a kernel
+STATIC_CHECKS = []
+#: seconds the static_check phase may take (the bad plans and the CLI)
+STATIC_PHASE_S = 30.0
+
+
+def session_label(sess) -> str:
+    """What a compiled session is, for the static check's lines: mode,
+    model or graph, backend, stages, cache or ZeRO, mesh, runtime."""
+    if sess.mode == "serve":
+        what = (f"serve {sess.cfg.name} {sess.backend}"
+                f" {sess.sstaged.num_stages} stages {sess.cache}")
+        meshes = [] if sess.sstaged.mesh is None else [sess.sstaged.mesh]
+    else:
+        stages = (f" {sess.partition.num_stages} stages"
+                  if sess.partition is not None else "")
+        what = f"{sess.mode} graph {sess.backend}{stages}"
+        if sess.optimizer is not None and sess.optimizer.zero:
+            what += " zero"
+        meshes = sess.meshes
+    if len(meshes) > 1:
+        what += f" on {len(meshes)} stage meshes"
+    elif meshes and meshes[0].size > 1:
+        what += f" on a {tuple(meshes[0].shape)} mesh"
+    if sess.runtime is not None:
+        what += f" ({sess.runtime})"
+    return what
+
+
+def watch_static_checks() -> None:
+    """Wrap ``repro_torch.analysis.run_session_checks``, which every
+    ``api.compile`` runs before it returns, and ``api.compile``: each
+    compile then prints its check's verdict, passes and seconds beside the
+    compile's seconds, and the bytes the check allocated on the card
+    (``memory_allocated`` before and after, the card synchronized) and
+    whether it launched a kernel (every launch counter before and after).
+    A check that allocates or launches fails the run there."""
+    from repro_torch import analysis, api
+    from repro_torch.kernels import counters
+    run_checks, compile_ = analysis.run_session_checks, api.compile
+
+    def checked(sess):
+        torch.cuda.synchronize()
+        mem, launches = torch.cuda.memory_allocated(), counters.snapshot()
+        t = time.perf_counter()
+        report = run_checks(sess)
+        seconds = time.perf_counter() - t
+        torch.cuda.synchronize()
+        STATIC_CHECKS.append({
+            "what": session_label(sess), "verdict": report.verdict,
+            "passes": report.passes, "check_s": seconds,
+            "bytes": torch.cuda.memory_allocated() - mem,
+            "launched": counters.snapshot() != launches,
+            "bound": dict(report.peak_bytes_per_device)})
+        return report
+
+    def compiled(*args, **kw):
+        n = len(STATIC_CHECKS)
+        t = time.perf_counter()
+        try:
+            return compile_(*args, **kw)
+        finally:
+            if len(STATIC_CHECKS) > n:
+                e = STATIC_CHECKS[-1]
+                e["compile_s"] = time.perf_counter() - t
+                print(f"static check of {e['what']}: {e['verdict']} "
+                      f"({', '.join(e['passes'])}) in "
+                      f"{e['check_s'] * 1e3:.2f} ms of a "
+                      f"{e['compile_s']:.3f} s compile (host); "
+                      f"{e['bytes']} B allocated on the card, "
+                      f"{'a' if e['launched'] else 'no'} kernel launched")
+                if e["bytes"] or e["launched"]:
+                    raise AssertionError(f"the static check of {e['what']} "
+                                         "touched the card")
+
+    analysis.run_session_checks = checked
+    api.compile = compiled
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a cache tree (dicts and lists of tensors),
+    each checked to lie on the card."""
+    if torch.is_tensor(tree):
+        if tree.device.type != "cuda":
+            raise AssertionError(f"a cache tensor on {tree.device}")
+        return tree.nbytes
+    values = tree.values() if isinstance(tree, dict) else tree
+    return sum(tensor_bytes(v) for v in values)
+
+
+def cache_bound_vs_held(sess, what: str) -> None:
+    """Each stage's cache term of the static serve bound
+    (``membound.serve_cache_bound``, the reference's count) beside the
+    bytes its actor's cache holds on the card after the run. Dense: the
+    group blocks, which must equal the term (every group was used). Paged:
+    the term is the pages plus the page table and cursors (int32, which
+    the port keeps on the host); the pages on the card must equal it less
+    those, and the slabs' two sentinel rows each, which the count leaves
+    out, are printed beside it."""
+    from repro_torch.analysis import membound
+    terms = membound.serve_cache_bound(sess.sstaged, sess.num_groups,
+                                       sess.cache, sess.cache_spec)
+    bound = sess.static_report.peak_bytes_per_device
+    for s, cache in enumerate(sess.executor.stage_caches):
+        name = f"stage{s}"
+        term = terms[name]
+        if sess.cache == "dense":
+            held = tensor_bytes(list(cache.caches.values()))
+            print(f"{what} {name}: bound {bound[name]:,} B, of it the cache "
+                  f"term {term:,} B; the group caches hold {held:,} B on "
+                  "the card")
+            if held != term:
+                raise AssertionError(f"{what} {name}: cache term {term} != "
+                                     f"held {held}")
+            continue
+        spec = sess.cache_spec
+        index = spec.max_requests * (spec.pages_per_req + 2) * 4
+        pages = tensor_bytes(cache.pages())
+        slabs = tensor_bytes(cache.slabs)
+        print(f"{what} {name}: bound {bound[name]:,} B, of it the cache "
+              f"term {term:,} B = pages {term - index:,} + page table and "
+              f"cursors {index:,} (host-side in the port); the pages hold "
+              f"{pages:,} B on the card, the slabs {slabs:,} B with their "
+              f"sentinel rows ({slabs - pages:,} B the count leaves out)")
+        if pages != term - index:
+            raise AssertionError(f"{what} {name}: pages {pages} != the "
+                                 f"cache term's {term - index}")
+
+
+def zero_bound_vs_held(sess, res, what: str) -> None:
+    """Each parameterized stage's ``train_memory_bound`` beside the bytes
+    its float32 masters and moments (their storages) and its float32
+    gradient sums (the accumulator's size, read from the step's result)
+    hold on the card; the bound must be at least that."""
+    eng = sess.executor
+    bound = sess.static_report.peak_bytes_per_device
+    grads = res.grads
+    for st in eng.tstaged.stages:
+        name = f"stage{st.index}"
+        if not st.param_names:
+            print(f"{what} {name}: bound {bound[name]:,} B (its activation "
+                  "and cotangent registers; no params)")
+            continue
+        ranks = eng.opt_states[st.index]
+        moments = max(sum(t.untyped_storage().nbytes() for t in
+                          (*rs.mu.values(), *rs.nu.values())) for rs in ranks)
+        masters = max(sum(eng.shards[n][r].untyped_storage().nbytes()
+                          for n in st.param_names)
+                      for r in range(st.mesh.size))
+        acc = sum(grads[n].nbytes for n in st.param_names)
+        if any(grads[n].dtype != torch.float32 for n in st.param_names):
+            raise AssertionError(f"{what} {name}: gradients not float32")
+        held = masters + moments + acc
+        print(f"{what} {name}: bound {bound[name]:,} B; held on the card: "
+              f"masters {masters:,} + moments {moments:,} + float32 "
+              f"gradient sums {acc:,} = {held:,} B "
+              f"({held / bound[name]:.4f} of the bound)")
+        if not 0 < held <= bound[name]:
+            raise AssertionError(f"{what} {name}: held {held} exceeds the "
+                                 f"bound {bound[name]}")
+
+
+def static_check(dev, smi: str) -> dict:
+    """Phase 12: every compile of the run passed its static check without
+    touching the card (the summary of :data:`STATIC_CHECKS`); a small graph
+    on the card whose sink leaks a partial value, and a quota vector with
+    a zero, are stopped at compile time -- the first with an
+    ``AnalysisError`` naming the sink, the second naming the minimal
+    feasible quotas -- before any actor engine starts an epoch and with no
+    kernel launched; and the CLI on two zoo configs (its milliseconds are
+    host time). Returns the summary."""
+    phase("static check (the plan verifier: every compile, bad plans, CLI)")
+    t_phase = time.perf_counter()
+    from repro_torch import analysis, api
+    from repro_torch.core.graph import LogicalGraph
+    from repro_torch.core.placement import Placement
+    from repro_torch.core.planner import plan as plan_sbp
+    from repro_torch.core.sbp import NdSbp
+    from repro_torch.kernels import counters
+    from repro_torch.runtime.threaded import _LocalEngine
+    import dataclasses
+    checks = list(STATIC_CHECKS)
+    bad = [e for e in checks if e["verdict"] != "PASS" or e["bytes"]
+           or e["launched"]]
+    kinds = sorted({e["what"] for e in checks})
+    ms = sorted(e["check_s"] * 1e3 for e in checks)
+    print(f"{len(checks)} compiles checked, {len(kinds)} kinds of session, "
+          f"all PASS with 0 B and no launch: {not bad}; check ms (host) "
+          f"median {ms[len(ms) // 2]:.2f}, max {ms[-1]:.2f}, total "
+          f"{sum(ms):.1f}")
+    for kind in kinds:
+        got = [e for e in checks if e["what"] == kind]
+        print(f"  {kind}: {len(got)} x, passes {', '.join(got[0]['passes'])}"
+              f", check {max(e['check_s'] for e in got) * 1e3:.2f} ms max, "
+              f"compile {max(e['compile_s'] for e in got):.3f} s max")
+    if bad or not checks:
+        raise AssertionError(f"static checks failed or touched the card: "
+                             f"{bad[:3]}")
+
+    g = LogicalGraph(Placement(("d",), (1,)))
+    h = g.input("x", (64, 256))
+    labels = g.input("labels", (64,), dtype="int32")
+    for i in range(2):
+        h = g.matmul(h, g.input(f"w{i}", (256, 256)), name=f"mm{i}")
+    g.softmax_xent(h, labels, name="loss")
+    rng = np.random.default_rng(SEED + 12)
+    params = {f"w{i}": (rng.standard_normal((256, 256)) / 16).astype(
+        np.float32) for i in range(2)}
+    planned = plan_sbp(g)
+    sink = g.sinks()[0].name
+    leaky = dataclasses.replace(
+        planned, tensor_sbp={**planned.tensor_sbp, sink: NdSbp.parse("P")},
+        boxings=[b for b in planned.boxings if b[1] != "__epilogue__"])
+    epochs = []
+    start_epoch = _LocalEngine.start_epoch
+    _LocalEngine.start_epoch = \
+        lambda self, *a, **k: epochs.append(self) or start_epoch(self, *a, **k)
+    before = counters.snapshot()
+    try:
+        try:
+            api.compile(g, mode="train", params=params, stages=2,
+                        num_microbatches=2, plan=leaky, device=dev)
+            raise AssertionError("the leaky plan compiled")
+        except analysis.AnalysisError as e:
+            print(f"leaky sink: AnalysisError: {e}")
+            if sink not in str(e) or "leaks through a graph sink" \
+                    not in str(e):
+                raise AssertionError("the error does not name the sink")
+        try:
+            api.compile(g, mode="train", params=params, stages=2,
+                        num_microbatches=2, regs=[1, 0], device=dev)
+            raise AssertionError("regs=[1, 0] compiled")
+        except ValueError as e:
+            print(f"regs=[1, 0]: ValueError: {e}")
+            if "minimal feasible quotas for 2 stages: [1, 1]" not in str(e):
+                raise AssertionError("the error does not name the minimal "
+                                     "feasible quotas")
+    finally:
+        _LocalEngine.start_epoch = start_epoch
+    if epochs or counters.snapshot() != before:
+        raise AssertionError(f"a bad plan fired: {len(epochs)} epochs "
+                             "started, or a kernel launched")
+    print("both bad plans stopped at compile time: no actor epoch started, "
+          "no kernel launched")
+
+    cli = {}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.perf_counter()
+    procs = {args[0]: (args, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
+        for args in (["deepseek-v3-671b", "--stages", "8"],
+                     ["qwen3-1.7b", "--stages", "4"])}
+    for name, (args, proc) in procs.items():
+        try:
+            out, err = proc.communicate(timeout=120)
+        finally:
+            proc.kill()
+        print(f"python -m repro_torch.analysis {' '.join(args)}: exit "
+              f"{proc.returncode}, read {time.perf_counter() - t:.2f} s after "
+              "both CLIs started together (host time, the interpreters' "
+              "start included)")
+        print("\n".join("  " + ln for ln in out.splitlines()))
+        if proc.returncode != 0 or "static analysis: PASS" not in out:
+            raise AssertionError(f"the CLI on {name} failed: {err[-2000:]}")
+        cli[name] = float(out.rsplit("analyzer wall time: ", 1)[1].split()[0])
+    took = time.perf_counter() - t_phase
+    print(f"static check phase: {took:.1f} s (limit {STATIC_PHASE_S:.0f} "
+          f"s); the analyzer's own ms (host): {cli}; {smi}")
+    if took > STATIC_PHASE_S:
+        raise AssertionError(f"the static check phase took {took:.1f} s")
+    return {"checks": len(checks), "cli_ms": cli}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an "
@@ -3989,6 +4294,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
     dev = "cuda"
     smi = device_and_build()
+    watch_static_checks()
     phase("kernels (path shapes)")
     kernels = [check_flash_attention(dev), check_flash_decode(dev),
                *check_mesh_kernels(dev), *check_mesh_train_kernels(dev),
@@ -4080,6 +4386,7 @@ def main() -> int:
     graph_proc = graph_processes(dev, smi, threads_graph)
     del threads_graph
     graph_infer(dev)
+    static_check(dev, smi)
     # each row's launches from the run of its path; the attention forward's
     # row is the serving shape and serve run, its training shape's the train
     # run; the backward's row holds each of its two kernels' counts

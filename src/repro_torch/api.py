@@ -29,7 +29,9 @@ kill-and-resume, fault injection). Every actor session runs on
 worker process per actor node, each lowering its stages from a picklable
 recipe (:mod:`repro_torch.runtime.recipes`), CUDA tensors crossing by IPC.
 What the reference offers beyond that raises :class:`NotImplementedError`
-naming its ROADMAP item: the static verifier and stage-body wrappers.
+naming its ROADMAP item: stage-body wrappers. Every compile runs the
+static plan verifier (:mod:`repro_torch.analysis`, ``check="static"``)
+before anything fires; ``describe()`` prints its report.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
 card an entry point raises unless the caller asks for ``device="cpu"``.
@@ -351,7 +353,8 @@ class Session:
       state across steps.
 
     ``describe()`` reports the SBP plan, the stage partition with register
-    quotas, and the simulated register plan. ``history`` accumulates one
+    quotas, the simulated register plan and the static check's report
+    (``static_report``). ``history`` accumulates one
     record per :meth:`run`/:meth:`step` call. Sessions are built by
     :func:`compile`, never directly.
     """
@@ -378,6 +381,7 @@ class Session:
         self.meshes = list(meshes)      # one, or one per stage
         self.timeout = timeout
         self.history: List[Dict[str, Any]] = []
+        self.static_report = None     # repro_torch.analysis.StaticReport
         self._engine = engine
         self._sinks = graph.sinks()
 
@@ -540,8 +544,8 @@ class Session:
                 f"register plan (simulated): quota={rp.regs[0]} "
                 f"makespan={rp.makespan:.1f} "
                 f"bubble={rp.bubble_fraction:.2f}")
-        lines.append("static check: not run (check='off'; the plan verifier "
-                     "is not ported yet, ROADMAP Queue 1 item 12)")
+        if self.static_report is not None:
+            lines.append(self.static_report.describe())
         return "\n".join(lines)
 
     def __repr__(self):
@@ -618,6 +622,7 @@ class ServeSession:
         self.share_prefix = share_prefix
         self.history: List[Dict[str, Any]] = []
         self.last_stats: Optional[Dict[str, Any]] = None
+        self.static_report = None     # repro_torch.analysis.StaticReport
         self._engine = engine
 
     @property
@@ -784,8 +789,8 @@ class ServeSession:
                             f"seed={sp.seed}")
         if self.regs is not None:
             lines.append(f"register quotas: {self.regs}")
-        lines.append("static check: not run (check='off'; the plan verifier "
-                     "is not ported yet, ROADMAP Queue 1 item 12)")
+        if self.static_report is not None:
+            lines.append(self.static_report.describe())
         return "\n".join(lines)
 
     def __repr__(self):
@@ -1017,6 +1022,26 @@ def _fold_precision_options(graph: LogicalGraph, optimizer: OptimizerSpec,
                                zero_shapes=zero_shapes, precision=policy)
 
 
+def _attach_static_report(sess, check: str):
+    """Run the static plan verifier over a freshly compiled session
+    (``check="static"``, the default) and attach the report for
+    ``describe()``; a FAIL verdict closes the session's workers and raises
+    :class:`repro_torch.analysis.AnalysisError` naming the offending cycle
+    or edge. ``check="off"`` records a SKIPPED report and returns
+    immediately."""
+    from repro_torch import analysis
+
+    if check == "off":
+        sess.static_report = analysis.StaticReport(verdict="SKIPPED")
+        return sess
+    report = analysis.run_session_checks(sess)
+    sess.static_report = report
+    if report.verdict == "FAIL":
+        sess.close()
+        raise analysis.AnalysisError(report)
+    return sess
+
+
 def _apply_restore(sess: Session, restore) -> Session:
     """Resolve ``compile(restore=<snapshot dir>)``: load the newest
     completed snapshot and install it as the session's full training state,
@@ -1087,7 +1112,7 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             prefill_chunk: Optional[int] = None, sampling=None,
             zero: bool = False, precision=None, loss_scale=None,
             snapshot_dir=None, snapshot_every: int = 1, restore=None,
-            faults=None, check: str = "off", **not_ported):
+            faults=None, check: str = "static", **not_ported):
     """Compile a :class:`~repro_torch.core.graph.LogicalGraph` into a
     runnable :class:`Session` (``mode="infer"`` or ``"train"``), or a
     :class:`~repro_torch.configs.base.ModelConfig` (or ``--arch`` name) into
@@ -1183,8 +1208,17 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
     the reference.
 
     ``device``: None means ``"cuda"`` (raises without a card); tests pass
-    ``"cpu"``; a mesh brings its own ranks' devices. ``check``: only ``"off"`` — the static verifier is not ported
-    yet. The options in :data:`NOT_PORTED` raise naming their item.
+    ``"cpu"``; a mesh brings its own ranks' devices.
+
+    ``check="static"`` (the default, every mode, backend and runtime) runs
+    the :mod:`repro_torch.analysis` plan verifier before anything fires --
+    actor-graph deadlock freedom under the register quotas, SBP edge
+    legality with no partial value leaking past a sink or a stage boundary,
+    and the static per-device memory bound -- and raises
+    :class:`repro_torch.analysis.AnalysisError` on a FAIL verdict (the
+    offending cycle or edge is named); the report is ``static_report``, and
+    ``describe()`` prints it. ``check="off"`` skips it (a SKIPPED report).
+    The options in :data:`NOT_PORTED` raise naming their item.
     """
     _check_not_ported(not_ported)
     if mode is None:
@@ -1194,10 +1228,10 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    if check != "off":
-        raise NotImplementedError(
-            f"check={check!r}: the static plan verifier is not ported yet "
-            "(ROADMAP Queue 1 item 12); pass check='off'")
+    if check not in ("static", "off"):
+        raise ValueError(
+            f"unknown check {check!r}; expected 'static' (run the "
+            "repro_torch.analysis plan verifier at compile time) or 'off'")
     if mode != "train" and (zero or precision is not None
                             or loss_scale is not None):
         raise ValueError(
@@ -1232,7 +1266,7 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
             num_groups=num_groups, group_size=group_size, cache_len=cache_len,
             max_prompt_len=max_prompt_len, max_new_tokens=max_new_tokens,
             cache=cache, page_len=page_len, num_pages=num_pages,
-            prefill_chunk=prefill_chunk, sampling=sampling)
+            prefill_chunk=prefill_chunk, sampling=sampling, check=check)
     serve_only = {"num_groups": num_groups, "group_size": group_size,
                   "cache_len": cache_len, "max_prompt_len": max_prompt_len,
                   "max_new_tokens": max_new_tokens, "cache": cache,
@@ -1316,9 +1350,9 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
                                             microbatch_inputs,
                                             num_microbatches, optimizer,
                                             mesh, loss=loss)
-        return _apply_restore(
-            Session(engine=engine, partition=None, regs=None,
-                    reg_plan=None, **common), restore)
+        sess = Session(engine=engine, partition=None, regs=None,
+                       reg_plan=None, **common)
+        return _apply_restore(_attach_static_report(sess, check), restore)
 
     part = _resolve_partition(graph, partition, stages)
     regs, reg_plan = _resolve_regs(regs, part, num_microbatches, mode)
@@ -1350,9 +1384,9 @@ def compile(model: Union[LogicalGraph, ModelConfig, str], *,
                                        snapshot_dir=snapshot_dir,
                                        snapshot_every=snapshot_every,
                                        faults=faults)
-    return _apply_restore(
-        Session(engine=engine, partition=part, regs=regs,
-                reg_plan=reg_plan, runtime=runtime, **common), restore)
+    sess = Session(engine=engine, partition=part, regs=regs,
+                   reg_plan=reg_plan, runtime=runtime, **common)
+    return _apply_restore(_attach_static_report(sess, check), restore)
 
 
 def _serve_mesh(mesh, device, timeout: float) -> Optional[DeviceMesh]:
@@ -1373,7 +1407,7 @@ def _compile_serve(model, *, backend: str, runtime: Optional[str],
                    num_groups,
                    group_size, cache_len, max_prompt_len, max_new_tokens,
                    cache, page_len, num_pages, prefill_chunk,
-                   sampling) -> ServeSession:
+                   sampling, check: str = "static") -> ServeSession:
     if isinstance(model, str):
         from repro_torch.configs.registry import get_config
         model = get_config(model)
@@ -1432,7 +1466,7 @@ def _compile_serve(model, *, backend: str, runtime: Optional[str],
         engine = ServePipelineExecutor(sstaged, regs=regs, runtime=runtime,
                                        cache_spec=cache_spec,
                                        sampling=sampling, recipe=recipe)
-    return ServeSession(cfg=cfg, backend=backend, engine=engine,
+    sess = ServeSession(cfg=cfg, backend=backend, engine=engine,
                         sstaged=sstaged, num_groups=num_groups,
                         group_size=group_size, cache_len=cache_len,
                         max_prompt_len=max_prompt_len,
@@ -1441,6 +1475,7 @@ def _compile_serve(model, *, backend: str, runtime: Optional[str],
                         cache_spec=cache_spec, sampling=sampling,
                         prefill_chunk=prefill_chunk,
                         share_prefix=share_prefix)
+    return _attach_static_report(sess, check)
 
 
 def _assert_tree_equal(name: str, a, b, context: str) -> None:

@@ -26,6 +26,18 @@ def _counters(mod) -> Dict[str, Any]:
             if attr.endswith("launches") and isinstance(v, (int, dict))}
 
 
+def snapshot() -> Dict[str, Dict[str, Any]]:
+    """This process's counts as they stand, zeroing nothing: ``{module:
+    {counter: int or {key: int}}}`` (copies)."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for name in MODULES:
+        mod = _module(name)
+        with mod._count_lock:
+            out[name] = {attr: dict(v) if isinstance(v, dict) else v
+                         for attr, v in _counters(mod).items()}
+    return out
+
+
 def take() -> Dict[str, Dict[str, Any]]:
     """This process's counts since the last :func:`take`, and zero them:
     ``{module: {counter: int or {key: int}}}`` with only nonzero entries."""

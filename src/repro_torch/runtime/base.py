@@ -152,7 +152,8 @@ def _check_epoch_names(specs, ctx, fires) -> None:
 
 
 def make_runtime(kind: str, builder: SpecBuilder,
-                 collect_outputs_of=None, faults=None) -> Runtime:
+                 collect_outputs_of=None, faults=None,
+                 trace=None) -> Runtime:
     """Build a runtime of ``kind`` over the actor graph ``builder`` yields.
 
     ``"threads"`` calls the builder in-process and drives every actor on OS
@@ -161,11 +162,18 @@ def make_runtime(kind: str, builder: SpecBuilder,
     collect choice when given. ``faults`` is an optional
     :class:`repro_torch.runtime.chaos.FaultPlan` injected deterministically
     into the engines (kill-at-fire, delayed or duplicated Reqs, dropped
-    Acks)."""
+    Acks). ``trace`` is an optional :class:`repro_torch.analysis.trace
+    .TraceRecorder` capturing every Req delivery (and applied fault) for
+    the trace sanitizer -- threads runtime only, since the recorder is
+    shared mutable state the worker processes could not see."""
     if kind not in RUNTIME_KINDS:
         raise ValueError(
             f"unknown runtime {kind!r}; expected one of {RUNTIME_KINDS}")
     if kind == "processes":
+        if trace is not None:
+            raise ValueError(
+                "trace= requires runtime='threads' (deliveries happen inside "
+                "worker processes the recorder cannot observe)")
         from repro_torch.runtime.process import ProcessRuntime
         return ProcessRuntime(builder, collect_outputs_of=collect_outputs_of,
                               faults=faults)
@@ -173,4 +181,5 @@ def make_runtime(kind: str, builder: SpecBuilder,
     specs, collect = builder()
     if collect_outputs_of is not None:
         collect = collect_outputs_of
-    return ThreadedRuntime(specs, collect_outputs_of=collect, faults=faults)
+    return ThreadedRuntime(specs, collect_outputs_of=collect, faults=faults,
+                           trace=trace)

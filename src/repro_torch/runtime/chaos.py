@@ -133,10 +133,19 @@ class FaultInjector:
         self._done = set()      # indices of consumed (one-shot) faults
         self._armed = len(plan.faults) > 0
         self.applied: List[Tuple[str, str, Optional[str], Optional[int]]] = []
+        # optional repro_torch.analysis.trace.TraceRecorder: applied faults
+        # are logged so the trace sanitizer can report what the run absorbed
+        self.recorder = None
+
+    def _apply(self, kind: str, src: str, dst: Optional[str],
+               version: Optional[int]) -> None:
+        self.applied.append((kind, src, dst, version))
+        if self.recorder is not None:
+            self.recorder.record_fault(kind, src, dst, version)
 
     def _record(self, fault, msg) -> None:
-        self.applied.append((type(fault).__name__, fault.src, fault.dst,
-                             getattr(msg, "version", None)))
+        self._apply(type(fault).__name__, fault.src, fault.dst,
+                    getattr(msg, "version", None))
 
     # -- fire-path faults --------------------------------------------------------
     def before_fire(self, name: str) -> None:
@@ -150,7 +159,7 @@ class FaultInjector:
                 continue
             if f.actor == name and f.fire == n:
                 self._done.add(i)
-                self.applied.append(("KillWorker", name, None, n))
+                self._apply("KillWorker", name, None, n)
                 if self.process_mode:
                     # a real worker death: no unwind, no goodbye -- the
                     # driver's liveness check must catch it

@@ -79,22 +79,6 @@ from repro_torch.runtime.base import RUNTIME_KINDS, WorkerError, make_runtime
 from repro_torch.runtime.scheduler import CommModel, simulate
 
 
-def _min_feasible_stage_regs(num_stages: int,
-                             num_microbatches: Optional[int] = None
-                             ) -> List[int]:
-    """The smallest live per-stage forward quotas of the canonical train
-    pipeline: all ones, which the simulator confirms completes (the
-    reference's static analyzer, ROADMAP Queue 1 item 12, searches the same
-    answer)."""
-    nmb = num_microbatches if num_microbatches is not None else 2
-    regs = [1] * num_stages
-    res = simulate(pipeline_specs(num_stages, nmb, regs=regs),
-                   comm=CommModel(same_node=0.0, cross_node_latency=0.0))
-    if res.deadlocked:
-        raise RuntimeError(f"the canonical pipeline deadlocks at {regs}")
-    return regs
-
-
 def _validate_regs(regs: Sequence[int], num_stages: int,
                    num_microbatches: Optional[int] = None) -> List[int]:
     """Reject bad quota lists up front: a zero/negative quota would deadlock
@@ -105,7 +89,8 @@ def _validate_regs(regs: Sequence[int], num_stages: int,
         raise ValueError(f"need {num_stages} register quotas, got {len(regs)}")
     for s, r in enumerate(regs):
         if r < 1:
-            feasible = _min_feasible_stage_regs(num_stages, num_microbatches)
+            from repro_torch.analysis.deadlock import min_feasible_stage_regs
+            feasible = min_feasible_stage_regs(num_stages, num_microbatches)
             raise ValueError(
                 f"stage {s} register quota must be >= 1, got {r} "
                 f"(regs={regs}); minimal feasible quotas for "
@@ -303,6 +288,11 @@ class _StagedExecutorBase:
         self.runtime_kind = runtime
         self.recipe = recipe
         self.faults = faults
+        # optional repro_torch.analysis.trace.TraceRecorder -- set before
+        # the first run; the threads runtime logs every Req delivery into
+        # it so repro_torch.analysis.trace.check_trace can certify the
+        # resequencer
+        self.trace = None
         self._rt = None
         self.last_makespan: Optional[float] = None
         self.last_history: Dict[str, List[Tuple[float, float]]] = {}
@@ -317,7 +307,7 @@ class _StagedExecutorBase:
         """The persistent runtime underneath (built on first use)."""
         if self._rt is None:
             self._rt = make_runtime(self.runtime_kind, self._make_builder(),
-                                    faults=self.faults)
+                                    faults=self.faults, trace=self.trace)
         return self._rt
 
     def _run_rt(self, ctx, fires, timeout: float):
@@ -1684,6 +1674,7 @@ def serve_stage_actor_specs(sstaged, regs: Optional[Sequence[int]] = None,
                 return {"work": work,
                         "result": _finish_round_item(sampler, work, xout)}
             return {"work": work, "x": xout}
+        run_stage.cache = cache
         return run_stage
 
     for s, stage in enumerate(sstaged.stages):
@@ -1746,6 +1737,18 @@ class ServePipelineExecutor(_StagedExecutorBase):
         return ServeSpecBuilder(self.sstaged, regs=self.regs,
                                 cache_spec=self.cache_spec,
                                 sampling=self.sampling, recipe=self.recipe)
+
+    @property
+    def stage_caches(self) -> List:
+        """Each stage actor's cache (a :class:`DenseStageCache` or
+        ``PagedStageCache``), as the inline engine's ``stage_caches``;
+        threads runtime only (a worker process owns its stage's cache)."""
+        if self.runtime_kind != "threads":
+            raise ValueError("stage_caches: a worker process owns each "
+                             "stage's cache under runtime='processes'")
+        rt = self.runtime
+        return [rt.by_name[f"stage{s}"].spec.fn.cache
+                for s in range(self.sstaged.num_stages)]
 
     def run_round(self, work: Sequence, timeout: float = 300.0) -> List:
         """Stream ``work`` (PrefillWork/PrefillChunkWork/DecodeWork items)

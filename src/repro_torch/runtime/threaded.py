@@ -68,6 +68,10 @@ class _LocalEngine:
     * ``fault_injector`` — an optional
       :class:`repro_torch.runtime.chaos.FaultInjector`, consulted before
       every fire and for every outgoing message
+    * ``trace_recorder`` — an optional
+      :class:`repro_torch.analysis.trace.TraceRecorder`, which records
+      every Req delivery (the version, what the resequencer released) so
+      the trace sanitizer can certify the run restored canonical order
     """
 
     def __init__(self, specs: Sequence[ActorSpec],
@@ -91,6 +95,7 @@ class _LocalEngine:
         self.on_error: Optional[Callable[[BaseException, Tuple[int, int]], None]] = None
         self.collect_names: Set[str] = set()
         self.fault_injector = None
+        self.trace_recorder = None
         # epoch state
         self._epoch = 0
         self._mailboxes: Dict[Tuple[int, int], queue.Queue] = {}
@@ -114,6 +119,10 @@ class _LocalEngine:
         ctx = ctx or {}
         fires = fires or {}
         self._epoch += 1
+        if self.trace_recorder is not None:
+            # resequencer state resets per epoch; the trace sanitizer
+            # checks canonical order per (epoch, consumer, channel)
+            self.trace_recorder.current_epoch = self._epoch
         self._stopping = False
         for a in self.local_actors:
             a.reset(max_fires=fires.get(a.spec.name))
@@ -231,7 +240,10 @@ class _LocalEngine:
                     return
                 actor = self.by_id[msg.dst]
                 if isinstance(msg, Req):
-                    actor.on_req(msg)
+                    if self.trace_recorder is None:
+                        actor.on_req(msg)
+                    else:
+                        self._traced_on_req(self.trace_recorder, actor, msg)
                 elif actor.on_ack(msg):
                     self._bump(0, -1)
                 self._fire_ready(key, epoch)
@@ -240,6 +252,27 @@ class _LocalEngine:
             if self.on_error is not None:
                 self.on_error(e, key)
             self.stop_workers()
+
+    @staticmethod
+    def _traced_on_req(rec, actor: Actor, msg: Req) -> None:
+        """Deliver a Req through the resequencer while recording what it
+        did: the versions released to the FIFO (empty for a buffered early
+        arrival) and whether the message was accepted at all (duplicates
+        are dropped without an ack)."""
+        ch = msg.channel
+        before = actor.in_next.get(ch)
+        if before is None:                      # undeclared channel: FIFO
+            actor.on_req(msg)
+            rec.record_delivery(actor.spec.name, ch, msg.version,
+                                (msg.version,), 1)
+            return
+        pend_before = len(actor.in_pending[ch])
+        actor.on_req(msg)
+        stride = actor.in_stride[ch]
+        released = tuple(range(before, actor.in_next[ch], stride))
+        accepted = bool(released) or len(actor.in_pending[ch]) > pend_before
+        rec.record_delivery(actor.spec.name, ch, msg.version, released,
+                            stride, accepted)
 
     def _fire_ready(self, key: Tuple[int, int], epoch: int) -> None:
         progressed = True
@@ -289,23 +322,25 @@ class ThreadedRuntime(Runtime):
 
     ``faults`` is an optional :class:`repro_torch.runtime.chaos.FaultPlan`
     applied by a :class:`~repro_torch.runtime.chaos.FaultInjector`
-    (``fault_injector``; its ``applied`` list records what triggered). The
-    reference runtime's delivery tracing (``trace=``) is not ported yet
-    (ROADMAP Queue 1 item 12); passing it raises.
+    (``fault_injector``; its ``applied`` list records what triggered).
+    ``trace`` is an optional :class:`repro_torch.analysis.trace
+    .TraceRecorder`: the engine records every Req delivery into it, and the
+    injector every fault it applies, for
+    :func:`repro_torch.analysis.trace.check_trace`.
     """
 
     def __init__(self, specs: Sequence[ActorSpec],
                  collect_outputs_of=None, faults=None, trace=None):
-        if trace is not None:
-            raise NotImplementedError(
-                "trace= (delivery tracing for the static trace sanitizer) "
-                "is not ported yet (ROADMAP Queue 1 item 12)")
         self._engine = _LocalEngine(specs)
         self.fault_injector = None
         if faults is not None:
             from repro_torch.runtime.chaos import FaultInjector
             self.fault_injector = FaultInjector(faults)
             self._engine.fault_injector = self.fault_injector
+        if trace is not None:
+            self._engine.trace_recorder = trace
+            if self.fault_injector is not None:
+                self.fault_injector.recorder = trace
         self.by_name = self._engine.by_name
         self.by_id = self._engine.by_id
         self._collect_single = (collect_outputs_of is None

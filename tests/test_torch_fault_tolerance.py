@@ -228,15 +228,30 @@ class TestKillAndResumeThreads:
         finally:
             sess.close()
 
-    def test_process_mode_and_trace_are_later_items(self):
+    def test_process_mode_and_trace_are_later_items(self, ref):
         """Process mode is ported (a KillWorker there is the worker's
-        ``os._exit``, :class:`TestKillAndResumeProcesses`); delivery
-        tracing is still item 12."""
+        ``os._exit``, :class:`TestKillAndResumeProcesses`); so is delivery
+        tracing (item 12): a traced kill records the deliveries before it
+        and the kill itself, which ``check_trace`` certifies."""
+        from repro_torch.analysis.trace import TraceRecorder, check_trace
         inj = FaultInjector(FaultPlan([DropAck("b1", "f1")]),
                             process_mode=True)
-        assert inj.process_mode and inj.applied == []
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            ThreadedRuntime([], trace=object())
+        assert inj.process_mode and inj.applied == [] and inj.recorder is None
+        rec = TraceRecorder()
+        sess = api.compile(_graph(), backend="actors", stages=S,
+                           faults=FaultPlan([KillWorker("b0", fire=2)]),
+                           **_kw(ref["params0"]))
+        try:
+            sess.executor.trace = rec
+            with pytest.raises(WorkerKilled):
+                sess.step(**ref["data"])
+            specs, _ = sess.executor._make_builder()()
+            violations, stats = check_trace(rec, specs)
+        finally:
+            sess.close()
+        assert violations == [] and stats.deliveries > 0
+        assert [(f.kind, f.src, f.version) for f in rec.faults] \
+            == [("KillWorker", "b0", 2)]
 
 
 class TestKillAndResumeProcesses:

@@ -440,6 +440,21 @@ class TestNotPorted:
                 api.compile(g, mode="train", params=params, stages=2,
                             device=CPU, **kw, **extra)
             return
+        if item == "item 12":
+            # the static verifier runs (the default too) and changes no
+            # bits; check="off" records a SKIPPED report
+            g = _train_graph()
+            params, data = _params_and_data(g)
+            common = dict(mode="train", params=params, stages=2, device=CPU)
+            with api.compile(g, **common, **kw) as sess, \
+                    api.compile(g, check="off", **common) as off:
+                assert sess.static_report.verdict == "PASS"
+                assert sess.static_report.passes == ("deadlock", "sbp",
+                                                     "memory")
+                assert "static analysis: PASS" in sess.describe()
+                assert off.static_report.verdict == "SKIPPED"
+                api.assert_sessions_match(sess, off, data, steps=2)
+            return
         if item != "item 8":
             g = _train_graph()
             params, _ = _params_and_data(g)

@@ -128,12 +128,18 @@ def test_timeout_names_unfired_actors():
 
 
 def test_unported_options_raise_naming_roadmap():
-    """The unported options raise naming their item; the process runtime
-    is ported (item 11) and refuses only what cannot reach a worker: a
-    builder that does not pickle, an executor without a recipe, a
-    processes serve compiled with no card."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        ThreadedRuntime([], trace=object())
+    """The unported option (``fn_wrap``, item 14) raises naming its item;
+    the process runtime is ported (item 11) and refuses only what cannot
+    reach a worker: a builder that does not pickle, an executor without a
+    recipe, a processes serve compiled with no card. The static verifier
+    and delivery tracing are ported (item 12): ``trace=`` is taken by the
+    threads runtime and refused by the process runtime, and ``check=``
+    takes ``"static"`` or ``"off"`` only."""
+    from repro_torch.analysis.trace import TraceRecorder
+    rec = TraceRecorder()
+    assert ThreadedRuntime([], trace=rec)._engine.trace_recorder is rec
+    with pytest.raises(ValueError, match="requires runtime='threads'"):
+        make_runtime("processes", lambda: ([], None), trace=rec)
     with pytest.raises(ValueError, match="picklable spec builder"):
         make_runtime("processes", lambda: ([], None))
     with pytest.raises(ValueError, match="recipe"):
@@ -141,9 +147,10 @@ def test_unported_options_raise_naming_roadmap():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             api.compile("qwen3-1.7b", runtime="processes")
-    for kw in (dict(check="static"), dict(fn_wrap=lambda s, fn: fn)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.compile("qwen3-1.7b", device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown check"):
+        api.compile("qwen3-1.7b", device="cpu", check="static-ish")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+        api.compile("qwen3-1.7b", device="cpu", fn_wrap=lambda s, fn: fn)
 
 
 def test_serve_actors_take_the_1f1b_quotas():

@@ -133,7 +133,8 @@ def test_history_and_describe(sessions, unequal_gens):
     rep = sess.describe()
     assert "mode=serve" in rep and "backend=actors" in rep
     assert "stage 0" in rep and "stage 1" in rep
-    assert "static check: not run" in rep
+    assert "static analysis: PASS (passes: deadlock, memory;" in rep
+    assert "static peak bytes [stage1]" in rep
     assert {h["kind"] for h in sess.history} == {"round", "generate"}
 
 
