@@ -62,7 +62,15 @@ result line is printed:
    the backward also in float32 at the reduced config's (96, 64); their
    library calls SDPA's forward and backward on the first backend that
    takes Dv != D; and the xent forward and backward at deepseek-v2-lite's
-   vocabulary (4,096 x 102,400 bf16).
+   vocabulary (4,096 x 102,400 bf16). whisper-medium's shapes have rows
+   too: the attention forward and backward non-causal at its encoder's
+   q/k/v (2, 1500, 16, 64) and as cross-attention at q (2, 448, 16, 64)
+   over k/v (2, 1500, 16, 64), bf16 (held also on float32 copies; the
+   float32 kernels at the same shapes and at small ragged ones within
+   1e-4; the library call SDPA with ``is_causal=False``), the decode
+   kernel over its cross cache (q (4, 16, 64), cache (4, 1500, 16, 64)
+   bf16, every row at ``cur_pos`` 1499) and the xent kernels at its
+   training logits (896 x 51,968 bf16).
    Each reports the device time of every kernel its call launches
    (torch.profiler; the names of the kernels the trace matched are
    printed), the wrapper call's, the plain version's, the least time the
@@ -89,7 +97,13 @@ result line is printed:
    steps of reduced deepseek-v2-lite on the card (MLA at 96 / 64 forward
    and backward on the CUDA-core kernels, the MoE and its aux loss on the
    training tape) against the CPU's plain steps: loss, aux_loss and
-   grad_norm within 1e-4;
+   grad_norm within 1e-4; then reduced whisper-medium and pixtral-12b
+   (float32) through ``make_serve_step`` (the classic loop's whole-model
+   prefill and decode): the first token's and two decode steps' logits
+   card vs CPU within 1e-3, every launch counted (whisper: 2 encoder, 2
+   causal and 2 cross attention forwards, 4 decodes a step, 2 of them
+   over the 64-frame cross cache), and 2 ZeRO 1 x 1 train steps each
+   against the CPU's plain steps, as reduced deepseek's;
 4. serve: qwen3-1.7b at full width, bf16, seeded init, through
    ``repro_torch.api.compile(backend="actors", stages=2)`` -- 12 requests of
    64-512 prompt tokens and 8-48 new tokens in 2 groups of 4 slots; then
@@ -151,7 +165,18 @@ result line is printed:
    (27 x 12 = 324 attention forwards at (192, 128) on the tensor cores, no
    decode kernel: MLA decodes by absorbed einsums over its latent cache),
    tok/s, peak memory and a device profile of the first 4 requests; the
-   model is freed before the training phases;
+   model is freed before the training phases. Then the classic loop
+   (``launch/serve.py:classic_loop``, ``make_serve_step``) at full width
+   and depth in bf16: whisper-medium (24 encoder and 24 decoder layers,
+   1,012,523,008 params) over 4 x 1,500 frame embeddings, and
+   pixtral-12b (40 layers, 12,247,777,280 params, 24.5 GB drawn in bf16
+   on the card) from 4 x 32 patch embeddings, 4 prompts of 32, 16 new
+   tokens: the launches counted exactly (whisper a prefill 24 causal +
+   24 cross + 24 non-causal attention forwards, a decode step 24 + 24
+   decodes, 24 over the 1,500-frame cross cache; pixtral 40 and 40), the
+   prefill seconds and tok/s, peak memory, a profiled run's idle share,
+   and the first token's and one decode step's logits against the same
+   calls on the plain versions within ``atol=0.25, rtol=0.05``;
 5. train: qwen3-1.7b at full width and depth (bf16 compute, float32 params
    and AdamW state, seeded init) through ``repro_torch.train.steps
    .make_train_step``, fed by ``ActorDataPipeline(SyntheticLM(151936, 2,
@@ -203,6 +228,16 @@ result line is printed:
    profiled step; then 2 steps of the same init and batches on the plain
    versions, step 0's loss within 1e-3 of the kernels' (later steps
    printed: a top-k pick that flips on a bf16 rounding moves them);
+7e. train whisper-medium at full width and depth through
+   ``make_train_step`` (ZeRO 1 x 1, bf16 over float32 masters and
+   moments), 4 steps of 2 x 448 decoder tokens over 2 x 1,500 frame
+   embeddings: every step's launches held (144 attention forwards, each
+   attention's and its remat rerun's, by mask 48 causal, 48 non-causal,
+   48 cross; 72 backward calls, 48 of them non-causal: 24 encoder, 24
+   cross; the xent kernels once each way), wall, tokens/s, peak memory,
+   one profiled step; step 1's loss and gradients twice, bitwise equal;
+   then 2 steps on the plain versions, the curves held at the qwen3
+   train phase's limits;
 7c. train mamba2: mamba2-370m at full width and depth (48 SSM layers,
    bf16 compute) through ``make_train_step`` with ZeRO (the default), 4
    steps of 2 x 2048 ``SyntheticLM`` tokens: finite losses printed (their
@@ -515,53 +550,61 @@ def device_and_build():
     return smi
 
 
-def attention_row(dev, B, S, H, KV, D, seed, Dv=None):
+def mask_name(causal: bool, S: int, Sk: int) -> str:
+    return "causal" if causal else "non-causal" if S == Sk else "cross"
+
+
+def attention_row(dev, B, S, H, KV, D, seed, Dv=None, Sk=None,
+                  causal: bool = True):
     """The attention forward held to its plain version at q (B, S, H, D),
-    k (B, S, KV, D), v (B, S, KV, Dv) (Dv None: D), causal, in bf16
-    (tensor-core kernel) and float32 (CUDA-core kernel), and timed: one
-    kernels-line row's numbers."""
+    k (B, Sk, KV, D), v (B, Sk, KV, Dv) (Dv None: D; Sk None: S), causal
+    or not, in bf16 (tensor-core kernel) and float32 (CUDA-core kernel),
+    and timed: one kernels-line row's numbers."""
     from repro_torch.kernels.flash_attention import kernel as fa
     Dv = D if Dv is None else Dv
+    Sk = S if Sk is None else Sk
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
-    q, k, v = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, Dv)
-    what = (f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} causal"
+    q, k, v = mk(B, S, H, D), mk(B, Sk, KV, D), mk(B, Sk, KV, Dv)
+    mask = mask_name(causal, S, Sk)
+    what = (f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} {mask}"
             if Dv == D else f"flash_attention q{tuple(q.shape)} "
-            f"k{tuple(k.shape)} v{tuple(v.shape)} causal")
+            f"k{tuple(k.shape)} v{tuple(v.shape)} {mask}")
     # bf16 goes to the tensor-core kernel, float32 to the CUDA-core one
     n0, w0 = fa.launches, fa.wgmma_launches
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = fa.plain_flash_attention(q, k, v, causal=True)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.plain_flash_attention(q, k, v, causal=causal)
     err = agree(f"{what} bf16", got, want, ATOL, RTOL)
     f32 = [t.float() for t in (q, k, v)]
-    want32 = fa.plain_flash_attention(*f32, causal=True)
+    want32 = fa.plain_flash_attention(*f32, causal=causal)
     err_c = agree(f"{what} bf16 vs the plain version on float32 copies",
                   got, want32, ATOL, RTOL)
     err32 = agree(f"{what} float32", fa.flash_attention(
-        *f32, causal=True), want32, F32_TOL, F32_TOL)
+        *f32, causal=causal), want32, F32_TOL, F32_TOL)
     torch.cuda.synchronize()
     if (fa.launches - n0, fa.wgmma_launches - w0) != (2, 1):
         raise AssertionError("flash_attention: bf16 did not reach the "
                              "tensor-core kernel, or float32 did")
     del f32, want32
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pairs = S * (S + 1) // 2                 # causal: unmasked (q, k)
+    # unmasked (q, k) pairs
+    pairs = S * (S + 1) // 2 if causal else S * Sk
     # S = Q K^T over D and O = P V over Dv: 2 flops a multiply-add each
     b_ms, b_by = bound_ms(nbytes(q, k, v, got),
                           2 * (D + Dv) * H * B * pairs)
-    launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    launch = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
     row = {
         "max_abs_err": err, "max_abs_err_vs_f32_copies": err_c,
         "f32_max_abs_err": err32,
         "plain_ms": cuda_ms(
-            lambda: fa.plain_flash_attention(q, k, v, causal=True),
+            lambda: fa.plain_flash_attention(q, k, v, causal=causal),
             iters=5),
         "bound_ms": b_ms, "bound_by": b_by}
     if Dv == D:
         row["library_ms"] = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
     else:
         row["library_ms"], row["library_backend"] = sdpa_ms(qt, kt, vt)
     return timed(row, "flash_fwd_wgmma_kernel", launch, launch)
@@ -886,25 +929,28 @@ def check_xent(dev, Vl=151936, offset=0, label="", N=None):
 
 def check_flash_attention_bwd(dev, H=16, KV=8, seed=SEED + 5,
                               name="flash_attention_bwd", B=None, D=128,
-                              Dv=None):
+                              Dv=None, S=None, Sk=None, causal: bool = True):
     """The attention backward at one training layer of qwen3-1.7b (all 16
     q and 8 kv heads, or a rank's local heads on a mesh; ``B`` rows, by
     default the train batch's), or at MLA's head dims (q and k ``D``, v
-    and dO ``Dv``), against autograd through the plain version, bf16 and
-    on float32 copies."""
+    and dO ``Dv``), or at ``S`` q rows over ``Sk`` keys without ``causal``
+    (whisper's encoder and cross-attention), against autograd through the
+    plain version, bf16 and on float32 copies."""
     from repro_torch.kernels.flash_attention import kernel as fa
-    B, S, Dv = B or TRAIN_B, TRAIN_S, D if Dv is None else Dv
+    B, S, Dv = B or TRAIN_B, S or TRAIN_S, D if Dv is None else Dv
+    Sk = Sk or S
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
-    q, k, v, do = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, Dv), \
+    q, k, v, do = mk(B, S, H, D), mk(B, Sk, KV, D), mk(B, Sk, KV, Dv), \
         mk(B, S, H, Dv)
-    what = (f"q{tuple(q.shape)} kv{tuple(k.shape)} causal" if Dv == D else
-            f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} causal")
+    mask = mask_name(causal, S, Sk)
+    what = (f"q{tuple(q.shape)} kv{tuple(k.shape)} {mask}" if Dv == D else
+            f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} {mask}")
 
     def grads(attn, dt):
         leaves = [t.detach().to(dt).requires_grad_(True) for t in (q, k, v)]
-        out = attn(*leaves, causal=True)
+        out = attn(*leaves, causal=causal)
         return torch.autograd.grad(out, leaves, do.to(dt))
 
     # The plain version's bf16 autograd sums dk and dv in bf16 (over its
@@ -945,16 +991,17 @@ def check_flash_attention_bwd(dev, H=16, KV=8, seed=SEED + 5,
     del got32, want32
     torch.cuda.empty_cache()
 
-    _, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
-    pairs = S * (S + 1) // 2
-    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, lse, do)
+    _, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                     return_lse=True)
+    pairs = S * (S + 1) // 2 if causal else S * Sk
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, lse, do, causal=causal)
     # S, dQ and dK over D, dP and dV over Dv: 2 flops a multiply-add each
     b_ms, b_by = bound_ms(nbytes(q, k, v, lse, do, dq, dk, dv),
                           2 * (3 * D + 2 * Dv) * H * B * pairs)
 
     def plain_bwd():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        out = fa.plain_flash_attention(*leaves, causal=True)
+        out = fa.plain_flash_attention(*leaves, causal=causal)
         return lambda: torch.autograd.grad(out, leaves, do,
                                            retain_graph=True)
 
@@ -962,12 +1009,13 @@ def check_flash_attention_bwd(dev, H=16, KV=8, seed=SEED + 5,
         leaves = [t.detach().transpose(1, 2).requires_grad_(True)
                   for t in (q, k, v)]
         out = torch.nn.functional.scaled_dot_product_attention(
-            *leaves, is_causal=True, enable_gqa=True)
+            *leaves, is_causal=causal, enable_gqa=True)
         dot = do.transpose(1, 2)
         return lambda: torch.autograd.grad(out, leaves, dot,
                                            retain_graph=True)
 
-    launch = lambda: fa.flash_attention_bwd_cuda(q, k, v, lse, do)  # noqa: E731
+    launch = lambda: fa.flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, lse, do, causal=causal)
     row = {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -1339,16 +1387,25 @@ def check_reference_train(dev, arch: str = "qwen3-1.7b", zero: bool = False):
     from the same initial weights and batches: loss, ``aux_loss`` and
     grad_norm within 1e-4. ``zero``: the card runs the ZeRO 1 x 1 step
     (the taped loss program; for deepseek-v2-lite its MLA and MoE steps),
-    the CPU the plain one."""
+    the CPU the plain one. whisper and pixtral take their batches in the
+    reference's forms (``launch.serve.classic_batch``: 2 x 64 tokens over
+    2 x 64 frames; 2 x 64 patch embeddings and labels), the other archs
+    ``SyntheticLM`` tokens."""
     phase(f"reference train (reduced {arch}, card"
           + (" ZeRO 1 x 1" if zero else "") + " vs CPU plain path, 2 steps)")
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.serve import classic_batch
+    from repro_torch.models.transformer import has_frontend
     from repro_torch.train.steps import make_train_step
 
     cfg = get_config(arch).reduced()
-    src = SyntheticLM(cfg.vocab_size, 2, 64, seed=SEED + 6)
-    batches = [src(i) for i in range(2)]
+    if has_frontend(cfg):
+        rng = np.random.default_rng(SEED + 6)
+        batches = [classic_batch(cfg, 2, 64, rng, "train") for _ in range(2)]
+    else:
+        src = SyntheticLM(cfg.vocab_size, 2, 64, seed=SEED + 6)
+        batches = [{"tokens": src(i)} for i in range(2)]
     init = None
     runs = {}
     zero_train_counts()
@@ -1367,7 +1424,7 @@ def check_reference_train(dev, arch: str = "qwen3-1.7b", zero: bool = False):
         opt = ts.init_opt(params)
         runs[d] = []
         for b in batches:
-            params, opt, m = ts.step_fn(params, opt, {"tokens": b})
+            params, opt, m = ts.step_fn(params, opt, b)
             runs[d].append(tuple(float(m[k]) for k in
                                  ("loss", "aux_loss", "grad_norm")))
     # float32 attention runs on the CUDA-core kernels, none on tensor cores
@@ -2185,19 +2242,24 @@ def serve_mesh(dev, cfg):
 
 @contextlib.contextmanager
 def plain_versions():
-    """The model's kernel call sites (attention, and the loss's local stats)
-    take the plain PyTorch versions on the card while the block runs: the
-    reference the kernel path's training curve is held to."""
+    """The model's kernel call sites (attention, decode, and the loss's
+    local stats) take the plain PyTorch versions on the card while the
+    block runs: the reference the kernel path's training curve and the
+    classic loop's logits are held to."""
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_decode.ref import flash_decode_partial_ref
     from repro_torch.kernels.softmax_xent.ref import local_stats_ref
     from repro_torch.models import attention, transformer
-    saved = attention.flash_attention, transformer.xent_local_stats
+    saved = (attention.flash_attention, attention.flash_decode,
+             transformer.xent_local_stats)
     attention.flash_attention = fa.plain_flash_attention
+    attention.flash_decode = flash_decode_partial_ref
     transformer.xent_local_stats = local_stats_ref
     try:
         yield
     finally:
-        attention.flash_attention, transformer.xent_local_stats = saved
+        (attention.flash_attention, attention.flash_decode,
+         transformer.xent_local_stats) = saved
 
 
 def train_counts():
@@ -4283,6 +4345,372 @@ def static_check(dev, smi: str) -> dict:
     return {"checks": len(checks), "cli_ms": cli}
 
 
+# ---------------------------------------------------------------------------
+# the frontend architectures: whisper-medium (an encoder-decoder) and
+# pixtral-12b (an embed frontend), served through the reference's classic
+# loop and whisper trained through make_train_step
+# ---------------------------------------------------------------------------
+
+WHISPER, PIXTRAL = "whisper-medium", "pixtral-12b"
+WHISPER_ENC = "flash_attention (non-causal, whisper encoder)"
+WHISPER_ENC_BWD = "flash_attention_bwd (non-causal, whisper encoder)"
+WHISPER_CROSS = "flash_attention (cross, whisper decoder)"
+WHISPER_CROSS_BWD = "flash_attention_bwd (cross, whisper decoder)"
+WHISPER_XDECODE = "flash_decode (whisper cross cache)"
+WHISPER_XENT = " (whisper vocab)"
+# the classic loop's geometry: 4 prompts of 32 tokens (or patch
+# embeddings), 16 new tokens; whisper's 1,500 encoder frames
+CLASSIC_B, CLASSIC_PROMPT, CLASSIC_GEN = 4, 32, 16
+# whisper's training: 2 x 448 decoder tokens (its context) over 2 x 1,500
+# frames, 4 steps on the kernels, then 2 on the plain versions
+WHISPER_B, WHISPER_S, WHISPER_PLAIN_STEPS = 2, 448, 2
+
+
+def check_whisper_kernels(dev):
+    """The kernels at whisper-medium's shapes: the attention forward and
+    backward non-causal at the encoder's q/k/v (2, 1500, 16, 64) and as
+    cross-attention at q (2, 448, 16, 64) over k/v (2, 1500, 16, 64), bf16
+    on the tensor cores and on float32 copies, the float32 kernels at the
+    same shapes and at small ragged ones within 1e-4; the decode kernel
+    over the cross cache, q (4, 16, 64), cache (4, 1500, 16, 64) bf16,
+    every row at ``cur_pos`` 1499 (its mask then passes every key, as the
+    reference's non-causal dense attention); the xent kernels at its
+    training logits (896 x 51,968)."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_decode import kernel as fd
+    phase("kernels (whisper-medium: non-causal and cross attention, the "
+          "cross-cache decode, its vocabulary)")
+    enc = {"name": WHISPER_ENC, **ATTENTION_ROW}
+    enc.update(attention_row(dev, 2, 1500, 16, 16, 64, SEED + 41,
+                             causal=False))
+    enc_bwd = check_flash_attention_bwd(
+        dev, H=16, KV=16, seed=SEED + 42, name=WHISPER_ENC_BWD, D=64,
+        S=1500, causal=False)
+    cross = {"name": WHISPER_CROSS, **ATTENTION_ROW}
+    cross.update(attention_row(dev, 2, 448, 16, 16, 64, SEED + 43, Sk=1500,
+                               causal=False))
+    cross_bwd = check_flash_attention_bwd(
+        dev, H=16, KV=16, seed=SEED + 44, name=WHISPER_CROSS_BWD, D=64,
+        S=448, Sk=1500, causal=False)
+    # float32 on the CUDA-core kernels at small ragged shapes (GQA 2)
+    rng = np.random.default_rng(SEED + 45)
+    for row, (Sq, Sk) in ((enc_bwd, (300, 300)), (cross_bwd, (37, 300))):
+        q, do = (torch.from_numpy(rng.normal(size=(2, Sq, 4, 64)).astype(
+            np.float32)).to(dev) for _ in range(2))
+        k, v = (torch.from_numpy(rng.normal(size=(2, Sk, 2, 64)).astype(
+            np.float32)).to(dev) for _ in range(2))
+
+        def grads(attn):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            return torch.autograd.grad(attn(*leaves, causal=False), leaves,
+                                       do)
+        n0 = (fa.bwd_dq_launches, fa.bwd_dq_wgmma_launches)
+        got = grads(fa.flash_attention)
+        torch.cuda.synchronize()
+        if (fa.bwd_dq_launches - n0[0], fa.bwd_dq_wgmma_launches - n0[1]) \
+                != (1, 0):
+            raise AssertionError("flash_attention backward float32 did not "
+                                 "run the CUDA-core kernels once")
+        row["f32_max_abs_err_small"] = max(agree(
+            f"flash_attention backward d{n} float32 q{tuple(q.shape)} "
+            f"kv{tuple(k.shape)} {mask_name(False, Sq, Sk)}", a, b, F32_TOL,
+            F32_TOL) for n, a, b in zip("qkv", got, grads(
+                fa.plain_flash_attention)))
+    B, H, KV, D, L = 4, 16, 16, 64, 1500
+    rng = np.random.default_rng(SEED + 46)
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+    q, k, v = mk(B, H, D), mk(B, L, KV, D), mk(B, L, KV, D)
+    cur = torch.full((B,), L - 1, dtype=torch.int32, device=dev)
+    xdec = decode_row({
+        "name": WHISPER_XDECODE, **DECODE_ROW,
+        "splits": fd.split_plan(B, KV, L, fd.sm_count(q.device))},
+        q, k, v, cur, f"flash_decode q{tuple(q.shape)} cross cache"
+        f"{tuple(k.shape)} cur_pos {L - 1}")
+    torch.cuda.empty_cache()
+    from repro_torch.configs.registry import get_config
+    xent = check_xent(dev, Vl=get_config(WHISPER).padded_vocab(),
+                      label=WHISPER_XENT, N=WHISPER_B * WHISPER_S)
+    return [enc, enc_bwd, cross, cross_bwd, xdec, *xent]
+
+
+def check_reference_classic(dev, arch: str):
+    """Reduced ``arch`` (float32) through the kernels on the card against
+    the same weights on the CPU's plain path, through ``make_serve_step``
+    (the classic loop's whole-model prefill and decode): the first
+    token's logits, then two decode steps fed the CPU's greedy tokens,
+    within 1e-3 (the reduced qwen3 check's limit). Every attention forward
+    on the float32 CUDA-core kernel, the decodes on the decode kernel
+    (whisper's cross-attention over its 64-frame cache at ``cur_pos`` 63)."""
+    phase(f"reference (reduced {arch}, classic loop, card vs CPU plain path)")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.launch.serve import classic_batch
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.steps import greedy_from_logits, make_serve_step
+
+    cfg = get_config(arch).reduced()
+    batch = classic_batch(cfg, 2, 37, np.random.default_rng(SEED + 13))
+    init = build_model(cfg, MeshPlan.single_device(), seed=SEED,
+                       device="cpu")
+    out = {}
+    for d in ("cpu", dev):
+        ss = make_serve_step(cfg, cache_len=48, device=d)
+        model = init.to(d)
+        zero_serve_counts()
+        fa.reset_counts()
+        h, caches = ss.prefill_fn(model, batch)
+        steps = [ss.logits_fn(model, h).float().cpu()]
+        pos = torch.full((2,), 37, dtype=torch.int32, device=d)
+        for _ in range(2):
+            tok = greedy_from_logits(out["cpu"][len(steps) - 1] if d != "cpu"
+                                     else steps[-1], cfg.vocab_size).to(d)
+            logits, caches = ss.decode_fn(model, caches, tok, pos)
+            steps.append(logits.float().cpu())
+            pos = pos + 1
+        out[d] = steps
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(out[dev], out["cpu"])):
+        err = (a - b).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"reduced {arch} classic loop, "
+                                 f"{'first token' if i == 0 else f'decode {i}'}"
+                                 f": card and CPU disagree ({err:.3e})")
+    xattn = cfg.num_layers if cfg.encoder_decoder else 0
+    want_fa = cfg.num_layers + xattn + (cfg.num_encoder_layers
+                                        if cfg.encoder_decoder else 0)
+    want = (want_fa, 0, 2 * (cfg.num_layers + xattn))
+    got = (fa.launches, fa.wgmma_launches, fd.launches)
+    if got != want:
+        raise AssertionError(f"reduced {arch} classic loop: (attention, "
+                             f"tensor-core, decode) launches {got}, "
+                             f"expected {want}")
+    print(f"reduced {arch} classic loop, prefill + 2 decode steps: logits "
+          f"agree, max abs err {worst:.3e} (bound 1e-3 + 1e-3*|ref|, "
+          f"float32); launches (attention, of them tensor-core, decode) "
+          f"{got}, by mask {dict(fa.mask_launches)}, decode by cache "
+          f"length {dict(fd.length_launches)}")
+
+
+def classic_counts():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_decode import kernel as fd
+    return {**serve_counts(), "by_mask": dict(fa.mask_launches),
+            "decode_by_length": dict(fd.length_launches)}
+
+
+def serve_classic(dev, arch: str):
+    """``arch`` at full width and depth in bf16 (the port's seeded init,
+    drawn in bf16 on the card: pixtral's 12.2 B params are 24.5 GB, a
+    float32 build and cast would peak near 73 GB) through the port's
+    ``classic_loop`` (``make_serve_step``): 4 prompts of 32 tokens (pixtral:
+    patch embeddings; whisper: over 1,500 frame embeddings too), 16 new
+    tokens. Its launches are counted from zero, exactly: a prefill runs
+    one attention forward a decoder layer (whisper: and one a cross layer,
+    one an encoder layer: 24 causal + 24 cross + 24 non-causal), every one
+    on the tensor cores; a decode step one decode a decoder layer (whisper:
+    and one over its cross cache). Prefill seconds and tok/s (the loop's
+    lines), the peak memory, the idle share of a profiled run; then the
+    first token's logits and one decode step's against the same calls on
+    the plain versions, within ``MESH_LOGITS_ATOL`` + ``MESH_LOGITS_RTOL``
+    (the serve phases' bf16 limits). Returns the run's launches."""
+    import argparse
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.serve import classic_batch, classic_loop
+    from repro_torch.train.steps import greedy_from_logits, make_serve_step
+    cfg = get_config(arch)
+    frames = (f", {cfg.encoder_seq:,} encoder frames"
+              if cfg.encoder_decoder else "")
+    phase(f"serve classic ({arch}, full width and depth, bf16, batch "
+          f"{CLASSIC_B}, prompt {CLASSIC_PROMPT}{frames}, gen {CLASSIC_GEN})")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model = seeded_model(arch, dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"seeded {n:,} params ({held / 2**30:.2f} GiB in bf16) in "
+          f"{time.perf_counter() - t0:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    args = argparse.Namespace(batch=CLASSIC_B, prompt_len=CLASSIC_PROMPT,
+                              gen=CLASSIC_GEN, cache_len=0, seed=SEED,
+                              device=dev, mesh="1x1")
+    zero_serve_counts()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    gen = classic_loop(cfg, args, params=model)
+    wall = time.perf_counter() - t0
+    counts = classic_counts()
+    L, enc = cfg.num_layers, cfg.num_encoder_layers if cfg.encoder_decoder \
+        else 0
+    cross = L if cfg.encoder_decoder else 0
+    cache_len = CLASSIC_PROMPT + CLASSIC_GEN + 8
+    want = {"flash_attention": L + cross + enc,
+            "flash_fwd_wgmma_kernel": L + cross + enc,
+            "flash_decode": CLASSIC_GEN * (L + cross), "ssd_scan": 0,
+            "ssd_scan_wgmma": 0,
+            "by_mask": {"causal": L, "non_causal": enc, "cross": cross},
+            "decode_by_length": {cache_len: CLASSIC_GEN * L,
+                                 **({cfg.encoder_seq: CLASSIC_GEN * cross}
+                                    if cross else {})}}
+    print(f"{arch} classic loop: {wall:.2f} s in all; launches {counts}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if counts != want:
+        raise AssertionError(f"{arch} classic loop: launches {counts}, "
+                             f"expected {want}")
+    if not (gen < cfg.vocab_size).all():
+        raise AssertionError(f"{arch}: an id past the vocabulary")
+    profile_device(f"{arch} classic loop", lambda: classic_loop(
+        cfg, args, params=model), cpu=False)
+    # the first token's logits and one decode step's, kernels vs plain
+    ss = make_serve_step(cfg, cache_len=cache_len, device=dev)
+    batch = classic_batch(cfg, CLASSIC_B, CLASSIC_PROMPT,
+                          np.random.default_rng(SEED))
+    pos = torch.full((CLASSIC_B,), CLASSIC_PROMPT, dtype=torch.int32,
+                     device=dev)
+
+    def first_two(tok=None):
+        h, caches = ss.prefill_fn(model, batch)
+        first = ss.logits_fn(model, h).float()
+        tok = greedy_from_logits(first, cfg.vocab_size) if tok is None \
+            else tok
+        nxt, _ = ss.decode_fn(model, caches, tok, pos)
+        return first, nxt.float(), tok
+    first, nxt, tok = first_two()
+    with plain_versions():
+        p_first, p_nxt, _ = first_two(tok)
+    for what, a, b in (("first-token", first, p_first),
+                       ("decode step", nxt, p_nxt)):
+        err = (a - b).abs().max().item()
+        ok = torch.allclose(a, b, atol=MESH_LOGITS_ATOL, rtol=MESH_LOGITS_RTOL)
+        print(f"{arch} {what} logits, kernels vs plain versions: max abs err "
+              f"{err:.3e}, scale {b.abs().max().item():.2f} (limit atol "
+              f"{MESH_LOGITS_ATOL} + rtol {MESH_LOGITS_RTOL}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{arch}: {what} logits left the plain "
+                                 "versions'")
+    del model, ss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_whisper(dev):
+    """whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers, 1,012,523,008 params) through ``make_train_step`` with ZeRO at
+    1 x 1 (the default: bf16 compute over float32 masters and moments,
+    remat), 4 steps of 2 x 448 decoder tokens over 2 x 1,500 frame
+    embeddings, numpy-seeded: every step's launches held (each attention's
+    forward and its remat rerun, 144, on the tensor cores: 48 causal, 48
+    non-causal, 48 cross; a backward call an attention, 72, whose dq and
+    dk/dv kernels are 48 non-causal; the xent kernels once each way),
+    wall, tokens/s, peak memory and one profiled step; step 1's loss and
+    gradients computed twice, bitwise equal (the encoder's gradient sums
+    its 24 cross-attentions in the tape's one order); then the same init
+    and batches through the plain versions for ``WHISPER_PLAIN_STEPS``
+    steps, the loss curves held as the qwen3 train phases hold them.
+    Returns the kernel run's launches (by mask too)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.serve import classic_batch
+    from repro_torch.train.steps import make_train_step
+    cfg = get_config(WHISPER)
+    steps = TRAIN_STEPS
+    phase(f"train ({WHISPER}, full width and depth, ZeRO 1 x 1, bf16 "
+          f"compute, float32 masters and moments, {steps} steps of "
+          f"{WHISPER_B} x {WHISPER_S} tokens over {WHISPER_B} x "
+          f"{cfg.encoder_seq:,} frames), then {WHISPER_PLAIN_STEPS} steps on "
+          "the plain versions")
+    rng = np.random.default_rng(SEED + 17)
+    batches = [classic_batch(cfg, WHISPER_B, WHISPER_S, rng, "train")
+               for _ in range(steps + 1)]
+    L, E = cfg.num_layers, cfg.num_encoder_layers
+    n_attn = 2 * L + E
+    want = dict.fromkeys(train_counts(), 0)
+    want.update({"flash_attention": 2 * n_attn,
+                 "flash_fwd_wgmma_kernel": 2 * n_attn,
+                 "flash_bwd_dq_kernel": n_attn, "flash_bwd_dkdv_kernel": n_attn,
+                 "flash_bwd_dq_wgmma_kernel": n_attn,
+                 "flash_bwd_dkdv_wgmma_kernel": n_attn,
+                 "xent_local_stats": 1, "xent_local_stats_bwd": 1})
+    want_mask = ({"causal": 2 * L, "non_causal": 2 * E, "cross": 2 * L},
+                 {"causal": L, "non_causal": E, "cross": L})
+
+    def run(what: str, n_steps: int, want, want_mask):
+        t0 = time.perf_counter()
+        ts = make_train_step(cfg, device=dev)
+        params = ts.init_params(SEED)
+        opt = ts.init_opt(params)
+        torch.cuda.synchronize()
+        print(f"{what}: {params.numel():,} float32 master elements and "
+              f"their moments initialised in "
+              f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        zero_train_counts()
+        fa.reset_counts()
+        curve = []
+        for step in range(n_steps):
+            prev = train_counts()
+            prev_mask = (dict(fa.mask_launches), dict(fa.bwd_mask_launches))
+            t = time.perf_counter()
+            params, opt, m = ts.step_fn(params, opt, batches[step])
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            now = train_counts()
+            per = {k: now[k] - prev[k] for k in now}
+            per_mask = tuple({k: c[k] - p[k] for k in c} for c, p in zip(
+                (fa.mask_launches, fa.bwd_mask_launches), prev_mask))
+            curve.append((loss, gnorm))
+            print(f"{what} step {step}: loss {loss:.4f}, grad_norm "
+                  f"{gnorm:.4f}, wall {wall:.3f} s, "
+                  f"{WHISPER_B * WHISPER_S / wall:,.0f} decoder tokens/s, "
+                  f"launches {per}, by mask forward {per_mask[0]}, "
+                  f"backward {per_mask[1]}")
+            if per != want or (want_mask and per_mask != want_mask):
+                raise AssertionError(f"{what} step {step}: launches {per} "
+                                     f"{per_mask}, expected {want} "
+                                     f"{want_mask}")
+        print(f"{what}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not all(np.isfinite(curve).ravel()):
+            raise AssertionError(f"{what}: (loss, grad_norm) {curve}")
+        return ts, params, opt, curve
+
+    ts, params, opt, curve = run(f"{WHISPER} kernels", steps, want,
+                                 want_mask)
+    total = {**train_counts(), "by_mask": dict(fa.mask_launches),
+             "bwd_by_mask": dict(fa.bwd_mask_launches)}
+    profile_device(f"{WHISPER} train step", lambda: float(
+        ts.step_fn(params, opt, batches[steps])[2]["loss"]), top=10)
+    # step 1's loss and gradients, twice: bitwise
+    loss_a, g_a = ts.grad_fn(params, batches[1])
+    loss_b, g_b = ts.grad_fn(params, batches[1])
+    same = bool(torch.equal(loss_a, loss_b)) and all(
+        torch.equal(g_a[n], g_b[n]) for n in g_a)
+    print(f"{WHISPER}: step 1's loss and {len(g_a)} gradients computed "
+          f"twice: bitwise equal {same}")
+    if not same:
+        raise AssertionError(f"{WHISPER}: two runs of step 1 differ")
+    del ts, params, opt, g_a, g_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    with plain_versions():
+        *_, plain = run(f"{WHISPER} plain", WHISPER_PLAIN_STEPS,
+                        dict.fromkeys(train_counts(), 0), None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_curves(f"{WHISPER} kernels vs plain", curve, plain)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an "
@@ -4317,6 +4745,7 @@ def main() -> int:
     kernels.append(check_flash_attention_mla(dev))
     kernels += [*check_flash_attention_mla_train(dev),
                 *check_xent(dev, Vl=deepseek_vocab(), label=DEEPSEEK_XENT)]
+    kernels += check_whisper_kernels(dev)
     kernels[1]["paged_shape"] = check_paged_decode(dev)
     ssd_row = next(k for k in kernels if k["name"] == "ssd_scan")
     for kr in kernels + [dict(kernels[0]["train_shape"],
@@ -4340,6 +4769,9 @@ def main() -> int:
     check_reference_mamba(dev)
     check_reference_mamba_train(dev)
     check_reference_mamba_train(dev, MAMBA_MESH)
+    for arch in (WHISPER, PIXTRAL):
+        check_reference_classic(dev, arch)
+        check_reference_train(dev, arch, zero=True)
     served, threads_run = serve(dev, "qwen3-1.7b")
     threads_launches = dict(served)
     torch.cuda.empty_cache()
@@ -4365,6 +4797,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mamba_meshed = serve_mesh_mamba(dev)
     deepseek = serve_deepseek(dev)
+    classic = {arch: serve_classic(dev, arch) for arch in (WHISPER, PIXTRAL)}
     trained, curve = train(dev)
     torch.cuda.empty_cache()
     train_plain(dev, curve)
@@ -4374,6 +4807,8 @@ def main() -> int:
     zero_trained = train_zero(dev, curve, cut_curve)
     torch.cuda.empty_cache()
     deepseek_trained = train_deepseek(dev)
+    torch.cuda.empty_cache()
+    whisper_trained = train_whisper(dev)
     torch.cuda.empty_cache()
     mamba_trained = train_mamba(dev)
     mamba_mesh_trained = train_mesh_mamba(dev)
@@ -4391,8 +4826,37 @@ def main() -> int:
     # row is the serving shape and serve run, its training shape's the train
     # run; the backward's row holds each of its two kernels' counts
     from repro_torch.kernels.ssd_scan.kernel import BWD_TC_KERNELS
+    from repro_torch.configs.registry import get_config
+    ws, wt = classic[WHISPER], whisper_trained
+    frontend_rows = {
+        # whisper's serve run (one classic-loop prefill, 16 decode steps)
+        # and its train run, by mask; the backward rows by call
+        WHISPER_ENC: {"launches": ws["by_mask"]["non_causal"],
+                      "launches_by_path": {
+                          f"serve classic ({WHISPER})":
+                              ws["by_mask"]["non_causal"],
+                          f"train ({WHISPER})": wt["by_mask"]["non_causal"]}},
+        WHISPER_CROSS: {"launches": ws["by_mask"]["cross"],
+                        "launches_by_path": {
+                            f"serve classic ({WHISPER})": ws["by_mask"]["cross"],
+                            f"train ({WHISPER})": wt["by_mask"]["cross"]}},
+        WHISPER_ENC_BWD: {"launches": wt["bwd_by_mask"]["non_causal"],
+                          "launches_per_step":
+                              wt["bwd_by_mask"]["non_causal"] // TRAIN_STEPS},
+        WHISPER_CROSS_BWD: {"launches": wt["bwd_by_mask"]["cross"],
+                            "launches_per_step":
+                                wt["bwd_by_mask"]["cross"] // TRAIN_STEPS},
+        WHISPER_XDECODE: {"launches": ws["decode_by_length"][
+            get_config(WHISPER).encoder_seq]},
+        "xent_local_stats" + WHISPER_XENT: {
+            "launches": wt["xent_local_stats"]},
+        "xent_local_stats_bwd" + WHISPER_XENT: {
+            "launches": wt["xent_local_stats_bwd"]}}
     for kr in kernels:
         name = kr["name"]
+        if name in frontend_rows:
+            kr.update(frontend_rows[name])
+            continue
         if name == MLA_ROW_NAME:
             # the deepseek-v2-lite serve run (actors), every launch wgmma
             kr["launches"] = deepseek["flash_fwd_wgmma_kernel"]
@@ -4505,6 +4969,13 @@ def main() -> int:
         kr["launches_by_path"] = {"serve": served[key], **{
             path: counts[key] for path, counts in paths.items()},
             "serve mesh": meshed[key], "serve processes": proc_served[key]}
+    # the classic loop's causal prefills (pixtral at D 128, whisper's
+    # decoder at D 64) and its decodes, each run's own counts
+    for arch, counts in classic.items():
+        kernels[0]["launches_by_path"][f"serve classic ({arch}), causal"] = \
+            counts["by_mask"]["causal"]
+        kernels[1]["launches_by_path"][f"serve classic ({arch})"] = \
+            counts["flash_decode"]
     ssd_row["launches_by_path"].update({
         f"serve mesh {MAMBA_MESH} (mamba2)": mamba_meshed["ssd_scan"],
         "train (mamba2)": mamba_trained["ssd_scan"],

@@ -52,7 +52,8 @@ from repro_torch.core.graph import (LogicalGraph, StagePartition,
                                     partition_stages)
 from repro_torch.core.lowering import (OptimizerSpec, PrecisionPolicy,
                                        _resolve_loss, _resolve_mesh,
-                                       accumulate, box_grads, clip_grads,
+                                       accumulate, box_grads,
+                                       check_token_frontend, clip_grads,
                                        loss_scale_update, lower_plan,
                                        lower_serve_stages, lower_stages,
                                        lower_train_plan, lower_train_stages,
@@ -79,7 +80,8 @@ from repro_torch.runtime.recipes import (InferRecipe, MeshSpec, ServeRecipe,
                                          TrainRecipe)
 from repro_torch.serve.paged_cache import (PagedCacheSpec, PagePool,
                                            dense_bytes, slab_bytes)
-from repro_torch.serve.sampler import SamplingSpec
+from repro_torch.serve.sampler import (  # noqa: F401 (re-exported)
+    SamplingSpec, greedy_from_logits)
 
 MODES = ("infer", "train", "serve")
 BACKENDS = ("actors", "monolithic")
@@ -557,15 +559,6 @@ class Session:
 # ---------------------------------------------------------------------------
 # mode="serve": continuous-batching autoregressive decode.
 # ---------------------------------------------------------------------------
-
-def greedy_from_logits(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
-    """Greedy token selection over a padded vocabulary: the padding columns
-    (>= ``vocab_size``) are masked to -inf first, so the result is always a
-    valid id. Ties go to the lowest id, as ``jnp.argmax``."""
-    mask = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
-    return torch.where(mask, float("-inf"), logits).argmax(dim=-1).to(
-        torch.int32)
-
 
 @dataclasses.dataclass
 class ServeRequest:
@@ -1415,6 +1408,7 @@ def _compile_serve(model, *, backend: str, runtime: Optional[str],
         raise ValueError("mode='serve' compiles a ModelConfig (or an --arch "
                          f"name), got {type(model).__name__}")
     cfg = model
+    check_token_frontend(cfg)   # before a model is built
     mesh = _serve_mesh(mesh, device, timeout)
     dev = resolve_device(device) if mesh is None else mesh.devices[0]
     plan = MeshPlan.single_device() if mesh is None else MeshPlan.of(mesh)

@@ -1666,6 +1666,18 @@ class ServeStagedProgram:
         return "\n".join(lines)
 
 
+def check_token_frontend(cfg: ModelConfig) -> None:
+    """The reference's refusal (``repro/core/lowering.py:1350-1353``):
+    pipelined serving takes token ids, so an encoder-decoder or an embed
+    frontend raises its ``ValueError``; those archs serve through the
+    classic loop (:func:`repro_torch.train.steps.make_serve_step`).
+    ``api.compile(mode="serve")`` calls it before it builds a model."""
+    if cfg.encoder_decoder or cfg.embed_frontend:
+        raise ValueError(
+            f"{cfg.name}: pipelined serving needs a token frontend "
+            "(encoder-decoder / embed-frontend archs are not supported)")
+
+
 def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
                        num_stages: int, cache_len: int, max_prompt_len: int,
                        group_size: int, sliding_window: int = 0,

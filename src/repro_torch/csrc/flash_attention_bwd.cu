@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): dq, dk, dv of causal
-// self-attention, the port's training kernels.
+// self-attention, of non-causal self-attention and of cross-attention, the
+// port's training kernels.
 //
 // No Pallas counterpart: the TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py: flash_attention_pallas
@@ -14,14 +15,24 @@
 // float32 softmax (from the bf16 O it was 1.6e-2 off at the training
 // shape). The backward needs no O.
 //
-// Scope: what the training path gives it. Sq == Sk, q_offset 0, causal, an
-// optional sliding window, GQA (q head h reads kv head h / (H / KV)), and
-// the forward's head-dim pairs (D of q, k, dq, dk; Dv of v, dO, dv): (64,
-// 64), (128, 128) and MLA's (192, 128) in both dtypes (deepseek-v2-lite:
-// q and k are nope 128 + rope 64, v is 128), and in float32 also the
-// reduced MLA's (96, 64). Any other pair is refused (cudaErrorInvalidValue).
-// No row of the causal mask is fully masked (the diagonal is always kept),
-// so P never needs the forward's all-masked rule.
+// Scope: what the training paths give it. q_offset 0; causal (with an
+// optional sliding window) or not; Sq q rows over Sk keys, Sq == Sk for
+// self-attention and Sq != Sk for cross-attention (whisper's decoder rows
+// over its 1,500 encoder frames; its encoder is non-causal at Sq = Sk =
+// 1,500); GQA (q head h reads kv head h / (H / KV)), and the forward's
+// head-dim pairs (D of q, k, dq, dk; Dv of v, dO, dv): (64, 64), (128, 128)
+// and MLA's (192, 128) in both dtypes (deepseek-v2-lite: q and k are nope
+// 128 + rope 64, v is 128), and in float32 also the reduced MLA's (96, 64).
+// Any other pair is refused (cudaErrorInvalidValue). No row is fully
+// masked: a causal row keeps key 0, a non-causal row every key, so P never
+// needs the forward's all-masked rule. Ragged tails: 1,500 = 23 x 64 + 28,
+// and a decoder length need not divide by 64. A tile's rows past Sq or Sk
+// load as zeros, and the band test (in_band) gives P = 0 to every key at or
+// past Sk and to every q row at or past Sq, so such a row adds nothing to
+// dK and dV; its lse and delta load as zeros and are never read past Sq.
+// The walks: non-causal, the dq kernel walks every key tile and the dk/dv
+// kernel every q tile of each of its heads; causal, the tiles that meet the
+// band, as before.
 //
 // The FlashAttention-2 split into two kernels, so neither needs atomics
 // (float32 atomics would make dq differ from run to run), each launched by
@@ -46,7 +57,11 @@
 // 86 GFLOP, 0.087 ms at the 989 TFLOP/s bf16 peak, against 0.025 ms for its
 // 84 MB of inputs and gradients at 3.35 TB/s. At deepseek-v2-lite's (q/k
 // (2, 2048, 16, 192), v (2, 2048, 16, 128)): 111.7 GFLOP, 0.1129 ms,
-// against 0.045 ms for about 151 MB. Both bound by operations.
+// against 0.045 ms for about 151 MB. Both bound by operations. Non-causal,
+// every (q, k) pair counts: whisper's encoder layer (q/k/v (2, 1500, 16,
+// 64)) 46 GFLOP, 0.047 ms against 0.013 ms for its ~43 MB; its cross layer
+// (q (2, 448, 16, 64) over (2, 1500, 16, 64)) 13.8 GFLOP, 0.014 ms. Bound
+// by operations too.
 //
 // The tensor-core kernels (bf16). One warpgroup (128 threads) a block;
 // 64-row key tiles and 64-row q tiles of the dq kernel are wgmma's M. Tiles
@@ -166,8 +181,10 @@ __device__ __forceinline__ void product_f32(const float* A, const float* B,
   }
 }
 
-__device__ __forceinline__ bool in_band(int qi, int kj, int S, int window) {
-  return qi < S && kj < S && kj <= qi && (window <= 0 || kj > qi - window);
+__device__ __forceinline__ bool in_band(int qi, int kj, int Sq, int Sk,
+                                        int causal, int window) {
+  return qi < Sq && kj < Sk && (!causal || kj <= qi) &&
+         (window <= 0 || kj > qi - window);
 }
 
 // whether the thread's columns 64 cc + 4 tx .. + 3 of a D-column tile exist
@@ -182,7 +199,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv,
-    int S, int H, int KV, int window, float sm_scale) {
+    int Sq, int Sk, int H, int KV, int causal, int window, float sm_scale) {
   constexpr int GD = (D + 63) / 64, GV = (DV + 63) / 64;   // 64-column groups
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                         // [BK][D + PAD]
@@ -197,13 +214,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
-  load_tile_f32<D, BK>(Ks, k, b, k0, S, KV, kvh);
-  load_tile_f32<DV, BK>(Vs, v, b, k0, S, KV, kvh);
+  load_tile_f32<D, BK>(Ks, k, b, k0, Sk, KV, kvh);
+  load_tile_f32<DV, BK>(Vs, v, b, k0, Sk, KV, kvh);
 
-  // q tiles that meet the band of keys [k0, k_last]: q >= k, q < k + window
-  const int k_last = min(k0 + BK, S) - 1;
-  const int q_end = window > 0 ? min(S, k_last + window) : S;
-  const int qt_begin = k0 / BQ, qt_end = (q_end + BQ - 1) / BQ;
+  // causal: the q tiles that meet the band of keys [k0, k_last] (q >= k,
+  // q < k + window); non-causal: every q tile
+  const int k_last = min(k0 + BK, Sk) - 1;
+  const int q_end = causal && window > 0 ? min(Sq, k_last + window) : Sq;
+  const int qt_begin = causal ? k0 / BQ : 0, qt_end = (q_end + BQ - 1) / BQ;
 
   float dk_acc[4][4 * GD], dv_acc[4][4 * GV];
 #pragma unroll
@@ -216,15 +234,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    const float* lse_h = lse + (static_cast<size_t>(b) * H + h) * S;
-    const float* delta_h = delta + (static_cast<size_t>(b) * H + h) * S;
+    const float* lse_h = lse + (static_cast<size_t>(b) * H + h) * Sq;
+    const float* delta_h = delta + (static_cast<size_t>(b) * H + h) * Sq;
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();    // K/V stored / the previous tile's reads done
-      load_tile_f32<D, BQ>(Qs, q, b, q0, S, H, h);
-      load_tile_f32<DV, BQ>(dOs, dout, b, q0, S, H, h);
+      load_tile_f32<D, BQ>(Qs, q, b, q0, Sq, H, h);
+      load_tile_f32<DV, BQ>(dOs, dout, b, q0, Sq, H, h);
       if (tid < BQ) {
-        const bool ok = q0 + tid < S;
+        const bool ok = q0 + tid < Sq;
         lse_s[tid] = ok ? lse_h[q0 + tid] : 0.f;
         delta_s[tid] = ok ? delta_h[q0 + tid] : 0.f;
       }
@@ -239,7 +257,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
-          const float p = in_band(q0 + r, k0 + c, S, window)
+          const float p = in_band(q0 + r, k0 + c, Sq, Sk, causal, window)
                               ? expf(s[i][j] * sm_scale - lse_s[r]) : 0.f;
           Ps[r * (BK + PPAD) + c] = p;
           dSs[r * (BK + PPAD) + c] = p * (dp[i][j] - delta_s[r]);
@@ -288,8 +306,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + ty + 16 * i;
-    if (kj >= S) continue;
-    const size_t row = (static_cast<size_t>(b) * S + kj) * KV + kvh;
+    if (kj >= Sk) continue;
+    const size_t row = (static_cast<size_t>(b) * Sk + kj) * KV + kvh;
 #pragma unroll
     for (int cc = 0; cc < GD; ++cc) {
       if (!has_cols<D>(cc, tx)) continue;
@@ -312,7 +330,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ delta,
-    float* __restrict__ dq, int S, int H, int KV,
+    float* __restrict__ dq, int Sq, int Sk, int H, int KV, int causal,
     int window, float sm_scale) {
   constexpr int GD = (D + 63) / 64;
   extern __shared__ __align__(16) float smem[];
@@ -327,15 +345,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const size_t row0 = (static_cast<size_t>(b) * H + h) * S + q0;
-  load_tile_f32<D, BQ>(Qs, q, b, q0, S, H, h);
-  load_tile_f32<DV, BQ>(dOs, dout, b, q0, S, H, h);
-  if (tid < BQ) lse_s[tid] = q0 + tid < S ? lse[row0 + tid] : 0.f;
+  const size_t row0 = (static_cast<size_t>(b) * H + h) * Sq + q0;
+  load_tile_f32<D, BQ>(Qs, q, b, q0, Sq, H, h);
+  load_tile_f32<DV, BQ>(dOs, dout, b, q0, Sq, H, h);
+  if (tid < BQ) lse_s[tid] = q0 + tid < Sq ? lse[row0 + tid] : 0.f;
 
-  // kv tiles that meet the band of this q tile (the forward's skipping)
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int kt_begin = k_begin / BK, kt_end = (q_last + 1 + BK - 1) / BK;
+  // causal: the kv tiles that meet the band of this q tile (the forward's
+  // skipping); non-causal: every kv tile
+  const int q_last = min(q0 + BQ, Sq) - 1, nkt = (Sk + BK - 1) / BK;
+  const int k_begin = causal && window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kt_begin = k_begin / BK;
+  const int kt_end = causal ? min(nkt, (q_last + BK) / BK) : nkt;
 
   // dQ = scale * (A - delta B) with A = sum_j P dP k_j, B = sum_j P k_j and
   // delta = sum_j P dP, all accumulated in the one sweep over the band
@@ -348,8 +368,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();    // Q/dO stored / the previous tile's reads done
-    load_tile_f32<D, BK>(Ks, k, b, k0, S, KV, kvh);
-    load_tile_f32<DV, BK>(Vs, v, b, k0, S, KV, kvh);
+    load_tile_f32<D, BK>(Ks, k, b, k0, Sk, KV, kvh);
+    load_tile_f32<DV, BK>(Vs, v, b, k0, Sk, KV, kvh);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -361,7 +381,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const float p = in_band(q0 + r, k0 + c, S, window)
+        const float p = in_band(q0 + r, k0 + c, Sq, Sk, causal, window)
                             ? expf(s[i][j] * sm_scale - lse_s[r]) : 0.f;
         Ps[r * (BK + PPAD) + c] = p;
         PdPs[r * (BK + PPAD) + c] = p * dp[i][j];
@@ -405,9 +425,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i, qi = q0 + r;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
     if (tx == 0) delta[row0 + r] = dsum[i];
-    const size_t row = ((static_cast<size_t>(b) * S + qi) * H + h) * D;
+    const size_t row = ((static_cast<size_t>(b) * Sq + qi) * H + h) * D;
 #pragma unroll
     for (int cc = 0; cc < GD; ++cc) {
       if (!has_cols<D>(cc, tx)) continue;
@@ -468,8 +488,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_wgmma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, int S, int H, int KV, int window,
-    float sm_scale) {
+    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int KV, int causal,
+    int window, float sm_scale) {
   using namespace hopper;
   constexpr uint32_t TILE = TC * D * 2;      // a Q or K tile
   constexpr uint32_t VTILE = TC * DV * 2;    // a dO or V tile
@@ -486,22 +506,24 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_wgmma_kernel(
   const int kvh = h / (H / KV);
   const size_t ldq = static_cast<size_t>(H) * D, ldk = static_cast<size_t>(KV) * D;
   const size_t ldo = static_cast<size_t>(H) * DV, ldv = static_cast<size_t>(KV) * DV;
-  const size_t qoff = static_cast<size_t>(b) * S * ldq + static_cast<size_t>(h) * D;
-  const size_t ooff = static_cast<size_t>(b) * S * ldo + static_cast<size_t>(h) * DV;
-  const size_t koff = static_cast<size_t>(b) * S * ldk + static_cast<size_t>(kvh) * D;
-  const size_t voff = static_cast<size_t>(b) * S * ldv + static_cast<size_t>(kvh) * DV;
-  const size_t row0 = (static_cast<size_t>(b) * H + h) * S + q0;
+  const size_t qoff = static_cast<size_t>(b) * Sq * ldq + static_cast<size_t>(h) * D;
+  const size_t ooff = static_cast<size_t>(b) * Sq * ldo + static_cast<size_t>(h) * DV;
+  const size_t koff = static_cast<size_t>(b) * Sk * ldk + static_cast<size_t>(kvh) * D;
+  const size_t voff = static_cast<size_t>(b) * Sk * ldv + static_cast<size_t>(kvh) * DV;
+  const size_t row0 = (static_cast<size_t>(b) * H + h) * Sq + q0;
 
-  load_tile<D, TC>(sQ, q + qoff, q0, S, ldq);
-  load_tile<DV, TC>(sdO, dout + ooff, q0, S, ldo);
-  if (tid < TC) lse_s[tid] = q0 + tid < S ? lse[row0 + tid] : 0.f;
+  load_tile<D, TC>(sQ, q + qoff, q0, Sq, ldq);
+  load_tile<DV, TC>(sdO, dout + ooff, q0, Sq, ldo);
+  if (tid < TC) lse_s[tid] = q0 + tid < Sq ? lse[row0 + tid] : 0.f;
 
-  // kv tiles that meet the band of this q tile (the forward's skipping)
-  const int q_last = min(q0 + TC, S) - 1;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int kt_begin = k_begin / TC, n = (q_last + TC) / TC - kt_begin;
-  load_tile<D, TC>(sK_of(0), k + koff, kt_begin * TC, S, ldk);
-  load_tile<DV, TC>(sK_of(0) + TILE, v + voff, kt_begin * TC, S, ldv);
+  // causal: the kv tiles that meet the band of this q tile (the forward's
+  // skipping); non-causal: every kv tile
+  const int q_last = min(q0 + TC, Sq) - 1, nkt = (Sk + TC - 1) / TC;
+  const int k_begin = causal && window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kt_begin = k_begin / TC;
+  const int n = (causal ? min(nkt, (q_last + TC) / TC) : nkt) - kt_begin;
+  load_tile<D, TC>(sK_of(0), k + koff, kt_begin * TC, Sk, ldk);
+  load_tile<DV, TC>(sK_of(0) + TILE, v + voff, kt_begin * TC, Sk, ldv);
   cp_async_commit();
 
   float dqa[D / 2];
@@ -516,22 +538,22 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_wgmma_kernel(
     __syncthreads();    // tile i landed; every warp is done with tile i - 1
     if (i + 1 < 2 * n) {
       const int nk = (kt_begin + (i + 1) % n) * TC;
-      load_tile<D, TC>(sK_of(st ^ 1), k + koff, nk, S, ldk);
-      load_tile<DV, TC>(sK_of(st ^ 1) + TILE, v + voff, nk, S, ldv);
+      load_tile<D, TC>(sK_of(st ^ 1), k + koff, nk, Sk, ldk);
+      load_tile<DV, TC>(sK_of(st ^ 1) + TILE, v + voff, nk, Sk, ldv);
     }
     cp_async_commit();
     const uint32_t sK = sK_of(st), sV = sK + TILE;
 
     float s[32], dp[32];
     two_products_tc<D, DV, TC>(sQ, sK, sdO, sV, s, dp);
-    const bool edge = k0 + TC - 1 > q0 || k0 + TC > S || q0 + TC > S ||
-                      (window > 0 && k0 <= q0 + TC - 1 - window);
+    const bool edge = (causal && k0 + TC - 1 > q0) || k0 + TC > Sk ||
+                      q0 + TC > Sq || (window > 0 && k0 <= q0 + TC - 1 - window);
     const float lr[2] = {lse_s[r_lo], lse_s[r_lo + 8]};
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const int hh = (e >> 1) & 1;
       const int qi = q0 + r_lo + 8 * hh, kj = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
-      s[e] = (!edge || in_band(qi, kj, S, window))
+      s[e] = (!edge || in_band(qi, kj, Sq, Sk, causal, window))
                  ? exp2f((s[e] * sm_scale - lr[hh]) * kLog2e) : 0.f;
     }
     if (!sweep2) {
@@ -542,7 +564,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_wgmma_kernel(
         for (int hh = 0; hh < 2; ++hh) {
           dl[hh] += __shfl_xor_sync(0xffffffffu, dl[hh], 1);
           dl[hh] += __shfl_xor_sync(0xffffffffu, dl[hh], 2);
-          if (t == 0 && q0 + r_lo + 8 * hh < S) delta[row0 + r_lo + 8 * hh] = dl[hh];
+          if (t == 0 && q0 + r_lo + 8 * hh < Sq) delta[row0 + r_lo + 8 * hh] = dl[hh];
         }
       }
       continue;
@@ -564,7 +586,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_wgmma_kernel(
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int qi = q0 + r_lo + 8 * hh;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
     __nv_bfloat16* row = dq + qoff + static_cast<size_t>(qi) * ldq;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -579,8 +601,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkdv_wgmma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
-    int H, int KV, int window, float sm_scale) {
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
+    int Sk, int H, int KV, int causal, int window, float sm_scale) {
   using namespace hopper;
   constexpr uint32_t KTILE = TC * D * 2, VTILE = TC * DV * 2;   // K, V
   constexpr uint32_t QTILE = QT * D * 2, OTILE = QT * DV * 2;   // Q, dO
@@ -602,34 +624,37 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkdv_wgmma_kernel(
   const int G = H / KV;
   const size_t ldq = static_cast<size_t>(H) * D, ldk = static_cast<size_t>(KV) * D;
   const size_t ldo = static_cast<size_t>(H) * DV, ldv = static_cast<size_t>(KV) * DV;
-  const size_t koff = static_cast<size_t>(b) * S * ldk + static_cast<size_t>(kvh) * D;
-  const size_t voff = static_cast<size_t>(b) * S * ldv + static_cast<size_t>(kvh) * DV;
-  load_tile<D, TC>(sK, k + koff, k0, S, ldk);
-  load_tile<DV, TC>(sV, v + voff, k0, S, ldv);
+  const size_t koff = static_cast<size_t>(b) * Sk * ldk + static_cast<size_t>(kvh) * D;
+  const size_t voff = static_cast<size_t>(b) * Sk * ldv + static_cast<size_t>(kvh) * DV;
+  load_tile<D, TC>(sK, k + koff, k0, Sk, ldk);
+  load_tile<DV, TC>(sV, v + voff, k0, Sk, ldv);
 
-  // q tiles that meet the band of keys [k0, k_last]: q >= k, q < k + window
-  const int k_last = min(k0 + TC, S) - 1;
-  const int q_end = window > 0 ? min(S, k_last + window) : S;
-  const int qt_begin = k0 / QT, nq = (q_end + QT - 1) / QT - qt_begin;
+  // causal: the q tiles that meet the band of keys [k0, k_last] (q >= k,
+  // q < k + window); non-causal: every q tile. A causal key tile past the
+  // last q row (Sq < Sk) meets none: it walks nothing and writes zeros.
+  const int k_last = min(k0 + TC, Sk) - 1;
+  const int q_end = causal && window > 0 ? min(Sq, k_last + window) : Sq;
+  const int qt_begin = causal ? k0 / QT : 0;
+  const int nq = max(0, (q_end + QT - 1) / QT - qt_begin);
   const int total = G * nq;
 
   // the i-th (head, q tile) of the walk into stage st
   auto load_q = [&](int i, int st) {
     const int h = kvh * G + i / nq, q0 = (qt_begin + i % nq) * QT;
-    const size_t qoff = static_cast<size_t>(b) * S * ldq + static_cast<size_t>(h) * D;
-    const size_t ooff = static_cast<size_t>(b) * S * ldo + static_cast<size_t>(h) * DV;
-    load_tile<D, QT>(sQ_of(st), q + qoff, q0, S, ldq);
-    load_tile<DV, QT>(sQ_of(st) + QTILE, dout + ooff, q0, S, ldo);
+    const size_t qoff = static_cast<size_t>(b) * Sq * ldq + static_cast<size_t>(h) * D;
+    const size_t ooff = static_cast<size_t>(b) * Sq * ldo + static_cast<size_t>(h) * DV;
+    load_tile<D, QT>(sQ_of(st), q + qoff, q0, Sq, ldq);
+    load_tile<DV, QT>(sQ_of(st) + QTILE, dout + ooff, q0, Sq, ldo);
     if (tid < 2 * QT) {
       const bool is_lse = tid < QT;
       const int r = tid % QT, row = q0 + r;
-      const float* src = (is_lse ? lse : delta) + (static_cast<size_t>(b) * H + h) * S;
-      const bool ok = row < S;
+      const float* src = (is_lse ? lse : delta) + (static_cast<size_t>(b) * H + h) * Sq;
+      const bool ok = row < Sq;
       cp_async4(sL + 4 * ((is_lse ? 0 : 2 * QT) + st * QT + r),
                 ok ? src + row : src, ok ? 4 : 0);
     }
   };
-  load_q(0, 0);
+  if (total > 0) load_q(0, 0);
   cp_async_commit();
 
   float dka[D / 2], dva[DV / 2];
@@ -649,15 +674,15 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkdv_wgmma_kernel(
     // S^T and dP^T: rows are this block's keys, columns the tile's queries
     float s[QT / 2], dp[QT / 2];
     two_products_tc<D, DV, QT>(sK, sQ, sV, sdO, s, dp);
-    const bool edge = q0 < k0 + TC - 1 || q0 + QT > S || k0 + TC > S ||
-                      (window > 0 && q0 + QT - 1 - k0 >= window);
+    const bool edge = (causal && q0 < k0 + TC - 1) || q0 + QT > Sq ||
+                      k0 + TC > Sk || (window > 0 && q0 + QT - 1 - k0 >= window);
     const float* ls = lse_s + st * QT;
     const float* ds = delta_s + st * QT;
 #pragma unroll
     for (int e = 0; e < QT / 2; ++e) {
       const int kj = k0 + r_lo + 8 * ((e >> 1) & 1);
       const int c = 8 * (e >> 2) + 2 * t + (e & 1);
-      const float p = (!edge || in_band(q0 + c, kj, S, window))
+      const float p = (!edge || in_band(q0 + c, kj, Sq, Sk, causal, window))
                           ? exp2f((s[e] * sm_scale - ls[c]) * kLog2e) : 0.f;
       s[e] = p;
       dp[e] = p * (dp[e] - ds[c]);
@@ -687,7 +712,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkdv_wgmma_kernel(
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int kj = k0 + r_lo + 8 * hh;
-    if (kj >= S) continue;
+    if (kj >= Sk) continue;
     __nv_bfloat16* krow = dk + koff + static_cast<size_t>(kj) * ldk;
     __nv_bfloat16* vrow = dv + voff + static_cast<size_t>(kj) * ldv;
 #pragma unroll
@@ -708,8 +733,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkdv_wgmma_kernel(
 template <int D, int DV>
 int launch_f32(bool dq_part, const void* q, const void* k, const void* v,
                const void* dout, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, int B, int S, int H, int KV, int window,
-               float sm_scale, cudaStream_t stream) {
+               void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+               int causal, int window, float sm_scale, cudaStream_t stream) {
   constexpr int tiles = static_cast<int>(sizeof(float)) *
                         (2 * BQ * (D + PAD) + 2 * BQ * (DV + PAD) +
                          2 * BQ * (BK + PPAD));
@@ -731,21 +756,21 @@ int launch_f32(bool dq_part, const void* q, const void* k, const void* v,
   const float* vt = static_cast<const float*>(v);
   const float* dot = static_cast<const float*>(dout);
   if (dq_part)
-    kdq<<<dim3((S + BQ - 1) / BQ, H, B), NT, smem_dq, stream>>>(
-        qt, kt, vt, dot, lse, delta, static_cast<float*>(dq), S, H, KV,
-        window, sm_scale);
+    kdq<<<dim3((Sq + BQ - 1) / BQ, H, B), NT, smem_dq, stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<float*>(dq), Sq, Sk, H, KV,
+        causal, window, sm_scale);
   else
-    kdkdv<<<dim3((S + BK - 1) / BK, KV, B), NT, smem_dkdv, stream>>>(
+    kdkdv<<<dim3((Sk + BK - 1) / BK, KV, B), NT, smem_dkdv, stream>>>(
         qt, kt, vt, dot, lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), S, H, KV, window, sm_scale);
+        static_cast<float*>(dv), Sq, Sk, H, KV, causal, window, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int DV>
 int launch_wgmma(bool dq_part, const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, float* delta, void* dq,
-                 void* dk, void* dv, int B, int S, int H, int KV, int window,
-                 float sm_scale, cudaStream_t stream) {
+                 void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+                 int causal, int window, float sm_scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   constexpr int QT = kDkdvQt<D>;
   constexpr int smem_dq = dq_smem_bytes<D, DV>();
@@ -767,29 +792,29 @@ int launch_wgmma(bool dq_part, const void* q, const void* k, const void* v,
   const bf16* vt = static_cast<const bf16*>(v);
   const bf16* dot = static_cast<const bf16*>(dout);
   if (dq_part)
-    kdq<<<dim3((S + TC - 1) / TC, H, B), TC_THREADS, smem_dq, stream>>>(
-        qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), S, H, KV, window,
-        sm_scale);
+    kdq<<<dim3((Sq + TC - 1) / TC, H, B), TC_THREADS, smem_dq, stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), Sq, Sk, H, KV,
+        causal, window, sm_scale);
   else
-    kdkdv<<<dim3((S + TC - 1) / TC, KV, B), TC_THREADS, smem_dkdv, stream>>>(
+    kdkdv<<<dim3((Sk + TC - 1) / TC, KV, B), TC_THREADS, smem_dkdv, stream>>>(
         qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), S, H, KV, window, sm_scale);
+        static_cast<bf16*>(dv), Sq, Sk, H, KV, causal, window, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int entry(bool dq_part, const void* q, const void* k, const void* v,
           const void* dout, const void* lse, void* delta, void* dq, void* dk,
-          void* dv, int dtype, int B, int S, int H, int KV, int D, int Dv,
-          int window, float sm_scale, void* stream) {
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0)
+          void* dv, int dtype, int B, int Sq, int Sk, int H, int KV, int D,
+          int Dv, int causal, int window, float sm_scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
 #define REPRO_FA_BWD_CASE(DT, HD, HDV, LAUNCH)                               \
   if (dtype == DT && D == HD && Dv == HDV)                                   \
-    return LAUNCH<HD, HDV>(dq_part, q, k, v, dout, l, dl, dq, dk, dv, B, S, \
-                           H, KV, window, sm_scale, st);
+    return LAUNCH<HD, HDV>(dq_part, q, k, v, dout, l, dl, dq, dk, dv, B, Sq, \
+                           Sk, H, KV, causal, window, sm_scale, st);
   REPRO_FA_BWD_CASE(0, 64, 64, launch_f32)
   REPRO_FA_BWD_CASE(0, 128, 128, launch_f32)
   REPRO_FA_BWD_CASE(0, 192, 128, launch_f32)
@@ -804,27 +829,31 @@ int entry(bool dq_part, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (the CUDA-core kernels), 1 = bfloat16 (the tensor-core
-// kernels). Layouts (contiguous, 16-byte aligned): q, dq (B, S, H, D); k,
-// dk (B, S, KV, D); v, dv (B, S, KV, Dv); dout (B, S, H, Dv); lse (B, H, S)
-// float32 in; delta (B, H, S) float32, written by the dq kernel and read by
-// the dk/dv kernel, so the dq entry point runs first on the same stream.
+// kernels). Layouts (contiguous, 16-byte aligned): q, dq (B, Sq, H, D); k,
+// dk (B, Sk, KV, D); v, dv (B, Sk, KV, Dv); dout (B, Sq, H, Dv); lse (B, H,
+// Sq) float32 in; delta (B, H, Sq) float32, written by the dq kernel and
+// read by the dk/dv kernel, so the dq entry point runs first on the same
+// stream. causal: 1 masks key j > q row i (q_offset 0), 0 masks nothing but
+// the window; window > 0 only with causal (the wrapper refuses the rest).
 // (D, Dv): (64, 64), (128, 128), (192, 128), and in float32 also (96, 64);
 // any other pair returns cudaErrorInvalidValue. Each entry point launches
 // its one kernel on `stream`, allocates nothing, does not synchronise, and
 // returns the CUDA error of the launch.
 extern "C" int repro_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, void* delta, void* dq, int dtype, int B, int S, int H,
-    int KV, int D, int Dv, int window, float sm_scale, void* stream) {
+    const void* lse, void* delta, void* dq, int dtype, int B, int Sq, int Sk,
+    int H, int KV, int D, int Dv, int causal, int window, float sm_scale,
+    void* stream) {
   return entry(true, q, k, v, dout, lse, delta, dq, nullptr, nullptr, dtype,
-               B, S, H, KV, D, Dv, window, sm_scale, stream);
+               B, Sq, Sk, H, KV, D, Dv, causal, window, sm_scale, stream);
 }
 
 extern "C" int repro_flash_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int dtype, int B,
-    int S, int H, int KV, int D, int Dv, int window, float sm_scale,
-    void* stream) {
+    int Sq, int Sk, int H, int KV, int D, int Dv, int causal, int window,
+    float sm_scale, void* stream) {
   return entry(false, q, k, v, dout, lse, const_cast<void*>(delta), nullptr,
-               dk, dv, dtype, B, S, H, KV, D, Dv, window, sm_scale, stream);
+               dk, dv, dtype, B, Sq, Sk, H, KV, D, Dv, causal, window, sm_scale,
+               stream);
 }

@@ -22,7 +22,10 @@ CUDA tensor at any other pair raises. Every
 launch adds one to ``launches``, ``bwd_dq_launches`` or
 ``bwd_dkdv_launches``; a tensor-core launch also adds one to its own
 counter (``wgmma_launches``, ``bwd_dq_wgmma_launches``,
-``bwd_dkdv_wgmma_launches``).
+``bwd_dkdv_wgmma_launches``), and every forward launch and every backward
+call (its dq and dk/dv pair) to its mask's count in ``mask_launches`` or
+``bwd_mask_launches``: ``causal``, ``non_causal`` (Sq == Sk, an encoder)
+or ``cross`` (non-causal, Sq != Sk).
 
 :func:`flash_attention` is what the model calls. A CPU tensor takes the
 plain PyTorch version, :func:`plain_flash_attention` -- the same function
@@ -30,7 +33,10 @@ the JAX model calls at ``models/attention.py:148-154`` -- and autograd runs
 through it. A CUDA tensor launches the forward kernel; when autograd records
 (an input requires grad) it goes through :class:`FlashAttention`, whose
 forward also keeps the logsumexp and whose backward launches the backward
-kernels. There is no fallback from one to the other.
+kernels: causal self-attention (an optional sliding window), and
+non-causal self- and cross-attention (Sq != Sk: whisper's encoder and
+decoder), at q_offset 0 (:func:`check_backward_scope` raises on the
+rest). There is no fallback from one to the other.
 
 The raw wrappers :func:`flash_attention_cuda` and
 :func:`flash_attention_bwd_cuda` write their outputs through ctypes, which
@@ -55,7 +61,7 @@ BWD_SOURCE = "flash_attention_bwd.cu"
 HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (192, 128)),
              torch.float32: ((64, 64), (128, 128), (192, 128), (96, 64))}
 #: the (D, Dv) head-dim pairs the backward kernels take, by dtype: the
-#: forward's, each of which a causal training path can reach
+#: forward's, each of which a training path can reach
 BWD_HEAD_DIMS = HEAD_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _USE = ("call repro_torch.kernels.flash_attention.flash_attention (its "
@@ -71,7 +77,25 @@ bwd_dkdv_launches = 0
 wgmma_launches = 0
 bwd_dq_wgmma_launches = 0
 bwd_dkdv_wgmma_launches = 0
+#: forward launches and backward calls by mask since the last reset
+mask_launches = {"causal": 0, "non_causal": 0, "cross": 0}
+bwd_mask_launches = {"causal": 0, "non_causal": 0, "cross": 0}
 _count_lock = threading.Lock()
+
+
+def _mask(causal: bool, Sq: int, Sk: int) -> str:
+    return "causal" if causal else "non_causal" if Sq == Sk else "cross"
+
+
+def reset_counts() -> None:
+    """Zero every launch counter of this module."""
+    global launches, bwd_dq_launches, bwd_dkdv_launches, wgmma_launches
+    global bwd_dq_wgmma_launches, bwd_dkdv_wgmma_launches
+    with _count_lock:
+        launches = bwd_dq_launches = bwd_dkdv_launches = 0
+        wgmma_launches = bwd_dq_wgmma_launches = bwd_dkdv_wgmma_launches = 0
+        for counts in (mask_launches, bwd_mask_launches):
+            counts.update(dict.fromkeys(counts, 0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,15 +113,15 @@ def _fn():
 def _bwd_fns():
     lib = _build.load(BWD_SOURCE)
     dq = lib.repro_flash_attention_bwd_dq
-    # q, k, v, dout, lse, delta, dq; dtype, B, S, H, KV, D, Dv, window;
-    # sm_scale; stream
-    dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    # q, k, v, dout, lse, delta, dq; dtype, B, Sq, Sk, H, KV, D, Dv, causal,
+    # window; sm_scale; stream
+    dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_void_p])
     dq.restype = ctypes.c_int
     dkdv = lib.repro_flash_attention_bwd_dkdv
-    # q, k, v, dout, lse, delta, dk, dv; dtype, B, S, H, KV, D, Dv, window;
-    # sm_scale; stream
-    dkdv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    # q, k, v, dout, lse, delta, dk, dv; dtype, B, Sq, Sk, H, KV, D, Dv,
+    # causal, window; sm_scale; stream
+    dkdv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                      + [ctypes.c_float, ctypes.c_void_p])
     dkdv.restype = ctypes.c_int
     return dq, dkdv
@@ -183,33 +207,54 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     with _count_lock:
         launches += 1
         wgmma_launches += int(q.dtype == torch.bfloat16)
+        mask_launches[_mask(causal, Sq, Sk)] += 1
     return (o, lse) if return_lse else o
 
 
-def flash_attention_bwd_cuda(q, k, v, lse, do, *, sliding_window: int = 0,
+def check_backward_scope(causal: bool, sliding_window: int,
+                         q_offset: int) -> None:
+    """Raise for what the backward kernels do not take: a ``q_offset``
+    (ROADMAP Queue 2 item 2(b)), or a sliding window without causal
+    masking (no training path gives one)."""
+    if q_offset:
+        raise NotImplementedError(
+            "flash_attention: the CUDA backward takes q_offset 0 only; "
+            "q_offset > 0 is ROADMAP Queue 2 item 2(b)")
+    if sliding_window and not causal:
+        raise NotImplementedError(
+            "flash_attention: the CUDA backward takes a sliding window "
+            "with causal masking only (no training path gives another; "
+            "ROADMAP Queue 2 item 2 lists the backward's scope)")
+
+
+def flash_attention_bwd_cuda(q, k, v, lse, do, *, causal: bool = True,
+                             sliding_window: int = 0,
                              sm_scale: Optional[float] = None):
-    """Launch the backward kernels of causal self-attention (Sq == Sk,
-    q_offset 0), the dq kernel and then the dk/dv kernel (tensor cores for
-    bf16, CUDA cores for float32): q (B, S, H, D), k (B, S, KV, D), v (B,
-    S, KV, Dv), do (B, S, H, Dv), one dtype, contiguous, ``(D, Dv)`` in
-    :data:`BWD_HEAD_DIMS`; ``lse`` (B, H, S) float32 from the forward.
+    """Launch the backward kernels (q_offset 0), the dq kernel and then
+    the dk/dv kernel (tensor cores for bf16, CUDA cores for float32):
+    causal self-attention (Sq == Sk, an optional sliding window), or
+    without ``causal`` non-causal self-attention (an encoder) and
+    cross-attention (Sq != Sk). q (B, Sq, H, D), k (B, Sk, KV, D), v (B,
+    Sk, KV, Dv), do (B, Sq, H, Dv), one dtype, contiguous, ``(D, Dv)`` in
+    :data:`BWD_HEAD_DIMS`; ``lse`` (B, H, Sq) float32 from the forward.
     Returns (dq, dk, dv) in q's dtype, shaped as q, k and v."""
     global bwd_dq_launches, bwd_dkdv_launches
     global bwd_dq_wgmma_launches, bwd_dkdv_wgmma_launches
     _build.refuse_grad("flash_attention_bwd_cuda", _USE, q, k, v, do)
-    B, S, H, D = q.shape
-    KV, Dv = k.shape[2], v.shape[-1]
+    B, Sq, H, D = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     _check_inputs("flash_attention backward", q=q, k=k, v=v, do=do)
     check_head_dims(q.dtype, D, Dv, backward=True)
-    if (k.shape != (B, S, KV, D) or v.shape != (B, S, KV, Dv) or H % KV
-            or do.shape != (B, S, H, Dv)):
+    check_backward_scope(causal, sliding_window, 0)
+    if (k.shape != (B, Sk, KV, D) or v.shape != (B, Sk, KV, Dv) or H % KV
+            or do.shape != (B, Sq, H, Dv)):
         raise ValueError(f"flash_attention backward: shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}, do {tuple(do.shape)}")
-    if (lse.dtype != torch.float32 or lse.shape != (B, H, S)
+    if (lse.dtype != torch.float32 or lse.shape != (B, H, Sq)
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("flash_attention backward: lse must be contiguous "
-                         f"float32 (B, H, S) on q's card, got {lse.dtype} "
+                         f"float32 (B, H, Sq) on q's card, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     if sm_scale is None:
         sm_scale = 1.0 / (D ** 0.5)
@@ -217,8 +262,8 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, *, sliding_window: int = 0,
     delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dq_fn, dkdv_fn = _bwd_fns()
-    shape = (_DTYPES[q.dtype], B, S, H, KV, D, Dv, int(sliding_window),
-             float(sm_scale))
+    shape = (_DTYPES[q.dtype], B, Sq, Sk, H, KV, D, Dv, int(causal),
+             int(sliding_window), float(sm_scale))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
     tc = q.dtype == torch.bfloat16
@@ -234,29 +279,32 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, *, sliding_window: int = 0,
         with _count_lock:
             bwd_dkdv_launches += 1
             bwd_dkdv_wgmma_launches += int(tc)
+            bwd_mask_launches[_mask(causal, Sq, Sk)] += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal self-attention on the card with a backward: the forward kernel
-    (which also writes the logsumexp), then the backward kernels."""
+    """Attention on the card with a backward -- causal or not, self- or
+    cross-attention: the forward kernel (which also writes the logsumexp
+    of every q row), then the backward kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sliding_window: int, sm_scale):
-        o, lse = flash_attention_cuda(q, k, v, causal=True,
+    def forward(ctx, q, k, v, causal: bool, sliding_window: int, sm_scale):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal,
                                       sliding_window=sliding_window,
                                       sm_scale=sm_scale, return_lse=True)
         ctx.save_for_backward(q, k, v, lse)
-        ctx.sliding_window, ctx.sm_scale = sliding_window, sm_scale
+        ctx.causal, ctx.sliding_window = causal, sliding_window
+        ctx.sm_scale = sm_scale
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, lse, do.contiguous(),
+            q, k, v, lse, do.contiguous(), causal=ctx.causal,
             sliding_window=ctx.sliding_window, sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
@@ -273,10 +321,7 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
         return flash_attention_cuda(q, k, v, causal=causal,
                                     sliding_window=sliding_window,
                                     q_offset=q_offset, sm_scale=sm_scale)
-    if not (causal and q_offset == 0 and q.shape[1] == k.shape[1]):
-        raise NotImplementedError(
-            "flash_attention: the CUDA backward takes causal self-attention "
-            "(Sq == Sk, q_offset 0) only; cross-attention and q_offset are "
-            "ROADMAP Queue 2 item 2")
+    check_backward_scope(causal, sliding_window, q_offset)
     check_head_dims(q.dtype, q.shape[-1], v.shape[-1], backward=True)
-    return FlashAttention.apply(q, k, v, int(sliding_window), sm_scale)
+    return FlashAttention.apply(q, k, v, bool(causal), int(sliding_window),
+                                sm_scale)

@@ -50,6 +50,9 @@ launches = 0
 #: launches by ``k_offset`` since the last reset: {offset: count} (a rank's
 #: cache shard on a mesh carries its shard's offset)
 offset_launches: Dict[int, int] = {}
+#: launches by cache length since the last reset: {L: count} (whisper's
+#: cross-attention decodes over its 1,500-position encoder cache)
+length_launches: Dict[int, int] = {}
 _count_lock = threading.Lock()
 
 
@@ -59,6 +62,7 @@ def reset_counts() -> None:
     with _count_lock:
         launches = 0
         offset_launches.clear()
+        length_launches.clear()
 
 
 def split_plan(B: int, KV: int, L: int, sms: int = H100_SMS) -> int:
@@ -189,6 +193,7 @@ def flash_decode_cuda_partials(q, k, v, cur_pos, *, k_offset: int = 0,
         launches += 1
         offset_launches[int(k_offset)] = offset_launches.get(
             int(k_offset), 0) + 1
+        length_launches[L] = length_launches.get(L, 0) + 1
     return (out.as_strided((B, H), (H, 1), 0),
             out.as_strided((B, H), (H, 1), bh),
             out.as_strided((B, H, D), (H * D, D, 1), 2 * bh))

@@ -18,6 +18,17 @@ sites:
   .flash_decode` where the reference calls ``flash_decode_partial_ref``
   (``attention.py:268-272``).
 
+Cross-attention (whisper's decoder, ``init_gqa(..., cross=True)``: no qkv
+bias) is :func:`gqa_forward` with ``kv_src=`` the encoder states: q from
+x, k and v from them, RoPE on q at the decoder positions and on k at the
+encoder's (``kv_positions``), as the reference applies it
+(``attention.py:102-158``), then the attention forward with
+``causal=False`` (also the encoder's self-attention). Its decode half is
+:func:`cross_attn_decode`, the reference's ``_cross_attn_decode``
+(``transformer.py:231-242``): q unrotated over the static cross cache,
+through the decode attention with every row at ``cur_pos = enc_len - 1``,
+whose mask then passes all of the encoder's keys.
+
 On CUDA tensors both launch the Hopper kernels; on CPU tensors they run the
 plain versions; on a mesh each rank launches them on its own shard (the
 decode kernel at its shard's ``k_offset``). Weights are cast to the
@@ -77,11 +88,12 @@ def _kv_slice(w, cfg: ModelConfig, plan: MeshPlan, hd: int):
 
 class GQAttention(nn.Module):
     """GQA weights: ``wq (d, Hp*hd)``, ``wk``/``wv (d, KV*hd)``,
-    ``wo (Hp*hd, d)``, optional biases and per-head q/k norms — the
-    reference's param names and layouts (``x @ w``)."""
+    ``wo (Hp*hd, d)``, optional biases (never on a ``cross`` layer, as in
+    the reference's ``init_gqa``) and per-head q/k norms — the reference's
+    param names and layouts (``x @ w``)."""
 
     def __init__(self, cfg: ModelConfig, plan: MeshPlan, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         Hp, KV = cfg.padded_heads(plan.tp), cfg.num_kv_heads
@@ -90,7 +102,7 @@ class GQAttention(nn.Module):
         self.wk = param(torch.empty((d, KV * hd), **kw))
         self.wv = param(torch.empty((d, KV * hd), **kw))
         self.wo = param(torch.empty((Hp * hd, d), **kw))
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             self.bq = param(torch.zeros((Hp * hd,), **kw))
             self.bk = param(torch.zeros((KV * hd,), **kw))
             self.bv = param(torch.zeros((KV * hd,), **kw))
@@ -99,10 +111,10 @@ class GQAttention(nn.Module):
             self.k_norm = param(torch.ones((hd,), **kw))
 
 
-def init_gqa(gen: torch.Generator, cfg: ModelConfig,
-             plan: MeshPlan) -> GQAttention:
+def init_gqa(gen: torch.Generator, cfg: ModelConfig, plan: MeshPlan,
+             cross: bool = False) -> GQAttention:
     with torch.device("meta"):
-        p = GQAttention(cfg, plan)              # shapes only; filled below
+        p = GQAttention(cfg, plan, cross=cross)  # shapes only; filled below
     d, hd = cfg.d_model, cfg.head_dim
     Hp, KV = cfg.padded_heads(plan.tp), cfg.num_kv_heads
     wq = dense_init(gen, (d, Hp * hd))
@@ -123,36 +135,43 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _project_qkv(p: GQAttention, x, cfg: ModelConfig, plan: MeshPlan,
-                 positions):
+                 positions, kv_src=None, kv_positions=None):
+    """q from x, k and v from ``kv_src`` (x itself for self-attention, the
+    encoder states for cross-attention), RoPE on q at ``positions`` and on
+    k at ``kv_positions`` (``positions`` for self-attention)."""
     hd = cfg.head_dim
     qh, n_kv = q_heads_local(cfg, plan), kv_heads_local(cfg, plan)
-    B, S = x.shape[0], x.shape[1]
+    kv_src = x if kv_src is None else kv_src
+    kv_positions = positions if kv_positions is None else kv_positions
+    B, S, Skv = x.shape[0], x.shape[1], kv_src.shape[1]
     dt = x.dtype
     q = x @ p.wq.to(dt)
-    k = x @ _kv_slice(p.wk, cfg, plan, hd).to(dt)
-    v = x @ _kv_slice(p.wv, cfg, plan, hd).to(dt)
-    if cfg.qkv_bias:
+    k = kv_src @ _kv_slice(p.wk, cfg, plan, hd).to(dt)
+    v = kv_src @ _kv_slice(p.wv, cfg, plan, hd).to(dt)
+    if hasattr(p, "bq"):
         q = q + p.bq.to(dt)
         k = k + _kv_slice(p.bk, cfg, plan, hd).to(dt)
         v = v + _kv_slice(p.bv, cfg, plan, hd).to(dt)
     q = q.reshape(B, S, qh, hd)
-    k = k.reshape(B, S, n_kv, hd)
-    v = v.reshape(B, S, n_kv, hd)
+    k = k.reshape(B, Skv, n_kv, hd)
+    v = v.reshape(B, Skv, n_kv, hd)
     if cfg.qk_norm:                 # per head, before RoPE
         q = rms_norm(q, p.q_norm.to(dt), cfg.norm_eps)
         k = rms_norm(k, p.k_norm.to(dt), cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
+    k = apply_rope(k, kv_positions, cfg.rope_fraction, cfg.rope_theta)
     return q, k, v
 
 
 def gqa_forward(p: GQAttention, x, cfg: ModelConfig, plan: MeshPlan,
-                positions, causal: bool = True, sliding_window: int = 0):
-    """Prefill self-attention at this rank's local heads. Returns
-    ``(y, (k, v))``: the output projection, P(sum) over the model axis,
-    and this rank's kv heads' (post-RoPE) keys and values over the whole
-    sequence."""
-    q, k, v = _project_qkv(p, x, cfg, plan, positions)
+                positions, causal: bool = True, sliding_window: int = 0,
+                kv_src=None, kv_positions=None):
+    """Prefill attention at this rank's local heads: self-attention, or
+    with ``kv_src`` (the encoder states, ``kv_positions`` theirs)
+    cross-attention. Returns ``(y, (k, v))``: the output projection,
+    P(sum) over the model axis, and this rank's kv heads' (post-RoPE) keys
+    and values over the whole key sequence."""
+    q, k, v = _project_qkv(p, x, cfg, plan, positions, kv_src, kv_positions)
     out = flash_attention(q, k, v, causal=causal,
                           sliding_window=sliding_window)
     B, S = x.shape[0], x.shape[1]
@@ -252,6 +271,28 @@ def gqa_decode(p: GQAttention, x, cache_k, cache_v, pos, cfg: ModelConfig,
         out = acc / torch.clamp_min(ll, 1e-30)[..., None]
     out = out.to(x.dtype)
     return out.reshape(B, 1, -1) @ p.wo.to(x.dtype)
+
+
+def cross_attn_decode(p: GQAttention, x, xk, xv, cfg: ModelConfig,
+                      plan: MeshPlan):
+    """Decode-time cross-attention (the reference's ``_cross_attn_decode``,
+    ``transformer.py:231-242``): the local q heads, UNROTATED as the
+    reference leaves them, over the whole static cross cache ``xk``/``xv``
+    ``(B, enc_len, KV, hd)`` cast to x's dtype; no cache update. The
+    decode attention runs with every row at ``cur_pos = enc_len - 1`` and
+    ``k_offset`` 0, whose mask then passes every key: the reference's
+    non-causal ``attention_dense_ref`` over the cache. x: (B, 1, d);
+    returns the output projection (B, 1, d)."""
+    B, hd = x.shape[0], cfg.head_dim
+    qh = q_heads_local(cfg, plan)
+    dt = x.dtype
+    q = (x @ p.wq.to(dt)).reshape(B, 1, qh, hd)
+    k, v = xk.to(dt), xv.to(dt)
+    cur = torch.full((B,), k.shape[1] - 1, dtype=torch.int32,
+                     device=q.device)
+    _, ll, acc = flash_decode(q[:, 0], k, v, cur_pos=cur)
+    out = (acc / torch.clamp_min(ll, 1e-30)[..., None]).to(dt)
+    return out.reshape(B, 1, qh * hd) @ p.wo.to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ init/loss/prefill/decode closures becomes the
 its config and plan), :func:`loss_fn`, and decode caches as one dict per
 layer: ``{"k", "v"}`` for GQA attention, ``{"c", "kpe"}`` for MLA (the
 latent and the rope key), ``{"h", "tail_x", "tail_bc"}`` for an SSM
-layer. On a mesh each rank holds its block of every cache
+layer, and an encoder-decoder's also its cross keys and values ``{"xk",
+"xv"}`` over the encoder's ``encoder_seq`` positions. On a mesh each rank holds its block of every cache
 (:func:`cache_specs`): the batch over the data axes, a GQA layer's k/v
 also over ``model`` by sequence, an MLA layer's latent replicated over
 it, an SSM layer's state over ``model`` by head and its x conv tail by
@@ -22,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sbp import NdSbp, ndsbp
 from repro_torch.models import transformer as T
+from repro_torch.models.attention import kv_heads_local
 from repro_torch.models.common import MeshPlan
 from repro_torch.models.mamba import init_mamba_state
 
@@ -46,20 +48,29 @@ def _block_cache(cfg: ModelConfig, plan: MeshPlan, kind: str, batch: int,
     layer's state ``h`` is float32 whatever the dtype. ``batch`` is this
     rank's rows; a GQA layer holds ``cache_len / tp`` positions, an MLA
     layer all ``cache_len`` of its latent ``c (B, L, r)`` and rope key
-    ``kpe (B, L, rope)`` (``repro/models/model_zoo.py:70-72``)."""
+    ``kpe (B, L, rope)`` (``repro/models/model_zoo.py:70-72``); an
+    encoder-decoder's layer also ``xk``/``xv (B, encoder_seq, KV, hd)``
+    (``:87-90``)."""
     adt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     if kind == "ssm":
         h, tail_x, tail_bc = init_mamba_state(cfg, plan, batch, adt, device)
-        return {"h": h, "tail_x": tail_x, "tail_bc": tail_bc}
-    assert kind == "attn", kind
-    if cfg.use_mla:
-        return {key: torch.zeros((batch, cache_len, width), dtype=adt,
-                                 device=device)
-                for key, width in (("c", cfg.kv_lora_rank),
-                                   ("kpe", cfg.qk_rope_head_dim))}
-    shape = (batch, cache_len // plan.tp, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=adt, device=device),
-            "v": torch.zeros(shape, dtype=adt, device=device)}
+        c = {"h": h, "tail_x": tail_x, "tail_bc": tail_bc}
+    elif cfg.use_mla:
+        c = {key: torch.zeros((batch, cache_len, width), dtype=adt,
+                              device=device)
+             for key, width in (("c", cfg.kv_lora_rank),
+                                ("kpe", cfg.qk_rope_head_dim))}
+    else:
+        assert kind == "attn", kind
+        shape = (batch, cache_len // plan.tp, cfg.num_kv_heads, cfg.head_dim)
+        c = {"k": torch.zeros(shape, dtype=adt, device=device),
+             "v": torch.zeros(shape, dtype=adt, device=device)}
+    if cfg.encoder_decoder:
+        shape = (batch, cfg.encoder_seq, kv_heads_local(cfg, plan),
+                 cfg.head_dim)
+        c.update(xk=torch.zeros(shape, dtype=adt, device=device),
+                 xv=torch.zeros(shape, dtype=adt, device=device))
+    return c
 
 
 def make_decode_caches(cfg: ModelConfig, plan: MeshPlan, batch: int,
@@ -83,7 +94,8 @@ def cache_specs(cfg: ModelConfig, plan: MeshPlan,
     layer's k/v split by sequence (dim 1) over the model axis, an MLA
     layer's ``c``/``kpe`` replicated over it (``:122-124``); an SSM
     layer's ``h (B, heads, P, N)`` by head (dim 1) and ``tail_x (B,
-    d_conv-1, d_inner)`` by channel (dim 2), ``tail_bc`` replicated."""
+    d_conv-1, d_inner)`` by channel (dim 2), ``tail_bc`` replicated; an
+    encoder-decoder's ``xk``/``xv`` by head (dim 2, ``:135-137``)."""
     def comps(model_comp: str) -> NdSbp:
         return ndsbp(",".join("S(0)" if n in batch_axes else
                               model_comp if n == plan.model_axis else "B"
@@ -93,5 +105,7 @@ def cache_specs(cfg: ModelConfig, plan: MeshPlan,
     by_kind = {"attn": attn,
                "ssm": {"h": comps("S(1)"), "tail_x": comps("S(2)"),
                        "tail_bc": comps("B")}}
-    return [dict(by_kind[kind])
+    cross = ({"xk": comps("S(2)"), "xv": comps("S(2)")}
+             if cfg.encoder_decoder else {})
+    return [dict(by_kind[kind], **cross)
             for kind, _ in T.stack_layout(cfg).layer_kinds()]

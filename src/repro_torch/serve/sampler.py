@@ -16,7 +16,7 @@ actors and on the monolithic engine.
 The port cannot reproduce ``jax.random``'s streams: a sampled stream is held
 to its own reproducibility and to the reference's filter rule, not to the
 JAX package's tokens. ``temperature == 0`` delegates to
-:func:`repro_torch.api.greedy_from_logits` and is bitwise the default
+:func:`greedy_from_logits` and is bitwise the default
 (no-sampler) path.
 """
 from __future__ import annotations
@@ -24,6 +24,15 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+
+def greedy_from_logits(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Greedy token selection over a padded vocabulary: the padding columns
+    (>= ``vocab_size``) are masked to -inf first, so the result is always a
+    valid id. Ties go to the lowest id, as ``jnp.argmax``."""
+    mask = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
+    return torch.where(mask, float("-inf"), logits).argmax(dim=-1).to(
+        torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +111,6 @@ class SamplerStream:
         advancing the generator. ``temperature == 0`` is exact greedy --
         bitwise the ``greedy_from_logits`` path -- and draws nothing."""
         if self.spec.temperature == 0:
-            from repro_torch.api import greedy_from_logits
-
             return greedy_from_logits(logits, self.vocab_size)
         z = filter_logits(logits, self.spec, self.vocab_size)
         return gumbel_max(z, self.generator)

@@ -1,5 +1,5 @@
-"""The training step builder (port of ``repro/train/steps.py``'s
-``make_train_step``).
+"""The training and serving step builders (port of ``repro/train/steps.py``'s
+``make_train_step`` and ``make_serve_step``).
 
 The reference wraps the local step in ``shard_map`` over the mesh and
 ``jax.jit``s it. Here the step runs eagerly on the ranks of a
@@ -40,6 +40,18 @@ on the card an SSM layer's scan runs the SSD kernels forward and backward
 attention backward at MLA's ``(D, Dv)`` on the card and the routers'
 load-balance loss in the loss (``aux_loss``); on any other mesh they raise
 (ROADMAP Queue 1 item 13), as hybrid stacks do before any path is chosen.
+So do the frontend architectures, trained on one device plain and ZeRO at
+1 x 1 from the reference's batch forms (:func:`batch_specs`): an embed
+frontend (pixtral) from ``{"embeds", "labels"}``, an encoder-decoder
+(whisper) from ``{"tokens", "enc_embeds"}``; on the card the encoder's
+non-causal attention and the decoder's cross-attention run the attention
+backward kernels with ``causal=False``.
+
+:func:`make_serve_step` is the reference's serving step of its classic
+loop (``launch/serve.py:19-77``): the whole-model
+:func:`~repro_torch.models.transformer.prefill` and
+:func:`~repro_torch.models.transformer.decode_step`, the caches, and the
+decode head for the prefill's first token, on one device.
 """
 from __future__ import annotations
 
@@ -60,7 +72,11 @@ from repro_torch.models.common import (MODEL_GRAD_SUM_LEAVES, MeshPlan,
                                        resolve_device)
 from repro_torch.models.convert import jax_leaves
 from repro_torch.models.model_zoo import build_model, loss_fn
-from repro_torch.models.transformer import (Transformer, check_mesh_supported,
+from repro_torch.models import transformer as T
+from repro_torch.models.model_zoo import make_decode_caches
+from repro_torch.models.transformer import (Transformer, batch_inputs,
+                                            batch_tensors,
+                                            check_mesh_supported,
                                             check_supported, compute_dtype,
                                             mesh_loss_program, model_specs,
                                             shard_params)
@@ -71,6 +87,21 @@ from repro_torch.optim.zero import (ZeroState, combine_model_grads,
                                     model_combine_tree, plain_dp_adamw_update,
                                     scatter_grad_local, shard_master_local,
                                     zero_adamw_update)
+from repro_torch.serve.sampler import (  # noqa: F401 (re-exported)
+    greedy_from_logits)
+
+
+def batch_specs(cfg: ModelConfig, plan: MeshPlan, kind: str
+                ) -> Dict[str, Any]:
+    """Each batch key's signature over ``plan``'s mesh (reference
+    ``train/steps.py:37-56``): rows split over the data axes, replicated
+    over ``model``. ``kind`` "train": ``tokens``, or ``embeds`` and
+    ``labels`` for an embed frontend; "prefill": ``tokens``, or ``embeds``;
+    an encoder-decoder adds ``enc_embeds`` to either."""
+    from repro_torch.core.sbp import ndsbp
+    rows = ndsbp(",".join("B" if n == plan.model_axis else "S(0)"
+                          for n in plan.axis_names))
+    return dict.fromkeys(batch_inputs(cfg, kind), rows)
 
 
 @dataclasses.dataclass
@@ -140,8 +171,11 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
     axes (the reference's default); ``fsdp=True`` uses every mesh axis for
     data, as the reference.
 
-    ``step_fn(params, opt_state, batch)`` takes the global ``{"tokens":
-    (B, S+1)}`` int32 and returns ``(params, opt_state, metrics)``, the
+    ``step_fn(params, opt_state, batch)`` takes the global batch in the
+    reference's form for ``cfg`` (:func:`batch_specs`): ``{"tokens": (B,
+    S+1)}`` int32; for an embed frontend ``{"embeds": (B, S, d),
+    "labels": (B, S)}``; an encoder-decoder adds ``"enc_embeds": (B,
+    enc_len, d)``. It returns ``(params, opt_state, metrics)``, the
     params and state updated in place; metrics ``lm_loss``, ``aux_loss``,
     ``loss`` and ``grad_norm`` (pre-clip) are 0-d tensors on the device,
     on a mesh averaged over its ranks in rank order (the reference's
@@ -176,17 +210,16 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
     def step_fn(params: Transformer, opt_state: AdamWState, batch: Dict[str, Any]):
         named = leaves(params)
         loss, metrics = loss_fn(params, batch, remat=remat)
-        grads = torch.autograd.grad(loss, list(named.values()))
+        grads = _grads(loss, named)
         opt_state, gnorm = plain_dp_adamw_update(
-            optimizer, named, dict(zip(named, grads)), opt_state)
+            optimizer, named, grads, opt_state)
         metrics["grad_norm"] = gnorm
         return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
     def grad_fn(params: Transformer, batch: Dict[str, Any]):
         named = leaves(params)
         loss, _ = loss_fn(params, batch, remat=remat)
-        return loss.detach(), dict(zip(named, torch.autograd.grad(
-            loss, list(named.values()))))
+        return loss.detach(), _grads(loss, named)
 
     return TrainStep(step_fn, init_params, init_opt, plan, device, grad_fn)
 
@@ -194,18 +227,35 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
 METRICS = ("lm_loss", "aux_loss", "loss", "grad_norm")
 
 
-def _rank_rows(mesh: M.DeviceMesh, plan: MeshPlan, device: torch.device):
-    """A global batch -> each rank's block of its rows (by data index)."""
+def _or_zeros(grads: Dict[str, Any], like: Dict[str, torch.Tensor]):
+    """``grads`` with zeros (shaped as ``like``'s tensor of the name) where
+    no cotangent reached a leaf: a leaf the loss does not read (an embed
+    frontend's ``embed``), whose gradient JAX gives as zeros."""
+    return {n: torch.zeros_like(like[n]) if g is None else g
+            for n, g in grads.items()}
+
+
+def _grads(loss, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The gradient of ``loss`` for each of ``named`` (:func:`_or_zeros`)."""
+    return _or_zeros(dict(zip(named, torch.autograd.grad(
+        loss, list(named.values()), allow_unused=True))), named)
+
+
+def _rank_rows(mesh: M.DeviceMesh, plan: MeshPlan, device: torch.device,
+               cfg: ModelConfig):
+    """A global batch -> each rank's block of its rows (by data index) of
+    every batch input (:func:`~repro_torch.models.transformer
+    .batch_inputs`), in the loss program's input order."""
     rows = [data_index(mesh, plan, r) for r in range(mesh.size)]
 
-    def rank_rows(batch: Dict[str, Any]) -> List[torch.Tensor]:
-        tokens = torch.as_tensor(batch["tokens"], dtype=torch.int32,
-                                 device=device)
-        if tokens.shape[0] % plan.dp:
-            raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
-                             f"split over dp = {plan.dp}")
-        B_l = tokens.shape[0] // plan.dp
-        return [tokens[d * B_l:(d + 1) * B_l] for d in rows]
+    def rank_rows(batch: Dict[str, Any]) -> List[List[torch.Tensor]]:
+        bt = list(batch_tensors(batch, cfg, device).values())
+        B = bt[0].shape[0]
+        if B % plan.dp:
+            raise ValueError(f"a batch of {B} rows does not split over "
+                             f"dp = {plan.dp}")
+        B_l = B // plan.dp
+        return [[t[d * B_l:(d + 1) * B_l] for t in bt] for d in rows]
     return rank_rows
 
 
@@ -234,7 +284,8 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
     model_sum = [n for n in order if replication[n] > 1
                  and n.rsplit(".", 1)[-1] in MODEL_GRAD_SUM_LEAVES]
     ranks = list(range(mesh.size))
-    rank_rows = _rank_rows(mesh, plan, device)
+    rank_rows = _rank_rows(mesh, plan, device, cfg)
+    n_batch = len(batch_inputs(cfg))
 
     def init_params(seed: int = 0) -> MeshParams:
         return MeshParams(build_model(cfg, plan, seed=seed,
@@ -244,26 +295,26 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
     def init_opt(params: MeshParams) -> List[AdamWState]:
         return [init_adamw(mine) for mine in params.ranks]
 
-    def rank_grads(mine: Dict[str, torch.Tensor], tokens: torch.Tensor):
+    def rank_grads(mine: Dict[str, torch.Tensor], rows: List[torch.Tensor]):
         """This rank's losses ``(loss, lm_loss, aux_loss)`` and gradients,
         the model-disjoint leaves summed over ``model``: the taped forward
         and backward, then collectives outside autograd."""
         losses, tape = taped_forward(
-            program, diff, [tokens, *(mine[n] for n in
-                                      program.input_names[1:])])
-        grads = dict(zip(order, taped_backward(
-            tape, {"loss": torch.ones_like(losses[0])}, order)))
+            program, diff, [*rows, *(mine[n] for n in
+                                     program.input_names[n_batch:])])
+        grads = _or_zeros(dict(zip(order, taped_backward(
+            tape, {"loss": torch.ones_like(losses[0])}, order))), mine)
         for n in model_sum:
             grads[n] = M.psum(grads[n], plan.model_axis)
         return losses, grads
 
     def step_fn(params: MeshParams, opt_state: List[AdamWState],
                 batch: Dict[str, Any]):
-        tokens = rank_rows(batch)
+        rows = rank_rows(batch)
 
         def rank_step(r: int):
             mine = params.ranks[r]
-            (loss, lm, aux), grads = rank_grads(mine, tokens[r])
+            (loss, lm, aux), grads = rank_grads(mine, rows[r])
             state, gnorm = plain_dp_adamw_update(
                 optimizer, mine, grads, opt_state[r], plan, replication)
             return state, _metrics(plan, mesh, lm, aux, loss, gnorm)
@@ -272,10 +323,10 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
         return params, [o[0] for o in outs], outs[0][1]
 
     def grad_fn(params: MeshParams, batch: Dict[str, Any]):
-        tokens = rank_rows(batch)
+        rows = rank_rows(batch)
 
         def rank(r: int):
-            (loss, _, _), grads = rank_grads(params.ranks[r], tokens[r])
+            (loss, _, _), grads = rank_grads(params.ranks[r], rows[r])
             loss = M.psum(loss, plan.axis_names) / mesh.size
             return loss, data_mean(grads, plan)
 
@@ -411,7 +462,8 @@ def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
                    else plan.tp for n in order}
     combine = model_combine_tree(specs, plan)
     ranks = list(range(mesh.size))
-    rank_rows = _rank_rows(mesh, plan, device)
+    rank_rows = _rank_rows(mesh, plan, device, cfg)
+    n_batch = len(batch_inputs(cfg))
 
     def shard_params_fn(params) -> ZeroParams:
         state = (params.state_dict() if hasattr(params, "state_dict")
@@ -428,26 +480,27 @@ def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
     def init_opt(params: ZeroParams) -> List[ZeroState]:
         return [init_zero_flat(mine) for mine in params.ranks]
 
-    def rank_grads(mine: Dict[str, torch.Tensor], tokens: torch.Tensor):
+    def rank_grads(mine: Dict[str, torch.Tensor], rows: List[torch.Tensor]):
         """This rank's losses ``(loss, lm_loss, aux_loss)`` and its rows'
         gradients: the data mean, the model-disjoint leaves summed over
         ``model``. The gathers and their reduce-scatters run on the tape,
         outside autograd."""
         losses, tape = taped_forward(
-            program, diff, [tokens, *(mine[param_of[n]]
-                                      for n in program.input_names[1:])])
+            program, diff, [*rows, *(mine[param_of[n]]
+                                     for n in program.input_names[n_batch:])])
         cots = taped_backward(tape, {"loss": torch.ones_like(losses[0])},
                               [_master(n) for n in order])
-        grads = {n: g / plan.dp for n, g in zip(order, cots)}
+        grads = {n: g / plan.dp for n, g in _or_zeros(
+            dict(zip(order, cots)), mine).items()}
         return losses, combine_model_grads(grads, combine, plan)
 
     def step_fn(params: ZeroParams, opt_state: List[ZeroState],
                 batch: Dict[str, Any]):
-        tokens = rank_rows(batch)
+        rows = rank_rows(batch)
 
         def rank_step(r: int):
             mine = params.ranks[r]
-            (loss, lm, aux), grads = rank_grads(mine, tokens[r])
+            (loss, lm, aux), grads = rank_grads(mine, rows[r])
             state, gnorm = zero_adamw_update(
                 optimizer, mine, grads, opt_state[r], plan, replication)
             return state, _metrics(plan, mesh, lm, aux, loss, gnorm)
@@ -456,10 +509,10 @@ def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
         return params, [o[0] for o in outs], outs[0][1]
 
     def grad_fn(params: ZeroParams, batch: Dict[str, Any]):
-        tokens = rank_rows(batch)
+        rows = rank_rows(batch)
 
         def rank(r: int):
-            (loss, _, _), grads = rank_grads(params.ranks[r], tokens[r])
+            (loss, _, _), grads = rank_grads(params.ranks[r], rows[r])
             return M.psum(loss, plan.axis_names) / mesh.size, grads
 
         outs = M.spmd(rank, mesh)(ranks)
@@ -469,6 +522,80 @@ def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
     return TrainStep(step_fn, init_params, init_opt, plan, device, grad_fn,
                      mesh, zero=True, shard_params_fn=shard_params_fn,
                      gather_params_fn=gather_params_fn)
+
+
+# ---------------------------------------------------------------------------
+# serving: the reference's classic loop's step (``:257-340``)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ServeStep:
+    """The classic loop's programs on one device: ``prefill_fn(params,
+    batch) -> (h_last, caches)``, ``decode_fn(params, caches, tok, pos) ->
+    (logits, caches)`` (the caches updated in place), ``init_caches_fn(tok)
+    -> caches`` (zeroed, for tok's rows) and ``logits_fn(params, h_last) ->
+    logits``, the decode step's head; ``params`` is the
+    :class:`~repro_torch.models.transformer.Transformer` to serve (its
+    compute-dtype copy: :func:`make_serve_step`'s ``init_params``)."""
+
+    prefill_fn: Callable
+    decode_fn: Callable
+    init_caches_fn: Callable
+    logits_fn: Callable
+    init_params: Callable      # (seed) -> the seeded model, compute dtype
+    batch_specs: Dict[str, Any]
+    plan: MeshPlan
+    device: torch.device
+
+
+def make_serve_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
+                    cache_len: int = 0, device=None, sliding_window: int = 0,
+                    ring: bool = False) -> ServeStep:
+    """The serving step of the reference's classic loop (``make_serve_step``,
+    ``repro/train/steps.py:289-340``) for any arch the port builds, the
+    embed-frontend and encoder-decoder ones among them, on one device
+    (``device`` None: the card). ``logits_fn`` is the decode step's head
+    bit for bit, ``h_last[:, 0] @ unembed`` in h's dtype (the reference's
+    ``:329-337``): the prefill's first-token logits come from the same
+    product as every decode step's. A mesh, ``ring=True`` (the
+    sliding-window ring cache) and ``sliding_window > 0`` raise: ROADMAP
+    Queue 1 item 13, and on the card Queue 2 item 3(a)."""
+    check_supported(cfg)
+    check_mesh_supported(cfg, plan)
+    if not plan.is_single:
+        raise NotImplementedError(
+            "make_serve_step on a mesh is ROADMAP Queue 1 item 13 (the "
+            "classic loop serves on one device; api.compile(cfg, "
+            "mode='serve', mesh=...) serves token-frontend archs on one)")
+    if ring or sliding_window > 0:
+        raise NotImplementedError(
+            "make_serve_step: the sliding-window ring cache is ROADMAP "
+            "Queue 1 item 13, its decode kernel Queue 2 item 3(a)")
+    if cache_len < 1:
+        raise ValueError(f"cache_len={cache_len} must be >= 1")
+    device = resolve_device(device)
+    from repro_torch.models.model_zoo import build_model
+
+    def init_params(seed: int = 0) -> Transformer:
+        return build_model(cfg, plan, seed=seed, device=device,
+                           dtype=compute_dtype(cfg))
+
+    def prefill_fn(params: Transformer, batch):
+        return T.prefill(params, batch, cache_len)
+
+    def decode_fn(params: Transformer, caches, tok, pos):
+        return T.decode_step(params, caches, tok, pos)
+
+    def init_caches_fn(tok):
+        return make_decode_caches(cfg, plan, len(tok), cache_len, device)
+
+    def logits_fn(params: Transformer, h_last):
+        with torch.no_grad():
+            return h_last[:, 0] @ params.unembed.to(h_last.dtype)
+
+    return ServeStep(prefill_fn, decode_fn, init_caches_fn, logits_fn,
+                     init_params, batch_specs(cfg, plan, "prefill"), plan,
+                     device)
 
 
 # ---------------------------------------------------------------------------

@@ -562,11 +562,59 @@ def test_flash_attention_backward_matches_plain_autograd(cuda, case):
             _close(g, wv, dt)
 
 
-@pytest.mark.parametrize("kw", [dict(causal=False), dict(q_offset=8),
-                                dict(sk=48)])
+CROSS_BWD_CASES = [
+    # B, Sq, Sk, H, KV, D, dtype: non-causal (Sq == Sk) and cross (Sq != Sk)
+    (2, 1500, 1500, 16, 16, 64, "bfloat16"),   # whisper's encoder layer
+    (2, 448, 1500, 16, 16, 64, "bfloat16"),    # its decoder's cross layer
+    (2, 1500, 1500, 16, 16, 64, "float32"),
+    (2, 448, 1500, 16, 16, 64, "float32"),
+    (2, 37, 100, 4, 2, 64, "float32"),         # ragged, G 2
+    (1, 100, 37, 8, 2, 128, "bfloat16"),       # Sq > Sk, G 4, D 128
+    (2, 50, 50, 4, 2, 64, "bfloat16"),         # ragged encoder, G 2
+]
+
+
+@pytest.mark.parametrize("case", CROSS_BWD_CASES)
+def test_flash_attention_backward_non_causal_and_cross(cuda, case):
+    """The backward of non-causal self-attention and of cross-attention
+    (whisper's encoder and decoder shapes, ragged tails) against autograd
+    through the plain version: the tensor-core kernels for bf16 (also held
+    on float32 copies), the CUDA-core ones for float32."""
+    B, Sq, Sk, H, KV, D, dt = case
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (B, Sq, H, D), dt, cuda).requires_grad_(True)
+    k = _randn(rng, (B, Sk, KV, D), dt, cuda).requires_grad_(True)
+    v = _randn(rng, (B, Sk, KV, D), dt, cuda).requires_grad_(True)
+    do = _randn(rng, (B, Sq, H, D), dt, cuda)
+    counters = ("launches", "bwd_dq_launches", "bwd_dkdv_launches",
+                "wgmma_launches", "bwd_dq_wgmma_launches",
+                "bwd_dkdv_wgmma_launches")
+    before = [getattr(fa, c) for c in counters]
+    out = fa.flash_attention(q, k, v, causal=False)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    tc = int(dt == "bfloat16")
+    assert [getattr(fa, c) - n for c, n in zip(counters, before)] == [
+        1, 1, 1, tc, tc, tc]
+    ref = fa.plain_flash_attention(q, k, v, causal=False)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    _close(out, ref, dt)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape and g.abs().max() > 0
+        _close(g, wv, dt)
+    if dt == "bfloat16":
+        leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+        ref32 = fa.plain_flash_attention(*leaves, causal=False)
+        for g, wv in zip(got, torch.autograd.grad(ref32, leaves, do.float())):
+            _close(g, wv, dt)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=False, sliding_window=8),
+                                dict(q_offset=8),
+                                dict(sk=48, causal=False, q_offset=8)])
 def test_flash_attention_backward_scope_raises(cuda, kw):
-    """Cross-attention, q_offset and a non-causal mask have no CUDA
-    backward yet: asking for one raises before any launch."""
+    """q_offset, and a sliding window without causal masking, have no CUDA
+    backward: asking for one raises before any launch."""
     kw = dict(kw)
     sk = kw.pop("sk", 32)
     q = torch.zeros((1, 32, 2, 64), device=cuda, requires_grad=True)

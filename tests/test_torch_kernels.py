@@ -725,10 +725,12 @@ def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
     assert _build.library_path("k.cu") != first
 
 
-@pytest.mark.parametrize("kw", [dict(causal=False), dict(q_offset=4)])
+@pytest.mark.parametrize("kw", [dict(causal=False, sliding_window=4),
+                                dict(q_offset=4)])
 def test_flash_attention_backward_scope_raises(kw):
-    """The CUDA backward takes causal self-attention at q_offset 0; other
-    calls that need a gradient raise before launching."""
+    """The CUDA backward takes q_offset 0, causal or not, and a sliding
+    window only with causal masking; other calls that need a gradient raise
+    before launching."""
     q = torch.empty((1, 8, 2, 64), device="meta", requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fa_kernel.flash_attention(q, q, q, **kw)
