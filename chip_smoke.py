@@ -103,7 +103,11 @@ result line is printed:
    card vs CPU within 1e-3, every launch counted (whisper: 2 encoder, 2
    causal and 2 cross attention forwards, 4 decodes a step, 2 of them
    over the 64-frame cross cache), and 2 ZeRO 1 x 1 train steps each
-   against the CPU's plain steps, as reduced deepseek's;
+   against the CPU's plain steps, as reduced deepseek's; then reduced
+   jamba (float32: an ssm/dense and an attn/moe layer, one stage) served
+   through the kernels against the CPU's plain path as reduced qwen3 is,
+   every prefill's attention and SSD scan on the float32 CUDA-core
+   kernels;
 4. serve: qwen3-1.7b at full width, bf16, seeded init, through
    ``repro_torch.api.compile(backend="actors", stages=2)`` -- 12 requests of
    64-512 prompt tokens and 8-48 new tokens in 2 groups of 4 slots; then
@@ -114,7 +118,8 @@ result line is printed:
    kernel. One more monolithic run of the first 4 requests under
    torch.profiler, the device traced alone, gives the device's busy share
    and its kernels by time. Then the same for
-   mamba2-370m at full width and depth (48 SSM layers, bf16): one SSD scan
+   mamba2-370m at full width cut to ``MAMBA_SERVE_LAYERS`` = 24 of its 48
+   SSM layers (a cut for the script's time; bf16): one SSD scan
    call per layer per prefill, each on the tensor-core kernels, no
    attention kernel. Then paged, chunked and sampled serving, each run's
    launches counted as above (one decode per layer per decode item and per
@@ -165,7 +170,19 @@ result line is printed:
    (27 x 12 = 324 attention forwards at (192, 128) on the tensor cores, no
    decode kernel: MLA decodes by absorbed einsums over its latent cache),
    tok/s, peak memory and a device profile of the first 4 requests; the
-   model is freed before the training phases. Then the classic loop
+   model is freed before the next phase. Then jamba-v0.1-52b at full
+   width cut to 16 of its 32 layers (2 periods of 8: ssm/dense, ssm/moe,
+   ssm/dense, ssm/moe, attn/dense, ssm/moe, ssm/dense, ssm/moe; 16
+   experts top-2 at capacity factor 1.25; 25,998,322,688 params drawn
+   block by block in bf16, the SSM's float32-read leaves kept float32),
+   deepseek's geometry and requests, on the actors (2 stages) and then
+   the monolithic engine: tokens identical, launches exact (2 x 12 = 24
+   attention forwards and 14 x 12 = 168 SSD scans, all on the tensor
+   cores, and 2 decodes a decode item), each stage's cache term beside
+   what its caches hold, tok/s, peak memory and a device profile of the
+   first 4 requests; then 4 requests dense monolithic against paged
+   actors at ``cache_len=576``, tokens identical; the model is freed
+   before the training phases. Then the classic loop
    (``launch/serve.py:classic_loop``, ``make_serve_step``) at full width
    and depth in bf16: whisper-medium (24 encoder and 24 decoder layers,
    1,012,523,008 params) over 4 x 1,500 frame embeddings, and
@@ -308,15 +325,15 @@ result line is printed:
    snapshot, and the directory is removed at the end;
 9d. graph train on worker processes: 9c's configuration on
    ``runtime="processes"`` (one worker process per stage node, 5 in all),
-   one session alive at a time: P runs 3 steps, each bitwise U's of 9c
-   (loss, scale, and a fingerprint of every float32 master and moment:
-   two int64 sums of their bits computed on the card, one weighted by
-   position); K snapshots every step from the stage workers, its steps
-   1-2 bitwise P's, and is killed in step 3 by ``KillWorker("b1")``, an
-   ``os._exit(57)`` of b1's worker: a ``WorkerError`` naming node 2 and
-   exit code 57, and no worker process left; R
-   (``compile(runtime="processes", restore=)``) resumes from the files
-   the workers wrote, step count 2, and its step 3 is bitwise P's. 8 + 8
+   one session alive at a time: K snapshots every step from the stage
+   workers, its steps 1-2 bitwise U's of 9c (loss, scale, and a
+   fingerprint of every float32 master and moment: two int64 sums of
+   their bits computed on the card, one weighted by position), and is
+   killed in step 3 by ``KillWorker("b1")``, an ``os._exit(57)`` of b1's
+   worker: a ``WorkerError`` naming node 2 and exit code 57, and no
+   worker process left; R (``compile(runtime="processes", restore=)``)
+   resumes from the files the workers wrote, step count 2, and its step 3
+   is bitwise U's. 8 + 8
    xent launches every completed step, counted in the last stage's worker
    and summed in the driver; the snapshot steps' walls beside 9c's, the
    workers' start seconds and peak memory;
@@ -345,6 +362,10 @@ result line is printed:
    beside its float32 masters, moments and gradient sums on the card
    (never above the bound).
 
+The jamba rows (the SSD scan at 128 heads and N = 16, and at a
+2048-token prompt; the attention forward at 32 q heads over 8; decode of
+q (4, 32, 128) over a (4, 569, 8, 128) cache) carry the jamba actor
+run's launches.
 The MLA attention row carries the deepseek-v2-lite serve run's launches,
 its training-shape rows (forward, backward by kernel, the xent rows at
 its vocabulary) the deepseek-v2-lite train run's.
@@ -805,10 +826,15 @@ def check_flash_decode(dev):
     what = (f"flash_decode q{tuple(q.shape)} cache{tuple(k.shape)} "
             f"cur_pos {cur.tolist()} (parked row at {L - 1})")
     # one call runs the kernel alone: no PyTorch op on the card between
-    # its launch and the returned tensors (split combine included)
-    _, on_card = kernel_ms(lambda: fd.flash_decode(q, k, v, cur_pos=cur),
-                           ("",), iters=5)
-    print(f"flash_decode call: device work {sorted(on_card)}")
+    # its launch and the returned tensors (split combine included). A
+    # trace that comes back empty (the profiler's, now and then) shows
+    # nothing either way, so it is taken again, up to three times
+    for _ in range(3):
+        _, on_card = kernel_ms(
+            lambda: fd.flash_decode(q, k, v, cur_pos=cur), ("",), iters=5)
+        print(f"flash_decode call: device work {sorted(on_card)}")
+        if on_card:
+            break
     if not on_card or any("flash_decode_kernel" not in n for n in on_card):
         raise AssertionError("flash_decode: the call ran device work "
                              f"besides its kernel: {sorted(on_card)}")
@@ -1079,19 +1105,21 @@ def check_flash_attention_mla_train(dev):
 
 
 def check_ssd_scan(dev, H: int = 32, name: str = "ssd_scan",
-                   long_prompt: bool = True):
+                   long_prompt: bool = True, N: int = 128):
     """The SSD scan at the mamba2-370m prefill of the longest serve prompt
     (x (1, 512, H, 64) with H = 32, or a tp = 2 rank's 16 local heads; B
-    and C (1, 512, 1, 128) as views into one projection, as the model
-    passes them; the row's main numbers) and of a 2048-token prompt
-    (``long_prompt``: 16 chunks, how the chunk-parallel form scales), bf16,
-    then on float32 copies of the same inputs. No single PyTorch call
-    computes the scan: library "none"."""
+    and C (1, 512, 1, N) with N = 128 as views into one projection, as the
+    model passes them; the row's main numbers) or at jamba's (H = 128
+    heads, N = 16: the tensor-core kernels' 64-wide state panel mostly
+    padding) and of a 2048-token prompt (``long_prompt``: 16 chunks, how
+    the chunk-parallel form scales), bf16, then on float32 copies of the
+    same inputs. No single PyTorch call computes the scan: library
+    "none"."""
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
     def at(L, seed):
-        B, P, N, G, Q = 1, 64, 128, 1, 128
+        B, P, G, Q = 1, 64, 1, 128
         rng = np.random.default_rng(seed)
         mk = lambda *shape: torch.from_numpy(  # noqa: E731
             rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
@@ -1313,22 +1341,27 @@ def check_reference(dev, arch: str = "qwen3-1.7b"):
     """Reduced ``arch`` (float32) through the kernels on the card against
     the same weights on the CPU's plain path: prefill logits, then four
     decode steps fed the CPU's greedy tokens. Every prefill's attention
-    runs the float32 CUDA-core kernel (for deepseek-v2-lite at MLA's
-    reduced head dims, 96 / 64)."""
+    and SSD scan runs its float32 CUDA-core kernel (for deepseek-v2-lite at
+    MLA's reduced head dims, 96 / 64; for jamba, whose reduced stack is
+    one unit, on one stage)."""
     phase(f"reference (reduced {arch}, card vs CPU plain path)")
     from repro_torch.api import greedy_from_logits
     from repro_torch.configs.registry import get_config
     from repro_torch.core.lowering import lower_serve_stages
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.models.common import MeshPlan
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import stage_units
 
     cfg = get_config(arch).reduced()
     n0, w0 = fa.launches, fa.wgmma_launches
+    s0, sw0 = ssd.launches, ssd.wgmma_launches
     rng = np.random.default_rng(SEED + 2)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (37, 100)]
-    geo = dict(num_stages=2, cache_len=160, max_prompt_len=128,
-               group_size=len(prompts))
+    # two stages, or one where the reduced stack is one unit (jamba's)
+    geo = dict(num_stages=min(2, len(stage_units(cfg))), cache_len=160,
+               max_prompt_len=128, group_size=len(prompts))
     # the same seeded weights on each device (the init runs on the CPU)
     progs = {d: lower_serve_stages(
         cfg, build_model(cfg, MeshPlan.single_device(), seed=SEED,
@@ -1371,14 +1404,19 @@ def check_reference(dev, arch: str = "qwen3-1.7b"):
             toks = greedy_from_logits(out["cpu"], cfg.vocab_size).tolist()
             pos = [p_ + 1 for p_ in pos]
     torch.cuda.synchronize()
-    want = (cfg.num_layers * len(prompts), 0)
-    if (fa.launches - n0, fa.wgmma_launches - w0) != want:
-        raise AssertionError(f"reduced {arch}: attention launches "
-                             f"{fa.launches - n0} (tensor-core "
-                             f"{fa.wgmma_launches - w0}), expected {want}")
+    A, S = layer_counts(cfg)
+    want = {"attention": (A * len(prompts), 0),
+            "ssd_scan": (S * len(prompts), 0)}
+    got = {"attention": (fa.launches - n0, fa.wgmma_launches - w0),
+           "ssd_scan": (ssd.launches - s0, ssd.wgmma_launches - sw0)}
+    if got != want:
+        raise AssertionError(f"reduced {arch}: (launches, tensor-core "
+                             f"launches) {got}, expected {want}")
     print(f"reduced {arch} prefill + 4 decode steps: logits agree, max abs "
           f"err {worst:.3e} (bound 1e-3 + 1e-3*|ref|, float32); "
-          f"{want[0]} float32 attention launches, none on the tensor cores")
+          f"{want['attention'][0]} float32 attention launches and "
+          f"{want['ssd_scan'][0]} float32 SSD scans, none on the tensor "
+          "cores")
 
 
 def check_reference_train(dev, arch: str = "qwen3-1.7b", zero: bool = False):
@@ -1527,6 +1565,15 @@ def zero_serve_counts():
     fd.reset_counts()
 
 
+def layer_counts(cfg):
+    """``(attention layers, SSM layers)`` of ``cfg``'s stack: the layers
+    whose prefill runs the attention forward (and whose decode runs the
+    decode kernel), and those whose prefill runs the SSD scan."""
+    from repro_torch.models.transformer import stack_layout
+    kinds = [k for k, _ in stack_layout(cfg).layer_kinds()]
+    return kinds.count("attn"), kinds.count("ssm")
+
+
 def serve_requests(cfg, n_req: int = 12, seed: int = SEED + 3,
                    lens=(64, 512), gens=(8, 48)):
     """``n_req`` numpy-seeded requests: prompts of ``lens`` tokens (inclusive
@@ -1538,18 +1585,23 @@ def serve_requests(cfg, n_req: int = 12, seed: int = SEED + 3,
             for k, m in zip(n, g)]
 
 
-def serve(dev, arch: str):
-    """The main path: full-width ``arch`` on the stage actors, then the
+def serve(dev, arch: str, layers=None):
+    """The main path: full-width ``arch`` (cut to ``layers`` layers if
+    given) on the stage actors, then the
     same requests on the monolithic engine, each run's kernel launches
     counted and checked: per layer, one attention forward per prefill and
     one decode per decode item, or one SSD scan per prefill. Returns the
     launch counts of the actor run, and ``{"outs", "tok_per_s",
     "mono_tok_per_s"}``: its tokens and both runs' rates."""
-    phase(f"serve ({arch}, full width, bf16, actors x 2 stages)")
+    import dataclasses
     from repro_torch import api
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    phase(f"serve ({arch}, full width, {cfg.num_layers} layers, bf16, "
+          "actors x 2 stages)")
     requests = serve_requests(cfg)
     n_req = len(requests)
     geo = dict(num_groups=2, group_size=4, max_prompt_len=512,
@@ -1566,15 +1618,14 @@ def serve(dev, arch: str):
         out = session.generate(requests)
         got = serve_counts()
         st = session.last_stats
-        L = cfg.num_layers
-        ssm = cfg.family == "ssm"
+        A, S = layer_counts(cfg)
         # every bf16 attention forward and SSD scan on the tensor cores
-        want = {"flash_attention": 0 if ssm else L * st["prefill_items"],
-                "flash_fwd_wgmma_kernel":
-                    0 if ssm else L * st["prefill_items"],
-                "flash_decode": 0 if ssm else L * st["decode_items"],
-                "ssd_scan": L * st["prefill_items"] if ssm else 0,
-                "ssd_scan_wgmma": L * st["prefill_items"] if ssm else 0}
+        want = {"flash_attention": A * st["prefill_items"],
+                "flash_fwd_wgmma_kernel": A * st["prefill_items"],
+                "flash_decode": A * st["decode_items"],
+                "ssd_scan": S * st["prefill_items"],
+                "ssd_scan_wgmma": S * st["prefill_items"]}
+        L = cfg.num_layers
         print(f"launches on the {session.backend} run: {got} (expected "
               f"{want}: {L} layers, {st['prefill_items']} prefills, "
               f"{st['decode_items']} decode items)")
@@ -1692,15 +1743,16 @@ def counted_run(cfg, session, requests, what: str):
     got = serve_counts()
     peak = torch.cuda.max_memory_allocated()
     st = session.last_stats
-    L, ssm = cfg.num_layers, cfg.family == "ssm"
-    pre = L * st["prefill_items"]
-    steps = L * (st["decode_items"] + st["chunk_tokens"])
+    L = cfg.num_layers
+    A, S = layer_counts(cfg)
     # MLA decodes by absorbed einsums over its latent cache (as the
     # reference), no decode kernel
-    want = {"flash_attention": 0 if ssm else pre,
-            "flash_fwd_wgmma_kernel": 0 if ssm else pre,
-            "flash_decode": 0 if ssm or cfg.use_mla else steps,
-            "ssd_scan": pre if ssm else 0, "ssd_scan_wgmma": pre if ssm else 0}
+    want = {"flash_attention": A * st["prefill_items"],
+            "flash_fwd_wgmma_kernel": A * st["prefill_items"],
+            "flash_decode": 0 if cfg.use_mla else
+            A * (st["decode_items"] + st["chunk_tokens"]),
+            "ssd_scan": S * st["prefill_items"],
+            "ssd_scan_wgmma": S * st["prefill_items"]}
     print(f"{what}: launches {got} (expected {want}: {L} layers, "
           f"{st['prefill_items']} prefills, {st['decode_items']} decode "
           f"items, {st['chunk_items']} chunks of {st['chunk_tokens']} "
@@ -1781,8 +1833,8 @@ def serve_deepseek(dev):
     reference does); tok/s, peak memory, then a device profile of the
     first 4 requests. The model is freed before it returns. Returns the
     actor run's launches."""
-    phase(f"serve ({DEEPSEEK}, full width, bf16, actors x 2 stages, then "
-          "monolithic)")
+    phase(f"serve ({DEEPSEEK}, full width and depth, bf16, actors x 2 "
+          "stages, then monolithic)")
     t0 = time.perf_counter()
     cfg, model = seeded_model(DEEPSEEK, dev)
     torch.cuda.synchronize()
@@ -1818,6 +1870,131 @@ def serve_deepseek(dev):
     if not same:
         raise AssertionError(f"{DEEPSEEK}: actors and monolithic tokens "
                              "differ")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["actors"]
+
+
+JAMBA = "jamba-v0.1-52b"
+# jamba served at full width cut to 2 of its 4 periods (16 of 32 layers):
+# 48.4 GiB of bf16 weights; the whole model's 96 GiB do not fit the card
+JAMBA_LAYERS = 16
+JAMBA_SSD = "ssd_scan (jamba, 128 heads, N 16)"
+JAMBA_ATTN = "flash_attention (jamba, GQA 32 / 8)"
+JAMBA_DECODE = "flash_decode (jamba, 32 q heads)"
+# the serve phase's cache_len at deepseek's geometry: 512 + 48 + 9
+JAMBA_CACHE_LEN = 569
+
+
+def check_jamba_kernels(dev):
+    """jamba's three kernel rows at its serving shapes: the SSD scan at 128
+    heads of 64 and d_state 16 (x (1, 512, 128, 64), B and C (1, 512, 1,
+    16) bf16, chunk 128: the tensor-core kernels pad the state to one
+    64-column panel, zero past N), also at a 2048-token prompt; the
+    attention forward at q (1, 512, 32, 128) over kv (1, 512, 8, 128) bf16,
+    causal; decode of q (4, 32, 128) over a (4, 569, 8, 128) bf16 cache
+    (a parked row at 568). Each held to its plain version, bf16 and on
+    float32 copies, and timed against its bound and library call."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    rows = [check_ssd_scan(dev, H=128, N=16, name=JAMBA_SSD)]
+    attn = {"name": JAMBA_ATTN, **ATTENTION_ROW}
+    attn.update(attention_row(dev, 1, 512, 32, 8, 128, SEED + 13))
+    rows.append(attn)
+    B, H, KV, D, L = 4, 32, 8, 128, JAMBA_CACHE_LEN
+    rng = np.random.default_rng(SEED + 14)
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+    q, k, v = mk(B, H, D), mk(B, L, KV, D), mk(B, L, KV, D)
+    cur = torch.tensor([70, 300, 511, L - 1], dtype=torch.int32, device=dev)
+    rows.append(decode_row({
+        "name": JAMBA_DECODE, **DECODE_ROW,
+        "splits": fd.split_plan(B, KV, L, fd.sm_count(q.device))},
+        q, k, v, cur, f"flash_decode q{tuple(q.shape)} cache"
+        f"{tuple(k.shape)} cur_pos {cur.tolist()}"))
+    return rows
+
+
+def serve_jamba(dev):
+    """jamba-v0.1-52b at full width cut to ``JAMBA_LAYERS`` = 16 layers
+    (two periods, so two stages of one period each), seeded and drawn
+    block by block in bf16 (the SSM's float32-read leaves kept float32:
+    48.4 GiB, where one float32 copy of the 16 layers would be 104 GB), in
+    deepseek's geometry and requests: the stage actors, then the
+    monolithic engine on the same weights, tokens identical, each run's
+    launches exact (per prefill 2 attention forwards and 14 SSD scans, on
+    the tensor cores; 2 decodes a decode item), each stage's cache term of
+    the static bound beside what its caches hold, tok/s, peak memory and a
+    device profile of the first 4 requests; then 4 requests dense
+    monolithic against paged actors at ``cache_len=576`` (its KV pages and
+    SSM state rows in the same stages), tokens identical. The model is
+    freed before it returns. Returns the actor run's launches."""
+    phase(f"serve ({JAMBA}, full width, {JAMBA_LAYERS} layers, bf16, actors "
+          "x 2 stages, then monolithic, then paged)")
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    cfg = dataclasses.replace(get_config(JAMBA), num_layers=JAMBA_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, MeshPlan.single_device(), seed=SEED, device=dev,
+                        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"seeded {n:,} params ({held / 2**30:.2f} GiB) in "
+          f"{time.perf_counter() - t0:.1f} s; peak memory of the init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    A, S = layer_counts(cfg)
+    requests = serve_requests(cfg)
+    geo = dict(num_groups=2, group_size=4, max_prompt_len=512,
+               max_new_tokens=48, seed=SEED)
+    outs, counts, rates = {}, {}, {}
+    for backend in ("actors", "monolithic"):
+        sess = compile_serve(cfg, model, backend, **geo)
+        if backend == "actors":
+            print(f"cache_len {sess.cache_len}")
+            print(sess.describe())
+            if sess.cache_len != JAMBA_CACHE_LEN:
+                raise AssertionError(f"{JAMBA}: cache_len {sess.cache_len}, "
+                                     f"the kernel row's is {JAMBA_CACHE_LEN}")
+        outs[backend], counts[backend], _ = counted_run(
+            cfg, sess, requests, f"{JAMBA} {backend}")
+        st = sess.last_stats
+        c = counts[backend]
+        if ((A, S) != (2, 14) or c["flash_fwd_wgmma_kernel"] != 24
+                or c["ssd_scan_wgmma"] != 168 or c["ssd_scan"] != 168
+                or c["flash_decode"] != 2 * st["decode_items"]
+                or st["admitted_mid_flight"] < 1):
+            raise AssertionError(f"{JAMBA} {backend}: launches {c}, "
+                                 f"{st['decode_items']} decode items, "
+                                 f"{st['admitted_mid_flight']} admitted "
+                                 "mid-flight")
+        rates[backend] = st["tok_per_s"]
+        if backend == "actors":
+            cache_bound_vs_held(sess, f"{JAMBA} actors dense")
+        else:
+            profile_device(f"{JAMBA} monolithic generate (requests 0-3)",
+                           lambda: sess.generate(requests[:4]), cpu=False)
+        closed(sess)
+    same = same_tokens(outs["actors"], outs["monolithic"])
+    print(f"{JAMBA}: tokens identical on actors and monolithic: {same}; "
+          f"tok/s actors {rates['actors']:.2f}, monolithic "
+          f"{rates['monolithic']:.2f}")
+    if not same:
+        raise AssertionError(f"{JAMBA}: actors and monolithic tokens differ")
+    few = requests[:4]
+    dense = compile_serve(cfg, model, "monolithic", **PAGED_GEO)
+    ref, _, _ = counted_run(cfg, dense, few, f"{JAMBA} dense monolithic")
+    closed(dense)
+    paged = compile_serve(cfg, model, "actors", **PAGED_GEO, **PAGED)
+    got, _, _ = counted_run(cfg, paged, few, f"{JAMBA} paged actors")
+    closed(paged)
+    same = same_tokens(got, ref)
+    print(f"{JAMBA} paged actors: tokens identical to dense: {same}")
+    if not same:
+        raise AssertionError(f"{JAMBA}: paged tokens differ from dense")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2646,6 +2823,9 @@ def train_deepseek(dev):
 # the Mamba-2 phases: mamba2-370m trained on one device; then served and
 # trained on 2 ranks of "model" (tp = 2, each rank 16 of the 32 heads)
 MAMBA = "mamba2-370m"
+# the serve phase runs 24 of its 48 layers, a cut that keeps the whole
+# script near its time (its paged and mesh phases run all 48)
+MAMBA_SERVE_LAYERS = 24
 MAMBA_MESH, MAMBA_MESH_STEPS = (1, 2), 2
 # a float32 train step on the card against the CPU's plain path: the same
 # arithmetic summed in other orders (the reduced qwen3 check's limit)
@@ -3902,19 +4082,18 @@ def serve_processes(dev, cfg, model, threads_launches, threads_run):
 def graph_processes(dev, smi: str, threads):
     """The graph snapshot phase's configuration (qwen3-width graph, 4
     stages, ZeRO, bf16, dynamic loss scale) on ``runtime="processes"``:
-    one worker process per stage node, one session alive at a time. P
-    runs GRAPH_STEPS steps uninterrupted, each held bitwise to the threads
-    run U (its fingerprints, ``threads["fp"]``); K snapshots every step
-    from the stage workers and is killed in step 3 by KillWorker, a real
-    ``os._exit(57)`` of b1's worker: a WorkerError naming the node and the
-    code, no worker left alive, K's steps 1-2 bitwise P's; R
-    (``compile(runtime="processes", restore=)``) resumes from the files
-    the workers wrote and its step 3 is bitwise P's. 8 + 8 xent launches
-    (in the last stage's worker, summed in the driver) every completed
-    step. Returns the run's xent launches."""
+    one worker process per stage node, one session alive at a time. K
+    snapshots every step from the stage workers, its steps 1-2 held
+    bitwise to the threads run U (its fingerprints, ``threads["fp"]``),
+    and is killed in step 3 by KillWorker, a real ``os._exit(57)`` of
+    b1's worker: a WorkerError naming the node and the code, no worker
+    left alive; R (``compile(runtime="processes", restore=)``) resumes
+    from the files the workers wrote and its step 3 is bitwise U's. 8 + 8
+    xent launches (in the last stage's worker, summed in the driver)
+    every completed step. Returns the run's xent launches."""
     phase("graph train on worker processes (qwen3-1.7b widths, zero, bf16, "
-          "dynamic loss scale; uninterrupted P, snapshot-and-kill K, "
-          "restored R; one session at a time)")
+          "dynamic loss scale; snapshot-and-kill K, restored R; one "
+          "session at a time)")
     from repro_torch import api
     from repro_torch.core.lowering import OptimizerSpec
     from repro_torch.runtime.base import WorkerError
@@ -3932,7 +4111,7 @@ def graph_processes(dev, smi: str, threads):
                   stages=GRAPH_STAGES, regs="1f1b", runtime="processes")
     batch = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
     zero_xent_counts()
-    fps, walls = {}, {}
+    fps, walls = threads["fp"], {}
 
     def compiled(name, **kw):
         t = time.perf_counter()
@@ -3977,40 +4156,27 @@ def graph_processes(dev, smi: str, threads):
         if free < 2.5 * want_bytes:
             raise AssertionError(f"graph processes: {free:,} bytes free "
                                  f"under {root}")
-        sess, rt = compiled("P")
-        worker_lines(rt, dev)
-        try:
-            for k in range(1, GRAPH_STEPS + 1):
-                fps[k] = step("P", sess, k)
-                held_to(f"P step {k} vs the threads run U", fps[k],
-                        threads["fp"][k])
-            peaks = {n_: info["peak_bytes"]
-                     for n_, info in rt.last_worker_stats.items()}
-        finally:
-            sess.close()
-        all_stopped(rt, "P")
-        print("P: worker peak memory " + ", ".join(
-            f"node {n_} {b / 2**30:.2f} GiB" for n_, b in sorted(
-                peaks.items())))
-        gc.collect()
-        torch.cuda.empty_cache()
-
         kill = KillWorker("b1", fire=2 * GRAPH_M + 3)
         sess, rt = compiled("K", snapshot_dir=root, snapshot_every=1,
                             faults=FaultPlan([kill]))
+        worker_lines(rt, dev)
         killed = None
         try:
             for k in (1, 2):
-                held_to(f"K step {k} vs P", step("K", sess, k), fps[k])
+                held_to(f"K step {k} vs the threads run U",
+                        step("K", sess, k), fps[k])
+            print("K: worker peak memory " + ", ".join(
+                f"node {n_} {info['peak_bytes'] / 2**30:.2f} GiB"
+                for n_, info in sorted(rt.last_worker_stats.items())))
             hist = sess.executor.last_history
             writes = {a: round(e - b, 3) for a, spans in hist.items()
                       if a.startswith("snap") for b, e in spans}
             print(f"K: snapshot step walls {walls['K', 1]:.3f} / "
                   f"{walls['K', 2]:.3f} s, each stage written from its own "
                   f"worker (the snap actors' seconds in step 2: {writes}), "
-                  f"beside P's {walls['P', 2]:.3f} s and the threads "
-                  f"phase's snapshot step {threads['k_wall']:.3f} s (U "
-                  f"{threads['u_wall']:.3f} s) in this run; "
+                  f"beside the threads phase's snapshot step "
+                  f"{threads['k_wall']:.3f} s (U {threads['u_wall']:.3f} s) "
+                  f"in this run; "
                   f"{dir_bytes(step_dir(root, 2)):,} bytes on disk a "
                   f"snapshot; {smi}")
             before = xent_counts()
@@ -4048,14 +4214,15 @@ def graph_processes(dev, smi: str, threads):
         try:
             if sess.step_count != 2:
                 raise AssertionError(f"R: step_count {sess.step_count}")
-            held_to("R step 3 vs P's", step("R", sess, 3), fps[3])
+            held_to("R step 3 vs the threads run U's", step("R", sess, 3),
+                    fps[3])
         finally:
             sess.close()
         all_stopped(rt, "R")
         total = xent_counts()
         print(f"graph processes: xent launches over the run {total} "
-              f"(P {GRAPH_STEPS}, K 2 and R 1 completed steps, and K's "
-              f"launches before the kill); driver peak memory "
+              f"(K 2 and R 1 completed steps, and K's launches before the "
+              f"kill); driver peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         return total
     finally:
@@ -4746,14 +4913,18 @@ def main() -> int:
     kernels += [*check_flash_attention_mla_train(dev),
                 *check_xent(dev, Vl=deepseek_vocab(), label=DEEPSEEK_XENT)]
     kernels += check_whisper_kernels(dev)
+    kernels += check_jamba_kernels(dev)
     kernels[1]["paged_shape"] = check_paged_decode(dev)
     ssd_row = next(k for k in kernels if k["name"] == "ssd_scan")
+    jamba_ssd = next(k for k in kernels if k["name"] == JAMBA_SSD)
     for kr in kernels + [dict(kernels[0]["train_shape"],
                               name="flash_attention (training shape)"),
                          kernels[1]["paged_shape"],
                          kernels[1]["long_cache"],
                          dict(ssd_row["long_prompt"],
-                              name="ssd_scan (2048-token prompt)")]:
+                              name="ssd_scan (2048-token prompt)"),
+                         dict(jamba_ssd["long_prompt"],
+                              name=f"{JAMBA_SSD} (2048-token prompt)")]:
         lib = kr["library_ms"]
         print(f"{kr['name']}: kernel {kr['ms']:.4f} ms, wrapper call "
               f"{kr['wrapper_ms']:.4f} ms, plain {kr['plain_ms']:.4f} "
@@ -4772,10 +4943,11 @@ def main() -> int:
     for arch in (WHISPER, PIXTRAL):
         check_reference_classic(dev, arch)
         check_reference_train(dev, arch, zero=True)
+    check_reference(dev, JAMBA)
     served, threads_run = serve(dev, "qwen3-1.7b")
     threads_launches = dict(served)
     torch.cuda.empty_cache()
-    mamba, _ = serve(dev, "mamba2-370m")
+    mamba, _ = serve(dev, "mamba2-370m", layers=MAMBA_SERVE_LAYERS)
     served.update(ssd_scan=mamba["ssd_scan"],
                   ssd_scan_wgmma=mamba["ssd_scan_wgmma"])
     torch.cuda.empty_cache()
@@ -4797,6 +4969,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mamba_meshed = serve_mesh_mamba(dev)
     deepseek = serve_deepseek(dev)
+    jamba = serve_jamba(dev)
     classic = {arch: serve_classic(dev, arch) for arch in (WHISPER, PIXTRAL)}
     trained, curve = train(dev)
     torch.cuda.empty_cache()
@@ -4856,6 +5029,15 @@ def main() -> int:
         name = kr["name"]
         if name in frontend_rows:
             kr.update(frontend_rows[name])
+            continue
+        if name in (JAMBA_SSD, JAMBA_ATTN, JAMBA_DECODE):
+            # the jamba serve run (actors, 16 layers), every prefill's
+            # attention and SSD scan on the tensor cores
+            key = {JAMBA_SSD: "ssd_scan", JAMBA_ATTN: "flash_fwd_wgmma_kernel",
+                   JAMBA_DECODE: "flash_decode"}[name]
+            kr["launches"] = jamba[key]
+            if name == JAMBA_SSD:
+                kr["wgmma_launches"] = jamba["ssd_scan_wgmma"]
             continue
         if name == MLA_ROW_NAME:
             # the deepseek-v2-lite serve run (actors), every launch wgmma

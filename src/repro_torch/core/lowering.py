@@ -1597,7 +1597,10 @@ class ServeStage:
     ``init_caches(batch, device=None) -> caches`` allocates the zeroed
     group cache (on the stage's device; ``"meta"`` gives its shapes only);
     ``write_slot(caches, slot_caches, slot)`` copies a freshly prefilled
-    request into slot ``slot`` of it.
+    request into slot ``slot`` of it. ``slot_rows(caches, slot)`` gives
+    the views of slot ``slot``'s row in every leaf of the group cache (on a
+    mesh, on the ranks that hold it); it is set where a parked slot's rows
+    could reach the live slots (:func:`parked_rows_matter`), else None.
 
     On a ``mesh`` of several ranks each is a per-rank program run through
     :func:`repro_torch.core.mesh.spmd`: ``params`` and the caches are
@@ -1620,6 +1623,7 @@ class ServeStage:
     last: bool
     device: torch.device = None
     mesh: Optional[DeviceMesh] = None
+    slot_rows: Optional[Callable] = None
 
 
 class ServeStagedProgram:
@@ -1676,6 +1680,22 @@ def check_token_frontend(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name}: pipelined serving needs a token frontend "
             "(encoder-decoder / embed-frontend archs are not supported)")
+
+
+def parked_rows_matter(cfg: ModelConfig) -> bool:
+    """Whether a parked slot's decode can change what a live slot computes
+    or holds: through an SSM layer's whole-request state (a slot admitted
+    this round is parked in its group's decode of the round, and its
+    dummy token would advance the state its prefill just wrote) or an MoE
+    layer's capacity (a parked token competes with the live ones for
+    expert slots, and its hidden depends on what its rows hold). Such a
+    stack's stages get ``slot_rows``, through which the dense cache keeps
+    its parked rows inert, as the paged cache's are by construction, so
+    both caches serve the same tokens, on one device and on a mesh; for
+    attention with a dense MLP a parked row reaches nothing, and its
+    decode runs as it is."""
+    return T.has_ssm_layers(cfg) or any(
+        m == "moe" for _, m in T.stack_layout(cfg).layer_kinds())
 
 
 def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
@@ -1774,12 +1794,12 @@ def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
 
         if mesh is None:
             sparams = T.cast_copy(whole, adt)
-            write = write_slot
+            write, rows = write_slot, slot_rows
         else:
             sparams = [_shard_copy(whole, adt, cfg, plan, mesh.coords(r),
                                    mesh.devices[r])
                        for r in range(mesh.size)]
-            decode, prefill, init_caches, write = _rank_programs(
+            decode, prefill, init_caches, write, rows = _rank_programs(
                 mesh, plan, first, last, decode, prefill, layers, cfg,
                 cache_len)
 
@@ -1799,7 +1819,7 @@ def lower_serve_stages(cfg: ModelConfig, model: T.Transformer,
             index=s, decode=decode, prefill=prefill, chunk=chunk,
             init_caches=init_caches, write_slot=write, params=sparams,
             units=(lo, hi), first=first, last=last, device=device,
-            mesh=mesh))
+            mesh=mesh, slot_rows=rows if parked_rows_matter(cfg) else None))
     return ServeStagedProgram(cfg, plan, stages, cache_len, max_prompt_len,
                               group_size, device, mesh=mesh)
 
@@ -1818,7 +1838,8 @@ def _rank_programs(mesh: DeviceMesh, plan: MeshPlan, first: bool,
                    last: bool, decode, prefill, layers, cfg, cache_len):
     """A stage's per-rank ``decode``/``prefill`` (the one-rank programs
     given) as programs over the ranks of ``mesh``, with its
-    ``init_caches`` and ``write_slot``; see :class:`ServeStage`."""
+    ``init_caches``, ``write_slot`` and ``slot_rows``; see
+    :class:`ServeStage`."""
     ranks = list(range(mesh.size))
     data = [data_index(mesh, plan, r) for r in ranks]
     # the last stage's logits: rows over data (decode) or replicated
@@ -1851,15 +1872,29 @@ def _rank_programs(mesh: DeviceMesh, plan: MeshPlan, first: bool,
                                    else device, layers=layers)
                 for r in ranks]
 
-    def mesh_write_slot(caches, slot_caches, slot: int):
-        # only the data rank that owns the slot takes it, at its local index
+    def owners(caches, slot: int):
+        # the data rank that owns the slot holds it, at its local index
         b = next(iter(caches[0][0].values())).shape[0]
-        for r in ranks:
-            if data[r] == slot // b:
-                write_slot(caches[r], slot_caches[r], slot % b)
+        return [r for r in ranks if data[r] == slot // b], slot % b
+
+    def mesh_write_slot(caches, slot_caches, slot: int):
+        rs, local = owners(caches, slot)
+        for r in rs:
+            write_slot(caches[r], slot_caches[r], local)
         return caches
 
-    return mesh_decode, mesh_prefill, mesh_init_caches, mesh_write_slot
+    def mesh_slot_rows(caches, slot: int):
+        rs, local = owners(caches, slot)
+        return [v for r in rs for v in slot_rows(caches[r], local)]
+
+    return (mesh_decode, mesh_prefill, mesh_init_caches, mesh_write_slot,
+            mesh_slot_rows)
+
+
+def slot_rows(caches: List[dict], slot: int) -> List[torch.Tensor]:
+    """The views of slot ``slot``'s row in every leaf of the group
+    caches."""
+    return [t[slot] for layer in caches for t in layer.values()]
 
 
 def write_slot(caches: List[dict], slot_caches: List[dict],

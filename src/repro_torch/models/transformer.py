@@ -19,7 +19,11 @@ non-causal attn/dense stack over frame embeddings plus a sinusoid, its
 ``enc_norm``, and a cross-attention branch, ``ln_x`` and ``xattn``, in
 every decoder block of the body). Their serving is the reference's
 whole-model :func:`prefill` and :func:`decode_step` (its classic loop),
-not the stage slices. The reference stacks each period slot's params over periods and scans them;
+not the stage slices. A hybrid (jamba: Mamba-2 layers with a dense MLP
+or an MoE after the mixer, ``ssm``/``dense`` and ``ssm``/``moe``, one
+attention layer in 8) is served on one device through the stage slices;
+training it raises (:func:`check_trainable`, ROADMAP Queue 1 item 13).
+The reference stacks each period slot's params over periods and scans them;
 here a model is an ``nn.Module`` holding a flat ``blocks`` list in layer
 order, and :mod:`repro_torch.models.convert` maps the reference's stacked
 tree onto it (layer ``n_pro + i*P + j`` is ``body[j][...][i]``).
@@ -73,7 +77,8 @@ from repro_torch.models.mlp import (DenseMLP, MoE, dense_mlp_forward,
 
 Kind = Tuple[str, str]        # (layer kind, mlp kind)
 #: the layer kinds the port builds
-SUPPORTED_KINDS = (("attn", "dense"), ("ssm", "none"), ("attn", "moe"))
+SUPPORTED_KINDS = (("attn", "dense"), ("ssm", "none"), ("attn", "moe"),
+                   ("ssm", "dense"), ("ssm", "moe"))
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +130,21 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
             "Queue 1 item 13); the port builds attn/dense, attn/moe (GQA or "
-            "MLA) and ssm/none stacks, encoder-decoders and embed frontends")
+            "MLA), ssm/none, ssm/dense and ssm/moe stacks, encoder-decoders "
+            "and embed frontends")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a hybrid whose SSM layers carry an MLP (jamba): the port
+    serves it but does not train it yet (ROADMAP Queue 1 item 13), and no
+    training path may run such a layer without its MLP branch."""
+    hybrid = sorted({f"ssm/{m}" for k, m in stack_layout(cfg).layer_kinds()
+                     if k == "ssm" and m != "none"})
+    if hybrid:
+        raise NotImplementedError(
+            f"{cfg.name}: training {' and '.join(hybrid)} layers (a hybrid's "
+            "SSM layers with an MLP) is ROADMAP Queue 1 item 13; serve it "
+            "with api.compile(cfg, mode='serve')")
 
 
 def has_frontend(cfg: ModelConfig) -> bool:
@@ -179,7 +198,8 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 class Block(nn.Module):
     """One layer: ``ln1``, ``attn``, ``ln2``, ``mlp`` for an attn/dense
     ``kind`` (``ln2``, ``moe`` for attn/moe; ``attn`` is MLA when the
-    config says so); ``ln1``, ``ssm`` for an ssm/none one (no MLP). A
+    config says so); ``ln1``, ``ssm`` for an ssm/none one (no MLP), and
+    ``ln2`` with ``mlp`` or ``moe`` after it for ssm/dense or ssm/moe. A
     ``cross`` block (an encoder-decoder's decoder layer) also holds
     ``ln_x`` and ``xattn``, its cross-attention (reference
     ``transformer.py:81-99``)."""
@@ -197,9 +217,11 @@ class Block(nn.Module):
             self.xattn = GQAttention(cfg, plan, cross=True, **kw)
         if kind[0] == "ssm":
             self.ssm = Mamba(cfg, plan, **kw)
+        else:
+            self.attn = (MLAttention(cfg, plan, **kw) if cfg.use_mla
+                         else GQAttention(cfg, plan, **kw))
+        if kind[1] == "none":
             return
-        self.attn = (MLAttention(cfg, plan, **kw) if cfg.use_mla
-                     else GQAttention(cfg, plan, **kw))
         self.ln2 = param(torch.ones((d,), **kw))
         if kind[1] == "moe":
             self.moe = MoE(cfg, **kw)
@@ -267,9 +289,11 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, plan: MeshPlan,
         blk.xattn = init_gqa(gen, cfg, plan, cross=True)
     if kind == "ssm":
         blk.ssm = init_mamba(gen, cfg, plan)
+    else:
+        blk.attn = (init_mla(gen, cfg, plan) if cfg.use_mla
+                    else init_gqa(gen, cfg, plan))
+    if mlp_kind == "none":
         return cast_copy(blk, dtype)
-    blk.attn = (init_mla(gen, cfg, plan) if cfg.use_mla
-                else init_gqa(gen, cfg, plan))
     blk.ln2 = param(torch.ones((cfg.d_model,), device=gen.device))
     if mlp_kind == "moe":
         blk.moe = init_moe(gen, cfg)
@@ -369,14 +393,15 @@ def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
     ``xk``/``xv``, rounded to bfloat16 in a float32 config too."""
     psum = Boxer(plan).psum_model        # the branch P(sum) -> B
     h = rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps)
-    if kind == "ssm":
-        if not want_cache:
-            return x + psum(mamba_forward(p.ssm, h, cfg, plan)), None, None
-        a, (hs, (tx, tbc)) = mamba_forward(p.ssm, h, cfg, plan,
-                                           return_state=True)
-        return x + psum(a), None, {"h": hs, "tail_x": tx, "tail_bc": tbc}
     cache = None
-    if cfg.use_mla:
+    if kind == "ssm":
+        if want_cache:
+            a, (hs, (tx, tbc)) = mamba_forward(p.ssm, h, cfg, plan,
+                                               return_state=True)
+            cache = {"h": hs, "tail_x": tx, "tail_bc": tbc}
+        else:
+            a = mamba_forward(p.ssm, h, cfg, plan)
+    elif cfg.use_mla:
         a, (c, kpe) = mla_forward(p.attn, h, cfg, plan, positions,
                                   sliding_window)
         if want_cache:
@@ -399,6 +424,8 @@ def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
             cache = dict(cache or {}, xk=xk.to(torch.bfloat16),
                          xv=xv.to(torch.bfloat16))
         x = x + psum(ax)
+    if mlp_kind == "none":
+        return x, None, cache
     mo, aux = _mlp_branch(p, x, cfg, mlp_kind)
     return x + psum(mo), aux, cache
 
@@ -414,8 +441,7 @@ def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
                                            cache["tail_bc"]), cfg, plan)
         for key, new in zip(("h", "tail_x", "tail_bc"), state):
             cache[key].copy_(new)
-        return x + psum(a), cache
-    if cfg.use_mla:
+    elif cfg.use_mla:
         a = mla_decode(p.attn, h, cache["c"], cache["kpe"], pos, cfg, plan,
                        sliding_window)
     else:
@@ -426,7 +452,8 @@ def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
         hx = rms_norm(x, p.ln_x.to(x.dtype), cfg.norm_eps)
         x = x + psum(cross_attn_decode(p.xattn, hx, cache["xk"],
                                        cache["xv"], cfg, plan))
-    x = x + psum(_mlp_branch(p, x, cfg, mlp_kind)[0])
+    if mlp_kind != "none":
+        x = x + psum(_mlp_branch(p, x, cfg, mlp_kind)[0])
     return x, cache
 
 
@@ -569,7 +596,8 @@ def block_specs(cfg: ModelConfig, plan: MeshPlan, kind: Kind,
     router replicated, the shared experts as a dense MLP. ssm/none
     (``mamba.py:50-59``): ``w_x``, ``w_z``, ``w_dt`` S(1); ``w_bc``,
     ``conv_bc`` replicated; ``conv_x``, ``A_log``, ``D``, ``dt_bias``,
-    ``norm_w`` and ``out_proj`` S(0); ``ln1`` replicated. A ``cross``
+    ``norm_w`` and ``out_proj`` S(0); ``ln1`` replicated; ssm/dense and
+    ssm/moe add ``ln2`` and the MLP's or MoE's signatures. A ``cross``
     block adds ``ln_x`` (replicated) and ``xattn.*``, GQA's signatures
     without biases (``:108-110``). Only the 1 x 1 plan runs MLA, MoE and
     cross blocks (:func:`check_mesh_supported`), where every signature
@@ -581,25 +609,29 @@ def block_specs(cfg: ModelConfig, plan: MeshPlan, kind: Kind,
             xattn.update({"q_norm": B_, "k_norm": B_})
         return {**block_specs(cfg, plan, kind), "ln_x": B_,
                 **{"xattn." + n: v for n, v in xattn.items()}}
-    if kind == ("ssm", "none"):
-        return {"ln1": B_, **{"ssm." + n: v for n, v in (
+    assert kind in SUPPORTED_KINDS, kind
+    dense = {"w_gate": S1, "w_up": S1, "w_down": S0}
+    out = {"ln1": B_, **({} if kind[1] == "none" else {"ln2": B_})}
+    if kind[0] == "ssm":
+        out.update({"ssm." + n: v for n, v in (
             ("w_x", S1), ("w_z", S1), ("w_bc", B_), ("w_dt", S1),
             ("dt_bias", S0), ("A_log", S0), ("D", S0), ("conv_x", S0),
-            ("conv_bc", B_), ("norm_w", S0), ("out_proj", S0))}}
-    assert kind in (("attn", "dense"), ("attn", "moe")), kind
-    dense = {"w_gate": S1, "w_up": S1, "w_down": S0}
-    if cfg.use_mla:
-        attn = {"wkv_a": B_, "kv_norm": B_, "w_uk": S1, "w_uv": S1,
-                "wo": S0}
-        attn.update({"wq_a": B_, "q_norm": B_, "wq_b": S1}
-                    if cfg.q_lora_rank else {"wq": S1})
+            ("conv_bc", B_), ("norm_w", S0), ("out_proj", S0))})
     else:
-        attn = {"wq": S1, "wk": B_, "wv": B_, "wo": S0}
-        if cfg.qkv_bias:
-            attn.update({"bq": S0, "bk": B_, "bv": B_})
-        if cfg.qk_norm:
-            attn.update({"q_norm": B_, "k_norm": B_})
-    out = {"ln1": B_, "ln2": B_, **{"attn." + n: v for n, v in attn.items()}}
+        if cfg.use_mla:
+            attn = {"wkv_a": B_, "kv_norm": B_, "w_uk": S1, "w_uv": S1,
+                    "wo": S0}
+            attn.update({"wq_a": B_, "q_norm": B_, "wq_b": S1}
+                        if cfg.q_lora_rank else {"wq": S1})
+        else:
+            attn = {"wq": S1, "wk": B_, "wv": B_, "wo": S0}
+            if cfg.qkv_bias:
+                attn.update({"bq": S0, "bk": B_, "bv": B_})
+            if cfg.qk_norm:
+                attn.update({"q_norm": B_, "k_norm": B_})
+        out.update({"attn." + n: v for n, v in attn.items()})
+    if kind[1] == "none":
+        return out
     if kind[1] == "dense":
         out.update({"mlp." + n: v for n, v in dense.items()})
         return out
@@ -914,8 +946,10 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
     the encoder output (``:169-178``). The encoder output's cotangent is
     the sum of the decoder layers' cross-attention contributions, which
     the tape adds in its one fixed order (the reverse of the layers), so
-    repeated steps are bitwise equal."""
+    repeated steps are bitwise equal. A hybrid whose SSM layers carry an
+    MLP raises (:func:`check_trainable`)."""
     check_supported(cfg)
+    check_trainable(cfg)
     check_mesh_supported(cfg, plan)
     cdt = compute_dtype(cfg)
     eps, tp = cfg.norm_eps, plan.tp

@@ -1445,16 +1445,19 @@ class PrefillWork:
 @dataclasses.dataclass
 class DecodeWork:
     """Advance every slot of ``group`` by one token. ``tok``/``pos`` are
-    (group_size,) int32; retired slots are parked (see
-    :class:`repro_torch.serve.admission.AdmissionScheduler`). Under
-    ``cache="paged"``, ``sids``/``rows`` carry each slot's pool id and
-    page-table row (``-1`` rows for parked or mid-chunk slots)."""
+    (group_size,) int32; retired slots, and a slot admitted in this
+    round (its first token comes from its prefill), are parked (see
+    :class:`repro_torch.serve.admission.AdmissionScheduler`); ``parked``
+    names them. Under ``cache="paged"``, ``sids``/``rows`` carry each
+    slot's pool id and page-table row (``-1`` rows for parked or
+    mid-chunk slots)."""
 
     group: int
     tok: Any
     pos: Any
     sids: Any = None
     rows: Any = None
+    parked: Tuple[int, ...] = ()
 
 
 @dataclasses.dataclass
@@ -1494,25 +1497,58 @@ class DenseStageCache:
     """The dense per-group caches of one stage: one ``(group_size,
     cache_len, ...)`` block per slot group (on a mesh, a list of each
     rank's block of it), allocated the first time the group reaches the
-    stage."""
+    stage. Where the stage gives ``slot_rows`` (see
+    :func:`repro_torch.core.lowering.parked_rows_matter`) a decode's parked
+    rows are inert, as the paged cache's sentinel rows are: they are
+    zeroed before the decode, and a slot admitted since its group's last
+    decode (parked in it: its first token comes from its prefill) takes
+    its prefilled caches after that decode, so what the parked token wrote
+    there is overwritten."""
 
     def __init__(self, stage, group_size: int):
         self.stage = stage
         self.group_size = group_size
         self.caches: Dict[int, Any] = {}
+        self.rows: Dict[int, List[Dict[Any, list]]] = {}
+        self.held: Dict[int, Dict[int, Any]] = {}
 
     def _ensure(self, group: int) -> None:
-        if group not in self.caches:
-            self.caches[group] = self.stage.init_caches(self.group_size)
+        if group in self.caches:
+            return
+        caches = self.caches[group] = self.stage.init_caches(self.group_size)
+        if self.stage.slot_rows is not None:
+            # each slot's row views, by (device, dtype) for the foreach zero
+            self.rows[group] = []
+            for b in range(self.group_size):
+                by: Dict[Any, list] = {}
+                for v in self.stage.slot_rows(caches, b):
+                    by.setdefault((v.device, v.dtype), []).append(v)
+                self.rows[group].append(by)
 
     def write_prefill(self, work, slot_caches) -> None:
         self._ensure(work.group)
-        self.stage.write_slot(self.caches[work.group], slot_caches, work.slot)
+        if self.stage.slot_rows is None:
+            self.stage.write_slot(self.caches[work.group], slot_caches,
+                                  work.slot)
+        else:
+            self.held.setdefault(work.group, {})[work.slot] = slot_caches
 
     def run_decode(self, work, xin):
         self._ensure(work.group)
-        xout, _ = self.stage.decode(self.stage.params,
-                                    self.caches[work.group], xin, work.pos)
+        caches = self.caches[work.group]
+        held = self.held.pop(work.group, {})
+        for b in [b for b in held if b not in work.parked]:
+            self.stage.write_slot(caches, held.pop(b), b)
+        if work.parked and self.stage.slot_rows is not None:
+            zero: Dict[Any, list] = {}
+            for b in work.parked:
+                for key, vs in self.rows[work.group][b].items():
+                    zero.setdefault(key, []).extend(vs)
+            for vs in zero.values():
+                torch._foreach_zero_(vs)
+        xout, _ = self.stage.decode(self.stage.params, caches, xin, work.pos)
+        for b, slot_caches in held.items():
+            self.stage.write_slot(caches, slot_caches, b)
         return xout
 
     def run_chunk(self, work, xin):

@@ -128,8 +128,11 @@ class AdmissionScheduler:
                             for b in range(self.group_size)]
                     kw = {"sids": self._tensor(sids),
                           "rows": self._tensor(self.pool.rows(sids))}
+                parked = tuple(b for b in range(self.group_size)
+                               if b not in live)
                 work.append(DecodeWork(group=g, tok=self._tensor(tok),
-                                       pos=self._tensor(pos), **kw))
+                                       pos=self._tensor(pos), parked=parked,
+                                       **kw))
                 meta.append(("decode", g, live))
                 self.decode_items += 1
         self._first_round = False

@@ -77,7 +77,8 @@ from repro_torch.models.model_zoo import make_decode_caches
 from repro_torch.models.transformer import (Transformer, batch_inputs,
                                             batch_tensors,
                                             check_mesh_supported,
-                                            check_supported, compute_dtype,
+                                            check_supported, check_trainable,
+                                            compute_dtype,
                                             mesh_loss_program, model_specs,
                                             shard_params)
 from repro_torch.optim.adamw import AdamWConfig, AdamWState, init_adamw
@@ -184,6 +185,7 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
         plan = MeshPlan(plan.axis_names, plan.axis_sizes,
                         model_axis="__fsdp_none__")
     check_supported(cfg)
+    check_trainable(cfg)
     check_mesh_supported(cfg, plan)
     optimizer = optimizer or AdamWConfig()
     device = resolve_device(device)

@@ -55,6 +55,7 @@ from repro_torch.models.model_zoo import (build_model,  # noqa: E402
 from repro_torch.models.transformer import (Transformer,  # noqa: E402
                                             check_supported)
 from repro_torch.train.steps import make_train_step  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 ARCH = "deepseek-v2-lite-16b"
 F32 = dict(rtol=2e-4, atol=2e-5)
@@ -99,9 +100,18 @@ def env():
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 1000, (n,)).astype(np.int32)
                for n in PROMPT_LENS]
+    # the JAX functions the cases call, jitted once for the module (a
+    # compile a shape, shared by the cases of both layers)
+    jit = {("moe", f): jax.jit(lambda p, x, f=f: jax_moe_forward(
+        p, x, dataclasses.replace(cfg_j, capacity_factor=f), plan_j))
+        for f in (8.0, 1.0)}
+    jit["mla_forward"] = jax.jit(lambda p, x, pos: jax_mla_forward(
+        p, x, cfg_j, plan_j, pos))
+    jit["mla_decode"] = jax.jit(lambda p, x, c, kpe, pos: jax_mla_decode(
+        p, x, c, kpe, pos, cfg_j, plan_j))
     return dict(cfg_j=cfg_j, cfg_t=cfg_t, mesh=mesh, plan_j=plan_j,
                 params=params, np_params=np_params, state=state, model=model,
-                prompts=prompts)
+                prompts=prompts, jit=jit)
 
 
 def _layer(env, i):
@@ -142,8 +152,8 @@ def test_mla_forward_matches_jax(env, layer, S):
     p_j, blk = _layer(env, layer)
     x = _hidden(cfg_t, 2, S, seed=S + 10 * layer)
     pos = np.arange(S)
-    y_j, (c_j, kpe_j) = jax_mla_forward(p_j["attn"], jnp.asarray(x), cfg_j,
-                                        env["plan_j"], jnp.asarray(pos))
+    y_j, (c_j, kpe_j) = env["jit"]["mla_forward"](
+        p_j["attn"], jnp.asarray(x), jnp.asarray(pos))
     y_t, (c_t, kpe_t) = attention.mla_forward(
         blk.attn, torch.from_numpy(x), cfg_t, PLAN, torch.from_numpy(pos))
     assert y_t.shape == (2, S, cfg_t.d_model)
@@ -165,9 +175,9 @@ def test_mla_decode_matches_jax(env):
     c = rng.normal(size=(B, L, cfg_t.kv_lora_rank)).astype(np.float32)
     kpe = rng.normal(size=(B, L, cfg_t.qk_rope_head_dim)).astype(np.float32)
     pos = np.asarray([0, 9, L - 1], np.int32)
-    y_j, c_j, kpe_j = jax_mla_decode(p_j["attn"], jnp.asarray(x),
-                                     jnp.asarray(c), jnp.asarray(kpe),
-                                     jnp.asarray(pos), cfg_j, env["plan_j"])
+    y_j, c_j, kpe_j = env["jit"]["mla_decode"](
+        p_j["attn"], jnp.asarray(x), jnp.asarray(c), jnp.asarray(kpe),
+        jnp.asarray(pos))
     c_t, kpe_t = torch.from_numpy(c.copy()), torch.from_numpy(kpe.copy())
     y_t = attention.mla_decode(blk.attn, torch.from_numpy(x), c_t, kpe_t,
                                torch.from_numpy(pos), cfg_t, PLAN)
@@ -294,8 +304,7 @@ def test_moe_forward_matches_jax(env, factor, dup):
     cfg_t = dataclasses.replace(env["cfg_t"], capacity_factor=factor)
     p_j, blk = _layer(env, 1)
     x = _moe_input(cfg_t, 40 + int(factor), dup)
-    y_j, aux_j = jax_moe_forward(p_j["moe"], jnp.asarray(x), cfg_j,
-                                 env["plan_j"])
+    y_j, aux_j = env["jit"]["moe", factor](p_j["moe"], jnp.asarray(x))
     y_t, aux_t = mlp.moe_forward(blk.moe, torch.from_numpy(x), cfg_t)
     assert y_t.shape == x.shape and aux_t.dtype == torch.float32
     assert_allclose(_np(y_t), _np(y_j), **_moe_tol(y_j))
@@ -553,12 +562,19 @@ def test_tokens_match_jax_with_expert_drops(env):
     """Capacity factor 1.0: a decode group of 2 slots gives an expert 1
     token (cap = ceil(2 * 2 / 4)), so the slots compete for experts and
     tokens are dropped; the port's choice of which matches the
-    reference's, token for token."""
+    reference's, token for token. A parked slot's token competes too, and
+    what it reads decides which live token it displaces: the reference's
+    paged session reads zeros for it, its dense session the slot's stale
+    cache, and the two disagree (request 1 from its fourth token). The
+    port's dense and paged caches both keep parked rows inert
+    (``core/lowering.py:parked_rows_matter``), so the port is held to
+    the reference's paged session."""
     cfg_j = dataclasses.replace(env["cfg_j"], capacity_factor=1.0)
     cfg_t = dataclasses.replace(env["cfg_t"], capacity_factor=1.0)
     reqs = list(zip(env["prompts"], GENS))
     sj = jax_api.compile(cfg_j, mode="serve", backend="monolithic",
-                         params=env["params"], mesh=env["mesh"], **GEOMETRY)
+                         params=env["params"], mesh=env["mesh"], **PAGED,
+                         **GEOMETRY)
     st = api.compile(cfg_t, mode="serve", backend="monolithic",
                      params=env["state"], device="cpu", **GEOMETRY)
     want, got = sj.generate(reqs), st.generate(reqs)
@@ -597,9 +613,19 @@ def test_training_mla_and_moe_raises(env):
 @pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "ssm/moe"),
                                        ("deepseek-v3-671b", "MTP")])
 def test_hybrids_and_mtp_still_raise(arch, what):
+    """MTP is not built. A hybrid's ssm/moe layers are built and served
+    (``tests/test_torch_jamba.py``); training them raises, naming the
+    kind and item 13."""
     check_supported(get_config(ARCH))
-    with pytest.raises(NotImplementedError, match=what):
-        check_supported(get_config(arch))
+    cfg = get_config(arch)
+    if cfg.mtp:
+        with pytest.raises(NotImplementedError, match=what):
+            check_supported(cfg)
+        return
+    check_supported(cfg)
+    with pytest.raises(NotImplementedError,
+                       match=f"{what}.*Queue 1 item 13"):
+        make_train_step(cfg, device="cpu")
 
 
 def test_launcher_serves_deepseek_on_cpu(capsys):

@@ -51,6 +51,7 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.model_zoo import loss_fn  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 ARCH = "deepseek-v2-lite-16b"
 LR = 3e-4

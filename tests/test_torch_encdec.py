@@ -54,6 +54,7 @@ from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
 
 import torch_frontend_parity as P  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 ARCH = "whisper-medium"
 

@@ -922,6 +922,29 @@ def test_ssd_scan_kernel_matches_plain(cuda, case):
         torch.testing.assert_close(hT, hr32, rtol=2e-4, atol=2e-4)
 
 
+# jamba-v0.1-52b's serving shapes: the SSD scan at 128 heads and d_state
+# 16 (the tensor-core kernels' 64-column state panel is zero past N, and hT
+# holds only N columns) at the longest serve prompt and a 2048-token one,
+# the attention forward at 32 q heads over 8 kv heads, and decode of a
+# 4-slot group over its cache
+JAMBA_CASES = {
+    "ssd_scan_512": (test_ssd_scan_kernel_matches_plain,
+                     (1, 512, 128, 64, 16, 1, 128, "bfloat16")),
+    "ssd_scan_2048": (test_ssd_scan_kernel_matches_plain,
+                      (1, 2048, 128, 64, 16, 1, 128, "bfloat16")),
+    "flash_attention": (test_flash_attention_kernel_matches_plain,
+                        (1, 512, 512, 32, 8, 128, True, 0, 0, "bfloat16")),
+    "flash_decode": (test_flash_decode_kernel_matches_plain,
+                     (4, 32, 8, 128, 569, 0, 0, "bfloat16")),
+}
+
+
+@pytest.mark.parametrize("name", list(JAMBA_CASES))
+def test_kernels_at_jamba_shapes(cuda, name):
+    check, case = JAMBA_CASES[name]
+    check(cuda, case)
+
+
 @pytest.mark.parametrize("offset", [0, 1])
 def test_ssd_scan_reads_strided_views_as_copies(cuda, offset):
     """B and C as the model's views, and x as a view into a wider tensor:

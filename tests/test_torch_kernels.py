@@ -43,6 +43,7 @@ from repro_torch.kernels.flash_decode.ref import (  # noqa: E402
 from repro_torch.kernels.softmax_xent import kernel as xent_kernel  # noqa: E402
 from repro_torch.kernels.softmax_xent.ref import (  # noqa: E402
     combine_stats, local_stats_ref, softmax_xent_ref)
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -43,6 +43,7 @@ from repro_torch.models.model_zoo import (build_model,  # noqa: E402
 from repro_torch.models.transformer import (Transformer,  # noqa: E402
                                             check_supported)
 from repro_torch.train.steps import make_train_step  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 F32 = dict(rtol=2e-4, atol=2e-5)
 STATE = dict(rtol=1e-4, atol=1e-4)
@@ -238,9 +239,15 @@ def test_port_init_is_seeded_and_shaped_as_jax(env):
 
 
 def test_check_supported_admits_ssm_and_refuses_hybrids():
+    """The port builds and serves a hybrid's SSM layers with their MLP
+    (jamba, ``tests/test_torch_jamba.py``) and refuses to train them,
+    naming item 13; MTP is not built."""
     check_supported(get_config("mamba2-370m"))
+    check_supported(get_config("jamba-v0.1-52b"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        check_supported(get_config("jamba-v0.1-52b"))
+        make_train_step(get_config("jamba-v0.1-52b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="MTP"):
+        check_supported(get_config("deepseek-v3-671b"))
 
 
 def test_training_an_ssm_config_raises(env):

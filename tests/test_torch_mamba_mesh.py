@@ -12,9 +12,14 @@ the port runs in process on the CPU, every rank a thread.
 
 On (1, 2), (2, 1), (2, 2) and (1, 4):
 
-* greedy tokens equal to the JAX monolithic session's on the same mesh,
-  with unequal prompts and generations and requests admitted mid-flight,
-  on both of the port's backends, which agree bitwise (tokens and stats);
+* greedy tokens, with unequal prompts and generations and requests
+  admitted mid-flight, equal to the JAX monolithic session's on the same
+  mesh serving each request alone, on both of the port's backends, which
+  agree bitwise (tokens and stats). Alone, because the reference's dense
+  serving lets the dummy decode of a parked slot advance the SSM state of
+  a slot admitted in that round (its paged serving, which it refuses on a
+  mesh, does not); the port keeps parked rows inert on a mesh as on one
+  device, and a request served alone meets no such slot;
 * the prefill logits of a prompt through a one-stage serve program
   within ``rtol=1e-5`` with ``atol`` 1e-5 of the largest logit of the JAX
   monolithic session's stage on that mesh (float32; the ranks sum their
@@ -60,6 +65,7 @@ from repro_torch.models.model_zoo import (cache_specs,  # noqa: E402
                                           make_decode_caches)
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.optim.zero import local_shape_of  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 SRC = str(pathlib.Path(__file__).resolve().parents[1] / "src")
 CPU = "cpu"
@@ -118,6 +124,9 @@ for shape in [(1, 1)] + MESHES:
         sess.last_stats["admitted_mid_flight"])
     for i, o in enumerate(outs):
         res[f"tok_{tag(shape)}_{i}"] = np.asarray(o)
+    for i, request in enumerate(zip(prompts, GENS)):
+        res[f"alone_{tag(shape)}_{i}"] = np.asarray(
+            sess.generate([request])[0])
     # the session's own one-stage program (its prefill already compiled)
     st = sess.sstaged.stages[0]
     for i in range(LOGIT_PROMPTS):
@@ -213,7 +222,7 @@ def test_tokens_match_the_jax_session(jax_side, port_runs, shape, backend):
     got, stats = port_runs[(shape, backend)]
     assert [len(o) for o in got] == GENS
     for i, g in enumerate(got):
-        want = jax_side[f"tok_{tag(shape)}_{i}"]
+        want = jax_side[f"alone_{tag(shape)}_{i}"]
         assert np.array_equal(g, want), f"request {i}: port {g} != jax {want}"
     assert stats["admitted_mid_flight"] >= 1
     assert stats["admitted_mid_flight"] == int(jax_side[f"mid_{tag(shape)}"])

@@ -54,6 +54,7 @@ from repro_torch.models.common import (MODEL_GRAD_SUM_LEAVES,  # noqa: E402
 from repro_torch.optim import zero as port_zero  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")

@@ -44,6 +44,7 @@ from repro_torch.serve.paged_cache import (PagedCacheSpec,  # noqa: E402
                                            PagedStageCache, PagePool)
 from repro_torch.runtime.pipeline import (DecodeWork,  # noqa: E402
                                           PrefillChunkWork)
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 PROMPT_LEN = 8
 GENS = [3, 6, 2, 5, 4]

@@ -30,6 +30,7 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serve.sampler import (SamplerStream,  # noqa: E402
                                        SamplingSpec, filter_logits)
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 PROMPT_LEN = 8
 GENS = [3, 6, 2, 5, 4]

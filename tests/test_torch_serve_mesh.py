@@ -55,6 +55,7 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import MeshPlan  # noqa: E402
 from repro_torch.models.convert import jax_leaves, params_from_jax  # noqa: E402
 from repro_torch.serve.sampler import SamplingSpec  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 SRC = str(pathlib.Path(__file__).resolve().parents[1] / "src")
 CPU = "cpu"

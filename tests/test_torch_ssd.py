@@ -25,6 +25,7 @@ from repro.kernels.ssd_scan.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunked_ref, ssd_decode_step, ssd_sequential_ref)
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -33,6 +33,7 @@ from repro.kernels.ssd_scan.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunked_bwd_ref, ssd_chunked_ref, ssd_sequential_ref)
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 CASES = [
     # B, L, H, P, N, G, chunk

@@ -58,6 +58,7 @@ from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunked_bwd_ref, ssd_chunked_ref)
 
 from test_torch_ssd_bwd import CASES, IDS, NAMES, _inputs, _rel  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 BF16_LIMIT, F32_LIMIT = 1e-2, 1e-4   # chip_smoke.py's SSD_BWD_RTOL_*
 #: the operands the kernels form in float32, and the rounding each gets

@@ -36,6 +36,7 @@ from repro.kernels.ssd_scan.kernel import ssd_scan_pallas  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref  # noqa: E402
 
 from test_torch_ssd import SSD_CASES  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 CHIP_ATOL, CHIP_RTOL = 5e-3, 1e-2   # chip_smoke.py's bf16 limit on y
 STATE_TOL = 1e-4                     # and on the float32 state hT

@@ -47,6 +47,7 @@ from repro_torch.models.model_zoo import loss_fn  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 LR = 3e-4

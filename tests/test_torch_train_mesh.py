@@ -71,6 +71,7 @@ from repro_torch.models.convert import params_from_jax, params_to_jax  # noqa: E
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")

@@ -56,6 +56,7 @@ from repro_torch.optim import zero as tz  # noqa: E402
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState,  # noqa: E402
                                      adamw_math, adamw_update)
 from repro_torch.train.steps import ZeroParams, make_train_step  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")
