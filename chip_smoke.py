@@ -193,7 +193,21 @@ result line is printed:
    decodes, 24 over the 1,500-frame cross cache; pixtral 40 and 40), the
    prefill seconds and tok/s, peak memory, a profiled run's idle share,
    and the first token's and one decode step's logits against the same
-   calls on the plain versions within ``atol=0.25, rtol=0.05``;
+   calls on the plain versions within ``atol=0.25, rtol=0.05``. Then the
+   sliding window (``serve_ring``): qwen3-1.7b at full width and depth in
+   bf16 through ``make_serve_step`` with ``sliding_window=256`` over a
+   552-position cache (4 prompts of 512 tokens, 32 greedy decode steps:
+   exactly 28 windowed attention forwards on the tensor cores and 28 x 32
+   decodes at length 552; the first token's and one decode step's logits
+   within ``atol=0.25, rtol=0.05`` of the plain versions'), then through
+   the long_500k shape's serve plan (``launch/specs.py:serve_plan_for``:
+   a ring of 8,192 slots, window 8,192): ring caches initialised for 4
+   rows at positions 524,256, 524,272, 100,000 and 8,160, 64 decode
+   steps (8 fed numpy-seeded tokens, then greedy): exactly 28 x 64 ring
+   decodes at length 8,192, each layer's slot table the positions
+   written, every step's logits within those limits of the same steps on
+   the plain versions fed the kernel run's tokens; walls, tok/s, the
+   ring caches' bytes and peak memory;
 5. train: qwen3-1.7b at full width and depth (bf16 compute, float32 params
    and AdamW state, seeded init) through ``repro_torch.train.steps
    .make_train_step``, fed by ``ActorDataPipeline(SyntheticLM(151936, 2,
@@ -362,6 +376,15 @@ result line is printed:
    beside its float32 masters, moments and gradient sums on the card
    (never above the bound).
 
+The sliding window's rows (decode over the long_500k plan's ring, q (4,
+16, 128) over (4, 8192, 8, 128) bf16 with ``k_positions``: a wrapped
+full ring, one a quarter filled, one never wrapped, one in two runs, and
+the same cache masked by range beside it; the attention forward at q (4,
+512, 16, 128), causal, window 256; decode over (4, 552, 8, 128), window
+256) carry the serve ring run's launches, and the reduced qwen3 runs
+card against CPU with ``sliding_window=16`` (prefill, 2 decode steps) and
+with a ring of 16 slots (40 decode steps from positions 0, 5, 524,270
+and 8,180; slot tables equal), within 1e-3, launches exact.
 The jamba rows (the SSD scan at 128 heads and N = 16, and at a
 2048-token prompt; the attention forward at 32 q heads over 8; decode of
 q (4, 32, 128) over a (4, 569, 8, 128) cache) carry the jamba actor
@@ -576,11 +599,12 @@ def mask_name(causal: bool, S: int, Sk: int) -> str:
 
 
 def attention_row(dev, B, S, H, KV, D, seed, Dv=None, Sk=None,
-                  causal: bool = True):
+                  causal: bool = True, window: int = 0):
     """The attention forward held to its plain version at q (B, S, H, D),
     k (B, Sk, KV, D), v (B, Sk, KV, Dv) (Dv None: D; Sk None: S), causal
-    or not, in bf16 (tensor-core kernel) and float32 (CUDA-core kernel),
-    and timed: one kernels-line row's numbers."""
+    or not (causal: with a sliding ``window`` too), in bf16 (tensor-core
+    kernel) and float32 (CUDA-core kernel), and timed: one kernels-line
+    row's numbers."""
     from repro_torch.kernels.flash_attention import kernel as fa
     Dv = D if Dv is None else Dv
     Sk = S if Sk is None else Sk
@@ -588,41 +612,53 @@ def attention_row(dev, B, S, H, KV, D, seed, Dv=None, Sk=None,
     mk = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
     q, k, v = mk(B, S, H, D), mk(B, Sk, KV, D), mk(B, Sk, KV, Dv)
-    mask = mask_name(causal, S, Sk)
+    mask = mask_name(causal, S, Sk) + (f", window {window}" if window
+                                       else "")
+    sw = dict(causal=causal, sliding_window=window)
     what = (f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} {mask}"
             if Dv == D else f"flash_attention q{tuple(q.shape)} "
             f"k{tuple(k.shape)} v{tuple(v.shape)} {mask}")
     # bf16 goes to the tensor-core kernel, float32 to the CUDA-core one
-    n0, w0 = fa.launches, fa.wgmma_launches
-    got = fa.flash_attention(q, k, v, causal=causal)
-    want = fa.plain_flash_attention(q, k, v, causal=causal)
+    n0, w0, m0 = fa.launches, fa.wgmma_launches, fa.mask_launches["window"]
+    got = fa.flash_attention(q, k, v, **sw)
+    want = fa.plain_flash_attention(q, k, v, **sw)
     err = agree(f"{what} bf16", got, want, ATOL, RTOL)
     f32 = [t.float() for t in (q, k, v)]
-    want32 = fa.plain_flash_attention(*f32, causal=causal)
+    want32 = fa.plain_flash_attention(*f32, **sw)
     err_c = agree(f"{what} bf16 vs the plain version on float32 copies",
                   got, want32, ATOL, RTOL)
     err32 = agree(f"{what} float32", fa.flash_attention(
-        *f32, causal=causal), want32, F32_TOL, F32_TOL)
+        *f32, **sw), want32, F32_TOL, F32_TOL)
     torch.cuda.synchronize()
-    if (fa.launches - n0, fa.wgmma_launches - w0) != (2, 1):
+    if (fa.launches - n0, fa.wgmma_launches - w0,
+            fa.mask_launches["window"] - m0) != (2, 1, 2 * bool(window)):
         raise AssertionError("flash_attention: bf16 did not reach the "
-                             "tensor-core kernel, or float32 did")
+                             "tensor-core kernel, or float32 did, or the "
+                             "window was not counted")
     del f32, want32
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     # unmasked (q, k) pairs
-    pairs = S * (S + 1) // 2 if causal else S * Sk
+    pairs = (sum(min(i + 1, window) for i in range(S)) if window
+             else S * (S + 1) // 2 if causal else S * Sk)
     # S = Q K^T over D and O = P V over Dv: 2 flops a multiply-add each
     b_ms, b_by = bound_ms(nbytes(q, k, v, got),
                           2 * (D + Dv) * H * B * pairs)
-    launch = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    launch = lambda: fa.flash_attention(q, k, v, **sw)  # noqa: E731
     row = {
         "max_abs_err": err, "max_abs_err_vs_f32_copies": err_c,
         "f32_max_abs_err": err32,
         "plain_ms": cuda_ms(
-            lambda: fa.plain_flash_attention(q, k, v, causal=causal),
+            lambda: fa.plain_flash_attention(q, k, v, **sw),
             iters=5),
         "bound_ms": b_ms, "bound_by": b_by}
-    if Dv == D:
+    if window:
+        # SDPA with the band mask: causal, the last ``window`` keys
+        i = torch.arange(S, device=q.device)
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        row["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True))
+    elif Dv == D:
         row["library_ms"] = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True))
@@ -715,18 +751,22 @@ def check_flash_attention_mla(dev):
     return entry
 
 
-def decode_row(entry: dict, q, k, v, cur, what: str,
-               k_offset: int = 0) -> dict:
+def decode_row(entry: dict, q, k, v, cur, what: str, k_offset: int = 0,
+               sliding_window: int = 0, k_positions=None) -> dict:
     """Hold the decode kernel to its plain version on ``(q, k, v, cur)``
-    (a cache, or a shard of one starting at position ``k_offset``) in bf16
-    and on float32 copies of the same inputs, then time it as the other
-    kernels are, against SDPA's call on the same cache and mask. The bound
-    counts the keys each row reads: K and V of its unmasked keys, and V of
-    the whole shard for a row with none (the finite-sentinel average)."""
+    (a cache, or a shard of one starting at position ``k_offset``; with
+    ``sliding_window``; or a ring cache, each slot's position in
+    ``k_positions``) in bf16 and on float32 copies of the same inputs,
+    then time it as the other kernels are, against SDPA's call on the same
+    cache and mask. The bound counts the keys each row's mask lets
+    through: K and V of its unmasked keys, and V of the whole shard for a
+    row with none (the finite-sentinel average), and a ring's position
+    table."""
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.flash_decode.ref import (combine_partials,
                                                       flash_decode_partial_ref)
-    off = dict(k_offset=k_offset)
+    off = dict(k_offset=k_offset, sliding_window=sliding_window,
+               k_positions=k_positions)
     got = combine_partials(*(t[None] for t in fd.flash_decode(
         q, k, v, cur_pos=cur, **off)))
     want = combine_partials(*(t[None] for t in flash_decode_partial_ref(
@@ -740,22 +780,30 @@ def decode_row(entry: dict, q, k, v, cur, what: str,
     del want32
     B, L, KV, D = k.shape
     H = q.shape[1]
-    keys = (cur.long() - k_offset + 1).clamp(0, L)   # each row's keys
+    # each row's unmasked keys, by the plain version's mask
+    kpos = (k_positions.long() if k_positions is not None else
+            (k_offset + torch.arange(L, device=q.device)).expand(B, L))
+    live = kpos <= cur[:, None].long()
+    if k_positions is not None:
+        live &= kpos >= 0
+    if sliding_window:
+        live &= kpos > cur[:, None].long() - sliding_window
+    keys = live.sum(dim=1)
     masked = int((keys == 0).sum().item())
     keys = int(keys.sum().item())
     m, l, acc = fd.flash_decode(q, k, v, cur_pos=cur, **off)
     row_bytes = KV * D * k.element_size()
+    table = nbytes(k_positions) if k_positions is not None else 0
     entry["bound_ms"], entry["bound_by"] = bound_ms(
-        nbytes(q, cur, m, l, acc) + (2 * keys + masked * L) * row_bytes,
-        4 * D * H * keys + 2 * D * H * masked * L)
-    mask = ((k_offset + torch.arange(L, device=q.device))[None, :]
-            <= cur[:, None].long())
+        nbytes(q, cur, m, l, acc) + table + (2 * keys + masked * L)
+        * row_bytes, 4 * D * H * keys + 2 * D * H * masked * L)
+    entry["unmasked_keys"] = keys
     qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     entry["plain_ms"] = cuda_ms(
         lambda: flash_decode_partial_ref(q, k, v, cur_pos=cur, **off))
     entry["library_ms"] = cuda_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, kt, vt, attn_mask=mask[:, None, None], enable_gqa=True))
+            qs, kt, vt, attn_mask=live[:, None, None], enable_gqa=True))
     return timed(entry, "flash_decode_kernel",
                  lambda: fd.flash_decode_cuda_partials(q, k, v, cur, **off),
                  lambda: fd.flash_decode(q, k, v, cur_pos=cur, **off))
@@ -4722,7 +4770,8 @@ def serve_classic(dev, arch: str):
             "flash_fwd_wgmma_kernel": L + cross + enc,
             "flash_decode": CLASSIC_GEN * (L + cross), "ssd_scan": 0,
             "ssd_scan_wgmma": 0,
-            "by_mask": {"causal": L, "non_causal": enc, "cross": cross},
+            "by_mask": {"causal": L, "non_causal": enc, "cross": cross,
+                        "window": 0},
             "decode_by_length": {cache_len: CLASSIC_GEN * L,
                                  **({cfg.encoder_seq: CLASSIC_GEN * cross}
                                     if cross else {})}}
@@ -4807,7 +4856,8 @@ def train_whisper(dev):
                  "flash_bwd_dq_wgmma_kernel": n_attn,
                  "flash_bwd_dkdv_wgmma_kernel": n_attn,
                  "xent_local_stats": 1, "xent_local_stats_bwd": 1})
-    want_mask = ({"causal": 2 * L, "non_causal": 2 * E, "cross": 2 * L},
+    want_mask = ({"causal": 2 * L, "non_causal": 2 * E, "cross": 2 * L,
+                  "window": 0},
                  {"causal": L, "non_causal": E, "cross": L})
 
     def run(what: str, n_steps: int, want, want_mask):
@@ -4878,6 +4928,361 @@ def train_whisper(dev):
     return total
 
 
+RING_DECODE = "flash_decode (ring, k_positions)"
+RING_WINDOW_ATTN = "flash_attention (window 256, qwen3 prefill)"
+RING_WINDOW_DECODE = "flash_decode (window 256, linear cache)"
+# the windowed serve without the ring: 4 prompts of 512 tokens, 32 decode
+# steps, a window of 256 over a linear cache of 512 + 32 + 8 positions
+WINDOW_B, WINDOW_PROMPT, WINDOW_GEN, WINDOW = 4, 512, 32, 256
+WINDOW_CACHE_LEN = WINDOW_PROMPT + WINDOW_GEN + 8
+# the ring: the long_500k plan's (8,192 slots and window), 4 rows at these
+# positions (the first two near the plan's end, two rows before a wrap),
+# 64 decode steps, the first 8 fed numpy-seeded tokens, the rest greedy
+RING_STARTS = (524_256, 524_272, 100_000, 8_160)
+RING_STEPS, RING_FED = 64, 8
+
+
+def ring_rows(L: int):
+    """The ring decode row's four rows, as (first, last) positions written
+    into a ring of ``L`` slots: a wrapped full ring at ``cur_pos``
+    524,303; a ring a quarter filled (the rest -1); one never wrapped at
+    4,095; one written from mid-ring (6,144) across the wrap, two runs
+    and a hole."""
+    return [(0, 524_303), (0, L // 4 - 1), (0, 4095),
+            (6144, 6144 + L // 2 - 1)]
+
+
+def check_ring_kernels(dev):
+    """The kernel rows of the sliding-window serve paths, each held to its
+    plain version (bf16, and on float32 copies) and timed against its
+    bound and library call: (a) decode over the long_500k plan's ring, q
+    (4, 16, 128) over a (4, 8192, 8, 128) bf16 ring, window 8,192, each
+    slot masked by its ``k_positions`` entry (rows from
+    :func:`ring_rows`; SDPA with the boolean mask the table gives); (b)
+    the attention forward at the windowed prefill, q (4, 512, 16, 128), kv
+    (4, 512, 8, 128) bf16, causal, window 256 (SDPA with the band mask);
+    (c) decode over that serve's linear cache (4, 552, 8, 128) bf16,
+    window 256."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode.ref import ring_positions
+    phase("kernels (the sliding window: ring decode, windowed attention "
+          "and decode)")
+    B, H, KV, D, L = 4, 16, 8, 128, 8192
+    rng = np.random.default_rng(SEED + 61)
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+    q, k, v = mk(B, H, D), mk(B, L, KV, D), mk(B, L, KV, D)
+    first, last = (torch.tensor(c) for c in zip(*ring_rows(L)))
+    table = ring_positions(first, last, L).to(dev)
+    cur = last.to(torch.int32).to(dev)
+    r0 = fd.ring_launches
+    ring = decode_row({
+        "name": RING_DECODE, **DECODE_ROW, "window": L,
+        "splits": fd.split_plan(B, KV, L, fd.sm_count(q.device)),
+        "cur_pos": cur.tolist(),
+        "slots_written": (table >= 0).sum(dim=1).tolist()},
+        q, k, v, cur, f"flash_decode q{tuple(q.shape)} ring{tuple(k.shape)} "
+        f"cur_pos {cur.tolist()}", sliding_window=L, k_positions=table)
+    if fd.ring_launches == r0:
+        raise AssertionError("flash_decode: the ring row launched no ring "
+                             "kernel")
+    # what the table costs: the same kernel over the same cache and
+    # cur_pos, masked by range (k_offset 0) instead of by the table
+    ms, _ = kernel_ms(lambda: fd.flash_decode_cuda_partials(
+        q, k, v, cur, sliding_window=L), ("flash_decode_kernel",))
+    ring["without_table"] = {
+        "ms": ms, "wrapper_ms": cuda_ms(lambda: fd.flash_decode(
+            q, k, v, cur_pos=cur, sliding_window=L))}
+    print(f"{RING_DECODE}: the same cache masked by range instead of the "
+          f"table: kernel {ms} ms, wrapper call "
+          f"{ring['without_table']['wrapper_ms']:.4f} ms")
+    del q, k, v, table
+    attn = {"name": RING_WINDOW_ATTN, **ATTENTION_ROW, "window": WINDOW}
+    attn.update(attention_row(dev, WINDOW_B, WINDOW_PROMPT, 16, 8, 128,
+                              SEED + 62, window=WINDOW))
+    L = WINDOW_CACHE_LEN
+    q, k, v = mk(B, H, D), mk(B, L, KV, D), mk(B, L, KV, D)
+    cur = torch.tensor([WINDOW_PROMPT, WINDOW_PROMPT + 15, L - 20, L - 1],
+                       dtype=torch.int32, device=dev)
+    dec = decode_row({
+        "name": RING_WINDOW_DECODE, **DECODE_ROW, "window": WINDOW,
+        "splits": fd.split_plan(B, KV, L, fd.sm_count(q.device))},
+        q, k, v, cur, f"flash_decode q{tuple(q.shape)} cache{tuple(k.shape)}"
+        f" window {WINDOW} cur_pos {cur.tolist()}", sliding_window=WINDOW)
+    torch.cuda.empty_cache()
+    return [ring, attn, dec]
+
+
+def check_reference_ring(dev):
+    """Reduced qwen3 (float32) through ``make_serve_step`` on the card
+    against the same weights on the CPU's plain path, two ways: with
+    ``sliding_window=16`` over a 48-position cache, a 37-token prefill and
+    2 decode steps; and with ``ring=True`` (16 slots, window 16), init
+    caches for 4 rows at positions 0, 5, 524,270 and 8,180, then 40 decode
+    steps; each fed the CPU's greedy tokens. Every logit within 1e-3 (the
+    reduced checks' limit), the ring's slot tables equal, and the launches
+    exact: the windowed prefill's attention on the float32 kernel, every
+    decode on the decode kernel, the ring's all ring launches."""
+    phase("reference (reduced qwen3, sliding window and ring cache, card vs "
+          "CPU plain path)")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.launch.serve import classic_batch
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.steps import greedy_from_logits, make_serve_step
+
+    cfg = get_config("qwen3-1.7b").reduced()
+    init = build_model(cfg, MeshPlan.single_device(), seed=SEED,
+                       device="cpu")
+    batch = classic_batch(cfg, 2, 37, np.random.default_rng(SEED + 63))
+    starts = torch.tensor([0, 5, 524_270, 8_180], dtype=torch.int32)
+    first = torch.as_tensor(np.random.default_rng(SEED + 64).integers(
+        0, cfg.vocab_size, len(starts)), dtype=torch.int32)
+    out, tables, counts = {}, {}, {}
+    for d in ("cpu", dev):
+        model = init.to(d)
+        zero_serve_counts()
+        fa.reset_counts()
+        steps = []
+        ss = make_serve_step(cfg, cache_len=48, sliding_window=16, device=d)
+        h, caches = ss.prefill_fn(model, batch)
+        steps.append(ss.logits_fn(model, h).float().cpu())
+        pos = torch.full((2,), 37, dtype=torch.int32, device=d)
+        for _ in range(2):
+            tok = greedy_from_logits(out["cpu"][len(steps) - 1] if d != "cpu"
+                                     else steps[-1], cfg.vocab_size).to(d)
+            logits, caches = ss.decode_fn(model, caches, tok, pos)
+            steps.append(logits.float().cpu())
+            pos = pos + 1
+        window_steps = len(steps)
+        rs = make_serve_step(cfg, cache_len=16, sliding_window=16, ring=True,
+                             device=d)
+        caches = rs.init_caches_fn(first)
+        tok, pos = first.to(d), starts.to(d)
+        for i in range(40):
+            logits, caches = rs.decode_fn(model, caches, tok, pos)
+            steps.append(logits.float().cpu())
+            tok = greedy_from_logits(out["cpu"][len(steps) - 1] if d != "cpu"
+                                     else steps[-1], cfg.vocab_size).to(d)
+            pos = pos + 1
+        out[d] = steps
+        tables[d] = [c["pos"].cpu() for c in caches]
+        counts[d] = (fa.launches, fa.wgmma_launches, fa.mask_launches["window"],
+                     fd.launches, fd.ring_launches, dict(fd.length_launches))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(out[dev], out["cpu"])):
+        err = (a - b).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
+            what = (f"window step {i}" if i < window_steps
+                    else f"ring decode {i - window_steps}")
+            raise AssertionError(f"reduced qwen3 {what}: card and CPU "
+                                 f"disagree ({err:.3e})")
+    if not all(torch.equal(a, b) for a, b in zip(tables[dev],
+                                                  tables["cpu"])):
+        raise AssertionError("reduced qwen3 ring: the card's slot tables "
+                             "differ from the CPU's")
+    A = cfg.num_layers
+    want = (A, 0, A, A * (2 + 40), A * 40, {48: 2 * A, 16: 40 * A})
+    if counts[dev] != want:
+        raise AssertionError(f"reduced qwen3 window and ring: (attention, "
+                             f"tensor-core, windowed, decode, ring, by "
+                             f"length) launches {counts[dev]}, expected "
+                             f"{want}")
+    print(f"reduced qwen3, window 16 (prefill + 2 decode steps) and ring of "
+          f"16 (40 decode steps from {starts.tolist()}): logits agree, max "
+          f"abs err {worst:.3e} (bound 1e-3 + 1e-3*|ref|, float32), slot "
+          f"tables equal; launches (attention, tensor-core, windowed, "
+          f"decode, ring, by length) {counts[dev]}")
+
+
+def serve_ring(dev):
+    """qwen3-1.7b at full width and depth (28 layers) in bf16, one seeded
+    model, through ``make_serve_step`` two ways. (i) The window without
+    the ring: cache_len 552, window 256, 4 prompts of 512 numpy-seeded
+    tokens, 32 greedy decode steps: 28 windowed attention forwards on the
+    tensor cores and 28 x 32 decodes at length 552, exactly; the first
+    token's logits and one decode step's within ``MESH_LOGITS_ATOL`` +
+    ``MESH_LOGITS_RTOL`` of the same calls on the plain versions. (ii) The
+    ring: ``launch/specs.py:serve_plan_for`` of the long_500k shape feeds
+    ``make_serve_step`` (cache_len 8,192, window 8,192, ring), caches
+    initialised for 4 rows at ``RING_STARTS`` (three wrap within the run),
+    64 decode steps (the first 8 fed numpy-seeded tokens, then greedy):
+    28 x 64 decodes, every one a ring launch at length 8,192; each layer's
+    slot table equal to the positions written; every step's logits
+    within the bf16 limits of the same 64 steps on the plain versions,
+    fed the kernel run's tokens. Prints the walls, tok/s and peak memory.
+    Returns the launches: (i)'s and (ii)'s."""
+    from repro_torch.configs.registry import get_shape
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode.ref import ring_positions
+    from repro_torch.launch.serve import classic_batch
+    from repro_torch.launch.specs import serve_plan_for
+    from repro_torch.train.steps import greedy_from_logits, make_serve_step
+    phase(f"serve ring (qwen3-1.7b, full width and depth, bf16: window "
+          f"{WINDOW} over {WINDOW_CACHE_LEN} positions, batch {WINDOW_B} x "
+          f"{WINDOW_PROMPT} + {WINDOW_GEN}; the long_500k plan's ring, "
+          f"{len(RING_STARTS)} rows x {RING_STEPS} steps)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model = seeded_model("qwen3-1.7b", dev)
+    torch.cuda.synchronize()
+    print(f"seeded {sum(p.numel() for p in model.parameters()):,} params in "
+          f"{time.perf_counter() - t0:.1f} s")
+    L = cfg.num_layers
+
+    def check(what, a, b):
+        err = (a - b).abs().max().item()
+        ok = torch.allclose(a, b, atol=MESH_LOGITS_ATOL, rtol=MESH_LOGITS_RTOL)
+        if not ok:
+            raise AssertionError(f"serve ring: {what} logits left the plain "
+                                 f"versions' (max abs err {err:.3e})")
+        return err
+
+    # (i) the window without the ring
+    ss = make_serve_step(cfg, cache_len=WINDOW_CACHE_LEN,
+                         sliding_window=WINDOW, device=dev)
+    batch = classic_batch(cfg, WINDOW_B, WINDOW_PROMPT,
+                          np.random.default_rng(SEED + 65))
+    zero_serve_counts()
+    fa.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h, caches = ss.prefill_fn(model, batch)
+    first = ss.logits_fn(model, h).float()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = greedy_from_logits(first, cfg.vocab_size)
+    pos = torch.full((WINDOW_B,), WINDOW_PROMPT, dtype=torch.int32,
+                     device=dev)
+    t0 = time.perf_counter()
+    toks = [tok]
+    for i in range(WINDOW_GEN):
+        logits, caches = ss.decode_fn(model, caches, tok, pos)
+        if i == 0:
+            nxt = logits.float()
+        tok = greedy_from_logits(logits, cfg.vocab_size)
+        toks.append(tok)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    window = {**serve_counts(), "window": fa.mask_launches["window"],
+              "decode_by_length": dict(fd.length_launches),
+              "ring": fd.ring_launches}
+    want = {"flash_attention": L, "flash_fwd_wgmma_kernel": L,
+            "flash_decode": L * WINDOW_GEN, "ssd_scan": 0,
+            "ssd_scan_wgmma": 0, "window": L,
+            "decode_by_length": {WINDOW_CACHE_LEN: L * WINDOW_GEN},
+            "ring": 0}
+    print(f"window {WINDOW}: prefill {WINDOW_B} x {WINDOW_PROMPT} in "
+          f"{prefill_s:.3f} s, {WINDOW_GEN} decode steps in {decode_s:.3f} s "
+          f"({WINDOW_B * WINDOW_GEN / decode_s:.2f} tok/s); launches "
+          f"{window}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if window != want:
+        raise AssertionError(f"serve ring, window: launches {window}, "
+                             f"expected {want}")
+    if not (torch.stack(toks) < cfg.vocab_size).all():
+        raise AssertionError("serve ring, window: an id past the vocabulary")
+    del caches
+    with plain_versions():
+        h, caches = ss.prefill_fn(model, batch)
+        p_first = ss.logits_fn(model, h).float()
+        p_nxt, _ = ss.decode_fn(model, caches, toks[0], torch.full(
+            (WINDOW_B,), WINDOW_PROMPT, dtype=torch.int32, device=dev))
+    errs = {"first": check("window first-token", first, p_first),
+            "decode": check("window decode step", nxt, p_nxt.float())}
+    print(f"window {WINDOW}, kernels vs plain versions: first-token logits "
+          f"max abs err {errs['first']:.3e}, decode step {errs['decode']:.3e}"
+          f", scale {p_first.abs().max().item():.2f} (limit atol "
+          f"{MESH_LOGITS_ATOL} + rtol {MESH_LOGITS_RTOL})")
+    del caches, h, ss
+    torch.cuda.empty_cache()
+
+    # (ii) the ring, from the long_500k serve plan
+    plan = serve_plan_for(cfg, get_shape("long_500k"))
+    if (plan["cache_len"], plan["sliding_window"], plan["ring"]) != \
+            (8192, 8192, True):
+        raise AssertionError(f"serve_plan_for(qwen3-1.7b, long_500k): {plan}")
+    W = plan["sliding_window"]
+    rs = make_serve_step(cfg, cache_len=plan["cache_len"], sliding_window=W,
+                         ring=plan["ring"], device=dev)
+    starts = torch.tensor(RING_STARTS, dtype=torch.int32, device=dev)
+    fed = torch.as_tensor(np.random.default_rng(SEED + 66).integers(
+        0, cfg.vocab_size, (RING_FED, len(RING_STARTS))), dtype=torch.int32,
+        device=dev)
+
+    def run(toks=None):
+        """64 decode steps from fresh ring caches: the fed tokens, then
+        greedy (or ``toks``, the kernel run's); the logits and tokens."""
+        caches = rs.init_caches_fn(fed[0])
+        logits_all, used, pos = [], [], starts
+        tok = fed[0]
+        for i in range(RING_STEPS):
+            used.append(tok)
+            logits, caches = rs.decode_fn(model, caches, tok, pos)
+            logits_all.append(logits.float())
+            tok = (fed[i + 1] if i + 1 < RING_FED else
+                   toks[i + 1] if toks is not None and i + 1 < RING_STEPS
+                   else greedy_from_logits(logits, cfg.vocab_size))
+            pos = pos + 1
+        return logits_all, used, caches
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_serve_counts()
+    fa.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_k, toks_k, caches = run()
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    ring = {**serve_counts(), "ring": fd.ring_launches,
+            "decode_by_length": dict(fd.length_launches)}
+    want = {"flash_attention": 0, "flash_fwd_wgmma_kernel": 0,
+            "flash_decode": L * RING_STEPS, "ssd_scan": 0,
+            "ssd_scan_wgmma": 0, "ring": L * RING_STEPS,
+            "decode_by_length": {W: L * RING_STEPS}}
+    held = sum(nbytes(*c.values()) for c in caches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"ring ({plan}): {RING_STEPS} decode steps of {len(RING_STARTS)} "
+          f"rows from {RING_STARTS} in {ring_s:.3f} s "
+          f"({len(RING_STARTS) * RING_STEPS / ring_s:.2f} tok/s); ring caches "
+          f"{held / 1e9:.3f} GB; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {ring}")
+    if ring != want:
+        raise AssertionError(f"serve ring: launches {ring}, expected {want}")
+    table = ring_positions(starts.cpu(), starts.cpu() + RING_STEPS - 1, W)
+    if not all(torch.equal(c["pos"].cpu(), table) for c in caches):
+        raise AssertionError("serve ring: a layer's slot table is not the "
+                             "positions written")
+    if not (torch.stack(toks_k) < cfg.vocab_size).all():
+        raise AssertionError("serve ring: an id past the vocabulary")
+    del caches
+    with plain_versions():
+        logits_p, toks_p, caches = run(toks_k)
+    del caches
+    if not all(torch.equal(a, b) for a, b in zip(toks_k, toks_p)):
+        raise AssertionError("serve ring: the plain run was not fed the "
+                             "kernel run's tokens")
+    worst = max(check(f"ring step {i}", a, b)
+                for i, (a, b) in enumerate(zip(logits_k, logits_p)))
+    print(f"ring, kernels vs plain versions over {RING_STEPS} steps: logits "
+          f"max abs err {worst:.3e} (limit atol {MESH_LOGITS_ATOL} + rtol "
+          f"{MESH_LOGITS_RTOL}); slot tables equal the positions written "
+          f"(up to {int(table.max())})")
+    del model, rs, logits_k, logits_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"window": window, "ring": ring,
+            "window_tok_per_s": WINDOW_B * WINDOW_GEN / decode_s,
+            "ring_tok_per_s": len(RING_STARTS) * RING_STEPS / ring_s,
+            "ring_cache_bytes": held, "ring_peak_bytes": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an "
@@ -4914,6 +5319,7 @@ def main() -> int:
                 *check_xent(dev, Vl=deepseek_vocab(), label=DEEPSEEK_XENT)]
     kernels += check_whisper_kernels(dev)
     kernels += check_jamba_kernels(dev)
+    kernels += check_ring_kernels(dev)
     kernels[1]["paged_shape"] = check_paged_decode(dev)
     ssd_row = next(k for k in kernels if k["name"] == "ssd_scan")
     jamba_ssd = next(k for k in kernels if k["name"] == JAMBA_SSD)
@@ -4944,6 +5350,7 @@ def main() -> int:
         check_reference_classic(dev, arch)
         check_reference_train(dev, arch, zero=True)
     check_reference(dev, JAMBA)
+    check_reference_ring(dev)
     served, threads_run = serve(dev, "qwen3-1.7b")
     threads_launches = dict(served)
     torch.cuda.empty_cache()
@@ -4971,6 +5378,7 @@ def main() -> int:
     deepseek = serve_deepseek(dev)
     jamba = serve_jamba(dev)
     classic = {arch: serve_classic(dev, arch) for arch in (WHISPER, PIXTRAL)}
+    ringed = serve_ring(dev)
     trained, curve = train(dev)
     torch.cuda.empty_cache()
     train_plain(dev, curve)
@@ -5029,6 +5437,15 @@ def main() -> int:
         name = kr["name"]
         if name in frontend_rows:
             kr.update(frontend_rows[name])
+            continue
+        if name in (RING_DECODE, RING_WINDOW_ATTN, RING_WINDOW_DECODE):
+            # the serve ring run: (ii)'s ring decodes, (i)'s windowed
+            # prefill and its decodes over the linear cache
+            kr["launches"] = {
+                RING_DECODE: ringed["ring"]["ring"],
+                RING_WINDOW_ATTN: ringed["window"]["window"],
+                RING_WINDOW_DECODE: ringed["window"]["decode_by_length"][
+                    WINDOW_CACHE_LEN]}[name]
             continue
         if name in (JAMBA_SSD, JAMBA_ATTN, JAMBA_DECODE):
             # the jamba serve run (actors, 16 layers), every prefill's

@@ -7,13 +7,19 @@
 //   keys, with the masks kpos <= cur_pos, kpos < k_offset + L and the
 //   sliding window, then the P(max)/P(sum) combine of the splits. The
 //   Pallas wrapper combines the splits outside its kernel; here the kernel
-//   does, so one launch returns the cache's (m, l, acc).
+//   does, so one launch returns the cache's (m, l, acc). It also takes the
+//   reference's ring caches (src/repro/kernels/flash_decode/ref.py:
+//   k_positions, which its Pallas kernel lacks): an int32 table (B, L) of
+//   each slot's absolute position, -1 for a slot never written, which
+//   replaces kpos = k_offset + slot. A key then counts if kpos >= 0,
+//   kpos <= cur_pos and, with a window, kpos > cur_pos - window.
 //
 // Bound. Decoding moves bytes: the K and V rows a row's mask lets through
 // are read once, and every key costs 4 * D flops per q head, far below the
-// card's operations-per-byte balance. What a block can do about it is keep
-// enough bytes in flight, keep the latency of its math off the loads, and
-// keep every SM busy to the end.
+// card's operations-per-byte balance. A ring adds its position table, 4
+// bytes a slot, and its valid slots are known only from the table. What a
+// block can do about it is keep enough bytes in flight, keep the latency
+// of its math off the loads, and keep every SM busy to the end.
 //
 // Design. A thread-block cluster per (batch row, kv head) group; its NS
 // blocks are the group's splits (grid (NS, KV, B), cluster (NS, 1, 1)):
@@ -23,15 +29,18 @@
 //     [lo, hi] (from cur_pos, k_offset and the window), cut into NS even
 //     parts on the card: a short row leaves no split idle, all splits of a
 //     group carry the same work, no key past cur_pos is read, and nothing
-//     syncs with the host;
+//     syncs with the host. A ring's valid slots are no one range (after a
+//     wrap two runs, in a partly filled ring holes of -1), so with
+//     k_positions the blocks cut the whole cache [0, L) and mask each key
+//     by its own table entry;
 //   * each of a block's 4 warps takes 16 keys of every 64-key tile and
-//     streams its K and V rows through its own rows of a ring in shared
-//     memory (3 tiles for bf16, 2 for float32) with 16-byte cp.async
-//     copies: the next tiles' copies are in flight while the current one
-//     is computed, and the warps sync with nothing but themselves until
-//     the last tile. (Bulk copies by the TMA unit, one 256-byte request a
-//     row, were slower in a trial.) Rows are padded by 16 bytes, so the
-//     fragment loads hit 32 distinct banks;
+//     streams its K and V rows (and with a ring its 16 table entries)
+//     through its own rows of a ring in shared memory (3 tiles for bf16, 2
+//     for float32) with cp.async copies: the next tiles' copies are in
+//     flight while the current one is computed, and the warps sync with
+//     nothing but themselves until the last tile. (Bulk copies by the TMA
+//     unit, one 256-byte request a row, were slower in a trial.) Rows are
+//     padded by 16 bytes, so the fragment loads hit 32 distinct banks;
 //   * the math is on the tensor cores (mma.sync m16n8k16, bf16 in, float32
 //     sums), the q heads as the 16 MMA rows: scores S = q K^T from the
 //     staged K rows (bf16 q and k are exact, so S is the float32 dot
@@ -57,9 +66,11 @@
 //     fence, no atomics, no state kept between calls: the result is
 //     deterministic and calls on different streams are independent;
 //   * a warp that saw no key (a row with fewer keys than warps and
-//     splits) leaves m = -inf, which the fold weighs 0. A row with
-//     no unmasked key keeps the reference's finite-sentinel semantics:
-//     every key of the cache scores -1e30 and the row averages v.
+//     splits) leaves m = -inf, which the fold weighs 0. A key the mask
+//     drops keeps the reference's finite sentinel: a row with no unmasked
+//     key (by range, or every table entry masked) scores -1e30 at every
+//     key of the cache and averages v; a key of a ring the table masks
+//     scores -1e30, which weighs 0 beside any unmasked key.
 // Inputs bf16 or float32; (m, l, acc) float32 of shapes (B, H), (B, H),
 // (B, H, D). Head dims 64 or 128, Dv = D, groups of at most 16 q heads.
 #include <cooperative_groups.h>
@@ -93,9 +104,12 @@ struct Cfg {
   static constexpr int RING = STAGES * STAGE;
   static constexpr int KSTEPS = D / 16;            // MMA steps over D
   static constexpr int NTILES = D / 8;             // 8-column tiles of acc
+  // a ring cache's table entries of the staged tiles, beside the K/V ring
+  static constexpr int KPOS = STAGES * KEYS * 4;
   // dynamic shared memory: the ring, which after the key loop receives
-  // the cluster's warp partials (m, l, acc) for this block's columns
-  static constexpr int SMEM = RING;
+  // the cluster's warp partials (m, l, acc) for this block's columns,
+  // then the table entries
+  static constexpr int SMEM = RING + KPOS;
   static_assert((MAX_SPLITS * NWARP * 2 * MAXG + NWARP * (MAXG * D + 8 * MAX_SPLITS)) * 4
                 <= RING, "");
 };
@@ -141,6 +155,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// 4 bytes global -> shared (a table entry), in the same commit groups
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -149,8 +170,9 @@ __device__ __forceinline__ void cp_async_wait() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ cur_pos, float* __restrict__ out, int L, int H,
-    int KV, int k_offset, int window, float sm_scale) {
+    const int* __restrict__ cur_pos, const int* __restrict__ k_positions,
+    float* __restrict__ out, int L, int H, int KV, int k_offset, int window,
+    float sm_scale) {
   using C = Cfg<T, D>;
   cg::cluster_group cluster = cg::this_cluster();
   const int NS = static_cast<int>(cluster.num_blocks());
@@ -163,6 +185,7 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(
 
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
+  int* kring = reinterpret_cast<int*>(smem + C::RING);
 
   // q as the scores' A operand (rows: q heads, zero past G), per step of
   // 16 over D, read from device memory while cur_pos is on its way; a
@@ -189,12 +212,14 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(
     }
   }
 
-  // this row's unmasked local key range [lo, hi], and this block's part
+  // this row's unmasked local key range [lo, hi], and this block's part;
+  // a ring's row takes the whole cache, each key masked by its table entry
   const int cur = cur_pos[b];
+  const int* kp = k_positions ? k_positions + static_cast<size_t>(b) * L : nullptr;
   int lo = window > 0 ? max(0, cur - window + 1 - k_offset) : 0;
   int hi = min(L - 1, cur - k_offset);
-  const bool masked = lo > hi;          // no unmasked key: average v
-  if (masked) {
+  const bool masked = !kp && lo > hi;   // no unmasked key: average v
+  if (masked || kp) {
     lo = 0;
     hi = L - 1;
   }
@@ -211,7 +236,8 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(
   // this warp's 16 K and V rows of tile t into its rows of the ring: lane
   // copies 16-byte chunk `lane % CH` of rows lane / CH + RPI i; a row past
   // the part copies the part's last row again, so the rows stay finite
-  // (their P is 0)
+  // (their P is 0). With a ring, lanes 0-15 copy the 16 keys' table
+  // entries too
   constexpr int CH = C::ROW / 16;       // 16-byte chunks a row
   constexpr int RPI = 32 / CH;          // rows a warp copies an instruction
   const int jl = lane / CH, c16 = (lane % CH) * 16;
@@ -227,6 +253,9 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(
       cp_async16(dst + i * RPI * C::PITCH, kg + off);
       cp_async16(dst + (KEYS + i * RPI) * C::PITCH, vg + off);
     }
+    if (kp && lane < WKEYS)
+      cp_async4(kring + (t % C::STAGES) * KEYS + warp * WKEYS + lane,
+                kp + j0 + min(lane, nv - 1));
   };
 
   // the copies go out first: the ring's first STAGES - 1 tiles
@@ -253,6 +282,7 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(
     cp_async_commit();
     const unsigned char* kt = ring + (t % C::STAGES) * C::STAGE + warp * WKEYS * C::PITCH;
     const unsigned char* vt = kt + KEYS * C::PITCH;
+    const int* kpt = kring + (t % C::STAGES) * KEYS + warp * WKEYS;
 
     // scores S (q heads x 16 keys) = q K^T: s[h][e] is key h * 8 + cq +
     // (e & 1) of head r0 (e < 2) or r0 + 8
@@ -286,14 +316,19 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(
     }
 
     // online softmax: -inf past the part (weight exactly 0), the finite
-    // sentinel on a row with no unmasked key
+    // sentinel on a row with no unmasked key and on a key its table masks
     float mx0 = neg_inf(), mx1 = neg_inf();
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = h * 8 + cq + (e & 1) < nv ? (masked ? kNegInf : s[h][e] * sm_scale)
-                                                   : neg_inf();
+        const int j = h * 8 + cq + (e & 1);
+        bool live = !masked;
+        if (kp) {
+          const int pj = kpt[j];
+          live = pj >= 0 && pj <= cur && (window <= 0 || pj > cur - window);
+        }
+        const float x = j < nv ? (live ? s[h][e] * sm_scale : kNegInf) : neg_inf();
         s[h][e] = x;
         if (e < 2) mx0 = fmaxf(mx0, x);
         else mx1 = fmaxf(mx1, x);
@@ -460,7 +495,8 @@ cudaError_t prepare(int device) {
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* cur_pos, void* out, int B, int L, int H,
+                   const void* cur_pos, const void* k_positions, void* out,
+                   int B, int L, int H,
                    int KV, int NS, int k_offset, int window, float sm_scale,
                    int device, cudaStream_t stream) {
   cudaError_t e = prepare<T, D>(device);
@@ -481,6 +517,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                          static_cast<const T*>(q), static_cast<const T*>(k),
                          static_cast<const T*>(v),
                          static_cast<const int*>(cur_pos),
+                         static_cast<const int*>(k_positions),
                          static_cast<float*>(out), L, H, KV, k_offset, window,
                          sm_scale);
   return e != cudaSuccess ? e : cudaGetLastError();
@@ -488,15 +525,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     const void* cur_pos, void* out, int B, int L, int H,
+                     const void* cur_pos, const void* k_positions, void* out,
+                     int B, int L, int H,
                      int KV, int NS, int k_offset, int window, float sm_scale,
                      int device, cudaStream_t stream) {
   if (D == 64)
-    return launch<T, 64>(q, k, v, cur_pos, out, B, L, H, KV, NS, k_offset,
-                         window, sm_scale, device, stream);
+    return launch<T, 64>(q, k, v, cur_pos, k_positions, out, B, L, H, KV,
+                         NS, k_offset, window, sm_scale, device, stream);
   if (D == 128)
-    return launch<T, 128>(q, k, v, cur_pos, out, B, L, H, KV, NS, k_offset,
-                          window, sm_scale, device, stream);
+    return launch<T, 128>(q, k, v, cur_pos, k_positions, out, B, L, H, KV,
+                          NS, k_offset, window, sm_scale, device, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -511,7 +549,9 @@ cudaError_t max_clusters(int* n, cudaLaunchConfig_t cfg, int device) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Layouts (contiguous): q (B, H, D),
-// k and v (B, L, KV, D) at 16-byte aligned addresses, cur_pos (B,) int32.
+// k and v (B, L, KV, D) at 16-byte aligned addresses, cur_pos (B,) int32,
+// k_positions (B, L) int32 or null (a ring cache's slot positions; it
+// overrides k_offset).
 // `out`: float32, B H (D + 2) floats: m (B, H), l (B, H), acc (B, H, D).
 // `splits`: NS, the blocks (one cluster) per (batch row, kv head), 1-16.
 // Launches on `stream` of card `device` (made current for the launch and
@@ -519,8 +559,9 @@ cudaError_t max_clusters(int* n, cudaLaunchConfig_t cfg, int device) {
 // synchronise; returns the CUDA error of the launch (0 = success).
 extern "C" int repro_flash_decode(
     const void* q, const void* k, const void* v, const void* cur_pos,
-    void* out, int dtype, int B, int L, int H, int KV, int D, int splits,
-    int k_offset, int window, float sm_scale, int device, void* stream) {
+    const void* k_positions, void* out, int dtype, int B, int L, int H,
+    int KV, int D, int splits, int k_offset, int window, float sm_scale,
+    int device, void* stream) {
   if (B <= 0 || L <= 0 || KV <= 0 || H % KV != 0 || H / KV > MAXG ||
       splits < 1 || splits > MAX_SPLITS)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -530,11 +571,12 @@ extern "C" int repro_flash_decode(
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    e = dispatch<float>(D, q, k, v, cur_pos, out, B, L, H, KV, splits,
-                        k_offset, window, sm_scale, device, s);
+    e = dispatch<float>(D, q, k, v, cur_pos, k_positions, out, B, L, H, KV,
+                        splits, k_offset, window, sm_scale, device, s);
   else if (dtype == 1)
-    e = dispatch<__nv_bfloat16>(D, q, k, v, cur_pos, out, B, L, H, KV,
-                                splits, k_offset, window, sm_scale, device, s);
+    e = dispatch<__nv_bfloat16>(D, q, k, v, cur_pos, k_positions, out, B, L,
+                                H, KV, splits, k_offset, window, sm_scale,
+                                device, s);
   else
     e = cudaErrorInvalidValue;
   if (prev != device) cudaSetDevice(prev);

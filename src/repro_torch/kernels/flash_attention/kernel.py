@@ -25,7 +25,8 @@ counter (``wgmma_launches``, ``bwd_dq_wgmma_launches``,
 ``bwd_dkdv_wgmma_launches``), and every forward launch and every backward
 call (its dq and dk/dv pair) to its mask's count in ``mask_launches`` or
 ``bwd_mask_launches``: ``causal``, ``non_causal`` (Sq == Sk, an encoder)
-or ``cross`` (non-causal, Sq != Sk).
+or ``cross`` (non-causal, Sq != Sk); a forward launch with a sliding
+window also to ``mask_launches["window"]``.
 
 :func:`flash_attention` is what the model calls. A CPU tensor takes the
 plain PyTorch version, :func:`plain_flash_attention` -- the same function
@@ -78,7 +79,7 @@ wgmma_launches = 0
 bwd_dq_wgmma_launches = 0
 bwd_dkdv_wgmma_launches = 0
 #: forward launches and backward calls by mask since the last reset
-mask_launches = {"causal": 0, "non_causal": 0, "cross": 0}
+mask_launches = {"causal": 0, "non_causal": 0, "cross": 0, "window": 0}
 bwd_mask_launches = {"causal": 0, "non_causal": 0, "cross": 0}
 _count_lock = threading.Lock()
 
@@ -208,6 +209,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         launches += 1
         wgmma_launches += int(q.dtype == torch.bfloat16)
         mask_launches[_mask(causal, Sq, Sk)] += 1
+        mask_launches["window"] += int(sliding_window > 0)
     return (o, lse) if return_lse else o
 
 

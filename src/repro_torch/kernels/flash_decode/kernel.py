@@ -15,8 +15,11 @@ range (:func:`split_bounds` is that cut in plain Python), stream their K/V
 tiles through shared memory, push their partials into each other's shared
 memory and fold them in split order (:func:`combine_splits`; the whole
 algorithm in plain PyTorch is :func:`split_partials_ref` folded by it).
-One launch, one output allocation, no PyTorch op on the card between it
-and the returned tensors, and nothing kept between calls. A CPU tensor
+A ring cache (the reference's long-context decode: ``k_positions``, each
+slot's absolute position, -1 for an empty slot) cuts the whole cache
+instead, each key masked by its own entry of the table. One launch, one
+output allocation, no PyTorch op on the card between it and the returned
+tensors, and nothing kept between calls. A CPU tensor
 takes the plain version,
 :func:`repro_torch.kernels.flash_decode.ref.flash_decode_partial_ref` —
 the function the JAX model calls at ``models/attention.py:268-272``.
@@ -53,14 +56,16 @@ offset_launches: Dict[int, int] = {}
 #: launches by cache length since the last reset: {L: count} (whisper's
 #: cross-attention decodes over its 1,500-position encoder cache)
 length_launches: Dict[int, int] = {}
+#: of ``launches``, those over a ring cache (with ``k_positions``)
+ring_launches = 0
 _count_lock = threading.Lock()
 
 
 def reset_counts() -> None:
     """Zero every launch counter of this module."""
-    global launches
+    global launches, ring_launches
     with _count_lock:
-        launches = 0
+        launches = ring_launches = 0
         offset_launches.clear()
         length_launches.clear()
 
@@ -82,19 +87,23 @@ def split_plan(B: int, KV: int, L: int, sms: int = H100_SMS) -> int:
 
 
 def split_bounds(cur_pos, L: int, ns: int, *, k_offset: int = 0,
-                 sliding_window: int = 0) -> List[Tuple[bool, List[int]]]:
+                 sliding_window: int = 0,
+                 k_positions=None) -> List[Tuple[bool, List[int]]]:
     """Each row's cut, as the kernel makes it: ``(masked, starts)`` with
     split ``s`` over local keys ``[starts[s], starts[s + 1])``, the row's
     unmasked range ``[lo, hi]`` cut into ``ns`` even parts. A row with no
     unmasked key (``masked``) cuts the whole cache, every key at the
-    finite sentinel."""
+    finite sentinel. A ring cache's row (``k_positions`` given) cuts the
+    whole cache too, each key masked by its own table entry, so it is
+    never ``masked`` as a whole."""
+    ring = k_positions is not None
     rows = []
     for cur in (int(c) for c in cur_pos):
         lo = max(0, cur - sliding_window + 1 - k_offset) \
             if sliding_window > 0 else 0
         hi = min(L - 1, cur - k_offset)
-        masked = lo > hi
-        if masked:
+        masked = not ring and lo > hi
+        if masked or ring:
             lo, hi = 0, L - 1
         n = hi - lo + 1
         rows.append((masked, [lo + n * s // ns for s in range(ns + 1)]))
@@ -125,22 +134,24 @@ def resident_clusters(dtype: torch.dtype, D: int, splits: int,
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.load(SOURCE).repro_flash_decode
-    # q, k, v, cur_pos, out; dtype, B, L, H, KV, D, splits, k_offset,
-    # window; sm_scale; device; stream
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    # q, k, v, cur_pos, k_positions, out; dtype, B, L, H, KV, D, splits,
+    # k_offset, window; sm_scale; device; stream
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_decode_cuda_partials(q, k, v, cur_pos, *, k_offset: int = 0,
-                               sliding_window: int = 0,
+                               sliding_window: int = 0, k_positions=None,
                                sm_scale: Optional[float] = None,
                                splits: Optional[int] = None):
     """Launch the CUDA kernel; returns this cache's float32 partials
     m, l (B, H) and acc (B, H, D), its splits combined on the card.
-    ``splits`` overrides :func:`split_plan`'s NS (1 to 16)."""
-    global launches
+    ``k_positions``: a ring cache's slot positions, int32 (B, L),
+    contiguous, on q's card (it overrides ``k_offset``). ``splits``
+    overrides :func:`split_plan`'s NS (1 to 16)."""
+    global launches, ring_launches
     _build.refuse_grad("flash_decode_cuda_partials",
                        "decode has no backward: run it under torch.no_grad()",
                        q, k, v)
@@ -170,6 +181,13 @@ def flash_decode_cuda_partials(q, k, v, cur_pos, *, k_offset: int = 0,
     if k.shape != (B, L, KV, D) or v.shape != (B, L, KV, D) or H % KV:
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if k_positions is not None and (
+            k_positions.dtype != torch.int32 or k_positions.shape != (B, L)
+            or not k_positions.is_contiguous() or k_positions.device != dev):
+        raise ValueError(
+            "flash_decode: k_positions must be a contiguous int32 (B, L) = "
+            f"{(B, L)} tensor on q's card, got {k_positions.dtype} "
+            f"{tuple(k_positions.shape)} on {k_positions.device}")
     if D not in HEAD_DIMS or H // KV > MAX_GROUP:
         raise ValueError(f"flash_decode: head dim {D} / group {H // KV}; the "
                          f"kernel takes D = Dv in {HEAD_DIMS} and groups of "
@@ -183,7 +201,9 @@ def flash_decode_cuda_partials(q, k, v, cur_pos, *, k_offset: int = 0,
                          f"1 to {MAX_SPLITS}")
     bh = B * H
     out = torch.empty(bh * (D + 2), dtype=torch.float32, device=dev)
+    ring = k_positions is not None
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), cur_pos.data_ptr(),
+                k_positions.data_ptr() if ring else None,
                 out.data_ptr(), _DTYPES[q.dtype], B, L, H, KV, D,
                 splits, int(k_offset),
                 int(sliding_window), float(sm_scale), dev.index,
@@ -191,6 +211,7 @@ def flash_decode_cuda_partials(q, k, v, cur_pos, *, k_offset: int = 0,
     _build.check(err, "flash_decode")
     with _count_lock:
         launches += 1
+        ring_launches += int(ring)
         offset_launches[int(k_offset)] = offset_launches.get(
             int(k_offset), 0) + 1
         length_launches[L] = length_launches.get(L, 0) + 1
@@ -215,19 +236,21 @@ def combine_splits(m, l, acc):
 
 
 def split_partials_ref(q, k, v, cur_pos, ns: int, *, k_offset: int = 0,
-                       sliding_window: int = 0,
+                       sliding_window: int = 0, k_positions=None,
                        sm_scale: Optional[float] = None):
     """The kernel's splits in plain PyTorch: each row's range cut as
     :func:`split_bounds` cuts it and one :func:`flash_decode_partial_ref`
     partial per split (an empty split leaves ``(-1e30, 0, 0)``, as the
-    kernel's does), stacked on dim 1: m, l (B, ns, H), acc (B, ns, H, D).
+    kernel's does), stacked on dim 1: m, l (B, ns, H), acc (B, ns, H, D);
+    with ``k_positions`` every split over its slice of the table.
     :func:`combine_splits` of them is the kernel's whole algorithm."""
     B, H, D = q.shape
     m = torch.full((B, ns, H), NEG_INF, dtype=torch.float32)
     l = torch.zeros((B, ns, H), dtype=torch.float32)
     acc = torch.zeros((B, ns, H, D), dtype=torch.float32)
     bounds = split_bounds(cur_pos, k.shape[1], ns, k_offset=k_offset,
-                          sliding_window=sliding_window)
+                          sliding_window=sliding_window,
+                          k_positions=k_positions)
     for b, (_, starts) in enumerate(bounds):
         for s in range(ns):
             a, e = starts[s], starts[s + 1]
@@ -235,7 +258,9 @@ def split_partials_ref(q, k, v, cur_pos, ns: int, *, k_offset: int = 0,
                 pm, pl, pa = flash_decode_partial_ref(
                     q[b:b + 1], k[b:b + 1, a:e], v[b:b + 1, a:e],
                     k_offset=k_offset + a, cur_pos=cur_pos[b:b + 1],
-                    sliding_window=sliding_window, sm_scale=sm_scale)
+                    sliding_window=sliding_window, sm_scale=sm_scale,
+                    k_positions=None if k_positions is None
+                    else k_positions[b:b + 1, a:e])
                 m[b, s], l[b, s], acc[b, s] = pm[0], pl[0], pa[0]
     return m, l, acc
 
@@ -244,21 +269,18 @@ def flash_decode(q, k, v, *, cur_pos, k_offset: int = 0,
                  sliding_window: int = 0, k_positions=None,
                  sm_scale: Optional[float] = None):
     """One-token decode attention partials over a KV cache: (m, l, acc) of
-    shapes (B, H), (B, H), (B, H, Dv), float32. CUDA tensors launch the
-    kernel, which combines its splits; CPU tensors take the plain
-    version."""
+    shapes (B, H), (B, H), (B, H, Dv), float32; ``k_positions`` (B, L)
+    int32 makes it a ring cache's (each slot's position, -1 empty). CUDA
+    tensors launch the kernel, which combines its splits; CPU tensors take
+    the plain version."""
     if q.device.type == "cpu":
         return flash_decode_partial_ref(q, k, v, k_offset=k_offset,
                                         cur_pos=cur_pos,
                                         sliding_window=sliding_window,
                                         k_positions=k_positions,
                                         sm_scale=sm_scale)
-    if k_positions is not None:
-        raise NotImplementedError(
-            "flash_decode: k_positions (ring-buffer caches) is not in the "
-            "CUDA kernel yet (ROADMAP Queue 2 item 3)")
     if cur_pos is None:
         raise ValueError("flash_decode: the CUDA kernel needs cur_pos")
     return flash_decode_cuda_partials(
         q, k, v, cur_pos, k_offset=k_offset, sliding_window=sliding_window,
-        sm_scale=sm_scale)
+        k_positions=k_positions, sm_scale=sm_scale)

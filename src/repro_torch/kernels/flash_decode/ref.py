@@ -95,6 +95,20 @@ def combine_partials(m, l, acc, axis_name: Optional[str] = None):
     return acc_g / torch.clamp_min(l_g, 1e-30)[..., None]
 
 
+def ring_positions(first, last, L: int):
+    """The slot position table ``(B, L)`` int32 of a ring of ``L`` slots
+    after row ``b`` wrote positions ``first[b]`` to ``last[b]`` (both
+    included), position ``p`` into slot ``p % L`` (the reference's ring
+    write, ``repro/models/attention.py:246-263``): each slot holds the
+    latest position written to it, -1 if none was. ``first`` and ``last``
+    are (B,) integer tensors."""
+    last = torch.as_tensor(last).long()[:, None]
+    slot = torch.arange(L, device=last.device)[None, :]
+    p = last - (last - slot) % L
+    return torch.where(p >= torch.as_tensor(first, device=last.device)
+                       .long()[:, None], p, -1).to(torch.int32)
+
+
 def decode_attention_ref(q, k, v, cur_pos, *, sliding_window: int = 0,
                          sm_scale=None):
     """Single-shard (logical) decode attention oracle."""

@@ -35,8 +35,11 @@ decode kernel at its shard's ``k_offset``). Weights are cast to the
 activations' dtype at each use, as the reference casts
 ``p[...].astype(x.dtype)``: training keeps float32 params and lets the
 gradient flow back through the cast, and serving's pre-cast weights make
-the cast a no-op. The ring (sliding-window) decode cache waits (ROADMAP
-Queue 1 item 13, Queue 2 item 3).
+the cast a no-op. :func:`gqa_decode` also decodes over the reference's
+sliding-window ring cache (``cache_pos``: each slot's position, written
+with the token's k/v into slot ``pos % sliding_window``, then the decode
+attention's ``k_positions``), on one device; a ring on a mesh is ROADMAP
+Queue 1 item 13.
 
 MLA's prefill (:func:`mla_forward`) materialises each head's k and v from
 the latent and calls :func:`~repro_torch.kernels.flash_attention
@@ -216,16 +219,26 @@ def kv_to_seq_sharded(k, v, cfg: ModelConfig, plan: MeshPlan,
 
 
 def gqa_decode(p: GQAttention, x, cache_k, cache_v, pos, cfg: ModelConfig,
-               plan: MeshPlan, sliding_window: int = 0):
+               plan: MeshPlan, sliding_window: int = 0, cache_pos=None):
     """One-token decode over this rank's sequence block of the KV cache.
     x: (B, 1, d), replicated over the model axis; cache_k/v: (B, L_loc, KV,
     hd), positions ``[m * L_loc, (m + 1) * L_loc)`` on model rank m; pos:
     (B,) int32 absolute positions. Writes the new token's k/v into the
     shard that owns its position IN PLACE (the reference rebuilds the
     caches functionally; the stage owns one resident copy) and returns the
-    output projection (B, 1, d), P(sum) over the model axis."""
+    output projection (B, 1, d), P(sum) over the model axis.
+
+    ``cache_pos``: (B, L) int32 slot position table of a RING cache of
+    ``sliding_window`` slots (the reference's ``:204-289``, one device):
+    the token's k/v and its position go into slot ``pos % sliding_window``
+    before the attention reads them, which then masks each slot by its
+    table entry (``k_positions``)."""
     B = x.shape[0]
     hd, tp, KV = cfg.head_dim, plan.tp, cfg.num_kv_heads
+    if cache_pos is not None and tp > 1:
+        raise NotImplementedError(
+            "gqa_decode: the ring cache on a mesh (tp > 1) is ROADMAP Queue "
+            "1 item 13; it decodes on one device")
     Hp = cfg.padded_heads(tp)
     ax = plan.model_axis
     L_loc = cache_k.shape[1]
@@ -247,9 +260,12 @@ def gqa_decode(p: GQAttention, x, cache_k, cache_v, pos, cfg: ModelConfig,
     k_off = m * L_loc
     rows = torch.arange(B, device=x.device)
     if tp == 1:
-        cols = pos.long()
+        cols = pos.long() if cache_pos is None else \
+            (pos % sliding_window).long()               # the ring's slot
         cache_k[rows, cols] = k_new[:, 0].to(cache_k.dtype)
         cache_v[rows, cols] = v_new[:, 0].to(cache_v.dtype)
+        if cache_pos is not None:
+            cache_pos[rows, cols] = pos.to(cache_pos.dtype)
     else:
         # only the owning shard takes the write; the others rewrite a row
         # with itself (no host sync on which rows own)
@@ -261,7 +277,8 @@ def gqa_decode(p: GQAttention, x, cache_k, cache_v, pos, cfg: ModelConfig,
                 owns, new[:, 0].to(cache.dtype), cache[rows, safe])
     mm, ll, acc = flash_decode(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
                                cur_pos=pos, k_offset=k_off,
-                               sliding_window=sliding_window)
+                               sliding_window=sliding_window,
+                               k_positions=cache_pos)
     if tp > 1:
         out = combine_partials(mm, ll, acc, axis_name=ax)    # P -> B
         qh = Hp // tp                  # the local heads, for the row-split wo

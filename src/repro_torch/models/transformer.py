@@ -433,7 +433,8 @@ def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
 def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
                  cfg: ModelConfig, plan: MeshPlan, kind: str, mlp_kind: str,
                  sliding_window: int = 0):
-    """Single-token step; updates ``cache`` in place. Returns (x, cache)."""
+    """Single-token step; updates ``cache`` in place (a ring cache's slot
+    position table ``pos`` too). Returns (x, cache)."""
     psum = Boxer(plan).psum_model        # the branch P(sum) -> B
     h = rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps)
     if kind == "ssm":
@@ -446,7 +447,7 @@ def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
                        sliding_window)
     else:
         a = gqa_decode(p.attn, h, cache["k"], cache["v"], pos, cfg, plan,
-                       sliding_window)
+                       sliding_window, cache_pos=cache.get("pos"))
     x = x + psum(a)
     if "xk" in cache:     # whisper's cross-attention over its static cache
         hx = rms_norm(x, p.ln_x.to(x.dtype), cfg.norm_eps)

@@ -559,9 +559,17 @@ def make_serve_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
     (``device`` None: the card). ``logits_fn`` is the decode step's head
     bit for bit, ``h_last[:, 0] @ unembed`` in h's dtype (the reference's
     ``:329-337``): the prefill's first-token logits come from the same
-    product as every decode step's. A mesh, ``ring=True`` (the
-    sliding-window ring cache) and ``sliding_window > 0`` raise: ROADMAP
-    Queue 1 item 13, and on the card Queue 2 item 3(a)."""
+    product as every decode step's. ``sliding_window > 0``: prefill and
+    decode attend over the last ``sliding_window`` positions. ``ring=True``
+    (the reference's long-context serve plan, ``launch/specs.py:
+    serve_plan_for``): the caches are a ring of ``cache_len ==
+    sliding_window`` slots with a slot position table (``ring`` without a
+    window, or with another ``cache_len``, raises ``ValueError``, the
+    reference docstring's condition, ``:292``), built by
+    ``init_caches_fn``, and decoded from there; the reference's ring serve
+    step has no prefill (its ``prefill_fn`` fails: ROADMAP Queue 3), so
+    ``prefill_fn`` raises ``NotImplementedError``. A mesh raises: ROADMAP
+    Queue 1 item 13."""
     check_supported(cfg)
     check_mesh_supported(cfg, plan)
     if not plan.is_single:
@@ -569,10 +577,11 @@ def make_serve_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
             "make_serve_step on a mesh is ROADMAP Queue 1 item 13 (the "
             "classic loop serves on one device; api.compile(cfg, "
             "mode='serve', mesh=...) serves token-frontend archs on one)")
-    if ring or sliding_window > 0:
-        raise NotImplementedError(
-            "make_serve_step: the sliding-window ring cache is ROADMAP "
-            "Queue 1 item 13, its decode kernel Queue 2 item 3(a)")
+    if ring and (sliding_window <= 0 or cache_len != sliding_window):
+        raise ValueError(
+            f"make_serve_step: ring=True needs cache_len == sliding_window "
+            f"> 0, got cache_len={cache_len}, sliding_window="
+            f"{sliding_window}")
     if cache_len < 1:
         raise ValueError(f"cache_len={cache_len} must be >= 1")
     device = resolve_device(device)
@@ -583,13 +592,20 @@ def make_serve_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
                            dtype=compute_dtype(cfg))
 
     def prefill_fn(params: Transformer, batch):
-        return T.prefill(params, batch, cache_len)
+        if ring:
+            raise NotImplementedError(
+                "make_serve_step(ring=True): the reference's ring serve "
+                "step has no prefill (its prefill_fn builds no slot "
+                "position table; ROADMAP Queue 3): start from "
+                "init_caches_fn and decode")
+        return T.prefill(params, batch, cache_len, sliding_window)
 
     def decode_fn(params: Transformer, caches, tok, pos):
-        return T.decode_step(params, caches, tok, pos)
+        return T.decode_step(params, caches, tok, pos, sliding_window)
 
     def init_caches_fn(tok):
-        return make_decode_caches(cfg, plan, len(tok), cache_len, device)
+        return make_decode_caches(cfg, plan, len(tok), cache_len, device,
+                                  ring=ring)
 
     def logits_fn(params: Transformer, h_last):
         with torch.no_grad():

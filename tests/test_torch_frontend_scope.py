@@ -6,9 +6,9 @@ parameter trees, without jax.
   ``ValueError`` ("pipelined serving needs a token frontend",
   ``repro/core/lowering.py:1350-1353``), before building a model: they
   serve through the classic loop;
-* ``make_train_step`` on a mesh, and ``make_serve_step`` on a mesh, with
-  ``ring=True`` or with ``sliding_window > 0``, raise naming their ROADMAP
-  items;
+* ``make_train_step`` on a mesh, and ``make_serve_step`` on a mesh, raise
+  naming their ROADMAP item (the window and the ring cache serve:
+  ``test_torch_ring.py``);
 * ``convert.params_to_jax`` and ``params_from_jax`` round-trip both trees
   bit for bit, with the reference's ``enc_body`` stacked over encoder
   layers and the cross leaves in every decoder block of the body;
@@ -56,8 +56,6 @@ def test_train_step_on_a_mesh_raises_item_13(arch, shape):
 
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("kw,match", [
-    (dict(ring=True), "Queue 2 item 3"), (dict(sliding_window=16),
-                                          "Queue 1 item 13"),
     (dict(plan=MeshPlan(("data", "model"), (1, 2))), "Queue 1 item 13")])
 def test_make_serve_step_scope_raises(arch, kw, match):
     cfg = get_config(arch).reduced()

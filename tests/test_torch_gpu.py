@@ -36,7 +36,10 @@ outputs and 1e-2 for bf16 ones, each call launching its route's kernels
 once and none of the other's, a bf16 call bitwise repeatable, and
 ``SsdScan`` under autograd held to autograd through the plain version on
 float32 copies. Flash decode combines its splits inside the kernel, in a
-thread-block cluster, and its wrapper keeps no state between calls. On a
+thread-block cluster, and its wrapper keeps no state between calls; over
+a ring cache (``k_positions``) it masks each key by its slot's position,
+at both dtypes and head dims, on wrapped, partly filled and two-run rings,
+a window shorter than the ring, and uneven rows. On a
 mesh, the xent kernels run on vocab shards at offsets 0 and V/2, and one
 graph train step on two ranks of the card (a 60 s session timeout, which
 its collectives share, so a deadlock fails instead of hanging) matches the
@@ -494,12 +497,69 @@ def test_paged_gather_then_decode_matches_plain(cuda):
     assert not flat[-2].any()
 
 
-def test_flash_decode_refuses_k_positions(cuda):
+def _ring_rows(kind: str, B: int, L: int):
+    """(first, last) positions each row of a ring of ``L`` slots wrote:
+    a wrapped full ring, one a quarter filled (the rest -1), one never
+    wrapped, one written from mid-ring across the wrap (two runs and a
+    hole), or uneven rows (each of those, and a row whose table is all
+    -1, every key masked)."""
+    rows = {"wrapped": (0, 64 * L + 15), "quarter": (0, L // 4 - 1),
+            "fresh": (0, L // 2 - 1),
+            "two_runs": (3 * L // 4 - 5, 3 * L // 4 - 5 + L // 2)}
+    if kind == "uneven":
+        pairs = list(rows.values()) + [(L, L - 1)]
+        return [pairs[b % len(pairs)] for b in range(B)]
+    return [rows[kind]] * B
+
+
+RING_CASES = [
+    # B, H, KV, D, L, kind, window (0: the ring's own, L), dtype
+    (4, 16, 8, 128, 8192, kind, 0, "bfloat16")
+    for kind in ("wrapped", "quarter", "fresh", "two_runs")] + [
+    (3, 8, 2, D, 1000, kind, 0, dt)
+    for dt in ("float32", "bfloat16") for D in (64, 128)
+    for kind in ("wrapped", "quarter", "fresh", "two_runs")] + [
+    (3, 8, 2, 64, 1000, "wrapped", 300, "float32"),    # window < L
+    (2, 16, 8, 128, 8192, "two_runs", 2000, "bfloat16"),
+    (5, 16, 8, 128, 777, "uneven", 0, "bfloat16"),     # uneven rows
+    (5, 4, 1, 64, 300, "uneven", 100, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", RING_CASES)
+def test_flash_decode_ring_kernel_matches_plain(cuda, case):
+    """The kernel over a ring cache (``k_positions``: each slot's position,
+    -1 empty; the whole cache cut into splits, each key masked by its
+    entry) against the plain version, every call counted in
+    ``ring_launches``; a row whose every key is masked averages v."""
+    from repro_torch.kernels.flash_decode.ref import ring_positions
+    B, H, KV, D, L, kind, window, dt = case
+    rng = np.random.default_rng(L + B)
+    q = _randn(rng, (B, H, D), dt, cuda)
+    k, v = (_randn(rng, (B, L, KV, D), dt, cuda) for _ in "kv")
+    first, last = (torch.tensor(c) for c in zip(*_ring_rows(kind, B, L)))
+    table = ring_positions(first, last, L).to(cuda)
+    cur = last.clamp_min(0).to(torch.int32).to(cuda)
+    kw = dict(sliding_window=window or L, k_positions=table)
+    before, ring_before = fd.launches, fd.ring_launches
+    m, l, acc = _decode_matches_plain(q, k, v, cur, dt, **kw)
+    torch.cuda.synchronize()
+    assert (fd.launches, fd.ring_launches) == (before + 1, ring_before + 1)
+    pm, _, _ = fd.flash_decode_partial_ref(q, k, v, cur_pos=cur, **kw)
+    _close(m, pm, dt)
+    for b in range(B):
+        if (table[b] < 0).all():
+            assert (m[b] == -1e30).all() and (l[b] == L).all()
+
+
+def test_flash_decode_refuses_bad_position_tables(cuda):
     q, k, v, cur, _ = _decode_case((1, 4, 2, 64, 16, 0, 0, "float32"), cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fd.flash_decode(q, k, v, cur_pos=cur,
-                        k_positions=torch.zeros((1, 16), dtype=torch.int32,
-                                                device=cuda))
+    for bad in (torch.zeros((1, 16), dtype=torch.int64, device=cuda),
+                torch.zeros((1, 15), dtype=torch.int32, device=cuda),
+                torch.zeros((1, 32), dtype=torch.int32, device=cuda)[:, ::2],
+                torch.zeros((1, 16), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="k_positions"):
+            fd.flash_decode(q, k, v, cur_pos=cur, k_positions=bad)
 
 
 # ---------------------------------------------------------------------------

@@ -668,10 +668,13 @@ def test_decode_wrapper_refuses_non_cuda_device():
     cur = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="card"):
         fd_kernel.flash_decode(q, k, k, cur_pos=cur)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a ring cache's table takes the same route: the kernel, which
+    # refuses a tensor off the card
+    with pytest.raises(ValueError, match="card"):
         fd_kernel.flash_decode(q, k, k, cur_pos=cur,
-                               k_positions=torch.zeros((1, 8), device="meta"))
-    assert fd_kernel.launches == 0
+                               k_positions=torch.zeros(
+                                   (1, 8), dtype=torch.int32, device="meta"))
+    assert fd_kernel.launches == 0 and fd_kernel.ring_launches == 0
 
 
 def test_xent_wrapper_refuses_non_cuda_device():
