@@ -169,6 +169,51 @@ def serve_cache_bound(
     return out
 
 
+def serve_param_bound(sstaged: Any) -> Dict[str, int]:
+    """Per-stage weight bytes a rank of the serve pipeline holds, counted
+    from the model's shapes and signatures on the meta device (nothing is
+    allocated): the stage's blocks at each leaf's shard under
+    :func:`repro_torch.models.transformer.spec_of` (an MoE layer's ``E /
+    tp`` expert stacks, MLA's latent projection whole on every rank), the
+    embedding on the first stage and the head on the last, in the compute
+    dtype (leaves the model reads in float32 at 4 bytes). Every rank holds
+    as much (the signatures split evenly), so this is each rank's count.
+    It sits beside :func:`serve_memory_bound`, which counts what the
+    reference's does (registers and caches), not the weights."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.mamba import FLOAT32_PARAMS
+    from repro_torch.optim.zero import local_shape_of
+
+    cfg, plan = sstaged.cfg, sstaged.plan
+    itemsize = T.compute_dtype(cfg).itemsize
+    with torch.device("meta"):
+        shapes = {n: tuple(t.shape) for n, t in
+                  T.Transformer(cfg, plan).state_dict().items()}
+    units = T.stage_units(cfg)
+    out: Dict[str, int] = {}
+    for s, stage in enumerate(sstaged.stages):
+        layers = {li for u in units[stage.units[0]:stage.units[1]]
+                  for li in u}
+        total = 0
+        for name, shape in shapes.items():
+            parts = name.split(".")
+            if parts[0] == "blocks":
+                if int(parts[1]) not in layers:
+                    continue
+            elif not ((stage.first and name == "embed") or (
+                    stage.last and name in ("final_norm", "unembed"))):
+                continue
+            nelem = 1
+            for d in local_shape_of(shape, T.spec_of(name, cfg, plan), plan):
+                nelem *= d
+            total += nelem * (4 if parts[-1] in FLOAT32_PARAMS
+                              else itemsize)
+        out[f"stage{s}"] = total
+    return out
+
+
 def serve_memory_bound(
     sstaged: Any,
     regs: Sequence[int],

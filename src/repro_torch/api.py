@@ -14,7 +14,8 @@ every lowering and executor path (port of ``repro/api.py``).
   sampled (``sampling=``), over dense per-group caches or the paged pool
   (``cache="paged"``, with shared-prefix pages and ``prefill_chunk=``),
   on one device or, dense, on a ``("data", "model")`` mesh of ranks
-  (``mesh=``: tensor parallelism over ``model``, data parallelism over
+  (``mesh=``: tensor parallelism over ``model`` -- heads, MLP units,
+  SSM heads, experts and the vocabulary -- data parallelism over
   ``data``).
 
 A graph runs on the ranks of a :class:`~repro_torch.core.mesh.DeviceMesh`

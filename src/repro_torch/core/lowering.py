@@ -1605,7 +1605,9 @@ class ServeStage:
     On a ``mesh`` of several ranks each is a per-rank program run through
     :func:`repro_torch.core.mesh.spmd`: ``params`` and the caches are
     per-rank lists (each rank's shards; a group cache ``(group_size / dp,
-    cache_len / tp, KV, hd)`` a rank), so is a hidden passed between stages
+    cache_len / tp, KV, hd)`` a rank, an MLA layer's latent ``(group_size /
+    dp, cache_len, r)`` whole on every rank of ``model``), so is a hidden
+    passed between stages
     (replicated over ``model``, split over ``data``). Token ids, positions
     and the last stage's logits stay global: the stage cuts the first two
     by data rank and assembles the third from the ranks' vocab blocks.
@@ -1655,8 +1657,11 @@ class ServeStagedProgram:
                  f"(cache_len={self.cache_len}, "
                  f"group_size={self.group_size}, device={self.device})"]
         if self.mesh is not None:
-            lines.append(f"  on {self.mesh}: tp={self.plan.tp} (heads, "
-                         f"vocab, KV cache by sequence), dp={self.plan.dp} "
+            cache = ("latent cache replicated" if self.cfg.use_mla
+                     else "KV cache by sequence")
+            experts = (", experts" if self.cfg.num_experts else "")
+            lines.append(f"  on {self.mesh}: tp={self.plan.tp} (heads"
+                         f"{experts}, vocab, {cache}), dp={self.plan.dp} "
                          "(slot groups' rows)")
         for st in self.stages:
             extra = []
@@ -1903,7 +1908,9 @@ def write_slot(caches: List[dict], slot_caches: List[dict],
     group caches in place, casting to the group cache's dtype. Positional
     leaves (:data:`POSITIONAL`, prompt length S) fill the slot's first S
     positions and zero the rest -- the reference's padded write (a rank's
-    sequence block at tp > 1 arrives padded and fills it whole); the SSM
+    GQA sequence block at tp > 1 arrives padded and fills it whole; MLA's
+    replicated latent arrives unpadded on every rank, each writing the
+    same values); the SSM
     state and conv tails are copied whole. A conv tail shorter than the
     cache's (a prompt of fewer than ``ssm_d_conv - 1`` tokens) is refused."""
     for gc, sc in zip(caches, slot_caches):

@@ -10,6 +10,8 @@
         --smoke --device cpu --mesh 1x2
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --smoke --device cpu --mesh 1x2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
     PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
         --smoke --device cpu
@@ -19,10 +21,10 @@ with differing generation lengths are packed into decode slots, finished
 requests retire and queued ones are admitted mid-flight, and the stage
 actors overlap across request groups. Runs on the card by default
 (``--device cuda``); ``--device cpu --smoke`` runs the reduced config on the
-plain PyTorch path. ``--mesh DxM`` serves a dense or Mamba-2 model on a
-``("data", "model")`` mesh of D x M ranks (threads; on one card every rank
-shares it), as the reference's ``launch/serve.py:130-141`` does; MLA and MoE
-models (deepseek-v2-lite-16b) serve on one device. Weights are the port's
+plain PyTorch path. ``--mesh DxM`` serves a token-frontend model (dense,
+Mamba-2, MLA + MoE, hybrid) on a ``("data", "model")`` mesh of D x M ranks
+(threads; on one card every rank shares it), as the reference's
+``launch/serve.py:130-141`` does. Weights are the port's
 seeded init (``--seed``), drawn in the config's compute dtype.
 
 Embed-frontend and encoder-decoder archs (pixtral, whisper) take the

@@ -21,9 +21,12 @@ assembled from the ranks. ``--zero`` (the default, as in the reference)
 keeps float32 masters and AdamW moments as flat rows sharded over the data
 axes, gathered in the compute dtype each step (paper §6.4);
 ``--no-zero`` keeps a replica of each rank's shards and moments. An MLA +
-MoE config (deepseek-v2-lite) trains on one device, its routers'
-load-balance loss in the loss; on a mesh it raises (ROADMAP Queue 1 item
-13).
+MoE config (deepseek-v2-lite) trains as well, its routers' load-balance
+loss in the loss; on a mesh its heads and experts split over ``model``::
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v2-lite-16b --smoke --device cpu --mesh 1x2 \
+        --batch 4 --seq 32 --steps 3
 """
 from __future__ import annotations
 

@@ -49,8 +49,11 @@ the latent and calls :func:`~repro_torch.kernels.flash_attention
 (:func:`mla_decode`) is the reference's absorbed form: scores and outputs
 in latent space, plain einsums over the latent cache ``c (B, L, r)`` and
 ``kpe (B, L, rope)``, as the reference computes them outside any Pallas
-kernel. MLA on a mesh (heads over ``model``, the latent cache replicated)
-is ROADMAP Queue 1 item 13.
+kernel. On a mesh a rank runs ``num_heads / tp`` heads on its S(1)
+columns of ``wq`` (or ``wq_b``), ``w_uk`` and ``w_uv`` and its S(0) rows
+of ``wo``, so both return the P(sum) partial of the output projection;
+the latent projection and the latent cache are replicated over ``model``,
+every rank writing the same values in place.
 """
 from __future__ import annotations
 

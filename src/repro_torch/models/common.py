@@ -31,16 +31,22 @@ from repro_torch.core.tape import Step
 
 #: The leaves replicated over ``model`` that each rank uses only in part:
 #: attention's kv-group columns of ``wk``/``wv``/``bk``/``bv``
-#: (``attention.py:_kv_slice``) and the q/k norms over its local heads, and
+#: (``attention.py:_kv_slice``) and the q/k norms over its local heads;
+#: MLA's latent projection ``wkv_a`` and its ``kv_norm``, and the q LoRA's
+#: ``wq_a`` and ``q_norm``, whose outputs feed only the rank's heads;
 #: Mamba's ``w_bc`` and ``conv_bc``, whose B and C feed only the rank's
-#: local heads. A rank's gradient of one is its disjoint part of the true
-#: one, so training psums it over ``model`` after the backward (the
-#: reference's ``_MODEL_GRAD_SUM_LEAVES``, ``repro/train/steps.py:79-80``,
-#: less ``router``, whose MoE layers the port does not build; JAX's autodiff
-#: adds them implicitly). With kv heads < tp the ranks of a group share a
-#: head, and the psum adds their parts alike.
+#: local heads; and the MoE ``router``, whose gates weigh only the rank's
+#: experts (its aux loss, computed whole on every rank, reaches it through
+#: :func:`aux_pmean_step` at 1 / tp a rank). A rank's gradient of one is
+#: its disjoint part of the true one, so training psums it over ``model``
+#: after the backward, once (the reference's ``_MODEL_GRAD_SUM_LEAVES``,
+#: ``repro/train/steps.py:79-80``, with MLA's leaves, which its plain path
+#: gets summed by JAX's autodiff and its ZeRO path by summing every
+#: replicated leaf). With kv heads < tp the ranks of a group share a head,
+#: and the psum adds their parts alike.
 MODEL_GRAD_SUM_LEAVES = frozenset({"wk", "wv", "bk", "bv", "q_norm",
-                                   "k_norm", "w_bc", "conv_bc"})
+                                   "k_norm", "w_bc", "conv_bc", "router",
+                                   "wkv_a", "kv_norm", "wq_a"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +151,18 @@ def branch_psum_step(src: str, dst: str, plan: MeshPlan) -> Step:
     whole cotangent, so the transpose is the identity."""
     return Step(lambda v: M.psum(v, plan.model_axis), (src,), (dst,),
                 collective=True, transpose=lambda g: g)
+
+
+def aux_pmean_step(src: str, dst: str, plan: MeshPlan) -> Step:
+    """The reference's ``certified_pmean`` of the routers' aux loss
+    (``repro/models/transformer.py:419-424``): ``dst`` is ``src``, a value
+    every rank of ``model`` computes whole (and alike) without a mediating
+    psum. The forward keeps the value (the mean of tp equal values); the
+    transpose gives each rank ``1 / tp`` of the cotangent, so that after
+    the router's sum over ``model`` (:data:`MODEL_GRAD_SUM_LEAVES`) and the
+    branch input's "f" the aux's gradient counts once."""
+    return Step(lambda v: v, (src,), (dst,), collective=True,
+                transpose=lambda g: g / plan.tp)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,13 +1,14 @@
 """MLP layers: dense SwiGLU (port of ``repro/models/mlp.py:29-49``) and the
-capacity-routed MoE (``:56-131``) on one device.
+capacity-routed MoE (``:56-131``).
 
 On a mesh a rank holds the column-parallel ``w_gate``/``w_up`` S(1) and
 the row-parallel ``w_down`` S(0) blocks of its hidden units
 (:func:`repro_torch.models.transformer.block_specs`), so
 :func:`dense_mlp_forward` of its shards is the P(sum) partial that the
-block psums over the model axis. The MoE's expert parallelism (experts
-S(0) over ``model``) is ROADMAP Queue 1 item 13: :func:`moe_forward` runs
-every expert on its device.
+block psums over the model axis. The MoE is expert-parallel: the expert
+stacks are S(0) over ``model``, each rank routes the replicated tokens to
+its ``E / tp`` experts, and its output (with the shared experts'
+row-parallel partial added, one deferred psum) is P(sum) too.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init, param, swiglu
+from repro_torch.core import mesh as M
+from repro_torch.models.common import MeshPlan, dense_init, param, swiglu
 
 
 class DenseMLP(nn.Module):
@@ -96,21 +98,34 @@ def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
     return min(cap, tokens)
 
 
-def moe_forward(p: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
-    """Capacity-routed MoE (``mlp.py:81-131``) on one device. x: (B, S, d).
+def moe_forward(p: MoE, x, cfg: ModelConfig,
+                plan: MeshPlan = MeshPlan()) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Capacity-routed MoE (``mlp.py:81-131``) on one rank of ``plan``'s
+    mesh (one device at tp = 1). x: (B, S, d), replicated over ``model``.
     Top-k of the float32 router softmax per token, gates renormalised; the
-    affinity matrix ``A (T, E)``; each expert takes the ``cap`` tokens of
-    highest affinity (a token past an expert's capacity is dropped there:
-    its affinity-0 picks carry weight 0), runs its SwiGLU on them in one
-    batched product over experts (``torch.bmm``) and scatter-adds the
-    gated outputs back; the shared experts' dense MLP adds to that.
-    Returns ``(out (B, S, d), aux)``, the Switch-style load-balance loss
-    ``E * sum_e f_e * P_e`` in float32. The scatter-add accumulates with
-    ``index_put_``, whose CUDA kernel sums a row's contributions in a
-    fixed order (sorted indices), so a call repeats its bits."""
+    rank's affinity matrix ``A (T, E / tp)`` over its experts ``[lo, lo +
+    E / tp)``, every pick of another rank's expert sent to column 0 with
+    weight 0 and the picks scatter-ADDED (as the reference's ``.at[].add``:
+    a plain scatter would let a non-local pick's 0 overwrite a real gate
+    in column 0); each expert takes the ``cap`` tokens of highest affinity,
+    ``cap`` from the global token count (a token past an expert's capacity
+    is dropped there: its affinity-0 picks carry weight 0), runs its
+    SwiGLU on them in one batched product over the rank's experts
+    (``torch.bmm``) and scatter-adds the gated outputs back; the shared
+    experts' dense MLP (its row-parallel partial on a mesh) adds to that.
+    Returns ``(out (B, S, d), aux)``: ``out`` the P(sum) partial over
+    ``model`` (the whole output at tp = 1) and the Switch-style
+    load-balance loss ``E * sum_e f_e * P_e`` in float32, computed whole on
+    every rank. The scatter-add accumulates with ``index_put_``, whose CUDA
+    kernel sums a row's contributions in a fixed order (sorted indices), so
+    a call repeats its bits; ``A``'s adds are exact (a gate plus zeros)."""
     B, S, d = x.shape
-    E, K = cfg.num_experts, cfg.top_k
+    E, K, tp = cfg.num_experts, cfg.top_k, plan.tp
+    if E % tp:
+        raise ValueError(f"{cfg.name}: {E} experts do not split over "
+                         f"tp = {tp} ranks")
+    E_loc = E // tp
     T = B * S
     dt = x.dtype
     t = x.reshape(T, d)
@@ -122,15 +137,18 @@ def moe_forward(p: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
     f = F.one_hot(idx, E).float().sum(dim=(0, 1)) / (T * K)
     aux = E * torch.sum(f * probs.mean(dim=0))
 
-    A = torch.zeros((T, E), dtype=torch.float32, device=x.device)
-    A.scatter_(1, idx, gates)                 # a token's K experts differ
-    vals, tok = top_k(A.t(), moe_capacity(cfg, T))              # (E, cap)
+    lo = M.axis_index(plan.model_axis) * E_loc if tp > 1 else 0
+    local = (idx >= lo) & (idx < lo + E_loc)
+    A = torch.zeros((T, E_loc), dtype=torch.float32, device=x.device)
+    A.scatter_add_(1, torch.where(local, idx - lo, 0),
+                   torch.where(local, gates, 0.0))
+    vals, tok = top_k(A.t(), moe_capacity(cfg, T))          # (E_loc, cap)
 
-    xe = t[tok]                                                 # (E, cap, d)
+    xe = t[tok]                                             # (E_loc, cap, d)
     h = swiglu(torch.bmm(xe, p.w_gate.to(dt)), torch.bmm(xe, p.w_up.to(dt)))
     y = torch.bmm(h, p.w_down.to(dt)) * vals[..., None].to(dt)
     out = torch.zeros((T, d), dtype=dt, device=x.device)
     out.index_put_((tok.reshape(-1),), y.reshape(-1, d), accumulate=True)
     if cfg.num_shared_experts:
-        out = out + dense_mlp_forward(p.shared, t)
+        out = out + dense_mlp_forward(p.shared, t)      # both P(sum): defer
     return out.reshape(B, S, d), aux

@@ -9,10 +9,12 @@ device, :func:`mesh_loss_program` on a mesh), each also tensor- and
 data-parallel on a ``("data", "model")`` mesh, one call per rank inside
 :func:`repro_torch.core.mesh.spmd`. MLA attention and ``attn``/``moe``
 layers (deepseek-v2-lite: a leading dense layer, then MLA with a
-capacity-routed MoE) are served and trained on one device, the routers'
-load-balance losses summed into the training loss as the reference sums
-them; running them on a mesh raises (ROADMAP Queue 1 item 13). So do the
-two frontend architectures, which also run on one device: an embed
+capacity-routed MoE) are served and trained too, on one device and on
+meshes (heads and experts split over ``model``, the latent cache
+replicated over it), the routers' load-balance losses summed into the
+training loss as the reference sums them. The two frontend
+architectures run on one device; on a mesh they raise (ROADMAP Queue 1
+item 13): an embed
 frontend (pixtral: the decoder reads patch embeddings, ``{"embeds",
 "labels"}``) and an encoder-decoder (whisper: ``enc_blocks``, a
 non-causal attn/dense stack over frame embeddings plus a sinusoid, its
@@ -21,8 +23,9 @@ every decoder block of the body). Their serving is the reference's
 whole-model :func:`prefill` and :func:`decode_step` (its classic loop),
 not the stage slices. A hybrid (jamba: Mamba-2 layers with a dense MLP
 or an MoE after the mixer, ``ssm``/``dense`` and ``ssm``/``moe``, one
-attention layer in 8) is served on one device through the stage slices;
-training it raises (:func:`check_trainable`, ROADMAP Queue 1 item 13).
+attention layer in 8) is served through the stage slices, on one device
+and on a mesh; training it raises (:func:`check_trainable`, ROADMAP Queue
+1 item 13).
 The reference stacks each period slot's params over periods and scans them;
 here a model is an ``nn.Module`` holding a flat ``blocks`` list in layer
 order, and :mod:`repro_torch.models.convert` maps the reference's stacked
@@ -40,8 +43,11 @@ hidden units over ``model`` (column-parallel ``wq``, ``w_gate``, ``w_up``,
 row-parallel ``wo``, ``w_down``, whose outputs are P(sum) and psummed by
 :func:`apply_block` / :func:`decode_block`), an SSM layer's heads likewise
 (``repro_torch.models.mamba``: ``w_x``/``w_z``/``w_dt`` column-parallel,
-``out_proj`` row-parallel, ``w_bc``/``conv_bc`` replicated), the
-vocabulary over ``model`` (:func:`embed_tokens` masks and psums; the
+``out_proj`` row-parallel, ``w_bc``/``conv_bc`` replicated), MLA's heads
+(``wq``/``wq_b``, ``w_uk``, ``w_uv`` column-parallel, ``wo``
+row-parallel, the latent projection replicated), the MoE's experts (the
+stacks S(0), the router replicated, the shared experts as a dense MLP),
+the vocabulary over ``model`` (:func:`embed_tokens` masks and psums; the
 head's logits are S(1)), and everything replicated over ``data``.
 """
 from __future__ import annotations
@@ -67,9 +73,10 @@ from repro_torch.models.attention import (GQAttention, MLAttention,
                                           gqa_forward, init_gqa, init_mla,
                                           kv_to_seq_sharded, mla_decode,
                                           mla_forward)
-from repro_torch.models.common import (Boxer, MeshPlan, branch_psum_step,
-                                       dense_init, grad_sync_step, param,
-                                       resolve_device, rms_norm)
+from repro_torch.models.common import (Boxer, MeshPlan, aux_pmean_step,
+                                       branch_psum_step, dense_init,
+                                       grad_sync_step, param, resolve_device,
+                                       rms_norm)
 from repro_torch.models.mamba import (FLOAT32_PARAMS, Mamba, init_mamba,
                                       mamba_decode, mamba_forward)
 from repro_torch.models.mlp import (DenseMLP, MoE, dense_mlp_forward,
@@ -154,31 +161,28 @@ def has_frontend(cfg: ModelConfig) -> bool:
     return cfg.embed_frontend or cfg.encoder_decoder
 
 
-def has_moe_or_mla(cfg: ModelConfig) -> bool:
-    """Whether ``cfg`` has MLA attention or MoE layers, which the port
-    serves and trains on one device only."""
-    return cfg.use_mla or any(m == "moe" for _, m in
-                              stack_layout(cfg).layer_kinds())
-
-
 def check_mesh_supported(cfg: ModelConfig, plan: MeshPlan) -> None:
-    """Raise where ``plan``'s mesh cannot run ``cfg``: MLA and MoE on more
-    than one rank (expert parallelism, ROADMAP Queue 1 item 13), an
-    encoder-decoder or an embed frontend on more than one rank (the same
-    item), or a model axis that does not split the SSM heads (each rank
-    runs ``ssm_heads / tp`` of them)."""
-    if has_moe_or_mla(cfg) and not plan.is_single:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA and MoE on a mesh (heads and experts over "
-            "ranks) are ROADMAP Queue 1 item 13; serve and train it on one "
-            "device")
+    """Raise where ``plan``'s mesh cannot run ``cfg``: an encoder-decoder or
+    an embed frontend on more than one rank (ROADMAP Queue 1 item 13, its
+    part after MLA and MoE), or a model axis that does not split the MLA
+    heads, the routed experts or the SSM heads (each rank runs ``1 / tp``
+    of them, as the reference's specs cut them)."""
     if has_frontend(cfg) and not plan.is_single:
         raise NotImplementedError(
             f"{cfg.name}: an encoder-decoder or an embed frontend on a mesh "
-            "is ROADMAP Queue 1 item 13; serve and train it on one device")
-    if has_ssm_layers(cfg) and cfg.ssm_heads % plan.tp:
+            "is ROADMAP Queue 1 item 13 (the frontend archs on a mesh, after "
+            "MLA and MoE); serve and train it on one device")
+    tp = plan.tp
+    if cfg.use_mla and cfg.num_heads % tp:
+        raise ValueError(f"{cfg.name}: {cfg.num_heads} MLA heads do not "
+                         f"split over tp = {tp} ranks")
+    if any(m == "moe" for _, m in stack_layout(cfg).layer_kinds()) \
+            and cfg.num_experts % tp:
+        raise ValueError(f"{cfg.name}: {cfg.num_experts} experts do not "
+                         f"split over tp = {tp} ranks")
+    if has_ssm_layers(cfg) and cfg.ssm_heads % tp:
         raise ValueError(f"{cfg.name}: {cfg.ssm_heads} SSM heads do not "
-                         f"split over tp = {plan.tp} ranks")
+                         f"split over tp = {tp} ranks")
 
 
 def has_ssm_layers(cfg: ModelConfig) -> bool:
@@ -362,13 +366,14 @@ def embed_tokens(p_embed, ids, plan: MeshPlan):
     return Boxer(plan).psum_model(embed_local(p_embed, ids, plan))
 
 
-def _mlp_branch(p: Block, x, cfg: ModelConfig, mlp_kind: str):
+def _mlp_branch(p: Block, x, cfg: ModelConfig, plan: MeshPlan,
+                mlp_kind: str):
     """The MLP branch: ``(out, aux)``, its output (P(sum) on a mesh) and
-    its router's load-balance loss -- the MoE's, or None for the dense
-    SwiGLU."""
+    its router's load-balance loss -- the MoE's (on the rank's experts,
+    the aux whole on every rank), or None for the dense SwiGLU."""
     h2 = rms_norm(x, p.ln2.to(x.dtype), cfg.norm_eps)
     if mlp_kind == "moe":
-        return moe_forward(p.moe, h2, cfg)
+        return moe_forward(p.moe, h2, cfg, plan)
     return dense_mlp_forward(p.mlp, h2), None
 
 
@@ -426,7 +431,7 @@ def apply_block(p: Block, x, cfg: ModelConfig, plan: MeshPlan, kind: str,
         x = x + psum(ax)
     if mlp_kind == "none":
         return x, None, cache
-    mo, aux = _mlp_branch(p, x, cfg, mlp_kind)
+    mo, aux = _mlp_branch(p, x, cfg, plan, mlp_kind)
     return x + psum(mo), aux, cache
 
 
@@ -454,7 +459,7 @@ def decode_block(p: Block, x, cache: Dict[str, torch.Tensor], pos,
         x = x + psum(cross_attn_decode(p.xattn, hx, cache["xk"],
                                        cache["xv"], cfg, plan))
     if mlp_kind != "none":
-        x = x + psum(_mlp_branch(p, x, cfg, mlp_kind)[0])
+        x = x + psum(_mlp_branch(p, x, cfg, plan, mlp_kind)[0])
     return x, cache
 
 
@@ -600,9 +605,10 @@ def block_specs(cfg: ModelConfig, plan: MeshPlan, kind: Kind,
     ``norm_w`` and ``out_proj`` S(0); ``ln1`` replicated; ssm/dense and
     ssm/moe add ``ln2`` and the MLP's or MoE's signatures. A ``cross``
     block adds ``ln_x`` (replicated) and ``xattn.*``, GQA's signatures
-    without biases (``:108-110``). Only the 1 x 1 plan runs MLA, MoE and
-    cross blocks (:func:`check_mesh_supported`), where every signature
-    keeps the whole leaf."""
+    without biases (``:108-110``). Only the 1 x 1 plan runs cross blocks
+    (:func:`check_mesh_supported`), where every signature keeps the whole
+    leaf; MLA and MoE run on any mesh whose model axis splits their heads
+    and experts."""
     S0, S1, B_ = _spec(plan, "S(0)"), _spec(plan, "S(1)"), _spec(plan, "B")
     if cross:
         xattn = {"wq": S1, "wk": B_, "wv": B_, "wo": S0}
@@ -904,8 +910,8 @@ def loss_steps(h: str, plan: MeshPlan, out: str = "loss",
 
 def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
                       remat: bool = True) -> LocalProgram:
-    """The training loss of a dense, SSM or (at 1 x 1) MLA + MoE decoder on
-    one rank of a ``("data", "model")`` mesh, as a program for the
+    """The training loss of a dense, SSM or MLA + MoE decoder on one rank
+    of a ``("data", "model")`` mesh, as a program for the
     training tape (:func:`repro_torch.core.tape.taped_forward`): local
     segments between the model's collectives, every collective a tape
     entry with its transpose, so none runs inside autograd.
@@ -924,13 +930,17 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
     "f" (:func:`~repro_torch.models.common.grad_sync_step`), attention on
     the rank's heads (GQA, or MLA), the branch psum "g"
     (:func:`~repro_torch.models.common.branch_psum_step`), the residual
-    and norm, "f", the MLP on the rank's units (or the MoE, which also
-    gives its aux), "g"; an SSM block is the norm, "f", Mamba on the rank's
-    heads, "g" and the residual. The f sits after each norm, so a
+    and norm, "f", the MLP on the rank's units (or the MoE on the rank's
+    experts, which also gives its aux, whole on every rank), "g"; an SSM
+    block is the norm, "f", Mamba on the rank's heads, "g" and the
+    residual. The f sits after each norm, so a
     replicated norm's gradient comes out whole on every rank.
     The embedding is :func:`embed_local` and a "g"; the loss is
-    :func:`loss_steps` after the final norm and an "f". At tp = 1 (a data
-    mesh, or ``fsdp``) there is no "f" or "g", and the loss is
+    :func:`loss_steps` after the final norm and an "f". The summed aux
+    goes through :func:`~repro_torch.models.common.aux_pmean_step` before
+    it joins the loss (the reference's ``certified_pmean``), so its
+    gradient counts once over the ranks of ``model``. At tp = 1 (a data
+    mesh, or ``fsdp``) there is no "f", "g" or pmean, and the loss is
     :func:`lm_loss`'s.
 
     With ``remat`` each block's segments keep only their inputs and run
@@ -1075,8 +1085,8 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
             local(add_norm, (x, g(a), b + "ln2"), (xm, h2))
         if kind[1] == "moe":
             a_i = name(f"aux{i}")
-            branch(lambda p, hv: moe_forward(p, hv, cfg), kind, "moe.", b,
-                   h2, (mo, a_i), cross=is_cross(cfg, i))
+            branch(lambda p, hv: moe_forward(p, hv, cfg, plan), kind,
+                   "moe.", b, h2, (mo, a_i), cross=is_cross(cfg, i))
             if aux is None:
                 aux = a_i
             else:
@@ -1097,6 +1107,9 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
         steps += loss_steps(f(hf), plan, labels=labels)
         lm = "loss"
     else:
+        if tp > 1:
+            steps.append(aux_pmean_step(aux, aux + ".pmean", plan))
+            aux += ".pmean"
         lm, w = name("lm"), cfg.router_aux_weight
         steps += loss_steps(f(hf), plan, out=lm, labels=labels)
         local(lambda lv, av: lv + w * av, (lm, aux), ("loss",), rm=False)

@@ -57,11 +57,13 @@ class ZeroState(NamedTuple):
 
 
 #: Model-replicated leaves whose per-rank gradients are DISJOINT parts (each
-#: rank's heads reach only its kv group's columns, its heads' norms, and
-#: the B and C projections its SSM heads read): the port's
+#: rank's heads reach only its kv group's columns, its heads' norms, MLA's
+#: latent projection, the B and C projections its SSM heads read, and the
+#: router's columns its experts weigh): the port's
 #: :data:`repro_torch.models.common.MODEL_GRAD_SUM_LEAVES`. The reference's
-#: set (``repro/optim/zero.py:43-44``) adds ``router``, a leaf of the MoE
-#: layers the port does not build yet (ROADMAP Queue 1 item 13).
+#: set (``repro/optim/zero.py:43-44``) lacks MLA's ``wkv_a``, ``kv_norm``
+#: and ``wq_a``: its ZeRO path sums every replicated leaf
+#: (``model_combine_tree``), so it needs no names for them.
 MODEL_SUM_LEAVES = MODEL_GRAD_SUM_LEAVES
 
 

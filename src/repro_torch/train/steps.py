@@ -36,12 +36,15 @@ Every path trains dense GQA stacks and Mamba-2 (SSM) stacks alike, on one
 device and on any ``(data, model)`` mesh whose model axis splits the heads;
 on the card an SSM layer's scan runs the SSD kernels forward and backward
 (:class:`repro_torch.kernels.ssd_scan.kernel.SsdScan`). MLA + MoE stacks
-(deepseek-v2-lite) train on one device, plain and ZeRO at 1 x 1, the
-attention backward at MLA's ``(D, Dv)`` on the card and the routers'
-load-balance loss in the loss (``aux_loss``); on any other mesh they raise
-(ROADMAP Queue 1 item 13), as hybrid stacks do before any path is chosen.
-So do the frontend architectures, trained on one device plain and ZeRO at
-1 x 1 from the reference's batch forms (:func:`batch_specs`): an embed
+(deepseek-v2-lite) train on every path too, the attention backward at
+MLA's ``(D, Dv)`` on the card and the routers' load-balance loss in the
+loss (``aux_loss``): on a mesh the heads and experts split over ``model``,
+the router's and MLA's latent leaves are model-summed, and the aux's
+gradient reaches each rank at 1 / tp
+(:func:`~repro_torch.models.common.aux_pmean_step`). Hybrid stacks raise
+before any path is chosen (ROADMAP Queue 1 item 22). The frontend
+architectures train on one device plain and ZeRO at 1 x 1 from the
+reference's batch forms (:func:`batch_specs`): an embed
 frontend (pixtral) from ``{"embeds", "labels"}``, an encoder-decoder
 (whisper) from ``{"tokens", "enc_embeds"}``; on the card the encoder's
 non-causal attention and the decoder's cross-attention run the attention

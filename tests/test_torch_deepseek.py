@@ -588,26 +588,49 @@ def test_tokens_match_jax_with_expert_drops(env):
 # ---------------------------------------------------------------------------
 
 def test_mla_and_moe_on_a_mesh_raise(env):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    """MLA and MoE serve on a mesh whose model axis splits the heads and
+    the experts (``tests/test_torch_deepseek_mesh.py`` holds them to the
+    JAX sessions); a model axis that splits neither raises naming the
+    heads, one that splits the heads but not the experts names the
+    experts, both before a model is built."""
+    mesh = Placement(("data", "model"), (1, 2))
+    with api.compile(env["cfg_t"], mode="serve", params=env["state"],
+                     device="cpu", mesh=mesh, **GEOMETRY) as sess:
+        assert "tp=2 (heads, experts, vocab, latent cache replicated)" in \
+            sess.describe()
+    with pytest.raises(ValueError, match="4 MLA heads do not split over "
+                                         "tp = 8"):
         api.compile(env["cfg_t"], mode="serve", params=env["state"],
-                    device="cpu", mesh=Placement(("data", "model"), (1, 2)),
+                    device="cpu", mesh=Placement(("data", "model"), (1, 8)),
                     **GEOMETRY)
+    wide = dataclasses.replace(env["cfg_t"], num_heads=8)
+    with pytest.raises(ValueError, match="4 experts do not split over "
+                                         "tp = 8"):
+        api.compile(wide, mode="serve", device="cpu",
+                    mesh=Placement(("data", "model"), (1, 8)), **GEOMETRY)
 
 
 def test_training_mla_and_moe_raises(env):
     """Training MLA + MoE runs on one device
-    (``tests/test_torch_deepseek_train.py`` holds it to the JAX package);
-    on a mesh, a pure data mesh too, it raises naming ROADMAP Queue 1 item
-    13, plain and ZeRO."""
+    (``tests/test_torch_deepseek_train.py`` holds it to the JAX package)
+    and on meshes (``tests/test_torch_deepseek_mesh_train.py``); on a
+    model axis that does not split its 4 heads it raises naming them,
+    plain and ZeRO, and a frontend arch on a mesh, a pure data mesh too,
+    still raises naming ROADMAP Queue 1 item 13."""
     loss, metrics = loss_fn(env["model"],
                             {"tokens": np.zeros((1, 9), np.int32)})
     assert torch.isfinite(loss) and float(metrics["aux_loss"]) > 0
-    for shape in ((1, 2), (2, 1)):
-        for zero in (True, False):
+    for zero in (True, False):
+        with pytest.raises(ValueError, match="4 MLA heads do not split"):
+            make_train_step(env["cfg_t"], MeshPlan(("data", "model"),
+                                                   (1, 8)),
+                            zero=zero, device="cpu")
+    for arch in ("whisper-medium", "pixtral-12b"):
+        for shape in ((1, 2), (2, 1)):
             with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-                make_train_step(env["cfg_t"], MeshPlan(("data", "model"),
-                                                       shape),
-                                zero=zero, device="cpu")
+                make_train_step(get_config(arch).reduced(),
+                                MeshPlan(("data", "model"), shape),
+                                device="cpu")
 
 
 @pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "ssm/moe"),

@@ -1467,3 +1467,98 @@ def test_graph_train_on_worker_processes_of_the_card_is_bitwise(cuda):
         assert torch.equal(pt[n], pp[n]), n
         assert torch.equal(ot.mu[n].cpu(), op.mu[n].cpu()), n
         assert torch.equal(ot.nu[n].cpu(), op.nu[n].cpu()), n
+
+
+# ---------------------------------------------------------------------------
+# MLA and MoE on a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", [
+    # B, S, H, D, Dv, dtype: a tp = 2 rank's 8 of deepseek-v2-lite's heads
+    (1, 512, 8, 192, 128, "bfloat16"),        # the serve prefill
+    (2, 256, 8, 192, 128, "bfloat16"),        # a training layer, shorter
+    (1, 150, 8, 192, 128, "float32"),
+    (2, 77, 2, 96, 64, "float32"),            # reduced MLA, 4 heads / 2
+])
+def test_mla_attention_at_local_heads_matches_plain(cuda, case):
+    """MLA's attention at a tp = 2 rank's local heads (q and k at nope +
+    rope, v and dO at v_head_dim, one kv head a q head): the forward and
+    its backward against the plain version and autograd through it, bf16
+    on the tensor-core kernels and float32 on the CUDA-core ones."""
+    B, S, H, D, Dv, dt = case
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (B, S, H, D), dt, cuda).requires_grad_(True)
+    k = _randn(rng, (B, S, H, D), dt, cuda).requires_grad_(True)
+    v = _randn(rng, (B, S, H, Dv), dt, cuda).requires_grad_(True)
+    do = _randn(rng, (B, S, H, Dv), dt, cuda)
+    tc = int(dt == "bfloat16")
+    before = (fa.wgmma_launches, fa.bwd_dq_wgmma_launches,
+              fa.bwd_dkdv_wgmma_launches, fa.launches)
+    out = fa.flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (fa.wgmma_launches - before[0], fa.bwd_dq_wgmma_launches
+            - before[1], fa.bwd_dkdv_wgmma_launches - before[2],
+            fa.launches - before[3]) == (tc, tc, tc, 1)
+    ref = fa.plain_flash_attention(q, k, v, causal=True)
+    _close(out, ref, dt)
+    for g, w in zip(got, torch.autograd.grad(ref, (q, k, v), do)):
+        assert g.abs().max() > 0
+        _close(g, w, dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_forward_on_two_ranks_of_the_card(cuda, dtype):
+    """Reduced deepseek-v2-lite's MoE layer on a (1, 2) mesh of two ranks
+    of the card, each rank its 2 of the 4 experts and half of each shared
+    expert: the ranks' P(sum) partials sum to one device's output on the
+    card (float32 at 1e-4 of its scale, bf16 at the bf16 tolerance of it),
+    at capacity factors 8 and 1.0; the aux is the same on every rank and
+    one device's."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.mesh import spmd
+    from repro_torch.core.placement import Placement
+    from repro_torch.models import mlp
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.core import mesh as M
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b").reduced(),
+                              dtype=dtype)
+    plan = MeshPlan(("data", "model"), (1, 2))
+    state = build_model(cfg, MeshPlan.single_device(), seed=3,
+                        device=cuda).state_dict()
+    specs = model_specs(cfg, plan)
+    moe = {n.split("moe.", 1)[1]: t.to(DT[dtype]) for n, t in state.items()
+           if n.startswith("blocks.1.moe.")}
+    mesh = Placement(("data", "model"), (1, 2)).to_mesh(cuda, timeout=60.0)
+
+    def module(leaves):
+        from types import SimpleNamespace
+        ns = SimpleNamespace(**{n: t for n, t in leaves.items()
+                                if "." not in n})
+        ns.shared = SimpleNamespace(**{n.split(".")[1]: t for n, t in
+                                       leaves.items() if "." in n})
+        return ns
+    shards = [module({n: t[M.shard_slices(
+        t.shape, specs["blocks.1.moe." + n], plan.axis_sizes,
+        mesh.coords(r))].contiguous() for n, t in moe.items()})
+        for r in range(2)]
+    rng = np.random.default_rng(5)
+    x = _randn(rng, (2, 9, cfg.d_model), dtype, cuda)
+    for factor in (8.0, 1.0):
+        c = dataclasses.replace(cfg, capacity_factor=factor)
+        with torch.inference_mode():
+            outs = spmd(lambda r: mlp.moe_forward(shards[r], x, c, plan),
+                        mesh)([0, 1])
+            whole, aux = mlp.moe_forward(module(moe), x, c)
+        torch.cuda.synchronize()
+        got = (outs[0][0].float() + outs[1][0].float())
+        scale = float(whole.float().abs().max())
+        tol = (dict(rtol=2e-2, atol=2e-2 * scale) if dtype == "bfloat16"
+               else dict(rtol=1e-4, atol=1e-4 * scale))
+        torch.testing.assert_close(got, whole.float(), **tol)
+        assert torch.equal(outs[0][1], outs[1][1])
+        torch.testing.assert_close(outs[0][1], aux, rtol=1e-5, atol=1e-6)

@@ -614,10 +614,16 @@ def test_launcher_serves_jamba_on_cpu(capsys):
 
 
 def test_moe_on_a_mesh_raises(env):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    """The MoE serves on a mesh whose model axis splits its experts
+    (``tests/test_torch_deepseek_mesh.py`` holds reduced jamba on (1, 2)
+    to the JAX session); on one that does not (4 experts over 8 ranks,
+    while the 16 SSM heads split) it raises naming the experts, before a
+    model is built."""
+    with pytest.raises(ValueError, match="4 experts do not split over "
+                                         "tp = 8"):
         api.compile(env["reduced"]["cfg_t"], mode="serve",
                     params=env["reduced"]["state"], device="cpu",
-                    mesh=Placement(("data", "model"), (1, 2)), **GEOMETRY)
+                    mesh=Placement(("data", "model"), (1, 8)), **GEOMETRY)
 
 
 def test_training_a_hybrid_raises_item_13(env):

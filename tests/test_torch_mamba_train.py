@@ -237,10 +237,11 @@ def test_model_axis_gap_is_the_reference_groupnorm_gap(jax_side, port_runs):
 
 def test_model_grad_sum_leaves_are_the_reference_set():
     """``w_bc`` and ``conv_bc`` feed only a rank's heads, so their
-    gradients are summed over ``model``, as the reference's; only
-    ``router`` (MoE, not built) is left out."""
+    gradients are summed over ``model``, as the reference's; the port's set
+    adds MLA's latent leaves (``wkv_a``, ``kv_norm``, ``wq_a``), whose sum
+    the reference's autodiff makes on its plain path."""
     assert MODEL_GRAD_SUM_LEAVES == \
-        jax_steps._MODEL_GRAD_SUM_LEAVES - {"router"}
+        jax_steps._MODEL_GRAD_SUM_LEAVES | {"wkv_a", "kv_norm", "wq_a"}
     assert port_zero.MODEL_SUM_LEAVES == MODEL_GRAD_SUM_LEAVES
     assert {"w_bc", "conv_bc"} <= port_zero.MODEL_SUM_LEAVES
 

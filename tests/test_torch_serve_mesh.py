@@ -24,8 +24,9 @@ CPU, every rank a thread.
 * The port alone: sampled streams actors ≡ monolithic on (1, 2) and
   repeatable by seed, collective stats in ``last_stats``, ``cache="paged"``
   on a mesh raising the reference's error, ``stage_meshes=``, an
-  indivisible ``cache_len`` or ``group_size`` and a hybrid on a mesh
-  refused (reduced mamba2 serves there),
+  indivisible ``cache_len`` or ``group_size`` and a frontend arch's
+  classic loop on a mesh refused (reduced mamba2 serves there; MLA + MoE
+  and hybrids too, in ``test_torch_deepseek_mesh.py``),
   a stage's ``chunk`` equal to its decode loop on (2, 2), and ``Boxer``'s
   transitions and shortcuts on (2, 2).
 """
@@ -524,8 +525,9 @@ def test_mesh_options_are_checked(env):
         assert sess.cache_bytes() == one.cache_bytes()
     # Mamba stacks serve on a mesh too (they raised naming item 8c before;
     # tests/test_torch_mamba_mesh.py holds them to the JAX sessions), with
-    # the paged cache refused there as for dense stacks, and a hybrid
-    # refused naming its item
+    # the paged cache refused there as for dense stacks; hybrids serve
+    # there too (tests/test_torch_deepseek_mesh.py), and what stays
+    # refused is a frontend arch's classic loop on a mesh, naming its item
     cfg_m = get_config("mamba2-370m").reduced()
     with api.compile(cfg_m, mode="serve", device=CPU, mesh=_mesh((1, 2)),
                      max_prompt_len=8, max_new_tokens=2) as sess:
@@ -535,9 +537,10 @@ def test_mesh_options_are_checked(env):
     with pytest.raises(ValueError, match="requires a 1x1 mesh"):
         api.compile(cfg_m, mode="serve", device=CPU, mesh=_mesh((1, 2)),
                     cache="paged", max_prompt_len=8, max_new_tokens=2)
+    from repro_torch.train.steps import make_serve_step
     with pytest.raises(NotImplementedError, match="item 13"):
-        api.compile(get_config("jamba-v0.1-52b").reduced(), mode="serve",
-                    device=CPU, mesh=_mesh((1, 2)))
+        make_serve_step(get_config("whisper-medium").reduced(),
+                        _plan((1, 2)), cache_len=24, device=CPU)
 
 
 def test_boxer_transitions_and_shortcuts():

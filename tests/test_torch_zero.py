@@ -158,7 +158,9 @@ def test_shapes_and_signatures_match_the_reference():
 def test_model_combine_sums_only_the_disjoint_leaves():
     """The reference sums every model-replicated leaf (its varying masters
     split each one's gradient); here the "f" steps already give the norms'
-    whole gradient on each rank, so only the disjoint leaves are summed."""
+    whole gradient on each rank, so only the disjoint leaves are summed:
+    the reference's named set (which it uses on its plain path) and MLA's
+    latent leaves, which its ZeRO path sums as replicated leaves."""
     plan = MeshPlan(("data", "model"), (1, 2))
     specs = {"blocks.0.attn.wq": ndsbp("B,S(1)"),
              "blocks.0.ln1": ndsbp("B,B"),
@@ -167,7 +169,8 @@ def test_model_combine_sums_only_the_disjoint_leaves():
     assert tz.model_combine_tree(specs, plan) == {
         "blocks.0.attn.wq": "none", "blocks.0.ln1": "none",
         "blocks.0.attn.wk": "sum", "blocks.0.attn.q_norm": "sum"}
-    assert tz.MODEL_SUM_LEAVES <= jz.MODEL_SUM_LEAVES
+    assert tz.MODEL_SUM_LEAVES == jz.MODEL_SUM_LEAVES | {
+        "wkv_a", "kv_norm", "wq_a"}
     grads = {"w": torch.ones(2, 2)}
     assert tz.combine_model_grads(grads, {"w": "sum"},
                                   MeshPlan(("data", "model"), (2, 1))) \
