@@ -210,21 +210,36 @@ result line is printed:
    decodes, 24 over the 1,500-frame cross cache; pixtral 40 and 40), the
    prefill seconds and tok/s, peak memory, a profiled run's idle share,
    and the first token's and one decode step's logits against the same
-   calls on the plain versions within ``atol=0.25, rtol=0.05``. Then the
-   sliding window (``serve_ring``): qwen3-1.7b at full width and depth in
-   bf16 through ``make_serve_step`` with ``sliding_window=256`` over a
-   552-position cache (4 prompts of 512 tokens, 32 greedy decode steps:
-   exactly 28 windowed attention forwards on the tensor cores and 28 x 32
-   decodes at length 552; the first token's and one decode step's logits
-   within ``atol=0.25, rtol=0.05`` of the plain versions'), then through
-   the long_500k shape's serve plan (``launch/specs.py:serve_plan_for``:
-   a ring of 8,192 slots, window 8,192): ring caches initialised for 4
-   rows at positions 524,256, 524,272, 100,000 and 8,160, 64 decode
-   steps (8 fed numpy-seeded tokens, then greedy): exactly 28 x 64 ring
-   decodes at length 8,192, each layer's slot table the positions
-   written, every step's logits within those limits of the same steps on
-   the plain versions fed the kernel run's tokens; walls, tok/s, the
-   ring caches' bytes and peak memory;
+   calls on the plain versions within ``atol=0.25, rtol=0.05``; after each
+   arch the same model, prompts and 16 tokens through ``classic_loop`` on
+   a (1, 2) mesh (``serve_mesh_classic``: 2 virtual ranks, heads, MLP
+   units and vocabulary split, whisper's cross cache by head, the self
+   caches by sequence, 28 of 56 positions a rank): launches exact (per
+   rank, whisper 24 + 24 + 24 forwards a prefill and 24 + 24 decodes a
+   step, the self caches' at ``k_offset`` 0 and 28; pixtral 40 and 40),
+   the first token's logits within ``atol=0.25, rtol=0.05`` of the 1 x 1
+   run's, the ids against its (not a gate), whisper's profiled over 4
+   tokens. Then the sliding window (``serve_ring``): qwen3-1.7b at full
+   width and depth in bf16 through ``make_serve_step`` with
+   ``sliding_window=256`` over a 552-position cache (4 prompts of 512
+   tokens, 32 greedy decode steps: exactly 28 windowed attention forwards
+   on the tensor cores and 28 x 32 decodes at length 552; the first token's
+   and one decode step's logits within ``atol=0.25, rtol=0.05`` of the
+   plain versions'), then through the long_500k shape's serve plan
+   (``launch/specs.py:serve_plan_for``: a ring of 8,192 slots, window
+   8,192): ring caches initialised for 4 rows at positions 524,256,
+   524,272, 100,000 and 8,160, 64 decode steps (8 fed numpy-seeded tokens,
+   then greedy): exactly 28 x 64 ring decodes at length 8,192, each layer's
+   slot table the positions written, every step's logits within those
+   limits of the same steps on the plain versions fed the kernel run's
+   tokens; walls, tok/s, the ring caches' bytes and peak memory; then that
+   ring on a (1, 2) mesh (``serve_mesh_ring``: qwen3-1.7b at full width cut
+   to 4 layers, 4,096 slots and their table a rank, the plan's replicated
+   batch): 2 x 4 x 64 ring decodes, half at ``k_offset`` 4,096, where the
+   row from 100,000 never writes (its partials weigh 0 in the combine), the
+   shards' tables joined equal to the positions written, every step's
+   logits within the bf16 limits of the same cut on one device fed the mesh
+   run's tokens;
 5. train: qwen3-1.7b at full width and depth (bf16 compute, float32 params
    and AdamW state, seeded init) through ``repro_torch.train.steps
    .make_train_step``, fed by ``ActorDataPipeline(SyntheticLM(151936, 2,
@@ -289,7 +304,12 @@ result line is printed:
    cross; the xent kernels once each way), wall, tokens/s, peak memory,
    one profiled step; step 1's loss and gradients twice, bitwise equal;
    then 2 steps on the plain versions, the curves held at the qwen3
-   train phase's limits;
+   train phase's limits; then the same init and first 2 batches with ZeRO
+   on a (1, 2) mesh (``train_mesh_whisper``: the encoder's and decoder's
+   heads, MLP units and the vocabulary split), every step's launches held
+   (both ranks: 288 forwards, 144 backward calls, by mask; the xent
+   kernels once each way at offsets 0 and 25,984), each loss within 5e-3
+   of the 1 x 1 curve;
 7c. train mamba2: mamba2-370m at full width and depth (48 SSM layers,
    bf16 compute) through ``make_train_step`` with ZeRO (the default), 4
    steps of 2 x 2048 ``SyntheticLM`` tokens: finite losses printed (their
@@ -397,6 +417,20 @@ result line is printed:
    beside its float32 masters, moments and gradient sums on the card
    (never above the bound).
 
+The classic loop's mesh rows (``check_frontend_mesh_kernels``; a tp = 2
+rank's shapes: whisper's encoder attention q/k/v (4, 1500, 8, 64) and its
+cross prefill q (4, 32, 8, 64) over 1,500 frames, pixtral's prefill q (4,
+32, 16, 128) over 4 kv heads, whisper's training layer at 8 heads forward
+and backward, decode over the rank-1 shard of each self cache, over a
+rank's 8 heads of the cross cache and over the rank-1 shard of the ring
+(4, 4096, 8, 128) with its table, two rows all empty there, both shards
+combined across two virtual ranks against the plain decode over the whole
+ring; the xent kernels on whisper's rank-1 vocab shard, 896 x 25,984 at
+offset 25,984) carry the mesh classic runs', the whisper mesh train run's
+and the mesh ring run's launches; reduced whisper and pixtral (float32)
+on (1, 2) run card against CPU (``check_reference_frontend_mesh``: the
+classic loop's ids identical, first-token and decode logits within 1e-3,
+2 ZeRO train steps' loss and grad_norm within 1e-4, launches exact).
 The sliding window's rows (decode over the long_500k plan's ring, q (4,
 16, 128) over (4, 8192, 8, 128) bf16 with ``k_positions``: a wrapped
 full ring, one a quarter filled, one never wrapped, one in two runs, and
@@ -779,7 +813,8 @@ def check_flash_attention_mla(dev):
 
 
 def decode_row(entry: dict, q, k, v, cur, what: str, k_offset: int = 0,
-               sliding_window: int = 0, k_positions=None) -> dict:
+               sliding_window: int = 0, k_positions=None,
+               bf16_plain_held: bool = True) -> dict:
     """Hold the decode kernel to its plain version on ``(q, k, v, cur)``
     (a cache, or a shard of one starting at position ``k_offset``; with
     ``sliding_window``; or a ring cache, each slot's position in
@@ -788,7 +823,13 @@ def decode_row(entry: dict, q, k, v, cur, what: str, k_offset: int = 0,
     cache and mask. The bound counts the keys each row's mask lets
     through: K and V of its unmasked keys, and V of the whole shard for a
     row with none (the finite-sentinel average), and a ring's position
-    table."""
+    table. ``bf16_plain_held=False``: a shard whose rows see a few keys
+    only, where the plain version's bf16 scores (rounded before the
+    softmax, which the kernel keeps in float32) move its output past the
+    bf16 limits; the kernel is then held at those limits to the plain
+    version on float32 copies of the same inputs (and, as every row, at
+    the float32 limits), and its distance from the plain bf16 version is
+    printed, not held."""
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.flash_decode.ref import (combine_partials,
                                                       flash_decode_partial_ref)
@@ -798,9 +839,18 @@ def decode_row(entry: dict, q, k, v, cur, what: str, k_offset: int = 0,
         q, k, v, cur_pos=cur, **off)))
     want = combine_partials(*(t[None] for t in flash_decode_partial_ref(
         q, k, v, cur_pos=cur, **off)))
-    entry["max_abs_err"] = agree(f"{what} bf16", got, want, ATOL, RTOL)
     want32 = combine_partials(*(t[None] for t in flash_decode_partial_ref(
         q.float(), k.float(), v.float(), cur_pos=cur, **off)))
+    if bf16_plain_held:
+        entry["max_abs_err"] = agree(f"{what} bf16", got, want, ATOL, RTOL)
+    else:
+        entry["max_abs_err"] = agree(
+            f"{what} bf16 vs the plain version on float32 copies", got,
+            want32, ATOL, RTOL)
+        entry["bf16_plain_max_abs_err"] = (got - want).abs().max().item()
+        print(f"{what} bf16 vs the plain bf16 version: max abs err "
+              f"{entry['bf16_plain_max_abs_err']:.3e} (not held: its "
+              "scores rounded to bf16 over a few keys)")
     entry["f32_copies_max_abs_err"] = agree(
         f"{what} vs the plain version on float32 copies", got, want32,
         F32_TOL, F32_TOL)
@@ -5125,7 +5175,9 @@ def serve_classic(dev, arch: str):
     lines), the peak memory, the idle share of a profiled run; then the
     first token's logits and one decode step's against the same calls on
     the plain versions, within ``MESH_LOGITS_ATOL`` + ``MESH_LOGITS_RTOL``
-    (the serve phases' bf16 limits). Returns the run's launches."""
+    (the serve phases' bf16 limits). Returns the run's launches, and the
+    model, the ids and the first token's logits for the mesh phase
+    (:func:`serve_mesh_classic`)."""
     import argparse
 
     from repro_torch.configs.registry import get_config
@@ -5205,10 +5257,10 @@ def serve_classic(dev, arch: str):
         if not ok:
             raise AssertionError(f"{arch}: {what} logits left the plain "
                                  "versions'")
-    del model, ss
+    del ss, nxt, p_first, p_nxt
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"model": model, "gen": gen, "first": first}
 
 
 def train_whisper(dev):
@@ -5225,7 +5277,8 @@ def train_whisper(dev):
     its 24 cross-attentions in the tape's one order); then the same init
     and batches through the plain versions for ``WHISPER_PLAIN_STEPS``
     steps, the loss curves held as the qwen3 train phases hold them.
-    Returns the kernel run's launches (by mask too)."""
+    Returns the kernel run's launches (by mask too) and its (loss,
+    grad_norm) curve."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.launch.serve import classic_batch
@@ -5318,7 +5371,7 @@ def train_whisper(dev):
     gc.collect()
     torch.cuda.empty_cache()
     held_curves(f"{WHISPER} kernels vs plain", curve, plain)
-    return total
+    return total, curve
 
 
 RING_DECODE = "flash_decode (ring, k_positions)"
@@ -5676,6 +5729,587 @@ def serve_ring(dev):
             "ring_cache_bytes": held, "ring_peak_bytes": peak}
 
 
+# the classic loop on a mesh (whisper and pixtral served on (1, 2), whisper
+# trained there) and the ring on a mesh: the kernels at a tp = 2 rank's
+# shapes, then the reduced configs card vs CPU, then full width
+CLASSIC_MESH = (1, 2)
+CLASSIC_MESH_CACHE_LEN = CLASSIC_PROMPT + CLASSIC_GEN + 8      # 56: 28 a shard
+WHISPER_MESH_STEPS = 2
+FM_ENC = "flash_attention (non-causal, whisper encoder, tp=2 local heads)"
+FM_CROSS = "flash_attention (cross, whisper decoder, tp=2 local heads)"
+FM_PIX = "flash_attention (pixtral prefill, tp=2 local heads)"
+FM_ENC_TRAIN = ("flash_attention (non-causal, whisper encoder, tp=2 local "
+                "heads, training)")
+FM_ENC_BWD = "flash_attention_bwd (non-causal, whisper encoder, tp=2)"
+FM_CROSS_TRAIN = ("flash_attention (cross, whisper decoder, tp=2 local "
+                  "heads, training)")
+FM_CROSS_BWD = "flash_attention_bwd (cross, whisper decoder, tp=2)"
+FM_WDEC = "flash_decode (whisper self cache, tp=2 rank-1 shard)"
+FM_PDEC = "flash_decode (pixtral self cache, tp=2 rank-1 shard)"
+FM_XDEC = "flash_decode (whisper cross cache, tp=2 local heads)"
+FM_RING = "flash_decode (ring, tp=2 rank-1 shard, k_positions)"
+FM_XENT = " (whisper tp=2 vocab shard, bf16)"
+# the ring on a mesh: qwen3-1.7b at full width cut to this depth, the
+# long_500k plan's ring of 8,192 slots, 4,096 a shard
+RING_MESH, RING_MESH_LAYERS = (1, 2), 4
+
+
+def check_frontend_mesh_kernels(dev):
+    """The kernels at the shapes a tp = 2 rank of the classic loop's mesh
+    paths gives them, each held to its plain version (bf16, and on float32
+    copies) and timed against its bound and library call: whisper-medium's
+    encoder attention at 8 of its 16 heads, non-causal, q/k/v (4, 1500, 8,
+    64), and its cross prefill q (4, 32, 8, 64) over (4, 1500, 8, 64);
+    pixtral-12b's prefill at 16 of 32 q heads over 4 of 8 kv, q (4, 32, 16,
+    128); whisper's training layer at 8 heads, the encoder (2, 1500) and
+    the cross-attention (2, 448) over 1,500 frames, forward and backward;
+    decode over the rank-1 shard of each self cache (28 of 56 positions at
+    ``k_offset`` 28; whisper's q (4, 16, 64), pixtral's q (4, 32, 128)),
+    over a rank's 8 heads of whisper's cross cache (4, 1500, 8, 64), and
+    over the rank-1 shard of the long_500k ring (4, 4096, 8, 128) with its
+    table, one row's slots all empty there (its partials weigh 0 when the
+    two shards' are combined across two virtual ranks, held to the plain
+    decode over the whole ring); the xent kernels on whisper's rank-1 vocab
+    shard (896 x 25,984 at offset 25,984)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.mesh import spmd
+    from repro_torch.core.placement import Placement
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode.ref import (combine_partials,
+                                                      flash_decode_partial_ref,
+                                                      ring_positions)
+    phase("kernels (the classic loop and the ring at a tp = 2 rank's "
+          "shapes: whisper-medium, pixtral-12b, the long_500k ring)")
+    tp = CLASSIC_MESH[1]
+    rows = []
+    for name, args, kw in (
+            (FM_ENC, (CLASSIC_B, 1500, 8, 8, 64, SEED + 71),
+             dict(causal=False)),
+            (FM_CROSS, (CLASSIC_B, CLASSIC_PROMPT, 8, 8, 64, SEED + 72),
+             dict(Sk=1500, causal=False)),
+            (FM_PIX, (CLASSIC_B, CLASSIC_PROMPT, 16, 4, 128, SEED + 73), {}),
+            (FM_ENC_TRAIN, (WHISPER_B, 1500, 8, 8, 64, SEED + 74),
+             dict(causal=False)),
+            (FM_CROSS_TRAIN, (WHISPER_B, WHISPER_S, 8, 8, 64, SEED + 75),
+             dict(Sk=1500, causal=False))):
+        row = {"name": name, **ATTENTION_ROW}
+        row.update(attention_row(dev, *args, **kw))
+        rows.append(row)
+    rows.append(check_flash_attention_bwd(
+        dev, H=8, KV=8, seed=SEED + 76, name=FM_ENC_BWD, B=WHISPER_B, D=64,
+        S=1500, causal=False))
+    rows.append(check_flash_attention_bwd(
+        dev, H=8, KV=8, seed=SEED + 77, name=FM_CROSS_BWD, B=WHISPER_B,
+        D=64, S=WHISPER_S, Sk=1500, causal=False))
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 78)
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+    Ll = CLASSIC_MESH_CACHE_LEN // tp
+    # the decode steps' rows: positions 32 to 47 of a 56-position cache
+    cur = torch.tensor([32, 37, 42, 47], dtype=torch.int32, device=dev)
+    for name, H, KV, D in ((FM_WDEC, 16, 16, 64), (FM_PDEC, 32, 8, 128)):
+        q, k, v = mk(CLASSIC_B, H, D), mk(CLASSIC_B, Ll, KV, D), \
+            mk(CLASSIC_B, Ll, KV, D)
+        rows.append(decode_row({
+            "name": name, **DECODE_ROW, "k_offset": Ll,
+            "splits": fd.split_plan(CLASSIC_B, KV, Ll, fd.sm_count(q.device))},
+            q, k, v, cur, f"flash_decode q{tuple(q.shape)} shard"
+            f"{tuple(k.shape)} k_offset {Ll} cur_pos {cur.tolist()}",
+            k_offset=Ll, bf16_plain_held=False))
+    q, k, v = mk(CLASSIC_B, 8, 64), mk(CLASSIC_B, 1500, 8, 64), \
+        mk(CLASSIC_B, 1500, 8, 64)
+    xcur = torch.full((CLASSIC_B,), 1499, dtype=torch.int32, device=dev)
+    rows.append(decode_row({
+        "name": FM_XDEC, **DECODE_ROW,
+        "splits": fd.split_plan(CLASSIC_B, 8, 1500, fd.sm_count(q.device))},
+        q, k, v, xcur, f"flash_decode q{tuple(q.shape)} cross cache"
+        f"{tuple(k.shape)} cur_pos 1499"))
+    # the ring: the whole table of ring_rows, cut in two shards
+    B, H, KV, D, L = 4, 16, 8, 128, 8192
+    q, k, v = mk(B, H, D), mk(B, L, KV, D), mk(B, L, KV, D)
+    first, last = (torch.tensor(c) for c in zip(*ring_rows(L)))
+    table = ring_positions(first, last, L).to(dev)
+    rcur = last.to(torch.int32).to(dev)
+    half = L // tp
+    shards = [tuple(t[:, r * half:(r + 1) * half].contiguous()
+                    for t in (k, v, table)) for r in range(tp)]
+    empty = int((shards[1][2] < 0).all(dim=1).sum().item())
+    mesh = Placement(("model",), (tp,)).to_mesh(dev, timeout=60.0)
+    outs = spmd(lambda r: combine_partials(*fd.flash_decode(
+        q, shards[r][0], shards[r][1], cur_pos=rcur, k_offset=r * half,
+        sliding_window=L, k_positions=shards[r][2]), axis_name="model"),
+        mesh)(list(range(tp)))
+    whole = combine_partials(*(t[None] for t in flash_decode_partial_ref(
+        q, k, v, cur_pos=rcur, sliding_window=L, k_positions=table)))
+    err = agree(f"flash_decode ring: {tp} shards of {tuple(k.shape)} with "
+                f"their tables ({empty} row(s) all empty on shard 1), "
+                f"combined across {tp} ranks, vs the plain decode over the "
+                "whole ring", outs[0], whole, ATOL, RTOL)
+    if not empty or not all(torch.equal(o, outs[0]) for o in outs):
+        raise AssertionError("flash_decode ring on a mesh: no empty row on "
+                             "shard 1, or the ranks' combines differ")
+    m1, _, _ = fd.flash_decode(q, *shards[1][:2], cur_pos=rcur,
+                               k_offset=half, sliding_window=L,
+                               k_positions=shards[1][2])
+    dead = (shards[1][2] < 0).all(dim=1)
+    if not (m1[dead] == -1e30).all():
+        raise AssertionError("flash_decode ring: an all-empty shard row's m "
+                             f"is {m1[dead].unique().tolist()}, not the "
+                             "finite sentinel -1e30")
+    rows.append(decode_row({
+        "name": FM_RING, **DECODE_ROW, "window": L, "k_offset": half,
+        "splits": fd.split_plan(B, KV, half, fd.sm_count(q.device)),
+        "cur_pos": rcur.tolist(), "rows_all_empty": empty,
+        "combined_max_abs_err": err},
+        q, shards[1][0], shards[1][1], rcur,
+        f"flash_decode q{tuple(q.shape)} ring shard"
+        f"{tuple(shards[1][0].shape)} k_offset {half}", k_offset=half,
+        sliding_window=L, k_positions=shards[1][2]))
+    del q, k, v, table, shards, outs, whole
+    torch.cuda.empty_cache()
+    Vl = get_config(WHISPER).padded_vocab() // tp
+    rows += check_xent(dev, Vl=Vl, offset=Vl, label=FM_XENT,
+                       N=WHISPER_B * WHISPER_S)
+    return rows
+
+
+def frontend_mesh_launches(cfg, ranks: int, prefills: int, steps: int,
+                           shard_len: int, dtype_tc: bool = True):
+    """The classic loop's launches on ``ranks`` ranks of a (1, tp) mesh:
+    per rank and prefill one attention forward a decoder layer (and, for
+    an encoder-decoder, one a cross layer and one an encoder layer); per
+    rank and decode step one decode a decoder layer over its self-cache
+    shard of ``shard_len`` positions (and one over its cross cache's
+    heads, at ``k_offset`` 0). ``dtype_tc``: bf16, every forward on the
+    tensor cores."""
+    L = cfg.num_layers
+    cross = L if cfg.encoder_decoder else 0
+    enc = cfg.num_encoder_layers if cfg.encoder_decoder else 0
+    fwd = ranks * prefills * (L + cross + enc)
+    dec = ranks * steps * (L + cross)
+    by_length = {shard_len: ranks * steps * L}
+    if cross:
+        by_length[cfg.encoder_seq] = ranks * steps * cross
+    return {"flash_attention": fwd,
+            "flash_fwd_wgmma_kernel": fwd if dtype_tc else 0,
+            "flash_decode": dec, "ssd_scan": 0, "ssd_scan_wgmma": 0,
+            "by_mask": {"causal": ranks * prefills * L,
+                        "non_causal": ranks * prefills * enc,
+                        "cross": ranks * prefills * cross, "window": 0},
+            "decode_by_length": by_length,
+            "offsets": {0: steps * L + ranks * steps * cross,
+                        shard_len: steps * L}}
+
+
+def mesh_classic_counts():
+    from repro_torch.kernels.flash_decode import kernel as fd
+    return {**classic_counts(), "offsets": dict(fd.offset_launches)}
+
+
+def check_reference_frontend_mesh(dev, steps: int = 2):
+    """Reduced whisper-medium and pixtral-12b (float32) on ``CLASSIC_MESH``
+    on the card against the same mesh on the CPU's plain path, from the
+    same weights: the classic loop's ids (2 prompts of 37, 4 new tokens)
+    identical, the first token's logits and one decode step's (fed the
+    CPU's greedy tokens) within 1e-3; then ``steps`` ZeRO train steps on
+    the mesh from the same weights and batches, each step's loss and
+    grad_norm within REF_TRAIN_RTOL. Every launch counted, on the float32
+    CUDA-core kernels."""
+    import argparse
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.serve import classic_batch, classic_loop
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.steps import (greedy_from_logits, make_serve_step,
+                                         make_train_step)
+    ranks = int(np.prod(CLASSIC_MESH))
+    plan = MeshPlan(("data", "model"), CLASSIC_MESH)
+    for arch in (WHISPER, PIXTRAL):
+        phase(f"reference (reduced {arch} on {CLASSIC_MESH}: the classic "
+              f"loop, then {steps} ZeRO train steps, card vs CPU plain "
+              "path)")
+        cfg = get_config(arch).reduced()
+        state = build_model(cfg, MeshPlan.single_device(), seed=SEED,
+                            device="cpu").state_dict()
+        batch = classic_batch(cfg, 2, 37, np.random.default_rng(SEED + 13))
+        ids, out = {}, {}
+        zero_serve_counts()
+        fa.reset_counts()
+        for d in ("cpu", dev):
+            args = argparse.Namespace(batch=2, prompt_len=37, gen=4,
+                                      cache_len=0, seed=SEED + 13, device=d,
+                                      mesh="x".join(map(str, CLASSIC_MESH)))
+            ids[d] = classic_loop(cfg, args, params=state)
+            ss = make_serve_step(cfg, plan, cache_len=48, device=d)
+            params = ss.shard_params_fn(state)
+            h, caches = ss.prefill_fn(params, batch)
+            first = ss.logits_fn(params, h).float().cpu()
+            tok = greedy_from_logits(out["cpu"][0] if d != "cpu" else first,
+                                     cfg.vocab_size).to(d)
+            nxt, _ = ss.decode_fn(params, caches, tok, torch.full(
+                (2,), 37, dtype=torch.int32, device=d))
+            out[d] = (first, nxt.float().cpu())
+        torch.cuda.synchronize()
+        got = mesh_classic_counts()
+        # the card's: the loop's prefill and 4 steps (its cache 37 + 4 + 8
+        # rounded up to 50, 25 a shard), then one prefill and one step over
+        # the 48-position cache (24 a shard)
+        loop = frontend_mesh_launches(cfg, ranks, 1, 4, 25, dtype_tc=False)
+        more = frontend_mesh_launches(cfg, ranks, 1, 1, 24, dtype_tc=False)
+        want = {k: (loop[k] + more[k] if isinstance(loop[k], int) else
+                    {n: loop[k].get(n, 0) + more[k].get(n, 0)
+                     for n in set(loop[k]) | set(more[k])})
+                for k in loop}
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(out[dev], out["cpu"]))
+        same = bool(np.array_equal(ids[dev], ids["cpu"]))
+        print(f"reduced {arch} on {CLASSIC_MESH}, float32: classic loop ids "
+              f"card == CPU {same}; first-token and decode logits max abs "
+              f"err {err:.3e} (bound 1e-3 + 1e-3*|ref|); launches {got}")
+        if got != want:
+            raise AssertionError(f"reduced {arch} on {CLASSIC_MESH}: serve "
+                                 f"launches {got}, expected {want}")
+        if not same or not all(torch.allclose(a, b, rtol=1e-3, atol=1e-3)
+                               for a, b in zip(out[dev], out["cpu"])):
+            raise AssertionError(f"reduced {arch} on {CLASSIC_MESH}: card "
+                                 f"{ids[dev]} vs CPU {ids['cpu']}")
+        rng = np.random.default_rng(SEED + 6)
+        batches = [classic_batch(cfg, 2, 64, rng, "train")
+                   for _ in range(steps)]
+        runs, counts = {}, {}
+        for d in ("cpu", dev):
+            zero_train_counts()
+            ts = make_train_step(cfg, plan, device=d)
+            params = ts.shard_params_fn(state)
+            opt = ts.init_opt(params)
+            runs[d] = []
+            for b in batches:
+                params, opt, m = ts.step_fn(params, opt, b)
+                runs[d].append((float(m["loss"]), float(m["grad_norm"])))
+            counts[d] = train_counts()
+        n_attn = cfg.num_layers * (2 if cfg.encoder_decoder else 1) + (
+            cfg.num_encoder_layers if cfg.encoder_decoder else 0)
+        step_want = dict.fromkeys(train_counts(), 0)
+        step_want.update({"flash_attention": 2 * n_attn * ranks,
+                          "flash_bwd_dq_kernel": n_attn * ranks,
+                          "flash_bwd_dkdv_kernel": n_attn * ranks,
+                          "xent_local_stats": ranks,
+                          "xent_local_stats_bwd": ranks})
+        want = {"cpu": dict.fromkeys(counts["cpu"], 0),
+                dev: {k: steps * v for k, v in step_want.items()}}
+        if counts != want:
+            raise AssertionError(f"reduced {arch} train on {CLASSIC_MESH}: "
+                                 f"launches {counts}, expected {want}")
+        err = max(abs(a - b) / abs(b) for got_, ref in zip(runs[dev],
+                                                           runs["cpu"])
+                  for a, b in zip(got_, ref))
+        print(f"reduced {arch} on {CLASSIC_MESH}, {steps} ZeRO train steps: "
+              f"card (loss, grad_norm) {runs[dev]}, CPU {runs['cpu']}; max "
+              f"relative err {err:.3e} (bound {REF_TRAIN_RTOL}, float32); "
+              f"launches on the card {counts[dev]}")
+        if not err <= REF_TRAIN_RTOL:
+            raise AssertionError(f"reduced {arch} train on {CLASSIC_MESH}: "
+                                 f"card {runs[dev]} vs CPU {runs['cpu']}")
+
+
+def serve_mesh_classic(dev, arch: str, held: dict):
+    """``arch`` at full width and depth in bf16 (``serve_classic``'s model,
+    its weights cut into the ranks' shards) through the port's
+    ``classic_loop`` on ``CLASSIC_MESH``, 2 virtual ranks of the card
+    (heads, MLP units and vocabulary split; whisper's cross cache by head,
+    its encoder's output replicated): the 1 x 1 phase's prompts and 16 new
+    tokens. Its launches counted from zero, exactly (per rank: one
+    attention forward a decoder, cross and encoder layer a prefill, on the
+    tensor cores; one decode a decoder and cross layer a step, the self
+    caches' at each shard's ``k_offset``, 0 or 28); the first token's
+    logits within ``MESH_LOGITS_*`` of the 1 x 1 run's (each rank's branch
+    partial rounds to bf16 before its psum, as on the qwen3 mesh phase);
+    the ids against the 1 x 1 run's (not a gate). Prints the loop's lines,
+    the wall and the peak memory; whisper's loop profiled over 4 new
+    tokens (a whole run's trace took 29 s to post-process). Returns the
+    launches."""
+    import argparse
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.serve import classic_batch, classic_loop
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.train.steps import make_serve_step
+    model = held["model"]
+    cfg = model.cfg
+    ranks = int(np.prod(CLASSIC_MESH))
+    phase(f"serve classic on a {CLASSIC_MESH} mesh ({arch}, full width and "
+          f"depth, bf16, {ranks} virtual ranks on one card, batch "
+          f"{CLASSIC_B}, prompt {CLASSIC_PROMPT}, gen {CLASSIC_GEN})")
+    args = argparse.Namespace(batch=CLASSIC_B, prompt_len=CLASSIC_PROMPT,
+                              gen=CLASSIC_GEN, cache_len=0, seed=SEED,
+                              device=dev,
+                              mesh="x".join(map(str, CLASSIC_MESH)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_serve_counts()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    gen = classic_loop(cfg, args, params=model)
+    wall = time.perf_counter() - t0
+    counts = mesh_classic_counts()
+    shard = CLASSIC_MESH_CACHE_LEN // CLASSIC_MESH[1]
+    want = frontend_mesh_launches(cfg, ranks, 1, CLASSIC_GEN, shard)
+    same = int((gen == held["gen"]).sum())
+    print(f"{arch} classic loop on {CLASSIC_MESH}: {wall:.2f} s in all; "
+          f"launches {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; ids equal "
+          f"to the 1 x 1 run's at {same} of {gen.size} positions (not a "
+          "gate)")
+    if counts != want:
+        raise AssertionError(f"{arch} classic loop on {CLASSIC_MESH}: "
+                             f"launches {counts}, expected {want}")
+    if not (gen < cfg.vocab_size).all():
+        raise AssertionError(f"{arch} on a mesh: an id past the vocabulary")
+    ss = make_serve_step(cfg, MeshPlan(("data", "model"), CLASSIC_MESH),
+                         cache_len=CLASSIC_MESH_CACHE_LEN, device=dev)
+    params = ss.shard_params_fn(model)
+    batch = classic_batch(cfg, CLASSIC_B, CLASSIC_PROMPT,
+                          np.random.default_rng(SEED))
+    h, _ = ss.prefill_fn(params, batch)
+    first = ss.logits_fn(params, h).float()
+    one = held["first"]
+    diff = (first - one).abs()
+    rel = (torch.linalg.vector_norm(first - one)
+           / torch.linalg.vector_norm(one)).item()
+    ok = torch.allclose(first, one, atol=MESH_LOGITS_ATOL,
+                        rtol=MESH_LOGITS_RTOL)
+    print(f"{arch} on {CLASSIC_MESH} vs 1 x 1: first-token logits max abs "
+          f"err {diff.max().item():.3e}, relative norm error {rel:.3e}, "
+          f"scale {one.abs().max().item():.2f} (limit atol "
+          f"{MESH_LOGITS_ATOL} + rtol {MESH_LOGITS_RTOL}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch} on {CLASSIC_MESH}: first-token logits "
+                             "left the 1 x 1 run's")
+    del params, ss, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    if arch == WHISPER:
+        short = argparse.Namespace(**{**vars(args), "gen": 4})
+        profile_device(f"{arch} classic loop on {CLASSIC_MESH}, 4 new "
+                       "tokens", lambda: classic_loop(cfg, short,
+                                                      params=model),
+                       cpu=False)
+    return counts
+
+
+def train_mesh_whisper(dev, curve):
+    """whisper-medium at full width and depth through ``make_train_step``
+    with ZeRO on ``CLASSIC_MESH`` (2 virtual ranks of the card: the
+    encoder's and decoder's heads, MLP units and the vocabulary split over
+    ``model``), ``WHISPER_MESH_STEPS`` steps of ``train_whisper``'s batches
+    from the same seeded init: every step's launches held (per rank each
+    attention's forward and remat rerun, its backward, the xent kernels on
+    the rank's vocab shard, once each way at each offset), each loss
+    within ``CURVE_RTOL`` of the 1 x 1 ``curve``; wall, tokens/s, the
+    collectives and the peak memory. Returns the run's launches, by mask
+    and by vocab offset."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.serve import classic_batch
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.train.steps import make_train_step
+    cfg = get_config(WHISPER)
+    ranks, tp = int(np.prod(CLASSIC_MESH)), CLASSIC_MESH[1]
+    phase(f"train ({WHISPER}, full width and depth, ZeRO on a "
+          f"{CLASSIC_MESH} mesh, {ranks} virtual ranks, bf16 compute, "
+          f"{WHISPER_MESH_STEPS} steps of {WHISPER_B} x {WHISPER_S} tokens "
+          f"over {WHISPER_B} x {cfg.encoder_seq:,} frames), held to the "
+          "1 x 1 curve")
+    rng = np.random.default_rng(SEED + 17)
+    batches = [classic_batch(cfg, WHISPER_B, WHISPER_S, rng, "train")
+               for _ in range(WHISPER_MESH_STEPS)]
+    L, E = cfg.num_layers, cfg.num_encoder_layers
+    n_attn = 2 * L + E
+    want = dict.fromkeys(train_counts(), 0)
+    want.update({k: 2 * n_attn * ranks for k in ("flash_attention",
+                                                 "flash_fwd_wgmma_kernel")})
+    want.update({k: n_attn * ranks for k in (
+        "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+        "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")})
+    want.update({"xent_local_stats": ranks, "xent_local_stats_bwd": ranks})
+    want_mask = ({"causal": 2 * L * ranks, "non_causal": 2 * E * ranks,
+                  "cross": 2 * L * ranks, "window": 0},
+                 {"causal": L * ranks, "non_causal": E * ranks,
+                  "cross": L * ranks})
+    Vl = cfg.padded_vocab() // tp
+    want_off = [{m * Vl: ranks // tp for m in range(tp)}] * 2
+    t0 = time.perf_counter()
+    ts = make_train_step(cfg, MeshPlan(("data", "model"), CLASSIC_MESH),
+                         device=dev)
+    params = ts.init_params(SEED)
+    opt = ts.init_opt(params)
+    torch.cuda.synchronize()
+    print(f"whisper on {CLASSIC_MESH}: {params.numel():,} float32 master "
+          f"elements over {ts.mesh.size} ranks initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    fa.reset_counts()
+    got = []
+    prev, prev_off = train_counts(), xent_offsets()
+    for step, b in enumerate(batches):
+        prev_mask = (dict(fa.mask_launches), dict(fa.bwd_mask_launches))
+        ts.mesh.stats.reset()
+        t = time.perf_counter()
+        params, opt, m = ts.step_fn(params, opt, b)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        now, off = train_counts(), xent_offsets()
+        per = {k: now[k] - prev[k] for k in now}
+        per_off = [{o: n - p.get(o, 0) for o, n in a.items()}
+                   for a, p in zip(off, prev_off)]
+        per_mask = tuple({k: c[k] - p[k] for k in c} for c, p in zip(
+            (fa.mask_launches, fa.bwd_mask_launches), prev_mask))
+        prev, prev_off = now, off
+        got.append((loss, gnorm))
+        st = ts.mesh.stats
+        print(f"whisper {CLASSIC_MESH} step {step}: loss {loss:.4f}, "
+              f"grad_norm {gnorm:.4f}, wall {wall:.3f} s, "
+              f"{WHISPER_B * WHISPER_S / wall:,.0f} decoder tokens/s, "
+              f"launches {per}, by mask {per_mask}, xent by offset "
+              f"{per_off}; collectives {st.calls} calls, "
+              f"{st.total_bytes() / 2**20:,.1f} MiB, the ranks "
+              f"{st.wait_s:.3f} s in them")
+        if per != want or per_mask != want_mask or per_off != want_off:
+            raise AssertionError(f"whisper {CLASSIC_MESH} step {step}: "
+                                 f"launches {per} {per_mask} {per_off}, "
+                                 f"expected {want} {want_mask} {want_off}")
+    print(f"whisper {CLASSIC_MESH}: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    held_curves(f"whisper {CLASSIC_MESH} vs 1 x 1", got, curve,
+                first=CURVE_RTOL)
+    total = {**train_counts(), "by_mask": dict(fa.mask_launches),
+             "bwd_by_mask": dict(fa.bwd_mask_launches),
+             "offsets": xent_offsets()}
+    del ts, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def serve_mesh_ring(dev):
+    """The long_500k ring on a mesh: qwen3-1.7b at full width cut to
+    ``RING_MESH_LAYERS`` layers in bf16 through ``make_serve_step`` with
+    ``serve_plan_for``'s plan (8,192 slots, window 8,192, the batch
+    replicated) on ``RING_MESH``: each rank holds 4,096 of the slots and
+    their table. Caches from ``init_caches_fn`` for 4 rows at
+    ``RING_STARTS``, 64 decode steps (8 fed, then greedy), exactly 64
+    decodes a layer and rank, every one a ring launch, at ``k_offset`` 0
+    and 4,096; the two shards' tables joined equal the positions written
+    (one row never reaches shard 1, whose partials then weigh 0); every
+    step's logits within ``MESH_LOGITS_*`` of the same cut on one device
+    fed the mesh run's tokens. The row from position 100,000 never reaches
+    shard 1 (slots 1,696-1,759), whose partials for it then weigh 0.
+    Prints the wall, tok/s and peak memory. Returns the launches, with
+    ``offsets``."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, get_shape
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode.ref import ring_positions
+    from repro_torch.launch.specs import serve_plan_for
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.steps import greedy_from_logits, make_serve_step
+    full = get_config("qwen3-1.7b")
+    plan = serve_plan_for(full, get_shape("long_500k"))
+    W = plan["sliding_window"]
+    ranks, tp = int(np.prod(RING_MESH)), RING_MESH[1]
+    phase(f"serve ring on a {RING_MESH} mesh (qwen3-1.7b, full width cut to "
+          f"{RING_MESH_LAYERS} of {full.num_layers} layers, bf16, the "
+          f"long_500k plan {plan}: {W // tp} slots a rank; "
+          f"{len(RING_STARTS)} rows x {RING_STEPS} steps)")
+    cfg = dataclasses.replace(full, num_layers=RING_MESH_LAYERS)
+    model = build_model(cfg, MeshPlan.single_device(), seed=SEED, device=dev,
+                        dtype=torch.bfloat16)
+    kw = dict(cache_len=plan["cache_len"], sliding_window=W,
+              ring=plan["ring"], device=dev)
+    ms = make_serve_step(cfg, MeshPlan(("data", "model"), RING_MESH),
+                         shard_batch=plan["shard_batch"], **kw)
+    one = make_serve_step(cfg, **kw)
+    params = ms.shard_params_fn(model)
+    starts = torch.tensor(RING_STARTS, dtype=torch.int32, device=dev)
+    fed = torch.as_tensor(np.random.default_rng(SEED + 66).integers(
+        0, cfg.vocab_size, (RING_FED, len(RING_STARTS))), dtype=torch.int32,
+        device=dev)
+
+    def run(ss, p, toks=None):
+        caches = ss.init_caches_fn(fed[0])
+        out, used, pos, tok = [], [], starts, fed[0]
+        for i in range(RING_STEPS):
+            used.append(tok)
+            logits, caches = ss.decode_fn(p, caches, tok, pos)
+            out.append(logits.float())
+            tok = (fed[i + 1] if i + 1 < RING_FED else
+                   toks[i + 1] if toks is not None and i + 1 < RING_STEPS
+                   else greedy_from_logits(logits, cfg.vocab_size))
+            pos = pos + 1
+        return out, used, caches
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_serve_counts()
+    t0 = time.perf_counter()
+    logits_m, toks_m, caches = run(ms, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    L, half = cfg.num_layers, W // tp
+    got = {**serve_counts(), "ring": fd.ring_launches,
+           "decode_by_length": dict(fd.length_launches),
+           "offsets": dict(fd.offset_launches)}
+    want = {"flash_attention": 0, "flash_fwd_wgmma_kernel": 0,
+            "flash_decode": ranks * L * RING_STEPS, "ssd_scan": 0,
+            "ssd_scan_wgmma": 0, "ring": ranks * L * RING_STEPS,
+            "decode_by_length": {half: ranks * L * RING_STEPS},
+            "offsets": {m * half: ranks // tp * L * RING_STEPS
+                        for m in range(tp)}}
+    table = ring_positions(starts.cpu(), starts.cpu() + RING_STEPS - 1, W)
+    joined = [torch.cat([caches[r][li]["pos"].cpu() for r in range(ranks)],
+                        dim=1) for li in range(L)]
+    empty = int((caches[1][0]["pos"] < 0).all(dim=1).sum().item())
+    print(f"ring on {RING_MESH}: {RING_STEPS} decode steps of "
+          f"{len(RING_STARTS)} rows in {wall:.3f} s "
+          f"({len(RING_STARTS) * RING_STEPS / wall:.2f} tok/s); {empty} "
+          f"row(s) with no slot on shard 1; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{got}")
+    if got != want:
+        raise AssertionError(f"serve ring on {RING_MESH}: launches {got}, "
+                             f"expected {want}")
+    if not all(torch.equal(t, table) for t in joined) or not empty:
+        raise AssertionError(f"serve ring on {RING_MESH}: the shards' tables "
+                             "are not the positions written, or no row "
+                             "left shard 1 empty")
+    logits_1, toks_1, _ = run(one, model, toks_m)
+    if not all(torch.equal(a, b) for a, b in zip(toks_m, toks_1)):
+        raise AssertionError("serve ring on a mesh: the 1 x 1 run was not "
+                             "fed the mesh run's tokens")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(logits_m, logits_1)):
+        worst = max(worst, (a - b).abs().max().item())
+        if not torch.allclose(a, b, atol=MESH_LOGITS_ATOL,
+                              rtol=MESH_LOGITS_RTOL):
+            raise AssertionError(f"serve ring on {RING_MESH} step {i}: "
+                                 "logits left the 1 x 1 run's")
+    print(f"ring on {RING_MESH} vs 1 x 1 over {RING_STEPS} steps: logits max "
+          f"abs err {worst:.3e} (limit atol {MESH_LOGITS_ATOL} + rtol "
+          f"{MESH_LOGITS_RTOL})")
+    del model, params, caches, ms, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an "
@@ -5714,6 +6348,7 @@ def main() -> int:
     kernels += check_whisper_kernels(dev)
     kernels += check_jamba_kernels(dev)
     kernels += check_ring_kernels(dev)
+    kernels += check_frontend_mesh_kernels(dev)
     kernels[1]["paged_shape"] = check_paged_decode(dev)
     ssd_row = next(k for k in kernels if k["name"] == "ssd_scan")
     jamba_ssd = next(k for k in kernels if k["name"] == JAMBA_SSD)
@@ -5746,6 +6381,7 @@ def main() -> int:
     check_reference(dev, JAMBA)
     check_reference_ring(dev)
     check_reference_deepseek_mesh(dev)
+    check_reference_frontend_mesh(dev)
     served, threads_run = serve(dev, "qwen3-1.7b")
     threads_launches = dict(served)
     torch.cuda.empty_cache()
@@ -5773,8 +6409,15 @@ def main() -> int:
     deepseek = serve_deepseek(dev)
     deepseek_meshed = serve_mesh_deepseek(dev)
     jamba = serve_jamba(dev)
-    classic = {arch: serve_classic(dev, arch) for arch in (WHISPER, PIXTRAL)}
+    classic, classic_mesh = {}, {}
+    for arch in (WHISPER, PIXTRAL):
+        classic[arch], held = serve_classic(dev, arch)
+        classic_mesh[arch] = serve_mesh_classic(dev, arch, held)
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
     ringed = serve_ring(dev)
+    ring_meshed = serve_mesh_ring(dev)
     trained, curve = train(dev)
     torch.cuda.empty_cache()
     train_plain(dev, curve)
@@ -5788,8 +6431,9 @@ def main() -> int:
     deepseek_mesh_trained, deepseek_data_trained = train_mesh_deepseek(
         dev, deepseek_curve)
     torch.cuda.empty_cache()
-    whisper_trained = train_whisper(dev)
+    whisper_trained, whisper_curve = train_whisper(dev)
     torch.cuda.empty_cache()
+    whisper_mesh_trained = train_mesh_whisper(dev, whisper_curve)
     mamba_trained = train_mamba(dev)
     mamba_mesh_trained = train_mesh_mamba(dev)
     check_graph_reference(dev)
@@ -5832,6 +6476,35 @@ def main() -> int:
             "launches": wt["xent_local_stats"]},
         "xent_local_stats_bwd" + WHISPER_XENT: {
             "launches": wt["xent_local_stats_bwd"]}}
+    # the mesh paths: the classic loop's runs on CLASSIC_MESH (both
+    # ranks), whisper's mesh train run and the ring's mesh run
+    wm, pm, wtm = (classic_mesh[WHISPER], classic_mesh[PIXTRAL],
+                   whisper_mesh_trained)
+    shard = CLASSIC_MESH_CACHE_LEN // CLASSIC_MESH[1]
+    vl = get_config(WHISPER).padded_vocab() // CLASSIC_MESH[1]
+    ring_half = max(ring_meshed["offsets"])
+    frontend_rows.update({
+        FM_ENC: {"launches": wm["by_mask"]["non_causal"]},
+        FM_CROSS: {"launches": wm["by_mask"]["cross"]},
+        FM_PIX: {"launches": pm["by_mask"]["causal"]},
+        FM_WDEC: {"launches": wm["offsets"][shard],
+                  "launches_by_offset": wm["offsets"]},
+        FM_PDEC: {"launches": pm["offsets"][shard],
+                  "launches_by_offset": pm["offsets"]},
+        FM_XDEC: {"launches": wm["decode_by_length"][
+            get_config(WHISPER).encoder_seq]},
+        FM_RING: {"launches": ring_meshed["offsets"][ring_half],
+                  "launches_by_offset": ring_meshed["offsets"]},
+        "xent_local_stats" + FM_XENT: {"launches": wtm["offsets"][0][vl]},
+        "xent_local_stats_bwd" + FM_XENT: {
+            "launches": wtm["offsets"][1][vl]}})
+    for name, key, mask in ((FM_ENC_TRAIN, "by_mask", "non_causal"),
+                            (FM_CROSS_TRAIN, "by_mask", "cross"),
+                            (FM_ENC_BWD, "bwd_by_mask", "non_causal"),
+                            (FM_CROSS_BWD, "bwd_by_mask", "cross")):
+        frontend_rows[name] = {"launches": wtm[key][mask],
+                               "launches_per_step":
+                                   wtm[key][mask] // WHISPER_MESH_STEPS}
     for kr in kernels:
         name = kr["name"]
         if name in frontend_rows:
@@ -6004,6 +6677,9 @@ def main() -> int:
             counts["by_mask"]["causal"]
         kernels[1]["launches_by_path"][f"serve classic ({arch})"] = \
             counts["flash_decode"]
+    kernels[0]["launches_by_path"][
+        f"serve classic {CLASSIC_MESH} ({WHISPER}), causal"] = \
+        wm["by_mask"]["causal"]
     ssd_row["launches_by_path"].update({
         f"serve mesh {MAMBA_MESH} (mamba2)": mamba_meshed["ssd_scan"],
         "train (mamba2)": mamba_trained["ssd_scan"],

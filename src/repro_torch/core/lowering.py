@@ -1559,20 +1559,21 @@ class StageParams(nn.Module):
         self.unembed = unembed
 
 
-def _shard_copy(module: nn.Module, dtype: torch.dtype, cfg: ModelConfig,
-                plan: MeshPlan, coords, device) -> nn.Module:
-    """A copy of ``module`` (a stage's slice of a global model) holding the
-    rank at ``coords``'s shard of every parameter under
-    :func:`repro_torch.models.transformer.spec_of`, cast to ``dtype`` on
-    ``device``; contiguous, and shared with the global tensor where the
-    shard is one already in that dtype and place (a replicated leaf, a row
-    block)."""
+def _shard_copy(module: nn.Module, dtype: Optional[torch.dtype],
+                cfg: ModelConfig, plan: MeshPlan, coords,
+                device) -> nn.Module:
+    """A copy of ``module`` (a stage's slice of a global model, or a whole
+    one) holding the rank at ``coords``'s shard of every parameter under
+    :func:`repro_torch.models.transformer.spec_of`, cast to ``dtype``
+    (None: each leaf's own) on ``device``; contiguous, and shared with the
+    global tensor where the shard is one already in that dtype and place
+    (a replicated leaf, a row block)."""
     memo = {}
     for name, p in module.named_parameters():
         t = p.detach()
         t = t[M.shard_slices(t.shape, T.spec_of(name, cfg, plan),
                              plan.axis_sizes, coords)]
-        memo[id(p)] = param(t.to(device, dtype).contiguous())
+        memo[id(p)] = param(t.to(device, dtype or t.dtype).contiguous())
     return copy.deepcopy(module, memo)
 
 

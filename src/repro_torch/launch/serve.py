@@ -15,6 +15,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
     PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-medium --smoke --device cpu --mesh 1x2
+    PYTHONPATH=src python -m repro_torch.launch.serve --classic \
+        --smoke --device cpu --mesh 2x1
 
 Port of ``repro/launch/serve.py:80-150`` (``continuous_batching``): requests
 with differing generation lengths are packed into decode slots, finished
@@ -31,9 +35,10 @@ Embed-frontend and encoder-decoder archs (pixtral, whisper) take the
 reference's classic loop instead (``:19-77``, routed at ``:143``;
 ``--classic`` forces it for any arch): :func:`classic_loop`, one batched
 whole-model prefill and greedy decode through
-:func:`repro_torch.train.steps.make_serve_step`, its inputs (token ids,
-patch or frame embeddings) drawn from ``--seed`` with numpy as the
-reference draws them.
+:func:`repro_torch.train.steps.make_serve_step`, on one device or on the
+``--mesh`` (heads split over ``model``, rows over ``data``), its inputs
+(token ids, patch or frame embeddings) drawn from ``--seed`` with numpy
+as the reference draws them.
 """
 from __future__ import annotations
 
@@ -64,26 +69,32 @@ def classic_batch(cfg, batch: int, length: int, rng, kind: str = "prefill"):
 
 
 def classic_loop(cfg, args, params=None):
-    """The pre-pipeline serve loop on one device: one batched prefill and
-    greedy decode (``repro/launch/serve.py:19-77``). The first token's
-    logits go through ``ServeStep.logits_fn``, the decode step's head, and
-    greedy selection masks the padded vocab, so every id is <
-    ``cfg.vocab_size``. ``params``: the model to serve (default the seeded
-    init of ``--seed`` in the compute dtype). Prints the prefill's seconds
+    """The pre-pipeline serve loop: one batched prefill and greedy decode
+    (``repro/launch/serve.py:19-77``), on one device or on the ``--mesh``
+    of D x M ranks (``make_serve_step`` on that mesh; ``cache_len`` rounded
+    up to a multiple of M, as the reference's ``:34-36``). The first
+    token's logits go through ``ServeStep.logits_fn``, the decode step's
+    head, and greedy selection masks the padded vocab, so every id is <
+    ``cfg.vocab_size``. ``params``: the global model to serve, a
+    ``Transformer`` or a ``state_dict`` (default the seeded init of
+    ``--seed`` in the compute dtype), which ``ServeStep.shard_params_fn``
+    cuts into the ranks' shards on a mesh. Prints the prefill's seconds
     and the decode's tok/s as the reference does; returns the ids ``(B,
     gen + 1)``."""
     import numpy as np
     import torch
 
+    from repro_torch.models.common import MeshPlan
     from repro_torch.train.steps import greedy_from_logits, make_serve_step
 
-    from repro_torch.models.common import MeshPlan
-
-    cache_len = args.cache_len or (args.prompt_len + args.gen + 8)
     shape = tuple(int(v) for v in getattr(args, "mesh", "1x1").split("x"))
+    m_ = shape[1]
+    cache_len = args.cache_len or (args.prompt_len + args.gen + 8)
+    cache_len = -(-cache_len // m_) * m_
     ss = make_serve_step(cfg, MeshPlan(("data", "model"), shape),
                          cache_len=cache_len, device=args.device)
-    model = ss.init_params(args.seed) if params is None else params
+    model = (ss.init_params(args.seed) if params is None
+             else ss.shard_params_fn(params))
     rng = np.random.default_rng(args.seed)
     batch = classic_batch(cfg, args.batch, args.prompt_len, rng)
 

@@ -38,8 +38,11 @@ gradient flow back through the cast, and serving's pre-cast weights make
 the cast a no-op. :func:`gqa_decode` also decodes over the reference's
 sliding-window ring cache (``cache_pos``: each slot's position, written
 with the token's k/v into slot ``pos % sliding_window``, then the decode
-attention's ``k_positions``), on one device; a ring on a mesh is ROADMAP
-Queue 1 item 13.
+attention's ``k_positions``), on one device and on a mesh, whose ranks
+hold the ring's slots in sequence blocks as they hold a linear cache's
+positions. :func:`cross_attn_decode` on a mesh runs the rank's q heads
+over the rank's kv heads of the cross cache (split by head, not by
+sequence), so it needs no combine across ranks.
 
 MLA's prefill (:func:`mla_forward`) materialises each head's k and v from
 the latent and calls :func:`~repro_torch.kernels.flash_attention
@@ -231,17 +234,17 @@ def gqa_decode(p: GQAttention, x, cache_k, cache_v, pos, cfg: ModelConfig,
     caches functionally; the stage owns one resident copy) and returns the
     output projection (B, 1, d), P(sum) over the model axis.
 
-    ``cache_pos``: (B, L) int32 slot position table of a RING cache of
-    ``sliding_window`` slots (the reference's ``:204-289``, one device):
-    the token's k/v and its position go into slot ``pos % sliding_window``
-    before the attention reads them, which then masks each slot by its
-    table entry (``k_positions``)."""
+    ``cache_pos``: (B, L_loc) int32 slot position table of a RING cache
+    of ``sliding_window`` slots, this rank's block of them (the
+    reference's ``:204-289``): the token's k/v and its position go into
+    slot ``pos % sliding_window``, on the shard that owns that slot
+    (``local = slot - m * L_loc``), before the attention reads them, which
+    then masks each slot by its table entry (``k_positions``). A shard
+    whose every slot is still empty (-1) gives partials at the finite
+    sentinel ``m = -1e30``, which the cross-rank combine weighs 0 beside
+    the shard that holds the token."""
     B = x.shape[0]
     hd, tp, KV = cfg.head_dim, plan.tp, cfg.num_kv_heads
-    if cache_pos is not None and tp > 1:
-        raise NotImplementedError(
-            "gqa_decode: the ring cache on a mesh (tp > 1) is ROADMAP Queue "
-            "1 item 13; it decodes on one device")
     Hp = cfg.padded_heads(tp)
     ax = plan.model_axis
     L_loc = cache_k.shape[1]
@@ -262,22 +265,25 @@ def gqa_decode(p: GQAttention, x, cache_k, cache_v, pos, cfg: ModelConfig,
     m = M.axis_index(ax) if tp > 1 else 0
     k_off = m * L_loc
     rows = torch.arange(B, device=x.device)
+    # the token's slot: its position, or on a ring ``pos % window``
+    slot = pos.long() if cache_pos is None else \
+        (pos % sliding_window).long()
+    writes = [(cache_k, k_new[:, 0]), (cache_v, v_new[:, 0])]
+    if cache_pos is not None:
+        writes.append((cache_pos, pos))
     if tp == 1:
-        cols = pos.long() if cache_pos is None else \
-            (pos % sliding_window).long()               # the ring's slot
-        cache_k[rows, cols] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[rows, cols] = v_new[:, 0].to(cache_v.dtype)
-        if cache_pos is not None:
-            cache_pos[rows, cols] = pos.to(cache_pos.dtype)
+        for cache, new in writes:
+            cache[rows, slot] = new.to(cache.dtype)
     else:
-        # only the owning shard takes the write; the others rewrite a row
-        # with itself (no host sync on which rows own)
-        local = pos.long() - k_off
-        owns = ((local >= 0) & (local < L_loc))[:, None, None]
+        # only the shard that owns the slot takes the write; the others
+        # rewrite a row with itself (no host sync on which rows own)
+        local = slot - k_off
+        owns = (local >= 0) & (local < L_loc)
         safe = local.clamp(0, L_loc - 1)
-        for cache, new in ((cache_k, k_new), (cache_v, v_new)):
-            cache[rows, safe] = torch.where(
-                owns, new[:, 0].to(cache.dtype), cache[rows, safe])
+        for cache, new in writes:
+            own = owns.view(B, *([1] * (new.dim() - 1)))
+            cache[rows, safe] = torch.where(own, new.to(cache.dtype),
+                                            cache[rows, safe])
     mm, ll, acc = flash_decode(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
                                cur_pos=pos, k_offset=k_off,
                                sliding_window=sliding_window,
@@ -301,8 +307,10 @@ def cross_attn_decode(p: GQAttention, x, xk, xv, cfg: ModelConfig,
     ``(B, enc_len, KV, hd)`` cast to x's dtype; no cache update. The
     decode attention runs with every row at ``cur_pos = enc_len - 1`` and
     ``k_offset`` 0, whose mask then passes every key: the reference's
-    non-causal ``attention_dense_ref`` over the cache. x: (B, 1, d);
-    returns the output projection (B, 1, d)."""
+    non-causal ``attention_dense_ref`` over the cache. x: (B, 1, d),
+    replicated over the model axis; on a mesh ``xk``/``xv`` hold the rank's
+    kv heads. Returns the output projection (B, 1, d), P(sum) over the
+    model axis."""
     B, hd = x.shape[0], cfg.head_dim
     qh = q_heads_local(cfg, plan)
     dt = x.dtype

@@ -13,19 +13,19 @@ capacity-routed MoE) are served and trained too, on one device and on
 meshes (heads and experts split over ``model``, the latent cache
 replicated over it), the routers' load-balance losses summed into the
 training loss as the reference sums them. The two frontend
-architectures run on one device; on a mesh they raise (ROADMAP Queue 1
-item 13): an embed
-frontend (pixtral: the decoder reads patch embeddings, ``{"embeds",
-"labels"}``) and an encoder-decoder (whisper: ``enc_blocks``, a
-non-causal attn/dense stack over frame embeddings plus a sinusoid, its
-``enc_norm``, and a cross-attention branch, ``ln_x`` and ``xattn``, in
-every decoder block of the body). Their serving is the reference's
-whole-model :func:`prefill` and :func:`decode_step` (its classic loop),
-not the stage slices. A hybrid (jamba: Mamba-2 layers with a dense MLP
-or an MoE after the mixer, ``ssm``/``dense`` and ``ssm``/``moe``, one
-attention layer in 8) is served through the stage slices, on one device
-and on a mesh; training it raises (:func:`check_trainable`, ROADMAP Queue
-1 item 13).
+architectures run on one device and on meshes (heads split over
+``model``, the encoder's output replicated over it): an embed frontend
+(pixtral: the decoder reads patch embeddings, ``{"embeds", "labels"}``)
+and an encoder-decoder (whisper: ``enc_blocks``, a non-causal attn/dense
+stack over frame embeddings plus a sinusoid, its ``enc_norm``, and a
+cross-attention branch, ``ln_x`` and ``xattn``, in every decoder block of
+the body, whose cross cache holds the rank's kv heads). Their serving is
+the reference's whole-model :func:`prefill` and :func:`decode_step` (its
+classic loop), not the stage slices. A hybrid (jamba: Mamba-2 layers with
+a dense MLP or an MoE after the mixer, ``ssm``/``dense`` and
+``ssm``/``moe``, one attention layer in 8) is served through the stage
+slices, on one device and on a mesh; training it raises
+(:func:`check_trainable`, ROADMAP Queue 1 item 13).
 The reference stacks each period slot's params over periods and scans them;
 here a model is an ``nn.Module`` holding a flat ``blocks`` list in layer
 order, and :mod:`repro_torch.models.convert` maps the reference's stacked
@@ -162,16 +162,13 @@ def has_frontend(cfg: ModelConfig) -> bool:
 
 
 def check_mesh_supported(cfg: ModelConfig, plan: MeshPlan) -> None:
-    """Raise where ``plan``'s mesh cannot run ``cfg``: an encoder-decoder or
-    an embed frontend on more than one rank (ROADMAP Queue 1 item 13, its
-    part after MLA and MoE), or a model axis that does not split the MLA
-    heads, the routed experts or the SSM heads (each rank runs ``1 / tp``
-    of them, as the reference's specs cut them)."""
-    if has_frontend(cfg) and not plan.is_single:
-        raise NotImplementedError(
-            f"{cfg.name}: an encoder-decoder or an embed frontend on a mesh "
-            "is ROADMAP Queue 1 item 13 (the frontend archs on a mesh, after "
-            "MLA and MoE); serve and train it on one device")
+    """Raise where ``plan``'s mesh cannot run ``cfg``: a model axis that
+    does not split the MLA heads, the routed experts or the SSM heads (each
+    rank runs ``1 / tp`` of them, as the reference's specs cut them), or an
+    encoder-decoder's heads: its cross cache is split by head over
+    ``model`` (reference ``model_zoo.py:135-137``), so a rank holds whole q
+    heads and a share of the kv heads (or, for fewer kv heads than ranks,
+    its group's one)."""
     tp = plan.tp
     if cfg.use_mla and cfg.num_heads % tp:
         raise ValueError(f"{cfg.name}: {cfg.num_heads} MLA heads do not "
@@ -183,6 +180,11 @@ def check_mesh_supported(cfg: ModelConfig, plan: MeshPlan) -> None:
     if has_ssm_layers(cfg) and cfg.ssm_heads % tp:
         raise ValueError(f"{cfg.name}: {cfg.ssm_heads} SSM heads do not "
                          f"split over tp = {tp} ranks")
+    kv = cfg.num_kv_heads
+    if cfg.encoder_decoder and (cfg.num_heads % tp or (kv % tp and tp % kv)):
+        raise ValueError(f"{cfg.name}: {cfg.num_heads} q heads and {kv} kv "
+                         f"heads do not split over tp = {tp} ranks (the "
+                         "cross cache is split by head)")
 
 
 def has_ssm_layers(cfg: ModelConfig) -> bool:
@@ -500,15 +502,19 @@ def final_logits(final_norm, unembed, h, cfg: ModelConfig):
 def prefill(model: Transformer, batch, cache_len: int,
             sliding_window: int = 0):
     """The whole-model prefill of the reference's classic serve loop
-    (``repro/models/transformer.py:478-515``) on one device: the prompt
-    from ``{"tokens": (B, S)}`` (an encoder-decoder's decoder tokens plus
-    the sinusoid, and ``"enc_embeds"`` through :func:`encode`) or, for an
+    (``repro/models/transformer.py:478-515``) on one device, or on one
+    rank of a mesh (inside :func:`repro_torch.core.mesh.spmd`, ``model``
+    holding the rank's shards and ``batch`` its rows): the prompt from
+    ``{"tokens": (B, S)}`` (an encoder-decoder's decoder tokens plus the
+    sinusoid, and ``"enc_embeds"`` through :func:`encode`) or, for an
     embed frontend, ``{"embeds": (B, S, d)}``. Returns ``(h_last,
-    caches)``: the final-normed hidden at the last position (B, 1, d) and
-    one cache per layer (see :func:`apply_block`), each self-attention
-    ``k``/``v`` zero-padded to ``cache_len`` positions as the reference's
-    ``kv_to_seq_sharded`` pads them at tp = 1, ready for decode at
-    position S. No grad."""
+    caches)``: the final-normed hidden at the last position (B, 1, d),
+    replicated over ``model``, and one cache per layer (see
+    :func:`apply_block`): each self-attention ``k``/``v`` zero-padded to
+    ``cache_len`` positions as the reference's ``kv_to_seq_sharded`` pads
+    them (at tp > 1 the rank's sequence block of them), an MLA latent
+    padded likewise, a cross cache of the rank's kv heads; ready for
+    decode at position S. No grad."""
     cfg, plan = model.cfg, model.plan
     check_supported(cfg)
     check_mesh_supported(cfg, plan)
@@ -534,20 +540,28 @@ def prefill(model: Transformer, batch, cache_len: int,
                                       want_cache=True, cache_len=cache_len,
                                       enc=enc)
             for key in ("k", "v", "c", "kpe"):      # the sequence caches
-                t = cache.get(key)
-                if t is not None and t.shape[1] < cache_len:
-                    cache[key] = torch.cat([t, t.new_zeros(
-                        (t.shape[0], cache_len - S, *t.shape[2:]))], dim=1)
+                if key in cache and (key in ("c", "kpe") or plan.tp == 1):
+                    cache[key] = _pad_positions(cache[key], cache_len)
             caches.append(cache)
         x = rms_norm(x, model.final_norm.to(x.dtype), cfg.norm_eps)
     return x[:, -1:], caches
 
 
+def _pad_positions(t, length: int):
+    """``t`` (B, S, ...) zero-padded to ``length`` positions on dim 1."""
+    if t.shape[1] >= length:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], length - t.shape[1],
+                                      *t.shape[2:]))], dim=1)
+
+
 def decode_step(model: Transformer, caches: List[Dict], tok, pos,
                 sliding_window: int = 0):
-    """One whole-model decode step (reference ``transformer.py:517-557``):
-    tok (B,) ids at positions pos (B,), an encoder-decoder's embedding plus
-    the sinusoid at ``pos``; every layer's :func:`decode_block`, which
+    """One whole-model decode step (reference ``transformer.py:517-557``),
+    on one device or one rank of a mesh (as :func:`prefill`; the logits
+    then the rank's vocab block): tok (B,) ids at positions pos (B,), an
+    encoder-decoder's embedding plus the sinusoid at ``pos``; every
+    layer's :func:`decode_block`, which
     writes the new k/v into ``caches`` IN PLACE (the reference returns new
     caches) and runs the cross-attention over ``xk``/``xv``; then the final
     norm and the head. Returns ``(logits (B, Vp) over the padded vocab,
@@ -605,10 +619,10 @@ def block_specs(cfg: ModelConfig, plan: MeshPlan, kind: Kind,
     ``norm_w`` and ``out_proj`` S(0); ``ln1`` replicated; ssm/dense and
     ssm/moe add ``ln2`` and the MLP's or MoE's signatures. A ``cross``
     block adds ``ln_x`` (replicated) and ``xattn.*``, GQA's signatures
-    without biases (``:108-110``). Only the 1 x 1 plan runs cross blocks
-    (:func:`check_mesh_supported`), where every signature keeps the whole
-    leaf; MLA and MoE run on any mesh whose model axis splits their heads
-    and experts."""
+    without biases (``:108-110``): the rank's q heads, ``wk``/``wv``
+    replicated (each rank slices its kv heads, whose cross cache it holds).
+    MLA, MoE and cross blocks run on any mesh whose model axis splits their
+    heads and experts (:func:`check_mesh_supported`)."""
     S0, S1, B_ = _spec(plan, "S(0)"), _spec(plan, "S(1)"), _spec(plan, "B")
     if cross:
         xattn = {"wq": S1, "wk": B_, "wv": B_, "wo": S0}
@@ -949,16 +963,20 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
     a MoE's rerun repeats its routing bit for bit (a stable sort, a
     fixed-order scatter-add). The loss segment and the aux sums run once.
 
-    An encoder-decoder (at 1 x 1) first runs its encoder as segments of
-    its own: the frame embeddings plus the sinusoid, each ``enc_blocks``
-    layer as an attn/dense block with non-causal attention, then
-    ``enc_norm``. Each decoder block of the body adds its cross branch
-    after self-attention: the residual and ``ln_x``, then ``xattn`` over
-    the encoder output (``:169-178``). The encoder output's cotangent is
-    the sum of the decoder layers' cross-attention contributions, which
-    the tape adds in its one fixed order (the reverse of the layers), so
-    repeated steps are bitwise equal. A hybrid whose SSM layers carry an
-    MLP raises (:func:`check_trainable`)."""
+    An encoder-decoder first runs its encoder as segments of its own: the
+    frame embeddings plus the sinusoid, each ``enc_blocks`` layer as an
+    attn/dense block with non-causal attention (the norm, "f", attention
+    on the rank's heads, "g", the residual and norm, "f", the MLP on the
+    rank's units, "g"), then ``enc_norm`` and one "f". Each decoder block
+    of the body adds its cross branch after self-attention: the residual
+    and ``ln_x``, "f", then ``xattn``'s q heads of the rank over the
+    encoder output, which enters the rank's ``xk``/``xv`` columns
+    (``:169-178``). The encoder output's cotangent is the sum of the
+    decoder layers' cross-attention contributions, which the tape adds in
+    its one fixed order (the reverse of the layers) and the one "f" sums
+    over ``model``, so repeated steps are bitwise equal. An embed
+    frontend's ``embeds`` enter where the embedded tokens would. A hybrid
+    whose SSM layers carry an MLP raises (:func:`check_trainable`)."""
     check_supported(cfg)
     check_trainable(cfg)
     check_mesh_supported(cfg, plan)
@@ -1055,8 +1073,11 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
             local(add_norm, (x, g(a), b + "ln2"), (xm, h2))
             branch(dense_mlp_forward, dense, "mlp.", b, h2, (mo,))
             res_e = [xm, g(mo)]
-        enc = name("enc")
-        local(add_norm, (*res_e, "enc_norm"), (name("enc_xf"), enc))
+        local(add_norm, (*res_e, "enc_norm"), (name("enc_xf"), name("enc")))
+        # one "f" for every cross branch: each rank's cotangent of the
+        # encoder output is its heads' part, summed in the tape's order,
+        # then over model once
+        enc = f(name("enc"))
     if labels == "labels":      # an embed frontend: the rows' embeddings
         residual = ["embeds"]
     else:

@@ -43,18 +43,21 @@ the router's and MLA's latent leaves are model-summed, and the aux's
 gradient reaches each rank at 1 / tp
 (:func:`~repro_torch.models.common.aux_pmean_step`). Hybrid stacks raise
 before any path is chosen (ROADMAP Queue 1 item 22). The frontend
-architectures train on one device plain and ZeRO at 1 x 1 from the
-reference's batch forms (:func:`batch_specs`): an embed
-frontend (pixtral) from ``{"embeds", "labels"}``, an encoder-decoder
-(whisper) from ``{"tokens", "enc_embeds"}``; on the card the encoder's
-non-causal attention and the decoder's cross-attention run the attention
-backward kernels with ``causal=False``.
+architectures train on every path too, from the reference's batch forms
+(:func:`batch_specs`, rows over the data axes): an embed frontend
+(pixtral) from ``{"embeds", "labels"}``, an encoder-decoder (whisper) from
+``{"tokens", "enc_embeds"}``, its encoder's heads split over ``model``
+like the decoder's; on the card the encoder's non-causal attention and
+the decoder's cross-attention run the attention backward kernels with
+``causal=False``.
 
 :func:`make_serve_step` is the reference's serving step of its classic
 loop (``launch/serve.py:19-77``): the whole-model
 :func:`~repro_torch.models.transformer.prefill` and
 :func:`~repro_torch.models.transformer.decode_step`, the caches, and the
-decode head for the prefill's first token, on one device.
+decode head for the prefill's first token, on one device or on the ranks
+of a mesh (each rank's programs inside :func:`~repro_torch.core.mesh.spmd`,
+as the reference's ``shard_map``).
 """
 from __future__ import annotations
 
@@ -66,7 +69,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mesh as M
-from repro_torch.core.lowering import data_index
+from repro_torch.core.lowering import _shard_copy, data_index
 from repro_torch.core.placement import Placement
 from repro_torch.core.sbp import Split
 from repro_torch.core.tape import (INTERNAL, LocalProgram, Step,
@@ -535,13 +538,17 @@ def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
 
 @dataclasses.dataclass
 class ServeStep:
-    """The classic loop's programs on one device: ``prefill_fn(params,
-    batch) -> (h_last, caches)``, ``decode_fn(params, caches, tok, pos) ->
-    (logits, caches)`` (the caches updated in place), ``init_caches_fn(tok)
-    -> caches`` (zeroed, for tok's rows) and ``logits_fn(params, h_last) ->
-    logits``, the decode step's head; ``params`` is the
-    :class:`~repro_torch.models.transformer.Transformer` to serve (its
-    compute-dtype copy: :func:`make_serve_step`'s ``init_params``)."""
+    """The classic loop's programs: ``prefill_fn(params, batch) -> (h_last,
+    caches)``, ``decode_fn(params, caches, tok, pos) -> (logits, caches)``
+    (the caches updated in place), ``init_caches_fn(tok) -> caches``
+    (zeroed, for tok's rows) and ``logits_fn(params, h_last) -> logits``,
+    the decode step's head. ``params`` is what ``init_params(seed)`` or
+    ``shard_params_fn(global params)`` gives: on one device the
+    :class:`~repro_torch.models.transformer.Transformer` to serve (in its
+    compute dtype), on a mesh a list of the ranks' copies of their shards,
+    in rank order. The batch, ``tok``, ``pos``, ``h_last`` and the logits
+    are global tensors; on a mesh the caches are a list of the ranks'
+    caches (each rank's block of every leaf under ``cache_specs``)."""
 
     prefill_fn: Callable
     decode_fn: Callable
@@ -551,35 +558,78 @@ class ServeStep:
     batch_specs: Dict[str, Any]
     plan: MeshPlan
     device: torch.device
+    #: (a global ``Transformer`` or ``state_dict``) -> the params the
+    #: programs take
+    shard_params_fn: Optional[Callable] = None
+    mesh: Optional[M.DeviceMesh] = None   # the ranks, beyond 1 x 1
+
+
+def _rank_copy(model: Transformer, cfg: ModelConfig, plan: MeshPlan,
+               coords, device) -> Transformer:
+    """A copy of the global ``model`` holding the rank at ``coords``'s
+    shard of every parameter, in the dtypes of
+    :func:`~repro_torch.models.transformer.cast_copy` (the compute dtype,
+    the float32-read leaves float32), on ``device``; it runs on ``plan``,
+    whichever plan ``model`` was built on."""
+    rank = _shard_copy(T.cast_copy(model, compute_dtype(cfg)), None, cfg,
+                       plan, coords, device)
+    rank.cfg, rank.plan = cfg, plan
+    return rank
+
+
+def _as_model(params, cfg: ModelConfig, plan: MeshPlan,
+              device: torch.device) -> Transformer:
+    """``params`` as a global ``Transformer``: itself, or one holding a
+    ``state_dict``'s tensors (on ``device``)."""
+    if isinstance(params, Transformer):
+        return params
+    with torch.device("meta"):
+        model = Transformer(cfg, plan)
+    model.load_state_dict({n: torch.as_tensor(t).to(device)
+                           for n, t in params.items()}, assign=True)
+    return model
 
 
 def make_serve_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
                     cache_len: int = 0, device=None, sliding_window: int = 0,
-                    ring: bool = False) -> ServeStep:
+                    ring: bool = False,
+                    shard_batch: bool = True) -> ServeStep:
     """The serving step of the reference's classic loop (``make_serve_step``,
     ``repro/train/steps.py:289-340``) for any arch the port builds, the
-    embed-frontend and encoder-decoder ones among them, on one device
-    (``device`` None: the card). ``logits_fn`` is the decode step's head
-    bit for bit, ``h_last[:, 0] @ unembed`` in h's dtype (the reference's
-    ``:329-337``): the prefill's first-token logits come from the same
-    product as every decode step's. ``sliding_window > 0``: prefill and
-    decode attend over the last ``sliding_window`` positions. ``ring=True``
-    (the reference's long-context serve plan, ``launch/specs.py:
-    serve_plan_for``): the caches are a ring of ``cache_len ==
-    sliding_window`` slots with a slot position table (``ring`` without a
-    window, or with another ``cache_len``, raises ``ValueError``, the
-    reference docstring's condition, ``:292``), built by
-    ``init_caches_fn``, and decoded from there; the reference's ring serve
-    step has no prefill (its ``prefill_fn`` fails: ROADMAP Queue 3), so
-    ``prefill_fn`` raises ``NotImplementedError``. A mesh raises: ROADMAP
-    Queue 1 item 13."""
+    embed-frontend and encoder-decoder ones among them, on one device or
+    on the ranks of ``plan``'s mesh (``device`` None: the card; every rank
+    of a mesh on it). ``logits_fn`` is the decode step's head bit for bit,
+    ``h_last[:, 0] @ unembed`` in h's dtype (the reference's ``:329-337``):
+    the prefill's first-token logits come from the same product as every
+    decode step's. ``sliding_window > 0``: prefill and decode attend over
+    the last ``sliding_window`` positions. ``ring=True`` (the reference's
+    long-context serve plan, ``launch/specs.py:serve_plan_for``): the
+    caches are a ring of ``cache_len == sliding_window`` slots with a slot
+    position table (``ring`` without a window, or with another
+    ``cache_len``, raises ``ValueError``, the reference docstring's
+    condition, ``:292``), built by ``init_caches_fn``, and decoded from
+    there; the reference's ring serve step has no prefill (its
+    ``prefill_fn`` fails: ROADMAP Queue 3), so ``prefill_fn`` raises
+    ``NotImplementedError``.
+
+    On a mesh each rank runs the whole-model
+    :func:`~repro_torch.models.transformer.prefill` and
+    :func:`~repro_torch.models.transformer.decode_step` on its shards
+    (:func:`~repro_torch.models.transformer.model_specs`) inside
+    :func:`~repro_torch.core.mesh.spmd`: the batch's rows split over the
+    data axes, the caches laid out by ``cache_specs`` (a GQA layer's k/v,
+    and a ring's table, by sequence over ``model``, an MLA latent
+    replicated, SSM heads and a cross cache by head), ``h_last`` rows over
+    data and replicated over ``model``, the logits rows over data and
+    vocab blocks over ``model`` (the reference's ``out_specs=P(dp,
+    model)``, ``:316-339``), assembled into global tensors.
+    ``shard_batch=False`` (the reference's, ``:291-304``, which
+    ``serve_plan_for`` gives the long_500k shape): the batch replicated
+    over the data axes, the caches sharded over ``model`` only.
+    ``cache_len`` must divide by the model axis (the classic loop rounds
+    it up)."""
     check_supported(cfg)
     check_mesh_supported(cfg, plan)
-    if not plan.is_single:
-        raise NotImplementedError(
-            "make_serve_step on a mesh is ROADMAP Queue 1 item 13 (the "
-            "classic loop serves on one device; api.compile(cfg, "
-            "mode='serve', mesh=...) serves token-frontend archs on one)")
     if ring and (sliding_window <= 0 or cache_len != sliding_window):
         raise ValueError(
             f"make_serve_step: ring=True needs cache_len == sliding_window "
@@ -587,36 +637,110 @@ def make_serve_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
             f"{sliding_window}")
     if cache_len < 1:
         raise ValueError(f"cache_len={cache_len} must be >= 1")
+    if cache_len % plan.tp:
+        raise ValueError(f"cache_len={cache_len} does not split over tp = "
+                         f"{plan.tp} ranks")
     device = resolve_device(device)
-    from repro_torch.models.model_zoo import build_model
+    cdt = compute_dtype(cfg)
+    bspecs = batch_specs(cfg, plan, "prefill")
+    if not shard_batch:
+        from repro_torch.core.sbp import ndsbp
+        bspecs = dict.fromkeys(bspecs, ndsbp(",".join(
+            "B" for _ in plan.axis_names)))
 
-    def init_params(seed: int = 0) -> Transformer:
-        return build_model(cfg, plan, seed=seed, device=device,
-                           dtype=compute_dtype(cfg))
-
-    def prefill_fn(params: Transformer, batch):
+    def no_ring_prefill():
         if ring:
             raise NotImplementedError(
                 "make_serve_step(ring=True): the reference's ring serve "
                 "step has no prefill (its prefill_fn builds no slot "
                 "position table; ROADMAP Queue 3): start from "
                 "init_caches_fn and decode")
-        return T.prefill(params, batch, cache_len, sliding_window)
 
-    def decode_fn(params: Transformer, caches, tok, pos):
-        return T.decode_step(params, caches, tok, pos, sliding_window)
+    if plan.is_single:
+        def init_params(seed: int = 0) -> Transformer:
+            return build_model(cfg, plan, seed=seed, device=device,
+                               dtype=cdt)
+
+        def prefill_fn(params: Transformer, batch):
+            no_ring_prefill()
+            return T.prefill(params, batch, cache_len, sliding_window)
+
+        def decode_fn(params: Transformer, caches, tok, pos):
+            return T.decode_step(params, caches, tok, pos, sliding_window)
+
+        def init_caches_fn(tok):
+            return make_decode_caches(cfg, plan, len(tok), cache_len, device,
+                                      ring=ring)
+
+        def logits_fn(params: Transformer, h_last):
+            with torch.no_grad():
+                return h_last[:, 0] @ params.unembed.to(h_last.dtype)
+
+        return ServeStep(prefill_fn, decode_fn, init_caches_fn, logits_fn,
+                         init_params, bspecs, plan, device,
+                         lambda params: _as_model(params, cfg, plan, device))
+
+    mesh = Placement(plan.axis_names, plan.axis_sizes).to_mesh(device)
+    ranks = list(range(mesh.size))
+    data = [data_index(mesh, plan, r) for r in ranks]
+    dp = plan.dp if shard_batch else 1
+
+    def sbp(model_comp: str) -> str:
+        return ",".join(model_comp if n == plan.model_axis else
+                        "S(0)" if shard_batch else "B"
+                        for n in plan.axis_names)
+    hidden, logits_sbp = sbp("B"), sbp("S(1)")
+
+    def rows_of(r: int, t):
+        """Rank ``r``'s rows of a global batch tensor (all of them when the
+        batch is replicated)."""
+        if dp == 1:
+            return t
+        if t.shape[0] % dp:
+            raise ValueError(f"a batch of {t.shape[0]} rows does not split "
+                             f"over dp = {dp}")
+        b = t.shape[0] // dp
+        return t[data[r] * b:(data[r] + 1) * b]
+
+    def shard_params_fn(params) -> List[Transformer]:
+        model = _as_model(params, cfg, plan, device)
+        return [_rank_copy(model, cfg, plan, mesh.coords(r),
+                           mesh.devices[r]) for r in ranks]
+
+    def init_params(seed: int = 0) -> List[Transformer]:
+        return shard_params_fn(build_model(cfg, plan, seed=seed,
+                                           device=device, dtype=cdt))
+
+    def prefill_fn(params: List[Transformer], batch):
+        no_ring_prefill()
+        outs = M.spmd(lambda r: T.prefill(
+            params[r], {k: rows_of(r, v) for k, v in batch.items()},
+            cache_len, sliding_window), mesh)(ranks)
+        return (M.assemble([o[0] for o in outs], mesh, hidden),
+                [o[1] for o in outs])
+
+    def decode_fn(params: List[Transformer], caches, tok, pos):
+        tok, pos = torch.as_tensor(tok), torch.as_tensor(pos)
+        outs = M.spmd(lambda r: T.decode_step(
+            params[r], caches[r], rows_of(r, tok), rows_of(r, pos),
+            sliding_window)[0], mesh)(ranks)
+        return M.assemble(outs, mesh, logits_sbp), caches
 
     def init_caches_fn(tok):
-        return make_decode_caches(cfg, plan, len(tok), cache_len, device,
-                                  ring=ring)
+        return [make_decode_caches(cfg, plan, len(tok) // dp, cache_len,
+                                   mesh.devices[r], ring=ring)
+                for r in ranks]
 
-    def logits_fn(params: Transformer, h_last):
-        with torch.no_grad():
-            return h_last[:, 0] @ params.unembed.to(h_last.dtype)
+    def logits_fn(params: List[Transformer], h_last):
+        def rank(r: int):
+            with torch.no_grad():
+                h = rows_of(r, h_last)
+                return h[:, 0] @ params[r].unembed.to(h.dtype)
+        return M.assemble(M.spmd(rank, mesh)(ranks), mesh, logits_sbp)
 
     return ServeStep(prefill_fn, decode_fn, init_caches_fn, logits_fn,
-                     init_params, batch_specs(cfg, plan, "prefill"), plan,
-                     device)
+                     init_params, bspecs, plan, device, shard_params_fn,
+                     mesh)
 
 
 # ---------------------------------------------------------------------------

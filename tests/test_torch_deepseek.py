@@ -615,8 +615,9 @@ def test_training_mla_and_moe_raises(env):
     (``tests/test_torch_deepseek_train.py`` holds it to the JAX package)
     and on meshes (``tests/test_torch_deepseek_mesh_train.py``); on a
     model axis that does not split its 4 heads it raises naming them,
-    plain and ZeRO, and a frontend arch on a mesh, a pure data mesh too,
-    still raises naming ROADMAP Queue 1 item 13."""
+    plain and ZeRO. A frontend arch's step builds on a mesh, a pure data
+    mesh too (``tests/test_torch_frontend_mesh_train.py`` holds it to the
+    JAX package)."""
     loss, metrics = loss_fn(env["model"],
                             {"tokens": np.zeros((1, 9), np.int32)})
     assert torch.isfinite(loss) and float(metrics["aux_loss"]) > 0
@@ -627,10 +628,10 @@ def test_training_mla_and_moe_raises(env):
                             zero=zero, device="cpu")
     for arch in ("whisper-medium", "pixtral-12b"):
         for shape in ((1, 2), (2, 1)):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-                make_train_step(get_config(arch).reduced(),
-                                MeshPlan(("data", "model"), shape),
-                                device="cpu")
+            ts = make_train_step(get_config(arch).reduced(),
+                                 MeshPlan(("data", "model"), shape),
+                                 device="cpu")
+            assert ts.zero and ts.mesh.shape == shape
 
 
 @pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "ssm/moe"),

@@ -1,14 +1,14 @@
 """What the port's frontend architectures (whisper-medium, an
-encoder-decoder; pixtral-12b, an embed frontend) refuse, and their
-parameter trees, without jax.
+encoder-decoder; pixtral-12b, an embed frontend) refuse, what runs on a
+mesh, and their parameter trees, without jax.
 
 * ``api.compile(cfg, mode="serve")`` refuses both with the reference's
   ``ValueError`` ("pipelined serving needs a token frontend",
   ``repro/core/lowering.py:1350-1353``), before building a model: they
   serve through the classic loop;
-* ``make_train_step`` on a mesh, and ``make_serve_step`` on a mesh, raise
-  naming their ROADMAP item (the window and the ring cache serve:
-  ``test_torch_ring.py``);
+* ``make_train_step`` on a mesh takes a finite step, plain and ZeRO, and
+  ``make_serve_step`` on a mesh prefills and decodes, each as one device
+  does (``test_torch_frontend_mesh*.py`` hold them to the JAX package);
 * ``convert.params_to_jax`` and ``params_from_jax`` round-trip both trees
   bit for bit, with the reference's ``enc_body`` stacked over encoder
   layers and the cross leaves in every decoder block of the body;
@@ -46,21 +46,56 @@ def test_pipelined_serving_refuses_frontend_archs(arch, monkeypatch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("shape", [(1, 2), (2, 1)])
-def test_train_step_on_a_mesh_raises_item_13(arch, shape):
+def test_train_step_on_a_mesh_runs_a_finite_step(arch, shape):
+    """Plain and ZeRO, the step builds on the mesh and takes one finite
+    step whose loss is one device's (the batch's rows split over data,
+    the heads over model; ``test_torch_frontend_mesh_train.py`` holds the
+    gradients and steps to the JAX package)."""
     cfg = get_config(arch).reduced()
+    batch = launch_serve.classic_batch(cfg, 2, 8, np.random.default_rng(4),
+                                       "train")
+    one = make_train_step(cfg, zero=False, device="cpu")
+    state = one.init_params(0).state_dict()
+    want, _ = one.grad_fn(one.init_params(0), batch)
     for zero in (False, True):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            make_train_step(cfg, MeshPlan(("data", "model"), shape),
-                            zero=zero, device="cpu")
+        ts = make_train_step(cfg, MeshPlan(("data", "model"), shape),
+                             zero=zero, device="cpu")
+        params = ts.shard_params_fn(state) if zero else ts.init_params(0)
+        _, _, m = ts.step_fn(params, ts.init_opt(params), batch)
+        assert all(np.isfinite(float(v)) for v in m.values())
+        np.testing.assert_allclose(float(m["loss"]), float(want),
+                                   rtol=1e-6)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("kw,match", [
-    (dict(plan=MeshPlan(("data", "model"), (1, 2))), "Queue 1 item 13")])
-def test_make_serve_step_scope_raises(arch, kw, match):
+@pytest.mark.parametrize("shape", [(1, 2)])
+def test_make_serve_step_on_a_mesh_decodes(arch, shape):
+    """``make_serve_step`` on the mesh: each rank's caches (the self cache
+    by sequence, the cross cache by head), one prefill and one decode
+    whose logits are one device's (float32; ``test_torch_frontend_mesh.py``
+    holds them to the JAX package)."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=match):
-        make_serve_step(cfg, cache_len=48, device="cpu", **kw)
+    plan = MeshPlan(("data", "model"), shape)
+    ss = make_serve_step(cfg, plan, cache_len=48, device="cpu")
+    one = make_serve_step(cfg, cache_len=48, device="cpu")
+    model = one.init_params(0)
+    params = ss.shard_params_fn(model)
+    assert len(params) == 2 and params[1].plan == plan
+    batch = launch_serve.classic_batch(cfg, 2, 8, np.random.default_rng(5))
+    got, want = [], []
+    for step, p, out in ((ss, params, got), (one, model, want)):
+        h, caches = step.prefill_fn(p, batch)
+        tok = torch.tensor([3, 7], dtype=torch.int32)
+        out.append(step.logits_fn(p, h))
+        out.append(step.decode_fn(p, caches, tok, torch.full(
+            (2,), 8, dtype=torch.int32))[0])
+        if step is ss:
+            assert caches[1][0]["k"].shape == (2, 24, 2, 64)
+            if cfg.encoder_decoder:
+                assert caches[1][0]["xk"].shape == (2, cfg.encoder_seq, 1,
+                                                    64)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -552,6 +552,45 @@ def test_flash_decode_ring_kernel_matches_plain(cuda, case):
             assert (m[b] == -1e30).all() and (l[b] == L).all()
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_decode_ring_on_two_shards_combined_across_ranks(cuda, dtype):
+    """The ring on a (1, 2) mesh: the slots and their table cut in two
+    sequence shards, the kernel at k_offset 0 and L/2 on two virtual ranks
+    of the card, the partials combined across them, against the plain
+    decode over the whole ring. Two rows never wrote the second half: its
+    partials there sit at the finite sentinel and weigh nothing."""
+    from repro_torch.core.mesh import spmd
+    from repro_torch.core.placement import Placement
+    from repro_torch.kernels.flash_decode.ref import ring_positions
+    B, H, KV, D, L = 4, 16, 8, 128, 1024
+    half = L // 2
+    rng = np.random.default_rng(9)
+    q = _randn(rng, (B, H, D), dtype, cuda)
+    k, v = (_randn(rng, (B, L, KV, D), dtype, cuda) for _ in "kv")
+    first = torch.tensor([0, 0, 0, 700])
+    last = torch.tensor([5000, half - 1, 100, 700 + half])
+    table = ring_positions(first, last, L).to(cuda)
+    cur = last.to(torch.int32).to(cuda)
+    shards = [tuple(t[:, r * half:(r + 1) * half].contiguous()
+                    for t in (k, v, table)) for r in range(2)]
+    mesh = Placement(("model",), (2,)).to_mesh(cuda, timeout=60.0)
+    fd.reset_counts()
+    outs = spmd(lambda r: combine_partials(*fd.flash_decode(
+        q, shards[r][0], shards[r][1], cur_pos=cur, k_offset=r * half,
+        sliding_window=L, k_positions=shards[r][2]), axis_name="model"),
+        mesh)([0, 1])
+    torch.cuda.synchronize()
+    assert fd.offset_launches == {0: 1, half: 1} and fd.ring_launches == 2
+    assert torch.equal(outs[0], outs[1])
+    pm, pl, pacc = fd.flash_decode_partial_ref(q, k, v, cur_pos=cur,
+                                               sliding_window=L,
+                                               k_positions=table)
+    _close(outs[0], combine_partials(pm[None], pl[None], pacc[None]), dtype)
+    m, _, _ = fd.flash_decode(q, *shards[1][:2], cur_pos=cur, k_offset=half,
+                              sliding_window=L, k_positions=shards[1][2])
+    assert (m[1:3] == -1e30).all() and (m[[0, 3]] > -1e30).all()
+
+
 def test_flash_decode_refuses_bad_position_tables(cuda):
     q, k, v, cur, _ = _decode_case((1, 4, 2, 64, 16, 0, 0, "float32"), cuda)
     for bad in (torch.zeros((1, 16), dtype=torch.int64, device=cuda),

@@ -27,14 +27,27 @@ the CPU.
   (``split_partials_ref(k_positions=)`` folded by ``combine_splits``)
   equals ``flash_decode_partial_ref`` at 1, 4 and 16 splits: a wrapped
   ring, holes of -1, and a row whose every key is masked.
+* The ring on a mesh: ``make_serve_step(..., ring=True)`` on (1, 2) and
+  (2, 2), ``shard_batch`` true and false, from ``init_caches_fn``, 24
+  decode steps from rows at positions 0, 3, 524,272 and 8,192 (every
+  token's slot on shard 0 for the first 5 steps, shard 1 all empty),
+  against the JAX ring step on the same mesh (a subprocess with 8 host
+  devices and Auto axes): every step's logits within 1e-4, the greedy
+  tokens identical, each rank's slot table bitwise the JAX table's block
+  of it. Within the port, (1, 2) decodes as one device does.
 * The errors by name (the ring's prefill, a ring whose cache_len is not its
-  window, a ring on tp > 1), and a pin of the reference's red surface:
+  window), and a pin of the reference's red surface:
   its ring ``prefill_fn`` fails with a pytree structure error (its
   out_specs carry ``pos``; its prefill builds none).
 
 The JAX steps run on a 1 x 1 mesh with Auto axes, as the port's other
 parity tests build it (jax 0.9 makes Explicit ones by default).
 """
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -48,14 +61,15 @@ from repro.launch import specs as jax_specs  # noqa: E402
 from repro.train.steps import make_serve_step as jax_serve_step  # noqa: E402
 from repro_torch.configs.base import INPUT_SHAPES  # noqa: E402
 from repro_torch.configs.registry import ARCHITECTURES, get_config  # noqa: E402
+from repro_torch.core import mesh as M  # noqa: E402
 from repro_torch.kernels.flash_decode import kernel as fd  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import (  # noqa: E402
     NEG_INF, flash_decode_partial_ref, ring_positions)
 from repro_torch.launch import specs  # noqa: E402
 from repro_torch.launch.serve import classic_batch  # noqa: E402
-from repro_torch.models.attention import gqa_decode  # noqa: E402
 from repro_torch.models.common import MeshPlan  # noqa: E402
 from repro_torch.models.convert import unstack_layers  # noqa: E402
+from repro_torch.models.model_zoo import cache_specs  # noqa: E402
 from repro_torch.train.steps import make_serve_step  # noqa: E402
 
 from torch_frontend_parity import build, mesh  # noqa: E402
@@ -330,15 +344,35 @@ def test_make_serve_step_ring_errors_by_name():
             make_serve_step(cfg, ring=True, device="cpu", **kw)
 
 
-def test_ring_on_a_mesh_raises_item_13():
+def test_ring_decodes_on_a_mesh():
+    """``gqa_decode`` over a ring on (1, 2): each rank holds 8 of the 16
+    slots and their table, the token goes to the shard that owns slot
+    ``pos % 16`` (rank 1's slots stay -1 until position 8, so its partials
+    carry weight 0), and the combined output is one device's, teacher-fed
+    20 steps from position 0, within 1e-5."""
     cfg = get_config("qwen3-1.7b").reduced()
     plan = MeshPlan(("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        gqa_decode(None, torch.zeros(1, 1, cfg.d_model), None, None,
-                   torch.zeros(1, dtype=torch.int32), cfg, plan,
-                   sliding_window=WINDOW,
-                   cache_pos=torch.full((1, WINDOW // 2), -1,
-                                        dtype=torch.int32))
+    ring = make_serve_step(cfg, plan, cache_len=WINDOW,
+                           sliding_window=WINDOW, ring=True, device="cpu")
+    one = make_serve_step(cfg, cache_len=WINDOW, sliding_window=WINDOW,
+                          ring=True, device="cpu")
+    model = one.init_params(4)
+    params = ring.shard_params_fn(model)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (20, 2))
+    rc = ring.init_caches_fn(torch.zeros(2, dtype=torch.int32))
+    oc = one.init_caches_fn(torch.zeros(2, dtype=torch.int32))
+    assert [tuple(c[0]["pos"].shape) for c in rc] == [(2, 8), (2, 8)]
+    for i in range(20):
+        tok = torch.as_tensor(toks[i], dtype=torch.int32)
+        pos = torch.tensor([i, i + 3], dtype=torch.int32)
+        a, rc = ring.decode_fn(params, rc, tok, pos)
+        b, oc = one.decode_fn(model, oc, tok, pos)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                   msg=f"step {i}")
+        if i == 0:
+            assert (rc[1][0]["pos"] == -1).all()
+        whole = torch.cat([rc[0][0]["pos"], rc[1][0]["pos"]], dim=1)
+        assert torch.equal(whole, oc[0]["pos"])
 
 
 def test_reference_ring_prefill_is_red():
@@ -352,3 +386,136 @@ def test_reference_ring_prefill_is_red():
     with pytest.raises(ValueError, match="pytree structure"):
         js.prefill_fn(env["params"],
                       {k: jnp.asarray(v) for k, v in batch.items()})
+
+
+#: the ring on a mesh: every row's first 5 tokens go to shard 0's slots
+MESH_STARTS = (0, 3, 524_272, 8_192)
+MESH_STEPS = 24
+RING_MESHES = [((1, 2), True), ((1, 2), False), ((2, 2), True),
+               ((2, 2), False)]
+
+JAX_RING = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+sys.path.insert(0, sys.argv[1])
+out_dir = sys.argv[2]
+import numpy as np
+import jax
+import jax.numpy as jnp
+from repro.configs.registry import get_config
+from repro.models.model_zoo import build_model
+from repro.train.steps import make_serve_step, plan_from_mesh
+from repro_torch.configs.registry import get_config as port_config
+from repro_torch.models.convert import unstack_layers
+inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
+W, steps = int(inp["window"]), int(inp["steps"])
+cfg = get_config("qwen3-1.7b").reduced()
+
+
+def mesh_of(shape):
+    return jax.make_mesh(shape, ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+
+params = build_model(cfg, plan_from_mesh(mesh_of((1, 1)))).init(
+    jax.random.PRNGKey(0))
+res = {}
+for shape, sb in zip(inp["shapes"], inp["shard_batch"]):
+    t = f"{shape[0]}x{shape[1]}_{bool(sb)}"
+    js = make_serve_step(cfg, mesh_of(tuple(int(v) for v in shape)),
+                         cache_len=W, sliding_window=W, ring=True,
+                         shard_batch=bool(sb))
+    tok = inp["first"]
+    caches = js.init_caches_fn(jnp.asarray(tok))
+    for i in range(steps):
+        logits, caches = js.decode_fn(params, caches, jnp.asarray(tok),
+                                      jnp.asarray(inp["starts"] + i))
+        res[f"logits_{t}_{i}"] = np.asarray(logits)
+        tok = np.argmax(res[f"logits_{t}_{i}"][:, :cfg.vocab_size],
+                        -1).astype(np.int32)
+    for li, c in enumerate(unstack_layers(jax.device_get(caches),
+                                          port_config("qwen3-1.7b")
+                                          .reduced())):
+        res[f"pos_{t}_{li}"] = np.asarray(c["pos"])
+np.savez(os.path.join(out_dir, "jax.npz"), **res)
+print("JAX-OK")
+"""
+
+
+def _ring_tag(shape, shard_batch):
+    return f"{shape[0]}x{shape[1]}_{shard_batch}"
+
+
+@pytest.fixture(scope="module")
+def ring_mesh_run(tmp_path_factory):
+    """Both packages' ring decode on each mesh of ``RING_MESHES``: the JAX
+    step in a subprocess, the port in process (every rank a thread), each
+    fed its own greedy tokens after the same numpy-seeded first ones."""
+    out = tmp_path_factory.mktemp("jax_ring_mesh")
+    cfg = get_config("qwen3-1.7b").reduced()
+    first = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, len(MESH_STARTS)).astype(np.int32)
+    starts = np.asarray(MESH_STARTS, np.int32)
+    np.savez(out / "inputs.npz", window=WINDOW, steps=MESH_STEPS,
+             first=first, starts=starts,
+             shapes=np.array([s for s, _ in RING_MESHES]),
+             shard_batch=np.array([b for _, b in RING_MESHES]))
+    run_env = dict(os.environ, JAX_PLATFORMS="cpu")
+    run_env.pop("XLA_FLAGS", None)
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    proc = subprocess.run([sys.executable, "-c", JAX_RING, src, str(out)],
+                          env=run_env, capture_output=True, text=True,
+                          timeout=900)
+    assert proc.returncode == 0 and "JAX-OK" in proc.stdout, (
+        proc.stdout[-3000:] + proc.stderr[-3000:])
+    jx = dict(np.load(out / "jax.npz"))
+    state = build("qwen3-1.7b")["state"]
+    port = {}
+    for shape, sb in RING_MESHES:
+        ss = make_serve_step(cfg, MeshPlan(("data", "model"), shape),
+                             cache_len=WINDOW, sliding_window=WINDOW,
+                             ring=True, device="cpu", shard_batch=sb)
+        params = ss.shard_params_fn(state)
+        caches = ss.init_caches_fn(torch.as_tensor(first))
+        tok, logits_all, empty = first, [], []
+        for i in range(MESH_STEPS):
+            logits, caches = ss.decode_fn(params, caches,
+                                          torch.as_tensor(tok),
+                                          torch.as_tensor(starts + i))
+            logits_all.append(logits.numpy())
+            # a rank of model index 1 whose every slot is still empty
+            empty.append(all((c["pos"] == -1).all() for r, rank in
+                             enumerate(caches) if ss.mesh.coords(r)[1] == 1
+                             for c in rank))
+            tok = greedy(logits_all[-1], cfg.vocab_size)
+        port[shape, sb] = dict(logits=logits_all, caches=caches,
+                               empty=empty, mesh=ss.mesh)
+    return cfg, jx, port
+
+
+@pytest.mark.parametrize("shape,shard_batch", RING_MESHES,
+                         ids=[_ring_tag(*c) for c in RING_MESHES])
+def test_ring_on_a_mesh_matches_the_jax_ring_step(ring_mesh_run, shape,
+                                                  shard_batch):
+    cfg, jx, port = ring_mesh_run
+    run, t = port[shape, shard_batch], _ring_tag(shape, shard_batch)
+    # the model axis's second shard holds no token for the first 5 steps
+    assert run["empty"][:5] == [True] * 5 and not any(run["empty"][5:])
+    for i, got in enumerate(run["logits"]):
+        want = jx[f"logits_{t}_{i}"]
+        np.testing.assert_allclose(got, want, **TOL, err_msg=f"step {i}")
+        np.testing.assert_array_equal(greedy(got, cfg.vocab_size),
+                                      greedy(want, cfg.vocab_size))
+    plan = MeshPlan(("data", "model"), shape)
+    specs = cache_specs(cfg, plan, ("data",) if shard_batch else (),
+                        ring=True)
+    for r, rank in enumerate(run["caches"]):
+        for li, (c, sp) in enumerate(zip(rank, specs)):
+            whole = jx[f"pos_{t}_{li}"]
+            block = whole[M.shard_slices(whole.shape, sp["pos"], shape,
+                                         run["mesh"].coords(r))]
+            np.testing.assert_array_equal(c["pos"].numpy(), block,
+                                          err_msg=f"rank {r} layer {li}")
+            assert c["pos"].shape[0] == (len(MESH_STARTS) // shape[0]
+                                         if shard_batch
+                                         else len(MESH_STARTS))

@@ -526,8 +526,9 @@ def test_mesh_options_are_checked(env):
     # Mamba stacks serve on a mesh too (they raised naming item 8c before;
     # tests/test_torch_mamba_mesh.py holds them to the JAX sessions), with
     # the paged cache refused there as for dense stacks; hybrids serve
-    # there too (tests/test_torch_deepseek_mesh.py), and what stays
-    # refused is a frontend arch's classic loop on a mesh, naming its item
+    # there too (tests/test_torch_deepseek_mesh.py), and so does a frontend
+    # arch's classic loop (tests/test_torch_frontend_mesh.py holds it to
+    # the JAX package), whose cache_len must split over the model axis
     cfg_m = get_config("mamba2-370m").reduced()
     with api.compile(cfg_m, mode="serve", device=CPU, mesh=_mesh((1, 2)),
                      max_prompt_len=8, max_new_tokens=2) as sess:
@@ -538,9 +539,13 @@ def test_mesh_options_are_checked(env):
         api.compile(cfg_m, mode="serve", device=CPU, mesh=_mesh((1, 2)),
                     cache="paged", max_prompt_len=8, max_new_tokens=2)
     from repro_torch.train.steps import make_serve_step
-    with pytest.raises(NotImplementedError, match="item 13"):
+    ss = make_serve_step(get_config("whisper-medium").reduced(),
+                         _plan((1, 2)), cache_len=24, device=CPU)
+    caches = ss.init_caches_fn(np.zeros(2, np.int32))
+    assert len(caches) == 2 and caches[1][0]["k"].shape[1] == 12
+    with pytest.raises(ValueError, match="does not split over tp = 2"):
         make_serve_step(get_config("whisper-medium").reduced(),
-                        _plan((1, 2)), cache_len=24, device=CPU)
+                        _plan((1, 2)), cache_len=25, device=CPU)
 
 
 def test_boxer_transitions_and_shortcuts():
