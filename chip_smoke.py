@@ -444,6 +444,30 @@ The jamba rows (the SSD scan at 128 heads and N = 16, and at a
 2048-token prompt; the attention forward at 32 q heads over 8; decode of
 q (4, 32, 128) over a (4, 569, 8, 128) cache) carry the jamba actor
 run's launches.
+deepseek-v3-671b (slice 25: MLA with a q LoRA at 128 heads, 256 routed
+experts top-8 and a shared one, multi-token prediction in the loss) has
+rows of its own (``check_deepseek_v3_kernels``: the attention forward at
+128 heads for a 512-token prefill and for a training layer, q/k (2, 2048,
+128, 192), v (2, 2048, 128, 128) at the training cut's 2 x 2,048 tokens,
+its backward there, both again at a tp = 2 rank's 64 heads; the bf16
+xent forward and backward over its whole vocabulary, 4,096 x 129,280, and
+on the rank-1 shard, 4,096 x 64,640 at offset 64,640), each held to its
+plain version; reduced deepseek-v3
+(float32) runs card against CPU at 1 x 1 and on (1, 2)
+(``check_reference_deepseek_v3``: served ids identical, first-token
+logits within 1e-3, 2 ZeRO train steps' loss, lm_loss, aux_loss and
+mtp_loss within 1e-4, launches exact, the MTP block's attention and
+loss counted); ``serve_deepseek_v3`` serves it at full width cut to 4
+layers (3 dense, then 1 MoE; 15.80 B params in bf16, the MTP module
+unread), 4 requests of 64-512 prompt tokens and 16 new ones on the
+actors and the monolithic engine (16 MLA launches a run, no decode
+kernel, tokens identical, static checks PASS); ``train_deepseek_v3_mtp``
+trains one MLA + dense layer and the MTP module at full width (3.12 B
+params, 2 x 2,048 tokens a step) with ZeRO at 1 x 1 (3 steps, each 3
+attention forwards, 2
+backwards and 2 xent each way; then 2 steps on the plain versions, step
+0's loss within CURVE_RTOL_FIRST) and on (1, 2) (2 steps within
+CURVE_RTOL of the 1 x 1 curve). Its rows carry those runs' launches.
 The MLA attention row carries the deepseek-v2-lite serve run's launches,
 its training-shape rows (forward, backward by kernel, the xent rows at
 its vocabulary) the deepseek-v2-lite train run's (and by path the (2, 1)
@@ -475,6 +499,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -538,7 +563,11 @@ def kernel_ms(fn, kernels, iters: int = 20, warmup: int = 3):
     contain one of ``kernels`` (the backward's two kernels together), from
     torch.profiler's device trace over ``iters`` calls after ``warmup``
     calls, and each matching kernel's own time per call by its name as the
-    trace gives it; (None, {}) if the trace holds no such kernel."""
+    trace gives it, with the launches the trace kept of it; (None, {}) if
+    the trace holds no such kernel. A trace can lose events (CUPTI's
+    buffers): a kernel's time per call is its mean over the launches kept,
+    times the launches a call makes (the kept count over ``iters``, rounded
+    up), not the kept total over ``iters``."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -553,8 +582,10 @@ def kernel_ms(fn, kernels, iters: int = 20, warmup: int = 3):
           and any(k in e.key for k in kernels)]
     if not ev:
         return None, {}
-    by_name = {e.key: e.self_device_time_total / iters / 1e3 for e in ev}
-    return sum(by_name.values()), by_name
+    by_name = {e.key: (e.self_device_time_total / e.count
+                       * math.ceil(e.count / iters) / 1e3, e.count)
+               for e in ev}
+    return sum(v for v, _ in by_name.values()), by_name
 
 
 def timed(entry: dict, kernels, launch, wrapper, iters: int = 20) -> dict:
@@ -581,10 +612,11 @@ def timed(entry: dict, kernels, launch, wrapper, iters: int = 20) -> dict:
         ms = cuda_ms(launch, iters=iters)
     else:
         print(f"{label}: timed kernels " + "; ".join(
-            f"{k[:80]} {v:.4f} ms" for k, v in by_name.items()))
+            f"{k[:80]} {v:.4f} ms ({n} launches kept of {iters} calls)"
+            for k, (v, n) in by_name.items()))
         if len(kernels) > 1:
             entry["ms_by_kernel"] = {
-                name: sum(v for k, v in by_name.items() if name in k)
+                name: sum(v for k, (v, _) in by_name.items() if name in k)
                 for name in kernels}
     entry["ms"] = ms
     entry["wrapper_ms"] = cuda_ms(wrapper, iters=iters)
@@ -2600,17 +2632,21 @@ def xent_offsets():
 
 def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
                 steps: int = TRAIN_STEPS, falls: bool = True,
-                want_offsets=None, zero: bool = False, aux: bool = False):
+                want_offsets=None, zero: bool = False, aux: bool = False,
+                seq: int = TRAIN_S):
     """``cfg`` (default qwen3-1.7b at full width and depth) through
     make_train_step on the ``("data", "model")`` mesh ``shape`` (1 x 1: one
-    device) from the seeded init, fed by the actor data pipeline, ``steps``
+    device) from the seeded init, fed by the actor data pipeline (``TRAIN_B
+    x seq`` tokens a step), ``steps``
     steps with the kernels' launches counted on every step and held to
     ``want``; on a mesh also the xent launches by vocab offset, held to
     ``want_offsets``, and the collectives' calls, bytes and the seconds the
     ranks waited in them. ``zero``: the ZeRO step (float32 master rows and
     moments sharded over ``data``), else the plain one. ``falls``: the
     loss must fall over the run; ``aux``: every step's ``aux_loss`` (the
-    routers' load-balance loss) must be above 0. Returns (step, params, opt
+    routers' load-balance loss) must be above 0; a config with multi-token
+    prediction prints each step's ``mtp_loss``, which must be finite.
+    Returns (step, params, opt
     state, source, [(loss, grad_norm)], total launches with the xent
     ``offsets``)."""
     from repro_torch.configs.registry import get_config
@@ -2619,7 +2655,7 @@ def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
     from repro_torch.train.steps import make_train_step
 
     cfg = cfg or get_config("qwen3-1.7b")
-    B, S = TRAIN_B, TRAIN_S
+    B, S = TRAIN_B, seq
     t0 = time.perf_counter()
     ts = make_train_step(cfg, MeshPlan(("data", "model"), shape), zero=zero,
                          device=dev)
@@ -2647,6 +2683,7 @@ def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
         params, opt, m = ts.step_fn(params, opt, {"tokens": tokens})
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         aux_loss = float(m["aux_loss"])
+        mtp = float(m["mtp_loss"]) if "mtp_loss" in m else None
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         now, off = train_counts(), xent_offsets()
@@ -2664,10 +2701,13 @@ def train_steps(dev, what: str, want: dict, cfg=None, shape=(1, 1),
                    f"ranks {st.wait_s:.3f} s in them")
         print(f"{what} step {step}: loss {loss:.4f}, grad_norm {gnorm:.4f}, "
               + (f"aux_loss {aux_loss:.4f}, " if aux else "")
+              + (f"mtp_loss {mtp:.4f}, " if mtp is not None else "")
               + f"wall {wall:.3f} s, {B * S / wall:,.0f} tokens/s, launches "
               f"{per}{col}")
         if aux and not aux_loss > 0:
             raise AssertionError(f"{what} step {step}: aux_loss {aux_loss}")
+        if mtp is not None and not np.isfinite(mtp):
+            raise AssertionError(f"{what} step {step}: mtp_loss {mtp}")
         if per != want:
             raise AssertionError(f"{what} step {step}: kernel launches {per},"
                                  f" expected {want}")
@@ -2731,19 +2771,21 @@ def train_want(cfg, ranks: int, tp: int):
     per rank, each layer's attention forward and its remat recompute, each
     backward kernel once a layer, and one loss (the xent kernels on the
     rank's vocab shard), every attention launch on the tensor-core
-    kernels; the xent launches by vocab offset, each shard's ``ranks /
-    tp`` a step."""
-    L = cfg.num_layers
+    kernels; with multi-token prediction also the MTP block's attention
+    forward (not rematerialised) and backward and a second loss; the xent
+    launches by vocab offset, each shard's ``ranks / tp`` a step a loss."""
+    L, mtp = cfg.num_layers, int(cfg.mtp)
+    fwd, bwd, xent = (2 * L + mtp) * ranks, (L + mtp) * ranks, (1 + mtp) * ranks
     want = dict.fromkeys(train_counts(), 0)
-    want.update({"flash_attention": 2 * L * ranks,
-                 "flash_bwd_dq_kernel": L * ranks,
-                 "flash_bwd_dkdv_kernel": L * ranks,
-                 "flash_fwd_wgmma_kernel": 2 * L * ranks,
-                 "flash_bwd_dq_wgmma_kernel": L * ranks,
-                 "flash_bwd_dkdv_wgmma_kernel": L * ranks,
-                 "xent_local_stats": ranks, "xent_local_stats_bwd": ranks})
+    want.update({"flash_attention": fwd,
+                 "flash_bwd_dq_kernel": bwd,
+                 "flash_bwd_dkdv_kernel": bwd,
+                 "flash_fwd_wgmma_kernel": fwd,
+                 "flash_bwd_dq_wgmma_kernel": bwd,
+                 "flash_bwd_dkdv_wgmma_kernel": bwd,
+                 "xent_local_stats": xent, "xent_local_stats_bwd": xent})
     Vl = cfg.padded_vocab() // tp
-    return want, {m * Vl: ranks // tp for m in range(tp)}
+    return want, {m * Vl: xent // tp for m in range(tp)}
 
 
 def held_curves(what: str, got, want, first: float = CURVE_RTOL_FIRST):
@@ -3302,6 +3344,315 @@ def check_reference_deepseek_mesh(dev, steps: int = 2):
     if not err <= REF_TRAIN_RTOL or not all(r[1] > 0 for r in runs[dev]):
         raise AssertionError(f"reduced {DEEPSEEK} train on {DEEPSEEK_MESH}: "
                              f"card {runs[dev]} vs CPU {runs['cpu']}")
+
+
+# deepseek-v3-671b (slice 25): MLA with a q LoRA (rank 1536) at 128 heads,
+# an MoE of 256 routed experts top-8 and one shared, and multi-token
+# prediction (MTP) in the training loss. One of its MoE layers is 11.5 B
+# params, so it runs as depth cuts at full width: served at 4 layers (3
+# dense, then 1 MoE: 15.80 B params with the MTP module, which serving
+# leaves unread; 31.6 GB in bf16), and trained at one MLA + dense layer
+# plus the MTP module (3.12 B params: its leading layer kind and its MTP
+# head), ZeRO at 1 x 1 and on (1, 2)
+DSV3 = "deepseek-v3-671b"
+DSV3_SERVE_LAYERS = 4
+DSV3_TRAIN_CUT = dict(num_layers=1, first_dense_layers=0, num_experts=0)
+DSV3_REQUESTS, DSV3_GEN = 4, 16
+DSV3_STEPS, DSV3_PLAIN_STEPS = 3, 2
+# the training cut's sequence, the train phases' TRAIN_S
+DSV3_TRAIN_S = TRAIN_S
+DSV3_MESH, DSV3_MESH_STEPS = (1, 2), 2
+DSV3_ATTN = "flash_attention (deepseek-v3 MLA, 128 heads)"
+DSV3_TRAIN_FWD = "flash_attention (deepseek-v3 MLA, 128 heads, training)"
+DSV3_TRAIN_BWD = "flash_attention_bwd (deepseek-v3 MLA, 128 heads)"
+DSV3_TP_FWD = "flash_attention (deepseek-v3 MLA, tp=2 64 heads, training)"
+DSV3_TP_BWD = "flash_attention_bwd (deepseek-v3 MLA, tp=2 64 heads)"
+DSV3_XENT = " (deepseek-v3 vocab)"
+DSV3_SHARD = " (deepseek-v3 tp=2 vocab shard)"
+
+
+def dsv3_vocab() -> int:
+    """deepseek-v3's padded vocabulary, the train logits' columns."""
+    from repro_torch.configs.registry import get_config
+    return get_config(DSV3).padded_vocab()
+
+
+def check_deepseek_v3_kernels(dev):
+    """The kernels of deepseek-v3's paths at their shapes: MLA's attention
+    forward at all 128 heads for a 512-token prefill (q and k (1, 512, 128,
+    192), v (1, 512, 128, 128) bf16, causal) and for a training layer (q
+    and k (2, 2048, 128, 192), v (2, 2048, 128, 128): DSV3_TRAIN_S), its
+    backward there; the same training forward and backward at a tp = 2
+    rank's 64 heads; the bf16 xent forward and backward over the whole
+    padded vocabulary (4,096 x 129,280) and on the rank-1 shard (4,096 x
+    64,640 at offset 64,640).
+    Each against its plain version and timed beside its library call
+    (SDPA on the first backend that takes v narrower than q and k,
+    ``F.cross_entropy``)."""
+    H, tp = 128, DSV3_MESH[1]
+    serve_row = {"name": DSV3_ATTN, **ATTENTION_ROW}
+    serve_row.update(attention_row(dev, 1, 512, H, H, 192, SEED + 51,
+                                   Dv=128))
+    S = DSV3_TRAIN_S
+    fwd = {"name": DSV3_TRAIN_FWD, **ATTENTION_ROW}
+    fwd.update(attention_row(dev, TRAIN_B, S, H, H, 192, SEED + 52, Dv=128))
+    bwd = check_flash_attention_bwd(dev, H=H, KV=H, seed=SEED + 53,
+                                    name=DSV3_TRAIN_BWD, D=192, Dv=128, S=S)
+    tp_fwd = {"name": DSV3_TP_FWD, **ATTENTION_ROW}
+    tp_fwd.update(attention_row(dev, TRAIN_B, S, H // tp, H // tp, 192,
+                                SEED + 54, Dv=128))
+    tp_bwd = check_flash_attention_bwd(dev, H=H // tp, KV=H // tp,
+                                       seed=SEED + 55, name=DSV3_TP_BWD,
+                                       D=192, Dv=128, S=S)
+    V, N = dsv3_vocab(), TRAIN_B * S
+    return (serve_row, fwd, bwd, tp_fwd, tp_bwd,
+            *check_xent(dev, Vl=V, label=DSV3_XENT, N=N),
+            *check_xent(dev, Vl=V // tp, offset=V // tp, label=DSV3_SHARD,
+                        N=N))
+
+
+def check_reference_deepseek_v3(dev, steps: int = 2):
+    """Reduced deepseek-v3 (float32: MLA with a q LoRA at the reduced (96,
+    64) on the float32 CUDA-core kernels, an MoE of 4 experts top-2 and a
+    shared one, MTP) on the card against the CPU's plain path from the same
+    weights, at 1 x 1 and on ``DSV3_MESH``: four requests served on the
+    monolithic engine, tokens identical and every first-token logit within
+    1e-3; then ``steps`` ZeRO train steps from the same weights and
+    batches, each step's loss, lm_loss, aux_loss and mtp_loss within
+    REF_TRAIN_RTOL. Launches exact: per rank and step each layer's
+    attention forward and its remat rerun and the MTP block's one, the
+    backward once a layer and once for the MTP block, the xent kernels
+    twice each way (the LM and MTP losses)."""
+    from repro_torch import api
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.placement import Placement
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.steps import make_train_step
+
+    phase(f"reference (reduced {DSV3} at 1 x 1 and on {DSV3_MESH}: served, "
+          f"then {steps} ZeRO train steps, card vs CPU plain path)")
+    cfg = get_config(DSV3).reduced()
+    state = build_model(cfg, MeshPlan.single_device(), seed=SEED,
+                        device="cpu").state_dict()
+    rng = np.random.default_rng(SEED + 56)
+    reqs = [(rng.integers(0, cfg.vocab_size, (k,)).astype(np.int32), g)
+            for k, g in ((37, 6), (100, 3), (5, 8), (64, 4))]
+    src = SyntheticLM(cfg.vocab_size, 2, 64, seed=SEED + 57)
+    batches = [{"tokens": src(step)} for step in range(steps)]
+    A, _ = layer_counts(cfg)
+    L = cfg.num_layers
+    keys = ("loss", "lm_loss", "aux_loss", "mtp_loss")
+    for shape in ((1, 1), DSV3_MESH):
+        ranks = int(np.prod(shape))
+        placement = (None if ranks == 1
+                     else Placement(("data", "model"), shape))
+        outs, logits = {}, {}
+        zero_serve_counts()
+        for d in ("cpu", dev):
+            with api.compile(cfg, mode="serve", backend="monolithic",
+                             params=state, mesh=placement, device=d,
+                             num_groups=2, group_size=1, max_prompt_len=128,
+                             max_new_tokens=8) as sess:
+                outs[d] = sess.generate(reqs)
+                logits[d] = first_token_logits(sess, reqs, d)
+        got = serve_counts()
+        # the card's prefills (4 generate, 4 first-token), float32 on the
+        # CUDA-core kernel; none on the CPU
+        n = ranks * A * 2 * len(reqs)
+        want = {"flash_attention": n, "flash_fwd_wgmma_kernel": 0,
+                "flash_decode": 0, "ssd_scan": 0, "ssd_scan_wgmma": 0}
+        same = same_tokens(outs["cpu"], outs[dev])
+        err = max((a.cpu() - b).abs().max().item()
+                  for a, b in zip(logits[dev], logits["cpu"]))
+        print(f"reduced {DSV3} float32 on {shape}: card tokens identical to "
+              f"the CPU's: {same}; first-token logits max abs err "
+              f"{err:.3e} (bound 1e-3 + 1e-3*|ref|); launches {got}")
+        if got != want or not same or not all(
+                torch.allclose(a.cpu(), b, rtol=1e-3, atol=1e-3)
+                for a, b in zip(logits[dev], logits["cpu"])):
+            raise AssertionError(f"reduced {DSV3} served on {shape}: card "
+                                 f"{outs[dev]} vs CPU {outs['cpu']}, "
+                                 f"launches {got} (expected {want})")
+        runs, counts = {}, {}
+        for d in ("cpu", dev):
+            zero_train_counts()
+            ts = make_train_step(cfg, MeshPlan(("data", "model"), shape),
+                                 device=d)
+            params = ts.shard_params_fn(state)
+            opt = ts.init_opt(params)
+            runs[d] = []
+            for batch in batches:
+                params, opt, m = ts.step_fn(params, opt, batch)
+                runs[d].append(tuple(float(m[k]) for k in keys))
+            counts[d] = train_counts()
+        step_want = dict.fromkeys(train_counts(), 0)
+        step_want.update({"flash_attention": (2 * L + 1) * ranks,
+                          "flash_bwd_dq_kernel": (L + 1) * ranks,
+                          "flash_bwd_dkdv_kernel": (L + 1) * ranks,
+                          "xent_local_stats": 2 * ranks,
+                          "xent_local_stats_bwd": 2 * ranks})
+        want = {"cpu": dict.fromkeys(counts["cpu"], 0),
+                dev: {k: steps * v for k, v in step_want.items()}}
+        err = max(abs(a - b) / abs(b) for got_, ref in
+                  zip(runs[dev], runs["cpu"]) for a, b in zip(got_, ref))
+        print(f"reduced {DSV3} on {shape}, {steps} ZeRO train steps: card "
+              f"{keys} {runs[dev]}, CPU {runs['cpu']}; max relative err "
+              f"{err:.3e} (bound {REF_TRAIN_RTOL}, float32); launches on "
+              f"the card {counts[dev]}")
+        if counts != want:
+            raise AssertionError(f"reduced {DSV3} train on {shape}: "
+                                 f"launches {counts}, expected {want}")
+        if not err <= REF_TRAIN_RTOL or not all(
+                r[2] > 0 and np.isfinite(r[3]) for r in runs[dev]):
+            raise AssertionError(f"reduced {DSV3} train on {shape}: card "
+                                 f"{runs[dev]} vs CPU {runs['cpu']}")
+
+
+def serve_deepseek_v3(dev):
+    """deepseek-v3-671b at full width cut to DSV3_SERVE_LAYERS = 4 layers
+    (3 dense, then one MoE of 256 experts top-8 and a shared one; the
+    port's seeded init drawn in bf16, each expert stack cast as it is
+    drawn), DSV3_REQUESTS requests of 64-512 prompt tokens and DSV3_GEN
+    new ones on the stage actors (2 stages), then the monolithic engine on
+    the same weights: each compile's static check PASS, launches exact
+    (per prefill one MLA attention forward a layer at 128 heads on the
+    tensor cores, 16 a run; no decode kernel: MLA decodes by absorbed
+    einsums over its latent cache), tokens identical, tok/s, peak memory,
+    and a device profile of the monolithic engine's first 2 requests. The
+    model is freed before it returns. Returns the actor run's launches."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.model_zoo import build_model
+    cfg = dataclasses.replace(get_config(DSV3), num_layers=DSV3_SERVE_LAYERS)
+    phase(f"serve ({DSV3}, full width cut to {DSV3_SERVE_LAYERS} of its 61 "
+          "layers, bf16, actors x 2 stages, then monolithic)")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, MeshPlan.single_device(), seed=SEED, device=dev,
+                        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    mtp = sum(p.numel() for name, p in model.named_parameters()
+              if name.startswith("mtp_"))
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"seeded {n:,} params ({mtp:,} of them the MTP module, which "
+          f"serving leaves unread; {held / 2**30:.2f} GiB in bf16) in "
+          f"{time.perf_counter() - t0:.1f} s; peak memory of the init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    requests = serve_requests(cfg, n_req=DSV3_REQUESTS,
+                              gens=(DSV3_GEN, DSV3_GEN))
+    geo = dict(num_groups=2, group_size=4, max_prompt_len=512,
+               max_new_tokens=DSV3_GEN, seed=SEED)
+    outs, counts, rates = {}, {}, {}
+    for backend in ("actors", "monolithic"):
+        sess = compile_serve(cfg, model, backend, **geo)
+        check = STATIC_CHECKS[-1]
+        print(f"{DSV3} {backend}: static check {check['verdict']}")
+        if check["verdict"] != "PASS":
+            raise AssertionError(f"{DSV3} {backend}: static check "
+                                 f"{check['verdict']}")
+        if backend == "actors":
+            print(sess.describe())
+            held_names = {name for st in sess.sstaged.stages
+                          for name, _ in st.params.named_parameters()}
+            if any("mtp" in name for name in held_names):
+                raise AssertionError(f"{DSV3}: a stage holds an MTP leaf")
+        outs[backend], counts[backend], _ = counted_run(
+            cfg, sess, requests, f"{DSV3} {backend}")
+        if counts[backend]["flash_fwd_wgmma_kernel"] != \
+                DSV3_SERVE_LAYERS * DSV3_REQUESTS:
+            raise AssertionError(f"{DSV3} {backend}: launches "
+                                 f"{counts[backend]}")
+        rates[backend] = sess.last_stats["tok_per_s"]
+        if backend == "monolithic":
+            profile_device(f"{DSV3} monolithic generate (requests 0-1)",
+                           lambda: sess.generate(requests[:2]), cpu=False)
+        closed(sess)
+    same = same_tokens(outs["actors"], outs["monolithic"])
+    print(f"{DSV3}: tokens identical on actors and monolithic: {same}; "
+          f"tok/s actors {rates['actors']:.2f}, monolithic "
+          f"{rates['monolithic']:.2f}")
+    if not same:
+        raise AssertionError(f"{DSV3}: actors and monolithic tokens differ")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["actors"]
+
+
+def train_deepseek_v3_mtp(dev):
+    """deepseek-v3-671b's MTP trained at full width, cut to one MLA +
+    dense layer and the MTP module (3.12 B params): ZeRO at 1 x 1 (bf16
+    compute over float32 masters and moments), DSV3_STEPS steps of
+    ``TRAIN_B x DSV3_TRAIN_S`` ``SyntheticLM`` tokens, every step's launches
+    held (the layer's attention forward and its remat rerun and the MTP
+    block's one at (192, 128) on the tensor cores, dq and dk/dv once each
+    for both, the xent kernels twice each way), finite losses and
+    ``mtp_loss``, wall, tokens/s and peak memory, one profiled step; the
+    same init and batches through the plain versions for
+    DSV3_PLAIN_STEPS steps, step 0's loss within CURVE_RTOL_FIRST; then
+    ZeRO on ``DSV3_MESH`` (64 heads and half the vocabulary a rank, the
+    MTP projection's rows split), DSV3_MESH_STEPS steps held to the 1 x 1
+    curve within CURVE_RTOL. Returns the 1 x 1 run's launches and the
+    mesh run's."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(DSV3), **DSV3_TRAIN_CUT)
+    from repro_torch.models.common import MeshPlan
+    from repro_torch.models.transformer import Transformer
+    with torch.device("meta"):
+        n = sum(p.numel() for p in Transformer(
+            cfg, MeshPlan.single_device()).parameters())
+    phase(f"train {DSV3} with MTP (full width, one MLA + dense layer and "
+          f"the MTP module, {n:,} params; "
+          f"ZeRO 1 x 1, bf16 compute, float32 masters and moments, "
+          f"{DSV3_STEPS} steps of {TRAIN_B} x {DSV3_TRAIN_S} tokens), "
+          f"{DSV3_PLAIN_STEPS} steps on the plain "
+          f"versions, then ZeRO on {DSV3_MESH}")
+    want, _ = train_want(cfg, 1, 1)
+    print(f"{DSV3}: expected launches a step {want}")
+    ts, params, opt, src, curve, total = train_steps(
+        dev, f"{DSV3} kernels", want, cfg=cfg, steps=DSV3_STEPS, falls=False,
+        zero=True, seq=DSV3_TRAIN_S)
+    batch = {"tokens": src(DSV3_STEPS)}
+    profile_device(f"{DSV3} train step", lambda: float(
+        ts.step_fn(params, opt, batch)[2]["loss"]), top=10)
+    del ts, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    with plain_versions():
+        *_, plain, _ = train_steps(
+            dev, f"{DSV3} plain", dict.fromkeys(train_counts(), 0), cfg=cfg,
+            steps=DSV3_PLAIN_STEPS, falls=False, zero=True,
+            seq=DSV3_TRAIN_S)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for step, ((lk, gk), (lp, gp)) in enumerate(zip(curve, plain)):
+        err, gerr = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+        print(f"{DSV3} step {step}: kernels (loss, grad_norm) {(lk, gk)}, "
+              f"plain {(lp, gp)}: relative err loss {err:.3e}"
+              + (f" (limit {CURVE_RTOL_FIRST})" if step == 0
+                 else " (not held)") + f", grad_norm {gerr:.3e} (not held)")
+        if step == 0 and err > CURVE_RTOL_FIRST:
+            raise AssertionError(f"{DSV3} step 0: the kernel path's loss "
+                                 f"{lk} left the plain path's {lp}")
+    ranks, tp = int(np.prod(DSV3_MESH)), DSV3_MESH[1]
+    want, offsets = train_want(cfg, ranks, tp)
+    res = train_steps(dev, f"{DSV3} mesh {DSV3_MESH}", want, cfg=cfg,
+                      shape=DSV3_MESH, steps=DSV3_MESH_STEPS, falls=False,
+                      want_offsets=offsets, zero=True, seq=DSV3_TRAIN_S)
+    got, mesh_total = res[4], res[5]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_curves(f"{DSV3} mesh {DSV3_MESH} vs 1 x 1", got,
+                curve[:DSV3_MESH_STEPS], first=CURVE_RTOL)
+    return total, mesh_total
 
 
 # the Mamba-2 phases: mamba2-370m trained on one device; then served and
@@ -6349,6 +6700,9 @@ def main() -> int:
     kernels += check_jamba_kernels(dev)
     kernels += check_ring_kernels(dev)
     kernels += check_frontend_mesh_kernels(dev)
+    phase(f"kernels ({DSV3}: MLA at 128 heads and a tp = 2 rank's 64, "
+          "its vocabulary and the rank-1 shard)")
+    kernels += check_deepseek_v3_kernels(dev)
     kernels[1]["paged_shape"] = check_paged_decode(dev)
     ssd_row = next(k for k in kernels if k["name"] == "ssd_scan")
     jamba_ssd = next(k for k in kernels if k["name"] == JAMBA_SSD)
@@ -6382,6 +6736,7 @@ def main() -> int:
     check_reference_ring(dev)
     check_reference_deepseek_mesh(dev)
     check_reference_frontend_mesh(dev)
+    check_reference_deepseek_v3(dev)
     served, threads_run = serve(dev, "qwen3-1.7b")
     threads_launches = dict(served)
     torch.cuda.empty_cache()
@@ -6418,6 +6773,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     ringed = serve_ring(dev)
     ring_meshed = serve_mesh_ring(dev)
+    dsv3_served = serve_deepseek_v3(dev)
     trained, curve = train(dev)
     torch.cuda.empty_cache()
     train_plain(dev, curve)
@@ -6434,6 +6790,9 @@ def main() -> int:
     whisper_trained, whisper_curve = train_whisper(dev)
     torch.cuda.empty_cache()
     whisper_mesh_trained = train_mesh_whisper(dev, whisper_curve)
+    torch.cuda.empty_cache()
+    dsv3_trained, dsv3_mesh_trained = train_deepseek_v3_mtp(dev)
+    torch.cuda.empty_cache()
     mamba_trained = train_mamba(dev)
     mamba_mesh_trained = train_mesh_mamba(dev)
     check_graph_reference(dev)
@@ -6505,10 +6864,42 @@ def main() -> int:
         frontend_rows[name] = {"launches": wtm[key][mask],
                                "launches_per_step":
                                    wtm[key][mask] // WHISPER_MESH_STEPS}
+    # deepseek-v3's rows: the serve run (actors, 4 layers), the one-layer
+    # MTP train run at 1 x 1 (DSV3_STEPS steps) and on DSV3_MESH (both
+    # ranks, DSV3_MESH_STEPS steps)
+    dt1, dtm = dsv3_trained, dsv3_mesh_trained
+    bwd_keys = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")
+    vl = dsv3_vocab() // DSV3_MESH[1]
+    dsv3_rows = {
+        DSV3_ATTN: {"launches": dsv3_served["flash_fwd_wgmma_kernel"]},
+        DSV3_TRAIN_FWD: {"launches": dt1["flash_fwd_wgmma_kernel"],
+                         "launches_per_step":
+                             dt1["flash_fwd_wgmma_kernel"] // DSV3_STEPS},
+        DSV3_TRAIN_BWD: {"launches_by_kernel": {k: dt1[k] for k in bwd_keys},
+                         "launches": min(dt1[k] for k in bwd_keys),
+                         "launches_per_step":
+                             min(dt1[k] for k in bwd_keys) // DSV3_STEPS},
+        DSV3_TP_FWD: {"launches": dtm["flash_fwd_wgmma_kernel"],
+                      "launches_per_step":
+                          dtm["flash_fwd_wgmma_kernel"] // DSV3_MESH_STEPS},
+        DSV3_TP_BWD: {"launches_by_kernel": {k: dtm[k] for k in bwd_keys},
+                      "launches": min(dtm[k] for k in bwd_keys),
+                      "launches_per_step":
+                          min(dtm[k] for k in bwd_keys) // DSV3_MESH_STEPS}}
+    for i, key in enumerate(("xent_local_stats", "xent_local_stats_bwd")):
+        dsv3_rows[key + DSV3_XENT] = {
+            "launches": dt1[key], "launches_per_step": dt1[key] // DSV3_STEPS}
+        dsv3_rows[key + DSV3_SHARD] = {
+            "launches": dtm["offsets"][i][vl],
+            "launches_by_offset": dtm["offsets"][i],
+            "launches_per_step": dtm["offsets"][i][vl] // DSV3_MESH_STEPS}
     for kr in kernels:
         name = kr["name"]
         if name in frontend_rows:
             kr.update(frontend_rows[name])
+            continue
+        if name in dsv3_rows:
+            kr.update(dsv3_rows[name])
             continue
         if name in (RING_DECODE, RING_WINDOW_ATTN, RING_WINDOW_DECODE):
             # the serve ring run: (ii)'s ring decodes, (i)'s windowed

@@ -229,12 +229,14 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
                dtype=torch.float32, scale: float = 1.0,
                device: Optional[torch.device] = None):
     """Normal(0, scale / sqrt(fan_in)) drawn from ``gen`` (on ``gen``'s
-    device). The draws differ from ``jax.random``'s: parity tests load the
+    device) in float32, scaled in place and cast to ``dtype``: one float32
+    copy of the leaf at a time, the values of ``(w * std).to(dtype)``.
+    The draws differ from ``jax.random``'s: parity tests load the
     reference's params through :mod:`repro_torch.models.convert`."""
     std = scale / math.sqrt(shape[in_axis])
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=device if device is not None else gen.device)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)
 
 
 def param(t: torch.Tensor) -> torch.nn.Parameter:

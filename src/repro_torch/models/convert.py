@@ -7,7 +7,10 @@ slot ``j`` whose leaves are stacked over periods, so layer
 ``n_pro + i*P + j`` is ``body[j][leaf][i]``; an encoder-decoder's
 ``enc_body`` (one block tree stacked over encoder layers: encoder layer
 ``i`` is ``enc_body[leaf][i]``, the port's ``enc_blocks.i``) and
-``enc_norm``, and its body blocks' ``ln_x`` and ``xattn``. Leaves arrive as
+``enc_norm``, and its body blocks' ``ln_x`` and ``xattn``; a config with
+multi-token prediction's ``mtp_norm_h``, ``mtp_norm_e``, ``mtp_proj`` and
+``mtp_block`` (one block tree, the port's ``mtp_block.<leaf>``, reference
+``:276-280``). Leaves arrive as
 numpy arrays (``jax.device_get`` of the reference's params); nothing here
 imports jax.
 """
@@ -59,8 +62,11 @@ def params_from_jax(np_tree: Mapping[str, Any],
     check_supported(cfg)
     flat: Dict[str, np.ndarray] = {}
     for k in ("embed", "unembed", "final_norm") + (
-            ("enc_norm",) if cfg.encoder_decoder else ()):
+            ("enc_norm",) if cfg.encoder_decoder else ()) + (
+            ("mtp_norm_h", "mtp_norm_e", "mtp_proj") if cfg.mtp else ()):
         flat[k] = np.asarray(np_tree[k])
+    if cfg.mtp:
+        _flatten(np_tree["mtp_block"], "mtp_block.", flat)
     for li, blk in enumerate(unstack_layers(np_tree, cfg)):
         _flatten(blk, f"blocks.{li}.", flat)
     for li in range(cfg.num_encoder_layers if cfg.encoder_decoder else 0):
@@ -74,7 +80,10 @@ def jax_leaves(cfg: ModelConfig) -> List[Tuple[Path, List[str]]]:
     list entries by index), each as its key path and the ``state_dict``
     names it holds: one name, or for a ``body`` leaf one per period, in
     period order, and for an ``enc_body`` leaf one per encoder layer (the
-    leaf stacks them)."""
+    leaf stacks them). MTP's leaves sort between ``final_norm`` and
+    ``prologue``: ``mtp_block``'s (sorted as a block's), ``mtp_norm_e``,
+    ``mtp_norm_h``, ``mtp_proj``. This is the order of every train step's
+    AdamW update and gradient norm."""
     check_supported(cfg)
     lay = stack_layout(cfg)
     n_pro, P = len(lay.prologue), len(lay.period_slots)
@@ -100,6 +109,11 @@ def jax_leaves(cfg: ModelConfig) -> List[Tuple[Path, List[str]]]:
                 for leaf in block(("attn", "dense"))]
         out.append((("enc_norm",), ["enc_norm"]))
     out.append((("final_norm",), ["final_norm"]))
+    if cfg.mtp:
+        out += [(("mtp_block", *leaf.split(".")), [f"mtp_block.{leaf}"])
+                for leaf in block(("attn", "dense"))]
+        out += [((n,), [n]) for n in ("mtp_norm_e", "mtp_norm_h",
+                                      "mtp_proj")]
     for i, kind in enumerate(lay.prologue):
         out += [(("prologue", i, *leaf.split(".")), [f"blocks.{i}.{leaf}"])
                 for leaf in block(kind)]

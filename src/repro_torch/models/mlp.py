@@ -66,17 +66,22 @@ class MoE(nn.Module):
             self.shared = DenseMLP(d, ff * cfg.num_shared_experts, **kw)
 
 
-def init_moe(gen: torch.Generator, cfg: ModelConfig) -> MoE:
+def init_moe(gen: torch.Generator, cfg: ModelConfig,
+             dtype=torch.float32) -> MoE:
     """The port's seeded MoE weights, the reference's distributions (its
     ``dense_init`` takes the fan-in from axis 0, so the expert stacks are
-    drawn at std ``1 / sqrt(E)``)."""
+    drawn at std ``1 / sqrt(E)``). Each expert stack is cast to ``dtype``
+    as it is drawn (the draws, their order and so the values are
+    ``dtype``'s cast of the float32 init's), so one float32 stack is
+    resident at a time, not the three; the router and the shared experts
+    stay float32 here (the block's cast takes them)."""
     d, ff, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     with torch.device("meta"):
         p = MoE(cfg)                            # shapes only; filled below
     p.router = param(dense_init(gen, (d, E), scale=0.1))
-    p.w_gate = param(dense_init(gen, (E, d, ff)))
-    p.w_up = param(dense_init(gen, (E, d, ff)))
-    p.w_down = param(dense_init(gen, (E, ff, d)))
+    p.w_gate = param(dense_init(gen, (E, d, ff), dtype=dtype))
+    p.w_up = param(dense_init(gen, (E, d, ff), dtype=dtype))
+    p.w_down = param(dense_init(gen, (E, ff, d), dtype=dtype))
     if cfg.num_shared_experts:
         p.shared = init_dense_mlp(gen, d, ff * cfg.num_shared_experts)
     return p

@@ -25,7 +25,11 @@ classic loop), not the stage slices. A hybrid (jamba: Mamba-2 layers with
 a dense MLP or an MoE after the mixer, ``ssm``/``dense`` and
 ``ssm``/``moe``, one attention layer in 8) is served through the stage
 slices, on one device and on a mesh; training it raises
-(:func:`check_trainable`, ROADMAP Queue 1 item 13).
+(:func:`check_trainable`, ROADMAP Queue 1 item 22). A config with
+multi-token prediction (deepseek-v3: ``cfg.mtp``) holds the MTP module
+beside the stack (``mtp_norm_h``, ``mtp_norm_e``, ``mtp_proj``,
+``mtp_block``), which only the training loss reads (:func:`mtp_loss` on
+one device, MTP's segments of :func:`mesh_loss_program` on a mesh).
 The reference stacks each period slot's params over periods and scans them;
 here a model is an ``nn.Module`` holding a flat ``blocks`` list in layer
 order, and :mod:`repro_torch.models.convert` maps the reference's stacked
@@ -56,7 +60,7 @@ import copy
 import dataclasses
 import math
 from types import SimpleNamespace
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -128,11 +132,11 @@ def stack_layout(cfg: ModelConfig) -> StackLayout:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this package cannot build yet."""
-    missing = ["MTP"] if cfg.mtp else []
+    """Raise for what this package cannot build yet: a layer kind outside
+    :data:`SUPPORTED_KINDS`."""
     kinds = set(stack_layout(cfg).layer_kinds())
-    missing += [f"{k}/{m} layers" for (k, m) in sorted(kinds)
-                if (k, m) not in SUPPORTED_KINDS]
+    missing = [f"{k}/{m} layers" for (k, m) in sorted(kinds)
+               if (k, m) not in SUPPORTED_KINDS]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
@@ -246,7 +250,11 @@ class Transformer(nn.Module):
     """The whole model: ``embed (Vp, d)``, ``blocks``, ``final_norm``,
     ``unembed (d, Vp)`` — float32 params, as the reference keeps them; an
     encoder-decoder also ``enc_blocks`` (``num_encoder_layers`` attn/dense
-    blocks) and ``enc_norm``."""
+    blocks) and ``enc_norm``; a config with multi-token prediction
+    (``cfg.mtp``, deepseek-v3) also its module (reference
+    ``transformer.py:276-280``): ``mtp_norm_h`` and ``mtp_norm_e`` (d,),
+    ``mtp_proj (2d, d)`` and ``mtp_block``, an attn/dense block (MLA when
+    the config says so). Only the training loss reads them."""
 
     def __init__(self, cfg: ModelConfig, plan: MeshPlan, device=None,
                  dtype=torch.float32):
@@ -267,6 +275,11 @@ class Transformer(nn.Module):
                 Block(cfg, plan, device=device, dtype=dtype)
                 for _ in range(cfg.num_encoder_layers))
             self.enc_norm = param(torch.ones((d,), **kw))
+        if cfg.mtp:
+            self.mtp_norm_h = param(torch.ones((d,), **kw))
+            self.mtp_norm_e = param(torch.ones((d,), **kw))
+            self.mtp_proj = param(torch.empty((2 * d, d), **kw))
+            self.mtp_block = Block(cfg, plan, device=device, dtype=dtype)
 
 
 def cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -285,7 +298,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, plan: MeshPlan,
                kind: str, mlp_kind: str, dtype=torch.float32,
                cross: bool = False) -> Block:
     """One layer's seeded weights, drawn in float32 and cast to ``dtype``
-    as :func:`cast_copy` casts them."""
+    as :func:`cast_copy` casts them; an MoE's expert stacks are cast leaf
+    by leaf as they are drawn (:func:`~repro_torch.models.mlp.init_moe`),
+    the same values without the block's float32 copy (deepseek-v3's three
+    stacks are 15.0 GB each in float32)."""
     with torch.device("meta"):
         blk = Block(cfg, plan, kind=(kind, mlp_kind),  # shapes; filled below
                     cross=cross)
@@ -302,7 +318,7 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, plan: MeshPlan,
         return cast_copy(blk, dtype)
     blk.ln2 = param(torch.ones((cfg.d_model,), device=gen.device))
     if mlp_kind == "moe":
-        blk.moe = init_moe(gen, cfg)
+        blk.moe = init_moe(gen, cfg, dtype=dtype)
     else:
         blk.mlp = init_dense_mlp(gen, cfg.d_model, cfg.d_ff)
     return cast_copy(blk, dtype)
@@ -315,10 +331,13 @@ def init_model(cfg: ModelConfig, plan: MeshPlan, seed: int = 0,
     ``init_model``; the draws differ (``torch.Generator`` vs
     ``jax.random``), and so do a CPU's and a card's. Every leaf is drawn in
     float32; ``dtype`` (None: float32) casts each block to that dtype as it
-    is built (:func:`cast_copy`): the values a later cast would give,
-    without a whole float32 model on the device (deepseek-v2-lite's 15.7 B
-    params are 62.8 GB in float32; the largest float32 transient is then
-    one MoE layer, 2.3 GB)."""
+    is built (:func:`cast_copy`), and an MoE's expert stacks each as it is
+    drawn: the values a later cast would give, without a whole float32
+    model on the device (deepseek-v2-lite's 15.7 B params are 62.8 GB in
+    float32; the largest float32 transient is then one expert stack, 15.0
+    GB for deepseek-v3). A config with ``mtp`` draws its MTP module last,
+    after every other leaf, so the other leaves' draws are those of the
+    same config without it."""
     device = resolve_device(device)
     dtype = torch.float32 if dtype is None else dtype
     gen = torch.Generator(device=device)
@@ -337,6 +356,12 @@ def init_model(cfg: ModelConfig, plan: MeshPlan, seed: int = 0,
             init_block(gen, cfg, plan, "attn", "dense", dtype=dtype)
             for _ in range(cfg.num_encoder_layers))
         model.enc_norm = param(torch.ones((d,), device=device, dtype=dtype))
+    if cfg.mtp:
+        model.mtp_norm_h = param(torch.ones((d,), device=device, dtype=dtype))
+        model.mtp_norm_e = param(torch.ones((d,), device=device, dtype=dtype))
+        model.mtp_proj = param(dense_init(gen, (2 * d, d), dtype=dtype))
+        model.mtp_block = init_block(gen, cfg, plan, "attn", "dense",
+                                     dtype=dtype)
     return model
 
 
@@ -663,23 +688,31 @@ def block_specs(cfg: ModelConfig, plan: MeshPlan, kind: Kind,
     return out
 
 
-#: the model axis component of the top-level parameters
+#: the model axis component of the top-level parameters; MTP's projection
+#: is row-parallel (its output P(sum), reference ``transformer.py:306-309``)
 _TOP_SPECS = {"embed": "S(0)", "unembed": "S(1)", "final_norm": "B",
-              "enc_norm": "B"}
+              "enc_norm": "B", "mtp_norm_h": "B", "mtp_norm_e": "B",
+              "mtp_proj": "S(0)"}
+_MTP_LEAVES = ("mtp_norm_h", "mtp_norm_e", "mtp_proj")
 
 
 def model_specs(cfg: ModelConfig, plan: MeshPlan) -> Dict[str, NdSbp]:
     """Every parameter's NdSbp, by its ``state_dict`` name
     (``repro/models/transformer.py:284-310``): the embedding vocab-parallel
     (S(0)), the head column-parallel (S(1)), the blocks by
-    :func:`block_specs`, replicated over the data axes."""
+    :func:`block_specs`, MTP's norms replicated, its projection S(0) and
+    its block an attn/dense block's, replicated over the data axes."""
     out = {n: _spec(plan, c) for n, c in _TOP_SPECS.items()
-           if n != "enc_norm" or cfg.encoder_decoder}
+           if (n != "enc_norm" or cfg.encoder_decoder)
+           and (n not in _MTP_LEAVES or cfg.mtp)}
     for li, kind in enumerate(stack_layout(cfg).layer_kinds()):
         out.update({f"blocks.{li}.{k}": v for k, v in block_specs(
             cfg, plan, kind, cross=is_cross(cfg, li)).items()})
     for li in range(cfg.num_encoder_layers if cfg.encoder_decoder else 0):
         out.update({f"enc_blocks.{li}.{k}": v for k, v in block_specs(
+            cfg, plan, ("attn", "dense")).items()})
+    if cfg.mtp:
+        out.update({f"mtp_block.{k}": v for k, v in block_specs(
             cfg, plan, ("attn", "dense")).items()})
     return out
 
@@ -689,8 +722,11 @@ def spec_of(name: str, cfg: ModelConfig, plan: MeshPlan) -> NdSbp:
     stage's slice of it (``blocks.<i>.<leaf>``, ``embed``, ...). A block's
     kind is its own, read from its leaf (``ssm.*``, ``moe.*`` or
     ``attn.*``/``mlp.*``; ``ln1`` and ``ln2`` are replicated in any), since
-    a stage's slice renumbers its blocks from 0."""
+    a stage's slice renumbers its blocks from 0. ``mtp_block.<leaf>`` is
+    an attn/dense block's."""
     parts = name.split(".")
+    if parts[0] == "mtp_block":
+        return block_specs(cfg, plan, ("attn", "dense"))[".".join(parts[1:])]
     if parts[0] in ("blocks", "enc_blocks"):
         kind = {"ssm": ("ssm", "none"), "moe": ("attn", "moe")}.get(
             parts[2], ("attn", "dense"))
@@ -849,6 +885,42 @@ def batch_tensors(batch, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def mtp_targets(labels):
+    """Multi-token prediction's labels and weights from the LM labels (B,
+    S) (reference ``transformer.py:450-455``): position t predicts the
+    token two ahead, ``labels[:, t + 1]``; the last position repeats the
+    last label at weight 0, so the loss is a mean over B x (S - 1) rows."""
+    ones = torch.ones(labels[:, 1:].shape, dtype=torch.float32,
+                      device=labels.device)
+    return (torch.cat([labels[:, 1:], labels[:, -1:]], dim=1),
+            torch.cat([ones, torch.zeros_like(ones[:, :1])], dim=1))
+
+
+def mtp_concat(x, e, w_h, w_e, eps: float):
+    """MTP's input (reference ``:437-440``): the final-normed hidden ``x``
+    normed again by ``w_h``, beside the next tokens' embedding ``e`` normed
+    by ``w_e``, (B, S, 2d) in ``x``'s dtype."""
+    return torch.cat([rms_norm(x, w_h.to(x.dtype), eps),
+                      rms_norm(e.to(x.dtype), w_e.to(x.dtype), eps)], dim=-1)
+
+
+def mtp_loss(model: Transformer, x, labels, positions, cfg: ModelConfig,
+             plan: MeshPlan):
+    """The MTP head's loss on one device (reference ``:434-455``): from the
+    FINAL-normed hidden ``x`` and the next tokens' embedding, the
+    concatenation's projection ``mtp_proj``, one attn/dense block
+    (``mtp_block``, not rematerialised, its aux dropped), then the
+    weighted cross-entropy over the shared head ``unembed`` against
+    :func:`mtp_targets`, with no final norm in between."""
+    e = embed_tokens(model.embed, labels, plan)
+    hm = mtp_concat(x, e, model.mtp_norm_h, model.mtp_norm_e,
+                    cfg.norm_eps) @ model.mtp_proj.to(x.dtype)
+    hm, _, _ = apply_block(model.mtp_block, hm, cfg, plan, "attn", "dense",
+                           positions)
+    targets, weights = mtp_targets(labels)
+    return lm_loss(model.unembed, hm, targets, weights, plan, cfg)
+
+
 def forward_loss(model: Transformer, batch, cfg: ModelConfig,
                  plan: MeshPlan, remat: bool = True):
     """Training loss on one device of a dense, SSM, MLA + MoE,
@@ -859,8 +931,9 @@ def forward_loss(model: Transformer, batch, cfg: ModelConfig,
     (B, enc_len, d)`` to the tokens (its decoder tokens take no sinusoid
     here, as in the reference). Returns ``(loss, metrics)`` with metrics
     ``lm_loss``, ``aux_loss`` (the routers' summed load-balance loss; 0
-    without a router) and ``loss`` = ``lm_loss + router_aux_weight *
-    aux_loss`` (``:457``)."""
+    without a router), with ``cfg.mtp`` ``mtp_loss`` (:func:`mtp_loss`),
+    and ``loss`` = ``lm_loss + mtp_weight * mtp_loss + router_aux_weight
+    * aux_loss``, summed in that order (``:429-458``)."""
     check_supported(cfg)
     dev = model.embed.device
     bt = batch_tensors(batch, cfg, dev)
@@ -878,6 +951,10 @@ def forward_loss(model: Transformer, batch, cfg: ModelConfig,
     x = rms_norm(x, model.final_norm.to(x.dtype), cfg.norm_eps)
     loss = lm_loss(model.unembed, x, labels, weights, plan, cfg)
     metrics = {"lm_loss": loss, "aux_loss": aux}
+    if cfg.mtp:
+        metrics["mtp_loss"] = mtp_loss(model, x, labels, positions, cfg,
+                                       plan)
+        loss = loss + cfg.mtp_weight * metrics["mtp_loss"]
     loss = loss + cfg.router_aux_weight * aux
     metrics["loss"] = loss
     return loss, metrics
@@ -888,25 +965,38 @@ def forward_loss(model: Transformer, batch, cfg: ModelConfig,
 # collectives
 # ---------------------------------------------------------------------------
 
+def next_token_targets(labels):
+    """The next-token loss's labels and weights: the labels themselves,
+    each at weight 1."""
+    return labels, torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+
+
 def loss_steps(h: str, plan: MeshPlan, out: str = "loss",
-               labels: str = "tokens") -> List[Step]:
+               labels: str = "tokens",
+               targets: Callable = next_token_targets) -> List[Step]:
     """The vocab-parallel ``lm_loss`` as program steps, from the final
     hidden ``h`` (model-replicated, after its "f") and the inputs
     ``unembed`` (this rank's ``S(1)`` columns) and ``labels`` (``tokens``,
     whose labels are ``tokens[:, 1:]``, or an embed frontend's ``labels``
-    themselves) to ``out``:
+    themselves) to ``out``, against ``targets`` of those labels (labels
+    and weights: :func:`next_token_targets`, or :func:`mtp_targets` for
+    the MTP head's loss; the internal names carry ``out``, so both losses
+    fit one program):
     the xent kernel's stats at the rank's vocab offset
     (:func:`shard_stats`), ``m`` held fixed through a pmax (no transpose),
     ``s`` rescaled by ``exp(m - m_g)`` and psummed with ``z`` as "g"s, so
     every rank computes the whole ``log s_g + m_g - z_g`` over its rows
     (``repro/models/transformer.py:326-345``). At tp = 1 the stats of the
     one shard, as :func:`lm_loss`."""
-    m, s, z = (INTERNAL + n for n in ("m", "s", "z"))
+    tag = INTERNAL + out.lstrip(INTERNAL) + "."
+    m, s, z = (tag + n for n in ("m", "s", "z"))
     cut = 1 if labels == "tokens" else 0
-    steps = [Step(lambda hv, U, t: shard_stats(U, hv, t[:, cut:], plan),
+    steps = [Step(lambda hv, U, t: shard_stats(U, hv, targets(t[:, cut:])[0],
+                                               plan),
                   (h, "unembed", labels), (m, s, z))]
     if plan.tp > 1:
-        m_g, s_r = INTERNAL + "m_g", INTERNAL + "s_r"
+        m_g, s_r = tag + "m_g", tag + "s_r"
         steps += [
             Step(lambda v: M.pmax(v, plan.model_axis), (m,), (m_g,),
                  collective=True),
@@ -916,10 +1006,10 @@ def loss_steps(h: str, plan: MeshPlan, out: str = "loss",
             branch_psum_step(z, z + ".sum", plan)]
         s, m, z = s_r + ".sum", m_g, z + ".sum"
 
-    def loss(s_g, m_g, z_g):
+    def loss(s_g, m_g, z_g, t):
         tok = torch.log(s_g) + m_g - z_g       # -log softmax[label]
-        return weighted_mean(tok, torch.ones_like(tok))
-    return steps + [Step(loss, (s, m, z), (out,))]
+        return weighted_mean(tok, targets(t[:, cut:])[1])
+    return steps + [Step(loss, (s, m, z, labels), (out,))]
 
 
 def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
@@ -936,10 +1026,12 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
     ``state_dict`` name, this rank's shard under :func:`model_specs`;
     outputs ``loss`` (this rank's total, the data
     axes' mean is the step's), ``lm_loss`` (its weighted-mean
-    cross-entropy) and ``aux_loss`` (the routers' load-balance losses
-    summed in layer order, float32; 0 without a router), with ``loss =
-    lm_loss + router_aux_weight * aux_loss`` as in the reference's
-    ``forward_loss`` (``repro/models/transformer.py:457``). Per block, as
+    cross-entropy), ``aux_loss`` (the routers' load-balance losses
+    summed in layer order, float32; 0 without a router) and, with
+    ``cfg.mtp``, ``mtp_loss`` (the MTP head's, after the loss's segments),
+    with ``loss = lm_loss + mtp_weight * mtp_loss + router_aux_weight *
+    aux_loss`` as in the reference's ``forward_loss``
+    (``repro/models/transformer.py:429-458``). Per block, as
     the reference's ``apply_block`` (``:146-210``): the norm,
     "f" (:func:`~repro_torch.models.common.grad_sync_step`), attention on
     the rank's heads (GQA, or MLA), the branch psum "g"
@@ -1027,14 +1119,14 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
         return ns
 
     def branch(fn, kind: Kind, prefix: str, b: str, h: str, outs,
-               extra=(), cross: bool = False):
+               extra=(), cross: bool = False, rm: bool = remat):
         """A local step of ``fn(sub-module, h, *extra)``: the block's leaves
         under ``prefix`` gathered into the sub-module the forward takes."""
         names = [k[len(prefix):] for k in specs[kind, cross]
                  if k.startswith(prefix)]
         n = len(names)
         local(lambda hv, *ws: fn(module(names, ws[:n]), hv, *ws[n:]),
-              (f(h), *[b + prefix + m for m in names], *extra), outs)
+              (f(h), *[b + prefix + m for m in names], *extra), outs, rm)
 
     def attention(p, h, causal=True):
         positions = torch.arange(h.shape[1], device=h.device)
@@ -1052,6 +1144,22 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
     def name(n):
         return INTERNAL + n
 
+    dense = ("attn", "dense")
+
+    def dense_block(b, residual, tag, causal=True, rm=remat):
+        """The segments of the attn/dense block whose leaves are under
+        ``b``, from the ``residual`` terms (internal names tagged ``tag``):
+        the norm, attention, "g", the residual and norm, the MLP; returns
+        the next residual's terms (the block's output is their sum)."""
+        x, h, a = name(tag + "x"), name(tag + "h"), name(tag + "a")
+        local(add_norm, (*residual, b + "ln1"), (x, h), rm)
+        branch(lambda p, hv: attention(p, hv, causal=causal), dense,
+               "attn.", b, h, (a,), rm=rm)
+        xm, h2, mo = name(tag + "xm"), name(tag + "h2"), name(tag + "mlp")
+        local(add_norm, (x, g(a), b + "ln2"), (xm, h2), rm)
+        branch(dense_mlp_forward, dense, "mlp.", b, h2, (mo,), rm=rm)
+        return [xm, g(mo)]
+
     batch = batch_inputs(cfg)
     labels = "labels" if "labels" in batch else "tokens"
     enc = None
@@ -1060,19 +1168,9 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
         local(lambda E: E.to(cdt) + _sinusoid(E.shape[1], d, cdt, E.device),
               ("enc_embeds",), (name("enc_in"),), rm=False)
         res_e = [name("enc_in")]
-        dense = ("attn", "dense")
         for i in range(cfg.num_encoder_layers):
-            b = f"enc_blocks.{i}."
-            x, h, a = (name(f"enc_x{i}"), name(f"enc_h{i}"),
-                       name(f"enc_a{i}"))
-            local(add_norm, (*res_e, b + "ln1"), (x, h))
-            branch(lambda p, hv: attention(p, hv, causal=False), dense,
-                   "attn.", b, h, (a,))
-            xm, h2, mo = (name(f"enc_xm{i}"), name(f"enc_h2_{i}"),
-                          name(f"enc_mlp{i}"))
-            local(add_norm, (x, g(a), b + "ln2"), (xm, h2))
-            branch(dense_mlp_forward, dense, "mlp.", b, h2, (mo,))
-            res_e = [xm, g(mo)]
+            res_e = dense_block(f"enc_blocks.{i}.", res_e, f"enc{i}_",
+                                causal=False)
         local(add_norm, (*res_e, "enc_norm"), (name("enc_xf"), name("enc")))
         # one "f" for every cross branch: each rank's cotangent of the
         # encoder output is its heads' part, summed in the tape's order,
@@ -1120,20 +1218,49 @@ def mesh_loss_program(cfg: ModelConfig, plan: MeshPlan,
         residual = [xm, g(mo)]
     hf = name("hf")
     local(add_norm, (*residual, "final_norm"), (name("xf"), hf))
-    if aux is None:         # no router: the reference's aux is 0
+    routed = aux is not None
+    if not routed:          # no router: the reference's aux is 0
         aux = name("aux0")
         local(lambda t: torch.zeros((), dtype=torch.float32,
                                     device=t.device), (labels,), (aux,),
               rm=False)
-        steps += loss_steps(f(hf), plan, labels=labels)
-        lm = "loss"
-    else:
-        if tp > 1:
-            steps.append(aux_pmean_step(aux, aux + ".pmean", plan))
-            aux += ".pmean"
-        lm, w = name("lm"), cfg.router_aux_weight
-        steps += loss_steps(f(hf), plan, out=lm, labels=labels)
-        local(lambda lv, av: lv + w * av, (lm, aux), ("loss",), rm=False)
+    elif tp > 1:
+        steps.append(aux_pmean_step(aux, aux + ".pmean", plan))
+        aux += ".pmean"
+    lm = name("lm") if routed or cfg.mtp else "loss"
+    steps += loss_steps(f(hf), plan, out=lm, labels=labels)
+    total, outs, keys = lm, ("loss", "lm_loss", "aux_loss"), ["loss", lm, aux]
+
+    if cfg.mtp:
+        # MTP's segments (reference :434-455), none rematerialised: the
+        # next tokens' embedding and a "g"; the two norms and the
+        # concatenation (of hf, the FINAL-normed hidden); one "f"; the
+        # rank's 2d / tp columns of it times its mtp_proj rows, and a "g";
+        # the attn/dense block as the body's; an "f"; the loss against
+        # mtp_targets
+        cut = 1 if labels == "tokens" else 0
+        local(lambda E, t: embed_local(E, t[:, cut:], plan),
+              ("embed", labels), (name("e_next"),), rm=False)
+        local(lambda hv, ev, wh, we: mtp_concat(hv, ev, wh, we, eps),
+              (hf, g(name("e_next")), "mtp_norm_h", "mtp_norm_e"),
+              (name("hcat"),), rm=False)
+
+        def proj(hc, w):
+            if tp > 1:          # this rank's rows of the row-parallel proj
+                lo = M.axis_index(plan.model_axis) * w.shape[0]
+                hc = hc[..., lo:lo + w.shape[0]]
+            return hc @ w.to(cdt)
+        local(proj, (f(name("hcat")), "mtp_proj"), (name("hm0"),), rm=False)
+        res_m = dense_block("mtp_block.", [g(name("hm0"))], "mtp_", rm=False)
+        local(torch.add, res_m, (name("hm"),), rm=False)
+        mtp, mw = name("mtp"), cfg.mtp_weight
+        steps += loss_steps(f(name("hm")), plan, out=mtp, labels=labels,
+                            targets=mtp_targets)
+        total = name("lm_mtp") if routed else "loss"
+        local(lambda lv, mv: lv + mw * mv, (lm, mtp), (total,), rm=False)
+        outs, keys = outs + ("mtp_loss",), keys + [mtp]
+    if routed:
+        w = cfg.router_aux_weight
+        local(lambda lv, av: lv + w * av, (total, aux), ("loss",), rm=False)
     inputs = (*batch, *model_specs(cfg, plan))
-    return LocalProgram(steps, inputs, ("loss", "lm_loss", "aux_loss"),
-                        ("loss", lm, aux))
+    return LocalProgram(steps, inputs, outs, tuple(keys))

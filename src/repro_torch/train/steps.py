@@ -36,7 +36,9 @@ Every path trains dense GQA stacks and Mamba-2 (SSM) stacks alike, on one
 device and on any ``(data, model)`` mesh whose model axis splits the heads;
 on the card an SSM layer's scan runs the SSD kernels forward and backward
 (:class:`repro_torch.kernels.ssd_scan.kernel.SsdScan`). MLA + MoE stacks
-(deepseek-v2-lite) train on every path too, the attention backward at
+(deepseek-v2-lite, and deepseek-v3 with its multi-token prediction's
+loss and ``mtp_loss`` metric) train on every path too, the attention
+backward at
 MLA's ``(D, Dv)`` on the card and the routers' load-balance loss in the
 loss (``aux_loss``): on a mesh the heads and experts split over ``model``,
 the router's and MLA's latent leaves are model-summed, and the aux's
@@ -184,7 +186,9 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
     "labels": (B, S)}``; an encoder-decoder adds ``"enc_embeds": (B,
     enc_len, d)``. It returns ``(params, opt_state, metrics)``, the
     params and state updated in place; metrics ``lm_loss``, ``aux_loss``,
-    ``loss`` and ``grad_norm`` (pre-clip) are 0-d tensors on the device,
+    ``loss``, ``mtp_loss`` with multi-token prediction (deepseek-v3), and
+    ``grad_norm`` (pre-clip; :func:`metric_names`) are 0-d tensors on the
+    device,
     on a mesh averaged over its ranks in rank order (the reference's
     ``certified_mean``). On a mesh B must divide by dp."""
     if fsdp:
@@ -222,7 +226,8 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
         opt_state, gnorm = plain_dp_adamw_update(
             optimizer, named, grads, opt_state)
         metrics["grad_norm"] = gnorm
-        return params, opt_state, {k: v.detach() for k, v in metrics.items()}
+        return params, opt_state, {k: metrics[k].detach()
+                                   for k in metric_names(cfg)}
 
     def grad_fn(params: Transformer, batch: Dict[str, Any]):
         named = leaves(params)
@@ -232,7 +237,12 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan = MeshPlan(),
     return TrainStep(step_fn, init_params, init_opt, plan, device, grad_fn)
 
 
-METRICS = ("lm_loss", "aux_loss", "loss", "grad_norm")
+def metric_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    """A step's metrics in the reference's order (``train/steps.py:
+    159-160``): ``mtp_loss`` between ``loss`` and ``grad_norm`` for a
+    config with multi-token prediction."""
+    return ("lm_loss", "aux_loss", "loss",
+            *(("mtp_loss",) if cfg.mtp else ()), "grad_norm")
 
 
 def _or_zeros(grads: Dict[str, Any], like: Dict[str, torch.Tensor]):
@@ -267,14 +277,17 @@ def _rank_rows(mesh: M.DeviceMesh, plan: MeshPlan, device: torch.device,
     return rank_rows
 
 
-def _metrics(plan: MeshPlan, mesh: M.DeviceMesh, lm, aux, loss,
-             gnorm) -> Dict[str, torch.Tensor]:
-    """A rank's metrics (its loss program's ``lm_loss``, ``aux_loss`` and
-    ``loss``, and the step's ``grad_norm``) averaged over every rank in
-    rank order (inside spmd)."""
-    vals = torch.stack([lm, aux, loss, gnorm])
+def _metrics(cfg: ModelConfig, plan: MeshPlan, mesh: M.DeviceMesh,
+             program: LocalProgram, losses, gnorm) -> Dict[str, torch.Tensor]:
+    """A rank's metrics (its loss ``program``'s outputs ``losses``: ``loss``,
+    ``lm_loss``, ``aux_loss`` and ``mtp_loss`` where the config has it;
+    and the step's ``grad_norm``) averaged over every rank in rank order
+    (inside spmd), in :func:`metric_names` order."""
+    names = metric_names(cfg)
+    by_name = dict(zip(program.output_names, losses), grad_norm=gnorm)
+    vals = torch.stack([by_name[k] for k in names])
     vals = M.psum(vals, plan.axis_names) / mesh.size
-    return dict(zip(METRICS, vals.unbind()))
+    return dict(zip(names, vals.unbind()))
 
 
 def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
@@ -304,9 +317,10 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
         return [init_adamw(mine) for mine in params.ranks]
 
     def rank_grads(mine: Dict[str, torch.Tensor], rows: List[torch.Tensor]):
-        """This rank's losses ``(loss, lm_loss, aux_loss)`` and gradients,
-        the model-disjoint leaves summed over ``model``: the taped forward
-        and backward, then collectives outside autograd."""
+        """This rank's losses (the program's outputs: ``loss``, ``lm_loss``,
+        ``aux_loss``, and ``mtp_loss`` with MTP) and gradients, the
+        model-disjoint leaves summed over ``model``: the taped forward and
+        backward, then collectives outside autograd."""
         losses, tape = taped_forward(
             program, diff, [*rows, *(mine[n] for n in
                                      program.input_names[n_batch:])])
@@ -322,10 +336,10 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
 
         def rank_step(r: int):
             mine = params.ranks[r]
-            (loss, lm, aux), grads = rank_grads(mine, rows[r])
+            losses, grads = rank_grads(mine, rows[r])
             state, gnorm = plain_dp_adamw_update(
                 optimizer, mine, grads, opt_state[r], plan, replication)
-            return state, _metrics(plan, mesh, lm, aux, loss, gnorm)
+            return state, _metrics(cfg, plan, mesh, program, losses, gnorm)
 
         outs = M.spmd(rank_step, mesh)(ranks)
         return params, [o[0] for o in outs], outs[0][1]
@@ -334,8 +348,8 @@ def _mesh_train_step(cfg: ModelConfig, plan: MeshPlan,
         rows = rank_rows(batch)
 
         def rank(r: int):
-            (loss, _, _), grads = rank_grads(params.ranks[r], rows[r])
-            loss = M.psum(loss, plan.axis_names) / mesh.size
+            losses, grads = rank_grads(params.ranks[r], rows[r])
+            loss = M.psum(losses[0], plan.axis_names) / mesh.size
             return loss, data_mean(grads, plan)
 
         outs = M.spmd(rank, mesh)(ranks)
@@ -489,7 +503,7 @@ def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
         return [init_zero_flat(mine) for mine in params.ranks]
 
     def rank_grads(mine: Dict[str, torch.Tensor], rows: List[torch.Tensor]):
-        """This rank's losses ``(loss, lm_loss, aux_loss)`` and its rows'
+        """This rank's losses (the program's outputs) and its rows'
         gradients: the data mean, the model-disjoint leaves summed over
         ``model``. The gathers and their reduce-scatters run on the tape,
         outside autograd."""
@@ -508,10 +522,10 @@ def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
 
         def rank_step(r: int):
             mine = params.ranks[r]
-            (loss, lm, aux), grads = rank_grads(mine, rows[r])
+            losses, grads = rank_grads(mine, rows[r])
             state, gnorm = zero_adamw_update(
                 optimizer, mine, grads, opt_state[r], plan, replication)
-            return state, _metrics(plan, mesh, lm, aux, loss, gnorm)
+            return state, _metrics(cfg, plan, mesh, program, losses, gnorm)
 
         outs = M.spmd(rank_step, mesh)(ranks)
         return params, [o[0] for o in outs], outs[0][1]
@@ -520,8 +534,8 @@ def _zero_train_step(cfg: ModelConfig, plan: MeshPlan,
         rows = rank_rows(batch)
 
         def rank(r: int):
-            (loss, _, _), grads = rank_grads(params.ranks[r], rows[r])
-            return M.psum(loss, plan.axis_names) / mesh.size, grads
+            losses, grads = rank_grads(params.ranks[r], rows[r])
+            return M.psum(losses[0], plan.axis_names) / mesh.size, grads
 
         outs = M.spmd(rank, mesh)(ranks)
         return outs[0][0], gather_ranks([o[1] for o in outs],

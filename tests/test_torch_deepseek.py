@@ -637,14 +637,23 @@ def test_training_mla_and_moe_raises(env):
 @pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "ssm/moe"),
                                        ("deepseek-v3-671b", "MTP")])
 def test_hybrids_and_mtp_still_raise(arch, what):
-    """MTP is not built. A hybrid's ssm/moe layers are built and served
+    """A hybrid's ssm/moe layers are built and served
     (``tests/test_torch_jamba.py``); training them raises, naming the
-    kind and item 13."""
+    kind and item 13. MTP, which raised here until the port built it, is
+    built now: deepseek-v3 passes the check, and its reduced model's loss
+    reports ``mtp_loss`` (``tests/test_torch_deepseek_v3.py`` holds it to
+    the JAX package)."""
     check_supported(get_config(ARCH))
     cfg = get_config(arch)
     if cfg.mtp:
-        with pytest.raises(NotImplementedError, match=what):
-            check_supported(cfg)
+        check_supported(cfg)
+        small = dataclasses.replace(cfg.reduced(), vocab_size=1000)
+        model = build_model(small, PLAN, device="cpu")
+        loss, metrics = loss_fn(model, {"tokens": np.zeros((1, 9),
+                                                           np.int32)})
+        assert set(metrics) == {"lm_loss", "aux_loss", "mtp_loss", "loss"}
+        assert torch.isfinite(loss) and float(metrics[what.lower() +
+                                                     "_loss"]) > 0
         return
     check_supported(cfg)
     with pytest.raises(NotImplementedError,
@@ -658,3 +667,22 @@ def test_launcher_serves_deepseek_on_cpu(capsys):
                               "--gen", "4"])
     assert [len(o) for o in outs] == [4, 3, 4]
     assert "serve ok" in capsys.readouterr().out
+
+
+def test_launcher_serves_deepseek_v3_on_cpu(capsys):
+    """deepseek-v3-671b's reduced config (MLA with a q LoRA, MoE, and the
+    MTP module the serve path leaves unread) through the serve launcher."""
+    outs = launch_serve.main(["--arch", "deepseek-v3-671b", "--smoke",
+                              "--device", "cpu", "--requests", "3",
+                              "--prompt-len", "6", "--gen", "4"])
+    assert [len(o) for o in outs] == [4, 3, 4]
+    assert "serve ok" in capsys.readouterr().out
+
+
+def test_launcher_trains_deepseek_v3_on_cpu(capsys):
+    """The train launcher on reduced deepseek-v3-671b: the loss with its
+    MTP term falls over three steps."""
+    from repro_torch.launch import train as launch_train
+    launch_train.main(["--arch", "deepseek-v3-671b", "--smoke", "--device",
+                       "cpu", "--steps", "3", "--batch", "2", "--seq", "32"])
+    assert "(improved)" in capsys.readouterr().out

@@ -158,6 +158,8 @@ def test_flash_attention_refuses_other_head_dims(cuda):
 MLA_FLASH_CASES = [
     # B, Sq, Sk, H, KV, D, Dv, causal, window, q_offset, dtype
     (1, 512, 512, 16, 16, 192, 128, True, 0, 0, "bfloat16"),  # deepseek prefill
+    (1, 512, 512, 128, 128, 192, 128, True, 0, 0, "bfloat16"),  # deepseek-v3's
+    (1, 300, 300, 128, 128, 192, 128, True, 0, 0, "float32"),   # 128 heads
     (1, 150, 150, 4, 4, 192, 128, True, 0, 0, "bfloat16"),    # ragged Sq
     (2, 77, 77, 4, 2, 192, 128, False, 0, 0, "bfloat16"),     # not causal
     (1, 33, 97, 4, 4, 192, 128, True, 0, 64, "bfloat16"),     # ragged + offset
@@ -212,6 +214,8 @@ def test_flash_attention_refuses_unsupported_pairs(cuda, pair):
 MLA_BWD_CASES = [
     # B, S, H, KV, D, Dv, window, dtype
     (1, 512, 16, 16, 192, 128, 0, "bfloat16"),          # a deepseek layer's heads
+    (2, 1024, 128, 128, 192, 128, 0, "bfloat16"),       # deepseek-v3's 128
+    (1, 300, 128, 128, 192, 128, 0, "float32"),         # heads, ragged
     (1, 150, 4, 4, 192, 128, 0, "bfloat16"),            # ragged tiles
     (2, 77, 4, 2, 192, 128, 0, "bfloat16"),             # GQA, ragged
     (1, 200, 4, 4, 192, 128, 70, "bfloat16"),           # sliding window
@@ -735,6 +739,8 @@ XENT_CASES = [
     (7, 130, 130, "float32"),
     (256, 2048, 4096, "bfloat16"),
     (16, 151936, 0, "bfloat16"),                         # qwen3 vocab
+    (64, 129280, 0, "bfloat16"),                         # deepseek-v3 vocab
+    (64, 64640, 64640, "bfloat16"),                      # its shard at V/2
     (64, 75968, 75968, "bfloat16"),                      # its shard at V/2
     (512, 151936, 0, "bfloat16"),                # a bf16 graph microbatch
 ]

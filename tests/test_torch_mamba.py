@@ -241,13 +241,13 @@ def test_port_init_is_seeded_and_shaped_as_jax(env):
 def test_check_supported_admits_ssm_and_refuses_hybrids():
     """The port builds and serves a hybrid's SSM layers with their MLP
     (jamba, ``tests/test_torch_jamba.py``) and refuses to train them,
-    naming item 13; MTP is not built."""
+    naming item 13; deepseek-v3's multi-token prediction is built
+    (``tests/test_torch_deepseek_v3.py`` holds it to the JAX package)."""
     check_supported(get_config("mamba2-370m"))
     check_supported(get_config("jamba-v0.1-52b"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         make_train_step(get_config("jamba-v0.1-52b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="MTP"):
-        check_supported(get_config("deepseek-v3-671b"))
+    check_supported(get_config("deepseek-v3-671b"))
 
 
 def test_training_an_ssm_config_raises(env):

@@ -73,6 +73,30 @@ def check_params(got, want, grad_max):
                                    atol=LR, err_msg=f"{name} (noise)")
 
 
+def noise_in_a_step(noise, grads):
+    """Fold one step's gradients (a ``state_dict``) into ``noise``: each
+    element's flag, set where its gradient is rounding noise in this step
+    or an earlier one (below :data:`NOISE` of the step's largest |g|)."""
+    floor = NOISE * max(float(np32(g).__abs__().max()) for g in grads.values())
+    return {n: noise.get(n, False) | (np.abs(np32(g)) < floor)
+            for n, g in grads.items()}
+
+
+def check_params_by_step(got, want, noise):
+    """``got`` and ``want`` to :data:`PARAMS`, but the elements flagged in
+    ``noise`` (:func:`noise_in_a_step` over every step), which are held
+    within ``atol=LR``: AdamW moves an element by a share of lr that its
+    gradient's noise decides in the step where it is noise (about lr in a
+    first step, whatever the gradient's size), and the later steps carry
+    that move on."""
+    for name, w in want.items():
+        g, w = np32(got[name]), np32(w)
+        n = noise[name]
+        np.testing.assert_allclose(g[~n], w[~n], **PARAMS, err_msg=name)
+        np.testing.assert_allclose(g[n], w[n], rtol=PARAMS["rtol"], atol=LR,
+                                   err_msg=f"{name} (noise)")
+
+
 STEPS = 3
 B, S = 2, 32
 CACHE_LEN = 48          # the classic loop's: prompt 32 + gen 8 + 8
